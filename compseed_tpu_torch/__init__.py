@@ -1,14 +1,26 @@
 """PyTorch + CUDA port of compseed_tpu's default alignment path.
 
-The port owns only what ``compseed_tpu.ops`` does with JAX: the device
-FM-index, the compressive seeder and the banded Smith-Waterman DP.  The
-JAX-free host layers of ``compseed_tpu`` (index/, io/, pipeline/,
-native/, cpu/, options.py, utils.py) are imported unchanged, so SAM
-parity with the JAX package is a property of the device layers alone.
+A self-contained package: it imports ``torch``, numpy and the standard
+library, never ``jax`` and nothing of ``compseed_tpu``.
 
-Nothing here imports ``jax``.  Every public function and class takes an
-explicit torch device (or tensors that carry one); the CPU is used only
-when the caller passes CPU tensors, as the tests do.  The DP runs on a
-hand-written CUDA kernel (``csrc/bsw_extend.cu``) for CUDA tensors and
-on its plain PyTorch version for CPU tensors.
+  * ``compseed_tpu_torch.ops``      — the device layers: FM-index queries,
+    the compressive seeder (``seeder2``), the exact lockstep seeder it
+    reruns an overflowing chunk on (``smem``), and the banded
+    Smith-Waterman DP, whose kernels are hand-written CUDA
+    (``csrc/bsw_extend.cu``).
+  * ``compseed_tpu_torch.index``, ``io``, ``cpu``, ``pipeline``,
+    ``native``, ``options``, ``utils`` — the host layers, kept file for
+    file equal to the JAX package's (same names, the package name
+    changed), so SAM parity is a property of the device layers alone.
+  * ``compseed_tpu_torch.bench_input`` — the seeded benchmark genome and
+    reads.
+
+Every public function and class takes an explicit torch device (or
+tensors that carry one); the CPU is used only when the caller passes CPU
+tensors, as the tests do.  A kernel's wrapper launches the kernel for
+CUDA tensors and runs its plain PyTorch version for CPU tensors.
 """
+
+__version__ = "0.1.0"
+
+from compseed_tpu_torch.options import MemOptions  # noqa: F401

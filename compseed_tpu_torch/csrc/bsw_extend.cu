@@ -21,8 +21,24 @@
 // threads of a warp finish together.  Scores come from the full 5x5
 // matrix as mat[tchar*5 + qchar], so any scoring matrix is served.
 //
-// The launcher allocates nothing, launches on the caller's stream and
-// returns cudaGetLastError().  Built with nvcc for sm_90a into a shared
+// The per-pair routine is a template over the STORAGE type of the H/E
+// rows.  With int16_t it replaces the TPU kernel's state16 variant
+// (bsw_pallas.py::_kernel with sdt = int16): rows widen to int on load and
+// narrow on store, every comparison (the band shrink too) reads the
+// widened value and all arithmetic stays 32-bit, so nothing changes
+// numerically as long as every stored value fits 16 bits, which the
+// runner's gate (BswRunner._use16) proves per query-length class.  Rows
+// then take half the scratch bytes: a warp's 32 stores per column are one
+// 64-byte segment instead of 128 bytes.
+//
+// probe_add_one_kernel replaces the TPU package's toolchain probe
+// (compseed_tpu/ops/bsw.py, the kernel `k` run by pallas_available):
+// x + 1 on one (8, 128) int32 tile.  bsw_cuda.self_check launches it once
+// after the library is loaded and stops the run unless every element is
+// right; it is bound by launch latency alone (8 KB moved).
+//
+// The launchers allocate nothing, launch on the caller's stream and
+// return cudaGetLastError().  Built with nvcc for sm_90a into a shared
 // library with a plain C interface (compseed_tpu_torch/ops/bsw_cuda.py).
 // Compiled as C++ without nvcc, the same per-pair routine is exposed
 // through a host loop so its arithmetic can be checked on a CPU.
@@ -45,18 +61,20 @@ struct Gap {
 
 // One pair.  H/E hold columns 0..qlen of this pair at stride P:
 // H[j] = H(i-1, j-1) (the diagonal input of column j), E[j] = E(i, j).
+// S is the storage type of both rows (int32_t or int16_t).
+template <typename S>
 BSW_HD void extend_one(const int* mat, const int8_t* q, int qlen,
                        const int8_t* t, int tlen, int h0, int w,
-                       const Gap g, int* H, int* E, size_t P, int* out) {
+                       const Gap g, S* H, S* E, size_t P, int* out) {
   const int oe_del = g.o_del + g.e_del;
   const int oe_ins = g.o_ins + g.e_ins;
 
   // first row (ksw.c:395-397): h[j] = max(h0 - oe_ins - (j-1)*e_ins, 0)
-  H[0] = h0;
+  H[0] = (S)h0;
   E[0] = 0;
   for (int j = 1; j <= qlen; ++j) {
     const int v = h0 - oe_ins - (j - 1) * g.e_ins;
-    H[j * P] = v > 0 ? v : 0;
+    H[j * P] = (S)(v > 0 ? v : 0);
     E[j * P] = 0;
   }
 
@@ -80,7 +98,7 @@ BSW_HD void extend_one(const int* mat, const int8_t* q, int qlen,
     for (int j = beg_i; j < end_i; ++j) {
       int M = H[j * P];
       int e = E[j * P];
-      H[j * P] = h1;                      // H(i, j-1) for the next row
+      H[j * P] = (S)h1;                   // H(i, j-1) for the next row
       int qc = q[j];
       if (qc < 0 || qc > 4) qc = 4;
       M = M ? M + srow[qc] : 0;
@@ -94,7 +112,7 @@ BSW_HD void extend_one(const int* mat, const int8_t* q, int qlen,
       int tt = M - oe_del;
       tt = tt > 0 ? tt : 0;
       e -= g.e_del;
-      E[j * P] = e > tt ? e : tt;         // E(i+1, j)
+      E[j * P] = (S)(e > tt ? e : tt);    // E(i+1, j)
       tt = M - oe_ins;
       tt = tt > 0 ? tt : 0;
       f -= g.e_ins;
@@ -102,7 +120,7 @@ BSW_HD void extend_one(const int* mat, const int8_t* q, int qlen,
     }
     const bool empty = end_i <= beg_i;
     if (!empty) {
-      H[end_i * P] = h1;
+      H[end_i * P] = (S)h1;
       E[end_i * P] = 0;
     }
     if (m == 0) mj = -1;
@@ -151,11 +169,12 @@ BSW_HD void extend_one(const int* mat, const int8_t* q, int qlen,
 
 // Query and target lengths beyond the tile widths are clamped so no
 // thread reads or writes outside its row (the runner never passes them).
+template <typename S>
 BSW_HD void extend_pair(int p, int P, int Q, int T, const int* mat,
                         const int8_t* queries, const int* qlens,
                         const int8_t* targets, const int* tlens,
                         const int* h0s, const int* ws, const Gap g,
-                        int* out, int* hbuf, int* ebuf) {
+                        int* out, S* hbuf, S* ebuf) {
   int qlen = qlens[p], tlen = tlens[p];
   qlen = qlen < 0 ? 0 : (qlen > Q ? Q : qlen);
   tlen = tlen < 0 ? 0 : (tlen > T ? T : tlen);
@@ -165,6 +184,7 @@ BSW_HD void extend_pair(int p, int P, int Q, int T, const int* mat,
 }
 
 #ifdef __CUDACC__
+template <typename S>
 __global__ void bsw_extend_kernel(const int* __restrict__ mat,
                                   const int8_t* __restrict__ queries,
                                   const int* __restrict__ qlens,
@@ -172,8 +192,8 @@ __global__ void bsw_extend_kernel(const int* __restrict__ mat,
                                   const int* __restrict__ tlens,
                                   const int* __restrict__ h0s,
                                   const int* __restrict__ ws,
-                                  int* __restrict__ out, int* hbuf,
-                                  int* ebuf, int P, int Q, int T, Gap g) {
+                                  int* __restrict__ out, S* hbuf,
+                                  S* ebuf, int P, int Q, int T, Gap g) {
   __shared__ int smat[25];
   if (threadIdx.x < 25) smat[threadIdx.x] = mat[threadIdx.x];
   __syncthreads();
@@ -181,6 +201,37 @@ __global__ void bsw_extend_kernel(const int* __restrict__ mat,
   if (p >= P) return;
   extend_pair(p, P, Q, T, smat, queries, qlens, targets, tlens, h0s, ws, g,
               out, hbuf, ebuf);
+}
+
+template <typename S>
+int launch_extend(const int* mat25, const int8_t* queries, const int* qlens,
+                  const int8_t* targets, const int* tlens, const int* h0s,
+                  const int* ws, int* out, S* hbuf, S* ebuf, int P, int Q,
+                  int T, const Gap g, void* stream) {
+  if (P > 0) {
+    const int threads = 128;
+    const int blocks = (P + threads - 1) / threads;
+    bsw_extend_kernel<S><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        mat25, queries, qlens, targets, tlens, h0s, ws, out, hbuf, ebuf, P,
+        Q, T, g);
+  }
+  return (int)cudaGetLastError();
+}
+
+__global__ void probe_add_one_kernel(const int* __restrict__ x,
+                                     int* __restrict__ y, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) y[i] = x[i] + 1;
+}
+#else
+template <typename S>
+void host_extend(const int* mat25, const int8_t* queries, const int* qlens,
+                 const int8_t* targets, const int* tlens, const int* h0s,
+                 const int* ws, int* out, S* hbuf, S* ebuf, int P, int Q,
+                 int T, const Gap g) {
+  for (int p = 0; p < P; ++p)
+    extend_pair(p, P, Q, T, mat25, queries, qlens, targets, tlens, h0s, ws,
+                g, out, hbuf, ebuf);
 }
 #endif
 
@@ -195,14 +246,38 @@ extern "C" int bsw_extend_launch(const int* mat25, const int8_t* queries,
                                  int* ebuf, int P, int Q, int T, int o_del,
                                  int e_del, int o_ins, int e_ins, int zdrop,
                                  void* stream) {
-  if (P > 0) {
+  return launch_extend(mat25, queries, qlens, targets, tlens, h0s, ws, out,
+                       hbuf, ebuf, P, Q, T,
+                       Gap{o_del, e_del, o_ins, e_ins, zdrop}, stream);
+}
+
+// The same with int16 H/E rows: hbuf/ebuf are (Q + 1) * P int16 each.
+extern "C" int bsw_extend_launch_i16(const int* mat25, const int8_t* queries,
+                                     const int* qlens, const int8_t* targets,
+                                     const int* tlens, const int* h0s,
+                                     const int* ws, int* out, int16_t* hbuf,
+                                     int16_t* ebuf, int P, int Q, int T,
+                                     int o_del, int e_del, int o_ins,
+                                     int e_ins, int zdrop, void* stream) {
+  return launch_extend(mat25, queries, qlens, targets, tlens, h0s, ws, out,
+                       hbuf, ebuf, P, Q, T,
+                       Gap{o_del, e_del, o_ins, e_ins, zdrop}, stream);
+}
+
+// y[i] = x[i] + 1 for i < n.  Returns cudaGetLastError().
+extern "C" int probe_add_one_launch(const int* x, int* y, int n,
+                                    void* stream) {
+  if (n > 0) {
     const int threads = 128;
-    const int blocks = (P + threads - 1) / threads;
-    bsw_extend_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        mat25, queries, qlens, targets, tlens, h0s, ws, out, hbuf, ebuf, P,
-        Q, T, Gap{o_del, e_del, o_ins, e_ins, zdrop});
+    probe_add_one_kernel<<<(n + threads - 1) / threads, threads, 0,
+                           (cudaStream_t)stream>>>(x, y, n);
   }
   return (int)cudaGetLastError();
+}
+
+// The name of a CUDA error code, for the wrapper's messages.
+extern "C" const char* bsw_cuda_error_name(int code) {
+  return cudaGetErrorName((cudaError_t)code);
 }
 #else
 // The same per-pair routine on the host, for checking it without a card.
@@ -213,9 +288,18 @@ extern "C" void bsw_extend_host(const int* mat25, const int8_t* queries,
                                 int* ebuf, int P, int Q, int T, int o_del,
                                 int e_del, int o_ins, int e_ins,
                                 int zdrop) {
-  const Gap g{o_del, e_del, o_ins, e_ins, zdrop};
-  for (int p = 0; p < P; ++p)
-    extend_pair(p, P, Q, T, mat25, queries, qlens, targets, tlens, h0s, ws,
-                g, out, hbuf, ebuf);
+  host_extend(mat25, queries, qlens, targets, tlens, h0s, ws, out, hbuf,
+              ebuf, P, Q, T, Gap{o_del, e_del, o_ins, e_ins, zdrop});
+}
+
+extern "C" void bsw_extend_host_i16(const int* mat25, const int8_t* queries,
+                                    const int* qlens, const int8_t* targets,
+                                    const int* tlens, const int* h0s,
+                                    const int* ws, int* out, int16_t* hbuf,
+                                    int16_t* ebuf, int P, int Q, int T,
+                                    int o_del, int e_del, int o_ins,
+                                    int e_ins, int zdrop) {
+  host_extend(mat25, queries, qlens, targets, tlens, h0s, ws, out, hbuf,
+              ebuf, P, Q, T, Gap{o_del, e_del, o_ins, e_ins, zdrop});
 }
 #endif

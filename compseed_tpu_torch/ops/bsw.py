@@ -5,7 +5,10 @@ Exact integer semantics of ksw_extend2 (bwalib/ksw.c:380-479).
 row of a (P, Q) state, scanned over target rows, with the adaptive band,
 z-drop, early break and last-argmax ties reproduced by masks.  It runs
 for CPU tensors and is what the CUDA kernel (ops/bsw_cuda.py) is held
-against on the card.
+against on the card.  With ``state16=True`` it is the plain version of
+the kernel's int16-state variant: the H and E rows are kept in int16
+tensors between target rows and widened to int32 for each row's
+arithmetic.
 
 ``BswRunner`` is the engine the native tail calls: it pads pair batches
 to bucketed shapes, sorts pairs by target length (so threads of one warp
@@ -28,16 +31,22 @@ NEG = -(1 << 29)
 
 def _extend_core(o_del: int, e_del: int, o_ins: int, e_ins: int,
                  zdrop: int, mat: torch.Tensor, w, queries, qlens, targets,
-                 tlens, h0s) -> torch.Tensor:
+                 tlens, h0s, state16: bool = False,
+                 count_cells: bool = False):
     """DP body with the band already clamped per pair (w: (P,) int32).
 
     mat (5, 5); queries (P, Q) and targets (P, T) codes 0..4; qlens,
-    tlens, h0s (P,).  Returns (6, P) int32: score, qle, tle, gtle,
-    gscore, max_off."""
+    tlens, h0s (P,).  state16: store the H/E rows as int16 between rows
+    (no numeric change while every stored value fits 16 bits, which
+    ``BswRunner._use16`` proves).  Returns (6, P) int32: score, qle, tle,
+    gtle, gscore, max_off — and with count_cells also the number of band
+    cells these pairs need (the sum over rows and live pairs of the band
+    width), which is the work a per-pair kernel does on them."""
     P, Q = queries.shape
     T = targets.shape[1]
     dev = queries.device
     i32 = torch.int32
+    sdt = torch.int16 if state16 else i32      # storage type of the rows
     oe_del = o_del + e_del
     oe_ins = o_ins + e_ins
 
@@ -53,8 +62,8 @@ def _extend_core(o_del: int, e_del: int, o_ins: int, e_ins: int,
     # first row init (ksw.c:395-397): h[j] = max(h0 - oe_ins - (j-1)e, 0)
     v = h0s[:, None] - oe_ins - (jj - 1) * e_ins
     h = torch.where(jj == 0, h0s[:, None], v.clamp(min=0))
-    h = torch.where(jj <= qlens[:, None], h, 0).to(i32)
-    e = torch.zeros((P, Q + 1), dtype=i32, device=dev)
+    h_st = torch.where(jj <= qlens[:, None], h, 0).to(sdt)
+    e_st = torch.zeros((P, Q + 1), dtype=sdt, device=dev)
 
     # per-base query profiles; a row selects by its target char
     qidx = queries.to(torch.int64)
@@ -71,13 +80,19 @@ def _extend_core(o_del: int, e_del: int, o_ins: int, e_ins: int,
     broken = torch.zeros(P, dtype=torch.bool, device=dev)
     neg_col = torch.full((P, 1), NEG, dtype=i32, device=dev)
     zero_col = torch.zeros((P, 1), dtype=i32, device=dev)
+    cells = torch.zeros((), dtype=torch.int64, device=dev)
 
     i = 0
     while i < T and bool(((~broken) & (i < tlens)).any()):
+        h = h_st.to(i32)                     # widen on load
+        e = e_st.to(i32)
         active = (~broken) & (i < tlens)
         beg_i = torch.maximum(beg, torch.full_like(beg, i) - w)
         end_i = torch.minimum(torch.minimum(end, i + w + 1), qlens)
         empty = end_i <= beg_i
+        if count_cells:
+            cells += torch.where(active, (end_i - beg_i).clamp(min=0),
+                                 0).sum()
         h_first = torch.where(beg_i == 0,
                               (h0s - (o_del + e_del * (i + 1))).clamp(min=0),
                               0).to(i32)
@@ -120,8 +135,10 @@ def _extend_core(o_del: int, e_del: int, o_ins: int, e_ins: int,
         inb_e = (jj >= beg_i[:, None]) & (jj < end_i[:, None])
         e_out = torch.where(inb_e, e_pad,
                             torch.where(jj == end_i[:, None], 0, e))
-        h_out = torch.where(active[:, None], h_out, h)
-        e_out = torch.where(active[:, None], e_out, e)
+        h_st = torch.where(active[:, None], h_out, h).to(sdt)
+        e_st = torch.where(active[:, None], e_out, e).to(sdt)
+        h_out = h_st.to(i32)                 # narrow on store: what the
+        e_out = e_st.to(i32)                 # band shrink reads back
 
         # to-query-end score (ksw.c:450-453)
         last_col = (end_i - 1).clamp(min=0).to(torch.int64)[:, None]
@@ -160,15 +177,15 @@ def _extend_core(o_del: int, e_del: int, o_ins: int, e_ins: int,
         keep = active & ~brk
         beg = torch.where(keep, beg_new, beg)
         end = torch.where(keep, end_new, end)
-        h, e = h_out, e_out
         i += 1
 
-    return torch.stack([best, max_j + 1, max_i + 1, max_ie + 1, gscore,
-                        max_off]).to(i32)
+    out = torch.stack([best, max_j + 1, max_i + 1, max_ie + 1, gscore,
+                       max_off]).to(i32)
+    return (out, cells) if count_cells else out
 
 
 def _meta_dual_core(mat, qflat, pac, meta, *, Q, T, L, l_pac, o_del, e_del,
-                    o_ins, e_ins, zdrop, w0, wide_r0=False):
+                    o_ins, e_ins, zdrop, w0, wide_r0=False, state16=False):
     """Both band-doubling DP rounds + the retry acceptance: round 0 at
     the nominal band w0, the reference's acceptance test (score unchanged
     OR max_off < (w>>1)+(w>>2), comp_seed.cpp:1732-1767), then round 1 at
@@ -196,7 +213,7 @@ def _meta_dual_core(mat, qflat, pac, meta, *, Q, T, L, l_pac, o_del, e_del,
         return bsw_cuda.bsw_extend_tiles(
             mat, qt, ql, tt, tl[:, None].to(i32).contiguous(),
             h0s.contiguous(), ws.contiguous(), o_del=o_del, e_del=e_del,
-            o_ins=o_ins, e_ins=e_ins, zdrop=zdrop)
+            o_ins=o_ins, e_ins=e_ins, zdrop=zdrop, state16=state16)
 
     out0 = dp(rlen, ws0)
     accept0 = (out0[:, 0] == prev) | \
@@ -247,7 +264,8 @@ def _pack_rows(buf: np.ndarray, off: np.ndarray, P: int, W: int) -> tuple:
 
 class BswRunner:
     """Pads pair batches to bucketed shapes and runs the DP on ``device``:
-    the CUDA kernel for a CUDA device, the plain version for the CPU.
+    the CUDA kernel for a CUDA device (after ``bsw_cuda.self_check`` has
+    shown that the library launches there), the plain version for the CPU.
     Pairs are sorted by target length so that the threads of a warp
     early-exit together (the reference's sortPairsLen radix bucketing,
     mapping/comp_seed.cpp:1275-1314)."""
@@ -264,20 +282,28 @@ class BswRunner:
         self.dfi = dfi               # device index (pac) for the meta path
         self._qctx = None            # (qflat device tensor, L) per chunk
         self._row_map = None         # read id -> qd row (sharded layout)
-        # int16 DP state (COMPSEED_BSW_I16=1) is not ported yet
+        # int16 DP state, opt-in: halves the H/E row traffic for the
+        # query-length classes whose stored values provably fit (_use16)
         self.state16 = os.environ.get("COMPSEED_BSW_I16", "0") == "1"
+        if self.device.type == "cuda":
+            bsw_cuda.self_check(self.device)
         # sub-phase timers for the tail's "engine" bucket: pack = host
         # numpy, call = enqueue, fetch = D2H copy (waits for the DP)
         self.prof: dict[str, float] = {}
 
     def _use16(self, Q: int, h0max: int) -> bool:
-        """The int16-state gate.  The int16 variant of the DP is still to
-        be ported (ROADMAP: TPU kernels, 1b), so asking for it raises."""
-        if self.state16:
-            raise NotImplementedError(
-                "COMPSEED_BSW_I16=1: the int16-state DP is not ported to "
-                "compseed_tpu_torch yet (ROADMAP, TPU kernel 1b)")
-        return False
+        """True when every STORED int16 value provably fits: the binding
+        bound is the stored H/E range, H <= h0 + Q*a.  The extra
+        (Q-1)*e terms are the JAX package's deliberately conservative
+        margin, kept so both packages pick the same kernel per class —
+        they only ever disable the storage optimization, never
+        correctness."""
+        if not self.state16:
+            return False
+        opt = self.opt
+        e = max(opt.e_ins, opt.e_del, 1)
+        return ((Q - 1) * e < 16000 and
+                h0max + Q * self.max_sc + (Q - 1) * opt.e_ins < 32000)
 
     def run_flat(self, qbuf: np.ndarray, qoff: np.ndarray, rbuf: np.ndarray,
                  roff: np.ndarray, h0: np.ndarray, w: int, pen_clip: int):
@@ -338,7 +364,7 @@ class BswRunner:
             order = cls[np.argsort(tlens[cls], kind="stable")]
             P = _bucket(m, bsw_cuda.LT)
             T = _bucket(int(tlens[order].max(initial=1)), 128)
-            self._use16(Q, int(h0[order].max(initial=0)))
+            s16 = self._use16(Q, int(h0[order].max(initial=0)))
             qm = np.zeros((P, 4), np.int32)
             qm[:m] = qmeta[order]
             r0 = np.zeros(P, np.int64)
@@ -357,7 +383,7 @@ class BswRunner:
                 self.mat, qt, ql[:, None].to(torch.int32).contiguous(), tt,
                 _t(rl[:, None], dev), _t(h0p, dev), _t(ws, dev),
                 o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
-                e_ins=opt.e_ins, zdrop=opt.zdrop).cpu().numpy()
+                e_ins=opt.e_ins, zdrop=opt.zdrop, state16=s16).cpu().numpy()
             res[order] = out[:m, :6]
         # each result crosses a raw ctypes pointer into the native tail,
         # which indexes it densely: must be C-contiguous
@@ -387,7 +413,7 @@ class BswRunner:
             order = cls[np.argsort(tlens[cls], kind="stable")]
             P = _bucket(m, bsw_cuda.LT)
             T = _bucket(int(tlens[order].max(initial=1)), 128)
-            self._use16(Q, int(h0[order].max(initial=0)))
+            s16 = self._use16(Q, int(h0[order].max(initial=0)))
             meta = np.zeros((P, 12), np.int32)
             meta[:m, 0:4] = qmeta[order]
             r0 = rmeta[order, 0]
@@ -406,7 +432,7 @@ class BswRunner:
                 _t(meta, self.device), Q=Q, T=T, L=L,
                 l_pac=self.dfi.l_pac, o_del=opt.o_del, e_del=opt.e_del,
                 o_ins=opt.o_ins, e_ins=opt.e_ins, zdrop=opt.zdrop,
-                w0=int(w), wide_r0=wide)
+                w0=int(w), wide_r0=wide, state16=s16)
             t2 = time.perf_counter()
             out = out_dev.cpu().numpy()
             t3 = time.perf_counter()
@@ -437,7 +463,7 @@ class BswRunner:
             order = cls[np.argsort(tlens[cls], kind="stable")]
             P = _bucket(m, bsw_cuda.LT)
             T = _bucket(int(tlens[order].max(initial=1)), 128)
-            self._use16(Q, int(h0[order].max(initial=0)))
+            s16 = self._use16(Q, int(h0[order].max(initial=0)))
             queries = np.full((P, Q), 4, np.int8)
             targets = np.full((P, T), 4, np.int8)
             queries[:m] = q_all[order, :Q].astype(np.int8)
@@ -454,7 +480,7 @@ class BswRunner:
                 self.mat, _t(queries, dev), _t(qlp, dev), _t(targets, dev),
                 _t(tlp, dev), _t(h0p, dev), _t(ws, dev), o_del=opt.o_del,
                 e_del=opt.e_del, o_ins=opt.o_ins, e_ins=opt.e_ins,
-                zdrop=opt.zdrop).cpu().numpy()
+                zdrop=opt.zdrop, state16=s16).cpu().numpy()
             res[order] = out[:m, :6]
         # C-contiguous per result — consumed through a raw ctypes pointer
         return tuple(np.ascontiguousarray(res[:, j]) for j in range(6))

@@ -1,12 +1,21 @@
-"""The banded-SW DP on Hopper: tile build + the hand-written CUDA kernel.
+"""The banded-SW DP on Hopper: tile build + the hand-written CUDA kernels.
 
-Port of compseed_tpu/ops/bsw_pallas.py.  ``bsw_extend_tiles`` is the
+Port of compseed_tpu/ops/bsw_pallas.py.  ``bsw_extend_tiles`` is the DP
 kernel's launcher: for CUDA tensors it launches
-``csrc/bsw_extend.cu::bsw_extend_kernel`` (built with nvcc for sm_90a on
-first use into build/compseed_tpu_torch/, rebuilt when the source is
-newer) or raises; for CPU tensors it runs the plain PyTorch version,
+``csrc/bsw_extend.cu::bsw_extend_kernel`` — with int32 H/E rows, or with
+int16 rows under ``state16=True`` — (built with nvcc for sm_90a on first
+use into build/compseed_tpu_torch/, rebuilt when the source is newer) or
+raises; for CPU tensors it runs the plain PyTorch version,
 ``ops/bsw.py::_extend_core``.  Nothing falls back from one to the other.
-``LAUNCHES`` counts kernel launches, and nothing else.
+
+``probe_add_one`` launches the library's one-tile probe kernel (x + 1;
+plain version ``_probe_plain``), and ``self_check`` holds it to that
+plain version: it runs once for each DP engine built on a card
+(``BswRunner.__init__``), and a wrong tile stops the run.  It takes the
+place of the JAX package's toolchain probe (``pallas_available``), but
+its verdict never selects the plain version, and there is no override.
+
+``LAUNCHES`` counts kernel launches by kernel, and nothing else.
 
 ``build_tiles`` decodes the DP tiles on the device from pair metadata:
 query rows from the chunk's read matrix (3-bit packed 8-char windows),
@@ -27,7 +36,10 @@ import torch
 from compseed_tpu_torch.ops.seedscan import packed_rev_windows, packed_windows
 
 LT = 512            # pairs are padded to a multiple of this
-LAUNCHES = 0        # kernel launches since import (or the last reset)
+PROBE_SHAPE = (8, 128)
+# kernel launches since import (or the last reset), by kernel
+LAUNCHES = {"bsw_extend_kernel": 0, "bsw_extend_kernel_i16": 0,
+            "probe_add_one_kernel": 0}
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -68,14 +80,68 @@ def build_library(force: bool = False) -> str:
 
 
 def _load():
+    """The library, built if need be and loaded once per process."""
     global _lib
     if _lib is None:
         lib = ct.CDLL(build_library())
         p, i = ct.c_void_p, ct.c_int
-        lib.bsw_extend_launch.restype = i
-        lib.bsw_extend_launch.argtypes = [p] * 10 + [i] * 8 + [p]
+        for fn in (lib.bsw_extend_launch, lib.bsw_extend_launch_i16):
+            fn.restype = i
+            fn.argtypes = [p] * 10 + [i] * 8 + [p]
+        lib.probe_add_one_launch.restype = i
+        lib.probe_add_one_launch.argtypes = [p, p, i, p]
+        lib.bsw_cuda_error_name.restype = ct.c_char_p
+        lib.bsw_cuda_error_name.argtypes = [i]
         _lib = lib
     return _lib
+
+
+def _launch_error(kernel: str, device, err: int) -> RuntimeError:
+    name = _lib.bsw_cuda_error_name(err).decode()
+    return RuntimeError(f"{kernel} launch failed on {device} ({_SO}): CUDA "
+                        f"error {err} ({name})")
+
+
+def _probe_plain(x: torch.Tensor) -> torch.Tensor:
+    """The probe kernel's plain version."""
+    return x + 1
+
+
+def probe_add_one(x: torch.Tensor) -> torch.Tensor:
+    """x + 1 for one PROBE_SHAPE int32 tile: the probe kernel for a CUDA
+    tensor, its plain version for a CPU tensor."""
+    dev = x.device
+    if dev.type == "cpu":
+        return _probe_plain(x)
+    if dev.type != "cuda":
+        raise ValueError(f"probe_add_one: unsupported device {dev}")
+    _check("x", x, torch.int32, PROBE_SHAPE, dev)
+    lib = _load()
+    y = torch.empty_like(x)
+    err = lib.probe_add_one_launch(
+        x.data_ptr(), y.data_ptr(), x.numel(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise _launch_error("probe_add_one_kernel", dev, err)
+    LAUNCHES["probe_add_one_kernel"] += 1
+    return y
+
+
+def self_check(device: torch.device) -> None:
+    """Launch the probe kernel on ``device`` (the caller's stream), copy
+    the tile back and raise unless every element is right.  A failure
+    stops the run: nothing carries on with the plain version."""
+    device = torch.device(device)
+    x = torch.zeros(PROBE_SHAPE, dtype=torch.int32, device=device)
+    got = probe_add_one(x).cpu()
+    want = _probe_plain(x.cpu())
+    if not torch.equal(got, want):
+        bad = int((got != want).sum())
+        raise RuntimeError(
+            f"self-check of {_SO} failed on {device} "
+            f"({torch.cuda.get_device_name(device)}): the probe kernel "
+            f"returned {bad} of {got.numel()} wrong elements; the CUDA "
+            f"kernels cannot be trusted on this device")
 
 
 def clamp_band(qlens: np.ndarray, w: int, max_sc: int, end_bonus: int,
@@ -109,11 +175,10 @@ def bsw_extend_tiles(mat: torch.Tensor,      # (5, 5) int32
                      h0s: torch.Tensor,      # (P, 1) int32
                      ws: torch.Tensor,       # (P, 1) int32, clamped band
                      *, o_del: int, e_del: int, o_ins: int, e_ins: int,
-                     zdrop: int) -> torch.Tensor:
+                     zdrop: int, state16: bool = False) -> torch.Tensor:
     """The DP for P pairs -> (P, 8) int32: score, qle, tle, gtle,
     gscore, max_off, 0, 0.  The kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    global LAUNCHES
+    version for CPU tensors; state16 selects int16 H/E rows in both."""
     dev = queries.device
     P, Q = queries.shape
     T = targets.shape[1]
@@ -121,7 +186,7 @@ def bsw_extend_tiles(mat: torch.Tensor,      # (5, 5) int32
         from compseed_tpu_torch.ops.bsw import _extend_core
         res = _extend_core(o_del, e_del, o_ins, e_ins, zdrop, mat,
                            ws[:, 0], queries, qlens[:, 0], targets,
-                           tlens[:, 0], h0s[:, 0])
+                           tlens[:, 0], h0s[:, 0], state16=state16)
         return torch.cat([res.T, torch.zeros((P, 2), dtype=torch.int32)],
                          dim=1).contiguous()
     if dev.type != "cuda":
@@ -133,19 +198,21 @@ def bsw_extend_tiles(mat: torch.Tensor,      # (5, 5) int32
                     ("ws", ws)):
         _check(name, x, torch.int32, (P, 1), dev)
     lib = _load()
+    kernel = "bsw_extend_kernel_i16" if state16 else "bsw_extend_kernel"
+    launch = lib.bsw_extend_launch_i16 if state16 else lib.bsw_extend_launch
     out = torch.empty((P, 8), dtype=torch.int32, device=dev)
-    hbuf = torch.empty(((Q + 1) * P,), dtype=torch.int32, device=dev)
+    hbuf = torch.empty(((Q + 1) * P,), device=dev,
+                       dtype=torch.int16 if state16 else torch.int32)
     ebuf = torch.empty_like(hbuf)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.bsw_extend_launch(
+    err = launch(
         mat.data_ptr(), queries.data_ptr(), qlens.data_ptr(),
         targets.data_ptr(), tlens.data_ptr(), h0s.data_ptr(), ws.data_ptr(),
         out.data_ptr(), hbuf.data_ptr(), ebuf.data_ptr(), P, Q, T,
         o_del, e_del, o_ins, e_ins, zdrop, stream)
     if err != 0:
-        raise RuntimeError(f"bsw_extend_kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES += 1
+        raise _launch_error(kernel, dev, err)
+    LAUNCHES[kernel] += 1
     return out
 
 

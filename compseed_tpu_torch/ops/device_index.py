@@ -16,7 +16,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from compseed_tpu.index.fmindex import FMIndex
+from compseed_tpu_torch.index.fmindex import FMIndex
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,7 @@ compseed_tpu/ops/engine.py).
 ``device_engine``  — batched banded-SW extension (ops/bsw.py) with the
                      engine interface the native tail calls.
 ``device_seeder``  — batched compressive seeding + merged SAL
-                     (ops/seeder2.py).
+                     (ops/seeder2.py, or ops/smem.py as version "v1").
 """
 
 from __future__ import annotations
@@ -23,14 +23,13 @@ def device_engine(opt, fm=None, dfi=None, *, device: torch.device):
 
 def device_seeder(opt, fm, dedup: bool = False, dfi=None, *,
                   device: torch.device, version: str | None = None):
-    """The v2 device-resident seeder (ops/seeder2).  dfi: pass a prepared
-    DeviceFMIndex instead of uploading ``fm``.  The v1 lockstep seeder
-    (COMPSEED_SEEDER=v1) is not ported yet."""
+    """v2 (default): the device-resident seeder (ops/seeder2); v1
+    (COMPSEED_SEEDER=v1): the lockstep seeder (ops/smem), which v2 also
+    reruns an overflowing chunk on.  dfi: pass a prepared DeviceFMIndex
+    instead of uploading ``fm``."""
     version = version or os.environ.get("COMPSEED_SEEDER", "v2")
-    if version != "v2":
-        raise NotImplementedError(
-            f"COMPSEED_SEEDER={version}: only the v2 seeder is ported to "
-            "compseed_tpu_torch (ROADMAP: modules to port — exact "
-            "fallbacks, smem.BatchSeeder)")
+    if version == "v1":
+        from compseed_tpu_torch.ops.smem import BatchSeeder
+        return BatchSeeder(opt, fm, device, dfi=dfi)
     from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
     return DeviceSeeder(opt, fm, device, dfi=dfi, dedup=dedup)

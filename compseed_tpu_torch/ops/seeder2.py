@@ -9,16 +9,23 @@ head of counters + per-read words and a bit-packed seed matrix, in the
 JAX package's exact layout, so ``unpack_results`` and the native tail
 consume either package's output unchanged.
 
+A chunk-global cap overflow shows in the head's flags: the chunk is
+then rerun exactly on the lockstep seeder (``smem.BatchSeeder``) and the
+overflowing cap factor doubles for the chunks that follow
+(``_note_fwd_overflow``), as in the JAX package.
+
 Engines outside this path (the staged forward engine, the r4 backward
-engines, the legacy lockstep seeder) are not ported yet: the knobs that
-select them raise ``NotImplementedError`` naming the ROADMAP item, and a
-chunk-global cap overflow — where the JAX package reruns the chunk on
-its lockstep seeder — raises ``SeederCapOverflow``.
+engines) are not ported yet: the knobs that select them raise
+``NotImplementedError`` naming the ROADMAP item.  The same holds once
+the raise budget is spent (or under ``COMPSEED_ADAPTIVE_CAPS=0``), where
+the JAX package answers an overflow by switching a dedup pass off: the
+overflowing chunk is still rerun exactly, and the next ``_build`` raises.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 
 import numpy as np
@@ -29,6 +36,10 @@ from compseed_tpu_torch.ops import seedscan as ss
 from compseed_tpu_torch.ops.bits import as_i32
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex, to_device
 from compseed_tpu_torch.ops.seedscan import _drop_set
+from compseed_tpu_torch.ops.smem import BatchSeeder
+from compseed_tpu_torch.pipeline import seeding
+from compseed_tpu_torch.pipeline.chain import l_rep_one
+from compseed_tpu_torch.pipeline.types import Seed
 
 _I32 = torch.int32
 _I64 = torch.int64
@@ -40,14 +51,11 @@ _I64 = torch.int64
 # reference's (comp_seed.cpp:81,123,151; SST.h bwt_call)
 N_SCAL = 28
 
-_EXACT_FALLBACK = ("ROADMAP: modules to port — exact fallbacks "
-                   "(smem.BatchSeeder, _note_fwd_overflow, adaptive caps)")
+FWD_OVF_SLOTS = (2, 7, 10)       # oflags indices of the fwd-dedup flags
+BWD_OVF_SLOT = 3                 # backward (walk) dedup cap overflow
+R2_OVF_SLOT = 5                  # round-2 walk dedup cap overflow
+
 _ENGINES = "ROADMAP: modules to port — non-default engines behind env knobs"
-
-
-class SeederCapOverflow(RuntimeError):
-    """A chunk-global static cap overflowed.  The JAX package reruns such
-    a chunk on its exact lockstep seeder, which is not ported yet."""
 
 
 def _round_up(x: int, m: int) -> int:
@@ -151,7 +159,6 @@ def _check_knobs(dedup: bool):
             f"DeviceSeeder(dedup=False) selects the lockstep scan + staged "
             f"walk engines, not ported yet ({_ENGINES})")
     for name, default, want in (
-            ("COMPSEED_SEEDER", "v2", "v2"),
             ("COMPSEED_FWD_MEMO", "1", "1"),
             ("COMPSEED_BWD_CHAIN", "1", "1"),
             ("COMPSEED_R2_DEDUP", "1", "1"),
@@ -193,7 +200,28 @@ class DeviceSeeder:
                              f"{self.device}")
         self.dedup = dedup
         self.chain_w = int(os.environ.get("COMPSEED_CHAIN_W", "5"))
+        # the dedup passes: _check_knobs has held each to its default;
+        # an overflow that cannot raise a cap switches one off
+        # (_note_fwd_overflow), which selects an unported engine
+        self.fwd_memo = True
+        self.r2_dedup = True
+        self.fwd_disabled = False
+        self.bwd_disabled = False
+        # instance copies of the cap factors: a cap overflow at runtime
+        # DOUBLES the factor and rebuilds the programs (adaptive static
+        # shapes) instead of paying the exact rerun on every chunk
+        self.GP_F = type(self).GP_F
+        self.CAPU_F = type(self).CAPU_F
+        self.T2L_F = type(self).T2L_F
+        self.GP2_F = type(self).GP2_F
+        self.MEM_F = type(self).MEM_F
+        self.SEED_F = type(self).SEED_F
+        self.U_F = type(self).U_F
         self.MEM3_F = int(os.environ.get("COMPSEED_MEM3_F", "32"))
+        # =0 disables the overflow -> double-and-rebuild response
+        self.adaptive_caps = \
+            os.environ.get("COMPSEED_ADAPTIVE_CAPS", "1") == "1"
+        self._cap_raises = 0
         self._progs: dict = {}
         self.prof: dict = {}
         self.last_overflow = False
@@ -207,6 +235,15 @@ class DeviceSeeder:
         key = (R, L)
         if key in self._progs:
             return self._progs[key]
+        off = [name for name, on in (
+            ("forward-sweep dedup", not self.fwd_disabled),
+            ("backward-walk dedup", not self.bwd_disabled),
+            ("round-2 walk dedup", self.r2_dedup)) if not on]
+        if off:
+            raise NotImplementedError(
+                f"a cap overflow switched off the {', '.join(off)}, which "
+                f"selects an engine that is not ported to "
+                f"compseed_tpu_torch yet ({_ENGINES})")
         opt = self.opt
         dt = self.dfi.dtype
         dev = self.device
@@ -483,13 +520,17 @@ class DeviceSeeder:
 
         res = unpack_results(head, seedpk, R, n_reads, packed=fns["packed"])
         if res["oflags"].any():
+            # chunk-global cap overflow (pool/walk/tasks/merge/seeds):
+            # the whole chunk reruns exactly on the lockstep seeder
             self.last_overflow = True
-            self.last_qd = None
+            self.last_qd = None      # meta engines must not reuse stale qd
             self.prof["overflow_flags"] = res["oflags"].tolist()
-            raise SeederCapOverflow(
-                f"chunk-global cap overflow (oflags={res['oflags'].tolist()}"
-                " = r1 pool/walk/fwd/bwd, r2 task/pool/walk/fwd, merge, "
-                f"seeds, r3); the exact rerun is not ported ({_EXACT_FALLBACK})")
+            self._note_fwd_overflow(res["oflags"])
+            t0 = time.time()
+            legacy = BatchSeeder(self.opt, self.fm, self.device, self.dfi)
+            out = legacy.run_flat(queries, stats)
+            self.prof["rerun_s"] = time.time() - t0
+            return out
         self.last_overflow = False
 
         if stats is not None:
@@ -501,22 +542,81 @@ class DeviceSeeder:
                 queries, bad_reads, lrep, sflat, soff)
         return lrep, sflat, soff
 
+    def _note_fwd_overflow(self, oflags) -> None:
+        """Adaptive response to a cap overflow.  Pool/buffer caps
+        (sized to bench volumes) DOUBLE and the programs are rebuilt —
+        overflow there means the input genuinely carries more volume
+        (whole-genome interval counts), and per-chunk exact fallback
+        would otherwise run forever.  Only the dedup REP caps still
+        respond by dropping the dedup pass (low-sharing input).  Raises
+        are bounded at 9 in all before falling through to the disable
+        response, which here makes the next ``_build`` raise."""
+        changed = False
+        # oflags: r1 pool/walk/fwd/bwd, r2 task/pool/walk/fwd,
+        # merge, seeds, r3
+        raises = []
+        if self.adaptive_caps and self._cap_raises < 9:
+            def bump(attr, slots):
+                nonlocal changed
+                if any(oflags[s] for s in slots):
+                    setattr(self, attr, getattr(self, attr) * 2)
+                    raises.append(f"{attr}->{getattr(self, attr)}")
+                    self._cap_raises += 1
+                    changed = True
+            # slots 2/7/10 are pool-equivalent only in memo mode
+            # (fovf == pool there); in the staged engine they are the
+            # dedup REP caps, whose overflow means low-sharing input
+            memo = self.fwd_memo and not self.fwd_disabled
+            bump("GP_F", (0, 2) if memo else (0,))    # r1 pool
+            bump("CAPU_F", (1,))     # r1 walk lane cap
+            bump("T2L_F", (4,))      # round-2 task lanes
+            bump("GP2_F", (5, 6, 7) if memo else (5, 6))  # r2 pool/walks
+            bump("MEM_F", (8,))
+            bump("SEED_F", (9,))
+            bump("U_F", (9,))
+            bump("MEM3_F", (10,) if memo else ())
+        if raises:
+            print(f"[M::seeder2] cap overflow -> raising {raises} and "
+                  "recompiling (results unchanged; the overflowing "
+                  "chunk was recomputed exactly)", file=sys.stderr)
+            self._progs.clear()
+            return
+        if not self.fwd_disabled and any(oflags[s] for s in FWD_OVF_SLOTS):
+            print("[M::seeder2] forward-sweep dedup caps overflowed "
+                  f"(oflags={list(map(int, oflags))} = r1 pool/walk/"
+                  "fwd/bwd, r2 task/pool/walk/fwd, merge, seeds, r3); "
+                  "disabling the forward path for subsequent chunks",
+                  file=sys.stderr)
+            self.fwd_disabled = True
+            changed = True
+        if not self.bwd_disabled and oflags[BWD_OVF_SLOT]:
+            print("[M::seeder2] backward-walk dedup caps overflowed; "
+                  "disabling the backward dedup for subsequent chunks",
+                  file=sys.stderr)
+            self.bwd_disabled = True
+            changed = True
+        if self.r2_dedup and oflags[R2_OVF_SLOT]:
+            print("[M::seeder2] round-2 walk dedup caps overflowed; "
+                  "disabling the round-2 dedup for subsequent chunks",
+                  file=sys.stderr)
+            self.r2_dedup = False
+            changed = True
+        if changed:
+            self._progs.clear()
+
     def _splice_oracle(self, queries, bad_reads, lrep, sflat, soff):
         """Per-read exactness fallback: reads whose per-read buffers
         overflowed are recomputed with the scalar host oracle and spliced
         into the flat output; the chunk keeps its device results."""
-        from compseed_tpu.pipeline import seeding as sd
-        from compseed_tpu.pipeline.chain import l_rep_one
-
         bad = set(int(r) for r in bad_reads)
         n_reads = len(queries)
         lrep = np.array(lrep, dtype=np.int64, copy=True)
         sseg = []
         for r in range(n_reads):
             if r in bad:
-                m = sd.collect_matches(self.fm, self.opt, queries[r])
-                seeds = sd.sample_seeds(self.opt, m)
-                sd.resolve_sal(self.fm, [seeds])
+                m = seeding.collect_matches(self.fm, self.opt, queries[r])
+                seeds = seeding.sample_seeds(self.opt, m)
+                seeding.resolve_sal(self.fm, [seeds])
                 lrep[r] = l_rep_one(
                     [(beg, end, s) for (_, _, s, beg, end) in m],
                     self.opt.max_occ)
@@ -534,14 +634,13 @@ class DeviceSeeder:
     def __call__(self, fm, opt, queries: list[np.ndarray], stats=None):
         """Per-read debug/test interface: [(matches, seeds)] per read,
         matches as full (k, l, s, beg, end) tuples."""
-        from compseed_tpu.pipeline.types import Seed
         n_reads = len(queries)
         R, L, qd, rd = self._upload(queries)
         fns = self._build(R, L)
         merged, seeds, head_d, _ = self._run(fns, qd, rd)
-        if head_d[3:14].any():
-            raise SeederCapOverflow(f"chunk-global cap overflow "
-                                    f"({_EXACT_FALLBACK})")
+        if bool(head_d[3:14].any()):
+            return BatchSeeder(opt or self.opt, self.fm, self.device,
+                               self.dfi)(fm, opt or self.opt, queries, stats)
         mok, mrid, mk, ml, ms, mbeg, mend, _, _ = (
             x.cpu().numpy() for x in merged)
         rbeg, qb, ln, stotal, _, seed_cnt, _ = (x.cpu().numpy()

@@ -2,8 +2,10 @@
 tests/test_ops_bsw.py): the plain version against JAX's _extend_core and
 the Pallas kernel in interpret mode, the tile build against JAX's, the
 runner's fused dual-round path against the JAX runner, and the CUDA
-kernel's per-pair routine compiled for the host.  The kernel itself is
-held to the plain version on the card in tests/test_torch_cuda.py."""
+kernel's per-pair routine compiled for the host — each also with int16
+H/E state (COMPSEED_BSW_I16=1) — plus the int16 gate against the JAX
+gate and the probe kernel's plain version.  The kernels themselves are
+held to their plain versions on the card in tests/test_torch_cuda.py."""
 
 import ctypes as ct
 import os
@@ -15,10 +17,11 @@ import torch
 
 import jax.numpy as jnp
 
-from compseed_tpu.cpu import ksw
-from compseed_tpu.pipeline.extension import SeqPair
+from compseed_tpu_torch import convert
+from compseed_tpu_torch.cpu import ksw
 from compseed_tpu_torch.ops import bsw_cuda
 from compseed_tpu_torch.ops.bsw import BswRunner, _extend_core
+from compseed_tpu_torch.pipeline.extension import SeqPair
 
 from torch_dp_cases import GAP, MAT, OPT, dp_tiles
 
@@ -29,8 +32,9 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def _plain(tiles):
-    out = bsw_cuda.bsw_extend_tiles(_t(MAT), *(_t(x) for x in tiles), **GAP)
+def _plain(tiles, state16=False):
+    out = bsw_cuda.bsw_extend_tiles(_t(MAT), *(_t(x) for x in tiles), **GAP,
+                                    state16=state16)
     assert out.shape == (tiles[0].shape[0], 8) and out.dtype == torch.int32
     return out.numpy()
 
@@ -65,29 +69,86 @@ def test_plain_vs_pallas_kernel_interpret():
     assert np.array_equal(_plain(tiles), want)
 
 
-def test_kernel_source_host_build(tmp_path):
-    """csrc/bsw_extend.cu compiled as plain C++ exposes the kernel's
-    per-pair routine through a host loop; it must equal the plain version
-    on the DP corner cases (the card itself runs it in chip_smoke.py and
-    tests/test_torch_cuda.py)."""
+@pytest.mark.parametrize("seed", [16, 17])
+def test_extend_core_state16_vs_pallas_interpret_and_int32(seed):
+    """The plain version with int16 H/E rows equals the Pallas kernel in
+    interpret mode with state16=True, and the int32 plain version: the
+    storage type changes no result while the stored values fit."""
+    from compseed_tpu.ops.bsw_pallas import bsw_extend_tiles as jax_tiles
+    tiles = dp_tiles(seed)
+    q, ql, t, tl, h0, ws = tiles
+    want = np.asarray(jax_tiles(
+        jnp.asarray(MAT.reshape(1, 25)), jnp.asarray(q), jnp.asarray(ql),
+        jnp.asarray(t), jnp.asarray(tl), jnp.asarray(h0), jnp.asarray(ws),
+        **GAP, interpret=True, state16=True))
+    got = _plain(tiles, state16=True)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, _plain(tiles))
+    assert int(h0.max()) > 10000             # large h0 lanes are in there
+
+
+def test_extend_core_state16_rows_are_int16():
+    """state16 really narrows the rows: a stored value beyond 16 bits
+    wraps (so the gate matters), while int32 rows keep it."""
+    q, ql, t, tl, h0, ws = dp_tiles(18, P=8)
+    h0[:] = 40000
+    tiles = (q, ql, t, tl, h0, ws)
+    wide, narrow = _plain(tiles), _plain(tiles, state16=True)
+    assert (wide[:, 0] >= 40000).all()
+    assert not np.array_equal(wide, narrow)
+
+
+def _host_lib(tmp_path):
     so = str(tmp_path / "libbsw_host.so")
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O2", "-shared",
                     "-fPIC", "-o", so, bsw_cuda._SRC], check=True,
                    capture_output=True)
     lib = ct.CDLL(so)
-    lib.bsw_extend_host.argtypes = [ct.c_void_p] * 10 + [ct.c_int] * 8
+    for fn in (lib.bsw_extend_host, lib.bsw_extend_host_i16):
+        fn.argtypes = [ct.c_void_p] * 10 + [ct.c_int] * 8
+        fn.restype = None
+    return lib
+
+
+def _host_run(fn, sdt, tiles, T):
+    q, ql, t, tl, h0, ws = tiles
+    P, Q = q.shape
+    out = np.zeros((P, 8), np.int32)
+    hb = np.zeros((Q + 1) * P, sdt)
+    eb = np.zeros_like(hb)
+    mat = np.ascontiguousarray(MAT.reshape(-1))
+    fn(*(a.ctypes.data for a in (mat, q, ql, t, tl, h0, ws, out, hb, eb)),
+       P, Q, T, *GAP.values())
+    return out
+
+
+def test_kernel_source_host_build(tmp_path):
+    """csrc/bsw_extend.cu compiled as plain C++ exposes the kernel's
+    per-pair routine through a host loop; it must equal the plain version
+    on the DP corner cases (the card itself runs it in chip_smoke.py and
+    tests/test_torch_cuda.py)."""
+    lib = _host_lib(tmp_path)
     for seed, T in ((12, 256), (13, 128)):
         tiles = [np.ascontiguousarray(x) for x in dp_tiles(seed, T=T)]
-        q, ql, t, tl, h0, ws = tiles
-        P, Q = q.shape
-        out = np.zeros((P, 8), np.int32)
-        hb = np.zeros((Q + 1) * P, np.int32)
-        eb = np.zeros_like(hb)
-        mat = np.ascontiguousarray(MAT.reshape(-1))
-        lib.bsw_extend_host(*(a.ctypes.data for a in
-                              (mat, q, ql, t, tl, h0, ws, out, hb, eb)),
-                            P, Q, T, *GAP.values())
+        out = _host_run(lib.bsw_extend_host, np.int32, tiles, T)
         assert np.array_equal(out, _plain(tiles)), seed
+
+
+def test_kernel_source_host_build_int16(tmp_path):
+    """The templated routine's int16 entry: equal to the plain int16
+    version and to the int32 entry under the gate, and equal to the plain
+    int16 version where stored values wrap (h0 beyond 16 bits)."""
+    lib = _host_lib(tmp_path)
+    for seed, T in ((12, 256), (13, 128)):
+        tiles = [np.ascontiguousarray(x) for x in dp_tiles(seed, T=T)]
+        out = _host_run(lib.bsw_extend_host_i16, np.int16, tiles, T)
+        assert np.array_equal(out, _plain(tiles, state16=True)), seed
+        assert np.array_equal(
+            out, _host_run(lib.bsw_extend_host, np.int32, tiles, T)), seed
+    tiles[4][::3] = 40000
+    out = _host_run(lib.bsw_extend_host_i16, np.int16, tiles, T)
+    assert np.array_equal(out, _plain(tiles, state16=True))
+    assert not np.array_equal(out, _plain(tiles))
 
 
 def test_wrapper_refuses_other_devices():
@@ -150,7 +211,7 @@ def test_build_tiles_vs_jax(micro):
 
 def _meta_pairs(micro, seed, n, R=16, L=256):
     """Pair metadata over a random read matrix and the micro reference."""
-    from compseed_tpu.index.build import unpack_pac
+    from compseed_tpu_torch.index.build import unpack_pac
     _, _, fm = micro
     pac = unpack_pac(fm.pac, fm.l_pac)
     l_pac = fm.l_pac
@@ -191,17 +252,15 @@ def _meta_pairs(micro, seed, n, R=16, L=256):
     return qarr, qmeta, rmeta, h0, pac
 
 
-@pytest.mark.parametrize("force", [None, np.int64], ids=["int32", "int64"])
-def test_run_meta_dual_vs_jax_runner(micro, force):
-    """run_meta_dual (both band rounds + retry acceptance on the device)
-    equals the JAX runner's Pallas path in interpret mode, all seven
-    columns, over two query-length classes; int64 exercises wide_r0."""
+def _dual_vs_jax(micro, force, h0_big=False):
     from compseed_tpu.ops.bsw import BswRunner as JaxRunner
     from compseed_tpu.ops.device_index import to_device as jax_to_device
     from compseed_tpu_torch.ops.device_index import to_device
 
     _, _, fm = micro
     qarr, qmeta, rmeta, h0, _ = _meta_pairs(micro, 123, 160)
+    if h0_big:                     # trips the int16 gate in the Q=128 class
+        h0[np.nonzero(qmeta[:, 2] <= 128)[0][:3]] = 31900
     L = qarr.shape[1]
     w, pen = 8, OPT.pen_clip5      # narrow band => many round-1 retries
     prev = np.full(len(h0), -1, np.int32)
@@ -214,7 +273,9 @@ def test_run_meta_dual_vs_jax_runner(micro, force):
     want = jr.run_meta_dual(qmeta, rmeta, h0, prev, w, pen)
 
     tr = BswRunner(OPT, np.array(OPT.mat), CPU,
-                   dfi=to_device(fm, CPU, force_dtype=force))
+                   dfi=to_device(convert.fmindex_from_jax_package(fm), CPU,
+                                 force_dtype=force))
+    assert tr.state16 == jr.state16
     assert not tr.supports_meta_dual
     tr.set_query_context(_t(qarr), L)
     assert tr.supports_meta_dual
@@ -224,6 +285,69 @@ def test_run_meta_dual_vs_jax_runner(micro, force):
         assert got[j].flags.c_contiguous and got[j].dtype == np.int32
         assert np.array_equal(got[j], want[j]), j
     assert 0 < int(got[6].sum()) < len(h0)            # both rounds used
+    return tr
+
+
+@pytest.mark.parametrize("force", [None, np.int64], ids=["int32", "int64"])
+def test_run_meta_dual_vs_jax_runner(micro, force):
+    """run_meta_dual (both band rounds + retry acceptance on the device)
+    equals the JAX runner's Pallas path in interpret mode, all seven
+    columns, over two query-length classes; int64 exercises wide_r0."""
+    _dual_vs_jax(micro, force)
+
+
+@pytest.mark.parametrize("h0_big", [False, True], ids=["gate-holds",
+                                                       "gate-trips"])
+def test_run_meta_dual_state16_vs_jax_runner(micro, monkeypatch, h0_big):
+    """The same under COMPSEED_BSW_I16=1 in both packages: the gate picks
+    int16 rows per query-length class (and int32 rows for a class whose
+    h0 is too large), and the seven columns still equal the JAX runner's."""
+    monkeypatch.setenv("COMPSEED_BSW_I16", "1")
+    seen = []
+    launch = bsw_cuda.bsw_extend_tiles
+
+    def spy(*a, **kw):
+        seen.append((a[1].shape[1], kw["state16"]))
+        return launch(*a, **kw)
+
+    monkeypatch.setattr(bsw_cuda, "bsw_extend_tiles", spy)
+    tr = _dual_vs_jax(micro, None, h0_big=h0_big)
+    assert tr.state16
+    assert (256, True) in seen
+    assert (128, not h0_big) in seen and (128, h0_big) not in seen
+
+
+def test_use16_gate_vs_jax(monkeypatch):
+    """BswRunner._use16 equals the JAX gate over a grid of (Q, h0max),
+    for two gap settings, and is off without COMPSEED_BSW_I16=1."""
+    from compseed_tpu.ops.bsw import BswRunner as JaxRunner
+    from compseed_tpu.options import MemOptions as JaxOptions
+    from compseed_tpu_torch.options import MemOptions
+    assert not BswRunner(OPT, MAT, CPU)._use16(128, 10)
+    monkeypatch.setenv("COMPSEED_BSW_I16", "1")
+    n_true = 0
+    for gaps in ({}, dict(e_ins=3, e_del=5)):
+        jr = JaxRunner(JaxOptions(**gaps), MAT, use_pallas=False)
+        tr = BswRunner(MemOptions(**gaps), MAT, CPU)
+        for Q in (128, 256, 1024, 4096, 8192, 16384, 32768):
+            for h0max in (0, 119, 4000, 16000, 27000, 31000, 31744, 31745,
+                          31999, 40000):
+                want = jr._use16(Q, h0max)
+                assert tr._use16(Q, h0max) == want, (gaps, Q, h0max)
+                n_true += want
+    assert 20 < n_true < 120
+
+
+def test_probe_plain_version():
+    """The probe's plain version, through its wrapper on a CPU tensor;
+    no launch is counted, and other shapes and devices are refused."""
+    n0 = dict(bsw_cuda.LAUNCHES)
+    x = torch.arange(8 * 128, dtype=torch.int32).reshape(bsw_cuda.PROBE_SHAPE)
+    assert torch.equal(bsw_cuda.probe_add_one(x), x + 1)
+    assert torch.equal(bsw_cuda._probe_plain(torch.zeros(3)), torch.ones(3))
+    assert bsw_cuda.LAUNCHES == n0
+    with pytest.raises(ValueError, match="unsupported device"):
+        bsw_cuda.probe_add_one(x.to("meta"))
 
 
 def test_run_meta_vs_run_flat(micro):
@@ -242,7 +366,8 @@ def test_run_meta_vs_run_flat(micro):
         rbuf.append(np.where(fwd, pac[pf], 3 - pac[pf]).astype(np.uint8))
     qoff = np.concatenate([[0], np.cumsum([len(x) for x in qbuf])])
     roff = np.concatenate([[0], np.cumsum([len(x) for x in rbuf])])
-    tr = BswRunner(OPT, np.array(OPT.mat), CPU, dfi=to_device(micro[2], CPU))
+    tr = BswRunner(OPT, np.array(OPT.mat), CPU, dfi=to_device(
+        convert.fmindex_from_jax_package(micro[2]), CPU))
     want = tr.run_flat(np.concatenate(qbuf), qoff, np.concatenate(rbuf),
                        roff, h0, OPT.w, OPT.pen_clip5)
     tr.set_query_context(_t(qarr), qarr.shape[1])
@@ -279,13 +404,28 @@ def test_runner_vs_ksw_oracle(w, pen_clip):
         assert got[i] == tuple(want), i
 
 
-def test_int16_state_gate_raises(monkeypatch):
+def test_runner_state16_vs_ksw_oracle(monkeypatch):
+    """COMPSEED_BSW_I16=1 through the flat-pair interface: still the
+    scalar oracle's results."""
     monkeypatch.setenv("COMPSEED_BSW_I16", "1")
-    r = BswRunner(OPT, MAT, CPU)
-    with pytest.raises(NotImplementedError, match="int16"):
-        r.run_flat(np.zeros(4, np.uint8), np.array([0, 4]),
-                   np.zeros(4, np.uint8), np.array([0, 4]),
-                   np.array([10], np.int32), 100, 5)
+    rng = np.random.default_rng(5)
+    pairs = []
+    for _ in range(24):
+        tl = int(rng.integers(1, 150))
+        t = rng.integers(0, 4, size=tl).astype(np.uint8)
+        ql = int(rng.integers(1, min(100, tl + 20)))
+        q = np.resize(t, ql).copy()
+        q[rng.random(ql) < 0.1] = 0
+        pairs.append(SeqPair(qs=q, rs=t, h0=int(rng.integers(1, 120)),
+                             seqid=0, regid=0))
+    runner = BswRunner(OPT, MAT, CPU)
+    assert runner._use16(128, 119)
+    got = runner(pairs, 100, 5)
+    for i, sp in enumerate(pairs):
+        want = ksw.extend(len(sp.qs), sp.qs, len(sp.rs), sp.rs, MAT,
+                          OPT.o_del, OPT.e_del, OPT.o_ins, OPT.e_ins,
+                          100, 5, OPT.zdrop, sp.h0)
+        assert got[i] == tuple(want), i
 
 
 def test_build_library_needs_nvcc(monkeypatch):

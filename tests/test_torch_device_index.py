@@ -36,7 +36,8 @@ def _assert_same(port, arrays, meta):
 def test_to_device_matches_jax(tiny_fm, micro, which, force):
     fm = tiny_fm if which == "tiny" else micro[2]
     jd = jdi.to_device(fm, force_dtype=force)
-    td = tdi.to_device(fm, CPU, force_dtype=force)
+    td = tdi.to_device(convert.fmindex_from_jax_package(fm), CPU,
+                       force_dtype=force)
     _assert_same(td, *_jax_arrays(jd))
     assert td.occ_rows.dtype == torch.int64          # uint32 words
     assert int(td.occ_rows.max()) < 2**32
@@ -49,7 +50,8 @@ def test_from_jax_index_roundtrip(tiny_fm, force):
     arrays, meta = _jax_arrays(jdi.to_device(tiny_fm, force_dtype=force))
     port = convert.from_jax_index(arrays, meta, CPU)
     _assert_same(port, arrays, meta)
-    direct = tdi.to_device(tiny_fm, CPU, force_dtype=force)
+    direct = tdi.to_device(convert.fmindex_from_jax_package(tiny_fm), CPU,
+                           force_dtype=force)
     for k in convert.ARRAY_FIELDS:
         assert torch.equal(getattr(port, k), getattr(direct, k)), k
     with pytest.raises(KeyError):
@@ -59,7 +61,7 @@ def test_from_jax_index_roundtrip(tiny_fm, force):
 def test_pac_codes_at_matches_jax(micro):
     seq, _, fm = micro
     jd = jdi.to_device(fm)
-    td = tdi.to_device(fm, CPU)
+    td = tdi.to_device(convert.fmindex_from_jax_package(fm), CPU)
     rng = np.random.default_rng(5)
     pos = np.concatenate([[-5, 0, 1, fm.l_pac - 1, fm.l_pac + 40],
                           rng.integers(0, fm.l_pac, 500)]).astype(np.int64)

@@ -10,6 +10,7 @@ import jax.numpy as jnp
 from compseed_tpu.cpu import fm_oracle as fo
 from compseed_tpu.ops import fm as jfm
 from compseed_tpu.ops.device_index import to_device as jax_to_device
+from compseed_tpu_torch import convert
 from compseed_tpu_torch.ops import fm as tfm
 from compseed_tpu_torch.ops.device_index import to_device
 
@@ -21,7 +22,8 @@ CPU = torch.device("cpu")
 def dev(request, micro):
     seq, _, fm = micro
     return (seq, fm, jax_to_device(fm, force_dtype=request.param),
-            to_device(fm, CPU, force_dtype=request.param))
+            to_device(convert.fmindex_from_jax_package(fm), CPU,
+                      force_dtype=request.param))
 
 
 def _t(a):

@@ -1,8 +1,9 @@
 """compseed_tpu_torch's DeviceSeeder(dedup=True) vs compseed_tpu's, exactly:
 every stage output (chain_scan in its LEP, round-2-task and r3 modes,
 walk_pool_chain, reconstruct, merge, seeds), the packed head — and with
-it every BWT/SAL counter — and the seed matrix; plus the scalar oracle
-(mirrors tests/test_seeder2.py)."""
+it every BWT/SAL counter — and the seed matrix; the response to a cap
+overflow (_note_fwd_overflow, the exact rerun on the lockstep seeder);
+plus the scalar oracle (mirrors tests/test_seeder2.py)."""
 
 import os
 
@@ -13,18 +14,27 @@ import torch
 import jax.numpy as jnp
 
 from compseed_tpu.io.fastq import read_fastq_chunks, read_reordered_chunks
-from compseed_tpu.options import MemOptions
+from compseed_tpu.options import MemOptions as JaxOptions
 from compseed_tpu.pipeline import seeding
 from compseed_tpu.pipeline.align import encode_read
+from compseed_tpu_torch import convert
 from compseed_tpu_torch.ops import seedscan as tss
+from compseed_tpu_torch.ops import smem as tsmem
 from compseed_tpu_torch.ops.device_index import to_device
 from compseed_tpu_torch.ops.engine import device_seeder
-from compseed_tpu_torch.ops.seeder2 import DeviceSeeder, SeederCapOverflow
+from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+from compseed_tpu_torch.options import MemOptions
+from compseed_tpu_torch.pipeline.seeding import SeedingStats
 
 from tests.conftest import FIXTURES
 
 CPU = torch.device("cpu")
 N_READS = 96          # one R=256 chunk (larger fills trip the SAL caps)
+
+
+@pytest.fixture(scope="module")
+def port_fm(tiny_fm):
+    return convert.fmindex_from_jax_package(tiny_fm)
 
 
 def _queries(name, n):
@@ -56,13 +66,12 @@ def _assert_tree_equal(got, want, where):
 
 
 @pytest.fixture(scope="module")
-def stages(tiny_fm):
+def stages(tiny_fm, port_fm):
     """Stage outputs of both packages on both fixture inputs, at one
     (R, L) so the JAX programs compile once."""
     from compseed_tpu.ops.seeder2 import DeviceSeeder as JaxSeeder
-    opt = MemOptions()
-    js = JaxSeeder(opt, tiny_fm, dedup=True)
-    ts = DeviceSeeder(opt, tiny_fm, CPU, dedup=True)
+    js = JaxSeeder(JaxOptions(), tiny_fm, dedup=True)
+    ts = DeviceSeeder(MemOptions(), port_fm, CPU, dedup=True)
     out = {}
     for name in ("reads.fq", "reads.reordered"):
         queries = _queries(name, N_READS)
@@ -133,7 +142,7 @@ def test_round3_chain_scan_r3(stages, name):
         _assert_tree_equal(g, w, nm)
 
 
-def test_chain_scan_lossy_memo_and_rep_cap_vs_jax(tiny_fm):
+def test_chain_scan_lossy_memo_and_rep_cap_vs_jax(tiny_fm, port_fm):
     """chain_scan called directly with a tiny memo (slot evictions, a
     full store) and a small rep cap (groups deferred to later rounds):
     pool, counters and memo equal JAX's."""
@@ -150,7 +159,7 @@ def test_chain_scan_lossy_memo_and_rep_cap_vs_jax(tiny_fm):
     qarr[0, 10:12] = 4
     GP = 48 * R
     jd = jax_to_device(tiny_fm)
-    td = to_device(tiny_fm, CPU)
+    td = to_device(port_fm, CPU)
     jmemo = jss.make_chain_memo(32, 16, 5, jd.dtype)
     tmemo = tss.make_chain_memo(32, 16, 5, td.dtype, CPU)
     want = jss.chain_scan(jd, jnp.asarray(qarr), jnp.asarray(rl), GP, jmemo,
@@ -162,7 +171,7 @@ def test_chain_scan_lossy_memo_and_rep_cap_vs_jax(tiny_fm):
     assert int(_np(got[5]["cur"])) == 16          # the store filled up
 
 
-def test_walk_pool_chain_narrow_caps_vs_jax(stages, tiny_fm):
+def test_walk_pool_chain_narrow_caps_vs_jax(stages, tiny_fm, port_fm):
     """walk_pool_chain on round 1's pool with a narrow lane cap (segment
     compaction, deferred groups) and random min_hits, vs JAX's."""
     from compseed_tpu.ops import seedscan as jss
@@ -173,7 +182,7 @@ def test_walk_pool_chain_narrow_caps_vs_jax(stages, tiny_fm):
     CAPW = 1 << (n_valid - 1).bit_length()
     mh = np.random.default_rng(3).integers(1, 4, pool.shape[0])
     rw = tss.packed_rev_windows(st["qd"])
-    got = tss.walk_pool_chain(to_device(tiny_fm, CPU), rw, st["L"],
+    got = tss.walk_pool_chain(to_device(port_fm, CPU), rw, st["L"],
                               torch.from_numpy(pool), CAPW,
                               mh=torch.from_numpy(mh))
     want = jss.walk_pool_chain(
@@ -200,33 +209,32 @@ def test_packed_windows_and_next_nonamb_vs_jax():
     _assert_tree_equal(tss.next_nonamb(t), jss.next_nonamb(j), "nxt")
 
 
-def test_int64_index_path(stages, tiny_fm):
+def test_int64_index_path(stages, tiny_fm, port_fm):
     """The int64 device index (hg19-scale genomes) through the whole
     seeder: the same head and seed matrix as at int32 (which the JAX
     int32 path is held to above), and oracle-exact matches."""
     opt = MemOptions()
     st = stages["reads.fq"]
-    dfi64 = to_device(tiny_fm, CPU, force_dtype=np.int64)
+    dfi64 = to_device(port_fm, CPU, force_dtype=np.int64)
     assert dfi64.dtype == torch.int64
-    sd = DeviceSeeder(opt, tiny_fm, CPU, dfi=dfi64, dedup=True)
+    sd = DeviceSeeder(opt, port_fm, CPU, dfi=dfi64, dedup=True)
     fns = sd._build(st["R"], st["L"])
     _, _, th, tp = sd._run(fns, st["qd"], st["rd"])
     assert np.array_equal(th.numpy(), st["jax"][3])
     assert np.array_equal(tp.numpy(), st["jax"][4])
     queries = st["queries"][:24]
-    got = sd(tiny_fm, opt, queries)
+    got = sd(port_fm, opt, queries)
     for r, q in enumerate(queries):
         assert got[r][0] == seeding.collect_matches(tiny_fm, opt, q), r
 
 
-def test_seeder_matches_oracle_sorted_batch(tiny_fm):
+def test_seeder_matches_oracle_sorted_batch(tiny_fm, port_fm):
     """Reordered-style (sorted) batch: matches and resolved seeds per read
     equal the scalar oracle; run_flat's counters show reuse."""
-    from compseed_tpu.pipeline.seeding import SeedingStats
     opt = MemOptions()
     queries = sorted(_queries("reads.fq", 64), key=lambda q: q.tobytes())
-    sd = device_seeder(opt, tiny_fm, dedup=True, device=CPU)
-    got = sd(tiny_fm, opt, queries)
+    sd = device_seeder(opt, port_fm, dedup=True, device=CPU)
+    got = sd(port_fm, opt, queries)
     want_seeds = []
     for r, q in enumerate(queries):
         m = seeding.collect_matches(tiny_fm, opt, q)
@@ -243,7 +251,7 @@ def test_seeder_matches_oracle_sorted_batch(tiny_fm):
     assert sd.last_qd is not None and sd.last_L == 128
 
 
-def test_seeder_edge_cases_vs_oracle(tiny_fm):
+def test_seeder_edge_cases_vs_oracle(tiny_fm, port_fm):
     """Ns, all-N, short reads, N at both ends."""
     opt = MemOptions()
     rng = np.random.default_rng(41)
@@ -261,15 +269,14 @@ def test_seeder_edge_cases_vs_oracle(tiny_fm):
     qq = base[3].copy()
     qq[0] = qq[-1] = 4
     queries.append(qq)
-    got = DeviceSeeder(opt, tiny_fm, CPU)(tiny_fm, opt, queries)
+    got = DeviceSeeder(opt, port_fm, CPU)(port_fm, opt, queries)
     for r, q in enumerate(queries):
         assert got[r][0] == seeding.collect_matches(tiny_fm, opt, q), r
 
 
 @pytest.mark.parametrize("knob", ["COMPSEED_FWD_MEMO=0", "COMPSEED_BWD_CHAIN=0",
-                                  "COMPSEED_R2_DEDUP=0", "COMPSEED_SEEDER=v1",
-                                  "dedup=False"])
-def test_unported_engines_raise(tiny_fm, monkeypatch, knob):
+                                  "COMPSEED_R2_DEDUP=0", "dedup=False"])
+def test_unported_engines_raise(port_fm, monkeypatch, knob):
     """Knobs that select an engine outside the ported path raise and name
     the ROADMAP item; nothing silently runs the default path instead."""
     kw = {"dedup": True}
@@ -278,14 +285,141 @@ def test_unported_engines_raise(tiny_fm, monkeypatch, knob):
     else:
         monkeypatch.setenv(*knob.split("="))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_seeder(MemOptions(), tiny_fm, device=CPU, **kw)
+        device_seeder(MemOptions(), port_fm, device=CPU, **kw)
 
 
-def test_cap_overflow_raises(tiny_fm):
-    """A chunk-global cap overflow raises (the JAX package's exact rerun
-    on the lockstep seeder is not ported) instead of returning results."""
-    sd = DeviceSeeder(MemOptions(), tiny_fm, CPU)
+def test_seeder_v1_runs(port_fm, tiny_fm, monkeypatch):
+    """COMPSEED_SEEDER=v1 selects the port's lockstep seeder, and it
+    runs: oracle-exact matches."""
+    monkeypatch.setenv("COMPSEED_SEEDER", "v1")
+    opt = MemOptions()
+    sd = device_seeder(opt, port_fm, dedup=True, device=CPU)
+    assert isinstance(sd, tsmem.BatchSeeder)
+    queries = _queries("reads.fq", 8)
+    got = sd(port_fm, opt, queries)
+    for r, q in enumerate(queries):
+        assert got[r][0] == seeding.collect_matches(tiny_fm, opt, q), r
+
+
+def _both_seeders(tiny_fm, port_fm):
+    from compseed_tpu.ops.seeder2 import DeviceSeeder as JaxSeeder
+    return (JaxSeeder(JaxOptions(), tiny_fm, dedup=True),
+            DeviceSeeder(MemOptions(), port_fm, CPU, dedup=True))
+
+
+CAP_ATTRS = ("GP_F", "CAPU_F", "T2L_F", "GP2_F", "MEM_F", "SEED_F", "U_F",
+             "MEM3_F", "_cap_raises", "fwd_disabled", "bwd_disabled",
+             "r2_dedup")
+
+
+def _flags(*slots):
+    f = np.zeros(11, np.int64)
+    f[list(slots)] = 1
+    return f
+
+
+@pytest.mark.parametrize("seq", [
+    [(0, 4)],                       # r1 pool + r2 task lanes
+    [(2,), (7,), (10,)],            # memo-mode pool-equivalent slots
+    [(1,), (5, 6), (8,), (9,)],     # walk lanes, r2 pool/walk, merge, seeds
+    [(0,)] * 11,                    # the raise budget runs out
+    [(3,)],                         # backward dedup: no cap to raise
+], ids=["pool+tasks", "memo-slots", "buffers", "budget", "bwd"])
+def test_note_fwd_overflow_vs_jax(tiny_fm, port_fm, capsys, seq):
+    """The same flag vectors through both packages' _note_fwd_overflow:
+    the same cap factors, raise count and disable flags after each, the
+    same stderr lines, and the built programs cleared when JAX clears
+    its compiled ones."""
+    js, ts = _both_seeders(tiny_fm, port_fm)
+    for slots in seq:
+        js._jits["sentinel"] = ts._progs["sentinel"] = object()
+        js._note_fwd_overflow(_flags(*slots))
+        want_err = capsys.readouterr().err
+        ts._note_fwd_overflow(_flags(*slots))
+        assert capsys.readouterr().err == want_err
+        for a in CAP_ATTRS:
+            assert getattr(ts, a) == getattr(js, a), (slots, a)
+        assert ("sentinel" in ts._progs) == ("sentinel" in js._jits), slots
+
+
+def test_adaptive_cap_doubling(port_fm):
+    """A pool/buffer cap overflow DOUBLES the factor and clears the built
+    programs; once the raise budget is spent the response is to switch a
+    dedup pass off, which the port answers on the next _build by raising
+    (the staged engine it selects is not ported)."""
+    sd = DeviceSeeder(MemOptions(), port_fm, CPU)
+    gp0, t20 = sd.GP_F, sd.T2L_F
+    sd._progs["sentinel"] = object()
+    sd._note_fwd_overflow(_flags(0, 4))
+    assert sd.GP_F == 2 * gp0 and sd.T2L_F == 2 * t20
+    assert not sd.fwd_disabled and "sentinel" not in sd._progs
+    assert DeviceSeeder.GP_F == gp0               # instance copies only
+    sd._build(256, 128)                           # still builds
+    sd._cap_raises = 99
+    sd._note_fwd_overflow(_flags(2))
+    assert sd.fwd_disabled
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sd._build(256, 128)
+
+
+def test_adaptive_caps_opt_out(port_fm, monkeypatch):
+    """COMPSEED_ADAPTIVE_CAPS=0: no raise, straight to the disable
+    response — and the overflowing chunk is still rerun exactly before
+    the next _build raises."""
+    monkeypatch.setenv("COMPSEED_ADAPTIVE_CAPS", "0")
+    opt = MemOptions()
+    sd = DeviceSeeder(opt, port_fm, CPU)
+    sd.GP_F = 2
+    queries = _queries("reads.fq", 40)
+    got = sd.run_flat(queries)
+    assert sd.last_overflow and sd.GP_F == 2 and sd.fwd_disabled
+    want = tsmem.BatchSeeder(opt, port_fm, CPU).run_flat(queries)
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sd.run_flat(queries)
+
+
+def test_forced_overflow_rerun_vs_jax(tiny_fm, port_fm, capsys):
+    """GP_F forced to 2 in both packages: the chunk overflows, is rerun
+    on the lockstep seeder and GP_F doubles; (lrep, sflat, soff) and the
+    SAL counters equal the JAX seeder's.  With the overflow repeated
+    until the caps hold, the next chunk runs on the raised caps and gives
+    the same seeds as an unforced seeder."""
+    js, ts = _both_seeders(tiny_fm, port_fm)
+    js.GP_F = ts.GP_F = 2
+    queries = _queries("reads.reordered", 64)
+    wstats, stats = seeding.SeedingStats(), SeedingStats()
+    want = js.run_flat(queries, wstats)
+    got = ts.run_flat(queries, stats)
+    assert js.last_overflow and ts.last_overflow
+    assert ts.last_qd is None and js.last_qd is None
+    assert ts.GP_F == js.GP_F == 4 and ts._cap_raises == js._cap_raises == 1
+    assert ts.prof["overflow_flags"] == js.prof["overflow_flags"]
+    assert not ts._progs
+    for g, w, nm in zip(got, want, ("lrep", "sflat", "soff")):
+        assert g.dtype == w.dtype and np.array_equal(g, w), nm
+    for key in ("sal_queries", "sal_calls", "bwt_queries", "bwt_calls"):
+        assert getattr(stats, key) == getattr(wstats, key), key
+    assert "GP_F->4" in capsys.readouterr().err
+    for _ in range(8):
+        out = ts.run_flat(queries)
+        if not ts.last_overflow:
+            break
+    assert not ts.last_overflow and ts.GP_F >= 8 and ts.last_qd is not None
+    plain = DeviceSeeder(MemOptions(), port_fm, CPU).run_flat(queries)
+    for g, w in zip(out, plain):
+        assert np.array_equal(g, w)
+
+
+def test_call_interface_overflow_rerun(tiny_fm, port_fm):
+    """The per-read interface reruns an overflowing chunk on the lockstep
+    seeder too: oracle-exact matches with SEED_F forced to 1."""
+    opt = MemOptions()
+    sd = DeviceSeeder(opt, port_fm, CPU)
     sd.SEED_F = 1
-    with pytest.raises(SeederCapOverflow, match="ROADMAP"):
-        sd.run_flat(_queries("reads.fq", 200))
-    assert sd.last_overflow and sd.last_qd is None
+    queries = _queries("reads.fq", 120)
+    got = sd(port_fm, opt, queries)
+    for r in range(0, len(queries), 7):
+        assert got[r][0] == seeding.collect_matches(tiny_fm, opt,
+                                                    queries[r]), r

@@ -3,7 +3,7 @@ Imports no JAX, so the card tests can run where JAX is not installed."""
 
 import numpy as np
 
-from compseed_tpu.options import MemOptions, fill_scmat
+from compseed_tpu_torch.options import MemOptions, fill_scmat
 from compseed_tpu_torch.ops import bsw_cuda
 
 OPT = MemOptions()
