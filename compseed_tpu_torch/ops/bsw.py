@@ -10,10 +10,15 @@ the kernel's int16-state variant: the H and E rows are kept in int16
 tensors between target rows and widened to int32 for each row's
 arithmetic.
 
+``_meta_dual_core`` is the fused band-retry program (tile decode, both
+band rounds, acceptance): for CUDA tensors ONE launch of
+``bsw_cuda.bsw_meta_dual``; ``_meta_dual_plain`` is its plain version.
+
 ``BswRunner`` is the engine the native tail calls: it pads pair batches
 to bucketed shapes, sorts pairs by target length (so threads of one warp
-finish together) and runs the DP through ``bsw_cuda.bsw_extend_tiles``,
-which launches the kernel for CUDA tensors.
+finish together) and runs the DP through ``_meta_dual_core`` (metadata
+interface) or ``bsw_cuda.bsw_extend_tiles`` (tile interfaces), which
+launch the kernels for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -184,15 +189,60 @@ def _extend_core(o_del: int, e_del: int, o_ins: int, e_ins: int,
     return (out, cells) if count_cells else out
 
 
+def _extend_tiles_plain(mat, queries, qlens, targets, tlens, h0s, ws, *,
+                        o_del, e_del, o_ins, e_ins, zdrop, state16=False):
+    """``_extend_core`` behind the tile interface of
+    ``bsw_cuda.bsw_extend_tiles``: (P, 1) columns in, (P, 8) int32 out.
+    Pure PyTorch on whatever device the tensors lie."""
+    res = _extend_core(o_del, e_del, o_ins, e_ins, zdrop, mat, ws[:, 0],
+                       queries, qlens[:, 0], targets, tlens[:, 0], h0s[:, 0],
+                       state16=state16)
+    pad = torch.zeros((queries.shape[0], 2), dtype=torch.int32,
+                      device=queries.device)
+    return torch.cat([res.T, pad], dim=1).contiguous()
+
+
 def _meta_dual_core(mat, qflat, pac, meta, *, Q, T, L, l_pac, o_del, e_del,
                     o_ins, e_ins, zdrop, w0, wide_r0=False, state16=False):
     """Both band-doubling DP rounds + the retry acceptance: round 0 at
     the nominal band w0, the reference's acceptance test (score unchanged
     OR max_off < (w>>1)+(w>>2), comp_seed.cpp:1732-1767), then round 1 at
-    2*w0 only for rejected lanes (accepted lanes get tlen=0 and exit at
-    once).  meta columns: rid, q0, qlen, rev, r0_lo, r0_hi, rlen, h0,
-    prev_score, ws0, ws1, pad.  Returns (P, 8) int32: the six DP results
-    of the accepted round + col 6 = accepted round index."""
+    2*w0 only for rejected lanes.  meta columns: rid, q0, qlen, rev,
+    r0_lo, r0_hi, rlen, h0, prev_score, ws0, ws1, pad.  Returns (P, 8)
+    int32: the six DP results of the accepted round + col 6 = accepted
+    round index.
+
+    CUDA tensors take ONE launch of bsw_meta_dual_kernel, which decodes
+    the pairs itself and writes no tile, or raise.  Only a query-length
+    class whose H/E rows do not fit in shared memory
+    (``bsw_cuda.block_threads`` gives 0: a matter of Q and the storage
+    type alone) builds tiles and launches the device-memory-scratch DP
+    kernel once per round (``_meta_dual_tiles`` over the tile wrapper).
+    For CPU tensors that wrapper runs the DP's plain version, which makes
+    the whole the plain version, ``_meta_dual_plain``."""
+    kw = dict(Q=Q, T=T, L=L, l_pac=l_pac, o_del=o_del, e_del=e_del,
+              o_ins=o_ins, e_ins=e_ins, zdrop=zdrop, w0=w0, wide_r0=wide_r0,
+              state16=state16)
+    if meta.device.type == "cuda" and bsw_cuda.block_threads(Q, state16):
+        return bsw_cuda.bsw_meta_dual(mat, qflat, pac, meta, **kw)
+    return _meta_dual_tiles(bsw_cuda.bsw_extend_tiles, mat, qflat, pac, meta,
+                            **kw)
+
+
+def _meta_dual_plain(mat, qflat, pac, meta, **kw):
+    """The plain version of bsw_meta_dual_kernel: ``build_tiles``,
+    ``_extend_core`` twice and the acceptance between, pure PyTorch on
+    whatever device the tensors lie.  Keywords as ``_meta_dual_core``."""
+    return _meta_dual_tiles(_extend_tiles_plain, mat, qflat, pac, meta, **kw)
+
+
+def _meta_dual_tiles(extend, mat, qflat, pac, meta, *, Q, T, L, l_pac, o_del,
+                     e_del, o_ins, e_ins, zdrop, w0, wide_r0=False,
+                     state16=False):
+    """The fused program by the tile route: ``build_tiles``, the DP
+    ``extend`` (``bsw_cuda.bsw_extend_tiles`` or ``_extend_tiles_plain``)
+    once per band round (accepted lanes get tlen=0 in round 1 and exit at
+    once) and the acceptance between."""
     i32 = torch.int32
     qmeta = meta[:, 0:4]
     if wide_r0:
@@ -210,7 +260,7 @@ def _meta_dual_core(mat, qflat, pac, meta, *, Q, T, L, l_pac, o_del, e_del,
     ql = ql[:, None].to(i32).contiguous()
 
     def dp(tl, ws):
-        return bsw_cuda.bsw_extend_tiles(
+        return extend(
             mat, qt, ql, tt, tl[:, None].to(i32).contiguous(),
             h0s.contiguous(), ws.contiguous(), o_del=o_del, e_del=e_del,
             o_ins=o_ins, e_ins=e_ins, zdrop=zdrop, state16=state16)

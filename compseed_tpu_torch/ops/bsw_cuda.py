@@ -7,6 +7,14 @@ int16 rows under ``state16=True`` — (built with nvcc for sm_90a on first
 use into build/compseed_tpu_torch/, rebuilt when the source is newer) or
 raises; for CPU tensors it runs the plain PyTorch version,
 ``ops/bsw.py::_extend_core``.  Nothing falls back from one to the other.
+The kernel keeps a pair's H/E rows in shared memory, ``block_threads``
+pairs a block; a query-length class whose rows do not fit (``block_threads``
+gives 0) takes the same routine on a device-memory scratch, counted as
+``bsw_extend_kernel_gmem``: a dispatch on (Q, storage type) alone.
+
+``bsw_meta_dual`` launches ``bsw_meta_dual_kernel``: tile decode, both
+band rounds and the retry acceptance for P pairs in one launch (plain
+version: ``ops/bsw.py::_meta_dual_plain``).
 
 ``probe_add_one`` launches the library's one-tile probe kernel (x + 1;
 plain version ``_probe_plain``), and ``self_check`` holds it to that
@@ -39,7 +47,15 @@ LT = 512            # pairs are padded to a multiple of this
 PROBE_SHAPE = (8, 128)
 # kernel launches since import (or the last reset), by kernel
 LAUNCHES = {"bsw_extend_kernel": 0, "bsw_extend_kernel_i16": 0,
-            "probe_add_one_kernel": 0}
+            "bsw_extend_kernel_gmem": 0, "bsw_meta_dual_kernel": 0,
+            "bsw_meta_dual_kernel_i16": 0, "probe_add_one_kernel": 0}
+# Shared memory of one Hopper SM that blocks can use, the most one block
+# may ask for, what the hardware keeps back per resident block, and the
+# kernels' static shared memory (the 5x5 matrix), rounded up.
+SMEM_PER_SM = 233472
+SMEM_PER_BLOCK = 232448
+_SMEM_BLOCK_RESERVE = 1024
+_SMEM_STATIC = 128
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -69,14 +85,21 @@ def build_library(force: bool = False) -> str:
     os.makedirs(_BUILD, exist_ok=True)
     if force or not os.path.exists(_SO) or \
             os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        tmp = f"{_SO}.tmp.{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                               f"{r.stdout}{r.stderr}")
-        os.replace(tmp, _SO)      # atomic: a loaded old copy stays valid
+        compile_source(_SRC, _SO)
     return _SO
+
+
+def compile_source(src: str, so: str, defines: tuple = ()) -> None:
+    """nvcc ``src`` into the shared library ``so`` with NVCC_FLAGS and the
+    given -D defines.  Raises if nvcc fails."""
+    tmp = f"{so}.tmp.{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
+           src]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
+                           f"{r.stdout}{r.stderr}")
+    os.replace(tmp, so)           # atomic: a loaded old copy stays valid
 
 
 def _load():
@@ -85,11 +108,18 @@ def _load():
     if _lib is None:
         lib = ct.CDLL(build_library())
         p, i = ct.c_void_p, ct.c_int
+        ll = ct.c_longlong
         for fn in (lib.bsw_extend_launch, lib.bsw_extend_launch_i16):
             fn.restype = i
-            fn.argtypes = [p] * 10 + [i] * 8 + [p]
+            fn.argtypes = [p] * 10 + [i] * 9 + [p]
+        for fn in (lib.bsw_meta_dual_launch, lib.bsw_meta_dual_launch_i16):
+            fn.restype = i
+            fn.argtypes = [p, p, ll, p, ll, p, p, i, i, i, i, ll] + \
+                [i] * 8 + [p]
         lib.probe_add_one_launch.restype = i
         lib.probe_add_one_launch.argtypes = [p, p, i, p]
+        lib.bsw_pair_bytes.restype = ll
+        lib.bsw_pair_bytes.argtypes = [i, i]
         lib.bsw_cuda_error_name.restype = ct.c_char_p
         lib.bsw_cuda_error_name.argtypes = [i]
         _lib = lib
@@ -107,24 +137,37 @@ def _probe_plain(x: torch.Tensor) -> torch.Tensor:
     return x + 1
 
 
-def probe_add_one(x: torch.Tensor) -> torch.Tensor:
+def _stream(dev: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on ``dev``."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def probe_add_one(x: torch.Tensor,
+                  out: torch.Tensor | None = None) -> torch.Tensor:
     """x + 1 for one PROBE_SHAPE int32 tile: the probe kernel for a CUDA
-    tensor, its plain version for a CPU tensor."""
+    tensor, its plain version for a CPU tensor.  ``out`` is written and
+    returned when given (same device, dtype, shape; 16-byte aligned like
+    x), so a caller that launches often allocates once."""
     dev = x.device
     if dev.type == "cpu":
-        return _probe_plain(x)
+        y = _probe_plain(x)
+        return y if out is None else out.copy_(y)
     if dev.type != "cuda":
         raise ValueError(f"probe_add_one: unsupported device {dev}")
+    if out is None:
+        out = torch.empty_like(x)
     _check("x", x, torch.int32, PROBE_SHAPE, dev)
-    lib = _load()
-    y = torch.empty_like(x)
-    err = lib.probe_add_one_launch(
-        x.data_ptr(), y.data_ptr(), x.numel(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    _check("out", out, torch.int32, PROBE_SHAPE, dev)
+    px, py = x.data_ptr(), out.data_ptr()
+    if (px | py) & 15:
+        raise ValueError("probe_add_one: x and out must be 16-byte aligned")
+    # the launcher and its argtypes were resolved when the library loaded
+    err = (_lib or _load()).probe_add_one_launch(
+        px, py, PROBE_SHAPE[0] * PROBE_SHAPE[1], _stream(dev))
     if err != 0:
         raise _launch_error("probe_add_one_kernel", dev, err)
     LAUNCHES["probe_add_one_kernel"] += 1
-    return y
+    return out
 
 
 def self_check(device: torch.device) -> None:
@@ -155,6 +198,33 @@ def clamp_band(qlens: np.ndarray, w: int, max_sc: int, end_bonus: int,
     return np.minimum(np.minimum(np.int32(w), max_ins), max_del)
 
 
+def pair_bytes(Q: int, state16: bool = False) -> int:
+    """Shared memory of one pair in the DP kernels: H and E rows of Q + 1
+    columns and ceil(Q / 8) words of 3-bit query codes (equals
+    csrc/bsw_extend.cu::pair_bytes)."""
+    return (Q + 1) * 2 * (2 if state16 else 4) + (Q + 7) // 8 * 4
+
+
+def block_threads(Q: int, state16: bool = False) -> int:
+    """Pairs (threads) per block of the DP kernels for a query-length
+    class: a pure function of (Q, storage type).  Of 32, 64, 128 and 256
+    the size that keeps most pairs resident on an SM, the smallest on a
+    tie (finer blocks spread better over the SMs); 0 when even 32 pairs'
+    rows exceed a block's shared memory, which selects the
+    device-memory-scratch variant."""
+    b = pair_bytes(Q, state16)
+    best = resident = 0
+    for t in (32, 64, 128, 256):
+        need = t * b + _SMEM_STATIC
+        if need > SMEM_PER_BLOCK:
+            break
+        blocks = min(SMEM_PER_SM // (need + _SMEM_BLOCK_RESERVE),
+                     2048 // t, 32)
+        if t * blocks > resident:
+            best, resident = t, t * blocks
+    return best
+
+
 def _check(name, x, dtype, shape, device):
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -178,19 +248,35 @@ def bsw_extend_tiles(mat: torch.Tensor,      # (5, 5) int32
                      zdrop: int, state16: bool = False) -> torch.Tensor:
     """The DP for P pairs -> (P, 8) int32: score, qle, tle, gtle,
     gscore, max_off, 0, 0.  The kernel for CUDA tensors, the plain
-    version for CPU tensors; state16 selects int16 H/E rows in both."""
+    version for CPU tensors; state16 selects int16 H/E rows in both.
+    On the card ``block_threads(Q, state16)`` pairs share a block, and a
+    class it gives 0 for takes the device-memory-scratch kernel."""
+    dev = queries.device
+    if dev.type == "cpu":
+        from compseed_tpu_torch.ops.bsw import _extend_tiles_plain
+        return _extend_tiles_plain(
+            mat, queries, qlens, targets, tlens, h0s, ws, o_del=o_del,
+            e_del=e_del, o_ins=o_ins, e_ins=e_ins, zdrop=zdrop,
+            state16=state16)
+    if dev.type != "cuda":
+        raise ValueError(f"bsw_extend_tiles: unsupported device {dev}")
+    return _launch_extend(
+        mat, queries, qlens, targets, tlens, h0s, ws, o_del=o_del,
+        e_del=e_del, o_ins=o_ins, e_ins=e_ins, zdrop=zdrop, state16=state16,
+        threads=block_threads(queries.shape[1], state16))
+
+
+def _launch_extend(mat, queries, qlens, targets, tlens, h0s, ws, *, o_del,
+                   e_del, o_ins, e_ins, zdrop, state16, threads: int):
+    """Check the CUDA tensors and launch the DP kernel with ``threads``
+    pairs a block on shared-memory rows, or with ``threads`` = 0 on a
+    device-memory scratch.  ``bsw_extend_tiles`` always passes
+    ``block_threads``; the card tests and measurements name other sizes
+    (the scratch kernel on a class that fits, a size the card refuses).
+    Raises on a non-zero return."""
     dev = queries.device
     P, Q = queries.shape
     T = targets.shape[1]
-    if dev.type == "cpu":
-        from compseed_tpu_torch.ops.bsw import _extend_core
-        res = _extend_core(o_del, e_del, o_ins, e_ins, zdrop, mat,
-                           ws[:, 0], queries, qlens[:, 0], targets,
-                           tlens[:, 0], h0s[:, 0], state16=state16)
-        return torch.cat([res.T, torch.zeros((P, 2), dtype=torch.int32)],
-                         dim=1).contiguous()
-    if dev.type != "cuda":
-        raise ValueError(f"bsw_extend_tiles: unsupported device {dev}")
     _check("mat", mat, torch.int32, (5, 5), dev)
     _check("queries", queries, torch.int8, (P, Q), dev)
     _check("targets", targets, torch.int8, (P, T), dev)
@@ -198,18 +284,72 @@ def bsw_extend_tiles(mat: torch.Tensor,      # (5, 5) int32
                     ("ws", ws)):
         _check(name, x, torch.int32, (P, 1), dev)
     lib = _load()
-    kernel = "bsw_extend_kernel_i16" if state16 else "bsw_extend_kernel"
     launch = lib.bsw_extend_launch_i16 if state16 else lib.bsw_extend_launch
     out = torch.empty((P, 8), dtype=torch.int32, device=dev)
-    hbuf = torch.empty(((Q + 1) * P,), device=dev,
-                       dtype=torch.int16 if state16 else torch.int32)
-    ebuf = torch.empty_like(hbuf)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    if threads:
+        kernel = "bsw_extend_kernel_i16" if state16 else "bsw_extend_kernel"
+        hptr = eptr = None
+    else:
+        # the class's rows do not fit in shared memory: [column][pair]
+        # scratch in device memory
+        kernel = "bsw_extend_kernel_gmem"
+        hbuf = torch.empty(((Q + 1) * P,), device=dev,
+                           dtype=torch.int16 if state16 else torch.int32)
+        ebuf = torch.empty_like(hbuf)
+        hptr, eptr = hbuf.data_ptr(), ebuf.data_ptr()
     err = launch(
         mat.data_ptr(), queries.data_ptr(), qlens.data_ptr(),
         targets.data_ptr(), tlens.data_ptr(), h0s.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), hbuf.data_ptr(), ebuf.data_ptr(), P, Q, T,
-        o_del, e_del, o_ins, e_ins, zdrop, stream)
+        out.data_ptr(), hptr, eptr, P, Q, T,
+        o_del, e_del, o_ins, e_ins, zdrop, threads, _stream(dev))
+    if err != 0:
+        raise _launch_error(kernel, dev, err)
+    LAUNCHES[kernel] += 1
+    return out
+
+
+def bsw_meta_dual(mat: torch.Tensor,      # (5, 5) int32
+                  qflat: torch.Tensor,    # (R * L,) uint8 read matrix
+                  pac: torch.Tensor,      # (n_words,) int64, uint32 words
+                  meta: torch.Tensor,     # (P, 12) int32 pair table
+                  *, Q: int, T: int, L: int, l_pac: int, o_del: int,
+                  e_del: int, o_ins: int, e_ins: int, zdrop: int, w0: int,
+                  wide_r0: bool = False,
+                  state16: bool = False) -> torch.Tensor:
+    """Tile decode + both band rounds + the retry acceptance for P pairs
+    in ONE launch of bsw_meta_dual_kernel -> (P, 8) int32: the six DP
+    results of the accepted round, the round index, 0.  CUDA tensors
+    only (the plain version is ops/bsw.py::_meta_dual_plain), and only
+    query-length classes whose rows fit in shared memory
+    (``block_threads(Q, state16) > 0``).  meta's columns are listed at
+    ops/bsw.py::_meta_dual_core; meta[:, 0] must be a row of the read
+    matrix."""
+    dev = meta.device
+    if dev.type != "cuda":
+        raise ValueError(f"bsw_meta_dual: unsupported device {dev}")
+    P = meta.shape[0]
+    if L <= 0 or qflat.numel() == 0 or qflat.numel() % L:
+        raise ValueError(f"qflat has {qflat.numel()} elements, expected a "
+                         f"positive multiple of L={L}")
+    _check("mat", mat, torch.int32, (5, 5), dev)
+    _check("qflat", qflat, torch.uint8, (qflat.numel(),), dev)
+    _check("pac", pac, torch.int64, (pac.numel(),), dev)
+    _check("meta", meta, torch.int32, (P, 12), dev)
+    if pac.numel() == 0:
+        raise ValueError("pac is empty")
+    threads = block_threads(Q, state16)
+    if threads <= 0:
+        raise ValueError(f"bsw_meta_dual: the rows of Q={Q} "
+                         f"(state16={state16}) do not fit in shared memory")
+    lib = _load()
+    kernel = "bsw_meta_dual_kernel_i16" if state16 else "bsw_meta_dual_kernel"
+    launch = lib.bsw_meta_dual_launch_i16 if state16 else \
+        lib.bsw_meta_dual_launch
+    out = torch.empty((P, 8), dtype=torch.int32, device=dev)
+    err = launch(mat.data_ptr(), qflat.data_ptr(), qflat.numel() // L,
+                 pac.data_ptr(), pac.numel(), meta.data_ptr(),
+                 out.data_ptr(), P, Q, T, L, l_pac, o_del, e_del, o_ins,
+                 e_ins, zdrop, w0, int(wide_r0), threads, _stream(dev))
     if err != 0:
         raise _launch_error(kernel, dev, err)
     LAUNCHES[kernel] += 1

@@ -69,6 +69,11 @@ def align_batch(opt: MemOptions, fm: FMIndex, reads: list[Read],
             r.sam = sam
         return
 
+    # the engine's device read matrix belongs to the flat path above: one
+    # left by an earlier chunk must not serve these reads
+    if hasattr(engine, "set_query_context"):
+        engine.set_query_context(None)
+
     # --- seeding + merged SAL (comp_seed.cpp:2262-2347)
     if seeder is not None:
         per_read = seeder(fm, opt, queries, stats)

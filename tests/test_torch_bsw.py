@@ -98,15 +98,22 @@ def test_extend_core_state16_rows_are_int16():
     assert not np.array_equal(wide, narrow)
 
 
-def _host_lib(tmp_path):
+def _host_lib(tmp_path, *defines):
     so = str(tmp_path / "libbsw_host.so")
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O2", "-shared",
-                    "-fPIC", "-o", so, bsw_cuda._SRC], check=True,
+                    "-fPIC", *defines, "-o", so, bsw_cuda._SRC], check=True,
                    capture_output=True)
     lib = ct.CDLL(so)
-    for fn in (lib.bsw_extend_host, lib.bsw_extend_host_i16):
-        fn.argtypes = [ct.c_void_p] * 10 + [ct.c_int] * 8
+    p, i, ll = ct.c_void_p, ct.c_int, ct.c_longlong
+    for fn in (lib.bsw_extend_host, lib.bsw_extend_host_i16,
+               lib.bsw_extend_host_staged, lib.bsw_extend_host_staged_i16):
+        fn.argtypes = [p] * 10 + [i] * 8
         fn.restype = None
+    for fn in (lib.bsw_meta_dual_host, lib.bsw_meta_dual_host_i16):
+        fn.argtypes = [p, p, ll, p, ll, p, p, i, i, i, i, ll] + [i] * 7
+        fn.restype = None
+    lib.bsw_pair_bytes.argtypes = [i, i]
+    lib.bsw_pair_bytes.restype = ll
     return lib
 
 
@@ -149,6 +156,216 @@ def test_kernel_source_host_build_int16(tmp_path):
     out = _host_run(lib.bsw_extend_host_i16, np.int16, tiles, T)
     assert np.array_equal(out, _plain(tiles, state16=True))
     assert not np.array_equal(out, _plain(tiles))
+
+
+@pytest.mark.parametrize("hoist", [0, 1])
+def test_kernel_source_host_build_scratch_loop_bodies(tmp_path, hoist):
+    """The scratch variant's inner loop with a cell's inputs read at the
+    cell (BSW_SCRATCH_HOIST=0) and ahead of the previous cell's stores (1):
+    both equal the plain version, int32 and int16 rows."""
+    lib = _host_lib(tmp_path, f"-DBSW_SCRATCH_HOIST={hoist}")
+    tiles = [np.ascontiguousarray(x) for x in dp_tiles(12, T=256)]
+    assert np.array_equal(_host_run(lib.bsw_extend_host, np.int32, tiles,
+                                    256), _plain(tiles))
+    assert np.array_equal(_host_run(lib.bsw_extend_host_i16, np.int16, tiles,
+                                    256), _plain(tiles, state16=True))
+
+
+@pytest.mark.parametrize("state16", [False, True], ids=["int32", "int16"])
+def test_kernel_source_host_build_staged_query(tmp_path, state16):
+    """The shared-memory kernel's route through the per-pair routine (the
+    query staged as 3-bit codes, eight to a word, rows at the block's
+    stride) equals the plain version and the tile route."""
+    lib = _host_lib(tmp_path)
+    sdt = np.int16 if state16 else np.int32
+    staged = lib.bsw_extend_host_staged_i16 if state16 else \
+        lib.bsw_extend_host_staged
+    tiled = lib.bsw_extend_host_i16 if state16 else lib.bsw_extend_host
+    for seed, Q, T in ((12, 128, 256), (13, 128, 128), (19, 256, 128)):
+        tiles = [np.ascontiguousarray(x) for x in dp_tiles(seed, Q=Q, T=T)]
+        out = _host_run(staged, sdt, tiles, T)
+        assert np.array_equal(out, _plain(tiles, state16=state16)), seed
+        assert np.array_equal(out, _host_run(tiled, sdt, tiles, T)), seed
+
+
+def _dual_meta(micro, seed, w0, n=300, P=512):
+    """A (P, 12) pair table as BswRunner.run_meta_dual packs it, over a
+    numpy-seeded read matrix and the micro reference: forward and reverse
+    lanes, pairs that cross l_pac on both strands, off-diagonal pairs that
+    the narrow band rejects, a tlen=0 lane, pad lanes, and prev scores
+    that hit the score-unchanged clause on every fifth lane."""
+    _, _, fm = micro
+    qarr, qmeta, rmeta, h0, _ = _meta_pairs(micro, seed, n)
+    l_pac = fm.l_pac
+    rng = np.random.default_rng(seed + 1)
+    for p in range(0, n, 6):                 # straddle the strand mirror
+        tl = int(rmeta[p, 1])
+        k = int(rng.integers(0, tl + 1))
+        rmeta[p, 0] = l_pac - k if qmeta[p, 3] == 0 else l_pac + k - 1
+    runner = BswRunner(OPT, np.array(OPT.mat), CPU)
+    qlens = qmeta[:, 2].astype(np.int32)
+    meta = np.zeros((P, 12), np.int32)
+    meta[:n, 0:4] = qmeta
+    meta[:n, 4] = (rmeta[:, 0] & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    meta[:n, 5] = (rmeta[:, 0] >> 32).astype(np.int32)
+    meta[:n, 6] = rmeta[:, 1]
+    meta[:, 7] = 1
+    meta[:n, 7] = h0
+    meta[:, 8] = -2
+    meta[:n, 8] = -1
+    meta[:n, 9] = runner._bands(qlens, w0, OPT.pen_clip5)
+    meta[:n, 10] = runner._bands(qlens, 2 * w0, OPT.pen_clip5)
+    return qarr, meta
+
+
+_DUAL_KW = dict(Q=256, T=256, **GAP)
+
+
+@pytest.mark.parametrize("state16,w0,wide,pallas", [
+    (False, 8, False, True), (True, 8, False, True), (False, 1, False, False),
+    (False, 8, True, False), (True, 1, True, False)],
+    ids=["int32-w8", "int16-w8", "int32-w1", "int32-w8-wide", "int16-w1-wide"])
+def test_meta_dual_host_build_vs_plain_and_jax(micro, tmp_path, state16, w0,
+                                               wide, pallas):
+    """The fused per-pair routine (decode from the read matrix and the
+    packed reference, round 0, acceptance, round 1) built for the host
+    equals the plain _meta_dual_core and the JAX _meta_dual_core (its Pallas
+    kernel in interpret mode, or its plain DP), all eight columns;
+    tolerance 0, the results are integers.  The JAX call takes narrow r0
+    (this reference is far below 2**31, so the high word is 0)."""
+    from compseed_tpu.ops.bsw import _meta_dual_core as jax_dual
+    from compseed_tpu.ops.device_index import to_device as jax_to_device
+    from compseed_tpu_torch.ops.bsw import _meta_dual_core
+    from compseed_tpu_torch.ops.device_index import to_device
+
+    _, _, fm = micro
+    qarr, meta = _dual_meta(micro, 200 + w0, w0)
+    R, L = qarr.shape
+    td = to_device(convert.fmindex_from_jax_package(fm), CPU)
+    kw = dict(_DUAL_KW, L=L, l_pac=fm.l_pac, w0=w0)
+
+    def plain(m):
+        return _meta_dual_core(_t(MAT), _t(qarr.reshape(-1)), td.pac_words,
+                               _t(m), **kw, wide_r0=wide,
+                               state16=state16).numpy()
+
+    first = plain(meta)
+    n = int((meta[:, 8] == -1).sum())
+    meta[:n:5, 8] = first[:n:5, 0]           # score-unchanged acceptance
+    want = plain(meta)
+    assert 0 < int(want[:n, 6].sum()) < n    # both rounds are used
+    assert (want[:n:5, 6] == 0).all()
+    # pad lanes: rejected only where the acceptance is 0 < 0
+    assert (want[n:, 6] == (1 if w0 == 1 else 0)).all()
+    assert (want[n:, 0] == 1).all()
+
+    lib = _host_lib(tmp_path)
+    fn = lib.bsw_meta_dual_host_i16 if state16 else lib.bsw_meta_dual_host
+    pac = np.ascontiguousarray(td.pac_words.numpy())
+    qflat = np.ascontiguousarray(qarr.reshape(-1))
+    mat = np.ascontiguousarray(MAT.reshape(-1))
+    meta = np.ascontiguousarray(meta)
+    out = np.full((len(meta), 8), -7, np.int32)
+    fn(mat.ctypes.data, qflat.ctypes.data, R, pac.ctypes.data, len(pac),
+       meta.ctypes.data, out.ctypes.data, len(meta), kw["Q"], kw["T"], L,
+       fm.l_pac, *GAP.values(), w0, int(wide))
+    assert np.array_equal(out, want)
+
+    jd = jax_to_device(fm)
+    jmat = jnp.asarray(MAT.reshape(1, 25) if pallas else MAT)
+    jout = np.asarray(jax_dual(
+        jmat, jnp.asarray(qflat), jd.pac_words, jnp.asarray(meta), **kw,
+        use_pallas=pallas, interpret=pallas, state16=state16))
+    assert np.array_equal(out, jout)
+
+
+@pytest.mark.parametrize("state16,w0,wide", [(False, 5, False),
+                                             (True, 100, True)],
+                         ids=["int32-w5", "int16-w100-wide"])
+def test_meta_dual_host_build_on_seeded_extension_pairs(micro, tmp_path,
+                                                        state16, w0, wide):
+    """The pair tables that the card's checks use (ops/bsw_cases.py: seed
+    extensions on both strands, reads across l_pac, insertions) through
+    the fused routine's host build and the plain version."""
+    from compseed_tpu_torch.index.build import unpack_pac
+    from compseed_tpu_torch.ops.bsw import _meta_dual_core
+    from compseed_tpu_torch.ops.bsw_cases import dual_meta_case
+    from compseed_tpu_torch.ops.device_index import to_device
+    _, _, fm = micro
+    ref = unpack_pac(fm.pac, fm.l_pac)
+    qarr, meta = dual_meta_case(np.random.default_rng(w0), ref, n=200, P=256,
+                                Q=128, T=256, w0=w0, opt=OPT, wide_r0=wide)
+    R, L = qarr.shape
+    td = to_device(convert.fmindex_from_jax_package(fm), CPU)
+    kw = dict(Q=128, T=256, L=L, l_pac=fm.l_pac, **GAP, w0=w0)
+    want = _meta_dual_core(_t(MAT), _t(qarr.reshape(-1)), td.pac_words,
+                           _t(meta), **kw, wide_r0=wide,
+                           state16=state16).numpy()
+    assert (want[:200, 0] > 40).sum() > 100           # real alignments
+    if w0 == 5:
+        assert 0 < int(want[:200, 6].sum()) < 200     # both rounds
+    lib = _host_lib(tmp_path)
+    fn = lib.bsw_meta_dual_host_i16 if state16 else lib.bsw_meta_dual_host
+    pac = np.ascontiguousarray(td.pac_words.numpy())
+    qflat = np.ascontiguousarray(qarr.reshape(-1))
+    mat = np.ascontiguousarray(MAT.reshape(-1))
+    out = np.full((len(meta), 8), -7, np.int32)
+    fn(mat.ctypes.data, qflat.ctypes.data, R, pac.ctypes.data, len(pac),
+       meta.ctypes.data, out.ctypes.data, len(meta), 128, 256, L, fm.l_pac,
+       *GAP.values(), w0, int(wide))
+    assert np.array_equal(out, want)
+
+
+def test_meta_dual_plain_dp_switch(micro):
+    """The tile route's two DPs on CPU tensors: _meta_dual_plain (the DP
+    as _extend_core, what the card's comparisons run) equals the route
+    through the tile wrapper, and _meta_dual_core runs the plain version
+    there."""
+    from compseed_tpu_torch.ops.bsw import (_meta_dual_core,
+                                            _meta_dual_plain,
+                                            _meta_dual_tiles)
+    from compseed_tpu_torch.ops.device_index import to_device
+    _, _, fm = micro
+    qarr, meta = _dual_meta(micro, 300, 8, n=100, P=128)
+    td = to_device(convert.fmindex_from_jax_package(fm), CPU)
+    args = (_t(MAT), _t(qarr.reshape(-1)), td.pac_words, _t(meta))
+    kw = dict(_DUAL_KW, L=qarr.shape[1], l_pac=fm.l_pac, w0=8)
+    want = _meta_dual_plain(*args, **kw)
+    assert torch.equal(want, _meta_dual_core(*args, **kw))
+    assert torch.equal(want, _meta_dual_tiles(bsw_cuda.bsw_extend_tiles,
+                                              *args, **kw))
+    with pytest.raises(ValueError, match="unsupported device"):
+        bsw_cuda.bsw_meta_dual(*args, **kw)
+
+
+@pytest.mark.parametrize("state16", [False, True], ids=["int32", "int16"])
+@pytest.mark.parametrize("Q", [128, 256, 512])
+def test_block_threads_fit_shared_memory(tmp_path, Q, state16):
+    """The threads-per-block choice is a whole number of warps whose rows
+    fit a block's 232,448 bytes of shared memory with the kernels' static
+    part, and the pair size equals the kernel source's."""
+    t = bsw_cuda.block_threads(Q, state16)
+    b = bsw_cuda.pair_bytes(Q, state16)
+    assert t in (32, 64, 128, 256)
+    assert t * b + bsw_cuda._SMEM_STATIC <= 232448 == bsw_cuda.SMEM_PER_BLOCK
+    assert b == _host_lib(tmp_path).bsw_pair_bytes(Q, int(state16))
+    assert b == (Q + 1) * 2 * (2 if state16 else 4) + Q // 8 * 4
+
+
+def test_block_threads_names_the_gmem_class():
+    """Where even 32 pairs' rows do not fit, the choice is 0: the class of
+    the device-memory-scratch kernel (bsw_extend_kernel_gmem).  That is
+    Q >= 1024 with int32 rows and Q >= 2048 with int16 rows."""
+    got = {(Q, s): bsw_cuda.block_threads(Q, s)
+           for Q in (128, 256, 512, 1024, 2048, 4096) for s in (False, True)}
+    gmem = sorted(k for k, v in got.items() if v == 0)
+    assert gmem == [(1024, False), (2048, False), (2048, True),
+                    (4096, False), (4096, True)]
+    assert got[(128, False)] == 32 and got[(128, True)] == 64
+    assert "bsw_extend_kernel_gmem" in bsw_cuda.LAUNCHES
+    for (Q, s), t in got.items():
+        if t == 0:
+            assert 32 * bsw_cuda.pair_bytes(Q, s) > bsw_cuda.SMEM_PER_BLOCK
 
 
 def test_wrapper_refuses_other_devices():
@@ -344,6 +561,8 @@ def test_probe_plain_version():
     n0 = dict(bsw_cuda.LAUNCHES)
     x = torch.arange(8 * 128, dtype=torch.int32).reshape(bsw_cuda.PROBE_SHAPE)
     assert torch.equal(bsw_cuda.probe_add_one(x), x + 1)
+    y = torch.zeros_like(x)
+    assert bsw_cuda.probe_add_one(x, out=y) is y and torch.equal(y, x + 1)
     assert torch.equal(bsw_cuda._probe_plain(torch.zeros(3)), torch.ones(3))
     assert bsw_cuda.LAUNCHES == n0
     with pytest.raises(ValueError, match="unsupported device"):

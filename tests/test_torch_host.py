@@ -69,7 +69,17 @@ ALLOWED = {
          '"""End-to-end batch alignment.', "wording"),
         ("seeding/SAL/extension on TPU (compseed_tpu.ops), host tail.",
          "seeding/SAL/extension on the card (compseed_tpu.ops), host tail.",
-         "the port's device is a GPU")],
+         "the port's device is a GPU"),
+        ("    # --- seeding + merged SAL (comp_seed.cpp:2262-2347)\n",
+         "    # the engine's device read matrix belongs to the flat path "
+         "above: one\n"
+         "    # left by an earlier chunk must not serve these reads\n"
+         "    if hasattr(engine, \"set_query_context\"):\n"
+         "        engine.set_query_context(None)\n\n"
+         "    # --- seeding + merged SAL (comp_seed.cpp:2262-2347)\n",
+         "an engine that served a device-seeded chunk and is then given "
+         "reads without the device seeder would slice them from the old "
+         "chunk's read matrix")],
     "pipeline/extension.py": [
         ("exactly what the TPU DP kernel wants.",
          "exactly what the device DP kernel wants.",

@@ -98,6 +98,27 @@ def test_align_stream_golden_subset(port_fm):
     assert stats.bwt_calls < stats.bwt_queries        # compressive reuse
 
 
+def test_host_seeded_batch_drops_a_stale_query_context(port_fm):
+    """An engine that has served a device-seeded chunk keeps that chunk's
+    read matrix; a batch seeded on the host afterwards (no device seeder)
+    must not be sliced from it: align_chunk clears the context and the
+    SAM equals the host DP's."""
+    from compseed_tpu_torch.pipeline.align import align_chunk
+    opt = MemOptions()
+    seeder, engine = _port(opt, port_fm)
+    _stream(opt, port_fm, _reads("reads.fq", 64), seeder, engine)
+    assert engine.supports_meta_dual                  # context left behind
+    want = _reads("reads.fq", 96)[64:]
+    align_chunk(opt, port_fm, want, 64, engine=None, seeder=None,
+                tail=NativeTail(opt, port_fm))
+    got = _reads("reads.fq", 96)[64:]
+    align_chunk(opt, port_fm, got, 64, engine=engine, seeder=None,
+                tail=NativeTail(opt, port_fm))
+    assert not engine.supports_meta_dual
+    assert [r.sam for r in got] == [r.sam for r in want]
+    assert all(r.sam for r in got)
+
+
 def _jax_stream(tiny_fm, reads, chunk=CHUNK):
     from compseed_tpu.ops.engine import device_engine as jax_engine
     from compseed_tpu.ops.engine import device_seeder as jax_seeder

@@ -40,3 +40,26 @@ def dp_tiles(seed: int, P: int = 512, Q: int = 128, T: int = 256):
     ws[::7] = rng.integers(1, 10, len(ws[::7]))
     return (queries, qlens[:, None], targets, tlens[:, None], h0[:, None],
             ws[:, None].astype(np.int32))
+
+
+def pac_words(ref: np.ndarray) -> np.ndarray:
+    """2-bit codes -> the device index's packed words (one uint32 word of
+    16 bases per int64 element; base b at bit 8*(b>>2) + 2*(3-(b&3)))."""
+    n = (len(ref) + 15) // 16
+    codes = np.zeros(n * 16, np.int64)
+    codes[:len(ref)] = ref
+    b = np.arange(16)
+    sh = 8 * (b >> 2) + 2 * (3 - (b & 3))
+    return (codes.reshape(n, 16) << sh).sum(axis=1).astype(np.int64)
+
+
+def dual_case(seed: int, *, n: int, P: int, Q: int, T: int, w0: int,
+              l_pac: int = 5000, wide_r0: bool = False):
+    """A seeded reference with its packed words and a fused-DP pair table
+    on it: (qarr, pac_words, l_pac, meta)."""
+    from compseed_tpu_torch.ops.bsw_cases import dual_meta_case
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(0, 4, l_pac).astype(np.uint8)
+    qarr, meta = dual_meta_case(rng, ref, n=n, P=P, Q=Q, T=T, w0=w0, opt=OPT,
+                                read_len=min(Q - 5, 250), wide_r0=wide_r0)
+    return qarr, pac_words(ref), l_pac, meta
