@@ -53,7 +53,29 @@ Phases, in order; any failure exits non-zero:
                 rerun on the lockstep seeder and double GP_F, the second
                 must not overflow, the SAM of both must equal the
                 unforced run's, and the DP kernel's launches are counted
-                for this run alone.
+                for this run alone.  The int16 and the tile-route window
+                time one stream each.
+  5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
+                defaults (device engine on the card).  ``index`` on
+                tests/fixtures/tiny.fa must write the committed index
+                byte for byte; ``mem -o`` on the seven golden inputs
+                (single-end FASTQ, reordered raw reads, two-file
+                paired-end, -p smart pairing, ALT contigs single-end,
+                with -j and paired-end) must give every SAM line but @PG
+                equal to its golden.  Then at full width: the bench
+                reads as a raw-reads file through ``mem -K`` (16,384
+                reads a chunk), SAM byte-equal to phase 4's stream and
+                the exit report's reuse equal to the expected numbers,
+                reads/s of the whole command and, in turns with it, of
+                the same file through align_stream without the command;
+                the bench genome indexed at
+                interval 32 through ``mem --sa-intv 8`` against the index
+                built at 8 (equal suffix-array sample, equal SAM);
+                16,384 simulated pairs through ``mem r1 r2``, the first
+                512 pairs equal to ``--engine oracle``; ``mem -y 0`` on
+                1,024 reads against ``--engine oracle``.  The DP launch
+                counts are set to 0 before every ``mem`` run and must be
+                above 0 after it.
 
 With --scratch-variants (and --old-source FILE, an earlier
 csrc/bsw_extend.cu whose launcher has no pairs-per-block argument) the
@@ -61,20 +83,24 @@ source is also built with the scratch variant's hoisted loads off and on,
 and the builds are timed in turns on the Q = 2048 pairs and on the main
 path's captured tiles, each held to the plain version first.
 
-Prints the kernel table as one JSON line, the card's nvidia-smi line,
-and as the last line {"ok": true, "device": {...}}.  Imports torch,
-numpy and compseed_tpu_torch only.
+Prints the CLI phase's numbers and the kernel table as one JSON line
+each, the card's nvidia-smi line, and as the last line {"ok": true,
+"device": {...}}.  Imports torch, numpy and compseed_tpu_torch only.
 """
 
 from __future__ import annotations
 
 import argparse
 import concurrent.futures as cf
+import contextlib
+import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -83,6 +109,9 @@ CHUNK = 16384          # reads per chunk, the bench's default
 N_CHUNKS = 4
 RUNS = 3               # timed streams after one warm-up stream
 ORACLE_READS = 1024
+PE_PAIRS = 16384       # simulated pairs through ``mem r1 r2``
+PE_ORACLE_PAIRS = 512  # of them against the host oracle path
+PE_INSERT = "400,50"   # -I: both runs see one insert-size distribution
 FORCED_GP_F = 18       # the bench input needs a round-1 pool of ~23.2 R
 LONG_READS = 16        # reads of LONG_LEN + 3 bp for the Q = 2048 class
 LONG_LEN = 1500
@@ -411,6 +440,396 @@ def watch_overflow(seeder):
     return seen
 
 
+def sam_lines(path):
+    """A SAM file's lines without @PG (the one line that names the
+    command)."""
+    with open(path) as f:
+        return [line for line in f if not line.startswith("@PG")]
+
+
+def run_cli(argv, seed_s):
+    """``cli.main(argv)`` with its stderr captured.  Returns a record:
+    wall seconds, the kernels' launch counts of this run alone (set to 0
+    just before it), the seconds of every ``DeviceSeeder.run_flat`` call
+    (``seed_s``, filled by the caller's patch), the cap-overflow lines
+    and what the exit report gives.  A non-zero return code or a run
+    that launched no DP kernel ends the script."""
+    import torch
+    from compseed_tpu_torch import cli
+    from compseed_tpu_torch.ops import bsw_cuda
+    for k in bsw_cuda.LAUNCHES:
+        bsw_cuda.LAUNCHES[k] = 0
+    del seed_s[:]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    if rc != 0:
+        raise SystemExit(f"cli {argv} returned {rc}:\n{text[-2000:]}")
+    launches = dict(bsw_cuda.LAUNCHES)
+    rec = dict(wall_s=wall, launches=launches, seed_s=list(seed_s),
+               overflows=text.count("cap overflow"))
+    if "oracle" not in argv and \
+            sum(v for k, v in launches.items() if k.startswith("bsw_")) <= 0:
+        raise SystemExit(f"cli {argv}: no DP kernel was launched: {launches}")
+    m = re.search(r"BWT-extend: +(\d+) queries, (\d+) calls", text)
+    if m:
+        q, c = int(m.group(1)), int(m.group(2))
+        rec["bwt_hit_pct"] = 100.0 * (q - c) / q
+    m = re.search(r"SA Lookup: +(\d+) queries, (\d+) calls", text)
+    if m:
+        q, c = int(m.group(1)), int(m.group(2))
+        rec["sal_merged_pct"] = 100.0 * (q - c) / q
+    m = re.findall(r"\[mem\] processed (\d+) reads \((\d+) reads/s\)", text)
+    if m:
+        rec["reads"], rec["align_reads_per_s"] = int(m[-1][0]), int(m[-1][1])
+    m = re.search(r"densified .* in ([0-9.]+)s", text)
+    if m:
+        rec["densify_s"] = float(m.group(1))
+    return rec
+
+
+def bare_stream(dev, prefix, reads_path, k_bases, seed_s, want_sams):
+    """What ``mem -K k_bases prefix reads_path`` runs, without the
+    command around it: the index loaded from its files, a new seeder,
+    engine and tail, the raw-reads file through ``align_stream``.  The
+    SAM must equal ``want_sams``.  Returns reads/s over all of it and the
+    seconds of every ``run_flat`` call."""
+    import torch
+    from compseed_tpu_torch.index.fmindex import FMIndex
+    from compseed_tpu_torch.io.fastq import read_reordered_chunks
+    from compseed_tpu_torch.native import NativeTail
+    from compseed_tpu_torch.ops.engine import device_engine, device_seeder
+    from compseed_tpu_torch.options import MemOptions
+    from compseed_tpu_torch.pipeline.align import align_stream
+    from compseed_tpu_torch.pipeline.seeding import SeedingStats
+    del seed_s[:]
+    t0 = time.perf_counter()
+    opt = MemOptions()
+    fm = FMIndex.load(prefix)
+    seeder = device_seeder(opt, fm, dedup=True, device=dev)
+    engine = device_engine(opt, fm, dfi=seeder.dfi, device=dev)
+    done = []
+    align_stream(opt, fm, read_reordered_chunks(reads_path, k_bases), engine,
+                 seeder, NativeTail(opt, fm), on_done=done.extend,
+                 stats=SeedingStats())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if [r.sam for r in done] != want_sams:
+        raise SystemExit("align_stream on the raw-reads file: SAM differs "
+                         "from phase 4's")
+    return dict(reads_per_s=len(done) / wall, wall_s=wall,
+                seed_s=list(seed_s))
+
+
+def phase_cli(dev, smi, fm, reads_arr, main_sams, main_rec):
+    """Phase 5 (see the module docstring).  ``main_sams``: phase 4's SAM
+    strings of one stream of N_CHUNKS x CHUNK reads; ``main_rec``: its
+    record.  Returns the numbers of the ``cli`` JSON line; its
+    ``launches`` are summed over every ``mem`` run of the phase."""
+    import numpy as np
+    import torch
+    from compseed_tpu_torch import bench_input, cli
+    from compseed_tpu_torch.index.fmindex import FMIndex
+    from compseed_tpu_torch.ops import seeder2
+    from compseed_tpu_torch.utils import NT4_TO_ASCII
+
+    fx = os.path.join(ROOT, "tests", "fixtures")
+    seed_s = []
+    total = {}
+    run_flat = seeder2.DeviceSeeder.run_flat
+
+    def mem(argv):
+        rec = run_cli(["mem"] + argv, seed_s)
+        for k, v in rec["launches"].items():
+            total[k] = total.get(k, 0) + v
+        return rec
+
+    def timed_run_flat(self, queries, stats=None):
+        t0 = time.perf_counter()
+        out = run_flat(self, queries, stats)     # ends in copies to the host
+        seed_s.append(time.perf_counter() - t0)
+        return out
+
+    def text_of(arr):
+        return [bytes(NT4_TO_ASCII[r]).decode() for r in arr]
+
+    out = {"card": smi}
+    seeder2.DeviceSeeder.run_flat = timed_run_flat
+    try:
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(
+                prefix="chip_smoke_cli_",
+                dir=os.path.join(ROOT, "build")) as tmp:
+            def path(name):
+                return os.path.join(tmp, name)
+
+            # ---- index: the committed fixture index, byte for byte
+            t0 = time.time()
+            if cli.main(["index", "-p", path("tiny"),
+                         os.path.join(fx, "tiny.fa")]) != 0:
+                raise SystemExit("cli index failed")
+            for ext in (".pac", ".ann", ".amb", ".bwt", ".sa"):
+                with open(path("tiny") + ext, "rb") as f, \
+                        open(os.path.join(fx, "tiny" + ext), "rb") as g:
+                    if f.read() != g.read():
+                        raise SystemExit(f"cli index: tiny{ext} differs from "
+                                         f"the committed file")
+            log(f"[5] cli index: five files byte-equal to tests/fixtures/"
+                f"tiny.* ({time.time() - t0:.1f} s)")
+
+            # ---- the seven goldens at the CLI's defaults
+            alt = os.path.join(fx, "tiny_alt")
+            goldens = {}
+            for gold, argv in (
+                    ("golden_bwamem.sam", [path("tiny"), "reads.fq"]),
+                    ("golden_compseed_reordered.sam",
+                     [path("tiny"), "reads.reordered"]),
+                    ("golden_bwamem_pe.sam",
+                     [path("tiny"), "reads_1.fq", "reads_2.fq"]),
+                    ("golden_bwamem_smartpe.sam",
+                     ["-p", path("tiny"), "reads_mixed.fq"]),
+                    ("golden_alt_se.sam", [alt, "reads_alt.fq"]),
+                    ("golden_alt_j.sam", ["-j", alt, "reads_alt.fq"]),
+                    ("golden_alt_pe.sam",
+                     [alt, "reads_alt_1.fq", "reads_alt_2.fq"])):
+                argv = [a if os.sep in a or a.startswith("-")
+                        else os.path.join(fx, a) for a in argv]
+                rec = mem(["-o", path(gold)] + argv)
+                mine = sam_lines(path(gold))
+                want = sam_lines(os.path.join(fx, gold))
+                bad = [i for i, (m, g) in enumerate(zip(mine, want))
+                       if m != g]
+                log(f"[5] cli mem -> {gold}: {len(mine)} lines ({len(want)} "
+                    f"in the golden), {len(bad)} differ; {rec['wall_s']:.1f} "
+                    f"s, {rec['overflows']} cap overflow(s), launches "
+                    f"{rec['launches']}")
+                if len(mine) != len(want) or bad:
+                    raise SystemExit(f"cli mem: SAM differs from {gold}: "
+                                     f"lines {bad[:5]}")
+                goldens[gold] = dict(wall_s=rec["wall_s"],
+                                     launches=rec["launches"],
+                                     overflows=rec["overflows"])
+            out["goldens"] = goldens
+
+            # ---- full width: the bench reads as a raw-reads file
+            n_timed = N_CHUNKS * CHUNK
+            k_bases = str(CHUNK * reads_arr.shape[1])
+            seqs = text_of(reads_arr)
+            with open(path("bench.reads"), "w") as f:
+                for c in range(N_CHUNKS):
+                    s0 = (c * CHUNK) % len(seqs)
+                    f.write("\n".join((seqs[s0:] + seqs[:s0])[:CHUNK]) + "\n")
+            prefix8 = bench_input.index_prefix(8)
+            runs = []
+            for run in range(RUNS + 1):            # the first warms up
+                rec = mem(["-K", k_bases, "-o", path("bench.sam"), prefix8,
+                           path("bench.reads")])
+                rec["reads_per_s"] = n_timed / rec["wall_s"]
+                log(f"[5] cli mem -K {k_bases}, run {run}: "
+                    f"{rec['reads_per_s']:.1f} reads/s for the whole command "
+                    f"({rec['wall_s']:.2f} s), {rec['align_reads_per_s']} "
+                    f"reads/s in its own report; seeding s per chunk "
+                    f"{[round(x, 3) for x in rec['seed_s']]}")
+                runs.append(rec)
+            with open(path("bench.sam")) as f:
+                body = "".join(l for l in f if not l.startswith("@"))
+            if body != "".join(main_sams):
+                raise SystemExit("cli mem at full width: SAM differs from "
+                                 "phase 4's align_stream")
+            last = runs[-1]
+            reuse = (round(last["bwt_hit_pct"], 4),
+                     round(last["sal_merged_pct"], 4))
+            if reuse != EXPECT_REUSE or last["reads"] != n_timed:
+                raise SystemExit(f"cli mem at full width: exit report gives "
+                                 f"{reuse} over {last['reads']} reads, "
+                                 f"expected {EXPECT_REUSE} over {n_timed}")
+            if last["launches"]["bsw_meta_dual_kernel"] != 2 * N_CHUNKS:
+                raise SystemExit(f"cli mem at full width: expected "
+                                 f"{2 * N_CHUNKS} fused launches: "
+                                 f"{last['launches']}")
+            # the same file through align_stream alone (what the command
+            # runs, without its reader and writer threads), set up from
+            # the index files like the command, in turns with it
+            timed = runs[1:]
+            bare = []
+            for turn in ("bare", "bare", "cli"):
+                if turn == "cli":
+                    rec = mem(["-K", k_bases, "-o", path("bench.sam"),
+                               prefix8, path("bench.reads")])
+                    rec["reads_per_s"] = n_timed / rec["wall_s"]
+                    timed.append(rec)
+                else:
+                    rec = bare_stream(dev, prefix8, path("bench.reads"),
+                                      int(k_bases), seed_s, main_sams)
+                    bare.append(rec)
+                log(f"[5] in turns, {turn}: {rec['reads_per_s']:.1f} reads/s "
+                    f"with its set-up; seeding s per chunk "
+                    f"{[round(x, 3) for x in rec['seed_s']]}")
+            out["full_width"] = dict(
+                reads=n_timed, k_bases=int(k_bases),
+                reads_per_s=statistics.median(r["reads_per_s"]
+                                              for r in timed),
+                runs=[r["reads_per_s"] for r in timed],
+                align_reads_per_s=[r["align_reads_per_s"] for r in timed],
+                warm_up_reads_per_s=runs[0]["reads_per_s"],
+                stream_reads_per_s=main_rec["reads_per_s"],
+                bare_in_turns_reads_per_s=[r["reads_per_s"] for r in bare],
+                bare_in_turns_seed_s_per_chunk=[r["seed_s"] for r in bare],
+                seed_s_per_chunk=[r["seed_s"] for r in timed],
+                bwt_hit_pct=last["bwt_hit_pct"],
+                sal_merged_pct=last["sal_merged_pct"],
+                launches=last["launches"], sam_equals_stream=True)
+            log(f"[5] cli at full width: "
+                f"{out['full_width']['reads_per_s']:.1f} reads/s (median of {len(timed)}; phase 4's bare stream "
+                f"{main_rec['reads_per_s']:.1f}, align_stream on the same "
+                f"file in turns "
+                f"{[round(r['reads_per_s'], 1) for r in bare]}), SAM "
+                f"byte-equal to the stream's, reuse {reuse}")
+
+            # ---- --sa-intv: interval 32 densified to 8 on the card
+            t0 = time.time()
+            prefix32 = bench_input.index_prefix(32)
+            build32_s = time.time() - t0
+            n_half = 2 * CHUNK
+            with open(path("half.reads"), "w") as f:
+                f.write("\n".join((seqs + seqs)[:n_half]) + "\n")
+            sa = {}
+            for tag, argv in (("8", [prefix8]), ("32", [prefix32]),
+                              ("32->8", ["--sa-intv", "8", prefix32]),
+                              ("8 again", [prefix8])):
+                rec = mem(["-K", k_bases, "-o", path("half.sam")] + argv
+                          + [path("half.reads")])
+                with open(path("half.sam")) as f:
+                    body = "".join(l for l in f if not l.startswith("@"))
+                if body != "".join(main_sams[:n_half]):
+                    raise SystemExit(f"cli mem on the interval-{tag} index: "
+                                     f"SAM differs from phase 4's")
+                sa[tag] = dict(seed_s_per_chunk=rec["seed_s"],
+                               wall_s=rec["wall_s"],
+                               densify_s=rec.get("densify_s"),
+                               overflows=rec["overflows"])
+                log(f"[5] cli mem, index at interval {tag}: seeding s per "
+                    f"chunk {[round(x, 3) for x in rec['seed_s']]}, whole "
+                    f"command {rec['wall_s']:.2f} s, densify_sa "
+                    f"{rec.get('densify_s')} s; SAM equal")
+            if sa["32->8"]["densify_s"] is None:
+                raise SystemExit("cli mem --sa-intv 8 did not densify")
+            # the densified sample itself against the direct build, and
+            # densify_sa timed alone
+            from compseed_tpu_torch.ops.device_index import (densify_sa,
+                                                             to_device)
+            dfi32 = to_device(FMIndex.load(prefix32), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dfi8 = densify_sa(dfi32, 8)
+            torch.cuda.synchronize()
+            densify_s = time.perf_counter() - t0
+            want = torch.from_numpy(fm.sa_sampled.astype(np.int64)).to(dev)
+            if dfi8.sa_sampled.dtype != dfi32.sa_sampled.dtype or \
+                    not torch.equal(dfi8.sa_sampled.to(torch.int64), want):
+                raise SystemExit("densify_sa(32 -> 8) differs from the index "
+                                 "built at interval 8")
+            out["sa_intv"] = dict(runs=sa, densify_s=densify_s,
+                                  samples=int(want.numel()),
+                                  build32_s=build32_s, reads=n_half)
+            log(f"[5] densify_sa 32 -> 8 on the card: {densify_s:.3f} s for "
+                f"{want.numel()} samples, equal to the direct build "
+                f"(interval-32 index built in {build32_s:.1f} s)")
+
+            # ---- paired-end at full width
+            t0 = time.time()
+            r1, r2 = bench_input.pe_pairs(PE_PAIRS)
+            for name, arr in (("pe_1.fq", r1), ("pe_2.fq", r2)):
+                qual = "I" * arr.shape[1]
+                with open(path(name), "w") as f:
+                    f.write("".join(f"@p{i}\n{s}\n+\n{qual}\n"
+                                    for i, s in enumerate(text_of(arr))))
+                with open(path(name)) as f, open(path("o" + name), "w") as g:
+                    for _ in range(4 * PE_ORACLE_PAIRS):
+                        g.write(f.readline())
+            log(f"[5] {PE_PAIRS} pairs simulated and written in "
+                f"{time.time() - t0:.1f} s")
+            pe_runs = []
+            for run in range(RUNS + 1):
+                rec = mem(["-I", PE_INSERT, "-K", k_bases, "-o",
+                           path("pe.sam"), prefix8, path("pe_1.fq"),
+                           path("pe_2.fq")])
+                rec["reads_per_s"] = 2 * PE_PAIRS / rec["wall_s"]
+                log(f"[5] cli mem r1 r2, run {run}: {rec['reads_per_s']:.1f} "
+                    f"reads/s for the whole command, "
+                    f"{rec['align_reads_per_s']} in its own report; seeding "
+                    f"s per chunk {[round(x, 3) for x in rec['seed_s']]}; "
+                    f"{rec['overflows']} cap overflow(s); launches "
+                    f"{rec['launches']}")
+                pe_runs.append(rec)
+            t0 = time.time()
+            mem(["--engine", "oracle", "-I", PE_INSERT, "-o",
+                 path("pe_oracle.sam"), prefix8, path("ope_1.fq"),
+                 path("ope_2.fq")])
+            oracle_s = time.time() - t0
+            want = sam_lines(path("pe_oracle.sam"))
+            mine = sam_lines(path("pe.sam"))
+            n_hdr = sum(l.startswith("@") for l in want)
+            names = {f"p{i}" for i in range(PE_ORACLE_PAIRS)}
+            head = [l for l in mine if l.startswith("@")
+                    or l.split("\t", 1)[0] in names]
+            bad = [i for i, (m, g) in enumerate(zip(head, want)) if m != g]
+            flags = [int(l.split("\t")[1]) for l in mine[n_hdr:]]
+            proper = sum(1 for f in flags if f & 0x2 and not f & 0x900)
+            log(f"[5] paired-end: {len(mine) - n_hdr} records for "
+                f"{2 * PE_PAIRS} reads, {proper} primary records properly "
+                f"paired; first {PE_ORACLE_PAIRS} pairs vs --engine oracle "
+                f"({oracle_s:.1f} s): {len(bad)} of {len(want)} lines differ")
+            if len(head) != len(want) or bad:
+                raise SystemExit(f"paired-end: SAM differs from the host "
+                                 f"oracle path: lines {bad[:5]}")
+            if proper < PE_PAIRS:
+                raise SystemExit(f"paired-end: only {proper} of "
+                                 f"{2 * PE_PAIRS} reads properly paired")
+            out["paired_end"] = dict(
+                pairs=PE_PAIRS, insert=PE_INSERT,
+                reads_per_s=statistics.median(r["reads_per_s"]
+                                              for r in pe_runs[1:]),
+                runs=[r["reads_per_s"] for r in pe_runs[1:]],
+                align_reads_per_s=[r["align_reads_per_s"]
+                                   for r in pe_runs[1:]],
+                seed_s_per_chunk=[r["seed_s"] for r in pe_runs[1:]],
+                launches=pe_runs[-1]["launches"],
+                overflows=[r["overflows"] for r in pe_runs],
+                properly_paired=proper, oracle_pairs=PE_ORACLE_PAIRS,
+                oracle_s=oracle_s)
+
+            # ---- -y 0: the lockstep round 3 in the seeder
+            with open(path("y0.reads"), "w") as f:
+                f.write("\n".join(seqs[:ORACLE_READS]) + "\n")
+            rec = mem(["-y", "0", "-o", path("y0.sam"), prefix8,
+                       path("y0.reads")])
+            t0 = time.time()
+            mem(["-y", "0", "--engine", "oracle", "-o",
+                 path("y0_oracle.sam"), prefix8, path("y0.reads")])
+            mine, want = sam_lines(path("y0.sam")), \
+                sam_lines(path("y0_oracle.sam"))
+            bad = [i for i, (m, g) in enumerate(zip(mine, want)) if m != g]
+            log(f"[5] cli mem -y 0: {ORACLE_READS} reads, seeding "
+                f"{[round(x, 3) for x in rec['seed_s']]} s, launches "
+                f"{rec['launches']}; vs --engine oracle "
+                f"({time.time() - t0:.1f} s): {len(bad)} lines differ")
+            if len(mine) != len(want) or bad:
+                raise SystemExit(f"-y 0: SAM differs from the host oracle "
+                                 f"path: lines {bad[:5]}")
+            out["y0"] = dict(reads=ORACLE_READS, seed_s=rec["seed_s"],
+                             launches=rec["launches"],
+                             overflows=rec["overflows"])
+            out["launches"] = total
+    finally:
+        seeder2.DeviceSeeder.run_flat = run_flat
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scratch-variants", action="store_true")
@@ -686,7 +1105,8 @@ def main() -> None:
     CH = CHUNK
 
     def mk_reads(arr, start):
-        return [Read(name=str(start + i), seq=bytes(
+        # named from 1, as the raw-reads reader names a compressor's output
+        return [Read(name=str(start + i + 1), seq=bytes(
             NT4_TO_ASCII[arr[i]]).decode(), qual=None, comment=None)
             for i in range(len(arr))]
 
@@ -707,8 +1127,8 @@ def main() -> None:
         the DP kernel per band round, the acceptance in PyTorch."""
         return bsw._meta_dual_tiles(bsw_cuda.bsw_extend_tiles, *a, **kw)
 
-    def main_path(tag, seeder, env, dual=None):
-        """Counts to 0, build the engine, one warm-up stream and RUNS
+    def main_path(tag, seeder, env, dual=None, runs=RUNS):
+        """Counts to 0, build the engine, one warm-up stream and ``runs``
         timed ones, read the counts.  ``dual`` replaces the runner's fused
         program for this window.  Returns (record, engine, tail, SAM of
         the last stream's reads)."""
@@ -735,16 +1155,16 @@ def main() -> None:
             torch.cuda.synchronize()
             log(f"[4] {tag}: warm-up stream {time.time() - t0:.1f} s")
             bsw_cuda.bsw_meta_dual = launch
-            return timed_streams(tag, seeder, engine, tail)
+            return timed_streams(tag, seeder, engine, tail, runs)
         finally:
             bsw_cuda.bsw_meta_dual = launch
             bsw.bsw_meta_dual = fused
 
-    def timed_streams(tag, seeder, engine, tail):
+    def timed_streams(tag, seeder, engine, tail, runs):
         tail.prof.clear()
         engine.prof.clear()
         rates, seed_s, stats, done = [], [], None, []
-        for run in range(RUNS):
+        for run in range(runs):
             done = []
             st = SeedingStats()
             t0 = time.time()
@@ -766,14 +1186,14 @@ def main() -> None:
         rec = dict(
             reads_per_s=statistics.median(rates), runs=rates,
             engine_call_ms_per_stream=engine.prof.get("engine_call", 0.0)
-            * 1e3 / RUNS,
+            * 1e3 / runs,
             bwt_hit_pct=100.0 * (stats.bwt_queries - stats.bwt_calls)
             / max(stats.bwt_queries, 1),
             sal_merged_pct=100.0 * (stats.sal_queries - stats.sal_calls)
             / max(stats.sal_queries, 1),
             bwt_rounds=stats.rounds, seed_run_flat_s_last_chunk=seed_s,
             tail_profile_ms=prof, launches=launches,
-            streams=RUNS + 1, card=smi)
+            streams=runs + 1, card=smi)
         log(f"[4] {tag}: " + json.dumps(rec))
         return rec, engine, tail, [r.sam for r in done]
 
@@ -816,7 +1236,7 @@ def main() -> None:
 
     # (a) the same with int16 DP state
     rec16, engine16, tail16, sams16 = main_path(
-        "int16", seeder, {"COMPSEED_BSW_I16": "1"})
+        "int16", seeder, {"COMPSEED_BSW_I16": "1"}, runs=1)
     l16 = rec16["launches"]
     if l16["bsw_meta_dual_kernel_i16"] <= 0 or \
             l16["probe_add_one_kernel"] <= 0:
@@ -831,9 +1251,10 @@ def main() -> None:
     # int32 once more: the windows are timed in turns (a, b, c, a) so that
     # a drift of the host's launch rate is not read as a gain
     rec_tiles, _, _, sams_tiles = main_path("int32 by the tile route",
-                                            seeder, {}, dual=tile_route)
+                                            seeder, {}, dual=tile_route,
+                                            runs=1)
     lt = rec_tiles["launches"]
-    if lt["bsw_extend_kernel"] != 16 * (RUNS + 1) or \
+    if lt["bsw_extend_kernel"] != 16 * 2 or \
             lt["bsw_meta_dual_kernel"]:
         raise SystemExit(f"tile route: expected 16 DP launches per stream "
                          f"and no fused one: {lt}")
@@ -963,6 +1384,9 @@ def main() -> None:
     if cap is None:
         raise SystemExit("no pair table was captured from the main path")
 
+    # ---- phase 5: the command line
+    cli_rec = phase_cli(dev, smi, fm, reads_arr, sams32, rec32)
+
     probe_bytes = 2 * 8 * 128 * 4
     probe_bound = max(probe_bytes / HBM_BYTES_PER_S,
                       8 * 128 / INT32_OPS_PER_S) * 1e3
@@ -975,12 +1399,15 @@ def main() -> None:
                       "captured_fused": capd, "captured_tiles": cap,
                       "block_threads": threads,
                       "scratch_variants_ms": variant_ms}))
+    print(json.dumps({"cli": cli_rec}))
+
     def row(name, replaces, launches, errs, ms, plain_ms, bound, **more):
         return dict(name=name, route="cuda", source=KERNEL_SOURCE,
                     replaces=replaces, launches=launches, max_abs_err=errs,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
                     bound_by=bound["bound_by"],
-                    library_ms=more.pop("library_ms", None), **more)
+                    library_ms=more.pop("library_ms", None),
+                    cli_launches=cli_rec["launches"][name], **more)
 
     probe_row = dict(bound_ms=probe_bound, bound_by="bytes")
     print(json.dumps({"kernels": [

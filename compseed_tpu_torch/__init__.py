@@ -1,4 +1,5 @@
-"""PyTorch + CUDA port of compseed_tpu's default alignment path.
+"""PyTorch + CUDA port of compseed_tpu's alignment path, from the
+command line down.
 
 A self-contained package: it imports ``torch``, numpy and the standard
 library, never ``jax`` and nothing of ``compseed_tpu``.
@@ -12,8 +13,13 @@ library, never ``jax`` and nothing of ``compseed_tpu``.
     ``native``, ``options``, ``utils`` — the host layers, kept file for
     file equal to the JAX package's (same names, the package name
     changed), so SAM parity is a property of the device layers alone.
-  * ``compseed_tpu_torch.bench_input`` — the seeded benchmark genome and
-    reads.
+  * ``compseed_tpu_torch.cli`` — ``index`` / ``mem`` / ``reorder`` /
+    ``shm`` / ``merge`` (``python -m compseed_tpu_torch.cli``);
+    ``api`` — the SMEM iterator and single-read alignment;
+    ``parallel.distributed`` — chunk striding over processes and the
+    shard merge.
+  * ``compseed_tpu_torch.bench_input`` — the seeded benchmark genome,
+    reads and read pairs.
 
 Every public function and class takes an explicit torch device (or
 tensors that carry one); the CPU is used only when the caller passes CPU

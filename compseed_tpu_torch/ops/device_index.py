@@ -125,3 +125,39 @@ def to_device(fm: FMIndex, device: torch.device,
         pack_pac_words(fm.pac, fm.l_pac), primary=fm.primary,
         seq_len=fm.seq_len, sa_intv=fm.sa_intv, l_pac=fm.l_pac,
         idx_dtype=idx_dtype, device=device)
+
+
+def densify_sa(dfi: DeviceFMIndex, new_intv: int,
+               chunk: int = 1 << 21) -> DeviceFMIndex:
+    """Resample the suffix array to a DENSER interval on the device.
+
+    The reference ships `.sa` at intv 32 (FM_index/bwt.c:218 via bwtsw);
+    a denser sample trades device memory for SAL walk depth, and
+    retrofits a loaded intv-32 index without touching the on-disk files.
+
+    Each new sample SA[j*new_intv] is computed by the same masked
+    inverse-Psi walk SAL uses (`sa_batch`), ``chunk`` lanes at a time.
+    The walked values are EXACTLY the directly-built denser sample,
+    including the -1 sentinel at [0]: a walk that passes the primary row
+    picks up SA[primary]=0 via invPsi(primary)=0 and then terminates at
+    row 0 adding the stored -1 — the same wrap arithmetic
+    bwt_cal_sa/bwt_sa rely on (FM_index/bwt.c:86-96).  The chunks stay on
+    the device; a last chunk narrower than the others needs no padding.
+    """
+    import dataclasses
+
+    from compseed_tpu_torch.ops.fm import sa_batch
+    old = dfi.sa_intv
+    if not (0 < new_intv < old and old % new_intv == 0
+            and new_intv & (new_intv - 1) == 0):
+        raise ValueError(
+            f"densify_sa: new interval {new_intv} must be a power of two "
+            f"that divides and is smaller than the index's interval {old}")
+    n_new = dfi.seq_len // new_intv + 1
+    parts = []
+    for s in range(0, n_new, chunk):
+        k = torch.arange(s, min(s + chunk, n_new), dtype=torch.int64,
+                         device=dfi.device) * new_intv
+        parts.append(sa_batch(dfi, k))
+    return dataclasses.replace(dfi, sa_sampled=torch.cat(parts),
+                               sa_intv=new_intv)

@@ -36,7 +36,8 @@ from compseed_tpu_torch.ops import seedscan as ss
 from compseed_tpu_torch.ops.bits import as_i32
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex, to_device
 from compseed_tpu_torch.ops.seedscan import _drop_set
-from compseed_tpu_torch.ops.smem import BatchSeeder
+from compseed_tpu_torch.ops.smem import (MMEM3, BatchSeeder,
+                                         _seed_strategy_one)
 from compseed_tpu_torch.pipeline import seeding
 from compseed_tpu_torch.pipeline.chain import l_rep_one
 from compseed_tpu_torch.pipeline.types import Seed
@@ -187,10 +188,6 @@ class DeviceSeeder:
     def __init__(self, opt, fm, device: torch.device,
                  dfi: DeviceFMIndex | None = None, dedup: bool = True):
         _check_knobs(dedup)
-        if int(opt.max_mem_intv) <= 0:
-            raise NotImplementedError(
-                "max_mem_intv <= 0 selects the lockstep round-3 seeder "
-                f"(smem._seed_strategy_one), not ported yet ({_ENGINES})")
         self.opt = opt
         self.fm = fm
         self.device = torch.device(device)
@@ -337,6 +334,8 @@ class DeviceSeeder:
         def r3(qarr, rlens, memo):
             # greedy round 3 (tem_forward_sst, comp_seed.cpp:141-160)
             R_ = qarr.shape[0]
+            if max_intv <= 0:
+                return r3_lockstep(qarr, rlens)
             GP3 = R_ * self.MEM3_F
             pool3, n3, ovf3g, fq3, fc3, memo = ss.chain_scan(
                 self.dfi, qarr, rlens, GP3, memo, W=CW, mode="r3",
@@ -348,6 +347,25 @@ class DeviceSeeder:
             return (ok3, pool3[:, 5].to(_I32), pool3[:, 0], pool3[:, 1],
                     pool3[:, 2], pool3[:, 4].to(_I32), pool3[:, 3].to(_I32),
                     ovf3, ovf3g, fq3, fc3)
+
+        def r3_lockstep(qarr, rlens):
+            # max_mem_intv <= 0: the lockstep round 3, MMEM3 slots and an
+            # overflow flag per read, no forward-step counters
+            R_ = qarr.shape[0]
+            packed3 = _seed_strategy_one(
+                self.dfi, L, int(opt.min_seed_len), max_intv, qarr,
+                rlens > 0)
+            flat = packed3[:, :MMEM3 * 5].reshape(-1, 5)
+            n = packed3[:, MMEM3 * 5].to(_I32)
+            ovf3 = packed3[:, MMEM3 * 5 + 1] != 0          # per read
+            slot = torch.arange(MMEM3, dtype=_I32, device=dev)[None, :]
+            valid = (slot < n[:, None]).reshape(-1)
+            rid3 = torch.arange(R_, dtype=_I32, device=dev) \
+                .repeat_interleave(MMEM3)
+            end3 = flat[:, 4].to(_I32)
+            ok3 = valid & (flat[:, 2] > 0) & (end3 <= rlens[rid3.to(_I64)])
+            return (ok3, rid3, flat[:, 0], flat[:, 1], flat[:, 2],
+                    flat[:, 3].to(_I32), end3, ovf3, false, zero, zero)
 
         def merge(*parts):
             ok, rid, k, l, s, beg, end = (

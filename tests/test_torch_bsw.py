@@ -25,6 +25,10 @@ from compseed_tpu_torch.pipeline.extension import SeqPair
 
 from torch_dp_cases import GAP, MAT, OPT, dp_tiles
 
+# the port's CPU programs are many small operations: one intra-op thread
+# is as fast, and test workers side by side do not fight over the cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 
 

@@ -273,3 +273,35 @@ def test_probe_out_argument_on_card(dev):
     with pytest.raises(TypeError):
         bsw_cuda.probe_add_one(x, out=y.to(torch.int64))
     assert bsw_cuda.LAUNCHES["probe_add_one_kernel"] == n0 + 1
+
+
+@pytest.mark.parametrize("what", ["256 reads", "128 pairs"])
+def test_cli_mem_on_card_equals_cpu(dev, tmp_path, what):
+    """``mem`` at the CLI's defaults (device engine on the card) gives
+    the SAM of the same command with ``--device cpu``, every line but
+    @PG, and launches a DP kernel."""
+    import os
+    from compseed_tpu_torch import cli
+    fx = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+    names, n = (("reads.fq",), 256) if what == "256 reads" else \
+        (("reads_1.fq", "reads_2.fq"), 128)
+    inputs = []
+    for name in names:
+        inputs.append(str(tmp_path / name))
+        with open(os.path.join(fx, name)) as f, open(inputs[-1], "w") as g:
+            for _ in range(4 * n):
+                g.write(f.readline())
+    sams = {}
+    for tag, device in (("card", []), ("cpu", ["--device", "cpu"])):
+        out = str(tmp_path / f"{tag}.sam")
+        for k in bsw_cuda.LAUNCHES:
+            bsw_cuda.LAUNCHES[k] = 0
+        assert cli.main(["mem", *device, "-v", "1", "-o", out,
+                         os.path.join(fx, "tiny"), *inputs]) == 0
+        dp = sum(v for k, v in bsw_cuda.LAUNCHES.items()
+                 if k.startswith("bsw_"))
+        assert (dp > 0) == (tag == "card"), bsw_cuda.LAUNCHES
+        with open(out) as f:
+            sams[tag] = [l for l in f if not l.startswith("@PG")]
+    assert sams["card"] == sams["cpu"]
+    assert len(sams["card"]) >= 2 + (n if len(names) == 1 else 2 * n)

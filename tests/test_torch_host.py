@@ -34,6 +34,7 @@ COPIED = [
     "pipeline/chain.py", "pipeline/cigar.py", "pipeline/extension.py",
     "pipeline/finalize.py", "pipeline/align.py",
     "native/__init__.py",
+    "api.py", "parallel/__init__.py", "parallel/distributed.py", "cli.py",
 ]
 
 # file -> [(text in the JAX package's file, text in the port's, reason)]
@@ -110,6 +111,232 @@ ALLOWED = {
          "    # bug behind a SAM corruption seen when a DP engine returned\n"
          "    # res[:, j] views instead of copies\n",
          "history of another device"),
+    ],
+    "api.py": [
+        ("does not need batching or a driv" "er.",
+         "does not need batching or a driving loop.", "wording")],
+    "parallel/distributed.py": [
+        ('"""Multi-host distribution: jax.distributed + deterministic shard merge.\n',
+         '"""Multi-host distribution: torch.distributed + deterministic shard merge.\n',
+         "torch.distributed in place of jax.distributed"),
+        ('cstl/kthread.c:95-105).  The multi-host TPU equivalent implemented here:\n',
+         'cstl/kthread.c:95-105).  The multi-host equivalent implemented here:\n',
+         "the port's device is a GPU"),
+        ('  * ``init_distributed`` — bring up ``jax.distributed`` from the standard\n'
+         '    coordinator env vars so every host sees the global device set.\n',
+         '  * ``init_distributed`` — bring up ``torch.distributed`` from the\n'
+         '    coordinator env vars so every host joins one process group.\n',
+         "torch.distributed in place of jax.distributed"),
+        ("    intra-host story is parallel/sharded.py's mesh replication).\n",
+         '    intra-host multi-device path is not ported yet).\n',
+         "parallel/sharded.py is not ported yet"),
+        ('tests/test_distributed.py with n_hosts simulated process-locally.\n',
+         'tests/test_torch_cli.py with n_hosts simulated process-locally.\n',
+         "the port's own test file"),
+        ('                     process_id: int | None = None) -> tuple[int, int]:\n'
+         '    """Initialize jax.distributed when a multi-host launch is configured\n'
+         '    (env: COMPSEED_COORD, COMPSEED_NPROCS, COMPSEED_PROC_ID — or the\n'
+         '    standard JAX coordinator variables).  Returns (process_id, n)."""\n'
+         '    import jax\n'
+         '\n',
+         '                     process_id: int | None = None, *,\n'
+         '                     device) -> tuple[int, int]:\n'
+         '    """Initialize torch.distributed when a multi-host launch is configured\n'
+         '    (env: COMPSEED_COORD, COMPSEED_NPROCS, COMPSEED_PROC_ID): the\n'
+         "    coordinator's host:port is the group's TCP address, the backend is\n"
+         '    nccl for a CUDA ``device`` and gloo for the CPU.  Returns\n'
+         '    (process_id, n)."""\n',
+         "init_distributed takes the device, which picks the backend"),
+        ('        jax.distributed.initialize(coordinator_address=coordinator,\n'
+         '                                   num_processes=num_processes,\n'
+         '                                   process_id=process_id)\n',
+         '        import torch\n'
+         '        import torch.distributed\n'
+         '\n'
+         '        backend = "nccl" if torch.device(device).type == "cuda" else "gloo"\n'
+         '        torch.distributed.init_process_group(\n'
+         '            backend, init_method=f"tcp://{coordinator}",\n'
+         '            world_size=num_processes, rank=process_id)\n',
+         "torch.distributed.init_process_group in place of jax.distributed.initialize"),
+        ('    # the chunk stream; no cross-process jax collectives are needed)\n',
+         '    # the chunk stream; no cross-process collectives are needed)\n',
+         "no JAX in the port"),
+    ],
+    "cli.py": [
+        ("    one 64-bit SA-IS build" "er (csrc/sais.cpp), which produces the\n",
+         "    one 64-bit SA-IS build (csrc/sais.cpp), which produces the\n",
+         "wording"),
+        ('                         "the 64-bit SA-IS build' 'er (same output '
+         'bytes)")\n',
+         '                         "the 64-bit SA-IS build (same output '
+         'bytes)")\n', "wording"),
+        ('        print(f"[index] -a {args.algo}: the 64-bit SA-IS build' 'er '
+         'covers "\n',
+         '        print(f"[index] -a {args.algo}: the 64-bit SA-IS build '
+         'covers "\n', "wording"),
+        ('                          BWA-MEM flag surface.\n',
+         '                          BWA-MEM flag surface.\n'
+         '\n'
+         '``mem`` runs on ``--device cuda`` with ``--engine device`` unless told\n'
+         'otherwise: seeding, SAL and the banded-SW extension on the card, the\n'
+         'native tail on the host.  ``--device cpu`` runs the same device programs\n'
+         'on the CPU, ``--engine oracle`` the scalar host path.  A card that is\n'
+         'missing or a kernel that does not build or launch ends the run with an\n'
+         'error; nothing carries on with another device or engine.\n',
+         "docstring: the port's defaults"),
+        ('    return a, b\n'
+         '\n'
+         '\n',
+         '    return a, b\n'
+         '\n'
+         '\n'
+         'def _check_sa_intv(args, shm_name: str) -> int:\n'
+         '    """Validate --sa-intv against the interval of the index that ``mem``\n'
+         "    is about to load, read from the staged copy's metadata or the .sa\n"
+         '    header alone.  Returns the interval to densify to, 0 when the flag is\n'
+         '    absent or ignored (with a warning), -1 after printing an error."""\n'
+         '    new = args.sa_intv\n'
+         '    if not new:\n'
+         '        return 0\n'
+         '    from compseed_tpu.index import shm as shm_mod\n'
+         '    if shm_mod.shm_available(shm_name):\n'
+         '        old = int(shm_mod.shm_load(shm_name).sa_intv)    # memory maps only\n'
+         '    else:\n'
+         '        import numpy as _np\n'
+         '        with open(args.index_prefix + ".sa", "rb") as f:\n'
+         '            old = int(_np.frombuffer(f.read(56), dtype="<u8")[5])\n'
+         '    if new < 0 or new & (new - 1) or (new < old and old % new):\n'
+         '        print(f"[E::mem] --sa-intv {new}: must be a power of two that "\n'
+         '              f"divides the index\'s suffix-array interval {old}",\n'
+         '              file=sys.stderr)\n'
+         '        return -1\n'
+         '    if new >= old:\n'
+         '        print(f"[W::mem] --sa-intv {new} is ignored: it is not smaller "\n'
+         '              f"than the index\'s suffix-array interval {old}",\n'
+         '              file=sys.stderr)\n'
+         '        return 0\n'
+         '    if args.engine != "device":\n'
+         '        print(f"[W::mem] --sa-intv {new} is ignored: it applies to "\n'
+         '              f"--engine device, not --engine {args.engine}",\n'
+         '              file=sys.stderr)\n'
+         '        return 0\n'
+         '    return new\n'
+         '\n'
+         '\n',
+         "--sa-intv is validated before the index is loaded: a bad value ends the run with exit code 1 and both values, an ignored one warns"),
+        ('                    default="oracle")\n',
+         '                    default="device")\n'
+         '    ap.add_argument("--device", default="cuda",\n'
+         '                    help="torch device of the device engine: cuda "\n'
+         '                         "(= cuda:0), cuda:N or cpu")\n',
+         "an entry point of the port runs on the card unless the caller asks for the CPU: --engine device and the new --device flag"),
+        ('                         "intv 32): HBM traded for SAL walk depth; "\n',
+         '                         "intv 32): device memory traded for SAL walk "\n'
+         '                         "depth; "\n',
+         "the port's device is a GPU"),
+        ('    ap.add_argument("-v", type=int, default=3, dest="verbose")\n'
+         '    args = ap.parse_args(argv)\n',
+         '    ap.add_argument("-v", type=int, default=3, dest="verbose")\n'
+         '    args = ap.parse_args(argv)\n'
+         '    if args.mesh > 0:\n'
+         '        raise NotImplementedError(\n'
+         '            "--mesh selects the sharded multi-device pipeline "\n'
+         '            "(parallel/mesh.py, parallel/sharded.py), not ported yet "\n'
+         '            "(ROADMAP: modules to port — multi-GPU)")\n',
+         "the sharded multi-device pipeline is not ported yet; its knob raises"),
+        ('    shm_name = os.path.basename(args.index_prefix)\n',
+         '    shm_name = os.path.basename(args.index_prefix)\n'
+         '    sa_intv = _check_sa_intv(args, shm_name)\n'
+         '    if sa_intv < 0:\n'
+         '        return 1\n',
+         "--sa-intv validation, before anything is loaded"),
+        ('            a.is_alt = 0\n',
+         '            a.is_alt = 0\n'
+         '\n'
+         '    dev = None\n'
+         '    if args.engine == "device":\n'
+         '        import torch\n'
+         '        dev = torch.device(args.device)\n'
+         '        if dev.type == "cuda" and dev.index is None:\n'
+         '            dev = torch.device("cuda", 0)    # tensors report cuda:0\n'
+         '        if dev.type == "cuda" and not torch.cuda.is_available():\n'
+         '            print(f"[E::mem] --device {args.device}: no CUDA device is "\n'
+         '                  "available (pass --device cpu or --engine oracle to run "\n'
+         '                  "without one)", file=sys.stderr)\n'
+         '            return 1\n',
+         "an explicit torch device; no card ends the run, nothing carries on with the CPU"),
+        ('        dfi = None\n'
+         '        if args.sa_intv and args.sa_intv < fm.sa_intv:\n'
+         '            import numpy as _np\n'
+         '            from compseed_tpu.ops.device_index import densify_sa, to_device\n'
+         '            dfi = densify_sa(to_device(fm), args.sa_intv)\n'
+         '            # keep the host views in agreement (oracle fallback / SAL)\n'
+         '            fm.sa_intv = args.sa_intv\n'
+         '            fm.sa_sampled = _np.asarray(dfi.sa_sampled).astype(_np.uint64)\n'
+         '        if args.mesh > 0:\n'
+         "            # multi-chip: the production pipeline shard_map'd over a\n"
+         '            # data mesh (parallel/sharded.py)\n'
+         '            import jax\n'
+         '            import numpy as _np\n'
+         '            from compseed_tpu.parallel.mesh import make_mesh\n'
+         '            from compseed_tpu.parallel.sharded import (ShardedBswRunner,\n'
+         '                                                       ShardedSeeder)\n'
+         '            mesh = make_mesh(jax.devices()[:args.mesh])\n'
+         '            seeder = ShardedSeeder(opt, fm, mesh=mesh, dedup=True,\n'
+         '                                   dfi=dfi)\n'
+         '            engine = ShardedBswRunner(opt, _np.array(opt.mat), mesh=mesh,\n'
+         '                                      dfi=seeder.dfi)\n'
+         '        else:\n'
+         '            from compseed_tpu.ops.engine import device_engine, device_seeder\n',
+         '        from compseed_tpu.ops.engine import (device_engine,\n'
+         '                                                   device_seeder)\n'
+         '        try:\n'
+         '            dfi = None\n'
+         '            if sa_intv:\n'
+         '                import numpy as _np\n'
+         '                from compseed_tpu.ops.device_index import (densify_sa,\n'
+         '                                                                 to_device)\n'
+         '                t_d = time.time()\n'
+         '                dfi = densify_sa(to_device(fm, dev), sa_intv)\n'
+         '                # keep the host views in agreement (oracle fallback / SAL)\n'
+         '                fm.sa_sampled = \\\n'
+         '                    dfi.sa_sampled.cpu().numpy().astype(_np.uint64)\n'
+         '                if args.verbose >= 3:\n'
+         '                    print(f"[mem] densified the suffix-array sample from "\n'
+         '                          f"interval {fm.sa_intv} to {sa_intv} in "\n'
+         '                          f"{time.time() - t_d:.2f}s", file=sys.stderr)\n'
+         '                fm.sa_intv = sa_intv\n',
+         "densify_sa takes the validated interval and a device and reports its time; the --mesh branch is gone (it raises above)"),
+        ('            seeder = device_seeder(opt, fm, dedup=True, dfi=dfi)\n'
+         '            engine = device_engine(opt, fm,\n'
+         '                                   dfi=getattr(seeder, "dfi", None))\n',
+         '            seeder = device_seeder(opt, fm, dedup=True, dfi=dfi, device=dev)\n'
+         '            # on a card this builds the kernels and runs their launch\n'
+         '            # self-check\n'
+         '            engine = device_engine(opt, fm, dfi=seeder.dfi, device=dev)\n'
+         '        except (RuntimeError, OSError) as e:\n'
+         '            # a kernel that does not build or launch, or a device that\n'
+         '            # cannot be used: the run ends here\n'
+         '            print(f"[E::mem] --engine device on {dev}: {e}",\n'
+         '                  file=sys.stderr)\n'
+         '            if args.output:\n'
+         '                out.close()\n'
+         '            return 1\n',
+         "the port's engines take an explicit device; a kernel that does not build or launch ends the run with its message"),
+        ('    proc_id, n_procs = dist_mod.init_distributed()\n',
+         '    proc_id, n_procs = dist_mod.init_distributed(\n'
+         '        device=dev if dev is not None else "cpu")\n',
+         "torch.distributed's backend follows the device"),
+        ('    # honor an explicit cpu request: the machine profile may pre-select\n'
+         '    # the TPU backend via jax.config, which beats the env var alone\n'
+         '    if os.environ.get("JAX_PLATFORMS", "").startswith("cpu"):\n'
+         '        try:\n'
+         '            import jax\n'
+         '            jax.config.update("jax_platforms", "cpu")\n'
+         '        except Exception:\n'
+         '            pass\n',
+         "",
+         "no JAX in the port"),
     ],
 }
 
@@ -197,6 +424,29 @@ def test_bench_input_equals_bench_py(monkeypatch, tmp_path):
     fm2, reads2 = bench_input.setup()                 # from the cache
     assert np.array_equal(fm2.sa_sampled, fm.sa_sampled)
     assert reads2.tobytes() == reads.tobytes()
+
+
+def test_pe_pairs_equals_pe_bench_script():
+    """bench_input.pe_pairs is the pair simulator of scripts/pe_bench.py,
+    byte for byte, over the bench genome and from its seed."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "pe_bench_script", os.path.join(ROOT, "scripts", "pe_bench.py"))
+    pe_bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pe_bench)
+    assert (pe_bench.READ_LEN, pe_bench.INS_MEAN, pe_bench.INS_SD) == \
+        (bench_input.READ_LEN, bench_input.INS_MEAN, bench_input.INS_SD)
+    genome = bench._make_genome(np.random.default_rng(2024))
+    for n_pairs, seed in ((96, 77), (40, 5)):
+        w1, w2 = pe_bench.simulate_pairs(np.random.default_rng(seed), genome,
+                                         n_pairs)
+        g1, g2 = bench_input.pe_pairs(n_pairs, seed)
+        assert g1.shape == g2.shape == (n_pairs, 101)
+        assert g1.tobytes() == w1.tobytes() and g2.tobytes() == w2.tobytes()
+    assert bench_input.PE_SEED == 77
+    d1, d2 = bench_input.pe_pairs(96, genome=genome)        # default seed
+    g1, g2 = bench_input.pe_pairs(96, 77)
+    assert d1.tobytes() == g1.tobytes() and d2.tobytes() == g2.tobytes()
 
 
 def test_native_library_is_the_ports_own_build():

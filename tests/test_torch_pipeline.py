@@ -30,6 +30,10 @@ from compseed_tpu_torch.pipeline.seeding import SeedingStats
 
 from tests.conftest import FIXTURES
 
+# the port's CPU programs are many small operations: one intra-op thread
+# is as fast, and test workers side by side do not fight over the cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 ROOT = os.path.dirname(os.path.dirname(FIXTURES))
 # 100-read chunks stay inside the seeder's caps on this sa_intv=32
@@ -189,6 +193,40 @@ def test_package_imports_no_jax():
     assert r.returncode == 0, r.stderr
     n, bad = r.stdout.split(" ", 1)
     assert int(n) >= 35 and bad.strip() == "[]", r.stdout
+
+
+def test_cli_runs_with_jax_blocked(tmp_path):
+    """``python -m compseed_tpu_torch.cli mem`` in a fresh interpreter
+    where importing jax, bench or compseed_tpu would fail: it aligns on
+    the CPU, and the same interpreter refuses the default device (no
+    card here) with a non-zero exit code."""
+    reads = str(tmp_path / "r.fq")
+    with open(os.path.join(FIXTURES, "reads.fq")) as f, \
+            open(reads, "w") as g:
+        for _ in range(4 * 16):
+            g.write(f.readline())
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'bench', 'compseed_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "sys.argv = ['cli'] + sys.argv[1:]\n"
+        "runpy.run_module('compseed_tpu_torch.cli', run_name='__main__')\n")
+    out = str(tmp_path / "o.sam")
+    idx = os.path.join(FIXTURES, "tiny")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, "-c", code, "mem", "--device", "cpu",
+                        "-o", out, idx, reads], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    with open(out) as f:
+        recs = [l for l in f if not l.startswith("@")]
+    assert recs == _golden("golden_bwamem.sam", 16)
+    assert "processed 16 reads" in r.stderr
+    r = subprocess.run([sys.executable, "-c", code, "mem", "-o",
+                        str(tmp_path / "card.sam"), idx, reads], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 1 and "no CUDA device" in r.stderr
+    assert not os.path.exists(str(tmp_path / "card.sam"))
 
 
 def test_sources_name_no_jax_package():

@@ -28,6 +28,10 @@ from compseed_tpu_torch.pipeline.seeding import SeedingStats
 
 from tests.conftest import FIXTURES
 
+# the port's CPU programs are many small operations: one intra-op thread
+# is as fast, and test workers side by side do not fight over the cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 N_READS = 96          # one R=256 chunk (larger fills trip the SAL caps)
 
@@ -423,3 +427,41 @@ def test_call_interface_overflow_rerun(tiny_fm, port_fm):
     for r in range(0, len(queries), 7):
         assert got[r][0] == seeding.collect_matches(tiny_fm, opt,
                                                     queries[r]), r
+
+
+def test_max_mem_intv_zero_vs_jax(tiny_fm, port_fm):
+    """``-y 0``: max_mem_intv <= 0 selects the lockstep round 3
+    (MMEM3 slots and an overflow flag per read, no forward-step
+    counters); round-3 outputs, head and seed matrix equal the JAX
+    seeder's."""
+    from compseed_tpu.ops.seeder2 import DeviceSeeder as JaxSeeder
+    jo, to = JaxOptions(), MemOptions()
+    jo.max_mem_intv = to.max_mem_intv = 0
+    js = JaxSeeder(jo, tiny_fm, dedup=True)
+    ts = DeviceSeeder(to, port_fm, CPU, dedup=True)
+    queries = _queries("reads.reordered", 48)
+    R, L, qd, rd = ts._upload(queries)
+    jq, jr = jnp.asarray(qd.numpy()), jnp.asarray(rd.numpy())
+    jf, tf = js._build(R, L), ts._build(R, L)
+    memo_j = jf["r1"](js.dfi, jq, jr)[16]
+    memo_t = tf["r1"](qd, rd)[16]
+    j3 = jf["r3"](js.dfi, jq, jr, memo_j)
+    t3 = tf["r3"](qd, rd, memo_t)
+    for nm, g, w in zip(R3_NAMES, t3, j3):
+        _assert_tree_equal(g, w, nm)
+    assert _np(t3[0]).shape == (R * tsmem.MMEM3,)
+    jh, jp = jf["whole"](js.dfi, jq, jr)
+    _, _, th, tp = ts._run(tf, qd, rd)
+    assert np.array_equal(th.numpy(), np.asarray(jh))
+    assert np.array_equal(tp.numpy(), np.asarray(jp))
+    assert not th.numpy()[3:14].any()
+    assert th.numpy()[26] == 0 and th.numpy()[27] == 0    # fq3, fc3
+    # and through run_flat, with the counters
+    sj, st = seeding.SeedingStats(), SeedingStats()
+    got = ts.run_flat(queries, st)
+    want = js.run_flat(queries, sj)
+    for g, w in zip(got, want):
+        assert np.array_equal(np.asarray(g), np.asarray(w))
+    assert (st.bwt_queries, st.bwt_calls, st.sal_queries, st.sal_calls) == \
+        (sj.bwt_queries, sj.bwt_calls, sj.sal_queries, sj.sal_calls)
+    assert st.rounds == sj.rounds

@@ -26,6 +26,10 @@ from compseed_tpu_torch.pipeline.seeding import SeedingStats
 
 from tests.conftest import FIXTURES
 
+# the port's CPU programs are many small operations: one intra-op thread
+# is as fast, and test workers side by side do not fight over the cores
+torch.set_num_threads(1)
+
 CPU = torch.device("cpu")
 L = 128
 P = 64
