@@ -76,6 +76,21 @@ Phases, in order; any failure exits non-zero:
                 1,024 reads against ``--engine oracle``.  The DP launch
                 counts are set to 0 before every ``mem`` run and must be
                 above 0 after it.
+  6. engines  — every seeding engine of ``seeder2.ENGINES`` on the card.
+                (a) The first 16,384 bench reads as one chunk through
+                each: head and seed matrix equal the JAX package's,
+                stored in compseed_tpu_torch/engine_heads.json.  (b) Two
+                more runs of that chunk per engine, a fresh seeder a run:
+                seeds equal the default engine's; device seconds, BWT
+                hit and SAL merged shares, overflows and per-read
+                splices recorded.  (c) Cell A'':
+                a seeder under COMPSEED_ADAPTIVE_CAPS=0 with the memo
+                round-3 pool forced to R (MEM3_F = 1) streams phase 4's
+                4 x 16,384 reads: chunk 1 alone overflows, is rerun and
+                switches the forward dedup off, chunks 2-4 run the
+                fwd_off engine; SAM byte-equal to phase 4's.  (d) The two
+                2,000-read goldens under the all_off engine, one chunk
+                each, SAM byte-equal.
 
 With --scratch-variants (and --old-source FILE, an earlier
 csrc/bsw_extend.cu whose launcher has no pairs-per-block argument) the
@@ -83,9 +98,10 @@ source is also built with the scratch variant's hoisted loads off and on,
 and the builds are timed in turns on the Q = 2048 pairs and on the main
 path's captured tiles, each held to the plain version first.
 
-Prints the CLI phase's numbers and the kernel table as one JSON line
-each, the card's nvidia-smi line, and as the last line {"ok": true,
-"device": {...}}.  Imports torch, numpy and compseed_tpu_torch only.
+Prints the CLI phase's and the engine phase's numbers and the kernel
+table as one JSON line each, the card's nvidia-smi line, and as the
+last line {"ok": true, "device": {...}}.  Imports torch, numpy and
+compseed_tpu_torch only.
 """
 
 from __future__ import annotations
@@ -425,7 +441,8 @@ def golden(name):
 
 
 def watch_overflow(seeder):
-    """Record (last_overflow, GP_F, rerun seconds) after every run_flat."""
+    """Record (last_overflow, GP_F, rerun seconds, device seconds,
+    fwd_disabled) after every run_flat."""
     seen = []
     run_flat = seeder.run_flat
 
@@ -433,7 +450,8 @@ def watch_overflow(seeder):
         out = run_flat(queries, stats)
         seen.append((bool(seeder.last_overflow), seeder.GP_F,
                      seeder.prof.get("rerun_s") if seeder.last_overflow
-                     else None))
+                     else None, seeder.prof["device_s"],
+                     seeder.fwd_disabled))
         return out
 
     seeder.run_flat = watched
@@ -827,6 +845,197 @@ def phase_cli(dev, smi, fm, reads_arr, main_sams, main_rec):
             out["launches"] = total
     finally:
         seeder2.DeviceSeeder.run_flat = run_flat
+    return out
+
+
+@contextlib.contextmanager
+def engine_env(knobs):
+    """The env knobs that select a seeding engine, set for the block."""
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def head_record(head, seedpk):
+    """A seeder head's 28 scalars and digests of the whole head and seed
+    matrix, as ``compseed_tpu_torch/engine_heads.json`` stores them."""
+    import hashlib
+    import numpy as np
+    return dict(
+        scalars=[int(x) for x in head[:28]],
+        head_sha256=hashlib.sha256(
+            np.ascontiguousarray(head, np.int32).tobytes()).hexdigest(),
+        seedpk_sha256=hashlib.sha256(
+            np.ascontiguousarray(seedpk, np.int32).tobytes()).hexdigest())
+
+
+def reuse_of(head):
+    """(bwt_hit_pct, sal_merged_pct) of one chunk from its head."""
+    q = int(head[18]) + int(head[20]) + sum(int(x) for x in head[22:28:2])
+    c = int(head[19]) + int(head[21]) + sum(int(x) for x in head[23:28:2])
+    return 100.0 * (q - c) / q, 100.0 * (int(head[1]) - int(head[2])) / \
+        int(head[1])
+
+
+def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
+                  chunks, main_sams):
+    """Phase 6 (see the module docstring).  ``chunks``: phase 4's stream
+    of N_CHUNKS x CHUNK reads; ``main_sams`` its SAM.  Returns the numbers
+    of the ``engines`` JSON line."""
+    import numpy as np
+    import torch
+    from compseed_tpu_torch.io.fastq import (read_fastq_chunks,
+                                             read_reordered_chunks)
+    from compseed_tpu_torch.native import NativeTail
+    from compseed_tpu_torch.ops import bsw_cuda
+    from compseed_tpu_torch.ops.engine import device_engine
+    from compseed_tpu_torch.ops.seeder2 import ENGINES, DeviceSeeder
+    from compseed_tpu_torch.pipeline.align import align_stream
+    from compseed_tpu_torch.pipeline.seeding import SeedingStats
+
+    with open(os.path.join(ROOT, "compseed_tpu_torch",
+                           "engine_heads.json")) as f:
+        stored = json.load(f)
+    n_head = stored["chunk"]["reads"]
+    out = {"card": smi, "heads_from": stored["command"]}
+
+    def seeder_for(dedup, fm_=fm, dfi_=dfi):
+        return DeviceSeeder(opt, fm_, dev, dfi=dfi_, dedup=dedup)
+
+    # ---- (a) the first chunk through each engine: head and seed matrix
+    # against the JAX package's constants; (b) then, on a fresh seeder a
+    # run (an overflow switches the next run's engine), two timed runs
+    # whose seeds must equal the default engine's
+    if n_head != CHUNK:
+        raise SystemExit(f"engine_heads.json holds a {n_head}-read chunk, "
+                         f"phase 6 runs {CHUNK}")
+    queries = list(reads_arr[:CHUNK])
+    want = None
+    full = {}
+    for name, (dedup, env) in ENGINES.items():
+        runs, spliced, overflows, rerun_s = [], [], [], []
+        with engine_env(env):
+            sd = seeder_for(dedup)
+            R, L, qd, rd = sd._upload(queries)
+            t0 = time.time()
+            _, _, head, seedpk = sd._run(sd._build(R, L), qd, rd)
+            head, seedpk = head.cpu().numpy(), seedpk.cpu().numpy()
+            first_s = time.time() - t0
+            rec = head_record(head, seedpk)
+            if rec != stored["engines"][name]:
+                raise SystemExit(f"engine {name}: the head of the first "
+                                 f"chunk differs from the JAX package's: "
+                                 f"{rec} vs {stored['engines'][name]}")
+            for _ in range(2):
+                sd = seeder_for(dedup)
+                orig = sd._splice_oracle
+
+                def splice(qs, bad, *a, orig=orig):
+                    spliced.append(len(bad))
+                    return orig(qs, bad, *a)
+
+                sd._splice_oracle = splice
+                got = sd.run_flat(queries)
+                runs.append(sd.prof["device_s"])
+                overflows.append(bool(sd.last_overflow))
+                if sd.last_overflow:
+                    rerun_s.append(sd.prof["rerun_s"])
+        if want is None:
+            want = got
+        if any(not np.array_equal(g, w) for g, w in zip(got, want)):
+            raise SystemExit(f"engine {name}: (lrep, sflat, soff) of the "
+                             f"first chunk differ from the default engine's")
+        hit, merged = reuse_of(head)
+        full[name] = dict(device_s=statistics.median(runs), runs=runs,
+                          first_run_s=first_s, bwt_hit_pct=hit,
+                          sal_merged_pct=merged, scalars=rec["scalars"],
+                          overflow=overflows, rerun_s=rerun_s,
+                          splice_reads=spliced)
+        log(f"[6] {name}: {CHUNK} reads, head and seed matrix equal the JAX "
+            f"package's; device_s {[round(x, 4) for x in runs]} (first run "
+            f"{first_s:.3f} s), BWT hit {hit:.4f} %, SAL merged "
+            f"{merged:.4f} %, overflow flags {rec['scalars'][3:14]}, rerun "
+            f"{rerun_s}, splice {spliced}; seeds equal the default engine's")
+    out["full_width"] = full
+
+    # ---- (c) cell A'': COMPSEED_ADAPTIVE_CAPS=0 and one forced switch
+    with engine_env({"COMPSEED_ADAPTIVE_CAPS": "0"}):
+        sd = seeder_for(True)
+    sd.MEM3_F = 1
+    seen = watch_overflow(sd)
+    done = []
+    for k in bsw_cuda.LAUNCHES:
+        bsw_cuda.LAUNCHES[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    align_stream(opt, fm, iter(chunks), engine, sd, tail,
+                 on_done=done.extend, stats=SeedingStats())
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(bsw_cuda.LAUNCHES)
+    log(f"[6] (c) A'': per chunk (overflow, GP_F, rerun s, device s, "
+        f"fwd_disabled) = {seen}; {len(done) / wall:.1f} reads/s; launches "
+        f"{launches}")
+    if [s[0] for s in seen] != [True] + [False] * (len(chunks) - 1):
+        raise SystemExit("A'': chunk 1 alone must overflow")
+    if not all(s[4] for s in seen) or sd.bwd_disabled or not sd.r2_dedup \
+            or sd._cap_raises:
+        raise SystemExit("A'': the overflow must switch the forward dedup "
+                         "off and nothing else")
+    if [r.sam for r in done] != main_sams:
+        raise SystemExit("A'': SAM differs from phase 4's stream")
+    if launches["bsw_meta_dual_kernel"] <= 0:
+        raise SystemExit(f"A'': the fused DP kernel was not launched: "
+                         f"{launches}")
+    out["a2"] = dict(reads=len(done), reads_per_s=len(done) / wall,
+                     wall_s=wall, rerun_s=seen[0][2],
+                     device_s_per_chunk=[s[3] for s in seen],
+                     overflow_flags=sd.prof["overflow_flags"],
+                     launches=launches, sam_equals_stream=True)
+
+    # ---- (d) the two 2,000-read goldens under all_off, one chunk each
+    goldens = {}
+    for name, reader, gold in (
+            ("reads.fq", read_fastq_chunks, "golden_bwamem.sam"),
+            ("reads.reordered", read_reordered_chunks,
+             "golden_compseed_reordered.sam")):
+        reads = load_reads(reader, name)
+        sd = seeder_for(False, fm_t, None)
+        spliced = []
+        orig = sd._splice_oracle
+
+        def splice(qs, bad, *a, orig=orig):
+            spliced.append(len(bad))
+            return orig(qs, bad, *a)
+
+        sd._splice_oracle = splice
+        seen = watch_overflow(sd)
+        eng = device_engine(opt, fm_t, dfi=sd.dfi, device=dev)
+        done = []
+        t0 = time.time()
+        align_stream(opt, fm_t, iter([reads]), eng, sd, NativeTail(opt, fm_t),
+                     on_done=done.extend, stats=SeedingStats())
+        mine = "".join(r.sam for r in done).splitlines(keepends=True)
+        want_g = golden(gold)
+        bad = [i for i, (m, g) in enumerate(zip(mine, want_g)) if m != g]
+        log(f"[6] (d) {name} under all_off: one chunk of {len(reads)} reads, "
+            f"(overflow, GP_F, rerun s, device s, fwd_disabled) {seen}, "
+            f"flags {sd.prof.get('overflow_flags')}, splice {spliced}; "
+            f"{len(bad)} of {len(want_g)} records differ from {gold} "
+            f"({time.time() - t0:.1f} s)")
+        if len(mine) != len(want_g) or bad:
+            raise SystemExit(f"all_off: SAM differs from {gold}: {bad[:5]}")
+        goldens[name] = dict(overflow=seen[0][0], rerun_s=seen[0][2],
+                             overflow_flags=sd.prof.get("overflow_flags"),
+                             splice_reads=spliced)
+    out["goldens_all_off"] = goldens
     return out
 
 
@@ -1387,6 +1596,13 @@ def main() -> None:
     # ---- phase 5: the command line
     cli_rec = phase_cli(dev, smi, fm, reads_arr, sams32, rec32)
 
+    # ---- phase 6: the seeding engines
+    t0 = time.time()
+    eng_rec = phase_engines(dev, smi, opt, fm, fm_t, reads_arr, seeder.dfi,
+                            engine32, tail32, mk_chunks(), sams32)
+    eng_rec["phase_s"] = time.time() - t0
+    log(f"[6] engines: {eng_rec['phase_s']:.1f} s")
+
     probe_bytes = 2 * 8 * 128 * 4
     probe_bound = max(probe_bytes / HBM_BYTES_PER_S,
                       8 * 128 / INT32_OPS_PER_S) * 1e3
@@ -1400,6 +1616,7 @@ def main() -> None:
                       "block_threads": threads,
                       "scratch_variants_ms": variant_ms}))
     print(json.dumps({"cli": cli_rec}))
+    print(json.dumps({"engines": eng_rec}))
 
     def row(name, replaces, launches, errs, ms, plain_ms, bound, **more):
         return dict(name=name, route="cuda", source=KERNEL_SOURCE,
@@ -1407,7 +1624,8 @@ def main() -> None:
                     ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
                     bound_by=bound["bound_by"],
                     library_ms=more.pop("library_ms", None),
-                    cli_launches=cli_rec["launches"][name], **more)
+                    cli_launches=cli_rec["launches"][name],
+                    a2_launches=eng_rec["a2"]["launches"][name], **more)
 
     probe_row = dict(bound_ms=probe_bound, bound_by="bytes")
     print(json.dumps({"kernels": [

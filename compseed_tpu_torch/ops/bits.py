@@ -7,11 +7,12 @@ popcount.  The port's convention, used everywhere:
   * a 32-bit word (the JAX package's uint32) is an **int64 tensor
     holding a value in [0, 2**32)**.  AND/OR/XOR keep the range; a
     result that can leave it is masked with ``MASK32``;
-  * a 64-bit word (the JAX package's uint64, only in the chain memo's
-    slot hash) is an int64 tensor holding the same bit pattern.
+  * a 64-bit word (the JAX package's uint64: the chain memo's slot hash,
+    the staged forward engine's prefix and group hashes) is an int64
+    tensor holding the same bit pattern.
 
 Right shifts on int64 are arithmetic, so ``lsr64`` is the logical one.
-The wrapping multiplies are built from limbs small enough that no
+The wrapping adds and multiplies are built from limbs small enough that no
 intermediate leaves the int64 range, so they do not depend on how a
 backend treats signed overflow.
 """
@@ -63,6 +64,26 @@ def mul32(a: torch.Tensor, b) -> torch.Tensor:
     return (lo + (hi << 16)) & MASK32
 
 
+def _join64(hi32: torch.Tensor, lo32: torch.Tensor) -> torch.Tensor:
+    """The int64 holding bits hi32:lo32 (both words in [0, 2**32))."""
+    return (hi32 - ((hi32 >> 31) << 32)) * (1 << 32) + lo32
+
+
+def add64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod 2**64 for 64-bit patterns held in int64, without a
+    signed overflow."""
+    lo = (a & MASK32) + (b & MASK32)
+    hi = (lsr64(a, 32) + lsr64(b, 32) + (lo >> 32)) & MASK32
+    return _join64(hi, lo & MASK32)
+
+
+def sub64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod 2**64 for 64-bit patterns held in int64."""
+    lo = (a & MASK32) - (b & MASK32)                 # in (-2**32, 2**32)
+    hi = (lsr64(a, 32) - lsr64(b, 32) + (lo >> 32)) & MASK32
+    return _join64(hi, lo & MASK32)
+
+
 def mul64(a: torch.Tensor, b) -> torch.Tensor:
     """(a * b) mod 2**64 for 64-bit patterns held in int64 (the uint64
     multiply of the chain memo's slot hash).  ``b`` may be a tensor or a
@@ -77,5 +98,4 @@ def mul64(a: torch.Tensor, b) -> torch.Tensor:
     lo32 = (x + ((y & 0xFFFF) << 16)) & MASK32
     carry = ((x >> 16) + y) >> 16                 # (a0*b0) >> 32
     hi32 = (carry + mul32(a0, b1) + mul32(a1, b0)) & MASK32
-    hi_signed = hi32 - ((hi32 >> 31) << 32)       # in [-2**31, 2**31)
-    return hi_signed * (1 << 32) + lo32
+    return _join64(hi32, lo32)

@@ -30,6 +30,10 @@ class DeviceFMIndex:
     sa_intv: int
     l_pac: int
     idx_dtype: type           # np.int32 or np.int64
+    # occ reads outside the index return what the JAX package's
+    # ``jnp.take`` returns (ops/fm._row_fetch): set by the seeding engines
+    # whose overflowed dedup groups hand their members garbage intervals
+    fill_oob: bool = False
 
     @property
     def dtype(self) -> torch.dtype:

@@ -26,10 +26,30 @@ _WORD_SHIFT = (0, 32, 64, 96)
 def _row_fetch(fm: DeviceFMIndex, k: torch.Tensor):
     """Gather fused rows for positions k; returns (cnt4, hi4, lo4, off).
 
-    k must already be $-adjusted and clamped valid (>= 0)."""
+    k must already be $-adjusted; a real lane's k is in [0, seq_len).
+    With ``fm.fill_oob`` a lane carrying garbage (a member of an
+    overflowed dedup group, whose chunk is rerun) reads what the JAX
+    package's ``jnp.take`` reads, so the overflowed chunk's counters
+    match too: a block in [-n, 0) wraps, one outside [-n, n) reads a row
+    of all-ones words."""
     k = k.to(torch.int64)
-    rows = fm.occ_rows[k >> 7]                   # (..., 12)
+    blk = k >> 7
+    if fm.fill_oob:
+        n = fm.occ_rows.shape[0]
+        rows = torch.where(((blk >= -n) & (blk < n))[..., None],
+                           fm.occ_rows[blk.remainder(n)], MASK32)
+    else:
+        rows = fm.occ_rows[blk]                  # (..., 12)
     return rows[..., 0:4], rows[..., 4:8], rows[..., 8:12], k & 0x7F
+
+
+def _sa_sample(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
+    """sa_sampled[k // sa_intv] with the JAX package's index rule (a
+    negative index wraps once, then the index is clamped), which only a
+    garbage lane of an overflowed chunk can need."""
+    n = fm.sa_sampled.shape[0]
+    i = (k // fm.sa_intv).to(torch.int64)
+    return fm.sa_sampled[torch.where(i < 0, i + n, i).clamp(0, n - 1)]
 
 
 def _rank4(cnt, hi, lo, off, dt):
@@ -181,7 +201,7 @@ def sa_batch(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
             active = (k & mask) != 0
             k = torch.where(active, inv_psi_batch(fm, k), k)
             steps = steps + active.to(dt)
-    return steps + fm.sa_sampled[(k // fm.sa_intv).to(torch.int64)]
+    return steps + _sa_sample(fm, k)
 
 
 def _walk(fm, kk, steps, alive, n_steps: int):
@@ -236,5 +256,5 @@ def sa_batch_compact(fm: DeviceFMIndex, k: torch.Tensor):
         slot = torch.where(done, -1, slot)
 
     out_steps, out_k = out_steps[:N], out_k[:N]
-    sa = out_steps + fm.sa_sampled[(out_k // fm.sa_intv).to(torch.int64)]
+    sa = out_steps + _sa_sample(fm, out_k)
     return sa, ovf

@@ -1,25 +1,24 @@
 """Device-resident batch seeder (port of compseed_tpu/ops/seeder2.py).
 
-The default path of the JAX package's ``DeviceSeeder(dedup=True)``: the
-forward chain-memo scan (``seedscan.chain_scan``) for rounds 1, 2 and 3,
-the chained backward walker (``seedscan.walk_pool_chain``) for rounds 1
-and 2, SMEM reconstruction, match merge, seed sampling and merged SAL,
-all on the device.  The host receives one compact result per chunk: a
-head of counters + per-read words and a bit-packed seed matrix, in the
-JAX package's exact layout, so ``unpack_results`` and the native tail
-consume either package's output unchanged.
+``DeviceSeeder`` runs the JAX package's seeding engines on a torch
+device: forward LEP scan, backward walks, SMEM reconstruction, round-2
+re-seeding, round-3 greedy seeding, match merge, seed sampling and merged
+SAL, all on the device.  The engine follows the JAX package's selection
+exactly: ``dedup`` and the env knobs ``COMPSEED_FWD_MEMO``,
+``COMPSEED_FWD_DEDUP``, ``COMPSEED_BWD_DEDUP``, ``COMPSEED_BWD_CHAIN``,
+``COMPSEED_BWD_WIN`` / ``COMPSEED_BWD_W`` and ``COMPSEED_R2_DEDUP``
+(the default, ``dedup=True``, is the chain-memo forward scan and the
+chained backward walker).  The host receives one compact result per
+chunk: a head of counters + per-read words and a bit-packed seed matrix,
+in the JAX package's exact layout, so ``unpack_results`` and the native
+tail consume either package's output unchanged.
 
 A chunk-global cap overflow shows in the head's flags: the chunk is
 then rerun exactly on the lockstep seeder (``smem.BatchSeeder``) and the
-overflowing cap factor doubles for the chunks that follow
-(``_note_fwd_overflow``), as in the JAX package.
-
-Engines outside this path (the staged forward engine, the r4 backward
-engines) are not ported yet: the knobs that select them raise
-``NotImplementedError`` naming the ROADMAP item.  The same holds once
-the raise budget is spent (or under ``COMPSEED_ADAPTIVE_CAPS=0``), where
-the JAX package answers an overflow by switching a dedup pass off: the
-overflowing chunk is still rerun exactly, and the next ``_build`` raises.
+overflowing cap factor doubles for the chunks that follow, or a dedup
+pass switches itself off (``_note_fwd_overflow``), as in the JAX
+package.  A per-read buffer overflow (the lockstep scans) marks the read
+bad, and ``_splice_oracle`` recomputes that read on the host.
 """
 
 from __future__ import annotations
@@ -27,6 +26,7 @@ from __future__ import annotations
 import os
 import sys
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -56,7 +56,27 @@ FWD_OVF_SLOTS = (2, 7, 10)       # oflags indices of the fwd-dedup flags
 BWD_OVF_SLOT = 3                 # backward (walk) dedup cap overflow
 R2_OVF_SLOT = 5                  # round-2 walk dedup cap overflow
 
-_ENGINES = "ROADMAP: modules to port — non-default engines behind env knobs"
+# The engine matrix: name -> (dedup, env knobs) selecting it.  Forward
+# r1/r2, backward r1, backward r2, round 3:
+ENGINES = {
+    # chain_scan memo, walk_pool_chain, walk_pool_chain, memo r3
+    "default": (True, {}),
+    # forward_scan_dedup, walk_pool_chain x2, forward_scan_dedup(r3)
+    "fwd_staged": (True, {"COMPSEED_FWD_MEMO": "0"}),
+    # make_scan + build_pool, walk_pool_chain x2, lockstep r3
+    "fwd_off": (True, {"COMPSEED_FWD_DEDUP": "0"}),
+    # memo, walk_pool_dedup (Wb = 8) x2, memo r3
+    "bwd_win": (True, {"COMPSEED_BWD_CHAIN": "0"}),
+    # memo, dedup_pool + walk_pool x2 (r2 with mh), memo r3
+    "bwd_whole": (True, {"COMPSEED_BWD_CHAIN": "0", "COMPSEED_BWD_WIN": "0"}),
+    # memo, walk_pool(stages1), walk_pool_chain, memo r3
+    "bwd_off": (True, {"COMPSEED_BWD_DEDUP": "0"}),
+    # memo, walk_pool_chain, walk_pool(stages2), memo r3
+    "r2_off": (True, {"COMPSEED_R2_DEDUP": "0"}),
+    # make_scan + build_pool, walk_pool(stages1), walk_pool(stages2),
+    # lockstep r3
+    "all_off": (False, {}),
+}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -153,27 +173,9 @@ def _segmented_cummax(v: torch.Tensor, seg_start: torch.Tensor, span: int):
     return (torch.cummax(key, 0).values - seg * span - 1).to(v.dtype)
 
 
-def _check_knobs(dedup: bool):
-    """The env knobs that select an engine outside the ported path."""
-    if not dedup:
-        raise NotImplementedError(
-            f"DeviceSeeder(dedup=False) selects the lockstep scan + staged "
-            f"walk engines, not ported yet ({_ENGINES})")
-    for name, default, want in (
-            ("COMPSEED_FWD_MEMO", "1", "1"),
-            ("COMPSEED_BWD_CHAIN", "1", "1"),
-            ("COMPSEED_R2_DEDUP", "1", "1"),
-            ("COMPSEED_FWD_DEDUP", "1", "1"),
-            ("COMPSEED_BWD_DEDUP", "1", "1")):
-        if os.environ.get(name, default) != want:
-            raise NotImplementedError(
-                f"{name}={os.environ[name]} selects an engine that is not "
-                f"ported to compseed_tpu_torch yet ({_ENGINES})")
-
-
 class DeviceSeeder:
-    """run_flat-compatible seeder: the JAX package's default
-    ``DeviceSeeder(dedup=True)`` path on a torch device."""
+    """run_flat-compatible seeder backed by the device pipeline, with the
+    JAX package's engine selection (see the module docstring)."""
 
     # caps as multiples of R, env-overridable under the JAX package's
     # names so the shapes (and with them every counter) match
@@ -186,8 +188,10 @@ class DeviceSeeder:
     U_F = int(os.environ.get("COMPSEED_U_F", "6"))       # unique SAL
 
     def __init__(self, opt, fm, device: torch.device,
-                 dfi: DeviceFMIndex | None = None, dedup: bool = True):
-        _check_knobs(dedup)
+                 dfi: DeviceFMIndex | None = None, dedup: bool = False):
+        """dedup=True enables the cross-read walk deduplication (the
+        compressive SST reuse); dedup=False runs the lockstep scan and the
+        plain staged walks."""
         self.opt = opt
         self.fm = fm
         self.device = torch.device(device)
@@ -196,14 +200,19 @@ class DeviceSeeder:
             raise ValueError(f"index is on {self.dfi.device}, seeder on "
                              f"{self.device}")
         self.dedup = dedup
+        # round-2 walk dedup (on with dedup unless COMPSEED_R2_DEDUP=0)
+        self.r2_dedup = dedup and \
+            os.environ.get("COMPSEED_R2_DEDUP", "1") == "1"
+        # the dedup passes switch themselves off after an overflow that
+        # raising a cap cannot answer (_note_fwd_overflow)
+        self.fwd_disabled = \
+            os.environ.get("COMPSEED_FWD_DEDUP", "1") == "0"
+        # forward engine: the cross-round chain memo, or (=0) the staged
+        # forward dedup
+        self.fwd_memo = os.environ.get("COMPSEED_FWD_MEMO", "1") == "1"
         self.chain_w = int(os.environ.get("COMPSEED_CHAIN_W", "5"))
-        # the dedup passes: _check_knobs has held each to its default;
-        # an overflow that cannot raise a cap switches one off
-        # (_note_fwd_overflow), which selects an unported engine
-        self.fwd_memo = True
-        self.r2_dedup = True
-        self.fwd_disabled = False
-        self.bwd_disabled = False
+        self.bwd_disabled = \
+            os.environ.get("COMPSEED_BWD_DEDUP", "1") == "0"
         # instance copies of the cap factors: a cap overflow at runtime
         # DOUBLES the factor and rebuilds the programs (adaptive static
         # shapes) instead of paying the exact rerun on every chunk
@@ -215,7 +224,9 @@ class DeviceSeeder:
         self.SEED_F = type(self).SEED_F
         self.U_F = type(self).U_F
         self.MEM3_F = int(os.environ.get("COMPSEED_MEM3_F", "32"))
-        # =0 disables the overflow -> double-and-rebuild response
+        # =0 disables the overflow -> double-and-rebuild response: an
+        # overflow drops the dedup pass instead (what whole-genome runs
+        # are advised to use)
         self.adaptive_caps = \
             os.environ.get("COMPSEED_ADAPTIVE_CAPS", "1") == "1"
         self._cap_raises = 0
@@ -228,19 +239,11 @@ class DeviceSeeder:
     # ------------------------------------------------------------------
     def _build(self, R: int, L: int):
         """The per-(R, L) programs r1, r2, r3, merge, seeds and pack (the
-        JAX package's jitted stages, as plain functions on tensors)."""
+        JAX package's jitted stages, as plain functions on tensors) of the
+        engine the knobs select."""
         key = (R, L)
         if key in self._progs:
             return self._progs[key]
-        off = [name for name, on in (
-            ("forward-sweep dedup", not self.fwd_disabled),
-            ("backward-walk dedup", not self.bwd_disabled),
-            ("round-2 walk dedup", self.r2_dedup)) if not on]
-        if off:
-            raise NotImplementedError(
-                f"a cap overflow switched off the {', '.join(off)}, which "
-                f"selects an engine that is not ported to "
-                f"compseed_tpu_torch yet ({_ENGINES})")
         opt = self.opt
         dt = self.dfi.dtype
         dev = self.device
@@ -250,16 +253,56 @@ class DeviceSeeder:
         MEMCAP = self.MEM_F * R
         SEEDCAP = self.SEED_F * R
         UCAP = self.U_F * R
+        MAXW = L + 2
         split_len = int(opt.min_seed_len * opt.split_factor + 0.499)
+        stages1 = [(GP, 8), (GP // 2, 16), (GP // 8, 48), (GP // 16, MAXW)]
+        stages2 = [(GP2, 8), (GP2 // 2, 24), (GP2 // 8, MAXW)]
         CAP_U = min(self.CAPU_F * R, GP)
+        stages_u = [(CAP_U, 8), (CAP_U // 2, 16), (CAP_U // 4, 32),
+                    (CAP_U // 8, 72), (CAP_U // 16, MAXW)]
         CAP_U2 = min(int(os.environ.get("COMPSEED_CAPU2_F",
                                         str(self.GP2_F))) * R, GP2)
+        stages_u2 = [(CAP_U2, 8), (CAP_U2 // 2, 24), (CAP_U2 // 4, MAXW)]
+        fwd_stages = ss.fwd_stages_for(R, L)
+        # round-2 tasks run ONE sweep each
+        fwd_stages2 = [(T2, 8), (T2, 24), (T2, MAXW)]
+        use_fwd = self.dedup and not self.fwd_disabled
+        use_bwd = self.dedup and not self.bwd_disabled
+        r2_dedup = self.r2_dedup
+        # backward engine: chained rounds (the default), or (=0) the
+        # windowed probe + staged walk (BWD_WIN=1) or whole-walk keying
+        bwd_chain = os.environ.get("COMPSEED_BWD_CHAIN", "1") == "1"
+        bwd_win = os.environ.get("COMPSEED_BWD_WIN", "1") == "1"
+        BWD_W = int(os.environ.get("COMPSEED_BWD_W", "8"))
+        use_memo = self.fwd_memo
+        # the staged forward dedup and the r4 backward dedup clamp the
+        # group index of lanes past a rep cap: an overflowed chunk's
+        # members then carry garbage intervals, whose FM reads follow the
+        # JAX package's gather rule (so its head, flags and counters
+        # still equal JAX's; the chunk itself is rerun)
+        clamps = (use_fwd and not use_memo) or \
+            (not bwd_chain and (use_bwd or r2_dedup))
+        dfi = replace(self.dfi, fill_oob=True) if clamps else self.dfi
+        scan1 = ss.make_scan(dfi, L, ss.CAPL, advance=True)
+        scan2 = ss.make_scan(dfi, L, ss.CAPL2, advance=False)
         CW = self.chain_w
         MEMO_M = (256 // CW) * R                  # chain-store rows
         MEMO_H = 1 << (4 * MEMO_M - 1).bit_length()   # table slots
         max_intv = int(opt.max_mem_intv)
         zero = torch.zeros((), dtype=_I32, device=dev)
         false = torch.zeros((), dtype=torch.bool, device=dev)
+
+        def fwd_scan(qa, rl, cap, stages_, memo, u_cap=None, **kw):
+            if use_memo:
+                return ss.chain_scan(dfi, qa, rl, cap, memo, W=CW,
+                                     u_cap=u_cap, **kw)
+            return ss.forward_scan_dedup(dfi, qa, rl, cap, stages_,
+                                         **kw) + (memo,)
+
+        def init_memo():
+            if use_memo:
+                return ss.make_chain_memo(MEMO_H, MEMO_M, CW, dt, dev)
+            return torch.zeros(0, dtype=_I32, device=dev)  # inert
 
         def nonN_prefix(qarr):
             """S[r, i] = # non-N bases of read r in [0, i): a walk span
@@ -279,21 +322,64 @@ class DeviceSeeder:
             span = S_flat[base + piv] - S_flat[base + lo]
             return torch.where(valid, span, 0).sum().to(_I32)
 
+        def walk(qarr, pool, chain_cap, stages_u_, stages_plain, dedup_on,
+                 mh=None):
+            """The backward engine of one round: (death, fk, fl, fs, wovf,
+            calls, n_u, dovf, bq)."""
+            qflat = qarr.reshape(-1)
+            rw = ss.packed_rev_windows(qarr)
+            dovf = false
+            if dedup_on and bwd_chain:
+                death, fk, fl, fs, wovf, bc, n_u = ss.walk_pool_chain(
+                    dfi, rw, L, pool, chain_cap, mh=mh)
+            elif dedup_on and bwd_win:
+                # content-window dedup: walks from different positions
+                # holding the same (interval, next-Wb-chars) state share
+                # one representative
+                death, fk, fl, fs, wovf, bc, n_u = ss.walk_pool_dedup(
+                    dfi, qflat, ss.prefix_hashes(qarr), L, pool, stages_u_,
+                    Wb=BWD_W, mh=mh, rwflat=rw)
+            elif dedup_on:
+                # whole-walk dedup: one representative per (interval,
+                # pivot, prefix) state
+                rep, group, n_u, dovf, rep_take = ss.dedup_pool(
+                    pool, ss.prefix_hashes(qarr), chain_cap, mh=mh)
+                death_r, fk_r, fl_r, fs_r, wovf, bc = ss.walk_pool(
+                    dfi, qflat, L, rep, stages_u_,
+                    mh=None if mh is None else mh[rep_take], rwflat=rw)
+                death, fk, fs = death_r[group], fk_r[group], fs_r[group]
+                fl = fl_r[group] - rep[group, 1] + pool[:, 1]
+            else:
+                n_u = None
+                death, fk, fl, fs, wovf, bc = ss.walk_pool(
+                    dfi, qflat, L, pool, stages_plain, mh=mh, rwflat=rw)
+            bq = walk_steps(nonN_prefix(qarr), pool, death, pool[:, 6] != 0)
+            return death, fk, fl, fs, wovf, bc, n_u, dovf, bq
+
         def r1(qarr, rlens):
             R_ = qarr.shape[0]
-            memo = ss.make_chain_memo(MEMO_H, MEMO_M, CW, dt, dev)
-            pool, n_pool, fovf, fqc, fcc, memo = ss.chain_scan(
-                self.dfi, qarr, rlens, GP, memo, W=CW,
-                u_cap=max(R_ // 2, 64))
-            bad = torch.zeros(R_, dtype=torch.bool, device=dev)
-            S_flat = nonN_prefix(qarr)
-            rw = ss.packed_rev_windows(qarr)
-            death, fk, fl, fs, wovf, bc1, n_u = ss.walk_pool_chain(
-                self.dfi, rw, L, pool, CAP_U)
-            bq1 = walk_steps(S_flat, pool, death, pool[:, 6] != 0)
+            memo = init_memo()
+            if use_fwd:
+                # forward SST reuse: the chain memo or the staged worklist
+                pool, n_pool, fovf, fqc, fcc, memo = fwd_scan(
+                    qarr, rlens, GP, fwd_stages, memo,
+                    u_cap=max(R_ // 2, 64))
+                bad = torch.zeros(R_, dtype=torch.bool, device=dev)
+                povf = false
+            else:
+                z = torch.zeros(R_, dtype=_I32, device=dev)
+                lep, cnt, sovf = scan1(qarr, rlens, z, z + 1, rlens > 0)
+                pool, n_pool, povf = ss.build_pool(lep, cnt, GP)
+                fqc = fcc = zero
+                fovf = false
+                bad = sovf != 0                           # per read
+            death, fk, fl, fs, wovf, bc1, n_u, dovf, bq1 = walk(
+                qarr, pool, CAP_U, stages_u, stages1, use_bwd)
+            if n_u is None:
+                n_u = n_pool
             ok, rid, k, l, s, beg, end = ss.reconstruct(
                 pool, death, fk, fl, fs, opt.min_seed_len, (5, 4))
-            flags = torch.stack([false, wovf, fovf, false])
+            flags = torch.stack([povf, wovf, fovf, dovf])  # chunk-global
             return (pool, ok, rid, k, l, s, beg, end, flags, bad,
                     n_pool, n_u, fqc, fcc, bq1, bc1, memo)
 
@@ -308,37 +394,50 @@ class DeviceSeeder:
             t_mid = torch.where(t_valid, (beg[take] + end[take]) // 2, 0)
             t_mh = torch.where(t_valid, s[take] + 1, 1)
             R_ = qarr.shape[0]
-            pool2, n2, fovf2, fq2, fc2, memo = ss.chain_scan(
-                self.dfi, qarr, rlens, GP2, memo, W=CW,
-                u_cap=max(R_ // 4, 64), min_hits=t_mh,
-                pivots0=t_mid.to(_I32), rids=t_rid.to(_I32),
-                advance=False, record_lane_index=True, active=t_valid)
-            bad = torch.zeros(R_, dtype=torch.bool, device=dev)
+            if use_fwd:
+                # one sweep per task through the forward engine, with
+                # per-lane pivots and min_hits
+                pool2, n2, fovf2, fq2, fc2, memo = fwd_scan(
+                    qarr, rlens, GP2, fwd_stages2, memo,
+                    u_cap=max(R_ // 4, 64), min_hits=t_mh,
+                    pivots0=t_mid.to(_I32), rids=t_rid.to(_I32),
+                    advance=False, record_lane_index=True, active=t_valid)
+                bad = torch.zeros(R_, dtype=torch.bool, device=dev)
+            else:
+                tr = t_rid.to(_I64)
+                lep2, cnt2, sovf2 = scan2(qarr[tr], rlens[tr],
+                                          t_mid.to(_I32), t_mh.to(_I32),
+                                          t_valid)
+                pool2, n2, fovf2 = ss.build_pool(lep2, cnt2, GP2)
+                fq2 = fc2 = zero
+                # per read: .at[t_rid].max(t_valid & sovf2 != 0)
+                bad = torch.zeros(R_, dtype=_I32, device=dev).scatter_reduce(
+                    0, tr, (t_valid & (sovf2 != 0)).to(_I32), "amax") != 0
             # pool2 col 5 is the task index; remap to the real read id
             # and append the task index as the grouping column
             tix = pool2[:, 5].to(_I64)
             pool2 = torch.cat([pool2[:, :5], t_rid[tix][:, None].to(dt),
                                pool2[:, 6:7], tix[:, None].to(dt)], dim=1)
             mh_rows = t_mh[tix].to(_I32)
-            S_flat2 = nonN_prefix(qarr)
-            rw2 = ss.packed_rev_windows(qarr)
-            death2, fk2, fl2, fs2, wovf2, bc2, n_u2 = ss.walk_pool_chain(
-                self.dfi, rw2, L, pool2, CAP_U2, mh=mh_rows)
-            bq2 = walk_steps(S_flat2, pool2, death2, pool2[:, 6] != 0)
+            death2, fk2, fl2, fs2, wovf2, bc2, n_u2, povf2, bq2 = walk(
+                qarr, pool2, CAP_U2, stages_u2, stages2, r2_dedup,
+                mh=mh_rows)
+            if n_u2 is None:
+                n_u2 = n2
             ok2, rid2, k2, l2, s2, beg2, end2 = ss.reconstruct(
                 pool2, death2, fk2, fl2, fs2, opt.min_seed_len, (7,))
-            flags = torch.stack([tovf, false, wovf2, fovf2])
+            flags = torch.stack([tovf, povf2, wovf2, fovf2])  # chunk-global
             return (ok2, rid2, k2, l2, s2, beg2, end2, flags, bad,
                     fq2, fc2, n2, n_u2, bq2, bc2, memo)
 
         def r3(qarr, rlens, memo):
             # greedy round 3 (tem_forward_sst, comp_seed.cpp:141-160)
             R_ = qarr.shape[0]
-            if max_intv <= 0:
+            if not (use_fwd and max_intv > 0):
                 return r3_lockstep(qarr, rlens)
             GP3 = R_ * self.MEM3_F
-            pool3, n3, ovf3g, fq3, fc3, memo = ss.chain_scan(
-                self.dfi, qarr, rlens, GP3, memo, W=CW, mode="r3",
+            pool3, n3, ovf3g, fq3, fc3, memo = fwd_scan(
+                qarr, rlens, GP3, fwd_stages, memo, mode="r3",
                 u_cap=max(R_ // 2, 64), min_len=int(opt.min_seed_len),
                 max_intv=max_intv)
             valid3 = pool3[:, 6] != 0
@@ -353,7 +452,7 @@ class DeviceSeeder:
             # overflow flag per read, no forward-step counters
             R_ = qarr.shape[0]
             packed3 = _seed_strategy_one(
-                self.dfi, L, int(opt.min_seed_len), max_intv, qarr,
+                dfi, L, int(opt.min_seed_len), max_intv, qarr,
                 rlens > 0)
             flat = packed3[:, :MMEM3 * 5].reshape(-1, 5)
             n = packed3[:, MMEM3 * 5].to(_I32)
@@ -415,7 +514,7 @@ class DeviceSeeder:
             reps = _drop_set(torch.zeros(UCAP, dtype=dt, device=dev),
                              torch.where(head & (urank < UCAP), urank, UCAP),
                              lsort)
-            sa, wovf = dfm.sa_batch_compact(self.dfi, reps)
+            sa, wovf = dfm.sa_batch_compact(dfi, reps)
             # resolved values back: sorted position -> rep index
             sa_sorted = sa[urank.clamp(0, UCAP - 1)]
             rbeg_sorted = torch.where(vsort, sa_sorted, 0)
@@ -568,7 +667,7 @@ class DeviceSeeder:
         would otherwise run forever.  Only the dedup REP caps still
         respond by dropping the dedup pass (low-sharing input).  Raises
         are bounded at 9 in all before falling through to the disable
-        response, which here makes the next ``_build`` raise."""
+        response."""
         changed = False
         # oflags: r1 pool/walk/fwd/bwd, r2 task/pool/walk/fwd,
         # merge, seeds, r3

@@ -92,6 +92,14 @@ def test_mul64_wraps_like_uint64():
         assert np.array_equal(_u64(bits.mul64(_t64(a), c)), want)
 
 
+def test_add64_sub64_wrap_like_uint64():
+    a, b = _words64(10), _words64(11)[::-1].copy()
+    with np.errstate(over="ignore"):
+        assert np.array_equal(_u64(bits.add64(_t64(a), _t64(b))), a + b)
+        assert np.array_equal(_u64(bits.sub64(_t64(a), _t64(b))), a - b)
+        assert np.array_equal(_u64(bits.sub64(_t64(b), _t64(a))), b - a)
+
+
 @pytest.mark.parametrize("dt", [np.int32, np.int64])
 def test_slot_hash_vs_jax(dt):
     """The chain memo's uint64 slot hash (seedscan._slot_hash), including

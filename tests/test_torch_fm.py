@@ -1,6 +1,8 @@
 """compseed_tpu_torch.ops.fm vs compseed_tpu.ops.fm and the scalar oracle
 (mirrors tests/test_ops_fm.py), exactly, at int32 and int64."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -101,6 +103,38 @@ def test_extend_sel_batch(dev):
         assert np.array_equal(got, full[np.arange(len(iks)), cs])
         assert np.array_equal(tfm._sel4(_t(full[:, :, 2]), _t(cs)).numpy(),
                               full[np.arange(len(iks)), cs, 2])
+
+
+def test_out_of_range_lanes_read_what_jax_reads(dev):
+    """Garbage intervals (the members of an overflowed dedup group carry
+    them until the chunk is rerun) read what the JAX package reads on an
+    index with ``fill_oob`` (what the seeder hands the engines that can
+    overflow so): a row block in [-n, 0) wraps, one beyond reads all-ones
+    words, and an SA sample index wraps once and clamps — so an
+    overflowed chunk's counters match, and no gather leaves its tensor."""
+    seq, fm, jd, td = dev
+    td = dataclasses.replace(td, fill_oob=True)
+    n = td.occ_rows.shape[0]
+    span = n * 128
+    ks = np.array([-3 * span, -span - 200, -span + 5, -300, -1, 0,
+                   fm.seq_len, span - 1, span, span + 4000, 7 * span],
+                  np.int64)
+    if jd.dtype == jnp.int32:
+        ks = ks.clip(-2**31, 2**31 - 1)
+    iks = np.stack([ks, ks[::-1], np.full(len(ks), 9)], axis=1)
+    cs = np.arange(len(ks)).astype(np.int32) % 4
+    for is_back in (0, 1):
+        got = tfm.extend_sel_batch(td, _t(iks), _t(cs), is_back).numpy()
+        want = np.asarray(jfm.extend_sel_batch(jd, jnp.asarray(iks),
+                                               jnp.asarray(cs), is_back))
+        assert np.array_equal(got, want), is_back
+    got = tfm.occ4_batch(td, _t(ks)).numpy()
+    assert np.array_equal(got, np.asarray(jfm.occ4_batch(jd,
+                                                         jnp.asarray(ks))))
+    kq = ks - ks % td.sa_intv                 # sampled rows: no walk
+    sa_ok = tfm.sa_batch(td, _t(kq)).numpy()
+    assert np.array_equal(sa_ok, np.asarray(jfm.sa_batch(jd,
+                                                         jnp.asarray(kq))))
 
 
 def test_inv_psi_and_bwt_b0(dev):

@@ -273,23 +273,38 @@ def test_seeder_edge_cases_vs_oracle(tiny_fm, port_fm):
     qq = base[3].copy()
     qq[0] = qq[-1] = 4
     queries.append(qq)
-    got = DeviceSeeder(opt, port_fm, CPU)(port_fm, opt, queries)
+    got = DeviceSeeder(opt, port_fm, CPU, dedup=True)(port_fm, opt,
+                                                      queries)
     for r, q in enumerate(queries):
         assert got[r][0] == seeding.collect_matches(tiny_fm, opt, q), r
 
 
 @pytest.mark.parametrize("knob", ["COMPSEED_FWD_MEMO=0", "COMPSEED_BWD_CHAIN=0",
                                   "COMPSEED_R2_DEDUP=0", "dedup=False"])
-def test_unported_engines_raise(port_fm, monkeypatch, knob):
-    """Knobs that select an engine outside the ported path raise and name
-    the ROADMAP item; nothing silently runs the default path instead."""
-    kw = {"dedup": True}
-    if knob == "dedup=False":
-        kw["dedup"] = False
-    else:
+def test_unported_engines_raise(tiny_fm, port_fm, monkeypatch, knob):
+    """The knobs that selected an engine outside the first slices of the
+    port (and raised there) now run that engine: device_seeder builds it,
+    and its head and seed matrix equal the JAX seeder's under the same
+    knob.  Nothing raises and nothing silently runs the default path
+    (the staged counters differ from the default engine's)."""
+    from compseed_tpu.ops.seeder2 import DeviceSeeder as JaxSeeder
+    dedup = knob != "dedup=False"
+    if dedup:
         monkeypatch.setenv(*knob.split("="))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        device_seeder(MemOptions(), port_fm, device=CPU, **kw)
+    ts = device_seeder(MemOptions(), port_fm, dedup=dedup, device=CPU)
+    js = JaxSeeder(JaxOptions(), tiny_fm, dedup=dedup)
+    assert isinstance(ts, DeviceSeeder)
+    queries = _queries("reads.reordered", 48)
+    R, L, qd, rd = ts._upload(queries)
+    jh, jp = js._build(R, L)["whole"](js.dfi, jnp.asarray(qd.numpy()),
+                                      jnp.asarray(rd.numpy()))
+    _, _, th, tp = ts._run(ts._build(R, L), qd, rd)
+    assert np.array_equal(th.numpy(), np.asarray(jh))
+    assert np.array_equal(tp.numpy(), np.asarray(jp))
+    monkeypatch.delenv(knob.split("=")[0], raising=False)
+    base = DeviceSeeder(MemOptions(), port_fm, CPU, dedup=True)
+    bh = base._run(base._build(R, L), qd, rd)[2].numpy()
+    assert not np.array_equal(th.numpy()[14:28], bh[14:28])
 
 
 def test_seeder_v1_runs(port_fm, tiny_fm, monkeypatch):
@@ -346,12 +361,13 @@ def test_note_fwd_overflow_vs_jax(tiny_fm, port_fm, capsys, seq):
         assert ("sentinel" in ts._progs) == ("sentinel" in js._jits), slots
 
 
-def test_adaptive_cap_doubling(port_fm):
+def test_adaptive_cap_doubling(tiny_fm, port_fm):
     """A pool/buffer cap overflow DOUBLES the factor and clears the built
     programs; once the raise budget is spent the response is to switch a
-    dedup pass off, which the port answers on the next _build by raising
-    (the staged engine it selects is not ported)."""
-    sd = DeviceSeeder(MemOptions(), port_fm, CPU)
+    dedup pass off, and the next chunk runs the engine that selects (the
+    lockstep forward scan): head and seed matrix equal the JAX seeder's
+    in the same state."""
+    js, sd = _both_seeders(tiny_fm, port_fm)
     gp0, t20 = sd.GP_F, sd.T2L_F
     sd._progs["sentinel"] = object()
     sd._note_fwd_overflow(_flags(0, 4))
@@ -361,27 +377,45 @@ def test_adaptive_cap_doubling(port_fm):
     sd._build(256, 128)                           # still builds
     sd._cap_raises = 99
     sd._note_fwd_overflow(_flags(2))
-    assert sd.fwd_disabled
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sd._build(256, 128)
+    assert sd.fwd_disabled and not sd._progs
+    for a, v in (("GP_F", 2 * gp0), ("T2L_F", 2 * t20), ("_cap_raises", 99),
+                 ("fwd_disabled", True)):
+        setattr(js, a, v)
+    queries = _queries("reads.fq", 48)
+    R, L, qd, rd = sd._upload(queries)
+    jh, jp = js._build(R, L)["whole"](js.dfi, jnp.asarray(qd.numpy()),
+                                      jnp.asarray(rd.numpy()))
+    _, _, th, tp = sd._run(sd._build(R, L), qd, rd)
+    assert np.array_equal(th.numpy(), np.asarray(jh))
+    assert np.array_equal(tp.numpy(), np.asarray(jp))
+    assert not th.numpy()[22:28].any()            # no forward-memo counters
 
 
-def test_adaptive_caps_opt_out(port_fm, monkeypatch):
+def test_adaptive_caps_opt_out(tiny_fm, port_fm, monkeypatch):
     """COMPSEED_ADAPTIVE_CAPS=0: no raise, straight to the disable
-    response — and the overflowing chunk is still rerun exactly before
-    the next _build raises."""
+    response — the overflowing chunk is rerun exactly, and the next chunk
+    runs the forward-dedup-off engine (whose pool GP_F = 2 overflows
+    too), giving what the JAX seeder gives for the same two chunks."""
+    from compseed_tpu.ops.seeder2 import DeviceSeeder as JaxSeeder
     monkeypatch.setenv("COMPSEED_ADAPTIVE_CAPS", "0")
     opt = MemOptions()
-    sd = DeviceSeeder(opt, port_fm, CPU)
-    sd.GP_F = 2
+    sd = DeviceSeeder(opt, port_fm, CPU, dedup=True)
+    js = JaxSeeder(JaxOptions(), tiny_fm, dedup=True)
+    sd.GP_F = js.GP_F = 2
     queries = _queries("reads.fq", 40)
     got = sd.run_flat(queries)
     assert sd.last_overflow and sd.GP_F == 2 and sd.fwd_disabled
     want = tsmem.BatchSeeder(opt, port_fm, CPU).run_flat(queries)
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sd.run_flat(queries)
+    js.run_flat(queries)
+    assert js.fwd_disabled
+    nxt = _queries("reads.fq", 80)[40:]
+    got2, want2 = sd.run_flat(nxt), js.run_flat(nxt)
+    assert sd.prof["overflow_flags"] == js.prof["overflow_flags"] == \
+        _flags(0).tolist()
+    for g, w in zip(got2, want2):
+        assert np.array_equal(g, w)
 
 
 def test_forced_overflow_rerun_vs_jax(tiny_fm, port_fm, capsys):
@@ -411,7 +445,8 @@ def test_forced_overflow_rerun_vs_jax(tiny_fm, port_fm, capsys):
         if not ts.last_overflow:
             break
     assert not ts.last_overflow and ts.GP_F >= 8 and ts.last_qd is not None
-    plain = DeviceSeeder(MemOptions(), port_fm, CPU).run_flat(queries)
+    plain = DeviceSeeder(MemOptions(), port_fm, CPU,
+                         dedup=True).run_flat(queries)
     for g, w in zip(out, plain):
         assert np.array_equal(g, w)
 
@@ -420,7 +455,7 @@ def test_call_interface_overflow_rerun(tiny_fm, port_fm):
     """The per-read interface reruns an overflowing chunk on the lockstep
     seeder too: oracle-exact matches with SEED_F forced to 1."""
     opt = MemOptions()
-    sd = DeviceSeeder(opt, port_fm, CPU)
+    sd = DeviceSeeder(opt, port_fm, CPU, dedup=True)
     sd.SEED_F = 1
     queries = _queries("reads.fq", 120)
     got = sd(port_fm, opt, queries)
