@@ -91,6 +91,24 @@ Phases, in order; any failure exits non-zero:
                 fwd_off engine; SAM byte-equal to phase 4's.  (d) The two
                 2,000-read goldens under the all_off engine, one chunk
                 each, SAM byte-equal.
+  7. mesh     — the sharded path (parallel/sharded.py) on this card, S
+                shards on [cuda:0] * S: they run in turn, so this
+                measures the code path, not scaling.  (a) Phase 4's
+                stream at S = 1, 2 and 4, SAM byte-equal to phase 4's,
+                reads/s, shard width, per-shard seconds and launches for
+                each (counts set to 0 before the engines are built and
+                read after the stream; 2 fused launches a shard a
+                chunk); (b) at S = 4 the first chunk's shard heads equal
+                the JAX package's ShardedSeeder's, stored in
+                compseed_tpu_torch/mesh_heads.json; (c) GP_F = 2 at S =
+                4 on the first chunk: every shard overflows and reruns,
+                SAM equal; (f) the index with int64 positions at S = 4 on
+                the first chunk: heads equal the JAX int64 heads, SAM
+                equal; (d) ``mem --mesh 1`` on the bench file (SAM equal
+                to phase 4's) and ``mem --mesh 2``, which must return 1
+                on one card; (e) two ``mem`` processes under
+                COMPSEED_COORD=localhost:<port> on this card, then
+                ``merge``: equal to one process's SAM.
 
 With --scratch-variants (and --old-source FILE, an earlier
 csrc/bsw_extend.cu whose launcher has no pairs-per-block argument) the
@@ -98,10 +116,10 @@ source is also built with the scratch variant's hoisted loads off and on,
 and the builds are timed in turns on the Q = 2048 pairs and on the main
 path's captured tiles, each held to the plain version first.
 
-Prints the CLI phase's and the engine phase's numbers and the kernel
-table as one JSON line each, the card's nvidia-smi line, and as the
-last line {"ok": true, "device": {...}}.  Imports torch, numpy and
-compseed_tpu_torch only.
+Prints the CLI phase's, the engine phase's and the mesh phase's numbers
+and the kernel table as one JSON line each, the card's nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}.  Imports torch, numpy
+and compseed_tpu_torch only.
 """
 
 from __future__ import annotations
@@ -133,6 +151,8 @@ LONG_READS = 16        # reads of LONG_LEN + 3 bp for the Q = 2048 class
 LONG_LEN = 1500
 LONG_Q = 2048          # their query-length class
 LONG_SEED = 11
+MESH_SHARDS = (1, 2, 4)   # phase 7: shards of the sharded path, on one card
+MESH_GP_F = 2             # dryrun_multichip's forced round-1 pool
 # bwt_hit_pct, sal_merged_pct of one unforced stream: the seeder is
 # bit-exact, so these are fixed numbers of the input and the chunking
 EXPECT_REUSE = (38.4605, 39.9724)
@@ -1039,6 +1059,267 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
     return out
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
+    """Phase 7 (see the module docstring).  ``chunks``: phase 4's stream
+    of N_CHUNKS x CHUNK reads; ``main_sams`` its SAM; ``dfi`` phase 4's
+    index on the card.  Returns the numbers of the ``mesh`` JSON line; its
+    ``launches`` are summed over (a)'s streams, counts set to 0 just
+    before each (engine set-up included) and read just after."""
+    import numpy as np
+    import torch
+    from compseed_tpu_torch import cli
+    from compseed_tpu_torch.native import NativeTail
+    from compseed_tpu_torch.ops import bsw_cuda
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.parallel.sharded import (ShardedBswRunner,
+                                                     ShardedSeeder)
+    from compseed_tpu_torch.pipeline.align import align_stream
+    from compseed_tpu_torch.pipeline.seeding import SeedingStats
+    from compseed_tpu_torch.utils import NT4_TO_ASCII
+
+    with open(os.path.join(ROOT, "compseed_tpu_torch",
+                           "mesh_heads.json")) as f:
+        stored = json.load(f)
+    S_head = stored["chunk"]["shards"]
+    if stored["chunk"]["reads"] != CHUNK or S_head not in MESH_SHARDS:
+        raise SystemExit(f"mesh_heads.json holds {stored['chunk']}, phase 7 "
+                         f"runs {CHUNK}-read chunks at {MESH_SHARDS} shards")
+    out = {"card": smi, "heads_from": stored["command"]}
+    t_phase = time.time()
+
+    def reset_counts():
+        for k in bsw_cuda.LAUNCHES:
+            bsw_cuda.LAUNCHES[k] = 0
+
+    def build(S, dfi_=dfi, gp_f=None):
+        mesh = [dev] * S
+        sd = ShardedSeeder(opt, fm, mesh=mesh, dfi=dfi_, dedup=True)
+        if gp_f is not None:
+            sd.GP_F = gp_f
+        return sd, ShardedBswRunner(opt, np.array(opt.mat), mesh=mesh,
+                                    dfi=sd.dfi)
+
+    def heads_of(sd):
+        """Each shard's head record of the seeder's first chunk."""
+        got = []
+        run = sd._run_shards
+
+        def wrapped(*a):
+            shards, fns = run(*a)
+            if not got:
+                got.extend(head_record(x[0], x[1].cpu().numpy())
+                           for x in shards)
+            return shards, fns
+
+        sd._run_shards = wrapped
+        return got
+
+    def stream(sd, eng, chunks_):
+        """The chunks through align_stream: SAM strings, wall seconds,
+        SeedingStats and per chunk (overflow, R_shard, device s, shard
+        s, GP_F after it)."""
+        seen = []
+        run_flat = sd.run_flat
+
+        def watched(queries, stats=None):
+            r = run_flat(queries, stats)
+            seen.append(dict(overflow=bool(sd.last_overflow),
+                             r_shard=sd.prof["r_shard"],
+                             device_s=sd.prof["device_s"],
+                             shard_s=sd.prof["shard_s"], gp_f=sd.GP_F,
+                             rerun_s=sd.prof.get("rerun_s")))
+            return r
+
+        sd.run_flat = watched
+        done = []
+        st = SeedingStats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        align_stream(opt, fm, iter(chunks_), eng, sd, NativeTail(opt, fm),
+                     on_done=done.extend, stats=st)
+        torch.cuda.synchronize()
+        return [r.sam for r in done], time.time() - t0, st, seen
+
+    # ---- (a) the stream at S = 1, 2, 4 on one card; (b) at S_head, the
+    # first chunk's per-shard heads against the JAX package's
+    full, total = {}, {}
+    for S in MESH_SHARDS:
+        reset_counts()
+        sd, eng = build(S)
+        heads = heads_of(sd) if S == S_head else None
+        sams, wall, st, seen = stream(sd, eng, chunks)
+        launches = dict(bsw_cuda.LAUNCHES)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        n = N_CHUNKS * CHUNK
+        rec = dict(shards=S, reads_per_s=n / wall, wall_s=wall,
+                   r_shard=seen[0]["r_shard"],
+                   device_s_per_chunk=[c["device_s"] for c in seen],
+                   shard_s_per_chunk=[c["shard_s"] for c in seen],
+                   bwt_hit_pct=100.0 * (st.bwt_queries - st.bwt_calls)
+                   / st.bwt_queries,
+                   sal_merged_pct=100.0 * (st.sal_queries - st.sal_calls)
+                   / st.sal_queries, launches=launches)
+        log(f"[7] (a) S={S} on {dev}: {rec['reads_per_s']:.1f} reads/s "
+            f"({wall:.2f} s for {n} reads), R_shard {rec['r_shard']}, "
+            f"device s per chunk "
+            f"{[round(x, 3) for x in rec['device_s_per_chunk']]}, shard s "
+            f"{[[round(x, 3) for x in c] for c in rec['shard_s_per_chunk']]}"
+            f", BWT hit {rec['bwt_hit_pct']:.4f} %, SAL merged "
+            f"{rec['sal_merged_pct']:.4f} %, launches {launches}")
+        if sams != main_sams:
+            raise SystemExit(f"S={S}: SAM differs from phase 4's stream")
+        if any(c["overflow"] for c in seen):
+            raise SystemExit(f"S={S}: unexpected cap overflow")
+        if launches["bsw_meta_dual_kernel"] != 2 * S * N_CHUNKS or \
+                launches["probe_add_one_kernel"] <= 0:
+            raise SystemExit(f"S={S}: expected {2 * S * N_CHUNKS} fused "
+                             f"launches (two a shard a chunk) and the "
+                             f"self-check's probe: {launches}")
+        if heads is not None:
+            want = stored["heads"]["int32"]
+            bad = [s for s in range(S) if heads[s] != want[s]]
+            log(f"[7] (b) S={S}: the first chunk's {S} shard heads vs the "
+                f"JAX package's ShardedSeeder: {len(bad)} differ")
+            if len(heads) != S or bad:
+                raise SystemExit(f"S={S}: shard heads {bad} differ from "
+                                 f"mesh_heads.json")
+            rec["heads_equal_jax"] = True
+        full[S] = rec
+    out["full_width"] = full
+    out["launches"] = total
+
+    # ---- (c) forced overflow under sharding: every shard's round-1 pool
+    # overflows, each shard reruns its own reads on the lockstep seeder
+    S = max(MESH_SHARDS)
+    reset_counts()
+    sd, eng = build(S, gp_f=MESH_GP_F)
+    sams, wall, _, seen = stream(sd, eng, chunks[:1])
+    lf = dict(bsw_cuda.LAUNCHES)
+    log(f"[7] (c) S={S}, GP_F={MESH_GP_F}: overflow {seen[0]['overflow']}, "
+        f"GP_F after {seen[0]['gp_f']}, {sd._cap_raises} cap raises, rerun "
+        f"{seen[0]['rerun_s']:.2f} s, chunk {wall:.2f} s, launches {lf}")
+    if not seen[0]["overflow"] or sams != main_sams[:CHUNK]:
+        raise SystemExit("forced overflow under sharding: no overflow, or "
+                         "SAM differs from the unforced stream's")
+    if lf["bsw_extend_kernel"] <= 0:
+        raise SystemExit(f"forced overflow under sharding: the sharded flat "
+                         f"pairs launched no DP kernel: {lf}")
+    out["forced_overflow"] = dict(shards=S, gp_f=MESH_GP_F,
+                                  gp_f_after=seen[0]["gp_f"],
+                                  cap_raises=sd._cap_raises,
+                                  rerun_s=seen[0]["rerun_s"], chunk_s=wall,
+                                  launches=lf)
+
+    # ---- (f) the int64 index, sharded: heads against the JAX package's
+    # int64 heads, SAM equal to the int32 run's
+    reset_counts()
+    dfi64 = to_device(fm, dev, force_dtype=np.int64)
+    sd, eng = build(S_head, dfi_=dfi64)
+    heads = heads_of(sd)
+    sams, wall, _, seen = stream(sd, eng, chunks[:1])
+    l64 = dict(bsw_cuda.LAUNCHES)
+    bad = [s for s in range(S_head)
+           if heads[s] != stored["heads"]["int64"][s]]
+    log(f"[7] (f) int64 index, S={S_head}: {wall:.2f} s for one chunk, "
+        f"device s {seen[0]['device_s']:.3f}; shard heads vs the JAX "
+        f"package's int64 heads: {len(bad)} differ; launches {l64}")
+    if sd.dfi.dtype != torch.int64 or eng.dfi.dtype != torch.int64:
+        raise SystemExit("the int64 index was not used")
+    if bad or sams != main_sams[:CHUNK] or seen[0]["overflow"]:
+        raise SystemExit(f"int64 index: shard heads {bad} differ, or SAM "
+                         f"differs from the int32 run's")
+    if l64["bsw_meta_dual_kernel"] <= 0:
+        raise SystemExit(f"int64 index: no fused launch: {l64}")
+    out["int64"] = dict(shards=S_head, chunk_s=wall,
+                        device_s=seen[0]["device_s"], launches=l64,
+                        heads_equal_jax=True)
+
+    # ---- (d) the command line, (e) two processes and merge
+    seqs = [bytes(NT4_TO_ASCII[r]).decode() for r in reads_arr]
+    k_bases = str(CHUNK * reads_arr.shape[1])
+    from compseed_tpu_torch import bench_input
+    prefix8 = bench_input.index_prefix(8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_",
+                                     dir=os.path.join(ROOT, "build")) as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        with open(path("bench.reads"), "w") as f:
+            for c in range(N_CHUNKS):
+                s0 = (c * CHUNK) % len(seqs)
+                f.write("\n".join((seqs[s0:] + seqs[:s0])[:CHUNK]) + "\n")
+        rec = run_cli(["mem", "--mesh", "1", "-K", k_bases, "-o",
+                       path("m1.sam"), prefix8, path("bench.reads")], [])
+        mine = sam_lines(path("m1.sam"))
+        if "".join(l for l in mine if not l.startswith("@")) != \
+                "".join(main_sams):
+            raise SystemExit("cli mem --mesh 1: SAM differs from phase 4's "
+                             "stream")
+        log(f"[7] (d) cli mem --mesh 1: {rec['wall_s']:.2f} s for the bench "
+            f"file, SAM equal to the stream's; launches {rec['launches']}")
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["mem", "--mesh", "2", "-K", k_bases, "-o",
+                           path("m2.sam"), prefix8, path("bench.reads")])
+        n_cards = torch.cuda.device_count()
+        log(f"[7] (d) cli mem --mesh 2 on {n_cards} card(s): exit code {rc}: "
+            f"{err.getvalue().strip()[-200:]}")
+        if n_cards < 2 and (rc != 1 or os.path.exists(path("m2.sam")) or
+                            "--mesh 2" not in err.getvalue()):
+            raise SystemExit("cli mem --mesh 2 with one card must return 1 "
+                             "and write nothing")
+        out["cli"] = dict(mesh1_wall_s=rec["wall_s"],
+                          mesh1_launches=rec["launches"], mesh2_rc=rc)
+
+        port = free_port()
+        t0 = time.time()
+        procs = []
+        for i in range(2):
+            env = dict(os.environ, COMPSEED_COORD=f"localhost:{port}",
+                       COMPSEED_NPROCS="2", COMPSEED_PROC_ID=str(i))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "compseed_tpu_torch.cli", "mem", "-v",
+                 "1", "-K", k_bases, "-o", path("two.sam"), prefix8,
+                 path("bench.reads")], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        rcs = [p.returncode for p in procs]
+        if rcs != [0, 0]:
+            raise SystemExit(f"two processes returned {rcs}:\n"
+                             + "\n".join(x[-2000:] for x in logs))
+        shards = sorted(os.listdir(tmp))
+        if cli.main(["merge", path("two.sam")]) != 0:
+            raise SystemExit("cli merge failed")
+        two_s = time.time() - t0
+        merged = sam_lines(path("two.sam"))
+        log(f"[7] (e) two processes on {dev} ({two_s:.1f} s with merge, "
+            f"files {[x for x in shards if 'two' in x]}): merged SAM "
+            f"{'equals' if merged == mine else 'DIFFERS FROM'} one process's")
+        if merged != mine:
+            raise SystemExit("two processes: merged SAM differs from one "
+                             "process's")
+        out["two_processes"] = dict(wall_s=two_s, rcs=rcs)
+    out["phase_s"] = time.time() - t_phase
+    log(f"[7] mesh: {out['phase_s']:.1f} s")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scratch-variants", action="store_true")
@@ -1603,6 +1884,10 @@ def main() -> None:
     eng_rec["phase_s"] = time.time() - t0
     log(f"[6] engines: {eng_rec['phase_s']:.1f} s")
 
+    # ---- phase 7: the sharded path on this card
+    mesh_rec = phase_mesh(dev, smi, opt, fm, reads_arr, seeder.dfi,
+                          mk_chunks(), sams32)
+
     probe_bytes = 2 * 8 * 128 * 4
     probe_bound = max(probe_bytes / HBM_BYTES_PER_S,
                       8 * 128 / INT32_OPS_PER_S) * 1e3
@@ -1617,6 +1902,7 @@ def main() -> None:
                       "scratch_variants_ms": variant_ms}))
     print(json.dumps({"cli": cli_rec}))
     print(json.dumps({"engines": eng_rec}))
+    print(json.dumps({"mesh": mesh_rec}))
 
     def row(name, replaces, launches, errs, ms, plain_ms, bound, **more):
         return dict(name=name, route="cuda", source=KERNEL_SOURCE,
@@ -1625,7 +1911,8 @@ def main() -> None:
                     bound_by=bound["bound_by"],
                     library_ms=more.pop("library_ms", None),
                     cli_launches=cli_rec["launches"][name],
-                    a2_launches=eng_rec["a2"]["launches"][name], **more)
+                    a2_launches=eng_rec["a2"]["launches"][name],
+                    mesh_launches=mesh_rec["launches"][name], **more)
 
     probe_row = dict(bound_ms=probe_bound, bound_by="bytes")
     print(json.dumps({"kernels": [

@@ -17,7 +17,8 @@ library, never ``jax`` and nothing of ``compseed_tpu``.
     ``shm`` / ``merge`` (``python -m compseed_tpu_torch.cli``);
     ``api`` — the SMEM iterator and single-read alignment;
     ``parallel.distributed`` — chunk striding over processes and the
-    shard merge.
+    shard merge; ``parallel.mesh``, ``parallel.sharded`` — the pipeline
+    sharded over several devices (``mem --mesh N``).
   * ``compseed_tpu_torch.bench_input`` — the seeded benchmark genome,
     reads and read pairs.
 

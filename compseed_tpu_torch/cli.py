@@ -177,11 +177,6 @@ def cmd_mem(argv: list[str]) -> int:
                     default="native")
     ap.add_argument("-v", type=int, default=3, dest="verbose")
     args = ap.parse_args(argv)
-    if args.mesh > 0:
-        raise NotImplementedError(
-            "--mesh selects the sharded multi-device pipeline "
-            "(parallel/mesh.py, parallel/sharded.py), not ported yet "
-            "(ROADMAP: modules to port — multi-GPU)")
 
     opt = MemOptions()
     opt0: set[str] = set()
@@ -325,6 +320,13 @@ def cmd_mem(argv: list[str]) -> int:
                   "available (pass --device cpu or --engine oracle to run "
                   "without one)", file=sys.stderr)
             return 1
+        if args.mesh > 0 and dev.type == "cuda" and \
+                dev.index + args.mesh > torch.cuda.device_count():
+            # never a smaller mesh than asked for
+            print(f"[E::mem] --mesh {args.mesh}: needs {args.mesh} CUDA "
+                  f"devices from {dev}, {torch.cuda.device_count()} are "
+                  "visible", file=sys.stderr)
+            return 1
 
     out = open(args.output, "w") if args.output else sys.stdout
     pg = ("@PG\tID:compseed-tpu\tPN:compseed-tpu\tVN:0.1.0\tCL:"
@@ -360,13 +362,29 @@ def cmd_mem(argv: list[str]) -> int:
                           f"interval {fm.sa_intv} to {sa_intv} in "
                           f"{time.time() - t_d:.2f}s", file=sys.stderr)
                 fm.sa_intv = sa_intv
-            # compressive dedup on for every input mode (the reference
-            # builds its SSTs unconditionally); the adaptive cap
-            # fallback protects low-sharing FASTQ input
-            seeder = device_seeder(opt, fm, dedup=True, dfi=dfi, device=dev)
-            # on a card this builds the kernels and runs their launch
-            # self-check
-            engine = device_engine(opt, fm, dfi=seeder.dfi, device=dev)
+            if args.mesh > 0:
+                # multi-device: the production pipeline sharded over a
+                # list of devices (parallel/sharded.py): cards from
+                # --device on, or N shards on the CPU
+                import numpy as _np
+                from compseed_tpu_torch.parallel.sharded import (
+                    ShardedBswRunner, ShardedSeeder)
+                mesh = [torch.device(dev.type, dev.index + i)
+                        if dev.type == "cuda" else dev
+                        for i in range(args.mesh)]
+                seeder = ShardedSeeder(opt, fm, mesh=mesh, dedup=True,
+                                       dfi=dfi)
+                engine = ShardedBswRunner(opt, _np.array(opt.mat),
+                                          mesh=mesh, dfi=seeder.dfi)
+            else:
+                # compressive dedup on for every input mode (the reference
+                # builds its SSTs unconditionally); the adaptive cap
+                # fallback protects low-sharing FASTQ input
+                seeder = device_seeder(opt, fm, dedup=True, dfi=dfi,
+                                       device=dev)
+                # on a card this builds the kernels and runs their launch
+                # self-check
+                engine = device_engine(opt, fm, dfi=seeder.dfi, device=dev)
         except (RuntimeError, OSError) as e:
             # a kernel that does not build or launch, or a device that
             # cannot be used: the run ends here
@@ -476,7 +494,12 @@ def cmd_mem(argv: list[str]) -> int:
         wt.join()
         if args.output:
             out.close()
-            os.remove(args.output)   # shards + header replace the stream
+            # shards + header replace the stream; processes that share a
+            # file system each opened it, and the first to end removes it
+            try:
+                os.remove(args.output)
+            except FileNotFoundError:
+                pass
         return 0
 
     if opt.flag & opts.MEM_F_SMARTPE:

@@ -64,13 +64,15 @@
 // probe_add_one_kernel
 //   Replaces the TPU package's toolchain probe (compseed_tpu/ops/bsw.py,
 //   the kernel `k` run by pallas_available): x + 1 on one (8, 128) int32
-//   tile.  bsw_cuda.self_check launches it once per DP engine and stops the
-//   run unless every element is right.  It moves 8 KB, so it is bound by
+//   tile.  bsw_cuda.self_check launches it once per device of a DP engine
+//   and stops the run unless every element is right.  It moves 8 KB, so it is bound by
 //   the launch itself: one block, 16 bytes a thread.
 //
-// The launchers allocate nothing, launch on the caller's stream and return
-// the CUDA error code (0 on success): a refused launch (too much shared
-// memory, too many threads) reaches the wrapper, which raises.  Built with
+// The launchers allocate nothing, launch on the caller's stream of the
+// calling thread's current device (the wrapper makes the tensors' device
+// current) and return the CUDA error code (0 on success): a refused launch
+// (too much shared memory, too many threads) reaches the wrapper, which
+// raises.  Built with
 // nvcc for sm_90a into a shared library with a plain C interface
 // (compseed_tpu_torch/ops/bsw_cuda.py).  Compiled as C++ without nvcc, the
 // same per-pair routines are exposed through host loops so that their
@@ -81,6 +83,8 @@
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include <mutex>
 #define BSW_HD __host__ __device__ __forceinline__
 #else
 #include <vector>
@@ -472,18 +476,34 @@ __global__ void bsw_meta_dual_kernel(const int* __restrict__ mat,
                     r.E, r.qw, blockDim.x);
 }
 
-// Allow `bytes` of dynamic shared memory for `kernel`; above 48 KB a kernel
-// must be told once.  `granted` remembers the largest size already set.
+// The largest dynamic shared memory already allowed for one kernel, per
+// device: the attribute that allows more than 48 KB belongs to the device
+// that was current when it was set, so each card is told once.  The mutex
+// makes the test and the set one step when host threads launch at once;
+// a grant only ever grows, so a launch never finds less than it tested.
+constexpr int kMaxDevices = 64;
+struct Grant {
+  std::mutex mu;
+  size_t bytes[kMaxDevices] = {};
+};
+
+// Allow `bytes` of dynamic shared memory for `kernel` on the current device.
 template <typename K>
-int grant_shared(K kernel, size_t bytes, size_t* granted) {
-  if (bytes <= 48 * 1024 || bytes <= *granted) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
+int grant_shared(K kernel, size_t bytes, Grant* grant) {
+  if (bytes <= 48 * 1024) return 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(grant->mu);
+  if (bytes <= grant->bytes[dev]) return 0;
+  err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) {
     cudaGetLastError();                 // the error is returned, not left
     return (int)err;
   }
-  *granted = bytes;
+  grant->bytes[dev] = bytes;
   return 0;
 }
 
@@ -494,7 +514,7 @@ int launch_extend(const int* mat25, const int8_t* queries, const int* qlens,
                   const int8_t* targets, const int* tlens, const int* h0s,
                   const int* ws, int* out, S* hbuf, S* ebuf, int P, int Q,
                   int T, const Gap g, int threads, void* stream) {
-  static size_t granted = 0;
+  static Grant granted;
   if (P <= 0) return 0;
   if (threads < 0 || threads > 1024) return (int)cudaErrorInvalidValue;
   if (threads == 0) {
@@ -521,7 +541,7 @@ int launch_meta_dual(const int* mat25, const uint8_t* qflat, long long n_rows,
                      int* out, int P, int Q, int T, int L, long long l_pac,
                      const Gap g, int w0, int wide_r0, int threads,
                      void* stream) {
-  static size_t granted = 0;
+  static Grant granted;
   if (P <= 0) return 0;
   if (threads <= 0 || threads > 1024 || n_rows <= 0 || n_words <= 0)
     return (int)cudaErrorInvalidValue;

@@ -358,10 +358,12 @@ class BswRunner:
     def run_flat(self, qbuf: np.ndarray, qoff: np.ndarray, rbuf: np.ndarray,
                  roff: np.ndarray, h0: np.ndarray, w: int, pen_clip: int):
         """Flat-buffer interface; returns six (n,) int32 numpy arrays."""
-        if len(h0) == 0:
+        n = len(h0)
+        if n == 0:
             z = np.zeros(0, np.int32)
             return (z,) * 6
-        return self._run_kernel(qbuf, qoff, rbuf, roff, h0, w, pen_clip)
+        return _collect(n, 6, self._tiles_launch(
+            self.device, self.mat, qbuf, qoff, rbuf, roff, h0, w, pen_clip))
 
     def set_query_context(self, qd, L: int = 0, row_map=None) -> None:
         """Per-chunk device read matrix for metadata-only pair transfer;
@@ -398,17 +400,57 @@ class BswRunner:
                  h0: np.ndarray, w: int, pen_clip: int):
         """Pair metadata interface: sequences are sliced on the device
         from the chunk read matrix + packed reference."""
-        opt = self.opt
         n = len(h0)
         if n == 0:
             z = np.zeros(0, np.int32)
             return (z,) * 6
         qflat, L = self._qctx
-        qmeta = self._remap(qmeta)
+        return _collect(n, 6, self._meta_launch(
+            self.device, self.mat, self.dfi, qflat, L, self._remap(qmeta),
+            rmeta, h0, w, pen_clip))
+
+    def run_meta_dual(self, qmeta: np.ndarray, rmeta: np.ndarray,
+                      h0: np.ndarray, prev: np.ndarray, w: int,
+                      pen_clip: int):
+        """Fused band-retry interface: one packed H2D table, both band
+        rounds + acceptance on the device (bsw_meta_dual), one D2H copy.
+        Returns seven (n,) int32 arrays: the six DP results of the
+        accepted round + the accepted round index."""
+        n = len(h0)
+        if n == 0:
+            z = np.zeros(0, np.int32)
+            return (z,) * 7
+        qflat, L = self._qctx
+        parts = self._dual_launch(self.device, self.mat, self.dfi, qflat, L,
+                                  self._remap(qmeta), rmeta, h0, prev, w,
+                                  pen_clip)
+        return self._fetch(n, 7, parts)
+
+    def _fetch(self, n: int, ncol: int, parts):
+        """``_collect`` with its time added to the engine_fetch timer (it
+        waits for the DP)."""
+        t0 = time.perf_counter()
+        out = _collect(n, ncol, parts)
+        self._tick("engine_fetch", time.perf_counter() - t0)
+        return out
+
+    def _tick(self, key: str, dt: float) -> None:
+        self.prof[key] = self.prof.get(key, 0.0) + dt
+
+    # The launch routines below run one batch of pairs on ``dev`` with the
+    # scoring matrix ``mat`` (and, for the metadata interfaces, the index
+    # ``dfi`` and the flat read matrix ``qflat`` on that device): per
+    # query-length class, pairs sorted by target length, one padded batch.
+    # They return [(pair indices, (P, 8) result on dev)] and copy nothing
+    # back, so that batches on several devices run side by side.
+
+    def _meta_launch(self, dev, mat, dfi, qflat, L, qmeta, rmeta, h0, w,
+                     pen_clip):
+        """Tiles decoded on the device, one DP launch per class."""
+        opt = self.opt
         qlens = qmeta[:, 2].astype(np.int32)
         tlens = rmeta[:, 1].astype(np.int32)
-        res = np.zeros((n, 6), np.int32)
-        dev = self.device
+        parts = []
         for Q, cls in _q_classes(qlens):
             m = len(cls)
             order = cls[np.argsort(tlens[cls], kind="stable")]
@@ -426,38 +468,25 @@ class BswRunner:
             ws = np.full((P, 1), w, np.int32)
             ws[:m, 0] = self._bands(qlens[order], w, pen_clip)
             qt, ql, tt = bsw_cuda.build_tiles(
-                qflat, self.dfi.pac_words, _t(qm, dev),
-                _t(r0, dev).to(self.dfi.dtype), _t(rl, dev),
-                Q=Q, T=T, L=L, l_pac=self.dfi.l_pac)
-            out = bsw_cuda.bsw_extend_tiles(
-                self.mat, qt, ql[:, None].to(torch.int32).contiguous(), tt,
+                qflat, dfi.pac_words, _t(qm, dev),
+                _t(r0, dev).to(dfi.dtype), _t(rl, dev),
+                Q=Q, T=T, L=L, l_pac=dfi.l_pac)
+            parts.append((order, bsw_cuda.bsw_extend_tiles(
+                mat, qt, ql[:, None].to(torch.int32).contiguous(), tt,
                 _t(rl[:, None], dev), _t(h0p, dev), _t(ws, dev),
                 o_del=opt.o_del, e_del=opt.e_del, o_ins=opt.o_ins,
-                e_ins=opt.e_ins, zdrop=opt.zdrop, state16=s16).cpu().numpy()
-            res[order] = out[:m, :6]
-        # each result crosses a raw ctypes pointer into the native tail,
-        # which indexes it densely: must be C-contiguous
-        return tuple(np.ascontiguousarray(res[:, j]) for j in range(6))
+                e_ins=opt.e_ins, zdrop=opt.zdrop, state16=s16)))
+        return parts
 
-    def run_meta_dual(self, qmeta: np.ndarray, rmeta: np.ndarray,
-                      h0: np.ndarray, prev: np.ndarray, w: int,
-                      pen_clip: int):
-        """Fused band-retry interface: one packed H2D table, both band
-        rounds + acceptance on the device (bsw_meta_dual), one D2H copy.
-        Returns seven (n,) int32 arrays: the six DP results of the
-        accepted round + the accepted round index."""
+    def _dual_launch(self, dev, mat, dfi, qflat, L, qmeta, rmeta, h0, prev,
+                     w, pen_clip):
+        """One packed meta table and one fused program per class."""
         opt = self.opt
-        n = len(h0)
-        if n == 0:
-            z = np.zeros(0, np.int32)
-            return (z,) * 7
-        t0 = time.perf_counter()
-        qflat, L = self._qctx
-        qmeta = self._remap(qmeta)
         qlens = qmeta[:, 2].astype(np.int32)
         tlens = rmeta[:, 1].astype(np.int32)
-        wide = self.dfi.dtype == torch.int64
-        res = np.zeros((n, 7), np.int32)
+        wide = dfi.dtype == torch.int64
+        parts = []
+        t0 = time.perf_counter()
         for Q, cls in _q_classes(qlens):
             m = len(cls)
             order = cls[np.argsort(tlens[cls], kind="stable")]
@@ -477,37 +506,29 @@ class BswRunner:
             meta[:m, 9] = self._bands(qlens[order], w, pen_clip)
             meta[:m, 10] = self._bands(qlens[order], w * 2, pen_clip)
             t1 = time.perf_counter()
-            out_dev = bsw_meta_dual(
-                self.mat, qflat, self.dfi.pac_words,
-                _t(meta, self.device), Q=Q, T=T, L=L,
-                l_pac=self.dfi.l_pac, o_del=opt.o_del, e_del=opt.e_del,
+            parts.append((order, bsw_meta_dual(
+                mat, qflat, dfi.pac_words, _t(meta, dev), Q=Q, T=T, L=L,
+                l_pac=dfi.l_pac, o_del=opt.o_del, e_del=opt.e_del,
                 o_ins=opt.o_ins, e_ins=opt.e_ins, zdrop=opt.zdrop,
-                w0=int(w), wide_r0=wide, state16=s16)
+                w0=int(w), wide_r0=wide, state16=s16)))
             t2 = time.perf_counter()
-            out = out_dev.cpu().numpy()
-            t3 = time.perf_counter()
-            res[order] = out[:m, :7]
-            for key, dt in (("engine_pack", t1 - t0),
-                            ("engine_call", t2 - t1),
-                            ("engine_fetch", t3 - t2)):
-                self.prof[key] = self.prof.get(key, 0.0) + dt
-            t0 = time.perf_counter()
-        # each result crosses a raw ctypes pointer: must be C-contiguous
-        return tuple(np.ascontiguousarray(res[:, j]) for j in range(7))
+            self._tick("engine_pack", t1 - t0)
+            self._tick("engine_call", t2 - t1)
+            t0 = t2
+        return parts
 
-    def _run_kernel(self, qbuf, qoff, rbuf, roff, h0, w: int,
-                    pen_clip: int):
+    def _tiles_launch(self, dev, mat, qbuf, qoff, rbuf, roff, h0, w: int,
+                      pen_clip: int):
         """Flat pairs -> per-Q-class padded tiles -> the DP."""
         opt = self.opt
         n = len(h0)
-        dev = self.device
         qlens = (qoff[1:] - qoff[:-1]).astype(np.int32)
         tlens = (roff[1:] - roff[:-1]).astype(np.int32)
         Qall = _bucket(int(qlens.max(initial=1)), 128)
         Tall = _bucket(int(tlens.max(initial=1)), 128)
         q_all, _ = _pack_rows(qbuf, qoff, n, Qall)
         t_all, _ = _pack_rows(rbuf, roff, n, Tall)
-        res = np.zeros((n, 6), np.int32)
+        parts = []
         for Q, cls in _q_classes(qlens):
             m = len(cls)
             order = cls[np.argsort(tlens[cls], kind="stable")]
@@ -526,14 +547,12 @@ class BswRunner:
             h0p[:m, 0] = h0[order]
             ws = np.full((P, 1), w, np.int32)
             ws[:m, 0] = self._bands(qlens[order], w, pen_clip)
-            out = bsw_cuda.bsw_extend_tiles(
-                self.mat, _t(queries, dev), _t(qlp, dev), _t(targets, dev),
+            parts.append((order, bsw_cuda.bsw_extend_tiles(
+                mat, _t(queries, dev), _t(qlp, dev), _t(targets, dev),
                 _t(tlp, dev), _t(h0p, dev), _t(ws, dev), o_del=opt.o_del,
                 e_del=opt.e_del, o_ins=opt.o_ins, e_ins=opt.e_ins,
-                zdrop=opt.zdrop, state16=s16).cpu().numpy()
-            res[order] = out[:m, :6]
-        # C-contiguous per result — consumed through a raw ctypes pointer
-        return tuple(np.ascontiguousarray(res[:, j]) for j in range(6))
+                zdrop=opt.zdrop, state16=s16)))
+        return parts
 
     def __call__(self, pairs, w: int, pen_clip: int):
         if not pairs:
@@ -553,3 +572,13 @@ class BswRunner:
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def _collect(n: int, ncol: int, parts) -> tuple:
+    """Copy the launch routines' results back: ``ncol`` C-contiguous (n,)
+    int32 arrays (each crosses a raw ctypes pointer into the native tail,
+    which indexes it densely)."""
+    res = np.zeros((n, ncol), np.int32)
+    for idx, out in parts:
+        res[idx] = out.cpu().numpy()[:len(idx), :ncol]
+    return tuple(np.ascontiguousarray(res[:, j]) for j in range(ncol))

@@ -18,12 +18,19 @@ version: ``ops/bsw.py::_meta_dual_plain``).
 
 ``probe_add_one`` launches the library's one-tile probe kernel (x + 1;
 plain version ``_probe_plain``), and ``self_check`` holds it to that
-plain version: it runs once for each DP engine built on a card
-(``BswRunner.__init__``), and a wrong tile stops the run.  It takes the
-place of the JAX package's toolchain probe (``pallas_available``), but
-its verdict never selects the plain version, and there is no override.
+plain version: it runs once for each card a DP engine is built on
+(``BswRunner.__init__``, ``ShardedBswRunner.__init__``), and a wrong tile
+stops the run.  It takes the place of the JAX package's toolchain probe
+(``pallas_available``), but its verdict never selects the plain version,
+and there is no override.
 
 ``LAUNCHES`` counts kernel launches by kernel, and nothing else.
+
+Every launch goes to the device its tensors lie on: the wrapper makes that
+device current in the calling thread around the C launcher, which launches
+on the current device (and grants a kernel more than 48 KB of shared
+memory once per device).  Worker threads of the sharded path launch side
+by side, so the counts and the library's one-time load take a lock.
 
 ``build_tiles`` decodes the DP tiles on the device from pair metadata:
 query rows from the chunk's read matrix (3-bit packed 8-char windows),
@@ -37,6 +44,7 @@ import ctypes as ct
 import os
 import shutil
 import subprocess
+import threading
 
 import numpy as np
 import torch
@@ -66,6 +74,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _lib = None
+_LOCK = threading.Lock()          # the library's load and LAUNCHES
 
 
 def _nvcc() -> str:
@@ -105,31 +114,38 @@ def compile_source(src: str, so: str, defines: tuple = ()) -> None:
 def _load():
     """The library, built if need be and loaded once per process."""
     global _lib
-    if _lib is None:
-        lib = ct.CDLL(build_library())
-        p, i = ct.c_void_p, ct.c_int
-        ll = ct.c_longlong
-        for fn in (lib.bsw_extend_launch, lib.bsw_extend_launch_i16):
-            fn.restype = i
-            fn.argtypes = [p] * 10 + [i] * 9 + [p]
-        for fn in (lib.bsw_meta_dual_launch, lib.bsw_meta_dual_launch_i16):
-            fn.restype = i
-            fn.argtypes = [p, p, ll, p, ll, p, p, i, i, i, i, ll] + \
-                [i] * 8 + [p]
-        lib.probe_add_one_launch.restype = i
-        lib.probe_add_one_launch.argtypes = [p, p, i, p]
-        lib.bsw_pair_bytes.restype = ll
-        lib.bsw_pair_bytes.argtypes = [i, i]
-        lib.bsw_cuda_error_name.restype = ct.c_char_p
-        lib.bsw_cuda_error_name.argtypes = [i]
-        _lib = lib
-    return _lib
+    with _LOCK:
+        if _lib is None:
+            lib = ct.CDLL(build_library())
+            p, i = ct.c_void_p, ct.c_int
+            ll = ct.c_longlong
+            for fn in (lib.bsw_extend_launch, lib.bsw_extend_launch_i16):
+                fn.restype = i
+                fn.argtypes = [p] * 10 + [i] * 9 + [p]
+            for fn in (lib.bsw_meta_dual_launch,
+                       lib.bsw_meta_dual_launch_i16):
+                fn.restype = i
+                fn.argtypes = [p, p, ll, p, ll, p, p, i, i, i, i, ll] + \
+                    [i] * 8 + [p]
+            lib.probe_add_one_launch.restype = i
+            lib.probe_add_one_launch.argtypes = [p, p, i, p]
+            lib.bsw_pair_bytes.restype = ll
+            lib.bsw_pair_bytes.argtypes = [i, i]
+            lib.bsw_cuda_error_name.restype = ct.c_char_p
+            lib.bsw_cuda_error_name.argtypes = [i]
+            _lib = lib
+        return _lib
 
 
 def _launch_error(kernel: str, device, err: int) -> RuntimeError:
     name = _lib.bsw_cuda_error_name(err).decode()
     return RuntimeError(f"{kernel} launch failed on {device} ({_SO}): CUDA "
                         f"error {err} ({name})")
+
+
+def _launched(kernel: str) -> None:
+    with _LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _probe_plain(x: torch.Tensor) -> torch.Tensor:
@@ -162,11 +178,13 @@ def probe_add_one(x: torch.Tensor,
     if (px | py) & 15:
         raise ValueError("probe_add_one: x and out must be 16-byte aligned")
     # the launcher and its argtypes were resolved when the library loaded
-    err = (_lib or _load()).probe_add_one_launch(
-        px, py, PROBE_SHAPE[0] * PROBE_SHAPE[1], _stream(dev))
+    lib = _lib or _load()
+    with torch.cuda.device(dev):
+        err = lib.probe_add_one_launch(
+            px, py, PROBE_SHAPE[0] * PROBE_SHAPE[1], _stream(dev))
     if err != 0:
         raise _launch_error("probe_add_one_kernel", dev, err)
-    LAUNCHES["probe_add_one_kernel"] += 1
+    _launched("probe_add_one_kernel")
     return out
 
 
@@ -297,14 +315,15 @@ def _launch_extend(mat, queries, qlens, targets, tlens, h0s, ws, *, o_del,
                            dtype=torch.int16 if state16 else torch.int32)
         ebuf = torch.empty_like(hbuf)
         hptr, eptr = hbuf.data_ptr(), ebuf.data_ptr()
-    err = launch(
-        mat.data_ptr(), queries.data_ptr(), qlens.data_ptr(),
-        targets.data_ptr(), tlens.data_ptr(), h0s.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), hptr, eptr, P, Q, T,
-        o_del, e_del, o_ins, e_ins, zdrop, threads, _stream(dev))
+    with torch.cuda.device(dev):
+        err = launch(
+            mat.data_ptr(), queries.data_ptr(), qlens.data_ptr(),
+            targets.data_ptr(), tlens.data_ptr(), h0s.data_ptr(),
+            ws.data_ptr(), out.data_ptr(), hptr, eptr, P, Q, T,
+            o_del, e_del, o_ins, e_ins, zdrop, threads, _stream(dev))
     if err != 0:
         raise _launch_error(kernel, dev, err)
-    LAUNCHES[kernel] += 1
+    _launched(kernel)
     return out
 
 
@@ -346,13 +365,14 @@ def bsw_meta_dual(mat: torch.Tensor,      # (5, 5) int32
     launch = lib.bsw_meta_dual_launch_i16 if state16 else \
         lib.bsw_meta_dual_launch
     out = torch.empty((P, 8), dtype=torch.int32, device=dev)
-    err = launch(mat.data_ptr(), qflat.data_ptr(), qflat.numel() // L,
-                 pac.data_ptr(), pac.numel(), meta.data_ptr(),
-                 out.data_ptr(), P, Q, T, L, l_pac, o_del, e_del, o_ins,
-                 e_ins, zdrop, w0, int(wide_r0), threads, _stream(dev))
+    with torch.cuda.device(dev):
+        err = launch(mat.data_ptr(), qflat.data_ptr(), qflat.numel() // L,
+                     pac.data_ptr(), pac.numel(), meta.data_ptr(),
+                     out.data_ptr(), P, Q, T, L, l_pac, o_del, e_del, o_ins,
+                     e_ins, zdrop, w0, int(wide_r0), threads, _stream(dev))
     if err != 0:
         raise _launch_error(kernel, dev, err)
-    LAUNCHES[kernel] += 1
+    _launched(kernel)
     return out
 
 

@@ -237,16 +237,19 @@ class DeviceSeeder:
         self.last_L = 0
 
     # ------------------------------------------------------------------
-    def _build(self, R: int, L: int):
+    def _build(self, R: int, L: int, dfi: DeviceFMIndex | None = None):
         """The per-(R, L) programs r1, r2, r3, merge, seeds and pack (the
         JAX package's jitted stages, as plain functions on tensors) of the
-        engine the knobs select."""
-        key = (R, L)
+        engine the knobs select, on the device of ``dfi`` (default: the
+        seeder's index).  A program binds its index and device, so the
+        programs are kept per device."""
+        dfi0 = self.dfi if dfi is None else dfi
+        dev = dfi0.device
+        key = (dev, R, L)
         if key in self._progs:
             return self._progs[key]
         opt = self.opt
-        dt = self.dfi.dtype
-        dev = self.device
+        dt = dfi0.dtype
         GP = self.GP_F * R
         T2 = self.T2L_F * R
         GP2 = self.GP2_F * R
@@ -282,7 +285,7 @@ class DeviceSeeder:
         # still equal JAX's; the chunk itself is rerun)
         clamps = (use_fwd and not use_memo) or \
             (not bwd_chain and (use_bwd or r2_dedup))
-        dfi = replace(self.dfi, fill_oob=True) if clamps else self.dfi
+        dfi = replace(dfi0, fill_oob=True) if clamps else dfi0
         scan1 = ss.make_scan(dfi, L, ss.CAPL, advance=True)
         scan2 = ss.make_scan(dfi, L, ss.CAPL2, advance=False)
         CW = self.chain_w

@@ -12,7 +12,7 @@ cstl/kthread.c:95-105).  The multi-host equivalent implemented here:
     slices the identical chunk stream without coordination — the -K
     reproducibility contract (main.cpp:266,437) carried across hosts.
   * The FM-index is loaded per host (replicated — it is read-only; the
-    intra-host multi-device path is not ported yet).
+    intra-host story is parallel/sharded.py's mesh replication).
   * Each host writes ``out.shardNNNN`` files; ``merge_shards`` (or
     ``compseed-tpu merge``) concatenates records back into global chunk
     order.  Merge is pure file concatenation in chunk-index order, so

@@ -3,7 +3,7 @@ input, for two or more checkouts of the repo timed in turns.
 
     python3 scripts/torch_seeding_ab.py --tree parent=DIR --tree change=. \
         [--order parent,change,change,parent] [--engine default] \
-        [--device cuda]
+        [--device cuda] [--mesh NAME=S ...]
 
 Each turn is a fresh process that imports compseed_tpu_torch from its
 tree, uploads the bench index (``bench_input.setup``), runs one warm-up
@@ -12,6 +12,10 @@ chunks through ``DeviceSeeder.run_flat`` (seeding alone: no DP engine,
 no tail), and prints one JSON line.  The summary line gives per tree the
 median seconds per chunk over its turns and every value.  Trees that
 predate an engine knob can only be timed on the default engine.
+``--mesh NAME=S`` seeds that name's turns through
+``parallel.sharded.ShardedSeeder`` over ``[device] * S`` instead (one
+tree may appear under two names, e.g. ``--tree plain=. --tree mesh1=.
+--mesh mesh1=1``, to time the sharded layer against the seeder alone).
 """
 
 from __future__ import annotations
@@ -38,7 +42,12 @@ if dev.type == "cuda" and dev.index is None:
 fm, reads = bench_input.setup()
 knobs = {knobs!r}
 os.environ.update(knobs[1])
-sd = DeviceSeeder(MemOptions(), fm, dev, dedup=knobs[0])
+if {shards}:
+    from compseed_tpu_torch.parallel.sharded import ShardedSeeder
+    sd = ShardedSeeder(MemOptions(), fm, mesh=[dev] * {shards},
+                       dedup=knobs[0])
+else:
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=knobs[0])
 chunks = [[reads[(c * {chunk} + i) % len(reads)] for i in range({chunk})]
           for c in range({chunks})]
 def sync():
@@ -71,8 +80,12 @@ def main() -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--chunks", type=int, default=4)
     ap.add_argument("--passes", type=int, default=2)
+    ap.add_argument("--mesh", action="append", default=[],
+                    help="NAME=S: that name's turns on a ShardedSeeder "
+                         "of S shards")
     args = ap.parse_args()
     trees = dict(t.split("=", 1) for t in args.tree)
+    shards = {n: int(v) for n, v in (m.split("=", 1) for m in args.mesh)}
     names = list(trees)
     order = args.order.split(",") if args.order else names + names[::-1]
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -83,7 +96,8 @@ def main() -> None:
     for name in order:
         code = _TURN.format(tree=os.path.abspath(trees[name]),
                             device=args.device, knobs=knobs, chunk=CHUNK,
-                            chunks=args.chunks, passes=args.passes)
+                            chunks=args.chunks, passes=args.passes,
+                            shards=shards.get(name, 0))
         proc = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True)
         if proc.returncode:

@@ -2,10 +2,11 @@
 on the CPU: ``index`` writes the fixture index byte for byte; ``mem
 --device cpu`` gives SAM equal to the goldens' records and, line for line
 apart from @PG, to the JAX package's ``mem --engine device``; -K chunk
-independence, -y 0, --sa-intv and its validation, --mesh, a missing
-card, a failing kernel build, the two-process shard run with ``merge``,
-``init_distributed``, ``reorder`` and ``shm`` (tolerance 0 everywhere:
-the system is integer and bit-exact)."""
+independence, -y 0, --sa-intv and its validation, --mesh (four shards on
+the CPU, the count of cards), a missing card, a failing kernel build, the
+two-process shard run with ``merge``, ``init_distributed``, ``reorder``
+and ``shm`` (tolerance 0 everywhere: the system is integer and
+bit-exact)."""
 
 import os
 
@@ -145,11 +146,68 @@ def test_sa_intv_densifies_and_validates(tmp_path, capsys):
     assert _sam(out) == base
 
 
-def test_mesh_raises(tmp_path):
+@pytest.mark.parametrize("names,n", [(("reads.fq",), N),
+                                     (("reads_1.fq", "reads_2.fq"), 0)],
+                         ids=["SE", "PE"])
+def test_mesh_on_the_cpu_gives_the_golden(tmp_path, names, n):
+    """``--device cpu --mesh 4``: four shards of the sharded pipeline on
+    the CPU.  SE: N reads (one chunk, 64 a shard), records equal to the
+    golden's; PE: both whole files, every line but @PG equal to the
+    golden's (the insert-size statistics span the chunk, not a shard)."""
+    if n:
+        reads = [_subset(tmp_path, names[0], n, 4)]
+        gold = _golden("golden_bwamem.sam", n)
+    else:
+        reads = [os.path.join(FIXTURES, x) for x in names]
+        gold = _sam(os.path.join(FIXTURES, "golden_bwamem_pe.sam"))
+    got = _sam(_mem(tmp_path, "mesh4", "--mesh", "4", IDX, *reads))
+    assert (got[1] if n else got) == gold
+
+
+def test_mesh_needs_as_many_cards(tmp_path, capsys, monkeypatch):
+    """``--mesh N`` on a card takes N cards from --device on.  With fewer
+    visible, mem returns 1, names both numbers and writes no record; the
+    mesh never shrinks and never moves to the CPU."""
+    import torch
+    from compseed_tpu_torch.parallel import sharded
+    seen = []
+
+    def capture(opt, fm, mesh, **kw):
+        seen.append(mesh)
+        raise RuntimeError("stop here")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(sharded, "ShardedSeeder", capture)
     reads = _subset(tmp_path, "reads.fq", 4, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*multi-GPU"):
-        _mem(tmp_path, "mesh", "--mesh", "2", IDX, reads)
-    assert not os.path.exists(str(tmp_path / "mesh.sam"))
+    for flag, mesh in ((("--device", "cuda"), "3"),
+                       (("--device", "cuda:1"), "2")):
+        out = _mem(tmp_path, "few", "--mesh", mesh, IDX, reads, rc=1,
+                   device=flag)
+        err = capsys.readouterr().err
+        assert f"--mesh {mesh}: needs {mesh} CUDA devices" in err, err
+        assert "2 are visible" in err
+        assert not os.path.exists(out)
+    assert seen == []
+    for flag, want in ((("--device", "cuda"), [0, 1]), ((), [0, 1]),
+                       (("--device", "cuda:1"), [1])):
+        _mem(tmp_path, "two", "--mesh", str(len(want)), IDX, reads, rc=1,
+             device=flag)
+        assert seen.pop() == [torch.device("cuda", i) for i in want]
+
+
+def test_mesh_without_a_card_never_runs_on_the_cpu(tmp_path, capsys,
+                                                    monkeypatch):
+    """``--mesh 2`` at the default device and no card: exit code 1, no
+    record, and no shard on the CPU."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    reads = _subset(tmp_path, "reads.fq", 4, 4)
+    for device in ((), ("--device", "cuda:0")):
+        out = _mem(tmp_path, "nocard", "--mesh", "2", IDX, reads, rc=1,
+                   device=device)
+        assert "no CUDA device" in capsys.readouterr().err
+        assert not os.path.exists(out)
 
 
 def test_mem_defaults_to_the_card_and_fails_without_one(tmp_path, capsys,
@@ -218,10 +276,12 @@ def _with_env(env, fn):
                 os.environ[k] = v
 
 
-def test_two_process_shard_merge(tmp_path, capsys):
+def test_two_process_shard_merge(tmp_path, capsys, monkeypatch):
     """Two simulated processes split the -K chunk stream round-robin;
     ``merge`` restores the single-process SAM byte for byte apart from
-    @PG (mirrors tests/test_distributed.py)."""
+    @PG (mirrors tests/test_distributed.py).  Process 1 finds the stream
+    file it opened already removed by process 0, as when both run at
+    once on one file system."""
     reads = _subset(tmp_path, "reads.fq", 200, 4)
     single = str(tmp_path / "single.sam")
     argv = ["mem", "--device", "cpu", "-v", "1", "-K", "5050", IDX, reads,
@@ -229,6 +289,14 @@ def test_two_process_shard_merge(tmp_path, capsys):
     assert _with_env({"COMPSEED_NPROCS": ""},
                      lambda: cli.main(argv + [single])) == 0
     merged = str(tmp_path / "dist.sam")
+    remove = os.remove
+
+    def sibling_first(path):
+        if path == merged and os.environ.get("COMPSEED_PROC_ID") == "1":
+            remove(path)                 # process 0 got there first
+        remove(path)
+
+    monkeypatch.setattr(os, "remove", sibling_first)
     for pid in ("0", "1"):
         assert _with_env({"COMPSEED_NPROCS": "2", "COMPSEED_PROC_ID": pid},
                          lambda: cli.main(argv + [merged])) == 0

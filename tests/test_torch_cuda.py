@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (the DP with int32 and with int16 state
 on shared-memory rows and on the device-memory scratch, the fused
 decode + two-round DP, the launch probe) against their plain PyTorch
-versions, on the card.
+versions, on the card; launches from worker threads and on a second card
+(that test skips unless two are visible); the sharded pipeline on one
+card against the unsharded one.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -305,3 +307,96 @@ def test_cli_mem_on_card_equals_cpu(dev, tmp_path, what):
             sams[tag] = [l for l in f if not l.startswith("@PG")]
     assert sams["card"] == sams["cpu"]
     assert len(sams["card"]) >= 2 + (n if len(names) == 1 else 2 * n)
+
+
+def _shared_case(dev, seed, Q=256):
+    """A fused-kernel table whose block needs more than 48 KiB of dynamic
+    shared memory (the per-device grant)."""
+    assert bsw_cuda.block_threads(Q) * bsw_cuda.pair_bytes(Q) > 48 * 1024
+    return _dual_on(dev, seed, n=900, P=1024, Q=Q, T=256, w0=8)
+
+
+def test_shared_memory_grant_from_worker_threads_on_card(dev):
+    """Blocks over 48 KiB (Q = 256 and 512) launched from worker threads,
+    two classes side by side, then again from this thread: every launch
+    runs on the tensors' card and equals the plain version."""
+    import concurrent.futures as cf
+    cases = [_shared_case(dev, 120 + i, Q) for i, Q in
+             enumerate((256, 512, 256, 512))]
+
+    def launch(case):
+        args, kw = case
+        got = _meta_dual_core(*args, **kw)
+        torch.cuda.synchronize(args[0].device)
+        return got.cpu()
+
+    n0 = bsw_cuda.LAUNCHES["bsw_meta_dual_kernel"]
+    with cf.ThreadPoolExecutor(max_workers=4) as ex:
+        got = list(ex.map(launch, cases))
+    got += [launch(c) for c in cases]
+    assert bsw_cuda.LAUNCHES["bsw_meta_dual_kernel"] == n0 + 8
+    for i, (args, kw) in enumerate(cases * 2):
+        assert torch.equal(got[i], _meta_dual_plain(*args, **kw).cpu()), i
+
+
+def test_dp_on_a_second_card_first(dev):
+    """Skips unless two cards are visible (one H100 runs none of it).
+    The DP with blocks over 48 KiB on cuda:1 while cuda:0 is current,
+    then on cuda:0: each launch goes to its tensors' card, and the
+    shared-memory grant of one card does not stand in for the other's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    d1 = torch.device("cuda", 1)
+    for d in (d1, dev):
+        with torch.cuda.device(0):
+            args, kw = _shared_case(d, 140)
+            got = _meta_dual_core(*args, **kw)
+            tiles = _on(d, dp_tiles(141, P=1024, Q=256, T=256))
+            mat = torch.from_numpy(MAT).to(d)
+            tl = bsw_cuda.bsw_extend_tiles(mat, *tiles, **GAP)
+        torch.cuda.synchronize(d)
+        assert got.device == tl.device == d
+        assert torch.equal(got.cpu(), _meta_dual_plain(*args, **kw).cpu())
+        assert torch.equal(tl[:, :6].cpu(), _plain_tiles(mat, tiles))
+        bsw_cuda.self_check(d)
+
+
+def test_sharded_pipeline_on_one_card_equals_unsharded(dev, tmp_path):
+    """The sharded pipeline on [cuda:0, cuda:0] (two shards in turn on one
+    card): SAM equal to the single-device pipeline on the card, with the
+    fused kernel launched for both shards."""
+    import os
+
+    import numpy as np
+
+    from compseed_tpu_torch.index.fmindex import FMIndex
+    from compseed_tpu_torch.io.fastq import read_fastq_chunks
+    from compseed_tpu_torch.native import NativeTail
+    from compseed_tpu_torch.ops.engine import device_engine, device_seeder
+    from compseed_tpu_torch.options import MemOptions
+    from compseed_tpu_torch.parallel.sharded import (ShardedBswRunner,
+                                                     ShardedSeeder)
+    from compseed_tpu_torch.pipeline.align import align_chunk
+    fx = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+    fm = FMIndex.load(os.path.join(fx, "tiny"))
+    reads = []
+    for chunk in read_fastq_chunks(os.path.join(fx, "reads.fq"), 10**9):
+        reads.extend(chunk)
+    reads = reads[:240]
+    opt = MemOptions()
+
+    def run(seeder, engine):
+        rs = [r.__class__(**r.__dict__) for r in reads]
+        align_chunk(opt, fm, rs, 0, engine=engine, seeder=seeder,
+                    tail=NativeTail(opt, fm))
+        return "".join(r.sam for r in rs)
+
+    sd = device_seeder(opt, fm, dedup=True, device=dev)
+    want = run(sd, device_engine(opt, fm, dfi=sd.dfi, device=dev))
+    sd = ShardedSeeder(opt, fm, mesh=[dev, dev], dedup=True)
+    eng = ShardedBswRunner(opt, np.array(opt.mat), mesh=[dev, dev],
+                           dfi=sd.dfi)
+    n0 = bsw_cuda.LAUNCHES["bsw_meta_dual_kernel"]
+    assert run(sd, eng) == want
+    assert not sd.last_overflow and len(sd.last_qd) == 2
+    assert bsw_cuda.LAUNCHES["bsw_meta_dual_kernel"] >= n0 + 2

@@ -127,9 +127,6 @@ ALLOWED = {
          '  * ``init_distributed`` — bring up ``torch.distributed`` from the\n'
          '    coordinator env vars so every host joins one process group.\n',
          "torch.distributed in place of jax.distributed"),
-        ("    intra-host story is parallel/sharded.py's mesh replication).\n",
-         '    intra-host multi-device path is not ported yet).\n',
-         "parallel/sharded.py is not ported yet"),
         ('tests/test_distributed.py with n_hosts simulated process-locally.\n',
          'tests/test_torch_cli.py with n_hosts simulated process-locally.\n',
          "the port's own test file"),
@@ -234,16 +231,6 @@ ALLOWED = {
          '                         "intv 32): device memory traded for SAL walk "\n'
          '                         "depth; "\n',
          "the port's device is a GPU"),
-        ('    ap.add_argument("-v", type=int, default=3, dest="verbose")\n'
-         '    args = ap.parse_args(argv)\n',
-         '    ap.add_argument("-v", type=int, default=3, dest="verbose")\n'
-         '    args = ap.parse_args(argv)\n'
-         '    if args.mesh > 0:\n'
-         '        raise NotImplementedError(\n'
-         '            "--mesh selects the sharded multi-device pipeline "\n'
-         '            "(parallel/mesh.py, parallel/sharded.py), not ported yet "\n'
-         '            "(ROADMAP: modules to port — multi-GPU)")\n',
-         "the sharded multi-device pipeline is not ported yet; its knob raises"),
         ('    shm_name = os.path.basename(args.index_prefix)\n',
          '    shm_name = os.path.basename(args.index_prefix)\n'
          '    sa_intv = _check_sa_intv(args, shm_name)\n'
@@ -263,8 +250,17 @@ ALLOWED = {
          '            print(f"[E::mem] --device {args.device}: no CUDA device is "\n'
          '                  "available (pass --device cpu or --engine oracle to run "\n'
          '                  "without one)", file=sys.stderr)\n'
+         '            return 1\n'
+         '        if args.mesh > 0 and dev.type == "cuda" and \\\n'
+         '                dev.index + args.mesh > torch.cuda.device_count():\n'
+         '            # never a smaller mesh than asked for\n'
+         '            print(f"[E::mem] --mesh {args.mesh}: needs {args.mesh} CUDA "\n'
+         '                  f"devices from {dev}, {torch.cuda.device_count()} are "\n'
+         '                  "visible", file=sys.stderr)\n'
          '            return 1\n',
-         "an explicit torch device; no card ends the run, nothing carries on with the CPU"),
+         "an explicit torch device; no card ends the run, nothing carries on with the CPU; "
+         "--mesh N on a card needs N cards from --device on (the JAX package's "
+         "jax.devices()[:N] would shrink the mesh without a word), else exit code 1"),
         ('        dfi = None\n'
          '        if args.sa_intv and args.sa_intv < fm.sa_intv:\n'
          '            import numpy as _np\n'
@@ -287,7 +283,13 @@ ALLOWED = {
          '            engine = ShardedBswRunner(opt, _np.array(opt.mat), mesh=mesh,\n'
          '                                      dfi=seeder.dfi)\n'
          '        else:\n'
-         '            from compseed_tpu.ops.engine import device_engine, device_seeder\n',
+         '            from compseed_tpu.ops.engine import device_engine, device_seeder\n'
+         '            # compressive dedup on for every input mode (the reference\n'
+         '            # builds its SSTs unconditionally); the adaptive cap\n'
+         '            # fallback protects low-sharing FASTQ input\n'
+         '            seeder = device_seeder(opt, fm, dedup=True, dfi=dfi)\n'
+         '            engine = device_engine(opt, fm,\n'
+         '                                   dfi=getattr(seeder, "dfi", None))\n',
          '        from compseed_tpu.ops.engine import (device_engine,\n'
          '                                                   device_seeder)\n'
          '        try:\n'
@@ -305,15 +307,30 @@ ALLOWED = {
          '                    print(f"[mem] densified the suffix-array sample from "\n'
          '                          f"interval {fm.sa_intv} to {sa_intv} in "\n'
          '                          f"{time.time() - t_d:.2f}s", file=sys.stderr)\n'
-         '                fm.sa_intv = sa_intv\n',
-         "densify_sa takes the validated interval and a device and reports its time; the --mesh branch is gone (it raises above)"),
-        ('            seeder = device_seeder(opt, fm, dedup=True, dfi=dfi)\n'
-         '            engine = device_engine(opt, fm,\n'
-         '                                   dfi=getattr(seeder, "dfi", None))\n',
-         '            seeder = device_seeder(opt, fm, dedup=True, dfi=dfi, device=dev)\n'
-         '            # on a card this builds the kernels and runs their launch\n'
-         '            # self-check\n'
-         '            engine = device_engine(opt, fm, dfi=seeder.dfi, device=dev)\n'
+         '                fm.sa_intv = sa_intv\n'
+         '            if args.mesh > 0:\n'
+         '                # multi-device: the production pipeline sharded over a\n'
+         '                # list of devices (parallel/sharded.py): cards from\n'
+         '                # --device on, or N shards on the CPU\n'
+         '                import numpy as _np\n'
+         '                from compseed_tpu.parallel.sharded import (\n'
+         '                    ShardedBswRunner, ShardedSeeder)\n'
+         '                mesh = [torch.device(dev.type, dev.index + i)\n'
+         '                        if dev.type == "cuda" else dev\n'
+         '                        for i in range(args.mesh)]\n'
+         '                seeder = ShardedSeeder(opt, fm, mesh=mesh, dedup=True,\n'
+         '                                       dfi=dfi)\n'
+         '                engine = ShardedBswRunner(opt, _np.array(opt.mat),\n'
+         '                                          mesh=mesh, dfi=seeder.dfi)\n'
+         '            else:\n'
+         '                # compressive dedup on for every input mode (the reference\n'
+         '                # builds its SSTs unconditionally); the adaptive cap\n'
+         '                # fallback protects low-sharing FASTQ input\n'
+         '                seeder = device_seeder(opt, fm, dedup=True, dfi=dfi,\n'
+         '                                       device=dev)\n'
+         '                # on a card this builds the kernels and runs their launch\n'
+         '                # self-check\n'
+         '                engine = device_engine(opt, fm, dfi=seeder.dfi, device=dev)\n'
          '        except (RuntimeError, OSError) as e:\n'
          '            # a kernel that does not build or launch, or a device that\n'
          '            # cannot be used: the run ends here\n'
@@ -322,7 +339,19 @@ ALLOWED = {
          '            if args.output:\n'
          '                out.close()\n'
          '            return 1\n',
-         "the port's engines take an explicit device; a kernel that does not build or launch ends the run with its message"),
+         "densify_sa takes the validated interval and a device and reports its time; "
+         "the engines take an explicit device, the mesh is a list of devices "
+         "(parallel/mesh.py); a kernel that does not build or launch ends the run "
+         "with its message"),
+        ('            os.remove(args.output)   # shards + header replace the stream\n',
+         '            # shards + header replace the stream; processes that share a\n'
+         '            # file system each opened it, and the first to end removes it\n'
+         '            try:\n'
+         '                os.remove(args.output)\n'
+         '            except FileNotFoundError:\n'
+         '                pass\n',
+         "two processes of one host that share -o each remove the stream file "
+         "at their end; the second found it gone and failed"),
         ('    proc_id, n_procs = dist_mod.init_distributed()\n',
          '    proc_id, n_procs = dist_mod.init_distributed(\n'
          '        device=dev if dev is not None else "cpu")\n',
