@@ -6,10 +6,11 @@ Phases, in order; any failure exits non-zero:
 
   0. device   — a CUDA card must be present; prints its nvidia-smi
                 name and power limit.
-  1. build    — compiles csrc/bsw_extend.cu with nvcc for sm_90a (and,
-                beside it, the host tail with g++), loads the library
-                and runs its launch self-check: the probe kernel against
-                its plain version; a wrong tile is fatal.  The probe and
+  1. build    — compiles csrc/bsw_extend.cu and csrc/fm_walk.cu with
+                nvcc for sm_90a (side by side, and beside them the host
+                tail with g++), loads the libraries and runs the launch
+                self-check: the probe kernel against its plain version; a
+                wrong tile is fatal.  The probe and
                 torch.add are timed two ways each: a loop of launches
                 between two events, and the same launches captured once
                 in a CUDA graph and replayed.
@@ -28,6 +29,14 @@ Phases, in order; any failure exits non-zero:
                 table goes through _meta_dual_core both ways: int32 rows
                 do not fit, so it builds tiles and launches the scratch
                 kernel once per round; int16 rows fit, one fused launch.
+                Then the FM kernels (one-child extension, W-step chain
+                walk, inverse-Psi walk) against their plain versions,
+                exactly, over the bench index with int32 and with int64
+                positions: 16,384 lanes and a (2048, MLEP, 3) batch both
+                ways, chain walks at W = 1, 5, 8, 10 with and without
+                stop_s and an ambiguous base at every column, the walk
+                over 1, sa_intv and 2 sa_intv steps, and garbage lanes
+                under fill_oob; one counted launch per kernel call.
   3. goldens  — tests/fixtures reads, each 2,000-read file as ONE chunk,
                 through align_stream with the port's seeder, DP engine
                 and native tail: the seeder's caps overflow, the chunk
@@ -54,7 +63,17 @@ Phases, in order; any failure exits non-zero:
                 must not overflow, the SAM of both must equal the
                 unforced run's, and the DP kernel's launches are counted
                 for this run alone.  The int16 and the tile-route window
-                time one stream each.
+                time one stream each.  The FM kernels: launches per
+                chunk (the chain walk and the inverse-Psi walk must have
+                launched in the int32 window, the extension in the forced
+                run's rerun); the first call of each kind that the first
+                chunk (and the rerun) makes, through the kernel and its
+                plain version, exact, timed, with its bound;
+                torch.profiler over one chunk (launches, stream syncs,
+                async copies, the card's busy share: ``profile_chunk``,
+                which scripts/torch_seeding_ab.py --profile runs on other
+                checkouts); round 1's live lanes before each round
+                (chain_scan's ``report_rounds``).
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
                 tests/fixtures/tiny.fa must write the committed index
@@ -83,7 +102,8 @@ Phases, in order; any failure exits non-zero:
                 more runs of that chunk per engine, a fresh seeder a run:
                 seeds equal the default engine's; device seconds, BWT
                 hit and SAL merged shares, overflows and per-read
-                splices recorded.  (c) Cell A'':
+                splices and the FM kernels' launches recorded.  (c) Cell
+                A'':
                 a seeder under COMPSEED_ADAPTIVE_CAPS=0 with the memo
                 round-3 pool forced to R (MEM3_F = 1) streams phase 4's
                 4 x 16,384 reads: chunk 1 alone overflows, is rerun and
@@ -139,6 +159,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "compseed_tpu_torch/csrc/bsw_extend.cu"
+FM_SOURCE = "compseed_tpu_torch/csrc/fm_walk.cu"
 CHUNK = 16384          # reads per chunk, the bench's default
 N_CHUNKS = 4
 RUNS = 3               # timed streams after one warm-up stream
@@ -169,6 +190,23 @@ INT32_OPS_PER_S = 67e12 / 4
 # h (2), row-max compare + two selects (3), E: sub, max0, sub, max (4),
 # F: sub, max0, sub, max (4)
 OPS_PER_CELL = 15
+# The FM kernels rank in occ rows of 12 words held in 8 bytes each: 4
+# checkpoint counts, then 4 hi and 4 lo bit-plane words of 32 bases
+# (ops/device_index.py).  A rank at block offset o needs the count words of
+# the bases it reports and the hi / lo words up to word o >> 5, and the
+# bound counts each such (row, word) once per call, however often the
+# walks read it again (fm_rank_need).  Integer operations: per word ranked
+# mask 3, and/not 6, popcount 4, add 4; per rank 4 more (the checkpoint
+# adds); per extension 20 more ($ adjustments, sizes, child select,
+# coordinates); per inverse-Psi step 10 more (base decode, L2 add,
+# sampled-row test).
+FM_WORD_BYTES = 8
+FM_OPS_WORD = 17
+FM_OPS_RANK = 4
+FM_OPS_EXTEND = 20
+FM_OPS_LF = 10
+FM_KERNELS = ("fm_extend_sel_kernel", "fm_chain_walk_kernel",
+              "fm_inv_psi_walk_kernel")
 
 
 def log(msg: str) -> None:
@@ -257,13 +295,92 @@ def graph_time_ms(fn, launches: int = 100, reps: int = 10) -> float:
     return a.elapsed_time(b) / (reps * launches)
 
 
-def ops_bound(nbytes: int, cells: int):
-    """(bound_ms, bound_by): the bytes over the HBM rate against the band
-    cells times the operations per cell over the int32 peak."""
+def bound_of(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the bytes over the HBM rate against the
+    integer operations over the int32 peak, the larger of the two."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = cells * OPS_PER_CELL / INT32_OPS_PER_S * 1e3
+    by_ops = ops / INT32_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else \
         (by_ops, "operations")
+
+
+def ops_bound(nbytes: int, cells: int):
+    """bound_of for the DP: the band cells times the operations per cell."""
+    return bound_of(nbytes, cells * OPS_PER_CELL)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launches since the last reset_launches()."""
+    from compseed_tpu_torch.ops import bsw_cuda, fm_cuda
+    return {**bsw_cuda.LAUNCHES, **fm_cuda.LAUNCHES}
+
+
+def reset_launches() -> None:
+    from compseed_tpu_torch.ops import bsw_cuda, fm_cuda
+    for counts in (bsw_cuda.LAUNCHES, fm_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def profile_chunk(run, sync) -> dict:
+    """torch.profiler over one call of ``run`` (one chunk of seeding):
+    the CUDA runtime calls that cost host time (launches, stream syncs,
+    async copies) and the card's busy time, the union of the kernels' and
+    copies' intervals on the device.  Also the wall time of the same call
+    without the profiler, right after, and the mean device time per
+    launch of each FM kernel.  ``scripts/torch_seeding_ab.py --profile``
+    runs the same pass on other checkouts."""
+    from torch.profiler import ProfilerActivity, profile
+    calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+             "cudaStreamSynchronize", "cudaMemcpyAsync",
+             "cudaDeviceSynchronize")
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        sync()
+        wall_prof = time.perf_counter() - t0
+    sync()
+    t0 = time.perf_counter()
+    run()
+    sync()
+    wall = time.perf_counter() - t0
+    out = {c: 0 for c in calls}
+    fm_ms = {}
+    for e in prof.key_averages():
+        if e.key in out:
+            out[e.key] = e.count
+        m = re.search(r"\b(fm_[a-z_]+_kernel)", e.key)
+        dev_us = getattr(e, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "cuda_time_total", 0)
+        if m and dev_us:
+            r = fm_ms.setdefault(m.group(1), dict(launches=0, device_us=0.0))
+            r["launches"] += e.count
+            r["device_us"] += dev_us
+    for r in fm_ms.values():
+        r["device_ms_per_launch"] = r.pop("device_us") / 1e3 / r["launches"]
+    spans = []
+    for e in prof.events():
+        dt = str(getattr(e, "device_type", ""))
+        if dt.endswith("CUDA") and e.time_range.end > e.time_range.start:
+            spans.append((e.time_range.start, e.time_range.end))
+    spans.sort()
+    busy_us, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy_us += b - a
+            end = b
+        elif b > end:
+            busy_us += b - end
+            end = b
+    out.update(wall_s_profiled=wall_prof, wall_s=wall,
+               device_busy_s=busy_us / 1e6,
+               busy_pct_of_wall=100.0 * busy_us / 1e6 / wall,
+               busy_pct_of_profiled=100.0 * busy_us / 1e6 / wall_prof,
+               device_events=len(spans), fm_kernels=fm_ms)
+    return out
 
 
 def dp_bound_ms(tiles, cells: int):
@@ -338,6 +455,352 @@ def compare_dual(args, kw, gap):
                 p16_ms=cuda_time_ms(plain(True), 2))
 
 
+def fm_cases(dfi, rng) -> dict:
+    """Every FM kernel against its plain version on the card, on seeded
+    lanes at the main path's widths: max_abs_err per case (all must be
+    0), and the launches the cases made (one per kernel call)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from compseed_tpu_torch.ops import fm as dfm
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops import seedscan as ss
+    from compseed_tpu_torch.ops.fm_cases import (garbage, intervals, pack,
+                                                 sa_lanes, windows)
+    from compseed_tpu_torch.ops.smem import MLEP
+    dev, dt = dfi.device, dfi.dtype
+    oob = dataclasses.replace(dfi, fill_oob=True)
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    errs, calls = {}, dict.fromkeys(FM_KERNELS, 0)
+    n0 = dict(fm_cuda.LAUNCHES)
+
+    def check(tag, kernel, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        errs[tag] = max(err(g, w) for g, w in zip(got, want))
+        calls[kernel] += 1
+
+    def rand_c(n):
+        return on(rng.integers(0, 4, n).astype(np.int32))
+
+    # one-child extension: CHUNK lanes, a (2048, MLEP, 3) batch with a
+    # broadcast child (the exact rerun's backward shrink), garbage lanes
+    ik = intervals(dfi, rng, CHUNK, depth=14)
+    c = rand_c(CHUNK)
+    ikb = intervals(dfi, rng, 2048 * MLEP, depth=14).reshape(2048, MLEP, 3)
+    cb = rand_c(2048)[:, None].expand(2048, MLEP)
+    g = on(garbage(dfi, 2048)).to(dt)
+    ikg = torch.stack([g, g.flip(0), torch.full_like(g, 9)], dim=1)
+    cg = rand_c(2048)
+    for is_back in (False, True):
+        for tag, fm_, a, cc in (("lanes", dfi, ik, c), ("batch", dfi, ikb, cb),
+                                ("fill_oob", oob, ikg, cg)):
+            check(f"extend {tag} is_back={is_back}", "fm_extend_sel_kernel",
+                  dfm.extend_sel_batch(fm_, a, cc, is_back),
+                  dfm._extend_sel_plain(fm_, a, cc, is_back))
+
+    # the chain walk: forward reps of a CHUNK-read round (U = CHUNK / 2),
+    # W in {1, 5, 8, 10}, with and without stop_s, an ambiguous base at
+    # every column; garbage lanes that step under fill_oob
+    U = CHUNK // 2
+    iku = intervals(dfi, rng, U, depth=14)
+    valid = on(rng.random(U) < 0.9)
+    stop = on(rng.integers(1, 40, U)).to(dt)
+    gk = on(garbage(dfi, U)).to(dt)
+    for W in (1, 5, 8, 10):
+        wv = on(pack(windows(rng, U, W)))
+        for is_back in (False, True):
+            for stop_s in (None, stop):
+                a = (wv, W, iku[:, 0].contiguous(), iku[:, 1].contiguous(),
+                     iku[:, 2].contiguous(), valid)
+                kw = dict(is_back=is_back, stop_s=stop_s)
+                check(f"chain W={W} is_back={is_back} "
+                      f"stop_s={stop_s is not None}", "fm_chain_walk_kernel",
+                      fm_cuda.chain_walk(dfi, *a, **kw),
+                      ss._chain_walk_plain(dfi, *a, **kw))
+        if W == 8:
+            a = (wv, W, gk, gk.flip(0), torch.full_like(gk, 9),
+                 torch.ones_like(valid))
+            check("chain fill_oob", "fm_chain_walk_kernel",
+                  fm_cuda.chain_walk(oob, *a, is_back=True),
+                  ss._chain_walk_plain(oob, *a, is_back=True))
+
+    # the inverse-Psi walk: CHUNK lanes, some on sampled rows and dead
+    # from the start, n_steps in {1, sa_intv, 2 sa_intv}; garbage lanes
+    kk, steps, alive = (on(x) for x in sa_lanes(dfi, rng, CHUNK))
+    for n in (1, dfi.sa_intv, 2 * dfi.sa_intv):
+        check(f"inv_psi n_steps={n}", "fm_inv_psi_walk_kernel",
+              fm_cuda.inv_psi_walk(dfi, kk, steps, alive, n),
+              dfm._walk_plain(dfi, kk, steps, alive, n))
+    gg = g.abs() | 1
+    live = torch.ones(2048, dtype=torch.bool, device=dev)
+    check("inv_psi fill_oob", "fm_inv_psi_walk_kernel",
+          fm_cuda.inv_psi_walk(oob, gg, gg * 0, live, 3),
+          dfm._walk_plain(oob, gg, gg * 0, live, 3))
+    torch.cuda.synchronize()
+    made = {k: fm_cuda.LAUNCHES[k] - n0[k] for k in FM_KERNELS}
+    if made != calls:
+        raise SystemExit(f"FM kernel launches counted {made}, expected one "
+                         f"per kernel call: {calls}")
+    return errs
+
+
+class FmCapture:
+    """Records the first call of each kind of the FM wrappers (inputs
+    cloned) while a run goes through them: the chain walk by direction,
+    the inverse-Psi walk by step count, the extension by batch rank."""
+
+    def __init__(self):
+        from compseed_tpu_torch.ops import fm_cuda
+        self.mod = fm_cuda
+        self.orig = dict(chain_walk=fm_cuda.chain_walk,
+                         inv_psi_walk=fm_cuda.inv_psi_walk,
+                         extend_sel_batch=fm_cuda.extend_sel_batch)
+        self.calls = {}
+
+    def _clone(self, x):
+        import torch
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def __enter__(self):
+        def wrap(name, key):
+            fn = self.orig[name]
+
+            def w(*a, **kw):
+                k = (name,) + key(*a, **kw)
+                if k not in self.calls:
+                    self.calls[k] = (tuple(self._clone(x) for x in a),
+                                     {n: self._clone(v)
+                                      for n, v in kw.items()})
+                return fn(*a, **kw)
+            setattr(self.mod, name, w)
+
+        wrap("chain_walk", lambda *a, **kw: (kw.get("is_back", False),))
+        wrap("inv_psi_walk", lambda *a, **kw: (a[4],))
+        wrap("extend_sel_batch", lambda *a, **kw: (a[1].dim(),))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.mod, name, fn)
+
+
+def fm_rank_need(dfi, x, bases):
+    """What ranks at the ($-adjusted) positions x (int64, one per rank)
+    need of the occ table: (distinct occ words, words ranked).  bases
+    (len(x), 4) bool: the checkpoint counts each rank reports.  A row is
+    the block x >> 7 (a negative block wraps); a block beyond the table
+    is fill_oob's all-ones row and reads nothing."""
+    import torch
+    n = dfi.occ_rows.shape[0]
+    nw = ((x & 127) >> 5) + 1           # hi / lo words up to x's own
+    blk = x >> 7
+    inr = (blk >= -n) & (blk < n)
+    blk, nw_in, bases = torch.remainder(blk[inr], n), nw[inr], bases[inr]
+    top = torch.zeros(n, dtype=torch.int64, device=x.device).scatter_reduce(
+        0, blk, nw_in, "amax")
+    cnt = torch.unique((blk[:, None] * 4 + torch.arange(
+        4, device=x.device)[None, :])[bases]).numel()
+    return int(2 * top.sum()) + cnt, int(nw.sum())
+
+
+def fm_extend_need(dfi, x, s, c):
+    """fm_rank_need for one-child extensions of bi-intervals with searched
+    coordinate x and size s (index dtype) by child c: the two occ4
+    queries at x - 1 and x - 1 + s, each a rank unless at -1, reporting
+    the counts of bases c..3 (the child's and the sizes above it).
+    Returns (distinct occ words, words ranked, ranks)."""
+    import torch
+    xm1 = x - 1
+    k = torch.cat([xm1, xm1 + s]).to(torch.int64)
+    c = torch.cat([c, c]).to(torch.int64)
+    made = k != -1
+    k, c = k[made], c[made]
+    k = k - (k >= dfi.primary).to(torch.int64)
+    bases = torch.arange(4, device=k.device)[None, :] >= c[:, None]
+    nwords, ranked = fm_rank_need(dfi, k, bases)
+    return nwords, ranked, int(k.shape[0])
+
+
+def fm_measure(key, call, reps: int = 20) -> dict:
+    """A captured FM call through its kernel and its plain version:
+    max_abs_err, CUDA-event ms per call of each, and the bound from the
+    occ words and the operations this call's data needs."""
+    import torch
+    from compseed_tpu_torch.ops import fm as dfm
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops import seedscan as ss
+    a, kw = call
+    dfi = a[0]
+    es = dfi.occ_rows.new_empty(0, dtype=dfi.dtype).element_size()
+    name = key[0]
+    if name == "chain_walk":
+        kernel, plain = fm_cuda.chain_walk, ss._chain_walk_plain
+    elif name == "inv_psi_walk":
+        kernel, plain = fm_cuda.inv_psi_walk, dfm._walk_plain
+    else:
+        kernel, plain = fm_cuda.extend_sel_batch, dfm._extend_sel_plain
+    got, want = kernel(*a, **kw), plain(*a, **kw)
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    e = max(err(g, w) for g, w in zip(got, want))
+    k_ms = cuda_time_ms(lambda: kernel(*a, **kw), reps)
+    p_ms = cuda_time_ms(lambda: plain(*a, **kw), max(reps // 4, 2))
+    i64 = torch.int64
+    if name == "chain_walk":
+        _, wv, W, k, l, s, valid = a[:7]
+        is_back = kw.get("is_back", False)
+        ck, cl, cs, ln = want
+        # the state before column j, and the columns each lane stepped
+        prev = [torch.cat([x[:, None], c[:, :-1]], 1) for x, c in
+                ((k.to(dfi.dtype), ck), (l.to(dfi.dtype), cl),
+                 (s.to(dfi.dtype), cs))]
+        stepped = torch.arange(W, device=k.device)[None, :] < ln[:, None]
+        base = ((wv.to(i64)[:, None] >> (3 * torch.arange(
+            W, device=k.device))) & 7).clamp(0, 3)
+        c = (base if is_back else 3 - base)[stepped]
+        x, sz = prev[0 if is_back else 1][stepped], prev[2][stepped]
+        nwords, ranked, ranks = fm_extend_need(dfi, x, sz, c)
+        ops = ranked * FM_OPS_WORD + ranks * FM_OPS_RANK + \
+            int(ln.sum()) * FM_OPS_EXTEND
+        U = k.shape[0]
+        nbytes = nwords * FM_WORD_BYTES + U * (8 + 3 * es + 1) + \
+            (U * es if kw.get("stop_s") is not None else 0) + \
+            U * (3 * W * es + 4)
+        shape = f"U={U} W={W} is_back={is_back}"
+    elif name == "inv_psi_walk":
+        _, kk, steps, alive, n = a
+        # replay the walk a step at a time: the rows each live lane ranks
+        # in, at x = k - (k > primary) (k == primary needs none)
+        xs, k_, st_, al_ = [], kk, steps, alive
+        for _ in range(n):
+            live = al_ & (k_ != dfi.primary)
+            x = k_[live]
+            xs.append(x - (x > dfi.primary).to(x.dtype))
+            k_, st_, al_ = dfm._walk_plain(dfi, k_, st_, al_, 1)
+        x = torch.cat(xs)
+        c = dfm.bwt_b0_batch(dfi, x).to(i64)
+        lanes4 = torch.arange(4, device=x.device)[None, :]
+        nwords, ranked = fm_rank_need(dfi, x.to(i64), lanes4 == c[:, None])
+        ranks = x.shape[0]
+        ops = ranked * FM_OPS_WORD + ranks * (FM_OPS_RANK + FM_OPS_LF)
+        N = kk.shape[0]
+        nbytes = nwords * FM_WORD_BYTES + 2 * N * (2 * es + 1)
+        shape = f"N={N} n_steps={n}"
+    else:
+        ik = a[1].reshape(-1, 3).to(dfi.dtype)
+        fwd = 0 if a[3] else 1
+        c = a[2].reshape(-1).to(i64)
+        nwords, ranked, ranks = fm_extend_need(dfi, ik[:, fwd], ik[:, 2], c)
+        n = ik.shape[0]
+        ops = ranked * FM_OPS_WORD + ranks * FM_OPS_RANK + n * FM_OPS_EXTEND
+        nbytes = nwords * FM_WORD_BYTES + n * (3 * es + 4) + n * 3 * es
+        shape = f"ik {tuple(a[1].shape)} is_back={a[3]}"
+    bound_ms, bound_by = bound_of(nbytes, ops)
+    return dict(shape=shape, max_abs_err=e, ms=k_ms, plain_ms=p_ms,
+                words=nwords, bytes=nbytes, ops=ops, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def fm_main_path(dev, seeder, queries, l32) -> dict:
+    """Phase 4's FM numbers: each FM kernel's launches per chunk in the
+    int32 window (``l32``), the main path's own calls (the first of each
+    kind in one run of the first chunk) through each kernel and its plain
+    version, the profiler's counts over that chunk, and round 1's live
+    lanes before each round (chain_scan's ``report_rounds``)."""
+    import torch
+    from compseed_tpu_torch.ops import seedscan as ss
+    per_chunk = {k: l32[k] / ((RUNS + 1) * N_CHUNKS) for k in FM_KERNELS}
+    log(f"[4] FM kernel launches per {CHUNK}-read chunk (int32 window): "
+        f"{json.dumps(per_chunk)}")
+    with FmCapture() as cap:
+        seeder.run_flat(queries)
+    torch.cuda.synchronize()
+    calls = {}
+    for key, call in cap.calls.items():
+        r = fm_measure(key, call)
+        calls["/".join(map(str, key))] = r
+        log(f"[4] main path's {key[0]} {r['shape']}: kernel max_abs_err "
+            f"{r['max_abs_err']}, {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.3f} ms); {r['words']} occ words, {r['ops']} "
+            f"ops, bound {r['bound_ms']:.6f} ms by {r['bound_by']}")
+        if r["max_abs_err"]:
+            raise SystemExit(f"{key[0]}: the kernel disagrees with its plain "
+                             f"version on the main path's lanes")
+    prof = profile_chunk(lambda: seeder.run_flat(queries),
+                         torch.cuda.synchronize)
+    log(f"[4] torch.profiler over one {CHUNK}-read chunk: "
+        f"{json.dumps(prof)}")
+    R, L, qd, rd = seeder._upload(queries)
+    dfi, CW = seeder.dfi, seeder.chain_w
+    M = (256 // CW) * R
+    memo = ss.make_chain_memo(1 << (4 * M - 1).bit_length(), M, CW,
+                              dfi.dtype, dev)
+    res = ss.chain_scan(dfi, qd, rd, seeder.GP_F * R, memo, W=CW,
+                        u_cap=max(R // 2, 64), report_rounds=True)
+    rnd = int(res[6])
+    hist = res[7][:rnd].tolist()
+    log(f"[4] round 1 of the first chunk: {rnd} chain_scan rounds, live "
+        f"lanes before each: {hist}")
+    return dict(launches_per_chunk=per_chunk, main_path_calls=calls,
+                profile=prof, round1=dict(rounds=rnd, alive_hist=hist))
+
+
+def fm_rows(fm_rec, row) -> list:
+    """The FM kernels' rows of the kernel table.  launches: the int32
+    window of the main path (chain walk, inverse-Psi walk) and the forced
+    overflow's rerun (extension); times and bounds: the first such call of
+    the main path (forward chain walk; the inverse-Psi walk's first stage)
+    and of the rerun (its (P, 3) extension); max_abs_err: over every
+    comparison of the kernel (phase 2 and the captured calls)."""
+    calls = fm_rec["main_path_calls"]
+    ext = fm_rec["extend_sel"]
+    errs = {k: 0 for k in FM_KERNELS}
+    for e in fm_rec["phase2_max_abs_err"].values():
+        for tag, v in e.items():
+            k = {"extend": "fm_extend_sel_kernel",
+                 "chain": "fm_chain_walk_kernel",
+                 "inv_psi": "fm_inv_psi_walk_kernel"}[tag.split()[0]]
+            errs[k] = max(errs[k], v)
+    for name, r in list(calls.items()) + list(ext.items()):
+        k = ("fm_chain_walk_kernel" if name.startswith("chain_walk") else
+             "fm_inv_psi_walk_kernel" if name.startswith("inv_psi_walk")
+             else "fm_extend_sel_kernel")
+        errs[k] = max(errs[k], r["max_abs_err"])
+    fwd = calls["chain_walk/False"]
+    walk = calls[min((n for n in calls if n.startswith("inv_psi_walk")),
+                     key=lambda n: int(n.split("/")[1]))]
+    flat = ext["rank2"]
+    prof = fm_rec["profile"]["fm_kernels"]
+
+    def more(name, r, **kw):
+        return dict(shape=r["shape"], per_chunk=fm_rec["launches_per_chunk"]
+                    [name], device_ms_profiled=prof.get(name, {}).get(
+                        "device_ms_per_launch"), source=FM_SOURCE, **kw)
+
+    return [
+        row("fm_extend_sel_kernel",
+            "compseed_tpu/ops/fm.py:128 (XLA fusion, no Pallas)",
+            fm_rec["rerun_launches"], errs["fm_extend_sel_kernel"],
+            flat["ms"], flat["plain_ms"], flat,
+            **more("fm_extend_sel_kernel", flat)),
+        row("fm_chain_walk_kernel",
+            "compseed_tpu/ops/seedscan.py:1341 (XLA fusion, no Pallas)",
+            fm_rec["main_launches"]["fm_chain_walk_kernel"],
+            errs["fm_chain_walk_kernel"], fwd["ms"], fwd["plain_ms"], fwd,
+            **more("fm_chain_walk_kernel", fwd,
+                   backward=calls.get("chain_walk/True"))),
+        row("fm_inv_psi_walk_kernel",
+            "compseed_tpu/ops/fm.py:166 (XLA fusion, no Pallas)",
+            fm_rec["main_launches"]["fm_inv_psi_walk_kernel"],
+            errs["fm_inv_psi_walk_kernel"], walk["ms"], walk["plain_ms"],
+            walk, **more("fm_inv_psi_walk_kernel", walk))]
+
+
 def compare(tiles, gap, state16: bool):
     """One set of DP tiles through the int32 kernel (rows in shared
     memory), the device-memory-scratch kernel and their plain version
@@ -391,16 +854,16 @@ def scratch_variants(old_source):
     pairs-per-block argument).  The builds run side by side."""
     import ctypes as ct
     import torch
-    from compseed_tpu_torch.ops import bsw_cuda
-    builds = {f"hoist{h}": (bsw_cuda._SRC, (f"BSW_SCRATCH_HOIST={h}",))
+    from compseed_tpu_torch.ops import bsw_cuda, cuda_lib
+    builds = {f"hoist{h}": (bsw_cuda.LIB.src, (f"BSW_SCRATCH_HOIST={h}",))
               for h in (0, 1)}
     if old_source:
         builds["old"] = (os.path.abspath(old_source), ())
-    sos = {k: os.path.join(bsw_cuda._BUILD, f"libbsw_scratch_{k}.so")
+    sos = {k: os.path.join(cuda_lib.BUILD, f"libbsw_scratch_{k}.so")
            for k in builds}
-    os.makedirs(bsw_cuda._BUILD, exist_ok=True)
+    os.makedirs(cuda_lib.BUILD, exist_ok=True)
     with cf.ThreadPoolExecutor(max_workers=len(builds)) as ex:
-        for f in [ex.submit(bsw_cuda.compile_source, src, sos[k], defs)
+        for f in [ex.submit(cuda_lib.compile_source, src, sos[k], defs)
                   for k, (src, defs) in builds.items()]:
             f.result()
 
@@ -495,8 +958,7 @@ def run_cli(argv, seed_s):
     import torch
     from compseed_tpu_torch import cli
     from compseed_tpu_torch.ops import bsw_cuda
-    for k in bsw_cuda.LAUNCHES:
-        bsw_cuda.LAUNCHES[k] = 0
+    reset_launches()
     del seed_s[:]
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -507,7 +969,7 @@ def run_cli(argv, seed_s):
     text = buf.getvalue()
     if rc != 0:
         raise SystemExit(f"cli {argv} returned {rc}:\n{text[-2000:]}")
-    launches = dict(bsw_cuda.LAUNCHES)
+    launches = launch_counts()
     rec = dict(wall_s=wall, launches=launches, seed_s=list(seed_s),
                overflows=text.count("cap overflow"))
     if "oracle" not in argv and \
@@ -944,10 +1406,13 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
         with engine_env(env):
             sd = seeder_for(dedup)
             R, L, qd, rd = sd._upload(queries)
+            reset_launches()
             t0 = time.time()
             _, _, head, seedpk = sd._run(sd._build(R, L), qd, rd)
             head, seedpk = head.cpu().numpy(), seedpk.cpu().numpy()
             first_s = time.time() - t0
+            fm_launches = {k: v for k, v in launch_counts().items()
+                           if k in FM_KERNELS}
             rec = head_record(head, seedpk)
             if rec != stored["engines"][name]:
                 raise SystemExit(f"engine {name}: the head of the first "
@@ -977,12 +1442,13 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
                           first_run_s=first_s, bwt_hit_pct=hit,
                           sal_merged_pct=merged, scalars=rec["scalars"],
                           overflow=overflows, rerun_s=rerun_s,
-                          splice_reads=spliced)
+                          splice_reads=spliced, fm_launches=fm_launches)
         log(f"[6] {name}: {CHUNK} reads, head and seed matrix equal the JAX "
             f"package's; device_s {[round(x, 4) for x in runs]} (first run "
             f"{first_s:.3f} s), BWT hit {hit:.4f} %, SAL merged "
             f"{merged:.4f} %, overflow flags {rec['scalars'][3:14]}, rerun "
-            f"{rerun_s}, splice {spliced}; seeds equal the default engine's")
+            f"{rerun_s}, splice {spliced}; seeds equal the default engine's; "
+            f"FM launches in the first run {fm_launches}")
     out["full_width"] = full
 
     # ---- (c) cell A'': COMPSEED_ADAPTIVE_CAPS=0 and one forced switch
@@ -991,15 +1457,14 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
     sd.MEM3_F = 1
     seen = watch_overflow(sd)
     done = []
-    for k in bsw_cuda.LAUNCHES:
-        bsw_cuda.LAUNCHES[k] = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.time()
     align_stream(opt, fm, iter(chunks), engine, sd, tail,
                  on_done=done.extend, stats=SeedingStats())
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(bsw_cuda.LAUNCHES)
+    launches = launch_counts()
     log(f"[6] (c) A'': per chunk (overflow, GP_F, rerun s, device s, "
         f"fwd_disabled) = {seen}; {len(done) / wall:.1f} reads/s; launches "
         f"{launches}")
@@ -1095,8 +1560,7 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
     t_phase = time.time()
 
     def reset_counts():
-        for k in bsw_cuda.LAUNCHES:
-            bsw_cuda.LAUNCHES[k] = 0
+        reset_launches()
 
     def build(S, dfi_=dfi, gp_f=None):
         mesh = [dev] * S
@@ -1155,7 +1619,7 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
         sd, eng = build(S)
         heads = heads_of(sd) if S == S_head else None
         sams, wall, st, seen = stream(sd, eng, chunks)
-        launches = dict(bsw_cuda.LAUNCHES)
+        launches = launch_counts()
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
         n = N_CHUNKS * CHUNK
@@ -1179,10 +1643,13 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
         if any(c["overflow"] for c in seen):
             raise SystemExit(f"S={S}: unexpected cap overflow")
         if launches["bsw_meta_dual_kernel"] != 2 * S * N_CHUNKS or \
-                launches["probe_add_one_kernel"] <= 0:
+                launches["probe_add_one_kernel"] <= 0 or \
+                launches["fm_chain_walk_kernel"] <= 0 or \
+                launches["fm_inv_psi_walk_kernel"] <= 0:
             raise SystemExit(f"S={S}: expected {2 * S * N_CHUNKS} fused "
-                             f"launches (two a shard a chunk) and the "
-                             f"self-check's probe: {launches}")
+                             f"launches (two a shard a chunk), the "
+                             f"self-check's probe and the FM walks: "
+                             f"{launches}")
         if heads is not None:
             want = stored["heads"]["int32"]
             bad = [s for s in range(S) if heads[s] != want[s]]
@@ -1202,7 +1669,7 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
     reset_counts()
     sd, eng = build(S, gp_f=MESH_GP_F)
     sams, wall, _, seen = stream(sd, eng, chunks[:1])
-    lf = dict(bsw_cuda.LAUNCHES)
+    lf = launch_counts()
     log(f"[7] (c) S={S}, GP_F={MESH_GP_F}: overflow {seen[0]['overflow']}, "
         f"GP_F after {seen[0]['gp_f']}, {sd._cap_raises} cap raises, rerun "
         f"{seen[0]['rerun_s']:.2f} s, chunk {wall:.2f} s, launches {lf}")
@@ -1225,7 +1692,7 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
     sd, eng = build(S_head, dfi_=dfi64)
     heads = heads_of(sd)
     sams, wall, _, seen = stream(sd, eng, chunks[:1])
-    l64 = dict(bsw_cuda.LAUNCHES)
+    l64 = launch_counts()
     bad = [s for s in range(S_head)
            if heads[s] != stored["heads"]["int64"][s]]
     log(f"[7] (f) int64 index, S={S_head}: {wall:.2f} s for one chunk, "
@@ -1236,8 +1703,11 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
     if bad or sams != main_sams[:CHUNK] or seen[0]["overflow"]:
         raise SystemExit(f"int64 index: shard heads {bad} differ, or SAM "
                          f"differs from the int32 run's")
-    if l64["bsw_meta_dual_kernel"] <= 0:
-        raise SystemExit(f"int64 index: no fused launch: {l64}")
+    if l64["bsw_meta_dual_kernel"] <= 0 or \
+            l64["fm_chain_walk_kernel"] <= 0 or \
+            l64["fm_inv_psi_walk_kernel"] <= 0:
+        raise SystemExit(f"int64 index: a kernel of the path was not "
+                         f"launched: {l64}")
     out["int64"] = dict(shards=S_head, chunk_s=wall,
                         device_s=seen[0]["device_s"], launches=l64,
                         heads_equal_jax=True)
@@ -1341,9 +1811,9 @@ def main() -> None:
                                              read_reordered_chunks)
     from compseed_tpu_torch.native import NativeTail
     from compseed_tpu_torch.index.build import unpack_pac
-    from compseed_tpu_torch.ops import bsw, bsw_cuda
+    from compseed_tpu_torch.ops import bsw, bsw_cuda, fm_cuda
     from compseed_tpu_torch.ops.bsw_cases import dual_meta_case
-    from compseed_tpu_torch.ops.device_index import pack_pac_words
+    from compseed_tpu_torch.ops.device_index import pack_pac_words, to_device
     from compseed_tpu_torch.ops.engine import device_engine, device_seeder
     from compseed_tpu_torch.options import MemOptions
     from compseed_tpu_torch.pipeline.align import align_chunk, align_stream
@@ -1361,8 +1831,7 @@ def main() -> None:
                        device=dev)
 
     def reset_counts():
-        for k in bsw_cuda.LAUNCHES:
-            bsw_cuda.LAUNCHES[k] = 0
+        reset_launches()
 
     def engine_under(env, fm_, seeder_):
         """A DP engine built with ``env`` set (the int16 opt-in is read
@@ -1374,15 +1843,24 @@ def main() -> None:
             for k in env:
                 del os.environ[k]
 
-    # ---- phase 1: build (nvcc and g++ side by side), self-check
+    # ---- phase 1: build (both nvcc builds and g++ side by side),
+    # self-check
     t0 = time.time()
-    with cf.ThreadPoolExecutor(max_workers=2) as ex:
+
+    def timed_build(build):
+        build(force=True)
+        return time.time() - t0
+
+    with cf.ThreadPoolExecutor(max_workers=3) as ex:
         host = ex.submit(native.build_library, True)
-        bsw_cuda.build_library(force=True)
+        fm_build = ex.submit(timed_build, fm_cuda.build_library)
+        dp_build_s = timed_build(bsw_cuda.build_library)
+        fm_build_s = fm_build.result()
         build_s = time.time() - t0
         host.result()
-    log(f"[1] build: kernels {build_s:.2f} s, with the host tail "
-        f"{time.time() - t0:.2f} s")
+    fm_cuda.LIB.load()
+    log(f"[1] build: DP kernels {dp_build_s:.2f} s, FM kernels "
+        f"{fm_build_s:.2f} s, with the host tail {time.time() - t0:.2f} s")
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     probe_err = int((bsw_cuda.probe_add_one(x).to(torch.int64)
                      - bsw_cuda._probe_plain(x).to(torch.int64)).abs().max())
@@ -1553,6 +2031,21 @@ def main() -> None:
             raise SystemExit("_meta_dual_core disagrees with its plain "
                              "version at Q=1024")
 
+    # the FM kernels against their plain versions over the bench index,
+    # with int32 and with int64 positions
+    fm_errs = {}
+    for tag, force in (("int32", None), ("int64", np.int64)):
+        t0 = time.time()
+        e = fm_cases(to_device(fm, dev, force_dtype=force), rng)
+        fm_errs[tag] = e
+        log(f"[2] FM kernels vs plain versions over the bench index "
+            f"({tag} positions, {len(e)} cases, {time.time() - t0:.1f} s): "
+            f"max_abs_err {json.dumps(e)}")
+        if any(e.values()):
+            raise SystemExit(f"an FM kernel disagrees with its plain "
+                             f"version ({tag}): "
+                             f"{ {k: v for k, v in e.items() if v} }")
+
     # ---- phase 3: goldens on the card, each file as one chunk
     fm_t = FMIndex.from_built(build_index(
         os.path.join(ROOT, "tests", "fixtures", "tiny.fa")))
@@ -1574,7 +2067,7 @@ def main() -> None:
         reset_counts()
         align_stream(opt, fm_t, iter([reads]), engine, seeder, tail,
                      on_done=done.extend, stats=SeedingStats())
-        launches = dict(bsw_cuda.LAUNCHES)
+        launches = launch_counts()
         mine = "".join(r.sam for r in done).splitlines(keepends=True)
         want = golden(gold)
         bad = [i for i, (m, g) in enumerate(zip(mine, want)) if m != g]
@@ -1670,7 +2163,7 @@ def main() -> None:
             seed_s.append(seeder.prof.get("device_s", 0.0))
             stats = st
             log(f"[4] {tag} run {run}: {n_timed / dt:.1f} reads/s")
-        launches = dict(bsw_cuda.LAUNCHES)
+        launches = launch_counts()
         prof = {k: round(v * 1e3, 1) for k, v in tail.prof.items()}
         prof.update({k: round(v * 1e3, 1) for k, v in engine.prof.items()})
         rec = dict(
@@ -1702,7 +2195,9 @@ def main() -> None:
     seeder = device_seeder(opt, fm, dedup=True, device=dev)
     rec32, engine32, tail32, sams32 = main_path("int32", seeder, {})
     l32 = rec32["launches"]
-    if l32["bsw_meta_dual_kernel"] <= 0 or l32["probe_add_one_kernel"] <= 0:
+    if l32["bsw_meta_dual_kernel"] <= 0 or l32["probe_add_one_kernel"] <= 0 \
+            or l32["fm_chain_walk_kernel"] <= 0 \
+            or l32["fm_inv_psi_walk_kernel"] <= 0:
         raise SystemExit(f"int32 main path: a kernel was not launched: {l32}")
     if l32["bsw_meta_dual_kernel_i16"] or l32["bsw_extend_kernel_i16"]:
         raise SystemExit("an int16 kernel ran without COMPSEED_BSW_I16=1")
@@ -1713,6 +2208,9 @@ def main() -> None:
     if reuse != EXPECT_REUSE:
         raise SystemExit(f"bwt_hit_pct / sal_merged_pct are {reuse}, "
                          f"expected {EXPECT_REUSE}")
+    fm_rec = fm_main_path(dev, seeder, list(reads_arr[:CH]), l32)
+    fm_rec["phase2_max_abs_err"] = fm_errs
+    fm_rec["main_launches"] = {k: l32[k] for k in FM_KERNELS}
 
     # the host oracle path once; both engines are held to it
     t0 = time.time()
@@ -1776,7 +2274,7 @@ def main() -> None:
     align_chunk(opt, fm, got_long, 0, engine=engine32, seeder=None,
                 tail=NativeTail(opt, fm))
     torch.cuda.synchronize()
-    llong = dict(bsw_cuda.LAUNCHES)
+    llong = launch_counts()
     bad = [i for i, (a, b) in enumerate(zip(got_long, want_long))
            if a.sam != b.sam or not a.sam]
     log(f"[4] long reads: {LONG_READS} x {LONG_LEN + 3} bp, host path and "
@@ -1796,11 +2294,29 @@ def main() -> None:
     done = []
     reset_counts()
     t0 = time.time()
-    align_stream(opt, fm, iter(mk_chunks()[:2]), engine32, forced, tail32,
-                 on_done=done.extend, stats=SeedingStats())
+    with FmCapture() as ext_cap:        # the rerun's one-child extensions
+        align_stream(opt, fm, iter(mk_chunks()[:2]), engine32, forced,
+                     tail32, on_done=done.extend, stats=SeedingStats())
     torch.cuda.synchronize()
     forced_s = time.time() - t0
-    lf = dict(bsw_cuda.LAUNCHES)
+    lf = launch_counts()
+    if lf["fm_extend_sel_kernel"] <= 0:
+        raise SystemExit(f"forced overflow: the rerun launched no "
+                         f"extension kernel: {lf}")
+    fm_rec["rerun_launches"] = lf["fm_extend_sel_kernel"]
+    fm_rec["extend_sel"] = {}
+    for key, call in ext_cap.calls.items():
+        if key[0] != "extend_sel_batch":
+            continue
+        r = fm_measure(key, call)
+        fm_rec["extend_sel"][f"rank{key[1]}"] = r
+        log(f"[4] rerun's extension {r['shape']}: fm_extend_sel_kernel "
+            f"max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms (plain "
+            f"{r['plain_ms']:.3f}); {r['words']} occ words, bound "
+            f"{r['bound_ms']:.6f} ms by {r['bound_by']}")
+        if r["max_abs_err"]:
+            raise SystemExit("fm_extend_sel_kernel disagrees with its plain "
+                             "version on the rerun's lanes")
     log(f"[4] forced overflow (GP_F={FORCED_GP_F}): per chunk (overflow, "
         f"GP_F after, rerun s) = {seen}; both chunks {forced_s:.1f} s; "
         f"launches {lf}")
@@ -1891,7 +2407,9 @@ def main() -> None:
     probe_bytes = 2 * 8 * 128 * 4
     probe_bound = max(probe_bytes / HBM_BYTES_PER_S,
                       8 * 128 / INT32_OPS_PER_S) * 1e3
-    print(json.dumps({"build_s": build_s, "synthetic_ms": synth,
+    print(json.dumps({"build_s": build_s, "dp_build_s": dp_build_s,
+                      "fm_build_s": fm_build_s, "fm": fm_rec,
+                      "synthetic_ms": synth,
                       "self_check_ms": self_check_ms, "main": rec32,
                       "main_int16": rec16, "main_tile_route": rec_tiles,
                       "main_again": rec32b, "forced_overflow": forced_rec,
@@ -1904,8 +2422,9 @@ def main() -> None:
     print(json.dumps({"engines": eng_rec}))
     print(json.dumps({"mesh": mesh_rec}))
 
-    def row(name, replaces, launches, errs, ms, plain_ms, bound, **more):
-        return dict(name=name, route="cuda", source=KERNEL_SOURCE,
+    def row(name, replaces, launches, errs, ms, plain_ms, bound,
+            source=KERNEL_SOURCE, **more):
+        return dict(name=name, route="cuda", source=source,
                     replaces=replaces, launches=launches, max_abs_err=errs,
                     ms=ms, plain_ms=plain_ms, bound_ms=bound["bound_ms"],
                     bound_by=bound["bound_by"],
@@ -1943,7 +2462,7 @@ def main() -> None:
         row("probe_add_one_kernel", "compseed_tpu/ops/bsw.py:310",
             l32["probe_add_one_kernel"], probe_err, probe_ms, probe_plain_ms,
             probe_row, library_ms=probe_lib_ms, graph_ms=probe_graph_ms,
-            library_graph_ms=probe_lib_graph_ms)]}))
+            library_graph_ms=probe_lib_graph_ms)] + fm_rows(fm_rec, row)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

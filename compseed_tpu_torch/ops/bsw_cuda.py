@@ -26,11 +26,10 @@ and there is no override.
 
 ``LAUNCHES`` counts kernel launches by kernel, and nothing else.
 
-Every launch goes to the device its tensors lie on: the wrapper makes that
-device current in the calling thread around the C launcher, which launches
-on the current device (and grants a kernel more than 48 KB of shared
-memory once per device).  Worker threads of the sharded path launch side
-by side, so the counts and the library's one-time load take a lock.
+The library is ``LIB``, an ``ops/cuda_lib.KernelLibrary``: every launch
+goes to the device its tensors lie on, made current in the calling thread
+around the C launcher, which launches on the current device (and grants a
+kernel more than 48 KB of shared memory once per device).
 
 ``build_tiles`` decodes the DP tiles on the device from pair metadata:
 query rows from the chunk's read matrix (3-bit packed 8-char windows),
@@ -41,22 +40,15 @@ target rows from the 2-bit packed reference along both fold branches.
 from __future__ import annotations
 
 import ctypes as ct
-import os
-import shutil
-import subprocess
-import threading
 
 import numpy as np
 import torch
 
+from compseed_tpu_torch.ops.cuda_lib import KernelLibrary
 from compseed_tpu_torch.ops.seedscan import packed_rev_windows, packed_windows
 
 LT = 512            # pairs are padded to a multiple of this
 PROBE_SHAPE = (8, 128)
-# kernel launches since import (or the last reset), by kernel
-LAUNCHES = {"bsw_extend_kernel": 0, "bsw_extend_kernel_i16": 0,
-            "bsw_extend_kernel_gmem": 0, "bsw_meta_dual_kernel": 0,
-            "bsw_meta_dual_kernel_i16": 0, "probe_add_one_kernel": 0}
 # Shared memory of one Hopper SM that blocks can use, the most one block
 # may ask for, what the hardware keeps back per resident block, and the
 # kernels' static shared memory (the 5x5 matrix), rounded up.
@@ -65,97 +57,34 @@ SMEM_PER_BLOCK = 232448
 _SMEM_BLOCK_RESERVE = 1024
 _SMEM_STATIC = 128
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_ROOT, "compseed_tpu_torch", "csrc", "bsw_extend.cu")
-_BUILD = os.path.join(_ROOT, "build", "compseed_tpu_torch")
-_SO = os.path.join(_BUILD, "libbsw_extend.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_lib = None
-_LOCK = threading.Lock()          # the library's load and LAUNCHES
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       f"{_SRC}")
+def _bind(lib) -> None:
+    p, i, ll = ct.c_void_p, ct.c_int, ct.c_longlong
+    for fn in (lib.bsw_extend_launch, lib.bsw_extend_launch_i16):
+        fn.restype = i
+        fn.argtypes = [p] * 10 + [i] * 9 + [p]
+    for fn in (lib.bsw_meta_dual_launch, lib.bsw_meta_dual_launch_i16):
+        fn.restype = i
+        fn.argtypes = [p, p, ll, p, ll, p, p, i, i, i, i, ll] + [i] * 8 + [p]
+    lib.probe_add_one_launch.restype = i
+    lib.probe_add_one_launch.argtypes = [p, p, i, p]
+    lib.bsw_pair_bytes.restype = ll
+    lib.bsw_pair_bytes.argtypes = [i, i]
 
 
-def build_library(force: bool = False) -> str:
-    """Compile the kernel into a shared library (when missing or older
-    than its source); returns its path.  Raises if nvcc fails."""
-    os.makedirs(_BUILD, exist_ok=True)
-    if force or not os.path.exists(_SO) or \
-            os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-        compile_source(_SRC, _SO)
-    return _SO
-
-
-def compile_source(src: str, so: str, defines: tuple = ()) -> None:
-    """nvcc ``src`` into the shared library ``so`` with NVCC_FLAGS and the
-    given -D defines.  Raises if nvcc fails."""
-    tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
-           src]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
-                           f"{r.stdout}{r.stderr}")
-    os.replace(tmp, so)           # atomic: a loaded old copy stays valid
-
-
-def _load():
-    """The library, built if need be and loaded once per process."""
-    global _lib
-    with _LOCK:
-        if _lib is None:
-            lib = ct.CDLL(build_library())
-            p, i = ct.c_void_p, ct.c_int
-            ll = ct.c_longlong
-            for fn in (lib.bsw_extend_launch, lib.bsw_extend_launch_i16):
-                fn.restype = i
-                fn.argtypes = [p] * 10 + [i] * 9 + [p]
-            for fn in (lib.bsw_meta_dual_launch,
-                       lib.bsw_meta_dual_launch_i16):
-                fn.restype = i
-                fn.argtypes = [p, p, ll, p, ll, p, p, i, i, i, i, ll] + \
-                    [i] * 8 + [p]
-            lib.probe_add_one_launch.restype = i
-            lib.probe_add_one_launch.argtypes = [p, p, i, p]
-            lib.bsw_pair_bytes.restype = ll
-            lib.bsw_pair_bytes.argtypes = [i, i]
-            lib.bsw_cuda_error_name.restype = ct.c_char_p
-            lib.bsw_cuda_error_name.argtypes = [i]
-            _lib = lib
-        return _lib
-
-
-def _launch_error(kernel: str, device, err: int) -> RuntimeError:
-    name = _lib.bsw_cuda_error_name(err).decode()
-    return RuntimeError(f"{kernel} launch failed on {device} ({_SO}): CUDA "
-                        f"error {err} ({name})")
-
-
-def _launched(kernel: str) -> None:
-    with _LOCK:
-        LAUNCHES[kernel] += 1
+LIB = KernelLibrary(
+    "bsw_extend.cu",
+    ("bsw_extend_kernel", "bsw_extend_kernel_i16", "bsw_extend_kernel_gmem",
+     "bsw_meta_dual_kernel", "bsw_meta_dual_kernel_i16",
+     "probe_add_one_kernel"),
+    _bind, "bsw_cuda_error_name")
+LAUNCHES = LIB.launches
+build_library = LIB.build
 
 
 def _probe_plain(x: torch.Tensor) -> torch.Tensor:
     """The probe kernel's plain version."""
     return x + 1
-
-
-def _stream(dev: torch.device) -> int:
-    """The raw handle of PyTorch's current stream on ``dev``."""
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def probe_add_one(x: torch.Tensor,
@@ -177,14 +106,8 @@ def probe_add_one(x: torch.Tensor,
     px, py = x.data_ptr(), out.data_ptr()
     if (px | py) & 15:
         raise ValueError("probe_add_one: x and out must be 16-byte aligned")
-    # the launcher and its argtypes were resolved when the library loaded
-    lib = _lib or _load()
-    with torch.cuda.device(dev):
-        err = lib.probe_add_one_launch(
-            px, py, PROBE_SHAPE[0] * PROBE_SHAPE[1], _stream(dev))
-    if err != 0:
-        raise _launch_error("probe_add_one_kernel", dev, err)
-    _launched("probe_add_one_kernel")
+    LIB.launch("probe_add_one_kernel", dev, "probe_add_one_launch", px, py,
+               PROBE_SHAPE[0] * PROBE_SHAPE[1])
     return out
 
 
@@ -199,7 +122,7 @@ def self_check(device: torch.device) -> None:
     if not torch.equal(got, want):
         bad = int((got != want).sum())
         raise RuntimeError(
-            f"self-check of {_SO} failed on {device} "
+            f"self-check of {LIB.so} failed on {device} "
             f"({torch.cuda.get_device_name(device)}): the probe kernel "
             f"returned {bad} of {got.numel()} wrong elements; the CUDA "
             f"kernels cannot be trusted on this device")
@@ -301,8 +224,6 @@ def _launch_extend(mat, queries, qlens, targets, tlens, h0s, ws, *, o_del,
     for name, x in (("qlens", qlens), ("tlens", tlens), ("h0s", h0s),
                     ("ws", ws)):
         _check(name, x, torch.int32, (P, 1), dev)
-    lib = _load()
-    launch = lib.bsw_extend_launch_i16 if state16 else lib.bsw_extend_launch
     out = torch.empty((P, 8), dtype=torch.int32, device=dev)
     if threads:
         kernel = "bsw_extend_kernel_i16" if state16 else "bsw_extend_kernel"
@@ -315,15 +236,12 @@ def _launch_extend(mat, queries, qlens, targets, tlens, h0s, ws, *, o_del,
                            dtype=torch.int16 if state16 else torch.int32)
         ebuf = torch.empty_like(hbuf)
         hptr, eptr = hbuf.data_ptr(), ebuf.data_ptr()
-    with torch.cuda.device(dev):
-        err = launch(
-            mat.data_ptr(), queries.data_ptr(), qlens.data_ptr(),
-            targets.data_ptr(), tlens.data_ptr(), h0s.data_ptr(),
-            ws.data_ptr(), out.data_ptr(), hptr, eptr, P, Q, T,
-            o_del, e_del, o_ins, e_ins, zdrop, threads, _stream(dev))
-    if err != 0:
-        raise _launch_error(kernel, dev, err)
-    _launched(kernel)
+    LIB.launch(kernel, dev,
+               "bsw_extend_launch_i16" if state16 else "bsw_extend_launch",
+               mat.data_ptr(), queries.data_ptr(), qlens.data_ptr(),
+               targets.data_ptr(), tlens.data_ptr(), h0s.data_ptr(),
+               ws.data_ptr(), out.data_ptr(), hptr, eptr, P, Q, T, o_del,
+               e_del, o_ins, e_ins, zdrop, threads)
     return out
 
 
@@ -360,19 +278,13 @@ def bsw_meta_dual(mat: torch.Tensor,      # (5, 5) int32
     if threads <= 0:
         raise ValueError(f"bsw_meta_dual: the rows of Q={Q} "
                          f"(state16={state16}) do not fit in shared memory")
-    lib = _load()
     kernel = "bsw_meta_dual_kernel_i16" if state16 else "bsw_meta_dual_kernel"
-    launch = lib.bsw_meta_dual_launch_i16 if state16 else \
-        lib.bsw_meta_dual_launch
     out = torch.empty((P, 8), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = launch(mat.data_ptr(), qflat.data_ptr(), qflat.numel() // L,
-                     pac.data_ptr(), pac.numel(), meta.data_ptr(),
-                     out.data_ptr(), P, Q, T, L, l_pac, o_del, e_del, o_ins,
-                     e_ins, zdrop, w0, int(wide_r0), threads, _stream(dev))
-    if err != 0:
-        raise _launch_error(kernel, dev, err)
-    _launched(kernel)
+    LIB.launch(kernel, dev, "bsw_meta_dual_launch_i16" if state16 else
+               "bsw_meta_dual_launch", mat.data_ptr(), qflat.data_ptr(),
+               qflat.numel() // L, pac.data_ptr(), pac.numel(),
+               meta.data_ptr(), out.data_ptr(), P, Q, T, L, l_pac, o_del,
+               e_del, o_ins, e_ins, zdrop, w0, int(wide_r0), threads)
     return out
 
 

@@ -5,6 +5,12 @@ Contracts (exact integer semantics, validated against cpu.fm_oracle):
   extend_batch  — bwt_extend (FM_index/bwt.c:262-275)
   sa_batch      — bwt_sa via inverse-Psi walk (FM_index/bwt.c:53-96)
 
+``extend_sel_batch`` and the inverse-Psi walk ``_walk`` (behind
+``sa_batch`` and ``sa_batch_compact``) run their plain versions,
+``_extend_sel_plain`` and ``_walk_plain``, for CPU tensors; for any other
+they call the launchers of ``ops/fm_cuda.py``, which launch the
+hand-written kernels on CUDA tensors or raise.
+
 One occ query gathers ONE fused row (checkpoint counts + 2-bit BWT
 bitplanes, see ops.device_index) and ranks in-block bases with masked
 popcounts.  Invalid lanes are masked with k == -1, which the reference
@@ -17,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from compseed_tpu_torch.ops import fm_cuda
 from compseed_tpu_torch.ops.bits import MASK32, popcount32
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex
 
@@ -132,7 +139,16 @@ def extend_sel_batch(fm: DeviceFMIndex, ik: torch.Tensor, c: torch.Tensor,
     """One-child bidirectional extension: extend_batch followed by
     selecting child ``c`` per lane, fused.  ik: (..., 3), c: (...,) base
     codes in [0, 3] -> (..., 3).  Bit-exact vs
-    extend_batch(fm, ik, is_back)[..., c, :]."""
+    extend_batch(fm, ik, is_back)[..., c, :].  ``fm_extend_sel_kernel``
+    for CUDA tensors, ``_extend_sel_plain`` for CPU tensors."""
+    if ik.device.type == "cpu":
+        return _extend_sel_plain(fm, ik, c, is_back)
+    return fm_cuda.extend_sel_batch(fm, ik, c, is_back)
+
+
+def _extend_sel_plain(fm: DeviceFMIndex, ik: torch.Tensor, c: torch.Tensor,
+                      is_back: bool) -> torch.Tensor:
+    """extend_sel_batch's plain version."""
     dt = fm.dtype
     ik = ik.to(dt)
     fwd = 1 - int(bool(is_back))
@@ -192,19 +208,27 @@ def sa_batch(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
 
     Like the JAX loop, the all-done condition is tested once per
     2*sa_intv fully-masked steps."""
-    dt = fm.dtype
-    k = k.to(dt)
-    mask = fm.sa_intv - 1
+    k = k.to(fm.dtype)
     steps = torch.zeros_like(k)
-    while bool(((k & mask) != 0).any()):
-        for _ in range(2 * fm.sa_intv):
-            active = (k & mask) != 0
-            k = torch.where(active, inv_psi_batch(fm, k), k)
-            steps = steps + active.to(dt)
+    # a lane is active while its row is unsampled; a sampled row stays put
+    alive = (k & (fm.sa_intv - 1)) != 0
+    while bool(alive.any()):
+        k, steps, alive = _walk(fm, k, steps, alive, 2 * fm.sa_intv)
     return steps + _sa_sample(fm, k)
 
 
 def _walk(fm, kk, steps, alive, n_steps: int):
+    """``n_steps`` masked inverse-Psi steps: on live lanes kk = invPsi(kk)
+    and steps += 1, then a lane dies on a sampled row.  Returns (kk,
+    steps, alive).  ``fm_inv_psi_walk_kernel`` for CUDA tensors,
+    ``_walk_plain`` for CPU tensors."""
+    if kk.device.type == "cpu":
+        return _walk_plain(fm, kk, steps, alive, n_steps)
+    return fm_cuda.inv_psi_walk(fm, kk, steps, alive, n_steps)
+
+
+def _walk_plain(fm, kk, steps, alive, n_steps: int):
+    """_walk's plain version."""
     mask = fm.sa_intv - 1
     for _ in range(n_steps):
         kk = torch.where(alive, inv_psi_batch(fm, kk), kk)

@@ -1,0 +1,186 @@
+"""The FM-index walks on Hopper: launchers of ``csrc/fm_walk.cu``.
+
+The JAX package leaves these primitives to XLA, which fuses each into one
+row gather plus one elementwise fusion; the port launches one
+hand-written kernel per call instead of some hundred PyTorch operations:
+
+  ``extend_sel_batch`` -> ``fm_extend_sel_kernel``, for
+      ``ops/fm.py::extend_sel_batch`` (plain version ``_extend_sel_plain``);
+  ``chain_walk``       -> ``fm_chain_walk_kernel``, for
+      ``ops/seedscan.py::_chain_walk`` (plain version ``_chain_walk_plain``);
+  ``inv_psi_walk``     -> ``fm_inv_psi_walk_kernel``, for ``ops/fm.py::_walk``
+      (plain version ``_walk_plain``).
+
+Those callers run the plain version for CPU tensors and come here for any
+other; each launcher takes CUDA tensors only and launches its kernel or
+raises: nothing falls back from one to the other.  The library is ``LIB``,
+an ``ops/cuda_lib.KernelLibrary`` (built with nvcc for sm_90a at first use
+into build/compseed_tpu_torch/libfm_walk.so); ``DeviceSeeder`` loads it
+when it is built on a CUDA device, so a failed build stops the seeder's
+construction.
+
+``LAUNCHES`` counts kernel launches by kernel, and nothing else.  Every
+launch goes to the device its tensors lie on, on that device's current
+stream, with no synchronisation; outputs come from ``torch.empty``.
+"""
+
+from __future__ import annotations
+
+import ctypes as ct
+
+import torch
+
+from compseed_tpu_torch.ops.cuda_lib import KernelLibrary
+
+MAX_W = 10                  # a chain window packs into 30 bits
+
+
+def _bind(lib) -> None:
+    p, i, ll = ct.c_void_p, ct.c_int, ct.c_longlong
+    index = [p, ll, p, ll, i]       # occ, n_rows, L2, primary, oob
+    lib.fm_extend_sel_launch.argtypes = index + [p, p, i, p, ll, i, p]
+    lib.fm_chain_walk_launch.argtypes = index + \
+        [p, p, p, p, p, p, i, i, p, p, p, p, ll, i, p]
+    lib.fm_inv_psi_walk_launch.argtypes = index + \
+        [p, p, p, i, ll, p, p, p, ll, i, p]
+    for fn in (lib.fm_extend_sel_launch, lib.fm_chain_walk_launch,
+               lib.fm_inv_psi_walk_launch):
+        fn.restype = i
+
+
+LIB = KernelLibrary(
+    "fm_walk.cu",
+    ("fm_extend_sel_kernel", "fm_chain_walk_kernel",
+     "fm_inv_psi_walk_kernel"),
+    _bind, "fm_cuda_error_name")
+LAUNCHES = LIB.launches
+build_library = LIB.build
+
+
+def _check(name, x, dtype, shape, device=None):
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if device is not None and x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+
+
+def _index_args(fm, dev) -> list:
+    """The index's launcher arguments, after checking that its tables lie
+    on ``dev`` in the layout the kernels read."""
+    _check("occ_rows", fm.occ_rows, torch.int64, (fm.occ_rows.shape[0], 12),
+           dev)
+    _check("L2", fm.L2, fm.dtype, (5,), dev)
+    if fm.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"index dtype {fm.dtype} is neither int32 nor int64")
+    return [fm.occ_rows.data_ptr(), fm.occ_rows.shape[0], fm.L2.data_ptr(),
+            int(fm.primary), int(bool(fm.fill_oob))]
+
+
+def _cuda_device(fn: str, dev: torch.device) -> torch.device:
+    if dev.type != "cuda":
+        raise ValueError(f"{fn}: the kernel needs CUDA tensors, got {dev}")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+def extend_sel_batch(fm, ik: torch.Tensor, c: torch.Tensor,
+                     is_back: bool) -> torch.Tensor:
+    """One-child bidirectional extension by ``fm_extend_sel_kernel``, ik
+    (..., 3) and c (...,) base codes in [0, 3] -> (..., 3) in the index
+    dtype (ik is cast to the index dtype and c to int32, both flattened
+    and made contiguous)."""
+    lead = tuple(ik.shape[:-1])
+    if ik.shape[-1:] != (3,) or tuple(c.shape) != lead:
+        raise ValueError(f"extend_sel_batch: ik {tuple(ik.shape)} and c "
+                         f"{tuple(c.shape)} do not match (..., 3) / (...,)")
+    out = _launch_extend_sel(fm, ik.to(fm.dtype).reshape(-1, 3).contiguous(),
+                             c.to(torch.int32).reshape(-1).contiguous(),
+                             is_back)
+    return out.reshape(lead + (3,))
+
+
+def _launch_extend_sel(fm, ik, c, is_back: bool) -> torch.Tensor:
+    """Check the flat tensors, launch, return (n, 3)."""
+    dev = _cuda_device("extend_sel_batch", ik.device)
+    n = ik.shape[0] if ik.dim() else 0
+    _check("ik", ik, fm.dtype, (n, 3))
+    _check("c", c, torch.int32, (n,), dev)
+    index = _index_args(fm, dev)
+    out = torch.empty((n, 3), dtype=fm.dtype, device=dev)
+    if n:
+        LIB.launch("fm_extend_sel_kernel", dev, "fm_extend_sel_launch",
+                   *index, ik.data_ptr(), c.data_ptr(), int(bool(is_back)),
+                   out.data_ptr(), n, int(fm.dtype == torch.int64))
+    return out
+
+
+# ---------------------------------------------------------------------------
+def chain_walk(fm, wv: torch.Tensor, W: int, k, l, s, valid,
+               is_back: bool = False, stop_s=None):
+    """W pure extensions per lane by ``fm_chain_walk_kernel``, over the
+    3-bit codes of its window word wv (U,) from (k, l, s) (U,).  Returns
+    (ck, cl, cs (U, W), ln (U,) int32), as ``seedscan._chain_walk_plain``."""
+    dt = fm.dtype
+    return _launch_chain_walk(
+        fm, wv.to(torch.int64).contiguous(), W, k.to(dt).contiguous(),
+        l.to(dt).contiguous(), s.to(dt).contiguous(),
+        valid.to(torch.bool).contiguous(), is_back,
+        None if stop_s is None else stop_s.to(dt).contiguous())
+
+
+def _launch_chain_walk(fm, wv, W: int, k, l, s, valid, is_back: bool,
+                       stop_s):
+    if not 1 <= W <= MAX_W:
+        raise ValueError(f"chain_walk: W={W} is outside [1, {MAX_W}]")
+    dev = _cuda_device("chain_walk", k.device)
+    U = k.shape[0] if k.dim() else 0
+    dt = fm.dtype
+    _check("k", k, dt, (U,))
+    _check("l", l, dt, (U,), dev)
+    _check("s", s, dt, (U,), dev)
+    _check("wv", wv, torch.int64, (U,), dev)
+    _check("valid", valid, torch.bool, (U,), dev)
+    if stop_s is not None:
+        _check("stop_s", stop_s, dt, (U,), dev)
+    index = _index_args(fm, dev)
+    ck, cl, cs = (torch.empty((U, W), dtype=dt, device=dev) for _ in range(3))
+    ln = torch.empty(U, dtype=torch.int32, device=dev)
+    if U:
+        LIB.launch("fm_chain_walk_kernel", dev, "fm_chain_walk_launch",
+                   *index, wv.data_ptr(), k.data_ptr(), l.data_ptr(),
+                   s.data_ptr(), valid.data_ptr(),
+                   None if stop_s is None else stop_s.data_ptr(),
+                   int(bool(is_back)), W, ck.data_ptr(), cl.data_ptr(),
+                   cs.data_ptr(), ln.data_ptr(), U, int(dt == torch.int64))
+    return ck, cl, cs, ln
+
+
+# ---------------------------------------------------------------------------
+def inv_psi_walk(fm, kk: torch.Tensor, steps: torch.Tensor,
+                 alive: torch.Tensor, n_steps: int):
+    """Up to ``n_steps`` masked inverse-Psi steps per lane by
+    ``fm_inv_psi_walk_kernel``: kk, steps (N,) in the index dtype, alive
+    (N,) bool -> the same three, new tensors."""
+    dev = _cuda_device("inv_psi_walk", kk.device)
+    N = kk.shape[0] if kk.dim() else 0
+    dt = fm.dtype
+    _check("kk", kk, dt, (N,))
+    _check("steps", steps, dt, (N,), dev)
+    _check("alive", alive, torch.bool, (N,), dev)
+    if n_steps < 0:
+        raise ValueError(f"inv_psi_walk: n_steps={n_steps} is negative")
+    index = _index_args(fm, dev)
+    kk_out, steps_out = torch.empty_like(kk), torch.empty_like(steps)
+    alive_out = torch.empty_like(alive)
+    if N:
+        LIB.launch("fm_inv_psi_walk_kernel", dev, "fm_inv_psi_walk_launch",
+                   *index, kk.data_ptr(), steps.data_ptr(), alive.data_ptr(),
+                   n_steps, fm.sa_intv - 1, kk_out.data_ptr(),
+                   steps_out.data_ptr(), alive_out.data_ptr(), N,
+                   int(dt == torch.int64))
+    return kk_out, steps_out, alive_out

@@ -16,6 +16,10 @@ predate an engine knob can only be timed on the default engine.
 ``parallel.sharded.ShardedSeeder`` over ``[device] * S`` instead (one
 tree may appear under two names, e.g. ``--tree plain=. --tree mesh1=.
 --mesh mesh1=1``, to time the sharded layer against the seeder alone).
+``--profile`` also runs, after the timed passes of every turn, one chunk
+under torch.profiler (``chip_smoke.profile_chunk`` of THIS checkout, the
+same pass ``chip_smoke.py`` phase 4 makes): launches, stream syncs and
+async copies per chunk and the card's busy share.
 """
 
 from __future__ import annotations
@@ -66,7 +70,15 @@ for _ in range({passes}):
         dev_s.append(sd.prof["device_s"])
         if sd.last_overflow:
             raise SystemExit("a chunk overflowed: not the engine's own time")
-print(json.dumps(dict(run_flat_s=secs, device_s=dev_s)))
+rec = dict(run_flat_s=secs, device_s=dev_s)
+if {profile!r}:
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("smoke", {smoke!r})
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rec["profile"] = smoke.profile_chunk(lambda: sd.run_flat(chunks[0]),
+                                         sync)
+print(json.dumps(rec))
 """
 
 
@@ -83,6 +95,8 @@ def main() -> None:
     ap.add_argument("--mesh", action="append", default=[],
                     help="NAME=S: that name's turns on a ShardedSeeder "
                          "of S shards")
+    ap.add_argument("--profile", action="store_true",
+                    help="profile one chunk after each turn's passes")
     args = ap.parse_args()
     trees = dict(t.split("=", 1) for t in args.tree)
     shards = {n: int(v) for n, v in (m.split("=", 1) for m in args.mesh)}
@@ -97,7 +111,9 @@ def main() -> None:
         code = _TURN.format(tree=os.path.abspath(trees[name]),
                             device=args.device, knobs=knobs, chunk=CHUNK,
                             chunks=args.chunks, passes=args.passes,
-                            shards=shards.get(name, 0))
+                            shards=shards.get(name, 0),
+                            profile=args.profile,
+                            smoke=os.path.join(here, "chip_smoke.py"))
         proc = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True)
         if proc.returncode:
@@ -111,7 +127,9 @@ def main() -> None:
             x for r in rs for x in r["run_flat_s"]),
         median_device_s=statistics.median(
             x for r in rs for x in r["device_s"]),
-        turns=[r["run_flat_s"] for r in rs]) for n, rs in runs.items() if rs}))
+        turns=[r["run_flat_s"] for r in rs],
+        profiles=[r["profile"] for r in rs if "profile" in r])
+        for n, rs in runs.items() if rs}))
 
 
 if __name__ == "__main__":

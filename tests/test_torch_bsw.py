@@ -9,6 +9,7 @@ held to their plain versions on the card in tests/test_torch_cuda.py."""
 
 import ctypes as ct
 import os
+import shutil
 import subprocess
 
 import numpy as np
@@ -105,7 +106,7 @@ def test_extend_core_state16_rows_are_int16():
 def _host_lib(tmp_path, *defines):
     so = str(tmp_path / "libbsw_host.so")
     subprocess.run(["g++", "-x", "c++", "-std=c++17", "-O2", "-shared",
-                    "-fPIC", *defines, "-o", so, bsw_cuda._SRC], check=True,
+                    "-fPIC", *defines, "-o", so, bsw_cuda.LIB.src], check=True,
                    capture_output=True)
     lib = ct.CDLL(so)
     p, i, ll = ct.c_void_p, ct.c_int, ct.c_longlong
@@ -653,9 +654,9 @@ def test_runner_state16_vs_ksw_oracle(monkeypatch):
 
 def test_build_library_needs_nvcc(monkeypatch):
     """Without the CUDA toolkit the build raises; nothing falls back."""
-    if bsw_cuda.shutil.which("nvcc"):
+    if shutil.which("nvcc"):
         pytest.skip("nvcc present")
-    monkeypatch.setattr(bsw_cuda, "_SO", os.devnull + ".missing.so")
+    monkeypatch.setattr(bsw_cuda.LIB, "so", os.devnull + ".missing.so")
     monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
         bsw_cuda.build_library()

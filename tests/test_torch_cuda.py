@@ -1,9 +1,12 @@
 """The hand-written CUDA kernels (the DP with int32 and with int16 state
 on shared-memory rows and on the device-memory scratch, the fused
-decode + two-round DP, the launch probe) against their plain PyTorch
-versions, on the card; launches from worker threads and on a second card
-(that test skips unless two are visible); the sharded pipeline on one
-card against the unsharded one.
+decode + two-round DP, the launch probe; the FM kernels of
+csrc/fm_walk.cu on the bench index with int32 and int64 positions)
+against their plain PyTorch versions, on the card; launches from worker
+threads and on a second card (that test skips unless two are visible);
+the seeder's first bench chunk with the FM kernels against the same with
+their plain versions; the sharded pipeline on one card against the
+unsharded one.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -400,3 +403,235 @@ def test_sharded_pipeline_on_one_card_equals_unsharded(dev, tmp_path):
     assert run(sd, eng) == want
     assert not sd.last_overflow and len(sd.last_qd) == 2
     assert bsw_cuda.LAUNCHES["bsw_meta_dual_kernel"] >= n0 + 2
+
+
+# ---------------------------------------------------------------------------
+# The FM kernels (csrc/fm_walk.cu) over the bench index.
+
+@pytest.fixture(scope="module")
+def bench():
+    """The bench input (2 Mbp genome at sa_intv 8 and its reads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from compseed_tpu_torch import bench_input
+    return bench_input.setup()
+
+
+def _bench_index(bench, dev, dtype):
+    import numpy as np
+
+    from compseed_tpu_torch.ops.device_index import to_device
+    return to_device(bench[0], dev,
+                     force_dtype=np.int64 if dtype == "int64" else None)
+
+
+def _fm_calls(dfi, rng, n=16384):
+    """(kernel, plain, args, kwargs) for every FM kernel on n seeded lanes:
+    the extension both ways and as a (P, MLEP, 3) batch, the chain walk at
+    W = 5 forward and W = 8 backward with stop_s, the inverse-Psi walk
+    over one and two sa_intv."""
+    import numpy as np
+
+    from compseed_tpu_torch.ops import fm as tfm
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.fm_cases import (intervals, pack, sa_lanes,
+                                                 windows)
+    from compseed_tpu_torch.ops.smem import MLEP
+    dev = dfi.device
+
+    def on(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ik = intervals(dfi, rng, n, depth=14)
+    c = on(rng.integers(0, 4, n).astype(np.int32))
+    ikb = intervals(dfi, rng, 512 * MLEP, depth=14).reshape(512, MLEP, 3)
+    cb = on(rng.integers(0, 4, 512).astype(np.int32))[:, None].expand(
+        512, MLEP)
+    U = n // 2
+    iku = intervals(dfi, rng, U, depth=14)
+    k, l, s = (iku[:, i].contiguous() for i in range(3))
+    valid = on(rng.random(U) < 0.9)
+    stop = on(rng.integers(1, 40, U)).to(dfi.dtype)
+    kk, steps, alive = (on(x) for x in sa_lanes(dfi, rng, n))
+    calls = []
+    for is_back in (False, True):
+        calls.append((fm_cuda.extend_sel_batch, tfm._extend_sel_plain,
+                      (dfi, ik, c, is_back), {}))
+    calls.append((fm_cuda.extend_sel_batch, tfm._extend_sel_plain,
+                  (dfi, ikb, cb, True), {}))
+    for W, is_back, stop_s in ((5, False, None), (8, True, stop)):
+        wv = on(pack(windows(rng, U, W)))
+        calls.append((fm_cuda.chain_walk, tss._chain_walk_plain,
+                      (dfi, wv, W, k, l, s, valid),
+                      dict(is_back=is_back, stop_s=stop_s)))
+    for n_steps in (dfi.sa_intv, 2 * dfi.sa_intv):
+        calls.append((fm_cuda.inv_psi_walk, tfm._walk_plain,
+                      (dfi, kk, steps, alive, n_steps), {}))
+    return calls
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _kernel_name(fn):
+    return {"extend_sel_batch": "fm_extend_sel_kernel",
+            "chain_walk": "fm_chain_walk_kernel",
+            "inv_psi_walk": "fm_inv_psi_walk_kernel"}[fn.__name__]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_fm_kernels_vs_plain_on_bench_index(dev, bench, dtype):
+    """Every FM kernel equals its plain version exactly on 16,384 seeded
+    lanes over the bench index; one launch per call, counted."""
+    import numpy as np
+
+    from compseed_tpu_torch.ops import fm_cuda
+    dfi = _bench_index(bench, dev, dtype)
+    assert dfi.dtype == getattr(torch, dtype)
+    for kernel, plain, a, kw in _fm_calls(dfi, np.random.default_rng(61)):
+        n0 = dict(fm_cuda.LAUNCHES)
+        got = _as_tuple(kernel(*a, **kw))
+        torch.cuda.synchronize()
+        name = _kernel_name(kernel)
+        assert fm_cuda.LAUNCHES == dict(n0, **{name: n0[name] + 1})
+        want = _as_tuple(plain(*a, **kw))
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert g.device == dev and g.dtype == w.dtype
+            assert torch.equal(g, w), (name, kw)
+
+
+def test_fm_kernels_fill_oob_lanes_on_card(dev, bench):
+    """Garbage lanes under fill_oob (a block in [-n, 0) wraps, one outside
+    [-n, n) reads all-ones words): each kernel equals its plain version."""
+    import dataclasses
+
+    import numpy as np
+
+    from compseed_tpu_torch.ops import fm as tfm
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.fm_cases import garbage, pack, windows
+    rng = np.random.default_rng(62)
+    for dtype in ("int32", "int64"):
+        oob = dataclasses.replace(_bench_index(bench, dev, dtype),
+                                  fill_oob=True)
+        g = torch.from_numpy(garbage(oob, 4096)).to(dev).to(oob.dtype)
+        ik = torch.stack([g, g.flip(0), torch.full_like(g, 9)], dim=1)
+        c = torch.from_numpy(rng.integers(0, 4, 4096).astype(np.int32)) \
+            .to(dev)
+        for is_back in (False, True):
+            assert torch.equal(fm_cuda.extend_sel_batch(oob, ik, c, is_back),
+                               tfm._extend_sel_plain(oob, ik, c, is_back))
+        wv = torch.from_numpy(pack(windows(rng, 4096, 8))).to(dev)
+        on = torch.ones(4096, dtype=torch.bool, device=dev)
+        a = (oob, wv, 8, ik[:, 0].contiguous(), ik[:, 1].contiguous(),
+             ik[:, 2].contiguous(), on)
+        for got, want in zip(fm_cuda.chain_walk(*a, is_back=True),
+                             tss._chain_walk_plain(*a, is_back=True)):
+            assert torch.equal(got, want)
+        gg = g.abs() | 1
+        for got, want in zip(fm_cuda.inv_psi_walk(oob, gg, gg * 0, on, 3),
+                             tfm._walk_plain(oob, gg, gg * 0, on, 3)):
+            assert torch.equal(got, want)
+
+
+def test_fm_kernel_out_of_range_row_traps_on_card(tmp_path):
+    """Without fill_oob a row outside the table is no input: the kernel
+    traps (as the plain version's index check fails) and never reads past
+    the table.  Run in a child process, since a trap ends its context."""
+    import os
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "from compseed_tpu_torch.index.fmindex import FMIndex\n"
+        "from compseed_tpu_torch.ops import fm\n"
+        "from compseed_tpu_torch.ops.device_index import to_device\n"
+        "d = to_device(FMIndex.load(sys.argv[1]), torch.device('cuda', 0))\n"
+        "big = d.occ_rows.shape[0] * 128 + 7\n"
+        "ik = torch.tensor([[big, big, 3]], dtype=d.dtype, device='cuda:0')\n"
+        "c = torch.zeros(1, dtype=torch.int32, device='cuda:0')\n"
+        "out = fm.extend_sel_batch(d, ik, c, False)\n"
+        "torch.cuda.synchronize()\n"
+        "print('NO FAULT', out.tolist())\n")
+    r = subprocess.run([sys.executable, "-c", code,
+                        os.path.join(root, "tests", "fixtures", "tiny")],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "NO FAULT" not in r.stdout, r.stdout
+
+
+def test_fm_kernels_from_a_worker_thread_on_card(dev, bench):
+    """FM kernels launched from worker threads on cuda:0 (the sharded
+    path's rule): each equals its plain version."""
+    import concurrent.futures as cf
+
+    import numpy as np
+    dfi = _bench_index(bench, dev, "int32")
+    calls = _fm_calls(dfi, np.random.default_rng(63), n=4096)
+
+    def launch(call):
+        kernel, _, a, kw = call
+        out = _as_tuple(kernel(*a, **kw))
+        torch.cuda.synchronize(dev)
+        return out
+
+    with cf.ThreadPoolExecutor(max_workers=4) as ex:
+        got = list(ex.map(launch, calls))
+    for (kernel, plain, a, kw), g in zip(calls, got):
+        for x, w in zip(g, _as_tuple(plain(*a, **kw))):
+            assert torch.equal(x, w), _kernel_name(kernel)
+
+
+def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(
+        dev, bench, monkeypatch):
+    """The default engine on the first 16,384 bench reads: round 1
+    (chain_scan and walk_pool_chain) -- pool, memo, deaths, counters --
+    and the whole chunk's head, seed matrix and merged SAL, with the FM
+    kernels, equal the same calls with _chain_walk, _walk and
+    extend_sel_batch patched to their plain versions (a test-only patch)."""
+    from compseed_tpu_torch.ops import fm as tfm
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    R, L, qd, rd = sd._upload(list(reads[:16384]))
+    fns = sd._build(R, L)
+
+    def run():
+        for k in fm_cuda.LAUNCHES:
+            fm_cuda.LAUNCHES[k] = 0
+        r1 = fns["r1"](qd, rd)
+        whole = sd._run(fns, qd, rd)
+        torch.cuda.synchronize()
+        return r1, whole, dict(fm_cuda.LAUNCHES)
+
+    def flat(x):
+        if isinstance(x, dict):
+            return [v for k in sorted(x) for v in flat(x[k])]
+        if isinstance(x, (tuple, list)):
+            return [v for y in x for v in flat(y)]
+        return [x] if isinstance(x, torch.Tensor) else []
+
+    r1_k, whole_k, n_k = run()
+    assert n_k["fm_chain_walk_kernel"] > 0 and \
+        n_k["fm_inv_psi_walk_kernel"] > 0, n_k
+    monkeypatch.setattr(tss, "_chain_walk", tss._chain_walk_plain)
+    monkeypatch.setattr(tfm, "_walk", tfm._walk_plain)
+    monkeypatch.setattr(tfm, "extend_sel_batch", tfm._extend_sel_plain)
+    r1_p, whole_p, n_p = run()
+    assert not any(n_p.values()), n_p
+    got, want = flat((r1_k, whole_k)), flat((r1_p, whole_p))
+    assert len(got) == len(want) > 20
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+    head = whole_k[2].cpu()
+    assert not head[3:14].any()          # no cap overflow on this chunk

@@ -347,7 +347,7 @@ def test_launch_counts_lose_no_update_across_threads():
     sys.setswitchinterval(1e-6)
     try:
         with cf.ThreadPoolExecutor(max_workers=32) as ex:
-            for f in [ex.submit(lambda: [bsw_cuda._launched(
+            for f in [ex.submit(lambda: [bsw_cuda.LIB.launched(
                     "probe_add_one_kernel") for _ in range(2000)])
                     for _ in range(32)]:
                 f.result(timeout=60)
