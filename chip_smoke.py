@@ -68,7 +68,22 @@ Phases, in order; any failure exits non-zero:
                 launched in the int32 window, the extension in the forced
                 run's rerun); the first call of each kind that the first
                 chunk (and the rerun) makes, through the kernel and its
-                plain version, exact, timed, with its bound;
+                plain version, exact, timed (in a loop, and replayed
+                from a CUDA graph), with its bound; the calls of each kind
+                in one run of the first chunk (the chain walk's by
+                direction), which must build no packed occ table.  The
+                walks' builds (the port's; with --fm-old-source also an
+                earlier source) on the main path's forward and backward
+                chain walk and every inverse-Psi stage, exact, in turns;
+                a random
+                BWT of 2^30 bases built on the card (8,388,609 occ rows,
+                805 MB, more than 10x L2; its first 2^16 bases held to
+                build_occ_rows), the forward, backward and first
+                inverse-Psi shapes over it through the kernels and their
+                plain versions, exact, timed from cold L2, with their
+                bound, and every build in turns; one dependent step's
+                latency on both tables (32 lanes, W = 10 against W = 1;
+                cold on the large one); the bytes the packed table adds to each index;
                 torch.profiler over one chunk (launches, stream syncs,
                 async copies, the card's busy share: ``profile_chunk``,
                 which scripts/torch_seeding_ab.py --profile runs on other
@@ -134,7 +149,11 @@ With --scratch-variants (and --old-source FILE, an earlier
 csrc/bsw_extend.cu whose launcher has no pairs-per-block argument) the
 source is also built with the scratch variant's hoisted loads off and on,
 and the builds are timed in turns on the Q = 2048 pairs and on the main
-path's captured tiles, each held to the plain version first.
+path's captured tiles, each held to the plain version first.  With
+--fm-old-source FILE (an earlier csrc/fm_walk.cu, one thread a lane,
+whose walks read the int64 occ rows) that file is built too, and phase 4
+times its walks against the port's in turns.  Neither option changes
+what the port itself runs.
 
 Prints the CLI phase's, the engine phase's and the mesh phase's numbers
 and the kernel table as one JSON line each, the card's nvidia-smi line,
@@ -550,8 +569,9 @@ def fm_cases(dfi, rng) -> dict:
 
 class FmCapture:
     """Records the first call of each kind of the FM wrappers (inputs
-    cloned) while a run goes through them: the chain walk by direction,
-    the inverse-Psi walk by step count, the extension by batch rank."""
+    cloned) while a run goes through them, and counts the calls of each
+    kind: the chain walk by direction, the inverse-Psi walk by step
+    count, the extension by batch rank."""
 
     def __init__(self):
         from compseed_tpu_torch.ops import fm_cuda
@@ -560,6 +580,7 @@ class FmCapture:
                          inv_psi_walk=fm_cuda.inv_psi_walk,
                          extend_sel_batch=fm_cuda.extend_sel_batch)
         self.calls = {}
+        self.counts = {}            # calls by key
 
     def _clone(self, x):
         import torch
@@ -571,6 +592,7 @@ class FmCapture:
 
             def w(*a, **kw):
                 k = (name,) + key(*a, **kw)
+                self.counts[k] = self.counts.get(k, 0) + 1
                 if k not in self.calls:
                     self.calls[k] = (tuple(self._clone(x) for x in a),
                                      {n: self._clone(v)
@@ -625,10 +647,34 @@ def fm_extend_need(dfi, x, s, c):
     return nwords, ranked, int(k.shape[0])
 
 
-def fm_measure(key, call, reps: int = 20) -> dict:
+def launch_ms(run, reps: int, flush=None) -> float:
+    """ms per launch of ``run``'s kernel on the card alone: ``reps`` calls
+    captured in a CUDA graph and replayed (graph_time_ms; a replayed
+    launch costs about 1 us of its own).  With ``flush``, every call comes
+    after flush() (an eviction of L2), and the flushes alone are taken
+    off: the time a caller whose rows are not in L2 sees."""
+    if flush is None:
+        return graph_time_ms(run, reps, 5)
+    return graph_time_ms(lambda: (flush(), run()), reps, 5) - \
+        graph_time_ms(flush, reps, 5)
+
+
+def l2_flush(dev):
+    """A function that evicts L2 (writes 128 MB, 2.5 x its 50 MB)."""
+    import torch
+    buf = torch.empty(128 << 20, dtype=torch.uint8, device=dev)
+    return buf.zero_
+
+
+def fm_measure(key, call, reps: int = 20, flush=None) -> dict:
     """A captured FM call through its kernel and its plain version:
-    max_abs_err, CUDA-event ms per call of each, and the bound from the
-    occ words and the operations this call's data needs."""
+    max_abs_err, CUDA-event ms per call of each in a loop of calls (the
+    kernel's bound by the host's launch rate), the kernel's ms per launch
+    on the card alone (launch_ms, with ``flush`` from cold L2), and the
+    bound from the occ words and the operations this call's data needs.
+    (Not the profiler: late in this long process its sessions dropped
+    kernel records, 2 and 0 of 20 seen on the H100, while one session
+    over a chunk, profile_chunk, keeps its own.)"""
     import torch
     from compseed_tpu_torch.ops import fm as dfm
     from compseed_tpu_torch.ops import fm_cuda
@@ -649,6 +695,7 @@ def fm_measure(key, call, reps: int = 20) -> dict:
     want = want if isinstance(want, tuple) else (want,)
     e = max(err(g, w) for g, w in zip(got, want))
     k_ms = cuda_time_ms(lambda: kernel(*a, **kw), reps)
+    g_ms = launch_ms(lambda: kernel(*a, **kw), reps, flush)
     p_ms = cuda_time_ms(lambda: plain(*a, **kw), max(reps // 4, 2))
     i64 = torch.int64
     if name == "chain_walk":
@@ -701,31 +748,47 @@ def fm_measure(key, call, reps: int = 20) -> dict:
         nbytes = nwords * FM_WORD_BYTES + n * (3 * es + 4) + n * 3 * es
         shape = f"ik {tuple(a[1].shape)} is_back={a[3]}"
     bound_ms, bound_by = bound_of(nbytes, ops)
-    return dict(shape=shape, max_abs_err=e, ms=k_ms, plain_ms=p_ms,
-                words=nwords, bytes=nbytes, ops=ops, bound_ms=bound_ms,
-                bound_by=bound_by)
+    return dict(shape=shape, max_abs_err=e, ms=k_ms, graph_ms=g_ms,
+                plain_ms=p_ms, words=nwords, bytes=nbytes, ops=ops,
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
-def fm_main_path(dev, seeder, queries, l32) -> dict:
+def fm_main_path(dev, seeder, queries, l32):
     """Phase 4's FM numbers: each FM kernel's launches per chunk in the
     int32 window (``l32``), the main path's own calls (the first of each
-    kind in one run of the first chunk) through each kernel and its plain
-    version, the profiler's counts over that chunk, and round 1's live
-    lanes before each round (chain_scan's ``report_rounds``)."""
+    kind in one run of the first chunk, and the calls of each kind that
+    run makes) through each kernel and its plain version, the profiler's
+    counts over that chunk, and round 1's live lanes before each round
+    (chain_scan's ``report_rounds``).  The run must build no packed occ
+    table (it is built once per index).  Returns (record, the captured
+    calls)."""
     import torch
+    from compseed_tpu_torch.ops import device_index
     from compseed_tpu_torch.ops import seedscan as ss
     per_chunk = {k: l32[k] / ((RUNS + 1) * N_CHUNKS) for k in FM_KERNELS}
     log(f"[4] FM kernel launches per {CHUNK}-read chunk (int32 window): "
         f"{json.dumps(per_chunk)}")
-    with FmCapture() as cap:
-        seeder.run_flat(queries)
-    torch.cuda.synchronize()
+    pack, packs = device_index.pack_occ_rows, []
+    device_index.pack_occ_rows = lambda rows: packs.append(1) or pack(rows)
+    try:
+        with FmCapture() as cap:
+            seeder.run_flat(queries)
+        torch.cuda.synchronize()
+    finally:
+        device_index.pack_occ_rows = pack
+    if packs:
+        raise SystemExit(f"a chunk built the packed occ table {len(packs)} "
+                         f"time(s): it is built once per index")
+    by_kind = {"/".join(map(str, k)): v for k, v in cap.counts.items()}
+    log(f"[4] FM calls in one run of the first chunk, by kind: "
+        f"{json.dumps(by_kind)}")
     calls = {}
     for key, call in cap.calls.items():
         r = fm_measure(key, call)
         calls["/".join(map(str, key))] = r
         log(f"[4] main path's {key[0]} {r['shape']}: kernel max_abs_err "
-            f"{r['max_abs_err']}, {r['ms']:.4f} ms (plain "
+            f"{r['max_abs_err']}, {r['ms']:.4f} ms in a loop, "
+            f"{r['graph_ms']:.5f} ms replayed from a graph (plain "
             f"{r['plain_ms']:.3f} ms); {r['words']} occ words, {r['ops']} "
             f"ops, bound {r['bound_ms']:.6f} ms by {r['bound_by']}")
         if r["max_abs_err"]:
@@ -746,8 +809,9 @@ def fm_main_path(dev, seeder, queries, l32) -> dict:
     hist = res[7][:rnd].tolist()
     log(f"[4] round 1 of the first chunk: {rnd} chain_scan rounds, live "
         f"lanes before each: {hist}")
-    return dict(launches_per_chunk=per_chunk, main_path_calls=calls,
-                profile=prof, round1=dict(rounds=rnd, alive_hist=hist))
+    return dict(launches_per_chunk=per_chunk, calls_first_chunk=by_kind,
+                main_path_calls=calls, profile=prof,
+                round1=dict(rounds=rnd, alive_hist=hist)), cap.calls
 
 
 def fm_rows(fm_rec, row) -> list:
@@ -755,8 +819,10 @@ def fm_rows(fm_rec, row) -> list:
     window of the main path (chain walk, inverse-Psi walk) and the forced
     overflow's rerun (extension); times and bounds: the first such call of
     the main path (forward chain walk; the inverse-Psi walk's first stage)
-    and of the rerun (its (P, 3) extension); max_abs_err: over every
-    comparison of the kernel (phase 2 and the captured calls)."""
+    and of the rerun (its (P, 3) extension); the walks' latency floor:
+    their steps times one dependent step's latency on the bench table
+    (fm_latency); max_abs_err: over every comparison of the kernel (phase
+    2, the captured calls and the 2^30-base table)."""
     calls = fm_rec["main_path_calls"]
     ext = fm_rec["extend_sel"]
     errs = {k: 0 for k in FM_KERNELS}
@@ -766,20 +832,27 @@ def fm_rows(fm_rec, row) -> list:
                  "chain": "fm_chain_walk_kernel",
                  "inv_psi": "fm_inv_psi_walk_kernel"}[tag.split()[0]]
             errs[k] = max(errs[k], v)
-    for name, r in list(calls.items()) + list(ext.items()):
+    large = fm_rec["redesign"]["large"]["calls"]
+    for name, r in list(calls.items()) + list(ext.items()) + [
+            ("chain_walk", large["forward"]), ("chain_walk", large["backward"]),
+            ("inv_psi_walk", large["inv_psi"])]:
         k = ("fm_chain_walk_kernel" if name.startswith("chain_walk") else
              "fm_inv_psi_walk_kernel" if name.startswith("inv_psi_walk")
              else "fm_extend_sel_kernel")
         errs[k] = max(errs[k], r["max_abs_err"])
     fwd = calls["chain_walk/False"]
-    walk = calls[min((n for n in calls if n.startswith("inv_psi_walk")),
-                     key=lambda n: int(n.split("/")[1]))]
+    first = min((n for n in calls if n.startswith("inv_psi_walk")),
+                key=lambda n: int(n.split("/")[1]))
+    walk, walk_n = calls[first], int(first.split("/")[1])
+    fwd_w = int(re.search(r"W=(\d+)", fwd["shape"]).group(1))
     flat = ext["rank2"]
     prof = fm_rec["profile"]["fm_kernels"]
+    lat = fm_rec["redesign"]["bench_latency"]["new"]
 
     def more(name, r, **kw):
         return dict(shape=r["shape"], per_chunk=fm_rec["launches_per_chunk"]
-                    [name], device_ms_profiled=prof.get(name, {}).get(
+                    [name], graph_ms=r["graph_ms"],
+                    device_ms_profiled=prof.get(name, {}).get(
                         "device_ms_per_launch"), source=FM_SOURCE, **kw)
 
     return [
@@ -793,12 +866,257 @@ def fm_rows(fm_rec, row) -> list:
             fm_rec["main_launches"]["fm_chain_walk_kernel"],
             errs["fm_chain_walk_kernel"], fwd["ms"], fwd["plain_ms"], fwd,
             **more("fm_chain_walk_kernel", fwd,
-                   backward=calls.get("chain_walk/True"))),
+                   backward=calls.get("chain_walk/True"),
+                   latency_floor_ms=fwd_w * lat["chain_step_ms"])),
         row("fm_inv_psi_walk_kernel",
             "compseed_tpu/ops/fm.py:166 (XLA fusion, no Pallas)",
             fm_rec["main_launches"]["fm_inv_psi_walk_kernel"],
             errs["fm_inv_psi_walk_kernel"], walk["ms"], walk["plain_ms"],
-            walk, **more("fm_inv_psi_walk_kernel", walk))]
+            walk, **more("fm_inv_psi_walk_kernel", walk,
+                         latency_floor_ms=walk_n * lat["psi_step_ms"]))]
+
+
+class OldFmBuild:
+    """The two walks of an earlier csrc/fm_walk.cu (--fm-old-source), whose
+    walks read the int64 ``occ_rows``: its C launchers take the arguments
+    of the port's (ops/fm_cuda._bind), with those rows in place of
+    ``occ_packed``.  Called on tensors that ``prep_walk`` prepared, as the
+    port's own wrappers (fm_cuda.chain_walk / inv_psi_walk) are in the
+    turns beside it."""
+
+    def __init__(self, lib):
+        from compseed_tpu_torch.ops import fm_cuda
+        fm_cuda._bind(lib)
+        self.lib = lib
+
+    def _index(self, fm):
+        return (fm.occ_rows.data_ptr(), fm.occ_rows.shape[0],
+                fm.L2.data_ptr(), int(fm.primary), int(bool(fm.fill_oob)))
+
+    @staticmethod
+    def _done(name, rc):
+        if rc:
+            raise SystemExit(f"{name}: CUDA error {rc}")
+
+    def chain_walk(self, fm, wv, W, k, l, s, valid, is_back=False,
+                   stop_s=None):
+        import torch
+        U, dt = k.shape[0], fm.dtype
+        ck, cl, cs = (torch.empty((U, W), dtype=dt, device=k.device)
+                      for _ in range(3))
+        ln = torch.empty(U, dtype=torch.int32, device=k.device)
+        self._done("fm_chain_walk_launch", self.lib.fm_chain_walk_launch(
+            *self._index(fm), wv.data_ptr(), k.data_ptr(), l.data_ptr(),
+            s.data_ptr(), valid.data_ptr(),
+            None if stop_s is None else stop_s.data_ptr(), int(bool(is_back)),
+            W, ck.data_ptr(), cl.data_ptr(), cs.data_ptr(), ln.data_ptr(), U,
+            int(dt == torch.int64), torch.cuda.current_stream().cuda_stream))
+        return ck, cl, cs, ln
+
+    def inv_psi_walk(self, fm, kk, steps, alive, n_steps):
+        import torch
+        out = (torch.empty_like(kk), torch.empty_like(steps),
+               torch.empty_like(alive))
+        self._done("fm_inv_psi_walk_launch", self.lib.fm_inv_psi_walk_launch(
+            *self._index(fm), kk.data_ptr(), steps.data_ptr(),
+            alive.data_ptr(), n_steps, fm.sa_intv - 1,
+            *(x.data_ptr() for x in out), kk.shape[0],
+            int(fm.dtype == torch.int64),
+            torch.cuda.current_stream().cuda_stream))
+        return out
+
+
+def fm_walk_builds(old_source) -> dict:
+    """name -> the walks of one build, in the order of a turn: with
+    ``old_source`` (an earlier fm_walk.cu) "old", built from that file,
+    then "new", the port's own wrappers and library."""
+    import ctypes as ct
+    from compseed_tpu_torch.ops import cuda_lib, fm_cuda
+    fm_cuda.LIB.load()
+    if not old_source:
+        return {"new": fm_cuda}
+    so = os.path.join(cuda_lib.BUILD, "libfm_walk_old.so")
+    cuda_lib.compile_source(os.path.abspath(old_source), so)
+    return {"old": OldFmBuild(ct.CDLL(so)), "new": fm_cuda}
+
+
+def prep_walk(key, call):
+    """A captured walk call's arguments as the wrapper hands them to the
+    launcher (index dtype, int64 window words, bool masks, contiguous):
+    (function name, args, kwargs)."""
+    import torch
+    a, kw = call
+    fm, dt = a[0], a[0].dtype
+    if key[0] == "inv_psi_walk":
+        fm, kk, steps, alive, n = a
+        return key[0], (fm, kk.to(dt).contiguous(), steps.to(dt).contiguous(),
+                        alive.to(torch.bool).contiguous(), n), {}
+    fm, wv, W, k, l, s, valid = a
+    stop = kw.get("stop_s")
+    return key[0], (fm, wv.to(torch.int64).contiguous(), W,
+                    *(x.to(dt).contiguous() for x in (k, l, s)),
+                    valid.to(torch.bool).contiguous()), dict(
+        is_back=kw.get("is_back", False),
+        stop_s=None if stop is None else stop.to(dt).contiguous())
+
+
+def fm_turns(builds: dict, cases: dict, reps: int = 20,
+             flush=None) -> dict:
+    """Each case (name -> (key, call) of a walk) through each build: held
+    to the plain version exactly (max_abs_err per build; all must be 0),
+    then timed in turns (the builds in order, then in reverse): ms per
+    call in a loop of calls and ms per launch on the card alone
+    (launch_ms, with ``flush`` from cold L2).  name -> {build:
+    {max_abs_err, loop_ms, graph_ms}}."""
+    import functools
+
+    import torch
+    from compseed_tpu_torch.ops import fm as dfm
+    from compseed_tpu_torch.ops import seedscan as ss
+    order = list(builds) + list(builds)[::-1]
+    out = {}
+    for name, (key, call) in cases.items():
+        fn, a, kw = prep_walk(key, call)
+        plain = ss._chain_walk_plain if fn == "chain_walk" else dfm._walk_plain
+        want = plain(*a, **kw)
+        rec = {}
+        for b, build in builds.items():
+            got = getattr(build, fn)(*a, **kw)
+            torch.cuda.synchronize()
+            rec[b] = dict(max_abs_err=max(err(g, w) for g, w in
+                                          zip(got, want)),
+                          loop_ms=[], graph_ms=[])
+            if rec[b]["max_abs_err"]:
+                raise SystemExit(f"{name}: build {b} disagrees with the plain "
+                                 f"version")
+        for b in order:
+            run = functools.partial(getattr(builds[b], fn), *a, **kw)
+            rec[b]["loop_ms"].append(cuda_time_ms(run, reps))
+            rec[b]["graph_ms"].append(launch_ms(run, reps, flush))
+        out[name] = rec
+    return out
+
+
+def fm_latency(builds: dict, dfi, flush=None) -> dict:
+    """The dependent-step latency of each build's walks on ``dfi``: the
+    chain walk at 32 lanes with W = 1 and W = 10 (every lane valid, no
+    ambiguous code, so every lane takes W steps) and the inverse-Psi walk
+    at 32 lanes with 1 and 10 steps (sa_intv raised so that no sampled
+    row ends a walk), ms per launch on the card alone in turns
+    (launch_ms, with ``flush`` from cold L2).  (t10 - t1) / 9 is one
+    step's latency (the replay's own cost per launch cancels): build ->
+    {chain_step_ms, psi_step_ms, turns}."""
+    import dataclasses
+
+    import torch
+    from compseed_tpu_torch.ops.fm_cases import (random_chain_lanes,
+                                                 random_sa_lanes)
+    gen = torch.Generator(device=dfi.device).manual_seed(29)
+    long = dataclasses.replace(dfi, sa_intv=1 << 30)
+    cases = {f"chain W={W}": (("chain_walk", False), random_chain_lanes(
+        dfi, gen, 32, W, False, clean=True)) for W in (1, 10)}
+    cases.update({f"psi n={n}": (("inv_psi_walk", n), random_sa_lanes(
+        long, gen, 32, n)) for n in (1, 10)})
+    turns = fm_turns(builds, cases, reps=50, flush=flush)
+
+    def mean(case, b):
+        return statistics.mean(turns[case][b]["graph_ms"])
+    return {b: dict(chain_step_ms=(mean("chain W=10", b)
+                                   - mean("chain W=1", b)) / 9,
+                    psi_step_ms=(mean("psi n=10", b) - mean("psi n=1", b))
+                    / 9,
+                    turns={c: turns[c][b]["graph_ms"] for c in turns})
+            for b in builds}
+
+
+LARGE_BASES = 1 << 30      # the random table larger than L2: 8,388,609 rows
+LARGE_SEED = 808
+
+
+def fm_redesign(dev, builds: dict, calls: dict, dfi) -> dict:
+    """The walks' builds against each other and the bound.  (b) The main
+    path's captured forward and backward chain walk and every inverse-Psi
+    stage through every build in turns, L2 warm as in a chunk (the bench
+    table is 3 MB).  (c) A random BWT of 2^30 bases on the card
+    (fm_cases.random_index; its first 2^16 bases held to build_occ_rows):
+    the forward and backward shapes and the first inverse-Psi stage,
+    uniform positions, log-uniform sizes, 1 % ambiguous codes, stop_s on
+    the backward shape, through the port's kernels and their plain
+    versions (fm_measure: exact, timed, bound by fm_rank_need) and every
+    build in turns, each launch from cold L2 (l2_flush), as on an index
+    that L2 cannot hold.  (d) The latency of one dependent step on both
+    tables (fm_latency; cold on the large one).  Also the bytes the packed
+    table adds to each index (torch.cuda.memory_allocated around
+    pack_occ_rows)."""
+    import torch
+    from compseed_tpu_torch.ops.device_index import pack_occ_rows
+    from compseed_tpu_torch.ops.fm_cases import (random_chain_lanes,
+                                                 random_index,
+                                                 random_index_rows_match_build,
+                                                 random_sa_lanes)
+
+    def packed_bytes(d):
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        p = pack_occ_rows(d.occ_rows)
+        torch.cuda.synchronize()
+        grown = torch.cuda.memory_allocated() - m0
+        if not torch.equal(p, d.occ_packed):
+            raise SystemExit("pack_occ_rows disagrees with the index's table")
+        return grown
+
+    main = {"forward": (("chain_walk", False), calls[("chain_walk", False)]),
+            "backward": (("chain_walk", True), calls[("chain_walk", True)])}
+    main.update({f"inv_psi n={k[1]}": (k, calls[k])
+                 for k in sorted(k for k in calls if k[0] == "inv_psi_walk")})
+    rec = dict(builds=list(builds), packed_bytes=dict(bench=packed_bytes(dfi)))
+    rec["bench_turns"] = fm_turns(builds, main)
+    rec["bench_latency"] = fm_latency(builds, dfi)
+    log(f"[4] FM walks, main path's calls by build in turns: "
+        f"{json.dumps(rec['bench_turns'])}; one dependent step: "
+        f"{json.dumps(rec['bench_latency'])}")
+
+    t0 = time.time()
+    big = random_index(LARGE_BASES, LARGE_SEED, dev)
+    torch.cuda.synchronize()
+    built_s = time.time() - t0
+    if not random_index_rows_match_build(big, 1 << 16):
+        raise SystemExit("the random table's rows differ from "
+                         "build_occ_rows' on its first 2^16 bases")
+    rec["packed_bytes"]["large"] = packed_bytes(big)
+    gen = torch.Generator(device=dev).manual_seed(LARGE_SEED + 1)
+    (_, wv, W, *_), _ = main["forward"][1]
+    fwd = random_chain_lanes(big, gen, wv.shape[0], W, False)
+    (_, wv, W, *_), _ = main["backward"][1]
+    bwd = random_chain_lanes(big, gen, wv.shape[0], W, True, stop=True)
+    first = min(k for k in calls if k[0] == "inv_psi_walk")
+    kk = calls[first][0][1]
+    psi = random_sa_lanes(big, gen, kk.shape[0], first[1])
+    cases = {"forward": (main["forward"][0], fwd),
+             "backward": (main["backward"][0], bwd),
+             "inv_psi": (first, psi)}
+    flush = l2_flush(dev)
+    large = {}
+    for name, (key, call) in cases.items():
+        large[name] = fm_measure(key, call, flush=flush)
+        if large[name]["max_abs_err"]:
+            raise SystemExit(f"{name} on the 2^30-base table: the kernel "
+                             f"disagrees with its plain version")
+    rec["large"] = dict(bases=LARGE_BASES, rows=big.occ_rows.shape[0],
+                        occ_rows_bytes=big.occ_rows.numel() * 8,
+                        built_s=built_s, calls=large,
+                        flush_ms=graph_time_ms(flush, 20, 5),
+                        turns=fm_turns(builds, cases, flush=flush),
+                        latency=fm_latency(builds, big, flush=flush))
+    del big, fwd, bwd, psi, cases, flush
+    torch.cuda.empty_cache()
+    rec["large"]["phase_s"] = time.time() - t0
+    log(f"[4] FM walks on a random 2^30-base table "
+        f"({rec['large']['rows']} rows, built in {built_s:.1f} s, packed "
+        f"{rec['packed_bytes']['large']} B; bench index packed "
+        f"{rec['packed_bytes']['bench']} B), each launch from cold L2: "
+        f"{json.dumps(rec['large'])}")
+    return rec
 
 
 def compare(tiles, gap, state16: bool):
@@ -1794,7 +2112,10 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scratch-variants", action="store_true")
     ap.add_argument("--old-source")
+    ap.add_argument("--fm-old-source")
     cli = ap.parse_args()
+    if cli.fm_old_source and not os.path.isfile(cli.fm_old_source):
+        ap.error(f"--fm-old-source {cli.fm_old_source}: no such file")
     # ---- phase 0: device
     import torch
     if not torch.cuda.is_available():
@@ -1908,6 +2229,8 @@ def main() -> None:
 
     variants = scratch_variants(cli.old_source) if cli.scratch_variants \
         else {}
+    fm_builds = fm_walk_builds(cli.fm_old_source)
+    log(f"[1] FM walk builds compared in phase 4: {list(fm_builds)}")
     variant_ms = {}
 
     # ---- phase 2: kernels vs plain versions, synthetic pairs
@@ -2208,7 +2531,9 @@ def main() -> None:
     if reuse != EXPECT_REUSE:
         raise SystemExit(f"bwt_hit_pct / sal_merged_pct are {reuse}, "
                          f"expected {EXPECT_REUSE}")
-    fm_rec = fm_main_path(dev, seeder, list(reads_arr[:CH]), l32)
+    fm_rec, fm_calls = fm_main_path(dev, seeder, list(reads_arr[:CH]), l32)
+    fm_rec["redesign"] = fm_redesign(dev, fm_builds, fm_calls, seeder.dfi)
+    del fm_calls
     fm_rec["phase2_max_abs_err"] = fm_errs
     fm_rec["main_launches"] = {k: l32[k] for k in FM_KERNELS}
 

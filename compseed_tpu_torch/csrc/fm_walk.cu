@@ -1,5 +1,4 @@
-// The FM-index primitives of the seeding walks and the suffix-array walk,
-// one thread per lane, the lane's state in registers.
+// The FM-index primitives of the seeding walks and the suffix-array walk.
 //
 // In the JAX package these are no Pallas kernels: XLA fuses each of them
 // into one row gather plus one elementwise fusion inside the seeding
@@ -10,20 +9,22 @@
 // fm_extend_sel_kernel<T>
 //   Replaces compseed_tpu/ops/fm.py:128 extend_sel_batch (with _row_fetch
 //   :28, _rank4 :42 and _occ4_pair :75): the one-child bidirectional
-//   extension of a bi-interval (k, l, s) by base c.  Plain version:
+//   extension of a bi-interval (k, l, s) by base c.  One thread a lane,
+//   over the 12-word int64 occ rows.  Plain version:
 //   compseed_tpu_torch/ops/fm.py::_extend_sel_plain.
 // fm_chain_walk_kernel<T>
 //   Replaces compseed_tpu/ops/seedscan.py:1341 _chain_walk: W <= 10 pure
 //   extensions per representative over the 3-bit codes of its packed
 //   window word, stopping at the first ambiguous base (and, with stop_s,
-//   once the interval drops below the group's smallest min_hits).  Plain
-//   version: compseed_tpu_torch/ops/seedscan.py::_chain_walk_plain.
+//   once the interval drops below the group's smallest min_hits).  Two
+//   threads a lane, one a row, over the packed occ rows.  Plain version:
+//   compseed_tpu_torch/ops/seedscan.py::_chain_walk_plain.
 // fm_inv_psi_walk_kernel<T>
 //   Replaces compseed_tpu/ops/fm.py:166 inv_psi_batch stepped n times, as
 //   the step loops of sa_batch (:200) and sa_batch_compact (run, :256) do:
 //   per step kk = invPsi(kk) and steps += 1 on live lanes, then a lane dies
-//   once kk is a sampled row.  Plain version: compseed_tpu_torch/ops/fm.py::
-//   _walk_plain.
+//   once kk is a sampled row.  Two threads a lane, over the packed occ
+//   rows.  Plain version: compseed_tpu_torch/ops/fm.py::_walk_plain.
 //
 // T is the index type: int32_t, or int64_t for genomes of 2^31 positions
 // or more (DeviceFMIndex.dtype).  Arithmetic on positions and counts wraps
@@ -35,17 +36,52 @@
 // check does: it never reads past the table.  A lane that does not step
 // reads nothing.
 //
-// What bounds them on Hopper: each extension reads two 96-byte occ rows (12
-// words of 8 bytes, the layout of ops/device_index.py) at data-dependent
-// rows, and an inverse-Psi step one; the rank is 16 popcounts and a few
-// masks per row.  So the bound is the bytes of the rows over the memory
-// rate; in practice it is the latency of a dependent chain of random
-// reads, since step j + 1 of a lane needs step j's interval.  The design:
-// one launch runs every step of a walk (the W-step chain, the n-step
-// inverse-Psi segment), so the per-launch host cost that dominated the
-// plain version is paid once per walk; a lane that stops leaves its loop.
-// Coalescing the row reads, L2 residency of the table and a warp per lane
-// are later work.
+// What bounds them on Hopper.  A walk step ranks at one (inverse Psi) or
+// two (extension) data-dependent occ rows, and step j + 1 of a lane needs
+// step j's interval: each lane is a dependent chain of random reads, with
+// a few popcounts a step.  The bytes a call needs are a few kB to a few MB
+// (chip_smoke.py's fm_rank_need counts them), so the bound by HBM bytes is
+// microseconds; what decides is (a) how many L1 wavefronts and sectors
+// each rank costs, since a warp-wide load whose 32 threads hit 32 rows is
+// served a row at a time, (b) how many SMs have lanes, and (c) the
+// latency of W dependent reads, which nothing can overlap within a lane.  The first kernels (one
+// thread a lane, 12 scalar 8-byte loads of a 96-byte int64 row per rank,
+// blocks of 256) paid 12 wavefronts a row per rank, left 100 of 132 SMs
+// idle on the forward walk's 8,192 lanes and wrote their (U, W) outputs a
+// column at a time, stride W.  The design here:
+//   - rows are the packed table (ops/device_index.py::pack_occ_rows): 16
+//     uint32 words, 64 bytes, 64-byte aligned: quarter 0 (words 0-3) the
+//     A/C/G/T checkpoint counts, quarter 1 (4-7) hi0 lo0 hi1 lo1, quarter 2
+//     (8-11) hi2 lo2 hi3 lo3, quarter 3 zero.  Sector 0 serves every block
+//     offset below 64; sector 1 is read only for offsets 64-127;
+//   - a rank reads quarter 0 and the plane quarters it needs by 16-byte
+//     loads, so it costs two or three loads of at most two sectors; a
+//     rank may be cut into two pieces (rank_piece), one a plane quarter,
+//     whose popcounts, 8 bits a base in one word, add up to the rank;
+//   - both walks give a lane a pair of threads.  The chain walk's pair
+//     ranks the extension's two rows, one a thread, so both rows are read
+//     at once, and the pair exchanges the ranks by shuffles (both threads
+//     then hold both and step the same interval: control flow stays
+//     uniform in the pair); its W columns stay in registers until the
+//     walk ends, then thread t of the pair writes columns t, t + 2, ...,
+//     so a warp's stores cover contiguous runs of its lanes' rows.  The
+//     inverse-Psi walk's pair ranks one row in two pieces; the base code
+//     at the offset comes from the piece that holds its word, and the
+//     popcounts are added, by shuffles;
+//   - blocks of 64 threads: the forward walk's 8,192 lanes make 256
+//     blocks, every SM has lanes.
+// These sizes were chosen on the H100 (PERF.md): four threads a chain-walk
+// lane (two a row) step a lane faster, two run more lanes at once, and the
+// seeder's walks (65 forward calls of 8,192 lanes and 8 backward calls of
+// 196,608 lanes a chunk) take the least card time at two; a second thread
+// a row pays off for the inverse-Psi walk.  The latency of the dependent
+// chain stays: chip_smoke.py measures it (the chain walk at 32 lanes,
+// W = 1 against W = 10).
+//
+// The lane arithmetic is shared between the card and a host build: the
+// walk loops take the ranks as a functor, which on the card is the pair's
+// shuffles and on the host a loop over the same pieces, so the CPU tests
+// run the arithmetic of every piece.
 //
 // The launchers allocate nothing, launch on the caller's stream of the
 // calling thread's current device (the wrapper, ops/fm_cuda.py, makes the
@@ -61,11 +97,19 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define FM_HD __host__ __device__ __forceinline__
+#define FM_UNROLL _Pragma("unroll")
+#define FM_FUNCTOR_CALLER _Pragma("nv_exec_check_disable")
 #else
 #define FM_HD inline
+#define FM_UNROLL
+#define FM_FUNCTOR_CALLER
 #endif
 
 namespace {
+
+constexpr int kPsiPieces = 2;   // pieces of an inverse-Psi rank, a thread each
+constexpr int kMaxW = 10;                       // a window packs into 30 bits
+constexpr int kPackedWords = 16;
 
 template <typename T>
 struct Unsigned;
@@ -99,6 +143,12 @@ FM_HD int popc(uint32_t x) {
 #endif
 }
 
+// a[c] for c in [0, 3] by selects, so that a stays in registers.
+template <typename T>
+FM_HD T sel4(const T a[4], int c) {
+  return c == 0 ? a[0] : c == 1 ? a[1] : c == 2 ? a[2] : a[3];
+}
+
 struct Fault {};
 
 // A read outside the table without fill_oob, or a child base outside
@@ -113,36 +163,64 @@ FM_HD void fault() {
 #endif
 }
 
-// The index as a lane sees it.
-template <typename T>
+// The index as a lane sees it.  Rows is `const long long*` for the
+// (n_rows, 12) int64 rows of uint32 words (the extension) or `const
+// uint32_t*` for the (n_rows, 16) packed rows (the walks).
+template <typename T, typename Rows>
 struct Fm {
-  const long long* occ;       // (n_rows, 12): uint32 words held in int64
+  Rows rows;
   long long n_rows;
   T L2[5];
   long long primary;
   bool fill_oob;
 };
 
+template <typename T>
+using FmRows = Fm<T, const long long*>;
+template <typename T>
+using FmPacked = Fm<T, const uint32_t*>;
+
+template <typename T, typename Rows>
+FM_HD Fm<T, Rows> make_fm(Rows rows, long long n_rows, const T* L2,
+                          long long primary, int fill_oob) {
+  Fm<T, Rows> fm;
+  fm.rows = rows;
+  fm.n_rows = n_rows;
+  for (int i = 0; i < 5; ++i) fm.L2[i] = L2[i];
+  fm.primary = primary;
+  fm.fill_oob = fill_oob != 0;
+  return fm;
+}
+
+// The table row of the 128-base block holding (already $-adjusted) k:
+// its index in [0, n), or -1 for fill_oob's all-ones row.
+FM_HD long long row_of(long long n, bool fill_oob, long long k) {
+  const long long blk = k >> 7;
+  if (blk >= -n && blk < n) return blk < 0 ? blk + n : blk;
+  if (!fill_oob) fault();
+  return -1;
+}
+
+// ---------------------------------------------------------------------------
+// The 12-word int64 rows (fm_extend_sel_kernel).
+
 struct Row {
   uint32_t cnt[4], hi[4], lo[4];
 };
 
-// The fused row of the 128-base block holding (already $-adjusted) k.
 template <typename T>
-FM_HD void fetch_row(const Fm<T>& fm, long long k, Row& r) {
-  const long long blk = k >> 7;
-  const long long n = fm.n_rows;
-  if (blk >= -n && blk < n) {
-    const long long* p = fm.occ + (blk < 0 ? blk + n : blk) * 12;
-    for (int i = 0; i < 4; ++i) {
-      r.cnt[i] = (uint32_t)p[i];
-      r.hi[i] = (uint32_t)p[4 + i];
-      r.lo[i] = (uint32_t)p[8 + i];
+FM_HD void fetch_row(const FmRows<T>& fm, long long k, Row& r) {
+  const long long i = row_of(fm.n_rows, fm.fill_oob, k);
+  if (i >= 0) {
+    const long long* p = fm.rows + i * 12;
+    for (int w = 0; w < 4; ++w) {
+      r.cnt[w] = (uint32_t)p[w];
+      r.hi[w] = (uint32_t)p[4 + w];
+      r.lo[w] = (uint32_t)p[8 + w];
     }
     return;
   }
-  if (!fm.fill_oob) fault();
-  for (int i = 0; i < 4; ++i) r.cnt[i] = r.hi[i] = r.lo[i] = 0xFFFFFFFFu;
+  for (int w = 0; w < 4; ++w) r.cnt[w] = r.hi[w] = r.lo[w] = 0xFFFFFFFFu;
 }
 
 // Counts of each base among block positions 0..off inclusive, plus the
@@ -167,7 +245,7 @@ FM_HD void rank4(const Row& r, int off, T out[4]) {
 
 // occ4 at k (bwt_occ4): k == -1 counts zero (ops/fm.py::occ4_batch).
 template <typename T>
-FM_HD void occ4(const Fm<T>& fm, T k, T out[4]) {
+FM_HD void occ4(const FmRows<T>& fm, T k, T out[4]) {
   if (k == (T)-1) {
     out[0] = out[1] = out[2] = out[3] = 0;
     return;
@@ -178,113 +256,283 @@ FM_HD void occ4(const Fm<T>& fm, T k, T out[4]) {
   rank4(r, (int)((long long)kk & 127), out);
 }
 
-// The child c of bi-interval ik = (k, l, s): columns [fwd] the searched
-// coordinate, [bwd] the other one, [2] the size (ops/fm.py::
-// _extend_sel_plain).
-template <typename T>
-FM_HD void extend_sel(const Fm<T>& fm, const T ik[3], int c, bool is_back,
-                      T out[3]) {
-  if (c < 0 || c > 3) {
-    fault();
-    return;
-  }
-  const int fwd = is_back ? 0 : 1, bwd = 1 - fwd;
-  const T x = ik[fwd], s = ik[2];
-  const T xm1 = wsub(x, (T)1);
-  T tk[4], tl[4];
-  occ4(fm, xm1, tk);
-  occ4(fm, wadd(xm1, s), tl);
+// The child c of bi-interval ik = (k, l, s) from occ4 at x - 1 (tk) and
+// x - 1 + s (tl), x = ik[fwd]: columns [fwd] the searched coordinate,
+// [bwd] the other one, [2] the size (ops/fm.py::_extend_sel_plain).
+// (The columns are chosen by selects, not by index, so that they stay
+// in registers.)
+template <typename T, typename Rows>
+FM_HD void child_of(const Fm<T, Rows>& fm, const T ik[3], int c,
+                    bool is_back, const T tk[4], const T tl[4], T out[3]) {
+  const T x = is_back ? ik[0] : ik[1], y = is_back ? ik[1] : ik[0];
+  const T s = ik[2];
   T sizes[4];
   for (int b = 0; b < 4; ++b) sizes[b] = wsub(tl[b], tk[b]);
   const bool has_primary = (long long)x <= fm.primary &&
                            (long long)wsub(wadd(x, s), (T)1) >= fm.primary;
   T above = 0;
-  for (int b = c + 1; b < 4; ++b) above = wadd(above, sizes[b]);
-  out[fwd] = wadd(wadd(fm.L2[c], (T)1), tk[c]);
-  out[bwd] = wadd(wadd(ik[bwd], (T)(has_primary ? 1 : 0)), above);
-  out[2] = sizes[c];
+  for (int b = 1; b < 4; ++b)
+    if (b > c) above = wadd(above, sizes[b]);
+  const T f = wadd(wadd(sel4(fm.L2, c), (T)1), sel4(tk, c));
+  const T g = wadd(wadd(y, (T)(has_primary ? 1 : 0)), above);
+  out[0] = is_back ? f : g;
+  out[1] = is_back ? g : f;
+  out[2] = sel4(sizes, c);
+}
+
+template <typename T>
+FM_HD void extend_sel(const FmRows<T>& fm, const T ik[3], int c, bool is_back,
+                      T out[3]) {
+  if (c < 0 || c > 3) {
+    fault();
+    return;
+  }
+  const T xm1 = wsub(is_back ? ik[0] : ik[1], (T)1);
+  T tk[4], tl[4];
+  occ4(fm, xm1, tk);
+  occ4(fm, wadd(xm1, ik[2]), tl);
+  child_of(fm, ik, c, is_back, tk, tl, out);
+}
+
+// ---------------------------------------------------------------------------
+// The packed rows (the walks).  A rank in a row is one piece, which holds
+// both plane quarters (1 and 2), or two, piece p holding quarter 1 + p;
+// quarter 0, the checkpoint counts, is read beside them.
+
+struct Quarter {
+  uint32_t w[4];
+};
+
+// Quarter q of packed row i (-1: fill_oob's all-ones row).
+FM_HD Quarter load_quarter(const uint32_t* rows, long long i, int q) {
+  Quarter v;
+  if (i < 0) {
+    v.w[0] = v.w[1] = v.w[2] = v.w[3] = 0xFFFFFFFFu;
+    return v;
+  }
+  const uint32_t* p = rows + i * kPackedWords + 4 * q;
+#ifdef __CUDA_ARCH__
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+  v.w[0] = x.x;
+  v.w[1] = x.y;
+  v.w[2] = x.z;
+  v.w[3] = x.w;
+#else
+  for (int j = 0; j < 4; ++j) v.w[j] = p[j];
+#endif
+  return v;
+}
+
+// Popcounts by base of plane word w's positions 0..off of the block,
+// added to pc (base b in bits 8b..8b+7; a rank counts at most 128).
+FM_HD void plane_popc(uint32_t hi, uint32_t lo, int w, int off,
+                      uint32_t& pc) {
+  const int nb = off - 32 * w + 1;
+  if (nb <= 0) return;
+  const uint32_t mask = nb >= 32 ? 0xFFFFFFFFu : ((1u << nb) - 1u);
+  const uint32_t hm = hi & mask, lm = lo & mask;
+  const uint32_t nh = ~hm & mask, nl = ~lm & mask;
+  pc += (uint32_t)popc(nh & nl) | ((uint32_t)popc(nh & lm) << 8) |
+        ((uint32_t)popc(hm & nl) << 16) | ((uint32_t)popc(hm & lm) << 24);
+}
+
+// Piece `piece` of `pieces` (1 or 2) of the rank at block offset `off` in
+// packed row i: the popcounts by base of the plane words it holds (packed
+// as plane_popc packs them), and in *code the 2-bit BWT code at off where
+// the piece holds that word, else 0.  The pieces of a row add up to the
+// rank and the code.  Quarter 2 is read only for offsets 64-127.  (The
+// bounds are written as quarters [4p / pieces, 4(p + 1) / pieces) clipped
+// to the planes: other forms of the same bounds made nvcc give the chain
+// walk more registers and cost it 15-30 % on the H100, PERF.md.)
+FM_HD uint32_t rank_piece(const uint32_t* rows, long long i, int piece,
+                          int pieces, int off, int* code) {
+  uint32_t pc = 0;
+  *code = 0;
+  const int q0 = 4 * piece / pieces, q1 = 4 * (piece + 1) / pieces;
+  const int wc = off >> 5, bc = off & 31;
+  for (int q = q0 < 1 ? 1 : q0; q < (q1 > 3 ? 3 : q1); ++q) {
+    if (off < 64 * (q - 1)) break;
+    const Quarter v = load_quarter(rows, i, q);
+    for (int h = 0; h < 2; ++h) {
+      const int w = 2 * (q - 1) + h;
+      plane_popc(v.w[2 * h], v.w[2 * h + 1], w, off, pc);
+      if (w == wc)
+        *code = (int)((((v.w[2 * h] >> bc) & 1u) << 1) |
+                      ((v.w[2 * h + 1] >> bc) & 1u));
+    }
+  }
+  return pc;
+}
+
+// The rank of base b from the row's count and the pieces' summed
+// popcounts, in T (as rank4 adds them).
+template <typename T>
+FM_HD T rank_of(uint32_t cnt, uint32_t pc, int b) {
+  using U = typename Unsigned<T>::type;
+  return wadd((T)(U)cnt, (T)((pc >> (8 * b)) & 0xFFu));
+}
+
+// Where occ4 at k ranks (bwt_occ4): false for k == -1, which counts zero;
+// else the row (row_of) and the block offset of k - (k >= primary).
+template <typename T>
+FM_HD bool occ_at(const FmPacked<T>& fm, T k, long long& row, int& off) {
+  if (k == (T)-1) return false;
+  const T kk = (long long)k >= fm.primary ? wsub(k, (T)1) : k;
+  row = row_of(fm.n_rows, fm.fill_oob, (long long)kk);
+  off = (int)((long long)kk & 127);
+  return true;
+}
+
+// occ4 at k by one thread: the row's counts (quarter 0) and its
+// popcounts, the rank in one piece; zero for k == -1.
+template <typename T>
+FM_HD void occ_row(const FmPacked<T>& fm, T k, uint32_t cnt[4],
+                   uint32_t& pc) {
+  long long row;
+  int off, code;
+  cnt[0] = cnt[1] = cnt[2] = cnt[3] = 0;
+  pc = 0;
+  if (!occ_at(fm, k, row, off)) return;
+  const Quarter c = load_quarter(fm.rows, row, 0);
+  for (int j = 0; j < 4; ++j) cnt[j] = c.w[j];
+  pc = rank_piece(fm.rows, row, 0, 1, off, &code);
 }
 
 // W extensions of one lane over the 3-bit codes of window word wv; the
-// state after column j goes to column j of ck / cl / cs.  Returns the
-// number of steps taken (ln).
-template <typename T>
-FM_HD int chain_walk(const Fm<T>& fm, long long wv, int W, T k, T l, T s,
-                     bool alive, bool is_back, const T* stop_s, T* ck, T* cl,
-                     T* cs) {
+// state after column j goes to ck[j], cl[j], cs[j] (j < W).  ranks(a, b,
+// tk, tl) gives occ4 at a and at b.  Returns the number of steps taken.
+FM_FUNCTOR_CALLER
+template <typename T, typename Ranks>
+FM_HD int chain_walk(const FmPacked<T>& fm, long long wv, int W, T k, T l,
+                     T s, bool alive, bool is_back, bool has_stop, T stop,
+                     T ck[kMaxW], T cl[kMaxW], T cs[kMaxW],
+                     const Ranks& ranks) {
   int ln = 0;
-  for (int j = 0; j < W; ++j) {
-    const int base = (int)((wv >> (3 * j)) & 7);
-    const bool step = alive && base <= 3;
-    if (step) {
-      const T ik[3] = {k, l, s};
-      T o[3];
-      extend_sel(fm, ik, is_back ? base : 3 - base, is_back, o);
-      k = o[0];
-      l = o[1];
-      s = o[2];
-      ++ln;
+  FM_UNROLL
+  for (int j = 0; j < kMaxW; ++j) {
+    if (j < W) {
+      const int base = (int)((wv >> (3 * j)) & 7);
+      const bool step = alive && base <= 3;
+      if (step) {
+        const T ik[3] = {k, l, s};
+        const T xm1 = wsub(is_back ? k : l, (T)1);
+        T tk[4], tl[4], o[3];
+        ranks(xm1, wadd(xm1, s), tk, tl);
+        child_of(fm, ik, is_back ? base : 3 - base, is_back, tk, tl, o);
+        k = o[0];
+        l = o[1];
+        s = o[2];
+        ++ln;
+      }
+      ck[j] = k;
+      cl[j] = l;
+      cs[j] = s;
+      alive = step && (!has_stop || s >= stop);
     }
-    ck[j] = k;
-    cl[j] = l;
-    cs[j] = s;
-    alive = step && (stop_s == nullptr || s >= *stop_s);
   }
   return ln;
 }
 
 // One LF step (bwt_invPsi; ops/fm.py::inv_psi_batch): the row at
 // x = k - (k > primary) serves both the base and its rank.
-template <typename T>
-FM_HD T inv_psi(const Fm<T>& fm, T k) {
+// pieces(row, off, pc, code) gives the summed popcounts and the code.
+FM_FUNCTOR_CALLER
+template <typename T, typename Pieces>
+FM_HD T inv_psi(const FmPacked<T>& fm, T k, const Pieces& pieces) {
   const T x = (long long)k > fm.primary ? wsub(k, (T)1) : k;
-  Row r;
-  fetch_row(fm, (long long)x, r);
+  const long long row = row_of(fm.n_rows, fm.fill_oob, (long long)x);
   const int off = (int)((long long)x & 127);
-  const int w = off >> 5, b = off & 31;
-  const int c = (int)((((r.hi[w] >> b) & 1u) << 1) | ((r.lo[w] >> b) & 1u));
-  T occ[4];
-  rank4(r, off, occ);
-  return (long long)k == fm.primary ? (T)0 : wadd(fm.L2[c], occ[c]);
+  const Quarter cnt = load_quarter(fm.rows, row, 0);
+  uint32_t pc;
+  int c;
+  pieces(row, off, pc, c);
+  const T occ = rank_of<T>(sel4(cnt.w, c), pc, c);
+  return (long long)k == fm.primary ? (T)0 : wadd(sel4(fm.L2, c), occ);
 }
 
 // Up to n masked steps of one lane (ops/fm.py::_walk_plain).
-template <typename T>
-FM_HD void inv_psi_walk(const Fm<T>& fm, T& kk, T& steps, bool& alive,
-                        int n_steps, long long mask) {
+FM_FUNCTOR_CALLER
+template <typename T, typename Pieces>
+FM_HD void inv_psi_walk(const FmPacked<T>& fm, T& kk, T& steps, bool& alive,
+                        int n_steps, long long mask, const Pieces& pieces) {
   for (int i = 0; i < n_steps && alive; ++i) {
-    kk = inv_psi(fm, kk);
+    kk = inv_psi(fm, kk, pieces);
     steps = wadd(steps, (T)1);
     alive = ((long long)kk & mask) != 0;
   }
 }
 
+#ifdef __CUDACC__
+constexpr int kBlock = 64;          // threads a block of the walks
+constexpr int kExtendBlock = 256;   // the extension, one thread a lane
+
+// The pair of threads of this thread's lane (both walks): its index t in
+// the pair, the pair's mask within the warp, and the other thread's v.
+struct Pair {
+  int t;
+  unsigned mask;
+  __device__ Pair()
+      : t((int)(threadIdx.x & 1)), mask(3u << (threadIdx.x & 30)) {}
+  __device__ uint32_t other(uint32_t v) const {
+    return __shfl_xor_sync(mask, v, 1);
+  }
+};
+
+// ranks(a, b, tk, tl) of a chain-walk lane: thread 0 of the pair ranks at
+// a, thread 1 at b, and the two swap their counts and popcounts.
 template <typename T>
-FM_HD Fm<T> make_fm(const long long* occ, long long n_rows, const T* L2,
-                    long long primary, int fill_oob) {
-  Fm<T> fm;
-  fm.occ = occ;
-  fm.n_rows = n_rows;
-  for (int i = 0; i < 5; ++i) fm.L2[i] = L2[i];
-  fm.primary = primary;
-  fm.fill_oob = fill_oob != 0;
-  return fm;
+struct PairRanks {
+  const FmPacked<T>& fm;
+  Pair p;
+  __device__ void operator()(T a, T b, T tk[4], T tl[4]) const {
+    const bool second = p.t == 1;
+    uint32_t cnt[4], pc, other[4];
+    occ_row(fm, second ? b : a, cnt, pc);
+    const uint32_t pco = p.other(pc);
+    for (int j = 0; j < 4; ++j) other[j] = p.other(cnt[j]);
+    for (int j = 0; j < 4; ++j) {
+      const T mine = rank_of<T>(cnt[j], pc, j);
+      const T theirs = rank_of<T>(other[j], pco, j);
+      tk[j] = second ? theirs : mine;
+      tl[j] = second ? mine : theirs;
+    }
+  }
+};
+
+// pieces(row, off, pc, code) of an inverse-Psi lane: one piece a thread
+// of the pair, the popcounts and the code (held by one piece) summed by
+// shuffles.
+template <typename T>
+struct PairPieces {
+  const FmPacked<T>& fm;
+  Pair p;
+  __device__ void operator()(long long row, int off, uint32_t& pc,
+                             int& code) const {
+    pc = rank_piece(fm.rows, row, p.t, kPsiPieces, off, &code);
+    pc += p.other(pc);
+    code += (int)p.other((uint32_t)code);
+  }
+};
+
+// v[c] for the c of this thread's column, by selects.
+template <typename T>
+__device__ T pick(const T v[kMaxW], int c) {
+  T x = v[0];
+  FM_UNROLL
+  for (int j = 1; j < kMaxW; ++j)
+    if (j == c) x = v[j];
+  return x;
 }
 
-#ifdef __CUDACC__
-constexpr int kThreads = 256;
-
 template <typename T>
-__global__ void fm_extend_sel_kernel(const long long* __restrict__ occ,
-                                     long long n_rows,
-                                     const T* __restrict__ L2,
-                                     long long primary, int fill_oob,
-                                     const T* __restrict__ ik,
-                                     const int* __restrict__ c, int is_back,
-                                     T* __restrict__ out, long long n) {
+__global__ void fm_extend_sel_kernel(
+    const long long* __restrict__ occ, long long n_rows,
+    const T* __restrict__ L2, long long primary, int fill_oob,
+    const T* __restrict__ ik, const int* __restrict__ c, int is_back,
+    T* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Fm<T> fm = make_fm(occ, n_rows, L2, primary, fill_oob);
+  const FmRows<T> fm = make_fm(occ, n_rows, L2, primary, fill_oob);
   const T in[3] = {ik[3 * i], ik[3 * i + 1], ik[3 * i + 2]};
   T o[3];
   extend_sel(fm, in, c[i], is_back != 0, o);
@@ -294,44 +542,61 @@ __global__ void fm_extend_sel_kernel(const long long* __restrict__ occ,
 }
 
 template <typename T>
-__global__ void fm_chain_walk_kernel(
-    const long long* __restrict__ occ, long long n_rows,
+__global__ void __launch_bounds__(kBlock) fm_chain_walk_kernel(
+    const uint32_t* __restrict__ rows, long long n_rows,
     const T* __restrict__ L2, long long primary, int fill_oob,
     const long long* __restrict__ wv, const T* __restrict__ k,
     const T* __restrict__ l, const T* __restrict__ s,
     const uint8_t* __restrict__ valid, const T* __restrict__ stop_s,
     int is_back, int W, T* __restrict__ ck, T* __restrict__ cl,
     T* __restrict__ cs, int* __restrict__ ln, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Fm<T> fm = make_fm(occ, n_rows, L2, primary, fill_oob);
+  const long long i = ((long long)blockIdx.x * kBlock + threadIdx.x) / 2;
+  if (i >= n) return;                   // a whole pair
+  const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
+  const PairRanks<T> ranks{fm, Pair()};
+  T vk[kMaxW] = {}, vl[kMaxW] = {}, vs[kMaxW] = {};
+  const int len = chain_walk(fm, wv[i], W, k[i], l[i], s[i], valid[i] != 0,
+                             is_back != 0, stop_s != nullptr,
+                             stop_s ? stop_s[i] : (T)0, vk, vl, vs, ranks);
   const size_t o = (size_t)i * W;
-  ln[i] = chain_walk(fm, wv[i], W, k[i], l[i], s[i], valid[i] != 0,
-                     is_back != 0, stop_s ? stop_s + i : nullptr, ck + o,
-                     cl + o, cs + o);
+  const int t = ranks.p.t;
+  FM_UNROLL
+  for (int r = 0; r < (kMaxW + 1) / 2; ++r) {
+    const int col = t + 2 * r;
+    if (col < W) {
+      ck[o + col] = pick(vk, col);
+      cl[o + col] = pick(vl, col);
+      cs[o + col] = pick(vs, col);
+    }
+  }
+  if (t == 0) ln[i] = len;
 }
 
 template <typename T>
-__global__ void fm_inv_psi_walk_kernel(
-    const long long* __restrict__ occ, long long n_rows,
+__global__ void __launch_bounds__(kBlock) fm_inv_psi_walk_kernel(
+    const uint32_t* __restrict__ rows, long long n_rows,
     const T* __restrict__ L2, long long primary, int fill_oob,
     const T* __restrict__ kk, const T* __restrict__ steps,
     const uint8_t* __restrict__ alive, int n_steps, long long mask,
     T* __restrict__ kk_out, T* __restrict__ steps_out,
     uint8_t* __restrict__ alive_out, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long i = ((long long)blockIdx.x * kBlock + threadIdx.x) / 2;
   if (i >= n) return;
-  const Fm<T> fm = make_fm(occ, n_rows, L2, primary, fill_oob);
+  const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
+  const PairPieces<T> pieces{fm, Pair()};
   T k = kk[i], st = steps[i];
   bool a = alive[i] != 0;
-  inv_psi_walk(fm, k, st, a, n_steps, mask);
-  kk_out[i] = k;
-  steps_out[i] = st;
-  alive_out[i] = a ? 1 : 0;
+  inv_psi_walk(fm, k, st, a, n_steps, mask, pieces);
+  if (pieces.p.t == 0) {
+    kk_out[i] = k;
+    alive_out[i] = a ? 1 : 0;
+  } else {
+    steps_out[i] = st;
+  }
 }
 
-unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
+unsigned blocks_for(long long threads) {
+  return (unsigned)((threads + kBlock - 1) / kBlock);
 }
 
 template <typename T>
@@ -339,44 +604,47 @@ int launch_extend_sel(const long long* occ, long long n_rows, const void* L2,
                       long long primary, int fill_oob, const void* ik,
                       const int* c, int is_back, void* out, long long n,
                       void* stream) {
-  fm_extend_sel_kernel<T><<<blocks_for(n), kThreads, 0,
-                            (cudaStream_t)stream>>>(
+  fm_extend_sel_kernel<T><<<(unsigned)((n + kExtendBlock - 1) /
+                                        kExtendBlock),
+                            kExtendBlock, 0, (cudaStream_t)stream>>>(
       occ, n_rows, (const T*)L2, primary, fill_oob, (const T*)ik, c, is_back,
       (T*)out, n);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_chain_walk(const long long* occ, long long n_rows, const void* L2,
+int launch_chain_walk(const uint32_t* rows, long long n_rows, const void* L2,
                       long long primary, int fill_oob, const long long* wv,
                       const void* k, const void* l, const void* s,
                       const uint8_t* valid, const void* stop_s, int is_back,
                       int W, void* ck, void* cl, void* cs, int* ln,
                       long long n, void* stream) {
-  fm_chain_walk_kernel<T><<<blocks_for(n), kThreads, 0,
-                            (cudaStream_t)stream>>>(
-      occ, n_rows, (const T*)L2, primary, fill_oob, wv, (const T*)k,
-      (const T*)l, (const T*)s, valid, (const T*)stop_s, is_back, W, (T*)ck,
-      (T*)cl, (T*)cs, ln, n);
+  fm_chain_walk_kernel<T>
+      <<<blocks_for(2 * n), kBlock, 0, (cudaStream_t)stream>>>(
+          rows, n_rows, (const T*)L2, primary, fill_oob, wv, (const T*)k,
+          (const T*)l, (const T*)s, valid, (const T*)stop_s, is_back, W,
+          (T*)ck, (T*)cl, (T*)cs, ln, n);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_inv_psi_walk(const long long* occ, long long n_rows, const void* L2,
-                        long long primary, int fill_oob, const void* kk,
-                        const void* steps, const uint8_t* alive, int n_steps,
-                        long long mask, void* kk_out, void* steps_out,
-                        uint8_t* alive_out, long long n, void* stream) {
-  fm_inv_psi_walk_kernel<T><<<blocks_for(n), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-      occ, n_rows, (const T*)L2, primary, fill_oob, (const T*)kk,
-      (const T*)steps, alive, n_steps, mask, (T*)kk_out, (T*)steps_out,
-      alive_out, n);
+int launch_inv_psi_walk(const uint32_t* rows, long long n_rows,
+                        const void* L2, long long primary, int fill_oob,
+                        const void* kk, const void* steps,
+                        const uint8_t* alive, int n_steps, long long mask,
+                        void* kk_out, void* steps_out, uint8_t* alive_out,
+                        long long n, void* stream) {
+  fm_inv_psi_walk_kernel<T>
+      <<<blocks_for(2 * n), kBlock, 0, (cudaStream_t)stream>>>(
+          rows, n_rows, (const T*)L2, primary, fill_oob, (const T*)kk,
+          (const T*)steps, alive, n_steps, mask, (T*)kk_out, (T*)steps_out,
+          alive_out, n);
   return (int)cudaGetLastError();
 }
 #else
-// The host loops run the lane routines lane by lane; a lane that would
-// trap on the card makes the call return -1.
+// The host loops run the lane routines lane by lane, each pair's ranks
+// and pieces one after the other; a lane that would trap on the card
+// makes the call return -1.
 template <typename F>
 int host_lanes(long long n, F lane) {
   try {
@@ -391,7 +659,7 @@ template <typename T>
 int host_extend_sel(const long long* occ, long long n_rows, const void* L2,
                     long long primary, int fill_oob, const void* ik,
                     const int* c, int is_back, void* out, long long n) {
-  const Fm<T> fm = make_fm(occ, n_rows, (const T*)L2, primary, fill_oob);
+  const FmRows<T> fm = make_fm(occ, n_rows, (const T*)L2, primary, fill_oob);
   const T* in = (const T*)ik;
   T* o = (T*)out;
   return host_lanes(n, [&](long long i) {
@@ -400,34 +668,57 @@ int host_extend_sel(const long long* occ, long long n_rows, const void* L2,
 }
 
 template <typename T>
-int host_chain_walk(const long long* occ, long long n_rows, const void* L2,
+int host_chain_walk(const uint32_t* rows, long long n_rows, const void* L2,
                     long long primary, int fill_oob, const long long* wv,
                     const void* k, const void* l, const void* s,
                     const uint8_t* valid, const void* stop_s, int is_back,
                     int W, void* ck, void* cl, void* cs, int* ln,
                     long long n) {
-  const Fm<T> fm = make_fm(occ, n_rows, (const T*)L2, primary, fill_oob);
+  const FmPacked<T> fm = make_fm(rows, n_rows, (const T*)L2, primary,
+                                 fill_oob);
   const T* stop = (const T*)stop_s;
+  const auto ranks = [&](T a, T b, T tk[4], T tl[4]) {
+    uint32_t cnt[4], pc;
+    occ_row(fm, a, cnt, pc);
+    for (int j = 0; j < 4; ++j) tk[j] = rank_of<T>(cnt[j], pc, j);
+    occ_row(fm, b, cnt, pc);
+    for (int j = 0; j < 4; ++j) tl[j] = rank_of<T>(cnt[j], pc, j);
+  };
   return host_lanes(n, [&](long long i) {
-    const size_t o = (size_t)i * W;
+    T vk[kMaxW], vl[kMaxW], vs[kMaxW];
     ln[i] = chain_walk(fm, wv[i], W, ((const T*)k)[i], ((const T*)l)[i],
                        ((const T*)s)[i], valid[i] != 0, is_back != 0,
-                       stop ? stop + i : nullptr, (T*)ck + o, (T*)cl + o,
-                       (T*)cs + o);
+                       stop != nullptr, stop ? stop[i] : (T)0, vk, vl, vs,
+                       ranks);
+    for (int j = 0; j < W; ++j) {
+      ((T*)ck)[i * W + j] = vk[j];
+      ((T*)cl)[i * W + j] = vl[j];
+      ((T*)cs)[i * W + j] = vs[j];
+    }
   });
 }
 
 template <typename T>
-int host_inv_psi_walk(const long long* occ, long long n_rows, const void* L2,
+int host_inv_psi_walk(const uint32_t* rows, long long n_rows, const void* L2,
                       long long primary, int fill_oob, const void* kk,
                       const void* steps, const uint8_t* alive, int n_steps,
                       long long mask, void* kk_out, void* steps_out,
                       uint8_t* alive_out, long long n) {
-  const Fm<T> fm = make_fm(occ, n_rows, (const T*)L2, primary, fill_oob);
+  const FmPacked<T> fm = make_fm(rows, n_rows, (const T*)L2, primary,
+                                 fill_oob);
+  const auto pieces = [&](long long row, int off, uint32_t& pc, int& code) {
+    pc = 0;
+    code = 0;
+    for (int p = 0; p < kPsiPieces; ++p) {
+      int cp;
+      pc += rank_piece(rows, row, p, kPsiPieces, off, &cp);
+      code += cp;
+    }
+  };
   return host_lanes(n, [&](long long i) {
     T k = ((const T*)kk)[i], st = ((const T*)steps)[i];
     bool a = alive[i] != 0;
-    inv_psi_walk(fm, k, st, a, n_steps, mask);
+    inv_psi_walk(fm, k, st, a, n_steps, mask, pieces);
     ((T*)kk_out)[i] = k;
     ((T*)steps_out)[i] = st;
     alive_out[i] = a ? 1 : 0;
@@ -437,11 +728,13 @@ int host_inv_psi_walk(const long long* occ, long long n_rows, const void* L2,
 
 }  // namespace
 
-// Every entry takes the index as (occ rows, row count, L2 pointer in the
+// Every entry takes the index as (rows, row count, L2 pointer in the
 // index type, primary, fill_oob) and idx64 = 1 for an int64_t index type,
-// 0 for int32_t.  Lane arrays are contiguous: ik / out (n, 3), c (n,)
-// int32, wv (n,) int64 window words, valid / alive one byte a lane, ck /
-// cl / cs (n, W), stop_s null or (n,).
+// 0 for int32_t.  The extension's rows are the (n_rows, 12) int64 table
+// (DeviceFMIndex.occ_rows), the walks' the (n_rows, 16) packed table
+// (DeviceFMIndex.occ_packed).  Lane arrays are contiguous: ik / out (n,
+// 3), c (n,) int32, wv (n,) int64 window words, valid / alive one byte a
+// lane, ck / cl / cs (n, W), stop_s null or (n,).
 #ifdef __CUDACC__
 extern "C" int fm_extend_sel_launch(const long long* occ, long long n_rows,
                                     const void* L2, long long primary,
@@ -457,7 +750,7 @@ extern "C" int fm_extend_sel_launch(const long long* occ, long long n_rows,
                                             stream);
 }
 
-extern "C" int fm_chain_walk_launch(const long long* occ, long long n_rows,
+extern "C" int fm_chain_walk_launch(const uint32_t* rows, long long n_rows,
                                     const void* L2, long long primary,
                                     int fill_oob, const long long* wv,
                                     const void* k, const void* l,
@@ -466,18 +759,18 @@ extern "C" int fm_chain_walk_launch(const long long* occ, long long n_rows,
                                     void* ck, void* cl, void* cs, int* ln,
                                     long long n, int idx64, void* stream) {
   if (n <= 0) return 0;
-  if (W < 1 || W > 10) return (int)cudaErrorInvalidValue;
-  return idx64 ? launch_chain_walk<int64_t>(occ, n_rows, L2, primary,
+  if (W < 1 || W > kMaxW) return (int)cudaErrorInvalidValue;
+  return idx64 ? launch_chain_walk<int64_t>(rows, n_rows, L2, primary,
                                             fill_oob, wv, k, l, s, valid,
                                             stop_s, is_back, W, ck, cl, cs,
                                             ln, n, stream)
-               : launch_chain_walk<int32_t>(occ, n_rows, L2, primary,
+               : launch_chain_walk<int32_t>(rows, n_rows, L2, primary,
                                             fill_oob, wv, k, l, s, valid,
                                             stop_s, is_back, W, ck, cl, cs,
                                             ln, n, stream);
 }
 
-extern "C" int fm_inv_psi_walk_launch(const long long* occ, long long n_rows,
+extern "C" int fm_inv_psi_walk_launch(const uint32_t* rows, long long n_rows,
                                       const void* L2, long long primary,
                                       int fill_oob, const void* kk,
                                       const void* steps, const uint8_t* alive,
@@ -486,11 +779,11 @@ extern "C" int fm_inv_psi_walk_launch(const long long* occ, long long n_rows,
                                       uint8_t* alive_out, long long n,
                                       int idx64, void* stream) {
   if (n <= 0) return 0;
-  return idx64 ? launch_inv_psi_walk<int64_t>(occ, n_rows, L2, primary,
+  return idx64 ? launch_inv_psi_walk<int64_t>(rows, n_rows, L2, primary,
                                               fill_oob, kk, steps, alive,
                                               n_steps, mask, kk_out,
                                               steps_out, alive_out, n, stream)
-               : launch_inv_psi_walk<int32_t>(occ, n_rows, L2, primary,
+               : launch_inv_psi_walk<int32_t>(rows, n_rows, L2, primary,
                                               fill_oob, kk, steps, alive,
                                               n_steps, mask, kk_out,
                                               steps_out, alive_out, n, stream);
@@ -514,36 +807,60 @@ extern "C" int fm_extend_sel_host(const long long* occ, long long n_rows,
                                           ik, c, is_back, out, n);
 }
 
-extern "C" int fm_chain_walk_host(const long long* occ, long long n_rows,
+extern "C" int fm_chain_walk_host(const uint32_t* rows, long long n_rows,
                                   const void* L2, long long primary,
                                   int fill_oob, const long long* wv,
                                   const void* k, const void* l, const void* s,
                                   const uint8_t* valid, const void* stop_s,
                                   int is_back, int W, void* ck, void* cl,
                                   void* cs, int* ln, long long n, int idx64) {
-  if (W < 1 || W > 10) return -1;
-  return idx64 ? host_chain_walk<int64_t>(occ, n_rows, L2, primary, fill_oob,
-                                          wv, k, l, s, valid, stop_s, is_back,
-                                          W, ck, cl, cs, ln, n)
-               : host_chain_walk<int32_t>(occ, n_rows, L2, primary, fill_oob,
-                                          wv, k, l, s, valid, stop_s, is_back,
-                                          W, ck, cl, cs, ln, n);
+  if (W < 1 || W > kMaxW) return -1;
+  return idx64 ? host_chain_walk<int64_t>(rows, n_rows, L2, primary,
+                                          fill_oob, wv, k, l, s, valid,
+                                          stop_s, is_back, W, ck, cl, cs, ln,
+                                          n)
+               : host_chain_walk<int32_t>(rows, n_rows, L2, primary,
+                                          fill_oob, wv, k, l, s, valid,
+                                          stop_s, is_back, W, ck, cl, cs, ln,
+                                          n);
 }
 
-extern "C" int fm_inv_psi_walk_host(const long long* occ, long long n_rows,
+extern "C" int fm_inv_psi_walk_host(const uint32_t* rows, long long n_rows,
                                     const void* L2, long long primary,
                                     int fill_oob, const void* kk,
                                     const void* steps, const uint8_t* alive,
                                     int n_steps, long long mask, void* kk_out,
                                     void* steps_out, uint8_t* alive_out,
                                     long long n, int idx64) {
-  return idx64 ? host_inv_psi_walk<int64_t>(occ, n_rows, L2, primary,
+  return idx64 ? host_inv_psi_walk<int64_t>(rows, n_rows, L2, primary,
                                             fill_oob, kk, steps, alive,
                                             n_steps, mask, kk_out, steps_out,
                                             alive_out, n)
-               : host_inv_psi_walk<int32_t>(occ, n_rows, L2, primary,
+               : host_inv_psi_walk<int32_t>(rows, n_rows, L2, primary,
                                             fill_oob, kk, steps, alive,
                                             n_steps, mask, kk_out, steps_out,
                                             alive_out, n);
+}
+
+// The ranks of packed rows, piece by piece: for each (row[j], off[j]), the
+// counts of quarter 0 plus the popcounts of `pieces` pieces (1 or 2),
+// summed as the walks' shuffles sum them, into out[4j..4j+3], and the sum
+// of the pieces' codes into code[j].  Returns -1 for another piece count.
+extern "C" int fm_rank_pieces_host(const uint32_t* rows, const long long* row,
+                                   const int* off, long long n, int pieces,
+                                   long long* out, int* code) {
+  if (pieces != 1 && pieces != 2) return -1;
+  for (long long j = 0; j < n; ++j) {
+    const Quarter c = load_quarter(rows, row[j], 0);
+    uint32_t pc = 0;
+    code[j] = 0;
+    for (int p = 0; p < pieces; ++p) {
+      int cp;
+      pc += rank_piece(rows, row[j], p, pieces, off[j], &cp);
+      code[j] += cp;
+    }
+    for (int b = 0; b < 4; ++b) out[4 * j + b] = rank_of<int64_t>(c.w[b], pc, b);
+  }
+  return 0;
 }
 #endif

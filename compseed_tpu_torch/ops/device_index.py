@@ -7,6 +7,11 @@ the block start, 4-7 the "hi" bitplane and 8-11 the "lo" bitplane of the
 bases per word.  Words are int64 tensors holding uint32 values (the
 convention of ``ops/bits.py``).  Counts and positions use int32 when
 they fit (seq_len + 1 < 2**31), else int64 (``idx_dtype``).
+
+Beside those rows the index holds ``occ_packed``, the same words in the
+layout that the chain-walk and inverse-Psi kernels read
+(``pack_occ_rows``); the plain versions and the extension kernel read
+``occ_rows``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from compseed_tpu_torch.index.fmindex import FMIndex
 @dataclass(frozen=True)
 class DeviceFMIndex:
     occ_rows: torch.Tensor    # (n_blocks+1, 12) int64, uint32 words
+    occ_packed: torch.Tensor  # (n_blocks+1, 16) int32: pack_occ_rows
     sa_sampled: torch.Tensor  # (n_sa,) idx dtype
     L2: torch.Tensor          # (5,) idx dtype
     pac_words: torch.Tensor   # (ceil(l_pac/16),) int64, uint32 words
@@ -72,6 +78,27 @@ def build_occ_rows(cp_occ: np.ndarray, bwt_words: np.ndarray) -> np.ndarray:
     return rows
 
 
+# occ_rows' columns in the order of pack_occ_rows' words 0-11: the counts,
+# then hi0 lo0 hi1 lo1 (one 16-byte quarter), then hi2 lo2 hi3 lo3
+PACKED_FROM = (0, 1, 2, 3, 4, 8, 5, 9, 6, 10, 7, 11)
+
+
+def pack_occ_rows(occ_rows: torch.Tensor) -> torch.Tensor:
+    """(n_rows, 12) int64 rows of uint32 words -> (n_rows, 16) int32 on the
+    same device, 64 bytes a row: words 0-3 the A/C/G/T checkpoint counts,
+    4-7 hi0, lo0, hi1, lo1, 8-11 hi2, lo2, hi3, lo3, 12-15 zero, each the
+    uint32 word reinterpreted as int32.  So the first 32-byte sector of a
+    row serves a rank at any block offset below 64, and the second is
+    needed only at offsets 64-127 (csrc/fm_walk.cu).  Built a column at a
+    time, so the temporaries stay one column wide."""
+    out = torch.zeros((occ_rows.shape[0], 16), dtype=torch.int32,
+                      device=occ_rows.device)
+    for j, src in enumerate(PACKED_FROM):
+        w = occ_rows[:, src]
+        out[:, j] = (w - ((w >> 31) << 32)).to(torch.int32)
+    return out
+
+
 def pack_pac_words(pac: np.ndarray, l_pac: int) -> np.ndarray:
     """View the on-disk 2-bit pac (4 bases/byte, first base in the high
     bits — _set_pac, FM_index/bntseq.c:229) as little-endian uint32
@@ -107,8 +134,9 @@ def from_arrays(occ_rows: np.ndarray, sa_sampled: np.ndarray,
     def up(a, dt):
         return torch.from_numpy(np.ascontiguousarray(a.astype(dt))).to(device)
 
+    occ = up(occ_rows, np.int64)
     return DeviceFMIndex(
-        occ_rows=up(occ_rows, np.int64),
+        occ_rows=occ, occ_packed=pack_occ_rows(occ),
         sa_sampled=up(sa_sampled, idx_dtype),
         L2=up(L2, idx_dtype),
         pac_words=up(pac_words, np.int64),

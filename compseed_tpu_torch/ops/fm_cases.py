@@ -1,7 +1,9 @@
 """Seeded lanes for checking the FM kernels (csrc/fm_walk.cu) against
 their plain versions (used by chip_smoke.py, tests/test_torch_cuda.py
 and tests/test_torch_fm_kernels.py).  Lanes that need the index are made
-on its own device by the plain versions."""
+on its own device by the plain versions.  ``random_index`` makes an index
+over a random BWT of any size on the card, for tables larger than its L2
+cache, with lanes for it from ``random_chain_lanes`` / ``random_sa_lanes``."""
 
 from __future__ import annotations
 
@@ -10,6 +12,10 @@ import torch
 
 from compseed_tpu_torch.ops import fm as tfm
 from compseed_tpu_torch.ops import seedscan as tss
+from compseed_tpu_torch.ops.bits import MASK32, popcount32
+from compseed_tpu_torch.ops.device_index import (DeviceFMIndex,
+                                                 build_occ_rows,
+                                                 pack_occ_rows)
 
 
 def garbage(dfi, n=None):
@@ -82,3 +88,100 @@ def sa_lanes(dfi, rng, n):
     alive = (kk & (dfi.sa_intv - 1)) != 0
     alive[::17] = False
     return kk, steps, alive
+
+
+# ---------------------------------------------------------------------------
+def random_index(n_bases: int, seed: int, device,
+                 sa_intv: int = 8) -> DeviceFMIndex:
+    """An index over a random BWT of ``n_bases`` bases (a multiple of 128),
+    made on ``device`` from a seeded ``torch.Generator``: random hi / lo
+    bit-plane words, the checkpoint counts by popcount and a cumulative
+    sum (the last row holds the totals and no planes), L2 from the totals
+    and a seeded primary.  int32 positions (n_bases < 2^31 - 1); no
+    suffix-array sample and no reference, which the walks do not read."""
+    if n_bases % 128 or not 0 < n_bases < 2**31 - 1:
+        raise ValueError(f"random_index: {n_bases} bases")
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nb = n_bases // 128
+    rows = torch.zeros((nb + 1, 12), dtype=torch.int64, device=dev)
+    rows[:nb, 4:12] = torch.randint(0, 2**32, (nb, 8), generator=gen,
+                                    device=dev, dtype=torch.int64)
+    hi, lo = rows[:nb, 4:8], rows[:nb, 8:12]
+    nh, nl = hi ^ MASK32, lo ^ MASK32
+    for b, (h, l_) in enumerate(((nh, nl), (nh, lo), (hi, nl), (hi, lo))):
+        torch.cumsum(popcount32(h & l_).sum(1), 0, out=rows[1:, b])
+    totals = rows[nb, 0:4]
+    L2 = torch.cat([totals.new_zeros(1), torch.cumsum(totals, 0)])
+    primary = int(torch.randint(1, n_bases, (1,), generator=gen, device=dev))
+    return DeviceFMIndex(
+        occ_rows=rows, occ_packed=pack_occ_rows(rows),
+        sa_sampled=torch.zeros(0, dtype=torch.int32, device=dev),
+        L2=L2.to(torch.int32), pac_words=torch.zeros(0, dtype=torch.int64,
+                                                     device=dev),
+        primary=primary, seq_len=n_bases, sa_intv=sa_intv,
+        l_pac=n_bases // 2, idx_dtype=np.int32)
+
+
+def random_index_rows_match_build(dfi, n_bases: int) -> bool:
+    """Whether ``random_index``'s rows over its first ``n_bases`` bases (a
+    multiple of 128) equal what ``build_occ_rows`` makes of the same
+    bases: the BWT codes decoded from the planes, packed 16 to a word,
+    and checkpoint counts summed from the codes on the host."""
+    nb = n_bases // 128
+    rows = dfi.occ_rows[:nb + 1].cpu().numpy().astype(np.uint32)
+    bit = np.arange(128) & 31
+    hi = (rows[:nb, 4 + (np.arange(128) >> 5)] >> bit) & 1
+    lo = (rows[:nb, 8 + (np.arange(128) >> 5)] >> bit) & 1
+    codes = (hi << 1 | lo).astype(np.uint32)             # (nb, 128)
+    words = (codes.reshape(nb, 8, 16) << (30 - 2 * np.arange(16, dtype=np.uint32))
+             ).sum(2, dtype=np.uint32)
+    per = np.stack([(codes == b).sum(1) for b in range(4)], 1)
+    cp = np.zeros((nb + 1, 4), np.uint64)
+    cp[1:] = np.cumsum(per, 0)
+    want = build_occ_rows(cp, words)
+    return bool(np.array_equal(want[:nb], rows[:nb])
+                and np.array_equal(want[nb, :4], rows[nb, :4]))
+
+
+def random_chain_lanes(dfi, gen, U: int, W: int, is_back: bool,
+                       stop: bool = False, clean: bool = False) -> tuple:
+    """Chain-walk arguments (fm, wv, W, k, l, s, valid) and kwargs for U
+    lanes over a ``random_index`` (or any index: only its size is read),
+    from ``gen`` (on the index's device): sizes log-uniform in [1, 2^20)
+    (at most the table's size), the searched coordinate x uniform with
+    x - 1 + s inside the table, the other one uniform; window codes with
+    about 1 % ambiguous; 95 % of the lanes valid; with ``stop``, stop_s
+    uniform in [1, 64).  With ``clean`` every lane is valid and no code
+    ambiguous, so that every lane takes W steps."""
+    dev, dt, n = dfi.device, dfi.dtype, dfi.seq_len
+
+    def unif(shape):
+        return torch.rand(shape, generator=gen, device=dev,
+                          dtype=torch.float64)
+
+    s = torch.exp2(unif(U) * min(20, n.bit_length() - 1)).floor().to(
+        torch.int64)
+    x = (unif(U) * (n + 2 - s)).floor().to(torch.int64)
+    y = (unif(U) * (n + 1)).floor().to(torch.int64)
+    k, l = (x, y) if is_back else (y, x)
+    bases = torch.randint(0, 4, (U, W), generator=gen, device=dev)
+    amb = unif((U, W)) < (0 if clean else 0.01)
+    bases = torch.where(amb, torch.randint(4, 8, (U, W), generator=gen,
+                                           device=dev), bases)
+    wv = (bases << (3 * torch.arange(W, device=dev))).sum(1)
+    valid = unif(U) < (1 if clean else 0.95)
+    kw = dict(is_back=is_back, stop_s=torch.randint(
+        1, 64, (U,), generator=gen, device=dev).to(dt) if stop else None)
+    return (dfi, wv, W, k.to(dt), l.to(dt), s.to(dt), valid), kw
+
+
+def random_sa_lanes(dfi, gen, N: int, n_steps: int) -> tuple:
+    """Inverse-Psi walk arguments (fm, kk, steps, alive, n_steps) and no
+    kwargs for N lanes over a ``random_index`` (or any index): positions
+    uniform in [0, seq_len], no steps yet, alive unless on a sampled
+    row."""
+    kk = torch.randint(0, dfi.seq_len + 1, (N,), generator=gen,
+                       device=dfi.device).to(dfi.dtype)
+    alive = (kk & (dfi.sa_intv - 1)) != 0
+    return (dfi, kk, torch.zeros_like(kk), alive, n_steps), {}

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (the DP with int32 and with int16 state
 on shared-memory rows and on the device-memory scratch, the fused
 decode + two-round DP, the launch probe; the FM kernels of
-csrc/fm_walk.cu on the bench index with int32 and int64 positions)
+csrc/fm_walk.cu on the bench index with int32 and int64 positions, and
+the walks on a random 2^24-base table at ragged lane counts)
 against their plain PyTorch versions, on the card; launches from worker
 threads and on a second card (that test skips unless two are visible);
 the seeder's first bench chunk with the FM kernels against the same with
@@ -587,6 +588,108 @@ def test_fm_kernels_from_a_worker_thread_on_card(dev, bench):
     for (kernel, plain, a, kw), g in zip(calls, got):
         for x, w in zip(g, _as_tuple(plain(*a, **kw))):
             assert torch.equal(x, w), _kernel_name(kernel)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_fm_walks_vs_plain_on_random_table_on_card(dev, dtype):
+    """The walks (a pair of threads a lane over the packed table) equal
+    their plain versions on a random 2^24-base table: one lane, a lane
+    count that fills no whole block, W in {1, 5, 8, 10} both ways with and
+    without stop_s; the inverse-Psi walk at 1 and 1,001 lanes over 1, 8
+    and 16 steps; one counted launch per call."""
+    import dataclasses
+
+    import numpy as np
+
+    from compseed_tpu_torch.ops import fm as tfm
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.fm_cases import (random_chain_lanes,
+                                                 random_index,
+                                                 random_sa_lanes)
+    dfi = random_index(1 << 24, 71, dev)
+    if dtype == "int64":
+        dfi = dataclasses.replace(dfi, idx_dtype=np.int64,
+                                  L2=dfi.L2.to(torch.int64))
+    gen = torch.Generator(device=dev).manual_seed(72)
+    n0 = dict(fm_cuda.LAUNCHES)
+    calls = 0
+    for U in (1, 1001):
+        for W in (1, 5, 8, 10):
+            for is_back in (False, True):
+                for stop in (False, True):
+                    a, kw = random_chain_lanes(dfi, gen, U, W, is_back, stop)
+                    got = fm_cuda.chain_walk(*a, **kw)
+                    want = tss._chain_walk_plain(*a, **kw)
+                    calls += 1
+                    for name, g, w in zip(("ck", "cl", "cs", "ln"), got,
+                                          want):
+                        assert torch.equal(g, w), (U, W, is_back, stop, name)
+        for n in (1, 8, 16):
+            a, _ = random_sa_lanes(dfi, gen, U, n)
+            for g, w in zip(fm_cuda.inv_psi_walk(*a), tfm._walk_plain(*a)):
+                assert torch.equal(g, w), (U, n)
+    torch.cuda.synchronize()
+    assert fm_cuda.LAUNCHES["fm_chain_walk_kernel"] == \
+        n0["fm_chain_walk_kernel"] + calls
+    assert fm_cuda.LAUNCHES["fm_inv_psi_walk_kernel"] == \
+        n0["fm_inv_psi_walk_kernel"] + 6
+
+
+def test_fm_walks_non_stepping_lanes_read_nothing_on_card(dev, bench):
+    """Without fill_oob, lanes that do not step (invalid, ambiguous at the
+    first base, or not alive) keep their state, however far outside the
+    table it points: the walks read no row for them, so nothing traps."""
+    import numpy as np
+
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops.fm_cases import garbage, pack
+    for dtype in ("int32", "int64"):
+        dfi = _bench_index(bench, dev, dtype)
+        g = torch.from_numpy(garbage(dfi, 4096)).to(dev).to(dfi.dtype)
+        W = 8
+        bases = np.random.default_rng(64).integers(0, 4, (4096, W))
+        bases[::2, 0] = 5
+        wv = torch.from_numpy(pack(bases)).to(dev)
+        valid = torch.arange(4096, device=dev) % 2 == 0
+        ck, cl, cs, ln = fm_cuda.chain_walk(dfi, wv, W, g, g.flip(0),
+                                            torch.full_like(g, 9), valid,
+                                            is_back=True)
+        kk, steps, alive = fm_cuda.inv_psi_walk(
+            dfi, g, torch.zeros_like(g), torch.zeros_like(valid), 5)
+        torch.cuda.synchronize()
+        assert not ln.any()
+        assert torch.equal(ck, g[:, None].expand(-1, W))
+        assert torch.equal(cl, g.flip(0)[:, None].expand(-1, W))
+        assert (cs == 9).all()
+        assert torch.equal(kk, g) and not steps.any() and not alive.any()
+
+
+def test_replicate_index_carries_packed_table_on_card(dev, bench):
+    """replicate_index copies occ_packed to the replica's device with the
+    other tables, and the walks run there on it."""
+    import numpy as np
+
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.ops.fm_cases import intervals, pack, windows
+    from compseed_tpu_torch.parallel.mesh import replicate_index
+    host = to_device(bench[0], torch.device("cpu"))
+    rep = replicate_index([dev], host)[dev]
+    assert rep.occ_packed.device == dev and rep.occ_rows.device == dev
+    assert torch.equal(rep.occ_packed.cpu(), host.occ_packed)
+    rng = np.random.default_rng(65)
+    ik = intervals(host, rng, 2048, depth=10)
+    wv = torch.from_numpy(pack(windows(rng, 2048, 5)))
+    valid = torch.ones(2048, dtype=torch.bool)
+    a = (wv, 5, ik[:, 0].contiguous(), ik[:, 1].contiguous(),
+         ik[:, 2].contiguous(), valid)
+    want = tss._chain_walk_plain(host, *a)
+    got = fm_cuda.chain_walk(rep, *(x.to(dev) if torch.is_tensor(x) else x
+                                    for x in a))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(

@@ -11,6 +11,14 @@ index types over the ``micro`` and ``tiny`` fixture indexes:
   fm_inv_psi_walk_kernel vs ops/fm._walk, compseed_tpu's inv_psi_batch
                          stepped as sa_batch_compact steps it.
 
+The walks' lane code reads the packed occ table (device_index.
+pack_occ_rows) and ranks a row in one piece or two, one a thread of its
+lane's pair on the card; the host loops add the pieces as the card's
+shuffles do.  So also: the packed table against the int64 rows, both
+piece counts' ranks against rank4 at every block offset, and the walks' host loops against
+their plain versions over a random index (fm_cases.random_index, whose
+rows are checked against build_occ_rows).
+
 Also: the wrappers' input checks, that the entry points take a plain
 version for CPU tensors only, and chain_scan's ``report_rounds``
 histogram against the JAX package's.  The kernels themselves are held to
@@ -38,9 +46,12 @@ from compseed_tpu_torch import convert
 from compseed_tpu_torch.ops import fm as tfm
 from compseed_tpu_torch.ops import fm_cuda
 from compseed_tpu_torch.ops import seedscan as tss
-from compseed_tpu_torch.ops.device_index import to_device
+from compseed_tpu_torch.ops.device_index import pack_occ_rows, to_device
 from compseed_tpu_torch.ops.fm_cases import (garbage, intervals, pack,
-                                             sa_lanes, windows)
+                                             random_chain_lanes, random_index,
+                                             random_index_rows_match_build,
+                                             random_sa_lanes, sa_lanes,
+                                             windows)
 
 # the port's CPU programs are many small operations: one intra-op thread
 # is as fast, and test workers side by side do not fight over the cores
@@ -66,8 +77,9 @@ def host(tmp_path_factory):
         [p, p, p, p, p, p, i, i, p, p, p, p, ll, i]
     lib.fm_inv_psi_walk_host.argtypes = index + \
         [p, p, p, i, ll, p, p, p, ll, i]
+    lib.fm_rank_pieces_host.argtypes = [p, p, p, ll, i, p, p]
     for fn in (lib.fm_extend_sel_host, lib.fm_chain_walk_host,
-               lib.fm_inv_psi_walk_host):
+               lib.fm_inv_psi_walk_host, lib.fm_rank_pieces_host):
         fn.restype = i
     return lib
 
@@ -92,10 +104,12 @@ def _np_dt(td):
     return np.int64 if td.dtype == torch.int64 else np.int32
 
 
-def _index_args(td):
-    """The host entries' index arguments; the arrays stay referenced by the
+def _index_args(td, packed=False):
+    """The host entries' index arguments: the int64 rows (the extension)
+    or the packed rows (the walks); the arrays stay referenced by the
     returned tuple's first element."""
-    occ = np.ascontiguousarray(td.occ_rows.numpy())
+    occ = np.ascontiguousarray((td.occ_packed if packed else td.occ_rows)
+                               .numpy())
     L2 = np.ascontiguousarray(td.L2.numpy())
     return (occ, L2), [occ.ctypes.data, occ.shape[0], L2.ctypes.data,
                        td.primary, int(td.fill_oob)]
@@ -103,6 +117,135 @@ def _index_args(td):
 
 def _ptr(a):
     return None if a is None else a.ctypes.data
+
+
+# ---------------------------------------------------------------------------
+def _unpack(packed):
+    """The packed table's words 0-11 back in occ_rows' column order, as
+    int64 uint32 words."""
+    cols = [0, 1, 2, 3, 4, 6, 8, 10, 5, 7, 9, 11]
+    return packed[:, cols].to(torch.int64) & 0xFFFFFFFF
+
+
+def test_pack_occ_rows_roundtrips(idx):
+    """occ_packed holds occ_rows' words, reinterpreted as int32, in the
+    walks' order (counts; hi0 lo0 hi1 lo1; hi2 lo2 hi3 lo3; zeros), the
+    last row (counts only) included; a replica and a densified index keep
+    it."""
+    jd, td = idx
+    p = td.occ_packed
+    assert p.dtype == torch.int32 and p.shape == (td.occ_rows.shape[0], 16)
+    assert p.is_contiguous()
+    assert torch.equal(_unpack(p), td.occ_rows)
+    assert not p[:, 12:].any()
+    assert not td.occ_rows[-1, 4:].any() and td.occ_rows[-1, :4].any()
+    assert torch.equal(p[-1, :4].to(torch.int64) & 0xFFFFFFFF,
+                       td.occ_rows[-1, :4])
+    assert torch.equal(pack_occ_rows(td.occ_rows), p)
+    # the JAX index carried across builds it too
+    arrays = {k: np.asarray(getattr(jd, k)) for k in convert.ARRAY_FIELDS}
+    meta = {k: getattr(jd, k) for k in convert.META_FIELDS}
+    assert torch.equal(convert.from_jax_index(arrays, meta, CPU).occ_packed, p)
+    # words at and above 2^31 become negative int32
+    big = torch.tensor([[2**32 - 1, 2**31, 2**31 - 1, 0] + [2**31 + 5] * 8])
+    got = pack_occ_rows(big)
+    assert got[0, :4].tolist() == [-1, -2**31, 2**31 - 1, 0]
+    assert torch.equal(_unpack(got), big)
+
+
+@pytest.mark.parametrize("pieces", [1, 2])
+def test_rank_pieces_sum_to_rank4(host, pieces):
+    """The kernels' per-piece rank (rank_piece), summed over ``pieces``
+    pieces as the card's shuffles sum them, equals rank4 of the unpacked
+    row (ops/fm.py::_rank4) at every block offset 0-127 on random rows and
+    on fill_oob's all-ones row; the pieces' codes add up to the BWT code
+    at the offset."""
+    rng = np.random.default_rng(53 + pieces)
+    n_rows = 24
+    rows = rng.integers(0, 2**32, (n_rows, 12), dtype=np.int64)
+    rows[:, :4] = rng.integers(0, 2**32 - 128, (n_rows, 4))
+    rows[3] = 2**32 - 1                      # all ones, as fill_oob reads
+    rows[5, 4:] = 0
+    occ = torch.from_numpy(rows)
+    packed = np.ascontiguousarray(pack_occ_rows(occ).numpy())
+    row = np.repeat(np.arange(-1, n_rows), 128).astype(np.int64)
+    off = np.tile(np.arange(128), n_rows + 1).astype(np.int32)
+    out = np.zeros((len(row), 4), np.int64)
+    code = np.zeros(len(row), np.int32)
+    rc = host.fm_rank_pieces_host(packed.ctypes.data, row.ctypes.data,
+                                  off.ctypes.data, len(row), pieces,
+                                  out.ctypes.data, code.ctypes.data)
+    assert rc == 0
+    full = torch.cat([torch.full((1, 12), 2**32 - 1, dtype=torch.int64),
+                      occ])[torch.from_numpy(row + 1)]
+    o = torch.from_numpy(off.astype(np.int64))
+    want = tfm._rank4(full[:, 0:4], full[:, 4:8], full[:, 8:12], o,
+                      torch.int64)
+    assert np.array_equal(out, want.numpy())
+    assert np.array_equal(code, tfm._bwt_code(full[:, 4:8], full[:, 8:12],
+                                              o).numpy())
+
+
+@pytest.mark.parametrize("pieces", [0, 4])
+def test_rank_pieces_refuse_other_counts(host, pieces):
+    """A rank is cut into one piece or two, no other count (the walks'
+    threads a lane are constants of the source): the host entry refuses
+    the others and writes nothing."""
+    packed = np.zeros((1, 16), np.int32)
+    row, off = np.zeros(1, np.int64), np.full(1, 70, np.int32)
+    out, code = np.full((1, 4), 7, np.int64), np.full(1, 7, np.int32)
+    assert host.fm_rank_pieces_host(packed.ctypes.data, row.ctypes.data,
+                                    off.ctypes.data, 1, pieces,
+                                    out.ctypes.data, code.ctypes.data) == -1
+    assert (out == 7).all() and code[0] == 7
+
+
+@pytest.mark.parametrize("seed", [3, 4])
+def test_random_index_matches_build(seed):
+    """fm_cases.random_index (the card's tables larger than L2) makes the
+    rows build_occ_rows makes of its BWT, and L2 from the totals."""
+    dfi = random_index(1 << 16, seed, CPU)
+    assert dfi.occ_rows.shape == (513, 12) and dfi.dtype == torch.int32
+    assert random_index_rows_match_build(dfi, 1 << 16)
+    assert torch.equal(dfi.occ_packed, pack_occ_rows(dfi.occ_rows))
+    tot = dfi.occ_rows[-1, :4]
+    assert int(tot.sum()) == dfi.seq_len == 1 << 16
+    assert dfi.L2.tolist() == [0] + torch.cumsum(tot, 0).tolist()
+    assert 0 < dfi.primary < dfi.seq_len
+    other = random_index(1 << 16, seed + 10, CPU)
+    assert not torch.equal(other.occ_rows, dfi.occ_rows)
+    bad = dfi.occ_rows.clone()
+    bad[7, 5] ^= 1 << 9
+    assert not random_index_rows_match_build(
+        dataclasses.replace(dfi, occ_rows=bad), 1 << 16)
+
+
+@pytest.mark.parametrize("shape", ["fwd W=5", "back W=8 stop_s", "sa 8"])
+def test_host_walks_equal_plain_on_random_index(host, shape):
+    """The walks' host loops (every piece of every group) equal their plain
+    versions over a random index, with the lanes chip_smoke.py drives on
+    its table larger than L2."""
+    dfi = random_index(1 << 17, 11, CPU)
+    gen = torch.Generator().manual_seed(12)
+    if shape.startswith("sa"):
+        a, _ = random_sa_lanes(dfi, gen, 2000, 8)
+        want = tfm._walk_plain(*a)
+        rc, got = _host_walk(host, dfi, *(x.numpy() for x in a[1:4]), 8)
+        assert rc == 0
+        assert int(want[1].sum()) > 2000
+    else:
+        W = int(shape.split("W=")[1][0])
+        a, kw = random_chain_lanes(dfi, gen, 2000, W, shape.startswith(
+            "back"), stop="stop_s" in shape)
+        want = tss._chain_walk_plain(*a, **kw)
+        stop = kw["stop_s"]
+        rc, got = _host_chain(host, dfi, a[1].numpy(), W,
+                              *(x.numpy() for x in a[3:7]), kw["is_back"],
+                              None if stop is None else stop.numpy())
+        assert rc == 0
+        assert 0 < int(want[3].sum()) < 2000 * W
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.numpy())
 
 
 # ---------------------------------------------------------------------------
@@ -193,7 +336,7 @@ def test_extend_sel_child_out_of_range_faults(host, idx):
 
 # ---------------------------------------------------------------------------
 def _host_chain(host, td, wv, W, k, l, s, valid, is_back, stop_s):
-    keep, index = _index_args(td)
+    keep, index = _index_args(td, packed=True)
     dt = _np_dt(td)
     U = len(k)
     k, l, s = (np.ascontiguousarray(x, dt) for x in (k, l, s))
@@ -290,7 +433,7 @@ def test_chain_walk_non_stepping_lanes_read_nothing(host, idx):
 
 # ---------------------------------------------------------------------------
 def _host_walk(host, td, kk, steps, alive, n_steps):
-    keep, index = _index_args(td)
+    keep, index = _index_args(td, packed=True)
     dt = _np_dt(td)
     kk, steps = (np.ascontiguousarray(x, dt) for x in (kk, steps))
     alive = np.ascontiguousarray(alive, np.uint8)
