@@ -71,19 +71,22 @@ Phases, in order; any failure exits non-zero:
                 plain version, exact, timed (in a loop, and replayed
                 from a CUDA graph), with its bound; the calls of each kind
                 in one run of the first chunk (the chain walk's by
-                direction), which must build no packed occ table.  The
-                walks' builds (the port's; with --fm-old-source also an
-                earlier source) on the main path's forward and backward
-                chain walk and every inverse-Psi stage, exact, in turns;
-                a random
-                BWT of 2^30 bases built on the card (8,388,609 occ rows,
-                805 MB, more than 10x L2; its first 2^16 bases held to
-                build_occ_rows), the forward, backward and first
-                inverse-Psi shapes over it through the kernels and their
-                plain versions, exact, timed from cold L2, with their
-                bound, and every build in turns; one dependent step's
-                latency on both tables (32 lanes, W = 10 against W = 1;
-                cold on the large one); the bytes the packed table adds to each index;
+                direction), which must build no occ table.  The kernels'
+                builds (the port's; with --fm-old-source also an earlier
+                source) on the main path's forward and backward chain
+                walk and every inverse-Psi stage, exact, in turns; the
+                bench index's bytes on the card (one 64-byte-row occ
+                table, no larger copy while it loads); a random BWT of
+                2^30 bases built on the card straight into that table
+                (8,388,609 rows, 537 MB, more than 10x L2; its first 2^16
+                bases held to build_occ_rows; its bytes and its peak while
+                built), the forward, backward and first inverse-Psi shapes
+                and a 131,072-lane extension over it through the kernels
+                and their plain versions, exact, timed from cold L2, with
+                their bound, and every build in turns; one dependent
+                step's latency on both tables (32 lanes, W = 10 against
+                W = 1; cold on the large one); the forced run's captured
+                extensions through every build in turns;
                 torch.profiler over one chunk (launches, stream syncs,
                 async copies, the card's busy share: ``profile_chunk``,
                 which scripts/torch_seeding_ab.py --profile runs on other
@@ -150,10 +153,12 @@ csrc/bsw_extend.cu whose launcher has no pairs-per-block argument) the
 source is also built with the scratch variant's hoisted loads off and on,
 and the builds are timed in turns on the Q = 2048 pairs and on the main
 path's captured tiles, each held to the plain version first.  With
---fm-old-source FILE (an earlier csrc/fm_walk.cu, one thread a lane,
-whose walks read the int64 occ rows) that file is built too, and phase 4
-times its walks against the port's in turns.  Neither option changes
-what the port itself runs.
+--fm-old-source FILE (an earlier csrc/fm_walk.cu whose extension reads
+the (n_rows, 12) int64 occ rows and whose walks read the packed table)
+that file is built too, and phase 4 times its extension and its walks
+against the port's in turns, handing its extension int64 rows unpacked
+from the packed table for those calls only.  Neither option changes what
+the port itself runs.
 
 Prints the CLI phase's, the engine phase's and the mesh phase's numbers
 and the kernel table as one JSON line each, the card's nvidia-smi line,
@@ -209,8 +214,9 @@ INT32_OPS_PER_S = 67e12 / 4
 # h (2), row-max compare + two selects (3), E: sub, max0, sub, max (4),
 # F: sub, max0, sub, max (4)
 OPS_PER_CELL = 15
-# The FM kernels rank in occ rows of 12 words held in 8 bytes each: 4
-# checkpoint counts, then 4 hi and 4 lo bit-plane words of 32 bases
+# The FM kernels rank in occ rows of 12 uint32 words, 4 bytes each, as
+# the JAX layout and the packed table both store them: 4 checkpoint
+# counts, then 4 hi and 4 lo bit-plane words of 32 bases
 # (ops/device_index.py).  A rank at block offset o needs the count words of
 # the bases it reports and the hi / lo words up to word o >> 5, and the
 # bound counts each such (row, word) once per call, however often the
@@ -219,7 +225,7 @@ OPS_PER_CELL = 15
 # adds); per extension 20 more ($ adjustments, sizes, child select,
 # coordinates); per inverse-Psi step 10 more (base decode, L2 add,
 # sampled-row test).
-FM_WORD_BYTES = 8
+FM_WORD_BYTES = 4
 FM_OPS_WORD = 17
 FM_OPS_RANK = 4
 FM_OPS_EXTEND = 20
@@ -617,7 +623,7 @@ def fm_rank_need(dfi, x, bases):
     the block x >> 7 (a negative block wraps); a block beyond the table
     is fill_oob's all-ones row and reads nothing."""
     import torch
-    n = dfi.occ_rows.shape[0]
+    n = dfi.n_rows
     nw = ((x & 127) >> 5) + 1           # hi / lo words up to x's own
     blk = x >> 7
     inr = (blk >= -n) & (blk < n)
@@ -681,7 +687,7 @@ def fm_measure(key, call, reps: int = 20, flush=None) -> dict:
     from compseed_tpu_torch.ops import seedscan as ss
     a, kw = call
     dfi = a[0]
-    es = dfi.occ_rows.new_empty(0, dtype=dfi.dtype).element_size()
+    es = torch.empty(0, dtype=dfi.dtype).element_size()
     name = key[0]
     if name == "chain_walk":
         kernel, plain = fm_cuda.chain_walk, ss._chain_walk_plain
@@ -759,8 +765,8 @@ def fm_main_path(dev, seeder, queries, l32):
     kind in one run of the first chunk, and the calls of each kind that
     run makes) through each kernel and its plain version, the profiler's
     counts over that chunk, and round 1's live lanes before each round
-    (chain_scan's ``report_rounds``).  The run must build no packed occ
-    table (it is built once per index).  Returns (record, the captured
+    (chain_scan's ``report_rounds``).  The run must build no occ table
+    (it is built once per index).  Returns (record, the captured
     calls)."""
     import torch
     from compseed_tpu_torch.ops import device_index
@@ -777,7 +783,7 @@ def fm_main_path(dev, seeder, queries, l32):
     finally:
         device_index.pack_occ_rows = pack
     if packs:
-        raise SystemExit(f"a chunk built the packed occ table {len(packs)} "
+        raise SystemExit(f"a chunk built the occ table {len(packs)} "
                          f"time(s): it is built once per index")
     by_kind = {"/".join(map(str, k)): v for k, v in cap.counts.items()}
     log(f"[4] FM calls in one run of the first chunk, by kind: "
@@ -835,7 +841,8 @@ def fm_rows(fm_rec, row) -> list:
     large = fm_rec["redesign"]["large"]["calls"]
     for name, r in list(calls.items()) + list(ext.items()) + [
             ("chain_walk", large["forward"]), ("chain_walk", large["backward"]),
-            ("inv_psi_walk", large["inv_psi"])]:
+            ("inv_psi_walk", large["inv_psi"]),
+            ("extend_sel_batch", large["extend"])]:
         k = ("fm_chain_walk_kernel" if name.startswith("chain_walk") else
              "fm_inv_psi_walk_kernel" if name.startswith("inv_psi_walk")
              else "fm_extend_sel_kernel")
@@ -860,7 +867,9 @@ def fm_rows(fm_rec, row) -> list:
             "compseed_tpu/ops/fm.py:128 (XLA fusion, no Pallas)",
             fm_rec["rerun_launches"], errs["fm_extend_sel_kernel"],
             flat["ms"], flat["plain_ms"], flat,
-            **more("fm_extend_sel_kernel", flat)),
+            **more("fm_extend_sel_kernel", flat,
+                   batched=ext.get("rank3"),
+                   large_graph_ms=large["extend"]["graph_ms"])),
         row("fm_chain_walk_kernel",
             "compseed_tpu/ops/seedscan.py:1341 (XLA fusion, no Pallas)",
             fm_rec["main_launches"]["fm_chain_walk_kernel"],
@@ -877,26 +886,53 @@ def fm_rows(fm_rec, row) -> list:
 
 
 class OldFmBuild:
-    """The two walks of an earlier csrc/fm_walk.cu (--fm-old-source), whose
-    walks read the int64 ``occ_rows``: its C launchers take the arguments
-    of the port's (ops/fm_cuda._bind), with those rows in place of
-    ``occ_packed``.  Called on tensors that ``prep_walk`` prepared, as the
-    port's own wrappers (fm_cuda.chain_walk / inv_psi_walk) are in the
-    turns beside it."""
+    """The kernels of an earlier csrc/fm_walk.cu (--fm-old-source), whose
+    extension reads the (n_rows, 12) int64 occ rows and whose walks read
+    ``occ_packed``: its C launchers take the arguments of the port's
+    (ops/fm_cuda._bind).  The extension's int64 rows are unpacked from the
+    index's packed table (``unpack_occ_rows``) at its first call on that
+    table, for these comparisons only, and dropped by ``free()``.  Called
+    on tensors that ``prep_call`` prepared, as the port's own wrappers are
+    in the turns beside it."""
 
     def __init__(self, lib):
         from compseed_tpu_torch.ops import fm_cuda
         fm_cuda._bind(lib)
         self.lib = lib
+        self.rows64 = {}            # occ_packed's address -> int64 rows
 
-    def _index(self, fm):
-        return (fm.occ_rows.data_ptr(), fm.occ_rows.shape[0],
-                fm.L2.data_ptr(), int(fm.primary), int(bool(fm.fill_oob)))
+    def _index(self, fm, rows):
+        return (rows.data_ptr(), fm.n_rows, fm.L2.data_ptr(),
+                int(fm.primary), int(bool(fm.fill_oob)))
+
+    def _rows64(self, fm):
+        import numpy as np
+        import torch
+        from compseed_tpu_torch.ops.device_index import unpack_occ_rows
+        key = fm.occ_packed.data_ptr()
+        if key not in self.rows64:
+            self.rows64[key] = torch.from_numpy(unpack_occ_rows(
+                fm.occ_packed.cpu().numpy()).astype(np.int64)).to(fm.device)
+        return self.rows64[key]
+
+    def free(self):
+        """Drop the int64 rows made for the extension."""
+        self.rows64.clear()
 
     @staticmethod
     def _done(name, rc):
         if rc:
             raise SystemExit(f"{name}: CUDA error {rc}")
+
+    def extend_sel_batch(self, fm, ik, c, is_back):
+        import torch
+        out = torch.empty_like(ik)
+        self._done("fm_extend_sel_launch", self.lib.fm_extend_sel_launch(
+            *self._index(fm, self._rows64(fm)), ik.data_ptr(), c.data_ptr(),
+            int(bool(is_back)), out.data_ptr(), ik.shape[0],
+            int(fm.dtype == torch.int64),
+            torch.cuda.current_stream().cuda_stream))
+        return out
 
     def chain_walk(self, fm, wv, W, k, l, s, valid, is_back=False,
                    stop_s=None):
@@ -906,8 +942,8 @@ class OldFmBuild:
                       for _ in range(3))
         ln = torch.empty(U, dtype=torch.int32, device=k.device)
         self._done("fm_chain_walk_launch", self.lib.fm_chain_walk_launch(
-            *self._index(fm), wv.data_ptr(), k.data_ptr(), l.data_ptr(),
-            s.data_ptr(), valid.data_ptr(),
+            *self._index(fm, fm.occ_packed), wv.data_ptr(), k.data_ptr(),
+            l.data_ptr(), s.data_ptr(), valid.data_ptr(),
             None if stop_s is None else stop_s.data_ptr(), int(bool(is_back)),
             W, ck.data_ptr(), cl.data_ptr(), cs.data_ptr(), ln.data_ptr(), U,
             int(dt == torch.int64), torch.cuda.current_stream().cuda_stream))
@@ -918,7 +954,7 @@ class OldFmBuild:
         out = (torch.empty_like(kk), torch.empty_like(steps),
                torch.empty_like(alive))
         self._done("fm_inv_psi_walk_launch", self.lib.fm_inv_psi_walk_launch(
-            *self._index(fm), kk.data_ptr(), steps.data_ptr(),
+            *self._index(fm, fm.occ_packed), kk.data_ptr(), steps.data_ptr(),
             alive.data_ptr(), n_steps, fm.sa_intv - 1,
             *(x.data_ptr() for x in out), kk.shape[0],
             int(fm.dtype == torch.int64),
@@ -927,7 +963,7 @@ class OldFmBuild:
 
 
 def fm_walk_builds(old_source) -> dict:
-    """name -> the walks of one build, in the order of a turn: with
+    """name -> the FM kernels of one build, in the order of a turn: with
     ``old_source`` (an earlier fm_walk.cu) "old", built from that file,
     then "new", the port's own wrappers and library."""
     import ctypes as ct
@@ -940,13 +976,26 @@ def fm_walk_builds(old_source) -> dict:
     return {"old": OldFmBuild(ct.CDLL(so)), "new": fm_cuda}
 
 
-def prep_walk(key, call):
-    """A captured walk call's arguments as the wrapper hands them to the
-    launcher (index dtype, int64 window words, bool masks, contiguous):
-    (function name, args, kwargs)."""
+def free_builds(builds: dict) -> None:
+    """Drop what the builds made for one table (the old extension's int64
+    rows)."""
+    for b in builds.values():
+        if isinstance(b, OldFmBuild):
+            b.free()
+
+
+def prep_call(key, call):
+    """A captured FM call's arguments as the wrapper hands them to the
+    launcher (index dtype, int32 children, int64 window words, bool masks,
+    flat and contiguous): (function name, args, kwargs)."""
     import torch
     a, kw = call
     fm, dt = a[0], a[0].dtype
+    if key[0] == "extend_sel_batch":
+        fm, ik, c, is_back = a
+        return key[0], (fm, ik.to(dt).reshape(-1, 3).contiguous(),
+                        c.to(torch.int32).reshape(-1).contiguous(),
+                        is_back), {}
     if key[0] == "inv_psi_walk":
         fm, kk, steps, alive, n = a
         return key[0], (fm, kk.to(dt).contiguous(), steps.to(dt).contiguous(),
@@ -962,9 +1011,9 @@ def prep_walk(key, call):
 
 def fm_turns(builds: dict, cases: dict, reps: int = 20,
              flush=None) -> dict:
-    """Each case (name -> (key, call) of a walk) through each build: held
-    to the plain version exactly (max_abs_err per build; all must be 0),
-    then timed in turns (the builds in order, then in reverse): ms per
+    """Each case (name -> (key, call) of an FM call) through each build:
+    held to the plain version exactly (max_abs_err per build; all must be
+    0), then timed in turns (the builds in order, then in reverse): ms per
     call in a loop of calls and ms per launch on the card alone
     (launch_ms, with ``flush`` from cold L2).  name -> {build:
     {max_abs_err, loop_ms, graph_ms}}."""
@@ -973,15 +1022,19 @@ def fm_turns(builds: dict, cases: dict, reps: int = 20,
     import torch
     from compseed_tpu_torch.ops import fm as dfm
     from compseed_tpu_torch.ops import seedscan as ss
+    plains = {"chain_walk": ss._chain_walk_plain,
+              "inv_psi_walk": dfm._walk_plain,
+              "extend_sel_batch": dfm._extend_sel_plain}
     order = list(builds) + list(builds)[::-1]
     out = {}
     for name, (key, call) in cases.items():
-        fn, a, kw = prep_walk(key, call)
-        plain = ss._chain_walk_plain if fn == "chain_walk" else dfm._walk_plain
-        want = plain(*a, **kw)
+        fn, a, kw = prep_call(key, call)
+        want = plains[fn](*a, **kw)
+        want = want if isinstance(want, tuple) else (want,)
         rec = {}
         for b, build in builds.items():
             got = getattr(build, fn)(*a, **kw)
+            got = got if isinstance(got, tuple) else (got,)
             torch.cuda.synchronize()
             rec[b] = dict(max_abs_err=max(err(g, w) for g, w in
                                           zip(got, want)),
@@ -1031,59 +1084,83 @@ def fm_latency(builds: dict, dfi, flush=None) -> dict:
 
 LARGE_BASES = 1 << 30      # the random table larger than L2: 8,388,609 rows
 LARGE_SEED = 808
+LARGE_EXTEND_LANES = 131072
 
 
-def fm_redesign(dev, builds: dict, calls: dict, dfi) -> dict:
-    """The walks' builds against each other and the bound.  (b) The main
-    path's captured forward and backward chain walk and every inverse-Psi
-    stage through every build in turns, L2 warm as in a chunk (the bench
-    table is 3 MB).  (c) A random BWT of 2^30 bases on the card
-    (fm_cases.random_index; its first 2^16 bases held to build_occ_rows):
-    the forward and backward shapes and the first inverse-Psi stage,
-    uniform positions, log-uniform sizes, 1 % ambiguous codes, stop_s on
-    the backward shape, through the port's kernels and their plain
-    versions (fm_measure: exact, timed, bound by fm_rank_need) and every
-    build in turns, each launch from cold L2 (l2_flush), as on an index
-    that L2 cannot hold.  (d) The latency of one dependent step on both
-    tables (fm_latency; cold on the large one).  Also the bytes the packed
-    table adds to each index (torch.cuda.memory_allocated around
-    pack_occ_rows)."""
+def index_bytes(make) -> tuple:
+    """(index, record) for ``make()``, an index built on the card: its bytes
+    there (torch.cuda.memory_allocated around the call), its occ table's
+    bytes and rows, and the peak above what it keeps while it was built.
+    Fails unless the index holds one occ table of 64 bytes a row and its
+    build never held as much again as half an int64 copy of the rows
+    would add (32 B a row)."""
+    import dataclasses
+
     import torch
-    from compseed_tpu_torch.ops.device_index import pack_occ_rows
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    d = make()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - m0
+    extra = torch.cuda.max_memory_allocated() - m0 - grown
+    occ = [f.name for f in dataclasses.fields(d) if f.name.startswith("occ")]
+    rec = dict(rows=d.n_rows, occ_bytes=d.occ_packed.untyped_storage()
+               .nbytes(), index_bytes=grown, load_peak_extra=extra)
+    if occ != ["occ_packed"] or rec["occ_bytes"] != 64 * d.n_rows:
+        raise SystemExit(f"the index holds {occ}, {rec['occ_bytes']} B: "
+                         f"expected one occ table of 64 B a row")
+    if extra >= 32 * d.n_rows:
+        raise SystemExit(f"building the index held {extra} B more than it "
+                         f"keeps: as much as an int64 copy of its rows")
+    return d, rec
+
+
+def fm_redesign(dev, builds: dict, calls: dict, dfi, fm_host) -> dict:
+    """The FM kernels' builds against each other and the bound.  (a) The
+    bench index's bytes (index_bytes around to_device of ``fm_host``).
+    (b) The main path's captured forward and backward chain walk and every
+    inverse-Psi stage through every build in turns, L2 warm as in a chunk
+    (the bench table is 2 MB).  (c) A random BWT of 2^30 bases built on
+    the card (fm_cases.random_index, through index_bytes; its first 2^16
+    bases held to build_occ_rows): the forward and backward shapes, the
+    first inverse-Psi stage and a LARGE_EXTEND_LANES-lane backward
+    extension, uniform positions, log-uniform sizes, 1 % ambiguous codes,
+    stop_s on the backward shape, through the port's kernels and their
+    plain versions (fm_measure: exact, timed, bound by fm_rank_need) and
+    every build in turns, each launch from cold L2 (l2_flush), as on an
+    index that L2 cannot hold.  (d) The latency of one dependent step on
+    both tables (fm_latency; cold on the large one)."""
+    import torch
+    from compseed_tpu_torch.ops.device_index import to_device
     from compseed_tpu_torch.ops.fm_cases import (random_chain_lanes,
+                                                 random_extend_lanes,
                                                  random_index,
                                                  random_index_rows_match_build,
                                                  random_sa_lanes)
-
-    def packed_bytes(d):
-        torch.cuda.synchronize()
-        m0 = torch.cuda.memory_allocated()
-        p = pack_occ_rows(d.occ_rows)
-        torch.cuda.synchronize()
-        grown = torch.cuda.memory_allocated() - m0
-        if not torch.equal(p, d.occ_packed):
-            raise SystemExit("pack_occ_rows disagrees with the index's table")
-        return grown
-
+    bench_copy, bench_bytes = index_bytes(lambda: to_device(fm_host, dev))
+    if not torch.equal(bench_copy.occ_packed, dfi.occ_packed):
+        raise SystemExit("to_device made another occ table than the seeder's")
+    del bench_copy
     main = {"forward": (("chain_walk", False), calls[("chain_walk", False)]),
             "backward": (("chain_walk", True), calls[("chain_walk", True)])}
     main.update({f"inv_psi n={k[1]}": (k, calls[k])
                  for k in sorted(k for k in calls if k[0] == "inv_psi_walk")})
-    rec = dict(builds=list(builds), packed_bytes=dict(bench=packed_bytes(dfi)))
+    rec = dict(builds=list(builds), index_bytes=dict(bench=bench_bytes))
     rec["bench_turns"] = fm_turns(builds, main)
     rec["bench_latency"] = fm_latency(builds, dfi)
-    log(f"[4] FM walks, main path's calls by build in turns: "
+    log(f"[4] FM kernels, main path's calls by build in turns: "
         f"{json.dumps(rec['bench_turns'])}; one dependent step: "
-        f"{json.dumps(rec['bench_latency'])}")
+        f"{json.dumps(rec['bench_latency'])}; bench index on the card: "
+        f"{json.dumps(bench_bytes)}")
 
     t0 = time.time()
-    big = random_index(LARGE_BASES, LARGE_SEED, dev)
-    torch.cuda.synchronize()
+    big, rec["index_bytes"]["large"] = index_bytes(
+        lambda: random_index(LARGE_BASES, LARGE_SEED, dev))
     built_s = time.time() - t0
     if not random_index_rows_match_build(big, 1 << 16):
         raise SystemExit("the random table's rows differ from "
                          "build_occ_rows' on its first 2^16 bases")
-    rec["packed_bytes"]["large"] = packed_bytes(big)
     gen = torch.Generator(device=dev).manual_seed(LARGE_SEED + 1)
     (_, wv, W, *_), _ = main["forward"][1]
     fwd = random_chain_lanes(big, gen, wv.shape[0], W, False)
@@ -1092,9 +1169,11 @@ def fm_redesign(dev, builds: dict, calls: dict, dfi) -> dict:
     first = min(k for k in calls if k[0] == "inv_psi_walk")
     kk = calls[first][0][1]
     psi = random_sa_lanes(big, gen, kk.shape[0], first[1])
+    ext = random_extend_lanes(big, gen, LARGE_EXTEND_LANES, True)
     cases = {"forward": (main["forward"][0], fwd),
              "backward": (main["backward"][0], bwd),
-             "inv_psi": (first, psi)}
+             "inv_psi": (first, psi),
+             "extend": (("extend_sel_batch", 2), ext)}
     flush = l2_flush(dev)
     large = {}
     for name, (key, call) in cases.items():
@@ -1102,20 +1181,19 @@ def fm_redesign(dev, builds: dict, calls: dict, dfi) -> dict:
         if large[name]["max_abs_err"]:
             raise SystemExit(f"{name} on the 2^30-base table: the kernel "
                              f"disagrees with its plain version")
-    rec["large"] = dict(bases=LARGE_BASES, rows=big.occ_rows.shape[0],
-                        occ_rows_bytes=big.occ_rows.numel() * 8,
+    rec["large"] = dict(bases=LARGE_BASES, rows=big.n_rows,
                         built_s=built_s, calls=large,
                         flush_ms=graph_time_ms(flush, 20, 5),
                         turns=fm_turns(builds, cases, flush=flush),
                         latency=fm_latency(builds, big, flush=flush))
-    del big, fwd, bwd, psi, cases, flush
+    free_builds(builds)
+    del big, fwd, bwd, psi, ext, cases, flush
     torch.cuda.empty_cache()
     rec["large"]["phase_s"] = time.time() - t0
-    log(f"[4] FM walks on a random 2^30-base table "
-        f"({rec['large']['rows']} rows, built in {built_s:.1f} s, packed "
-        f"{rec['packed_bytes']['large']} B; bench index packed "
-        f"{rec['packed_bytes']['bench']} B), each launch from cold L2: "
-        f"{json.dumps(rec['large'])}")
+    log(f"[4] FM kernels on a random 2^30-base table "
+        f"({rec['large']['rows']} rows, built in {built_s:.1f} s: "
+        f"{json.dumps(rec['index_bytes']['large'])}), each launch from "
+        f"cold L2: {json.dumps(rec['large'])}")
     return rec
 
 
@@ -2532,7 +2610,8 @@ def main() -> None:
         raise SystemExit(f"bwt_hit_pct / sal_merged_pct are {reuse}, "
                          f"expected {EXPECT_REUSE}")
     fm_rec, fm_calls = fm_main_path(dev, seeder, list(reads_arr[:CH]), l32)
-    fm_rec["redesign"] = fm_redesign(dev, fm_builds, fm_calls, seeder.dfi)
+    fm_rec["redesign"] = fm_redesign(dev, fm_builds, fm_calls, seeder.dfi,
+                                     fm)
     del fm_calls
     fm_rec["phase2_max_abs_err"] = fm_errs
     fm_rec["main_launches"] = {k: l32[k] for k in FM_KERNELS}
@@ -2630,18 +2709,26 @@ def main() -> None:
                          f"extension kernel: {lf}")
     fm_rec["rerun_launches"] = lf["fm_extend_sel_kernel"]
     fm_rec["extend_sel"] = {}
+    ext_calls = {}
     for key, call in ext_cap.calls.items():
         if key[0] != "extend_sel_batch":
             continue
         r = fm_measure(key, call)
         fm_rec["extend_sel"][f"rank{key[1]}"] = r
+        ext_calls[f"rank{key[1]}"] = (key, call)
         log(f"[4] rerun's extension {r['shape']}: fm_extend_sel_kernel "
-            f"max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms (plain "
+            f"max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms in a loop, "
+            f"{r['graph_ms']:.5f} ms replayed from a graph (plain "
             f"{r['plain_ms']:.3f}); {r['words']} occ words, bound "
             f"{r['bound_ms']:.6f} ms by {r['bound_by']}")
         if r["max_abs_err"]:
             raise SystemExit("fm_extend_sel_kernel disagrees with its plain "
                              "version on the rerun's lanes")
+    fm_rec["extend_turns"] = fm_turns(fm_builds, ext_calls)
+    free_builds(fm_builds)
+    del ext_calls
+    log(f"[4] rerun's extensions by build in turns: "
+        f"{json.dumps(fm_rec['extend_turns'])}")
     log(f"[4] forced overflow (GP_F={FORCED_GP_F}): per chunk (overflow, "
         f"GP_F after, rerun s) = {seen}; both chunks {forced_s:.1f} s; "
         f"launches {lf}")

@@ -3,8 +3,10 @@ package and the port.
 
 The JAX ``DeviceFMIndex`` is a dataclass of four arrays (occ_rows,
 sa_sampled, L2, pac_words) plus five meta fields.  Handed over as numpy
-arrays and a meta dict, they load into the port unchanged; ``to_arrays``
-is the inverse, so an index round-trips bit-exactly.
+arrays and a meta dict, they load into the port unchanged, apart from
+the occ rows, which the port holds packed (``device_index.
+pack_occ_rows``); ``to_arrays`` is the inverse, unpacking them, so an
+index round-trips bit-exactly.
 ``fmindex_from_jax_package`` does the same for the host-side ``FMIndex``
 (numpy arrays + reference metadata), with no disk round trip.
 """
@@ -16,8 +18,11 @@ import torch
 
 from compseed_tpu_torch.index.build import AmbHole, BntSeq, SeqAnn
 from compseed_tpu_torch.index.fmindex import FMIndex
-from compseed_tpu_torch.ops.device_index import DeviceFMIndex, from_arrays
+from compseed_tpu_torch.ops.device_index import (DeviceFMIndex, from_arrays,
+                                                 pack_occ_rows,
+                                                 unpack_occ_rows)
 
+# the JAX index's array fields; occ_rows is (n, 12) uint32 there
 ARRAY_FIELDS = ("occ_rows", "sa_sampled", "L2", "pac_words")
 META_FIELDS = ("primary", "seq_len", "sa_intv", "l_pac", "idx_dtype")
 
@@ -29,14 +34,15 @@ def from_jax_index(arrays: dict[str, np.ndarray], meta: dict,
         [k for k in META_FIELDS if k not in meta]
     if missing:
         raise KeyError(f"missing index fields: {missing}")
-    return from_arrays(*(np.asarray(arrays[k]) for k in ARRAY_FIELDS),
+    occ, *rest = (np.asarray(arrays[k]) for k in ARRAY_FIELDS)
+    return from_arrays(pack_occ_rows(occ), *rest,
                        **{k: meta[k] for k in META_FIELDS}, device=device)
 
 
 def to_arrays(dfi: DeviceFMIndex) -> tuple[dict[str, np.ndarray], dict]:
     """The port's index as JAX-layout numpy arrays (uint32 words) + meta."""
     arrays = dict(
-        occ_rows=dfi.occ_rows.cpu().numpy().astype(np.uint32),
+        occ_rows=unpack_occ_rows(dfi.occ_packed.cpu().numpy()),
         sa_sampled=dfi.sa_sampled.cpu().numpy(),
         L2=dfi.L2.cpu().numpy(),
         pac_words=dfi.pac_words.cpu().numpy().astype(np.uint32))

@@ -9,8 +9,8 @@
 // fm_extend_sel_kernel<T>
 //   Replaces compseed_tpu/ops/fm.py:128 extend_sel_batch (with _row_fetch
 //   :28, _rank4 :42 and _occ4_pair :75): the one-child bidirectional
-//   extension of a bi-interval (k, l, s) by base c.  One thread a lane,
-//   over the 12-word int64 occ rows.  Plain version:
+//   extension of a bi-interval (k, l, s) by base c: one step of the chain
+//   walk, so the same pair of threads a lane, one a row.  Plain version:
 //   compseed_tpu_torch/ops/fm.py::_extend_sel_plain.
 // fm_chain_walk_kernel<T>
 //   Replaces compseed_tpu/ops/seedscan.py:1341 _chain_walk: W <= 10 pure
@@ -36,19 +36,19 @@
 // check does: it never reads past the table.  A lane that does not step
 // reads nothing.
 //
-// What bounds them on Hopper.  A walk step ranks at one (inverse Psi) or
-// two (extension) data-dependent occ rows, and step j + 1 of a lane needs
+// What bounds them on Hopper.  A step ranks at one (inverse Psi) or two
+// (extension) data-dependent occ rows, and step j + 1 of a lane needs
 // step j's interval: each lane is a dependent chain of random reads, with
 // a few popcounts a step.  The bytes a call needs are a few kB to a few MB
 // (chip_smoke.py's fm_rank_need counts them), so the bound by HBM bytes is
 // microseconds; what decides is (a) how many L1 wavefronts and sectors
 // each rank costs, since a warp-wide load whose 32 threads hit 32 rows is
 // served a row at a time, (b) how many SMs have lanes, and (c) the
-// latency of W dependent reads, which nothing can overlap within a lane.  The first kernels (one
-// thread a lane, 12 scalar 8-byte loads of a 96-byte int64 row per rank,
-// blocks of 256) paid 12 wavefronts a row per rank, left 100 of 132 SMs
-// idle on the forward walk's 8,192 lanes and wrote their (U, W) outputs a
-// column at a time, stride W.  The design here:
+// latency of W dependent reads, which nothing can overlap within a lane.
+// The first kernels (one thread a lane, 12 scalar 8-byte loads of a
+// 96-byte int64 row per rank, blocks of 256) paid 12 wavefronts a row per
+// rank, left 100 of 132 SMs idle on the forward walk's 8,192 lanes and
+// wrote their outputs a column at a time, stride W or 3.  The design here:
 //   - rows are the packed table (ops/device_index.py::pack_occ_rows): 16
 //     uint32 words, 64 bytes, 64-byte aligned: quarter 0 (words 0-3) the
 //     A/C/G/T checkpoint counts, quarter 1 (4-7) hi0 lo0 hi1 lo1, quarter 2
@@ -58,30 +58,34 @@
 //     loads, so it costs two or three loads of at most two sectors; a
 //     rank may be cut into two pieces (rank_piece), one a plane quarter,
 //     whose popcounts, 8 bits a base in one word, add up to the rank;
-//   - both walks give a lane a pair of threads.  The chain walk's pair
-//     ranks the extension's two rows, one a thread, so both rows are read
-//     at once, and the pair exchanges the ranks by shuffles (both threads
-//     then hold both and step the same interval: control flow stays
-//     uniform in the pair); its W columns stay in registers until the
-//     walk ends, then thread t of the pair writes columns t, t + 2, ...,
-//     so a warp's stores cover contiguous runs of its lanes' rows.  The
-//     inverse-Psi walk's pair ranks one row in two pieces; the base code
-//     at the offset comes from the piece that holds its word, and the
-//     popcounts are added, by shuffles;
-//   - blocks of 64 threads: the forward walk's 8,192 lanes make 256
-//     blocks, every SM has lanes.
-// These sizes were chosen on the H100 (PERF.md): four threads a chain-walk
-// lane (two a row) step a lane faster, two run more lanes at once, and the
-// seeder's walks (65 forward calls of 8,192 lanes and 8 backward calls of
-// 196,608 lanes a chunk) take the least card time at two; a second thread
-// a row pays off for the inverse-Psi walk.  The latency of the dependent
-// chain stays: chip_smoke.py measures it (the chain walk at 32 lanes,
-// W = 1 against W = 10).
+//   - every kernel gives a lane a pair of threads.  An extension, alone
+//     or a step of the chain walk, ranks at two rows, one a thread, so
+//     both rows are read at once, and the pair exchanges the ranks by
+//     shuffles (both threads then hold both and step the same interval:
+//     control flow stays uniform in the pair); the chain walk's W columns
+//     stay in registers until the walk ends, then thread t of the pair
+//     writes columns t, t + 2, ... (the extension: words t and t + 2 of
+//     its three), so a warp's stores cover contiguous runs of its lanes'
+//     rows.  The inverse-Psi walk's pair ranks one row in two pieces; the
+//     base code at the offset comes from the piece that holds its word,
+//     and the popcounts are added, by shuffles;
+//   - blocks of 64 threads: the forward walk's and the exact rerun's
+//     8,192 lanes make 256 blocks, every SM has lanes.
+// The walks' sizes were chosen on the H100 (PERF.md): four threads a
+// chain-walk lane (two a row) step a lane faster, two run more lanes at
+// once, and the seeder's walks (65 forward calls of 8,192 lanes and 8
+// backward calls of 196,608 lanes a chunk) take the least card time at
+// two; a second thread a row pays off for the inverse-Psi walk.  The
+// extension takes the chain walk's pair: it is as fast as one thread a
+// lane on the exact rerun's 8,192-lane calls and slower on its L2-warm
+// 131,072-lane batches, where many lanes rank in the same rows.  The
+// latency of the dependent chain stays: chip_smoke.py measures it (the
+// chain walk at 32 lanes, W = 1 against W = 10).
 //
 // The lane arithmetic is shared between the card and a host build: the
-// walk loops take the ranks as a functor, which on the card is the pair's
-// shuffles and on the host a loop over the same pieces, so the CPU tests
-// run the arithmetic of every piece.
+// extension and the walk loops take the ranks as a functor, which on the
+// card is the pair's shuffles and on the host a loop over the same
+// pieces, so the CPU tests run the arithmetic of every piece.
 //
 // The launchers allocate nothing, launch on the caller's stream of the
 // calling thread's current device (the wrapper, ops/fm_cuda.py, makes the
@@ -163,12 +167,10 @@ FM_HD void fault() {
 #endif
 }
 
-// The index as a lane sees it.  Rows is `const long long*` for the
-// (n_rows, 12) int64 rows of uint32 words (the extension) or `const
-// uint32_t*` for the (n_rows, 16) packed rows (the walks).
-template <typename T, typename Rows>
-struct Fm {
-  Rows rows;
+// The index as a lane sees it: the (n_rows, 16) packed rows.
+template <typename T>
+struct FmPacked {
+  const uint32_t* rows;
   long long n_rows;
   T L2[5];
   long long primary;
@@ -176,14 +178,9 @@ struct Fm {
 };
 
 template <typename T>
-using FmRows = Fm<T, const long long*>;
-template <typename T>
-using FmPacked = Fm<T, const uint32_t*>;
-
-template <typename T, typename Rows>
-FM_HD Fm<T, Rows> make_fm(Rows rows, long long n_rows, const T* L2,
+FM_HD FmPacked<T> make_fm(const uint32_t* rows, long long n_rows, const T* L2,
                           long long primary, int fill_oob) {
-  Fm<T, Rows> fm;
+  FmPacked<T> fm;
   fm.rows = rows;
   fm.n_rows = n_rows;
   for (int i = 0; i < 5; ++i) fm.L2[i] = L2[i];
@@ -201,68 +198,13 @@ FM_HD long long row_of(long long n, bool fill_oob, long long k) {
   return -1;
 }
 
-// ---------------------------------------------------------------------------
-// The 12-word int64 rows (fm_extend_sel_kernel).
-
-struct Row {
-  uint32_t cnt[4], hi[4], lo[4];
-};
-
-template <typename T>
-FM_HD void fetch_row(const FmRows<T>& fm, long long k, Row& r) {
-  const long long i = row_of(fm.n_rows, fm.fill_oob, k);
-  if (i >= 0) {
-    const long long* p = fm.rows + i * 12;
-    for (int w = 0; w < 4; ++w) {
-      r.cnt[w] = (uint32_t)p[w];
-      r.hi[w] = (uint32_t)p[4 + w];
-      r.lo[w] = (uint32_t)p[8 + w];
-    }
-    return;
-  }
-  for (int w = 0; w < 4; ++w) r.cnt[w] = r.hi[w] = r.lo[w] = 0xFFFFFFFFu;
-}
-
-// Counts of each base among block positions 0..off inclusive, plus the
-// block's checkpoint counts (ops/fm.py::_rank4).
-template <typename T>
-FM_HD void rank4(const Row& r, int off, T out[4]) {
-  uint32_t c[4] = {0, 0, 0, 0};
-  for (int w = 0; w < 4; ++w) {
-    const int nb = off - 32 * w + 1;
-    if (nb <= 0) break;
-    const uint32_t mask = nb >= 32 ? 0xFFFFFFFFu : ((1u << nb) - 1u);
-    const uint32_t hm = r.hi[w] & mask, lm = r.lo[w] & mask;
-    const uint32_t nh = ~hm & mask, nl = ~lm & mask;
-    c[3] += popc(hm & lm);
-    c[2] += popc(hm & nl);
-    c[1] += popc(nh & lm);
-    c[0] += popc(nh & nl);
-  }
-  using U = typename Unsigned<T>::type;
-  for (int b = 0; b < 4; ++b) out[b] = wadd((T)(U)r.cnt[b], (T)c[b]);
-}
-
-// occ4 at k (bwt_occ4): k == -1 counts zero (ops/fm.py::occ4_batch).
-template <typename T>
-FM_HD void occ4(const FmRows<T>& fm, T k, T out[4]) {
-  if (k == (T)-1) {
-    out[0] = out[1] = out[2] = out[3] = 0;
-    return;
-  }
-  const T kk = (long long)k >= fm.primary ? wsub(k, (T)1) : k;
-  Row r;
-  fetch_row(fm, (long long)kk, r);
-  rank4(r, (int)((long long)kk & 127), out);
-}
-
 // The child c of bi-interval ik = (k, l, s) from occ4 at x - 1 (tk) and
 // x - 1 + s (tl), x = ik[fwd]: columns [fwd] the searched coordinate,
 // [bwd] the other one, [2] the size (ops/fm.py::_extend_sel_plain).
 // (The columns are chosen by selects, not by index, so that they stay
 // in registers.)
-template <typename T, typename Rows>
-FM_HD void child_of(const Fm<T, Rows>& fm, const T ik[3], int c,
+template <typename T>
+FM_HD void child_of(const FmPacked<T>& fm, const T ik[3], int c,
                     bool is_back, const T tk[4], const T tl[4], T out[3]) {
   const T x = is_back ? ik[0] : ik[1], y = is_back ? ik[1] : ik[0];
   const T s = ik[2];
@@ -280,22 +222,8 @@ FM_HD void child_of(const Fm<T, Rows>& fm, const T ik[3], int c,
   out[2] = sel4(sizes, c);
 }
 
-template <typename T>
-FM_HD void extend_sel(const FmRows<T>& fm, const T ik[3], int c, bool is_back,
-                      T out[3]) {
-  if (c < 0 || c > 3) {
-    fault();
-    return;
-  }
-  const T xm1 = wsub(is_back ? ik[0] : ik[1], (T)1);
-  T tk[4], tl[4];
-  occ4(fm, xm1, tk);
-  occ4(fm, wadd(xm1, ik[2]), tl);
-  child_of(fm, ik, c, is_back, tk, tl, out);
-}
-
 // ---------------------------------------------------------------------------
-// The packed rows (the walks).  A rank in a row is one piece, which holds
+// Ranks in the packed rows.  A rank in a row is one piece, which holds
 // both plane quarters (1 and 2), or two, piece p holding quarter 1 + p;
 // quarter 0, the checkpoint counts, is read beside them.
 
@@ -365,7 +293,7 @@ FM_HD uint32_t rank_piece(const uint32_t* rows, long long i, int piece,
 }
 
 // The rank of base b from the row's count and the pieces' summed
-// popcounts, in T (as rank4 adds them).
+// popcounts, in T (as ops/fm.py::_rank4 adds them).
 template <typename T>
 FM_HD T rank_of(uint32_t cnt, uint32_t pc, int b) {
   using U = typename Unsigned<T>::type;
@@ -396,6 +324,24 @@ FM_HD void occ_row(const FmPacked<T>& fm, T k, uint32_t cnt[4],
   const Quarter c = load_quarter(fm.rows, row, 0);
   for (int j = 0; j < 4; ++j) cnt[j] = c.w[j];
   pc = rank_piece(fm.rows, row, 0, 1, off, &code);
+}
+
+// The one-child extension of ik = (k, l, s) by base c (ops/fm.py::
+// extend_sel_batch): occ4 at x - 1 and x - 1 + s, x = ik[is_back ? 0 : 1],
+// by ranks(a, b, tk, tl), then child_of.  A child outside [0, 3] faults
+// before anything is read.
+FM_FUNCTOR_CALLER
+template <typename T, typename Ranks>
+FM_HD void extend_sel(const FmPacked<T>& fm, const T ik[3], int c,
+                      bool is_back, T out[3], const Ranks& ranks) {
+  if (c < 0 || c > 3) {
+    fault();
+    return;
+  }
+  const T xm1 = wsub(is_back ? ik[0] : ik[1], (T)1);
+  T tk[4], tl[4];
+  ranks(xm1, wadd(xm1, ik[2]), tk, tl);
+  child_of(fm, ik, c, is_back, tk, tl, out);
 }
 
 // W extensions of one lane over the 3-bit codes of window word wv; the
@@ -463,10 +409,9 @@ FM_HD void inv_psi_walk(const FmPacked<T>& fm, T& kk, T& steps, bool& alive,
 }
 
 #ifdef __CUDACC__
-constexpr int kBlock = 64;          // threads a block of the walks
-constexpr int kExtendBlock = 256;   // the extension, one thread a lane
+constexpr int kBlock = 64;          // threads a block
 
-// The pair of threads of this thread's lane (both walks): its index t in
+// The pair of threads of this thread's lane (every kernel): its index t in
 // the pair, the pair's mask within the warp, and the other thread's v.
 struct Pair {
   int t;
@@ -478,8 +423,9 @@ struct Pair {
   }
 };
 
-// ranks(a, b, tk, tl) of a chain-walk lane: thread 0 of the pair ranks at
-// a, thread 1 at b, and the two swap their counts and popcounts.
+// ranks(a, b, tk, tl) of an extension or a chain-walk lane: thread 0 of
+// the pair ranks at a, thread 1 at b, and the two swap their counts and
+// popcounts.
 template <typename T>
 struct PairRanks {
   const FmPacked<T>& fm;
@@ -524,21 +470,24 @@ __device__ T pick(const T v[kMaxW], int c) {
   return x;
 }
 
+// Both threads of a pair load the lane's ik (a broadcast); thread t
+// writes words t and t + 2 of its three.
 template <typename T>
-__global__ void fm_extend_sel_kernel(
-    const long long* __restrict__ occ, long long n_rows,
+__global__ void __launch_bounds__(kBlock) fm_extend_sel_kernel(
+    const uint32_t* __restrict__ rows, long long n_rows,
     const T* __restrict__ L2, long long primary, int fill_oob,
     const T* __restrict__ ik, const int* __restrict__ c, int is_back,
     T* __restrict__ out, long long n) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const FmRows<T> fm = make_fm(occ, n_rows, L2, primary, fill_oob);
+  const long long i = ((long long)blockIdx.x * kBlock + threadIdx.x) / 2;
+  if (i >= n) return;                   // a whole pair
+  const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
+  const PairRanks<T> ranks{fm, Pair()};
   const T in[3] = {ik[3 * i], ik[3 * i + 1], ik[3 * i + 2]};
   T o[3];
-  extend_sel(fm, in, c[i], is_back != 0, o);
-  out[3 * i] = o[0];
-  out[3 * i + 1] = o[1];
-  out[3 * i + 2] = o[2];
+  extend_sel(fm, in, c[i], is_back != 0, o, ranks);
+  const int t = ranks.p.t;
+  out[3 * i + t] = t ? o[1] : o[0];
+  if (t == 0) out[3 * i + 2] = o[2];
 }
 
 template <typename T>
@@ -600,15 +549,14 @@ unsigned blocks_for(long long threads) {
 }
 
 template <typename T>
-int launch_extend_sel(const long long* occ, long long n_rows, const void* L2,
+int launch_extend_sel(const uint32_t* rows, long long n_rows, const void* L2,
                       long long primary, int fill_oob, const void* ik,
                       const int* c, int is_back, void* out, long long n,
                       void* stream) {
-  fm_extend_sel_kernel<T><<<(unsigned)((n + kExtendBlock - 1) /
-                                        kExtendBlock),
-                            kExtendBlock, 0, (cudaStream_t)stream>>>(
-      occ, n_rows, (const T*)L2, primary, fill_oob, (const T*)ik, c, is_back,
-      (T*)out, n);
+  fm_extend_sel_kernel<T>
+      <<<blocks_for(2 * n), kBlock, 0, (cudaStream_t)stream>>>(
+          rows, n_rows, (const T*)L2, primary, fill_oob, (const T*)ik, c,
+          is_back, (T*)out, n);
   return (int)cudaGetLastError();
 }
 
@@ -655,15 +603,31 @@ int host_lanes(long long n, F lane) {
   return 0;
 }
 
+// ranks(a, b, tk, tl) on the host: the pair's two rows one after the
+// other.
 template <typename T>
-int host_extend_sel(const long long* occ, long long n_rows, const void* L2,
+struct HostRanks {
+  const FmPacked<T>& fm;
+  void operator()(T a, T b, T tk[4], T tl[4]) const {
+    uint32_t cnt[4], pc;
+    occ_row(fm, a, cnt, pc);
+    for (int j = 0; j < 4; ++j) tk[j] = rank_of<T>(cnt[j], pc, j);
+    occ_row(fm, b, cnt, pc);
+    for (int j = 0; j < 4; ++j) tl[j] = rank_of<T>(cnt[j], pc, j);
+  }
+};
+
+template <typename T>
+int host_extend_sel(const uint32_t* rows, long long n_rows, const void* L2,
                     long long primary, int fill_oob, const void* ik,
                     const int* c, int is_back, void* out, long long n) {
-  const FmRows<T> fm = make_fm(occ, n_rows, (const T*)L2, primary, fill_oob);
+  const FmPacked<T> fm = make_fm(rows, n_rows, (const T*)L2, primary,
+                                 fill_oob);
+  const HostRanks<T> ranks{fm};
   const T* in = (const T*)ik;
   T* o = (T*)out;
   return host_lanes(n, [&](long long i) {
-    extend_sel(fm, in + 3 * i, c[i], is_back != 0, o + 3 * i);
+    extend_sel(fm, in + 3 * i, c[i], is_back != 0, o + 3 * i, ranks);
   });
 }
 
@@ -677,13 +641,7 @@ int host_chain_walk(const uint32_t* rows, long long n_rows, const void* L2,
   const FmPacked<T> fm = make_fm(rows, n_rows, (const T*)L2, primary,
                                  fill_oob);
   const T* stop = (const T*)stop_s;
-  const auto ranks = [&](T a, T b, T tk[4], T tl[4]) {
-    uint32_t cnt[4], pc;
-    occ_row(fm, a, cnt, pc);
-    for (int j = 0; j < 4; ++j) tk[j] = rank_of<T>(cnt[j], pc, j);
-    occ_row(fm, b, cnt, pc);
-    for (int j = 0; j < 4; ++j) tl[j] = rank_of<T>(cnt[j], pc, j);
-  };
+  const HostRanks<T> ranks{fm};
   return host_lanes(n, [&](long long i) {
     T vk[kMaxW], vl[kMaxW], vs[kMaxW];
     ln[i] = chain_walk(fm, wv[i], W, ((const T*)k)[i], ((const T*)l)[i],
@@ -730,22 +688,22 @@ int host_inv_psi_walk(const uint32_t* rows, long long n_rows, const void* L2,
 
 // Every entry takes the index as (rows, row count, L2 pointer in the
 // index type, primary, fill_oob) and idx64 = 1 for an int64_t index type,
-// 0 for int32_t.  The extension's rows are the (n_rows, 12) int64 table
-// (DeviceFMIndex.occ_rows), the walks' the (n_rows, 16) packed table
-// (DeviceFMIndex.occ_packed).  Lane arrays are contiguous: ik / out (n,
+// 0 for int32_t.  The rows are the (n_rows, 16) packed table
+// (DeviceFMIndex.occ_packed), 64-byte aligned.  Lane arrays are
+// contiguous: ik / out (n,
 // 3), c (n,) int32, wv (n,) int64 window words, valid / alive one byte a
 // lane, ck / cl / cs (n, W), stop_s null or (n,).
 #ifdef __CUDACC__
-extern "C" int fm_extend_sel_launch(const long long* occ, long long n_rows,
+extern "C" int fm_extend_sel_launch(const uint32_t* rows, long long n_rows,
                                     const void* L2, long long primary,
                                     int fill_oob, const void* ik,
                                     const int* c, int is_back, void* out,
                                     long long n, int idx64, void* stream) {
   if (n <= 0) return 0;
-  return idx64 ? launch_extend_sel<int64_t>(occ, n_rows, L2, primary,
+  return idx64 ? launch_extend_sel<int64_t>(rows, n_rows, L2, primary,
                                             fill_oob, ik, c, is_back, out, n,
                                             stream)
-               : launch_extend_sel<int32_t>(occ, n_rows, L2, primary,
+               : launch_extend_sel<int32_t>(rows, n_rows, L2, primary,
                                             fill_oob, ik, c, is_back, out, n,
                                             stream);
 }
@@ -796,15 +754,15 @@ extern "C" const char* fm_cuda_error_name(int code) {
 #else
 // The same lanes on the host; each returns 0, or -1 where a lane would
 // trap on the card.
-extern "C" int fm_extend_sel_host(const long long* occ, long long n_rows,
+extern "C" int fm_extend_sel_host(const uint32_t* rows, long long n_rows,
                                   const void* L2, long long primary,
                                   int fill_oob, const void* ik, const int* c,
                                   int is_back, void* out, long long n,
                                   int idx64) {
-  return idx64 ? host_extend_sel<int64_t>(occ, n_rows, L2, primary, fill_oob,
-                                          ik, c, is_back, out, n)
-               : host_extend_sel<int32_t>(occ, n_rows, L2, primary, fill_oob,
-                                          ik, c, is_back, out, n);
+  return idx64 ? host_extend_sel<int64_t>(rows, n_rows, L2, primary,
+                                          fill_oob, ik, c, is_back, out, n)
+               : host_extend_sel<int32_t>(rows, n_rows, L2, primary,
+                                          fill_oob, ik, c, is_back, out, n);
 }
 
 extern "C" int fm_chain_walk_host(const uint32_t* rows, long long n_rows,

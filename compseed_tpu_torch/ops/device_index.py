@@ -1,17 +1,15 @@
 """Device-resident FM-index (port of compseed_tpu/ops/device_index.py).
 
-Same layout as the JAX package: one occ query reads ONE fused row of 12
-words per 128-base block — words 0-3 the A/C/G/T checkpoint counts at
-the block start, 4-7 the "hi" bitplane and 8-11 the "lo" bitplane of the
-2-bit BWT codes — and the forward reference stays 2-bit packed, 16
-bases per word.  Words are int64 tensors holding uint32 values (the
-convention of ``ops/bits.py``).  Counts and positions use int32 when
-they fit (seq_len + 1 < 2**31), else int64 (``idx_dtype``).
-
-Beside those rows the index holds ``occ_packed``, the same words in the
-layout that the chain-walk and inverse-Psi kernels read
-(``pack_occ_rows``); the plain versions and the extension kernel read
-``occ_rows``.
+One occ query reads ONE fused row per 128-base block: the A/C/G/T
+checkpoint counts at the block start and the "hi" and "lo" bitplanes of
+the 2-bit BWT codes.  The JAX package holds those rows as (n, 12) uint32
+(``build_occ_rows``: counts, hi0-hi3, lo0-lo3); the port holds one
+table, ``occ_packed``, the same words in 64-byte rows (``pack_occ_rows``),
+which the kernels and the plain versions read alike.  The forward
+reference stays 2-bit packed, 16 bases per word, in int64 tensors
+holding uint32 values (the convention of ``ops/bits.py``).  Counts and
+positions use int32 when they fit (seq_len + 1 < 2**31), else int64
+(``idx_dtype``).
 """
 
 from __future__ import annotations
@@ -26,7 +24,6 @@ from compseed_tpu_torch.index.fmindex import FMIndex
 
 @dataclass(frozen=True)
 class DeviceFMIndex:
-    occ_rows: torch.Tensor    # (n_blocks+1, 12) int64, uint32 words
     occ_packed: torch.Tensor  # (n_blocks+1, 16) int32: pack_occ_rows
     sa_sampled: torch.Tensor  # (n_sa,) idx dtype
     L2: torch.Tensor          # (5,) idx dtype
@@ -47,7 +44,12 @@ class DeviceFMIndex:
 
     @property
     def device(self) -> torch.device:
-        return self.occ_rows.device
+        return self.occ_packed.device
+
+    @property
+    def n_rows(self) -> int:
+        """Rows of the occ table: one per 128-base block, and the totals."""
+        return self.occ_packed.shape[0]
 
 
 def expand_bwt_codes(bwt_words: np.ndarray) -> np.ndarray:
@@ -78,25 +80,33 @@ def build_occ_rows(cp_occ: np.ndarray, bwt_words: np.ndarray) -> np.ndarray:
     return rows
 
 
-# occ_rows' columns in the order of pack_occ_rows' words 0-11: the counts,
-# then hi0 lo0 hi1 lo1 (one 16-byte quarter), then hi2 lo2 hi3 lo3
+# build_occ_rows' columns in the order of pack_occ_rows' words 0-11: the
+# counts, then hi0 lo0 hi1 lo1 (one 16-byte quarter), then hi2 lo2 hi3 lo3
 PACKED_FROM = (0, 1, 2, 3, 4, 8, 5, 9, 6, 10, 7, 11)
 
 
-def pack_occ_rows(occ_rows: torch.Tensor) -> torch.Tensor:
-    """(n_rows, 12) int64 rows of uint32 words -> (n_rows, 16) int32 on the
-    same device, 64 bytes a row: words 0-3 the A/C/G/T checkpoint counts,
-    4-7 hi0, lo0, hi1, lo1, 8-11 hi2, lo2, hi3, lo3, 12-15 zero, each the
-    uint32 word reinterpreted as int32.  So the first 32-byte sector of a
-    row serves a rank at any block offset below 64, and the second is
-    needed only at offsets 64-127 (csrc/fm_walk.cu).  Built a column at a
-    time, so the temporaries stay one column wide."""
-    out = torch.zeros((occ_rows.shape[0], 16), dtype=torch.int32,
-                      device=occ_rows.device)
+def pack_occ_rows(rows: np.ndarray) -> np.ndarray:
+    """(n_rows, 12) uint32 rows (``build_occ_rows``, the JAX layout) ->
+    (n_rows, 16) int32, 64 bytes a row: words 0-3 the A/C/G/T checkpoint
+    counts, 4-7 hi0, lo0, hi1, lo1, 8-11 hi2, lo2, hi3, lo3, 12-15 zero,
+    each the uint32 word reinterpreted as int32.  So the first 32-byte
+    sector of a row serves a rank at any block offset below 64, and the
+    second is needed only at offsets 64-127 (csrc/fm_walk.cu).  Copied a
+    column at a time, so no temporary is wider than a column."""
+    out = np.zeros((rows.shape[0], 16), np.uint32)
     for j, src in enumerate(PACKED_FROM):
-        w = occ_rows[:, src]
-        out[:, j] = (w - ((w >> 31) << 32)).to(torch.int32)
-    return out
+        out[:, j] = rows[:, src]
+    return out.view(np.int32)
+
+
+def unpack_occ_rows(packed: np.ndarray) -> np.ndarray:
+    """pack_occ_rows' inverse: (n_rows, 16) int32 -> (n_rows, 12) uint32
+    in the JAX layout, bit for bit."""
+    words = np.ascontiguousarray(packed).view(np.uint32)
+    rows = np.empty((words.shape[0], 12), np.uint32)
+    for j, src in enumerate(PACKED_FROM):
+        rows[:, src] = words[:, j]
+    return rows
 
 
 def pack_pac_words(pac: np.ndarray, l_pac: int) -> np.ndarray:
@@ -124,19 +134,19 @@ def pac_codes_at(pac_words: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
     return ((w >> sh) & 3).to(torch.uint8)
 
 
-def from_arrays(occ_rows: np.ndarray, sa_sampled: np.ndarray,
+def from_arrays(occ_packed: np.ndarray, sa_sampled: np.ndarray,
                 L2: np.ndarray, pac_words: np.ndarray, *, primary: int,
                 seq_len: int, sa_intv: int, l_pac: int, idx_dtype,
                 device: torch.device) -> DeviceFMIndex:
-    """Upload host arrays (uint32 words, index-dtype columns)."""
+    """Upload host arrays: the packed occ table (``pack_occ_rows``), once,
+    and the other tables (uint32 words, index-dtype columns)."""
     idx_dtype = np.dtype(idx_dtype).type
 
     def up(a, dt):
         return torch.from_numpy(np.ascontiguousarray(a.astype(dt))).to(device)
 
-    occ = up(occ_rows, np.int64)
     return DeviceFMIndex(
-        occ_rows=occ, occ_packed=pack_occ_rows(occ),
+        occ_packed=up(occ_packed, np.int32),
         sa_sampled=up(sa_sampled, idx_dtype),
         L2=up(L2, idx_dtype),
         pac_words=up(pac_words, np.int64),
@@ -153,7 +163,8 @@ def to_device(fm: FMIndex, device: torch.device,
     if fm.cp_occ.max() >= 2**32:
         raise ValueError("per-base counts exceed uint32")
     return from_arrays(
-        build_occ_rows(fm.cp_occ, fm.bwt_words), fm.sa_sampled, fm.L2,
+        pack_occ_rows(build_occ_rows(fm.cp_occ, fm.bwt_words)),
+        fm.sa_sampled, fm.L2,
         pack_pac_words(fm.pac, fm.l_pac), primary=fm.primary,
         seq_len=fm.seq_len, sa_intv=fm.sa_intv, l_pac=fm.l_pac,
         idx_dtype=idx_dtype, device=device)

@@ -31,7 +31,9 @@ _WORD_SHIFT = (0, 32, 64, 96)
 
 
 def _row_fetch(fm: DeviceFMIndex, k: torch.Tensor):
-    """Gather fused rows for positions k; returns (cnt4, hi4, lo4, off).
+    """Gather packed rows for positions k; returns (cnt4, hi4, lo4, off),
+    the words as int64 tensors of uint32 values (hi from words 4, 6, 8,
+    10, lo from 5, 7, 9, 11 of ``occ_packed``).
 
     k must already be $-adjusted; a real lane's k is in [0, seq_len).
     With ``fm.fill_oob`` a lane carrying garbage (a member of an
@@ -42,12 +44,14 @@ def _row_fetch(fm: DeviceFMIndex, k: torch.Tensor):
     k = k.to(torch.int64)
     blk = k >> 7
     if fm.fill_oob:
-        n = fm.occ_rows.shape[0]
+        n = fm.n_rows
         rows = torch.where(((blk >= -n) & (blk < n))[..., None],
-                           fm.occ_rows[blk.remainder(n)], MASK32)
+                           fm.occ_packed[blk.remainder(n)], -1)
     else:
-        rows = fm.occ_rows[blk]                  # (..., 12)
-    return rows[..., 0:4], rows[..., 4:8], rows[..., 8:12], k & 0x7F
+        rows = fm.occ_packed[blk]                # (..., 16)
+    # a count of 2^31 or more is a negative int32: widen, then mask
+    rows = rows[..., :12].to(torch.int64) & MASK32
+    return rows[..., 0:4], rows[..., 4:12:2], rows[..., 5:12:2], k & 0x7F
 
 
 def _sa_sample(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:

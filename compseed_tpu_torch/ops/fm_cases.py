@@ -3,7 +3,8 @@ their plain versions (used by chip_smoke.py, tests/test_torch_cuda.py
 and tests/test_torch_fm_kernels.py).  Lanes that need the index are made
 on its own device by the plain versions.  ``random_index`` makes an index
 over a random BWT of any size on the card, for tables larger than its L2
-cache, with lanes for it from ``random_chain_lanes`` / ``random_sa_lanes``."""
+cache, with lanes for it from ``random_extend_lanes``,
+``random_chain_lanes`` and ``random_sa_lanes``."""
 
 from __future__ import annotations
 
@@ -15,14 +16,14 @@ from compseed_tpu_torch.ops import seedscan as tss
 from compseed_tpu_torch.ops.bits import MASK32, popcount32
 from compseed_tpu_torch.ops.device_index import (DeviceFMIndex,
                                                  build_occ_rows,
-                                                 pack_occ_rows)
+                                                 unpack_occ_rows)
 
 
 def garbage(dfi, n=None):
     """Out-of-range positions: blocks that wrap and blocks past the table
     (the members of an overflowed dedup group carry such intervals),
     int64 numpy, clipped to int32 for an int32 index; repeated to n."""
-    span = dfi.occ_rows.shape[0] * 128
+    span = dfi.n_rows * 128
     ks = np.array([-3 * span, -span - 200, -span + 5, -300, -1, 0,
                    dfi.seq_len, span - 1, span, span + 4000, 7 * span],
                   np.int64)
@@ -91,31 +92,41 @@ def sa_lanes(dfi, rng, n):
 
 
 # ---------------------------------------------------------------------------
+RANDOM_INDEX_SLAB = 1 << 18     # rows whose counts random_index sums at once
+
+
 def random_index(n_bases: int, seed: int, device,
                  sa_intv: int = 8) -> DeviceFMIndex:
     """An index over a random BWT of ``n_bases`` bases (a multiple of 128),
-    made on ``device`` from a seeded ``torch.Generator``: random hi / lo
-    bit-plane words, the checkpoint counts by popcount and a cumulative
-    sum (the last row holds the totals and no planes), L2 from the totals
-    and a seeded primary.  int32 positions (n_bases < 2^31 - 1); no
-    suffix-array sample and no reference, which the walks do not read."""
+    made on ``device`` from a seeded ``torch.Generator`` straight into the
+    packed table: random hi / lo bit-plane words, the checkpoint counts
+    by popcount and a running sum (the last row holds the totals and no
+    planes), L2 from the totals and a seeded primary.  Made
+    ``RANDOM_INDEX_SLAB`` rows at a time, so no temporary is wider than a
+    slab.  int32 positions (n_bases < 2^31 - 1); no suffix-array
+    sample and no reference, which the walks do not read."""
     if n_bases % 128 or not 0 < n_bases < 2**31 - 1:
         raise ValueError(f"random_index: {n_bases} bases")
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     nb = n_bases // 128
-    rows = torch.zeros((nb + 1, 12), dtype=torch.int64, device=dev)
-    rows[:nb, 4:12] = torch.randint(0, 2**32, (nb, 8), generator=gen,
-                                    device=dev, dtype=torch.int64)
-    hi, lo = rows[:nb, 4:8], rows[:nb, 8:12]
-    nh, nl = hi ^ MASK32, lo ^ MASK32
-    for b, (h, l_) in enumerate(((nh, nl), (nh, lo), (hi, nl), (hi, lo))):
-        torch.cumsum(popcount32(h & l_).sum(1), 0, out=rows[1:, b])
-    totals = rows[nb, 0:4]
-    L2 = torch.cat([totals.new_zeros(1), torch.cumsum(totals, 0)])
+    rows = torch.zeros((nb + 1, 16), dtype=torch.int32, device=dev)
+    total = torch.zeros(4, dtype=torch.int64, device=dev)
+    for r0 in range(0, nb, RANDOM_INDEX_SLAB):
+        planes = rows[r0:min(r0 + RANDOM_INDEX_SLAB, nb), 4:12]
+        planes.copy_(torch.randint(-2**31, 2**31, planes.shape, generator=gen,
+                                   device=dev, dtype=torch.int32))
+        w = planes.to(torch.int64) & MASK32
+        hi, lo = w[:, 0::2], w[:, 1::2]
+        nh, nl = hi ^ MASK32, lo ^ MASK32
+        for b, (h, l_) in enumerate(((nh, nl), (nh, lo), (hi, nl), (hi, lo))):
+            run = torch.cumsum(popcount32(h & l_).sum(1), 0) + total[b]
+            rows[r0 + 1:r0 + 1 + w.shape[0], b] = run.to(torch.int32)
+            total[b] = run[-1]
+    L2 = torch.cat([total.new_zeros(1), torch.cumsum(total, 0)])
     primary = int(torch.randint(1, n_bases, (1,), generator=gen, device=dev))
     return DeviceFMIndex(
-        occ_rows=rows, occ_packed=pack_occ_rows(rows),
+        occ_packed=rows,
         sa_sampled=torch.zeros(0, dtype=torch.int32, device=dev),
         L2=L2.to(torch.int32), pac_words=torch.zeros(0, dtype=torch.int64,
                                                      device=dev),
@@ -125,11 +136,12 @@ def random_index(n_bases: int, seed: int, device,
 
 def random_index_rows_match_build(dfi, n_bases: int) -> bool:
     """Whether ``random_index``'s rows over its first ``n_bases`` bases (a
-    multiple of 128) equal what ``build_occ_rows`` makes of the same
-    bases: the BWT codes decoded from the planes, packed 16 to a word,
-    and checkpoint counts summed from the codes on the host."""
+    multiple of 128), unpacked (``unpack_occ_rows``), equal what
+    ``build_occ_rows`` makes of the same bases: the BWT codes decoded from
+    the planes, packed 16 to a word, and checkpoint counts summed from the
+    codes on the host."""
     nb = n_bases // 128
-    rows = dfi.occ_rows[:nb + 1].cpu().numpy().astype(np.uint32)
+    rows = unpack_occ_rows(dfi.occ_packed[:nb + 1].cpu().numpy())
     bit = np.arange(128) & 31
     hi = (rows[:nb, 4 + (np.arange(128) >> 5)] >> bit) & 1
     lo = (rows[:nb, 8 + (np.arange(128) >> 5)] >> bit) & 1
@@ -174,6 +186,17 @@ def random_chain_lanes(dfi, gen, U: int, W: int, is_back: bool,
     kw = dict(is_back=is_back, stop_s=torch.randint(
         1, 64, (U,), generator=gen, device=dev).to(dt) if stop else None)
     return (dfi, wv, W, k.to(dt), l.to(dt), s.to(dt), valid), kw
+
+
+def random_extend_lanes(dfi, gen, n: int, is_back: bool) -> tuple:
+    """One-child extension arguments (fm, ik (n, 3), c (n,) int32, is_back)
+    and no kwargs for n lanes over a ``random_index`` (or any index), from
+    ``gen``: the intervals of ``random_chain_lanes``, children uniform in
+    [0, 3]."""
+    (_, _, _, k, l, s, _), _ = random_chain_lanes(dfi, gen, n, 1, is_back)
+    c = torch.randint(0, 4, (n,), generator=gen, device=dfi.device,
+                      dtype=torch.int32)
+    return (dfi, torch.stack([k, l, s], 1), c, is_back), {}
 
 
 def random_sa_lanes(dfi, gen, N: int, n_steps: int) -> tuple:

@@ -13,9 +13,9 @@ hand-written kernel per call instead of some hundred PyTorch operations:
 
 Those callers run the plain version for CPU tensors and come here for any
 other; each launcher takes CUDA tensors only and launches its kernel or
-raises: nothing falls back from one to the other.  The extension reads
-the index's int64 ``occ_rows``, the two walks its packed ``occ_packed``
-(``device_index.pack_occ_rows``).  The library is ``LIB``,
+raises: nothing falls back from one to the other.  Every kernel reads
+the index's one occ table, ``occ_packed`` (``device_index.pack_occ_rows``:
+64 bytes a row), a pair of threads a lane.  The library is ``LIB``,
 an ``ops/cuda_lib.KernelLibrary`` (built with nvcc for sm_90a at first use
 into build/compseed_tpu_torch/libfm_walk.so); ``DeviceSeeder`` loads it
 when it is built on a CUDA device, so a failed build stops the seeder's
@@ -71,20 +71,15 @@ def _check(name, x, dtype, shape, device=None):
         raise ValueError(f"{name} is on {x.device}, expected {device}")
 
 
-def _index_args(fm, dev, packed: bool) -> list:
+def _index_args(fm, dev) -> list:
     """The index's launcher arguments, after checking that its tables lie
-    on ``dev`` in the layout the kernels read: the (n_rows, 12) int64 rows
-    for the extension, the (n_rows, 16) int32 packed rows, 64-byte
-    aligned, for the walks (``packed``)."""
-    n_rows = fm.occ_rows.shape[0]
-    if packed:
-        rows = fm.occ_packed
-        _check("occ_packed", rows, torch.int32, (n_rows, 16), dev)
-        if rows.data_ptr() % 64:
-            raise ValueError("occ_packed's rows must be 64-byte aligned")
-    else:
-        rows = fm.occ_rows
-        _check("occ_rows", rows, torch.int64, (n_rows, 12), dev)
+    on ``dev`` in the layout the kernels read: the (n_rows, 16) int32
+    packed rows, 64-byte aligned."""
+    n_rows = fm.n_rows
+    rows = fm.occ_packed
+    _check("occ_packed", rows, torch.int32, (n_rows, 16), dev)
+    if rows.data_ptr() % 64:
+        raise ValueError("occ_packed's rows must be 64-byte aligned")
     _check("L2", fm.L2, fm.dtype, (5,), dev)
     if fm.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"index dtype {fm.dtype} is neither int32 nor int64")
@@ -121,7 +116,7 @@ def _launch_extend_sel(fm, ik, c, is_back: bool) -> torch.Tensor:
     n = ik.shape[0] if ik.dim() else 0
     _check("ik", ik, fm.dtype, (n, 3))
     _check("c", c, torch.int32, (n,), dev)
-    index = _index_args(fm, dev, packed=False)
+    index = _index_args(fm, dev)
     out = torch.empty((n, 3), dtype=fm.dtype, device=dev)
     if n:
         LIB.launch("fm_extend_sel_kernel", dev, "fm_extend_sel_launch",
@@ -158,7 +153,7 @@ def _launch_chain_walk(fm, wv, W: int, k, l, s, valid, is_back: bool,
     _check("valid", valid, torch.bool, (U,), dev)
     if stop_s is not None:
         _check("stop_s", stop_s, dt, (U,), dev)
-    index = _index_args(fm, dev, packed=True)
+    index = _index_args(fm, dev)
     ck, cl, cs = (torch.empty((U, W), dtype=dt, device=dev) for _ in range(3))
     ln = torch.empty(U, dtype=torch.int32, device=dev)
     if U:
@@ -185,7 +180,7 @@ def inv_psi_walk(fm, kk: torch.Tensor, steps: torch.Tensor,
     _check("alive", alive, torch.bool, (N,), dev)
     if n_steps < 0:
         raise ValueError(f"inv_psi_walk: n_steps={n_steps} is negative")
-    index = _index_args(fm, dev, packed=True)
+    index = _index_args(fm, dev)
     kk_out, steps_out = torch.empty_like(kk), torch.empty_like(steps)
     alive_out = torch.empty_like(alive)
     if N:

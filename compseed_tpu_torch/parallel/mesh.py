@@ -57,8 +57,8 @@ def replicate_index(devices, dfi: DeviceFMIndex) -> dict:
     out = {}
     for d in distinct(devices):
         out[d] = dfi if dfi.device == d else dataclasses.replace(
-            dfi, occ_rows=dfi.occ_rows.to(d),
-            occ_packed=dfi.occ_packed.to(d), sa_sampled=dfi.sa_sampled.to(d),
+            dfi, occ_packed=dfi.occ_packed.to(d),
+            sa_sampled=dfi.sa_sampled.to(d),
             L2=dfi.L2.to(d), pac_words=dfi.pac_words.to(d))
     return out
 

@@ -2,7 +2,8 @@
 on shared-memory rows and on the device-memory scratch, the fused
 decode + two-round DP, the launch probe; the FM kernels of
 csrc/fm_walk.cu on the bench index with int32 and int64 positions, and
-the walks on a random 2^24-base table at ragged lane counts)
+the walks on a random 2^24-base table at ragged lane counts, the
+extension on the random 2^30-base table)
 against their plain PyTorch versions, on the card; launches from worker
 threads and on a second card (that test skips unless two are visible);
 the seeder's first bench chunk with the FM kernels against the same with
@@ -556,9 +557,38 @@ def test_fm_kernel_out_of_range_row_traps_on_card(tmp_path):
         "from compseed_tpu_torch.ops import fm\n"
         "from compseed_tpu_torch.ops.device_index import to_device\n"
         "d = to_device(FMIndex.load(sys.argv[1]), torch.device('cuda', 0))\n"
-        "big = d.occ_rows.shape[0] * 128 + 7\n"
+        "big = d.n_rows * 128 + 7\n"
         "ik = torch.tensor([[big, big, 3]], dtype=d.dtype, device='cuda:0')\n"
         "c = torch.zeros(1, dtype=torch.int32, device='cuda:0')\n"
+        "out = fm.extend_sel_batch(d, ik, c, False)\n"
+        "torch.cuda.synchronize()\n"
+        "print('NO FAULT', out.tolist())\n")
+    r = subprocess.run([sys.executable, "-c", code,
+                        os.path.join(root, "tests", "fixtures", "tiny")],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0 and "NO FAULT" not in r.stdout, r.stdout
+
+
+def test_fm_extend_child_out_of_range_traps_on_card():
+    """A child outside [0, 3] is no input of the extension: its lane traps
+    before it reads a row or L2 past its four bases.  In a child process,
+    as above."""
+    import os
+    import subprocess
+    import sys
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = (
+        "import sys, torch\n"
+        f"sys.path.insert(0, {root!r})\n"
+        "from compseed_tpu_torch.index.fmindex import FMIndex\n"
+        "from compseed_tpu_torch.ops import fm\n"
+        "from compseed_tpu_torch.ops.device_index import to_device\n"
+        "d = to_device(FMIndex.load(sys.argv[1]), torch.device('cuda', 0))\n"
+        "ik = torch.tensor([[1, 1, 1]] * 64, dtype=d.dtype, device='cuda:0')\n"
+        "c = torch.zeros(64, dtype=torch.int32, device='cuda:0')\n"
+        "c[37] = 4\n"
         "out = fm.extend_sel_batch(d, ik, c, False)\n"
         "torch.cuda.synchronize()\n"
         "print('NO FAULT', out.tolist())\n")
@@ -636,6 +666,39 @@ def test_fm_walks_vs_plain_on_random_table_on_card(dev, dtype):
         n0["fm_inv_psi_walk_kernel"] + 6
 
 
+def test_fm_extend_vs_plain_on_2_30_table_on_card(dev):
+    """The extension (a pair of threads a lane over the packed table) equals
+    its plain version on chip_smoke.py's random 2^30-base table (8,388,609
+    rows, 537 MB, more than 10x L2), built on the card with no int64
+    copy: 131,072 random lanes both ways, and a ragged 1,001; one counted
+    launch per call."""
+    from compseed_tpu_torch.ops import fm as tfm
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops.fm_cases import (random_extend_lanes,
+                                                 random_index)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dfi = random_index(1 << 30, 808, dev)
+    torch.cuda.synchronize()
+    table = dfi.n_rows * 64                  # 536,870,976 B
+    assert table <= torch.cuda.memory_allocated(dev) - m0 <= table + 4096
+    assert torch.cuda.max_memory_allocated(dev) - m0 < table * 1.25
+    gen = torch.Generator(device=dev).manual_seed(809)
+    n0 = fm_cuda.LAUNCHES["fm_extend_sel_kernel"]
+    calls = 0
+    for n in (131072, 1001):
+        for is_back in (False, True):
+            a, _ = random_extend_lanes(dfi, gen, n, is_back)
+            got = fm_cuda.extend_sel_batch(*a)
+            calls += 1
+            assert torch.equal(got, tfm._extend_sel_plain(*a)), (n, is_back)
+    torch.cuda.synchronize()
+    assert fm_cuda.LAUNCHES["fm_extend_sel_kernel"] == n0 + calls
+    del dfi
+    torch.cuda.empty_cache()
+
+
 def test_fm_walks_non_stepping_lanes_read_nothing_on_card(dev, bench):
     """Without fill_oob, lanes that do not step (invalid, ambiguous at the
     first base, or not alive) keep their state, however far outside the
@@ -677,7 +740,7 @@ def test_replicate_index_carries_packed_table_on_card(dev, bench):
     from compseed_tpu_torch.parallel.mesh import replicate_index
     host = to_device(bench[0], torch.device("cpu"))
     rep = replicate_index([dev], host)[dev]
-    assert rep.occ_packed.device == dev and rep.occ_rows.device == dev
+    assert rep.occ_packed.device == dev and not hasattr(rep, "occ_rows")
     assert torch.equal(rep.occ_packed.cpu(), host.occ_packed)
     rng = np.random.default_rng(65)
     ik = intervals(host, rng, 2048, depth=10)

@@ -14,7 +14,8 @@ from compseed_tpu.ops import fm as jfm
 from compseed_tpu.ops.device_index import to_device as jax_to_device
 from compseed_tpu_torch import convert
 from compseed_tpu_torch.ops import fm as tfm
-from compseed_tpu_torch.ops.device_index import to_device
+from compseed_tpu_torch.ops.device_index import (DeviceFMIndex,
+                                                 pack_occ_rows, to_device)
 
 CPU = torch.device("cpu")
 
@@ -70,7 +71,7 @@ def test_occ4_batch(dev):
 def test_rank4_all_offsets(dev):
     """_rank4 over every in-block offset of a few rows (masks 0..all)."""
     seq, fm, jd, td = dev
-    rows = np.arange(min(4, td.occ_rows.shape[0]))
+    rows = np.arange(min(4, td.n_rows))
     ks = (rows[:, None] * 128 + np.arange(128)[None, :]).reshape(-1)
     got = tfm._rank4(*tfm._row_fetch(td, _t(ks)), td.dtype).numpy()
     want = np.asarray(jfm._rank4(*jfm._row_fetch(jd, jnp.asarray(ks)),
@@ -114,7 +115,7 @@ def test_out_of_range_lanes_read_what_jax_reads(dev):
     overflowed chunk's counters match, and no gather leaves its tensor."""
     seq, fm, jd, td = dev
     td = dataclasses.replace(td, fill_oob=True)
-    n = td.occ_rows.shape[0]
+    n = td.n_rows
     span = n * 128
     ks = np.array([-3 * span, -span - 200, -span + 5, -300, -1, 0,
                    fm.seq_len, span - 1, span, span + 4000, 7 * span],
@@ -178,3 +179,64 @@ def test_sa_batch_compact(dev, n):
     if not bool(govf):
         for i in range(0, len(ks), 7):
             assert got[i] == fo.sa_lookup(fm, int(ks[i]))
+
+
+def _occ4_numpy(rows, primary, ks):
+    """bwt_occ4 over (n, 12) uint32 rows in the JAX layout, in uint64: the
+    block's counts plus the codes at offsets 0..off (k == -1: zeros)."""
+    out = np.zeros((len(ks), 4), np.uint64)
+    for i, k in enumerate(ks):
+        if k == -1:
+            continue
+        kk = k - (k >= primary)
+        r = rows[kk >> 7].astype(np.uint64)
+        p = np.arange((kk & 127) + 1)
+        hi = (r[4 + (p >> 5)] >> (p & 31).astype(np.uint64)) & 1
+        lo = (r[8 + (p >> 5)] >> (p & 31).astype(np.uint64)) & 1
+        codes = (hi << 1) | lo
+        out[i] = r[:4] + np.array([(codes == b).sum() for b in range(4)],
+                                  np.uint64)
+    return out
+
+
+@pytest.mark.parametrize("fill_oob", [False, True], ids=["in", "fill_oob"])
+def test_row_fetch_counts_at_or_above_2_31_int64(fill_oob):
+    """An int64 index over 2^33 positions whose checkpoint counts are at
+    or above 2^31 (negative as the packed table's int32 words): _row_fetch
+    gives them back as uint32 values and occ4_batch ranks on them, equal
+    to a numpy uint64 reference; under fill_oob a block past the table
+    reads the all-ones row as 2^32 - 1 words."""
+    rng = np.random.default_rng(27)
+    n = 6
+    rows = rng.integers(0, 2**32, (n, 12), dtype=np.uint64).astype(np.uint32)
+    rows[:, :4] = rng.integers(2**31, 2**32 - 128, (n, 4))
+    rows[2, :4] = [2**31, 2**32 - 129, 2**31 + 1, 3 * 2**30]
+    primary = 3 * 128 + 17
+    td = DeviceFMIndex(
+        occ_packed=torch.from_numpy(pack_occ_rows(rows)),
+        sa_sampled=torch.zeros(1, dtype=torch.int64),
+        L2=torch.tensor([0, 2**31, 2**32, 2**32 + 2**31, 2**33]),
+        pac_words=torch.zeros(1, dtype=torch.int64), primary=primary,
+        seq_len=2**33, sa_intv=32, l_pac=2**32, idx_dtype=np.int64,
+        fill_oob=fill_oob)
+    assert td.dtype == torch.int64
+    assert bool((td.occ_packed[:, :4] < 0).all())
+    ks = np.concatenate([np.arange(0, (n - 1) * 128, 7), [-1, primary,
+                         primary - 1, primary + 1, (n - 1) * 128 - 1]])
+    cnt, hi, lo, off = tfm._row_fetch(td, _t(ks))
+    assert cnt.dtype == hi.dtype == lo.dtype == torch.int64
+    r = rows[ks >> 7].astype(np.int64)             # -1 wraps, as a gather
+    assert np.array_equal(cnt.numpy(), r[:, :4])
+    assert np.array_equal(hi.numpy(), r[:, 4:8])
+    assert np.array_equal(lo.numpy(), r[:, 8:12])
+    got = tfm.occ4_batch(td, _t(ks)).numpy()
+    assert got.min() >= 0 and got.max() >= 2**31
+    assert np.array_equal(got.astype(np.uint64),
+                          _occ4_numpy(rows, primary, ks))
+    past = _t(np.array([n * 128 + 5, 9 * n * 128]))
+    if fill_oob:
+        for x in tfm._row_fetch(td, past)[:3]:
+            assert bool((x == 2**32 - 1).all())
+    else:
+        with pytest.raises(IndexError):
+            tfm._row_fetch(td, past)

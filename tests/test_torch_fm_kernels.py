@@ -11,13 +11,14 @@ index types over the ``micro`` and ``tiny`` fixture indexes:
   fm_inv_psi_walk_kernel vs ops/fm._walk, compseed_tpu's inv_psi_batch
                          stepped as sa_batch_compact steps it.
 
-The walks' lane code reads the packed occ table (device_index.
+Every kernel's lane code reads the packed occ table (device_index.
 pack_occ_rows) and ranks a row in one piece or two, one a thread of its
 lane's pair on the card; the host loops add the pieces as the card's
-shuffles do.  So also: the packed table against the int64 rows, both
-piece counts' ranks against rank4 at every block offset, and the walks' host loops against
-their plain versions over a random index (fm_cases.random_index, whose
-rows are checked against build_occ_rows).
+shuffles do.  So also: the packed table against the JAX layout (pack,
+unpack), both piece counts' ranks against rank4 at every block offset,
+and the host loops against their plain versions over a random index
+(fm_cases.random_index, whose rows are checked against
+build_occ_rows).
 
 Also: the wrappers' input checks, that the entry points take a plain
 version for CPU tensors only, and chain_scan's ``report_rounds``
@@ -46,9 +47,13 @@ from compseed_tpu_torch import convert
 from compseed_tpu_torch.ops import fm as tfm
 from compseed_tpu_torch.ops import fm_cuda
 from compseed_tpu_torch.ops import seedscan as tss
-from compseed_tpu_torch.ops.device_index import pack_occ_rows, to_device
+from compseed_tpu_torch.ops.device_index import (build_occ_rows,
+                                                 pack_occ_rows, to_device,
+                                                 unpack_occ_rows)
 from compseed_tpu_torch.ops.fm_cases import (garbage, intervals, pack,
-                                             random_chain_lanes, random_index,
+                                             random_chain_lanes,
+                                             random_extend_lanes,
+                                             random_index,
                                              random_index_rows_match_build,
                                              random_sa_lanes, sa_lanes,
                                              windows)
@@ -104,12 +109,10 @@ def _np_dt(td):
     return np.int64 if td.dtype == torch.int64 else np.int32
 
 
-def _index_args(td, packed=False):
-    """The host entries' index arguments: the int64 rows (the extension)
-    or the packed rows (the walks); the arrays stay referenced by the
-    returned tuple's first element."""
-    occ = np.ascontiguousarray((td.occ_packed if packed else td.occ_rows)
-                               .numpy())
+def _index_args(td):
+    """The host entries' index arguments: the packed rows; the arrays
+    stay referenced by the returned tuple's first element."""
+    occ = np.ascontiguousarray(td.occ_packed.numpy())
     L2 = np.ascontiguousarray(td.L2.numpy())
     return (occ, L2), [occ.ctypes.data, occ.shape[0], L2.ctypes.data,
                        td.primary, int(td.fill_oob)]
@@ -120,37 +123,36 @@ def _ptr(a):
 
 
 # ---------------------------------------------------------------------------
-def _unpack(packed):
-    """The packed table's words 0-11 back in occ_rows' column order, as
-    int64 uint32 words."""
-    cols = [0, 1, 2, 3, 4, 6, 8, 10, 5, 7, 9, 11]
-    return packed[:, cols].to(torch.int64) & 0xFFFFFFFF
-
-
-def test_pack_occ_rows_roundtrips(idx):
-    """occ_packed holds occ_rows' words, reinterpreted as int32, in the
-    walks' order (counts; hi0 lo0 hi1 lo1; hi2 lo2 hi3 lo3; zeros), the
-    last row (counts only) included; a replica and a densified index keep
-    it."""
+def test_pack_occ_rows_roundtrips(idx, tiny_fm, micro):
+    """pack_occ_rows holds build_occ_rows' words, reinterpreted as int32, in
+    the kernels' order (counts; hi0 lo0 hi1 lo1; hi2 lo2 hi3 lo3; zeros),
+    the last row (counts only) included; unpack_occ_rows gives back
+    build_occ_rows' rows and the JAX index's occ_rows bit for bit; the
+    JAX index carried across builds the same table."""
     jd, td = idx
+    fm = tiny_fm if td.seq_len == tiny_fm.seq_len else micro[2]
+    rows = build_occ_rows(fm.cp_occ, fm.bwt_words)
     p = td.occ_packed
-    assert p.dtype == torch.int32 and p.shape == (td.occ_rows.shape[0], 16)
+    assert p.dtype == torch.int32 and p.shape == (td.n_rows, 16)
     assert p.is_contiguous()
-    assert torch.equal(_unpack(p), td.occ_rows)
+    assert np.array_equal(p.numpy(), pack_occ_rows(rows))
     assert not p[:, 12:].any()
-    assert not td.occ_rows[-1, 4:].any() and td.occ_rows[-1, :4].any()
-    assert torch.equal(p[-1, :4].to(torch.int64) & 0xFFFFFFFF,
-                       td.occ_rows[-1, :4])
-    assert torch.equal(pack_occ_rows(td.occ_rows), p)
-    # the JAX index carried across builds it too
+    assert not rows[-1, 4:].any() and rows[-1, :4].any()
+    assert np.array_equal(p[:, 4:12:2].numpy().view(np.uint32), rows[:, 4:8])
+    assert np.array_equal(p[:, 5:12:2].numpy().view(np.uint32), rows[:, 8:12])
+    back = unpack_occ_rows(p.numpy())
+    assert back.dtype == np.uint32
+    assert np.array_equal(back, rows)
+    assert np.array_equal(back, np.asarray(jd.occ_rows))
     arrays = {k: np.asarray(getattr(jd, k)) for k in convert.ARRAY_FIELDS}
     meta = {k: getattr(jd, k) for k in convert.META_FIELDS}
     assert torch.equal(convert.from_jax_index(arrays, meta, CPU).occ_packed, p)
-    # words at and above 2^31 become negative int32
-    big = torch.tensor([[2**32 - 1, 2**31, 2**31 - 1, 0] + [2**31 + 5] * 8])
+    # words at and above 2^31 become negative int32, and come back
+    big = np.array([[2**32 - 1, 2**31, 2**31 - 1, 0] + [2**31 + 5] * 8],
+                   np.uint32)
     got = pack_occ_rows(big)
     assert got[0, :4].tolist() == [-1, -2**31, 2**31 - 1, 0]
-    assert torch.equal(_unpack(got), big)
+    assert np.array_equal(unpack_occ_rows(got), big)
 
 
 @pytest.mark.parametrize("pieces", [1, 2])
@@ -167,7 +169,7 @@ def test_rank_pieces_sum_to_rank4(host, pieces):
     rows[3] = 2**32 - 1                      # all ones, as fill_oob reads
     rows[5, 4:] = 0
     occ = torch.from_numpy(rows)
-    packed = np.ascontiguousarray(pack_occ_rows(occ).numpy())
+    packed = pack_occ_rows(rows.astype(np.uint32))
     row = np.repeat(np.arange(-1, n_rows), 128).astype(np.int64)
     off = np.tile(np.arange(128), n_rows + 1).astype(np.int32)
     out = np.zeros((len(row), 4), np.int64)
@@ -205,19 +207,20 @@ def test_random_index_matches_build(seed):
     """fm_cases.random_index (the card's tables larger than L2) makes the
     rows build_occ_rows makes of its BWT, and L2 from the totals."""
     dfi = random_index(1 << 16, seed, CPU)
-    assert dfi.occ_rows.shape == (513, 12) and dfi.dtype == torch.int32
+    assert dfi.occ_packed.shape == (513, 16) and dfi.dtype == torch.int32
+    assert not hasattr(dfi, "occ_rows")
     assert random_index_rows_match_build(dfi, 1 << 16)
-    assert torch.equal(dfi.occ_packed, pack_occ_rows(dfi.occ_rows))
-    tot = dfi.occ_rows[-1, :4]
+    assert not dfi.occ_packed[:, 12:].any()
+    tot = dfi.occ_packed[-1, :4].to(torch.int64)
     assert int(tot.sum()) == dfi.seq_len == 1 << 16
     assert dfi.L2.tolist() == [0] + torch.cumsum(tot, 0).tolist()
     assert 0 < dfi.primary < dfi.seq_len
     other = random_index(1 << 16, seed + 10, CPU)
-    assert not torch.equal(other.occ_rows, dfi.occ_rows)
-    bad = dfi.occ_rows.clone()
-    bad[7, 5] ^= 1 << 9
+    assert not torch.equal(other.occ_packed, dfi.occ_packed)
+    bad = dfi.occ_packed.clone()
+    bad[7, 6] ^= 1 << 9
     assert not random_index_rows_match_build(
-        dataclasses.replace(dfi, occ_rows=bad), 1 << 16)
+        dataclasses.replace(dfi, occ_packed=bad), 1 << 16)
 
 
 @pytest.mark.parametrize("shape", ["fwd W=5", "back W=8 stop_s", "sa 8"])
@@ -334,9 +337,54 @@ def test_extend_sel_child_out_of_range_faults(host, idx):
     assert _host_extend(host, td, ik, np.array([-1]), True)[0] == -1
 
 
+@pytest.mark.parametrize("is_back", [False, True], ids=["fwd", "back"])
+def test_extend_sel_through_convert(host, idx, is_back):
+    """On the JAX index carried across (convert.from_jax_index packs its
+    occ_rows): the kernel's lane code on the packed table ==
+    _extend_sel_plain == the JAX extend_sel_batch, on search intervals as
+    a (12, 8, 3) batch and on garbage lanes under fill_oob; a child out of
+    range makes the host loop return -1."""
+    jd, _ = idx
+    arrays = {k: np.asarray(getattr(jd, k)) for k in convert.ARRAY_FIELDS}
+    meta = {k: getattr(jd, k) for k in convert.META_FIELDS}
+    td = convert.from_jax_index(arrays, meta, CPU)
+    rng = np.random.default_rng(33 + is_back)
+    ks = garbage(td)
+    g = np.stack([ks, ks[::-1], np.full(len(ks), 9)], axis=1)
+    for fm_, ik in ((td, intervals(td, rng, 96).numpy().reshape(12, 8, 3)),
+                    (dataclasses.replace(td, fill_oob=True), g)):
+        c = rng.integers(0, 4, ik.shape[:-1]).astype(np.int32)
+        got = tfm._extend_sel_plain(fm_, _t(ik), _t(c), is_back).numpy()
+        want = np.asarray(jfm.extend_sel_batch(jd, jnp.asarray(ik),
+                                               jnp.asarray(c), is_back))
+        rc, out = _host_extend(host, fm_, ik.reshape(-1, 3), c.reshape(-1),
+                               is_back)
+        assert rc == 0
+        assert np.array_equal(got, want)
+        assert np.array_equal(out.reshape(ik.shape), want)
+    c = np.zeros(len(ks), np.int32)
+    c[3] = 5
+    assert _host_extend(host, td, g[:4] * 0 + 1, c[:4], is_back)[0] == -1
+
+
+@pytest.mark.parametrize("is_back", [False, True], ids=["fwd", "back"])
+def test_host_extend_equals_plain_on_random_index(host, is_back):
+    """The extension's host loop equals its plain version over a random
+    index, with the lanes chip_smoke.py drives on its table larger than
+    L2 (fm_cases.random_extend_lanes)."""
+    dfi = random_index(1 << 17, 13, CPU)
+    gen = torch.Generator().manual_seed(14 + is_back)
+    a, _ = random_extend_lanes(dfi, gen, 2000, is_back)
+    want = tfm._extend_sel_plain(*a)
+    rc, got = _host_extend(host, dfi, a[1].numpy(), a[2].numpy(), is_back)
+    assert rc == 0
+    assert np.array_equal(got, want.numpy())
+    assert int(want[:, 2].gt(0).sum()) > 100
+
+
 # ---------------------------------------------------------------------------
 def _host_chain(host, td, wv, W, k, l, s, valid, is_back, stop_s):
-    keep, index = _index_args(td, packed=True)
+    keep, index = _index_args(td)
     dt = _np_dt(td)
     U = len(k)
     k, l, s = (np.ascontiguousarray(x, dt) for x in (k, l, s))
@@ -433,7 +481,7 @@ def test_chain_walk_non_stepping_lanes_read_nothing(host, idx):
 
 # ---------------------------------------------------------------------------
 def _host_walk(host, td, kk, steps, alive, n_steps):
-    keep, index = _index_args(td, packed=True)
+    keep, index = _index_args(td)
     dt = _np_dt(td)
     kk, steps = (np.ascontiguousarray(x, dt) for x in (kk, steps))
     alive = np.ascontiguousarray(alive, np.uint8)
@@ -501,7 +549,7 @@ def test_inv_psi_walk_garbage_lanes(host, idx):
     for g, w, h in zip(got, want, out):
         assert np.array_equal(g.numpy(), w)
         assert np.array_equal(h, w)
-    big = np.array([td.occ_rows.shape[0] * 128 + 5], dt)
+    big = np.array([td.n_rows * 128 + 5], dt)
     assert _host_walk(host, td, big, big * 0, np.ones(1, bool), 1)[0] == -1
 
 
