@@ -6,9 +6,10 @@ Phases, in order; any failure exits non-zero:
 
   0. device   — a CUDA card must be present; prints its nvidia-smi
                 name and power limit.
-  1. build    — compiles csrc/bsw_extend.cu and csrc/fm_walk.cu with
-                nvcc for sm_90a (side by side, and beside them the host
-                tail with g++), loads the libraries and runs the launch
+  1. build    — compiles csrc/bsw_extend.cu, csrc/fm_walk.cu and
+                csrc/chain_scan.cu with nvcc for sm_90a (side by side,
+                and beside them the host tail with g++), loads the
+                libraries and runs the launch
                 self-check: the probe kernel against its plain version; a
                 wrong tile is fatal.  The probe and
                 torch.add are timed two ways each: a loop of launches
@@ -37,6 +38,14 @@ Phases, in order; any failure exits non-zero:
                 stop_s and an ambiguous base at every column, the walk
                 over 1, sa_intv and 2 sa_intv steps, and garbage lanes
                 under fill_oob; one counted launch per kernel call.
+                Then chain_scan's round kernels (probe, group, apply)
+                against their plain steps, exactly, output by
+                output, on the rounds the first bench chunk's seeding
+                runs (the first round of each width of each chain_scan
+                call: round 1 at 16,384 lanes and its narrower segments,
+                round 2 at 65,536, round 3), with int32 and int64
+                positions, and each round again over a 1,024-slot table
+                with 200 free store rows (slot collisions, a full store).
   3. goldens  — tests/fixtures reads, each 2,000-read file as ONE chunk,
                 through align_stream with the port's seeder, DP engine
                 and native tail: the seeder's caps overflow, the chunk
@@ -91,7 +100,18 @@ Phases, in order; any failure exits non-zero:
                 async copies, the card's busy share: ``profile_chunk``,
                 which scripts/torch_seeding_ab.py --profile runs on other
                 checkouts); round 1's live lanes before each round
-                (chain_scan's ``report_rounds``).
+                (chain_scan's ``report_rounds``).  The chain kernels:
+                launches per chunk (each must have launched in the int32
+                window); each timed at round 1's widths (16,384, 4,096,
+                1,024) and at round 2's 65,536 (in a loop, replayed from
+                a CUDA graph; the plain steps in a loop) beside its
+                bound; round 1's chain_scan with the kernels and with the
+                plain round in turns; the chunk's launches, syncs and
+                copies by stage (a chain_scan round, chain_scan's set-up
+                and loop, walk_pool_chain, the rest) under torch.profiler.
+                Gates: at most 15 launches a chain_scan round; under
+                8,000 launches, at most 362 stream syncs and 549 async
+                copies a chunk.
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
                 tests/fixtures/tiny.fa must write the committed index
@@ -184,6 +204,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "compseed_tpu_torch/csrc/bsw_extend.cu"
 FM_SOURCE = "compseed_tpu_torch/csrc/fm_walk.cu"
+CHAIN_SOURCE = "compseed_tpu_torch/csrc/chain_scan.cu"
 CHUNK = 16384          # reads per chunk, the bench's default
 N_CHUNKS = 4
 RUNS = 3               # timed streams after one warm-up stream
@@ -232,6 +253,25 @@ FM_OPS_EXTEND = 20
 FM_OPS_LF = 10
 FM_KERNELS = ("fm_extend_sel_kernel", "fm_chain_walk_kernel",
               "fm_inv_psi_walk_kernel")
+# chain_scan's round (csrc/chain_scan.cu) and the lines of the JAX
+# package's round body (make_body, XLA fusions, no Pallas) each replaces
+CHAIN_KERNELS = ("chain_probe_kernel", "chain_group_kernel",
+                 "chain_apply_kernel")
+CHAIN_REPLACES = {
+    "chain_probe_kernel": "compseed_tpu/ops/seedscan.py:1495-1520 "
+                          "(chain_scan's probe; XLA fusion, no Pallas)",
+    "chain_group_kernel": "compseed_tpu/ops/seedscan.py:1521-1563 "
+                          "(chain_scan's grouping; XLA fusion, no Pallas)",
+    "chain_apply_kernel": "compseed_tpu/ops/seedscan.py:1564-1688 "
+                          "(insert, apply, flush, advance; XLA fusion, no "
+                          "Pallas)"}
+# gates on one chunk of the main path's seeding (torch.profiler): a
+# chain_scan round's launches, and the chunk's launches, stream syncs and
+# async copies (the parent's 28,525 / 362 / 549 on the H100, PERF.md)
+MAX_CHAIN_ROUND_LAUNCHES = 15
+MAX_CHUNK_LAUNCHES = 8000
+MAX_CHUNK_SYNCS = 362
+MAX_CHUNK_COPIES = 549
 
 
 def log(msg: str) -> None:
@@ -336,13 +376,13 @@ def ops_bound(nbytes: int, cells: int):
 
 def launch_counts() -> dict:
     """Every kernel's launches since the last reset_launches()."""
-    from compseed_tpu_torch.ops import bsw_cuda, fm_cuda
-    return {**bsw_cuda.LAUNCHES, **fm_cuda.LAUNCHES}
+    from compseed_tpu_torch.ops import bsw_cuda, chain_cuda, fm_cuda
+    return {**bsw_cuda.LAUNCHES, **fm_cuda.LAUNCHES, **chain_cuda.LAUNCHES}
 
 
 def reset_launches() -> None:
-    from compseed_tpu_torch.ops import bsw_cuda, fm_cuda
-    for counts in (bsw_cuda.LAUNCHES, fm_cuda.LAUNCHES):
+    from compseed_tpu_torch.ops import bsw_cuda, chain_cuda, fm_cuda
+    for counts in (bsw_cuda.LAUNCHES, fm_cuda.LAUNCHES, chain_cuda.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -353,8 +393,9 @@ def profile_chunk(run, sync) -> dict:
     async copies) and the card's busy time, the union of the kernels' and
     copies' intervals on the device.  Also the wall time of the same call
     without the profiler, right after, and the mean device time per
-    launch of each FM kernel.  ``scripts/torch_seeding_ab.py --profile``
-    runs the same pass on other checkouts."""
+    launch of each FM and chain kernel.
+    ``scripts/torch_seeding_ab.py --profile`` runs the same pass on other
+    checkouts."""
     from torch.profiler import ProfilerActivity, profile
     calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
              "cudaStreamSynchronize", "cudaMemcpyAsync",
@@ -372,19 +413,20 @@ def profile_chunk(run, sync) -> dict:
     sync()
     wall = time.perf_counter() - t0
     out = {c: 0 for c in calls}
-    fm_ms = {}
+    kernel_ms = {}
     for e in prof.key_averages():
         if e.key in out:
             out[e.key] = e.count
-        m = re.search(r"\b(fm_[a-z_]+_kernel)", e.key)
+        m = re.search(r"\b((?:fm|chain)_[a-z_]+_kernel)", e.key)
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0)
         if m and dev_us:
-            r = fm_ms.setdefault(m.group(1), dict(launches=0, device_us=0.0))
+            r = kernel_ms.setdefault(m.group(1),
+                                     dict(launches=0, device_us=0.0))
             r["launches"] += e.count
             r["device_us"] += dev_us
-    for r in fm_ms.values():
+    for r in kernel_ms.values():
         r["device_ms_per_launch"] = r.pop("device_us") / 1e3 / r["launches"]
     spans = []
     for e in prof.events():
@@ -404,7 +446,7 @@ def profile_chunk(run, sync) -> dict:
                device_busy_s=busy_us / 1e6,
                busy_pct_of_wall=100.0 * busy_us / 1e6 / wall,
                busy_pct_of_profiled=100.0 * busy_us / 1e6 / wall_prof,
-               device_events=len(spans), fm_kernels=fm_ms)
+               device_events=len(spans), kernels=kernel_ms)
     return out
 
 
@@ -853,7 +895,7 @@ def fm_rows(fm_rec, row) -> list:
     walk, walk_n = calls[first], int(first.split("/")[1])
     fwd_w = int(re.search(r"W=(\d+)", fwd["shape"]).group(1))
     flat = ext["rank2"]
-    prof = fm_rec["profile"]["fm_kernels"]
+    prof = fm_rec["profile"]["kernels"]
     lat = fm_rec["redesign"]["bench_latency"]["new"]
 
     def more(name, r, **kw):
@@ -1195,6 +1237,352 @@ def fm_redesign(dev, builds: dict, calls: dict, dfi, fm_host) -> dict:
         f"{json.dumps(rec['index_bytes']['large'])}), each launch from "
         f"cold L2: {json.dumps(rec['large'])}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# chain_scan's round: csrc/chain_scan.cu
+
+def chain_capture(dev, opt, fm, queries, force=None) -> dict:
+    """The first bench chunk's seeding on the default engine with every
+    chain_scan round through the kernels; the state before the first
+    round of each width of each call (chain_cases.RoundCapture):
+    (call, w) -> case."""
+    import torch
+    from compseed_tpu_torch.ops import chain_cases
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.ops.engine import device_seeder
+    sd = device_seeder(opt, fm, dedup=True, device=dev,
+                       dfi=to_device(fm, dev, force_dtype=force))
+    with chain_cases.RoundCapture(limit=16) as cap:
+        sd.run_flat(queries)
+    torch.cuda.synchronize()
+    return cap.states
+
+
+def chain_phase2(dev, opt, fm, queries) -> tuple:
+    """Phase 2 for the chain kernels: every captured round of the first
+    bench chunk, int32 and int64 positions, and each in its lossy form
+    (1,024 table slots: collisions; 200 free store rows: a full store),
+    through each kernel and its plain step.  Returns ({dtype: {case:
+    {kernel: max_abs_err}}}, the int32 cases, kept for phase 4)."""
+    import numpy as np
+    from compseed_tpu_torch.ops import chain_cases
+    out, keep = {}, None
+    for tag, force in (("int32", None), ("int64", np.int64)):
+        t0 = time.time()
+        states = chain_capture(dev, opt, fm, queries, force)
+        widths = sorted({w for _, w in states})
+        if not {CHUNK, 4 * CHUNK} <= set(widths):
+            raise SystemExit(f"chain_scan rounds captured at widths {widths}: "
+                             f"expected {CHUNK} and {4 * CHUNK}")
+        rec = {}
+        for (call, w), case in sorted(states.items()):
+            for form, c in (("", case), (" lossy", chain_cases.lossy(case))):
+                errs = chain_cases.steps_vs_plain(c)
+                stats = errs.pop("stats")
+                rec[f"call {call} w={w}{form}"] = dict(errs, stats=stats)
+                if any(errs.values()):
+                    raise SystemExit(f"a chain kernel disagrees with its "
+                                     f"plain step ({tag}, call {call}, w={w}"
+                                     f"{form}): {errs} {stats}")
+        if not any(r["stats"]["stored"] < r["stats"]["n_w"]
+                   for r in rec.values()):
+            raise SystemExit("no lossy round filled the chain store")
+        out[tag] = rec
+        log(f"[2] chain kernels vs plain steps over the first bench "
+            f"chunk's rounds ({tag} positions, {len(rec)} rounds, "
+            f"{time.time() - t0:.1f} s): max_abs_err "
+            f"{ {k: max(r[k] for r in rec.values()) for k in CHAIN_KERNELS} }"
+            f"; rounds {json.dumps({n: r['stats'] for n, r in rec.items()})}")
+        if tag == "int32":
+            keep = states
+    return out, keep
+
+
+def chain_time(case, reps: int = 20) -> dict:
+    """One captured round's kernels timed at its shape: after one whole
+    round through them (so every scratch array holds this round's data),
+    each kernel's ms per launch on the card alone (``ms``: launch_ms)
+    and per call in a loop (``loop_ms``: the host's launch rate), the
+    sort and the walk beside them; the plain steps' ms per call in a
+    loop; each kernel's bytes, operations and bound on this round's data
+    (chain_cases.round_work).  A kernel that reads what it writes (group:
+    the store cursor; apply: the lane state) has it restored, and the
+    round's epoch moved on (so that its look-back finds no word of the
+    call before), before every call; on the card alone the restores' own
+    time, measured alone, is taken off, in a loop it is given beside
+    (``restore_loop_ms``).  Beside that difference, each chain kernel's
+    own device time from torch.profiler over the same calls, its records
+    alone (``profiled_ms``; ``profiled_records`` of ``reps`` seen)."""
+    import torch
+    from compseed_tpu_torch.ops import chain_cases, chain_cuda
+    from compseed_tpu_torch.ops import seedscan as ss
+    fm, const, st, w, Uw = case
+    errs = chain_cases.steps_vs_plain(case)
+    stats = errs.pop("stats")
+    ps = chain_cases.clone_state(st)
+    pr = ss._chain_probe_plain(fm, const, ps)
+    order = torch.argsort(pr["key"], stable=True)
+    gr = ss._chain_group_plain(ps, pr, order, Uw)
+    walk = ss._chain_walk(fm, gr["rep_wv"], const["W"], gr["rep_k"],
+                          gr["rep_l"], gr["rep_s"], gr["rep_valid"])
+    plain = {
+        "chain_probe_kernel": lambda: ss._chain_probe_plain(fm, const, ps),
+        "chain_group_kernel": lambda: ss._chain_group_plain(ps, pr, order,
+                                                            Uw),
+        "chain_apply_kernel": lambda: ss._chain_apply_plain(
+            fm, const, ps, pr, gr, walk, w, Uw)}
+    ks = chain_cases.clone_state(st)
+    rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
+    s = rd.scratch
+    chain_cuda.probe(rd)
+    chain_cuda.sort(rd)
+    chain_cuda.group(rd)
+    rd.set_walk(*ss._chain_walk(fm, s["rep_wv"], const["W"], s["rep_k"],
+                                s["rep_l"], s["rep_s"], s["rep_valid"]))
+    chain_cuda.apply(rd)
+    torch.cuda.synchronize()
+    epoch = s["sc"][4:5]
+
+    def restoring(run, names):
+        saved = [(ks[n], ks[n].clone()) for n in names]
+
+        def restore():
+            for dst, src in saved:
+                dst.copy_(src)
+            epoch.add_(1)                   # a fresh look-back each call
+        return (lambda: (restore(), run())), restore
+
+    runs = {"chain_probe_kernel": (lambda: chain_cuda.probe(rd), None),
+            "sort": (lambda: chain_cuda.sort(rd), None),
+            "chain_group_kernel": restoring(lambda: chain_cuda.group(rd),
+                                            ["cur"]),
+            "walk": (lambda: ss._chain_walk(
+                fm, s["rep_wv"], const["W"], s["rep_k"], s["rep_l"],
+                s["rep_s"], s["rep_valid"]), None),
+            "chain_apply_kernel": restoring(
+                lambda: chain_cuda.apply(rd),
+                ["pivot", "pos", "alive", "k", "l", "s"])}
+    es = torch.empty(0, dtype=fm.dtype).element_size()
+    work = chain_cases.round_work(stats, es, const["W"])
+    out = dict(stats=stats, max_abs_err=errs)
+    for name, (run, restore) in runs.items():
+        r = dict(loop_ms=cuda_time_ms(run, reps),
+                 graph_ms=launch_ms(run, reps))
+        if restore is not None:
+            r["restore_loop_ms"] = cuda_time_ms(restore, reps)
+            r["restore_graph_ms"] = launch_ms(restore, reps)
+            r["graph_ms"] -= r["restore_graph_ms"]
+        r["ms"] = r["graph_ms"]
+        if name in plain:
+            r.update(profiled_kernel_ms(run, name, reps))
+            r["plain_ms"] = cuda_time_ms(plain[name], max(reps // 4, 2))
+            r["bytes"], r["ops"] = work[name]
+            r["bound_ms"], r["bound_by"] = bound_of(*work[name])
+        out[name] = r
+    del ks, rd, ps
+    return out
+
+
+def profiled_kernel_ms(run, kernel: str, reps: int) -> dict:
+    """torch.profiler over ``reps`` calls of ``run`` (after one): the mean
+    device time of the records of ``kernel`` alone, the other kernels and
+    copies of ``run`` left out, and how many records it saw (the
+    profiler has dropped records in a long process: fm_measure)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if kernel in e.name and
+          str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return dict(profiled_ms=sum(us) / len(us) / 1e3 if us else None,
+                profiled_records=len(us))
+
+
+def chain_turns(seeder, queries) -> dict:
+    """Round 1 of the first bench chunk, chain_scan with the kernels and
+    with the plain round (seedscan._chain_round patched), in turns
+    (kernels, plain, plain, kernels): wall ms per call and per round, the
+    outputs compared."""
+    import torch
+    from compseed_tpu_torch.ops import seedscan as ss
+    R, L, qd, rd = seeder._upload(queries)
+    dfi, CW = seeder.dfi, seeder.chain_w
+    M = (256 // CW) * R
+    H = 1 << (4 * M - 1).bit_length()
+    orig = ss._chain_round
+    out, res = {"kernels": [], "plain": []}, {}
+    for name in ("kernels", "plain", "plain", "kernels"):
+        memo = ss.make_chain_memo(H, M, CW, dfi.dtype, dfi.device)
+        if name == "plain":
+            ss._chain_round = lambda dev: ss._chain_round_plain
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = ss.chain_scan(dfi, qd, rd, seeder.GP_F * R, memo, W=CW,
+                              u_cap=max(R // 2, 64), report_rounds=True)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            ss._chain_round = orig
+        rounds = int(r[6])
+        out[name].append(dict(ms=dt * 1e3, ms_per_round=dt * 1e3 / rounds,
+                              rounds=rounds))
+        res[name] = r
+    a, b = res["kernels"], res["plain"]
+    e = max([err(x, y) for x, y in zip(a[:5], b[:5])] +
+            [err(a[5][k], b[5][k]) for k in ss.MEMO_KEYS] + [err(a[7], b[7])])
+    if e:
+        raise SystemExit("chain_scan with the kernels differs from the plain "
+                         "round on round 1 of the first chunk")
+    out["max_abs_err"] = e
+    return out
+
+
+def launch_split(seeder, queries) -> dict:
+    """torch.profiler over one run of the first chunk's seeding, each CUDA
+    runtime call that costs host time (launches, syncs, copies, memsets)
+    given to the innermost stage that issued it: a chain_scan round
+    (seedscan._chain_round_kernels) apart from its sort, the round's
+    sort (chain_cuda.sort), chain_scan's own set-up, loop and tail,
+    walk_pool_chain (its rounds are its backward chain walks), the rest.
+    Stages are marked with record_function for this run only."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops import seedscan as ss
+    from compseed_tpu_torch.ops import chain_cuda
+    orig = dict(scan=ss.chain_scan, rnd=ss._chain_round_kernels,
+                walk=ss.walk_pool_chain, cw=fm_cuda.chain_walk,
+                sort=chain_cuda.sort)
+    n = dict(chain_round=0, walk_round=0, chain_scan=0, walk_pool_chain=0,
+             sort=0)
+
+    def marked(name, fn):
+        def run(*a, **kw):
+            n[name] += 1
+            with record_function(f"stage.{name}"):
+                return fn(*a, **kw)
+        return run
+
+    def cw(*a, **kw):
+        n["walk_round"] += bool(kw.get("is_back"))
+        return orig["cw"](*a, **kw)
+
+    ss.chain_scan = marked("chain_scan", orig["scan"])
+    ss._chain_round_kernels = marked("chain_round", orig["rnd"])
+    ss.walk_pool_chain = marked("walk_pool_chain", orig["walk"])
+    chain_cuda.sort = marked("sort", orig["sort"])
+    fm_cuda.chain_walk = cw
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            seeder.run_flat(queries)
+            torch.cuda.synchronize()
+    finally:
+        ss.chain_scan, ss._chain_round_kernels = orig["scan"], orig["rnd"]
+        ss.walk_pool_chain, fm_cuda.chain_walk = orig["walk"], orig["cw"]
+        chain_cuda.sort = orig["sort"]
+    calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+             "cudaStreamSynchronize", "cudaMemcpyAsync", "cudaMemsetAsync")
+    stages = ("sort", "chain_round", "chain_scan", "walk_pool_chain")
+    spans = {s: [] for s in stages}
+    events = prof.events()
+    for e in events:
+        if e.name.startswith("stage."):
+            spans[e.name[6:]].append((e.time_range.start, e.time_range.end))
+    split = {s: dict.fromkeys(calls, 0) for s in stages + ("rest",)}
+    for e in events:
+        if e.name not in calls:
+            continue
+        t = e.time_range.start
+        where = next((s for s in stages
+                      if any(a <= t <= b for a, b in spans[s])), "rest")
+        split[where][e.name] += 1
+    for s in split:
+        split[s]["launches"] = split[s]["cudaLaunchKernel"] + \
+            split[s]["cudaLaunchKernelExC"]
+    per = dict(
+        chain_round=(split["chain_round"]["launches"] +
+                     split["sort"]["launches"]) / max(n["chain_round"], 1),
+        sort=split["sort"]["launches"] / max(n["sort"], 1),
+        walk_pool_chain_round=split["walk_pool_chain"]["launches"]
+        / max(n["walk_round"], 1))
+    return dict(split=split, calls=n, launches_per_round=per,
+                launches=sum(v["launches"] for v in split.values()))
+
+
+def chain_main_path(seeder, queries, l32, cases) -> dict:
+    """Phase 4's chain numbers: each kernel's launches per chunk in the
+    int32 window; each kernel timed at the main path's shapes (round 1 at
+    16,384 lanes and its narrower segments, round 2 at 65,536:
+    chain_time); round 1's chain_scan with the kernels and the plain
+    round in turns (chain_turns); the launches by stage over one chunk
+    (launch_split)."""
+    per_chunk = {k: l32[k] / ((RUNS + 1) * N_CHUNKS) for k in CHAIN_KERNELS}
+    log(f"[4] chain kernel launches per {CHUNK}-read chunk (int32 window): "
+        f"{json.dumps(per_chunk)}")
+    for k in CHAIN_KERNELS:
+        if l32[k] <= 0:
+            raise SystemExit(f"int32 main path: {k} was not launched: {l32}")
+    shapes = {}
+    for (call, w), case in sorted(cases.items()):
+        tag = f"round {call} w={w}"
+        if tag in ("round 1 w=16384", "round 1 w=4096", "round 1 w=1024",
+                   "round 2 w=65536"):
+            shapes[tag] = r = chain_time(case)
+            log(f"[4] chain kernels at {tag} (Uw={case[4]}): "
+                f"{json.dumps(r)}")
+            if any(r["max_abs_err"].values()):
+                raise SystemExit(f"a chain kernel disagrees with its plain "
+                                 f"step at {tag}")
+    if "round 1 w=16384" not in shapes or "round 2 w=65536" not in shapes:
+        raise SystemExit(f"the chain rounds to time were not captured: "
+                         f"{sorted(shapes)}")
+    turns = chain_turns(seeder, queries)
+    log(f"[4] round 1's chain_scan, kernels and plain round in turns: "
+        f"{json.dumps(turns)}")
+    split = launch_split(seeder, queries)
+    log(f"[4] launches by stage over one {CHUNK}-read chunk: "
+        f"{json.dumps(split)}")
+    if split["launches_per_round"]["chain_round"] > MAX_CHAIN_ROUND_LAUNCHES:
+        raise SystemExit(f"a chain_scan round makes "
+                         f"{split['launches_per_round']['chain_round']:.1f} "
+                         f"launches, more than {MAX_CHAIN_ROUND_LAUNCHES}")
+    return dict(launches_per_chunk=per_chunk, shapes=shapes, turns=turns,
+                split=split)
+
+
+def chain_rows(chain_rec, l32, row, prof) -> list:
+    """The chain kernels' rows of the kernel table.  launches: the int32
+    window of the main path; ms (on the card alone), plain_ms, the
+    profiler's device time and the bound: round 1 of the first chunk at
+    16,384 lanes; device_ms_profiled: the profiler's mean over one
+    chunk's launches (``prof``: profile_chunk's kernels); max_abs_err:
+    over every captured round, int32 and int64, and its lossy form
+    (phase 2)."""
+    at = chain_rec["shapes"]["round 1 w=16384"]
+    rows = []
+    for k in CHAIN_KERNELS:
+        e = max(r[k] for recs in chain_rec["phase2"].values()
+                for r in recs.values())
+        r = at[k]
+        rows.append(row(
+            k, CHAIN_REPLACES[k], l32[k], e, r["ms"], r["plain_ms"], r,
+            source=CHAIN_SOURCE, loop_ms=r["loop_ms"],
+            per_chunk=chain_rec["launches_per_chunk"][k],
+            profiled_ms=r["profiled_ms"],
+            device_ms_profiled=prof.get(k, {}).get("device_ms_per_launch"),
+            shapes={t: {n: v[k][n] for n in ("ms", "profiled_ms", "loop_ms",
+                                                "plain_ms", "bound_ms")}
+                    for t, v in chain_rec["shapes"].items()}))
+    return rows
 
 
 def compare(tiles, gap, state16: bool):
@@ -1808,7 +2196,7 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
             head, seedpk = head.cpu().numpy(), seedpk.cpu().numpy()
             first_s = time.time() - t0
             fm_launches = {k: v for k, v in launch_counts().items()
-                           if k in FM_KERNELS}
+                           if k in FM_KERNELS + CHAIN_KERNELS}
             rec = head_record(head, seedpk)
             if rec != stored["engines"][name]:
                 raise SystemExit(f"engine {name}: the head of the first "
@@ -2101,7 +2489,8 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
                          f"differs from the int32 run's")
     if l64["bsw_meta_dual_kernel"] <= 0 or \
             l64["fm_chain_walk_kernel"] <= 0 or \
-            l64["fm_inv_psi_walk_kernel"] <= 0:
+            l64["fm_inv_psi_walk_kernel"] <= 0 or \
+            min(l64[k] for k in CHAIN_KERNELS) <= 0:
         raise SystemExit(f"int64 index: a kernel of the path was not "
                          f"launched: {l64}")
     out["int64"] = dict(shards=S_head, chunk_s=wall,
@@ -2210,7 +2599,7 @@ def main() -> None:
                                              read_reordered_chunks)
     from compseed_tpu_torch.native import NativeTail
     from compseed_tpu_torch.index.build import unpack_pac
-    from compseed_tpu_torch.ops import bsw, bsw_cuda, fm_cuda
+    from compseed_tpu_torch.ops import bsw, bsw_cuda, chain_cuda, fm_cuda
     from compseed_tpu_torch.ops.bsw_cases import dual_meta_case
     from compseed_tpu_torch.ops.device_index import pack_pac_words, to_device
     from compseed_tpu_torch.ops.engine import device_engine, device_seeder
@@ -2250,16 +2639,20 @@ def main() -> None:
         build(force=True)
         return time.time() - t0
 
-    with cf.ThreadPoolExecutor(max_workers=3) as ex:
+    with cf.ThreadPoolExecutor(max_workers=4) as ex:
         host = ex.submit(native.build_library, True)
         fm_build = ex.submit(timed_build, fm_cuda.build_library)
+        chain_build = ex.submit(timed_build, chain_cuda.build_library)
         dp_build_s = timed_build(bsw_cuda.build_library)
         fm_build_s = fm_build.result()
+        chain_build_s = chain_build.result()
         build_s = time.time() - t0
         host.result()
     fm_cuda.LIB.load()
+    chain_cuda.LIB.load()
     log(f"[1] build: DP kernels {dp_build_s:.2f} s, FM kernels "
-        f"{fm_build_s:.2f} s, with the host tail {time.time() - t0:.2f} s")
+        f"{fm_build_s:.2f} s, chain kernels {chain_build_s:.2f} s, with the "
+        f"host tail {time.time() - t0:.2f} s")
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     probe_err = int((bsw_cuda.probe_add_one(x).to(torch.int64)
                      - bsw_cuda._probe_plain(x).to(torch.int64)).abs().max())
@@ -2447,6 +2840,12 @@ def main() -> None:
                              f"version ({tag}): "
                              f"{ {k: v for k, v in e.items() if v} }")
 
+    # the chain kernels against their plain steps on the first bench
+    # chunk's own rounds (int32 and int64 positions), and each round with
+    # slot collisions and a full store
+    chain_errs, chain_cases_ = chain_phase2(dev, opt, fm,
+                                            list(reads_arr[:CHUNK]))
+
     # ---- phase 3: goldens on the card, each file as one chunk
     fm_t = FMIndex.from_built(build_index(
         os.path.join(ROOT, "tests", "fixtures", "tiny.fa")))
@@ -2598,7 +2997,8 @@ def main() -> None:
     l32 = rec32["launches"]
     if l32["bsw_meta_dual_kernel"] <= 0 or l32["probe_add_one_kernel"] <= 0 \
             or l32["fm_chain_walk_kernel"] <= 0 \
-            or l32["fm_inv_psi_walk_kernel"] <= 0:
+            or l32["fm_inv_psi_walk_kernel"] <= 0 \
+            or min(l32[k] for k in CHAIN_KERNELS) <= 0:
         raise SystemExit(f"int32 main path: a kernel was not launched: {l32}")
     if l32["bsw_meta_dual_kernel_i16"] or l32["bsw_extend_kernel_i16"]:
         raise SystemExit("an int16 kernel ran without COMPSEED_BSW_I16=1")
@@ -2615,6 +3015,21 @@ def main() -> None:
     del fm_calls
     fm_rec["phase2_max_abs_err"] = fm_errs
     fm_rec["main_launches"] = {k: l32[k] for k in FM_KERNELS}
+    prof = fm_rec["profile"]
+    chunk_launches = prof["cudaLaunchKernel"] + prof["cudaLaunchKernelExC"]
+    log(f"[4] one {CHUNK}-read chunk: {chunk_launches} launches, "
+        f"{prof['cudaStreamSynchronize']} stream syncs, "
+        f"{prof['cudaMemcpyAsync']} async copies")
+    if chunk_launches >= MAX_CHUNK_LAUNCHES or \
+            prof["cudaStreamSynchronize"] > MAX_CHUNK_SYNCS or \
+            prof["cudaMemcpyAsync"] > MAX_CHUNK_COPIES:
+        raise SystemExit(f"a chunk's launches / syncs / copies exceed "
+                         f"{MAX_CHUNK_LAUNCHES} / {MAX_CHUNK_SYNCS} / "
+                         f"{MAX_CHUNK_COPIES}: {prof}")
+    chain_rec = chain_main_path(seeder, list(reads_arr[:CH]), l32,
+                                chain_cases_)
+    del chain_cases_
+    chain_rec["phase2"] = chain_errs
 
     # the host oracle path once; both engines are held to it
     t0 = time.time()
@@ -2820,7 +3235,9 @@ def main() -> None:
     probe_bound = max(probe_bytes / HBM_BYTES_PER_S,
                       8 * 128 / INT32_OPS_PER_S) * 1e3
     print(json.dumps({"build_s": build_s, "dp_build_s": dp_build_s,
-                      "fm_build_s": fm_build_s, "fm": fm_rec,
+                      "fm_build_s": fm_build_s,
+                      "chain_build_s": chain_build_s, "fm": fm_rec,
+                      "chain": chain_rec,
                       "synthetic_ms": synth,
                       "self_check_ms": self_check_ms, "main": rec32,
                       "main_int16": rec16, "main_tile_route": rec_tiles,
@@ -2874,7 +3291,8 @@ def main() -> None:
         row("probe_add_one_kernel", "compseed_tpu/ops/bsw.py:310",
             l32["probe_add_one_kernel"], probe_err, probe_ms, probe_plain_ms,
             probe_row, library_ms=probe_lib_ms, graph_ms=probe_graph_ms,
-            library_graph_ms=probe_lib_graph_ms)] + fm_rows(fm_rec, row)}))
+            library_graph_ms=probe_lib_graph_ms)] + fm_rows(fm_rec, row)
+        + chain_rows(chain_rec, l32, row, fm_rec["profile"]["kernels"])}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

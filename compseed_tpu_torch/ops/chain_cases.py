@@ -1,0 +1,196 @@
+"""Rounds of chain_scan for checking the kernels of csrc/chain_scan.cu
+against their plain steps (used by chip_smoke.py and
+tests/test_torch_cuda.py).
+
+``RoundCapture`` keeps the state before chosen rounds of the kernel path
+while a run goes through it (the main path's own rounds at its own
+widths); ``lossy`` turns such a state into one whose table is 1,024 slots
+(slot collisions everywhere) and whose store is all but full;
+``steps_vs_plain`` runs one round from a state through each kernel and
+through the plain steps (``seedscan._chain_probe_plain`` and the rest),
+step by step, and returns each kernel's largest difference;
+``round_work`` counts the bytes and operations each kernel's work
+needs on this round's data."""
+
+from __future__ import annotations
+
+import torch
+
+from compseed_tpu_torch.ops import chain_cuda
+from compseed_tpu_torch.ops import seedscan as tss
+
+_LANE = ("lane0", "pivot", "pos", "alive", "k", "l", "s")
+
+
+def clone_state(st: dict) -> dict:
+    """A copy of chain_scan's state, its views rebuilt on the copy."""
+    out = {n: st[n].clone() for n in _LANE + tss.MEMO_KEYS +
+           ("pool", "ctr", "live")}
+    out.update(zip(tss.POOL_KEYS, out["pool"]))
+    out.update(zip(("fq", "fc", "cursor", "povf"), out["ctr"]))
+    return out
+
+
+class RoundCapture:
+    """While active, keeps (fm, constants, state, w, Uw) before the first
+    round of every width of every chain_scan call made through the
+    kernels, up to ``limit`` states, numbered by call: ``states[(call,
+    w)]``."""
+
+    def __init__(self, limit: int = 8):
+        self.limit = limit
+        self.states = {}
+        self.calls = 0
+
+    def __enter__(self):
+        self._scan, self._round = tss.chain_scan, tss._chain_round_kernels
+
+        def scan(*a, **kw):
+            self.calls += 1
+            return self._scan(*a, **kw)
+
+        def rnd(fm, c, st, w, Uw, held):
+            key = (self.calls, w)
+            if key not in self.states and len(self.states) < self.limit:
+                self.states[key] = (fm, c, clone_state(st), w, Uw)
+            return self._round(fm, c, st, w, Uw, held)
+
+        tss.chain_scan, tss._chain_round_kernels = scan, rnd
+        return self
+
+    def __exit__(self, *exc):
+        tss.chain_scan, tss._chain_round_kernels = self._scan, self._round
+
+
+def lossy(case, H: int = 1024, room: int = 200):
+    """The same round over the table's first H slots (a chain key's slot
+    is its hash masked to H, so every entry kept stays findable) and a
+    store with ``room`` free rows: slot collisions and a full store."""
+    fm, const, st, w, Uw = case
+    st = clone_state(st)
+    st["tbl"] = st["tbl"][:H].clone()
+    M = st["cst"].shape[0]
+    st["cur"].fill_(max(M - room, int(st["cur"])))
+    return fm, const, st, w, Uw
+
+
+def _err(a, b) -> int:
+    a, b = a.to(torch.int64), b.to(torch.int64)
+    if a.shape != b.shape:
+        raise ValueError(f"shapes differ: {tuple(a.shape)} {tuple(b.shape)}")
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def steps_vs_plain(case) -> dict:
+    """One round from the case's state through each kernel and through its
+    plain step, each kernel fed what the plain steps computed before it:
+    {kernel: max_abs_err over its outputs}, plus the round's data
+    (``stats``: hits, applied lanes, pushes, n_u, n_w, stored reps)."""
+    fm, const, st0, w, Uw = case
+    ks, ps = clone_state(st0), clone_state(st0)
+    rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
+    sc = rd.scratch
+    errs = {}
+
+    chain_cuda.probe(rd)
+    pr = tss._chain_probe_plain(fm, const, ps)
+    hit = pr["hit"]
+    errs["chain_probe_kernel"] = max(
+        _err(sc["p_wv"], pr["wv"]), _err(sc["p_slot"], pr["slot"]),
+        _err(sc["p_hit"], hit), _err(sc["key"], pr["key"]),
+        _err(sc["p_ptr"][hit], pr["ptr"][hit]),
+        _err(sc["p_hk0"][hit], pr["hk0"][hit]),
+        _err(sc["p_hln"][hit], pr["hln"][hit]))
+
+    order = torch.argsort(pr["key"], stable=True)
+    sc["order"].copy_(order)
+    chain_cuda.group(rd)
+    gr = tss._chain_group_plain(ps, pr, order, Uw)
+    n_w = int(gr["n_w"])
+    M = ps["cst"].shape[0]
+    stored = max(0, min(n_w, M - int(ps["cur"])))
+    errs["chain_group_kernel"] = max(
+        _err(sc["gidx"], gr["gidx"]),
+        *(_err(sc[n], gr[n]) for n in ("rep_wv", "rep_k", "rep_l", "rep_s",
+                                       "rep_valid", "rep_slot")),
+        _err(sc["sc"][[0, 1, 3, 7]], torch.stack(
+            [gr["n_w"], ps["cur"].to(torch.int64), gr["n_u"],
+             ps["cursor"].to(torch.int64)])),
+        _err(ks["cur"], ps["cur"] + stored))
+
+    walk = tss._chain_walk(fm, gr["rep_wv"], const["W"], gr["rep_k"],
+                           gr["rep_l"], gr["rep_s"], gr["rep_valid"])
+    rd.set_walk(*walk)
+    chain_cuda.apply(rd)
+    ps2 = tss._chain_apply_plain(fm, const, ps, pr, gr, walk, w, Uw)
+    errs["chain_apply_kernel"] = max(
+        *(_err(ks[n], ps2[n]) for n in _LANE + tss.MEMO_KEYS +
+          tss.POOL_KEYS),
+        _err(ks["ctr"], torch.stack([ps2["fq"], ps2["fc"], ps2["cursor"],
+                                     ps2["povf"].to(torch.int32)])),
+        _err(rd.live, ps2["alive"].sum()))
+    applied = hit | (pr["miss"] & (gr["gidx"] < gr["n_w"]))
+    lived = applied & ps2["alive"]
+    respawned = lived & (ps2["pivot"] != ps["pivot"])
+    rs = gr["rep_slot"][:stored]
+    errs["stats"] = dict(
+        w=w, Uw=Uw, live=int(st0["alive"].sum()), hits=int(hit.sum()),
+        misses=int(pr["miss"].sum()),
+        hit_rows=int(pr["ptr"][hit].unique().numel()),
+        applied=int(applied.sum()), lived=int(lived.sum()),
+        respawned=int(respawned.sum()),
+        pushes=int(ps2["cursor"]) - int(ps["cursor"]),
+        n_u=int(gr["n_u"]), n_w=n_w, stored=stored,
+        tbl_rows=int((rs[1:] != rs[:-1]).sum()) + 1 if stored else 0,
+        advance=bool(const["advance"]),
+        ovf=bool(ps2["povf"]), H=ps["tbl"].shape[0], M=M)
+    return errs
+
+
+def round_work(stats: dict, es: int, W: int) -> dict:
+    """What each kernel's work needs on a round's data (``stats`` of
+    steps_vs_plain; es: the index type's size): kernel -> (bytes, integer
+    operations).  Bytes: each input the kernel needs read once and each
+    output written once, counted by distinct element.
+
+    probe, per lane: lane0, its read's window word, pos, l, s, alive
+    (not pivot or k), and its outputs; a table row per live lane.
+    group, per lane: its sorted position and key, its group index
+    written; per live miss: window, l and s (a miss's sorted predecessor
+    is a miss too); per representative: k and slot read, six outputs.
+    apply, per lane: alive, hit and group index; per applied lane: its
+    state and per-read constants; per hit: ptr, k0, len, and each store
+    row it reads once however many hits share it; per representative
+    that walked: its walk (3 W words), length and k, once however many
+    lanes apply it; per stored representative: the store row written and
+    the inputs of its table row, and per table row written 8 words; per
+    stopped lane (with ``advance``): its next pivot, and per respawn its
+    base; the state each lane changes (a lane that goes through writes
+    k, l, s, pos; a respawn also pivot; a lane that stops writes alive);
+    six pool words per push.  Operations, per lane: the probe's slot
+    hash and compares 40; the group's head test and scan 16; the
+    apply's scan 4, its chain pick, re-base and push / stop rule
+    12 + 8 W for an applied lane, and 8 per push."""
+    w, Uw, live = stats["w"], stats["Uw"], stats["live"]
+    applied, pushes = stats["applied"], stats["pushes"]
+    hits, n_w, stored = stats["hits"], stats["n_w"], stats["stored"]
+    lived, respawned = stats["lived"], stats["respawned"]
+    through = lived - respawned
+    stops = applied - through
+    probe = w * (4 + 4 + 4 + 8 + 2 * es + 1) + live * 8 * es + \
+        w * (8 + 4 + 1 + 4 + es + 4 + 4)
+    group = w * (8 + 4 + 4) + stats["misses"] * (8 + 2 * es) + \
+        n_w * (es + 4) + Uw * (8 + 3 * es + 1 + 4)
+    apply = w * (1 + 1 + 4) + \
+        applied * (3 * es + 4 + 4 + 4 + 4 + 4 + 4 + es) + \
+        hits * (4 + es + 4) + stats["hit_rows"] * 3 * W * es + \
+        Uw + n_w * (3 * W * es + 4 + es) + \
+        stored * (3 * W * es + 8 + 2 * es + 4) + \
+        stats["tbl_rows"] * 8 * es + \
+        (stops * 4 if stats["advance"] else 0) + respawned + \
+        through * (3 * es + 4) + respawned * (3 * es + 8) + \
+        (applied - lived) + pushes * 6 * es
+    return dict(chain_probe_kernel=(probe, 40 * w),
+                chain_group_kernel=(group, 16 * w),
+                chain_apply_kernel=(apply, 8 * w + applied * (12 + 8 * W)
+                                    + 8 * pushes))

@@ -1,0 +1,228 @@
+"""The forward chain-memo scan's round on Hopper: launchers of
+``csrc/chain_scan.cu``.
+
+``seedscan.chain_scan`` runs its round as the plain version,
+``seedscan._chain_round_plain``, for CPU tensors, and otherwise as
+``seedscan._chain_round_kernels``: three hand-written kernels around one
+``torch.sort`` and one ``fm_chain_walk_kernel`` launch,
+
+  ``probe`` -> ``chain_probe_kernel``  (memo probe, slot hash, sort key);
+  ``group`` -> ``chain_group_kernel``  (group heads, scan, representatives);
+  ``apply`` -> ``chain_apply_kernel``  (insert, apply, push / stop,
+               advance, and the pushes to the pool in order).
+
+A ``ChainRound`` holds one segment's launch arguments (the ``Args``
+words of the source, named by ``ARGS`` in order) and its scratch: the
+lane state, the memo, the pool and the counters are updated in place, so
+the arguments stay fixed from round to round, apart from the
+representatives' walk, which ``set_walk`` points to.  The library is
+``LIB``, an ``ops/cuda_lib.KernelLibrary`` (built with nvcc for sm_90a at
+first use into build/compseed_tpu_torch/libchain_scan.so);
+``DeviceSeeder`` loads it when it is built on a CUDA device.
+
+``LAUNCHES`` counts kernel launches by kernel, and nothing else.  Every
+launch goes to the device its tensors lie on, on that device's current
+stream, with no synchronisation, under the library's lock (the sharded
+path's worker threads share it); a launch on another device raises.
+"""
+
+from __future__ import annotations
+
+import ctypes as ct
+
+import torch
+
+from compseed_tpu_torch.ops.cuda_lib import KernelLibrary
+
+MAX_W = 10                  # a chain window packs into 30 bits
+POOL_COLS = 6               # k, l, s, end, pivot, row
+
+# csrc/chain_scan.cu's struct Args, one 64-bit word a field, in order
+ARGS = (
+    "lane0", "pivot", "pos", "alive", "k", "l", "s",
+    "lane_rid0", "lane_rlen0", "mh0", "row_id0", "winflat", "nxt", "qflat",
+    "L2",
+    "tbl", "cst", "cur", "pool", "ctr",
+    "p_wv", "p_slot", "p_hit", "p_ptr", "p_hk0", "p_hln", "key", "order",
+    "gidx", "rep_wv", "rep_k", "rep_l", "rep_s", "rep_valid", "rep_slot",
+    "ck", "cl", "cs", "ln",
+    "lb_group", "lb_apply", "sc",
+    "w", "Uw", "W", "L", "H", "M", "GP", "nq", "r3", "advance", "min_len",
+    "max_intv", "idx64")
+_AT = {n: i for i, n in enumerate(ARGS)}
+
+KERNELS = ("chain_probe_kernel", "chain_group_kernel", "chain_apply_kernel")
+BLOCK = 256                 # threads a block of every kernel: a lane each
+
+
+def _bind(lib) -> None:
+    for kernel in KERNELS:
+        fn = getattr(lib, kernel.replace("_kernel", "_launch"))
+        fn.argtypes = [ct.c_void_p, ct.c_void_p]
+        fn.restype = ct.c_int
+    lib.chain_args_words.argtypes = []
+    lib.chain_args_words.restype = ct.c_int
+    if lib.chain_args_words() != len(ARGS):
+        raise RuntimeError(f"chain_scan.cu's Args has "
+                           f"{lib.chain_args_words()} words, ARGS names "
+                           f"{len(ARGS)}")
+
+
+LIB = KernelLibrary("chain_scan.cu", KERNELS, _bind, "chain_cuda_error_name")
+LAUNCHES = LIB.launches
+build_library = LIB.build
+
+
+def _launch(kernel: str, dev: torch.device, args) -> None:
+    """Launch ``kernel`` with the Args words ``args`` on ``dev``."""
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel}: the kernel needs CUDA tensors, got {dev}")
+    LIB.launch(kernel, dev, kernel.replace("_kernel", "_launch"),
+               ct.addressof(args))
+
+
+def _check(name, x, dtype, shape, dev):
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+
+
+class ChainRound:
+    """One segment of chain_scan's loop (``w`` lanes, ``Uw``
+    representatives): the kernels' arguments and scratch.
+
+    ``st`` is chain_scan's state: the lane state (w,) ``lane0``,
+    ``pivot``, ``pos`` (int32), ``alive`` (bool), ``k``, ``l``, ``s``
+    (index dtype); the memo ``tbl`` (H, 8), ``cst`` (M, 3W), ``cur``
+    (int32); ``pool`` (6, GP); ``ctr`` (4,) int32 [fq, fc, cursor,
+    povf].  ``const`` holds the call's constants: ``lane_rid0``,
+    ``lane_rlen0``, ``row_id0`` (int32, by original lane), ``mh0`` (index
+    dtype), ``winflat`` (int64), ``nxt`` (R, L) int32, ``qflat`` uint8,
+    and the sizes ``W``, ``L``, ``GP``, ``r3``, ``advance``, ``min_len``,
+    ``max_intv``.  The kernels update the state in place."""
+
+    def __init__(self, fm, const: dict, st: dict, w: int, Uw: int):
+        dt = fm.dtype
+        if dt not in (torch.int32, torch.int64):
+            raise TypeError(f"index dtype {dt} is neither int32 nor int64")
+        W = const["W"]
+        if not 1 <= W <= MAX_W:
+            raise ValueError(f"chain_scan: W={W} is outside [1, {MAX_W}]")
+        if not 1 <= Uw <= w:
+            raise ValueError(f"chain_scan: Uw={Uw} is outside [1, w={w}]")
+        dev = st["k"].device
+        H, M = st["tbl"].shape[0], st["cst"].shape[0]
+        GP = const["GP"]
+        i32, i64 = torch.int32, torch.int64
+        for name, x, xdt, shape in (
+                ("lane0", st["lane0"], i32, (w,)),
+                ("pivot", st["pivot"], i32, (w,)),
+                ("pos", st["pos"], i32, (w,)),
+                ("alive", st["alive"], torch.bool, (w,)),
+                ("k", st["k"], dt, (w,)), ("l", st["l"], dt, (w,)),
+                ("s", st["s"], dt, (w,)),
+                ("tbl", st["tbl"], dt, (H, 8)),
+                ("cst", st["cst"], dt, (M, 3 * W)),
+                ("cur", st["cur"], i32, ()),
+                ("pool", st["pool"], dt, (POOL_COLS, GP)),
+                ("ctr", st["ctr"], i32, (4,)),
+                ("lane_rid0", const["lane_rid0"], i32,
+                 const["lane_rid0"].shape),
+                ("lane_rlen0", const["lane_rlen0"], i32,
+                 const["lane_rid0"].shape),
+                ("row_id0", const["row_id0"], i32, const["lane_rid0"].shape),
+                ("mh0", const["mh0"], dt, const["lane_rid0"].shape),
+                ("winflat", const["winflat"], i64, const["winflat"].shape),
+                ("nxt", const["nxt"], i32, const["nxt"].shape),
+                ("qflat", const["qflat"], torch.uint8, const["qflat"].shape),
+                ("L2", fm.L2, dt, (5,))):
+            _check(name, x, xdt, shape, dev)
+        if H & (H - 1) or H >= 2**31 or M >= 2**31:
+            raise ValueError(f"chain_scan: H={H} must be a power of two "
+                             f"below 2^31 and M={M} below 2^31")
+        if st["tbl"].data_ptr() % 16:
+            raise ValueError("the memo table must be 16-byte aligned (its "
+                             "rows are read as 16-byte words)")
+        self.dev, self.w, self.Uw, self.W = dev, w, Uw, W
+
+        def e(n, dtype=i32):
+            return torch.empty(n, dtype=dtype, device=dev)
+
+        # scratch, one set per segment; the sort writes sorted_key /
+        # order; the look-back words and sc start at zero
+        n_blocks = -(-w // BLOCK)
+        self.scratch = dict(
+            p_wv=e(w, i64), p_slot=e(w), p_hit=e(w, torch.uint8),
+            p_ptr=e(w), p_hk0=e(w, dt), p_hln=e(w), key=e(w),
+            sorted_key=e(w), order=e(w, i64), gidx=e(w),
+            rep_wv=e(Uw, i64), rep_k=e(Uw, dt), rep_l=e(Uw, dt),
+            rep_s=e(Uw, dt), rep_valid=e(Uw, torch.bool), rep_slot=e(Uw),
+            lb_group=torch.zeros(n_blocks, dtype=i64, device=dev),
+            lb_apply=torch.zeros(n_blocks, dtype=i64, device=dev),
+            sc=torch.zeros(8, dtype=i32, device=dev))
+        self.live = self.scratch["sc"][2]       # the live count after apply
+        self._held = {n: st[n] for n in ("lane0", "pivot", "pos", "alive",
+                                         "k", "l", "s", "tbl", "cst", "cur",
+                                         "pool", "ctr")}
+        args = (ct.c_longlong * len(ARGS))()
+        for n, x in list(self._held.items()) + list(self.scratch.items()):
+            if n != "sorted_key":
+                args[_AT[n]] = x.data_ptr()
+        for n in ("lane_rid0", "lane_rlen0", "mh0", "row_id0", "winflat",
+                  "nxt", "qflat"):
+            args[_AT[n]] = const[n].data_ptr()
+        args[_AT["L2"]] = fm.L2.data_ptr()
+        for n, x in (("w", w), ("Uw", Uw), ("W", W), ("L", const["L"]),
+                     ("H", H), ("M", M), ("GP", GP),
+                     ("nq", const["qflat"].shape[0]),
+                     ("r3", int(bool(const["r3"]))),
+                     ("advance", int(bool(const["advance"]))),
+                     ("min_len", int(const["min_len"])),
+                     ("max_intv", int(const["max_intv"])),
+                     ("idx64", int(dt == i64))):
+            args[_AT[n]] = x
+        self.args = args
+
+    def holds(self, st: dict, w: int) -> bool:
+        """Whether this round was built for ``st``'s tensors at width w."""
+        return w == self.w and all(st[n] is x for n, x in self._held.items())
+
+    def set_walk(self, ck, cl, cs, ln) -> None:
+        """Point the apply kernel at the representatives' walk: ck, cl, cs
+        (Uw, W) in the index dtype, ln (Uw,) int32."""
+        dt = self._held["k"].dtype
+        for name, x, xdt, shape in (("ck", ck, dt, (self.Uw, self.W)),
+                                    ("cl", cl, dt, (self.Uw, self.W)),
+                                    ("cs", cs, dt, (self.Uw, self.W)),
+                                    ("ln", ln, torch.int32, (self.Uw,))):
+            _check(name, x, xdt, shape, self.dev)
+            self.args[_AT[name]] = x.data_ptr()
+        self._walk = (ck, cl, cs, ln)           # kept alive until replaced
+
+
+def probe(rd: ChainRound) -> None:
+    """chain_probe_kernel: every lane's memo probe and sort key."""
+    _launch("chain_probe_kernel", rd.dev, rd.args)
+
+
+def sort(rd: ChainRound) -> None:
+    """The lanes in slot order (stable), into the round's order array."""
+    s = rd.scratch
+    torch.sort(s["key"], stable=True, out=(s["sorted_key"], s["order"]))
+
+
+def group(rd: ChainRound) -> None:
+    """chain_group_kernel: groups, scan, representatives, store cursor."""
+    _launch("chain_group_kernel", rd.dev, rd.args)
+
+
+def apply(rd: ChainRound) -> None:
+    """chain_apply_kernel: inserts, chains applied, lanes advanced, the
+    pushes to the pool (cursor, povf); the live count."""
+    _launch("chain_apply_kernel", rd.dev, rd.args)

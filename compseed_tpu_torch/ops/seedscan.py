@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from compseed_tpu_torch.ops import fm as dfm
-from compseed_tpu_torch.ops import fm_cuda
+from compseed_tpu_torch.ops import chain_cuda, fm_cuda
 from compseed_tpu_torch.ops.bits import (add64, as_i32, lsr64, mul32,
                                          mul64, sub64, u32)
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex
@@ -1048,6 +1048,7 @@ def forward_scan_dedup(fm: DeviceFMIndex, qarr, rlens, GP: int, stages,
     return pool, cursor.to(_I32), ovf, fq.to(_I32), fc.to(_I32)
 
 MEMO_KEYS = ("tbl", "cst", "cur")
+POOL_KEYS = ("pool_k", "pool_l", "pool_s", "pool_e", "pool_p", "pool_r")
 # tbl column indices: window, l0, s0, k0, len, ptr, valid
 _T_W, _T_L0, _T_S0, _T_K0, _T_LN, _T_P, _T_V = range(7)
 
@@ -1158,6 +1159,10 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     key and one representative per group walks the chain (u_cap bounds
     the walk width; excess groups wait a round).  The loop is segmented
     (stable compaction to narrower widths), exactly like the JAX loop.
+    The round is ``_chain_round_plain`` for CPU tensors and
+    ``_chain_round_kernels`` (csrc/chain_scan.cu) otherwise; the kernels
+    update a copy of the memo, made once per call, in place: the
+    caller's memo is never written.
 
     Returns (pool (GP, 7), n_rows, ovf, fq, fc, memo'); with
     ``report_rounds`` (a profiling diagnostic) also the number of rounds
@@ -1169,16 +1174,13 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     n_lanes = R if rids is None else rids.shape[0]
     U = u_cap if u_cap is not None else max(n_lanes // 2, 64)
     U = min(U, n_lanes)
-    H = memo["tbl"].shape[0]
-    M = memo["cst"].shape[0]
     RCAP = 3 * L + 16
-    r3 = mode == "r3"
+    run_round = _chain_round(dev)
+    kernels = run_round is not _chain_round_plain
 
     qflat = qarr.reshape(-1)
     nq = qflat.shape[0]
     rlens = rlens.to(_I32)
-    winflat = packed_windows(qarr, W)
-    nxt = next_nonamb(qarr)
     lane_rid0 = torch.arange(R, dtype=_I32, device=dev) if rids is None \
         else rids.to(_I32)
     lane_rlen0 = rlens[lane_rid0.to(_I64)]
@@ -1186,6 +1188,14 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
         else min_hits.to(dt).clamp(min=1)
     row_id0 = torch.arange(n_lanes, dtype=_I32, device=dev) \
         if record_lane_index else lane_rid0
+    nxt = next_nonamb(qarr)
+    c = dict(lane_rid0=lane_rid0.contiguous(),
+             lane_rlen0=lane_rlen0.contiguous(), mh0=mh0.contiguous(),
+             row_id0=row_id0.contiguous(), winflat=packed_windows(qarr, W),
+             nxt=nxt.contiguous(), qflat=qflat.to(torch.uint8).contiguous(),
+             W=W, L=L, GP=GP,
+             r3=mode == "r3", advance=advance, min_len=min_len,
+             max_intv=max_intv)
 
     p0 = torch.zeros(n_lanes, dtype=_I32, device=dev) if pivots0 is None \
         else pivots0.to(_I32)
@@ -1198,171 +1208,25 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
 
     base0 = qflat[(lane_rid0.to(_I64) * L + pivot).clamp(0, nq - 1)]
     ik0 = _set_intv(fm, base0.clamp(0, 3)).T
-    jj = torch.arange(W, dtype=_I32, device=dev)[None, :]
 
-    zp = torch.zeros(GP, dtype=dt, device=dev)
     st = dict(memo)
     st.update(
         lane0=torch.arange(n_lanes, dtype=_I32, device=dev),
         pivot=pivot, pos=pivot + 1, alive=alive,
         k=torch.where(alive, ik0[:, 0], 0), l=torch.where(alive, ik0[:, 1], 0),
-        s=torch.where(alive, ik0[:, 2], 0),
-        pool_k=zp, pool_l=zp, pool_s=zp, pool_e=zp, pool_p=zp, pool_r=zp,
-        cursor=torch.zeros((), dtype=_I32, device=dev),
-        povf=torch.zeros((), dtype=torch.bool, device=dev),
-        fq=torch.zeros((), dtype=_I32, device=dev),
-        fc=torch.zeros((), dtype=_I32, device=dev))
-
-    def body(st, w: int, Uw: int):
-        st = dict(st)
-        lane0 = st["lane0"].to(_I64)
-        lane_rid = lane_rid0[lane0].to(_I64)
-        lane_rlen = lane_rlen0[lane0]
-        mh = mh0[lane0]
-        row_id = row_id0[lane0]
-        pivot, pos, lalive = st["pivot"], st["pos"], st["alive"]
-        k, l, s = st["k"], st["l"], st["s"]
-        pc = pos.clamp(0, L + 1).to(_I64)
-        wv = winflat[lane_rid * (L + 2) + pc]           # exact W-char window
-
-        # ---- probe the memo table (one row gather per lane), BEFORE
-        # this round's inserts: a hit applies the entry it matched
-        slot = _slot_hash(wv, l, s, H)
-        wst = _w_store(wv, dt)
-        trow = st["tbl"][slot]                          # (w, 8)
-        hit = lalive & (trow[:, _T_V] != 0) & (trow[:, _T_W] == wst) & \
-            (trow[:, _T_L0] == l) & (trow[:, _T_S0] == s)
-        ptr = trow[:, _T_P].clamp(0, M - 1).to(_I64)
-        hk0 = trow[:, _T_K0]
-        hln = trow[:, _T_LN].to(_I32)
-
-        # ---- group misses by (window, l, s): sort by slot (same key =>
-        # same slot), boundary-compare the full key
-        miss = lalive & ~hit
-        order = torch.argsort(torch.where(miss, slot, H).to(_I32),
-                              stable=True)
-        vs = miss[order]
-        head = _group_heads([wv[order], l[order], s[order]], vs)
-        gidx_sorted = torch.cumsum(head, 0) - 1
-        n_u = head.sum()
-        n_w = torch.clamp(n_u, max=Uw)
-        rep_take = _drop_set(
-            torch.zeros(Uw, dtype=_I64, device=dev),
-            torch.where(head & (gidx_sorted < Uw), gidx_sorted, Uw), order)
-        gidx_lane = gidx_sorted[_inverse_perm(order)]
-        group = gidx_lane.clamp(0, Uw - 1)
-        walked = miss & (gidx_lane < n_w)
-
-        # ---- representatives walk one chain each
-        rep_valid = (torch.arange(Uw, device=dev) < n_w) & miss[rep_take]
-        rep_wv = wv[rep_take]
-        rk, rl_, rs = k[rep_take], l[rep_take], s[rep_take]
-        ck, cl, cs, ln = _chain_walk(fm, rep_wv, W, rk, rl_, rs, rep_valid)
-        st["fc"] = st["fc"] + torch.where(rep_valid, ln, 0).sum().to(_I32)
-
-        # ---- insert: chains append to the store (drop when full); the
-        # table slot is overwritten whole (newest wins), one rep per slot
-        rank = torch.cumsum(rep_valid, 0) - 1
-        cptr = st["cur"] + rank
-        can = rep_valid & (cptr < M)
-        rslot = slot[rep_take]
-        first = torch.ones_like(can)
-        first[1:] = rslot[1:] != rslot[:-1]
-        keep = first & can
-        tslot = torch.where(keep, rslot, H)
-        cidx = torch.where(can, cptr, M)
-        st["cst"] = _drop_set(st["cst"], cidx, torch.cat([ck, cl, cs], 1))
-        trows = torch.stack(
-            [_w_store(rep_wv, dt), rl_, rs, rk, ln.to(dt), cptr.to(dt),
-             torch.ones(Uw, dtype=dt, device=dev),
-             torch.zeros(Uw, dtype=dt, device=dev)], dim=1)
-        st["tbl"] = _drop_set(st["tbl"], tslot, trows)
-        st["cur"] = st["cur"] + can.sum().to(_I32)
-
-        # ---- apply: every lane consumes its chain (entry or rep walk)
-        applied = hit | walked
-        crow = st["cst"][ptr]
-        hit2 = hit[:, None]
-
-        def pick(lo, wbuf):
-            return torch.where(hit2, crow[:, lo * W:(lo + 1) * W], wbuf[group])
-
-        src_k0 = torch.where(hit, hk0, rk[group])
-        src_ln = torch.where(hit, hln, ln[group])[:, None]
-        CK = pick(0, ck) + (k - src_k0)[:, None]
-        CL = pick(1, cl)
-        CS = pick(2, cs)
-        real = jj < src_ln
-        amb_here = (jj == src_ln) & (src_ln < W)
-        if r3:
-            # bwt_seed_strategy1 (FM_index/bwt.c:358-379): emit the
-            # POST-extension interval at the first position where it
-            # drops below max_intv at length >= min_len
-            hitj = real & (CS < max_intv) & \
-                ((pos[:, None] + jj - pivot[:, None]) >= min_len)
-            push = hitj
-            stop = hitj | amb_here
-            recK, recL, recS = CK, CL, CS
-            recE = pos[:, None] + jj + 1
-        else:
-            prevs = torch.cat([s[:, None], CS[:, :-1]], 1)
-            changed = CS != prevs
-            small = CS < mh[:, None]
-            push = (real & changed) | amb_here
-            stop = (real & changed & small) | amb_here
-            recK = torch.cat([k[:, None], CK[:, :-1]], 1)
-            recL = torch.cat([l[:, None], CL[:, :-1]], 1)
-            recS = prevs
-            recE = pos[:, None] + jj
-        has_stop = stop.any(1)
-        t = torch.argmax(stop.to(torch.uint8), dim=1).to(_I32)
-        t_eff = torch.where(has_stop, t, W)
-        push = push & (jj <= t_eff[:, None]) & applied[:, None]
-        cons = torch.where(has_stop, t + 1, W)
-        st["fq"] = st["fq"] + torch.where(applied, cons, 0).sum().to(_I32)
-
-        # ---- flush pushes (six column scatters)
-        pflat = push.reshape(-1)
-        pslot = torch.where(pflat, st["cursor"] + torch.cumsum(pflat, 0) - 1,
-                            GP)
-        for col, v in (("pool_k", recK), ("pool_l", recL), ("pool_s", recS),
-                       ("pool_e", recE),
-                       ("pool_p", pivot[:, None].expand(w, W)),
-                       ("pool_r", row_id[:, None].expand(w, W))):
-            st[col] = _drop_set(st[col], pslot, v.reshape(-1))
-        st["cursor"] = st["cursor"] + pflat.sum().to(_I32)
-        st["povf"] = st["povf"] | (st["cursor"] > GP)
-
-        # ---- advance / respawn
-        stop_pos = pos + t
-        amb_stop = has_stop & (t == src_ln[:, 0])
-        if r3:
-            npv = stop_pos + 1
-        else:
-            npv = torch.where(amb_stop, stop_pos + 1, stop_pos)
-        newpiv = torch.where(npv < L,
-                             nxt[lane_rid, npv.clamp(0, L - 1).to(_I64)], L)
-        respawn = applied & has_stop & (newpiv < lane_rlen)
-        if not advance:
-            respawn = torch.zeros_like(respawn)
-        through = applied & ~has_stop
-        baseN = qflat[(lane_rid * L + newpiv).clamp(0, nq - 1)]
-        ikN = _set_intv(fm, baseN.clamp(0, 3)).T
-        last = (src_ln - 1).clamp(0, W - 1).to(_I64)
-        endK = torch.gather(CK, 1, last)[:, 0]
-        endL = torch.gather(CL, 1, last)[:, 0]
-        endS = torch.gather(CS, 1, last)[:, 0]
-        st["k"] = torch.where(respawn, ikN[:, 0],
-                              torch.where(through, endK, k))
-        st["l"] = torch.where(respawn, ikN[:, 1],
-                              torch.where(through, endL, l))
-        st["s"] = torch.where(respawn, ikN[:, 2],
-                              torch.where(through, endS, s))
-        st["pivot"] = torch.where(respawn, newpiv, pivot)
-        st["pos"] = torch.where(respawn, newpiv + 1,
-                                torch.where(through, pos + W, pos))
-        st["alive"] = torch.where(applied, respawn | through, lalive)
-        return st
+        s=torch.where(alive, ik0[:, 2], 0))
+    if kernels:
+        # one copy of the memo per call, then updated in place
+        st.update({kk: memo[kk].clone() for kk in MEMO_KEYS})
+    # the pool columns and the counters [fq, fc, cursor, povf] are views
+    # of one tensor each: the kernels write them in place, the plain
+    # round replaces them
+    st["pool"] = torch.zeros((6, GP), dtype=dt, device=dev)
+    st["ctr"] = torch.zeros(4, dtype=_I32, device=dev)
+    st.update(zip(POOL_KEYS, st["pool"]))
+    st.update(zip(("fq", "fc", "cursor", "povf"), st["ctr"]))
+    st["live"] = alive.sum().to(_I32)
+    held = {}                   # the kernels' launch arguments, by segment
 
     # segment widths: each continuation is narrower, entered once the
     # alive count fits (bit-exact: lanes are only re-indexed)
@@ -1380,12 +1244,13 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
         nxtw = segs[ix + 1] if ix + 1 < len(segs) else 0
         Uw = min(U, w)
         while rnd < RCAP:
-            n_alive = int(st["alive"].sum())
+            # the one host sync a round, as the JAX loop tests its cond
+            n_alive = int(st["live"])
             if n_alive <= nxtw:
                 break
             if report_rounds:
                 alive_hist[rnd] = n_alive
-            st = body(st, w, Uw)
+            st = run_round(fm, c, st, w, Uw, held)
             rnd += 1
         if nxtw:
             lalive = st["alive"]
@@ -1393,7 +1258,7 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
             for kk in lane_keys:
                 st[kk] = _drop_set(torch.zeros(nxtw, dtype=st[kk].dtype,
                                                device=dev), tgt, st[kk])
-    ovf = st["povf"] | st["alive"].any()
+    ovf = (st["povf"] != 0) | st["alive"].any()
 
     # pushes fill slots 0..cursor-1 contiguously; the (rid, pivot, end)
     # final order packs into one integer key (bounds are static)
@@ -1414,3 +1279,238 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
         return (pool, st["cursor"], ovf, st["fq"], st["fc"], memo_out,
                 torch.tensor(rnd, dtype=_I32, device=dev), alive_hist)
     return pool, st["cursor"], ovf, st["fq"], st["fc"], memo_out
+
+
+def _chain_round(dev: torch.device):
+    """chain_scan's round for tensors on ``dev``: the plain version for
+    CPU tensors, the kernels for any other."""
+    if dev.type == "cpu":
+        return _chain_round_plain
+    return _chain_round_kernels
+
+
+def _chain_round_kernels(fm: DeviceFMIndex, c: dict, st: dict, w: int,
+                         Uw: int, held: dict) -> dict:
+    """One round of chain_scan on w lanes by the kernels of
+    csrc/chain_scan.cu (ops/chain_cuda.py): probe, the stable sort by
+    slot, group, the representatives' walk, apply (with the flush of the
+    pushes).  The state is updated in place (the memo is chain_scan's own
+    copy); ``st["live"]`` is the live count after the round.  ``held``
+    keeps the segment's launch arguments (a ``ChainRound``) from round
+    to round of one call."""
+    rd = held.get("round")
+    if rd is None or not rd.holds(st, w):
+        rd = held["round"] = chain_cuda.ChainRound(fm, c, st, w, Uw)
+    chain_cuda.probe(rd)
+    chain_cuda.sort(rd)
+    chain_cuda.group(rd)
+    s = rd.scratch
+    rd.set_walk(*_chain_walk(fm, s["rep_wv"], c["W"], s["rep_k"],
+                             s["rep_l"], s["rep_s"], s["rep_valid"]))
+    chain_cuda.apply(rd)
+    st["live"] = rd.live
+    return st
+
+
+def _chain_round_plain(fm: DeviceFMIndex, c: dict, st: dict, w: int,
+                       Uw: int, held: dict | None = None) -> dict:
+    """One round of chain_scan on w lanes in PyTorch operations, the
+    JAX package's make_body operation for operation (the kernels' plain
+    version): returns the new state.  Its steps are the kernels' plain
+    steps: probe, the sort and group, the representatives' walk, insert,
+    apply and flush.  (``held``, the kernels' launch arguments, is not
+    used.)"""
+    pr = _chain_probe_plain(fm, c, st)
+    order = torch.argsort(pr["key"], stable=True)
+    gr = _chain_group_plain(st, pr, order, Uw)
+    walk = _chain_walk(fm, gr["rep_wv"], c["W"], gr["rep_k"], gr["rep_l"],
+                       gr["rep_s"], gr["rep_valid"])
+    return _chain_apply_plain(fm, c, st, pr, gr, walk, w, Uw)
+
+
+def _chain_probe_plain(fm: DeviceFMIndex, c: dict, st: dict) -> dict:
+    """chain_probe_kernel's plain step: each lane's window word, slot, the
+    table row it probes (BEFORE this round's inserts: a hit applies the
+    entry it matched), hit, and the sort key (the slot for a live miss,
+    H otherwise)."""
+    dt = fm.dtype
+    L = c["L"]
+    H = st["tbl"].shape[0]
+    M = st["cst"].shape[0]
+    lane_rid = c["lane_rid0"][st["lane0"].to(_I64)].to(_I64)
+    l, s, lalive = st["l"], st["s"], st["alive"]
+    pc = st["pos"].clamp(0, L + 1).to(_I64)
+    wv = c["winflat"][lane_rid * (L + 2) + pc]      # exact W-char window
+    slot = _slot_hash(wv, l, s, H)
+    wst = _w_store(wv, dt)
+    trow = st["tbl"][slot]                          # (w, 8)
+    hit = lalive & (trow[:, _T_V] != 0) & (trow[:, _T_W] == wst) & \
+        (trow[:, _T_L0] == l) & (trow[:, _T_S0] == s)
+    # group misses by (window, l, s): sort by slot (same key => same
+    # slot), boundary-compare the full key (_chain_group_plain)
+    miss = lalive & ~hit
+    return dict(wv=wv, slot=slot, hit=hit, miss=miss,
+                ptr=trow[:, _T_P].clamp(0, M - 1).to(_I64),
+                hk0=trow[:, _T_K0], hln=trow[:, _T_LN].to(_I32),
+                key=torch.where(miss, slot, H).to(_I32))
+
+
+def _chain_group_plain(st: dict, pr: dict, order: torch.Tensor,
+                       Uw: int) -> dict:
+    """chain_group_kernel's plain step, given the lanes in key order:
+    group heads, each lane's group index, the first Uw heads'
+    representatives (lane 0 past n_w) and their inputs."""
+    miss, wv, l, s = pr["miss"], pr["wv"], st["l"], st["s"]
+    dev = miss.device
+    vs = miss[order]
+    head = _group_heads([wv[order], l[order], s[order]], vs)
+    gidx_sorted = torch.cumsum(head, 0) - 1
+    n_u = head.sum()
+    n_w = torch.clamp(n_u, max=Uw)
+    rep_take = _drop_set(
+        torch.zeros(Uw, dtype=_I64, device=dev),
+        torch.where(head & (gidx_sorted < Uw), gidx_sorted, Uw), order)
+    gidx_lane = gidx_sorted[_inverse_perm(order)]
+    rep_valid = (torch.arange(Uw, device=dev) < n_w) & miss[rep_take]
+    return dict(n_u=n_u, n_w=n_w, gidx=gidx_lane,
+                rep_valid=rep_valid, rep_wv=wv[rep_take],
+                rep_k=st["k"][rep_take], rep_l=l[rep_take],
+                rep_s=s[rep_take], rep_slot=pr["slot"][rep_take])
+
+
+def _chain_apply_plain(fm: DeviceFMIndex, c: dict, st: dict, pr: dict,
+                       gr: dict, walk, w: int, Uw: int):
+    """chain_apply_kernel's plain step: insert the representatives'
+    chains, apply every lane's chain (a hit's store row or its group's
+    walk), the push / stop rule and the fq / fc sums, flush the pushes
+    to the pool, advance or respawn.  Returns the new state, with
+    ``live``, its live count."""
+    dt = fm.dtype
+    dev = st["k"].device
+    W, L = c["W"], c["L"]
+    lane0 = st["lane0"].to(_I64)
+    lane_rid = c["lane_rid0"][lane0].to(_I64)
+    lane_rlen = c["lane_rlen0"][lane0]
+    mh = c["mh0"][lane0]
+    row_id = c["row_id0"][lane0]
+    nxt, qflat = c["nxt"], c["qflat"]
+    nq = qflat.shape[0]
+    r3 = c["r3"]
+    H = st["tbl"].shape[0]
+    M = st["cst"].shape[0]
+    jj = torch.arange(W, dtype=_I32, device=dev)[None, :]
+    pivot, pos, lalive = st["pivot"], st["pos"], st["alive"]
+    k, l, s = st["k"], st["l"], st["s"]
+    hit, ptr, hk0, hln = pr["hit"], pr["ptr"], pr["hk0"], pr["hln"]
+    group = gr["gidx"].clamp(0, Uw - 1)
+    walked = pr["miss"] & (gr["gidx"] < gr["n_w"])
+    rep_valid, rk = gr["rep_valid"], gr["rep_k"]
+    ck, cl, cs, ln = walk
+    st = dict(st)
+    st["fc"] = st["fc"] + torch.where(rep_valid, ln, 0).sum().to(_I32)
+
+    # ---- insert: chains append to the store (drop when full); the
+    # table slot is overwritten whole (newest wins), one rep per slot
+    rank = torch.cumsum(rep_valid, 0) - 1
+    cptr = st["cur"] + rank
+    can = rep_valid & (cptr < M)
+    rslot = gr["rep_slot"]
+    first = torch.ones_like(can)
+    first[1:] = rslot[1:] != rslot[:-1]
+    keep = first & can
+    tslot = torch.where(keep, rslot, H)
+    cidx = torch.where(can, cptr, M)
+    st["cst"] = _drop_set(st["cst"], cidx, torch.cat([ck, cl, cs], 1))
+    trows = torch.stack(
+        [_w_store(gr["rep_wv"], dt), gr["rep_l"], gr["rep_s"], rk,
+         ln.to(dt), cptr.to(dt), torch.ones(Uw, dtype=dt, device=dev),
+         torch.zeros(Uw, dtype=dt, device=dev)], dim=1)
+    st["tbl"] = _drop_set(st["tbl"], tslot, trows)
+    st["cur"] = st["cur"] + can.sum().to(_I32)
+
+    # ---- apply: every lane consumes its chain (entry or rep walk)
+    applied = hit | walked
+    crow = st["cst"][ptr]
+    hit2 = hit[:, None]
+
+    def pick(lo, wbuf):
+        return torch.where(hit2, crow[:, lo * W:(lo + 1) * W], wbuf[group])
+
+    src_k0 = torch.where(hit, hk0, rk[group])
+    src_ln = torch.where(hit, hln, ln[group])[:, None]
+    CK = pick(0, ck) + (k - src_k0)[:, None]
+    CL = pick(1, cl)
+    CS = pick(2, cs)
+    real = jj < src_ln
+    amb_here = (jj == src_ln) & (src_ln < W)
+    if r3:
+        # bwt_seed_strategy1 (FM_index/bwt.c:358-379): emit the
+        # POST-extension interval at the first position where it
+        # drops below max_intv at length >= min_len
+        hitj = real & (CS < c["max_intv"]) & \
+            ((pos[:, None] + jj - pivot[:, None]) >= c["min_len"])
+        push = hitj
+        stop = hitj | amb_here
+        recK, recL, recS = CK, CL, CS
+        recE = pos[:, None] + jj + 1
+    else:
+        prevs = torch.cat([s[:, None], CS[:, :-1]], 1)
+        changed = CS != prevs
+        small = CS < mh[:, None]
+        push = (real & changed) | amb_here
+        stop = (real & changed & small) | amb_here
+        recK = torch.cat([k[:, None], CK[:, :-1]], 1)
+        recL = torch.cat([l[:, None], CL[:, :-1]], 1)
+        recS = prevs
+        recE = pos[:, None] + jj
+    has_stop = stop.any(1)
+    t = torch.argmax(stop.to(torch.uint8), dim=1).to(_I32)
+    t_eff = torch.where(has_stop, t, W)
+    push = push & (jj <= t_eff[:, None]) & applied[:, None]
+    cons = torch.where(has_stop, t + 1, W)
+    st["fq"] = st["fq"] + torch.where(applied, cons, 0).sum().to(_I32)
+
+    # ---- flush pushes (six column scatters)
+    GP = c["GP"]
+    pflat = push.reshape(-1)
+    pslot = torch.where(pflat, st["cursor"] + torch.cumsum(pflat, 0) - 1,
+                        GP)
+    for col, v in (("pool_k", recK), ("pool_l", recL), ("pool_s", recS),
+                   ("pool_e", recE),
+                   ("pool_p", pivot[:, None].expand(w, W)),
+                   ("pool_r", row_id[:, None].expand(w, W))):
+        st[col] = _drop_set(st[col], pslot, v.reshape(-1))
+    st["cursor"] = st["cursor"] + pflat.sum().to(_I32)
+    st["povf"] = st["povf"] | (st["cursor"] > GP)
+
+    # ---- advance / respawn
+    stop_pos = pos + t
+    amb_stop = has_stop & (t == src_ln[:, 0])
+    if r3:
+        npv = stop_pos + 1
+    else:
+        npv = torch.where(amb_stop, stop_pos + 1, stop_pos)
+    newpiv = torch.where(npv < L,
+                         nxt[lane_rid, npv.clamp(0, L - 1).to(_I64)], L)
+    respawn = applied & has_stop & (newpiv < lane_rlen)
+    if not c["advance"]:
+        respawn = torch.zeros_like(respawn)
+    through = applied & ~has_stop
+    baseN = qflat[(lane_rid * L + newpiv).clamp(0, nq - 1)]
+    ikN = _set_intv(fm, baseN.clamp(0, 3)).T
+    last = (src_ln - 1).clamp(0, W - 1).to(_I64)
+    endK = torch.gather(CK, 1, last)[:, 0]
+    endL = torch.gather(CL, 1, last)[:, 0]
+    endS = torch.gather(CS, 1, last)[:, 0]
+    st["k"] = torch.where(respawn, ikN[:, 0],
+                          torch.where(through, endK, k))
+    st["l"] = torch.where(respawn, ikN[:, 1],
+                          torch.where(through, endL, l))
+    st["s"] = torch.where(respawn, ikN[:, 2],
+                          torch.where(through, endS, s))
+    st["pivot"] = torch.where(respawn, newpiv, pivot)
+    st["pos"] = torch.where(respawn, newpiv + 1,
+                            torch.where(through, pos + W, pos))
+    st["alive"] = torch.where(applied, respawn | through, lalive)
+    st["live"] = st["alive"].sum().to(_I32)
+    return st

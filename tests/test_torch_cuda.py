@@ -7,8 +7,10 @@ extension on the random 2^30-base table)
 against their plain PyTorch versions, on the card; launches from worker
 threads and on a second card (that test skips unless two are visible);
 the seeder's first bench chunk with the FM kernels against the same with
-their plain versions; the sharded pipeline on one card against the
-unsharded one.
+their plain versions; chain_scan's round on the kernels of
+csrc/chain_scan.cu against the plain round (the first bench chunk, int32
+and int64 positions; its captured rounds kernel by kernel; from worker
+threads); the sharded pipeline on one card against the unsharded one.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -801,3 +803,118 @@ def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(
         assert g.dtype == w.dtype and torch.equal(g, w), i
     head = whole_k[2].cpu()
     assert not head[3:14].any()          # no cap overflow on this chunk
+
+
+# ---------------------------------------------------------------------------
+# chain_scan's round (csrc/chain_scan.cu) on the first bench chunk.
+
+def _chain_launches():
+    from compseed_tpu_torch.ops import chain_cuda
+    return dict(chain_cuda.LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_chain_round_kernels_equal_plain_on_first_bench_chunk(
+        dev, bench, dtype, monkeypatch):
+    """The default engine on the first 16,384 bench reads with chain_scan's
+    round on the kernels of csrc/chain_scan.cu: round 1 (pool, memo,
+    counters, deaths), the whole chunk's head and seed matrix equal the
+    same with seedscan._chain_round patched to the plain round (a
+    test-only patch), with int32 and with int64 positions; each of the
+    three kernels launched, none in the plain run."""
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    dfi = _bench_index(bench, dev, dtype)
+    sd = DeviceSeeder(MemOptions(), fm, dev, dfi=dfi, dedup=True)
+    R, L, qd, rd = sd._upload(list(reads[:16384]))
+    fns = sd._build(R, L)
+
+    def run():
+        n0 = _chain_launches()
+        r1 = fns["r1"](qd, rd)
+        whole = sd._run(fns, qd, rd)
+        torch.cuda.synchronize()
+        n1 = _chain_launches()
+        return r1, whole, {k: n1[k] - n0[k] for k in n1}
+
+    def flat(x):
+        if isinstance(x, dict):
+            return [v for k in sorted(x) for v in flat(x[k])]
+        if isinstance(x, (tuple, list)):
+            return [v for y in x for v in flat(y)]
+        return [x] if isinstance(x, torch.Tensor) else []
+
+    r1_k, whole_k, n_k = run()
+    assert all(n_k.values()) and len(set(n_k.values())) == 1, n_k
+    monkeypatch.setattr(tss, "_chain_round",
+                        lambda dev_: tss._chain_round_plain)
+    r1_p, whole_p, n_p = run()
+    assert not any(n_p.values()), n_p
+    got, want = flat((r1_k, whole_k)), flat((r1_p, whole_p))
+    assert len(got) == len(want) > 20
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+    head = whole_k[2].cpu()
+    assert not head[3:14].any()          # no cap overflow on this chunk
+    assert sd.dfi.dtype == (torch.int64 if dtype == "int64" else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_chain_round_steps_vs_plain_on_card(dev, bench, dtype):
+    """The first bench chunk's chain_scan rounds (the first of each width:
+    round 1 at 16,384 lanes and its narrower segments, round 2 at
+    65,536, round 3), and each in a lossy form (1,024 table slots, a
+    store with 200 free rows), through each kernel and its plain step:
+    equal output by output."""
+    from compseed_tpu_torch.ops import chain_cases, chain_cuda
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    dfi = _bench_index(bench, dev, dtype)
+    sd = DeviceSeeder(MemOptions(), fm, dev, dfi=dfi, dedup=True)
+    with chain_cases.RoundCapture(limit=16) as cap:
+        sd.run_flat(list(reads[:16384]))
+    torch.cuda.synchronize()
+    widths = {w for _, w in cap.states}
+    assert {16384, 65536} <= widths, sorted(cap.states)
+    full = 0
+    for key, rnd in sorted(cap.states.items()):
+        for c in (rnd, chain_cases.lossy(rnd)):
+            errs = chain_cases.steps_vs_plain(c)
+            stats = errs.pop("stats")
+            assert errs == dict.fromkeys(chain_cuda.KERNELS, 0), \
+                (key, stats, errs)
+            full += stats["stored"] < stats["n_w"]
+    assert full > 0                       # a representative found no row
+
+
+def test_chain_scan_from_worker_threads_on_card(dev, bench):
+    """chain_scan on cuda:0 from four worker threads side by side (the
+    sharded path's rule): each equals the same call made alone."""
+    import concurrent.futures as cf
+
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    parts = [sd._upload(list(reads[i * 2048:(i + 1) * 2048]))
+             for i in range(4)]
+
+    def scan(part):
+        R, L, qd, rd = part
+        memo = tss.make_chain_memo(1 << 16, 8192, 5, sd.dfi.dtype, dev)
+        out = tss.chain_scan(sd.dfi, qd, rd, 24 * R, memo, W=5)
+        torch.cuda.synchronize(dev)
+        return out
+
+    alone = [scan(p) for p in parts]
+    with cf.ThreadPoolExecutor(max_workers=4) as ex:
+        side = list(ex.map(scan, parts))
+    for a, b in zip(alone, side):
+        for x, y in zip(a[:5], b[:5]):
+            assert torch.equal(x, y)
+        for k in tss.MEMO_KEYS:
+            assert torch.equal(a[5][k], b[5][k])
