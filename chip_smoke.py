@@ -6,8 +6,9 @@ Phases, in order; any failure exits non-zero:
 
   0. device   — a CUDA card must be present; prints its nvidia-smi
                 name and power limit.
-  1. build    — compiles csrc/bsw_extend.cu, csrc/fm_walk.cu and
-                csrc/chain_scan.cu with nvcc for sm_90a (side by side,
+  1. build    — compiles csrc/bsw_extend.cu, csrc/fm_walk.cu,
+                csrc/chain_scan.cu and csrc/walk_chain.cu (the last two
+                with csrc/lookback.cuh) with nvcc for sm_90a (side by side,
                 and beside them the host tail with g++), loads the
                 libraries and runs the launch
                 self-check: the probe kernel against its plain version; a
@@ -46,6 +47,15 @@ Phases, in order; any failure exits non-zero:
                 round 2 at 65,536, round 3), with int32 and int64
                 positions, and each round again over a 1,024-slot table
                 with 200 free store rows (slot collisions, a full store).
+                From the same seeding run, walk_pool_chain's round
+                kernels (key, group, apply) against their plain steps,
+                exactly, on the first round of each width of both calls
+                (round 1 at 393,216 lanes and its narrower segments,
+                round 2 at 262,144, ...), int32 and int64, each also with
+                64 representatives (groups wait a round) and in the forced
+                forms of walk_cases.forced (two lanes whose keys collide
+                while their (window, k, s) differ, a live lane keyed
+                INT32_MAX, one after a dead lane of its (window, k, s)).
   3. goldens  — tests/fixtures reads, each 2,000-read file as ONE chunk,
                 through align_stream with the port's seeder, DP engine
                 and native tail: the seeder's caps overflow, the chunk
@@ -107,11 +117,21 @@ Phases, in order; any failure exits non-zero:
                 a CUDA graph; the plain steps in a loop) beside its
                 bound; round 1's chain_scan with the kernels and with the
                 plain round in turns; the chunk's launches, syncs and
-                copies by stage (a chain_scan round, chain_scan's set-up
-                and loop, walk_pool_chain, the rest) under torch.profiler.
-                Gates: at most 15 launches a chain_scan round; under
-                8,000 launches, at most 362 stream syncs and 549 async
-                copies a chunk.
+                copies by stage (a chain_scan round and its sort,
+                chain_scan's set-up and loop, a walk_pool_chain round and
+                its sort, walk_pool_chain's set-up and compactions, the
+                rest) under torch.profiler.  The walk kernels: launches per
+                chunk (each must have launched in the int32 window); each
+                timed at the first width of round 1's and round 2's
+                walk_pool_chain call (393,216 and 262,144 lanes; on the
+                card alone, in a loop, by the profiler's records; the
+                plain steps in a loop) beside its bound.  The chain and
+                the walk kernels again on round 1's first 256 lanes (one
+                block: a launch and a lane's dependent reads, their
+                latency floor).  Gates: at most
+                15 launches a chain_scan round and a walk_pool_chain
+                round; at most 3,434 launches, 102 stream syncs and 233
+                async copies a chunk.
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
                 tests/fixtures/tiny.fa must write the committed index
@@ -205,6 +225,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 KERNEL_SOURCE = "compseed_tpu_torch/csrc/bsw_extend.cu"
 FM_SOURCE = "compseed_tpu_torch/csrc/fm_walk.cu"
 CHAIN_SOURCE = "compseed_tpu_torch/csrc/chain_scan.cu"
+WALK_SOURCE = "compseed_tpu_torch/csrc/walk_chain.cu"
 CHUNK = 16384          # reads per chunk, the bench's default
 N_CHUNKS = 4
 RUNS = 3               # timed streams after one warm-up stream
@@ -265,13 +286,31 @@ CHAIN_REPLACES = {
     "chain_apply_kernel": "compseed_tpu/ops/seedscan.py:1564-1688 "
                           "(insert, apply, flush, advance; XLA fusion, no "
                           "Pallas)"}
+# walk_pool_chain's round (csrc/walk_chain.cu) and the lines of the JAX
+# package's round body (make_body, XLA fusions, no Pallas) each replaces
+WALK_KERNELS = ("walk_key_kernel", "walk_group_kernel", "walk_apply_kernel")
+WALK_REPLACES = {
+    "walk_key_kernel": "compseed_tpu/ops/seedscan.py:633-645 "
+                       "(walk_pool_chain's window and sort key; XLA fusion, "
+                       "no Pallas)",
+    "walk_group_kernel": "compseed_tpu/ops/seedscan.py:646-670 "
+                         "(walk_pool_chain's grouping and group minima; XLA "
+                         "fusion, no Pallas)",
+    "walk_apply_kernel": "compseed_tpu/ops/seedscan.py:682-720 "
+                         "(deaths, advance; XLA fusion, no Pallas)"}
 # gates on one chunk of the main path's seeding (torch.profiler): a
-# chain_scan round's launches, and the chunk's launches, stream syncs and
-# async copies (the parent's 28,525 / 362 / 549 on the H100, PERF.md)
+# chain_scan round's and a walk_pool_chain round's launches, and the
+# chunk's launches, stream syncs and async copies (the parent's 3,434 /
+# 102 / 233 on the H100, PERF.md)
 MAX_CHAIN_ROUND_LAUNCHES = 15
-MAX_CHUNK_LAUNCHES = 8000
-MAX_CHUNK_SYNCS = 362
-MAX_CHUNK_COPIES = 549
+# lanes of the round the chain and walk kernels are timed at for their
+# latency floor: one block, so the time is a launch and a lane's
+# dependent reads
+FLOOR_LANES = 256
+MAX_WALK_ROUND_LAUNCHES = 15
+MAX_CHUNK_LAUNCHES = 3434
+MAX_CHUNK_SYNCS = 102
+MAX_CHUNK_COPIES = 233
 
 
 def log(msg: str) -> None:
@@ -376,13 +415,15 @@ def ops_bound(nbytes: int, cells: int):
 
 def launch_counts() -> dict:
     """Every kernel's launches since the last reset_launches()."""
-    from compseed_tpu_torch.ops import bsw_cuda, chain_cuda, fm_cuda
-    return {**bsw_cuda.LAUNCHES, **fm_cuda.LAUNCHES, **chain_cuda.LAUNCHES}
+    from compseed_tpu_torch.ops import bsw_cuda, chain_cuda, fm_cuda, walk_cuda
+    return {**bsw_cuda.LAUNCHES, **fm_cuda.LAUNCHES, **chain_cuda.LAUNCHES,
+            **walk_cuda.LAUNCHES}
 
 
 def reset_launches() -> None:
-    from compseed_tpu_torch.ops import bsw_cuda, chain_cuda, fm_cuda
-    for counts in (bsw_cuda.LAUNCHES, fm_cuda.LAUNCHES, chain_cuda.LAUNCHES):
+    from compseed_tpu_torch.ops import bsw_cuda, chain_cuda, fm_cuda, walk_cuda
+    for counts in (bsw_cuda.LAUNCHES, fm_cuda.LAUNCHES, chain_cuda.LAUNCHES,
+                   walk_cuda.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -393,7 +434,7 @@ def profile_chunk(run, sync) -> dict:
     async copies) and the card's busy time, the union of the kernels' and
     copies' intervals on the device.  Also the wall time of the same call
     without the profiler, right after, and the mean device time per
-    launch of each FM and chain kernel.
+    launch of each FM, chain and walk kernel.
     ``scripts/torch_seeding_ab.py --profile`` runs the same pass on other
     checkouts."""
     from torch.profiler import ProfilerActivity, profile
@@ -417,7 +458,7 @@ def profile_chunk(run, sync) -> dict:
     for e in prof.key_averages():
         if e.key in out:
             out[e.key] = e.count
-        m = re.search(r"\b((?:fm|chain)_[a-z_]+_kernel)", e.key)
+        m = re.search(r"\b((?:fm|chain|walk)_[a-z_]+_kernel)", e.key)
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0)
@@ -1242,35 +1283,39 @@ def fm_redesign(dev, builds: dict, calls: dict, dfi, fm_host) -> dict:
 # ---------------------------------------------------------------------------
 # chain_scan's round: csrc/chain_scan.cu
 
-def chain_capture(dev, opt, fm, queries, force=None) -> dict:
+def chain_capture(dev, opt, fm, queries, force=None) -> tuple:
     """The first bench chunk's seeding on the default engine with every
-    chain_scan round through the kernels; the state before the first
-    round of each width of each call (chain_cases.RoundCapture):
-    (call, w) -> case."""
+    chain_scan and walk_pool_chain round through the kernels; the state
+    before the first round of each width of each call
+    (chain_cases.RoundCapture: (call, w) -> case; walk_cases.RoundCapture:
+    (call, lanes) -> case)."""
     import torch
-    from compseed_tpu_torch.ops import chain_cases
+    from compseed_tpu_torch.ops import chain_cases, walk_cases
     from compseed_tpu_torch.ops.device_index import to_device
     from compseed_tpu_torch.ops.engine import device_seeder
     sd = device_seeder(opt, fm, dedup=True, device=dev,
                        dfi=to_device(fm, dev, force_dtype=force))
-    with chain_cases.RoundCapture(limit=16) as cap:
+    with chain_cases.RoundCapture(limit=16) as cap, \
+            walk_cases.RoundCapture(limit=16) as walk_cap:
         sd.run_flat(queries)
     torch.cuda.synchronize()
-    return cap.states
+    return cap.states, walk_cap.states
 
 
 def chain_phase2(dev, opt, fm, queries) -> tuple:
-    """Phase 2 for the chain kernels: every captured round of the first
-    bench chunk, int32 and int64 positions, and each in its lossy form
-    (1,024 table slots: collisions; 200 free store rows: a full store),
-    through each kernel and its plain step.  Returns ({dtype: {case:
-    {kernel: max_abs_err}}}, the int32 cases, kept for phase 4)."""
+    """Phase 2 for the chain and the walk kernels, from one seeding run of
+    the first bench chunk per index type: every captured chain_scan round,
+    int32 and int64 positions, and each in its lossy form (1,024 table
+    slots: collisions; 200 free store rows: a full store), through each
+    kernel and its plain step; then the walk_pool_chain rounds
+    (walk_check).  Returns ({dtype: {case: {kernel: max_abs_err}}}, the
+    int32 cases, kept for phase 4) for the chain and then for the walk."""
     import numpy as np
     from compseed_tpu_torch.ops import chain_cases
-    out, keep = {}, None
+    out, keep, walk_out, walk_keep = {}, None, {}, None
     for tag, force in (("int32", None), ("int64", np.int64)):
         t0 = time.time()
-        states = chain_capture(dev, opt, fm, queries, force)
+        states, walk_states = chain_capture(dev, opt, fm, queries, force)
         widths = sorted({w for _, w in states})
         if not {CHUNK, 4 * CHUNK} <= set(widths):
             raise SystemExit(f"chain_scan rounds captured at widths {widths}: "
@@ -1294,26 +1339,19 @@ def chain_phase2(dev, opt, fm, queries) -> tuple:
             f"{time.time() - t0:.1f} s): max_abs_err "
             f"{ {k: max(r[k] for r in rec.values()) for k in CHAIN_KERNELS} }"
             f"; rounds {json.dumps({n: r['stats'] for n, r in rec.items()})}")
+        walk_out[tag] = walk_check(tag, walk_states)
         if tag == "int32":
-            keep = states
-    return out, keep
+            keep, walk_keep = states, walk_states
+    return out, keep, walk_out, walk_keep
 
 
 def chain_time(case, reps: int = 20) -> dict:
-    """One captured round's kernels timed at its shape: after one whole
-    round through them (so every scratch array holds this round's data),
-    each kernel's ms per launch on the card alone (``ms``: launch_ms)
-    and per call in a loop (``loop_ms``: the host's launch rate), the
-    sort and the walk beside them; the plain steps' ms per call in a
-    loop; each kernel's bytes, operations and bound on this round's data
-    (chain_cases.round_work).  A kernel that reads what it writes (group:
-    the store cursor; apply: the lane state) has it restored, and the
-    round's epoch moved on (so that its look-back finds no word of the
-    call before), before every call; on the card alone the restores' own
-    time, measured alone, is taken off, in a loop it is given beside
-    (``restore_loop_ms``).  Beside that difference, each chain kernel's
-    own device time from torch.profiler over the same calls, its records
-    alone (``profiled_ms``; ``profiled_records`` of ``reps`` seen)."""
+    """One captured round's kernels timed at its shape (round_time):
+    after one whole round through them (so every scratch array holds
+    this round's data), each kernel, the sort and the walk beside them;
+    the bounds on this round's data (chain_cases.round_work).  A kernel
+    that reads what it writes (group: the store cursor; apply: the lane
+    state) has it restored, as the round left it, before every call."""
     import torch
     from compseed_tpu_torch.ops import chain_cases, chain_cuda
     from compseed_tpu_torch.ops import seedscan as ss
@@ -1342,45 +1380,69 @@ def chain_time(case, reps: int = 20) -> dict:
                                 s["rep_l"], s["rep_s"], s["rep_valid"]))
     chain_cuda.apply(rd)
     torch.cuda.synchronize()
-    epoch = s["sc"][4:5]
-
-    def restoring(run, names):
-        saved = [(ks[n], ks[n].clone()) for n in names]
-
-        def restore():
-            for dst, src in saved:
-                dst.copy_(src)
-            epoch.add_(1)                   # a fresh look-back each call
-        return (lambda: (restore(), run())), restore
-
+    restore_group = restorer(ks, ("cur",), s["sc"][4:5])
+    restore_apply = restorer(ks, ("pivot", "pos", "alive", "k", "l", "s"),
+                             s["sc"][4:5])
     runs = {"chain_probe_kernel": (lambda: chain_cuda.probe(rd), None),
             "sort": (lambda: chain_cuda.sort(rd), None),
-            "chain_group_kernel": restoring(lambda: chain_cuda.group(rd),
-                                            ["cur"]),
+            "chain_group_kernel": (lambda: chain_cuda.group(rd),
+                                   restore_group),
             "walk": (lambda: ss._chain_walk(
                 fm, s["rep_wv"], const["W"], s["rep_k"], s["rep_l"],
                 s["rep_s"], s["rep_valid"]), None),
-            "chain_apply_kernel": restoring(
-                lambda: chain_cuda.apply(rd),
-                ["pivot", "pos", "alive", "k", "l", "s"])}
+            "chain_apply_kernel": (lambda: chain_cuda.apply(rd),
+                                   restore_apply)}
     es = torch.empty(0, dtype=fm.dtype).element_size()
-    work = chain_cases.round_work(stats, es, const["W"])
     out = dict(stats=stats, max_abs_err=errs)
+    out.update(round_time(runs, plain, chain_cases.round_work(
+        stats, es, const["W"]), reps))
+    del ks, rd, ps
+    return out
+
+
+def restorer(st: dict, names, epoch):
+    """A function that puts back ``st[name]`` for ``names`` as they are
+    now and moves the round's epoch (a one-word tensor) on, so that a
+    look-back finds no word of the call before."""
+    saved = [(st[n], st[n].clone()) for n in names]
+
+    def restore():
+        for dst, src in saved:
+            dst.copy_(src)
+        epoch.add_(1)
+    return restore
+
+
+def round_time(runs: dict, plain: dict, work: dict, reps: int) -> dict:
+    """The timing of a round's kernels (chain_time, walk_time).  ``runs``:
+    name -> (call, restore or None), a kernel's launch or the sort or the
+    walk beside them; ``plain``: kernel -> its plain step; ``work``:
+    kernel -> (bytes, operations).  Each: ms per call in a loop
+    (``loop_ms``: the host's launch rate) and per launch on the card
+    alone (``ms``: launch_ms); a call that reads what it writes has its
+    restore before every call, whose own time, measured alone, is taken
+    off on the card alone and given beside in a loop
+    (``restore_loop_ms``).  For a kernel also its own device time from
+    torch.profiler over the same calls, its records alone
+    (``profiled_ms``; ``profiled_records`` of ``reps`` seen), the plain
+    step's ms per call in a loop and the bound of its work."""
+    out = {}
     for name, (run, restore) in runs.items():
-        r = dict(loop_ms=cuda_time_ms(run, reps),
-                 graph_ms=launch_ms(run, reps))
+        timed = run if restore is None else \
+            (lambda run=run, restore=restore: (restore(), run()))
+        r = dict(loop_ms=cuda_time_ms(timed, reps),
+                 graph_ms=launch_ms(timed, reps))
         if restore is not None:
             r["restore_loop_ms"] = cuda_time_ms(restore, reps)
             r["restore_graph_ms"] = launch_ms(restore, reps)
             r["graph_ms"] -= r["restore_graph_ms"]
         r["ms"] = r["graph_ms"]
         if name in plain:
-            r.update(profiled_kernel_ms(run, name, reps))
+            r.update(profiled_kernel_ms(timed, name, reps))
             r["plain_ms"] = cuda_time_ms(plain[name], max(reps // 4, 2))
             r["bytes"], r["ops"] = work[name]
             r["bound_ms"], r["bound_by"] = bound_of(*work[name])
         out[name] = r
-    del ks, rd, ps
     return out
 
 
@@ -1449,19 +1511,20 @@ def launch_split(seeder, queries) -> dict:
     runtime call that costs host time (launches, syncs, copies, memsets)
     given to the innermost stage that issued it: a chain_scan round
     (seedscan._chain_round_kernels) apart from its sort, the round's
-    sort (chain_cuda.sort), chain_scan's own set-up, loop and tail,
-    walk_pool_chain (its rounds are its backward chain walks), the rest.
-    Stages are marked with record_function for this run only."""
+    sort (chain_cuda.sort), chain_scan's own set-up, loop and tail, a
+    walk_pool_chain round (seedscan._walk_round_kernels) apart from its
+    sort, that sort (walk_cuda.sort), walk_pool_chain's set-up,
+    compactions and loop, the rest.  Stages are marked with
+    record_function for this run only."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
-    from compseed_tpu_torch.ops import fm_cuda
     from compseed_tpu_torch.ops import seedscan as ss
-    from compseed_tpu_torch.ops import chain_cuda
+    from compseed_tpu_torch.ops import chain_cuda, walk_cuda
     orig = dict(scan=ss.chain_scan, rnd=ss._chain_round_kernels,
-                walk=ss.walk_pool_chain, cw=fm_cuda.chain_walk,
-                sort=chain_cuda.sort)
+                walk=ss.walk_pool_chain, wrnd=ss._walk_round_kernels,
+                sort=chain_cuda.sort, wsort=walk_cuda.sort)
     n = dict(chain_round=0, walk_round=0, chain_scan=0, walk_pool_chain=0,
-             sort=0)
+             sort=0, walk_sort=0)
 
     def marked(name, fn):
         def run(*a, **kw):
@@ -1470,15 +1533,12 @@ def launch_split(seeder, queries) -> dict:
                 return fn(*a, **kw)
         return run
 
-    def cw(*a, **kw):
-        n["walk_round"] += bool(kw.get("is_back"))
-        return orig["cw"](*a, **kw)
-
     ss.chain_scan = marked("chain_scan", orig["scan"])
     ss._chain_round_kernels = marked("chain_round", orig["rnd"])
     ss.walk_pool_chain = marked("walk_pool_chain", orig["walk"])
+    ss._walk_round_kernels = marked("walk_round", orig["wrnd"])
     chain_cuda.sort = marked("sort", orig["sort"])
-    fm_cuda.chain_walk = cw
+    walk_cuda.sort = marked("walk_sort", orig["wsort"])
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1487,11 +1547,13 @@ def launch_split(seeder, queries) -> dict:
             torch.cuda.synchronize()
     finally:
         ss.chain_scan, ss._chain_round_kernels = orig["scan"], orig["rnd"]
-        ss.walk_pool_chain, fm_cuda.chain_walk = orig["walk"], orig["cw"]
-        chain_cuda.sort = orig["sort"]
+        ss.walk_pool_chain = orig["walk"]
+        ss._walk_round_kernels = orig["wrnd"]
+        chain_cuda.sort, walk_cuda.sort = orig["sort"], orig["wsort"]
     calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
              "cudaStreamSynchronize", "cudaMemcpyAsync", "cudaMemsetAsync")
-    stages = ("sort", "chain_round", "chain_scan", "walk_pool_chain")
+    stages = ("sort", "chain_round", "walk_sort", "walk_round", "chain_scan",
+              "walk_pool_chain")
     spans = {s: [] for s in stages}
     events = prof.events()
     for e in events:
@@ -1512,8 +1574,10 @@ def launch_split(seeder, queries) -> dict:
         chain_round=(split["chain_round"]["launches"] +
                      split["sort"]["launches"]) / max(n["chain_round"], 1),
         sort=split["sort"]["launches"] / max(n["sort"], 1),
-        walk_pool_chain_round=split["walk_pool_chain"]["launches"]
-        / max(n["walk_round"], 1))
+        walk_pool_chain_round=(split["walk_round"]["launches"] +
+                               split["walk_sort"]["launches"])
+        / max(n["walk_round"], 1),
+        walk_sort=split["walk_sort"]["launches"] / max(n["walk_sort"], 1))
     return dict(split=split, calls=n, launches_per_round=per,
                 launches=sum(v["launches"] for v in split.values()))
 
@@ -1545,6 +1609,10 @@ def chain_main_path(seeder, queries, l32, cases) -> dict:
     if "round 1 w=16384" not in shapes or "round 2 w=65536" not in shapes:
         raise SystemExit(f"the chain rounds to time were not captured: "
                          f"{sorted(shapes)}")
+    shapes[f"floor w={FLOOR_LANES}"] = r = chain_time(
+        narrow_chain(cases[(1, CHUNK)], FLOOR_LANES))
+    log(f"[4] chain kernels' latency floor (round 1's first {FLOOR_LANES} "
+        f"lanes): {json.dumps(r)}")
     turns = chain_turns(seeder, queries)
     log(f"[4] round 1's chain_scan, kernels and plain round in turns: "
         f"{json.dumps(turns)}")
@@ -1559,30 +1627,211 @@ def chain_main_path(seeder, queries, l32, cases) -> dict:
                 split=split)
 
 
+def narrow_chain(case, n: int):
+    """A chain_scan round cut to its first ``n`` lanes (one block of the
+    kernels), n / 2 representatives: what a kernel takes when its work is
+    one block's, its latency floor."""
+    from compseed_tpu_torch.ops import chain_cases
+    fm, const, st, w, Uw = case
+    st = chain_cases.clone_state(st)
+    for k in ("lane0", "pivot", "pos", "alive", "k", "l", "s"):
+        st[k] = st[k][:n].clone()
+    st["live"] = st["alive"].sum().to(st["live"].dtype)
+    return fm, const, st, n, n // 2
+
+
 def chain_rows(chain_rec, l32, row, prof) -> list:
-    """The chain kernels' rows of the kernel table.  launches: the int32
-    window of the main path; ms (on the card alone), plain_ms, the
-    profiler's device time and the bound: round 1 of the first chunk at
-    16,384 lanes; device_ms_profiled: the profiler's mean over one
-    chunk's launches (``prof``: profile_chunk's kernels); max_abs_err:
-    over every captured round, int32 and int64, and its lossy form
-    (phase 2)."""
-    at = chain_rec["shapes"]["round 1 w=16384"]
+    """The chain kernels' rows of the kernel table (round_rows): ms,
+    plain_ms, the profiler's device time and the bound of round 1 of the
+    first chunk at 16,384 lanes; max_abs_err over every captured round,
+    int32 and int64, and its lossy form (phase 2)."""
+    return round_rows(chain_rec, "round 1 w=16384",
+                      f"floor w={FLOOR_LANES}", CHAIN_KERNELS,
+                      CHAIN_REPLACES, CHAIN_SOURCE, l32, row, prof)
+
+
+def round_rows(rec, at_tag, floor_tag, kernels, replaces, source, l32,
+               row, prof) -> list:
+    """The rows of a round's kernels in the kernel table.  launches: the
+    int32 window of the main path; ms (on the card alone), plain_ms, the
+    profiler's device time and the bound: the shape ``at_tag`` of
+    ``rec["shapes"]``; latency_floor_ms: the shape ``floor_tag``;
+    device_ms_profiled: the profiler's mean over one chunk's launches
+    (``prof``: profile_chunk's kernels); max_abs_err: the largest over
+    every round of phase 2."""
+    at, floor = rec["shapes"][at_tag], rec["shapes"][floor_tag]
     rows = []
-    for k in CHAIN_KERNELS:
-        e = max(r[k] for recs in chain_rec["phase2"].values()
+    for k in kernels:
+        e = max(r[k] for recs in rec["phase2"].values()
                 for r in recs.values())
         r = at[k]
         rows.append(row(
-            k, CHAIN_REPLACES[k], l32[k], e, r["ms"], r["plain_ms"], r,
-            source=CHAIN_SOURCE, loop_ms=r["loop_ms"],
-            per_chunk=chain_rec["launches_per_chunk"][k],
+            k, replaces[k], l32[k], e, r["ms"], r["plain_ms"], r,
+            source=source, loop_ms=r["loop_ms"],
+            latency_floor_ms=floor[k]["ms"],
+            per_chunk=rec["launches_per_chunk"][k],
             profiled_ms=r["profiled_ms"],
             device_ms_profiled=prof.get(k, {}).get("device_ms_per_launch"),
             shapes={t: {n: v[k][n] for n in ("ms", "profiled_ms", "loop_ms",
                                                 "plain_ms", "bound_ms")}
-                    for t, v in chain_rec["shapes"].items()}))
+                    for t, v in rec["shapes"].items()}))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# walk_pool_chain's round: csrc/walk_chain.cu
+
+def walk_check(tag, states) -> dict:
+    """Phase 2 for the walk kernels: every captured walk_pool_chain round
+    of the first bench chunk (``states``: walk_cases.RoundCapture's), in
+    its own form, with 64 representatives (groups wait) and in the forced
+    forms (walk_cases.forced: colliding keys, a live lane keyed INT32_MAX
+    and one after a dead lane of its (window, k, s)), through each kernel
+    and its plain step.  Returns {case: {kernel: max_abs_err, stats}}."""
+    from compseed_tpu_torch.ops import walk_cases
+    t0 = time.time()
+    lanes = sorted({n for _, n in states})
+    if not {24 * CHUNK, 16 * CHUNK} <= set(lanes):
+        raise SystemExit(f"walk_pool_chain rounds captured at {lanes} lanes: "
+                         f"expected {24 * CHUNK} and {16 * CHUNK}")
+    rec = {}
+    for (call, n), case in sorted(states.items()):
+        forms = [("", case), (" capped", walk_cases.capped(case))]
+        if int(case[2]["alive"][:5].sum()) == 5:
+            forms.append((" forced", walk_cases.forced(case)))
+        for form, c in forms:
+            errs = walk_cases.steps_vs_plain(c)
+            stats = errs.pop("stats")
+            rec[f"call {call} lanes={n}{form}"] = dict(errs, stats=stats)
+            if any(errs.values()):
+                raise SystemExit(f"a walk kernel disagrees with its plain "
+                                 f"step ({tag}, call {call}, {n} lanes"
+                                 f"{form}): {errs} {stats}")
+    if not any(r["stats"]["n_u"] > r["stats"]["n_w"] for r in rec.values()):
+        raise SystemExit("no walk round had more groups than representatives")
+    if not any(name.endswith("forced") for name in rec):
+        raise SystemExit("no walk round took the forced forms")
+    log(f"[2] walk kernels vs plain steps over the first bench chunk's "
+        f"rounds ({tag} positions, {len(rec)} rounds, "
+        f"{time.time() - t0:.1f} s): max_abs_err "
+        f"{ {k: max(r[k] for r in rec.values()) for k in WALK_KERNELS} }; "
+        f"rounds {json.dumps({n: r['stats'] for n, r in rec.items()})}")
+    return rec
+
+
+def walk_time(case, reps: int = 20) -> dict:
+    """One captured round's kernels timed at its shape (round_time), each
+    from the round's own state: before every call the lane state and the
+    counters are restored to what they were before the round; the sort
+    and the walk beside them; the bounds on this round's data
+    (walk_cases.round_work)."""
+    import torch
+    from compseed_tpu_torch.ops import seedscan as ss
+    from compseed_tpu_torch.ops import walk_cases, walk_cuda
+    fm, const, st, Uw = case
+    W = const["W"]
+    errs = walk_cases.steps_vs_plain(case)
+    stats = errs.pop("stats")
+    ps = walk_cases.clone_state(st)
+    kr = ss._walk_key_plain(const, ps)
+    order = torch.argsort(kr["key"], stable=True)
+    gr = ss._walk_group_plain(ps, kr, order, Uw)
+    walk = ss._chain_walk(fm, gr["rep_rw"], W, gr["rep_k"], gr["rep_l"],
+                          gr["rep_s"], gr["rep_valid"], is_back=True,
+                          stop_s=gr["gmin"])
+    plain = {
+        "walk_key_kernel": lambda: ss._walk_key_plain(const, ps),
+        "walk_group_kernel": lambda: ss._walk_group_plain(ps, kr, order, Uw),
+        "walk_apply_kernel": lambda: ss._walk_apply_plain(const, ps, gr,
+                                                          walk, Uw)}
+    ks = walk_cases.clone_state(st)
+    rd = walk_cuda.WalkRound(fm, const, ks, Uw)
+    s = rd.scratch
+    restore = restorer(ks, ("k", "l", "s", "i", "alive", "ctr"),
+                       s["sc"][walk_cuda.SC_EPOCH:walk_cuda.SC_EPOCH + 1])
+
+    def chain_walk():
+        return ss._chain_walk(fm, s["rep_rw"], W, s["rep_k"], s["rep_l"],
+                              s["rep_s"], s["rep_valid"], is_back=True,
+                              stop_s=s["gmin"])
+
+    walk_cuda.key(rd)
+    walk_cuda.sort(rd)
+    walk_cuda.group(rd)
+    rd.set_walk(*chain_walk())
+    walk_cuda.apply(rd)
+    torch.cuda.synchronize()
+    runs = {"walk_key_kernel": lambda: walk_cuda.key(rd),
+            "sort": lambda: walk_cuda.sort(rd),
+            "walk_group_kernel": lambda: walk_cuda.group(rd),
+            "walk": chain_walk,
+            "walk_apply_kernel": lambda: walk_cuda.apply(rd)}
+    es = torch.empty(0, dtype=fm.dtype).element_size()
+    out = dict(stats=stats, max_abs_err=errs, Uw=Uw)
+    out.update(round_time({n: (run, restore) for n, run in runs.items()},
+                          plain, walk_cases.round_work(stats, es, W), reps))
+    restore()
+    del ks, rd, ps
+    return out
+
+
+def walk_main_path(l32, cases, split) -> dict:
+    """Phase 4's walk numbers: each kernel's launches per chunk in the
+    int32 window; each kernel timed at the first width of round 1's and of
+    round 2's walk_pool_chain call (walk_time); the launches of a round
+    (launch_split, run by chain_main_path), gated."""
+    per_chunk = {k: l32[k] / ((RUNS + 1) * N_CHUNKS) for k in WALK_KERNELS}
+    log(f"[4] walk kernel launches per {CHUNK}-read chunk (int32 window): "
+        f"{json.dumps(per_chunk)}")
+    for k in WALK_KERNELS:
+        if l32[k] <= 0:
+            raise SystemExit(f"int32 main path: {k} was not launched: {l32}")
+    shapes = {}
+    for (call, n), case in sorted(cases.items()):
+        if n not in (24 * CHUNK, 16 * CHUNK):
+            continue
+        tag = f"round {1 if n == 24 * CHUNK else 2} lanes={n}"
+        shapes[tag] = r = walk_time(case)
+        log(f"[4] walk kernels at {tag} (Uw={case[3]}): {json.dumps(r)}")
+        if any(r["max_abs_err"].values()):
+            raise SystemExit(f"a walk kernel disagrees with its plain step "
+                             f"at {tag}")
+    if len(shapes) != 2:
+        raise SystemExit(f"the walk rounds to time were not captured: "
+                         f"{sorted(shapes)}")
+    shapes[f"floor lanes={FLOOR_LANES}"] = r = walk_time(
+        narrow_walk(cases[(1, 24 * CHUNK)], FLOOR_LANES))
+    log(f"[4] walk kernels' latency floor (round 1's first {FLOOR_LANES} "
+        f"lanes): {json.dumps(r)}")
+    per_round = split["launches_per_round"]["walk_pool_chain_round"]
+    if per_round > MAX_WALK_ROUND_LAUNCHES:
+        raise SystemExit(f"a walk_pool_chain round makes {per_round:.1f} "
+                         f"launches, more than {MAX_WALK_ROUND_LAUNCHES}")
+    return dict(launches_per_chunk=per_chunk, shapes=shapes,
+                launches_per_round=per_round)
+
+
+def narrow_walk(case, n: int):
+    """A walk_pool_chain round cut to its first ``n`` lanes (one block of
+    the kernels), n / 2 representatives: its latency floor."""
+    from compseed_tpu_torch.ops import seedscan as ss
+    from compseed_tpu_torch.ops import walk_cases
+    fm, const, st, Uw = case
+    st = walk_cases.clone_state(st)
+    for k in ss.WALK_LANE_KEYS:
+        st[k] = st[k][:n].clone()
+    st["live"] = st["alive"].sum()
+    return fm, const, st, n // 2
+
+
+def walk_rows(walk_rec, l32, row, prof) -> list:
+    """The walk kernels' rows of the kernel table (round_rows): ms,
+    plain_ms, the profiler's device time and the bound of round 1's first
+    width (393,216 lanes); max_abs_err over every captured round, int32
+    and int64, in every form (phase 2)."""
+    return round_rows(walk_rec, f"round 1 lanes={24 * CHUNK}",
+                      f"floor lanes={FLOOR_LANES}", WALK_KERNELS,
+                      WALK_REPLACES, WALK_SOURCE, l32, row, prof)
 
 
 def compare(tiles, gap, state16: bool):
@@ -2599,7 +2848,8 @@ def main() -> None:
                                              read_reordered_chunks)
     from compseed_tpu_torch.native import NativeTail
     from compseed_tpu_torch.index.build import unpack_pac
-    from compseed_tpu_torch.ops import bsw, bsw_cuda, chain_cuda, fm_cuda
+    from compseed_tpu_torch.ops import (bsw, bsw_cuda, chain_cuda, fm_cuda,
+                                        walk_cuda)
     from compseed_tpu_torch.ops.bsw_cases import dual_meta_case
     from compseed_tpu_torch.ops.device_index import pack_pac_words, to_device
     from compseed_tpu_torch.ops.engine import device_engine, device_seeder
@@ -2639,20 +2889,24 @@ def main() -> None:
         build(force=True)
         return time.time() - t0
 
-    with cf.ThreadPoolExecutor(max_workers=4) as ex:
+    with cf.ThreadPoolExecutor(max_workers=5) as ex:
         host = ex.submit(native.build_library, True)
         fm_build = ex.submit(timed_build, fm_cuda.build_library)
         chain_build = ex.submit(timed_build, chain_cuda.build_library)
+        walk_build = ex.submit(timed_build, walk_cuda.build_library)
         dp_build_s = timed_build(bsw_cuda.build_library)
         fm_build_s = fm_build.result()
         chain_build_s = chain_build.result()
+        walk_build_s = walk_build.result()
         build_s = time.time() - t0
         host.result()
     fm_cuda.LIB.load()
     chain_cuda.LIB.load()
+    walk_cuda.LIB.load()
     log(f"[1] build: DP kernels {dp_build_s:.2f} s, FM kernels "
-        f"{fm_build_s:.2f} s, chain kernels {chain_build_s:.2f} s, with the "
-        f"host tail {time.time() - t0:.2f} s")
+        f"{fm_build_s:.2f} s, chain kernels {chain_build_s:.2f} s, walk "
+        f"kernels {walk_build_s:.2f} s, with the host tail "
+        f"{time.time() - t0:.2f} s")
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     probe_err = int((bsw_cuda.probe_add_one(x).to(torch.int64)
                      - bsw_cuda._probe_plain(x).to(torch.int64)).abs().max())
@@ -2843,8 +3097,8 @@ def main() -> None:
     # the chain kernels against their plain steps on the first bench
     # chunk's own rounds (int32 and int64 positions), and each round with
     # slot collisions and a full store
-    chain_errs, chain_cases_ = chain_phase2(dev, opt, fm,
-                                            list(reads_arr[:CHUNK]))
+    chain_errs, chain_cases_, walk_errs, walk_cases_ = chain_phase2(
+        dev, opt, fm, list(reads_arr[:CHUNK]))
 
     # ---- phase 3: goldens on the card, each file as one chunk
     fm_t = FMIndex.from_built(build_index(
@@ -2998,7 +3252,7 @@ def main() -> None:
     if l32["bsw_meta_dual_kernel"] <= 0 or l32["probe_add_one_kernel"] <= 0 \
             or l32["fm_chain_walk_kernel"] <= 0 \
             or l32["fm_inv_psi_walk_kernel"] <= 0 \
-            or min(l32[k] for k in CHAIN_KERNELS) <= 0:
+            or min(l32[k] for k in CHAIN_KERNELS + WALK_KERNELS) <= 0:
         raise SystemExit(f"int32 main path: a kernel was not launched: {l32}")
     if l32["bsw_meta_dual_kernel_i16"] or l32["bsw_extend_kernel_i16"]:
         raise SystemExit("an int16 kernel ran without COMPSEED_BSW_I16=1")
@@ -3020,7 +3274,7 @@ def main() -> None:
     log(f"[4] one {CHUNK}-read chunk: {chunk_launches} launches, "
         f"{prof['cudaStreamSynchronize']} stream syncs, "
         f"{prof['cudaMemcpyAsync']} async copies")
-    if chunk_launches >= MAX_CHUNK_LAUNCHES or \
+    if chunk_launches > MAX_CHUNK_LAUNCHES or \
             prof["cudaStreamSynchronize"] > MAX_CHUNK_SYNCS or \
             prof["cudaMemcpyAsync"] > MAX_CHUNK_COPIES:
         raise SystemExit(f"a chunk's launches / syncs / copies exceed "
@@ -3030,6 +3284,9 @@ def main() -> None:
                                 chain_cases_)
     del chain_cases_
     chain_rec["phase2"] = chain_errs
+    walk_rec = walk_main_path(l32, walk_cases_, chain_rec["split"])
+    del walk_cases_
+    walk_rec["phase2"] = walk_errs
 
     # the host oracle path once; both engines are held to it
     t0 = time.time()
@@ -3236,8 +3493,9 @@ def main() -> None:
                       8 * 128 / INT32_OPS_PER_S) * 1e3
     print(json.dumps({"build_s": build_s, "dp_build_s": dp_build_s,
                       "fm_build_s": fm_build_s,
-                      "chain_build_s": chain_build_s, "fm": fm_rec,
-                      "chain": chain_rec,
+                      "chain_build_s": chain_build_s,
+                      "walk_build_s": walk_build_s, "fm": fm_rec,
+                      "chain": chain_rec, "walk": walk_rec,
                       "synthetic_ms": synth,
                       "self_check_ms": self_check_ms, "main": rec32,
                       "main_int16": rec16, "main_tile_route": rec_tiles,
@@ -3292,7 +3550,8 @@ def main() -> None:
             l32["probe_add_one_kernel"], probe_err, probe_ms, probe_plain_ms,
             probe_row, library_ms=probe_lib_ms, graph_ms=probe_graph_ms,
             library_graph_ms=probe_lib_graph_ms)] + fm_rows(fm_rec, row)
-        + chain_rows(chain_rec, l32, row, fm_rec["profile"]["kernels"])}))
+        + chain_rows(chain_rec, l32, row, fm_rec["profile"]["kernels"])
+        + walk_rows(walk_rec, l32, row, fm_rec["profile"]["kernels"])}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

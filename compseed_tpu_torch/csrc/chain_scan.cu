@@ -47,12 +47,12 @@
 //   cur0) while this round's inserts write rows from cur0 on, so the two
 //   never meet.
 //
-// The look-back (Merrill and Garland's single-pass scan): blocks take
-// tickets in the order they start, publish their sum, then add the sums
-// of the blocks before them until one that has published its inclusive
-// prefix; a status word holds the round's epoch (the probe kernel counts
-// rounds), a flag and the value, so the words need no reset between
-// rounds.
+// The look-back (Merrill and Garland's single-pass scan, lookback.cuh):
+// blocks take tickets in the order they start, publish their sum, then
+// add the sums of the blocks before them until one that has published
+// its inclusive prefix; a status word holds the round's epoch (the probe
+// kernel counts rounds), a flag and the value, so the words need no
+// reset between rounds.
 //
 // T is the index type, int32_t or int64_t (fm.dtype): the table, the
 // store, the pool and the lane intervals are T, and interval arithmetic
@@ -84,6 +84,8 @@
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+#include "lookback.cuh"
 #define CS_HD __host__ __device__ __forceinline__
 #define CS_UNROLL _Pragma("unroll")
 #else
@@ -573,88 +575,10 @@ CS_HD void pool_close(const View<T>& v, const Args& a, long long cursor) {
 // The kernels.
 constexpr int kBlock = 256;            // every kernel: a lane a thread
 constexpr int kWarps = kBlock / 32;
-constexpr unsigned long long kAggregate = 1, kInclusive = 2;
-
-// Exclusive scan of x over the block; *total gets the block's sum.
-// (tot: kWarps + 1 ints of shared memory; every thread must call.)
-__device__ int block_excl_scan(int x, int* tot, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-    if (lane >= d) inc += y;
-  }
-  if (lane == 31) tot[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const int t = lane < kWarps ? tot[lane] : 0;
-    int s = t;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, s, d);
-      if (lane >= d) s += y;
-    }
-    if (lane < kWarps) tot[lane] = s - t;
-    if (lane == 31) tot[kWarps] = s;
-  }
-  __syncthreads();
-  const int ex = tot[warp] + inc - x;
-  *total = tot[kWarps];
-  __syncthreads();
-  return ex;
-}
-
-// The block's ticket: blocks number themselves in the order they start,
-// so a block only ever waits on blocks that are already running.  The
-// last one resets the counter for the next launch.
-__device__ int take_ticket(int32_t* counter, int n_blocks, int* shared) {
-  if (threadIdx.x == 0) {
-    *shared = atomicAdd(counter, 1);
-    if (*shared == n_blocks - 1) *counter = 0;
-  }
-  __syncthreads();
-  return *shared;
-}
-
-__device__ unsigned long long lb_word(unsigned epoch, unsigned long long flag,
-                                      int value) {
-  return ((unsigned long long)(epoch & 0x3FFFFFFFu) << 34) | (flag << 32) |
-         (unsigned)value;
-}
-
-// Decoupled look-back: the sum of the values of the blocks with tickets
-// before `ticket` (every thread gets it), after publishing this block's
-// `value` and then its inclusive prefix in status[ticket].
-__device__ int look_back(unsigned long long* status, int ticket, int value,
-                         unsigned epoch, int* shared) {
-  if (threadIdx.x == 0) {
-    int prefix = 0;
-    if (ticket > 0) {
-      atomicExch(status + ticket, lb_word(epoch, kAggregate, value));
-      for (int j = ticket - 1;;) {
-        const unsigned long long s =
-            *reinterpret_cast<volatile unsigned long long*>(status + j);
-        const unsigned long long flag = (s >> 32) & 3u;
-        if ((unsigned)(s >> 34) != (epoch & 0x3FFFFFFFu) || flag == 0)
-          continue;                     // not published yet this round
-        prefix += (int)(unsigned)s;
-        if (flag == kInclusive) break;
-        --j;
-      }
-    }
-    atomicExch(status + ticket, lb_word(epoch, kInclusive, prefix + value));
-    *shared = prefix;
-  }
-  __syncthreads();
-  return *shared;
-}
-
-// One atomic add a warp of the warp's sum of x (every lane must call).
-__device__ void warp_add(int32_t* dst, int x) {
-  const int s = __reduce_add_sync(0xFFFFFFFFu, x);
-  if ((threadIdx.x & 31) == 0 && s) atomicAdd(dst, s);
-}
+using lookback::block_excl_scan;
+using lookback::look_back;
+using lookback::take_ticket;
+using lookback::warp_add;
 
 template <typename T>
 __global__ void __launch_bounds__(kBlock) chain_probe_kernel(const Args a) {
@@ -680,7 +604,7 @@ __global__ void __launch_bounds__(kBlock) chain_group_kernel(const Args a) {
     h = group_head(v, a, p, o);
   }
   int total;
-  const int ex = block_excl_scan(h, tot, &total);
+  const int ex = block_excl_scan<kWarps>(h, tot, &total);
   const int prefix = look_back(v.lb_group, t, total, epoch, &prefix_s);
   if (p < a.w) group_emit(v, a, o, prefix + ex + h - 1, h);
   if (t == n_blocks - 1) group_close(v, a, prefix + total, threadIdx.x,
@@ -706,7 +630,7 @@ __global__ void __launch_bounds__(kBlock) chain_apply_kernel(const Args a) {
   if (i < a.w) apply_lane(v, a, i, n_w, o);
   const int n = popc(o.push);
   int total;
-  const int ex = block_excl_scan(n, tot, &total);
+  const int ex = block_excl_scan<kWarps>(n, tot, &total);
   const int prefix = look_back(v.lb_apply, t, total, epoch, &prefix_s);
   if (n) flush_lane(v, a, o, cursor + prefix + ex);
   warp_add(v.ctr + 0, o.fq);

@@ -35,31 +35,43 @@ class RoundCapture:
     """While active, keeps (fm, constants, state, w, Uw) before the first
     round of every width of every chain_scan call made through the
     kernels, up to ``limit`` states, numbered by call: ``states[(call,
-    w)]``."""
+    w)]``.  A round loop of another seedscan entry names its entry, its
+    kernel round, its state's clone and its width (``width(st, sizes)``,
+    sizes: the round's arguments between the state and ``held``)."""
 
-    def __init__(self, limit: int = 8):
+    def __init__(self, limit: int = 8, entry: str = "chain_scan",
+                 kernels: str = "_chain_round_kernels", clone=None,
+                 width=lambda st, sizes: sizes[0]):
         self.limit = limit
         self.states = {}
         self.calls = 0
+        self._names = (entry, kernels)
+        self._clone = clone or clone_state
+        self._width = width
 
     def __enter__(self):
-        self._scan, self._round = tss.chain_scan, tss._chain_round_kernels
+        entry, kernels = self._names
+        self._entry, self._round = getattr(tss, entry), getattr(tss, kernels)
 
-        def scan(*a, **kw):
+        def call(*a, **kw):
             self.calls += 1
-            return self._scan(*a, **kw)
+            return self._entry(*a, **kw)
 
-        def rnd(fm, c, st, w, Uw, held):
-            key = (self.calls, w)
+        def rnd(fm, c, st, *sizes_held):
+            sizes = sizes_held[:-1]
+            key = (self.calls, self._width(st, sizes))
             if key not in self.states and len(self.states) < self.limit:
-                self.states[key] = (fm, c, clone_state(st), w, Uw)
-            return self._round(fm, c, st, w, Uw, held)
+                self.states[key] = (fm, c, self._clone(st), *sizes)
+            return self._round(fm, c, st, *sizes_held)
 
-        tss.chain_scan, tss._chain_round_kernels = scan, rnd
+        setattr(tss, entry, call)
+        setattr(tss, kernels, rnd)
         return self
 
     def __exit__(self, *exc):
-        tss.chain_scan, tss._chain_round_kernels = self._scan, self._round
+        entry, kernels = self._names
+        setattr(tss, entry, self._entry)
+        setattr(tss, kernels, self._round)
 
 
 def lossy(case, H: int = 1024, room: int = 200):
@@ -74,7 +86,9 @@ def lossy(case, H: int = 1024, room: int = 200):
     return fm, const, st, w, Uw
 
 
-def _err(a, b) -> int:
+def max_err(a, b) -> int:
+    """The largest absolute difference of two integer tensors of one
+    shape (0 when empty)."""
     a, b = a.to(torch.int64), b.to(torch.int64)
     if a.shape != b.shape:
         raise ValueError(f"shapes differ: {tuple(a.shape)} {tuple(b.shape)}")
@@ -96,11 +110,11 @@ def steps_vs_plain(case) -> dict:
     pr = tss._chain_probe_plain(fm, const, ps)
     hit = pr["hit"]
     errs["chain_probe_kernel"] = max(
-        _err(sc["p_wv"], pr["wv"]), _err(sc["p_slot"], pr["slot"]),
-        _err(sc["p_hit"], hit), _err(sc["key"], pr["key"]),
-        _err(sc["p_ptr"][hit], pr["ptr"][hit]),
-        _err(sc["p_hk0"][hit], pr["hk0"][hit]),
-        _err(sc["p_hln"][hit], pr["hln"][hit]))
+        max_err(sc["p_wv"], pr["wv"]), max_err(sc["p_slot"], pr["slot"]),
+        max_err(sc["p_hit"], hit), max_err(sc["key"], pr["key"]),
+        max_err(sc["p_ptr"][hit], pr["ptr"][hit]),
+        max_err(sc["p_hk0"][hit], pr["hk0"][hit]),
+        max_err(sc["p_hln"][hit], pr["hln"][hit]))
 
     order = torch.argsort(pr["key"], stable=True)
     sc["order"].copy_(order)
@@ -110,13 +124,13 @@ def steps_vs_plain(case) -> dict:
     M = ps["cst"].shape[0]
     stored = max(0, min(n_w, M - int(ps["cur"])))
     errs["chain_group_kernel"] = max(
-        _err(sc["gidx"], gr["gidx"]),
-        *(_err(sc[n], gr[n]) for n in ("rep_wv", "rep_k", "rep_l", "rep_s",
-                                       "rep_valid", "rep_slot")),
-        _err(sc["sc"][[0, 1, 3, 7]], torch.stack(
+        max_err(sc["gidx"], gr["gidx"]),
+        *(max_err(sc[n], gr[n]) for n in ("rep_wv", "rep_k", "rep_l",
+                                          "rep_s", "rep_valid", "rep_slot")),
+        max_err(sc["sc"][[0, 1, 3, 7]], torch.stack(
             [gr["n_w"], ps["cur"].to(torch.int64), gr["n_u"],
              ps["cursor"].to(torch.int64)])),
-        _err(ks["cur"], ps["cur"] + stored))
+        max_err(ks["cur"], ps["cur"] + stored))
 
     walk = tss._chain_walk(fm, gr["rep_wv"], const["W"], gr["rep_k"],
                            gr["rep_l"], gr["rep_s"], gr["rep_valid"])
@@ -124,11 +138,12 @@ def steps_vs_plain(case) -> dict:
     chain_cuda.apply(rd)
     ps2 = tss._chain_apply_plain(fm, const, ps, pr, gr, walk, w, Uw)
     errs["chain_apply_kernel"] = max(
-        *(_err(ks[n], ps2[n]) for n in _LANE + tss.MEMO_KEYS +
+        *(max_err(ks[n], ps2[n]) for n in _LANE + tss.MEMO_KEYS +
           tss.POOL_KEYS),
-        _err(ks["ctr"], torch.stack([ps2["fq"], ps2["fc"], ps2["cursor"],
-                                     ps2["povf"].to(torch.int32)])),
-        _err(rd.live, ps2["alive"].sum()))
+        max_err(ks["ctr"], torch.stack([ps2["fq"], ps2["fc"],
+                                        ps2["cursor"],
+                                        ps2["povf"].to(torch.int32)])),
+        max_err(rd.live, ps2["alive"].sum()))
     applied = hit | (pr["miss"] & (gr["gidx"] < gr["n_w"]))
     lived = applied & ps2["alive"]
     respawned = lived & (ps2["pivot"] != ps["pivot"])

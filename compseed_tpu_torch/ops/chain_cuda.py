@@ -32,7 +32,8 @@ import ctypes as ct
 
 import torch
 
-from compseed_tpu_torch.ops.cuda_lib import KernelLibrary
+from compseed_tpu_torch.ops.cuda_lib import (KernelLibrary, RoundArgs,
+                                             bind_round, check_tensor)
 
 MAX_W = 10                  # a chain window packs into 30 bits
 POOL_COLS = 6               # k, l, s, end, pivot, row
@@ -56,16 +57,7 @@ BLOCK = 256                 # threads a block of every kernel: a lane each
 
 
 def _bind(lib) -> None:
-    for kernel in KERNELS:
-        fn = getattr(lib, kernel.replace("_kernel", "_launch"))
-        fn.argtypes = [ct.c_void_p, ct.c_void_p]
-        fn.restype = ct.c_int
-    lib.chain_args_words.argtypes = []
-    lib.chain_args_words.restype = ct.c_int
-    if lib.chain_args_words() != len(ARGS):
-        raise RuntimeError(f"chain_scan.cu's Args has "
-                           f"{lib.chain_args_words()} words, ARGS names "
-                           f"{len(ARGS)}")
+    bind_round(lib, KERNELS, "chain_args_words", ARGS)
 
 
 LIB = KernelLibrary("chain_scan.cu", KERNELS, _bind, "chain_cuda_error_name")
@@ -73,27 +65,11 @@ LAUNCHES = LIB.launches
 build_library = LIB.build
 
 
-def _launch(kernel: str, dev: torch.device, args) -> None:
-    """Launch ``kernel`` with the Args words ``args`` on ``dev``."""
-    if dev.type != "cuda":
-        raise ValueError(f"{kernel}: the kernel needs CUDA tensors, got {dev}")
-    LIB.launch(kernel, dev, kernel.replace("_kernel", "_launch"),
-               ct.addressof(args))
+# launch a kernel with a round's Args words (tests patch it)
+_launch = LIB.launch_args
 
 
-def _check(name, x, dtype, shape, dev):
-    if x.dtype != dtype:
-        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, expected {dev}")
-
-
-class ChainRound:
+class ChainRound(RoundArgs):
     """One segment of chain_scan's loop (``w`` lanes, ``Uw``
     representatives): the kernels' arguments and scratch.
 
@@ -106,6 +82,8 @@ class ChainRound:
     dtype), ``winflat`` (int64), ``nxt`` (R, L) int32, ``qflat`` uint8,
     and the sizes ``W``, ``L``, ``GP``, ``r3``, ``advance``, ``min_len``,
     ``max_intv``.  The kernels update the state in place."""
+
+    AT = _AT
 
     def __init__(self, fm, const: dict, st: dict, w: int, Uw: int):
         dt = fm.dtype
@@ -142,7 +120,7 @@ class ChainRound:
                 ("nxt", const["nxt"], i32, const["nxt"].shape),
                 ("qflat", const["qflat"], torch.uint8, const["qflat"].shape),
                 ("L2", fm.L2, dt, (5,))):
-            _check(name, x, xdt, shape, dev)
+            check_tensor(name, x, xdt, shape, dev)
         if H & (H - 1) or H >= 2**31 or M >= 2**31:
             raise ValueError(f"chain_scan: H={H} must be a power of two "
                              f"below 2^31 and M={M} below 2^31")
@@ -192,18 +170,6 @@ class ChainRound:
     def holds(self, st: dict, w: int) -> bool:
         """Whether this round was built for ``st``'s tensors at width w."""
         return w == self.w and all(st[n] is x for n, x in self._held.items())
-
-    def set_walk(self, ck, cl, cs, ln) -> None:
-        """Point the apply kernel at the representatives' walk: ck, cl, cs
-        (Uw, W) in the index dtype, ln (Uw,) int32."""
-        dt = self._held["k"].dtype
-        for name, x, xdt, shape in (("ck", ck, dt, (self.Uw, self.W)),
-                                    ("cl", cl, dt, (self.Uw, self.W)),
-                                    ("cs", cs, dt, (self.Uw, self.W)),
-                                    ("ln", ln, torch.int32, (self.Uw,))):
-            _check(name, x, xdt, shape, self.dev)
-            self.args[_AT[name]] = x.data_ptr()
-        self._walk = (ck, cl, cs, ln)           # kept alive until replaced
 
 
 def probe(rd: ChainRound) -> None:

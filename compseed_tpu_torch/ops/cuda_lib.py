@@ -2,9 +2,10 @@
 
 A ``KernelLibrary`` is one source under ``compseed_tpu_torch/csrc/``,
 built with nvcc for sm_90a at first use into
-build/compseed_tpu_torch/lib<source>.so (rebuilt when the source is
-newer) and loaded once per process with ctypes.  Its C launchers take the
-CUDA stream as their last argument and return the CUDA error code;
+build/compseed_tpu_torch/lib<source>.so (rebuilt when the source or a
+header beside it, ``csrc/*.cuh``, is newer) and loaded once per process
+with ctypes.  Its C launchers take the CUDA stream as their last
+argument and return the CUDA error code;
 ``launch`` calls one with the tensors' device current in the calling
 thread and that device's current stream, raises on a non-zero code and
 counts the launch in ``launches``, and counts nothing else.  Worker
@@ -15,6 +16,7 @@ one-time load take a lock.
 from __future__ import annotations
 
 import ctypes as ct
+import glob
 import os
 import shutil
 import subprocess
@@ -53,6 +55,62 @@ def compile_source(src: str, so: str, defines: tuple = ()) -> None:
     os.replace(tmp, so)           # atomic: a loaded old copy stays valid
 
 
+def check_tensor(name, x, dtype, shape, dev) -> None:
+    """Raise unless ``x`` has ``dtype`` and ``shape``, is contiguous and
+    lies on ``dev``: what a launcher checks of a kernel argument."""
+    if x.dtype != dtype:
+        raise TypeError(f"{name} has dtype {x.dtype}, expected {dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.device != dev:
+        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+
+
+def bind_round(lib, kernels, args_words: str, names) -> None:
+    """Bind a round source's launchers (``<kernel>_launch`` for each
+    ``<kernel>_kernel``: its Args words and a stream, returning the CUDA
+    error code) and check that its struct Args (``args_words`` names the
+    C function that gives its size in words) has one word for each of
+    ``names``."""
+    for kernel in kernels:
+        fn = getattr(lib, kernel.replace("_kernel", "_launch"))
+        fn.argtypes = [ct.c_void_p, ct.c_void_p]
+        fn.restype = ct.c_int
+    words = getattr(lib, args_words)
+    words.argtypes = []
+    words.restype = ct.c_int
+    if words() != len(names):
+        raise RuntimeError(f"{args_words}() says struct Args has {words()} "
+                           f"words, the launchers name {len(names)}")
+
+
+class RoundArgs:
+    """What the launch arguments of a round's kernels share
+    (chain_cuda.ChainRound, walk_cuda.WalkRound): ``args``, the source's
+    struct Args as one 64-bit word a field (``AT``: field -> word), kept
+    at fixed addresses from round to round, apart from the
+    representatives' walk, which ``set_walk`` points to.  An instance
+    sets ``args``, ``dev``, ``Uw``, ``W`` and ``_held`` (its state's
+    tensors, ``k`` among them)."""
+
+    AT: dict = {}
+
+    def set_walk(self, ck, cl, cs, ln) -> None:
+        """Point the apply kernel at the representatives' walk: ck, cl, cs
+        (Uw, W) in the index dtype, ln (Uw,) int32."""
+        dt = self._held["k"].dtype
+        for name, x, xdt, shape in (("ck", ck, dt, (self.Uw, self.W)),
+                                    ("cl", cl, dt, (self.Uw, self.W)),
+                                    ("cs", cs, dt, (self.Uw, self.W)),
+                                    ("ln", ln, torch.int32, (self.Uw,))):
+            check_tensor(name, x, xdt, shape, self.dev)
+            self.args[self.AT[name]] = x.data_ptr()
+        self._walk = (ck, cl, cs, ln)           # kept alive until replaced
+
+
 class KernelLibrary:
     """One kernel source, its shared library and its launch counts.
 
@@ -73,10 +131,13 @@ class KernelLibrary:
 
     def build(self, force: bool = False) -> str:
         """Compile the source (when the library is missing or older than
-        it); returns the library's path.  Raises if nvcc fails."""
+        it or a header beside it); returns the library's path.  Raises if
+        nvcc fails."""
         os.makedirs(os.path.dirname(self.so), exist_ok=True)
+        deps = [self.src] + glob.glob(
+            os.path.join(os.path.dirname(self.src), "*.cuh"))
         if force or not os.path.exists(self.so) or \
-                os.path.getmtime(self.so) < os.path.getmtime(self.src):
+                os.path.getmtime(self.so) < max(map(os.path.getmtime, deps)):
             compile_source(self.src, self.so)
         return self.so
 
@@ -110,3 +171,13 @@ class KernelLibrary:
             raise RuntimeError(f"{kernel} launch failed on {dev} "
                                f"({self.so}): CUDA error {err} ({name})")
         self.launched(kernel)
+
+    def launch_args(self, kernel: str, dev: torch.device, args) -> None:
+        """Launch ``kernel`` of a round source through its C launcher
+        (``_kernel`` replaced by ``_launch``) with the Args words ``args``
+        (a ctypes array) on ``dev``, which must be a CUDA device."""
+        if dev.type != "cuda":
+            raise ValueError(f"{kernel}: the kernel needs CUDA tensors, "
+                             f"got {dev}")
+        self.launch(kernel, dev, kernel.replace("_kernel", "_launch"),
+                    ct.addressof(args))

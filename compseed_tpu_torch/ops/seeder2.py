@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from compseed_tpu_torch.ops import fm as dfm
-from compseed_tpu_torch.ops import chain_cuda, fm_cuda
+from compseed_tpu_torch.ops import chain_cuda, fm_cuda, walk_cuda
 from compseed_tpu_torch.ops import seedscan as ss
 from compseed_tpu_torch.ops.bits import as_i32
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex, to_device
@@ -192,15 +192,16 @@ class DeviceSeeder:
                  dfi: DeviceFMIndex | None = None, dedup: bool = False):
         """dedup=True enables the cross-read walk deduplication (the
         compressive SST reuse); dedup=False runs the lockstep scan and the
-        plain staged walks.  On a CUDA device the FM kernels' and the
-        chain scan's libraries are built and loaded here: a failed build
-        stops the construction."""
+        plain staged walks.  On a CUDA device the FM kernels', the chain
+        scan's and the chained walker's libraries are built and loaded
+        here: a failed build stops the construction."""
         self.opt = opt
         self.fm = fm
         self.device = torch.device(device)
         if self.device.type == "cuda":
             fm_cuda.LIB.load()
             chain_cuda.LIB.load()
+            walk_cuda.LIB.load()
         self.dfi = dfi if dfi is not None else to_device(fm, self.device)
         if self.dfi.device != self.device:
             raise ValueError(f"index is on {self.dfi.device}, seeder on "

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from compseed_tpu_torch.ops import fm as dfm
-from compseed_tpu_torch.ops import chain_cuda, fm_cuda
+from compseed_tpu_torch.ops import chain_cuda, fm_cuda, walk_cuda
 from compseed_tpu_torch.ops.bits import (add64, as_i32, lsr64, mul32,
                                          mul64, sub64, u32)
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex
@@ -555,6 +555,11 @@ def walk_pool_dedup(fm: DeviceFMIndex, qflat, ph, L: int, pool, stages,
             (calls + calls2).to(_I32), n_groups)
 
 
+# walk_pool_chain's lane state, compacted between widths
+WALK_LANE_KEYS = walk_cuda.LANE_KEYS
+_ALL4 = sum(4 << (3 * j) for j in range(REV_W))
+
+
 def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
                     mh=None, W: int = REV_W, segs=(1, 4, 16)):
     """Backward walks in W-char CHAINED ROUNDS with per-round exact
@@ -565,17 +570,23 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
     the shared chain states.  The lane width drops by ``segs`` divisors
     with stable rank-scatter compaction.
 
+    The round is ``_walk_round_plain`` for CPU tensors and
+    ``_walk_round_kernels`` (csrc/walk_chain.cu) otherwise; the kernels
+    write the results in place into copies of the pool's columns, made
+    once per call: the caller's pool is never written.
+
     pool: (GP, >=7) rows (cols k, l, s, end, pivot, rid, valid[, task]).
     Returns (death, fk, fl, fs (GP,), ovf, calls, n_groups)."""
     dt = fm.dtype
     dev = pool.device
     GP = pool.shape[0]
+    run_round = _walk_round(dev)
+    kernels = run_round is not _walk_round_plain
     valid = pool[:, 6] != 0
     mh_all = torch.ones(GP, dtype=dt, device=dev) if mh is None else \
         mh.to(dt).clamp(min=1)
     n_valid = valid.sum()
     ovf = n_valid > CAPW
-    ALL4 = sum(4 << (3 * j) for j in range(REV_W))
 
     # stable rank-scatter compaction of valid rows into CAPW lanes
     crank = torch.cumsum(valid, 0) - 1
@@ -593,107 +604,187 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
         mh=compact(mh_all),
         slot=compact(torch.where(valid, ar_gp, GP), _I32),
         alive=torch.arange(CAPW, device=dev) < n_valid,
-    )
-    death = torch.full((GP,), -2, dtype=_I32, device=dev)
-    fk, fl, fs = pool[:, 0], pool[:, 1], pool[:, 2]
-    calls = torch.zeros((), dtype=_I32, device=dev)
-    ngrp = torch.zeros((), dtype=_I32, device=dev)
-    rnd = 0
+        death=torch.full((GP,), -2, dtype=_I32, device=dev),
+        fk=pool[:, 0], fl=pool[:, 1], fs=pool[:, 2])
+    if kernels:
+        # one copy of the pool's columns per call, then written in place
+        for kk in ("fk", "fl", "fs"):
+            st[kk] = st[kk].clone(memory_format=torch.contiguous_format)
+    # the counters [calls, ngrp] are views of one tensor: the kernels add
+    # into it in place, the plain round replaces them
+    st["ctr"] = torch.zeros(2, dtype=_I32, device=dev)
+    st["calls"], st["ngrp"] = st["ctr"]
+    st["live"] = st["alive"].sum()
+    c = dict(rwflat=rwflat.contiguous(), L=L, W=W, all4=_ALL4)
+    held = {}                   # the kernels' launch arguments, by segment
     RCAP = L + 2
-    jj = torch.arange(W, device=dev)[None, :]
-    big_mh = torch.iinfo(dt).max
 
-    def body(st, w: int, Uw: int):
-        nonlocal death, fk, fl, fs, calls, ngrp
-        alive = st["alive"]
-        k, l, s, i = st["k"], st["l"], st["s"], st["i"]
-        idx = (st["rid"].to(_I64) * L + i.clamp(0, L - 1)).clamp(
-            0, rwflat.shape[0] - 1)
-        rw = torch.where(i >= 0, rwflat[idx], ALL4)
-
-        # ---- group by exact (window, k, s); sort on one 32-bit mix
-        # (a collision only splits a group), boundary-compare full keys
-        mix = rw ^ mul32(u32(k) ^ u32(k.to(_I64) >> 31), 0x9E3779B9) ^ \
-            mul32(u32(s) ^ u32(s.to(_I64) >> 31), 0x85EBCA6B)
-        mix = mul32(mix ^ (mix >> 15), 0xC2B2AE35)
-        order = torch.argsort(torch.where(alive, mix >> 1, _I32_MAX)
-                              .to(_I32), stable=True)
-        vs = alive[order]
-        head = _group_heads([rw[order], k[order], s[order]], vs)
-        gidx_sorted = torch.cumsum(head, 0) - 1
-        n_u = head.sum()
-        n_w = torch.clamp(n_u, max=Uw)
-        rep_take = _drop_set(
-            torch.zeros(Uw, dtype=_I64, device=dev),
-            torch.where(head & (gidx_sorted < Uw), gidx_sorted, Uw), order)
-        gidx_lane = gidx_sorted[_inverse_perm(order)]
-        group = gidx_lane.clamp(0, Uw - 1)
-        walked = alive & (gidx_lane < n_w)
-
-        # ---- one representative per group walks backward extends,
-        # stopping at the group's smallest min_hits
-        rep_valid = (torch.arange(Uw, device=dev) < n_w) & alive[rep_take]
-        gmin = torch.full((Uw,), big_mh, dtype=dt, device=dev).scatter_reduce(
-            0, gidx_sorted.clamp(0, Uw - 1),
-            torch.where(vs & (gidx_sorted < Uw), st["mh"][order],
-                        _I32_MAX), "amin", include_self=True)
-        rk, rl_, rs = k[rep_take], l[rep_take], s[rep_take]
-        ck, cl, cs, ln = _chain_walk(fm, rw[rep_take], W, rk, rl_, rs,
-                                     rep_valid, is_back=True, stop_s=gmin)
-        calls = calls + torch.where(rep_valid, ln, 0).sum().to(_I32)
-        ngrp = ngrp + n_w.to(_I32)
-
-        # ---- every walked lane consumes the shared chain; k and s are
-        # group-identical, l re-bases by the member offset
-        CK = ck[group]
-        CS = cs[group]
-        CL = cl[group] + (l - rl_[group])[:, None]
-        lng = ln[group][:, None]
-        real = jj < lng
-        amb_here = (jj == lng) & (lng < W)
-        die_j = amb_here | (real & (CS < st["mh"][:, None]))
-        died = die_j.any(1) & walked
-        dj = torch.argmax(die_j.to(torch.uint8), dim=1)
-        # state at the death = state BEFORE the killing step
-        djc = dj[:, None]
-        dK = torch.gather(torch.cat([k[:, None], CK[:, :-1]], 1), 1, djc)[:, 0]
-        dL = torch.gather(torch.cat([l[:, None], CL[:, :-1]], 1), 1, djc)[:, 0]
-        dS = torch.gather(torch.cat([s[:, None], CS[:, :-1]], 1), 1, djc)[:, 0]
-        dsl = torch.where(died, st["slot"], GP)
-        death = _drop_set(death, dsl, torch.where(died, i - dj.to(_I32), 0))
-        fk = _drop_set(fk, dsl, torch.where(died, dK, 0))
-        fl = _drop_set(fl, dsl, torch.where(died, dL, 0))
-        fs = _drop_set(fs, dsl, torch.where(died, dS, 0))
-
-        # ---- survivors advance W chars; un-walked lanes retry
-        through = walked & ~died
-        st = dict(st)
-        st["k"] = torch.where(through, CK[:, W - 1], k)
-        st["l"] = torch.where(through, CL[:, W - 1], l)
-        st["s"] = torch.where(through, CS[:, W - 1], s)
-        st["i"] = torch.where(through, i - W, i)
-        st["alive"] = alive & ~died
-        return st
-
-    lane_keys = ("k", "l", "s", "rid", "i", "mh", "slot")
     widths = []
     for d in segs:
         w2 = max(CAPW // d, 256)
         if not widths or w2 < widths[-1]:
             widths.append(w2)
+    rnd = 0
     for ix, w in enumerate(widths):
         nxtw = widths[ix + 1] if ix + 1 < len(widths) else 0
-        while rnd < RCAP and int(st["alive"].sum()) > nxtw:
-            st = body(st, w, max(w // 2, 64))
+        # the one host sync a round, as the JAX loop tests its cond
+        while rnd < RCAP and int(st["live"]) > nxtw:
+            st = run_round(fm, c, st, max(w // 2, 64), held)
             rnd += 1
         if nxtw:
             lalive = st["alive"]
             tgt2 = torch.where(lalive, torch.cumsum(lalive, 0) - 1, nxtw)
-            st = {kk: _drop_set(torch.zeros(nxtw, dtype=st[kk].dtype,
-                                            device=dev), tgt2, st[kk])
-                  for kk in lane_keys + ("alive",)}
+            for kk in WALK_LANE_KEYS:
+                st[kk] = _drop_set(torch.zeros(nxtw, dtype=st[kk].dtype,
+                                               device=dev), tgt2, st[kk])
     ovf = ovf | st["alive"].any()
-    return death, fk, fl, fs, ovf, calls, ngrp
+    return (st["death"], st["fk"], st["fl"], st["fs"], ovf, st["calls"],
+            st["ngrp"])
+
+
+def _walk_round(dev: torch.device):
+    """walk_pool_chain's round for tensors on ``dev``: the plain version
+    for CPU tensors, the kernels for any other."""
+    if dev.type == "cpu":
+        return _walk_round_plain
+    return _walk_round_kernels
+
+
+def _walk_round_kernels(fm: DeviceFMIndex, c: dict, st: dict, Uw: int,
+                        held: dict) -> dict:
+    """One round of walk_pool_chain by the kernels of csrc/walk_chain.cu
+    (ops/walk_cuda.py): key, the stable sort by key, group, the
+    representatives' backward walk, apply.  The state is updated in place
+    (the results are walk_pool_chain's own copies); ``st["live"]`` is the
+    live count after the round.  ``held`` keeps the segment's launch
+    arguments (a ``WalkRound``) from round to round of one call."""
+    rd = held.get("round")
+    if rd is None or not rd.holds(st, Uw):
+        rd = held["round"] = walk_cuda.WalkRound(fm, c, st, Uw)
+    walk_cuda.key(rd)
+    walk_cuda.sort(rd)
+    walk_cuda.group(rd)
+    s = rd.scratch
+    rd.set_walk(*_chain_walk(fm, s["rep_rw"], c["W"], s["rep_k"],
+                             s["rep_l"], s["rep_s"], s["rep_valid"],
+                             is_back=True, stop_s=s["gmin"]))
+    walk_cuda.apply(rd)
+    st["live"] = rd.live
+    return st
+
+
+def _walk_round_plain(fm: DeviceFMIndex, c: dict, st: dict, Uw: int,
+                      held: dict | None = None) -> dict:
+    """One round of walk_pool_chain in PyTorch operations, the JAX
+    package's make_body operation for operation (the kernels' plain
+    version): returns the new state.  Its steps are the kernels' plain
+    steps: key, the sort and group, the representatives' walk, apply.
+    (``held``, the kernels' launch arguments, is not used.)"""
+    kr = _walk_key_plain(c, st)
+    order = torch.argsort(kr["key"], stable=True)
+    gr = _walk_group_plain(st, kr, order, Uw)
+    walk = _chain_walk(fm, gr["rep_rw"], c["W"], gr["rep_k"], gr["rep_l"],
+                       gr["rep_s"], gr["rep_valid"], is_back=True,
+                       stop_s=gr["gmin"])
+    return _walk_apply_plain(c, st, gr, walk, Uw)
+
+
+def _walk_key_plain(c: dict, st: dict) -> dict:
+    """walk_key_kernel's plain step: each lane's window word (the W chars
+    below its position; all 4s before the read) and its sort key, one
+    32-bit mix of (window, k, s) (a collision only splits a group) for a
+    live lane, INT32_MAX else."""
+    L, rwflat = c["L"], c["rwflat"]
+    k, s, i = st["k"], st["s"], st["i"]
+    idx = (st["rid"].to(_I64) * L + i.clamp(0, L - 1)).clamp(
+        0, rwflat.shape[0] - 1)
+    rw = torch.where(i >= 0, rwflat[idx], _ALL4)
+    mix = rw ^ mul32(u32(k) ^ u32(k.to(_I64) >> 31), 0x9E3779B9) ^ \
+        mul32(u32(s) ^ u32(s.to(_I64) >> 31), 0x85EBCA6B)
+    mix = mul32(mix ^ (mix >> 15), 0xC2B2AE35)
+    return dict(rw=rw,
+                key=torch.where(st["alive"], mix >> 1, _I32_MAX).to(_I32))
+
+
+def _walk_group_plain(st: dict, kr: dict, order: torch.Tensor,
+                      Uw: int) -> dict:
+    """walk_group_kernel's plain step, given the lanes in key order: group
+    heads by exact (window, k, s), each lane's group index, the first Uw
+    heads' representatives (lane 0 past n_w) and their inputs, and each
+    group's smallest min_hits (the representative's walk stops there)."""
+    alive, rw, k, s = st["alive"], kr["rw"], st["k"], st["s"]
+    dev = alive.device
+    vs = alive[order]
+    head = _group_heads([rw[order], k[order], s[order]], vs)
+    gidx_sorted = torch.cumsum(head, 0) - 1
+    n_u = head.sum()
+    n_w = torch.clamp(n_u, max=Uw)
+    rep_take = _drop_set(
+        torch.zeros(Uw, dtype=_I64, device=dev),
+        torch.where(head & (gidx_sorted < Uw), gidx_sorted, Uw), order)
+    gidx_lane = gidx_sorted[_inverse_perm(order)]
+    rep_valid = (torch.arange(Uw, device=dev) < n_w) & alive[rep_take]
+    mh = st["mh"]
+    gmin = torch.full((Uw,), torch.iinfo(mh.dtype).max, dtype=mh.dtype,
+                      device=dev).scatter_reduce(
+        0, gidx_sorted.clamp(0, Uw - 1),
+        torch.where(vs & (gidx_sorted < Uw), mh[order], _I32_MAX),
+        "amin", include_self=True)
+    return dict(n_u=n_u, n_w=n_w, gidx=gidx_lane, rep_take=rep_take,
+                rep_valid=rep_valid, rep_rw=rw[rep_take], rep_k=k[rep_take],
+                rep_l=st["l"][rep_take], rep_s=s[rep_take], gmin=gmin)
+
+
+def _walk_apply_plain(c: dict, st: dict, gr: dict, walk, Uw: int) -> dict:
+    """walk_apply_kernel's plain step: every walked lane consumes its
+    group's chain (k and s are group-identical, l re-bases by the member
+    offset), dies at its first killing step (the state BEFORE that step
+    and its position go to its pool row) or goes W chars on; lanes of
+    groups past Uw wait a round.  Returns the new state, with ``live``,
+    its live count."""
+    W = c["W"]
+    k, l, s, i = st["k"], st["l"], st["s"], st["i"]
+    dev = k.device
+    GP = st["death"].shape[0]
+    jj = torch.arange(W, device=dev)[None, :]
+    ck, cl, cs, ln = walk
+    group = gr["gidx"].clamp(0, Uw - 1)
+    walked = st["alive"] & (gr["gidx"] < gr["n_w"])
+    st = dict(st)
+    st["calls"] = st["calls"] + \
+        torch.where(gr["rep_valid"], ln, 0).sum().to(_I32)
+    st["ngrp"] = st["ngrp"] + gr["n_w"].to(_I32)
+
+    CK = ck[group]
+    CS = cs[group]
+    CL = cl[group] + (l - gr["rep_l"][group])[:, None]
+    lng = ln[group][:, None]
+    real = jj < lng
+    amb_here = (jj == lng) & (lng < W)
+    die_j = amb_here | (real & (CS < st["mh"][:, None]))
+    died = die_j.any(1) & walked
+    dj = torch.argmax(die_j.to(torch.uint8), dim=1)
+    # state at the death = state BEFORE the killing step
+    djc = dj[:, None]
+    dK = torch.gather(torch.cat([k[:, None], CK[:, :-1]], 1), 1, djc)[:, 0]
+    dL = torch.gather(torch.cat([l[:, None], CL[:, :-1]], 1), 1, djc)[:, 0]
+    dS = torch.gather(torch.cat([s[:, None], CS[:, :-1]], 1), 1, djc)[:, 0]
+    dsl = torch.where(died, st["slot"], GP)
+    st["death"] = _drop_set(st["death"], dsl,
+                            torch.where(died, i - dj.to(_I32), 0))
+    st["fk"] = _drop_set(st["fk"], dsl, torch.where(died, dK, 0))
+    st["fl"] = _drop_set(st["fl"], dsl, torch.where(died, dL, 0))
+    st["fs"] = _drop_set(st["fs"], dsl, torch.where(died, dS, 0))
+
+    # ---- survivors advance W chars; un-walked lanes retry
+    through = walked & ~died
+    st["k"] = torch.where(through, CK[:, W - 1], k)
+    st["l"] = torch.where(through, CL[:, W - 1], l)
+    st["s"] = torch.where(through, CS[:, W - 1], s)
+    st["i"] = torch.where(through, i - W, i)
+    st["alive"] = st["alive"] & ~died
+    st["live"] = st["alive"].sum()
+    return st
 
 
 def reconstruct(pool, death, fk, fl, fs, min_seed_len: int, group_cols):

@@ -1,0 +1,171 @@
+"""The backward chained walker's round on Hopper: launchers of
+``csrc/walk_chain.cu``.
+
+``seedscan.walk_pool_chain`` runs its round as the plain version,
+``seedscan._walk_round_plain``, for CPU tensors, and otherwise as
+``seedscan._walk_round_kernels``: three hand-written kernels around one
+``torch.sort`` and one ``fm_chain_walk_kernel`` launch,
+
+  ``key``   -> ``walk_key_kernel``    (window word, mix, sort key);
+  ``group`` -> ``walk_group_kernel``  (group heads, scan, representatives,
+               each group's smallest min_hits);
+  ``apply`` -> ``walk_apply_kernel``  (deaths to the pool rows, survivors
+               W chars on, calls, the live count).
+
+A ``WalkRound`` holds one segment's launch arguments (the ``Args`` words
+of the source, named by ``ARGS`` in order) and its scratch: the lane
+state, the pool rows' results and the counters are updated in place, so
+the arguments stay fixed from round to round, apart from the
+representatives' walk, which ``set_walk`` points to.  The library is
+``LIB``, an ``ops/cuda_lib.KernelLibrary`` (built with nvcc for sm_90a at
+first use into build/compseed_tpu_torch/libwalk_chain.so);
+``DeviceSeeder`` loads it when it is built on a CUDA device.
+
+``LAUNCHES`` counts kernel launches by kernel, and nothing else.  Every
+launch goes to the device its tensors lie on, on that device's current
+stream, with no synchronisation, under the library's lock (the sharded
+path's worker threads share it); a launch on another device raises.
+"""
+
+from __future__ import annotations
+
+import ctypes as ct
+
+import torch
+
+from compseed_tpu_torch.ops.cuda_lib import (KernelLibrary, RoundArgs,
+                                             bind_round, check_tensor)
+
+MAX_W = 10                  # a window packs into 30 bits
+
+# csrc/walk_chain.cu's struct Args, one 64-bit word a field, in order
+ARGS = (
+    "k", "l", "s", "rid", "i", "mh", "slot", "alive",
+    "rwflat", "death", "fk", "fl", "fs", "ctr",
+    "rw", "key", "order",
+    "gidx", "rep_rw", "rep_k", "rep_l", "rep_s", "rep_valid", "gmin",
+    "ck", "cl", "cs", "ln",
+    "lb_group", "sc",
+    "w", "Uw", "W", "L", "n_rw", "GP", "idx64", "all4")
+_AT = {n: i for i, n in enumerate(ARGS)}
+LANE_KEYS = ("k", "l", "s", "rid", "i", "mh", "slot", "alive")
+CALL_KEYS = ("death", "fk", "fl", "fs", "ctr")
+
+KERNELS = ("walk_key_kernel", "walk_group_kernel", "walk_apply_kernel")
+BLOCK = 256                 # threads a block of every kernel: a lane each
+SC_NW, SC_NU, SC_LIVE, SC_EPOCH = 0, 1, 2, 3    # words of ``sc``
+
+
+def _bind(lib) -> None:
+    bind_round(lib, KERNELS, "walk_args_words", ARGS)
+
+
+LIB = KernelLibrary("walk_chain.cu", KERNELS, _bind, "walk_cuda_error_name")
+LAUNCHES = LIB.launches
+build_library = LIB.build
+
+
+# launch a kernel with a round's Args words (tests patch it)
+_launch = LIB.launch_args
+
+
+class WalkRound(RoundArgs):
+    """One segment of walk_pool_chain's loop (n lanes, ``Uw``
+    representatives): the kernels' arguments and scratch.
+
+    ``st`` is walk_pool_chain's state: the lanes (n,) ``k``, ``l``,
+    ``s``, ``mh`` (index dtype), ``rid``, ``i``, ``slot`` (int32),
+    ``alive`` (bool); the pool rows' results (GP,) ``death`` (int32),
+    ``fk``, ``fl``, ``fs`` (index dtype); ``ctr`` (2,) int32 [calls,
+    ngrp].  ``const`` holds the call's constants: ``rwflat`` (int64
+    window words, R * L), ``L``, ``W`` and ``all4`` (the window word
+    before the read).  The kernels update the state in place."""
+
+    AT = _AT
+
+    def __init__(self, fm, const: dict, st: dict, Uw: int):
+        dt = fm.dtype
+        if dt not in (torch.int32, torch.int64):
+            raise TypeError(f"index dtype {dt} is neither int32 nor int64")
+        W = const["W"]
+        if not 1 <= W <= MAX_W:
+            raise ValueError(f"walk_pool_chain: W={W} is outside "
+                             f"[1, {MAX_W}]")
+        n = st["k"].shape[0] if st["k"].dim() else 0
+        if not 1 <= Uw < 2**31 or n >= 2**31:
+            raise ValueError(f"walk_pool_chain: Uw={Uw} or n={n} is outside "
+                             f"[1, 2^31)")
+        dev = st["k"].device
+        GP = st["death"].shape[0] if st["death"].dim() else 0
+        rwflat = const["rwflat"]
+        if rwflat.dim() != 1 or rwflat.shape[0] < 1:
+            raise ValueError("walk_pool_chain: rwflat must be a non-empty "
+                             "vector")
+        i32, i64 = torch.int32, torch.int64
+        for name, x, xdt, shape in (
+                ("k", st["k"], dt, (n,)), ("l", st["l"], dt, (n,)),
+                ("s", st["s"], dt, (n,)), ("mh", st["mh"], dt, (n,)),
+                ("rid", st["rid"], i32, (n,)), ("i", st["i"], i32, (n,)),
+                ("slot", st["slot"], i32, (n,)),
+                ("alive", st["alive"], torch.bool, (n,)),
+                ("death", st["death"], i32, (GP,)),
+                ("fk", st["fk"], dt, (GP,)), ("fl", st["fl"], dt, (GP,)),
+                ("fs", st["fs"], dt, (GP,)),
+                ("ctr", st["ctr"], i32, (2,)),
+                ("rwflat", rwflat, i64, rwflat.shape)):
+            check_tensor(name, x, xdt, shape, dev)
+        self.dev, self.n, self.Uw, self.W = dev, n, Uw, W
+
+        def e(m, dtype=i32):
+            return torch.empty(m, dtype=dtype, device=dev)
+
+        # scratch, one set per segment; the sort writes sorted_key /
+        # order; the look-back words and sc start at zero
+        n_blocks = -(-n // BLOCK)
+        self.scratch = dict(
+            rw=e(n, i64), key=e(n), sorted_key=e(n), order=e(n, i64),
+            gidx=e(n), rep_rw=e(Uw, i64), rep_k=e(Uw, dt),
+            rep_l=e(Uw, dt), rep_s=e(Uw, dt), rep_valid=e(Uw, torch.bool),
+            gmin=e(Uw, dt),
+            lb_group=torch.zeros(max(n_blocks, 1), dtype=i64, device=dev),
+            sc=torch.zeros(8, dtype=i32, device=dev))
+        self.live = self.scratch["sc"][SC_LIVE]   # live count after apply
+        self._held = {n_: st[n_] for n_ in LANE_KEYS + CALL_KEYS}
+        args = (ct.c_longlong * len(ARGS))()
+        for n_, x in list(self._held.items()) + list(self.scratch.items()):
+            if n_ != "sorted_key":
+                args[_AT[n_]] = x.data_ptr()
+        args[_AT["rwflat"]] = rwflat.data_ptr()
+        self._rwflat = rwflat                   # kept alive with the args
+        for n_, x in (("w", n), ("Uw", Uw), ("W", W), ("L", const["L"]),
+                      ("n_rw", rwflat.shape[0]), ("GP", GP),
+                      ("idx64", int(dt == i64)), ("all4", const["all4"])):
+            args[_AT[n_]] = x
+        self.args = args
+
+    def holds(self, st: dict, Uw: int) -> bool:
+        """Whether this round was built for ``st``'s tensors with Uw
+        representatives."""
+        return Uw == self.Uw and \
+            all(st[n] is x for n, x in self._held.items())
+
+
+def key(rd: WalkRound) -> None:
+    """walk_key_kernel: every lane's window word and sort key."""
+    _launch("walk_key_kernel", rd.dev, rd.args)
+
+
+def sort(rd: WalkRound) -> None:
+    """The lanes in key order (stable), into the round's order array."""
+    s = rd.scratch
+    torch.sort(s["key"], stable=True, out=(s["sorted_key"], s["order"]))
+
+
+def group(rd: WalkRound) -> None:
+    """walk_group_kernel: groups, scan, representatives, group minima."""
+    _launch("walk_group_kernel", rd.dev, rd.args)
+
+
+def apply(rd: WalkRound) -> None:
+    """walk_apply_kernel: deaths, survivors on, calls; the live count."""
+    _launch("walk_apply_kernel", rd.dev, rd.args)

@@ -10,7 +10,10 @@ the seeder's first bench chunk with the FM kernels against the same with
 their plain versions; chain_scan's round on the kernels of
 csrc/chain_scan.cu against the plain round (the first bench chunk, int32
 and int64 positions; its captured rounds kernel by kernel; from worker
-threads); the sharded pipeline on one card against the unsharded one.
+threads); walk_pool_chain's round on the kernels of csrc/walk_chain.cu
+the same ways (its captured rounds also with few representatives and in
+forced forms); the sharded pipeline on one card against the unsharded
+one.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -918,3 +921,137 @@ def test_chain_scan_from_worker_threads_on_card(dev, bench):
             assert torch.equal(x, y)
         for k in tss.MEMO_KEYS:
             assert torch.equal(a[5][k], b[5][k])
+
+
+# ---------------------------------------------------------------------------
+# walk_pool_chain's round (csrc/walk_chain.cu) on the first bench chunk.
+
+def _walk_launches():
+    from compseed_tpu_torch.ops import walk_cuda
+    return dict(walk_cuda.LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_walk_round_kernels_equal_plain_on_first_bench_chunk(
+        dev, bench, dtype, monkeypatch):
+    """The default engine on the first 16,384 bench reads with
+    walk_pool_chain's round on the kernels of csrc/walk_chain.cu: every
+    walk_pool_chain call's deaths, fk, fl, fs, ovf and counters, round 1's
+    outputs (pool, SMEMs, counters), the whole chunk's head and seed matrix
+    equal the same with seedscan._walk_round patched to the plain round (a
+    test-only patch), with int32 and with int64 positions; each of the
+    three kernels launched, none in the plain run."""
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    dfi = _bench_index(bench, dev, dtype)
+    sd = DeviceSeeder(MemOptions(), fm, dev, dfi=dfi, dedup=True)
+    R, L, qd, rd = sd._upload(list(reads[:16384]))
+    fns = sd._build(R, L)
+    walk = tss.walk_pool_chain
+
+    def run():
+        calls = []
+
+        def recorded(*a, **kw):
+            out = walk(*a, **kw)
+            calls.append([x.clone() for x in out])
+            return out
+
+        n0 = _walk_launches()
+        with monkeypatch.context() as m:
+            m.setattr(tss, "walk_pool_chain", recorded)
+            r1 = fns["r1"](qd, rd)
+            whole = sd._run(fns, qd, rd)
+        torch.cuda.synchronize()
+        n1 = _walk_launches()
+        return (calls, r1, whole), {k: n1[k] - n0[k] for k in n1}
+
+    def flat(x):
+        if isinstance(x, dict):
+            return [v for k in sorted(x) for v in flat(x[k])]
+        if isinstance(x, (tuple, list)):
+            return [v for y in x for v in flat(y)]
+        return [x] if isinstance(x, torch.Tensor) else []
+
+    got_k, n_k = run()
+    assert all(n_k.values()) and len(set(n_k.values())) == 1, n_k
+    assert len(got_k[0]) >= 3               # round 1 twice (r1, whole), r2
+    monkeypatch.setattr(tss, "_walk_round",
+                        lambda dev_: tss._walk_round_plain)
+    got_p, n_p = run()
+    assert not any(n_p.values()), n_p
+    got, want = flat(got_k), flat(got_p)
+    assert len(got) == len(want) > 40
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and torch.equal(g, w), i
+    head = got_k[2][2].cpu()
+    assert not head[3:14].any()          # no cap overflow on this chunk
+    assert sd.dfi.dtype == (torch.int64 if dtype == "int64" else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_walk_round_steps_vs_plain_on_card(dev, bench, dtype):
+    """The first bench chunk's walk_pool_chain rounds (the first of each
+    width: round 1 at 393,216 lanes and its narrower segments, round 2 at
+    262,144 ...), each also with 64 representatives and in the forced
+    forms (colliding keys, a live lane keyed INT32_MAX, one after a dead
+    lane of its (window, k, s)), through each kernel and its plain step:
+    equal output by output."""
+    from compseed_tpu_torch.ops import walk_cases, walk_cuda
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    dfi = _bench_index(bench, dev, dtype)
+    sd = DeviceSeeder(MemOptions(), fm, dev, dfi=dfi, dedup=True)
+    with walk_cases.RoundCapture(limit=16) as cap:
+        sd.run_flat(list(reads[:16384]))
+    torch.cuda.synchronize()
+    widths = {n for _, n in cap.states}
+    assert {24 * 16384, 16 * 16384} <= widths, sorted(cap.states)
+    deferred = forced = 0
+    for key, rnd in sorted(cap.states.items()):
+        forms = [rnd, walk_cases.capped(rnd)]
+        if int(rnd[2]["alive"][:5].sum()) == 5:
+            forms.append(walk_cases.forced(rnd))
+            forced += 1
+        for c in forms:
+            errs = walk_cases.steps_vs_plain(c)
+            stats = errs.pop("stats")
+            assert errs == dict.fromkeys(walk_cuda.KERNELS, 0), \
+                (key, stats, errs)
+            deferred += stats["n_u"] > stats["n_w"]
+    assert deferred >= len(cap.states) and forced >= 2
+
+
+def test_walk_pool_chain_from_worker_threads_on_card(dev, bench):
+    """walk_pool_chain on cuda:0 from four worker threads side by side (the
+    sharded path's rule): each equals the same call made alone."""
+    import concurrent.futures as cf
+
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    parts = []
+    for i in range(4):
+        R, L, qd, rd = sd._upload(list(reads[i * 2048:(i + 1) * 2048]))
+        memo = tss.make_chain_memo(1 << 16, 8192, 5, sd.dfi.dtype, dev)
+        pool = tss.chain_scan(sd.dfi, qd, rd, 24 * R, memo, W=5)[0]
+        parts.append((tss.packed_rev_windows(qd), L, pool, 16 * R))
+
+    def walk(part):
+        rw, L, pool, capw = part
+        out = tss.walk_pool_chain(sd.dfi, rw, L, pool, capw)
+        torch.cuda.synchronize(dev)
+        return out
+
+    alone = [walk(p) for p in parts]
+    with cf.ThreadPoolExecutor(max_workers=4) as ex:
+        side = list(ex.map(walk, parts))
+    for a, b in zip(alone, side):
+        assert int(a[6]) > 0
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
