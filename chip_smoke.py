@@ -115,8 +115,12 @@ Phases, in order; any failure exits non-zero:
                 window); each timed at round 1's widths (16,384, 4,096,
                 1,024) and at round 2's 65,536 (in a loop, replayed from
                 a CUDA graph; the plain steps in a loop) beside its
-                bound; round 1's chain_scan with the kernels and with the
-                plain round in turns; the chunk's launches, syncs and
+                bound; every captured round shape and one block of round 1
+                through each build of the kernels (the port's; with
+                --chain-old-source also other sources), exact against
+                the plain steps, timed on the card alone in turns; round
+                1's chain_scan with the kernels and with the plain round
+                in turns; the chunk's launches, syncs and
                 copies by stage (a chain_scan round and its sort,
                 chain_scan's set-up and loop, a walk_pool_chain round and
                 its sort, walk_pool_chain's set-up and compactions, the
@@ -130,7 +134,7 @@ Phases, in order; any failure exits non-zero:
                 block: a launch and a lane's dependent reads, their
                 latency floor).  Gates: at most
                 15 launches a chain_scan round and a walk_pool_chain
-                round; at most 3,434 launches, 102 stream syncs and 233
+                round; at most 2,088 launches, 94 stream syncs and 209
                 async copies a chunk.
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
@@ -197,8 +201,13 @@ path's captured tiles, each held to the plain version first.  With
 the (n_rows, 12) int64 occ rows and whose walks read the packed table)
 that file is built too, and phase 4 times its extension and its walks
 against the port's in turns, handing its extension int64 rows unpacked
-from the packed table for those calls only.  Neither option changes what
-the port itself runs.
+from the packed table for those calls only.  With --chain-old-source
+FILE (another csrc/chain_scan.cu with the port's struct Args, such as the
+parent's: ``git show <commit>:compseed_tpu_torch/csrc/chain_scan.cu >
+FILE``; repeatable) each file is built too, with the port's csrc/ on the
+include path, and phase 4 holds its kernels to the plain steps on every
+captured round shape and one block and times them against the port's in
+turns.  No option changes what the port itself runs.
 
 Prints the CLI phase's, the engine phase's and the mesh phase's numbers
 and the kernel table as one JSON line each, the card's nvidia-smi line,
@@ -300,17 +309,17 @@ WALK_REPLACES = {
                          "(deaths, advance; XLA fusion, no Pallas)"}
 # gates on one chunk of the main path's seeding (torch.profiler): a
 # chain_scan round's and a walk_pool_chain round's launches, and the
-# chunk's launches, stream syncs and async copies (the parent's 3,434 /
-# 102 / 233 on the H100, PERF.md)
+# chunk's launches, stream syncs and async copies (2,088 / 94 / 209 on the
+# H100 since walk_pool_chain's round became kernels, PERF.md)
 MAX_CHAIN_ROUND_LAUNCHES = 15
 # lanes of the round the chain and walk kernels are timed at for their
-# latency floor: one block, so the time is a launch and a lane's
-# dependent reads
+# latency floor: one block (four of the chain apply's), so the time is
+# what one block pays, a launch and a lane's path
 FLOOR_LANES = 256
 MAX_WALK_ROUND_LAUNCHES = 15
-MAX_CHUNK_LAUNCHES = 3434
-MAX_CHUNK_SYNCS = 102
-MAX_CHUNK_COPIES = 233
+MAX_CHUNK_LAUNCHES = 2088
+MAX_CHUNK_SYNCS = 94
+MAX_CHUNK_COPIES = 209
 
 
 def log(msg: str) -> None:
@@ -1345,13 +1354,47 @@ def chain_phase2(dev, opt, fm, queries) -> tuple:
     return out, keep, walk_out, walk_keep
 
 
+def chain_runs(case, build) -> tuple:
+    """A captured round through one build of the chain kernels (``build``:
+    chain_cuda, or an OldChainBuild), once whole (so every scratch array
+    holds this round's data), and name -> (call, restore or None) of each
+    kernel, the sort and the walk beside them, for timing.  A kernel that
+    reads what it writes (group: the store cursor; apply: the lane state)
+    has it restored, as the round left it, before every call.  Returns
+    (runs, the round's arguments, its state)."""
+    import torch
+    from compseed_tpu_torch.ops import chain_cases, chain_cuda
+    from compseed_tpu_torch.ops import seedscan as ss
+    fm, const, st, w, Uw = case
+    ks = chain_cases.clone_state(st)
+    rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
+    s = rd.scratch
+
+    def walk():
+        return ss._chain_walk(fm, s["rep_wv"], const["W"], s["rep_k"],
+                              s["rep_l"], s["rep_s"], s["rep_valid"])
+
+    build.probe(rd)
+    chain_cuda.sort(rd)
+    build.group(rd)
+    rd.set_walk(*walk())
+    build.apply(rd)
+    torch.cuda.synchronize()
+    restore_group = restorer(ks, ("cur",), s["sc"][4:5])
+    restore_apply = restorer(ks, ("pivot", "pos", "alive", "k", "l", "s"),
+                             s["sc"][4:5])
+    runs = {"chain_probe_kernel": (lambda: build.probe(rd), None),
+            "sort": (lambda: chain_cuda.sort(rd), None),
+            "chain_group_kernel": (lambda: build.group(rd), restore_group),
+            "walk": (walk, None),
+            "chain_apply_kernel": (lambda: build.apply(rd), restore_apply)}
+    return runs, rd, ks
+
+
 def chain_time(case, reps: int = 20) -> dict:
-    """One captured round's kernels timed at its shape (round_time):
-    after one whole round through them (so every scratch array holds
-    this round's data), each kernel, the sort and the walk beside them;
-    the bounds on this round's data (chain_cases.round_work).  A kernel
-    that reads what it writes (group: the store cursor; apply: the lane
-    state) has it restored, as the round left it, before every call."""
+    """One captured round's kernels timed at its shape (round_time, on
+    chain_runs): each kernel, the sort and the walk beside them; the
+    bounds on this round's data (chain_cases.round_work)."""
     import torch
     from compseed_tpu_torch.ops import chain_cases, chain_cuda
     from compseed_tpu_torch.ops import seedscan as ss
@@ -1370,33 +1413,101 @@ def chain_time(case, reps: int = 20) -> dict:
                                                             Uw),
         "chain_apply_kernel": lambda: ss._chain_apply_plain(
             fm, const, ps, pr, gr, walk, w, Uw)}
-    ks = chain_cases.clone_state(st)
-    rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
-    s = rd.scratch
-    chain_cuda.probe(rd)
-    chain_cuda.sort(rd)
-    chain_cuda.group(rd)
-    rd.set_walk(*ss._chain_walk(fm, s["rep_wv"], const["W"], s["rep_k"],
-                                s["rep_l"], s["rep_s"], s["rep_valid"]))
-    chain_cuda.apply(rd)
-    torch.cuda.synchronize()
-    restore_group = restorer(ks, ("cur",), s["sc"][4:5])
-    restore_apply = restorer(ks, ("pivot", "pos", "alive", "k", "l", "s"),
-                             s["sc"][4:5])
-    runs = {"chain_probe_kernel": (lambda: chain_cuda.probe(rd), None),
-            "sort": (lambda: chain_cuda.sort(rd), None),
-            "chain_group_kernel": (lambda: chain_cuda.group(rd),
-                                   restore_group),
-            "walk": (lambda: ss._chain_walk(
-                fm, s["rep_wv"], const["W"], s["rep_k"], s["rep_l"],
-                s["rep_s"], s["rep_valid"]), None),
-            "chain_apply_kernel": (lambda: chain_cuda.apply(rd),
-                                   restore_apply)}
+    runs, rd, ks = chain_runs(case, chain_cuda)
     es = torch.empty(0, dtype=fm.dtype).element_size()
     out = dict(stats=stats, max_abs_err=errs)
     out.update(round_time(runs, plain, chain_cases.round_work(
         stats, es, const["W"]), reps))
     del ks, rd, ps
+    return out
+
+
+class OldChainBuild:
+    """The kernels of another csrc/chain_scan.cu (--chain-old-source: the
+    parent's, or a variant), launched on a ChainRound's Args words: its
+    struct Args must be the port's (chain_cuda._bind checks its size).
+    Its look-back status words are the round's own, a word a block of
+    chain_cuda.APPLY_BLOCK lanes: enough for blocks of that many lanes or
+    more."""
+
+    def __init__(self, lib):
+        from compseed_tpu_torch.ops import chain_cuda
+        chain_cuda._bind(lib)
+        self.lib = lib
+
+    def _run(self, launcher, rd):
+        import ctypes as ct
+
+        import torch
+        with torch.cuda.device(rd.dev):
+            rc = getattr(self.lib, launcher)(
+                ct.addressof(rd.args),
+                torch.cuda.current_stream(rd.dev).cuda_stream)
+        if rc:
+            raise SystemExit(f"{launcher} (another chain build): CUDA error "
+                             f"{rc}")
+
+    def probe(self, rd):
+        self._run("chain_probe_launch", rd)
+
+    def group(self, rd):
+        self._run("chain_group_launch", rd)
+
+    def apply(self, rd):
+        self._run("chain_apply_launch", rd)
+
+
+def chain_builds(sources) -> dict:
+    """name -> a build of the chain kernels, in the order of a turn: each
+    of ``sources`` (other chain_scan.cu files, --chain-old-source) named by
+    its file name, built with the port's csrc/ on the include path (for
+    lookback.cuh, unless a copy sits beside the file), then "new", the
+    port's own launchers and library."""
+    import ctypes as ct
+    from compseed_tpu_torch.ops import chain_cuda, cuda_lib
+    chain_cuda.LIB.load()
+    builds = {}
+    for src in sources:
+        name = os.path.splitext(os.path.basename(src))[0]
+        if name in builds or name == "new":
+            name = f"{name}_{len(builds)}"
+        so = os.path.join(cuda_lib.BUILD, f"libchain_{name}.so")
+        cuda_lib.compile_source(os.path.abspath(src), so, includes=(
+            os.path.dirname(chain_cuda.LIB.src),))
+        builds[name] = OldChainBuild(ct.CDLL(so))
+    builds["new"] = chain_cuda
+    return builds
+
+
+def chain_redesign(builds: dict, cases: dict, reps: int = 20) -> dict:
+    """Every captured round shape (``cases``: tag -> case) through every
+    build: held to the plain steps (max_abs_err per build and kernel; all
+    must be 0), then each kernel's ms per launch on the card alone
+    (launch_ms, restores taken off) in turns, the builds in order and then
+    in reverse.  tag -> {build: {max_abs_err, kernel: [ms, ...]}}."""
+    from compseed_tpu_torch.ops import chain_cases
+    order = list(builds) + list(builds)[::-1]
+    out = {}
+    for tag, case in cases.items():
+        rec = {}
+        for b, build in builds.items():
+            errs = chain_cases.steps_vs_plain(case, build)
+            errs.pop("stats")
+            rec[b] = dict(max_abs_err=errs, **{k: [] for k in CHAIN_KERNELS})
+            if any(errs.values()):
+                raise SystemExit(f"chain build {b} disagrees with the plain "
+                                 f"steps at {tag}: {errs}")
+        for b in order:
+            runs, rd, ks = chain_runs(case, builds[b])
+            for k in CHAIN_KERNELS:
+                run, restore = runs[k]
+                rec[b][k].append(launch_ms(run, reps) if restore is None else
+                                 launch_ms(lambda: (restore(), run()), reps)
+                                 - launch_ms(restore, reps))
+            del runs, rd, ks
+        out[tag] = rec
+        log(f"[4] chain builds in turns at {tag} (ms per launch on the card "
+            f"alone): {json.dumps(rec)}")
     return out
 
 
@@ -1509,13 +1620,15 @@ def chain_turns(seeder, queries) -> dict:
 def launch_split(seeder, queries) -> dict:
     """torch.profiler over one run of the first chunk's seeding, each CUDA
     runtime call that costs host time (launches, syncs, copies, memsets)
-    given to the innermost stage that issued it: a chain_scan round
+    given to the innermost stage that issued it (its nearest caller in the
+    profiler's tree that is a stage): a chain_scan round
     (seedscan._chain_round_kernels) apart from its sort, the round's
     sort (chain_cuda.sort), chain_scan's own set-up, loop and tail, a
     walk_pool_chain round (seedscan._walk_round_kernels) apart from its
     sort, that sort (walk_cuda.sort), walk_pool_chain's set-up,
     compactions and loop, the rest.  Stages are marked with
-    record_function for this run only."""
+    record_function for this run only; a round or sort stage that was
+    entered and got no launch fails the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from compseed_tpu_torch.ops import seedscan as ss
@@ -1554,22 +1667,27 @@ def launch_split(seeder, queries) -> dict:
              "cudaStreamSynchronize", "cudaMemcpyAsync", "cudaMemsetAsync")
     stages = ("sort", "chain_round", "walk_sort", "walk_round", "chain_scan",
               "walk_pool_chain")
-    spans = {s: [] for s in stages}
-    events = prof.events()
-    for e in events:
-        if e.name.startswith("stage."):
-            spans[e.name[6:]].append((e.time_range.start, e.time_range.end))
+
+    def stage_of(e):
+        # the innermost stage among the call's callers in the profiler's
+        # tree (not the stage whose time span it falls in, which takes in
+        # calls of other threads and is wrong when a span's end is)
+        p = e.cpu_parent
+        while p is not None and not p.name.startswith("stage."):
+            p = p.cpu_parent
+        return "rest" if p is None else p.name[6:]
+
     split = {s: dict.fromkeys(calls, 0) for s in stages + ("rest",)}
-    for e in events:
-        if e.name not in calls:
-            continue
-        t = e.time_range.start
-        where = next((s for s in stages
-                      if any(a <= t <= b for a, b in spans[s])), "rest")
-        split[where][e.name] += 1
+    for e in prof.events():
+        if e.name in calls:
+            split[stage_of(e)][e.name] += 1
     for s in split:
         split[s]["launches"] = split[s]["cudaLaunchKernel"] + \
             split[s]["cudaLaunchKernelExC"]
+    for s in ("sort", "chain_round", "walk_sort", "walk_round"):
+        if n[s] and not split[s]["launches"]:
+            raise SystemExit(f"launch_split gave the {s} stage's {n[s]} calls "
+                             f"no launch: {split}")
     per = dict(
         chain_round=(split["chain_round"]["launches"] +
                      split["sort"]["launches"]) / max(n["chain_round"], 1),
@@ -1582,13 +1700,16 @@ def launch_split(seeder, queries) -> dict:
                 launches=sum(v["launches"] for v in split.values()))
 
 
-def chain_main_path(seeder, queries, l32, cases) -> dict:
+def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
     """Phase 4's chain numbers: each kernel's launches per chunk in the
     int32 window; each kernel timed at the main path's shapes (round 1 at
     16,384 lanes and its narrower segments, round 2 at 65,536:
-    chain_time); round 1's chain_scan with the kernels and the plain
-    round in turns (chain_turns); the launches by stage over one chunk
-    (launch_split)."""
+    chain_time) and at one block; every captured round shape and the
+    block through every build in turns (chain_redesign: ``builds``, the
+    port's and any --chain-old-source); round 1's chain_scan with the
+    kernels and the plain round in turns (chain_turns); the launches by
+    stage over one chunk (launch_split)."""
+    from compseed_tpu_torch.ops import chain_cases
     per_chunk = {k: l32[k] / ((RUNS + 1) * N_CHUNKS) for k in CHAIN_KERNELS}
     log(f"[4] chain kernel launches per {CHUNK}-read chunk (int32 window): "
         f"{json.dumps(per_chunk)}")
@@ -1609,10 +1730,13 @@ def chain_main_path(seeder, queries, l32, cases) -> dict:
     if "round 1 w=16384" not in shapes or "round 2 w=65536" not in shapes:
         raise SystemExit(f"the chain rounds to time were not captured: "
                          f"{sorted(shapes)}")
-    shapes[f"floor w={FLOOR_LANES}"] = r = chain_time(
-        narrow_chain(cases[(1, CHUNK)], FLOOR_LANES))
+    floor = chain_cases.narrow(cases[(1, CHUNK)], FLOOR_LANES)
+    shapes[f"floor w={FLOOR_LANES}"] = r = chain_time(floor)
     log(f"[4] chain kernels' latency floor (round 1's first {FLOOR_LANES} "
         f"lanes): {json.dumps(r)}")
+    redesign = chain_redesign(builds, dict(
+        [(f"round {call} w={w}", c) for (call, w), c in sorted(cases.items())]
+        + [(f"floor w={FLOOR_LANES}", floor)]))
     turns = chain_turns(seeder, queries)
     log(f"[4] round 1's chain_scan, kernels and plain round in turns: "
         f"{json.dumps(turns)}")
@@ -1624,20 +1748,7 @@ def chain_main_path(seeder, queries, l32, cases) -> dict:
                          f"{split['launches_per_round']['chain_round']:.1f} "
                          f"launches, more than {MAX_CHAIN_ROUND_LAUNCHES}")
     return dict(launches_per_chunk=per_chunk, shapes=shapes, turns=turns,
-                split=split)
-
-
-def narrow_chain(case, n: int):
-    """A chain_scan round cut to its first ``n`` lanes (one block of the
-    kernels), n / 2 representatives: what a kernel takes when its work is
-    one block's, its latency floor."""
-    from compseed_tpu_torch.ops import chain_cases
-    fm, const, st, w, Uw = case
-    st = chain_cases.clone_state(st)
-    for k in ("lane0", "pivot", "pos", "alive", "k", "l", "s"):
-        st[k] = st[k][:n].clone()
-    st["live"] = st["alive"].sum().to(st["live"].dtype)
-    return fm, const, st, n, n // 2
+                split=split, redesign=redesign)
 
 
 def chain_rows(chain_rec, l32, row, prof) -> list:
@@ -2829,9 +2940,13 @@ def main() -> None:
     ap.add_argument("--scratch-variants", action="store_true")
     ap.add_argument("--old-source")
     ap.add_argument("--fm-old-source")
+    ap.add_argument("--chain-old-source", action="append", default=[])
     cli = ap.parse_args()
     if cli.fm_old_source and not os.path.isfile(cli.fm_old_source):
         ap.error(f"--fm-old-source {cli.fm_old_source}: no such file")
+    for src in cli.chain_old_source:
+        if not os.path.isfile(src):
+            ap.error(f"--chain-old-source {src}: no such file")
     # ---- phase 0: device
     import torch
     if not torch.cuda.is_available():
@@ -2956,6 +3071,9 @@ def main() -> None:
         else {}
     fm_builds = fm_walk_builds(cli.fm_old_source)
     log(f"[1] FM walk builds compared in phase 4: {list(fm_builds)}")
+    chain_build_set = chain_builds(cli.chain_old_source)
+    log(f"[1] chain kernel builds compared in phase 4: "
+        f"{list(chain_build_set)}")
     variant_ms = {}
 
     # ---- phase 2: kernels vs plain versions, synthetic pairs
@@ -3281,7 +3399,7 @@ def main() -> None:
                          f"{MAX_CHUNK_LAUNCHES} / {MAX_CHUNK_SYNCS} / "
                          f"{MAX_CHUNK_COPIES}: {prof}")
     chain_rec = chain_main_path(seeder, list(reads_arr[:CH]), l32,
-                                chain_cases_)
+                                chain_cases_, chain_build_set)
     del chain_cases_
     chain_rec["phase2"] = chain_errs
     walk_rec = walk_main_path(l32, walk_cases_, chain_rec["split"])

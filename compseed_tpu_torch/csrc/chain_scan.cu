@@ -4,8 +4,6 @@
 // In the JAX package the round is make_body (compseed_tpu/ops/seedscan.py
 // :1494-1690), run inside jax.lax.while_loop: XLA compiles it into a few
 // fusions around one sort and three scans, and carries the memo in place.
-// The port rendered it as some 390 PyTorch operations a round (the uint64
-// slot hash emulated in int64, every scatter a copy of its destination).
 // These kernels are the port's counterpart of XLA's fusions; the sort stays
 // torch.sort (XLA's sort in the JAX package), the representatives' walk
 // stays fm_chain_walk_kernel (csrc/fm_walk.cu).  One round:
@@ -16,21 +14,23 @@
 //   slot hash in native uint64 arithmetic, one table row [window, l0,
 //   s0, k0, len, ptr, valid, pad] (make_chain_memo) read as 16-byte
 //   loads; writes hit, ptr (clamped to [0, M - 1]), k0, len, the window
-//   and slot, and the sort key: the slot for a live miss, H else.
+//   and slot, and the sort key: the slot for a live miss, H else.  Also
+//   launched once per round, it counts the round (the epoch) and writes
+//   every representative j < Uw as the plain step leaves a pad (lane 0's
+//   window, k, l, s and slot, not valid), so that the group kernel only
+//   overwrites the heads: the pads' fill is spread over the grid.
 // (torch.sort of the keys, stable: the lanes in slot order)
 // chain_group_kernel<T>      one thread a sorted position
 //   Replaces JAX :1521-1563 (_chain_group_plain).  Group heads over the
 //   sorted lanes (a live miss whose (window, l, s) differs from its
-//   sorted predecessor's), their exclusive scan in sorted order (a
-//   block scan, then a decoupled look-back across blocks), each lane's
-//   group index, and the first Uw heads' representatives (window, k,
-//   l, s, valid, slot) written by the head's own thread; the last block
-//   writes n_u, n_w = min(n_u, Uw), the store cursor's old value and its
-//   advance, and fills the representatives past n_w with lane 0, as the
-//   plain version's zero-filled rep_take leaves them (not valid).
-//   Launched once per round, it also counts the round (the epoch).
+//   sorted predecessor's), their exclusive scan in sorted order
+//   (scan_blocks: a block scan, then a warp-wide look-back across
+//   blocks), each lane's group index, and the first Uw heads'
+//   representatives (window, k, l, s, valid, slot) written by the head's
+//   own thread; the last block writes n_u, n_w = min(n_u, Uw), the store
+//   cursor's old value and its advance.
 // (fm_chain_walk_kernel on the representatives)
-// chain_apply_kernel<T>      one thread a lane (and a representative)
+// chain_apply_kernel<T, W>   one thread a lane, blocks of 64
 //   Replaces JAX :1564-1688 (_chain_apply_plain).
 //   Insert: representative j < n_w appends its chain at row cur0 + j
 //   while that is < M, and writes the table slot when it is the first
@@ -39,13 +39,12 @@
 //   its group's walk, k re-based by k - k0 in T; then the LEP or round-3
 //   push / stop rule, the fq and fc sums and the live count (warp sums,
 //   one atomic a warp), and the advance or respawn.  Flush: the lanes'
-//   push counts are scanned in lane order (a block scan and the same
-//   look-back), and each lane writes its pushes to the six pool columns
-//   at cursor + rank (rows past GP dropped): the plain version's (lane,
-//   j) row-major order exactly; the last block moves cursor and povf.
-//   A hit reads a store row written in an earlier round (rows below
-//   cur0) while this round's inserts write rows from cur0 on, so the two
-//   never meet.
+//   push counts are scanned in lane order (scan_blocks), and the pushes go
+//   to the six pool columns at cursor + rank (rows past GP dropped): the
+//   plain version's (lane, j) row-major order exactly; the last block
+//   moves cursor and povf.  A hit reads a store row
+//   written in an earlier round (rows below cur0) while this round's
+//   inserts write rows from cur0 on, so the two never meet.
 //
 // The look-back (Merrill and Garland's single-pass scan, lookback.cuh):
 // blocks take tickets in the order they start, publish their sum, then
@@ -62,13 +61,47 @@
 // table row (32 B int32, 64 B int64), its window word and its state, per
 // hit one store row (3W words), per push six pool words; a few hundred
 // kB to a few MB, well under a microsecond at 3.35 TB/s.  What decides is
-// latency: every lane's work starts with a dependent gather (window, then
-// table row; sorted position, then the lane's key).  The design keeps a
-// round to four launches of its own (the walk's included), one pass over
-// the lanes each on every SM, with no copy of the memo or the pool.  (The
-// first form, whose grouping and flush ran their scans in one block of
-// 1,024 threads, spent 0.08 and 0.18 ms a full-width round in those two
-// on the H100: PERF.md.)
+// what even one block pays: its dependent round trips to memory, its
+// scattered accesses through one SM's memory pipeline, and the scan
+// across blocks.  The design cuts each:
+//   - one level of loads at a time.  A block takes its lanes from its
+//     block index and issues their first loads beside its ticket's atomic
+//     (the ticket almost always equals the index; when it does not, the
+//     block loads its ticket's lanes again).  Every load that depends only
+//     on the lane index is issued before any store, the insert's table-row
+//     words beside the lane's, its store-row words (only in blocks that n_w
+//     says insert) beside the lane's second level: the apply's chain is
+//     ticket and lane words, the
+//     lane's per-read constants and its chain row, its next pivot and the
+//     base there read together (the base at the pivot's own position
+//     serves unless the next unambiguous base lies further on), then the
+//     scan: four levels where the first design, whose lane routines read
+//     as they went, waited on about eleven.  The round's scalars (n_w,
+//     cur0, the pool cursor, the epoch) and the index's five L2 words are
+//     read at the start beside the ticket, off the chain.  The group's
+//     chain is ticket and sorted lanes, their keys and their
+//     predecessors' keys, then the scan.
+//   - coalesced stores in the apply, whose floor they set (PERF.md: with
+//     each thread writing its own store row, its table row a word at a
+//     time and each push a word a column, a block of 256 lanes sent some
+//     9,000 sector writes through one SM).  The block's new store rows are
+//     copied word by word by consecutive threads (insert_src, insert_dst),
+//     a table row goes out as 16-byte stores, and the block's pushes,
+//     whose pool rows are contiguous, are staged in shared memory and
+//     written a column at a time.  Blocks of 64 threads spread a round
+//     over four times the SMs (the staging, 6 x 64 W words of T, fits in
+//     static shared memory only at that size for int64 and W up to 10).
+//     The window width W is a template parameter of the apply
+//     (launch_apply picks it), so the column loops have fixed trip counts.
+//   - a warp-wide look-back (lookback.cuh::scan_blocks): 32 status words a
+//     step, so a 65,536-lane round (256 group blocks, 1,024 apply blocks)
+//     waits at most 8 or 32 steps.  (Four sorted positions a group thread,
+//     a quarter of the blocks, was slower at every width.)
+//   - no one-block tail: the pads, which the first design's last group
+//     block wrote alone (up to Uw - n_w of 32,768), are written by the
+//     probe, a thread each, lane 0's words read beside the lane's own.
+// A round is four launches of its own (the walk's included), one pass over
+// the lanes each on every SM, with no copy of the memo or the pool.
 //
 // The launchers take the arguments as one array of 64-bit words, the
 // struct Args below (ops/chain_cuda.py::ARGS names them in order); they
@@ -184,32 +217,36 @@ CS_HD T w_store(long long wv) {
   return sizeof(T) == 4 ? (T)(int32_t)(uint32_t)wv : (T)wv;
 }
 
-// Typed views of the arguments.
+// Typed views of the arguments.  Within a launch no two of them share
+// memory (__restrict__); an array a kernel writes is written at indices
+// that no other thread of that kernel reads.
 template <typename T>
 struct View {
-  int32_t *lane0, *pivot, *pos;
-  uint8_t* alive;
-  T *k, *l, *s;
-  const int32_t *lane_rid0, *lane_rlen0, *row_id0, *nxt;
-  const T* mh0;
-  const long long* winflat;
-  const uint8_t* qflat;
-  const T* L2;
-  T *tbl, *cst, *pool;
-  int32_t *cur, *ctr;
-  long long* p_wv;
-  int32_t *p_slot, *p_ptr, *p_hln, *key;
-  uint8_t* p_hit;
-  T* p_hk0;
-  const long long* order;
-  int32_t *gidx, *rep_slot;
-  long long* rep_wv;
-  T *rep_k, *rep_l, *rep_s;
-  uint8_t* rep_valid;
-  const T *ck, *cl, *cs;
-  const int32_t* ln;
-  unsigned long long *lb_group, *lb_apply;
-  int32_t* sc;
+  int32_t *__restrict__ lane0, *__restrict__ pivot, *__restrict__ pos;
+  uint8_t* __restrict__ alive;
+  T *__restrict__ k, *__restrict__ l, *__restrict__ s;
+  const int32_t *__restrict__ lane_rid0, *__restrict__ lane_rlen0,
+      *__restrict__ row_id0, *__restrict__ nxt;
+  const T* __restrict__ mh0;
+  const long long* __restrict__ winflat;
+  const uint8_t* __restrict__ qflat;
+  const T* __restrict__ L2;
+  T *__restrict__ tbl, *__restrict__ cst, *__restrict__ pool;
+  int32_t *__restrict__ cur, *__restrict__ ctr;
+  long long* __restrict__ p_wv;
+  int32_t *__restrict__ p_slot, *__restrict__ p_ptr, *__restrict__ p_hln,
+      *__restrict__ key;
+  uint8_t* __restrict__ p_hit;
+  T* __restrict__ p_hk0;
+  const long long* __restrict__ order;
+  int32_t *__restrict__ gidx, *__restrict__ rep_slot;
+  long long* __restrict__ rep_wv;
+  T *__restrict__ rep_k, *__restrict__ rep_l, *__restrict__ rep_s;
+  uint8_t* __restrict__ rep_valid;
+  const T *__restrict__ ck, *__restrict__ cl, *__restrict__ cs;
+  const int32_t* __restrict__ ln;
+  unsigned long long *__restrict__ lb_group, *__restrict__ lb_apply;
+  int32_t* __restrict__ sc;
 
   CS_HD explicit View(const Args& a)
       : lane0((int32_t*)a.lane0),
@@ -271,23 +308,80 @@ CS_HD void load_row8(const T* row, T out[8]) {
 #endif
 }
 
+// Write one table row (the layout of load_row8).
+template <typename T>
+CS_HD void store_row8(T* row, const T in[8]) {
+#ifdef __CUDA_ARCH__
+  uint4* p = reinterpret_cast<uint4*>(row);
+  constexpr int kVec = 8 * sizeof(T) / 16;
+  uint4 v[kVec];
+  T* t = reinterpret_cast<T*>(v);
+  for (int j = 0; j < 8; ++j) t[j] = in[j];
+  for (int q = 0; q < kVec; ++q) p[q] = v[q];
+#else
+  for (int j = 0; j < 8; ++j) row[j] = in[j];
+#endif
+}
+
+// The five L2 words, read once where a kernel starts, and the one of
+// them at c in [0, 4] (a select, so that they stay in registers).
+template <typename T>
+CS_HD void load_l2(const View<T>& v, T out[5]) {
+  for (int c = 0; c < 5; ++c) out[c] = v.L2[c];
+}
+
+template <typename T>
+CS_HD T l2_at(const T l2[5], int c) {
+  T r = l2[0];
+  CS_UNROLL
+  for (int q = 1; q < 5; ++q)
+    if (c == q) r = l2[q];
+  return r;
+}
+
 // ---------------------------------------------------------------------------
 // The lane routines, shared by the kernels and the host loops.
 
-// Probe: lane i's window, slot, table row, hit and sort key.
 template <typename T>
-CS_HD void probe_lane(const View<T>& v, const Args& a, long long i) {
-  const long long rid = v.lane_rid0[v.lane0[i]];
+CS_HD long long key_slot(const Args& a, long long wv, T l, T s) {
+  return (long long)slot_hash((uint64_t)wv, (int64_t)l, (int64_t)s,
+                              (uint64_t)a.H);
+}
+
+// Representative j's inputs (valid: it walks).
+template <typename T>
+CS_HD void rep_write(const View<T>& v, long long j, long long wv, T k, T l,
+                     T s, int slot, bool valid) {
+  v.rep_wv[j] = wv;
+  v.rep_k[j] = k;
+  v.rep_l[j] = l;
+  v.rep_s[j] = s;
+  v.rep_valid[j] = valid ? 1 : 0;
+  v.rep_slot[j] = slot;
+}
+
+// Probe: lane i's window, slot, table row, hit and sort key.  With pad
+// >= 0 also representative `pad` as the plain step's zero-filled rep_take
+// leaves it past n_w: lane 0's window, k, l, s and slot, not valid (the
+// probe writes every pad j < Uw; the group kernel overwrites the heads
+// j < n_w).  Lane 0's words are read beside lane i's, a level at a time.
+template <typename T>
+CS_HD void probe_lane(const View<T>& v, const Args& a, long long i,
+                      long long pad) {
+  const int lane = v.lane0[i], lane_z = v.lane0[0];
   const long long pc = clampll(v.pos[i], 0, a.L + 1);
-  const long long wv = v.winflat[rid * (a.L + 2) + pc];
+  const long long pc_z = clampll(v.pos[0], 0, a.L + 1);
   const T l = v.l[i], s = v.s[i];
-  const long long slot =
-      (long long)slot_hash((uint64_t)wv, (int64_t)l, (int64_t)s,
-                           (uint64_t)a.H);
+  const T k_z = v.k[0], l_z = v.l[0], s_z = v.s[0];
+  const bool alive = v.alive[i] != 0;
+  const long long rid = v.lane_rid0[lane], rid_z = v.lane_rid0[lane_z];
+  const long long wv = v.winflat[rid * (a.L + 2) + pc];
+  const long long wv_z = v.winflat[rid_z * (a.L + 2) + pc_z];
+  const long long slot = key_slot(a, wv, l, s);
   bool hit = false;
   int ptr = 0, hln = 0;
   T hk0 = 0;
-  if (v.alive[i]) {
+  if (alive) {
     T row[8];
     load_row8(v.tbl + slot * 8, row);
     hit = row[6] != 0 && row[0] == w_store<T>(wv) && row[1] == l &&
@@ -302,174 +396,239 @@ CS_HD void probe_lane(const View<T>& v, const Args& a, long long i) {
   v.p_ptr[i] = ptr;
   v.p_hk0[i] = hk0;
   v.p_hln[i] = hln;
-  v.key[i] = (int32_t)(v.alive[i] && !hit ? slot : a.H);
+  v.key[i] = (int32_t)(alive && !hit ? slot : a.H);
+  if (pad >= 0)
+    rep_write(v, pad, wv_z, k_z, l_z, s_z, (int)key_slot(a, wv_z, l_z, s_z),
+              false);
 }
 
-// Whether sorted position p (lane o) heads a group: a live miss whose
-// key differs from its sorted predecessor's (position 0 always does).
+// What the group reads of sorted position p: lane o there and lane q at
+// p - 1 (first level), then o's key, window, k, l, s and slot and q's
+// window, l and s (second level); whether p heads a group (a live miss
+// whose key differs from its sorted predecessor's; position 0 always
+// does).  Lanes are read whatever their key, so that no load waits on a
+// test.
 template <typename T>
-CS_HD bool group_head(const View<T>& v, const Args& a, long long p,
-                      long long o) {
-  if (v.key[o] >= a.H) return false;
-  if (p == 0) return true;
-  const long long q = v.order[p - 1];
-  return v.p_wv[o] != v.p_wv[q] || v.l[o] != v.l[q] || v.s[o] != v.s[q];
+struct GroupIn {
+  long long o, q, wv;
+  T k, l, s;
+  int slot;
+  bool head;
+};
+
+template <typename T>
+CS_HD void group_order(const View<T>& v, const Args& a, long long p,
+                       GroupIn<T>& g) {
+  g.o = g.q = 0;
+  if (p < a.w) {
+    g.o = v.order[p];
+    g.q = v.order[p > 0 ? p - 1 : 0];
+  }
 }
 
-// Representative j's inputs from lane o (valid: it walks).
 template <typename T>
-CS_HD void rep_write(const View<T>& v, long long j, long long o,
-                     bool valid) {
-  v.rep_wv[j] = v.p_wv[o];
-  v.rep_k[j] = v.k[o];
-  v.rep_l[j] = v.l[o];
-  v.rep_s[j] = v.s[o];
-  v.rep_valid[j] = valid ? 1 : 0;
-  v.rep_slot[j] = v.p_slot[o];
+CS_HD void group_read(const View<T>& v, const Args& a, long long p,
+                      GroupIn<T>& g) {
+  g.head = false;
+  if (p >= a.w) return;
+  const long long o = g.o, q = g.q;
+  const bool miss = v.key[o] < a.H;
+  g.wv = v.p_wv[o];
+  g.k = v.k[o];
+  g.l = v.l[o];
+  g.s = v.s[o];
+  g.slot = v.p_slot[o];
+  const long long qwv = v.p_wv[q];
+  const T ql = v.l[q], qs = v.s[q];
+  g.head = miss && (p == 0 || g.wv != qwv || g.l != ql || g.s != qs);
 }
 
-// Sorted position p (lane o) has group index g (the inclusive count of
-// heads up to p, minus 1); a head below Uw is representative g.
+// Sorted position p (lane o) has group index gi (the inclusive count of
+// heads up to p, minus 1); a head below Uw is representative gi.
 template <typename T>
-CS_HD void group_emit(const View<T>& v, const Args& a, long long o, int g,
-                      bool head) {
-  v.gidx[o] = g;
-  if (head && g < a.Uw) rep_write(v, g, o, true);
+CS_HD void group_emit(const View<T>& v, const Args& a, const GroupIn<T>& g,
+                      int gi) {
+  v.gidx[g.o] = gi;
+  if (g.head && gi < a.Uw) rep_write(v, gi, g.wv, g.k, g.l, g.s, g.slot, true);
 }
 
 // After the scan: n_u heads, n_w = min(n_u, Uw) representatives; the
-// store cursor's old value and its advance (the representatives j < n_w
-// whose row cur0 + j is below M); the pool cursor as the round found it;
-// representatives n_w.. read lane 0 and do not walk.  Thread `first` of
-// `step` threads fills the pads.
+// store cursor's old value cur0 and its advance (the representatives
+// j < n_w whose row cur0 + j is below M); the pool cursor as the round
+// found it.
 template <typename T>
-CS_HD void group_close(const View<T>& v, const Args& a, int n_u, int first,
-                       int step) {
+CS_HD void group_close(const View<T>& v, const Args& a, int n_u, int cur0,
+                       int cursor) {
   const int n_w = n_u < a.Uw ? n_u : (int)a.Uw;
-  if (first == 0) {
-    const int cur0 = *v.cur;
-    const long long room = a.M - cur0;
-    v.sc[0] = n_w;
-    v.sc[1] = cur0;
-    v.sc[2] = 0;                      // the apply kernel's live count
-    v.sc[3] = n_u;
-    v.sc[7] = v.ctr[2];               // the pool cursor the apply starts at
-    *v.cur = cur0 + (int)(room < 0 ? 0 : (room < n_w ? room : n_w));
-  }
-  for (long long j = n_w + first; j < a.Uw; j += step)
-    rep_write(v, j, 0, false);
+  const long long room = a.M - cur0;
+  v.sc[0] = n_w;
+  v.sc[1] = cur0;
+  v.sc[2] = 0;                      // the apply kernel's live count
+  v.sc[3] = n_u;
+  v.sc[7] = cursor;                 // the pool cursor the apply starts at
+  *v.cur = cur0 + (int)(room < 0 ? 0 : (room < n_w ? room : n_w));
 }
 
-// Insert representative j: its chain to store row cur0 + j while that
-// is below M (the valid representatives are the prefix j < n_w, so j is
-// its rank), and its table row when it is the first of its slot.
-// Returns its contribution to fc (the extensions it walked).
+// What the apply reads at lane i (first level).
 template <typename T>
-CS_HD int insert_rep(const View<T>& v, const Args& a, long long j,
-                     int cur0) {
-  if (!v.rep_valid[j]) return 0;
-  const int W = (int)a.W;
-  const int ln = v.ln[j];
+struct LaneIn {
+  T k, l, s, hk0;
+  int pos, pivot, lane0, gidx, ptr, hln;
+  bool alive, hit;
+};
+
+// What the insert reads at representative j (first level) for its table
+// row and fc.  (The valid representatives are the prefix j < n_w, the
+// heads the group wrote; the probe's pads past it are not valid.)
+template <typename T>
+struct RepIn {
+  long long wv;
+  T k, l, s;
+  int ln;
+  int32_t slot;
+  bool first;
+};
+
+template <typename T>
+CS_HD void lane_in(const View<T>& v, const Args& a, long long i,
+                   LaneIn<T>& x) {
+  x.alive = x.hit = false;
+  if (i >= a.w) return;
+  x.alive = v.alive[i] != 0;
+  x.hit = v.p_hit[i] != 0;
+  x.gidx = v.gidx[i];
+  x.k = v.k[i];
+  x.l = v.l[i];
+  x.s = v.s[i];
+  x.pos = v.pos[i];
+  x.pivot = v.pivot[i];
+  x.lane0 = v.lane0[i];
+  x.ptr = v.p_ptr[i];
+  x.hk0 = v.p_hk0[i];
+  x.hln = v.p_hln[i];
+}
+
+template <typename T>
+CS_HD void rep_in(const View<T>& v, const Args& a, long long j, RepIn<T>& r) {
+  r = RepIn<T>();
+  if (j >= a.Uw) return;
+  r.ln = v.ln[j];
+  r.slot = v.rep_slot[j];
+  r.first = j == 0 || r.slot != v.rep_slot[j > 0 ? j - 1 : 0];
+  r.wv = v.rep_wv[j];
+  r.k = v.rep_k[j];
+  r.l = v.rep_l[j];
+  r.s = v.rep_s[j];
+}
+
+// Insert: representative j < n_w appends its chain at store row cur0 + j
+// while that is below M (j is its rank).  Column c of that row is column
+// c of its chain (ck | cl | cs): read it (j < Uw) and write it; the kernel
+// gives consecutive threads consecutive words of the rows.
+template <typename T, int kW>
+CS_HD T insert_src(const View<T>& v, const Args& a, long long j, int c) {
+  if (j >= a.Uw) return 0;
+  const int part = c >= 2 * kW ? 2 : (c >= kW ? 1 : 0);
+  const T* src = part == 0 ? v.ck : (part == 1 ? v.cl : v.cs);
+  return src[j * kW + c - part * kW];
+}
+
+template <typename T, int kW>
+CS_HD void insert_dst(const View<T>& v, const Args& a, long long j, int c,
+                      int cur0, int n_w, T x) {
   const long long cptr = (long long)cur0 + j;
-  if (cptr < a.M) {
-    T* row = v.cst + cptr * 3 * W;
-    for (int c = 0; c < W; ++c) {
-      row[c] = v.ck[j * W + c];
-      row[W + c] = v.cl[j * W + c];
-      row[2 * W + c] = v.cs[j * W + c];
-    }
-    if (j == 0 || v.rep_slot[j] != v.rep_slot[j - 1]) {
-      T* t = v.tbl + (long long)v.rep_slot[j] * 8;
-      t[0] = w_store<T>(v.rep_wv[j]);
-      t[1] = v.rep_l[j];
-      t[2] = v.rep_s[j];
-      t[3] = v.rep_k[j];
-      t[4] = (T)ln;
-      t[5] = (T)cptr;
-      t[6] = 1;
-      t[7] = 0;
-    }
+  if (j < n_w && cptr < a.M) v.cst[cptr * 3 * kW + c] = x;
+}
+
+// Insert representative j's table row when it has a store row and is the
+// first representative of its slot (the representatives arrive in slot
+// order).  Returns its contribution to fc (the extensions it walked).
+template <typename T>
+CS_HD int insert_table(const View<T>& v, const Args& a, long long j,
+                       int cur0, int n_w, const RepIn<T>& r) {
+  if (j >= n_w) return 0;
+  const long long cptr = (long long)cur0 + j;
+  if (cptr < a.M && r.first) {
+    const T row[8] = {w_store<T>(r.wv), r.l, r.s, r.k, (T)r.ln, (T)cptr,
+                      1, 0};
+    store_row8(v.tbl + (long long)r.slot * 8, row);
   }
-  return ln;
+  return r.ln;
 }
 
 // A lane's round: what it consumed, whether it lives on, and its pushes
 // (the chain's columns and the state before the round, kept until the
 // lane knows its rows in the pool).
-template <typename T>
+template <typename T, int kW>
 struct LaneOut {
   int fq;              // columns consumed (applied lanes)
   int alive;           // alive after the round
   uint32_t push;       // columns pushed
   T k, l, s;           // the state before the round
   int pos, pivot, row_id;
-  T CK[kMaxW], CL[kMaxW], CS[kMaxW];
+  T CK[kW], CL[kW], CS[kW];
 };
 
-// Apply lane i: consume its chain (a store row or its group's walk),
-// decide its pushes, advance or respawn.  A lane that is neither a hit
-// nor walked this round keeps its state and pushes nothing.
-template <typename T>
+// Apply lane i (its first-level words x): consume its chain (a store row
+// or its group's walk), decide its pushes, advance or respawn.  A lane
+// that is neither a hit nor walked this round keeps its state and pushes
+// nothing.  Second level: the lane's per-read constants and its chain;
+// third: its next pivot and the base there.  kW is the window width W.
+template <typename T, int kW>
 CS_HD void apply_lane(const View<T>& v, const Args& a, long long i, int n_w,
-                      LaneOut<T>& out) {
-  const bool lalive = v.alive[i] != 0;
-  const bool hit = v.p_hit[i] != 0;
-  const int g = v.gidx[i];
-  const bool walked = lalive && !hit && g < n_w;
+                      const LaneIn<T>& x, const T l2[5],
+                      LaneOut<T, kW>& out) {
+  const bool walked = x.alive && !x.hit && x.gidx < n_w;
   out.fq = 0;
-  out.alive = lalive ? 1 : 0;
+  out.alive = x.alive ? 1 : 0;
   out.push = 0;
-  if (!(hit || walked)) return;
-  const int W = (int)a.W;
+  if (!(x.hit || walked)) return;
+  constexpr int W = kW;
   const long long L = a.L;
-  const long long grp = clampll(g, 0, a.Uw - 1);
-  const T k = v.k[i], l = v.l[i], s = v.s[i];
-  const int pos = v.pos[i], pivot = v.pivot[i];
-  const long long lane0 = v.lane0[i];
-  const long long rid = v.lane_rid0[lane0];
-  const int rlen = v.lane_rlen0[lane0];
-  const T mh = v.mh0[lane0];
+  const long long grp = clampll(x.gidx, 0, a.Uw - 1);
+  const T k = x.k, l = x.l, s = x.s;
+  const int pos = x.pos, pivot = x.pivot;
+  const long long rid = v.lane_rid0[x.lane0];
+  const int rlen = v.lane_rlen0[x.lane0];
+  const T mh = v.mh0[x.lane0];
   out.k = k;
   out.l = l;
   out.s = s;
   out.pos = pos;
   out.pivot = pivot;
-  out.row_id = v.row_id0[lane0];
+  out.row_id = v.row_id0[x.lane0];
 
   T* CK = out.CK;
   T* CL = out.CL;
   T* CS = out.CS;
   T src_k0;
   int src_ln;
-  // (the column loops run to kMaxW with a test of W, so that they unroll
-  // and the columns stay in registers)
+  // (the column loops have a fixed trip count, W, so that they unroll and
+  // the columns stay in registers)
   const T* ck = v.ck + grp * W;
   const T* cl = v.cl + grp * W;
   const T* cs = v.cs + grp * W;
-  if (hit) {
-    ck = v.cst + (long long)v.p_ptr[i] * 3 * W;
+  if (x.hit) {
+    ck = v.cst + (long long)x.ptr * 3 * W;
     cl = ck + W;
     cs = ck + 2 * W;
-    src_k0 = v.p_hk0[i];
-    src_ln = v.p_hln[i];
+    src_k0 = x.hk0;
+    src_ln = x.hln;
   } else {
     src_k0 = v.rep_k[grp];
     src_ln = v.ln[grp];
   }
   const T dk = wsub(k, src_k0);
   CS_UNROLL
-  for (int j = 0; j < kMaxW; ++j) {
-    if (j < W) {
-      CK[j] = wadd(ck[j], dk);
-      CL[j] = cl[j];
-      CS[j] = cs[j];
-    }
+  for (int j = 0; j < W; ++j) {
+    CK[j] = wadd(ck[j], dk);
+    CL[j] = cl[j];
+    CS[j] = cs[j];
   }
 
   uint32_t push = 0, stop = 0;
   CS_UNROLL
-  for (int j = 0; j < kMaxW; ++j) {
-    if (j >= W) break;
+  for (int j = 0; j < W; ++j) {
     const bool real = j < src_ln;
     const bool amb = j == src_ln && src_ln < W;
     bool pj, sj;
@@ -495,27 +654,34 @@ CS_HD void apply_lane(const View<T>& v, const Args& a, long long i, int n_w,
 
   out.push = push;
 
-  // advance / respawn
+  // advance / respawn: the next unambiguous position from npv and the base
+  // there; the base at npv itself is read beside it and serves when the
+  // two agree
   const int stop_pos = pos + t;
   const bool amb_stop = has_stop && t == src_ln;
   const int npv = (a.r3 || amb_stop) ? stop_pos + 1 : stop_pos;
-  const int newpiv =
-      npv < L ? v.nxt[rid * L + clampll(npv, 0, L - 1)] : (int)L;
-  const bool respawn = a.advance && has_stop && newpiv < rlen;
+  bool respawn = false;
+  int newpiv = (int)L, base = 0;
+  if (a.advance && has_stop && npv < L) {
+    const long long at = rid * L + clampll(npv, 0, L - 1);
+    newpiv = v.nxt[at];
+    base = v.qflat[clampll(rid * L + npv, 0, a.nq - 1)];
+    respawn = newpiv < rlen;
+    if (respawn && newpiv != npv)
+      base = v.qflat[clampll(rid * L + newpiv, 0, a.nq - 1)];
+  }
   if (respawn) {
-    const int base =
-        v.qflat[clampll(rid * L + newpiv, 0, a.nq - 1)];
     const int c = base > 3 ? 3 : base;
-    v.k[i] = wadd(v.L2[c], (T)1);
-    v.l[i] = wadd(v.L2[3 - c], (T)1);
-    v.s[i] = wsub(v.L2[c + 1], v.L2[c]);
+    v.k[i] = wadd(l2_at(l2, c), (T)1);
+    v.l[i] = wadd(l2_at(l2, 3 - c), (T)1);
+    v.s[i] = wsub(l2_at(l2, c + 1), l2_at(l2, c));
     v.pivot[i] = newpiv;
     v.pos[i] = newpiv + 1;
   } else if (!has_stop) {
     const int last = (int)clampll(src_ln - 1, 0, W - 1);
     T ek = CK[0], el = CL[0], es = CS[0];
     CS_UNROLL
-    for (int j = 1; j < kMaxW; ++j) {
+    for (int j = 1; j < W; ++j) {
       if (j == last) {
         ek = CK[j];
         el = CL[j];
@@ -531,52 +697,43 @@ CS_HD void apply_lane(const View<T>& v, const Args& a, long long i, int n_w,
   v.alive[i] = (uint8_t)out.alive;
 }
 
-// Write a lane's pushes to the pool at rows base, base + 1, ... in
-// column order (rows at or past GP dropped).
-template <typename T>
-CS_HD void flush_lane(const View<T>& v, const Args& a, const LaneOut<T>& o,
-                      long long base) {
-  const int W = (int)a.W;
-  CS_UNROLL
-  for (int j = 0; j < kMaxW; ++j) {
-    if (j >= W) break;
-    if (!((o.push >> j) & 1u)) continue;
-    if (base < a.GP) {
-      T r[kPoolCols];
-      if (a.r3) {
-        r[0] = o.CK[j];
-        r[1] = o.CL[j];
-        r[2] = o.CS[j];
-        r[3] = (T)(int32_t)(o.pos + j + 1);
-      } else {
-        r[0] = j == 0 ? o.k : o.CK[j - 1];
-        r[1] = j == 0 ? o.l : o.CL[j - 1];
-        r[2] = j == 0 ? o.s : o.CS[j - 1];
-        r[3] = (T)(int32_t)(o.pos + j);
-      }
-      r[4] = (T)o.pivot;
-      r[5] = (T)o.row_id;
-      for (int c = 0; c < kPoolCols; ++c) v.pool[c * a.GP + base] = r[c];
-    }
-    ++base;
+// The pool row of a lane's push at column j: k, l, s, end, pivot, row.
+template <typename T, int kW>
+CS_HD void push_row(const Args& a, const LaneOut<T, kW>& o, int j,
+                    T r[kPoolCols]) {
+  if (a.r3) {
+    r[0] = o.CK[j];
+    r[1] = o.CL[j];
+    r[2] = o.CS[j];
+    r[3] = (T)(int32_t)(o.pos + j + 1);
+  } else {
+    r[0] = j == 0 ? o.k : o.CK[j - 1];
+    r[1] = j == 0 ? o.l : o.CL[j - 1];
+    r[2] = j == 0 ? o.s : o.CS[j - 1];
+    r[3] = (T)(int32_t)(o.pos + j);
   }
+  r[4] = (T)o.pivot;
+  r[5] = (T)o.row_id;
 }
 
-// The pool cursor after `pushes` more rows, and povf.
+// The pool cursor after the round's pushes, and povf (povf0: its value
+// before the round).
 template <typename T>
-CS_HD void pool_close(const View<T>& v, const Args& a, long long cursor) {
+CS_HD void pool_close(const View<T>& v, const Args& a, long long cursor,
+                      int povf0) {
   const int c = (int)cursor;
   v.ctr[2] = c;
-  v.ctr[3] = (v.ctr[3] != 0 || c > a.GP) ? 1 : 0;
+  v.ctr[3] = (povf0 != 0 || c > a.GP) ? 1 : 0;
 }
 
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
-// The kernels.
-constexpr int kBlock = 256;            // every kernel: a lane a thread
-constexpr int kWarps = kBlock / 32;
-using lookback::block_excl_scan;
-using lookback::look_back;
+// The kernels: a lane (a sorted position) a thread, blocks of
+// (ops/chain_cuda.py: BLOCK, APPLY_BLOCK)
+constexpr int kBlock = 256;            // the probe
+constexpr int kGroupBlock = 256;       // the group
+constexpr int kApplyBlock = 64;        // the apply
+using lookback::scan_blocks;
 using lookback::take_ticket;
 using lookback::warp_add;
 
@@ -585,74 +742,169 @@ __global__ void __launch_bounds__(kBlock) chain_probe_kernel(const Args a) {
   const View<T> v(a);
   const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
   if (i == 0) v.sc[4] += 1;                     // a new round: its epoch
-  if (i < a.w) probe_lane(v, a, i);
+  if (i < a.w) probe_lane(v, a, i, i < a.Uw ? i : -1);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kBlock) chain_group_kernel(const Args a) {
-  __shared__ int tot[kWarps + 1];
-  __shared__ int ticket_s, prefix_s;
+__global__ void __launch_bounds__(kGroupBlock) chain_group_kernel(
+    const Args a) {
+  __shared__ int ticket_s, scan_s[34];
   const View<T> v(a);
-  const int n_blocks = (int)((a.w + kBlock - 1) / kBlock);
+  const int n_blocks = (int)((a.w + kGroupBlock - 1) / kGroupBlock);
   const unsigned epoch = (unsigned)v.sc[4];
-  const int t = take_ticket(v.sc + 5, n_blocks, &ticket_s);
-  const long long p = (long long)t * kBlock + threadIdx.x;
-  long long o = 0;
-  bool h = false;
-  if (p < a.w) {
-    o = v.order[p];
-    h = group_head(v, a, p, o);
+  int cur0 = 0, cursor = 0;                     // the last block's close
+  if (threadIdx.x == 0) {
+    cur0 = *v.cur;
+    cursor = v.ctr[2];
   }
-  int total;
-  const int ex = block_excl_scan<kWarps>(h, tot, &total);
-  const int prefix = look_back(v.lb_group, t, total, epoch, &prefix_s);
-  if (p < a.w) group_emit(v, a, o, prefix + ex + h - 1, h);
-  if (t == n_blocks - 1) group_close(v, a, prefix + total, threadIdx.x,
-                                     kBlock);
+  // the first level at the block index, beside the ticket's atomic
+  long long p = (long long)blockIdx.x * kGroupBlock + threadIdx.x;
+  GroupIn<T> g;
+  group_order(v, a, p, g);
+  const int t = take_ticket(v.sc + 5, n_blocks, &ticket_s);
+  if (t != (int)blockIdx.x) {
+    p = (long long)t * kGroupBlock + threadIdx.x;
+    group_order(v, a, p, g);
+  }
+  group_read(v, a, p, g);
+  int first, upto;
+  const int ex = scan_blocks<kGroupBlock / 32>(g.head, v.lb_group, t, epoch,
+                                               scan_s, &first, &upto);
+  if (p < a.w) group_emit(v, a, g, ex + g.head - 1);
+  if (t == n_blocks - 1 && threadIdx.x == 0)
+    group_close(v, a, upto, cur0, cursor);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock) chain_apply_kernel(const Args a) {
-  __shared__ int tot[kWarps + 1];
-  __shared__ int ticket_s, prefix_s;
+// The store-row words of the block with ticket t (the rows of its
+// representatives j = t kApplyBlock + row): thread x's k-th is word
+// k kApplyBlock + x of the block's kApplyBlock rows of 3W, its row and
+// column stepped a word at a time.
+template <int kW>
+struct RowWord {
+  static constexpr int kRowStep = kApplyBlock / (3 * kW);
+  static constexpr int kColStep = kApplyBlock % (3 * kW);
+  int row, col;
+  __device__ __forceinline__ RowWord()
+      : row(threadIdx.x / (3 * kW)), col(threadIdx.x % (3 * kW)) {}
+  __device__ __forceinline__ void next() {
+    row += kRowStep;
+    col += kColStep;
+    if (col >= 3 * kW) {
+      col -= 3 * kW;
+      ++row;
+    }
+  }
+};
+
+template <typename T, int kW>
+__device__ __forceinline__ void insert_load(const View<T>& v, const Args& a,
+                                            int t, T (&x)[3 * kW]) {
+  const long long j0 = (long long)t * kApplyBlock;
+  RowWord<kW> w;
+  CS_UNROLL
+  for (int k = 0; k < 3 * kW; ++k, w.next())
+    x[k] = insert_src<T, kW>(v, a, j0 + w.row, w.col);
+}
+
+// kW: the window width W.
+template <typename T, int kW>
+__global__ void __launch_bounds__(kApplyBlock) chain_apply_kernel(
+    const Args a) {
+  __shared__ int ticket_s, scan_s[34];
+  __shared__ T stage[kPoolCols][kApplyBlock * kW];   // the block's pushes
   const View<T> v(a);
-  const int n_blocks = (int)((a.w + kBlock - 1) / kBlock);
+  const int n_blocks = (int)((a.w + kApplyBlock - 1) / kApplyBlock);
+  // independent of the lane: the round's scalars and L2
   const unsigned epoch = (unsigned)v.sc[4];
   const int n_w = v.sc[0], cur0 = v.sc[1];
   const long long cursor = v.sc[7];
+  const int povf0 = threadIdx.x == 0 ? v.ctr[3] : 0;   // the last block's
+  T l2[5];
+  load_l2(v, l2);
+  // the first level at the block index, beside the ticket's atomic
+  long long i = (long long)blockIdx.x * kApplyBlock + threadIdx.x;
+  LaneIn<T> x;
+  RepIn<T> r;
+  T words[3 * kW];
+  lane_in(v, a, i, x);
+  rep_in(v, a, i, r);
   const int t = take_ticket(v.sc + 6, n_blocks, &ticket_s);
-  const long long i = (long long)t * kBlock + threadIdx.x;
-  int fc = 0;
-  if (i < a.Uw) fc = insert_rep(v, a, i, cur0);
-  LaneOut<T> o;
-  o.fq = o.alive = 0;
-  o.push = 0;
-  if (i < a.w) apply_lane(v, a, i, n_w, o);
+  if (t != (int)blockIdx.x) {
+    i = (long long)t * kApplyBlock + threadIdx.x;
+    lane_in(v, a, i, x);
+    rep_in(v, a, i, r);
+  }
+  // the store rows only where the block has representatives that insert:
+  // read beside the lane's second level, written after its work
+  const bool inserts = (long long)t * kApplyBlock < n_w;
+  if (inserts) insert_load<T, kW>(v, a, t, words);
+  const int fc = insert_table(v, a, i, cur0, n_w, r);
+  LaneOut<T, kW> o;
+  apply_lane(v, a, i, n_w, x, l2, o);
+  if (inserts) {
+    RowWord<kW> rw;
+    CS_UNROLL
+    for (int k = 0; k < 3 * kW; ++k, rw.next())
+      insert_dst<T, kW>(v, a, (long long)t * kApplyBlock + rw.row, rw.col,
+                        cur0, n_w, words[k]);
+  }
   const int n = popc(o.push);
-  int total;
-  const int ex = block_excl_scan<kWarps>(n, tot, &total);
-  const int prefix = look_back(v.lb_apply, t, total, epoch, &prefix_s);
-  if (n) flush_lane(v, a, o, cursor + prefix + ex);
+  int first, upto;
+  const int ex = scan_blocks<kApplyBlock / 32>(n, v.lb_apply, t, epoch,
+                                               scan_s, &first, &upto);
+  // flush: the block's pushes are rows cursor + [first, upto) of the pool,
+  // staged in shared memory and written a column at a time
+  int at = ex - first;
+  CS_UNROLL
+  for (int j = 0; j < kW; ++j) {
+    if (!((o.push >> j) & 1u)) continue;
+    T row[kPoolCols];
+    push_row(a, o, j, row);
+    CS_UNROLL
+    for (int c = 0; c < kPoolCols; ++c) stage[c][at] = row[c];
+    ++at;
+  }
+  __syncthreads();
+  const long long base = cursor + first;
+  for (int q = threadIdx.x; q < upto - first; q += kApplyBlock) {
+    if (base + q >= a.GP) break;                    // rows past GP dropped
+    CS_UNROLL
+    for (int c = 0; c < kPoolCols; ++c)
+      v.pool[c * a.GP + base + q] = stage[c][q];
+  }
   warp_add(v.ctr + 0, o.fq);
   warp_add(v.ctr + 1, fc);
   warp_add(v.sc + 2, o.alive);
   if (t == n_blocks - 1 && threadIdx.x == 0)
-    pool_close(v, a, cursor + prefix + total);
+    pool_close(v, a, cursor + upto, povf0);
 }
 
-long long blocks_for(long long n) { return (n + kBlock - 1) / kBlock; }
+long long blocks_for(long long n, int block) {
+  return (n + block - 1) / block;
+}
+
+// The apply kernel for the window width a.W (kW and up).
+template <typename T, int kW = 1>
+void launch_apply(const Args& a, cudaStream_t st) {
+  if constexpr (kW < kMaxW) {
+    if (a.W != kW) return launch_apply<T, kW + 1>(a, st);
+  }
+  chain_apply_kernel<T, kW>
+      <<<blocks_for(a.w, kApplyBlock), kApplyBlock, 0, st>>>(a);
+}
 
 template <typename T>
 int launch(int which, const Args& a, cudaStream_t st) {
   switch (which) {
     case 0:
-      chain_probe_kernel<T><<<blocks_for(a.w), kBlock, 0, st>>>(a);
+      chain_probe_kernel<T><<<blocks_for(a.w, kBlock), kBlock, 0, st>>>(a);
       break;
     case 1:
-      chain_group_kernel<T><<<blocks_for(a.w), kBlock, 0, st>>>(a);
+      chain_group_kernel<T>
+          <<<blocks_for(a.w, kGroupBlock), kGroupBlock, 0, st>>>(a);
       break;
     default:
-      chain_apply_kernel<T><<<blocks_for(a.w), kBlock, 0, st>>>(a);
+      launch_apply<T>(a, st);
   }
   return (int)cudaGetLastError();
 }
@@ -674,42 +926,61 @@ template <typename T>
 void host_probe(const Args& a) {
   const View<T> v(a);
   v.sc[4] += 1;
-  for (long long i = 0; i < a.w; ++i) probe_lane(v, a, i);
+  for (long long i = 0; i < a.w; ++i) probe_lane(v, a, i, i < a.Uw ? i : -1);
 }
 
 template <typename T>
 void host_group(const Args& a) {
   const View<T> v(a);
-  int g = -1;
+  int n = 0;
   for (long long p = 0; p < a.w; ++p) {
-    const long long o = v.order[p];
-    const bool h = group_head(v, a, p, o);
-    g += h;
-    group_emit(v, a, o, g, h);
+    GroupIn<T> g;
+    group_order(v, a, p, g);
+    group_read(v, a, p, g);
+    n += g.head;
+    group_emit(v, a, g, n - 1);
   }
-  group_close(v, a, g + 1, 0, 1);
+  group_close(v, a, n, *v.cur, v.ctr[2]);
 }
 
-template <typename T>
+// The apply for the window width a.W (kW and up).
+template <typename T, int kW = 1>
 void host_apply(const Args& a) {
+  if constexpr (kW < kMaxW) {
+    if (a.W != kW) return host_apply<T, kW + 1>(a);
+  }
   const View<T> v(a);
   const int n_w = v.sc[0], cur0 = v.sc[1];
+  T l2[5];
+  load_l2(v, l2);
+  for (long long j = 0; j < a.Uw; ++j)
+    for (int c = 0; c < 3 * kW; ++c)
+      insert_dst<T, kW>(v, a, j, c, cur0, n_w, insert_src<T, kW>(v, a, j, c));
   int fc = 0, fq = 0, live = 0;
-  for (long long j = 0; j < a.Uw; ++j) fc += insert_rep(v, a, j, cur0);
   long long at = v.sc[7];
-  LaneOut<T> o;
+  LaneIn<T> x;
+  RepIn<T> r;
+  LaneOut<T, kW> o;
   for (long long i = 0; i < a.w; ++i) {
-    apply_lane(v, a, i, n_w, o);
+    lane_in(v, a, i, x);
+    rep_in(v, a, i, r);
+    fc += insert_table(v, a, i, cur0, n_w, r);
+    apply_lane(v, a, i, n_w, x, l2, o);
     fq += o.fq;
     live += o.alive;
-    flush_lane(v, a, o, at);
-    at += popc(o.push);
-    o.push = 0;
+    for (int j = 0; j < kW; ++j) {           // the pushes, rows past GP
+      if (!((o.push >> j) & 1u)) continue;    // dropped
+      T row[kPoolCols];
+      push_row(a, o, j, row);
+      for (int c = 0; c < kPoolCols && at < a.GP; ++c)
+        v.pool[c * a.GP + at] = row[c];
+      ++at;
+    }
   }
   v.ctr[0] += fq;
   v.ctr[1] += fc;
   v.sc[2] += live;
-  pool_close(v, a, at);
+  pool_close(v, a, at, v.ctr[3]);
 }
 
 int host_any(int which, const long long* words) {

@@ -12,6 +12,14 @@
 // own, and its epoch counts the rounds of that array's life, so an epoch
 // never repeats within it (2^30 rounds).
 //
+// Two forms.  look_back (walk_chain.cu) walks back one status word per
+// round trip in one thread, after block_excl_scan; scan_blocks
+// (chain_scan.cu) scans the block and looks back with a whole warp
+// (look_back_warp, in the manner of CUB's decoupled look-back): 32
+// predecessors' words in one step, a ballot for the nearest inclusive
+// prefix, a warp sum of the words after it, so a launch of 256 blocks
+// waits at most 8 steps where the one-thread form may take 255.
+//
 // Device code only; the host loops of both sources scan with running sums.
 
 #pragma once
@@ -100,6 +108,92 @@ __device__ __forceinline__ int look_back(unsigned long long* status,
   }
   __syncthreads();
   return *shared;
+}
+
+// The warp-wide look-back (every lane of one warp calls it): publish this
+// block's `value` in status[ticket], read the words of the 32 blocks
+// before the window's end at once until every word up to the nearest
+// inclusive prefix is published, add those, and move the window back by
+// 32 while none is inclusive; then publish this block's inclusive prefix.
+// Returns the sum of the values of the blocks with tickets before
+// `ticket` (every lane gets it).
+__device__ __forceinline__ int look_back_warp(unsigned long long* status,
+                                              int ticket, int value,
+                                              unsigned epoch) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long tag = epoch & 0x3FFFFFFFu;
+  int prefix = 0;
+  if (ticket > 0) {
+    if (lane == 0)
+      atomicExch(status + ticket, lb_word(epoch, kAggregate, value));
+    for (int end = ticket - 1;; end -= 32) {
+      const int j = end - lane;                 // lane 0: the nearest block
+      unsigned got, flag;
+      unsigned need, incl;
+      for (;;) {
+        got = 0;
+        flag = (unsigned)kInclusive;            // before block 0: nothing
+        if (j >= 0) {
+          const unsigned long long s =
+              *reinterpret_cast<volatile unsigned long long*>(status + j);
+          flag = (s >> 34) == tag ? (unsigned)(s >> 32) & 3u : 0u;
+          got = (unsigned)s;
+        }
+        incl = __ballot_sync(0xFFFFFFFFu, flag == kInclusive);
+        // the lanes up to the nearest inclusive prefix (all 32 if none)
+        need = incl ? (2u << (__ffs(incl) - 1)) - 1u : 0xFFFFFFFFu;
+        if (!(__ballot_sync(0xFFFFFFFFu, flag == 0) & need)) break;
+      }
+      prefix += __reduce_add_sync(0xFFFFFFFFu,
+                                  (need >> lane) & 1u ? (int)got : 0);
+      if (incl) break;
+    }
+  }
+  if (lane == 0)
+    atomicExch(status + ticket, lb_word(epoch, kInclusive, prefix + value));
+  return prefix;
+}
+
+// Exclusive scan of x across the blocks of a launch in one pass, the
+// lanes of the blocks with earlier tickets first: returns the sum of x
+// over the lanes before this thread; *first gets the sum before this
+// block, *upto the sum up to its end (the launch's total in the block
+// with the last ticket).  (sh: 34 ints of shared memory; every thread
+// must call; one call a launch.)
+template <int kWarps>
+__device__ __forceinline__ int scan_blocks(int x, unsigned long long* status,
+                                           int ticket, unsigned epoch,
+                                           int* sh, int* first, int* upto) {
+  static_assert(kWarps >= 1 && kWarps <= 32, "a block of 1 to 32 warps");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int inc = x;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
+    if (lane >= d) inc += y;
+  }
+  if (lane == 31) sh[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    const int t = lane < kWarps ? sh[lane] : 0;
+    int s = t;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xFFFFFFFFu, s, d);
+      if (lane >= d) s += y;
+    }
+    const int total = __shfl_sync(0xFFFFFFFFu, s, 31);
+    const int prefix = look_back_warp(status, ticket, total, epoch);
+    if (lane < kWarps) sh[lane] = prefix + s - t;
+    if (lane == 0) {
+      sh[32] = prefix;
+      sh[33] = prefix + total;
+    }
+  }
+  __syncthreads();
+  *first = sh[32];
+  *upto = sh[33];
+  return sh[warp] + inc - x;
 }
 
 // One atomic add a warp of the warp's sum of x (every lane must call).

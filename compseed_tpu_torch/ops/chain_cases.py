@@ -5,7 +5,9 @@ tests/test_torch_cuda.py).
 ``RoundCapture`` keeps the state before chosen rounds of the kernel path
 while a run goes through it (the main path's own rounds at its own
 widths); ``lossy`` turns such a state into one whose table is 1,024 slots
-(slot collisions everywhere) and whose store is all but full;
+(slot collisions everywhere) and whose store is all but full; ``narrow``
+cuts one to its first lanes; ``padded`` leaves a quarter of its lanes
+alive and lets each lead a group;
 ``steps_vs_plain`` runs one round from a state through each kernel and
 through the plain steps (``seedscan._chain_probe_plain`` and the rest),
 step by step, and returns each kernel's largest difference;
@@ -86,6 +88,29 @@ def lossy(case, H: int = 1024, room: int = 200):
     return fm, const, st, w, Uw
 
 
+def narrow(case, n: int):
+    """The same round cut to its first ``n`` lanes, n // 2
+    representatives."""
+    fm, const, st, w, _ = case
+    st = clone_state(st)
+    for k in _LANE:
+        st[k] = st[k][:n].clone()
+    st["live"] = st["alive"].sum().to(st["live"].dtype)
+    return fm, const, st, n, n // 2
+
+
+def padded(case, every: int = 4):
+    """The same round with every lane free to lead a group (Uw = w) and
+    only every ``every``-th lane alive: at most w / every groups, so the
+    pads past n_w are most of the representatives."""
+    fm, const, st, w, _ = case
+    st = clone_state(st)
+    lanes = torch.arange(w, device=st["alive"].device)
+    st["alive"] &= lanes % every == 0
+    st["live"] = st["alive"].sum().to(st["live"].dtype)
+    return fm, const, st, w, w
+
+
 def max_err(a, b) -> int:
     """The largest absolute difference of two integer tensors of one
     shape (0 when empty)."""
@@ -95,18 +120,20 @@ def max_err(a, b) -> int:
     return int((a - b).abs().max()) if a.numel() else 0
 
 
-def steps_vs_plain(case) -> dict:
+def steps_vs_plain(case, build=chain_cuda) -> dict:
     """One round from the case's state through each kernel and through its
     plain step, each kernel fed what the plain steps computed before it:
     {kernel: max_abs_err over its outputs}, plus the round's data
-    (``stats``: hits, applied lanes, pushes, n_u, n_w, stored reps)."""
+    (``stats``: hits, applied lanes, pushes, n_u, n_w, stored reps).
+    ``build`` launches the kernels (``probe``, ``group``, ``apply`` of a
+    ``ChainRound``): chain_cuda's own, or another build of the source."""
     fm, const, st0, w, Uw = case
     ks, ps = clone_state(st0), clone_state(st0)
     rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
     sc = rd.scratch
     errs = {}
 
-    chain_cuda.probe(rd)
+    build.probe(rd)
     pr = tss._chain_probe_plain(fm, const, ps)
     hit = pr["hit"]
     errs["chain_probe_kernel"] = max(
@@ -118,7 +145,7 @@ def steps_vs_plain(case) -> dict:
 
     order = torch.argsort(pr["key"], stable=True)
     sc["order"].copy_(order)
-    chain_cuda.group(rd)
+    build.group(rd)
     gr = tss._chain_group_plain(ps, pr, order, Uw)
     n_w = int(gr["n_w"])
     M = ps["cst"].shape[0]
@@ -135,7 +162,7 @@ def steps_vs_plain(case) -> dict:
     walk = tss._chain_walk(fm, gr["rep_wv"], const["W"], gr["rep_k"],
                            gr["rep_l"], gr["rep_s"], gr["rep_valid"])
     rd.set_walk(*walk)
-    chain_cuda.apply(rd)
+    build.apply(rd)
     ps2 = tss._chain_apply_plain(fm, const, ps, pr, gr, walk, w, Uw)
     errs["chain_apply_kernel"] = max(
         *(max_err(ks[n], ps2[n]) for n in _LANE + tss.MEMO_KEYS +
@@ -169,10 +196,12 @@ def round_work(stats: dict, es: int, W: int) -> dict:
     output written once, counted by distinct element.
 
     probe, per lane: lane0, its read's window word, pos, l, s, alive
-    (not pivot or k), and its outputs; a table row per live lane.
+    (not pivot or k), and its outputs; a table row per live lane; per
+    pad (a representative past n_w, lane 0's): six outputs.
     group, per lane: its sorted position and key, its group index
     written; per live miss: window, l and s (a miss's sorted predecessor
-    is a miss too); per representative: k and slot read, six outputs.
+    is a miss too); per representative below n_w: k and slot read, six
+    outputs.
     apply, per lane: alive, hit and group index; per applied lane: its
     state and per-read constants; per hit: ptr, k0, len, and each store
     row it reads once however many hits share it; per representative
@@ -192,10 +221,11 @@ def round_work(stats: dict, es: int, W: int) -> dict:
     lived, respawned = stats["lived"], stats["respawned"]
     through = lived - respawned
     stops = applied - through
+    rep = 8 + 3 * es + 1 + 4                # a representative's six outputs
     probe = w * (4 + 4 + 4 + 8 + 2 * es + 1) + live * 8 * es + \
-        w * (8 + 4 + 1 + 4 + es + 4 + 4)
+        w * (8 + 4 + 1 + 4 + es + 4 + 4) + (Uw - n_w) * rep
     group = w * (8 + 4 + 4) + stats["misses"] * (8 + 2 * es) + \
-        n_w * (es + 4) + Uw * (8 + 3 * es + 1 + 4)
+        n_w * (es + 4 + rep)
     apply = w * (1 + 1 + 4) + \
         applied * (3 * es + 4 + 4 + 4 + 4 + 4 + 4 + es) + \
         hits * (4 + es + 4) + stats["hit_rows"] * 3 * W * es + \

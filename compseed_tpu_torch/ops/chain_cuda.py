@@ -6,10 +6,12 @@
 ``seedscan._chain_round_kernels``: three hand-written kernels around one
 ``torch.sort`` and one ``fm_chain_walk_kernel`` launch,
 
-  ``probe`` -> ``chain_probe_kernel``  (memo probe, slot hash, sort key);
+  ``probe`` -> ``chain_probe_kernel``  (memo probe, slot hash, sort key,
+               the representatives' pads);
   ``group`` -> ``chain_group_kernel``  (group heads, scan, representatives);
   ``apply`` -> ``chain_apply_kernel``  (insert, apply, push / stop,
-               advance, and the pushes to the pool in order).
+               advance, and the pushes to the pool in order; one build a
+               window width W).
 
 A ``ChainRound`` holds one segment's launch arguments (the ``Args``
 words of the source, named by ``ARGS`` in order) and its scratch: the
@@ -53,7 +55,8 @@ ARGS = (
 _AT = {n: i for i, n in enumerate(ARGS)}
 
 KERNELS = ("chain_probe_kernel", "chain_group_kernel", "chain_apply_kernel")
-BLOCK = 256                 # threads a block of every kernel: a lane each
+BLOCK = 256                 # threads a block of the probe and the group
+APPLY_BLOCK = 64            # threads a block of the apply (a lane each)
 
 
 def _bind(lib) -> None:
@@ -133,8 +136,9 @@ class ChainRound(RoundArgs):
             return torch.empty(n, dtype=dtype, device=dev)
 
         # scratch, one set per segment; the sort writes sorted_key /
-        # order; the look-back words and sc start at zero
-        n_blocks = -(-w // BLOCK)
+        # order; the look-back words (a word a block of the apply, the
+        # kernel with the most blocks) and sc start at zero
+        n_blocks = -(-w // APPLY_BLOCK)
         self.scratch = dict(
             p_wv=e(w, i64), p_slot=e(w), p_hit=e(w, torch.uint8),
             p_ptr=e(w), p_hk0=e(w, dt), p_hln=e(w), key=e(w),

@@ -42,12 +42,14 @@ def _nvcc(src: str) -> str:
                        f"{src}")
 
 
-def compile_source(src: str, so: str, defines: tuple = ()) -> None:
-    """nvcc ``src`` into the shared library ``so`` with NVCC_FLAGS and the
-    given -D defines.  Raises if nvcc fails."""
+def compile_source(src: str, so: str, defines: tuple = (),
+                   includes: tuple = ()) -> None:
+    """nvcc ``src`` into the shared library ``so`` with NVCC_FLAGS, the
+    given -D defines and -I directories (searched after ``src``'s own).
+    Raises if nvcc fails."""
     tmp = f"{so}.tmp.{os.getpid()}"
-    cmd = [_nvcc(src), *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", tmp,
-           src]
+    cmd = [_nvcc(src), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+           *(f"-I{d}" for d in includes), "-o", tmp, src]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"

@@ -12,6 +12,11 @@ active, advance=False); round 3; a lossy memo (slot evictions, a full
 store) with a rep cap below the group count; COMPSEED_CHAIN_SEGS set to
 "" and to "4,16" over 512 reads; report_rounds.
 
+Captured rounds step by step (ops/chain_cases), each kernel's host loop
+against its plain step: as captured, lossy, padded (pads past n_w, which
+the probe writes, are most of the representatives) and at a width that
+is no multiple of a block's lanes.
+
 Also: the native slot hash against the int64 emulation (bits.mul64) on
 random 64-bit patterns; the caller's memo is never written; the Args
 layout the launchers pass; the dispatch (the plain round only for CPU
@@ -264,6 +269,80 @@ def test_captured_rounds_step_by_step(on_host, idx, name, monkeypatch):
         assert torch.equal(g, w)
 
 
+_ROUNDS = {}
+
+
+def _captured(idx, name, monkeypatch):
+    """The rounds RoundCapture keeps from one case's kernel path, once
+    per file (CPU tensors; the host loops must be patched in)."""
+    _, td = idx
+    key = (name, str(td.dtype))
+    if key not in _ROUNDS:
+        case = _case(name)
+        with monkeypatch.context() as m:
+            for k, v in case[5].items():
+                m.setenv(k, v)
+            with chain_cases.RoundCapture() as cap:
+                _port(td, case)
+        _ROUNDS[key] = list(cap.states.values())
+    return _ROUNDS[key]
+
+
+@pytest.mark.parametrize("name", ["lep", "r2"])
+def test_probe_writes_the_plain_pads(on_host, idx, name, monkeypatch):
+    """The pads (representatives past n_w: lane 0's window, k, l, s and
+    slot, not valid) come from the probe's host loop, every j < Uw, as
+    _chain_group_plain leaves them; the group overwrites only the heads.
+    On the captured rounds, their lossy form and their padded form (Uw =
+    w, a quarter of the lanes alive: pads are most of the
+    representatives)."""
+    for rnd in _captured(idx, name, monkeypatch):
+        w = rnd[3]
+        wide = chain_cases.padded(rnd)
+        for c in (rnd, chain_cases.lossy(rnd, H=64, room=8), wide):
+            fm, const, st, w, Uw = c
+            ks = chain_cases.clone_state(st)
+            rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
+            chain_cuda.probe(rd)
+            ps = chain_cases.clone_state(st)
+            pr = tss._chain_probe_plain(fm, const, ps)
+            gr = tss._chain_group_plain(ps, pr, torch.argsort(
+                pr["key"], stable=True), Uw)
+            n_w = int(gr["n_w"])
+            assert n_w < Uw or c is not wide
+            sc = rd.scratch
+            for n in ("rep_wv", "rep_k", "rep_l", "rep_s", "rep_valid",
+                      "rep_slot"):
+                got, want = sc[n].to(torch.int64), gr[n].to(torch.int64)
+                assert torch.equal(got[n_w:], want[n_w:]), n
+                assert (got == got[0]).all(), n        # all lane 0's
+            assert not sc["rep_valid"].any()
+
+
+@pytest.mark.parametrize("form", ["pads", "ragged"])
+@pytest.mark.parametrize("name", ["lep", "r2"])
+def test_captured_round_forms_step_by_step(on_host, idx, name, form,
+                                           monkeypatch):
+    """Each kernel's host loop == its plain step on the captured rounds
+    in two more forms: padded (Uw = w, a quarter of the lanes alive: pads
+    past n_w are most of the representatives) and a width that is no
+    multiple of a block's lanes (the first w - 37 lanes), also each
+    lossy."""
+    for rnd in _captured(idx, name, monkeypatch):
+        w = rnd[3]
+        c = chain_cases.padded(rnd) if form == "pads" else \
+            chain_cases.narrow(rnd, w - 37)
+        for c in (c, chain_cases.lossy(c, H=64, room=8)):
+            errs = chain_cases.steps_vs_plain(c)
+            stats = errs.pop("stats")
+            assert errs == dict.fromkeys(chain_cuda.KERNELS, 0), stats
+            assert stats["applied"] > 0
+            if form == "pads":
+                assert stats["Uw"] - stats["n_w"] > 2 * stats["n_w"], stats
+            else:
+                assert stats["w"] % 256 and stats["Uw"] == stats["w"] // 2
+
+
 @pytest.mark.parametrize("es", [4, 8], ids=["int32", "int64"])
 def test_round_work_counts_each_byte_once(es):
     """round_work's bytes (the kernels' bound) count distinct bytes: a
@@ -297,6 +376,11 @@ def test_round_work_counts_each_byte_once(es):
     assert delta("chain_group_kernel", w=1) == 8 + 4 + 4
     assert delta("chain_group_kernel", live=1, hits=1) == 0
     assert delta("chain_group_kernel", live=1, misses=1) == 8 + 2 * es
+    rep = 8 + 3 * es + 1 + 4                # a representative's six words
+    assert delta("chain_probe_kernel", Uw=1) == rep        # one more pad
+    assert delta("chain_group_kernel", Uw=1) == 0
+    assert delta("chain_probe_kernel", n_w=1) == -rep      # a head, not a pad
+    assert delta("chain_group_kernel", n_w=1) == es + 4 + rep
 
 
 def test_slot_hash_native_equals_emulation(host):

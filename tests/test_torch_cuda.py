@@ -9,8 +9,8 @@ threads and on a second card (that test skips unless two are visible);
 the seeder's first bench chunk with the FM kernels against the same with
 their plain versions; chain_scan's round on the kernels of
 csrc/chain_scan.cu against the plain round (the first bench chunk, int32
-and int64 positions; its captured rounds kernel by kernel; from worker
-threads); walk_pool_chain's round on the kernels of csrc/walk_chain.cu
+and int64 positions; its captured rounds kernel by kernel, round 2's also
+cut to a ragged width and padded; from worker threads); walk_pool_chain's round on the kernels of csrc/walk_chain.cu
 the same ways (its captured rounds also with few representatives and in
 forced forms); the sharded pipeline on one card against the unsharded
 one.
@@ -891,6 +891,53 @@ def test_chain_round_steps_vs_plain_on_card(dev, bench, dtype):
                 (key, stats, errs)
             full += stats["stored"] < stats["n_w"]
     assert full > 0                       # a representative found no row
+
+
+_CHAIN_R2 = {}
+
+
+def _chain_round2(bench, dev, dtype):
+    """The state before round 2's first chain_scan round (65,536 lanes)
+    of the first bench chunk, once per dtype."""
+    from compseed_tpu_torch.ops import chain_cases
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    if dtype not in _CHAIN_R2:
+        fm, reads = bench
+        sd = DeviceSeeder(MemOptions(), fm, dev,
+                          dfi=_bench_index(bench, dev, dtype), dedup=True)
+        with chain_cases.RoundCapture(limit=16) as cap:
+            sd.run_flat(list(reads[:16384]))
+        torch.cuda.synchronize()
+        _CHAIN_R2[dtype] = next(c for (_, w), c in sorted(cap.states.items())
+                                if w == 65536)
+    return _CHAIN_R2[dtype]
+
+
+@pytest.mark.parametrize("form", ["wide", "ragged", "padded"])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_chain_round_scan_forms_on_card(dev, bench, dtype, form):
+    """Round 2's first chain_scan round of the first bench chunk through
+    each kernel and its plain step, equal output by output, each form also
+    lossy: as captured (65,536 lanes: 256 blocks, so that the warp-wide
+    look-back takes more than one step of 32 words), cut to a width that is no multiple of a block's lanes, and
+    padded (Uw = w, a quarter of the lanes alive: the pads, which the
+    probe writes, are most of the representatives)."""
+    from compseed_tpu_torch.ops import chain_cases, chain_cuda
+    case = _chain_round2(bench, dev, dtype)
+    w = case[3]
+    c = {"wide": case, "ragged": chain_cases.narrow(case, w - 333),
+         "padded": chain_cases.padded(case)}[form]
+    for c in (c, chain_cases.lossy(c)):
+        errs = chain_cases.steps_vs_plain(c)
+        stats = errs.pop("stats")
+        assert errs == dict.fromkeys(chain_cuda.KERNELS, 0), (form, stats)
+        assert stats["w"] > 32 * chain_cuda.BLOCK
+        assert stats["applied"] > 0 and stats["pushes"] > 0
+        if form == "ragged":
+            assert stats["w"] % chain_cuda.BLOCK
+        if form == "padded":
+            assert stats["Uw"] - stats["n_w"] > 2 * stats["n_w"], stats
 
 
 def test_chain_scan_from_worker_threads_on_card(dev, bench):
