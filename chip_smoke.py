@@ -129,7 +129,16 @@ Phases, in order; any failure exits non-zero:
                 timed at the first width of round 1's and round 2's
                 walk_pool_chain call (393,216 and 262,144 lanes; on the
                 card alone, in a loop, by the profiler's records; the
-                plain steps in a loop) beside its bound.  The chain and
+                plain steps in a loop) beside its bound, at a ragged
+                width (round 1's first 393,216 - 333 lanes) and padded
+                (Uw = w, a quarter of the lanes alive); every round of
+                the first chunk's two walk_pool_chain calls (each round's
+                w, Uw, live, n_u, n_w), those forms and one block through
+                each build of the kernels (the port's; with
+                --walk-old-source also other sources), exact against the
+                plain steps, timed on the card alone in turns; each
+                build's profiler mean per launch over one chunk, in
+                turns.  The chain and
                 the walk kernels again on round 1's first 256 lanes (one
                 block: a launch and a lane's dependent reads, their
                 latency floor).  Gates: at most
@@ -207,7 +216,12 @@ parent's: ``git show <commit>:compseed_tpu_torch/csrc/chain_scan.cu >
 FILE``; repeatable) each file is built too, with the port's csrc/ on the
 include path, and phase 4 holds its kernels to the plain steps on every
 captured round shape and one block and times them against the port's in
-turns.  No option changes what the port itself runs.
+turns.  --walk-old-source FILE (another csrc/walk_chain.cu with the
+port's struct Args, such as the parent's; repeatable) does the same for
+the walk kernels, with the port's csrc/ on the include path unless a
+lookback.cuh sits beside FILE, on every round of the first chunk's two
+walk_pool_chain calls and their forms, and over one chunk's seeding by
+the profiler.  No option changes what the port itself runs.
 
 Prints the CLI phase's, the engine phase's and the mesh phase's numbers
 and the kernel table as one JSON line each, the card's nvidia-smi line,
@@ -1457,56 +1471,64 @@ class OldChainBuild:
         self._run("chain_apply_launch", rd)
 
 
-def chain_builds(sources) -> dict:
-    """name -> a build of the chain kernels, in the order of a turn: each
-    of ``sources`` (other chain_scan.cu files, --chain-old-source) named by
-    its file name, built with the port's csrc/ on the include path (for
-    lookback.cuh, unless a copy sits beside the file), then "new", the
-    port's own launchers and library."""
+def round_builds(sources, module, wrap) -> dict:
+    """name -> a build of a round source's kernels, in the order of a turn:
+    each of ``sources`` (other copies of ``module``'s source, such as the
+    parent's: --chain-old-source, --walk-old-source), named by its
+    directory and file name, built with the port's csrc/ on the include
+    path (for lookback.cuh, unless a copy sits beside the file) and
+    launched through ``wrap`` (OldChainBuild, OldWalkBuild), then "new",
+    ``module`` itself (chain_cuda, walk_cuda): the port's own launchers
+    and library."""
     import ctypes as ct
-    from compseed_tpu_torch.ops import chain_cuda, cuda_lib
-    chain_cuda.LIB.load()
+    from compseed_tpu_torch.ops import cuda_lib
+    module.LIB.load()
+    lib_name = os.path.splitext(os.path.basename(module.LIB.src))[0]
     builds = {}
     for src in sources:
-        name = os.path.splitext(os.path.basename(src))[0]
+        name = "_".join(os.path.normpath(os.path.splitext(src)[0])
+                        .split(os.sep)[-2:])
         if name in builds or name == "new":
             name = f"{name}_{len(builds)}"
-        so = os.path.join(cuda_lib.BUILD, f"libchain_{name}.so")
+        so = os.path.join(cuda_lib.BUILD, f"lib{lib_name}_{name}.so")
         cuda_lib.compile_source(os.path.abspath(src), so, includes=(
-            os.path.dirname(chain_cuda.LIB.src),))
-        builds[name] = OldChainBuild(ct.CDLL(so))
-    builds["new"] = chain_cuda
+            os.path.dirname(module.LIB.src),))
+        builds[name] = wrap(ct.CDLL(so))
+    builds["new"] = module
     return builds
 
 
-def chain_redesign(builds: dict, cases: dict, reps: int = 20) -> dict:
-    """Every captured round shape (``cases``: tag -> case) through every
-    build: held to the plain steps (max_abs_err per build and kernel; all
-    must be 0), then each kernel's ms per launch on the card alone
-    (launch_ms, restores taken off) in turns, the builds in order and then
-    in reverse.  tag -> {build: {max_abs_err, kernel: [ms, ...]}}."""
-    from compseed_tpu_torch.ops import chain_cases
+def build_turns(what: str, builds: dict, cases: dict, kernels, check,
+                runs_of, reps: int = 20) -> dict:
+    """Every case (tag -> a captured round, or a form of one) through every
+    build of a round source's kernels (``what``: "chain" or "walk"): held
+    to the plain steps (``check(case, build)``: chain_cases or walk_cases
+    ``steps_vs_plain``; max_abs_err per build and kernel, all must be 0),
+    then each kernel's ms per launch on the card alone (launch_ms on
+    ``runs_of(case, build)``, restores taken off) in turns, the builds in
+    order and then in reverse.  tag -> {stats: the round's data, build:
+    {max_abs_err, kernel: [ms, ...]}}."""
     order = list(builds) + list(builds)[::-1]
     out = {}
     for tag, case in cases.items():
         rec = {}
         for b, build in builds.items():
-            errs = chain_cases.steps_vs_plain(case, build)
-            errs.pop("stats")
-            rec[b] = dict(max_abs_err=errs, **{k: [] for k in CHAIN_KERNELS})
+            errs = check(case, build)
+            rec["stats"] = errs.pop("stats")
+            rec[b] = dict(max_abs_err=errs, **{k: [] for k in kernels})
             if any(errs.values()):
-                raise SystemExit(f"chain build {b} disagrees with the plain "
-                                 f"steps at {tag}: {errs}")
+                raise SystemExit(f"{what} build {b} disagrees with the plain "
+                                 f"steps at {tag}: {errs} {rec['stats']}")
         for b in order:
-            runs, rd, ks = chain_runs(case, builds[b])
-            for k in CHAIN_KERNELS:
+            runs, rd, ks = runs_of(case, builds[b])
+            for k in kernels:
                 run, restore = runs[k]
                 rec[b][k].append(launch_ms(run, reps) if restore is None else
                                  launch_ms(lambda: (restore(), run()), reps)
                                  - launch_ms(restore, reps))
             del runs, rd, ks
         out[tag] = rec
-        log(f"[4] chain builds in turns at {tag} (ms per launch on the card "
+        log(f"[4] {what} builds in turns at {tag} (ms per launch on the card "
             f"alone): {json.dumps(rec)}")
     return out
 
@@ -1705,7 +1727,7 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
     int32 window; each kernel timed at the main path's shapes (round 1 at
     16,384 lanes and its narrower segments, round 2 at 65,536:
     chain_time) and at one block; every captured round shape and the
-    block through every build in turns (chain_redesign: ``builds``, the
+    block through every build in turns (build_turns: ``builds``, the
     port's and any --chain-old-source); round 1's chain_scan with the
     kernels and the plain round in turns (chain_turns); the launches by
     stage over one chunk (launch_split)."""
@@ -1734,9 +1756,10 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
     shapes[f"floor w={FLOOR_LANES}"] = r = chain_time(floor)
     log(f"[4] chain kernels' latency floor (round 1's first {FLOOR_LANES} "
         f"lanes): {json.dumps(r)}")
-    redesign = chain_redesign(builds, dict(
+    redesign = build_turns("chain", builds, dict(
         [(f"round {call} w={w}", c) for (call, w), c in sorted(cases.items())]
-        + [(f"floor w={FLOOR_LANES}", floor)]))
+        + [(f"floor w={FLOOR_LANES}", floor)]), CHAIN_KERNELS,
+        chain_cases.steps_vs_plain, chain_runs)
     turns = chain_turns(seeder, queries)
     log(f"[4] round 1's chain_scan, kernels and plain round in turns: "
         f"{json.dumps(turns)}")
@@ -1886,11 +1909,18 @@ def walk_time(case, reps: int = 20) -> dict:
     return out
 
 
-def walk_main_path(l32, cases, split) -> dict:
+def walk_main_path(l32, cases, split, seeder, queries, builds) -> dict:
     """Phase 4's walk numbers: each kernel's launches per chunk in the
     int32 window; each kernel timed at the first width of round 1's and of
-    round 2's walk_pool_chain call (walk_time); the launches of a round
-    (launch_split, run by chain_main_path), gated."""
+    round 2's walk_pool_chain call, at one block of round 1, at a ragged
+    width and padded (walk_time); the launches of a round (launch_split,
+    run by chain_main_path), gated; every round of one run of the first
+    chunk (walk_cases.EveryRound), those forms and the block through every
+    build in turns (build_turns: ``builds``, the port's and any
+    --walk-old-source); each build's profiler means over one chunk in
+    turns (walk_chunk_means)."""
+    import torch
+    from compseed_tpu_torch.ops import walk_cases
     per_chunk = {k: l32[k] / ((RUNS + 1) * N_CHUNKS) for k in WALK_KERNELS}
     log(f"[4] walk kernel launches per {CHUNK}-read chunk (int32 window): "
         f"{json.dumps(per_chunk)}")
@@ -1910,29 +1940,149 @@ def walk_main_path(l32, cases, split) -> dict:
     if len(shapes) != 2:
         raise SystemExit(f"the walk rounds to time were not captured: "
                          f"{sorted(shapes)}")
-    shapes[f"floor lanes={FLOOR_LANES}"] = r = walk_time(
-        narrow_walk(cases[(1, 24 * CHUNK)], FLOOR_LANES))
-    log(f"[4] walk kernels' latency floor (round 1's first {FLOOR_LANES} "
-        f"lanes): {json.dumps(r)}")
+    wide = cases[(1, 24 * CHUNK)]
+    forms = {f"floor lanes={FLOOR_LANES}": walk_cases.narrow(wide,
+                                                             FLOOR_LANES),
+             f"ragged lanes={24 * CHUNK - 333}": walk_cases.narrow(
+                 wide, 24 * CHUNK - 333),
+             f"padded lanes={24 * CHUNK}": walk_cases.padded(wide)}
+    for tag, case in forms.items():
+        shapes[tag] = r = walk_time(case)
+        log(f"[4] walk kernels at {tag} (Uw={case[3]}): {json.dumps(r)}")
+        if any(r["max_abs_err"].values()):
+            raise SystemExit(f"a walk kernel disagrees with its plain step "
+                             f"at {tag}")
     per_round = split["launches_per_round"]["walk_pool_chain_round"]
     if per_round > MAX_WALK_ROUND_LAUNCHES:
         raise SystemExit(f"a walk_pool_chain round makes {per_round:.1f} "
                          f"launches, more than {MAX_WALK_ROUND_LAUNCHES}")
+    with walk_cases.EveryRound() as cap:
+        seeder.run_flat(queries)
+    torch.cuda.synchronize()
+    rounds = {f"call {call} round {r} lanes={c[2]['k'].shape[0]}": c
+              for (call, r), c in sorted(cap.states.items())}
+    del cap
+    redesign = build_turns("walk", builds, dict(rounds, **forms),
+                           WALK_KERNELS, walk_cases.steps_vs_plain, walk_runs)
+    del rounds
+    means = walk_chunk_means(builds, seeder, queries)
     return dict(launches_per_chunk=per_chunk, shapes=shapes,
-                launches_per_round=per_round)
+                launches_per_round=per_round, redesign=redesign,
+                chunk_means=means)
 
 
-def narrow_walk(case, n: int):
-    """A walk_pool_chain round cut to its first ``n`` lanes (one block of
-    the kernels), n / 2 representatives: its latency floor."""
+class OldWalkBuild:
+    """The kernels of another csrc/walk_chain.cu (--walk-old-source: the
+    parent's, or a variant), launched on a WalkRound's Args words: its
+    struct Args must be the port's (walk_cuda._bind checks its size).  Its
+    group's look-back status words are its own, a word a block of 64
+    lanes (enough for group blocks of 64 lanes or more), held for the
+    last round it launched on; every other word is the round's."""
+
+    LANES_PER_WORD = 64
+
+    def __init__(self, lib):
+        from compseed_tpu_torch.ops import walk_cuda
+        walk_cuda._bind(lib)
+        self.lib = lib
+        self._lb = (None, None)
+
+    def _run(self, launcher, rd):
+        import ctypes as ct
+
+        import torch
+        from compseed_tpu_torch.ops import walk_cuda
+        if self._lb[0] is not rd:
+            self._lb = (rd, torch.zeros(-(-rd.n // self.LANES_PER_WORD) + 1,
+                                        dtype=torch.int64, device=rd.dev))
+        args = (ct.c_longlong * len(rd.args))(*rd.args)
+        args[walk_cuda.ARGS.index("lb_group")] = self._lb[1].data_ptr()
+        with torch.cuda.device(rd.dev):
+            rc = getattr(self.lib, launcher)(
+                ct.addressof(args),
+                torch.cuda.current_stream(rd.dev).cuda_stream)
+        if rc:
+            raise SystemExit(f"{launcher} (another walk build): CUDA error "
+                             f"{rc}")
+
+    def key(self, rd):
+        self._run("walk_key_launch", rd)
+
+    def group(self, rd):
+        self._run("walk_group_launch", rd)
+
+    def apply(self, rd):
+        self._run("walk_apply_launch", rd)
+
+
+def walk_runs(case, build) -> tuple:
+    """A captured round through one build of the walk kernels (``build``:
+    walk_cuda, or an OldWalkBuild), once whole (so every scratch array
+    holds this round's data), and kernel -> (call, restore or None) for
+    timing: before every group call the round's epoch moves on (its
+    look-back must find no word of the call before), before every apply
+    call the lane state and the counters are put back as the round found
+    them.  Returns (runs, the round's arguments, its state)."""
+    import torch
     from compseed_tpu_torch.ops import seedscan as ss
-    from compseed_tpu_torch.ops import walk_cases
+    from compseed_tpu_torch.ops import walk_cases, walk_cuda
     fm, const, st, Uw = case
-    st = walk_cases.clone_state(st)
-    for k in ss.WALK_LANE_KEYS:
-        st[k] = st[k][:n].clone()
-    st["live"] = st["alive"].sum()
-    return fm, const, st, n // 2
+    ks = walk_cases.clone_state(st)
+    rd = walk_cuda.WalkRound(fm, const, ks, Uw)
+    s = rd.scratch
+    epoch = s["sc"][walk_cuda.SC_EPOCH:walk_cuda.SC_EPOCH + 1]
+    restore_apply = restorer(ks, ("k", "l", "s", "i", "alive", "ctr"),
+                             epoch)
+    build.key(rd)
+    walk_cuda.sort(rd)
+    build.group(rd)
+    rd.set_walk(*ss._chain_walk(fm, s["rep_rw"], const["W"], s["rep_k"],
+                                s["rep_l"], s["rep_s"], s["rep_valid"],
+                                is_back=True, stop_s=s["gmin"]))
+    build.apply(rd)
+    torch.cuda.synchronize()
+    runs = {"walk_key_kernel": (lambda: build.key(rd), None),
+            "walk_group_kernel": (lambda: build.group(rd),
+                                  restorer(ks, (), epoch)),
+            "walk_apply_kernel": (lambda: build.apply(rd), restore_apply)}
+    return runs, rd, ks
+
+
+def walk_chunk_means(builds: dict, seeder, queries) -> dict:
+    """torch.profiler's mean device ms per launch of each walk kernel over
+    one run of the first chunk's seeding (profile_chunk), the walk rounds
+    on each build in turn (walk_cuda.key, group and apply pointed at the
+    build's for the run), the builds in order and then in reverse; every
+    build's seeds must equal the port's.  {build: {kernel: [ms, ...],
+    busy_ms: [...]}}."""
+    import numpy as np
+    import torch
+    from compseed_tpu_torch.ops import walk_cuda
+    order = list(builds) + list(builds)[::-1]
+    out = {b: dict({k: [] for k in WALK_KERNELS}, busy_ms=[])
+           for b in builds}
+    want = seeder.run_flat(queries)
+    for b in order:
+        build = builds[b]
+        saved = walk_cuda.key, walk_cuda.group, walk_cuda.apply
+        walk_cuda.key, walk_cuda.group, walk_cuda.apply = \
+            build.key, build.group, build.apply
+        got = []
+        try:
+            prof = profile_chunk(lambda: got.append(seeder.run_flat(queries)),
+                                 torch.cuda.synchronize)
+        finally:
+            walk_cuda.key, walk_cuda.group, walk_cuda.apply = saved
+        if not all(np.array_equal(x, y) for g in got
+                   for x, y in zip(g, want)):
+            raise SystemExit(f"walk build {b}: the chunk's seeds differ from "
+                             f"the port's")
+        for k in WALK_KERNELS:
+            out[b][k].append(prof["kernels"][k]["device_ms_per_launch"])
+        out[b]["busy_ms"].append(prof["device_busy_s"] * 1e3)
+    log(f"[4] walk builds' profiler means per launch over one {CHUNK}-read "
+        f"chunk, in turns: {json.dumps(out)}")
+    return out
 
 
 def walk_rows(walk_rec, l32, row, prof) -> list:
@@ -2941,12 +3091,15 @@ def main() -> None:
     ap.add_argument("--old-source")
     ap.add_argument("--fm-old-source")
     ap.add_argument("--chain-old-source", action="append", default=[])
+    ap.add_argument("--walk-old-source", action="append", default=[])
     cli = ap.parse_args()
     if cli.fm_old_source and not os.path.isfile(cli.fm_old_source):
         ap.error(f"--fm-old-source {cli.fm_old_source}: no such file")
-    for src in cli.chain_old_source:
-        if not os.path.isfile(src):
-            ap.error(f"--chain-old-source {src}: no such file")
+    for opt_name, srcs in (("--chain-old-source", cli.chain_old_source),
+                           ("--walk-old-source", cli.walk_old_source)):
+        for src in srcs:
+            if not os.path.isfile(src):
+                ap.error(f"{opt_name} {src}: no such file")
     # ---- phase 0: device
     import torch
     if not torch.cuda.is_available():
@@ -3071,9 +3224,14 @@ def main() -> None:
         else {}
     fm_builds = fm_walk_builds(cli.fm_old_source)
     log(f"[1] FM walk builds compared in phase 4: {list(fm_builds)}")
-    chain_build_set = chain_builds(cli.chain_old_source)
+    chain_build_set = round_builds(cli.chain_old_source, chain_cuda,
+                                   OldChainBuild)
     log(f"[1] chain kernel builds compared in phase 4: "
         f"{list(chain_build_set)}")
+    walk_build_set = round_builds(cli.walk_old_source, walk_cuda,
+                                  OldWalkBuild)
+    log(f"[1] walk kernel builds compared in phase 4: "
+        f"{list(walk_build_set)}")
     variant_ms = {}
 
     # ---- phase 2: kernels vs plain versions, synthetic pairs
@@ -3402,7 +3560,8 @@ def main() -> None:
                                 chain_cases_, chain_build_set)
     del chain_cases_
     chain_rec["phase2"] = chain_errs
-    walk_rec = walk_main_path(l32, walk_cases_, chain_rec["split"])
+    walk_rec = walk_main_path(l32, walk_cases_, chain_rec["split"], seeder,
+                              list(reads_arr[:CH]), walk_build_set)
     del walk_cases_
     walk_rec["phase2"] = walk_errs
 

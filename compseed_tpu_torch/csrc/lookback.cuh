@@ -12,13 +12,12 @@
 // own, and its epoch counts the rounds of that array's life, so an epoch
 // never repeats within it (2^30 rounds).
 //
-// Two forms.  look_back (walk_chain.cu) walks back one status word per
-// round trip in one thread, after block_excl_scan; scan_blocks
-// (chain_scan.cu) scans the block and looks back with a whole warp
-// (look_back_warp, in the manner of CUB's decoupled look-back): 32
-// predecessors' words in one step, a ballot for the nearest inclusive
-// prefix, a warp sum of the words after it, so a launch of 256 blocks
-// waits at most 8 steps where the one-thread form may take 255.
+// The look-back is warp-wide (look_back_warp, in the manner of CUB's
+// decoupled look-back): 32 predecessors' words in one step, a ballot for
+// the nearest inclusive prefix, a warp sum of the words after it, so a
+// launch of 256 blocks waits at most 8 steps where a one-thread walk,
+// one status word a round trip, may take 255.  scan_blocks scans the block
+// and looks back with it.
 //
 // Device code only; the host loops of both sources scan with running sums.
 
@@ -30,39 +29,6 @@
 namespace lookback {
 
 constexpr unsigned long long kAggregate = 1, kInclusive = 2;
-
-// Exclusive scan of x over a block of kWarps warps; *total gets the
-// block's sum.  (tot: kWarps + 1 ints of shared memory; every thread
-// must call.)
-template <int kWarps>
-__device__ __forceinline__ int block_excl_scan(int x, int* tot, int* total) {
-  static_assert(kWarps >= 1 && kWarps <= 32, "a block of 1 to 32 warps");
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int inc = x;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xFFFFFFFFu, inc, d);
-    if (lane >= d) inc += y;
-  }
-  if (lane == 31) tot[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    const int t = lane < kWarps ? tot[lane] : 0;
-    int s = t;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xFFFFFFFFu, s, d);
-      if (lane >= d) s += y;
-    }
-    if (lane < kWarps) tot[lane] = s - t;
-    if (lane == 31) tot[kWarps] = s;
-  }
-  __syncthreads();
-  const int ex = tot[warp] + inc - x;
-  *total = tot[kWarps];
-  __syncthreads();
-  return ex;
-}
 
 // The block's ticket: blocks number themselves in the order they start.
 // The last one resets the counter for the next launch.
@@ -80,34 +46,6 @@ __device__ __forceinline__ unsigned long long lb_word(
     unsigned epoch, unsigned long long flag, int value) {
   return ((unsigned long long)(epoch & 0x3FFFFFFFu) << 34) | (flag << 32) |
          (unsigned)value;
-}
-
-// The sum of the values of the blocks with tickets before `ticket` (every
-// thread gets it), after publishing this block's `value` and then its
-// inclusive prefix in status[ticket].
-__device__ __forceinline__ int look_back(unsigned long long* status,
-                                         int ticket, int value,
-                                         unsigned epoch, int* shared) {
-  if (threadIdx.x == 0) {
-    int prefix = 0;
-    if (ticket > 0) {
-      atomicExch(status + ticket, lb_word(epoch, kAggregate, value));
-      for (int j = ticket - 1;;) {
-        const unsigned long long s =
-            *reinterpret_cast<volatile unsigned long long*>(status + j);
-        const unsigned long long flag = (s >> 32) & 3u;
-        if ((unsigned)(s >> 34) != (epoch & 0x3FFFFFFFu) || flag == 0)
-          continue;                     // not published yet this round
-        prefix += (int)(unsigned)s;
-        if (flag == kInclusive) break;
-        --j;
-      }
-    }
-    atomicExch(status + ticket, lb_word(epoch, kInclusive, prefix + value));
-    *shared = prefix;
-  }
-  __syncthreads();
-  return *shared;
 }
 
 // The warp-wide look-back (every lane of one warp calls it): publish this

@@ -10,33 +10,36 @@
 // sort in the JAX package), the representatives' walk stays
 // fm_chain_walk_kernel (csrc/fm_walk.cu).  One round:
 //
-// walk_key_kernel<T>         one thread a lane
+// walk_key_kernel<T>         one thread a lane (and a representative)
 //   Replaces JAX seedscan.py:633-645 (port seedscan.py _walk_key_plain).
 //   The lane's window word (the W chars below its position, packed 3
 //   bits each; all 4s before the read), the 32-bit mix of (window, k, s)
 //   in native uint32 arithmetic and the sort key: mix >> 1 for a live
 //   lane, INT32_MAX else.  It also counts the round (the group scan's
-//   epoch), zeroes the live count and sets the group minima to T's max.
+//   epoch), zeroes the live count, sets the group minima to T's max and
+//   writes every representative j < Uw as the plain step leaves a pad
+//   (lane 0's window, k, l and s, not valid: the zero-filled rep_take),
+//   lane 0's words read beside the lane's own; the group kernel then
+//   overwrites only the heads j < n_w.
 // (torch.sort of the keys, stable: the lanes in key order)
 // walk_group_kernel<T>       one thread a sorted position
 //   Replaces JAX :646-670 (_walk_group_plain).  Group heads over the
 //   sorted lanes (a live lane whose (window, k, s) differs from its sorted
-//   predecessor's, live or not), their exclusive scan in sorted order (a
-//   block scan, then a decoupled look-back across blocks), each lane's
-//   group index, and the first Uw heads' representatives (window, k, l, s,
-//   valid) written by the head's own thread: a snapshot, since the
-//   apply kernel rewrites the lanes in place.  The group minimum of
-//   min_hits (the plain step's segment min over the clamped group index
-//   of mh for a live lane below Uw, INT32_MAX for any other) by a
-//   segmented min over each warp's run of equal groups, then one
-//   atomicMin a run: a group is a contiguous run in sorted order and an
-//   integer min does not depend on order, so it is exact.  The last block
-//   writes n_u and n_w = min(n_u, Uw), adds n_w to ngrp, and fills the
-//   representatives past n_w with lane 0 (not valid), as the plain step's
-//   zero-filled rep_take leaves them.
+//   predecessor's, live or not), their exclusive scan in sorted order
+//   (lookback.cuh::scan_blocks: a block scan, then a warp-wide look-back
+//   across blocks), each lane's group index, and the first Uw heads'
+//   representatives (window, k, l, s, valid) written by the head's own
+//   thread: a snapshot, since the apply kernel rewrites the lanes in
+//   place.  The group minimum of min_hits (the plain step's segment min
+//   over the clamped group index of mh for a live lane below Uw,
+//   INT32_MAX for any other) by a segmented min over each warp's run of
+//   equal groups, then one atomicMin a run: a group is a contiguous run in
+//   sorted order and an integer min does not depend on order, so it is
+//   exact.  The last block writes n_u and n_w = min(n_u, Uw) and adds n_w
+//   to ngrp.
 // (fm_chain_walk_kernel on the representatives, stopping at each group's
 // minimum)
-// walk_apply_kernel<T>       one thread a lane (and a representative)
+// walk_apply_kernel<T, W>    one thread a lane (and a representative)
 //   Replaces JAX :682-720 (_walk_apply_plain).  A live lane whose group is
 //   walked reads the group's W chain states, re-bases l by its offset from
 //   the representative's l (the snapshot), finds the first step that kills
@@ -45,7 +48,7 @@
 //   a survivor takes the chain's last state and moves W chars down.  A
 //   lane of another group waits a round unchanged.  Representative j adds
 //   its walk's length to calls when valid; the live count after the round
-//   (warp sums, one atomic a warp) is what the host reads for liveness.
+//   is what the host reads for liveness.
 //
 // T is the index type, int32_t or int64_t (fm.dtype): intervals and the
 // pool's fk, fl, fs are T, and interval arithmetic wraps in T as the
@@ -56,12 +59,38 @@
 // (a few words), its window word and its key, per walked lane its group's
 // chain (3 W words, L2-resident: a group's members read the same row),
 // per death four words of its pool row; a few MB at most, about a
-// microsecond at 3.35 TB/s.  What decides is latency: every lane's work
-// starts with a dependent gather (rid and i, then the window; sorted
-// position, then the lane).  The design keeps a round to four launches of
-// its own (the walk's included), one pass over the lanes each on every SM,
-// and writes the pool rows in place (the plain round copies the four
-// pool-long columns at every scatter).
+// microsecond at 3.35 TB/s.  What decides is, in a narrow round, latency:
+// a launch, the dependent round trips to memory of a thread, the scan
+// across blocks, any work that one block does alone; in a wide one, the
+// L2 sectors of the gathers: the group reads its lanes in key order and
+// the apply its groups' rows in lane order, so each word read is a
+// 32-byte sector of its own (a 393,216-lane round: ~4 TB/s of them, five
+// times the bytes' bound).  The design cuts each:
+//   - the group: a block takes its sorted positions from its block index
+//     and issues their order entries (p and p - 1) beside its ticket's
+//     atomic, loading them again only when the ticket differs; then every
+//     word of its head test at once (alive, window, k, s of the lane; its
+//     predecessor's window, k and s, shuffled from the thread before),
+//     none behind a test; then the scan (scan_blocks: 32 status words a
+//     step, where a one-thread look-back walked one a round trip, over the
+//     1,536 blocks of a 393,216-lane round); then l and mh only where a
+//     representative or a group minimum takes them.
+//   - no one-block tail: the pads past n_w, which the last group block
+//     wrote alone (up to Uw - n_w of 196,608 in a width's later rounds),
+//     are written by the key kernel, a thread each.
+//   - the apply: W is a template parameter (launch_apply picks it), so the
+//     column loops have fixed trip counts and the s row stays in
+//     registers; a lane reads its alive and group index, then its state and
+//     its death test's inputs (length, rep l and the cs row as 16-byte loads
+//     where a row allows) in one level, then the k and l words of the
+//     column it keeps, if any (reading the ck and cl rows beside the cs row
+//     paid two sectors for every lane that dies at its first step, most of
+//     the deaths, and was slower at every width but one block); calls and
+//     the live count are summed over the block, one atomic each a block of
+//     256 (blocks of 64 and 128 were slower in a chunk).
+// A round is four launches of its own (the walk's included), one pass over
+// the lanes each on every SM, and writes the pool rows in place (the plain
+// round copies the four pool-long columns at every scatter).
 //
 // The launchers take the arguments as one array of 64-bit words, the
 // struct Args below (ops/walk_cuda.py::ARGS names them in order); they
@@ -80,8 +109,10 @@
 
 #include "lookback.cuh"
 #define WC_HD __host__ __device__ __forceinline__
+#define WC_UNROLL _Pragma("unroll")
 #else
 #define WC_HD inline
+#define WC_UNROLL
 #endif
 
 namespace {
@@ -179,29 +210,70 @@ WC_HD uint32_t walk_mix(long long rw, int64_t k, int64_t s) {
   return (m ^ (m >> 15)) * kMixF;
 }
 
-// Typed views of the arguments.
+// The vector a row load moves at once: kBytes (16, 8 or 4).
+template <int kBytes>
+struct Vec;
+#ifdef __CUDACC__
+template <>
+struct Vec<16> {
+  using type = uint4;
+};
+template <>
+struct Vec<8> {
+  using type = uint2;
+};
+template <>
+struct Vec<4> {
+  using type = unsigned;
+};
+#endif
+
+// A chain row of kW words of T (row kW * sizeof(T) bytes into an array
+// aligned to 16 bytes): on the card as the widest vectors the row's size
+// allows, 16 bytes where it is a multiple of 16.
+template <typename T, int kW>
+WC_HD void load_row(const T* row, T (&out)[kW]) {
+#ifdef __CUDA_ARCH__
+  constexpr int kBytes = kW * (int)sizeof(T);
+  constexpr int kVec = kBytes % 16 == 0 ? 16 : (kBytes % 8 == 0 ? 8 : 4);
+  using V = typename Vec<kVec>::type;
+  V x[kBytes / kVec];
+  const V* p = reinterpret_cast<const V*>(row);
+  WC_UNROLL
+  for (int q = 0; q < kBytes / kVec; ++q) x[q] = p[q];
+  const T* t = reinterpret_cast<const T*>(x);
+  WC_UNROLL
+  for (int c = 0; c < kW; ++c) out[c] = t[c];
+#else
+  for (int c = 0; c < kW; ++c) out[c] = row[c];
+#endif
+}
+
+// Typed views of the arguments.  Within a launch no two of them share
+// memory (__restrict__); an array a kernel writes is written at indices
+// that no other thread of that kernel reads.
 template <typename T>
 struct View {
-  T *k, *l, *s;
-  int32_t *rid, *i, *slot;
-  const T* mh;
-  uint8_t* alive;
-  const long long* rwflat;
-  int32_t* death;
-  T *fk, *fl, *fs;
-  int32_t* ctr;
-  long long* rw;
-  int32_t* key;
-  const long long* order;
-  int32_t* gidx;
-  long long* rep_rw;
-  T *rep_k, *rep_l, *rep_s;
-  uint8_t* rep_valid;
-  T* gmin;
-  const T *ck, *cl, *cs;
-  const int32_t* ln;
-  unsigned long long* lb_group;
-  int32_t* sc;
+  T *__restrict__ k, *__restrict__ l, *__restrict__ s;
+  int32_t *__restrict__ rid, *__restrict__ i, *__restrict__ slot;
+  const T* __restrict__ mh;
+  uint8_t* __restrict__ alive;
+  const long long* __restrict__ rwflat;
+  int32_t* __restrict__ death;
+  T *__restrict__ fk, *__restrict__ fl, *__restrict__ fs;
+  int32_t* __restrict__ ctr;
+  long long* __restrict__ rw;
+  int32_t* __restrict__ key;
+  const long long* __restrict__ order;
+  int32_t* __restrict__ gidx;
+  long long* __restrict__ rep_rw;
+  T *__restrict__ rep_k, *__restrict__ rep_l, *__restrict__ rep_s;
+  uint8_t* __restrict__ rep_valid;
+  T* __restrict__ gmin;
+  const T *__restrict__ ck, *__restrict__ cl, *__restrict__ cs;
+  const int32_t* __restrict__ ln;
+  unsigned long long* __restrict__ lb_group;
+  int32_t* __restrict__ sc;
 
   WC_HD explicit View(const Args& a)
       : k((T*)a.k),
@@ -239,137 +311,239 @@ struct View {
 // ---------------------------------------------------------------------------
 // The lane routines, shared by the kernels and the host loops.
 
-// Key: lane j's window word and sort key.
+// The window word of a lane of read rid at position i: the W chars below
+// it, all4 before the read.
 template <typename T>
-WC_HD void key_lane(const View<T>& v, const Args& a, long long j) {
-  const int i = v.i[j];
-  long long rw = a.all4;
-  if (i >= 0)
-    rw = v.rwflat[clampll((long long)v.rid[j] * a.L + clampll(i, 0, a.L - 1),
-                          0, a.n_rw - 1)];
-  v.rw[j] = rw;
-  v.key[j] = v.alive[j]
-                 ? (int32_t)(walk_mix(rw, (int64_t)v.k[j], (int64_t)v.s[j]) >>
-                             1)
-                 : kI32Max;
+WC_HD long long window_of(const View<T>& v, const Args& a, int rid, int i) {
+  if (i < 0) return a.all4;
+  return v.rwflat[clampll((long long)rid * a.L + clampll(i, 0, a.L - 1), 0,
+                          a.n_rw - 1)];
 }
 
-// Whether sorted position p (lane o) heads a group: a live lane whose
-// (window, k, s) differs from its sorted predecessor's, whether or not
-// that one lives (position 0 always does).
+// Representative j's inputs (valid: it walks).
 template <typename T>
-WC_HD bool group_head(const View<T>& v, long long p, long long o) {
-  if (!v.alive[o]) return false;
-  if (p == 0) return true;
-  const long long q = v.order[p - 1];
-  return v.rw[o] != v.rw[q] || v.k[o] != v.k[q] || v.s[o] != v.s[q];
-}
-
-// Representative j's snapshot of lane o (valid: it walks).
-template <typename T>
-WC_HD void rep_write(const View<T>& v, long long j, long long o,
-                     bool valid) {
-  v.rep_rw[j] = v.rw[o];
-  v.rep_k[j] = v.k[o];
-  v.rep_l[j] = v.l[o];
-  v.rep_s[j] = v.s[o];
+WC_HD void rep_write(const View<T>& v, long long j, long long rw, T k, T l,
+                     T s, bool valid) {
+  v.rep_rw[j] = rw;
+  v.rep_k[j] = k;
+  v.rep_l[j] = l;
+  v.rep_s[j] = s;
   v.rep_valid[j] = valid ? 1 : 0;
 }
 
-// Sorted position p (lane o) has group index g (the inclusive count of
-// heads up to p, minus 1); a head below Uw is representative g.  Returns
-// its term of its group slot's minimum: mh for a live lane below Uw,
-// INT32_MAX for any other.
+// Key: lane j's window word and sort key (j < w); for j < Uw also its
+// group minimum reset and representative j as the plain step leaves a pad
+// past n_w: lane 0's window, k, l and s, not valid (the group kernel
+// overwrites the heads j < n_w).  Lane 0's words are read beside lane
+// j's, a level at a time.
 template <typename T>
-WC_HD T group_emit(const View<T>& v, const Args& a, long long o, int g,
-                   bool head) {
-  v.gidx[o] = g;
-  if (head && g < a.Uw) rep_write(v, g, o, true);
-  return v.alive[o] && g < a.Uw ? v.mh[o] : (T)kI32Max;
+WC_HD void key_lane(const View<T>& v, const Args& a, long long j) {
+  const bool lane = j < a.w, pad = j < a.Uw;
+  int rid = 0, i = -1, rid_z = 0, i_z = -1;
+  bool alive = false;
+  T k = 0, s = 0, k_z = 0, l_z = 0, s_z = 0;
+  if (lane) {
+    rid = v.rid[j];
+    i = v.i[j];
+    alive = v.alive[j] != 0;
+    k = v.k[j];
+    s = v.s[j];
+  }
+  if (pad) {
+    rid_z = v.rid[0];
+    i_z = v.i[0];
+    k_z = v.k[0];
+    l_z = v.l[0];
+    s_z = v.s[0];
+  }
+  const long long rw = window_of(v, a, rid, i);
+  const long long rw_z = window_of(v, a, rid_z, i_z);
+  if (lane) {
+    v.rw[j] = rw;
+    v.key[j] = alive ? (int32_t)(walk_mix(rw, (int64_t)k, (int64_t)s) >> 1)
+                     : kI32Max;
+  }
+  if (pad) {
+    v.gmin[j] = max_of<T>();
+    rep_write(v, j, rw_z, k_z, l_z, s_z, false);
+  }
+}
+
+// What the group reads of sorted position p: lane o there and lane q at
+// p - 1 (first level), then o's alive, window, k and s and q's window, k
+// and s (second level); whether p heads a group (a live lane whose
+// (window, k, s) differs from its sorted predecessor's, whether or not
+// that one lives; position 0 always does).  Both lanes are read whatever
+// o's alive says, so that no load waits on a test.  The lanes lie in key
+// order, so each word a thread reads is an L2 sector of its own, and the
+// sectors, not the words or the levels, are what a wide round pays for:
+// on the card q's words are the words the thread before read for its own
+// lane, passed on by a shuffle (only a warp's first thread reads them),
+// and o's l and mh are read at the emission, only where they are needed.
+template <typename T>
+struct GroupIn {
+  long long o, q, rw;
+  T k, s;
+  bool alive, head;
+};
+
+template <typename T>
+WC_HD void group_order(const View<T>& v, const Args& a, long long p,
+                       GroupIn<T>& g) {
+  g.o = g.q = 0;
+  if (p < a.w) {
+    g.o = v.order[p];
+    g.q = v.order[p > 0 ? p - 1 : 0];
+  }
+}
+
+// (every thread of a warp must call it on the card)
+template <typename T>
+WC_HD void group_read(const View<T>& v, const Args& a, long long p,
+                      GroupIn<T>& g) {
+  const bool in = p < a.w;
+  const long long o = g.o, q = g.q;
+#ifdef __CUDA_ARCH__
+  const bool first = (threadIdx.x & 31) == 0;
+#else
+  const bool first = true;
+#endif
+  long long qrw = 0;
+  T qk = 0, qs = 0;
+  if (in && first) {
+    qrw = v.rw[q];
+    qk = v.k[q];
+    qs = v.s[q];
+  }
+  g.alive = false;
+  g.rw = 0;
+  g.k = g.s = 0;
+  if (in) {
+    g.alive = v.alive[o] != 0;
+    g.rw = v.rw[o];
+    g.k = v.k[o];
+    g.s = v.s[o];
+  }
+#ifdef __CUDA_ARCH__
+  const long long urw = __shfl_up_sync(0xFFFFFFFFu, g.rw, 1);
+  const T uk = __shfl_up_sync(0xFFFFFFFFu, g.k, 1);
+  const T us = __shfl_up_sync(0xFFFFFFFFu, g.s, 1);
+  if (!first) {
+    qrw = urw;
+    qk = uk;
+    qs = us;
+  }
+#endif
+  g.head = in && g.alive &&
+           (p == 0 || g.rw != qrw || g.k != qk || g.s != qs);
+}
+
+// Sorted position p (lane o) has group index gi (the inclusive count of
+// heads up to p, minus 1); a head below Uw is representative gi (o's l
+// read here).  Returns its term of its group slot's minimum: mh for a
+// live lane below Uw (read here), INT32_MAX for any other.
+template <typename T>
+WC_HD T group_emit(const View<T>& v, const Args& a, const GroupIn<T>& g,
+                   int gi) {
+  const bool member = g.alive && gi < a.Uw;
+  T l = 0, mh = (T)kI32Max;
+  if (g.head && gi < a.Uw) l = v.l[g.o];
+  if (member) mh = v.mh[g.o];
+  v.gidx[g.o] = gi;
+  if (g.head && gi < a.Uw) rep_write(v, gi, g.rw, g.k, l, g.s, true);
+  return mh;
 }
 
 // After the scan: n_u heads, n_w = min(n_u, Uw) representatives, ngrp
-// moved on; representatives n_w.. read lane 0 and do not walk.  Thread
-// `first` of `step` threads fills the pads.
+// moved on (the pads past n_w are the key kernel's).
 template <typename T>
-WC_HD void group_close(const View<T>& v, const Args& a, int n_u, int first,
-                       int step) {
+WC_HD void group_close(const View<T>& v, const Args& a, int n_u) {
   const int n_w = n_u < a.Uw ? n_u : (int)a.Uw;
-  if (first == 0) {
-    v.sc[kScNw] = n_w;
-    v.sc[kScNu] = n_u;
-    v.ctr[1] += n_w;
-  }
-  for (long long j = n_w + first; j < a.Uw; j += step)
-    rep_write(v, j, 0, false);
+  v.sc[kScNw] = n_w;
+  v.sc[kScNu] = n_u;
+  v.ctr[1] += n_w;
 }
 
-// Apply lane j: a live lane of a walked group consumes the group's chain
-// and dies (its pool row written) or goes W chars on.  Returns whether
-// it lives after the round.  The death test reads the chain's s column;
-// the state it keeps is one column of the chain (L2-resident: the
-// group's members read the same row), read once it is known.
-template <typename T>
-WC_HD int apply_lane(const View<T>& v, const Args& a, long long j, int n_w) {
-  if (!v.alive[j]) return 0;
+// Apply lane j (and representative j): returns whether the lane lives
+// after the round; *calls gets representative j's extensions (its walk's
+// length when valid).  First level: representative j's length and
+// validity, the lane's alive and group index.  A live lane of a walked
+// group then reads its state and what its death test needs of its
+// group's chain at once (second level: the walk's length, the
+// representative's l, the cs row), and only a lane that keeps a chain
+// column (one that dies after its first step, or goes through) reads
+// that column's k and l words (third level): most deaths come at the
+// first step and keep the lane's own state, so their ck and cl sectors
+// are never fetched.  It dies (its pool row written) or goes kW chars
+// on.
+template <typename T, int kW>
+WC_HD int apply_lane(const View<T>& v, const Args& a, long long j, int n_w,
+                     int* calls) {
+  *calls = 0;
+  if (j < a.Uw) {
+    const int ln = v.ln[j];
+    if (v.rep_valid[j]) *calls = ln;
+  }
+  if (j >= a.w) return 0;
+  const bool alive = v.alive[j] != 0;
   const int g = v.gidx[j];
+  if (!alive) return 0;
   if (g >= n_w) return 1;                 // not walked: waits a round
-  const int W = (int)a.W;
   const long long grp = clampll(g, 0, a.Uw - 1);
-  const T* ck = v.ck + grp * W;
-  const T* cl = v.cl + grp * W;
-  const T* cs = v.cs + grp * W;
-  const T mh = v.mh[j];
+  const T k = v.k[j], l = v.l[j], s = v.s[j], mh = v.mh[j];
+  const int i = v.i[j];
+  const long long slot = v.slot[j];
   const int lng = v.ln[grp];
+  const T rl = v.rep_l[grp];
+  T CS[kW];
+  load_row<T, kW>(v.cs + grp * kW, CS);
   uint32_t die = 0;
-  for (int c = 0; c < W; ++c) {
+  WC_UNROLL
+  for (int c = 0; c < kW; ++c) {
     const bool real = c < lng;
-    const bool amb = c == lng && lng < W;
-    die |= (uint32_t)(amb || (real && cs[c] < mh)) << c;
+    const bool amb = c == lng && lng < kW;
+    die |= (uint32_t)(amb || (real && CS[c] < mh)) << c;
   }
   // l re-bases by the lane's offset from the representative's l
-  const T dl = wsub(v.l[j], v.rep_l[grp]);
+  const T dl = wsub(l, rl);
+  // the chain column the lane keeps: the one before its death (none when
+  // it dies at its first step), or the last; its k and l read only then
+  const int dj = die ? low_bit(die) : kW;
+  const int col = dj - 1;
+  T nK = k, nL = l, nS = s;
+  if (col >= 0) {
+    nK = v.ck[grp * kW + col];
+    nL = wadd(v.cl[grp * kW + col], dl);
+    WC_UNROLL
+    for (int c = 0; c < kW; ++c)
+      if (c == col) nS = CS[c];
+  }
   if (die) {
-    // the state at the death is the state before the killing step
-    const int dj = low_bit(die);
-    T dK = v.k[j], dL = v.l[j], dS = v.s[j];
-    if (dj > 0) {
-      dK = ck[dj - 1];
-      dL = wadd(cl[dj - 1], dl);
-      dS = cs[dj - 1];
-    }
-    const long long slot = v.slot[j];
     if (slot >= 0 && slot < a.GP) {
-      v.death[slot] = v.i[j] - dj;
-      v.fk[slot] = dK;
-      v.fl[slot] = dL;
-      v.fs[slot] = dS;
+      v.death[slot] = i - dj;
+      v.fk[slot] = nK;
+      v.fl[slot] = nL;
+      v.fs[slot] = nS;
     }
     v.alive[j] = 0;
     return 0;
   }
-  v.k[j] = ck[W - 1];
-  v.l[j] = wadd(cl[W - 1], dl);
-  v.s[j] = cs[W - 1];
-  v.i[j] -= W;
+  v.k[j] = nK;
+  v.l[j] = nL;
+  v.s[j] = nS;
+  v.i[j] = i - kW;
   return 1;
-}
-
-// Representative j's extensions for calls (its walk's length when valid).
-template <typename T>
-WC_HD int rep_calls(const View<T>& v, long long j) {
-  return v.rep_valid[j] ? v.ln[j] : 0;
 }
 
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
-// The kernels.
-constexpr int kBlock = 256;            // every kernel: a lane a thread
-constexpr int kWarps = kBlock / 32;
-using lookback::block_excl_scan;
-using lookback::look_back;
+// The kernels: a lane (a sorted position) a thread, blocks of
+// (ops/walk_cuda.py: KEY_BLOCK, GROUP_BLOCK, APPLY_BLOCK)
+constexpr int kKeyBlock = 256;         // the key
+constexpr int kGroupBlock = 256;       // the group
+constexpr int kApplyBlock = 256;       // the apply
+using lookback::scan_blocks;
 using lookback::take_ticket;
-using lookback::warp_add;
 
 __device__ __forceinline__ void atomic_min(int32_t* p, int32_t x) {
   atomicMin(p, x);
@@ -397,73 +571,112 @@ __device__ __forceinline__ void warp_run_min(T* dst, long long slot, T x,
     atomic_min(dst + slot, x);
 }
 
+// One atomic add each a block of the block's sums of x0 into *d0 and of
+// x1 into *d1, skipped when a sum is 0 (sh: 2 x kWarps ints of shared
+// memory; every thread must call).
+template <int kWarps>
+__device__ __forceinline__ void block_add2(int32_t* d0, int x0, int32_t* d1,
+                                           int x1, int (*sh)[kWarps]) {
+  const int s0 = __reduce_add_sync(0xFFFFFFFFu, x0);
+  const int s1 = __reduce_add_sync(0xFFFFFFFFu, x1);
+  if ((threadIdx.x & 31) == 0) {
+    sh[0][threadIdx.x >> 5] = s0;
+    sh[1][threadIdx.x >> 5] = s1;
+  }
+  __syncthreads();
+  if (threadIdx.x < 2) {
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += sh[threadIdx.x][w];
+    if (t) atomicAdd(threadIdx.x ? d1 : d0, t);
+  }
+}
+
 template <typename T>
-__global__ void __launch_bounds__(kBlock) walk_key_kernel(const Args a) {
+__global__ void __launch_bounds__(kKeyBlock) walk_key_kernel(const Args a) {
   const View<T> v(a);
-  const long long j = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const long long j = (long long)blockIdx.x * kKeyBlock + threadIdx.x;
   if (j == 0) {
     v.sc[kScEpoch] += 1;                        // a new round: its epoch
     v.sc[kScLive] = 0;
   }
-  if (j < a.Uw) v.gmin[j] = max_of<T>();
-  if (j < a.w) key_lane(v, a, j);
+  if (j < a.w || j < a.Uw) key_lane(v, a, j);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kBlock) walk_group_kernel(const Args a) {
-  __shared__ int tot[kWarps + 1];
-  __shared__ int ticket_s, prefix_s;
+__global__ void __launch_bounds__(kGroupBlock) walk_group_kernel(
+    const Args a) {
+  __shared__ int ticket_s, scan_s[34];
   const View<T> v(a);
-  const int n_blocks = (int)((a.w + kBlock - 1) / kBlock);
+  const int n_blocks = (int)((a.w + kGroupBlock - 1) / kGroupBlock);
   const unsigned epoch = (unsigned)v.sc[kScEpoch];
+  // the first level at the block index, beside the ticket's atomic
+  long long p = (long long)blockIdx.x * kGroupBlock + threadIdx.x;
+  GroupIn<T> g;
+  group_order(v, a, p, g);
   const int t = take_ticket(v.sc + kScTicket, n_blocks, &ticket_s);
-  const long long p = (long long)t * kBlock + threadIdx.x;
-  long long o = 0;
-  bool h = false;
-  if (p < a.w) {
-    o = v.order[p];
-    h = group_head(v, p, o);
+  if (t != (int)blockIdx.x) {
+    p = (long long)t * kGroupBlock + threadIdx.x;
+    group_order(v, a, p, g);
   }
-  int total;
-  const int ex = block_excl_scan<kWarps>(h, tot, &total);
-  const int prefix = look_back(v.lb_group, t, total, epoch, &prefix_s);
+  group_read(v, a, p, g);
+  int first, upto;
+  const int ex = scan_blocks<kGroupBlock / 32>(g.head, v.lb_group, t, epoch,
+                                               scan_s, &first, &upto);
   T term = max_of<T>();
   long long slot = a.Uw;                        // no slot
   if (p < a.w) {
-    const int g = prefix + ex + h - 1;
-    term = group_emit(v, a, o, g, h);
-    slot = clampll(g, 0, a.Uw - 1);
+    const int gi = ex + g.head - 1;
+    term = group_emit(v, a, g, gi);
+    slot = clampll(gi, 0, a.Uw - 1);
   }
   warp_run_min(v.gmin, slot, term, a.Uw);
-  if (t == n_blocks - 1) group_close(v, a, prefix + total, threadIdx.x,
-                                     kBlock);
+  if (t == n_blocks - 1 && threadIdx.x == 0) group_close(v, a, upto);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kBlock) walk_apply_kernel(const Args a) {
+// kW: the window width W.
+template <typename T, int kW>
+__global__ void __launch_bounds__(kApplyBlock) walk_apply_kernel(
+    const Args a) {
+  __shared__ int sums[2][kApplyBlock / 32];
   const View<T> v(a);
-  const long long j = (long long)blockIdx.x * kBlock + threadIdx.x;
+  const long long j = (long long)blockIdx.x * kApplyBlock + threadIdx.x;
   const int n_w = v.sc[kScNw];
-  const int calls = j < a.Uw ? rep_calls(v, j) : 0;
-  const int live = j < a.w ? apply_lane(v, a, j, n_w) : 0;
-  warp_add(v.ctr + 0, calls);
-  warp_add(v.sc + kScLive, live);
+  int calls;
+  const int live = apply_lane<T, kW>(v, a, j, n_w, &calls);
+  block_add2<kApplyBlock / 32>(v.ctr + 0, calls, v.sc + kScLive, live,
+                               sums);
 }
 
-long long blocks_for(long long n) { return (n + kBlock - 1) / kBlock; }
+long long blocks_for(long long n, int block) {
+  return (n + block - 1) / block;
+}
+
+// The apply kernel for the window width a.W (kW and up).
+template <typename T, int kW = 1>
+void launch_apply(const Args& a, cudaStream_t st) {
+  if constexpr (kW < kMaxW) {
+    if (a.W != kW) return launch_apply<T, kW + 1>(a, st);
+  }
+  const long long wide = a.w > a.Uw ? a.w : a.Uw;
+  walk_apply_kernel<T, kW>
+      <<<blocks_for(wide, kApplyBlock), kApplyBlock, 0, st>>>(a);
+}
 
 template <typename T>
 int launch(int which, const Args& a, cudaStream_t st) {
-  const long long wide = blocks_for(a.w > a.Uw ? a.w : a.Uw);
+  const long long wide = a.w > a.Uw ? a.w : a.Uw;
   switch (which) {
     case 0:
-      walk_key_kernel<T><<<wide, kBlock, 0, st>>>(a);
+      walk_key_kernel<T>
+          <<<blocks_for(wide, kKeyBlock), kKeyBlock, 0, st>>>(a);
       break;
     case 1:
-      walk_group_kernel<T><<<blocks_for(a.w), kBlock, 0, st>>>(a);
+      walk_group_kernel<T>
+          <<<blocks_for(a.w, kGroupBlock), kGroupBlock, 0, st>>>(a);
       break;
     default:
-      walk_apply_kernel<T><<<wide, kBlock, 0, st>>>(a);
+      launch_apply<T>(a, st);
   }
   return (int)cudaGetLastError();
 }
@@ -475,6 +688,8 @@ int launch_any(int which, const long long* words, void* stream) {
   if (a.W < 1 || a.W > kMaxW || a.Uw < 1 || a.w >= INT32_MAX ||
       a.Uw >= INT32_MAX || a.n_rw < 1)
     return (int)cudaErrorInvalidValue;
+  // the apply reads the chain's s rows as vectors of up to 16 bytes
+  if (which == 2 && (a.cs & 15)) return (int)cudaErrorMisalignedAddress;
   return a.idx64 ? launch<int64_t>(which, a, (cudaStream_t)stream)
                  : launch<int32_t>(which, a, (cudaStream_t)stream);
 }
@@ -487,32 +702,41 @@ void host_key(const Args& a) {
   const View<T> v(a);
   v.sc[kScEpoch] += 1;
   v.sc[kScLive] = 0;
-  for (long long j = 0; j < a.Uw; ++j) v.gmin[j] = max_of<T>();
-  for (long long j = 0; j < a.w; ++j) key_lane(v, a, j);
+  const long long wide = a.w > a.Uw ? a.w : a.Uw;
+  for (long long j = 0; j < wide; ++j) key_lane(v, a, j);
 }
 
 template <typename T>
 void host_group(const Args& a) {
   const View<T> v(a);
-  int g = -1;
+  int n = 0;
   for (long long p = 0; p < a.w; ++p) {
-    const long long o = v.order[p];
-    const bool h = group_head(v, p, o);
-    g += h;
-    const T term = group_emit(v, a, o, g, h);
-    T* m = v.gmin + clampll(g, 0, a.Uw - 1);
+    GroupIn<T> g;
+    group_order(v, a, p, g);
+    group_read(v, a, p, g);
+    n += g.head;
+    const T term = group_emit(v, a, g, n - 1);
+    T* m = v.gmin + clampll(n - 1, 0, a.Uw - 1);
     if (term < *m) *m = term;
   }
-  group_close(v, a, g + 1, 0, 1);
+  group_close(v, a, n);
 }
 
-template <typename T>
+// The apply for the window width a.W (kW and up).
+template <typename T, int kW = 1>
 void host_apply(const Args& a) {
+  if constexpr (kW < kMaxW) {
+    if (a.W != kW) return host_apply<T, kW + 1>(a);
+  }
   const View<T> v(a);
   const int n_w = v.sc[kScNw];
+  const long long wide = a.w > a.Uw ? a.w : a.Uw;
   int calls = 0, live = 0;
-  for (long long j = 0; j < a.Uw; ++j) calls += rep_calls(v, j);
-  for (long long j = 0; j < a.w; ++j) live += apply_lane(v, a, j, n_w);
+  for (long long j = 0; j < wide; ++j) {
+    int c;
+    live += apply_lane<T, kW>(v, a, j, n_w, &c);
+    calls += c;
+  }
   v.ctr[0] += calls;
   v.sc[kScLive] += live;
 }

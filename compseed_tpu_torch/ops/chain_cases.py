@@ -61,7 +61,7 @@ class RoundCapture:
 
         def rnd(fm, c, st, *sizes_held):
             sizes = sizes_held[:-1]
-            key = (self.calls, self._width(st, sizes))
+            key = self.key(st, sizes)
             if key not in self.states and len(self.states) < self.limit:
                 self.states[key] = (fm, c, self._clone(st), *sizes)
             return self._round(fm, c, st, *sizes_held)
@@ -69,6 +69,10 @@ class RoundCapture:
         setattr(tss, entry, call)
         setattr(tss, kernels, rnd)
         return self
+
+    def key(self, st, sizes) -> tuple:
+        """A round's key among the states: (call, width)."""
+        return self.calls, self._width(st, sizes)
 
     def __exit__(self, *exc):
         entry, kernels = self._names

@@ -8,7 +8,10 @@ each walk_pool_chain call of the kernel path while a run goes through it
 such a state the forms a run rarely shows: two lanes whose keys collide
 while their (window, k, s) differ, a live lane whose key is INT32_MAX and
 one that follows a dead lane of the same (window, k, s); ``capped``
-gives a round fewer representatives than groups; ``steps_vs_plain`` runs
+gives a round fewer representatives than groups; ``narrow`` cuts one to
+its first lanes; ``padded`` leaves a quarter of its lanes alive and lets
+each lead a group; ``width`` walks it W chars a round; ``EveryRound``
+keeps the state before every round of a run; ``steps_vs_plain`` runs
 one round from a state through each kernel and through the plain steps
 (``seedscan._walk_key_plain`` and the rest), step by step, and returns
 each kernel's largest difference; ``round_work`` counts the bytes and
@@ -47,6 +50,20 @@ class RoundCapture(chain_cases.RoundCapture):
     def __init__(self, limit: int = 8):
         super().__init__(limit, "walk_pool_chain", "_walk_round_kernels",
                          clone_state, lambda st, sizes: st["k"].shape[0])
+
+
+class EveryRound(RoundCapture):
+    """RoundCapture keeping the state before every round (not only the
+    first of each width), numbered by call and by round within the call,
+    from 1: ``states[(call, round)]``."""
+
+    def __init__(self, limit: int = 64):
+        super().__init__(limit)
+        self._rounds = {}
+
+    def key(self, st, sizes) -> tuple:
+        r = self._rounds[self.calls] = self._rounds.get(self.calls, 0) + 1
+        return self.calls, r
 
 
 def mix_np(rw, k, s) -> np.ndarray:
@@ -145,11 +162,44 @@ def capped(case, Uw: int = 64):
     return fm, const, clone_state(st), Uw
 
 
-def steps_vs_plain(case) -> dict:
+def narrow(case, n: int):
+    """The same round cut to its first ``n`` lanes, n // 2
+    representatives."""
+    fm, const, st, _ = case
+    st = clone_state(st)
+    for k in tss.WALK_LANE_KEYS:
+        st[k] = st[k][:n].clone()
+    st["live"] = st["alive"].sum()
+    return fm, const, st, max(n // 2, 1)
+
+
+def padded(case, every: int = 4):
+    """The same round with every lane free to lead a group (Uw = w) and
+    only every ``every``-th lane alive, lanes 0-4 as they were (the forced
+    forms rewrite them): at most about w / every groups, so the pads past
+    n_w are most of the representatives."""
+    fm, const, st, _ = case
+    st = clone_state(st)
+    lanes = torch.arange(st["alive"].shape[0], device=st["alive"].device)
+    st["alive"] &= (lanes % every == 0) | (lanes < 5)
+    st["live"] = st["alive"].sum()
+    return fm, const, st, st["alive"].shape[0]
+
+
+def width(case, W: int):
+    """The same round walked W chars a round (the low W chars of each
+    window word): another width of the apply's chain rows."""
+    fm, const, st, Uw = case
+    return fm, dict(const, W=W), clone_state(st), Uw
+
+
+def steps_vs_plain(case, build=walk_cuda) -> dict:
     """One round from the case's state through each kernel and through its
     plain step, each kernel fed the sort of the plain keys: {kernel:
     max_abs_err over its outputs} (the group minima on the walked
-    representatives' rows), plus the round's data (``stats``)."""
+    representatives' rows), plus the round's data (``stats``).
+    ``build`` launches the kernels (``key``, ``group``, ``apply`` of a
+    ``WalkRound``): walk_cuda's own, or another build of the source."""
     fm, const, st0, Uw = case
     W = const["W"]
     ks, ps = clone_state(st0), clone_state(st0)
@@ -157,14 +207,14 @@ def steps_vs_plain(case) -> dict:
     sc = rd.scratch
     errs = {}
 
-    walk_cuda.key(rd)
+    build.key(rd)
     kr = tss._walk_key_plain(const, ps)
     errs["walk_key_kernel"] = max(max_err(sc["rw"], kr["rw"]),
                                   max_err(sc["key"], kr["key"]))
 
     order = torch.argsort(kr["key"], stable=True)
     sc["order"].copy_(order)
-    walk_cuda.group(rd)
+    build.group(rd)
     gr = tss._walk_group_plain(ps, kr, order, Uw)
     n_w = int(gr["n_w"])
     errs["walk_group_kernel"] = max(
@@ -180,7 +230,7 @@ def steps_vs_plain(case) -> dict:
                            gr["rep_s"], gr["rep_valid"], is_back=True,
                            stop_s=gr["gmin"])
     rd.set_walk(*walk)
-    walk_cuda.apply(rd)
+    build.apply(rd)
     ps2 = tss._walk_apply_plain(const, ps, gr, walk, Uw)
     errs["walk_apply_kernel"] = max(
         *(max_err(ks[n], ps2[n]) for n in tss.WALK_LANE_KEYS + _RESULTS),
@@ -227,14 +277,15 @@ def round_work(stats: dict, es: int, W: int) -> dict:
 
     key, per lane: alive, rid and i, and its window word and key
     written; per live lane: k and s; per lane at a position >= 0: its
-    window word read; per representative slot: the group minimum reset.
+    window word read; per representative slot: the group minimum reset;
+    per pad (a representative past n_w, lane 0's): its five outputs
+    (window, k, l, s, valid).
     group, per sorted position: its order entry, alive, its group index
     written; window, k and s of each lane a head test reads (the live
     lanes and the lanes just before them in sorted order); mh of each
-    member below Uw; per representative slot its five outputs (window,
-    k, l, s, valid), and per walked representative its l read and its
-    minimum written.  apply, per lane: alive; per live lane: its
-    group index; per walked lane: its l, i and mh; per walked
+    member below Uw; per walked representative its five outputs, its l
+    read and its minimum written.  apply, per lane: alive; per live lane:
+    its group index; per walked lane: its l, i and mh; per walked
     representative: its length and l, and its chain's s column up to the
     last column a member tests (``cs_words`` in all), once however many
     lanes apply it; the k and l words of each distinct chain column a
@@ -249,10 +300,11 @@ def round_work(stats: dict, es: int, W: int) -> dict:
     the apply's 4 a lane and 12 + 8 W a walked lane."""
     w, Uw, live = stats["w"], stats["Uw"], stats["live"]
     n_w, walked = stats["n_w"], stats["walked"]
+    rep = 8 + 3 * es + 1                    # a representative's outputs
     key = w * (1 + 4 + 4) + live * 2 * es + stats["windows"] * 8 + \
-        w * (8 + 4) + Uw * es
+        w * (8 + 4) + Uw * es + (Uw - n_w) * rep
     group = w * (8 + 1 + 4) + stats["compared"] * (8 + 2 * es) + \
-        stats["members"] * es + Uw * (8 + 3 * es + 1) + n_w * 2 * es
+        stats["members"] * es + n_w * (rep + 2 * es)
     apply = w + live * 4 + walked * (2 * es + 4) + \
         n_w * (4 + es) + stats["cs_words"] * es + \
         stats["kept_cols"] * 2 * es + Uw + \

@@ -6,9 +6,10 @@
 ``seedscan._walk_round_kernels``: three hand-written kernels around one
 ``torch.sort`` and one ``fm_chain_walk_kernel`` launch,
 
-  ``key``   -> ``walk_key_kernel``    (window word, mix, sort key);
-  ``group`` -> ``walk_group_kernel``  (group heads, scan, representatives,
-               each group's smallest min_hits);
+  ``key``   -> ``walk_key_kernel``    (window word, mix, sort key; the
+               representatives past n_w, lane 0's);
+  ``group`` -> ``walk_group_kernel``  (group heads, scan, the heads'
+               representatives, each group's smallest min_hits);
   ``apply`` -> ``walk_apply_kernel``  (deaths to the pool rows, survivors
                W chars on, calls, the live count).
 
@@ -52,7 +53,10 @@ LANE_KEYS = ("k", "l", "s", "rid", "i", "mh", "slot", "alive")
 CALL_KEYS = ("death", "fk", "fl", "fs", "ctr")
 
 KERNELS = ("walk_key_kernel", "walk_group_kernel", "walk_apply_kernel")
-BLOCK = 256                 # threads a block of every kernel: a lane each
+# threads a block of the group and the apply kernel (csrc/walk_chain.cu:
+# kGroupBlock, kApplyBlock): a sorted position or a lane each
+GROUP_BLOCK = 256
+APPLY_BLOCK = 256
 SC_NW, SC_NU, SC_LIVE, SC_EPOCH = 0, 1, 2, 3    # words of ``sc``
 
 
@@ -120,8 +124,9 @@ class WalkRound(RoundArgs):
             return torch.empty(m, dtype=dtype, device=dev)
 
         # scratch, one set per segment; the sort writes sorted_key /
-        # order; the look-back words and sc start at zero
-        n_blocks = -(-n // BLOCK)
+        # order; the look-back words (one a group block) and sc start at
+        # zero
+        n_blocks = -(-n // GROUP_BLOCK)
         self.scratch = dict(
             rw=e(n, i64), key=e(n), sorted_key=e(n), order=e(n, i64),
             gidx=e(n), rep_rw=e(Uw, i64), rep_k=e(Uw, dt),

@@ -1072,6 +1072,59 @@ def test_walk_round_steps_vs_plain_on_card(dev, bench, dtype):
     assert deferred >= len(cap.states) and forced >= 2
 
 
+_WALK_R1 = {}
+
+
+def _walk_round1(bench, dev, dtype):
+    """The state before round 1's first walk_pool_chain round (393,216
+    lanes) of the first bench chunk, once per dtype."""
+    from compseed_tpu_torch.ops import walk_cases
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    if dtype not in _WALK_R1:
+        fm, reads = bench
+        sd = DeviceSeeder(MemOptions(), fm, dev,
+                          dfi=_bench_index(bench, dev, dtype), dedup=True)
+        with walk_cases.RoundCapture(limit=16) as cap:
+            sd.run_flat(list(reads[:16384]))
+        torch.cuda.synchronize()
+        _WALK_R1[dtype] = cap.states[(1, 24 * 16384)]
+    return _WALK_R1[dtype]
+
+
+@pytest.mark.parametrize("form", ["wide", "ragged", "padded", "W5"])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_walk_round_scan_forms_on_card(dev, bench, dtype, form):
+    """Round 1's first walk_pool_chain round of the first bench chunk
+    through each kernel and its plain step, equal output by output (calls,
+    ngrp and the live count among them), each form also capped and
+    forced: as captured (393,216 lanes: 1,536 group blocks, so that the
+    warp-wide look-back takes many steps of 32 words), cut to a width that
+    is no multiple of a block's lanes, padded (Uw = w, a quarter of the
+    lanes alive: the pads, which the key kernel writes, are most of the
+    representatives) and walked 5 chars a round (chain rows of 20 and 40
+    bytes, read in 4- and 8-byte pieces)."""
+    from compseed_tpu_torch.ops import walk_cases, walk_cuda
+    case = _walk_round1(bench, dev, dtype)
+    w = case[2]["k"].shape[0]
+    c = {"wide": lambda: case,
+         "ragged": lambda: walk_cases.narrow(case, w - 333),
+         "padded": lambda: walk_cases.padded(case),
+         "W5": lambda: walk_cases.width(case, 5)}[form]()
+    for i, c2 in enumerate((c, walk_cases.capped(c), walk_cases.forced(c))):
+        errs = walk_cases.steps_vs_plain(c2)
+        stats = errs.pop("stats")
+        assert errs == dict.fromkeys(walk_cuda.KERNELS, 0), (form, i, stats)
+        assert stats["w"] > 32 * walk_cuda.GROUP_BLOCK
+        assert stats["walked"] > 0 and stats["died"] > 0
+        if i == 1:
+            assert stats["n_u"] > stats["n_w"] == 64
+        if form == "ragged":
+            assert stats["w"] % walk_cuda.GROUP_BLOCK
+        if form == "padded" and i != 1:
+            assert stats["Uw"] - stats["n_w"] > 2 * stats["n_w"], stats
+
+
 def test_walk_pool_chain_from_worker_threads_on_card(dev, bench):
     """walk_pool_chain on cuda:0 from four worker threads side by side (the
     sharded path's rule): each equals the same call made alone."""

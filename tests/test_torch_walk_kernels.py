@@ -14,7 +14,11 @@ At step level, each kernel's host loop against its plain step on the
 captured rounds, in their own form, with more groups than representatives,
 and in the forced forms of ops/walk_cases.forced: two lanes whose keys
 collide while their (window, k, s) differ, a live lane whose key is
-INT32_MAX, and a live lane after a dead one of the same (window, k, s).
+INT32_MAX, and a live lane after a dead one of the same (window, k, s);
+also cut to a width that is no multiple of a block's lanes, padded (most
+representatives past n_w) and walked 5 chars a round (another width of
+the apply's chain rows), each also capped and forced; the pads past n_w
+come from the key kernel's host loop.
 
 Also: the native mix against the plain version's int64 emulation (bits.
 mul32); the caller's pool is never written; the Args layout the launchers
@@ -260,6 +264,82 @@ def test_captured_rounds_step_by_step(on_host, idx, reads, name):
         assert torch.equal(g, w)
 
 
+def _captured(idx, reads, name):
+    """The captured rounds of one case (the first of each width)."""
+    _, td = idx
+    pool = _pool(td, reads)
+    with walk_cases.RoundCapture() as cap:
+        _port(td, reads, pool, name)
+    return list(cap.states.values())
+
+
+def _form(rnd, form):
+    n = rnd[2]["k"].shape[0]
+    return {"ragged": lambda: walk_cases.narrow(rnd, n - 37),
+            "pads": lambda: walk_cases.padded(rnd),
+            "W5": lambda: walk_cases.width(rnd, 5)}[form]()
+
+
+@pytest.mark.parametrize("form", ["ragged", "pads", "W5"])
+@pytest.mark.parametrize("name", ["r1", "r2"])
+def test_captured_round_forms_step_by_step(on_host, idx, reads, name, form):
+    """Each kernel's host loop == its plain step on the captured rounds in
+    three more forms, each also capped and forced: cut to a width that is
+    no multiple of a block's lanes (the first w - 37 lanes), padded (Uw =
+    w, a quarter of the lanes alive: pads past n_w are most of the
+    representatives) and walked 5 chars a round."""
+    forced = 0
+    for rnd in _captured(idx, reads, name):
+        c = _form(rnd, form)
+        forms = [c, walk_cases.capped(c)]
+        if int(c[2]["alive"][:5].sum()) == 5:
+            forms.append(walk_cases.forced(c))
+            forced += 1
+        for i, c2 in enumerate(forms):
+            errs = walk_cases.steps_vs_plain(c2)
+            stats = errs.pop("stats")
+            assert errs == dict.fromkeys(walk_cuda.KERNELS, 0), (form, stats)
+            assert stats["walked"] > 0
+            if i == 1:
+                continue
+            if form == "ragged":
+                assert stats["w"] % walk_cuda.GROUP_BLOCK
+                assert stats["Uw"] == stats["w"] // 2
+            if form == "pads":
+                assert stats["Uw"] - stats["n_w"] > 2 * stats["n_w"], stats
+    assert forced > 0
+
+
+@pytest.mark.parametrize("name", ["r1", "r2"])
+def test_key_writes_the_plain_pads(on_host, idx, reads, name):
+    """The pads (representatives past n_w: lane 0's window, k, l and s,
+    not valid) come from the key kernel's host loop, every j < Uw, as
+    _walk_group_plain leaves them, with the group minima reset; the group
+    overwrites only the heads.  On the captured rounds, capped and
+    padded."""
+    for rnd in _captured(idx, reads, name):
+        wide = walk_cases.padded(rnd)
+        for c in (rnd, walk_cases.capped(rnd), wide):
+            fm, const, st, Uw = c
+            ks = walk_cases.clone_state(st)
+            rd = walk_cuda.WalkRound(fm, const, ks, Uw)
+            walk_cuda.key(rd)
+            ps = walk_cases.clone_state(st)
+            kr = tss._walk_key_plain(const, ps)
+            gr = tss._walk_group_plain(ps, kr, torch.argsort(
+                kr["key"], stable=True), Uw)
+            n_w = int(gr["n_w"])
+            assert n_w < Uw or c is not wide
+            sc = rd.scratch
+            for n in ("rep_rw", "rep_k", "rep_l", "rep_s", "rep_valid"):
+                got, want = sc[n].to(torch.int64), gr[n].to(torch.int64)
+                assert torch.equal(got[n_w:], want[n_w:]), n
+                assert (got == got[0]).all(), n        # all lane 0's
+            assert not sc["rep_valid"].any()
+            assert bool((sc["gmin"] == torch.iinfo(sc["gmin"].dtype).max)
+                        .all())
+
+
 def test_forced_forms_group_as_the_plain_step_says(on_host, idx, reads):
     """The forced round's groups: lanes 0 and 1 (equal keys, different
     (k, s)) head groups of their own; lane 3 (after the dead lane 2 of the
@@ -290,7 +370,10 @@ def test_forced_forms_group_as_the_plain_step_says(on_host, idx, reads):
 def test_round_work_counts_each_byte_once(es):
     """round_work's bytes (the kernels' bound) count distinct bytes: a dead
     lane costs the key kernel its alive, rid, i and outputs, and no k or
-    s; a lane before position 0 reads no window; a lane the apply leaves
+    s; a lane before position 0 reads no window; a pad (a representative
+    past n_w) costs the key kernel its five outputs and the group nothing,
+    a walked representative the group its five outputs, its l and its
+    minimum; a lane the apply leaves
     costs alive and group index; a walked lane adds its l, i and mh, not
     its group's chain, whose s words up to the last one tested and whose
     kept k and l columns count once however many lanes read them; a death
@@ -313,6 +396,11 @@ def test_round_work_counts_each_byte_once(es):
     assert delta("walk_group_kernel", w=1) == 8 + 1 + 4
     assert delta("walk_group_kernel", compared=1) == 8 + 2 * es
     assert delta("walk_group_kernel", members=1) == es
+    rep = 8 + 3 * es + 1
+    assert delta("walk_key_kernel", Uw=1) == es + rep
+    assert delta("walk_key_kernel", n_w=1) == -rep
+    assert delta("walk_group_kernel", Uw=1) == 0
+    assert delta("walk_group_kernel", n_w=1) == rep + 2 * es
     assert delta("walk_apply_kernel", w=1) == 1
     assert delta("walk_apply_kernel", live=1) == 4
     assert delta("walk_apply_kernel", walked=1, through=1) == \
@@ -409,6 +497,18 @@ def test_args_layout_matches_source(host):
               for f in decl.replace("long long", "").split(",")]
     assert tuple(fields) == walk_cuda.ARGS
     assert host.walk_args_words() == len(walk_cuda.ARGS)
+
+
+def test_block_sizes_match_source():
+    """ops/walk_cuda's GROUP_BLOCK and APPLY_BLOCK are the source's
+    kGroupBlock and kApplyBlock: WalkRound sizes the group's look-back
+    status words, one a group block, by GROUP_BLOCK, and too few would be
+    overrun without an error."""
+    src = open(walk_cuda.LIB.src).read()
+    for name, value in (("kGroupBlock", walk_cuda.GROUP_BLOCK),
+                        ("kApplyBlock", walk_cuda.APPLY_BLOCK)):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == value, name
 
 
 @pytest.mark.parametrize("bad", ["W=0", "W=11", "Uw=0", "n_rw=0"])
