@@ -115,10 +115,18 @@ Phases, in order; any failure exits non-zero:
                 window); each timed at round 1's widths (16,384, 4,096,
                 1,024) and at round 2's 65,536 (in a loop, replayed from
                 a CUDA graph; the plain steps in a loop) beside its
-                bound; every captured round shape and one block of round 1
-                through each build of the kernels (the port's; with
-                --chain-old-source also other sources), exact against
-                the plain steps, timed on the card alone in turns; round
+                bound; every captured round shape, one block of round 1
+                and round 1 padded through each build of the kernels (the
+                port's; with --chain-old-source also other sources),
+                exact against the plain steps, timed on the card alone in
+                turns, the probe also with L2 evicted before each
+                launch; with --chain-old-source every round of the first
+                chunk's three chain_scan calls (chain_cases.EveryRound:
+                each round's w, Uw, live) through each build, exact, the
+                probe timed there warm and cold on the card alone in
+                turns and by the profiler inside the chunk, and each
+                build's profiler means per launch over one chunk, in
+                turns; round
                 1's chain_scan with the kernels and with the plain round
                 in turns; the chunk's launches, syncs and
                 copies by stage (a chain_scan round and its sort,
@@ -211,13 +219,16 @@ the (n_rows, 12) int64 occ rows and whose walks read the packed table)
 that file is built too, and phase 4 times its extension and its walks
 against the port's in turns, handing its extension int64 rows unpacked
 from the packed table for those calls only.  With --chain-old-source
-FILE (another csrc/chain_scan.cu with the port's struct Args, such as the
-parent's: ``git show <commit>:compseed_tpu_torch/csrc/chain_scan.cu >
-FILE``; repeatable) each file is built too, with the port's csrc/ on the
-include path, and phase 4 holds its kernels to the plain steps on every
-captured round shape and one block and times them against the port's in
-turns.  --walk-old-source FILE (another csrc/walk_chain.cu with the
-port's struct Args, such as the parent's; repeatable) does the same for
+FILE (another csrc/chain_scan.cu whose struct Args is the port's or a
+prefix of it, such as the parent's: ``git show
+<commit>:compseed_tpu_torch/csrc/chain_scan.cu > FILE``; repeatable) each
+file is built too, with the port's csrc/ on the include path unless a
+lookback.cuh sits beside FILE, and phase 4 holds its kernels to the plain
+steps on every captured round shape, one block, round 1 padded and every
+round of the first chunk, times them against the port's in turns there
+and by the profiler over one chunk's seeding.  --walk-old-source FILE
+(another csrc/walk_chain.cu with the port's struct Args, such as the
+parent's; repeatable) does the same for
 the walk kernels, with the port's csrc/ on the include path unless a
 lookback.cuh sits beside FILE, on every round of the first chunk's two
 walk_pool_chain calls and their forms, and over one chunk's seeding by
@@ -301,6 +312,7 @@ FM_KERNELS = ("fm_extend_sel_kernel", "fm_chain_walk_kernel",
 # package's round body (make_body, XLA fusions, no Pallas) each replaces
 CHAIN_KERNELS = ("chain_probe_kernel", "chain_group_kernel",
                  "chain_apply_kernel")
+CHUNK_TURNS = 6             # chain_chunk_means' turns (each both orders)
 CHAIN_REPLACES = {
     "chain_probe_kernel": "compseed_tpu/ops/seedscan.py:1495-1520 "
                           "(chain_scan's probe; XLA fusion, no Pallas)",
@@ -451,13 +463,15 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
-def profile_chunk(run, sync) -> dict:
+def profile_chunk(run, sync, records=()) -> dict:
     """torch.profiler over one call of ``run`` (one chunk of seeding):
     the CUDA runtime calls that cost host time (launches, stream syncs,
     async copies) and the card's busy time, the union of the kernels' and
     copies' intervals on the device.  Also the wall time of the same call
     without the profiler, right after, and the mean device time per
-    launch of each FM, chain and walk kernel.
+    launch of each FM, chain and walk kernel; for each kernel of
+    ``records``, the device ms of each of its launches in the order they
+    ran (``records``).
     ``scripts/torch_seeding_ab.py --profile`` runs the same pass on other
     checkouts."""
     from torch.profiler import ProfilerActivity, profile
@@ -493,10 +507,15 @@ def profile_chunk(run, sync) -> dict:
     for r in kernel_ms.values():
         r["device_ms_per_launch"] = r.pop("device_us") / 1e3 / r["launches"]
     spans = []
+    recs = {k: [] for k in records}
     for e in prof.events():
         dt = str(getattr(e, "device_type", ""))
         if dt.endswith("CUDA") and e.time_range.end > e.time_range.start:
             spans.append((e.time_range.start, e.time_range.end))
+            for k in records:
+                if k in e.name:
+                    recs[k].append((e.time_range.start, (
+                        e.time_range.end - e.time_range.start) / 1e3))
     spans.sort()
     busy_us, end = 0.0, None
     for a, b in spans:
@@ -510,7 +529,9 @@ def profile_chunk(run, sync) -> dict:
                device_busy_s=busy_us / 1e6,
                busy_pct_of_wall=100.0 * busy_us / 1e6 / wall,
                busy_pct_of_profiled=100.0 * busy_us / 1e6 / wall_prof,
-               device_events=len(spans), kernels=kernel_ms)
+               device_events=len(spans), kernels=kernel_ms,
+               records={k: [ms for _, ms in sorted(v)]
+                        for k, v in recs.items()})
     return out
 
 
@@ -1439,14 +1460,16 @@ def chain_time(case, reps: int = 20) -> dict:
 class OldChainBuild:
     """The kernels of another csrc/chain_scan.cu (--chain-old-source: the
     parent's, or a variant), launched on a ChainRound's Args words: its
-    struct Args must be the port's (chain_cuda._bind checks its size).
-    Its look-back status words are the round's own, a word a block of
+    struct Args must be the port's or a prefix of it (chain_cuda._bind
+    checks its size; the parent's lacks the last word, the lanes' read
+    ids, and its launchers read only their own words).  Its look-back
+    status words are the round's own, a word a block of
     chain_cuda.APPLY_BLOCK lanes: enough for blocks of that many lanes or
     more."""
 
     def __init__(self, lib):
         from compseed_tpu_torch.ops import chain_cuda
-        chain_cuda._bind(lib)
+        chain_cuda._bind(lib, prefix=True)
         self.lib = lib
 
     def _run(self, launcher, rd):
@@ -1499,33 +1522,37 @@ def round_builds(sources, module, wrap) -> dict:
 
 
 def build_turns(what: str, builds: dict, cases: dict, kernels, check,
-                runs_of, reps: int = 20) -> dict:
+                runs_of, reps: int = 20, cold=(), flush=None) -> dict:
     """Every case (tag -> a captured round, or a form of one) through every
     build of a round source's kernels (``what``: "chain" or "walk"): held
     to the plain steps (``check(case, build)``: chain_cases or walk_cases
     ``steps_vs_plain``; max_abs_err per build and kernel, all must be 0),
-    then each kernel's ms per launch on the card alone (launch_ms on
-    ``runs_of(case, build)``, restores taken off) in turns, the builds in
-    order and then in reverse.  tag -> {stats: the round's data, build:
-    {max_abs_err, kernel: [ms, ...]}}."""
+    then each of ``kernels``' ms per launch on the card alone (launch_ms
+    on ``runs_of(case, build)``, restores taken off) in turns, the builds
+    in order and then in reverse; each of ``cold`` also after ``flush``
+    (an eviction of L2) every launch, as "<kernel> cold".  tag -> {stats:
+    the round's data, build: {max_abs_err, kernel: [ms, ...]}}."""
     order = list(builds) + list(builds)[::-1]
+    timed = [(k, None) for k in kernels] + [(k, flush) for k in cold]
     out = {}
     for tag, case in cases.items():
         rec = {}
         for b, build in builds.items():
             errs = check(case, build)
             rec["stats"] = errs.pop("stats")
-            rec[b] = dict(max_abs_err=errs, **{k: [] for k in kernels})
+            rec[b] = dict(max_abs_err=errs, **{
+                k if f is None else f"{k} cold": [] for k, f in timed})
             if any(errs.values()):
                 raise SystemExit(f"{what} build {b} disagrees with the plain "
                                  f"steps at {tag}: {errs} {rec['stats']}")
         for b in order:
             runs, rd, ks = runs_of(case, builds[b])
-            for k in kernels:
+            for k, f in timed:
                 run, restore = runs[k]
-                rec[b][k].append(launch_ms(run, reps) if restore is None else
-                                 launch_ms(lambda: (restore(), run()), reps)
-                                 - launch_ms(restore, reps))
+                rec[b][k if f is None else f"{k} cold"].append(
+                    launch_ms(run, reps, f) if restore is None else
+                    launch_ms(lambda: (restore(), run()), reps, f)
+                    - launch_ms(restore, reps, f))
             del runs, rd, ks
         out[tag] = rec
         log(f"[4] {what} builds in turns at {tag} (ms per launch on the card "
@@ -1730,7 +1757,8 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
     block through every build in turns (build_turns: ``builds``, the
     port's and any --chain-old-source); round 1's chain_scan with the
     kernels and the plain round in turns (chain_turns); the launches by
-    stage over one chunk (launch_split)."""
+    stage over one chunk (launch_split); with builds to compare, every
+    round of a chunk through each (probe_rounds)."""
     from compseed_tpu_torch.ops import chain_cases
     per_chunk = {k: l32[k] / ((RUNS + 1) * N_CHUNKS) for k in CHAIN_KERNELS}
     log(f"[4] chain kernel launches per {CHUNK}-read chunk (int32 window): "
@@ -1756,10 +1784,17 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
     shapes[f"floor w={FLOOR_LANES}"] = r = chain_time(floor)
     log(f"[4] chain kernels' latency floor (round 1's first {FLOOR_LANES} "
         f"lanes): {json.dumps(r)}")
+    flush = l2_flush(seeder.dfi.device)
     redesign = build_turns("chain", builds, dict(
         [(f"round {call} w={w}", c) for (call, w), c in sorted(cases.items())]
-        + [(f"floor w={FLOOR_LANES}", floor)]), CHAIN_KERNELS,
-        chain_cases.steps_vs_plain, chain_runs)
+        + [(f"floor w={FLOOR_LANES}", floor),
+           (f"padded w={CHUNK}", chain_cases.padded(cases[(1, CHUNK)]))]),
+        CHAIN_KERNELS, chain_cases.steps_vs_plain, chain_runs,
+        cold=("chain_probe_kernel",), flush=flush)
+    # every round of a chunk, for the builds to compare (--chain-old-source)
+    rounds = probe_rounds(builds, seeder, queries, flush) \
+        if len(builds) > 1 else {}
+    del flush
     turns = chain_turns(seeder, queries)
     log(f"[4] round 1's chain_scan, kernels and plain round in turns: "
         f"{json.dumps(turns)}")
@@ -1771,7 +1806,52 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
                          f"{split['launches_per_round']['chain_round']:.1f} "
                          f"launches, more than {MAX_CHAIN_ROUND_LAUNCHES}")
     return dict(launches_per_chunk=per_chunk, shapes=shapes, turns=turns,
-                split=split, redesign=redesign)
+                split=split, redesign=redesign, **rounds)
+
+
+def probe_rounds(builds: dict, seeder, queries, flush) -> dict:
+    """Every chain_scan round of one run of the first chunk's seeding
+    (chain_cases.EveryRound: the three calls' rounds), held to the plain
+    steps on every build, and the probe's ms per launch there three ways
+    a build: on the card alone, warm and with L2 evicted before every
+    launch (build_turns, in turns), and by the profiler inside the chunk
+    (chain_chunk_means' records, its k-th launch the k-th round; a mean
+    over the turns).  {"rounds": [{call, round, w, Uw, live, first (the
+    segment's first round), build: {warm, cold, chunk}}, ...],
+    "chunk_means": chain_chunk_means'}."""
+    import torch
+    from compseed_tpu_torch.ops import chain_cases
+    with chain_cases.EveryRound() as cap:
+        seeder.run_flat(queries)
+    torch.cuda.synchronize()
+    keys = sorted(cap.states)
+    if len(keys) >= cap.limit:
+        raise SystemExit(f"more than {cap.limit} chain_scan rounds in a "
+                         f"chunk: raise EveryRound's limit")
+    probe = ("chain_probe_kernel",)
+    turns = build_turns("chain", builds, {
+        f"call {c} round {r}": cap.states[(c, r)] for c, r in keys}, probe,
+        chain_cases.steps_vs_plain, chain_runs, cold=probe, flush=flush)
+    del cap
+    means = chain_chunk_means(builds, seeder, queries)
+    rows, seg = [], None
+    for n, (call, r) in enumerate(keys):
+        t = turns[f"call {call} round {r}"]
+        w = t["stats"]["w"]
+        first, seg = seg != (call, w), (call, w)
+        row = dict(call=call, round=r, w=w, Uw=t["stats"]["Uw"],
+                   live=t["stats"]["live"], first=first)
+        for b in builds:
+            chunk = [x["chain_probe_kernel"][n] for x in means[b]["records"]
+                     if len(x["chain_probe_kernel"]) == len(keys)]
+            row[b] = dict(warm=statistics.mean(t[b][probe[0]]),
+                          cold=statistics.mean(t[b][f"{probe[0]} cold"]),
+                          chunk=statistics.mean(chunk) if chunk else None)
+        rows.append(row)
+    log(f"[4] the chain probe at every round of one {CHUNK}-read chunk "
+        f"({len(keys)} rounds; ms per launch, warm and cold on the card "
+        f"alone, and inside the chunk): {json.dumps(rows)}")
+    return dict(rounds=rows, chunk_means=means)
 
 
 def chain_rows(chain_rec, l32, row, prof) -> list:
@@ -2048,41 +2128,67 @@ def walk_runs(case, build) -> tuple:
     return runs, rd, ks
 
 
-def walk_chunk_means(builds: dict, seeder, queries) -> dict:
-    """torch.profiler's mean device ms per launch of each walk kernel over
-    one run of the first chunk's seeding (profile_chunk), the walk rounds
-    on each build in turn (walk_cuda.key, group and apply pointed at the
-    build's for the run), the builds in order and then in reverse; every
-    build's seeds must equal the port's.  {build: {kernel: [ms, ...],
-    busy_ms: [...]}}."""
+def chunk_means(what: str, module, ops, kernels, builds: dict, seeder,
+                queries, records=(), turns: int = 1) -> dict:
+    """torch.profiler's mean device ms per launch of each of a round
+    source's kernels (``what``: "chain" or "walk") over one run of the
+    first chunk's seeding (profile_chunk), the rounds on each build in
+    turn (``module``'s wrappers ``ops``, such as chain_cuda.probe, group
+    and apply, pointed at the build's for the run), the builds in order
+    and then in reverse, ``turns`` times; every build's seeds must equal
+    the port's.
+    {build: {kernel: [ms, ...], busy_ms: [...], records: [{kernel: the
+    device ms of each launch in order (``records``)}, ...]}}."""
     import numpy as np
     import torch
-    from compseed_tpu_torch.ops import walk_cuda
-    order = list(builds) + list(builds)[::-1]
-    out = {b: dict({k: [] for k in WALK_KERNELS}, busy_ms=[])
+    order = (list(builds) + list(builds)[::-1]) * turns
+    out = {b: dict({k: [] for k in kernels}, busy_ms=[], records=[])
            for b in builds}
     want = seeder.run_flat(queries)
     for b in order:
         build = builds[b]
-        saved = walk_cuda.key, walk_cuda.group, walk_cuda.apply
-        walk_cuda.key, walk_cuda.group, walk_cuda.apply = \
-            build.key, build.group, build.apply
+        saved = [getattr(module, op) for op in ops]
+        for op in ops:
+            setattr(module, op, getattr(build, op))
         got = []
         try:
             prof = profile_chunk(lambda: got.append(seeder.run_flat(queries)),
-                                 torch.cuda.synchronize)
+                                 torch.cuda.synchronize, records)
         finally:
-            walk_cuda.key, walk_cuda.group, walk_cuda.apply = saved
+            for op, fn in zip(ops, saved):
+                setattr(module, op, fn)
         if not all(np.array_equal(x, y) for g in got
                    for x, y in zip(g, want)):
-            raise SystemExit(f"walk build {b}: the chunk's seeds differ from "
-                             f"the port's")
-        for k in WALK_KERNELS:
+            raise SystemExit(f"{what} build {b}: the chunk's seeds differ "
+                             f"from the port's")
+        for k in kernels:
             out[b][k].append(prof["kernels"][k]["device_ms_per_launch"])
         out[b]["busy_ms"].append(prof["device_busy_s"] * 1e3)
-    log(f"[4] walk builds' profiler means per launch over one {CHUNK}-read "
-        f"chunk, in turns: {json.dumps(out)}")
+        out[b]["records"].append(prof["records"])
+    shown = {b: {k: v for k, v in r.items() if k != "records"}
+             for b, r in out.items()}
+    log(f"[4] {what} builds' profiler means per launch over one {CHUNK}-read "
+        f"chunk, in turns: {json.dumps(shown)}")
     return out
+
+
+def walk_chunk_means(builds: dict, seeder, queries) -> dict:
+    """chunk_means of the walk kernels (walk_cuda.key, group, apply)."""
+    from compseed_tpu_torch.ops import walk_cuda
+    return chunk_means("walk", walk_cuda, ("key", "group", "apply"),
+                       WALK_KERNELS, builds, seeder, queries)
+
+
+def chain_chunk_means(builds: dict, seeder, queries,
+                      turns: int = CHUNK_TURNS) -> dict:
+    """chunk_means of the chain kernels (chain_cuda.probe, group, apply),
+    with the probe's device ms at every round of the chunk, in ``turns``
+    turns (a chunk's means differ by more from run to run than builds
+    that differ in one level of L2 hits)."""
+    from compseed_tpu_torch.ops import chain_cuda
+    return chunk_means("chain", chain_cuda, ("probe", "group", "apply"),
+                       CHAIN_KERNELS, builds, seeder, queries,
+                       records=("chain_probe_kernel",), turns=turns)
 
 
 def walk_rows(walk_rec, l32, row, prof) -> list:

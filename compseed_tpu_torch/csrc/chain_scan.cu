@@ -8,7 +8,7 @@
 // torch.sort (XLA's sort in the JAX package), the representatives' walk
 // stays fm_chain_walk_kernel (csrc/fm_walk.cu).  One round:
 //
-// chain_probe_kernel<T>      one thread a lane
+// chain_probe_kernel<T>      a thread a lane, blocks of kProbeBlock
 //   Replaces JAX seedscan.py:1495-1520 (port seedscan.py
 //   _chain_probe_plain).  The lane's W-char window from winflat, the
 //   slot hash in native uint64 arithmetic, one table row [window, l0,
@@ -18,7 +18,12 @@
 //   launched once per round, it counts the round (the epoch) and writes
 //   every representative j < Uw as the plain step leaves a pad (lane 0's
 //   window, k, l, s and slot, not valid), so that the group kernel only
-//   overwrites the heads: the pads' fill is spread over the grid.
+//   overwrites the heads: the pads' fill is spread over the grid.  A
+//   lane's read id, lane_rid0[lane0[i]], is the same in every round of a
+//   segment (only the compaction between segments writes lane0), so
+//   chain_scan carries it in a lane array of its own, lane_rid, which the
+//   compaction moves beside lane0 (the call's first segment: lane_rid0
+//   itself); the probe reads it beside the lane's own words.
 // (torch.sort of the keys, stable: the lanes in slot order)
 // chain_group_kernel<T>      one thread a sorted position
 //   Replaces JAX :1521-1563 (_chain_group_plain).  Group heads over the
@@ -64,6 +69,19 @@
 // what even one block pays: its dependent round trips to memory, its
 // scattered accesses through one SM's memory pipeline, and the scan
 // across blocks.  The design cuts each:
+//   - the probe: three dependent levels of loads where the first design
+//     waited on four (lane0, then lane_rid0, then the window word, then
+//     the table row): a lane's read id comes from lane_rid, which the
+//     segment's set-up fills, issued first, beside pos, l, s and alive
+//     (every round alike, so a CUDA graph of a segment's rounds needs no
+//     first round of its own); the table row's 16-byte loads go out as
+//     soon as the slot is known, before the stores of the window, the
+//     slot and the pad; thread 0 counts the epoch with a reduction it
+//     does not wait for.  In the chunk the table (2^21 rows at 16,384
+//     reads: 64 MB in int32) and the chain store do not fit in the 50 MB
+//     L2, so the row is a trip to device memory whatever the levels
+//     before it.  Blocks of 256: in the chunk 64, 128, 512 and 1,024
+//     threads were slower (PERF.md, the chain probe).
 //   - one level of loads at a time.  A block takes its lanes from its
 //     block index and issues their first loads beside its ticket's atomic
 //     (the ticket almost always equals the index; when it does not, the
@@ -155,6 +173,10 @@ struct Args {
   // sizes and modes
   long long w, Uw, W, L, H, M, GP, nq, r3, advance, min_len, max_intv,
       idx64;
+  // each lane's read id (w), lane_rid0[lane0[i]], which chain_scan
+  // carries through its compaction beside lane0; last, so that an
+  // earlier build of this source reads a prefix of the words
+  long long lane_rid;
 };
 
 template <typename T>
@@ -225,8 +247,8 @@ struct View {
   int32_t *__restrict__ lane0, *__restrict__ pivot, *__restrict__ pos;
   uint8_t* __restrict__ alive;
   T *__restrict__ k, *__restrict__ l, *__restrict__ s;
-  const int32_t *__restrict__ lane_rid0, *__restrict__ lane_rlen0,
-      *__restrict__ row_id0, *__restrict__ nxt;
+  const int32_t *__restrict__ lane_rid0, *__restrict__ lane_rid,
+      *__restrict__ lane_rlen0, *__restrict__ row_id0, *__restrict__ nxt;
   const T* __restrict__ mh0;
   const long long* __restrict__ winflat;
   const uint8_t* __restrict__ qflat;
@@ -257,6 +279,7 @@ struct View {
         l((T*)a.l),
         s((T*)a.s),
         lane_rid0((const int32_t*)a.lane_rid0),
+        lane_rid((const int32_t*)a.lane_rid),
         lane_rlen0((const int32_t*)a.lane_rlen0),
         row_id0((const int32_t*)a.row_id0),
         nxt((const int32_t*)a.nxt),
@@ -364,42 +387,35 @@ CS_HD void rep_write(const View<T>& v, long long j, long long wv, T k, T l,
 // >= 0 also representative `pad` as the plain step's zero-filled rep_take
 // leaves it past n_w: lane 0's window, k, l, s and slot, not valid (the
 // probe writes every pad j < Uw; the group kernel overwrites the heads
-// j < n_w).  Lane 0's words are read beside lane i's, a level at a time.
+// j < n_w).  Lane 0's words are read beside lane i's, a level at a time:
+// (1) the read ids, which head the chain, then the lanes' own words, (2)
+// the window words, (3) lane i's table row, a live lane's only.
 template <typename T>
 CS_HD void probe_lane(const View<T>& v, const Args& a, long long i,
                       long long pad) {
-  const int lane = v.lane0[i], lane_z = v.lane0[0];
+  const long long rid = v.lane_rid[i], rid_z = v.lane_rid[0];
   const long long pc = clampll(v.pos[i], 0, a.L + 1);
   const long long pc_z = clampll(v.pos[0], 0, a.L + 1);
   const T l = v.l[i], s = v.s[i];
   const T k_z = v.k[0], l_z = v.l[0], s_z = v.s[0];
   const bool alive = v.alive[i] != 0;
-  const long long rid = v.lane_rid0[lane], rid_z = v.lane_rid0[lane_z];
   const long long wv = v.winflat[rid * (a.L + 2) + pc];
   const long long wv_z = v.winflat[rid_z * (a.L + 2) + pc_z];
   const long long slot = key_slot(a, wv, l, s);
-  bool hit = false;
-  int ptr = 0, hln = 0;
-  T hk0 = 0;
-  if (alive) {
-    T row[8];
-    load_row8(v.tbl + slot * 8, row);
-    hit = row[6] != 0 && row[0] == w_store<T>(wv) && row[1] == l &&
-          row[2] == s;
-    ptr = (int)clampll((long long)row[5], 0, a.M - 1);
-    hk0 = row[3];
-    hln = (int)row[4];
-  }
+  T row[8] = {};                 // a dead lane's: no hit, ptr, k0, len 0
+  if (alive) load_row8(v.tbl + slot * 8, row);
   v.p_wv[i] = wv;
   v.p_slot[i] = (int32_t)slot;
-  v.p_hit[i] = hit ? 1 : 0;
-  v.p_ptr[i] = ptr;
-  v.p_hk0[i] = hk0;
-  v.p_hln[i] = hln;
-  v.key[i] = (int32_t)(alive && !hit ? slot : a.H);
   if (pad >= 0)
     rep_write(v, pad, wv_z, k_z, l_z, s_z, (int)key_slot(a, wv_z, l_z, s_z),
               false);
+  const bool hit = alive && row[6] != 0 && row[0] == w_store<T>(wv) &&
+                   row[1] == l && row[2] == s;
+  v.p_hit[i] = hit ? 1 : 0;
+  v.p_ptr[i] = (int)clampll((long long)row[5], 0, a.M - 1);
+  v.p_hk0[i] = row[3];
+  v.p_hln[i] = (int)row[4];
+  v.key[i] = (int32_t)(alive && !hit ? slot : a.H);
 }
 
 // What the group reads of sorted position p: lane o there and lane q at
@@ -729,8 +745,8 @@ CS_HD void pool_close(const View<T>& v, const Args& a, long long cursor,
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
 // The kernels: a lane (a sorted position) a thread, blocks of
-// (ops/chain_cuda.py: BLOCK, APPLY_BLOCK)
-constexpr int kBlock = 256;            // the probe
+// (ops/chain_cuda.py: PROBE_BLOCK, BLOCK, APPLY_BLOCK)
+constexpr int kProbeBlock = 256;       // the probe
 constexpr int kGroupBlock = 256;       // the group
 constexpr int kApplyBlock = 64;        // the apply
 using lookback::scan_blocks;
@@ -738,10 +754,13 @@ using lookback::take_ticket;
 using lookback::warp_add;
 
 template <typename T>
-__global__ void __launch_bounds__(kBlock) chain_probe_kernel(const Args a) {
+__global__ void __launch_bounds__(kProbeBlock) chain_probe_kernel(
+    const Args a) {
   const View<T> v(a);
-  const long long i = (long long)blockIdx.x * kBlock + threadIdx.x;
-  if (i == 0) v.sc[4] += 1;                     // a new round: its epoch
+  const long long i = (long long)blockIdx.x * kProbeBlock + threadIdx.x;
+  // a new round: its epoch, counted by a reduction that thread 0 does not
+  // wait for (a load and a store would hold its warp a round trip)
+  if (i == 0) atomicAdd(v.sc + 4, 1);
   if (i < a.w) probe_lane(v, a, i, i < a.Uw ? i : -1);
 }
 
@@ -897,7 +916,8 @@ template <typename T>
 int launch(int which, const Args& a, cudaStream_t st) {
   switch (which) {
     case 0:
-      chain_probe_kernel<T><<<blocks_for(a.w, kBlock), kBlock, 0, st>>>(a);
+      chain_probe_kernel<T>
+          <<<blocks_for(a.w, kProbeBlock), kProbeBlock, 0, st>>>(a);
       break;
     case 1:
       chain_group_kernel<T>

@@ -4,13 +4,15 @@ tests/test_torch_cuda.py).
 
 ``RoundCapture`` keeps the state before chosen rounds of the kernel path
 while a run goes through it (the main path's own rounds at its own
-widths); ``lossy`` turns such a state into one whose table is 1,024 slots
-(slot collisions everywhere) and whose store is all but full; ``narrow``
-cuts one to its first lanes; ``padded`` leaves a quarter of its lanes
-alive and lets each lead a group;
-``steps_vs_plain`` runs one round from a state through each kernel and
+widths), ``EveryRound`` before every round; ``lossy`` turns such a
+state into one whose table is 1,024 slots (slot collisions everywhere)
+and whose store is all but full; ``narrow`` cuts one to its first lanes;
+``padded`` leaves a quarter of its lanes alive and lets each lead a
+group; ``steps_vs_plain`` runs one round from a state through each kernel and
 through the plain steps (``seedscan._chain_probe_plain`` and the rest),
-step by step, and returns each kernel's largest difference;
+step by step, and returns each kernel's largest difference
+(``round_vs_plain``: the same on given launch arguments, so that a
+segment's consecutive rounds share them, as chain_scan's do);
 ``round_work`` counts the bytes and operations each kernel's work
 needs on this round's data."""
 
@@ -21,7 +23,7 @@ import torch
 from compseed_tpu_torch.ops import chain_cuda
 from compseed_tpu_torch.ops import seedscan as tss
 
-_LANE = ("lane0", "pivot", "pos", "alive", "k", "l", "s")
+_LANE = tss.CHAIN_LANE_KEYS
 
 
 def clone_state(st: dict) -> dict:
@@ -39,7 +41,11 @@ class RoundCapture:
     kernels, up to ``limit`` states, numbered by call: ``states[(call,
     w)]``.  A round loop of another seedscan entry names its entry, its
     kernel round, its state's clone and its width (``width(st, sizes)``,
-    sizes: the round's arguments between the state and ``held``)."""
+    sizes: the round's arguments between the state and ``held``).  With
+    ``every_round`` set (``EveryRound``) it keeps every round's state,
+    keyed by call and by round within the call, from 1."""
+
+    every_round = False
 
     def __init__(self, limit: int = 8, entry: str = "chain_scan",
                  kernels: str = "_chain_round_kernels", clone=None,
@@ -50,6 +56,7 @@ class RoundCapture:
         self._names = (entry, kernels)
         self._clone = clone or clone_state
         self._width = width
+        self._rounds = {}
 
     def __enter__(self):
         entry, kernels = self._names
@@ -71,13 +78,28 @@ class RoundCapture:
         return self
 
     def key(self, st, sizes) -> tuple:
-        """A round's key among the states: (call, width)."""
+        """A round's key among the states: (call, width), or (call,
+        round) with ``every_round``."""
+        if self.every_round:
+            r = self._rounds[self.calls] = self._rounds.get(self.calls, 0) + 1
+            return self.calls, r
         return self.calls, self._width(st, sizes)
 
     def __exit__(self, *exc):
         entry, kernels = self._names
         setattr(tss, entry, self._entry)
         setattr(tss, kernels, self._round)
+
+
+class EveryRound(RoundCapture):
+    """RoundCapture keeping the state before every round of every
+    chain_scan call (not only the first of each width): ``states[(call,
+    round)]``."""
+
+    every_round = True
+
+    def __init__(self, limit: int = 128):
+        super().__init__(limit)
 
 
 def lossy(case, H: int = 1024, room: int = 200):
@@ -134,6 +156,15 @@ def steps_vs_plain(case, build=chain_cuda) -> dict:
     fm, const, st0, w, Uw = case
     ks, ps = clone_state(st0), clone_state(st0)
     rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
+    return round_vs_plain(fm, const, rd, ks, ps, w, Uw, build)[0]
+
+
+def round_vs_plain(fm, const, rd, ks, ps, w, Uw, build=chain_cuda) -> tuple:
+    """steps_vs_plain's round on the launch arguments ``rd`` (a
+    ChainRound over the kernels' state ``ks``) and the plain steps' state
+    ``ps``: (its dict, the plain state after the round).  Called again
+    with the same ``rd`` and that state, it runs a segment's next round
+    on the same launch arguments, as chain_scan does."""
     sc = rd.scratch
     errs = {}
 
@@ -180,7 +211,7 @@ def steps_vs_plain(case, build=chain_cuda) -> dict:
     respawned = lived & (ps2["pivot"] != ps["pivot"])
     rs = gr["rep_slot"][:stored]
     errs["stats"] = dict(
-        w=w, Uw=Uw, live=int(st0["alive"].sum()), hits=int(hit.sum()),
+        w=w, Uw=Uw, live=int(ps["alive"].sum()), hits=int(hit.sum()),
         misses=int(pr["miss"].sum()),
         hit_rows=int(pr["ptr"][hit].unique().numel()),
         applied=int(applied.sum()), lived=int(lived.sum()),
@@ -190,7 +221,7 @@ def steps_vs_plain(case, build=chain_cuda) -> dict:
         tbl_rows=int((rs[1:] != rs[:-1]).sum()) + 1 if stored else 0,
         advance=bool(const["advance"]),
         ovf=bool(ps2["povf"]), H=ps["tbl"].shape[0], M=M)
-    return errs
+    return errs, ps2
 
 
 def round_work(stats: dict, es: int, W: int) -> dict:
@@ -199,8 +230,9 @@ def round_work(stats: dict, es: int, W: int) -> dict:
     operations).  Bytes: each input the kernel needs read once and each
     output written once, counted by distinct element.
 
-    probe, per lane: lane0, its read's window word, pos, l, s, alive
-    (not pivot or k), and its outputs; a table row per live lane; per
+    probe, per lane: its read id (lane_rid, not lane0 or lane_rid0),
+    its read's window word, pos, l, s, alive (not pivot or k), and its
+    outputs; a table row per live lane; per
     pad (a representative past n_w, lane 0's): six outputs.
     group, per lane: its sorted position and key, its group index
     written; per live miss: window, l and s (a miss's sorted predecessor
@@ -226,7 +258,7 @@ def round_work(stats: dict, es: int, W: int) -> dict:
     through = lived - respawned
     stops = applied - through
     rep = 8 + 3 * es + 1 + 4                # a representative's six outputs
-    probe = w * (4 + 4 + 4 + 8 + 2 * es + 1) + live * 8 * es + \
+    probe = w * (4 + 4 + 8 + 2 * es + 1) + live * 8 * es + \
         w * (8 + 4 + 1 + 4 + es + 4 + 4) + (Uw - n_w) * rep
     group = w * (8 + 4 + 4) + stats["misses"] * (8 + 2 * es) + \
         n_w * (es + 4 + rep)

@@ -51,16 +51,18 @@ ARGS = (
     "ck", "cl", "cs", "ln",
     "lb_group", "lb_apply", "sc",
     "w", "Uw", "W", "L", "H", "M", "GP", "nq", "r3", "advance", "min_len",
-    "max_intv", "idx64")
+    "max_intv", "idx64",
+    "lane_rid")
 _AT = {n: i for i, n in enumerate(ARGS)}
 
 KERNELS = ("chain_probe_kernel", "chain_group_kernel", "chain_apply_kernel")
-BLOCK = 256                 # threads a block of the probe and the group
+PROBE_BLOCK = 256           # threads a block of the probe (a lane each)
+BLOCK = 256                 # threads a block of the group
 APPLY_BLOCK = 64            # threads a block of the apply (a lane each)
 
 
-def _bind(lib) -> None:
-    bind_round(lib, KERNELS, "chain_args_words", ARGS)
+def _bind(lib, prefix: bool = False) -> None:
+    bind_round(lib, KERNELS, "chain_args_words", ARGS, prefix)
 
 
 LIB = KernelLibrary("chain_scan.cu", KERNELS, _bind, "chain_cuda_error_name")
@@ -77,7 +79,9 @@ class ChainRound(RoundArgs):
     representatives): the kernels' arguments and scratch.
 
     ``st`` is chain_scan's state: the lane state (w,) ``lane0``,
-    ``pivot``, ``pos`` (int32), ``alive`` (bool), ``k``, ``l``, ``s``
+    ``lane_rid`` (each lane's read id, lane_rid0[lane0], which the
+    kernels only read), ``pivot``, ``pos`` (int32), ``alive`` (bool),
+    ``k``, ``l``, ``s``
     (index dtype); the memo ``tbl`` (H, 8), ``cst`` (M, 3W), ``cur``
     (int32); ``pool`` (6, GP); ``ctr`` (4,) int32 [fq, fc, cursor,
     povf].  ``const`` holds the call's constants: ``lane_rid0``,
@@ -103,6 +107,7 @@ class ChainRound(RoundArgs):
         i32, i64 = torch.int32, torch.int64
         for name, x, xdt, shape in (
                 ("lane0", st["lane0"], i32, (w,)),
+                ("lane_rid", st["lane_rid"], i32, (w,)),
                 ("pivot", st["pivot"], i32, (w,)),
                 ("pos", st["pos"], i32, (w,)),
                 ("alive", st["alive"], torch.bool, (w,)),
@@ -149,9 +154,10 @@ class ChainRound(RoundArgs):
             lb_apply=torch.zeros(n_blocks, dtype=i64, device=dev),
             sc=torch.zeros(8, dtype=i32, device=dev))
         self.live = self.scratch["sc"][2]       # the live count after apply
-        self._held = {n: st[n] for n in ("lane0", "pivot", "pos", "alive",
-                                         "k", "l", "s", "tbl", "cst", "cur",
-                                         "pool", "ctr")}
+        self._held = {n: st[n] for n in ("lane0", "lane_rid", "pivot",
+                                         "pos", "alive", "k", "l", "s",
+                                         "tbl", "cst", "cur", "pool",
+                                         "ctr")}
         args = (ct.c_longlong * len(ARGS))()
         for n, x in list(self._held.items()) + list(self.scratch.items()):
             if n != "sorted_key":

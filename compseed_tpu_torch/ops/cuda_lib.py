@@ -71,12 +71,14 @@ def check_tensor(name, x, dtype, shape, dev) -> None:
         raise ValueError(f"{name} is on {x.device}, expected {dev}")
 
 
-def bind_round(lib, kernels, args_words: str, names) -> None:
+def bind_round(lib, kernels, args_words: str, names,
+               prefix: bool = False) -> None:
     """Bind a round source's launchers (``<kernel>_launch`` for each
     ``<kernel>_kernel``: its Args words and a stream, returning the CUDA
     error code) and check that its struct Args (``args_words`` names the
     C function that gives its size in words) has one word for each of
-    ``names``."""
+    ``names``; with ``prefix``, for each of the first of them (another
+    build of the source whose launchers read only their own words)."""
     for kernel in kernels:
         fn = getattr(lib, kernel.replace("_kernel", "_launch"))
         fn.argtypes = [ct.c_void_p, ct.c_void_p]
@@ -84,7 +86,8 @@ def bind_round(lib, kernels, args_words: str, names) -> None:
     words = getattr(lib, args_words)
     words.argtypes = []
     words.restype = ct.c_int
-    if words() != len(names):
+    if not (0 < words() <= len(names) if prefix else
+            words() == len(names)):
         raise RuntimeError(f"{args_words}() says struct Args has {words()} "
                            f"words, the launchers name {len(names)}")
 

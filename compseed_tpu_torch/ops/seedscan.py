@@ -1301,9 +1301,12 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     ik0 = _set_intv(fm, base0.clamp(0, 3)).T
 
     st = dict(memo)
+    # lane_rid: each lane's read id, lane_rid0[lane0], which only the
+    # compaction changes; carried beside lane0 so that the probe kernel
+    # need not look it up every round
     st.update(
         lane0=torch.arange(n_lanes, dtype=_I32, device=dev),
-        pivot=pivot, pos=pivot + 1, alive=alive,
+        lane_rid=c["lane_rid0"], pivot=pivot, pos=pivot + 1, alive=alive,
         k=torch.where(alive, ik0[:, 0], 0), l=torch.where(alive, ik0[:, 1], 0),
         s=torch.where(alive, ik0[:, 2], 0))
     if kernels:
@@ -1327,7 +1330,6 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
         if w2 < segs[-1]:
             segs.append(w2)
 
-    lane_keys = ("lane0", "pivot", "pos", "k", "l", "s", "alive")
     rnd = 0
     alive_hist = torch.zeros(RCAP, dtype=_I32, device=dev) \
         if report_rounds else None
@@ -1344,11 +1346,7 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
             st = run_round(fm, c, st, w, Uw, held)
             rnd += 1
         if nxtw:
-            lalive = st["alive"]
-            tgt = torch.where(lalive, torch.cumsum(lalive, 0) - 1, nxtw)
-            for kk in lane_keys:
-                st[kk] = _drop_set(torch.zeros(nxtw, dtype=st[kk].dtype,
-                                               device=dev), tgt, st[kk])
+            _compact_lanes(st, nxtw, c["lane_rid0"][:1])
     ovf = (st["povf"] != 0) | st["alive"].any()
 
     # pushes fill slots 0..cursor-1 contiguously; the (rid, pivot, end)
@@ -1370,6 +1368,29 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
         return (pool, st["cursor"], ovf, st["fq"], st["fc"], memo_out,
                 torch.tensor(rnd, dtype=_I32, device=dev), alive_hist)
     return pool, st["cursor"], ovf, st["fq"], st["fc"], memo_out
+
+
+CHAIN_LANE_KEYS = ("lane0", "lane_rid", "pivot", "pos", "k", "l", "s",
+                   "alive")
+
+
+def _compact_lanes(st: dict, w: int, rid_pad: torch.Tensor) -> None:
+    """chain_scan's step between segments: each lane array of ``st``
+    (CHAIN_LANE_KEYS) cut to w lanes, the live lanes first in their order
+    (a stable compaction; bit-exact, lanes are only re-indexed).  The
+    lanes after them are lane 0 of the call, dead: zeros, and their read
+    id lane 0's, ``rid_pad`` (lane_rid0[:1]), so that lane_rid stays
+    lane_rid0[lane0].  Each array is written as ``_drop_set`` writes,
+    over a dump row that is cut off, with the targets computed and
+    clamped once for all of them."""
+    lalive = st["alive"]
+    tgt = torch.where(lalive, torch.cumsum(lalive, 0) - 1, w).clamp(max=w)
+    for kk in CHAIN_LANE_KEYS:
+        # row w: the dump row, cut off
+        buf = rid_pad.repeat(w + 1) if kk == "lane_rid" else \
+            st[kk].new_zeros(w + 1)
+        buf[tgt] = st[kk]
+        st[kk] = buf[:w]
 
 
 def _chain_round(dev: torch.device):

@@ -57,13 +57,10 @@ class EveryRound(RoundCapture):
     first of each width), numbered by call and by round within the call,
     from 1: ``states[(call, round)]``."""
 
+    every_round = True
+
     def __init__(self, limit: int = 64):
         super().__init__(limit)
-        self._rounds = {}
-
-    def key(self, st, sizes) -> tuple:
-        r = self._rounds[self.calls] = self._rounds.get(self.calls, 0) + 1
-        return self.calls, r
 
 
 def mix_np(rw, k, s) -> np.ndarray:

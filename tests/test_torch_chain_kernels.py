@@ -15,11 +15,16 @@ store) with a rep cap below the group count; COMPSEED_CHAIN_SEGS set to
 Captured rounds step by step (ops/chain_cases), each kernel's host loop
 against its plain step: as captured, lossy, padded (pads past n_w, which
 the probe writes, are most of the representatives) and at a width that
-is no multiple of a block's lanes.
+is no multiple of a block's lanes; two and three consecutive rounds of
+one segment on one set of launch arguments (the probe reads each lane's
+read id from the state's lane_rid), and a segment compacted as
+chain_scan compacts it, which carries lane_rid beside lane0 (a lane_rid
+kept from before the compaction is shown to give other windows).
 
 Also: the native slot hash against the int64 emulation (bits.mul64) on
 random 64-bit patterns; the caller's memo is never written; the Args
-layout the launchers pass; the dispatch (the plain round only for CPU
+layout the launchers pass (and another build's, a prefix of it); the
+block sizes; the dispatch (the plain round only for CPU
 tensors, the kernels or an error otherwise).  The kernels themselves are
 held to the plain round on the card in tests/test_torch_cuda.py and
 chip_smoke.py."""
@@ -343,13 +348,94 @@ def test_captured_round_forms_step_by_step(on_host, idx, name, form,
                 assert stats["w"] % 256 and stats["Uw"] == stats["w"] // 2
 
 
+def _segment_rounds(case, rounds):
+    """``rounds`` consecutive rounds of one segment from the case's state
+    on one ChainRound (chain_cases.round_vs_plain), each kernel's host
+    loop held to its plain step round by round (the plain probe reads
+    lane_rid0[lane0], the kernel the state's lane_rid), the read-id
+    array holding lane_rid0[lane0] for every lane after each round.
+    Returns (the ChainRound, the kernels' state, the lanes applied in
+    all)."""
+    fm, const, st, w, Uw = case
+    ks, ps = chain_cases.clone_state(st), chain_cases.clone_state(st)
+    rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
+    applied = 0
+    for r in range(rounds):
+        errs, ps = chain_cases.round_vs_plain(fm, const, rd, ks, ps, w, Uw)
+        stats = errs.pop("stats")
+        assert errs == dict.fromkeys(chain_cuda.KERNELS, 0), (r, stats)
+        assert torch.equal(ks["lane_rid"], const["lane_rid0"][
+            ks["lane0"].to(torch.int64)])
+        applied += stats["applied"]
+    return rd, ks, applied
+
+
+@pytest.mark.parametrize("rounds", [2, 3])
+@pytest.mark.parametrize("form", ["captured", "lossy", "padded"])
+@pytest.mark.parametrize("name", ["lep", "r2"])
+def test_probe_rid_cache_across_rounds(on_host, idx, name, form, rounds,
+                                       monkeypatch):
+    """Consecutive rounds of one segment through the host loops on one set
+    of Args words (every probe reads the read ids the segment's set-up
+    left in lane_rid) == the plain round, round by round and kernel by
+    kernel (_segment_rounds), on the captured rounds as they are, lossy
+    and padded."""
+    for rnd in _captured(idx, name, monkeypatch):
+        c = {"captured": rnd, "lossy": chain_cases.lossy(rnd, H=64, room=8),
+             "padded": chain_cases.padded(rnd)}[form]
+        assert _segment_rounds(c, rounds)[2] > 0
+
+
+@pytest.mark.parametrize("name", ["lep", "r2"])
+def test_probe_rid_cache_refilled_after_compaction(on_host, idx, name,
+                                                   monkeypatch):
+    """A segment compacted by chain_scan's own step (seedscan.
+    _compact_lanes: the live lanes first, in order, lane0 a permutation
+    of a subset and lane_rid moved beside it), once half its lanes or
+    fewer live, on fresh launch arguments: two rounds through the host
+    loops == the plain round.  The same compacted round probed with the
+    wider segment's lane_rid kept (not compacted) reads other read ids
+    and other windows than the plain probe: a stale read-id array shows
+    here."""
+    for rnd in _captured(idx, name, monkeypatch):
+        fm, const, st, w, Uw = rnd
+        ks = chain_cases.clone_state(st)
+        rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
+        ps = chain_cases.clone_state(st)
+        for _ in range(3 * L + 16):        # chain_scan's round cap
+            errs, ps = chain_cases.round_vs_plain(fm, const, rd, ks, ps, w,
+                                                  Uw)
+            errs.pop("stats")
+            assert not any(errs.values())
+            if 2 * int(ks["alive"].sum()) <= w:
+                break
+        lalive = ks["alive"]
+        n_alive = int(lalive.sum())
+        nxtw = max(n_alive + 5, 8)
+        assert 0 < n_alive < nxtw < w
+        st2 = dict(ks)
+        tss._compact_lanes(st2, nxtw, const["lane_rid0"][:1])
+        moved = st2["lane0"][:n_alive] != torch.arange(n_alive)
+        assert moved.any()                  # lane0 is no longer the identity
+        _segment_rounds((fm, const, st2, nxtw, min(Uw, nxtw)), 2)
+        # the wider segment's read ids kept across the compaction
+        st3 = chain_cases.clone_state(st2)
+        st3["lane_rid"] = ks["lane_rid"][:nxtw].clone()
+        assert not torch.equal(st3["lane_rid"], st2["lane_rid"])
+        stale = chain_cuda.ChainRound(fm, const, st3, nxtw, min(Uw, nxtw))
+        chain_cuda.probe(stale)
+        pr = tss._chain_probe_plain(fm, const, chain_cases.clone_state(st2))
+        assert chain_cases.max_err(stale.scratch["p_wv"], pr["wv"]) > 0
+
+
 @pytest.mark.parametrize("es", [4, 8], ids=["int32", "int64"])
 def test_round_work_counts_each_byte_once(es):
     """round_work's bytes (the kernels' bound) count distinct bytes: a
     lane the apply leaves costs its alive, hit and group index; a hit on
     a store row another hit read adds no store row; a lane that applies
-    its group's walk adds no walk; the probe reads no pivot or k; the
-    group reads window, l and s for misses only."""
+    its group's walk adds no walk; the probe reads a lane's read id (not
+    lane0 and lane_rid0), no pivot or k; the group reads window, l and s
+    for misses only."""
     base = dict(w=1024, Uw=256, live=600, hits=300, misses=300,
                 hit_rows=100, applied=500, lived=300, respawned=100,
                 pushes=900, n_u=200, n_w=200, stored=150, tbl_rows=120,
@@ -371,7 +457,7 @@ def test_round_work_counts_each_byte_once(es):
     assert delta("chain_apply_kernel", applied=1, lived=1) == \
         lane_in + 3 * es + 4
     assert delta("chain_probe_kernel", w=1) == \
-        (4 + 4 + 4 + 8 + 2 * es + 1) + (8 + 4 + 1 + 4 + es + 4 + 4)
+        (4 + 4 + 8 + 2 * es + 1) + (8 + 4 + 1 + 4 + es + 4 + 4)
     assert delta("chain_probe_kernel", live=1) == 8 * es
     assert delta("chain_group_kernel", w=1) == 8 + 4 + 4
     assert delta("chain_group_kernel", live=1, hits=1) == 0
@@ -436,6 +522,56 @@ def test_args_layout_matches_source(host):
               for f in decl.replace("long long", "").split(",")]
     assert tuple(fields) == chain_cuda.ARGS
     assert host.chain_args_words() == len(chain_cuda.ARGS)
+    # the lanes' read ids come last, so that an earlier build of the
+    # source reads a prefix of the words
+    assert chain_cuda.ARGS[-1] == "lane_rid"
+
+
+class _Fn:
+    """A stand-in for a ctypes function: takes argtypes, returns n."""
+
+    def __init__(self, n=0):
+        self.n = n
+
+    def __call__(self, *a):
+        return self.n
+
+
+@pytest.mark.parametrize("words,prefix,ok", [
+    (len(chain_cuda.ARGS), False, True),
+    (len(chain_cuda.ARGS) - 1, False, False),
+    (len(chain_cuda.ARGS) - 1, True, True),
+    (len(chain_cuda.ARGS), True, True),
+    (len(chain_cuda.ARGS) + 1, True, False),
+    (0, True, False)])
+def test_bind_checks_args_words(words, prefix, ok):
+    """chain_cuda._bind takes a source whose struct Args has the port's
+    words; with ``prefix`` (another build, such as the parent's, whose
+    launchers read only their own words) also one with fewer, never
+    more."""
+    lib = type("Lib", (), {})()
+    for kernel in chain_cuda.KERNELS:
+        setattr(lib, kernel.replace("_kernel", "_launch"), _Fn())
+    lib.chain_args_words = _Fn(words)
+    if ok:
+        chain_cuda._bind(lib, prefix)
+    else:
+        with pytest.raises(RuntimeError, match="words"):
+            chain_cuda._bind(lib, prefix)
+
+
+def test_block_sizes_match_source():
+    """ops/chain_cuda's PROBE_BLOCK, BLOCK and APPLY_BLOCK are the
+    source's kProbeBlock, kGroupBlock and kApplyBlock: ChainRound sizes
+    the look-back status words, one a block of the kernel with the most
+    blocks, by APPLY_BLOCK, which is no larger than the others."""
+    src = open(chain_cuda.LIB.src).read()
+    for name, value in (("kProbeBlock", chain_cuda.PROBE_BLOCK),
+                        ("kGroupBlock", chain_cuda.BLOCK),
+                        ("kApplyBlock", chain_cuda.APPLY_BLOCK)):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == value, name
+    assert chain_cuda.APPLY_BLOCK <= chain_cuda.BLOCK
 
 
 @pytest.mark.parametrize("bad", ["W=0", "W=11", "Uw=0", "Uw>w"])
@@ -490,6 +626,7 @@ def test_chain_round_checks_inputs(idx):
     w, Uw, GP = 8, 4, 16
     dt = td.dtype
     st = dict(lane0=torch.zeros(w, dtype=torch.int32),
+              lane_rid=torch.zeros(w, dtype=torch.int32),
               pivot=torch.zeros(w, dtype=torch.int32),
               pos=torch.zeros(w, dtype=torch.int32),
               alive=torch.zeros(w, dtype=torch.bool),
@@ -512,6 +649,7 @@ def test_chain_round_checks_inputs(idx):
     for key, bad in (("k", torch.zeros(w, dtype=other)),
                      ("alive", torch.zeros(w, dtype=torch.uint8)),
                      ("pos", torch.zeros(w + 1, dtype=torch.int32)),
+                     ("lane_rid", torch.zeros(w, dtype=torch.int64)),
                      ("tbl", torch.zeros((16, 7), dtype=dt)),
                      ("cst", torch.zeros((8, 3 * W + 1), dtype=dt)),
                      ("pool", torch.zeros((6, GP), dtype=dt).T),

@@ -10,7 +10,9 @@ the seeder's first bench chunk with the FM kernels against the same with
 their plain versions; chain_scan's round on the kernels of
 csrc/chain_scan.cu against the plain round (the first bench chunk, int32
 and int64 positions; its captured rounds kernel by kernel, round 2's also
-cut to a ragged width and padded; from worker threads); walk_pool_chain's round on the kernels of csrc/walk_chain.cu
+cut to a ragged width and padded; the probe at every round-1 width, round
+2's and one block, through a segment's first round and the next; from
+worker threads); walk_pool_chain's round on the kernels of csrc/walk_chain.cu
 the same ways (its captured rounds also with few representatives and in
 forced forms); the sharded pipeline on one card against the unsharded
 one.
@@ -893,25 +895,31 @@ def test_chain_round_steps_vs_plain_on_card(dev, bench, dtype):
     assert full > 0                       # a representative found no row
 
 
-_CHAIN_R2 = {}
+_CHAIN_ROUNDS = {}
 
 
-def _chain_round2(bench, dev, dtype):
-    """The state before round 2's first chain_scan round (65,536 lanes)
-    of the first bench chunk, once per dtype."""
+def _chain_rounds(bench, dev, dtype):
+    """The states before the first chain_scan round of each width of each
+    call of the first bench chunk ((call, w) -> case), once per dtype."""
     from compseed_tpu_torch.ops import chain_cases
     from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
     from compseed_tpu_torch.options import MemOptions
-    if dtype not in _CHAIN_R2:
+    if dtype not in _CHAIN_ROUNDS:
         fm, reads = bench
         sd = DeviceSeeder(MemOptions(), fm, dev,
                           dfi=_bench_index(bench, dev, dtype), dedup=True)
         with chain_cases.RoundCapture(limit=16) as cap:
             sd.run_flat(list(reads[:16384]))
         torch.cuda.synchronize()
-        _CHAIN_R2[dtype] = next(c for (_, w), c in sorted(cap.states.items())
-                                if w == 65536)
-    return _CHAIN_R2[dtype]
+        _CHAIN_ROUNDS[dtype] = dict(cap.states)
+    return _CHAIN_ROUNDS[dtype]
+
+
+def _chain_round2(bench, dev, dtype):
+    """The state before round 2's first chain_scan round (65,536 lanes)
+    of the first bench chunk."""
+    return next(c for (_, w), c in sorted(
+        _chain_rounds(bench, dev, dtype).items()) if w == 65536)
 
 
 @pytest.mark.parametrize("form", ["wide", "ragged", "padded"])
@@ -938,6 +946,41 @@ def test_chain_round_scan_forms_on_card(dev, bench, dtype, form):
             assert stats["w"] % chain_cuda.BLOCK
         if form == "padded":
             assert stats["Uw"] - stats["n_w"] > 2 * stats["n_w"], stats
+
+
+@pytest.mark.parametrize("form", ["captured", "lossy", "padded"])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_chain_probe_forms_on_card(dev, bench, dtype, form):
+    """chain_probe_kernel on round 1's captured widths (16,384, 4,096 and
+    1,024 lanes), round 2's 65,536 and the first 256 lanes (one block of
+    the group and of the probe), as captured, lossy and padded, through
+    a segment's first round and the next on one set of launch arguments
+    (the probe reads each lane's read id from the state's lane_rid):
+    every probe output, the pads and the round's group and apply outputs
+    equal the plain steps, and lane_rid holds lane_rid0[lane0]."""
+    from compseed_tpu_torch.ops import chain_cases, chain_cuda
+    rounds = _chain_rounds(bench, dev, dtype)
+    r1 = {w: c for (call, w), c in rounds.items() if call == 1}
+    assert {16384, 4096, 1024} <= set(r1), sorted(rounds)
+    cases = [r1[16384], r1[4096], r1[1024], _chain_round2(bench, dev, dtype),
+             chain_cases.narrow(r1[16384], 256)]
+    for case in cases:
+        c = {"captured": case, "lossy": chain_cases.lossy(case),
+             "padded": chain_cases.padded(case)}[form]
+        fm, const, st, w, Uw = c
+        ks, ps = chain_cases.clone_state(st), chain_cases.clone_state(st)
+        rd = chain_cuda.ChainRound(fm, const, ks, w, Uw)
+        for r in range(2):
+            errs, ps = chain_cases.round_vs_plain(fm, const, rd, ks, ps, w,
+                                                  Uw)
+            stats = errs.pop("stats")
+            assert errs == dict.fromkeys(chain_cuda.KERNELS, 0), \
+                (w, form, r, stats)
+            assert torch.equal(ks["lane_rid"], const["lane_rid0"][
+                ks["lane0"].to(torch.int64)])
+            if form == "padded" and r == 0:
+                assert stats["Uw"] - stats["n_w"] > 2 * stats["n_w"], stats
+        torch.cuda.synchronize()
 
 
 def test_chain_scan_from_worker_threads_on_card(dev, bench):
