@@ -56,6 +56,18 @@ Phases, in order; any failure exits non-zero:
                 forms of walk_cases.forced (two lanes whose keys collide
                 while their (window, k, s) differ, a live lane keyed
                 INT32_MAX, one after a dead lane of its (window, k, s)).
+                Then the round loops as CUDA graphs (each segment of
+                chain_scan and walk_pool_chain one graph with a WHILE
+                node): every call of one seeding run of the first chunk,
+                int32 and int64, chain_scan with report_rounds on, run
+                again from its arguments through the plain loop, every
+                output equal (chain_cases.CallCapture, call_vs_plain); on
+                every round of those runs the round's sort (CUB's, over
+                the key's bits) equal to torch.sort(stable=True); the
+                four loop kernels (entry and cond, chain and walk) against
+                their plain version (seedscan.loop_step_plain) at a
+                running round, the RCAP cap, a segment exit and no live
+                lane.
   3. goldens  — tests/fixtures reads, each 2,000-read file as ONE chunk,
                 through align_stream with the port's seeder, DP engine
                 and native tail: the seeder's caps overflow, the chunk
@@ -128,11 +140,18 @@ Phases, in order; any failure exits non-zero:
                 build's profiler means per launch over one chunk, in
                 turns; round
                 1's chain_scan with the kernels and with the plain round
-                in turns; the chunk's launches, syncs and
-                copies by stage (a chain_scan round and its sort,
-                chain_scan's set-up and loop, a walk_pool_chain round and
-                its sort, walk_pool_chain's set-up and compactions, the
-                rest) under torch.profiler.  The walk kernels: launches per
+                in turns; the chunk by stage (chain_scan's set-up and
+                tail, its segments: a round's arguments, the capture of
+                its loop graph and the launch; walk_pool_chain's set-up
+                and compactions, its widths; the rest) under
+                torch.profiler: host calls (kernel and
+                graph launches, syncs, copies, captures, instantiations)
+                by stage, what the card ran, and the kernels and memsets
+                of each segment's body graph, what the card runs a round;
+                each loop graph's capture and instantiation ms and the
+                segment's whole host call over 3 runs of the chunk
+                (``segment_costs``); each round's sort beside torch.sort
+                (``sort_time``).  The walk kernels: launches per
                 chunk (each must have launched in the int32 window); each
                 timed at the first width of round 1's and round 2's
                 walk_pool_chain call (393,216 and 262,144 lanes; on the
@@ -150,9 +169,10 @@ Phases, in order; any failure exits non-zero:
                 the walk kernels again on round 1's first 256 lanes (one
                 block: a launch and a lane's dependent reads, their
                 latency floor).  Gates: at most
-                15 launches a chain_scan round and a walk_pool_chain
-                round; at most 2,088 launches, 94 stream syncs and 209
-                async copies a chunk.
+                15 kernels the card runs a chain_scan round and a
+                walk_pool_chain round; at most 1,980 host launches
+                (kernels and graphs, the parent's count), 6 stream syncs
+                and 209 async copies a chunk.
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
                 tests/fixtures/tiny.fa must write the committed index
@@ -333,18 +353,38 @@ WALK_REPLACES = {
                          "fusion, no Pallas)",
     "walk_apply_kernel": "compseed_tpu/ops/seedscan.py:682-720 "
                          "(deaths, advance; XLA fusion, no Pallas)"}
-# gates on one chunk of the main path's seeding (torch.profiler): a
-# chain_scan round's and a walk_pool_chain round's launches, and the
-# chunk's launches, stream syncs and async copies (2,088 / 94 / 209 on the
-# H100 since walk_pool_chain's round became kernels, PERF.md)
-MAX_CHAIN_ROUND_LAUNCHES = 15
+# the round loops' kernels (each segment one CUDA graph: csrc/
+# loop_graph.cuh) and the JAX package's lax.while_loop cond each replaces
+LOOP_KERNELS = ("chain_loop_entry_kernel", "chain_loop_cond_kernel",
+                "walk_loop_entry_kernel", "walk_loop_cond_kernel")
+LOOP_REPLACES = {
+    "chain_loop_entry_kernel": "compseed_tpu/ops/seedscan.py:1720-1726 "
+                               "(chain_scan's while_loop cond before a "
+                               "segment's first round, with instrument's "
+                               "alive_hist at :1695-1704; XLA, no Pallas)",
+    "chain_loop_cond_kernel": "compseed_tpu/ops/seedscan.py:1720-1726 "
+                              "(the same cond after each round; XLA, no "
+                              "Pallas)",
+    "walk_loop_entry_kernel": "compseed_tpu/ops/seedscan.py:734-738 "
+                              "(walk_pool_chain's while_loop cond before a "
+                              "width's first round; XLA, no Pallas)",
+    "walk_loop_cond_kernel": "compseed_tpu/ops/seedscan.py:734-738 (the "
+                             "same cond after each round; XLA, no Pallas)"}
+LOOP_SOURCES = {"chain": CHAIN_SOURCE, "walk": WALK_SOURCE}
+# gates on one chunk of the main path's seeding (torch.profiler): the
+# kernels the card runs a chain_scan round and a walk_pool_chain round,
+# and the chunk's host launches (cudaLaunchKernel and cudaGraphLaunch:
+# at most the parent's 1,980, which stepped every round from the host),
+# stream syncs (94 while the host tested every round's live count; 6 with
+# the loops on the card) and async copies (209), PERF.md
+MAX_CHAIN_ROUND_KERNELS = 15
 # lanes of the round the chain and walk kernels are timed at for their
 # latency floor: one block (four of the chain apply's), so the time is
 # what one block pays, a launch and a lane's path
 FLOOR_LANES = 256
-MAX_WALK_ROUND_LAUNCHES = 15
-MAX_CHUNK_LAUNCHES = 2088
-MAX_CHUNK_SYNCS = 94
+MAX_WALK_ROUND_KERNELS = 15
+MAX_CHUNK_LAUNCHES = 1980
+MAX_CHUNK_SYNCS = 6
 MAX_CHUNK_COPIES = 209
 
 
@@ -463,11 +503,21 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
+def device_kind(name: str) -> str:
+    """What a device event of the profiler is: "memsets", "copies" or
+    "kernels"."""
+    return "memsets" if name.startswith("Memset") else \
+        "copies" if name.startswith("Memcpy") else "kernels"
+
+
 def profile_chunk(run, sync, records=()) -> dict:
     """torch.profiler over one call of ``run`` (one chunk of seeding):
-    the CUDA runtime calls that cost host time (launches, stream syncs,
-    async copies) and the card's busy time, the union of the kernels' and
-    copies' intervals on the device.  Also the wall time of the same call
+    the CUDA runtime calls that cost host time (kernel and graph
+    launches, stream syncs, async copies; ``launches`` the host's
+    cudaLaunchKernel and cudaGraphLaunch calls), what the card ran
+    (``ran_kernels``, ``ran_memsets``, ``ran_copies``: a graph's kernels
+    are launched by one host call) and the card's busy time, the union of
+    the kernels' and copies' intervals on the device.  Also the wall time of the same call
     without the profiler, right after, and the mean device time per
     launch of each FM, chain and walk kernel; for each kernel of
     ``records``, the device ms of each of its launches in the order they
@@ -475,7 +525,7 @@ def profile_chunk(run, sync, records=()) -> dict:
     ``scripts/torch_seeding_ab.py --profile`` runs the same pass on other
     checkouts."""
     from torch.profiler import ProfilerActivity, profile
-    calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+    calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
              "cudaStreamSynchronize", "cudaMemcpyAsync",
              "cudaDeviceSynchronize")
     sync()
@@ -508,8 +558,11 @@ def profile_chunk(run, sync, records=()) -> dict:
         r["device_ms_per_launch"] = r.pop("device_us") / 1e3 / r["launches"]
     spans = []
     recs = {k: [] for k in records}
+    ran = dict(kernels=0, memsets=0, copies=0)
     for e in prof.events():
         dt = str(getattr(e, "device_type", ""))
+        if dt.endswith("CUDA"):
+            ran[device_kind(e.name)] += 1
         if dt.endswith("CUDA") and e.time_range.end > e.time_range.start:
             spans.append((e.time_range.start, e.time_range.end))
             for k in records:
@@ -525,7 +578,11 @@ def profile_chunk(run, sync, records=()) -> dict:
         elif b > end:
             busy_us += b - end
             end = b
-    out.update(wall_s_profiled=wall_prof, wall_s=wall,
+    out.update(launches=out["cudaLaunchKernel"] + out["cudaLaunchKernelExC"]
+               + out["cudaGraphLaunch"],
+               ran_kernels=ran["kernels"], ran_memsets=ran["memsets"],
+               ran_copies=ran["copies"],
+               wall_s_profiled=wall_prof, wall_s=wall,
                device_busy_s=busy_us / 1e6,
                busy_pct_of_wall=100.0 * busy_us / 1e6 / wall,
                busy_pct_of_profiled=100.0 * busy_us / 1e6 / wall_prof,
@@ -704,14 +761,21 @@ class FmCapture:
     """Records the first call of each kind of the FM wrappers (inputs
     cloned) while a run goes through them, and counts the calls of each
     kind: the chain walk by direction, the inverse-Psi walk by step
-    count, the extension by batch rank."""
+    count, the extension by batch rank.  While it is active chain_scan
+    and walk_pool_chain run the plain round: in a segment's graph the
+    walk's inputs exist on the card alone, and the plain round (its
+    outputs equal) launches the same walk kernel on them from the
+    host."""
 
     def __init__(self):
         from compseed_tpu_torch.ops import fm_cuda
-        self.mod = fm_cuda
+        from compseed_tpu_torch.ops import seedscan as ss
+        self.mod, self.ss = fm_cuda, ss
         self.orig = dict(chain_walk=fm_cuda.chain_walk,
                          inv_psi_walk=fm_cuda.inv_psi_walk,
                          extend_sel_batch=fm_cuda.extend_sel_batch)
+        self.rounds = dict(_chain_round=ss._chain_round,
+                           _walk_round=ss._walk_round)
         self.calls = {}
         self.counts = {}            # calls by key
 
@@ -736,11 +800,15 @@ class FmCapture:
         wrap("chain_walk", lambda *a, **kw: (kw.get("is_back", False),))
         wrap("inv_psi_walk", lambda *a, **kw: (a[4],))
         wrap("extend_sel_batch", lambda *a, **kw: (a[1].dim(),))
+        self.ss._chain_round = lambda dev: self.ss._chain_round_plain
+        self.ss._walk_round = lambda dev: self.ss._walk_round_plain
         return self
 
     def __exit__(self, *exc):
         for name, fn in self.orig.items():
             setattr(self.mod, name, fn)
+        for name, fn in self.rounds.items():
+            setattr(self.ss, name, fn)
 
 
 def fm_rank_need(dfi, x, bases):
@@ -1389,6 +1457,185 @@ def chain_phase2(dev, opt, fm, queries) -> tuple:
     return out, keep, walk_out, walk_keep
 
 
+def loop_check(dev, opt, fm, queries, force=None) -> dict:
+    """The round loops as graphs against the plain loop: every chain_scan
+    and walk_pool_chain call of one seeding run of the first bench chunk
+    (chain_cases.CallCapture: each segment one graph launch, chain_scan
+    with report_rounds on), run again from its arguments through the
+    plain loop (call_vs_plain): the largest difference of every output
+    over the calls, all 0: pool, cursor, ovf, fq, fc, the memo, rnd and
+    alive_hist; death, fk, fl, fs, ovf, calls and ngrp.  On every round
+    of those plain runs the round's sort (CUB's, over the key's bits)
+    against torch.sort(stable=True) (sort_vs_torch)."""
+    import torch
+    from compseed_tpu_torch.ops import chain_cases, walk_cases
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.ops.engine import device_seeder
+    sd = device_seeder(opt, fm, dedup=True, device=dev,
+                       dfi=to_device(fm, dev, force_dtype=force))
+    with chain_cases.CallCapture("chain_scan") as cc, \
+            chain_cases.CallCapture("walk_pool_chain") as wc:
+        sd.run_flat(queries)
+    torch.cuda.synchronize()
+    rec = {}
+    for entry, cap, check in (
+            ("chain_scan", cc, chain_cases.sort_vs_torch()),
+            ("walk_pool_chain", wc, walk_cases.sort_vs_torch())):
+        by_output = {}
+        for call in cap.calls:
+            for k, v in chain_cases.call_vs_plain(entry, call,
+                                                  check).items():
+                by_output[k] = max(by_output.get(k, 0), v)
+        rec[entry] = dict(calls=len(cap.calls), max_abs_err=by_output,
+                          sort_rounds=len(check.errs),
+                          sort_max_abs_err=max(check.errs))
+        if not cap.calls or any(by_output.values()) or any(check.errs):
+            raise SystemExit(f"{entry} by the graph loop differs from the "
+                             f"plain loop, or a sort from torch.sort: "
+                             f"{rec[entry]}")
+    rec["chain_scan"]["rounds"] = [int(c[2][6]) for c in cc.calls]
+    del cc, wc
+    return rec
+
+
+def loop_kernels(module, case) -> dict:
+    """A round source's loop kernels (``module``: chain_cuda or
+    walk_cuda) on a round of the main path (``case``: a captured chain or
+    walk round, whose Args they take), launched one at a time outside a
+    graph (the condition handle 0) against their plain version,
+    seedscan.loop_step_plain, on the same words: a running round, the
+    RCAP cap, a segment exit and no live lane, with the histogram (the
+    chain's) and without; go, rnd, the live count and the histogram
+    held equal.  Then each timed on the card alone (launch_ms) and in a
+    loop, beside the plain version's ms and its bound: the words it reads
+    and writes (the round counter, the live count, go, a histogram word:
+    20 B) against its four integer operations."""
+    import torch
+    from compseed_tpu_torch.ops import chain_cases, walk_cases
+    from compseed_tpu_torch.ops import seedscan as ss
+    what = module.__name__.rsplit(".", 1)[-1].split("_")[0]
+    if what == "chain":
+        fm, const, st, w, Uw = case
+        rd = module.ChainRound(fm, const, chain_cases.clone_state(st), w, Uw)
+    else:
+        fm, const, st, Uw = case
+        rd = module.WalkRound(fm, const, walk_cases.clone_state(st), Uw)
+    dev, i32 = rd.dev, torch.int32
+    rcap, nxtw = 40, 100
+    errs = dict.fromkeys(module.LOOP_KERNELS, 0)
+    for rnd0, live, hist_on in ((3, 500, True), (40, 500, True),
+                                (39, 500, True), (3, nxtw, True),
+                                (0, 0, True), (3, 500, False)):
+        for kernel, entry in zip(module.LOOP_KERNELS, (True, False)):
+            got = []
+            for run in (lambda: getattr(module, "entry" if entry else
+                                        "cond")(rd),
+                        lambda: ss.loop_step_plain(rd, entry)):
+                rnd = torch.tensor(rnd0, dtype=i32, device=dev)
+                live_in = torch.tensor(live, dtype=i32, device=dev)
+                hist = torch.full((rcap,), -1, dtype=i32, device=dev) \
+                    if hist_on else None
+                rd.set_loop(rnd, live_in, nxtw, rcap, hist)
+                rd.live.fill_(-5 if entry else live)
+                run()
+                got.append([rnd.clone(), rd.live.clone(), rd.go.clone()] +
+                           ([hist] if hist_on else []))
+            errs[kernel] = max([errs[kernel]] + [
+                err(a, b) for a, b in zip(*got)])
+    if any(errs.values()):
+        raise SystemExit(f"a {what} loop kernel disagrees with its plain "
+                         f"version: {errs}")
+    out = {}
+    rd.set_loop(torch.zeros((), dtype=i32, device=dev),
+                torch.tensor(500, dtype=i32, device=dev), nxtw, rcap,
+                torch.zeros(rcap, dtype=i32, device=dev))
+    for kernel, entry in zip(module.LOOP_KERNELS, (True, False)):
+        def run(entry=entry):
+            getattr(module, "entry" if entry else "cond")(rd)
+
+        def plain(entry=entry):
+            ss.loop_step_plain(rd, entry)
+        nbytes, ops = 20, 4
+        bound_ms, bound_by = bound_of(nbytes, ops)
+        out[kernel] = dict(max_abs_err=errs[kernel], ms=launch_ms(run, 20),
+                           loop_ms=cuda_time_ms(run, 20),
+                           plain_ms=cuda_time_ms(plain, 20), bytes=nbytes,
+                           ops=ops, bound_ms=bound_ms, bound_by=bound_by)
+    torch.cuda.synchronize()
+    return out
+
+
+def segment_costs(seeder, queries, runs: int = 3) -> dict:
+    """What a segment's graph costs the host: the first chunk's seeding
+    with every graph captured anew (seedscan.drop_held first), then
+    ``runs`` runs on the kept graphs, without the profiler.  For
+    chain_scan's segments and walk_pool_chain's widths: the capture (the
+    outer graph and the body, from begin to end) and the instantiation
+    (ending the captures and cudaGraphInstantiate) in ms, and the whole
+    segment call (seedscan._chain_segment / _walk_segment: the round's
+    arguments and scratch, a capture, its instantiation, the launch) in
+    the first run and on kept graphs (the launch alone); the segments a
+    chunk; each run's run_flat seconds and device_s."""
+    import torch
+    from compseed_tpu_torch.ops import cuda_lib
+    from compseed_tpu_torch.ops import seedscan as ss
+    seen = {"chain": [], "walk": []}
+    kind = []
+    end = cuda_lib.LoopGraph.end
+
+    def timed_end(self):
+        end(self)
+        seen[kind[-1]][-1].update(capture_ms=self.capture_s * 1e3,
+                                  instantiate_ms=self.instantiate_s * 1e3)
+
+    def timed(what, fn):
+        def run(*a, **kw):
+            kind.append(what)
+            seen[what].append({})
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            seen[what][-1]["segment_ms"] = (time.perf_counter() - t0) * 1e3
+            kind.pop()
+            return out
+        return run
+
+    orig = (ss._chain_segment, ss._walk_segment)
+    cuda_lib.LoopGraph.end = timed_end
+    ss._chain_segment = timed("chain", orig[0])
+    ss._walk_segment = timed("walk", orig[1])
+    walls, dev_s, first = [], [], {}
+    ss.drop_held()
+    try:
+        for run in range(runs + 1):
+            for v in seen.values():
+                v.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seeder.run_flat(queries)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            dev_s.append(seeder.prof["device_s"])
+            if run == 0:
+                first = {w: list(v) for w, v in seen.items()}
+    finally:
+        cuda_lib.LoopGraph.end = end
+        ss._chain_segment, ss._walk_segment = orig
+    out = dict(run_flat_s=walls, device_s=dev_s,
+               note="run 0 captures every graph; runs 1- run kept ones")
+    for what in seen:
+        segs, kept = first[what], seen[what]
+        out[what] = {k: dict(median=statistics.median(x[k] for x in segs),
+                             total=sum(x[k] for x in segs))
+                     for k in ("capture_ms", "instantiate_ms", "segment_ms")}
+        out[what]["kept_segment_ms"] = dict(
+            median=statistics.median(x["segment_ms"] for x in kept),
+            total=sum(x["segment_ms"] for x in kept))
+        out[what]["segments_per_chunk"] = len(segs)
+        if any("capture_ms" in x for x in kept):
+            raise SystemExit(f"a run on kept {what} graphs captured anew")
+    return out
+
+
 def chain_runs(case, build) -> tuple:
     """A captured round through one build of the chain kernels (``build``:
     chain_cuda, or an OldChainBuild), once whole (so every scratch array
@@ -1453,8 +1700,37 @@ def chain_time(case, reps: int = 20) -> dict:
     out = dict(stats=stats, max_abs_err=errs)
     out.update(round_time(runs, plain, chain_cases.round_work(
         stats, es, const["W"]), reps))
+    out["sort"].update(sort_time(rd, reps))
     del ks, rd, ps
     return out
+
+
+def sort_time(rd, reps: int) -> dict:
+    """The round's sort (CUB's radix sort over its key's bits, what the
+    round's graph runs) beside torch.sort(key, stable=True), the library
+    call it replaced: that call's ms per call in a loop and on the card
+    alone, the two held equal, and the sort's bound: the keys read once,
+    the sorted keys and the order written once (16 B a lane), against
+    four integer operations a lane a pass of 8 bits."""
+    import torch
+    key = rd.scratch["key"]
+    w = key.shape[0]
+
+    def lib():
+        return torch.sort(key, stable=True)
+
+    want = lib()
+    e = max(err(rd.scratch["sorted_key"], want[0]),
+            err(rd.scratch["order"], want[1]))
+    if e:
+        raise SystemExit(f"the round's sort differs from torch.sort on "
+                         f"{w} lanes")
+    nbytes, ops = 16 * w, 4 * w * -(-rd.key_bits // 8)
+    bound_ms, bound_by = bound_of(nbytes, ops)
+    return dict(max_abs_err=e, key_bits=rd.key_bits, library=
+                "torch.sort(stable=True)", library_loop_ms=cuda_time_ms(
+                    lib, reps), library_ms=launch_ms(lib, reps),
+                bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by)
 
 
 class OldChainBuild:
@@ -1667,26 +1943,39 @@ def chain_turns(seeder, queries) -> dict:
 
 
 def launch_split(seeder, queries) -> dict:
-    """torch.profiler over one run of the first chunk's seeding, each CUDA
-    runtime call that costs host time (launches, syncs, copies, memsets)
-    given to the innermost stage that issued it (its nearest caller in the
-    profiler's tree that is a stage): a chain_scan round
-    (seedscan._chain_round_kernels) apart from its sort, the round's
-    sort (chain_cuda.sort), chain_scan's own set-up, loop and tail, a
-    walk_pool_chain round (seedscan._walk_round_kernels) apart from its
-    sort, that sort (walk_cuda.sort), walk_pool_chain's set-up,
-    compactions and loop, the rest.  Stages are marked with
-    record_function for this run only; a round or sort stage that was
-    entered and got no launch fails the run."""
+    """torch.profiler over one run of the first chunk's seeding, on the
+    graphs a run just before it captured (as every chunk of a shape
+    after the first runs).  The CUDA runtime calls that cost host time (kernel and graph launches, syncs,
+    copies, memsets, captures, instantiations) by stage, each given to
+    the innermost stage among its callers in the profiler's tree:
+    chain_scan's own set-up and tail, its segments
+    (seedscan._chain_segment: a round's arguments and scratch, the
+    capture of its loop graph, the graph's launch), walk_pool_chain's
+    set-up and compactions, its widths (seedscan._walk_segment), the
+    rest.  What the card ran over the chunk (kernels by name: the round
+    and loop kernels, the FM kernels, CUB's, the rest; memsets; copies).
+    Per round: the kernels and memsets of each segment's body graph
+    (LoopGraph.nodes, what the card runs every round; the largest over
+    the segments is gated), the rounds (the cond kernel's runs) and the
+    loops' share of the kernels the card ran (each segment's entry
+    kernel and its rounds' bodies).  Stages are marked with
+    record_function for this run only (outside any capture); a run in
+    which a round kernel did not run, or a segment captured anew, fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+    from compseed_tpu_torch.ops import cuda_lib
     from compseed_tpu_torch.ops import seedscan as ss
-    from compseed_tpu_torch.ops import chain_cuda, walk_cuda
-    orig = dict(scan=ss.chain_scan, rnd=ss._chain_round_kernels,
-                walk=ss.walk_pool_chain, wrnd=ss._walk_round_kernels,
-                sort=chain_cuda.sort, wsort=walk_cuda.sort)
-    n = dict(chain_round=0, walk_round=0, chain_scan=0, walk_pool_chain=0,
-             sort=0, walk_sort=0)
+    names = dict(chain_scan="chain_scan", chain_segment="_chain_segment",
+                 walk_pool_chain="walk_pool_chain",
+                 walk_segment="_walk_segment")
+    orig = {st: getattr(ss, fn) for st, fn in names.items()}
+    n = dict.fromkeys(names, 0)
+    bodies = {"chain": [], "walk": []}
+    end = cuda_lib.LoopGraph.end
+
+    def counted_end(self):
+        end(self)
+        bodies[self._p].append(self.nodes())
 
     def marked(name, fn):
         def run(*a, **kw):
@@ -1695,12 +1984,16 @@ def launch_split(seeder, queries) -> dict:
                 return fn(*a, **kw)
         return run
 
-    ss.chain_scan = marked("chain_scan", orig["scan"])
-    ss._chain_round_kernels = marked("chain_round", orig["rnd"])
-    ss.walk_pool_chain = marked("walk_pool_chain", orig["walk"])
-    ss._walk_round_kernels = marked("walk_round", orig["wrnd"])
-    chain_cuda.sort = marked("sort", orig["sort"])
-    walk_cuda.sort = marked("walk_sort", orig["wsort"])
+    # the graphs captured anew (their bodies counted), then a run on them
+    # as every later chunk of the shape runs, profiled
+    ss.drop_held()
+    cuda_lib.LoopGraph.end = counted_end
+    try:
+        seeder.run_flat(queries)
+    finally:
+        cuda_lib.LoopGraph.end = end
+    for st, fn in names.items():
+        setattr(ss, fn, marked(st, orig[st]))
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -1708,45 +2001,69 @@ def launch_split(seeder, queries) -> dict:
             seeder.run_flat(queries)
             torch.cuda.synchronize()
     finally:
-        ss.chain_scan, ss._chain_round_kernels = orig["scan"], orig["rnd"]
-        ss.walk_pool_chain = orig["walk"]
-        ss._walk_round_kernels = orig["wrnd"]
-        chain_cuda.sort, walk_cuda.sort = orig["sort"], orig["wsort"]
-    calls = ("cudaLaunchKernel", "cudaLaunchKernelExC",
-             "cudaStreamSynchronize", "cudaMemcpyAsync", "cudaMemsetAsync")
-    stages = ("sort", "chain_round", "walk_sort", "walk_round", "chain_scan",
-              "walk_pool_chain")
+        for st, fn in names.items():
+            setattr(ss, fn, orig[st])
+    calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
+             "cudaStreamSynchronize", "cudaMemcpyAsync", "cudaMemsetAsync",
+             "cudaStreamBeginCapture", "cudaGraphInstantiate")
 
     def stage_of(e):
-        # the innermost stage among the call's callers in the profiler's
+        # the innermost stage among the event's callers in the profiler's
         # tree (not the stage whose time span it falls in, which takes in
         # calls of other threads and is wrong when a span's end is)
-        p = e.cpu_parent
-        while p is not None and not p.name.startswith("stage."):
-            p = p.cpu_parent
-        return "rest" if p is None else p.name[6:]
+        while e is not None and not e.name.startswith("stage."):
+            e = e.cpu_parent
+        return "rest" if e is None else e.name[6:]
 
-    split = {s: dict.fromkeys(calls, 0) for s in stages + ("rest",)}
+    split = {st: dict.fromkeys(calls, 0) for st in tuple(names) + ("rest",)}
+    ran = dict(memsets=0, copies=0, kernels={})
     for e in prof.events():
-        if e.name in calls:
-            split[stage_of(e)][e.name] += 1
-    for s in split:
-        split[s]["launches"] = split[s]["cudaLaunchKernel"] + \
-            split[s]["cudaLaunchKernelExC"]
-    for s in ("sort", "chain_round", "walk_sort", "walk_round"):
-        if n[s] and not split[s]["launches"]:
-            raise SystemExit(f"launch_split gave the {s} stage's {n[s]} calls "
-                             f"no launch: {split}")
-    per = dict(
-        chain_round=(split["chain_round"]["launches"] +
-                     split["sort"]["launches"]) / max(n["chain_round"], 1),
-        sort=split["sort"]["launches"] / max(n["sort"], 1),
-        walk_pool_chain_round=(split["walk_round"]["launches"] +
-                               split["walk_sort"]["launches"])
-        / max(n["walk_round"], 1),
-        walk_sort=split["walk_sort"]["launches"] / max(n["walk_sort"], 1))
-    return dict(split=split, calls=n, launches_per_round=per,
-                launches=sum(v["launches"] for v in split.values()))
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            kind = device_kind(e.name)
+            if kind != "kernels":
+                ran[kind] += 1
+                continue
+            m = re.search(r"\b((?:chain|walk|fm)_[a-z_]+_kernel)", e.name)
+            key = m.group(1) if m else ("cub" if "Radix" in e.name else
+                                        "other")
+            ran["kernels"][key] = ran["kernels"].get(key, 0) + 1
+            continue
+        name = next((c for c in calls if e.name.startswith(c)), None)
+        if name:
+            split[stage_of(e)][name] += 1
+    for st in split.values():
+        st["launches"] = st["cudaLaunchKernel"] + \
+            st["cudaLaunchKernelExC"] + st["cudaGraphLaunch"]
+    per, loops = {}, 0
+    for what, round_kernels in (("chain", CHAIN_KERNELS),
+                                ("walk", WALK_KERNELS)):
+        rounds = ran["kernels"].get(f"{what}_loop_cond_kernel", 0)
+        segs = bodies[what]
+        # the profiler may drop a few records in a long process
+        # (fm_measure): each round kernel must have run, and the counts are
+        # reported as seen
+        if len(segs) != n[f"{what}_segment"] or not segs or \
+                split[f"{what}_segment"]["cudaStreamBeginCapture"] or not all(
+                ran["kernels"].get(k, 0) for k in round_kernels) or \
+                not rounds:
+            raise SystemExit(f"launch_split: the {what} loop's graphs ran "
+                             f"no round kernel, or captured anew: {ran} "
+                             f"{segs}")
+        kmax = max(b["kernels"] for b in segs)
+        loops += len(segs) + rounds * kmax if \
+            min(b["kernels"] for b in segs) == kmax else 0
+        per[f"{what}_round"] = dict(
+            rounds=rounds, segments=len(segs), kernels=kmax,
+            kernels_min=min(b["kernels"] for b in segs),
+            memsets=max(b["memsets"] for b in segs),
+            other_nodes=max(b["other"] for b in segs),
+            host_launches_per_segment=split[f"{what}_segment"]["launches"]
+            / len(segs))
+    total = sum(ran["kernels"].values())
+    return dict(split=split, calls=n, per_round=per, ran=ran,
+                ran_kernels=total, loop_kernels=loops,
+                launches=sum(v["launches"] for v in split.values()),
+                syncs=sum(v["cudaStreamSynchronize"] for v in split.values()))
 
 
 def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
@@ -1799,12 +2116,13 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
     log(f"[4] round 1's chain_scan, kernels and plain round in turns: "
         f"{json.dumps(turns)}")
     split = launch_split(seeder, queries)
-    log(f"[4] launches by stage over one {CHUNK}-read chunk: "
-        f"{json.dumps(split)}")
-    if split["launches_per_round"]["chain_round"] > MAX_CHAIN_ROUND_LAUNCHES:
-        raise SystemExit(f"a chain_scan round makes "
-                         f"{split['launches_per_round']['chain_round']:.1f} "
-                         f"launches, more than {MAX_CHAIN_ROUND_LAUNCHES}")
+    log(f"[4] host calls and the card's kernels by stage over one {CHUNK}-"
+        f"read chunk: {json.dumps(split)}")
+    per_round = split["per_round"]["chain_round"]["kernels"]
+    if per_round > MAX_CHAIN_ROUND_KERNELS:
+        raise SystemExit(f"the card runs {per_round:.2f} kernels a "
+                         f"chain_scan round, more than "
+                         f"{MAX_CHAIN_ROUND_KERNELS}")
     return dict(launches_per_chunk=per_chunk, shapes=shapes, turns=turns,
                 split=split, redesign=redesign, **rounds)
 
@@ -1985,6 +2303,10 @@ def walk_time(case, reps: int = 20) -> dict:
     out.update(round_time({n: (run, restore) for n, run in runs.items()},
                           plain, walk_cases.round_work(stats, es, W), reps))
     restore()
+    walk_cuda.key(rd)
+    walk_cuda.sort(rd)
+    out["sort"].update(sort_time(rd, reps))
+    restore()
     del ks, rd, ps
     return out
 
@@ -2032,10 +2354,11 @@ def walk_main_path(l32, cases, split, seeder, queries, builds) -> dict:
         if any(r["max_abs_err"].values()):
             raise SystemExit(f"a walk kernel disagrees with its plain step "
                              f"at {tag}")
-    per_round = split["launches_per_round"]["walk_pool_chain_round"]
-    if per_round > MAX_WALK_ROUND_LAUNCHES:
-        raise SystemExit(f"a walk_pool_chain round makes {per_round:.1f} "
-                         f"launches, more than {MAX_WALK_ROUND_LAUNCHES}")
+    per_round = split["per_round"]["walk_round"]["kernels"]
+    if per_round > MAX_WALK_ROUND_KERNELS:
+        raise SystemExit(f"the card runs {per_round:.2f} kernels a "
+                         f"walk_pool_chain round, more than "
+                         f"{MAX_WALK_ROUND_KERNELS}")
     with walk_cases.EveryRound() as cap:
         seeder.run_flat(queries)
     torch.cuda.synchronize()
@@ -2047,39 +2370,32 @@ def walk_main_path(l32, cases, split, seeder, queries, builds) -> dict:
     del rounds
     means = walk_chunk_means(builds, seeder, queries)
     return dict(launches_per_chunk=per_chunk, shapes=shapes,
-                launches_per_round=per_round, redesign=redesign,
+                kernels_per_round=per_round, redesign=redesign,
                 chunk_means=means)
 
 
 class OldWalkBuild:
     """The kernels of another csrc/walk_chain.cu (--walk-old-source: the
     parent's, or a variant), launched on a WalkRound's Args words: its
-    struct Args must be the port's (walk_cuda._bind checks its size).  Its
-    group's look-back status words are its own, a word a block of 64
-    lanes (enough for group blocks of 64 lanes or more), held for the
-    last round it launched on; every other word is the round's."""
-
-    LANES_PER_WORD = 64
+    struct Args must be the port's or a prefix of it (walk_cuda._bind
+    checks its size).  Its group's look-back status words are the
+    round's own, a word a block of walk_cuda.GROUP_BLOCK lanes: enough for
+    group blocks of that many lanes or more (so that its launches, like
+    the port's, allocate nothing and can be captured in a round's
+    graph)."""
 
     def __init__(self, lib):
         from compseed_tpu_torch.ops import walk_cuda
-        walk_cuda._bind(lib)
+        walk_cuda._bind(lib, prefix=True)
         self.lib = lib
-        self._lb = (None, None)
 
     def _run(self, launcher, rd):
         import ctypes as ct
 
         import torch
-        from compseed_tpu_torch.ops import walk_cuda
-        if self._lb[0] is not rd:
-            self._lb = (rd, torch.zeros(-(-rd.n // self.LANES_PER_WORD) + 1,
-                                        dtype=torch.int64, device=rd.dev))
-        args = (ct.c_longlong * len(rd.args))(*rd.args)
-        args[walk_cuda.ARGS.index("lb_group")] = self._lb[1].data_ptr()
         with torch.cuda.device(rd.dev):
             rc = getattr(self.lib, launcher)(
-                ct.addressof(args),
+                ct.addressof(rd.args),
                 torch.cuda.current_stream(rd.dev).cuda_stream)
         if rc:
             raise SystemExit(f"{launcher} (another walk build): CUDA error "
@@ -2189,6 +2505,28 @@ def chain_chunk_means(builds: dict, seeder, queries,
     return chunk_means("chain", chain_cuda, ("probe", "group", "apply"),
                        CHAIN_KERNELS, builds, seeder, queries,
                        records=("chain_probe_kernel",), turns=turns)
+
+
+def loop_rows(loop_rec, l32, row, prof) -> list:
+    """The loop kernels' rows of the kernel table: launches (captured, a
+    segment's once) in the main path's int32 window; ms, plain_ms and the
+    bound from loop_kernels; max_abs_err also over loop_check's calls
+    (the graph loop against the plain loop); device_ms_profiled: the
+    profiler's mean over one chunk's runs of the kernel."""
+    rows = []
+    for k in LOOP_KERNELS:
+        r = loop_rec["kernels"][k]
+        e = max([r["max_abs_err"]] + [
+            max(c["max_abs_err"].values()) for tag in ("int32", "int64")
+            for c in (loop_rec[tag]["chain_scan"],
+                      loop_rec[tag]["walk_pool_chain"])])
+        rows.append(row(k, LOOP_REPLACES[k], l32[k], e, r["ms"],
+                        r["plain_ms"], r,
+                        source=LOOP_SOURCES[k.split("_")[0]],
+                        loop_ms=r["loop_ms"],
+                        device_ms_profiled=prof.get(k, {}).get(
+                            "device_ms_per_launch")))
+    return rows
 
 
 def walk_rows(walk_rec, l32, row, prof) -> list:
@@ -3277,6 +3615,11 @@ def main() -> None:
     fm_cuda.LIB.load()
     chain_cuda.LIB.load()
     walk_cuda.LIB.load()
+    # CUPTI traces a CUDA graph's kernels only if it was running when the
+    # graph was instantiated: start it before any seeder builds its graphs
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda.synchronize()
     log(f"[1] build: DP kernels {dp_build_s:.2f} s, FM kernels "
         f"{fm_build_s:.2f} s, chain kernels {chain_build_s:.2f} s, walk "
         f"kernels {walk_build_s:.2f} s, with the host tail "
@@ -3481,6 +3824,17 @@ def main() -> None:
     # slot collisions and a full store
     chain_errs, chain_cases_, walk_errs, walk_cases_ = chain_phase2(
         dev, opt, fm, list(reads_arr[:CHUNK]))
+    # the round loops as graphs: every call of the chunk against the plain
+    # loop, int32 and int64; the loop kernels against their plain version
+    t0 = time.time()
+    loop_rec = {tag: loop_check(dev, opt, fm, list(reads_arr[:CHUNK]), force)
+                for tag, force in (("int32", None), ("int64", np.int64))}
+    loop_rec["kernels"] = dict(
+        **loop_kernels(chain_cuda, chain_cases_[(1, CHUNK)]),
+        **loop_kernels(walk_cuda, walk_cases_[(1, 24 * CHUNK)]))
+    log(f"[2] the round loops as graphs against the plain loop, every call "
+        f"of the first chunk ({time.time() - t0:.1f} s): "
+        f"{json.dumps(loop_rec)}")
 
     # ---- phase 3: goldens on the card, each file as one chunk
     fm_t = FMIndex.from_built(build_index(
@@ -3634,7 +3988,8 @@ def main() -> None:
     if l32["bsw_meta_dual_kernel"] <= 0 or l32["probe_add_one_kernel"] <= 0 \
             or l32["fm_chain_walk_kernel"] <= 0 \
             or l32["fm_inv_psi_walk_kernel"] <= 0 \
-            or min(l32[k] for k in CHAIN_KERNELS + WALK_KERNELS) <= 0:
+            or min(l32[k] for k in CHAIN_KERNELS + WALK_KERNELS
+                   + LOOP_KERNELS) <= 0:
         raise SystemExit(f"int32 main path: a kernel was not launched: {l32}")
     if l32["bsw_meta_dual_kernel_i16"] or l32["bsw_extend_kernel_i16"]:
         raise SystemExit("an int16 kernel ran without COMPSEED_BSW_I16=1")
@@ -3652,10 +4007,12 @@ def main() -> None:
     fm_rec["phase2_max_abs_err"] = fm_errs
     fm_rec["main_launches"] = {k: l32[k] for k in FM_KERNELS}
     prof = fm_rec["profile"]
-    chunk_launches = prof["cudaLaunchKernel"] + prof["cudaLaunchKernelExC"]
-    log(f"[4] one {CHUNK}-read chunk: {chunk_launches} launches, "
+    chunk_launches = prof["launches"]
+    log(f"[4] one {CHUNK}-read chunk: {chunk_launches} host launches "
+        f"({prof['cudaGraphLaunch']} of them graphs), "
         f"{prof['cudaStreamSynchronize']} stream syncs, "
-        f"{prof['cudaMemcpyAsync']} async copies")
+        f"{prof['cudaMemcpyAsync']} async copies; the card ran "
+        f"{prof['ran_kernels']} kernels and {prof['ran_memsets']} memsets")
     if chunk_launches > MAX_CHUNK_LAUNCHES or \
             prof["cudaStreamSynchronize"] > MAX_CHUNK_SYNCS or \
             prof["cudaMemcpyAsync"] > MAX_CHUNK_COPIES:
@@ -3664,6 +4021,11 @@ def main() -> None:
                          f"{MAX_CHUNK_COPIES}: {prof}")
     chain_rec = chain_main_path(seeder, list(reads_arr[:CH]), l32,
                                 chain_cases_, chain_build_set)
+    chain_rec["segment_costs"] = costs = segment_costs(
+        seeder, list(reads_arr[:CH]))
+    log(f"[4] the loop graphs' host costs over one {CHUNK}-read chunk: "
+        f"{json.dumps(costs)}")
+    chain_rec["loop"] = loop_rec
     del chain_cases_
     chain_rec["phase2"] = chain_errs
     walk_rec = walk_main_path(l32, walk_cases_, chain_rec["split"], seeder,
@@ -3934,7 +4296,8 @@ def main() -> None:
             probe_row, library_ms=probe_lib_ms, graph_ms=probe_graph_ms,
             library_graph_ms=probe_lib_graph_ms)] + fm_rows(fm_rec, row)
         + chain_rows(chain_rec, l32, row, fm_rec["profile"]["kernels"])
-        + walk_rows(walk_rec, l32, row, fm_rec["profile"]["kernels"])}))
+        + walk_rows(walk_rec, l32, row, fm_rec["profile"]["kernels"])
+        + loop_rows(loop_rec, l32, row, fm_rec["profile"]["kernels"])}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

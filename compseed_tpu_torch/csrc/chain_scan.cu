@@ -4,9 +4,11 @@
 // In the JAX package the round is make_body (compseed_tpu/ops/seedscan.py
 // :1494-1690), run inside jax.lax.while_loop: XLA compiles it into a few
 // fusions around one sort and three scans, and carries the memo in place.
-// These kernels are the port's counterpart of XLA's fusions; the sort stays
-// torch.sort (XLA's sort in the JAX package), the representatives' walk
-// stays fm_chain_walk_kernel (csrc/fm_walk.cu).  One round:
+// These kernels are the port's counterpart of XLA's fusions; the sort is
+// CUB's radix sort over the key's bits (key_sort.cuh; XLA's sort in the JAX
+// package), the representatives' walk fm_chain_walk_kernel
+// (csrc/fm_walk.cu), and the while_loop's cond the loop kernels below: a
+// segment's rounds run as one CUDA graph (loop_graph.cuh).  One round:
 //
 // chain_probe_kernel<T>      a thread a lane, blocks of kProbeBlock
 //   Replaces JAX seedscan.py:1495-1520 (port seedscan.py
@@ -24,7 +26,7 @@
 //   chain_scan carries it in a lane array of its own, lane_rid, which the
 //   compaction moves beside lane0 (the call's first segment: lane_rid0
 //   itself); the probe reads it beside the lane's own words.
-// (torch.sort of the keys, stable: the lanes in slot order)
+// (the sort of the keys, stable: the lanes in slot order; key_sort.cuh)
 // chain_group_kernel<T>      one thread a sorted position
 //   Replaces JAX :1521-1563 (_chain_group_plain).  Group heads over the
 //   sorted lanes (a live miss whose (window, l, s) differs from its
@@ -119,7 +121,10 @@
 //     block wrote alone (up to Uw - n_w of 32,768), are written by the
 //     probe, a thread each, lane 0's words read beside the lane's own.
 // A round is four launches of its own (the walk's included), one pass over
-// the lanes each on every SM, with no copy of the memo or the pool.
+// the lanes each on every SM, with no copy of the memo or the pool, then the
+// cond kernel (chain_loop_entry_kernel tests a segment's first round,
+// chain_loop_cond_kernel counts each round and tests the next, both one
+// thread: loop_step, and cudaGraphSetConditional inside a graph).
 //
 // The launchers take the arguments as one array of 64-bit words, the
 // struct Args below (ops/chain_cuda.py::ARGS names them in order); they
@@ -143,6 +148,9 @@
 #define CS_HD inline
 #define CS_UNROLL
 #endif
+
+#include "key_sort.cuh"
+#include "loop_graph.cuh"
 
 namespace {
 
@@ -174,9 +182,18 @@ struct Args {
   long long w, Uw, W, L, H, M, GP, nq, r3, advance, min_len, max_intv,
       idx64;
   // each lane's read id (w), lane_rid0[lane0[i]], which chain_scan
-  // carries through its compaction beside lane0; last, so that an
-  // earlier build of this source reads a prefix of the words
+  // carries through its compaction beside lane0; after the words above,
+  // so that an earlier build of this source reads a prefix of the words
   long long lane_rid;
+  // the sort (key_sort.cuh): sorted keys (w), the lane indices 0..w-1
+  // (int64), its temporary storage and size in bytes, the key's bits
+  long long sorted_key, iota, sort_tmp, sort_bytes, key_bits;
+  // the segment's loop (loop_graph.cuh): the call's round counter (one
+  // int32), the live count the segment starts with (one int32), the
+  // next segment's width, RCAP, the live-lane histogram (RCAP int32, or
+  // 0), the WHILE node's condition handle (0 outside a graph) and the
+  // condition's last value (one int32)
+  long long rnd, live_in, nxtw, rcap, hist, cond, go;
 };
 
 template <typename T>
@@ -742,6 +759,23 @@ CS_HD void pool_close(const View<T>& v, const Args& a, long long cursor,
   v.ctr[3] = (povf0 != 0 || c > a.GP) ? 1 : 0;
 }
 
+// The loop's test (loop_graph.cuh::loop_test), the one body of the entry
+// kernel (before a segment's first round: the live count the segment
+// starts with, copied where the apply kernel leaves it) and of the cond
+// kernel (the last of a round: the round counted, the apply kernel's live
+// count).  Returns whether the next round runs, also left in *go.
+CS_HD bool loop_step(const Args& a, bool entry) {
+  int32_t* rnd = (int32_t*)a.rnd;
+  int32_t* sc = (int32_t*)a.sc;
+  if (entry)
+    sc[2] = *(const int32_t*)a.live_in;
+  else
+    *rnd += 1;
+  const bool go = loop_test(*rnd, sc[2], a.nxtw, a.rcap, (int32_t*)a.hist);
+  *(int32_t*)a.go = go ? 1 : 0;
+  return go;
+}
+
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
 // The kernels: a lane (a sorted position) a thread, blocks of
@@ -898,6 +932,17 @@ __global__ void __launch_bounds__(kApplyBlock) chain_apply_kernel(
     pool_close(v, a, cursor + upto, povf0);
 }
 
+// The loop's entry and cond kernels, one thread each: loop_step, and the
+// WHILE node's condition set from it inside a graph.
+__device__ __forceinline__ void loop_set(const Args& a, bool entry) {
+  const bool go = loop_step(a, entry);
+  if (a.cond) cudaGraphSetConditional((cudaGraphConditionalHandle)a.cond, go);
+}
+
+__global__ void chain_loop_entry_kernel(const Args a) { loop_set(a, true); }
+
+__global__ void chain_loop_cond_kernel(const Args a) { loop_set(a, false); }
+
 long long blocks_for(long long n, int block) {
   return (n + block - 1) / block;
 }
@@ -923,8 +968,22 @@ int launch(int which, const Args& a, cudaStream_t st) {
       chain_group_kernel<T>
           <<<blocks_for(a.w, kGroupBlock), kGroupBlock, 0, st>>>(a);
       break;
-    default:
+    case 2:
       launch_apply<T>(a, st);
+      break;
+    case 3: {
+      const int e = key_sort((const int32_t*)a.key, (int32_t*)a.sorted_key,
+                             (const int64_t*)a.iota, (int64_t*)a.order, a.w,
+                             (int)a.key_bits, (void*)a.sort_tmp,
+                             a.sort_bytes, st);
+      if (e) return e;
+      break;
+    }
+    case 4:
+      chain_loop_entry_kernel<<<1, 1, 0, st>>>(a);
+      break;
+    default:
+      chain_loop_cond_kernel<<<1, 1, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -934,6 +993,8 @@ int launch_any(int which, const long long* words, void* stream) {
   memcpy(&a, words, sizeof(Args));
   if (a.w <= 0) return 0;
   if (a.W < 1 || a.W > kMaxW || a.Uw < 1 || a.Uw > a.w)
+    return (int)cudaErrorInvalidValue;
+  if (which == 3 && (a.key_bits < 1 || a.key_bits > 32 || !a.sort_tmp))
     return (int)cudaErrorInvalidValue;
   return a.idx64 ? launch<int64_t>(which, a, (cudaStream_t)stream)
                  : launch<int32_t>(which, a, (cudaStream_t)stream);
@@ -1008,6 +1069,7 @@ int host_any(int which, const long long* words) {
   memcpy(&a, words, sizeof(Args));
   if (a.w <= 0) return 0;
   if (a.W < 1 || a.W > kMaxW || a.Uw < 1 || a.Uw > a.w) return -1;
+  if (which == 3 && (a.key_bits < 1 || a.key_bits > 32)) return -1;
   const bool i64 = a.idx64 != 0;
   switch (which) {
     case 0:
@@ -1016,8 +1078,15 @@ int host_any(int which, const long long* words) {
     case 1:
       i64 ? host_group<int64_t>(a) : host_group<int32_t>(a);
       break;
-    default:
+    case 2:
       i64 ? host_apply<int64_t>(a) : host_apply<int32_t>(a);
+      break;
+    case 3:
+      key_sort_host((const int32_t*)a.key, (int32_t*)a.sorted_key,
+                    (int64_t*)a.order, a.w, (int)a.key_bits);
+      break;
+    default:
+      loop_step(a, which == 4);
   }
   return 0;
 }
@@ -1036,6 +1105,22 @@ extern "C" int chain_group_launch(const long long* a, void* stream) {
 extern "C" int chain_apply_launch(const long long* a, void* stream) {
   return launch_any(2, a, stream);
 }
+extern "C" int chain_sort_launch(const long long* a, void* stream) {
+  return launch_any(3, a, stream);
+}
+extern "C" int chain_loop_entry_launch(const long long* a, void* stream) {
+  return launch_any(4, a, stream);
+}
+extern "C" int chain_loop_cond_launch(const long long* a, void* stream) {
+  return launch_any(5, a, stream);
+}
+
+// The sort's temporary storage for n keys of `bits` bits.
+extern "C" long long chain_sort_bytes(long long n, int bits) {
+  return key_sort_bytes(n, bits);
+}
+
+LOOP_GRAPH_ENTRIES(chain)
 
 // The name of a CUDA error code, for the wrapper's messages.
 extern "C" const char* chain_cuda_error_name(int code) {
@@ -1047,6 +1132,13 @@ extern "C" const char* chain_cuda_error_name(int code) {
 extern "C" int chain_probe_host(const long long* a) { return host_any(0, a); }
 extern "C" int chain_group_host(const long long* a) { return host_any(1, a); }
 extern "C" int chain_apply_host(const long long* a) { return host_any(2, a); }
+extern "C" int chain_sort_host(const long long* a) { return host_any(3, a); }
+extern "C" int chain_loop_entry_host(const long long* a) {
+  return host_any(4, a);
+}
+extern "C" int chain_loop_cond_host(const long long* a) {
+  return host_any(5, a);
+}
 
 // slot_hash for n keys (window words, l and s sign-extended to int64).
 extern "C" void chain_slot_hash_host(const long long* wv, const long long* l,

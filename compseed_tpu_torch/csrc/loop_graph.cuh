@@ -1,0 +1,199 @@
+// A segment's round loop as one CUDA graph, shared by the round sources
+// chain_scan.cu (chain_scan) and walk_chain.cu (walk_pool_chain).
+//
+// In the JAX package each segment of both loops is a jax.lax.while_loop
+// (compseed_tpu/ops/seedscan.py:1726 and :734-738): the TPU tests the
+// condition rnd < RCAP && sum(alive) > nxtw itself and the host waits on
+// nothing inside a call.  Here the loop is a graph with a WHILE
+// conditional node (CUDA 12.4 and later): an entry kernel sets the node's
+// condition from the live count the segment starts with, and the body (a
+// round's launches, captured from the caller's stream) ends with a
+// one-thread kernel that counts the round, reads the live count the apply
+// kernel left and sets the condition again.  The host launches the graph
+// once a segment and never reads the live count.
+//
+// loop_test is the condition itself, for the kernels and their host
+// loops.  The graph is built by stream capture, as PyTorch builds its own
+// conditional nodes: the outer graph is captured from one non-blocking
+// stream (the entry kernel), the WHILE node is added after what that
+// capture holds so far, and its body graph is captured from a second
+// stream; both captures are thread-local, so launches of other threads
+// (the alignment tail's DP beside the seeding worker) stay out of them.
+// A body must not allocate: the graph names the addresses it was captured
+// with until it is destroyed (ops/cuda_lib.py guards every capture).
+
+#pragma once
+
+#include <cstdint>
+
+#ifdef __CUDACC__
+#define LG_HD __host__ __device__ __forceinline__
+#else
+#define LG_HD inline
+#endif
+
+// Whether round `rnd` of a segment runs: rnd < rcap && live > nxtw, the
+// JAX loop's cond; when it does and `hist` is given (chain_scan's
+// report_rounds), hist[rnd] = live, the live lanes before the round.
+LG_HD bool loop_test(int32_t rnd, int32_t live, long long nxtw,
+                     long long rcap, int32_t* hist) {
+  const bool go = rnd < rcap && live > nxtw;
+  if (go && hist) hist[rnd] = live;
+  return go;
+}
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+
+namespace loop_graph {
+
+// One segment's graph as it is built and run.  `open` counts the captures
+// in progress: 1 the outer graph, 2 its body too.
+struct State {
+  cudaStream_t outer, child;
+  cudaGraph_t graph, body;
+  cudaGraphExec_t exec;
+  int open;
+};
+
+// Start capturing the outer graph from `outer`; *handle gets the WHILE
+// node's condition handle, created in that graph (the entry and cond
+// kernels take it as an argument, so it exists before they are captured).
+inline int begin(State* s, cudaStream_t outer, cudaStream_t child,
+                 unsigned long long* handle) {
+  *s = State{outer, child, nullptr, nullptr, nullptr, 0};
+  cudaError_t e =
+      cudaStreamBeginCapture(outer, cudaStreamCaptureModeThreadLocal);
+  if (e != cudaSuccess) return (int)e;
+  s->open = 1;
+  cudaStreamCaptureStatus status;
+  cudaGraph_t g;
+  e = cudaStreamGetCaptureInfo(outer, &status, nullptr, &g, nullptr, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  cudaGraphConditionalHandle h;
+  e = cudaGraphConditionalHandleCreate(&h, g, 0, 0);
+  *handle = (unsigned long long)h;
+  return (int)e;
+}
+
+// Add the WHILE node after everything captured from `outer` so far, make
+// it the capture's only dependency, and start capturing its body graph
+// from the child stream.
+inline int body(State* s, unsigned long long handle) {
+  cudaStreamCaptureStatus status;
+  cudaGraph_t g;
+  const cudaGraphNode_t* deps;
+  size_t n_deps;
+  cudaError_t e = cudaStreamGetCaptureInfo(s->outer, &status, nullptr, &g,
+                                           &deps, &n_deps);
+  if (e != cudaSuccess) return (int)e;
+  cudaGraphNodeParams p = {};
+  p.type = cudaGraphNodeTypeConditional;
+  p.conditional.handle = (cudaGraphConditionalHandle)handle;
+  p.conditional.type = cudaGraphCondTypeWhile;
+  p.conditional.size = 1;
+  cudaGraphNode_t node;
+  e = cudaGraphAddNode(&node, g, deps, n_deps, &p);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaStreamUpdateCaptureDependencies(s->outer, &node, 1,
+                                          cudaStreamSetCaptureDependencies);
+  if (e != cudaSuccess) return (int)e;
+  s->body = p.conditional.phGraph_out[0];
+  e = cudaStreamBeginCaptureToGraph(s->child, s->body, nullptr, nullptr, 0,
+                                    cudaStreamCaptureModeThreadLocal);
+  if (e != cudaSuccess) return (int)e;
+  s->open = 2;
+  return 0;
+}
+
+// The nodes of the body graph by type, what the card runs every round:
+// out[0] kernels, out[1] memsets, out[2] any other.
+inline int body_nodes(const State* s, int* out) {
+  out[0] = out[1] = out[2] = 0;
+  size_t n = 0;
+  cudaError_t e = cudaGraphGetNodes(s->body, nullptr, &n);
+  if (e != cudaSuccess || n == 0) return (int)e;
+  cudaGraphNode_t* nodes = new cudaGraphNode_t[n];
+  e = cudaGraphGetNodes(s->body, nodes, &n);
+  for (size_t i = 0; e == cudaSuccess && i < n; ++i) {
+    cudaGraphNodeType t;
+    e = cudaGraphNodeGetType(nodes[i], &t);
+    ++out[t == cudaGraphNodeTypeKernel   ? 0
+          : t == cudaGraphNodeTypeMemset ? 1
+                                         : 2];
+  }
+  delete[] nodes;
+  return (int)e;
+}
+
+// End both captures and instantiate the outer graph.  (The body graph
+// belongs to its node.)
+inline int end(State* s) {
+  cudaGraph_t g;
+  cudaError_t e = cudaStreamEndCapture(s->child, &g);
+  s->open = 1;
+  if (e != cudaSuccess) return (int)e;
+  e = cudaStreamEndCapture(s->outer, &s->graph);
+  s->open = 0;
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGraphInstantiate(&s->exec, s->graph, 0);
+}
+
+// Free the graph: captures still open (a failed build) are ended first.
+// An exec still running on the card is destroyed when it has finished.
+inline void close(State* s) {
+  cudaGraph_t g = nullptr;
+  if (s->open == 2) cudaStreamEndCapture(s->child, &g);
+  g = nullptr;
+  if (s->open >= 1 && cudaStreamEndCapture(s->outer, &g) == cudaSuccess &&
+      g)
+    cudaGraphDestroy(g);
+  if (s->exec) cudaGraphExecDestroy(s->exec);
+  if (s->graph) cudaGraphDestroy(s->graph);
+  *s = State{};
+  cudaGetLastError();                 // a failed capture's sticky code
+}
+
+}  // namespace loop_graph
+
+// The C entries of a round source's loop graphs, named <prefix>_graph_*:
+// streams (two non-blocking streams on the current device, for captures),
+// begin, body, end, launch (on a stream), nodes (body_nodes) and close.
+// Each returns the CUDA error code, close nothing.
+#define LOOP_GRAPH_ENTRIES(prefix)                                          \
+  extern "C" int prefix##_graph_streams(void** outer, void** child) {       \
+    cudaError_t e = cudaStreamCreateWithFlags((cudaStream_t*)outer,         \
+                                              cudaStreamNonBlocking);       \
+    if (e != cudaSuccess) return (int)e;                                    \
+    return (int)cudaStreamCreateWithFlags((cudaStream_t*)child,             \
+                                          cudaStreamNonBlocking);           \
+  }                                                                         \
+  extern "C" int prefix##_graph_begin(void* outer, void* child,             \
+                                      void** state,                         \
+                                      unsigned long long* handle) {         \
+    auto* s = new loop_graph::State{};                                      \
+    *state = s;                                                             \
+    return loop_graph::begin(s, (cudaStream_t)outer, (cudaStream_t)child,   \
+                             handle);                                       \
+  }                                                                         \
+  extern "C" int prefix##_graph_body(void* state,                           \
+                                     unsigned long long handle) {           \
+    return loop_graph::body((loop_graph::State*)state, handle);             \
+  }                                                                         \
+  extern "C" int prefix##_graph_end(void* state) {                          \
+    return loop_graph::end((loop_graph::State*)state);                      \
+  }                                                                         \
+  extern "C" int prefix##_graph_launch(void* state, void* stream) {         \
+    return (int)cudaGraphLaunch(((loop_graph::State*)state)->exec,          \
+                                (cudaStream_t)stream);                      \
+  }                                                                         \
+  extern "C" int prefix##_graph_nodes(void* state, int* out) {              \
+    return loop_graph::body_nodes((loop_graph::State*)state, out);          \
+  }                                                                         \
+  extern "C" void prefix##_graph_close(void* state) {                       \
+    auto* s = (loop_graph::State*)state;                                    \
+    loop_graph::close(s);                                                   \
+    delete s;                                                               \
+  }
+
+#endif  // __CUDACC__

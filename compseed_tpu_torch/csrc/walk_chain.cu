@@ -6,9 +6,12 @@
 // fusions around one sort.  The port rendered it as some 220 PyTorch
 // operations a round (the uint32 mix emulated in int64, every scatter a
 // copy of its destination, four of them pool-long).  These kernels are the
-// port's counterpart of XLA's fusions; the sort stays torch.sort (XLA's
-// sort in the JAX package), the representatives' walk stays
-// fm_chain_walk_kernel (csrc/fm_walk.cu).  One round:
+// port's counterpart of XLA's fusions; the sort is CUB's radix sort over
+// 31 bits (key_sort.cuh; XLA's sort in the JAX package), the
+// representatives' walk fm_chain_walk_kernel (csrc/fm_walk.cu), and the
+// while_loop's cond walk_loop_entry_kernel / walk_loop_cond_kernel (one
+// thread each: loop_step): a width's rounds run as one CUDA graph
+// (loop_graph.cuh).  One round:
 //
 // walk_key_kernel<T>         one thread a lane (and a representative)
 //   Replaces JAX seedscan.py:633-645 (port seedscan.py _walk_key_plain).
@@ -21,7 +24,7 @@
 //   (lane 0's window, k, l and s, not valid: the zero-filled rep_take),
 //   lane 0's words read beside the lane's own; the group kernel then
 //   overwrites only the heads j < n_w.
-// (torch.sort of the keys, stable: the lanes in key order)
+// (the sort of the keys, stable: the lanes in key order; key_sort.cuh)
 // walk_group_kernel<T>       one thread a sorted position
 //   Replaces JAX :646-670 (_walk_group_plain).  Group heads over the
 //   sorted lanes (a live lane whose (window, k, s) differs from its sorted
@@ -48,7 +51,7 @@
 //   a survivor takes the chain's last state and moves W chars down.  A
 //   lane of another group waits a round unchanged.  Representative j adds
 //   its walk's length to calls when valid; the live count after the round
-//   is what the host reads for liveness.
+//   is what the cond kernel tests.
 //
 // T is the index type, int32_t or int64_t (fm.dtype): intervals and the
 // pool's fk, fl, fs are T, and interval arithmetic wraps in T as the
@@ -115,6 +118,9 @@
 #define WC_UNROLL
 #endif
 
+#include "key_sort.cuh"
+#include "loop_graph.cuh"
+
 namespace {
 
 constexpr int kMaxW = 10;                  // a window packs into 30 bits
@@ -151,6 +157,15 @@ struct Args {
   // the window word of a lane before the read (every char 4: the plain
   // version's _ALL4)
   long long all4;
+  // the sort (key_sort.cuh): sorted keys (w), the lane indices 0..w-1
+  // (int64), its temporary storage and size in bytes, the key's bits
+  long long sorted_key, iota, sort_tmp, sort_bytes, key_bits;
+  // the segment's loop (loop_graph.cuh): the call's round counter (one
+  // int32), the live count the segment starts with (one int32), the
+  // next segment's width, RCAP, a live-lane histogram (walk_pool_chain
+  // keeps none: 0), the WHILE node's condition handle (0 outside a graph)
+  // and the condition's last value (one int32)
+  long long rnd, live_in, nxtw, rcap, hist, cond, go;
 };
 
 template <typename T>
@@ -535,6 +550,24 @@ WC_HD int apply_lane(const View<T>& v, const Args& a, long long j, int n_w,
   return 1;
 }
 
+// The loop's test (loop_graph.cuh::loop_test), the one body of the entry
+// kernel (before a segment's first round: the live count the segment
+// starts with, copied where the apply kernel leaves it) and of the cond
+// kernel (the last of a round: the round counted, the apply kernel's live
+// count).  Returns whether the next round runs, also left in *go.
+WC_HD bool loop_step(const Args& a, bool entry) {
+  int32_t* rnd = (int32_t*)a.rnd;
+  int32_t* sc = (int32_t*)a.sc;
+  if (entry)
+    sc[kScLive] = *(const int32_t*)a.live_in;
+  else
+    *rnd += 1;
+  const bool go =
+      loop_test(*rnd, sc[kScLive], a.nxtw, a.rcap, (int32_t*)a.hist);
+  *(int32_t*)a.go = go ? 1 : 0;
+  return go;
+}
+
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
 // The kernels: a lane (a sorted position) a thread, blocks of
@@ -648,6 +681,17 @@ __global__ void __launch_bounds__(kApplyBlock) walk_apply_kernel(
                                sums);
 }
 
+// The loop's entry and cond kernels, one thread each: loop_step, and the
+// WHILE node's condition set from it inside a graph.
+__device__ __forceinline__ void loop_set(const Args& a, bool entry) {
+  const bool go = loop_step(a, entry);
+  if (a.cond) cudaGraphSetConditional((cudaGraphConditionalHandle)a.cond, go);
+}
+
+__global__ void walk_loop_entry_kernel(const Args a) { loop_set(a, true); }
+
+__global__ void walk_loop_cond_kernel(const Args a) { loop_set(a, false); }
+
 long long blocks_for(long long n, int block) {
   return (n + block - 1) / block;
 }
@@ -675,8 +719,22 @@ int launch(int which, const Args& a, cudaStream_t st) {
       walk_group_kernel<T>
           <<<blocks_for(a.w, kGroupBlock), kGroupBlock, 0, st>>>(a);
       break;
-    default:
+    case 2:
       launch_apply<T>(a, st);
+      break;
+    case 3: {
+      const int e = key_sort((const int32_t*)a.key, (int32_t*)a.sorted_key,
+                             (const int64_t*)a.iota, (int64_t*)a.order, a.w,
+                             (int)a.key_bits, (void*)a.sort_tmp,
+                             a.sort_bytes, st);
+      if (e) return e;
+      break;
+    }
+    case 4:
+      walk_loop_entry_kernel<<<1, 1, 0, st>>>(a);
+      break;
+    default:
+      walk_loop_cond_kernel<<<1, 1, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -690,6 +748,8 @@ int launch_any(int which, const long long* words, void* stream) {
     return (int)cudaErrorInvalidValue;
   // the apply reads the chain's s rows as vectors of up to 16 bytes
   if (which == 2 && (a.cs & 15)) return (int)cudaErrorMisalignedAddress;
+  if (which == 3 && (a.key_bits < 1 || a.key_bits > 32 || !a.sort_tmp))
+    return (int)cudaErrorInvalidValue;
   return a.idx64 ? launch<int64_t>(which, a, (cudaStream_t)stream)
                  : launch<int32_t>(which, a, (cudaStream_t)stream);
 }
@@ -748,6 +808,7 @@ int host_any(int which, const long long* words) {
   if (a.W < 1 || a.W > kMaxW || a.Uw < 1 || a.w >= INT32_MAX ||
       a.Uw >= INT32_MAX || a.n_rw < 1)
     return -1;
+  if (which == 3 && (a.key_bits < 1 || a.key_bits > 32)) return -1;
   const bool i64 = a.idx64 != 0;
   switch (which) {
     case 0:
@@ -756,8 +817,15 @@ int host_any(int which, const long long* words) {
     case 1:
       i64 ? host_group<int64_t>(a) : host_group<int32_t>(a);
       break;
-    default:
+    case 2:
       i64 ? host_apply<int64_t>(a) : host_apply<int32_t>(a);
+      break;
+    case 3:
+      key_sort_host((const int32_t*)a.key, (int32_t*)a.sorted_key,
+                    (int64_t*)a.order, a.w, (int)a.key_bits);
+      break;
+    default:
+      loop_step(a, which == 4);
   }
   return 0;
 }
@@ -776,6 +844,22 @@ extern "C" int walk_group_launch(const long long* a, void* stream) {
 extern "C" int walk_apply_launch(const long long* a, void* stream) {
   return launch_any(2, a, stream);
 }
+extern "C" int walk_sort_launch(const long long* a, void* stream) {
+  return launch_any(3, a, stream);
+}
+extern "C" int walk_loop_entry_launch(const long long* a, void* stream) {
+  return launch_any(4, a, stream);
+}
+extern "C" int walk_loop_cond_launch(const long long* a, void* stream) {
+  return launch_any(5, a, stream);
+}
+
+// The sort's temporary storage for n keys of `bits` bits.
+extern "C" long long walk_sort_bytes(long long n, int bits) {
+  return key_sort_bytes(n, bits);
+}
+
+LOOP_GRAPH_ENTRIES(walk)
 
 // The name of a CUDA error code, for the wrapper's messages.
 extern "C" const char* walk_cuda_error_name(int code) {
@@ -787,6 +871,13 @@ extern "C" const char* walk_cuda_error_name(int code) {
 extern "C" int walk_key_host(const long long* a) { return host_any(0, a); }
 extern "C" int walk_group_host(const long long* a) { return host_any(1, a); }
 extern "C" int walk_apply_host(const long long* a) { return host_any(2, a); }
+extern "C" int walk_sort_host(const long long* a) { return host_any(3, a); }
+extern "C" int walk_loop_entry_host(const long long* a) {
+  return host_any(4, a);
+}
+extern "C" int walk_loop_cond_host(const long long* a) {
+  return host_any(5, a);
+}
 
 // walk_mix for n keys (window words, k and s sign-extended to int64).
 extern "C" void walk_mix_host(const long long* rw, const long long* k,

@@ -2,9 +2,17 @@
 against their plain steps (used by chip_smoke.py and
 tests/test_torch_cuda.py).
 
-``RoundCapture`` keeps the state before chosen rounds of the kernel path
-while a run goes through it (the main path's own rounds at its own
-widths), ``EveryRound`` before every round; ``lossy`` turns such a
+``RoundCapture`` keeps the state before chosen rounds of a run (the
+main path's own rounds at its own widths; the run goes through the plain
+round, whose states are the kernels' bit for bit: on a card the kernels
+run a segment's rounds as one graph, and the host sees no state between
+them), ``EveryRound`` before every round; ``CallCapture`` keeps every
+call's whole-call form (its arguments, the state before its first
+segment, and its outputs after the last) as the kernel path ran it, and
+``call_vs_plain`` runs such a call again through the plain loop and
+returns each output's largest difference (``sort_vs_torch``, given to it
+as ``each_round``, holds the round's sort to torch.sort on every round
+of the call); ``lossy`` turns such a
 state into one whose table is 1,024 slots (slot collisions everywhere)
 and whose store is all but full; ``narrow`` cuts one to its first lanes;
 ``padded`` leaves a quarter of its lanes alive and lets each lead a
@@ -36,45 +44,48 @@ def clone_state(st: dict) -> dict:
 
 
 class RoundCapture:
-    """While active, keeps (fm, constants, state, w, Uw) before the first
-    round of every width of every chain_scan call made through the
-    kernels, up to ``limit`` states, numbered by call: ``states[(call,
-    w)]``.  A round loop of another seedscan entry names its entry, its
-    kernel round, its state's clone and its width (``width(st, sizes)``,
-    sizes: the round's arguments between the state and ``held``).  With
+    """While active, runs every chain_scan call through the plain round
+    (``seedscan._chain_round`` patched) and keeps (fm, constants, state,
+    w, Uw) before the first round of every width of every call, up to
+    ``limit`` states, numbered by call: ``states[(call, w)]``.  A round
+    loop of another seedscan entry names its entry, its dispatch, its
+    plain round, its state's clone and its width (``width(st, sizes)``,
+    sizes: the round's arguments after the state).  With
     ``every_round`` set (``EveryRound``) it keeps every round's state,
     keyed by call and by round within the call, from 1."""
 
     every_round = False
 
     def __init__(self, limit: int = 8, entry: str = "chain_scan",
-                 kernels: str = "_chain_round_kernels", clone=None,
+                 dispatch: str = "_chain_round",
+                 plain: str = "_chain_round_plain", clone=None,
                  width=lambda st, sizes: sizes[0]):
         self.limit = limit
         self.states = {}
         self.calls = 0
-        self._names = (entry, kernels)
+        self._names = (entry, dispatch, plain)
         self._clone = clone or clone_state
         self._width = width
         self._rounds = {}
 
     def __enter__(self):
-        entry, kernels = self._names
-        self._entry, self._round = getattr(tss, entry), getattr(tss, kernels)
+        entry, dispatch, plain = self._names
+        self._entry = getattr(tss, entry)
+        self._dispatch = getattr(tss, dispatch)
+        plain_round = getattr(tss, plain)
 
         def call(*a, **kw):
             self.calls += 1
             return self._entry(*a, **kw)
 
-        def rnd(fm, c, st, *sizes_held):
-            sizes = sizes_held[:-1]
+        def rnd(fm, c, st, *sizes):
             key = self.key(st, sizes)
             if key not in self.states and len(self.states) < self.limit:
                 self.states[key] = (fm, c, self._clone(st), *sizes)
-            return self._round(fm, c, st, *sizes_held)
+            return plain_round(fm, c, st, *sizes)
 
         setattr(tss, entry, call)
-        setattr(tss, kernels, rnd)
+        setattr(tss, dispatch, lambda dev: rnd)
         return self
 
     def key(self, st, sizes) -> tuple:
@@ -86,9 +97,9 @@ class RoundCapture:
         return self.calls, self._width(st, sizes)
 
     def __exit__(self, *exc):
-        entry, kernels = self._names
+        entry, dispatch, _ = self._names
         setattr(tss, entry, self._entry)
-        setattr(tss, kernels, self._round)
+        setattr(tss, dispatch, self._dispatch)
 
 
 class EveryRound(RoundCapture):
@@ -100,6 +111,125 @@ class EveryRound(RoundCapture):
 
     def __init__(self, limit: int = 128):
         super().__init__(limit)
+
+
+def _clone_args(x):
+    """A call's argument with its tensors cloned (dicts and tuples too)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_args(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone_args(v) for v in x)
+    return x
+
+
+# each entry's outputs by name, the memo's keys for chain_scan's dict
+CALL_OUTPUTS = dict(
+    chain_scan=("pool", "cursor", "ovf", "fq", "fc", "memo", "rnd",
+                "alive_hist"),
+    walk_pool_chain=("death", "fk", "fl", "fs", "ovf", "calls", "ngrp"))
+
+
+class CallCapture:
+    """While active, keeps every call of ``entry`` (chain_scan or
+    walk_pool_chain) as the caller's path runs it, up to ``limit``:
+    ``calls``, a list of (args, kwargs, outputs), the arguments (the
+    state the call's first segment starts from) cloned before the call
+    and the outputs cloned after it.  With ``report_rounds`` a
+    chain_scan call runs with report_rounds on (its round count and
+    live-lane histogram kept; the caller gets what it asked for)."""
+
+    def __init__(self, entry: str = "chain_scan", limit: int = 16,
+                 report_rounds: bool = True):
+        self.entry, self.limit, self.calls = entry, limit, []
+        self.report = report_rounds and entry == "chain_scan"
+
+    def __enter__(self):
+        self._fn = fn = getattr(tss, self.entry)
+
+        def call(*a, **kw):
+            keep = len(self.calls) < self.limit
+            if not keep:
+                return fn(*a, **kw)
+            a0, kw0 = _clone_args(a), _clone_args(kw)
+            kwr = dict(kw, report_rounds=True) if self.report else kw
+            kw0 = dict(kw0, **({"report_rounds": True} if self.report
+                               else {}))
+            out = fn(*a, **kwr)
+            self.calls.append((a0, kw0, _clone_args(out)))
+            return out[:6] if self.report and not kw.get(
+                "report_rounds") else out
+
+        setattr(tss, self.entry, call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(tss, self.entry, self._fn)
+
+
+def _flat_outputs(entry: str, out) -> dict:
+    flat = {}
+    for name, x in zip(CALL_OUTPUTS[entry], out):
+        if isinstance(x, dict):
+            flat.update({f"{name}.{k}": v for k, v in x.items()})
+        else:
+            flat[name] = x
+    return flat
+
+
+def call_vs_plain(entry: str, call, each_round=None) -> dict:
+    """One captured call (CallCapture) run again from its arguments
+    through the plain loop (the entry's ``_chain_round`` /
+    ``_walk_round`` patched to the plain round): {output: max_abs_err}
+    of the captured outputs against the plain loop's.  ``each_round(fm,
+    c, st, *sizes)``, if given, is called before every plain round with
+    its state (which it must not change)."""
+    dispatch, plain = dict(
+        chain_scan=("_chain_round", "_chain_round_plain"),
+        walk_pool_chain=("_walk_round", "_walk_round_plain"))[entry]
+    args, kw, out = call
+    orig, plain_round = getattr(tss, dispatch), getattr(tss, plain)
+
+    def rnd(fm, c, st, *sizes):
+        if each_round is not None:
+            each_round(fm, c, st, *sizes)
+        return plain_round(fm, c, st, *sizes)
+
+    setattr(tss, dispatch, lambda dev: rnd)
+    try:
+        ref = getattr(tss, entry)(*_clone_args(args), **_clone_args(kw))
+    finally:
+        setattr(tss, dispatch, orig)
+    got, want = _flat_outputs(entry, out), _flat_outputs(entry, ref)
+    if set(got) != set(want):
+        raise ValueError(f"{entry}: outputs {sorted(got)} against "
+                         f"{sorted(want)}")
+    return {n: max_err(got[n], want[n]) for n in want}
+
+
+def sort_check(rd, build, errs: list) -> None:
+    """The round's sort (``build.sort``) of the keys its first kernel
+    left, against torch.sort(key, stable=True): one max_abs_err over
+    sorted_key and order appended to ``errs``."""
+    build.sort(rd)
+    sc = rd.scratch
+    want_key, want_order = torch.sort(sc["key"], stable=True)
+    errs.append(max(max_err(sc["sorted_key"], want_key),
+                    max_err(sc["order"], want_order)))
+
+
+def sort_vs_torch(build=chain_cuda):
+    """An ``each_round`` for call_vs_plain: the round's keys by the probe
+    kernel on a copy of the plain loop's state, sorted by the round's sort, against torch.sort; ``errs``
+    collects one max_abs_err a round."""
+    def check(fm, c, st, w, Uw):
+        rd = build.ChainRound(fm, c, clone_state(st), w, Uw)
+        build.probe(rd)
+        sort_check(rd, build, check.errs)
+
+    check.errs = []
+    return check
 
 
 def lossy(case, H: int = 1024, room: int = 200):

@@ -2,30 +2,39 @@
 ``csrc/chain_scan.cu``.
 
 ``seedscan.chain_scan`` runs its round as the plain version,
-``seedscan._chain_round_plain``, for CPU tensors, and otherwise as
-``seedscan._chain_round_kernels``: three hand-written kernels around one
-``torch.sort`` and one ``fm_chain_walk_kernel`` launch,
+``seedscan._chain_round_plain``, in a Python loop for CPU tensors, and
+otherwise each segment as one CUDA graph (``cuda_lib.run_loop``): the
+entry kernel, then a WHILE node whose body is
+``seedscan._chain_round_kernels``, three hand-written kernels around one
+sort and one ``fm_chain_walk_kernel`` launch, and the cond kernel,
 
   ``probe`` -> ``chain_probe_kernel``  (memo probe, slot hash, sort key,
                the representatives' pads);
+  ``sort``  -> CUB's radix sort (csrc/key_sort.cuh: the lanes in slot
+               order, stable, over the key's KEY_BITS bits);
   ``group`` -> ``chain_group_kernel``  (group heads, scan, representatives);
   ``apply`` -> ``chain_apply_kernel``  (insert, apply, push / stop,
                advance, and the pushes to the pool in order; one build a
-               window width W).
+               window width W);
+  ``entry`` -> ``chain_loop_entry_kernel``, ``cond`` ->
+               ``chain_loop_cond_kernel`` (the loop's test: rnd < RCAP and
+               live > the next segment's width; the histogram word).
 
 A ``ChainRound`` holds one segment's launch arguments (the ``Args``
 words of the source, named by ``ARGS`` in order) and its scratch: the
-lane state, the memo, the pool and the counters are updated in place, so
-the arguments stay fixed from round to round, apart from the
-representatives' walk, which ``set_walk`` points to.  The library is
+lane state, the memo, the pool and the counters are updated in place and
+the sort's storage and the representatives' walk are held by the round,
+so the arguments stay fixed from round to round.  The library is
 ``LIB``, an ``ops/cuda_lib.KernelLibrary`` (built with nvcc for sm_90a at
 first use into build/compseed_tpu_torch/libchain_scan.so);
 ``DeviceSeeder`` loads it when it is built on a CUDA device.
 
-``LAUNCHES`` counts kernel launches by kernel, and nothing else.  Every
-launch goes to the device its tensors lie on, on that device's current
-stream, with no synchronisation, under the library's lock (the sharded
-path's worker threads share it); a launch on another device raises.
+``LAUNCHES`` counts kernel launches by kernel (and the sort's, under
+``SORT``), and nothing else: a launch captured into a segment's graph
+counts once, however many rounds the card replays it.  Every launch goes
+to the device its tensors lie on, on that device's current stream, with
+no synchronisation, under the library's lock (the sharded path's worker
+threads share it); a launch on another device raises.
 """
 
 from __future__ import annotations
@@ -52,20 +61,36 @@ ARGS = (
     "lb_group", "lb_apply", "sc",
     "w", "Uw", "W", "L", "H", "M", "GP", "nq", "r3", "advance", "min_len",
     "max_intv", "idx64",
-    "lane_rid")
+    "lane_rid",
+    "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits",
+    "rnd", "live_in", "nxtw", "rcap", "hist", "cond", "go")
 _AT = {n: i for i, n in enumerate(ARGS)}
 
 KERNELS = ("chain_probe_kernel", "chain_group_kernel", "chain_apply_kernel")
+LOOP_KERNELS = ("chain_loop_entry_kernel", "chain_loop_cond_kernel")
+SORT = "chain_sort"         # CUB's radix sort, a library call
 PROBE_BLOCK = 256           # threads a block of the probe (a lane each)
 BLOCK = 256                 # threads a block of the group
 APPLY_BLOCK = 64            # threads a block of the apply (a lane each)
 
 
 def _bind(lib, prefix: bool = False) -> None:
-    bind_round(lib, KERNELS, "chain_args_words", ARGS, prefix)
+    """Bind the launchers; ``prefix``: another build of the source whose
+    Args is a prefix of ARGS (its round kernels only)."""
+    if prefix:
+        bind_round(lib, KERNELS, "chain_args_words", ARGS, prefix)
+    else:
+        bind_round(lib, KERNELS + LOOP_KERNELS + (SORT,), "chain_args_words",
+                   ARGS, graphs="chain")
 
 
-LIB = KernelLibrary("chain_scan.cu", KERNELS, _bind, "chain_cuda_error_name")
+def key_bits(H: int) -> int:
+    """The bits of a chain key: a live miss's slot (below H) or H."""
+    return H.bit_length()
+
+
+LIB = KernelLibrary("chain_scan.cu", KERNELS + LOOP_KERNELS + (SORT,), _bind,
+                    "chain_cuda_error_name")
 LAUNCHES = LIB.launches
 build_library = LIB.build
 
@@ -88,7 +113,11 @@ class ChainRound(RoundArgs):
     ``lane_rlen0``, ``row_id0`` (int32, by original lane), ``mh0`` (index
     dtype), ``winflat`` (int64), ``nxt`` (R, L) int32, ``qflat`` uint8,
     and the sizes ``W``, ``L``, ``GP``, ``r3``, ``advance``, ``min_len``,
-    ``max_intv``.  The kernels update the state in place."""
+    ``max_intv``.  The kernels update the state in place.  The round
+    holds the sort's storage (``init_sort``, over ``key_bits(H)`` bits)
+    and the representatives' walk (``walk``, which the apply kernel
+    reads), and, once ``set_loop`` has named the segment's loop words and
+    ``cuda_lib.run_loop`` has run it on a card, its graph."""
 
     AT = _AT
 
@@ -140,14 +169,14 @@ class ChainRound(RoundArgs):
         def e(n, dtype=i32):
             return torch.empty(n, dtype=dtype, device=dev)
 
-        # scratch, one set per segment; the sort writes sorted_key /
-        # order; the look-back words (a word a block of the apply, the
-        # kernel with the most blocks) and sc start at zero
+        # scratch, one set per segment; the sort writes order (and
+        # sorted_key, init_sort's); the look-back words (a word a block of
+        # the apply, the kernel with the most blocks) and sc start at zero
         n_blocks = -(-w // APPLY_BLOCK)
         self.scratch = dict(
             p_wv=e(w, i64), p_slot=e(w), p_hit=e(w, torch.uint8),
             p_ptr=e(w), p_hk0=e(w, dt), p_hln=e(w), key=e(w),
-            sorted_key=e(w), order=e(w, i64), gidx=e(w),
+            order=e(w, i64), gidx=e(w),
             rep_wv=e(Uw, i64), rep_k=e(Uw, dt), rep_l=e(Uw, dt),
             rep_s=e(Uw, dt), rep_valid=e(Uw, torch.bool), rep_slot=e(Uw),
             lb_group=torch.zeros(n_blocks, dtype=i64, device=dev),
@@ -160,8 +189,7 @@ class ChainRound(RoundArgs):
                                          "ctr")}
         args = (ct.c_longlong * len(ARGS))()
         for n, x in list(self._held.items()) + list(self.scratch.items()):
-            if n != "sorted_key":
-                args[_AT[n]] = x.data_ptr()
+            args[_AT[n]] = x.data_ptr()
         for n in ("lane_rid0", "lane_rlen0", "mh0", "row_id0", "winflat",
                   "nxt", "qflat"):
             args[_AT[n]] = const[n].data_ptr()
@@ -176,10 +204,12 @@ class ChainRound(RoundArgs):
                      ("idx64", int(dt == i64))):
             args[_AT[n]] = x
         self.args = args
+        self.init_sort(key_bits(H), _sort_bytes)
+        self.walk = self.walk_out()
 
-    def holds(self, st: dict, w: int) -> bool:
-        """Whether this round was built for ``st``'s tensors at width w."""
-        return w == self.w and all(st[n] is x for n, x in self._held.items())
+
+def _sort_bytes(n: int, bits: int) -> int:
+    return LIB.load().chain_sort_bytes(n, bits)
 
 
 def probe(rd: ChainRound) -> None:
@@ -188,9 +218,10 @@ def probe(rd: ChainRound) -> None:
 
 
 def sort(rd: ChainRound) -> None:
-    """The lanes in slot order (stable), into the round's order array."""
-    s = rd.scratch
-    torch.sort(s["key"], stable=True, out=(s["sorted_key"], s["order"]))
+    """The lanes in slot order (stable, over the key's bits), into the
+    round's sorted_key and order arrays: CUB's radix sort (key_sort.cuh),
+    equal to torch.sort(key, stable=True)."""
+    _launch(SORT, rd.dev, rd.args)
 
 
 def group(rd: ChainRound) -> None:
@@ -202,3 +233,15 @@ def apply(rd: ChainRound) -> None:
     """chain_apply_kernel: inserts, chains applied, lanes advanced, the
     pushes to the pool (cursor, povf); the live count."""
     _launch("chain_apply_kernel", rd.dev, rd.args)
+
+
+def entry(rd: ChainRound) -> None:
+    """chain_loop_entry_kernel: the segment's loop test before its first
+    round (set_loop's words)."""
+    _launch("chain_loop_entry_kernel", rd.dev, rd.args)
+
+
+def cond(rd: ChainRound) -> None:
+    """chain_loop_cond_kernel: the round counted and the loop test, the
+    last launch of a round."""
+    _launch("chain_loop_cond_kernel", rd.dev, rd.args)

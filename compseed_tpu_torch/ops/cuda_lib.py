@@ -1,4 +1,5 @@
-"""The port's libraries of hand-written CUDA kernels: build, load, launch.
+"""The port's libraries of hand-written CUDA kernels: build, load, launch,
+and the round loops' CUDA graphs.
 
 A ``KernelLibrary`` is one source under ``compseed_tpu_torch/csrc/``,
 built with nvcc for sm_90a at first use into
@@ -11,6 +12,13 @@ thread and that device's current stream, raises on a non-zero code and
 counts the launch in ``launches``, and counts nothing else.  Worker
 threads of the sharded path launch side by side, so the counts and the
 one-time load take a lock.
+
+A round source (chain_scan.cu, walk_chain.cu) runs a segment of its loop
+as one ``LoopGraph`` (csrc/loop_graph.cuh): an entry kernel, then a
+WHILE node whose body is one round's launches, captured once from the
+calling thread and replayed on the card until its cond kernel clears the
+condition.  ``run_loop`` builds and launches it; ``NoTorchOps`` guards
+every capture.
 """
 
 from __future__ import annotations
@@ -21,8 +29,10 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -71,18 +81,39 @@ def check_tensor(name, x, dtype, shape, dev) -> None:
         raise ValueError(f"{name} is on {x.device}, expected {dev}")
 
 
+def launcher_of(kernel: str, suffix: str = "_launch") -> str:
+    """The C entry of a round source's kernel (or library call):
+    ``<name>_launch`` for ``<name>_kernel`` or ``<name>``; ``suffix``
+    "_host" names its host loop."""
+    return kernel.removesuffix("_kernel") + suffix
+
+
 def bind_round(lib, kernels, args_words: str, names,
-               prefix: bool = False) -> None:
+               prefix: bool = False, graphs: str | None = None) -> None:
     """Bind a round source's launchers (``<kernel>_launch`` for each
     ``<kernel>_kernel``: its Args words and a stream, returning the CUDA
     error code) and check that its struct Args (``args_words`` names the
     C function that gives its size in words) has one word for each of
     ``names``; with ``prefix``, for each of the first of them (another
-    build of the source whose launchers read only their own words)."""
+    build of the source whose launchers read only their own words).
+    ``graphs``: the prefix of its loop-graph entries, bound too."""
     for kernel in kernels:
-        fn = getattr(lib, kernel.replace("_kernel", "_launch"))
+        fn = getattr(lib, launcher_of(kernel))
         fn.argtypes = [ct.c_void_p, ct.c_void_p]
         fn.restype = ct.c_int
+    if graphs:
+        p, pp = ct.c_void_p, ct.POINTER(ct.c_void_p)
+        for name, args, res in (
+                ("streams", [pp, pp], ct.c_int),
+                ("begin", [p, p, pp, ct.POINTER(ct.c_ulonglong)], ct.c_int),
+                ("body", [p, ct.c_ulonglong], ct.c_int),
+                ("end", [p], ct.c_int), ("launch", [p, p], ct.c_int),
+                ("nodes", [p, ct.POINTER(ct.c_int)], ct.c_int),
+                ("close", [p], None)):
+            fn = getattr(lib, f"{graphs}_graph_{name}")
+            fn.argtypes, fn.restype = args, res
+        fn = getattr(lib, f"{graphs}_sort_bytes")
+        fn.argtypes, fn.restype = [ct.c_longlong, ct.c_int], ct.c_longlong
     words = getattr(lib, args_words)
     words.argtypes = []
     words.restype = ct.c_int
@@ -96,12 +127,53 @@ class RoundArgs:
     """What the launch arguments of a round's kernels share
     (chain_cuda.ChainRound, walk_cuda.WalkRound): ``args``, the source's
     struct Args as one 64-bit word a field (``AT``: field -> word), kept
-    at fixed addresses from round to round, apart from the
-    representatives' walk, which ``set_walk`` points to.  An instance
-    sets ``args``, ``dev``, ``Uw``, ``W`` and ``_held`` (its state's
-    tensors, ``k`` among them)."""
+    at fixed addresses from round to round: every word a round changes
+    lives in device memory, so one set of words serves every round of a
+    segment and a graph of them.  An instance sets ``args``, ``dev``,
+    ``w`` (its lanes), ``Uw``, ``W``, ``scratch`` and ``_held`` (its
+    state's tensors, ``k`` among them); ``init_sort`` and ``set_loop``
+    add the sort's and the loop's words, ``set_walk`` the walk's."""
 
     AT: dict = {}
+    graph = None            # the segment's LoopGraph, once run on a card
+
+    def init_sort(self, bits: int, sort_bytes) -> None:
+        """The round's sort: sorted_key (w) int32, the lane indices iota
+        (w) int64 and CUB's temporary storage, ``sort_bytes(w, bits)``
+        bytes on a card (none on the CPU, whose host build sorts in
+        place), allocated once here, outside any capture."""
+        dev, w = self.dev, self.w
+        nbytes = int(sort_bytes(w, bits)) if dev.type == "cuda" else 0
+        s = self.scratch
+        s["sorted_key"] = torch.empty(w, dtype=torch.int32, device=dev)
+        s["iota"] = torch.arange(w, dtype=torch.int64, device=dev)
+        s["sort_tmp"] = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                                    device=dev)
+        for n in ("sorted_key", "iota", "sort_tmp"):
+            self.args[self.AT[n]] = s[n].data_ptr()
+        self.args[self.AT["sort_bytes"]] = nbytes
+        self.args[self.AT["key_bits"]] = bits
+        self.key_bits = bits
+
+    def set_loop(self, rnd, live_in, nxtw: int, rcap: int,
+                 hist=None) -> None:
+        """The segment's loop words: ``rnd`` the call's round counter and
+        ``live_in`` the live count the segment starts with (each one int32
+        on the device), the next segment's width, RCAP and the live-lane
+        histogram (RCAP int32) or None; the condition's last value goes to
+        ``go`` (one int32 of the round's own)."""
+        i32 = torch.int32
+        check_tensor("rnd", rnd, i32, (), self.dev)
+        check_tensor("live_in", live_in, i32, (), self.dev)
+        if hist is not None:
+            check_tensor("hist", hist, i32, (rcap,), self.dev)
+        self.go = torch.zeros((), dtype=i32, device=self.dev)
+        self._loop = (rnd, live_in, hist)       # kept alive with the args
+        for n, x in (("rnd", rnd.data_ptr()), ("live_in", live_in.data_ptr()),
+                     ("nxtw", nxtw), ("rcap", rcap),
+                     ("hist", 0 if hist is None else hist.data_ptr()),
+                     ("cond", 0), ("go", self.go.data_ptr())):
+            self.args[self.AT[n]] = x
 
     def set_walk(self, ck, cl, cs, ln) -> None:
         """Point the apply kernel at the representatives' walk: ck, cl, cs
@@ -114,6 +186,186 @@ class RoundArgs:
             check_tensor(name, x, xdt, shape, self.dev)
             self.args[self.AT[name]] = x.data_ptr()
         self._walk = (ck, cl, cs, ln)           # kept alive until replaced
+
+    def walk_out(self) -> tuple:
+        """The representatives' walk as the round holds it: ck, cl, cs
+        (Uw, W) in the index dtype and ln (Uw,) int32, allocated once (a
+        captured walk writes into them every round) and set_walk."""
+        dt, dev = self._held["k"].dtype, self.dev
+        out = tuple(torch.empty((self.Uw, self.W), dtype=dt, device=dev)
+                    for _ in range(3)) + \
+            (torch.empty(self.Uw, dtype=torch.int32, device=dev),)
+        self.set_walk(*out)
+        return out
+
+    def close(self) -> None:
+        """Free the segment's graph (after its last launch: a graph still
+        running on the card is freed when it ends)."""
+        if self.graph is not None:
+            self.graph.close()
+            self.graph = None
+
+
+class NoTorchOps(TorchDispatchMode):
+    """Raises on any torch operation the calling thread issues while
+    active: what guards a capture.  A captured body may launch only the
+    port's kernels: a torch allocation in it (every torch operation with
+    an output is one, torch.empty included) would give the graph an
+    address that the caching allocator can hand to other work while the
+    graph still writes there.  A dispatch mode is the thread's own, so the
+    alignment tail's allocations on the main thread, beside a seeding
+    worker's capture, do not count (the device-wide allocation count of
+    torch.cuda.memory_stats would)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        raise RuntimeError(f"{func} inside a CUDA graph capture: a captured "
+                           f"round body must not allocate or run torch "
+                           f"operations")
+
+
+_STREAMS: dict = {}             # device index -> free (outer, child) pairs
+_STREAMS_LOCK = threading.Lock()
+# per thread: ``recording``, the (library, kernel) launches of a capture
+_TLS = threading.local()
+_CAPTURE_LOCK = threading.Lock()
+
+
+class LoopGraph:
+    """One segment's loop as a CUDA graph (csrc/loop_graph.cuh): ``begin``
+    starts capturing the outer graph and returns the WHILE node's
+    condition handle; the entry kernel is launched with ``outer`` current;
+    ``body`` adds the WHILE node and starts capturing its body, whose
+    launches go out with ``child`` current; ``end`` ends both captures
+    and instantiates; ``launch`` runs it on a stream; ``nodes`` counts
+    the body's nodes by type; ``close`` frees it.
+    The two capture streams are non-blocking streams of the library's own,
+    taken from a pool for the capture only.  ``capture_s`` and
+    ``instantiate_s``: the host seconds of the captures and of ending them
+    and instantiating."""
+
+    def __init__(self, lib: KernelLibrary, prefix: str, dev: torch.device):
+        self._c = lib._lib or lib.load()
+        self._p = prefix
+        self.dev = dev
+        self._state = ct.c_void_p()
+        self._pair = None
+        self.capture_s = self.instantiate_s = 0.0
+
+    def _fn(self, name: str):
+        return getattr(self._c, f"{self._p}_graph_{name}")
+
+    def _check(self, what: str, err: int) -> None:
+        if err:
+            name = getattr(self._c, f"{self._p}_cuda_error_name")(err)
+            raise RuntimeError(f"{self._p} loop graph: {what} failed on "
+                               f"{self.dev}: CUDA error {err} "
+                               f"({name.decode()})")
+
+    def begin(self) -> int:
+        with _STREAMS_LOCK:
+            free = _STREAMS.setdefault(self.dev.index, [])
+            pair = free.pop() if free else None
+        if pair is None:
+            o, c = ct.c_void_p(), ct.c_void_p()
+            with torch.cuda.device(self.dev):
+                self._check("stream creation",
+                            self._fn("streams")(ct.byref(o), ct.byref(c)))
+            pair = (o.value, c.value)
+        self._pair = pair
+        self.outer, self.child = (torch.cuda.ExternalStream(x, self.dev)
+                                  for x in pair)
+        self._t0 = time.perf_counter()
+        handle = ct.c_ulonglong()
+        with torch.cuda.device(self.dev):
+            self._check("begin", self._fn("begin")(
+                pair[0], pair[1], ct.byref(self._state), ct.byref(handle)))
+        return handle.value
+
+    def body(self, handle: int) -> None:
+        self._check("the WHILE node", self._fn("body")(self._state, handle))
+
+    def end(self) -> None:
+        t1 = time.perf_counter()
+        self._check("end / instantiate", self._fn("end")(self._state))
+        self._release()
+        t2 = time.perf_counter()
+        self.capture_s, self.instantiate_s = t1 - self._t0, t2 - t1
+
+    def launch(self, stream) -> None:
+        self._check("launch", self._fn("launch")(self._state,
+                                                 stream.cuda_stream))
+
+    def nodes(self) -> dict:
+        """The body graph's nodes by type (after ``end``): what the card
+        runs every round."""
+        out = (ct.c_int * 3)()
+        self._check("counting the body's nodes",
+                    self._fn("nodes")(self._state, out))
+        return dict(kernels=out[0], memsets=out[1], other=out[2])
+
+    def _release(self) -> None:
+        if self._pair is not None:
+            with _STREAMS_LOCK:
+                _STREAMS[self.dev.index].append(self._pair)
+            self._pair = None
+
+    def close(self) -> None:
+        if self._state:
+            self._fn("close")(self._state)
+            self._state = None
+        self._release()
+
+    def __enter__(self):
+        """The capture: the launches made until ``__exit__`` are recorded
+        as the graph's (``launched``); a capture that raises closes the
+        graph (ending any capture still open) and the error propagates."""
+        _TLS.recording = self.launched = []
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        _TLS.recording = None
+        if exc_type is not None:
+            self.close()
+        return False
+
+
+
+def run_loop(rd: RoundArgs, lib: KernelLibrary, prefix: str, entry,
+             body) -> None:
+    """Run a segment's rounds: ``entry(rd)`` launches the entry kernel,
+    ``body(rd)`` one round's launches ending with the cond kernel.  On a
+    card: one LoopGraph, captured under NoTorchOps the first time (kept
+    as ``rd.graph`` until ``rd.close()``: a round kept across calls runs
+    its graph again) and launched on the current stream; the host waits
+    on nothing.  Every launch of the graph counts each kernel captured in
+    it once more in its library's launches.  For CPU tensors (the
+    sources' host builds, which the CPU tests put in place of the
+    launches; the walk there is its plain version) the same launches run
+    in turn while the condition's last value, ``rd.go``, is set."""
+    if rd.dev.type != "cuda":
+        entry(rd)
+        while int(rd.go):
+            body(rd)
+        return
+    g = rd.graph
+    if g is None:
+        # one capture at a time in the process (a thread's own streams and
+        # thread-local mode already keep captures apart; this keeps the
+        # host code they run, CUB's among it, off concurrent paths); a
+        # capture that fails is closed by the graph's __exit__
+        with _CAPTURE_LOCK, LoopGraph(lib, prefix, rd.dev) as g:
+            handle = rd.args[rd.AT["cond"]] = g.begin()
+            with NoTorchOps(), torch.cuda.stream(g.outer):
+                entry(rd)
+            g.body(handle)
+            with NoTorchOps(), torch.cuda.stream(g.child):
+                body(rd)
+            g.end()
+        rd.graph = g
+    else:
+        for kernel_lib, kernel in g.launched:
+            kernel_lib.launched(kernel)
+    g.launch(torch.cuda.current_stream(rd.dev))
 
 
 class KernelLibrary:
@@ -161,6 +413,9 @@ class KernelLibrary:
     def launched(self, kernel: str) -> None:
         with self._lock:
             self.launches[kernel] += 1
+        recording = getattr(_TLS, "recording", None)
+        if recording is not None:           # a capture: the graph's kernels
+            recording.append((self, kernel))
 
     def launch(self, kernel: str, dev: torch.device, launcher: str,
                *args) -> None:
@@ -179,10 +434,9 @@ class KernelLibrary:
 
     def launch_args(self, kernel: str, dev: torch.device, args) -> None:
         """Launch ``kernel`` of a round source through its C launcher
-        (``_kernel`` replaced by ``_launch``) with the Args words ``args``
+        (``launcher_of``) with the Args words ``args``
         (a ctypes array) on ``dev``, which must be a CUDA device."""
         if dev.type != "cuda":
             raise ValueError(f"{kernel}: the kernel needs CUDA tensors, "
                              f"got {dev}")
-        self.launch(kernel, dev, kernel.replace("_kernel", "_launch"),
-                    ct.addressof(args))
+        self.launch(kernel, dev, launcher_of(kernel), ct.addressof(args))

@@ -127,11 +127,19 @@ def _launch_extend_sel(fm, ik, c, is_back: bool) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 def chain_walk(fm, wv: torch.Tensor, W: int, k, l, s, valid,
-               is_back: bool = False, stop_s=None):
+               is_back: bool = False, stop_s=None, out=None):
     """W pure extensions per lane by ``fm_chain_walk_kernel``, over the
     3-bit codes of its window word wv (U,) from (k, l, s) (U,).  Returns
-    (ck, cl, cs (U, W), ln (U,) int32), as ``seedscan._chain_walk_plain``."""
+    (ck, cl, cs (U, W), ln (U,) int32), as ``seedscan._chain_walk_plain``.
+    With ``out`` (those four, held by a round) it writes them and
+    returns them, and takes its inputs as the kernel reads them (wv
+    int64, k, l, s and stop_s in the index dtype, valid bool, all
+    contiguous: checked, never converted), so that it allocates nothing
+    and can be captured into a round's graph."""
     dt = fm.dtype
+    if out is not None:
+        return _launch_chain_walk(fm, wv, W, k, l, s, valid, is_back,
+                                  stop_s, out)
     return _launch_chain_walk(
         fm, wv.to(torch.int64).contiguous(), W, k.to(dt).contiguous(),
         l.to(dt).contiguous(), s.to(dt).contiguous(),
@@ -140,7 +148,7 @@ def chain_walk(fm, wv: torch.Tensor, W: int, k, l, s, valid,
 
 
 def _launch_chain_walk(fm, wv, W: int, k, l, s, valid, is_back: bool,
-                       stop_s):
+                       stop_s, out=None):
     if not 1 <= W <= MAX_W:
         raise ValueError(f"chain_walk: W={W} is outside [1, {MAX_W}]")
     dev = _cuda_device("chain_walk", k.device)
@@ -154,8 +162,15 @@ def _launch_chain_walk(fm, wv, W: int, k, l, s, valid, is_back: bool,
     if stop_s is not None:
         _check("stop_s", stop_s, dt, (U,), dev)
     index = _index_args(fm, dev)
-    ck, cl, cs = (torch.empty((U, W), dtype=dt, device=dev) for _ in range(3))
-    ln = torch.empty(U, dtype=torch.int32, device=dev)
+    if out is None:
+        ck, cl, cs = (torch.empty((U, W), dtype=dt, device=dev)
+                      for _ in range(3))
+        ln = torch.empty(U, dtype=torch.int32, device=dev)
+    else:
+        ck, cl, cs, ln = out
+        for name, x in (("ck", ck), ("cl", cl), ("cs", cs)):
+            _check(name, x, dt, (U, W), dev)
+        _check("ln", ln, torch.int32, (U,), dev)
     if U:
         LIB.launch("fm_chain_walk_kernel", dev, "fm_chain_walk_launch",
                    *index, wv.data_ptr(), k.data_ptr(), l.data_ptr(),

@@ -21,7 +21,11 @@ Every step is the JAX package's, operation for operation, so pools,
 death positions, memo trajectories and every counter are bit-equal.  Where
 JAX runs a device while loop, this runs a Python loop that tests the same
 condition at the same points (the segment widths and stage budgets set
-the shapes, and so the rounds, that the counters count); a vmapped
+the shapes, and so the rounds, that the counters count), apart from
+the two default loops on a card: each segment of ``chain_scan`` and
+``walk_pool_chain`` is one CUDA graph whose WHILE node replays the
+round's kernels while a kernel's test of that condition holds
+(``cuda_lib.run_loop``), so the host never waits inside them; a vmapped
 per-read loop becomes one batched program over lanes with a per-lane
 ``done`` mask.  JAX's drop-mode scatters become ``_drop_set``: indices
 past the end land in a dump row that is cut off, so the real rows are
@@ -31,13 +35,15 @@ int64 tensors holding uint32 / uint64 words (``ops/bits.py``).
 
 from __future__ import annotations
 
+import collections
 import os
+import threading
 
 import numpy as np
 import torch
 
 from compseed_tpu_torch.ops import fm as dfm
-from compseed_tpu_torch.ops import chain_cuda, fm_cuda, walk_cuda
+from compseed_tpu_torch.ops import chain_cuda, cuda_lib, fm_cuda, walk_cuda
 from compseed_tpu_torch.ops.bits import (add64, as_i32, lsr64, mul32,
                                          mul64, sub64, u32)
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex
@@ -570,10 +576,15 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
     the shared chain states.  The lane width drops by ``segs`` divisors
     with stable rank-scatter compaction.
 
-    The round is ``_walk_round_plain`` for CPU tensors and
-    ``_walk_round_kernels`` (csrc/walk_chain.cu) otherwise; the kernels
-    write the results in place into copies of the pool's columns, made
-    once per call: the caller's pool is never written.
+    The round is ``_walk_round_plain`` in a Python loop for CPU tensors;
+    otherwise each width is one CUDA graph (``_walk_segment``: the
+    round, ``_walk_round_kernels`` of csrc/walk_chain.cu, replayed on the
+    card while its loop test holds, as the JAX package's while_loop runs
+    on the TPU), and the host waits on nothing; the kernels write the
+    results in place into copies of the pool's columns, made once per
+    call: the caller's pool is never written.  The tensors the graphs
+    name are kept for the next call of the same shape on the same thread
+    (``_held``, as chain_scan's); the results returned are copies.
 
     pool: (GP, >=7) rows (cols k, l, s, end, pivot, rid, valid[, task]).
     Returns (death, fk, fl, fs (GP,), ovf, calls, n_groups)."""
@@ -581,7 +592,7 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
     dev = pool.device
     GP = pool.shape[0]
     run_round = _walk_round(dev)
-    kernels = run_round is not _walk_round_plain
+    kernels = run_round is _walk_round_kernels
     valid = pool[:, 6] != 0
     mh_all = torch.ones(GP, dtype=dt, device=dev) if mh is None else \
         mh.to(dt).clamp(min=1)
@@ -606,17 +617,11 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
         alive=torch.arange(CAPW, device=dev) < n_valid,
         death=torch.full((GP,), -2, dtype=_I32, device=dev),
         fk=pool[:, 0], fl=pool[:, 1], fs=pool[:, 2])
-    if kernels:
-        # one copy of the pool's columns per call, then written in place
-        for kk in ("fk", "fl", "fs"):
-            st[kk] = st[kk].clone(memory_format=torch.contiguous_format)
     # the counters [calls, ngrp] are views of one tensor: the kernels add
     # into it in place, the plain round replaces them
     st["ctr"] = torch.zeros(2, dtype=_I32, device=dev)
-    st["calls"], st["ngrp"] = st["ctr"]
-    st["live"] = st["alive"].sum()
+    st["live"] = st["alive"].sum().to(_I32)
     c = dict(rwflat=rwflat.contiguous(), L=L, W=W, all4=_ALL4)
-    held = {}                   # the kernels' launch arguments, by segment
     RCAP = L + 2
 
     widths = []
@@ -625,21 +630,76 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
         if not widths or w2 < widths[-1]:
             widths.append(w2)
     rnd = 0
+    h = None
+    if kernels:
+        # the kernels run on tensors kept for calls of this shape on this
+        # thread, which the widths' graphs name: the call's state is
+        # copied in (the pool's k, l, s columns so, once per call) and
+        # written in place
+        h = _held(("walk", dev, id(fm), GP, CAPW, L, W,
+                   tuple(c["rwflat"].shape), tuple(widths)),
+                  lambda: _Held(fm, dict(
+                      {n: st[n] for n in _WALK_RESULTS + ("ctr", "live")},
+                      rwflat=c["rwflat"], rnd=st["live"]),
+                      {n: st[n] for n in WALK_LANE_KEYS},
+                      [st["k"].shape[0]] + widths[1:]))
+        c.update(h.load(c, ("rwflat",)))
+        st.update(h.load(st, _WALK_RESULTS + ("ctr", "live")))
+        st.update(h.load_lanes(st, WALK_LANE_KEYS))
+        rnd_d = h.t["rnd"].zero_()
+    st["calls"], st["ngrp"] = st["ctr"]
     for ix, w in enumerate(widths):
         nxtw = widths[ix + 1] if ix + 1 < len(widths) else 0
-        # the one host sync a round, as the JAX loop tests its cond
-        while rnd < RCAP and int(st["live"]) > nxtw:
-            st = run_round(fm, c, st, max(w // 2, 64), held)
-            rnd += 1
+        Uw = max(w // 2, 64)
+        if kernels:
+            h.rounds[ix] = _walk_segment(fm, c, st, Uw, dict(
+                rnd=rnd_d, nxtw=nxtw, rcap=RCAP), h.rounds[ix])
+        else:
+            # the one host sync a round, as the JAX loop tests its cond
+            while rnd < RCAP and int(st["live"]) > nxtw:
+                st = run_round(fm, c, st, Uw)
+                rnd += 1
         if nxtw:
             lalive = st["alive"]
-            tgt2 = torch.where(lalive, torch.cumsum(lalive, 0) - 1, nxtw)
+            tgt2 = torch.where(lalive, torch.cumsum(lalive, 0) - 1,
+                               nxtw).clamp(max=nxtw)
             for kk in WALK_LANE_KEYS:
-                st[kk] = _drop_set(torch.zeros(nxtw, dtype=st[kk].dtype,
-                                               device=dev), tgt2, st[kk])
+                # row nxtw: the dump row, cut off (_drop_set's)
+                buf = h.lanes[ix + 1][kk].zero_() if kernels else \
+                    st[kk].new_zeros(nxtw + 1)
+                buf[tgt2] = st[kk]
+                st[kk] = buf[:nxtw]
     ovf = ovf | st["alive"].any()
+    if kernels:
+        # the caller's own, not the kept tensors
+        return tuple(st[n].clone() for n in _WALK_RESULTS) + (ovf,) + \
+            tuple(st["ctr"].clone())
     return (st["death"], st["fk"], st["fl"], st["fs"], ovf, st["calls"],
             st["ngrp"])
+
+
+_WALK_RESULTS = ("death", "fk", "fl", "fs")
+
+
+def loop_step_plain(rd, entry: bool) -> None:
+    """The loop kernels' plain version (the entry kernel's with
+    ``entry``, else the cond kernel's), in PyTorch operations on a
+    round's loop words (``set_loop``'s) and its live count, in place and
+    without a host sync: the entry copies the live count the segment
+    starts with, the cond counts the round; then go = rnd < RCAP and
+    live > nxtw, the test of the Python loops above, and when it holds
+    hist[rnd] = live."""
+    rnd, live_in, hist = rd._loop
+    nxtw, rcap = rd.args[rd.AT["nxtw"]], rd.args[rd.AT["rcap"]]
+    if entry:
+        rd.live.copy_(live_in)
+    else:
+        rnd.add_(1)
+    go = (rnd < rcap) & (rd.live > nxtw)
+    rd.go.copy_(go.to(_I32))
+    if hist is not None:
+        j = rnd.clamp(0, rcap - 1).to(_I64).view(1)
+        hist.index_put_((j,), torch.where(go, rd.live, hist[j]).view(1))
 
 
 def _walk_round(dev: torch.device):
@@ -650,36 +710,50 @@ def _walk_round(dev: torch.device):
     return _walk_round_kernels
 
 
-def _walk_round_kernels(fm: DeviceFMIndex, c: dict, st: dict, Uw: int,
-                        held: dict) -> dict:
-    """One round of walk_pool_chain by the kernels of csrc/walk_chain.cu
-    (ops/walk_cuda.py): key, the stable sort by key, group, the
-    representatives' backward walk, apply.  The state is updated in place
-    (the results are walk_pool_chain's own copies); ``st["live"]`` is the
-    live count after the round.  ``held`` keeps the segment's launch
-    arguments (a ``WalkRound``) from round to round of one call."""
-    rd = held.get("round")
-    if rd is None or not rd.holds(st, Uw):
-        rd = held["round"] = walk_cuda.WalkRound(fm, c, st, Uw)
+def _walk_segment(fm: DeviceFMIndex, c: dict, st: dict, Uw: int,
+                  loop: dict, rd=None) -> walk_cuda.WalkRound:
+    """One width of walk_pool_chain's loop through the kernels: its
+    WalkRound (launch arguments, scratch, held walk; ``rd``, the one an
+    earlier call of this shape built on the same kept tensors, or built
+    here) and its rounds while the loop test holds (``loop``: the call's
+    round counter ``rnd``, the next width ``nxtw``, ``rcap``), by
+    ``cuda_lib.run_loop``: one graph launch on a card, the graph captured
+    at the round's first run.  The state is updated in place;
+    ``st["live"]`` becomes the live count the width leaves.  Returns the
+    round, which holds the graph until ``close()``."""
+    if rd is None:
+        rd = walk_cuda.WalkRound(fm, c, st, Uw)
+        rd.set_loop(loop["rnd"], st["live"], loop["nxtw"], loop["rcap"])
+    cuda_lib.run_loop(rd, walk_cuda.LIB, "walk", walk_cuda.entry,
+                      lambda r: _walk_round_kernels(fm, c, r))
+    st["live"] = rd.live
+    return rd
+
+
+def _walk_round_kernels(fm: DeviceFMIndex, c: dict,
+                        rd: walk_cuda.WalkRound) -> None:
+    """One round of walk_pool_chain's launches on a segment's WalkRound
+    (ops/walk_cuda.py), the body of its loop graph: key, the stable sort
+    by key, group, the representatives' backward walk into the round's
+    held buffers, apply, and the cond kernel.  They allocate nothing and
+    update the state in place (the results are walk_pool_chain's own
+    copies)."""
     walk_cuda.key(rd)
     walk_cuda.sort(rd)
     walk_cuda.group(rd)
     s = rd.scratch
-    rd.set_walk(*_chain_walk(fm, s["rep_rw"], c["W"], s["rep_k"],
-                             s["rep_l"], s["rep_s"], s["rep_valid"],
-                             is_back=True, stop_s=s["gmin"]))
+    _chain_walk(fm, s["rep_rw"], c["W"], s["rep_k"], s["rep_l"], s["rep_s"],
+                s["rep_valid"], is_back=True, stop_s=s["gmin"], out=rd.walk)
     walk_cuda.apply(rd)
-    st["live"] = rd.live
-    return st
+    walk_cuda.cond(rd)
 
 
-def _walk_round_plain(fm: DeviceFMIndex, c: dict, st: dict, Uw: int,
-                      held: dict | None = None) -> dict:
+def _walk_round_plain(fm: DeviceFMIndex, c: dict, st: dict,
+                      Uw: int) -> dict:
     """One round of walk_pool_chain in PyTorch operations, the JAX
     package's make_body operation for operation (the kernels' plain
     version): returns the new state.  Its steps are the kernels' plain
-    steps: key, the sort and group, the representatives' walk, apply.
-    (``held``, the kernels' launch arguments, is not used.)"""
+    steps: key, the sort and group, the representatives' walk, apply."""
     kr = _walk_key_plain(c, st)
     order = torch.argsort(kr["key"], stable=True)
     gr = _walk_group_plain(st, kr, order, Uw)
@@ -1175,21 +1249,30 @@ def _slot_hash(wv, l, s, H: int) -> torch.Tensor:
 
 
 def _chain_walk(fm: DeviceFMIndex, wv, W: int, k, l, s, valid,
-                is_back: bool = False, stop_s=None):
+                is_back: bool = False, stop_s=None, out=None):
     """W pure extensions from (k, l, s) over the window chars packed 3 bits
     each into ``wv`` (U,) (char j at bits 3j).  Forward mode extends on
     the complement (c = 3 - seq[i], comp_seed.cpp:78), backward mode on
     the char itself.  Recording stops at the first ambiguous base; ln < W
     encodes that offset.  With ``stop_s`` a backward rep also stops once
     its interval drops below the group's smallest min_hits.
-    Returns (ck, cl, cs (U, W) post-extension states, ln (U,)).
+    Returns (ck, cl, cs (U, W) post-extension states, ln (U,)), written
+    into ``out`` when given (a round's held buffers).
     ``fm_chain_walk_kernel`` for CUDA tensors, ``_chain_walk_plain`` for
     CPU tensors."""
     if k.device.type == "cpu":
-        return _chain_walk_plain(fm, wv, W, k, l, s, valid, is_back=is_back,
+        walk = _chain_walk_plain(fm, wv, W, k, l, s, valid, is_back=is_back,
                                  stop_s=stop_s)
+        if out is None:
+            return walk
+        for o, x in zip(out, walk):
+            o.copy_(x)
+        return out
+    if out is None:
+        return fm_cuda.chain_walk(fm, wv, W, k, l, s, valid,
+                                  is_back=is_back, stop_s=stop_s)
     return fm_cuda.chain_walk(fm, wv, W, k, l, s, valid, is_back=is_back,
-                              stop_s=stop_s)
+                              stop_s=stop_s, out=out)
 
 
 def _chain_walk_plain(fm: DeviceFMIndex, wv, W: int, k, l, s, valid,
@@ -1250,10 +1333,19 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     key and one representative per group walks the chain (u_cap bounds
     the walk width; excess groups wait a round).  The loop is segmented
     (stable compaction to narrower widths), exactly like the JAX loop.
-    The round is ``_chain_round_plain`` for CPU tensors and
-    ``_chain_round_kernels`` (csrc/chain_scan.cu) otherwise; the kernels
-    update a copy of the memo, made once per call, in place: the
-    caller's memo is never written.
+    The round is ``_chain_round_plain`` in a Python loop for CPU
+    tensors; otherwise each segment is one CUDA graph
+    (``_chain_segment``: the round, ``_chain_round_kernels`` of
+    csrc/chain_scan.cu, replayed on the card while its loop test holds,
+    as the JAX package's while_loop runs on the TPU), and the host waits
+    on nothing; the kernels update a copy of the memo, made once per
+    call, in place: the caller's memo is never written.
+
+    On a card (and wherever the kernels run) a call's tensors, which the
+    segments' graphs name, are kept for the next call of the same shape
+    on the same thread (``_held``): each call copies its state into them
+    and runs the graphs captured by the first; what it returns are
+    copies.
 
     Returns (pool (GP, 7), n_rows, ovf, fq, fc, memo'); with
     ``report_rounds`` (a profiling diagnostic) also the number of rounds
@@ -1267,7 +1359,7 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     U = min(U, n_lanes)
     RCAP = 3 * L + 16
     run_round = _chain_round(dev)
-    kernels = run_round is not _chain_round_plain
+    kernels = run_round is _chain_round_kernels
 
     qflat = qarr.reshape(-1)
     nq = qflat.shape[0]
@@ -1309,9 +1401,6 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
         lane_rid=c["lane_rid0"], pivot=pivot, pos=pivot + 1, alive=alive,
         k=torch.where(alive, ik0[:, 0], 0), l=torch.where(alive, ik0[:, 1], 0),
         s=torch.where(alive, ik0[:, 2], 0))
-    if kernels:
-        # one copy of the memo per call, then updated in place
-        st.update({kk: memo[kk].clone() for kk in MEMO_KEYS})
     # the pool columns and the counters [fq, fc, cursor, povf] are views
     # of one tensor each: the kernels write them in place, the plain
     # round replaces them
@@ -1320,7 +1409,6 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     st.update(zip(POOL_KEYS, st["pool"]))
     st.update(zip(("fq", "fc", "cursor", "povf"), st["ctr"]))
     st["live"] = alive.sum().to(_I32)
-    held = {}                   # the kernels' launch arguments, by segment
 
     # segment widths: each continuation is narrower, entered once the
     # alive count fits (bit-exact: lanes are only re-indexed)
@@ -1333,20 +1421,55 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     rnd = 0
     alive_hist = torch.zeros(RCAP, dtype=_I32, device=dev) \
         if report_rounds else None
+    h = None
+    if kernels:
+        # the kernels run on tensors kept for calls of this shape on this
+        # thread, which the segments' graphs name: the call's state is
+        # copied in (the memo so, once per call) and updated in place
+        h = _held(("chain", dev, id(fm), R, L, n_lanes, U, GP, W, RCAP,
+                   tuple(segs), mode, advance, min_len, max_intv,
+                   tuple(memo["tbl"].shape), tuple(memo["cst"].shape),
+                   report_rounds),
+                  lambda: _Held(fm, dict(
+                      {n: c[n] for n in _CHAIN_CONSTS},
+                      **{n: st[n] for n in MEMO_KEYS + ("pool", "ctr",
+                                                        "live")},
+                      rnd=st["live"], hist=alive_hist),
+                      {n: st[n] for n in CHAIN_LANE_KEYS}, segs))
+        c = dict(c, **h.load(c, _CHAIN_CONSTS))
+        st.update(h.load(st, MEMO_KEYS + ("pool", "ctr", "live")))
+        st.update(h.load_lanes(st, CHAIN_LANE_KEYS))
+        st.update(zip(POOL_KEYS, st["pool"]))
+        st.update(zip(("fq", "fc", "cursor", "povf"), st["ctr"]))
+        alive_hist = h.t["hist"]
+        if alive_hist is not None:
+            alive_hist.zero_()
+        rnd_d = h.t["rnd"].zero_()
     for ix, w in enumerate(segs):
         nxtw = segs[ix + 1] if ix + 1 < len(segs) else 0
         Uw = min(U, w)
-        while rnd < RCAP:
+        if kernels:
+            h.rounds[ix] = _chain_segment(fm, c, st, w, Uw, dict(
+                rnd=rnd_d, nxtw=nxtw, rcap=RCAP, hist=alive_hist),
+                h.rounds[ix])
+        while not kernels and rnd < RCAP:
             # the one host sync a round, as the JAX loop tests its cond
             n_alive = int(st["live"])
             if n_alive <= nxtw:
                 break
             if report_rounds:
                 alive_hist[rnd] = n_alive
-            st = run_round(fm, c, st, w, Uw, held)
+            st = run_round(fm, c, st, w, Uw)
             rnd += 1
         if nxtw:
-            _compact_lanes(st, nxtw, c["lane_rid0"][:1])
+            _compact_lanes(st, nxtw, c["lane_rid0"][:1],
+                           h.lanes[ix + 1] if kernels else None)
+    if kernels:
+        # the caller's own, not the kept tensors
+        st.update({kk: st[kk].clone() for kk in MEMO_KEYS + ("ctr",)})
+        st.update(zip(("fq", "fc", "cursor", "povf"), st["ctr"]))
+        if report_rounds:
+            rnd_d, alive_hist = rnd_d.clone(), alive_hist.clone()
     ovf = (st["povf"] != 0) | st["alive"].any()
 
     # pushes fill slots 0..cursor-1 contiguously; the (rid, pivot, end)
@@ -1366,15 +1489,19 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     memo_out = {kk: st[kk] for kk in MEMO_KEYS}
     if report_rounds:
         return (pool, st["cursor"], ovf, st["fq"], st["fc"], memo_out,
+                rnd_d if kernels else
                 torch.tensor(rnd, dtype=_I32, device=dev), alive_hist)
     return pool, st["cursor"], ovf, st["fq"], st["fc"], memo_out
 
 
 CHAIN_LANE_KEYS = ("lane0", "lane_rid", "pivot", "pos", "k", "l", "s",
                    "alive")
+_CHAIN_CONSTS = ("lane_rid0", "lane_rlen0", "mh0", "row_id0", "winflat",
+                 "nxt", "qflat")
 
 
-def _compact_lanes(st: dict, w: int, rid_pad: torch.Tensor) -> None:
+def _compact_lanes(st: dict, w: int, rid_pad: torch.Tensor,
+                   out: dict | None = None) -> None:
     """chain_scan's step between segments: each lane array of ``st``
     (CHAIN_LANE_KEYS) cut to w lanes, the live lanes first in their order
     (a stable compaction; bit-exact, lanes are only re-indexed).  The
@@ -1382,15 +1509,101 @@ def _compact_lanes(st: dict, w: int, rid_pad: torch.Tensor) -> None:
     id lane 0's, ``rid_pad`` (lane_rid0[:1]), so that lane_rid stays
     lane_rid0[lane0].  Each array is written as ``_drop_set`` writes,
     over a dump row that is cut off, with the targets computed and
-    clamped once for all of them."""
+    clamped once for all of them: into new tensors, or into ``out``
+    (name -> w + 1 elements: the next segment's kept lanes)."""
     lalive = st["alive"]
     tgt = torch.where(lalive, torch.cumsum(lalive, 0) - 1, w).clamp(max=w)
     for kk in CHAIN_LANE_KEYS:
         # row w: the dump row, cut off
-        buf = rid_pad.repeat(w + 1) if kk == "lane_rid" else \
-            st[kk].new_zeros(w + 1)
+        if out is None:
+            buf = rid_pad.repeat(w + 1) if kk == "lane_rid" else \
+                st[kk].new_zeros(w + 1)
+        elif kk == "lane_rid":
+            buf = out[kk].copy_(rid_pad.expand(w + 1))
+        else:
+            buf = out[kk].zero_()
         buf[tgt] = st[kk]
         st[kk] = buf[:w]
+
+
+# ---------------------------------------------------------------------------
+# The tensors a card's loop graphs name, kept across calls of one shape.
+
+HELD_CALLS = 8              # call shapes a thread keeps (least recent out)
+# thread ident -> (call shape -> _Held), least recently used first; a
+# registry of the module's own, not thread-local storage, so that what a
+# thread kept is freed by a live thread's call, never while the interpreter
+# tears an ending thread down
+_HELD: dict = {}
+_HELD_LOCK = threading.Lock()
+
+
+def _held(key: tuple, make) -> "_Held":
+    """The calling thread's kept tensors for call shape ``key``, made by
+    ``make()`` at its first call; beyond HELD_CALLS shapes the thread's
+    least recently used is dropped, and so is all that threads which have
+    ended kept (their graphs freed: a graph still running on the card is
+    freed when it ends, and its tensors are reused only by work queued
+    after it on the stream).  No thread uses another's."""
+    with _HELD_LOCK:
+        live = {t.ident for t in threading.enumerate()}
+        drop = [h for i in list(_HELD) if i not in live
+                for h in _HELD.pop(i).values()]
+        calls = _HELD.setdefault(threading.get_ident(),
+                                 collections.OrderedDict())
+    h = calls.get(key)
+    if h is None:
+        h = calls[key] = make()
+        while len(calls) > HELD_CALLS:
+            drop.append(calls.popitem(last=False)[1])
+    else:
+        calls.move_to_end(key)
+    for old in drop:
+        old.close()
+    return h
+
+
+def drop_held() -> None:
+    """Free every call shape's kept tensors and graphs of the calling
+    thread (the next call of each shape builds them again)."""
+    with _HELD_LOCK:
+        calls = _HELD.pop(threading.get_ident(), {})
+    for h in calls.values():
+        h.close()
+
+
+class _Held:
+    """One call shape's tensors, kept: ``t`` (name -> a tensor shaped as
+    the template of that name: the call's constants, state and results;
+    a None template stays None), ``lanes`` (per segment of width w: lane
+    name -> w + 1 elements, the last the compaction's dump row), ``rounds``
+    (per segment: its launch arguments and graph, built by the first
+    call) and ``fm``, the index the graphs read, kept with them."""
+
+    def __init__(self, fm, templates: dict, lane_templates: dict, widths):
+        self.fm = fm
+        self.t = {n: None if x is None else torch.empty_like(
+            x, memory_format=torch.contiguous_format)
+            for n, x in templates.items()}
+        self.lanes = [{n: x.new_empty(w + 1)
+                       for n, x in lane_templates.items()} for w in widths]
+        self.rounds = [None] * len(widths)
+
+    def load(self, src: dict, names) -> dict:
+        """``src[name]`` copied into the kept tensor of each name:
+        name -> the kept tensor."""
+        return {n: self.t[n].copy_(src[n]) for n in names}
+
+    def load_lanes(self, src: dict, names) -> dict:
+        """The first segment's lanes copied into its kept lanes: name ->
+        the kept view of the segment's width."""
+        return {n: self.lanes[0][n][:src[n].shape[0]].copy_(src[n])
+                for n in names}
+
+    def close(self) -> None:
+        for rd in self.rounds:
+            if rd is not None:
+                rd.close()
 
 
 def _chain_round(dev: torch.device):
@@ -1401,37 +1614,53 @@ def _chain_round(dev: torch.device):
     return _chain_round_kernels
 
 
-def _chain_round_kernels(fm: DeviceFMIndex, c: dict, st: dict, w: int,
-                         Uw: int, held: dict) -> dict:
-    """One round of chain_scan on w lanes by the kernels of
-    csrc/chain_scan.cu (ops/chain_cuda.py): probe, the stable sort by
-    slot, group, the representatives' walk, apply (with the flush of the
-    pushes).  The state is updated in place (the memo is chain_scan's own
-    copy); ``st["live"]`` is the live count after the round.  ``held``
-    keeps the segment's launch arguments (a ``ChainRound``) from round
-    to round of one call."""
-    rd = held.get("round")
-    if rd is None or not rd.holds(st, w):
-        rd = held["round"] = chain_cuda.ChainRound(fm, c, st, w, Uw)
+def _chain_segment(fm: DeviceFMIndex, c: dict, st: dict, w: int, Uw: int,
+                   loop: dict, rd=None) -> chain_cuda.ChainRound:
+    """One segment of chain_scan's loop through the kernels on w lanes:
+    its ChainRound (launch arguments, scratch, held walk; ``rd``, the one
+    an earlier call of this shape built on the same kept tensors, or
+    built here) and its rounds while the loop test holds (``loop``: the
+    call's round counter ``rnd``, the next segment's width ``nxtw``,
+    ``rcap`` and the histogram ``hist`` or None), by
+    ``cuda_lib.run_loop``: one graph launch on a card, the graph captured
+    at the round's first run.  The state is updated in place;
+    ``st["live"]`` becomes the live count the segment leaves.  Returns
+    the round, which holds the graph until ``close()``."""
+    if rd is None:
+        rd = chain_cuda.ChainRound(fm, c, st, w, Uw)
+        rd.set_loop(loop["rnd"], st["live"], loop["nxtw"], loop["rcap"],
+                    loop["hist"])
+    cuda_lib.run_loop(rd, chain_cuda.LIB, "chain", chain_cuda.entry,
+                      lambda r: _chain_round_kernels(fm, c, r))
+    st["live"] = rd.live
+    return rd
+
+
+def _chain_round_kernels(fm: DeviceFMIndex, c: dict,
+                         rd: chain_cuda.ChainRound) -> None:
+    """One round of chain_scan's launches on a segment's ChainRound
+    (ops/chain_cuda.py), the body of its loop graph: probe, the stable
+    sort by slot, group, the representatives' walk into the round's held
+    buffers, apply (with the flush of the pushes), and the cond kernel.
+    They allocate nothing and update the state in place (the memo is
+    chain_scan's own copy)."""
     chain_cuda.probe(rd)
     chain_cuda.sort(rd)
     chain_cuda.group(rd)
     s = rd.scratch
-    rd.set_walk(*_chain_walk(fm, s["rep_wv"], c["W"], s["rep_k"],
-                             s["rep_l"], s["rep_s"], s["rep_valid"]))
+    _chain_walk(fm, s["rep_wv"], c["W"], s["rep_k"], s["rep_l"], s["rep_s"],
+                s["rep_valid"], out=rd.walk)
     chain_cuda.apply(rd)
-    st["live"] = rd.live
-    return st
+    chain_cuda.cond(rd)
 
 
 def _chain_round_plain(fm: DeviceFMIndex, c: dict, st: dict, w: int,
-                       Uw: int, held: dict | None = None) -> dict:
+                       Uw: int) -> dict:
     """One round of chain_scan on w lanes in PyTorch operations, the
     JAX package's make_body operation for operation (the kernels' plain
     version): returns the new state.  Its steps are the kernels' plain
     steps: probe, the sort and group, the representatives' walk, insert,
-    apply and flush.  (``held``, the kernels' launch arguments, is not
-    used.)"""
+    apply and flush."""
     pr = _chain_probe_plain(fm, c, st)
     order = torch.argsort(pr["key"], stable=True)
     gr = _chain_group_plain(st, pr, order, Uw)

@@ -3,8 +3,10 @@ against their plain steps (used by chip_smoke.py and
 tests/test_torch_cuda.py).
 
 ``RoundCapture`` keeps the state before the first round of each width of
-each walk_pool_chain call of the kernel path while a run goes through it
-(the main path's own rounds at its own widths); ``forced`` writes into
+each walk_pool_chain call while a run goes through the plain round (the
+main path's own rounds at its own widths; chain_cases says why the plain
+round); ``sort_vs_torch`` holds the round's sort to torch.sort on every
+round of a call that chain_cases.call_vs_plain runs again; ``forced`` writes into
 such a state the forms a run rarely shows: two lanes whose keys collide
 while their (window, k, s) differ, a live lane whose key is INT32_MAX and
 one that follows a dead lane of the same (window, k, s); ``capped``
@@ -42,14 +44,29 @@ def clone_state(st: dict) -> dict:
 
 
 class RoundCapture(chain_cases.RoundCapture):
-    """While active, keeps (fm, constants, state, Uw) before the first
-    round of every width of every walk_pool_chain call made through the
-    kernels, up to ``limit`` states, numbered by call and keyed by the
-    lane count: ``states[(call, n)]``."""
+    """While active, runs every walk_pool_chain call through the plain
+    round and keeps (fm, constants, state, Uw) before the first round of
+    every width of every call, up to ``limit`` states, numbered by call
+    and keyed by the lane count: ``states[(call, n)]``."""
 
     def __init__(self, limit: int = 8):
-        super().__init__(limit, "walk_pool_chain", "_walk_round_kernels",
-                         clone_state, lambda st, sizes: st["k"].shape[0])
+        super().__init__(limit, "walk_pool_chain", "_walk_round",
+                         "_walk_round_plain", clone_state,
+                         lambda st, sizes: st["k"].shape[0])
+
+
+def sort_vs_torch(build=walk_cuda):
+    """chain_cases.sort_vs_torch for walk_pool_chain: the round's keys by
+    the key kernel on a copy of the plain loop's state, sorted by the round's
+    sort, against torch.sort; ``errs`` collects one max_abs_err a
+    round."""
+    def check(fm, c, st, Uw):
+        rd = build.WalkRound(fm, c, clone_state(st), Uw)
+        build.key(rd)
+        chain_cases.sort_check(rd, build, check.errs)
+
+    check.errs = []
+    return check
 
 
 class EveryRound(RoundCapture):

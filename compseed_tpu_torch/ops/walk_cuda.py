@@ -2,30 +2,39 @@
 ``csrc/walk_chain.cu``.
 
 ``seedscan.walk_pool_chain`` runs its round as the plain version,
-``seedscan._walk_round_plain``, for CPU tensors, and otherwise as
-``seedscan._walk_round_kernels``: three hand-written kernels around one
-``torch.sort`` and one ``fm_chain_walk_kernel`` launch,
+``seedscan._walk_round_plain``, in a Python loop for CPU tensors, and
+otherwise each segment as one CUDA graph (``cuda_lib.run_loop``): the
+entry kernel, then a WHILE node whose body is
+``seedscan._walk_round_kernels``, three hand-written kernels around one
+sort and one ``fm_chain_walk_kernel`` launch, and the cond kernel,
 
   ``key``   -> ``walk_key_kernel``    (window word, mix, sort key; the
                representatives past n_w, lane 0's);
+  ``sort``  -> CUB's radix sort (csrc/key_sort.cuh: the lanes in key
+               order, stable, over the key's KEY_BITS bits);
   ``group`` -> ``walk_group_kernel``  (group heads, scan, the heads'
                representatives, each group's smallest min_hits);
   ``apply`` -> ``walk_apply_kernel``  (deaths to the pool rows, survivors
-               W chars on, calls, the live count).
+               W chars on, calls, the live count);
+  ``entry`` -> ``walk_loop_entry_kernel``, ``cond`` ->
+               ``walk_loop_cond_kernel`` (the loop's test: rnd < RCAP and
+               live > the next width).
 
 A ``WalkRound`` holds one segment's launch arguments (the ``Args`` words
 of the source, named by ``ARGS`` in order) and its scratch: the lane
-state, the pool rows' results and the counters are updated in place, so
-the arguments stay fixed from round to round, apart from the
-representatives' walk, which ``set_walk`` points to.  The library is
+state, the pool rows' results and the counters are updated in place and
+the sort's storage and the representatives' walk are held by the round,
+so the arguments stay fixed from round to round.  The library is
 ``LIB``, an ``ops/cuda_lib.KernelLibrary`` (built with nvcc for sm_90a at
 first use into build/compseed_tpu_torch/libwalk_chain.so);
 ``DeviceSeeder`` loads it when it is built on a CUDA device.
 
-``LAUNCHES`` counts kernel launches by kernel, and nothing else.  Every
-launch goes to the device its tensors lie on, on that device's current
-stream, with no synchronisation, under the library's lock (the sharded
-path's worker threads share it); a launch on another device raises.
+``LAUNCHES`` counts kernel launches by kernel (and the sort's, under
+``SORT``), and nothing else: a launch captured into a segment's graph
+counts once, however many rounds the card replays it.  Every launch goes
+to the device its tensors lie on, on that device's current stream, with
+no synchronisation, under the library's lock (the sharded path's worker
+threads share it); a launch on another device raises.
 """
 
 from __future__ import annotations
@@ -47,12 +56,19 @@ ARGS = (
     "gidx", "rep_rw", "rep_k", "rep_l", "rep_s", "rep_valid", "gmin",
     "ck", "cl", "cs", "ln",
     "lb_group", "sc",
-    "w", "Uw", "W", "L", "n_rw", "GP", "idx64", "all4")
+    "w", "Uw", "W", "L", "n_rw", "GP", "idx64", "all4",
+    "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits",
+    "rnd", "live_in", "nxtw", "rcap", "hist", "cond", "go")
 _AT = {n: i for i, n in enumerate(ARGS)}
 LANE_KEYS = ("k", "l", "s", "rid", "i", "mh", "slot", "alive")
 CALL_KEYS = ("death", "fk", "fl", "fs", "ctr")
 
 KERNELS = ("walk_key_kernel", "walk_group_kernel", "walk_apply_kernel")
+LOOP_KERNELS = ("walk_loop_entry_kernel", "walk_loop_cond_kernel")
+SORT = "walk_sort"          # CUB's radix sort, a library call
+# the bits of a walk key: a live lane's 32-bit mix shifted right by one,
+# or INT32_MAX (csrc/walk_chain.cu, key_lane)
+KEY_BITS = 31
 # threads a block of the group and the apply kernel (csrc/walk_chain.cu:
 # kGroupBlock, kApplyBlock): a sorted position or a lane each
 GROUP_BLOCK = 256
@@ -60,11 +76,18 @@ APPLY_BLOCK = 256
 SC_NW, SC_NU, SC_LIVE, SC_EPOCH = 0, 1, 2, 3    # words of ``sc``
 
 
-def _bind(lib) -> None:
-    bind_round(lib, KERNELS, "walk_args_words", ARGS)
+def _bind(lib, prefix: bool = False) -> None:
+    """Bind the launchers; ``prefix``: another build of the source whose
+    Args is a prefix of ARGS (its round kernels only)."""
+    if prefix:
+        bind_round(lib, KERNELS, "walk_args_words", ARGS, prefix)
+    else:
+        bind_round(lib, KERNELS + LOOP_KERNELS + (SORT,), "walk_args_words",
+                   ARGS, graphs="walk")
 
 
-LIB = KernelLibrary("walk_chain.cu", KERNELS, _bind, "walk_cuda_error_name")
+LIB = KernelLibrary("walk_chain.cu", KERNELS + LOOP_KERNELS + (SORT,), _bind,
+                    "walk_cuda_error_name")
 LAUNCHES = LIB.launches
 build_library = LIB.build
 
@@ -83,7 +106,11 @@ class WalkRound(RoundArgs):
     ``fk``, ``fl``, ``fs`` (index dtype); ``ctr`` (2,) int32 [calls,
     ngrp].  ``const`` holds the call's constants: ``rwflat`` (int64
     window words, R * L), ``L``, ``W`` and ``all4`` (the window word
-    before the read).  The kernels update the state in place."""
+    before the read).  The kernels update the state in place.  The round
+    holds the sort's storage (``init_sort``, over KEY_BITS bits) and the
+    representatives' walk (``walk``, which the apply kernel reads), and,
+    once ``set_loop`` has named the segment's loop words and
+    ``cuda_lib.run_loop`` has run it on a card, its graph."""
 
     AT = _AT
 
@@ -118,17 +145,17 @@ class WalkRound(RoundArgs):
                 ("ctr", st["ctr"], i32, (2,)),
                 ("rwflat", rwflat, i64, rwflat.shape)):
             check_tensor(name, x, xdt, shape, dev)
-        self.dev, self.n, self.Uw, self.W = dev, n, Uw, W
+        self.dev, self.w, self.Uw, self.W = dev, n, Uw, W
 
         def e(m, dtype=i32):
             return torch.empty(m, dtype=dtype, device=dev)
 
-        # scratch, one set per segment; the sort writes sorted_key /
-        # order; the look-back words (one a group block) and sc start at
-        # zero
+        # scratch, one set per segment; the sort writes order (and
+        # sorted_key, init_sort's); the look-back words (one a group
+        # block) and sc start at zero
         n_blocks = -(-n // GROUP_BLOCK)
         self.scratch = dict(
-            rw=e(n, i64), key=e(n), sorted_key=e(n), order=e(n, i64),
+            rw=e(n, i64), key=e(n), order=e(n, i64),
             gidx=e(n), rep_rw=e(Uw, i64), rep_k=e(Uw, dt),
             rep_l=e(Uw, dt), rep_s=e(Uw, dt), rep_valid=e(Uw, torch.bool),
             gmin=e(Uw, dt),
@@ -138,8 +165,7 @@ class WalkRound(RoundArgs):
         self._held = {n_: st[n_] for n_ in LANE_KEYS + CALL_KEYS}
         args = (ct.c_longlong * len(ARGS))()
         for n_, x in list(self._held.items()) + list(self.scratch.items()):
-            if n_ != "sorted_key":
-                args[_AT[n_]] = x.data_ptr()
+            args[_AT[n_]] = x.data_ptr()
         args[_AT["rwflat"]] = rwflat.data_ptr()
         self._rwflat = rwflat                   # kept alive with the args
         for n_, x in (("w", n), ("Uw", Uw), ("W", W), ("L", const["L"]),
@@ -147,12 +173,12 @@ class WalkRound(RoundArgs):
                       ("idx64", int(dt == i64)), ("all4", const["all4"])):
             args[_AT[n_]] = x
         self.args = args
+        self.init_sort(KEY_BITS, _sort_bytes)
+        self.walk = self.walk_out()
 
-    def holds(self, st: dict, Uw: int) -> bool:
-        """Whether this round was built for ``st``'s tensors with Uw
-        representatives."""
-        return Uw == self.Uw and \
-            all(st[n] is x for n, x in self._held.items())
+
+def _sort_bytes(n: int, bits: int) -> int:
+    return LIB.load().walk_sort_bytes(n, bits)
 
 
 def key(rd: WalkRound) -> None:
@@ -161,9 +187,10 @@ def key(rd: WalkRound) -> None:
 
 
 def sort(rd: WalkRound) -> None:
-    """The lanes in key order (stable), into the round's order array."""
-    s = rd.scratch
-    torch.sort(s["key"], stable=True, out=(s["sorted_key"], s["order"]))
+    """The lanes in key order (stable, over the key's bits), into the
+    round's sorted_key and order arrays: CUB's radix sort (key_sort.cuh),
+    equal to torch.sort(key, stable=True)."""
+    _launch(SORT, rd.dev, rd.args)
 
 
 def group(rd: WalkRound) -> None:
@@ -174,3 +201,15 @@ def group(rd: WalkRound) -> None:
 def apply(rd: WalkRound) -> None:
     """walk_apply_kernel: deaths, survivors on, calls; the live count."""
     _launch("walk_apply_kernel", rd.dev, rd.args)
+
+
+def entry(rd: WalkRound) -> None:
+    """walk_loop_entry_kernel: the segment's loop test before its first
+    round (set_loop's words)."""
+    _launch("walk_loop_entry_kernel", rd.dev, rd.args)
+
+
+def cond(rd: WalkRound) -> None:
+    """walk_loop_cond_kernel: the round counted and the loop test, the
+    last launch of a round."""
+    _launch("walk_loop_cond_kernel", rd.dev, rd.args)

@@ -19,7 +19,14 @@ tree may appear under two names, e.g. ``--tree plain=. --tree mesh1=.
 ``--profile`` also runs, after the timed passes of every turn, one chunk
 under torch.profiler (``chip_smoke.profile_chunk`` of THIS checkout, the
 same pass ``chip_smoke.py`` phase 4 makes): launches, stream syncs and
-async copies per chunk and the card's busy share.
+async copies per chunk and the card's busy share.  ``--stream`` also
+times, after those, the whole alignment of the turn's chunks
+(``pipeline.align.align_stream`` with the device DP engine and the native
+tail, as ``chip_smoke.py`` phase 4 runs it): one warm-up stream, then
+reads/s of one more.  In a tree whose seeder runs its round loops as
+CUDA graphs (``ops.cuda_lib.LoopGraph``) each turn also gives the
+capture and instantiation ms of every graph it built (a graph is built
+at a shape's first call on a thread, in the warm-up pass, and kept).
 """
 
 from __future__ import annotations
@@ -57,6 +64,22 @@ chunks = [[reads[(c * {chunk} + i) % len(reads)] for i in range({chunk})]
 def sync():
     if dev.type == "cuda":
         torch.cuda.synchronize()
+if {profile!r}:
+    # CUPTI traces a CUDA graph's kernels only if it was running when the
+    # graph was instantiated: start it before the warm-up builds them
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        sync()
+graphs = []
+try:
+    from compseed_tpu_torch.ops import cuda_lib
+    end = cuda_lib.LoopGraph.end
+    def timed_end(self):
+        end(self)
+        graphs.append((self.capture_s * 1e3, self.instantiate_s * 1e3))
+    cuda_lib.LoopGraph.end = timed_end
+except (ImportError, AttributeError):
+    pass                             # a tree without loop graphs
 for c in chunks:
     sd.run_flat(c)
 secs, dev_s = [], []
@@ -71,6 +94,35 @@ for _ in range({passes}):
         if sd.last_overflow:
             raise SystemExit("a chunk overflowed: not the engine's own time")
 rec = dict(run_flat_s=secs, device_s=dev_s)
+if graphs:
+    rec["graph_ms"] = dict(capture=[c for c, _ in graphs],
+                           instantiate=[i for _, i in graphs])
+if {stream!r}:
+    from compseed_tpu_torch.io.fastq import Read
+    from compseed_tpu_torch.native import NativeTail
+    from compseed_tpu_torch.ops.engine import device_engine
+    from compseed_tpu_torch.pipeline.align import align_stream
+    from compseed_tpu_torch.pipeline.seeding import SeedingStats
+    from compseed_tpu_torch.utils import NT4_TO_ASCII
+    opt = MemOptions()
+    engine = device_engine(opt, fm, dfi=sd.dfi, device=dev)
+    tail = NativeTail(opt, fm)
+    def mk():
+        return [[Read(name=str(c * {chunk} + i + 1),
+                      seq=bytes(NT4_TO_ASCII[q]).decode(), qual=None,
+                      comment=None) for i, q in enumerate(ch)]
+                for c, ch in enumerate(chunks)]
+    rates = []
+    for _ in range(2):
+        done, sts = [], SeedingStats()
+        sync()
+        t0 = time.perf_counter()
+        align_stream(opt, fm, iter(mk()), engine, sd, tail,
+                     on_done=done.extend, stats=sts)
+        sync()
+        rates.append(len(done) / (time.perf_counter() - t0))
+    rec["stream_reads_per_s"] = rates[1]
+    rec["stream_warmup_reads_per_s"] = rates[0]
 if {profile!r}:
     import importlib.util
     spec = importlib.util.spec_from_file_location("smoke", {smoke!r})
@@ -97,6 +149,8 @@ def main() -> None:
                          "of S shards")
     ap.add_argument("--profile", action="store_true",
                     help="profile one chunk after each turn's passes")
+    ap.add_argument("--stream", action="store_true",
+                    help="time the whole alignment of the chunks too")
     args = ap.parse_args()
     trees = dict(t.split("=", 1) for t in args.tree)
     shards = {n: int(v) for n, v in (m.split("=", 1) for m in args.mesh)}
@@ -112,7 +166,7 @@ def main() -> None:
                             device=args.device, knobs=knobs, chunk=CHUNK,
                             chunks=args.chunks, passes=args.passes,
                             shards=shards.get(name, 0),
-                            profile=args.profile,
+                            profile=args.profile, stream=args.stream,
                             smoke=os.path.join(here, "chip_smoke.py"))
         proc = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True)
@@ -128,6 +182,9 @@ def main() -> None:
         median_device_s=statistics.median(
             x for r in rs for x in r["device_s"]),
         turns=[r["run_flat_s"] for r in rs],
+        stream_reads_per_s=[r["stream_reads_per_s"] for r in rs
+                            if "stream_reads_per_s" in r],
+        graph_ms=[r["graph_ms"] for r in rs if "graph_ms" in r],
         profiles=[r["profile"] for r in rs if "profile" in r])
         for n, rs in runs.items() if rs}))
 

@@ -47,6 +47,7 @@ from compseed_tpu.ops import seedscan as jss
 from compseed_tpu.ops.device_index import to_device as jax_to_device
 from compseed_tpu_torch import convert
 from compseed_tpu_torch.ops import chain_cases, chain_cuda
+from compseed_tpu_torch.ops.cuda_lib import launcher_of
 from compseed_tpu_torch.ops import seedscan as tss
 from compseed_tpu_torch.ops.device_index import to_device
 
@@ -72,8 +73,8 @@ def host(tmp_path_factory):
                     "-fPIC", "-o", so, chain_cuda.LIB.src], check=True,
                    capture_output=True)
     lib = ct.CDLL(so)
-    for kernel in chain_cuda.KERNELS:
-        fn = getattr(lib, kernel.replace("_kernel", "_host"))
+    for kernel in chain_cuda.LIB.launches:         # kernels and the sort
+        fn = getattr(lib, launcher_of(kernel, "_host"))
         fn.argtypes = [ct.c_void_p]
         fn.restype = ct.c_int
     p, ll = ct.c_void_p, ct.c_longlong
@@ -88,13 +89,13 @@ def on_host(host, monkeypatch):
     """chain_scan's kernel path with every launch run by the host build;
     returns the launches by kernel, and under "groups" each round's
     (n_u, Uw, w) as the group kernel left them."""
-    calls = dict.fromkeys(chain_cuda.KERNELS, 0)
+    calls = dict.fromkeys(chain_cuda.LIB.launches, 0)
     calls["groups"] = []
     at = {n: i for i, n in enumerate(chain_cuda.ARGS)}
 
     def launch(kernel, dev, args):
         assert dev.type == "cpu"
-        rc = getattr(host, kernel.replace("_kernel", "_host"))(
+        rc = getattr(host, launcher_of(kernel, "_host"))(
             ct.addressof(args))
         assert rc == 0, kernel
         calls[kernel] += 1
@@ -230,8 +231,11 @@ def test_chain_scan_host_kernels_equal_plain_and_jax(on_host, idx, name,
     _equal(got, want, "kernels vs JAX")
     _equal(plain, want, "plain vs JAX")
     groups = rounds.pop("groups")
+    # the entry kernel once a segment; every other launch once a round
+    entries = rounds.pop("chain_loop_entry_kernel")
     n_rounds = set(rounds.values())
     assert len(n_rounds) == 1 and n_rounds.pop() == len(groups) > 2, rounds
+    assert entries == (2 if name in ("lep", "r2") else 1)
     n_pool, cur, M = int(got[1]), int(got[5]["cur"]), case[3][1]
     assert n_pool > 0 and cur > 0
     widths = {w for _, _, w in groups}
@@ -522,9 +526,14 @@ def test_args_layout_matches_source(host):
               for f in decl.replace("long long", "").split(",")]
     assert tuple(fields) == chain_cuda.ARGS
     assert host.chain_args_words() == len(chain_cuda.ARGS)
-    # the lanes' read ids come last, so that an earlier build of the
-    # source reads a prefix of the words
-    assert chain_cuda.ARGS[-1] == "lane_rid"
+    # the lanes' read ids, then the sort's and the loop's words, come
+    # after the earlier words, so that an earlier build of the source
+    # reads a prefix of the words
+    at = chain_cuda.ARGS.index("lane_rid")
+    assert chain_cuda.ARGS[at - 1] == "idx64"
+    assert chain_cuda.ARGS[at + 1:] == (
+        "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits", "rnd",
+        "live_in", "nxtw", "rcap", "hist", "cond", "go")
 
 
 class _Fn:
@@ -550,8 +559,12 @@ def test_bind_checks_args_words(words, prefix, ok):
     launchers read only their own words) also one with fewer, never
     more."""
     lib = type("Lib", (), {})()
-    for kernel in chain_cuda.KERNELS:
-        setattr(lib, kernel.replace("_kernel", "_launch"), _Fn())
+    for kernel in chain_cuda.LIB.launches:
+        setattr(lib, launcher_of(kernel), _Fn())
+    for name in ("streams", "begin", "body", "end", "launch", "nodes",
+                 "close"):
+        setattr(lib, f"chain_graph_{name}", _Fn())
+    lib.chain_sort_bytes = _Fn()
     lib.chain_args_words = _Fn(words)
     if ok:
         chain_cuda._bind(lib, prefix)
@@ -644,7 +657,21 @@ def test_chain_round_checks_inputs(idx):
              qflat=torch.zeros(4 * L, dtype=torch.uint8), W=W, L=L, GP=GP,
              r3=False, advance=True, min_len=0, max_intv=0)
     rd = chain_cuda.ChainRound(td, c, st, w, Uw)
-    assert rd.holds(st, w) and not rd.holds(st, w // 2)
+    # the round holds its sort's storage and its walk, so that a round's
+    # launches allocate nothing; the sort takes the keys' bits (H = 16)
+    at = {n: i for i, n in enumerate(chain_cuda.ARGS)}
+    assert rd.args[at["key_bits"]] == chain_cuda.key_bits(16) == 5
+    assert [tuple(x.shape) for x in rd.walk] == [(Uw, W)] * 3 + [(Uw,)]
+    assert rd.args[at["ck"]] == rd.walk[0].data_ptr()
+    i32 = torch.int32
+    for bad in (dict(rnd=torch.zeros(1, dtype=i32)),
+                dict(live_in=torch.zeros((), dtype=torch.int64)),
+                dict(hist=torch.zeros(3, dtype=i32))):
+        kw = dict(dict(rnd=torch.zeros((), dtype=i32),
+                       live_in=torch.zeros((), dtype=i32), nxtw=0, rcap=4,
+                       hist=torch.zeros(4, dtype=i32)), **bad)
+        with pytest.raises((TypeError, ValueError)):
+            rd.set_loop(**kw)
     other = torch.int32 if dt == torch.int64 else torch.int64
     for key, bad in (("k", torch.zeros(w, dtype=other)),
                      ("alive", torch.zeros(w, dtype=torch.uint8)),

@@ -15,7 +15,11 @@ cut to a ragged width and padded; the probe at every round-1 width, round
 worker threads); walk_pool_chain's round on the kernels of csrc/walk_chain.cu
 the same ways (its captured rounds also with few representatives and in
 forced forms); the sharded pipeline on one card against the unsharded
-one.
+one; the round loops as CUDA graphs (each segment one graph with a WHILE
+node): every chain_scan and walk_pool_chain call of the first bench
+chunk against the plain loop and each round's sort against torch.sort,
+no host sync inside a call, the capture guard, a sharded worker
+capturing beside the main thread's DP, graphs kept across chunks.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -768,7 +772,9 @@ def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(
     (chain_scan and walk_pool_chain) -- pool, memo, deaths, counters --
     and the whole chunk's head, seed matrix and merged SAL, with the FM
     kernels, equal the same calls with _chain_walk, _walk and
-    extend_sel_batch patched to their plain versions (a test-only patch)."""
+    extend_sel_batch patched to their plain versions (a test-only patch;
+    the rounds then run as the plain round, since a segment's graph can
+    hold no PyTorch operation)."""
     from compseed_tpu_torch.ops import fm as tfm
     from compseed_tpu_torch.ops import fm_cuda
     from compseed_tpu_torch.ops import seedscan as tss
@@ -798,6 +804,10 @@ def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(
     assert n_k["fm_chain_walk_kernel"] > 0 and \
         n_k["fm_inv_psi_walk_kernel"] > 0, n_k
     monkeypatch.setattr(tss, "_chain_walk", tss._chain_walk_plain)
+    monkeypatch.setattr(tss, "_chain_round",
+                        lambda dev_: tss._chain_round_plain)
+    monkeypatch.setattr(tss, "_walk_round",
+                        lambda dev_: tss._walk_round_plain)
     monkeypatch.setattr(tfm, "_walk", tfm._walk_plain)
     monkeypatch.setattr(tfm, "extend_sel_batch", tfm._extend_sel_plain)
     r1_p, whole_p, n_p = run()
@@ -1198,3 +1208,181 @@ def test_walk_pool_chain_from_worker_threads_on_card(dev, bench):
         assert int(a[6]) > 0
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The round loops as CUDA graphs (ops/cuda_lib.run_loop, csrc/loop_graph.cuh).
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_loop_graph_calls_equal_plain_loop_on_card(dev, bench, dtype):
+    """Every chain_scan and walk_pool_chain call of the first bench chunk,
+    each segment one graph launch (chain_scan with report_rounds on),
+    equals the same call run again through the plain loop, output by
+    output: pool, cursor, ovf, fq, fc, the memo, rnd and alive_hist;
+    death, fk, fl, fs, ovf, calls and ngrp.  On every round of those
+    plain runs the round's sort (CUB's, over the key's bits) equals
+    torch.sort(stable=True)."""
+    from compseed_tpu_torch.ops import chain_cases, walk_cases
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev,
+                      dfi=_bench_index(bench, dev, dtype), dedup=True)
+    with chain_cases.CallCapture("chain_scan") as cc, \
+            chain_cases.CallCapture("walk_pool_chain") as wc:
+        sd.run_flat(list(reads[:16384]))
+    torch.cuda.synchronize()
+    assert len(cc.calls) == 3 and len(wc.calls) >= 2
+    for entry, cap, check in (
+            ("chain_scan", cc, chain_cases.sort_vs_torch()),
+            ("walk_pool_chain", wc, walk_cases.sort_vs_torch())):
+        for i, call in enumerate(cap.calls):
+            errs = chain_cases.call_vs_plain(entry, call, check)
+            assert not any(errs.values()), (entry, i, errs)
+        assert len(check.errs) > 2 * len(cap.calls) and \
+            not any(check.errs), (entry, check.errs)
+    rounds = [int(c[2][6]) for c in cc.calls]
+    assert min(rounds) > 3, rounds
+
+
+def test_loop_graphs_make_no_host_sync_on_card(dev, bench):
+    """chain_scan and walk_pool_chain on the first 16,384 bench reads
+    under torch.cuda.set_sync_debug_mode("error"): neither waits on the
+    card inside the call (each segment's loop test runs there)."""
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    R, L, qd, rd = sd._upload(list(reads[:16384]))
+    memo = tss.make_chain_memo(1 << 21, 32 * R, 8, sd.dfi.dtype, dev)
+    rw = tss.packed_rev_windows(qd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = tss.chain_scan(sd.dfi, qd, rd, 24 * R, memo, W=8,
+                             report_rounds=True)
+        walk = tss.walk_pool_chain(sd.dfi, rw, L, out[0], 16 * R)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert int(out[6]) > 3 and int(out[1]) > 0
+    assert int(walk[5]) > 0 and int(walk[6]) > 0
+
+
+def test_capture_guard_raises_on_allocation_on_card(dev, bench,
+                                                    monkeypatch):
+    """A torch allocation planted in chain_scan's captured round body
+    raises (cuda_lib.NoTorchOps) when the graph is captured (the shape's
+    kept graphs dropped first) and leaves no capture open: the same call
+    without it then equals the first."""
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    R, L, qd, rd = sd._upload(list(reads[:2048]))
+    body = tss._chain_round_kernels
+
+    def scan():
+        memo = tss.make_chain_memo(1 << 16, 8192, 8, sd.dfi.dtype, dev)
+        out = tss.chain_scan(sd.dfi, qd, rd, 24 * R, memo, W=8)
+        torch.cuda.synchronize()
+        return out
+
+    def planted(fm_, c, r):
+        torch.empty(1, device=r.dev)
+        body(fm_, c, r)
+
+    want = scan()
+    tss.drop_held()                 # so that the next call captures anew
+    with monkeypatch.context() as m:
+        m.setattr(tss, "_chain_round_kernels", planted)
+        with pytest.raises(RuntimeError, match="graph capture"):
+            scan()
+    got = scan()
+    for x, y in zip(got[:5], want[:5]):
+        assert torch.equal(x, y)
+
+
+def test_sharded_capture_beside_main_thread_dp_on_card(dev, bench):
+    """The sharded seeder at S = 2 on [cuda:0] * 2 seeds 4,096 bench
+    reads on a worker thread (its graphs captured there, thread-local)
+    while the main thread launches the DP kernel again and again: the
+    seeds equal the same run alone and every DP result equals the first,
+    which equals the plain version."""
+    import concurrent.futures as cf
+
+    import numpy as np
+
+    from compseed_tpu_torch.options import MemOptions
+    from compseed_tpu_torch.parallel.sharded import ShardedSeeder
+    fm, reads = bench
+    sd = ShardedSeeder(MemOptions(), fm, mesh=[dev, dev], dedup=True)
+    queries = list(reads[:4096])
+
+    def flat(x):
+        if isinstance(x, dict):
+            return [v for k in sorted(x) for v in flat(x[k])]
+        if isinstance(x, (tuple, list)):
+            return [v for y in x for v in flat(y)]
+        if isinstance(x, torch.Tensor):
+            return [x.cpu().numpy()]
+        return [np.asarray(x)]
+
+    alone = flat(sd.run_flat(queries))
+    mat = torch.from_numpy(MAT).to(dev)
+    tiles = _on(dev, dp_tiles(14 + 128, P=4096, T=128))
+    first = bsw_cuda.bsw_extend_tiles(mat, *tiles, **GAP)
+    n_dp = 0
+    with cf.ThreadPoolExecutor(max_workers=1) as ex:
+        fut = ex.submit(sd.run_flat, queries)
+        while not fut.done() or n_dp == 0:
+            got = bsw_cuda.bsw_extend_tiles(mat, *tiles, **GAP)
+            assert torch.equal(got, first)
+            n_dp += 1
+        side = flat(fut.result())
+    torch.cuda.synchronize()
+    assert n_dp > 1
+    assert len(side) == len(alone) > 2
+    for a, b in zip(alone, side):
+        assert np.array_equal(a, b)
+    q, ql, t, tl, h0, ws = tiles
+    want = _extend_core(*GAP.values(), mat, ws[:, 0], q, ql[:, 0], t,
+                        tl[:, 0], h0[:, 0])
+    assert torch.equal(first[:, :6].cpu(), want.T.cpu())
+
+
+def test_kept_graphs_serve_later_chunks_on_card(dev, bench, monkeypatch):
+    """Three chunks of 4,096 bench reads (the first again last) through
+    one seeder: the first captures every segment's graph, the later ones
+    run the kept graphs (no capture) and each chunk's seeds equal the
+    same chunk with the rounds patched to the plain loop."""
+    import numpy as np
+
+    from compseed_tpu_torch.ops import cuda_lib
+    from compseed_tpu_torch.ops import seedscan as tss
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    chunks = [list(reads[:4096]), list(reads[4096:8192]), list(reads[:4096])]
+    tss.drop_held()
+    ends = []
+    end = cuda_lib.LoopGraph.end
+    monkeypatch.setattr(cuda_lib.LoopGraph, "end",
+                        lambda self: (ends.append(1), end(self)))
+    got = []
+    for i, q in enumerate(chunks):
+        n0 = len(ends)
+        got.append(sd.run_flat(q))
+        if i == 0:
+            assert len(ends) > 6
+        else:
+            assert len(ends) == n0, i
+    with monkeypatch.context() as m:
+        m.setattr(tss, "_chain_round", lambda dev_: tss._chain_round_plain)
+        m.setattr(tss, "_walk_round", lambda dev_: tss._walk_round_plain)
+        want = [sd.run_flat(q) for q in chunks]
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert np.array_equal(np.asarray(x), np.asarray(y))

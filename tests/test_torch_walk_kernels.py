@@ -46,6 +46,7 @@ from compseed_tpu.ops.device_index import to_device as jax_to_device
 from compseed_tpu_torch import convert
 from compseed_tpu_torch.ops import seedscan as tss
 from compseed_tpu_torch.ops import walk_cases, walk_cuda
+from compseed_tpu_torch.ops.cuda_lib import launcher_of
 from compseed_tpu_torch.ops.device_index import to_device
 
 from tests.test_torch_seeder import _queries
@@ -72,8 +73,8 @@ def host(tmp_path_factory):
                     "-fPIC", "-o", so, walk_cuda.LIB.src], check=True,
                    capture_output=True)
     lib = ct.CDLL(so)
-    for kernel in walk_cuda.KERNELS:
-        fn = getattr(lib, kernel.replace("_kernel", "_host"))
+    for kernel in walk_cuda.LIB.launches:         # kernels and the sort
+        fn = getattr(lib, launcher_of(kernel, "_host"))
         fn.argtypes = [ct.c_void_p]
         fn.restype = ct.c_int
     p, ll = ct.c_void_p, ct.c_longlong
@@ -88,13 +89,13 @@ def on_host(host, monkeypatch):
     """walk_pool_chain's kernel path with every launch run by the host
     build; returns the launches by kernel, and under "groups" each round's
     (n_u, Uw, lanes) as the group kernel left them."""
-    calls = dict.fromkeys(walk_cuda.KERNELS, 0)
+    calls = dict.fromkeys(walk_cuda.LIB.launches, 0)
     calls["groups"] = []
     at = {n: i for i, n in enumerate(walk_cuda.ARGS)}
 
     def launch(kernel, dev, args):
         assert dev.type == "cpu"
-        rc = getattr(host, kernel.replace("_kernel", "_host"))(
+        rc = getattr(host, launcher_of(kernel, "_host"))(
             ct.addressof(args))
         assert rc == 0, kernel
         calls[kernel] += 1
@@ -218,8 +219,11 @@ def test_walk_pool_chain_host_kernels_equal_plain_and_jax(on_host, idx,
     _equal(got, want, "kernels vs JAX")
     _equal(plain, want, "plain vs JAX")
     groups = rounds.pop("groups")
+    # the entry kernel once a width; every other launch once a round
+    entries = rounds.pop("walk_loop_entry_kernel")
     n_rounds = set(rounds.values())
     assert len(n_rounds) == 1 and n_rounds.pop() == len(groups) > 2, rounds
+    assert 1 <= entries <= len(SEGS)
     widths = [w for _, _, w in groups]
     assert int(got[6]) > 0 and int(got[5]) > 0
     assert (got[0] >= -1).sum() > 0           # walks died inside the reads
@@ -575,8 +579,12 @@ def test_walk_round_checks_inputs(idx):
     c = dict(rwflat=torch.zeros(4 * L, dtype=torch.int64), L=L, W=8,
              all4=tss._ALL4)
     rd = walk_cuda.WalkRound(td, c, st, Uw)
-    assert rd.holds(st, Uw) and not rd.holds(st, Uw + 1)
-    assert not rd.holds(dict(st, k=st["k"].clone()), Uw)
+    # the round holds its sort's storage and its walk, so that a round's
+    # launches allocate nothing; the sort takes the keys' 31 bits
+    at = {n_: i for i, n_ in enumerate(walk_cuda.ARGS)}
+    assert rd.args[at["key_bits"]] == walk_cuda.KEY_BITS == 31
+    assert [tuple(x.shape) for x in rd.walk] == [(Uw, 8)] * 3 + [(Uw,)]
+    assert rd.args[at["cs"]] == rd.walk[2].data_ptr()
     other = torch.int32 if dt == torch.int64 else torch.int64
     for key, bad in (("k", torch.zeros(n, dtype=other)),
                      ("alive", torch.zeros(n, dtype=torch.uint8)),
