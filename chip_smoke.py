@@ -67,7 +67,18 @@ Phases, in order; any failure exits non-zero:
                 four loop kernels (entry and cond, chain and walk) against
                 their plain version (seedscan.loop_step_plain) at a
                 running round, the RCAP cap, a segment exit and no live
-                lane.
+                lane.  The suffix-array loop's kernels (sa_batch_compact's
+                last stage, one loop of the call's graph: entry and cond)
+                against alive.any() on the first chunk's last-stage lanes
+                before each round, all dead and only the last alive.
+                Then each seeding call as one CUDA graph (DeviceSeeder.
+                _call: the default engine's whole call captured once a
+                thread and call shape, its loops joining the capture)
+                against the eager _run on every chunk of the stream, with
+                int32 and with int64 positions, head and seed matrix
+                equal; the first chunk's capture and instantiation ms and
+                the bytes a kept shape holds on the card (its private
+                memory pool), also for the sharded path's shape.
   3. goldens  — tests/fixtures reads, each 2,000-read file as ONE chunk,
                 through align_stream with the port's seeder, DP engine
                 and native tail: the seeder's caps overflow, the chunk
@@ -140,16 +151,19 @@ Phases, in order; any failure exits non-zero:
                 build's profiler means per launch over one chunk, in
                 turns; round
                 1's chain_scan with the kernels and with the plain round
-                in turns; the chunk by stage (chain_scan's set-up and
-                tail, its segments: a round's arguments, the capture of
-                its loop graph and the launch; walk_pool_chain's set-up
-                and compactions, its widths; the rest) under
-                torch.profiler: host calls (kernel and
+                in turns; the chunk by stage under torch.profiler, on the
+                call graph's route (the call graph: the copies into its
+                inputs and its launch; the rest) and on the eager route
+                (chain_scan's set-up and tail, its segments: a round's
+                arguments, the capture of its loop graph and the launch;
+                walk_pool_chain's set-up and compactions, its widths; the
+                rest): host calls (kernel and
                 graph launches, syncs, copies, captures, instantiations)
                 by stage, what the card ran, and the kernels and memsets
                 of each segment's body graph, what the card runs a round;
-                each loop graph's capture and instantiation ms and the
-                segment's whole host call over 3 runs of the chunk
+                on the eager route each loop graph's capture and
+                instantiation ms and the segment's whole host call over 3
+                runs of the chunk
                 (``segment_costs``); each round's sort beside torch.sort
                 (``sort_time``).  The walk kernels: launches per
                 chunk (each must have launched in the int32 window); each
@@ -168,11 +182,11 @@ Phases, in order; any failure exits non-zero:
                 turns.  The chain and
                 the walk kernels again on round 1's first 256 lanes (one
                 block: a launch and a lane's dependent reads, their
-                latency floor).  Gates: at most
-                15 kernels the card runs a chain_scan round and a
-                walk_pool_chain round; at most 1,980 host launches
-                (kernels and graphs, the parent's count), 6 stream syncs
-                and 209 async copies a chunk.
+                latency floor).  Gates (the measured values and a
+                stated margin, MAX_*): at most 11 kernels the card runs a
+                chain_scan round and 12 a walk_pool_chain round; at most
+                4 host launches (kernels and graphs), 2 stream syncs (the
+                two fetches) and 8 async copies a chunk.
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
                 tests/fixtures/tiny.fa must write the committed index
@@ -253,6 +267,10 @@ the walk kernels, with the port's csrc/ on the include path unless a
 lookback.cuh sits beside FILE, on every round of the first chunk's two
 walk_pool_chain calls and their forms, and over one chunk's seeding by
 the profiler.  No option changes what the port itself runs.
+
+Phases 3 to 7 seed every chunk of the default engine by its call graph
+(the first chunk of a shape on a thread captures it), the other engines
+eagerly.
 
 Prints the CLI phase's, the engine phase's and the mesh phase's numbers
 and the kernel table as one JSON line each, the card's nvidia-smi line,
@@ -371,21 +389,34 @@ LOOP_REPLACES = {
     "walk_loop_cond_kernel": "compseed_tpu/ops/seedscan.py:734-738 (the "
                              "same cond after each round; XLA, no Pallas)"}
 LOOP_SOURCES = {"chain": CHAIN_SOURCE, "walk": WALK_SOURCE}
-# gates on one chunk of the main path's seeding (torch.profiler): the
-# kernels the card runs a chain_scan round and a walk_pool_chain round,
-# and the chunk's host launches (cudaLaunchKernel and cudaGraphLaunch:
-# at most the parent's 1,980, which stepped every round from the host),
-# stream syncs (94 while the host tested every round's live count; 6 with
-# the loops on the card) and async copies (209), PERF.md
-MAX_CHAIN_ROUND_KERNELS = 15
+# the suffix-array loop's kernels (sa_batch_compact's last stage, one
+# loop of the call's graph) and the while_loop cond each replaces
+SA_KERNELS = ("sa_loop_entry_kernel", "sa_loop_cond_kernel")
+SA_REPLACES = {
+    "sa_loop_entry_kernel": "compseed_tpu/ops/fm.py:282 (sa_batch_compact's "
+                            "last-stage while_loop cond, jnp.any(alive), "
+                            "before its first round; XLA, no Pallas)",
+    "sa_loop_cond_kernel": "compseed_tpu/ops/fm.py:282 (the same cond after "
+                           "each round; XLA, no Pallas)"}
+# gates on one chunk of the main path's seeding (torch.profiler), each the
+# value measured on an H100 (PERF.md) plus a stated margin: the kernels the
+# card runs a chain_scan round and a walk_pool_chain round (the body
+# graph's kernel nodes: 10 and 11, one more allowed for a sort pass CUB may
+# add at another width); the chunk's host launches (cudaLaunchKernel and
+# cudaGraphLaunch: 2, the call graph's launch and the copy of the seed
+# matrix's columns; 2 more allowed), stream syncs (the two fetches, the
+# JAX package's two device_gets; no margin) and async copies (6: two
+# uploads, two copies into the graph's inputs, two fetches; 2 more
+# allowed)
+MAX_CHAIN_ROUND_KERNELS = 11
 # lanes of the round the chain and walk kernels are timed at for their
 # latency floor: one block (four of the chain apply's), so the time is
 # what one block pays, a launch and a lane's path
 FLOOR_LANES = 256
-MAX_WALK_ROUND_KERNELS = 15
-MAX_CHUNK_LAUNCHES = 1980
-MAX_CHUNK_SYNCS = 6
-MAX_CHUNK_COPIES = 209
+MAX_WALK_ROUND_KERNELS = 12
+MAX_CHUNK_LAUNCHES = 4
+MAX_CHUNK_SYNCS = 2
+MAX_CHUNK_COPIES = 8
 
 
 def log(msg: str) -> None:
@@ -545,7 +576,7 @@ def profile_chunk(run, sync, records=()) -> dict:
     for e in prof.key_averages():
         if e.key in out:
             out[e.key] = e.count
-        m = re.search(r"\b((?:fm|chain|walk)_[a-z_]+_kernel)", e.key)
+        m = re.search(r"\b((?:fm|chain|walk|sa)_[a-z_]+_kernel)", e.key)
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0)
@@ -761,21 +792,25 @@ class FmCapture:
     """Records the first call of each kind of the FM wrappers (inputs
     cloned) while a run goes through them, and counts the calls of each
     kind: the chain walk by direction, the inverse-Psi walk by step
-    count, the extension by batch rank.  While it is active chain_scan
-    and walk_pool_chain run the plain round: in a segment's graph the
-    walk's inputs exist on the card alone, and the plain round (its
-    outputs equal) launches the same walk kernel on them from the
-    host."""
+    count, the extension by batch rank.  While it is active every seeding
+    call runs eagerly (seeder2.EagerCalls) and chain_scan,
+    walk_pool_chain and sa_batch_compact's last stage run their plain
+    loops: in a loop's graph the walk's inputs exist on the card alone,
+    and the plain loop (its outputs equal) launches the same walk kernel
+    on them from the host."""
 
     def __init__(self):
-        from compseed_tpu_torch.ops import fm_cuda
+        from compseed_tpu_torch.ops import fm as dfm
+        from compseed_tpu_torch.ops import fm_cuda, seeder2
         from compseed_tpu_torch.ops import seedscan as ss
-        self.mod, self.ss = fm_cuda, ss
+        self.mod, self.ss, self.fm = fm_cuda, ss, dfm
+        self.eager = seeder2.EagerCalls()
         self.orig = dict(chain_walk=fm_cuda.chain_walk,
                          inv_psi_walk=fm_cuda.inv_psi_walk,
                          extend_sel_batch=fm_cuda.extend_sel_batch)
         self.rounds = dict(_chain_round=ss._chain_round,
                            _walk_round=ss._walk_round)
+        self.sa_loop = dfm._sa_loop
         self.calls = {}
         self.counts = {}            # calls by key
 
@@ -802,6 +837,8 @@ class FmCapture:
         wrap("extend_sel_batch", lambda *a, **kw: (a[1].dim(),))
         self.ss._chain_round = lambda dev: self.ss._chain_round_plain
         self.ss._walk_round = lambda dev: self.ss._walk_round_plain
+        self.fm._sa_loop = lambda dev: self.fm._sa_loop_plain
+        self.eager.__enter__()
         return self
 
     def __exit__(self, *exc):
@@ -809,6 +846,8 @@ class FmCapture:
             setattr(self.mod, name, fn)
         for name, fn in self.rounds.items():
             setattr(self.ss, name, fn)
+        self.fm._sa_loop = self.sa_loop
+        self.eager.__exit__()
 
 
 def fm_rank_need(dfi, x, bases):
@@ -995,6 +1034,7 @@ def fm_main_path(dev, seeder, queries, l32):
         if r["max_abs_err"]:
             raise SystemExit(f"{key[0]}: the kernel disagrees with its plain "
                              f"version on the main path's lanes")
+    seeder.run_flat(queries)        # the shape's call graph kept first
     prof = profile_chunk(lambda: seeder.run_flat(queries),
                          torch.cuda.synchronize)
     log(f"[4] torch.profiler over one {CHUNK}-read chunk: "
@@ -1565,9 +1605,191 @@ def loop_kernels(module, case) -> dict:
     return out
 
 
+def kept_bytes(run) -> dict:
+    """What ``run()`` (a shape's first call, which captures its call
+    graph) leaves held on the card: torch.cuda.memory_allocated and
+    memory_reserved before and after, the allocator's cache emptied both
+    times, so that ``reserved_bytes`` is the graph's private pool with its
+    inputs, ``allocated_bytes`` its inputs and outputs, and
+    ``peak_bytes`` the most allocated above the start while it ran."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return dict(allocated_bytes=torch.cuda.memory_allocated() - a0,
+                reserved_bytes=torch.cuda.memory_reserved() - r0,
+                peak_bytes=torch.cuda.max_memory_allocated() - a0)
+
+
+def call_graph_check(dev, opt, fm, reads_arr) -> dict:
+    """The call graph (DeviceSeeder._call: the default engine's whole call
+    as one CUDA graph a thread and call shape) against the eager _run on
+    every chunk of cell A (the stream's N_CHUNKS chunks), with int32 and
+    with int64 positions: head and seed matrix equal.  Per index type:
+    the first chunk's capture and instantiation ms (CallGraph), the
+    kernels captured, what the kept shape holds on the card (kept_bytes
+    around that capture) and what dropping it frees; the same bytes for
+    the sharded path's shape (ShardedSeeder at S = MESH_SHARDS[-1] on
+    [dev] * S, whose shards replay one graph)."""
+    import threading
+
+    import numpy as np
+    import torch
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.ops.engine import device_seeder
+    from compseed_tpu_torch.parallel.sharded import ShardedSeeder
+    chunks = []
+    for c in range(N_CHUNKS):
+        s0 = (c * CHUNK) % len(reads_arr)
+        chunks.append(list(np.concatenate(
+            [reads_arr[s0:], reads_arr[:s0]])[:CHUNK]))
+    out = {}
+    for tag, force in (("int32", None), ("int64", np.int64)):
+        t0 = time.time()
+        sd = device_seeder(opt, fm, dedup=True, device=dev,
+                           dfi=to_device(fm, dev, force_dtype=force))
+        rec = dict(chunks=[])
+        for c, q in enumerate(chunks):
+            R, L, qd, rd = sd._upload(q)
+            fns = sd._build(R, L)
+            if not sd._graphed(fns):
+                raise SystemExit(f"{tag}: the default engine did not take "
+                                 f"the call graph")
+            if c == 0:
+                rec["kept"] = kept_bytes(lambda: sd._call(fns, qd, rd))
+                (cg,) = sd._calls.by_thread[threading.get_ident()].values()
+                rec.update(capture_ms=cg.capture_s * 1e3,
+                           instantiate_ms=cg.instantiate_s * 1e3,
+                           kernels_captured=len(cg.launched))
+            graph = [x.cpu() for x in sd._call(fns, qd, rd)]
+            eager = [x.cpu() for x in sd._run(fns, qd, rd)[2:]]
+            equal = all(torch.equal(a, b) for a, b in zip(graph, eager))
+            rec["chunks"].append(dict(equal=equal, overflow=bool(
+                graph[0][3:14].any())))
+            if not equal:
+                raise SystemExit(f"{tag} chunk {c}: the call graph's head or "
+                                 f"seed matrix differs from the eager _run")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        r0 = torch.cuda.memory_reserved()
+        sd._calls.drop_thread()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        rec["dropped_frees_bytes"] = r0 - torch.cuda.memory_reserved()
+        rec["s"] = time.time() - t0
+        out[tag] = rec
+        del sd
+    S = MESH_SHARDS[-1]
+    sh = ShardedSeeder(opt, fm, mesh=[dev] * S, dedup=True)
+    sh.run_flat(chunks[0][:256])                 # the index on the card
+    out[f"sharded S={S}"] = kept_bytes(lambda: sh.run_flat(chunks[0]))
+    del sh
+    torch.cuda.empty_cache()
+    log(f"[2] the call graph against the eager _run on every chunk, int32 "
+        f"and int64; bytes a kept shape holds: {json.dumps(out)}")
+    return out
+
+
+def sa_capture(seeder, queries) -> list:
+    """The lanes of sa_batch_compact's last stage (fm, kk, steps, alive,
+    cloned as the loop starts) in one eager run of ``queries``
+    (seeder2.EagerCalls)."""
+    import torch
+    from compseed_tpu_torch.ops import fm as dfm
+    from compseed_tpu_torch.ops.seeder2 import EagerCalls
+    got, orig = [], dfm._sa_loop_kernels
+
+    def keep(fm_, kk, steps, alive):
+        got.append((fm_, kk.clone(), steps.clone(), alive.clone()))
+        return orig(fm_, kk, steps, alive)
+
+    dfm._sa_loop_kernels = keep
+    try:
+        with EagerCalls():
+            seeder.run_flat(queries)
+    finally:
+        dfm._sa_loop_kernels = orig
+    torch.cuda.synchronize()
+    return got
+
+
+def sa_loop_kernels(case) -> dict:
+    """The suffix-array loop's kernels on the first chunk's last-stage
+    lanes (``case``: sa_capture's first), launched one at a time outside
+    a graph (the condition handle 0), against their plain version,
+    alive.any(), on the alive bytes before the loop's first round, after
+    each round (the lanes walked 2 sa_intv steps in place a round, as the
+    graph does, until none lives), with every lane dead and with only the
+    last alive: go held equal.  Then each timed on the card alone
+    (launch_ms) and in a loop, beside the plain version's ms (in a loop),
+    the library call's (torch.any into a bool, on the card alone) and the
+    bound: the alive bytes read and go written against an OR a lane."""
+    import torch
+    from compseed_tpu_torch.ops import fm as dfm
+    from compseed_tpu_torch.ops import fm_cuda
+    fm_, kk, steps, alive = case
+    n = alive.shape[0]
+    k2, s2, a2 = kk.clone(), steps.clone(), alive.clone()
+    states = [alive.clone()]
+    while bool(a2.any()):
+        dfm._walk(fm_, k2, s2, a2, 2 * fm_.sa_intv, out=(k2, s2, a2))
+        states.append(a2.clone())
+    last = torch.zeros_like(alive)
+    last[-1] = True
+    states += [torch.zeros_like(alive), last]
+    errs = dict.fromkeys(SA_KERNELS, 0)
+    for st in states:
+        lp = fm_cuda.SaLoop(fm_, kk.clone(), steps.clone(), st.clone(),
+                            2 * fm_.sa_intv)
+        for kernel, launch in zip(SA_KERNELS, (fm_cuda.sa_entry,
+                                               fm_cuda.sa_cond)):
+            lp.go.fill_(-1)
+            launch(lp)
+            errs[kernel] = max(errs[kernel],
+                               err(lp.go, st.any().to(torch.int32)))
+    if any(errs.values()):
+        raise SystemExit(f"a suffix-array loop kernel disagrees with "
+                         f"alive.any(): {errs}")
+    lp = fm_cuda.SaLoop(fm_, kk, steps, alive, 2 * fm_.sa_intv)
+    bound_ms, bound_by = bound_of(n + 4, n)
+    plain_ms = cuda_time_ms(lambda: lp.go.copy_(alive.any()), 50)
+    any_out = torch.empty((), dtype=torch.bool, device=alive.device)
+    library_ms = launch_ms(lambda: torch.any(alive, out=any_out), 20)
+    out = dict(lanes=n, rounds=len(states) - 3, states=len(states))
+    for kernel, launch in zip(SA_KERNELS, (fm_cuda.sa_entry,
+                                           fm_cuda.sa_cond)):
+        out[kernel] = dict(max_abs_err=errs[kernel],
+                           ms=launch_ms(lambda: launch(lp), 20),
+                           loop_ms=cuda_time_ms(lambda: launch(lp), 50),
+                           plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           bytes=n + 4, ops=n)
+    return out
+
+
+def sa_rows(sa_rec, l32, row, prof) -> list:
+    """The suffix-array loop kernels' rows of the kernel table: launches
+    (captured, once a graph launch) in the main path's int32 window; ms,
+    plain_ms and the bound from sa_loop_kernels; device_ms_profiled: the
+    profiler's mean over one chunk's runs of the kernel."""
+    return [row(k, SA_REPLACES[k], l32[k], sa_rec[k]["max_abs_err"],
+                sa_rec[k]["ms"], sa_rec[k]["plain_ms"], sa_rec[k],
+                source=FM_SOURCE, loop_ms=sa_rec[k]["loop_ms"],
+                library_ms=sa_rec[k]["library_ms"],
+                device_ms_profiled=prof.get(k, {}).get(
+                    "device_ms_per_launch"))
+            for k in SA_KERNELS]
+
+
 def segment_costs(seeder, queries, runs: int = 3) -> dict:
-    """What a segment's graph costs the host: the first chunk's seeding
-    with every graph captured anew (seedscan.drop_held first), then
+    """What a segment's graph costs the host on the eager route (the
+    engines that run a call eagerly; seeder2.EagerCalls): the first
+    chunk's seeding with every graph captured anew (seedscan.drop_held
+    first), then
     ``runs`` runs on the kept graphs, without the profiler.  For
     chain_scan's segments and walk_pool_chain's widths: the capture (the
     outer graph and the body, from begin to end) and the instantiation
@@ -1579,14 +1801,17 @@ def segment_costs(seeder, queries, runs: int = 3) -> dict:
     import torch
     from compseed_tpu_torch.ops import cuda_lib
     from compseed_tpu_torch.ops import seedscan as ss
+    from compseed_tpu_torch.ops.seeder2 import EagerCalls
     seen = {"chain": [], "walk": []}
     kind = []
     end = cuda_lib.LoopGraph.end
 
     def timed_end(self):
         end(self)
-        seen[kind[-1]][-1].update(capture_ms=self.capture_s * 1e3,
-                                  instantiate_ms=self.instantiate_s * 1e3)
+        if kind:            # a segment's (not the suffix-array loop's)
+            seen[kind[-1]][-1].update(
+                capture_ms=self.capture_s * 1e3,
+                instantiate_ms=self.instantiate_s * 1e3)
 
     def timed(what, fn):
         def run(*a, **kw):
@@ -1605,6 +1830,7 @@ def segment_costs(seeder, queries, runs: int = 3) -> dict:
     ss._walk_segment = timed("walk", orig[1])
     walls, dev_s, first = [], [], {}
     ss.drop_held()
+    eager = EagerCalls().__enter__()
     try:
         for run in range(runs + 1):
             for v in seen.values():
@@ -1620,8 +1846,10 @@ def segment_costs(seeder, queries, runs: int = 3) -> dict:
     finally:
         cuda_lib.LoopGraph.end = end
         ss._chain_segment, ss._walk_segment = orig
+        eager.__exit__()
     out = dict(run_flat_s=walls, device_s=dev_s,
-               note="run 0 captures every graph; runs 1- run kept ones")
+               note="the eager route; run 0 captures every graph; runs 1- "
+                    "run kept ones")
     for what in seen:
         segs, kept = first[what], seen[what]
         out[what] = {k: dict(median=statistics.median(x[k] for x in segs),
@@ -1945,10 +2173,14 @@ def chain_turns(seeder, queries) -> dict:
 def launch_split(seeder, queries) -> dict:
     """torch.profiler over one run of the first chunk's seeding, on the
     graphs a run just before it captured (as every chunk of a shape
-    after the first runs).  The CUDA runtime calls that cost host time (kernel and graph launches, syncs,
-    copies, memsets, captures, instantiations) by stage, each given to
-    the innermost stage among its callers in the profiler's tree:
-    chain_scan's own set-up and tail, its segments
+    after the first runs).  The CUDA runtime calls that cost host time
+    (kernel and graph launches, syncs, copies, memsets, captures,
+    instantiations) by stage, each given to the innermost stage among its
+    callers in the profiler's tree: on the call graph's route (the
+    default engine on a card) the call graph (``CallGraph.run``: the
+    copies into its inputs and its one launch) and the rest (the
+    uploads, the two fetches); on the eager route (under
+    seeder2.EagerCalls) chain_scan's own set-up and tail, its segments
     (seedscan._chain_segment: a round's arguments and scratch, the
     capture of its loop graph, the graph's launch), walk_pool_chain's
     set-up and compactions, its widths (seedscan._walk_segment), the
@@ -1960,18 +2192,22 @@ def launch_split(seeder, queries) -> dict:
     loops' share of the kernels the card ran (each segment's entry
     kernel and its rounds' bodies).  Stages are marked with
     record_function for this run only (outside any capture); a run in
-    which a round kernel did not run, or a segment captured anew, fails."""
+    which a round kernel did not run, or a graph was captured anew,
+    fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from compseed_tpu_torch.ops import cuda_lib
     from compseed_tpu_torch.ops import seedscan as ss
+    R, L, _, _ = seeder._upload(queries)
+    graphed = seeder._graphed(seeder._build(R, L))
     names = dict(chain_scan="chain_scan", chain_segment="_chain_segment",
                  walk_pool_chain="walk_pool_chain",
                  walk_segment="_walk_segment")
     orig = {st: getattr(ss, fn) for st, fn in names.items()}
     n = dict.fromkeys(names, 0)
-    bodies = {"chain": [], "walk": []}
+    bodies = {"chain": [], "walk": [], "fm": []}
     end = cuda_lib.LoopGraph.end
+    run_graph = cuda_lib.CallGraph.run
 
     def counted_end(self):
         end(self)
@@ -1979,7 +2215,7 @@ def launch_split(seeder, queries) -> dict:
 
     def marked(name, fn):
         def run(*a, **kw):
-            n[name] += 1
+            n[name] = n.get(name, 0) + 1
             with record_function(f"stage.{name}"):
                 return fn(*a, **kw)
         return run
@@ -1987,6 +2223,7 @@ def launch_split(seeder, queries) -> dict:
     # the graphs captured anew (their bodies counted), then a run on them
     # as every later chunk of the shape runs, profiled
     ss.drop_held()
+    seeder._calls.drop_thread()
     cuda_lib.LoopGraph.end = counted_end
     try:
         seeder.run_flat(queries)
@@ -1994,6 +2231,7 @@ def launch_split(seeder, queries) -> dict:
         cuda_lib.LoopGraph.end = end
     for st, fn in names.items():
         setattr(ss, fn, marked(st, orig[st]))
+    cuda_lib.CallGraph.run = marked("call_graph", run_graph)
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -2003,6 +2241,7 @@ def launch_split(seeder, queries) -> dict:
     finally:
         for st, fn in names.items():
             setattr(ss, fn, orig[st])
+        cuda_lib.CallGraph.run = run_graph
     calls = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch",
              "cudaStreamSynchronize", "cudaMemcpyAsync", "cudaMemsetAsync",
              "cudaStreamBeginCapture", "cudaGraphInstantiate")
@@ -2015,7 +2254,8 @@ def launch_split(seeder, queries) -> dict:
             e = e.cpu_parent
         return "rest" if e is None else e.name[6:]
 
-    split = {st: dict.fromkeys(calls, 0) for st in tuple(names) + ("rest",)}
+    split = {st: dict.fromkeys(calls, 0)
+             for st in tuple(names) + ("call_graph", "rest")}
     ran = dict(memsets=0, copies=0, kernels={})
     for e in prof.events():
         if str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -2023,7 +2263,7 @@ def launch_split(seeder, queries) -> dict:
             if kind != "kernels":
                 ran[kind] += 1
                 continue
-            m = re.search(r"\b((?:chain|walk|fm)_[a-z_]+_kernel)", e.name)
+            m = re.search(r"\b((?:chain|walk|fm|sa)_[a-z_]+_kernel)", e.name)
             key = m.group(1) if m else ("cub" if "Radix" in e.name else
                                         "other")
             ran["kernels"][key] = ran["kernels"].get(key, 0) + 1
@@ -2034,6 +2274,15 @@ def launch_split(seeder, queries) -> dict:
     for st in split.values():
         st["launches"] = st["cudaLaunchKernel"] + \
             st["cudaLaunchKernelExC"] + st["cudaGraphLaunch"]
+    # no graph captured anew: on the eager route no segment's (its
+    # suffix-array loop is captured at every call)
+    anew = sum(v["cudaStreamBeginCapture"] + v["cudaGraphInstantiate"]
+               for st, v in split.items()
+               if graphed or st.endswith("_segment"))
+    if graphed != bool(n.get("call_graph")) or anew:
+        raise SystemExit(f"launch_split: the run took the "
+                         f"{'eager' if n.get('call_graph') else 'graph'} "
+                         f"route, or captured anew: {n} {split}")
     per, loops = {}, 0
     for what, round_kernels in (("chain", CHAIN_KERNELS),
                                 ("walk", WALK_KERNELS)):
@@ -2041,14 +2290,12 @@ def launch_split(seeder, queries) -> dict:
         segs = bodies[what]
         # the profiler may drop a few records in a long process
         # (fm_measure): each round kernel must have run, and the counts are
-        # reported as seen
-        if len(segs) != n[f"{what}_segment"] or not segs or \
-                split[f"{what}_segment"]["cudaStreamBeginCapture"] or not all(
-                ran["kernels"].get(k, 0) for k in round_kernels) or \
-                not rounds:
+        # reported as seen; on the eager route each segment is one call
+        if not segs or (not graphed and len(segs) != n[f"{what}_segment"]) \
+                or not all(ran["kernels"].get(k, 0) for k in round_kernels) \
+                or not rounds:
             raise SystemExit(f"launch_split: the {what} loop's graphs ran "
-                             f"no round kernel, or captured anew: {ran} "
-                             f"{segs}")
+                             f"no round kernel: {ran} {segs}")
         kmax = max(b["kernels"] for b in segs)
         loops += len(segs) + rounds * kmax if \
             min(b["kernels"] for b in segs) == kmax else 0
@@ -2059,11 +2306,18 @@ def launch_split(seeder, queries) -> dict:
             other_nodes=max(b["other"] for b in segs),
             host_launches_per_segment=split[f"{what}_segment"]["launches"]
             / len(segs))
+    per["sa_round"] = dict(
+        rounds=ran["kernels"].get("sa_loop_cond_kernel", 0),
+        loops=len(bodies["fm"]),
+        kernels=max((b["kernels"] for b in bodies["fm"]), default=0),
+        memsets=max((b["memsets"] for b in bodies["fm"]), default=0))
     total = sum(ran["kernels"].values())
-    return dict(split=split, calls=n, per_round=per, ran=ran,
-                ran_kernels=total, loop_kernels=loops,
+    return dict(route="call graph" if graphed else "eager", split=split,
+                calls=n, per_round=per, ran=ran, ran_kernels=total,
+                loop_kernels=loops,
                 launches=sum(v["launches"] for v in split.values()),
-                syncs=sum(v["cudaStreamSynchronize"] for v in split.values()))
+                syncs=sum(v["cudaStreamSynchronize"] for v in split.values()),
+                copies=sum(v["cudaMemcpyAsync"] for v in split.values()))
 
 
 def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
@@ -2115,9 +2369,21 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
     turns = chain_turns(seeder, queries)
     log(f"[4] round 1's chain_scan, kernels and plain round in turns: "
         f"{json.dumps(turns)}")
+    from compseed_tpu_torch.ops.seeder2 import EagerCalls
     split = launch_split(seeder, queries)
     log(f"[4] host calls and the card's kernels by stage over one {CHUNK}-"
-        f"read chunk: {json.dumps(split)}")
+        f"read chunk, the call graph's route: {json.dumps(split)}")
+    if split["launches"] > MAX_CHUNK_LAUNCHES or \
+            split["syncs"] > MAX_CHUNK_SYNCS or \
+            split["copies"] > MAX_CHUNK_COPIES:
+        raise SystemExit(f"launch_split: a chunk's launches / syncs / copies "
+                         f"exceed {MAX_CHUNK_LAUNCHES} / {MAX_CHUNK_SYNCS} / "
+                         f"{MAX_CHUNK_COPIES}")
+    with EagerCalls():
+        eager = launch_split(seeder, queries)
+    log(f"[4] the same on the eager route (the engines that run a call "
+        f"eagerly): {json.dumps(eager)}")
+    split["eager"] = eager
     per_round = split["per_round"]["chain_round"]["kernels"]
     if per_round > MAX_CHAIN_ROUND_KERNELS:
         raise SystemExit(f"the card runs {per_round:.2f} kernels a "
@@ -2455,21 +2721,32 @@ def chunk_means(what: str, module, ops, kernels, builds: dict, seeder,
     the port's.
     {build: {kernel: [ms, ...], busy_ms: [...], records: [{kernel: the
     device ms of each launch in order (``records``)}, ...]}}."""
+    import contextlib
+
     import numpy as np
     import torch
+    from compseed_tpu_torch.ops import seedscan as ss
+    from compseed_tpu_torch.ops.seeder2 import EagerCalls
     order = (list(builds) + list(builds)[::-1]) * turns
     out = {b: dict({k: [] for k in kernels}, busy_ms=[], records=[])
            for b in builds}
     want = seeder.run_flat(queries)
+    # builds to compare run eagerly, each turn's loop graphs captured anew
+    # on its build (a kept graph replays the kernels it was captured with)
+    several = len(builds) > 1
     for b in order:
         build = builds[b]
         saved = [getattr(module, op) for op in ops]
         for op in ops:
             setattr(module, op, getattr(build, op))
         got = []
+        if several:
+            ss.drop_held()
         try:
-            prof = profile_chunk(lambda: got.append(seeder.run_flat(queries)),
-                                 torch.cuda.synchronize, records)
+            with EagerCalls() if several else contextlib.nullcontext():
+                prof = profile_chunk(
+                    lambda: got.append(seeder.run_flat(queries)),
+                    torch.cuda.synchronize, records)
         finally:
             for op, fn in zip(ops, saved):
                 setattr(module, op, fn)
@@ -3835,6 +4112,15 @@ def main() -> None:
     log(f"[2] the round loops as graphs against the plain loop, every call "
         f"of the first chunk ({time.time() - t0:.1f} s): "
         f"{json.dumps(loop_rec)}")
+    # the suffix-array loop's kernels on the first chunk's last-stage lanes;
+    # each seeding call as one graph against the eager _run, every chunk
+    t0 = time.time()
+    sa_rec = sa_loop_kernels(sa_capture(device_seeder(
+        opt, fm, dedup=True, device=dev), list(reads_arr[:CHUNK]))[0])
+    log(f"[2] the suffix-array loop's kernels against alive.any() on the "
+        f"first chunk's last-stage lanes ({time.time() - t0:.1f} s): "
+        f"{json.dumps(sa_rec)}")
+    call_rec = call_graph_check(dev, opt, fm, reads_arr)
 
     # ---- phase 3: goldens on the card, each file as one chunk
     fm_t = FMIndex.from_built(build_index(
@@ -3989,7 +4275,7 @@ def main() -> None:
             or l32["fm_chain_walk_kernel"] <= 0 \
             or l32["fm_inv_psi_walk_kernel"] <= 0 \
             or min(l32[k] for k in CHAIN_KERNELS + WALK_KERNELS
-                   + LOOP_KERNELS) <= 0:
+                   + LOOP_KERNELS + SA_KERNELS) <= 0:
         raise SystemExit(f"int32 main path: a kernel was not launched: {l32}")
     if l32["bsw_meta_dual_kernel_i16"] or l32["bsw_extend_kernel_i16"]:
         raise SystemExit("an int16 kernel ran without COMPSEED_BSW_I16=1")
@@ -4247,6 +4533,7 @@ def main() -> None:
                       "main_again": rec32b, "forced_overflow": forced_rec,
                       "long_reads_launches": llong,
                       "probe_turns_ms": probe,
+                      "call_graph": call_rec, "sa_loop": sa_rec,
                       "captured_fused": capd, "captured_tiles": cap,
                       "block_threads": threads,
                       "scratch_variants_ms": variant_ms}))
@@ -4297,7 +4584,8 @@ def main() -> None:
             library_graph_ms=probe_lib_graph_ms)] + fm_rows(fm_rec, row)
         + chain_rows(chain_rec, l32, row, fm_rec["profile"]["kernels"])
         + walk_rows(walk_rec, l32, row, fm_rec["profile"]["kernels"])
-        + loop_rows(loop_rec, l32, row, fm_rec["profile"]["kernels"])}))
+        + loop_rows(loop_rec, l32, row, fm_rec["profile"]["kernels"])
+        + sa_rows(sa_rec, l32, row, fm_rec["profile"]["kernels"])}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

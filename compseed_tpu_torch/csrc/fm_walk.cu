@@ -24,7 +24,19 @@
 //   the step loops of sa_batch (:200) and sa_batch_compact (run, :256) do:
 //   per step kk = invPsi(kk) and steps += 1 on live lanes, then a lane dies
 //   once kk is a sampled row.  Two threads a lane, over the packed occ
-//   rows.  Plain version: compseed_tpu_torch/ops/fm.py::_walk_plain.
+//   rows.  Plain version: compseed_tpu_torch/ops/fm.py::_walk_plain.  It
+//   may write in place (kk_out == kk and so on): a lane's words are read
+//   before its pair's first shuffle and written after its last.
+// sa_loop_entry_kernel, sa_loop_cond_kernel
+//   Replace the cond of compseed_tpu/ops/fm.py:282, the while_loop of
+//   sa_batch_compact's last stage (jnp.any(alive) over its N // 64
+//   lanes), which runs on the TPU: here the stage is one loop of a CUDA
+//   graph (loop_graph.cuh), an entry kernel, then a WHILE node whose body
+//   is one fm_inv_psi_walk_kernel launch of 2 sa_intv steps in place and
+//   the cond kernel.  Each is one block that ORs the alive bytes
+//   (__syncthreads_or) and sets the node's condition: a launch and a few
+//   kB, launch-bound.  Plain version: alive.any() (ops/fm.py::
+//   _sa_loop_plain); host twins sa_loop_*_host.
 //
 // T is the index type: int32_t, or int64_t for genomes of 2^31 positions
 // or more (DeviceFMIndex.dtype).  Arithmetic on positions and counts wraps
@@ -97,6 +109,9 @@
 #include <cstddef>
 #include <cstdint>
 #include <cstdlib>
+#include <cstring>
+
+#include "loop_graph.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -408,8 +423,25 @@ FM_HD void inv_psi_walk(const FmPacked<T>& fm, T& kk, T& steps, bool& alive,
   }
 }
 
+// The suffix-array walk's last stage as a loop: its words, one 64-bit
+// word a field (ops/fm_cuda.SA_ARGS): the stage's alive bytes, their
+// count, the WHILE node's condition handle (0 outside a graph) and go,
+// one int32, the condition's last value.
+struct SaArgs {
+  long long alive, n, cond, go;
+};
+
+// Whether any of alive[from], alive[from + stride], ... below n is set.
+FM_HD bool sa_any(const uint8_t* alive, long long from, long long n,
+                  long long stride) {
+  for (long long i = from; i < n; i += stride)
+    if (alive[i]) return true;
+  return false;
+}
+
 #ifdef __CUDACC__
 constexpr int kBlock = 64;          // threads a block
+constexpr int kSaBlock = 256;       // the loop kernels' one block
 
 // The pair of threads of this thread's lane (every kernel): its index t in
 // the pair, the pair's mask within the warp, and the other thread's v.
@@ -521,14 +553,14 @@ __global__ void __launch_bounds__(kBlock) fm_chain_walk_kernel(
   if (t == 0) ln[i] = len;
 }
 
+// The lane words are not __restrict__: the walk may run in place.
 template <typename T>
 __global__ void __launch_bounds__(kBlock) fm_inv_psi_walk_kernel(
     const uint32_t* __restrict__ rows, long long n_rows,
     const T* __restrict__ L2, long long primary, int fill_oob,
-    const T* __restrict__ kk, const T* __restrict__ steps,
-    const uint8_t* __restrict__ alive, int n_steps, long long mask,
-    T* __restrict__ kk_out, T* __restrict__ steps_out,
-    uint8_t* __restrict__ alive_out, long long n) {
+    const T* kk, const T* steps, const uint8_t* alive, int n_steps,
+    long long mask, T* kk_out, T* steps_out, uint8_t* alive_out,
+    long long n) {
   const long long i = ((long long)blockIdx.x * kBlock + threadIdx.x) / 2;
   if (i >= n) return;
   const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
@@ -542,6 +574,28 @@ __global__ void __launch_bounds__(kBlock) fm_inv_psi_walk_kernel(
   } else {
     steps_out[i] = st;
   }
+}
+
+// The loop's test, any(alive), by one block, left in *go and, inside a
+// graph, as the WHILE node's condition.
+__device__ __forceinline__ void sa_loop_set(const SaArgs& a) {
+  const bool any = __syncthreads_or(
+      sa_any((const uint8_t*)a.alive, threadIdx.x, a.n, kSaBlock));
+  if (threadIdx.x == 0) {
+    *(int32_t*)a.go = any ? 1 : 0;
+    if (a.cond)
+      cudaGraphSetConditional((cudaGraphConditionalHandle)a.cond, any);
+  }
+}
+
+__global__ void __launch_bounds__(kSaBlock) sa_loop_entry_kernel(
+    const SaArgs a) {
+  sa_loop_set(a);
+}
+
+__global__ void __launch_bounds__(kSaBlock) sa_loop_cond_kernel(
+    const SaArgs a) {
+  sa_loop_set(a);
 }
 
 unsigned blocks_for(long long threads) {
@@ -747,11 +801,53 @@ extern "C" int fm_inv_psi_walk_launch(const uint32_t* rows, long long n_rows,
                                               steps_out, alive_out, n, stream);
 }
 
+// The suffix-array loop's entry and cond kernels on a stream, from their
+// SaArgs words.
+static int sa_loop_launch(bool entry, const long long* words, void* stream) {
+  SaArgs a;
+  memcpy(&a, words, sizeof(SaArgs));
+  if (a.n < 0 || (a.n > 0 && !a.alive) || !a.go)
+    return (int)cudaErrorInvalidValue;
+  if (entry)
+    sa_loop_entry_kernel<<<1, kSaBlock, 0, (cudaStream_t)stream>>>(a);
+  else
+    sa_loop_cond_kernel<<<1, kSaBlock, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sa_loop_entry_launch(const long long* words, void* stream) {
+  return sa_loop_launch(true, words, stream);
+}
+
+extern "C" int sa_loop_cond_launch(const long long* words, void* stream) {
+  return sa_loop_launch(false, words, stream);
+}
+
+LOOP_GRAPH_ENTRIES(fm)
+
 // The name of a CUDA error code, for the wrapper's messages.
 extern "C" const char* fm_cuda_error_name(int code) {
   return cudaGetErrorName((cudaError_t)code);
 }
 #else
+// The suffix-array loop kernels' host twins: the same test on the host,
+// left in *go; -1 for words the launchers refuse.
+static int sa_loop_host(const long long* words) {
+  SaArgs a;
+  memcpy(&a, words, sizeof(SaArgs));
+  if (a.n < 0 || (a.n > 0 && !a.alive) || !a.go) return -1;
+  *(int32_t*)a.go = sa_any((const uint8_t*)a.alive, 0, a.n, 1) ? 1 : 0;
+  return 0;
+}
+
+extern "C" int sa_loop_entry_host(const long long* words) {
+  return sa_loop_host(words);
+}
+
+extern "C" int sa_loop_cond_host(const long long* words) {
+  return sa_loop_host(words);
+}
+
 // The same lanes on the host; each returns 0, or -1 where a lane would
 // trap on the card.
 extern "C" int fm_extend_sel_host(const uint32_t* rows, long long n_rows,
@@ -822,3 +918,6 @@ extern "C" int fm_rank_pieces_host(const uint32_t* rows, const long long* row,
   return 0;
 }
 #endif
+
+// The size of SaArgs in words, to check the Python layout against.
+extern "C" int fm_sa_args_words() { return (int)(sizeof(SaArgs) / 8); }

@@ -21,6 +21,14 @@
 // (the alignment tail's DP beside the seeding worker) stay out of them.
 // A body must not allocate: the graph names the addresses it was captured
 // with until it is destroyed (ops/cuda_lib.py guards every capture).
+//
+// A loop may also join a capture already in progress on the caller's
+// stream (the seeder's whole call as one graph, ops/cuda_lib.CallGraph):
+// nest() creates the condition handle in that capture's graph, the entry
+// kernel is captured from the caller's stream, body() adds the WHILE node
+// after what that capture holds so far, and end() ends the body's capture
+// alone: the enclosing capture instantiates and launches the loop with
+// everything else it holds.
 
 #pragma once
 
@@ -48,12 +56,15 @@ LG_HD bool loop_test(int32_t rnd, int32_t live, long long nxtw,
 namespace loop_graph {
 
 // One segment's graph as it is built and run.  `open` counts the captures
-// in progress: 1 the outer graph, 2 its body too.
+// in progress: 1 the outer graph, 2 its body too.  `nested`: the outer
+// capture is the caller's (nest), which this state neither ends nor
+// instantiates.
 struct State {
   cudaStream_t outer, child;
   cudaGraph_t graph, body;
   cudaGraphExec_t exec;
   int open;
+  bool nested;
 };
 
 // Start capturing the outer graph from `outer`; *handle gets the WHILE
@@ -61,7 +72,7 @@ struct State {
 // kernels take it as an argument, so it exists before they are captured).
 inline int begin(State* s, cudaStream_t outer, cudaStream_t child,
                  unsigned long long* handle) {
-  *s = State{outer, child, nullptr, nullptr, nullptr, 0};
+  *s = State{outer, child, nullptr, nullptr, nullptr, 0, false};
   cudaError_t e =
       cudaStreamBeginCapture(outer, cudaStreamCaptureModeThreadLocal);
   if (e != cudaSuccess) return (int)e;
@@ -70,6 +81,26 @@ inline int begin(State* s, cudaStream_t outer, cudaStream_t child,
   cudaGraph_t g;
   e = cudaStreamGetCaptureInfo(outer, &status, nullptr, &g, nullptr, nullptr);
   if (e != cudaSuccess) return (int)e;
+  cudaGraphConditionalHandle h;
+  e = cudaGraphConditionalHandleCreate(&h, g, 0, 0);
+  *handle = (unsigned long long)h;
+  return (int)e;
+}
+
+// Join the capture in progress on `stream` (the caller's, thread-local or
+// global): *handle gets the WHILE node's condition handle, created in that
+// capture's graph.  Fails unless `stream` is capturing.
+inline int nest(State* s, cudaStream_t stream, cudaStream_t child,
+                unsigned long long* handle) {
+  *s = State{stream, child, nullptr, nullptr, nullptr, 0, true};
+  cudaStreamCaptureStatus status;
+  cudaGraph_t g;
+  cudaError_t e =
+      cudaStreamGetCaptureInfo(stream, &status, nullptr, &g, nullptr, nullptr);
+  if (e != cudaSuccess) return (int)e;
+  if (status != cudaStreamCaptureStatusActive)
+    return (int)cudaErrorIllegalState;
+  s->open = 1;
   cudaGraphConditionalHandle h;
   e = cudaGraphConditionalHandleCreate(&h, g, 0, 0);
   *handle = (unsigned long long)h;
@@ -126,27 +157,32 @@ inline int body_nodes(const State* s, int* out) {
   return (int)e;
 }
 
-// End both captures and instantiate the outer graph.  (The body graph
-// belongs to its node.)
+// End both captures and instantiate the outer graph (the body graph
+// belongs to its node); a nested loop's body capture alone.
 inline int end(State* s) {
   cudaGraph_t g;
   cudaError_t e = cudaStreamEndCapture(s->child, &g);
   s->open = 1;
   if (e != cudaSuccess) return (int)e;
+  if (s->nested) {
+    s->open = 0;
+    return 0;
+  }
   e = cudaStreamEndCapture(s->outer, &s->graph);
   s->open = 0;
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGraphInstantiate(&s->exec, s->graph, 0);
 }
 
-// Free the graph: captures still open (a failed build) are ended first.
-// An exec still running on the card is destroyed when it has finished.
+// Free the graph: captures still open (a failed build) are ended first,
+// the caller's own capture of a nested loop excepted.  An exec still
+// running on the card is destroyed when it has finished.
 inline void close(State* s) {
   cudaGraph_t g = nullptr;
   if (s->open == 2) cudaStreamEndCapture(s->child, &g);
   g = nullptr;
-  if (s->open >= 1 && cudaStreamEndCapture(s->outer, &g) == cudaSuccess &&
-      g)
+  if (s->open >= 1 && !s->nested &&
+      cudaStreamEndCapture(s->outer, &g) == cudaSuccess && g)
     cudaGraphDestroy(g);
   if (s->exec) cudaGraphExecDestroy(s->exec);
   if (s->graph) cudaGraphDestroy(s->graph);
@@ -156,10 +192,10 @@ inline void close(State* s) {
 
 }  // namespace loop_graph
 
-// The C entries of a round source's loop graphs, named <prefix>_graph_*:
+// The C entries of a source's loop graphs, named <prefix>_graph_*:
 // streams (two non-blocking streams on the current device, for captures),
-// begin, body, end, launch (on a stream), nodes (body_nodes) and close.
-// Each returns the CUDA error code, close nothing.
+// begin, nest, body, end, launch (on a stream), nodes (body_nodes) and
+// close.  Each returns the CUDA error code, close nothing.
 #define LOOP_GRAPH_ENTRIES(prefix)                                          \
   extern "C" int prefix##_graph_streams(void** outer, void** child) {       \
     cudaError_t e = cudaStreamCreateWithFlags((cudaStream_t*)outer,         \
@@ -175,6 +211,14 @@ inline void close(State* s) {
     *state = s;                                                             \
     return loop_graph::begin(s, (cudaStream_t)outer, (cudaStream_t)child,   \
                              handle);                                       \
+  }                                                                         \
+  extern "C" int prefix##_graph_nest(void* stream, void* child,             \
+                                     void** state,                          \
+                                     unsigned long long* handle) {          \
+    auto* s = new loop_graph::State{};                                      \
+    *state = s;                                                             \
+    return loop_graph::nest(s, (cudaStream_t)stream, (cudaStream_t)child,   \
+                            handle);                                        \
   }                                                                         \
   extern "C" int prefix##_graph_body(void* state,                           \
                                      unsigned long long handle) {           \

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from compseed_tpu_torch.ops import chain_cuda
+from compseed_tpu_torch.ops import chain_cuda, seeder2
 from compseed_tpu_torch.ops import seedscan as tss
 
 _LANE = tss.CHAIN_LANE_KEYS
@@ -45,7 +45,8 @@ def clone_state(st: dict) -> dict:
 
 class RoundCapture:
     """While active, runs every chain_scan call through the plain round
-    (``seedscan._chain_round`` patched) and keeps (fm, constants, state,
+    (``seedscan._chain_round`` patched; every seeding call eager,
+    seeder2.EagerCalls) and keeps (fm, constants, state,
     w, Uw) before the first round of every width of every call, up to
     ``limit`` states, numbered by call: ``states[(call, w)]``.  A round
     loop of another seedscan entry names its entry, its dispatch, its
@@ -69,6 +70,7 @@ class RoundCapture:
         self._rounds = {}
 
     def __enter__(self):
+        self._eager = seeder2.EagerCalls().__enter__()
         entry, dispatch, plain = self._names
         self._entry = getattr(tss, entry)
         self._dispatch = getattr(tss, dispatch)
@@ -100,6 +102,7 @@ class RoundCapture:
         entry, dispatch, _ = self._names
         setattr(tss, entry, self._entry)
         setattr(tss, dispatch, self._dispatch)
+        self._eager.__exit__()
 
 
 class EveryRound(RoundCapture):
@@ -132,8 +135,9 @@ CALL_OUTPUTS = dict(
 
 
 class CallCapture:
-    """While active, keeps every call of ``entry`` (chain_scan or
-    walk_pool_chain) as the caller's path runs it, up to ``limit``:
+    """While active (and every seeding call eager, seeder2.EagerCalls),
+    keeps every call of ``entry`` (chain_scan or walk_pool_chain) as the
+    caller's path runs it, up to ``limit``:
     ``calls``, a list of (args, kwargs, outputs), the arguments (the
     state the call's first segment starts from) cloned before the call
     and the outputs cloned after it.  With ``report_rounds`` a
@@ -146,6 +150,7 @@ class CallCapture:
         self.report = report_rounds and entry == "chain_scan"
 
     def __enter__(self):
+        self._eager = seeder2.EagerCalls().__enter__()
         self._fn = fn = getattr(tss, self.entry)
 
         def call(*a, **kw):
@@ -166,6 +171,7 @@ class CallCapture:
 
     def __exit__(self, *exc):
         setattr(tss, self.entry, self._fn)
+        self._eager.__exit__()
 
 
 def _flat_outputs(entry: str, out) -> dict:

@@ -17,17 +17,26 @@ A round source (chain_scan.cu, walk_chain.cu) runs a segment of its loop
 as one ``LoopGraph`` (csrc/loop_graph.cuh): an entry kernel, then a
 WHILE node whose body is one round's launches, captured once from the
 calling thread and replayed on the card until its cond kernel clears the
-condition.  ``run_loop`` builds and launches it; ``NoTorchOps`` guards
-every capture.
+condition; fm_walk.cu runs the suffix-array walk's last stage the same
+way.  ``run_loop`` builds and launches it, or, inside the capture of a
+whole call (``CallGraph``: the seeder's call as one torch.cuda.CUDAGraph),
+adds the loop to that capture; ``NoTorchOps`` guards every body's
+capture.  ``Kept`` keeps such graphs per (thread, call shape).
+``NoHostReads`` is the CPU tests' guard for what a capture refuses on a
+card: host reads and shape-dependent operations.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes as ct
+import gc
 import glob
 import os
 import shutil
 import subprocess
+import sys
 import threading
 import time
 
@@ -102,16 +111,7 @@ def bind_round(lib, kernels, args_words: str, names,
         fn.argtypes = [ct.c_void_p, ct.c_void_p]
         fn.restype = ct.c_int
     if graphs:
-        p, pp = ct.c_void_p, ct.POINTER(ct.c_void_p)
-        for name, args, res in (
-                ("streams", [pp, pp], ct.c_int),
-                ("begin", [p, p, pp, ct.POINTER(ct.c_ulonglong)], ct.c_int),
-                ("body", [p, ct.c_ulonglong], ct.c_int),
-                ("end", [p], ct.c_int), ("launch", [p, p], ct.c_int),
-                ("nodes", [p, ct.POINTER(ct.c_int)], ct.c_int),
-                ("close", [p], None)):
-            fn = getattr(lib, f"{graphs}_graph_{name}")
-            fn.argtypes, fn.restype = args, res
+        bind_graphs(lib, graphs)
         fn = getattr(lib, f"{graphs}_sort_bytes")
         fn.argtypes, fn.restype = [ct.c_longlong, ct.c_int], ct.c_longlong
     words = getattr(lib, args_words)
@@ -121,6 +121,23 @@ def bind_round(lib, kernels, args_words: str, names,
             words() == len(names)):
         raise RuntimeError(f"{args_words}() says struct Args has {words()} "
                            f"words, the launchers name {len(names)}")
+
+
+def bind_graphs(lib, prefix: str) -> None:
+    """Bind a source's loop-graph entries, ``<prefix>_graph_*``
+    (csrc/loop_graph.cuh's LOOP_GRAPH_ENTRIES)."""
+    p, pp = ct.c_void_p, ct.POINTER(ct.c_void_p)
+    handle = ct.POINTER(ct.c_ulonglong)
+    for name, args, res in (
+            ("streams", [pp, pp], ct.c_int),
+            ("begin", [p, p, pp, handle], ct.c_int),
+            ("nest", [p, p, pp, handle], ct.c_int),
+            ("body", [p, ct.c_ulonglong], ct.c_int),
+            ("end", [p], ct.c_int), ("launch", [p, p], ct.c_int),
+            ("nodes", [p, ct.POINTER(ct.c_int)], ct.c_int),
+            ("close", [p], None)):
+        fn = getattr(lib, f"{prefix}_graph_{name}")
+        fn.argtypes, fn.restype = args, res
 
 
 class RoundArgs:
@@ -223,11 +240,99 @@ class NoTorchOps(TorchDispatchMode):
                            f"operations")
 
 
+class NoHostReads(TorchDispatchMode):
+    """Raises on what a CUDA graph capture refuses, for tensors on any
+    device, so that the CPU tests hold a program to what a card can
+    capture: a read of a tensor's value by the host (``int(t)``,
+    ``bool(t)``, ``t.item()``, ``torch.equal``) and an operation whose
+    output shape depends on the values (``nonzero``, ``masked_select``,
+    ``unique``, ``repeat_interleave`` without ``output_size``, indexing by
+    a bool mask).  The loop test of ``run_loop``'s CPU branch, which
+    stands in for a graph's conditional node, is let through.  The
+    calling thread's own, as every dispatch mode."""
+
+    _READS = ("_local_scalar_dense", "is_nonzero", "equal")
+    _SHAPES = ("nonzero", "masked_select", "unique_dim", "_unique",
+               "_unique2", "unique_consecutive", "unique_dim_consecutive")
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        name = func.overloadpacket.__name__
+        bad = None
+        if name in self._READS and not getattr(_TLS, "loop_test", 0):
+            bad = "reads a tensor's value on the host"
+        elif name in self._SHAPES or (
+                name == "repeat_interleave" and
+                func._overloadname != "self_int" and
+                kwargs.get("output_size") is None):
+            bad = "has an output shape that depends on the values"
+        elif name in ("index", "index_put", "index_put_") and any(
+                isinstance(i, torch.Tensor) and i.dtype == torch.bool
+                for i in (args[1] if len(args) > 1 else ())
+                if i is not None):
+            bad = "indexes by a bool mask (a shape that depends on it)"
+        if bad:
+            raise RuntimeError(f"{func} {bad}: a CUDA graph capture "
+                               f"refuses it")
+        return func(*args, **kwargs)
+
+
 _STREAMS: dict = {}             # device index -> free (outer, child) pairs
 _STREAMS_LOCK = threading.Lock()
-# per thread: ``recording``, the (library, kernel) launches of a capture
+# per thread: ``recording``, the launch lists of the captures in progress
+# (innermost last), and ``loop_test``, set while run_loop's CPU branch
+# reads its condition
 _TLS = threading.local()
-_CAPTURE_LOCK = threading.Lock()
+# one capture at a time in the process (a thread's own streams and
+# thread-local mode already keep captures apart; this keeps the host code
+# they run, CUB's among it, off concurrent paths); reentrant, for a loop
+# captured inside a call's capture
+_CAPTURE_LOCK = threading.RLock()
+
+
+class _NoGC:
+    """Python's cyclic garbage collector off for the block (a capture): a
+    kept graph of a seeder that has become garbage, freed by the
+    collector mid-capture, would issue CUDA calls that invalidate the
+    capture.  Nested blocks leave it to the outermost to turn it on."""
+
+    def __enter__(self):
+        self.was = gc.isenabled()
+        gc.disable()
+
+    def __exit__(self, *exc):
+        if self.was:
+            gc.enable()
+        return False
+
+
+def capturing(dev: torch.device) -> bool:
+    """Whether the current stream of ``dev`` (a CUDA device) is being
+    captured into a graph: false for any other device."""
+    if dev.type != "cuda":
+        return False
+    with torch.cuda.device(dev):
+        return torch.cuda.is_current_stream_capturing()
+
+
+class _Recording:
+    """The launches made while active, in the calling thread: a list of
+    (library, kernel), every capture in progress records each launch."""
+
+    def __enter__(self) -> list:
+        self.launched = []
+        stack = getattr(_TLS, "recording", None)
+        if stack is None:
+            stack = _TLS.recording = []
+        stack.append(self.launched)
+        return self.launched
+
+    def __exit__(self, *exc):
+        # by identity: an inner capture's list may equal its outer's
+        stack = _TLS.recording
+        del stack[next(i for i, x in enumerate(stack)
+                       if x is self.launched)]
+        return False
 
 
 class LoopGraph:
@@ -237,7 +342,8 @@ class LoopGraph:
     ``body`` adds the WHILE node and starts capturing its body, whose
     launches go out with ``child`` current; ``end`` ends both captures
     and instantiates; ``launch`` runs it on a stream; ``nodes`` counts
-    the body's nodes by type; ``close`` frees it.
+    the body's nodes by type; ``close`` frees it.  ``nest`` in place of
+    ``begin`` joins a capture in progress on the caller's stream.
     The two capture streams are non-blocking streams of the library's own,
     taken from a pool for the capture only.  ``capture_s`` and
     ``instantiate_s``: the host seconds of the captures and of ending them
@@ -261,7 +367,7 @@ class LoopGraph:
                                f"{self.dev}: CUDA error {err} "
                                f"({name.decode()})")
 
-    def begin(self) -> int:
+    def _take_pair(self) -> tuple:
         with _STREAMS_LOCK:
             free = _STREAMS.setdefault(self.dev.index, [])
             pair = free.pop() if free else None
@@ -272,6 +378,10 @@ class LoopGraph:
                             self._fn("streams")(ct.byref(o), ct.byref(c)))
             pair = (o.value, c.value)
         self._pair = pair
+        return pair
+
+    def begin(self) -> int:
+        pair = self._take_pair()
         self.outer, self.child = (torch.cuda.ExternalStream(x, self.dev)
                                   for x in pair)
         self._t0 = time.perf_counter()
@@ -279,6 +389,22 @@ class LoopGraph:
         with torch.cuda.device(self.dev):
             self._check("begin", self._fn("begin")(
                 pair[0], pair[1], ct.byref(self._state), ct.byref(handle)))
+        return handle.value
+
+    def nest(self, stream) -> int:
+        """``begin`` for a loop that joins the capture in progress on
+        ``stream`` (the caller's): the entry kernel is launched on that
+        stream, and ``end`` ends the body's capture alone (the enclosing
+        capture instantiates the loop with the rest)."""
+        pair = self._take_pair()
+        self.outer = stream
+        self.child = torch.cuda.ExternalStream(pair[1], self.dev)
+        self._t0 = time.perf_counter()
+        handle = ct.c_ulonglong()
+        with torch.cuda.device(self.dev):
+            self._check("nest", self._fn("nest")(
+                stream.cuda_stream, pair[1], ct.byref(self._state),
+                ct.byref(handle)))
         return handle.value
 
     def body(self, handle: int) -> None:
@@ -319,41 +445,72 @@ class LoopGraph:
         """The capture: the launches made until ``__exit__`` are recorded
         as the graph's (``launched``); a capture that raises closes the
         graph (ending any capture still open) and the error propagates."""
-        _TLS.recording = self.launched = []
+        self._rec = _Recording()
+        self.launched = self._rec.__enter__()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        _TLS.recording = None
+        self._rec.__exit__()
         if exc_type is not None:
             self.close()
         return False
 
 
+class _LoopTest:
+    """Marks the calling thread's read of a loop's condition in
+    run_loop's CPU branch, which NoHostReads lets through."""
 
-def run_loop(rd: RoundArgs, lib: KernelLibrary, prefix: str, entry,
-             body) -> None:
-    """Run a segment's rounds: ``entry(rd)`` launches the entry kernel,
-    ``body(rd)`` one round's launches ending with the cond kernel.  On a
+    def __enter__(self):
+        _TLS.loop_test = getattr(_TLS, "loop_test", 0) + 1
+
+    def __exit__(self, *exc):
+        _TLS.loop_test -= 1
+        return False
+
+
+def _loop_test(rd) -> bool:
+    """The condition's last value, read by run_loop's CPU branch."""
+    with _LoopTest():
+        return bool(int(rd.go))
+
+
+def run_loop(rd, lib: KernelLibrary, prefix: str, entry, body) -> None:
+    """Run a loop: ``entry(rd)`` launches the entry kernel, ``body(rd)``
+    one round's launches ending with the cond kernel.  ``rd`` holds the
+    launch arguments: ``dev``, ``args`` (its words, ``AT["cond"]`` the
+    condition handle's), ``go`` (the condition's last value, one int32 on
+    the device) and ``graph`` (a RoundArgs, or fm_cuda.SaLoop).  On a
     card: one LoopGraph, captured under NoTorchOps the first time (kept
     as ``rd.graph`` until ``rd.close()``: a round kept across calls runs
     its graph again) and launched on the current stream; the host waits
     on nothing.  Every launch of the graph counts each kernel captured in
-    it once more in its library's launches.  For CPU tensors (the
-    sources' host builds, which the CPU tests put in place of the
-    launches; the walk there is its plain version) the same launches run
-    in turn while the condition's last value, ``rd.go``, is set."""
+    it once more in its library's launches.  When the current stream is
+    itself being captured (a CallGraph), the loop joins that capture
+    instead (``LoopGraph.nest``), is launched with it and keeps nothing.
+    For CPU tensors (the sources' host builds, which the CPU tests put in
+    place of the launches; the walk there is its plain version) the same
+    launches run in turn while ``rd.go`` is set."""
     if rd.dev.type != "cuda":
         entry(rd)
-        while int(rd.go):
+        while _loop_test(rd):
             body(rd)
+        return
+    if capturing(rd.dev):
+        stream = torch.cuda.current_stream(rd.dev)
+        with _CAPTURE_LOCK, LoopGraph(lib, prefix, rd.dev) as g:
+            handle = rd.args[rd.AT["cond"]] = g.nest(stream)
+            with NoTorchOps():
+                entry(rd)
+            g.body(handle)
+            with NoTorchOps(), torch.cuda.stream(g.child):
+                body(rd)
+            g.end()
+        g.close()                       # the body belongs to the capture
         return
     g = rd.graph
     if g is None:
-        # one capture at a time in the process (a thread's own streams and
-        # thread-local mode already keep captures apart; this keeps the
-        # host code they run, CUB's among it, off concurrent paths); a
-        # capture that fails is closed by the graph's __exit__
-        with _CAPTURE_LOCK, LoopGraph(lib, prefix, rd.dev) as g:
+        # a capture that fails is closed by the graph's __exit__
+        with _CAPTURE_LOCK, _NoGC(), LoopGraph(lib, prefix, rd.dev) as g:
             handle = rd.args[rd.AT["cond"]] = g.begin()
             with NoTorchOps(), torch.cuda.stream(g.outer):
                 entry(rd)
@@ -413,9 +570,8 @@ class KernelLibrary:
     def launched(self, kernel: str) -> None:
         with self._lock:
             self.launches[kernel] += 1
-        recording = getattr(_TLS, "recording", None)
-        if recording is not None:           # a capture: the graph's kernels
-            recording.append((self, kernel))
+        for launched in getattr(_TLS, "recording", None) or ():
+            launched.append((self, kernel))   # a capture: its graph's kernels
 
     def launch(self, kernel: str, dev: torch.device, launcher: str,
                *args) -> None:
@@ -440,3 +596,158 @@ class KernelLibrary:
             raise ValueError(f"{kernel}: the kernel needs CUDA tensors, "
                              f"got {dev}")
         self.launch(kernel, dev, launcher_of(kernel), ct.addressof(args))
+
+
+class Kept:
+    """Objects kept per (thread, key): the loop graphs' tensors of a call
+    shape (seedscan._held), a seeder's call graphs.  ``get`` returns the
+    calling thread's object for ``key``, made by ``make()`` at its first
+    call; beyond ``limit`` keys a thread's least recently used is closed.
+    A thread that keeps nothing yet takes over what a thread that has
+    ended kept (the next seeding worker of a stream, the last one's
+    graphs; their work was queued on the device's default stream, so the
+    new thread's comes after it), and the rest that ended threads kept is
+    closed (a graph still running on the card is freed when it ends, and
+    the memory it names is reused only by work queued after it).  The
+    registry is the module's own, not thread-local storage, so that what
+    a thread kept is freed by a live thread's call, never while the
+    interpreter tears an ending thread down.  No two live threads share
+    an object."""
+
+    def __init__(self, limit: int):
+        self.limit = limit
+        self.by_thread: dict = {}       # ident -> key -> object, LRU first
+        self.lock = threading.Lock()
+
+    def get(self, key, make):
+        me = threading.get_ident()
+        with self.lock:
+            live = {t.ident for t in threading.enumerate()}
+            ended = [i for i in self.by_thread if i not in live]
+            if ended and me not in self.by_thread:
+                self.by_thread[me] = self.by_thread.pop(ended.pop())
+            drop = [x for i in ended for x in self.by_thread.pop(i).values()]
+            kept = self.by_thread.setdefault(me, collections.OrderedDict())
+        x = kept.get(key)
+        if x is not None:
+            kept.move_to_end(key)
+        while x is None and len(kept) >= self.limit:
+            drop.append(kept.popitem(last=False)[1])
+        for old in drop:                # before a new one is made
+            old.close()
+        if x is None:
+            x = kept[key] = make()
+        return x
+
+    def drop_thread(self) -> None:
+        """Close every object the calling thread kept."""
+        with self.lock:
+            kept = self.by_thread.pop(threading.get_ident(), {})
+        for x in kept.values():
+            x.close()
+
+
+class _Capture:
+    """A torch.cuda.CUDAGraph's capture on the current stream, in
+    thread-local mode, for the block: a block that raises ends the capture
+    (its own error, if any, is dropped) and the block's error
+    propagates; one that returns leaves ending it to the caller."""
+
+    def __init__(self, graph):
+        self.graph = graph
+
+    def __enter__(self):
+        self.graph.capture_begin(capture_error_mode="thread_local")
+        return self.graph
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            # said first: ending a capture that CUDA invalidated can
+            # abort the process
+            print(f"CUDA graph capture failed: {exc!r}", file=sys.stderr,
+                  flush=True)
+            with contextlib.suppress(RuntimeError):
+                self.graph.capture_end()
+        return False
+
+
+class CallGraph:
+    """A whole call as one torch.cuda.CUDAGraph: ``fn(*inputs)``, a
+    program of the port's kernels and static-shape torch operations that
+    never waits on the host, captured once in thread-local mode from a
+    stream of its own (the alignment tail's DP runs on the main thread
+    beside a seeding worker's capture) and replayed by ``run``.  The
+    capture holds the inputs' copies (``inputs``: ``run`` copies its
+    arguments into them) and ``outputs``, the tensors ``fn`` returned,
+    which every replay overwrites: a caller copies out what it keeps
+    beyond the next replay.  The graph's private memory pool holds the
+    call's working set for as long as the graph is kept.  Loops inside
+    join the capture (run_loop).  Each replay after the first counts each
+    kernel captured in it once more in its library's launches (the
+    capture counted the first).  ``capture_s``: the host seconds of
+    running ``fn`` under capture, ``instantiate_s``: of ending the capture
+    and instantiating.  A failed capture raises, and the graph is not
+    kept."""
+
+    def __init__(self, dev: torch.device, fn, inputs):
+        self.dev = dev
+        self.inputs = tuple(torch.empty_like(
+            x, memory_format=torch.contiguous_format) for x in inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        cur = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(cur)
+        with _CAPTURE_LOCK:
+            # no capture is in progress (each holds the lock): garbage
+            # graphs are freed and the allocator's cache is given back
+            # now, so that neither happens inside this capture (an
+            # allocation that finds no memory frees the cache, and a
+            # cudaFree invalidates every capture on the device)
+            gc.collect()
+            torch.cuda.empty_cache()
+            self._capture(dev, fn, side)
+        cur.wait_stream(side)
+        self.replays = 0
+        self.stream = cur
+
+    def _capture(self, dev, fn, side) -> None:
+        with _NoGC(), _Recording() as launched, torch.cuda.device(dev), \
+                torch.cuda.stream(side):
+            t0 = time.perf_counter()
+            with _Capture(self.graph):
+                out = fn(*self.inputs)
+            t1 = time.perf_counter()
+            self.graph.capture_end()
+            t2 = time.perf_counter()
+        self.outputs = out
+        self.launched = launched
+        self.capture_s, self.instantiate_s = t1 - t0, t2 - t1
+
+    def run(self, inputs):
+        """Copy ``inputs`` into the graph's and replay it on the current
+        stream (after the last replay, if that was on another stream);
+        returns ``outputs``."""
+        cur = torch.cuda.current_stream(self.dev)
+        if cur != self.stream:
+            cur.wait_stream(self.stream)
+            self.stream = cur
+        for mine, x in zip(self.inputs, inputs, strict=True):
+            if x.shape != mine.shape or x.dtype != mine.dtype:
+                raise ValueError(f"call graph input {tuple(x.shape)} "
+                                 f"{x.dtype}, captured for "
+                                 f"{tuple(mine.shape)} {mine.dtype}")
+            mine.copy_(x)
+        if self.replays:
+            for lib, kernel in self.launched:
+                lib.launched(kernel)
+        with torch.cuda.device(self.dev):
+            self.graph.replay()
+        self.replays += 1
+        return self.outputs
+
+    def close(self) -> None:
+        """Free the graph and its pool (a replay still running on the card
+        finishes first: the pool's memory is reused only by work queued
+        after it)."""
+        self.graph.reset()
+        self.outputs = self.inputs = ()

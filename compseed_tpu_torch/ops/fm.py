@@ -9,7 +9,10 @@ Contracts (exact integer semantics, validated against cpu.fm_oracle):
 ``sa_batch`` and ``sa_batch_compact``) run their plain versions,
 ``_extend_sel_plain`` and ``_walk_plain``, for CPU tensors; for any other
 they call the launchers of ``ops/fm_cuda.py``, which launch the
-hand-written kernels on CUDA tensors or raise.
+hand-written kernels on CUDA tensors or raise.  The while loop of
+``sa_batch_compact``'s last stage runs on the card as one CUDA graph loop
+(``_sa_loop_kernels``), its test by the card, as the JAX package's runs on
+the TPU; ``_sa_loop_plain`` is its plain version.
 
 One occ query gathers ONE fused row (checkpoint counts + 2-bit BWT
 bitplanes, see ops.device_index) and ranks in-block bases with masked
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from compseed_tpu_torch.ops import fm_cuda
+from compseed_tpu_torch.ops import cuda_lib, fm_cuda
 from compseed_tpu_torch.ops.bits import MASK32, popcount32
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex
 
@@ -221,14 +224,22 @@ def sa_batch(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     return steps + _sa_sample(fm, k)
 
 
-def _walk(fm, kk, steps, alive, n_steps: int):
+def _walk(fm, kk, steps, alive, n_steps: int, out=None):
     """``n_steps`` masked inverse-Psi steps: on live lanes kk = invPsi(kk)
     and steps += 1, then a lane dies on a sampled row.  Returns (kk,
-    steps, alive).  ``fm_inv_psi_walk_kernel`` for CUDA tensors,
+    steps, alive), written into ``out`` when given (the inputs
+    themselves allowed).  ``fm_inv_psi_walk_kernel`` for CUDA tensors,
     ``_walk_plain`` for CPU tensors."""
     if kk.device.type == "cpu":
-        return _walk_plain(fm, kk, steps, alive, n_steps)
-    return fm_cuda.inv_psi_walk(fm, kk, steps, alive, n_steps)
+        walk = _walk_plain(fm, kk, steps, alive, n_steps)
+        if out is None:
+            return walk
+        for o, x in zip(out, walk):
+            o.copy_(x)
+        return out
+    if out is None:
+        return fm_cuda.inv_psi_walk(fm, kk, steps, alive, n_steps)
+    return fm_cuda.inv_psi_walk(fm, kk, steps, alive, n_steps, out=out)
 
 
 def _walk_plain(fm, kk, steps, alive, n_steps: int):
@@ -272,9 +283,7 @@ def sa_batch_compact(fm: DeviceFMIndex, k: torch.Tensor):
             kk, steps, alive, slot = kk[take], steps[take], alive[take], \
                 slot[take]
         if n_steps == 0:
-            while bool(alive.any()):
-                kk, steps, alive = _walk(fm, kk, steps, alive,
-                                         2 * fm.sa_intv)
+            kk, steps, alive = _sa_loop(dev)(fm, kk, steps, alive)
         else:
             kk, steps, alive = _walk(fm, kk, steps, alive, n_steps)
         done = ~alive & (slot >= 0)
@@ -286,3 +295,40 @@ def sa_batch_compact(fm: DeviceFMIndex, k: torch.Tensor):
     out_steps, out_k = out_steps[:N], out_k[:N]
     sa = out_steps + _sa_sample(fm, out_k)
     return sa, ovf
+
+
+def _sa_loop(dev: torch.device):
+    """sa_batch_compact's last stage for tensors on ``dev``: the plain
+    version for CPU tensors, the graph loop for any other."""
+    if dev.type == "cpu":
+        return _sa_loop_plain
+    return _sa_loop_kernels
+
+
+def _sa_loop_plain(fm: DeviceFMIndex, kk, steps, alive):
+    """The last stage's loop in PyTorch operations: 2 * sa_intv steps a
+    round while any lane lives (the JAX package's while_loop, its test a
+    host read here).  Returns (kk, steps, alive)."""
+    while bool(alive.any()):
+        kk, steps, alive = _walk(fm, kk, steps, alive, 2 * fm.sa_intv)
+    return kk, steps, alive
+
+
+def _sa_loop_kernels(fm: DeviceFMIndex, kk, steps, alive):
+    """The last stage's loop by ``cuda_lib.run_loop`` over an
+    ``fm_cuda.SaLoop``: on a card one graph, the entry kernel and a WHILE
+    node whose body walks the lanes 2 * sa_intv steps in place and ends
+    with the cond kernel (inside a call's capture the loop joins it;
+    outside, its graph is captured, launched and freed here: the host
+    waits on nothing).  For CPU tensors (the CPU tests put the kernels'
+    host twins in place of the launches) the same steps in turn.  Updates
+    and returns (kk, steps, alive)."""
+    lp = fm_cuda.SaLoop(fm, kk, steps, alive, 2 * fm.sa_intv)
+
+    def body(lp):
+        _walk(fm, kk, steps, alive, lp.n_steps, out=lp.lanes)
+        fm_cuda.sa_cond(lp)
+
+    cuda_lib.run_loop(lp, fm_cuda.LIB, "fm", fm_cuda.sa_entry, body)
+    lp.close()
+    return kk, steps, alive

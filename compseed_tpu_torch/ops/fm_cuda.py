@@ -9,7 +9,12 @@ hand-written kernel per call instead of some hundred PyTorch operations:
   ``chain_walk``       -> ``fm_chain_walk_kernel``, for
       ``ops/seedscan.py::_chain_walk`` (plain version ``_chain_walk_plain``);
   ``inv_psi_walk``     -> ``fm_inv_psi_walk_kernel``, for ``ops/fm.py::_walk``
-      (plain version ``_walk_plain``).
+      (plain version ``_walk_plain``);
+  ``sa_entry``, ``sa_cond`` -> ``sa_loop_entry_kernel``,
+      ``sa_loop_cond_kernel``: the loop test of ``sa_batch_compact``'s last
+      stage (``SaLoop``), which ``ops/fm.py::_sa_loop_kernels`` runs as one
+      CUDA graph loop (``cuda_lib.run_loop``) around the walk (plain
+      version ``_sa_loop_plain``).
 
 Those callers run the plain version for CPU tensors and come here for any
 other; each launcher takes CUDA tensors only and launches its kernel or
@@ -32,9 +37,14 @@ import ctypes as ct
 
 import torch
 
-from compseed_tpu_torch.ops.cuda_lib import KernelLibrary
+from compseed_tpu_torch.ops import cuda_lib
+from compseed_tpu_torch.ops.cuda_lib import KernelLibrary, bind_graphs
 
 MAX_W = 10                  # a chain window packs into 30 bits
+# the suffix-array loop's words (csrc/fm_walk.cu's struct SaArgs), in order
+SA_ARGS = ("alive", "n", "cond", "go")
+SA_KERNELS = ("sa_loop_entry_kernel", "sa_loop_cond_kernel")
+SA_BLOCK = 256              # the loop kernels' one block
 
 
 def _bind(lib) -> None:
@@ -48,12 +58,21 @@ def _bind(lib) -> None:
     for fn in (lib.fm_extend_sel_launch, lib.fm_chain_walk_launch,
                lib.fm_inv_psi_walk_launch):
         fn.restype = i
+    for kernel in SA_KERNELS:
+        fn = getattr(lib, cuda_lib.launcher_of(kernel))
+        fn.argtypes, fn.restype = [p, p], i
+    bind_graphs(lib, "fm")
+    lib.fm_sa_args_words.argtypes, lib.fm_sa_args_words.restype = [], i
+    if lib.fm_sa_args_words() != len(SA_ARGS):
+        raise RuntimeError(f"fm_sa_args_words() says struct SaArgs has "
+                           f"{lib.fm_sa_args_words()} words, the launchers "
+                           f"name {len(SA_ARGS)}")
 
 
 LIB = KernelLibrary(
     "fm_walk.cu",
     ("fm_extend_sel_kernel", "fm_chain_walk_kernel",
-     "fm_inv_psi_walk_kernel"),
+     "fm_inv_psi_walk_kernel") + SA_KERNELS,
     _bind, "fm_cuda_error_name")
 LAUNCHES = LIB.launches
 build_library = LIB.build
@@ -183,10 +202,13 @@ def _launch_chain_walk(fm, wv, W: int, k, l, s, valid, is_back: bool,
 
 # ---------------------------------------------------------------------------
 def inv_psi_walk(fm, kk: torch.Tensor, steps: torch.Tensor,
-                 alive: torch.Tensor, n_steps: int):
+                 alive: torch.Tensor, n_steps: int, out=None):
     """Up to ``n_steps`` masked inverse-Psi steps per lane by
     ``fm_inv_psi_walk_kernel``: kk, steps (N,) in the index dtype, alive
-    (N,) bool -> the same three, new tensors."""
+    (N,) bool -> the same three, new tensors, or ``out`` (three such
+    tensors, the inputs themselves allowed: the walk then runs in place
+    and allocates nothing, so that it can be captured into a loop's
+    graph)."""
     dev = _cuda_device("inv_psi_walk", kk.device)
     N = kk.shape[0] if kk.dim() else 0
     dt = fm.dtype
@@ -196,8 +218,13 @@ def inv_psi_walk(fm, kk: torch.Tensor, steps: torch.Tensor,
     if n_steps < 0:
         raise ValueError(f"inv_psi_walk: n_steps={n_steps} is negative")
     index = _index_args(fm, dev)
-    kk_out, steps_out = torch.empty_like(kk), torch.empty_like(steps)
-    alive_out = torch.empty_like(alive)
+    if out is None:
+        out = (torch.empty_like(kk), torch.empty_like(steps),
+               torch.empty_like(alive))
+    for name, x, like in zip(("kk_out", "steps_out", "alive_out"), out,
+                             (kk, steps, alive)):
+        _check(name, x, like.dtype, (N,), dev)
+    kk_out, steps_out, alive_out = out
     if N:
         LIB.launch("fm_inv_psi_walk_kernel", dev, "fm_inv_psi_walk_launch",
                    *index, kk.data_ptr(), steps.data_ptr(), alive.data_ptr(),
@@ -205,3 +232,53 @@ def inv_psi_walk(fm, kk: torch.Tensor, steps: torch.Tensor,
                    steps_out.data_ptr(), alive_out.data_ptr(), N,
                    int(dt == torch.int64))
     return kk_out, steps_out, alive_out
+
+
+# ---------------------------------------------------------------------------
+class SaLoop:
+    """The loop of sa_batch_compact's last stage over its lanes (kk, steps
+    (n,) in the index dtype, alive (n,) bool, walked in place by
+    ``n_steps`` inverse-Psi steps a round): what ``cuda_lib.run_loop``
+    takes, ``args`` (the source's struct SaArgs, one 64-bit word a field,
+    ``AT``: field -> word), ``go`` (one int32, the condition's last
+    value), ``dev`` and, once run outside a call's capture, ``graph``."""
+
+    AT = {n: i for i, n in enumerate(SA_ARGS)}
+    graph = None
+
+    def __init__(self, fm, kk, steps, alive, n_steps: int):
+        dev = kk.device
+        n = kk.shape[0] if kk.dim() else 0
+        _check("kk", kk, fm.dtype, (n,), dev)
+        _check("steps", steps, fm.dtype, (n,), dev)
+        _check("alive", alive, torch.bool, (n,), dev)
+        self.fm, self.dev, self.n_steps = fm, dev, n_steps
+        self.lanes = (kk, steps, alive)
+        self.go = torch.zeros((), dtype=torch.int32, device=dev)
+        self.args = (ct.c_longlong * len(SA_ARGS))()
+        for name, x in (("alive", alive.data_ptr()), ("n", n), ("cond", 0),
+                        ("go", self.go.data_ptr())):
+            self.args[self.AT[name]] = x
+
+    def close(self) -> None:
+        """Free the loop's graph (after its last launch)."""
+        if self.graph is not None:
+            self.graph.close()
+            self.graph = None
+
+
+def _launch(kernel: str, dev: torch.device, args) -> None:
+    """Launch a loop kernel with its SaArgs words (the CPU tests put the
+    host twins here)."""
+    LIB.launch_args(kernel, dev, args)
+
+
+def sa_entry(lp: SaLoop) -> None:
+    """sa_loop_entry_kernel: the loop's test before its first round."""
+    _launch("sa_loop_entry_kernel", lp.dev, lp.args)
+
+
+def sa_cond(lp: SaLoop) -> None:
+    """sa_loop_cond_kernel: the loop's test after a round, its last
+    launch."""
+    _launch("sa_loop_cond_kernel", lp.dev, lp.args)

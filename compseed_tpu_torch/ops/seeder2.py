@@ -13,6 +13,15 @@ chunk: a head of counters + per-read words and a bit-packed seed matrix,
 in the JAX package's exact layout, so ``unpack_results`` and the native
 tail consume either package's output unchanged.
 
+On a card the default engine runs a chunk as one CUDA graph, as the JAX
+package runs it as compiled device programs: ``_run`` (r1, r2, r3,
+merge, seeds, pack: the JAX package's ``whole``) captured once per
+(thread, call shape) into a ``cuda_lib.CallGraph``, its loops joining the
+capture, and replayed for every later chunk of the shape: the host uploads
+the reads, launches the graph and reads the two results back.  The
+engines whose lockstep loops still test on the host run ``_run``
+eagerly (``CALL_GRAPH``).
+
 A chunk-global cap overflow shows in the head's flags: the chunk is
 then rerun exactly on the lockstep seeder (``smem.BatchSeeder``) and the
 overflowing cap factor doubles for the chunks that follow, or a dedup
@@ -32,7 +41,7 @@ import numpy as np
 import torch
 
 from compseed_tpu_torch.ops import fm as dfm
-from compseed_tpu_torch.ops import chain_cuda, fm_cuda, walk_cuda
+from compseed_tpu_torch.ops import chain_cuda, cuda_lib, fm_cuda, walk_cuda
 from compseed_tpu_torch.ops import seedscan as ss
 from compseed_tpu_torch.ops.bits import as_i32
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex, to_device
@@ -78,6 +87,44 @@ ENGINES = {
     # lockstep r3
     "all_off": (False, {}),
 }
+
+
+# What each engine runs: (forward, backward round 1, backward round 2,
+# round 3) as DeviceSeeder._build picks them.  A mix no entry names (two
+# dedup passes switched off after overflows) is no engine of the table.
+ENGINE_STAGES = {
+    "default": ("memo", "chain", "chain", "memo"),
+    "fwd_staged": ("staged", "chain", "chain", "staged"),
+    "fwd_off": ("lockstep", "chain", "chain", "lockstep"),
+    "bwd_win": ("memo", "win", "win", "memo"),
+    "bwd_whole": ("memo", "whole", "whole", "memo"),
+    "bwd_off": ("memo", "plain", "chain", "memo"),
+    "r2_off": ("memo", "chain", "plain", "memo"),
+    "all_off": ("lockstep", "plain", "plain", "lockstep"),
+}
+# Which engines run a call on a card as one CUDA graph (DeviceSeeder._call):
+# those whose every loop runs on the card.  The others run it eagerly:
+# their lockstep loops test on the host (the staged forward walk,
+# seedscan._fwd_stage_walk; the lockstep scan, _scan_lanes; the plain and
+# windowed backward walks, walk_stage; the lockstep round 3, smem's).
+CALL_GRAPH = {name: name == "default" for name in ENGINE_STAGES}
+
+
+class EagerCalls:
+    """While active, every engine runs its calls eagerly (CALL_GRAPH's
+    entries all false; the table is restored after): for what records a
+    call's steps from Python or steps its rounds from the host, which a
+    replayed graph runs neither of (ops/chain_cases.py's and
+    walk_cases.py's captures, chip_smoke.py's diagnostics)."""
+
+    def __enter__(self):
+        self._table = dict(CALL_GRAPH)
+        CALL_GRAPH.update(dict.fromkeys(CALL_GRAPH, False))
+        return self
+
+    def __exit__(self, *exc):
+        CALL_GRAPH.update(self._table)
+        return False
 
 
 def _round_up(x: int, m: int) -> int:
@@ -238,6 +285,8 @@ class DeviceSeeder:
             os.environ.get("COMPSEED_ADAPTIVE_CAPS", "1") == "1"
         self._cap_raises = 0
         self._progs: dict = {}
+        # the call graphs, per (thread, call shape): _call
+        self._calls = cuda_lib.Kept(ss.HELD_CALLS)
         self.prof: dict = {}
         self.last_overflow = False
         self.last_qd = None
@@ -249,7 +298,9 @@ class DeviceSeeder:
         JAX package's jitted stages, as plain functions on tensors) of the
         engine the knobs select, on the device of ``dfi`` (default: the
         seeder's index).  A program binds its index and device, so the
-        programs are kept per device."""
+        programs are kept per device.  Also ``engine`` (its ENGINES name,
+        or None), ``dev`` and ``key``, the call shape its call graphs are
+        kept by."""
         dfi0 = self.dfi if dfi is None else dfi
         dev = dfi0.device
         key = (dev, R, L)
@@ -581,9 +632,20 @@ class DeviceSeeder:
                 seedpk = torch.stack([lo, hi, qb.to(_I64), ln.to(_I64)])
             return as_i32(head), as_i32(seedpk)
 
+        fwd = ("memo" if use_memo else "staged") if use_fwd else "lockstep"
+        bwd = "chain" if bwd_chain else "win" if bwd_win else "whole"
+        stages = (fwd, bwd if use_bwd else "plain",
+                  bwd if r2_dedup else "plain",
+                  fwd if use_fwd and max_intv > 0 else "lockstep")
+        engine = next((n for n, v in ENGINE_STAGES.items() if v == stages),
+                      None)
+        caps = (self.GP_F, self.CAPU_F, self.T2L_F, self.GP2_F, self.MEM_F,
+                self.SEED_F, self.U_F, self.MEM3_F, CW)
         progs = dict(r1=r1, r2=r2, r3=r3, merge=merge, seeds=seeds,
                      pack=pack, packed=packed,
-                     sizes=(GP, T2, GP2, MEMCAP, SEEDCAP, UCAP))
+                     sizes=(GP, T2, GP2, MEMCAP, SEEDCAP, UCAP),
+                     engine=engine, dev=dev,
+                     key=(dev, R, L, engine, caps, id(dfi0), dt))
         self._progs[key] = progs
         return progs
 
@@ -603,21 +665,52 @@ class DeviceSeeder:
             r2[9], r2[10], r3[9], r3[10])
         return merged, seeds, head, seedpk
 
+    @staticmethod
+    def _graphed(fns) -> bool:
+        """Whether ``_call`` runs the programs ``fns`` as one CUDA graph:
+        on a card, for an engine CALL_GRAPH names."""
+        return fns["dev"].type == "cuda" and CALL_GRAPH.get(fns["engine"],
+                                                            False)
+
+    def _call(self, fns, qd, rd):
+        """The whole program of ``fns`` on one chunk's reads: (head,
+        seed matrix) on the device.  Where ``_graphed(fns)``, by the call
+        graph of this call shape on the calling thread (captured at its
+        first call, at most HELD_CALLS shapes a thread): the reads are
+        copied into the graph's and the graph is replayed, and what it
+        returns is the graph's own, which the next replay on this thread
+        overwrites; else ``_run``, eagerly."""
+        if not self._graphed(fns):
+            return self._run(fns, qd, rd)[2:]
+        cg = self._calls.get(fns["key"], lambda: cuda_lib.CallGraph(
+            qd.device, lambda q, r: self._run(fns, q, r)[2:], (qd, rd)))
+        return cg.run((qd, rd))
+
+    def _rebuild(self) -> None:
+        """Drop the programs (and the calling thread's call graphs) after
+        a change of caps or engine: the next chunk builds them anew."""
+        self._progs.clear()
+        self._calls.drop_thread()
+
     def _upload(self, queries):
         n_reads = len(queries)
         R = _bucket(n_reads, 256)
         lens = np.fromiter((len(q) for q in queries), np.int64,
                            count=n_reads)
         L = _round_up(int(lens.max(initial=1)) + 1, 32)
-        qarr = np.full((R, L), 4, dtype=np.uint8)
-        rlens = np.zeros(R, dtype=np.int32)
+        # on a card, page-locked host buffers: the copies to the card do
+        # not wait for the host
+        pin = self.device.type == "cuda"
+        qt = torch.full((R, L), 4, dtype=torch.uint8, pin_memory=pin)
+        rt = torch.zeros(R, dtype=torch.int32, pin_memory=pin)
+        qarr, rlens = qt.numpy(), rt.numpy()
         rlens[:n_reads] = lens
         flat = np.concatenate(queries) if n_reads else np.zeros(0, np.uint8)
         rows = np.repeat(np.arange(n_reads), lens)
         cols = np.arange(len(flat)) - np.repeat(np.cumsum(lens) - lens, lens)
         qarr[rows, cols] = flat
-        qd = torch.from_numpy(qarr).to(self.device)
-        rd = torch.from_numpy(rlens).to(self.device)
+        qd = qt.to(self.device, non_blocking=True)
+        rd = rt.to(self.device, non_blocking=True)
         return R, L, qd, rd
 
     # ------------------------------------------------------------------
@@ -631,7 +724,7 @@ class DeviceSeeder:
         # from it while the next chunk is being seeded
         self.last_qd = qd
         self.last_L = L
-        _, _, head_d, seed_d = self._run(fns, qd, rd)
+        head_d, seed_d = self._call(fns, qd, rd)
 
         # two copies: the head (counters first), then only
         # seed_bucket(stotal) columns of the seed matrix
@@ -706,7 +799,7 @@ class DeviceSeeder:
             print(f"[M::seeder2] cap overflow -> raising {raises} and "
                   "recompiling (results unchanged; the overflowing "
                   "chunk was recomputed exactly)", file=sys.stderr)
-            self._progs.clear()
+            self._rebuild()
             return
         if not self.fwd_disabled and any(oflags[s] for s in FWD_OVF_SLOTS):
             print("[M::seeder2] forward-sweep dedup caps overflowed "
@@ -729,7 +822,7 @@ class DeviceSeeder:
             self.r2_dedup = False
             changed = True
         if changed:
-            self._progs.clear()
+            self._rebuild()
 
     def _splice_oracle(self, queries, bad_reads, lrep, sflat, soff):
         """Per-read exactness fallback: reads whose per-read buffers

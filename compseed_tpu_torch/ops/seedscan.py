@@ -35,9 +35,7 @@ int64 tensors holding uint32 / uint64 words (``ops/bits.py``).
 
 from __future__ import annotations
 
-import collections
 import os
-import threading
 
 import numpy as np
 import torch
@@ -584,7 +582,9 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
     results in place into copies of the pool's columns, made once per
     call: the caller's pool is never written.  The tensors the graphs
     name are kept for the next call of the same shape on the same thread
-    (``_held``, as chain_scan's); the results returned are copies.
+    (``_held``, as chain_scan's); the results returned are copies.  Inside
+    the capture of a whole call (``cuda_lib.CallGraph``) the widths' loops
+    join it and nothing is kept: that graph holds every tensor.
 
     pool: (GP, >=7) rows (cols k, l, s, end, pivot, rid, valid[, task]).
     Returns (death, fk, fl, fs (GP,), ovf, calls, n_groups)."""
@@ -631,7 +631,13 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
             widths.append(w2)
     rnd = 0
     h = None
-    if kernels:
+    if kernels and cuda_lib.capturing(dev):
+        # inside a call's capture, whose graph keeps every tensor it
+        # names: the pool's k, l, s columns copied once, written in place
+        st.update({n: st[n].clone(memory_format=torch.contiguous_format)
+                   for n in ("fk", "fl", "fs")})
+        rnd_d = torch.zeros((), dtype=_I32, device=dev)
+    elif kernels:
         # the kernels run on tensors kept for calls of this shape on this
         # thread, which the widths' graphs name: the call's state is
         # copied in (the pool's k, l, s columns so, once per call) and
@@ -652,8 +658,11 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
         nxtw = widths[ix + 1] if ix + 1 < len(widths) else 0
         Uw = max(w // 2, 64)
         if kernels:
-            h.rounds[ix] = _walk_segment(fm, c, st, Uw, dict(
-                rnd=rnd_d, nxtw=nxtw, rcap=RCAP), h.rounds[ix])
+            rd = _walk_segment(fm, c, st, Uw, dict(
+                rnd=rnd_d, nxtw=nxtw, rcap=RCAP),
+                None if h is None else h.rounds[ix])
+            if h is not None:
+                h.rounds[ix] = rd
         else:
             # the one host sync a round, as the JAX loop tests its cond
             while rnd < RCAP and int(st["live"]) > nxtw:
@@ -665,12 +674,12 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
                                nxtw).clamp(max=nxtw)
             for kk in WALK_LANE_KEYS:
                 # row nxtw: the dump row, cut off (_drop_set's)
-                buf = h.lanes[ix + 1][kk].zero_() if kernels else \
-                    st[kk].new_zeros(nxtw + 1)
+                buf = h.lanes[ix + 1][kk].zero_() if h is not None \
+                    else st[kk].new_zeros(nxtw + 1)
                 buf[tgt2] = st[kk]
                 st[kk] = buf[:nxtw]
     ovf = ovf | st["alive"].any()
-    if kernels:
+    if h is not None:
         # the caller's own, not the kept tensors
         return tuple(st[n].clone() for n in _WALK_RESULTS) + (ovf,) + \
             tuple(st["ctr"].clone())
@@ -1345,7 +1354,9 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     segments' graphs name, are kept for the next call of the same shape
     on the same thread (``_held``): each call copies its state into them
     and runs the graphs captured by the first; what it returns are
-    copies.
+    copies.  Inside the capture of a whole call (``cuda_lib.CallGraph``)
+    the segments' loops join it and nothing is kept: that graph holds
+    every tensor (the memo is copied once, the caller's never written).
 
     Returns (pool (GP, 7), n_rows, ovf, fq, fc, memo'); with
     ``report_rounds`` (a profiling diagnostic) also the number of rounds
@@ -1422,7 +1433,12 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     alive_hist = torch.zeros(RCAP, dtype=_I32, device=dev) \
         if report_rounds else None
     h = None
-    if kernels:
+    if kernels and cuda_lib.capturing(dev):
+        # inside a call's capture, whose graph keeps every tensor it
+        # names: the memo copied once, updated in place
+        st.update({kk: st[kk].clone() for kk in MEMO_KEYS})
+        rnd_d = torch.zeros((), dtype=_I32, device=dev)
+    elif kernels:
         # the kernels run on tensors kept for calls of this shape on this
         # thread, which the segments' graphs name: the call's state is
         # copied in (the memo so, once per call) and updated in place
@@ -1449,9 +1465,11 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
         nxtw = segs[ix + 1] if ix + 1 < len(segs) else 0
         Uw = min(U, w)
         if kernels:
-            h.rounds[ix] = _chain_segment(fm, c, st, w, Uw, dict(
+            rd = _chain_segment(fm, c, st, w, Uw, dict(
                 rnd=rnd_d, nxtw=nxtw, rcap=RCAP, hist=alive_hist),
-                h.rounds[ix])
+                None if h is None else h.rounds[ix])
+            if h is not None:
+                h.rounds[ix] = rd
         while not kernels and rnd < RCAP:
             # the one host sync a round, as the JAX loop tests its cond
             n_alive = int(st["live"])
@@ -1463,8 +1481,8 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
             rnd += 1
         if nxtw:
             _compact_lanes(st, nxtw, c["lane_rid0"][:1],
-                           h.lanes[ix + 1] if kernels else None)
-    if kernels:
+                           None if h is None else h.lanes[ix + 1])
+    if h is not None:
         # the caller's own, not the kept tensors
         st.update({kk: st[kk].clone() for kk in MEMO_KEYS + ("ctr",)})
         st.update(zip(("fq", "fc", "cursor", "povf"), st["ctr"]))
@@ -1530,46 +1548,24 @@ def _compact_lanes(st: dict, w: int, rid_pad: torch.Tensor,
 # The tensors a card's loop graphs name, kept across calls of one shape.
 
 HELD_CALLS = 8              # call shapes a thread keeps (least recent out)
-# thread ident -> (call shape -> _Held), least recently used first; a
-# registry of the module's own, not thread-local storage, so that what a
-# thread kept is freed by a live thread's call, never while the interpreter
-# tears an ending thread down
-_HELD: dict = {}
-_HELD_LOCK = threading.Lock()
+_KEPT = cuda_lib.Kept(HELD_CALLS)
+# thread ident -> (call shape -> _Held), least recently used first
+_HELD, _HELD_LOCK = _KEPT.by_thread, _KEPT.lock
 
 
 def _held(key: tuple, make) -> "_Held":
     """The calling thread's kept tensors for call shape ``key``, made by
-    ``make()`` at its first call; beyond HELD_CALLS shapes the thread's
-    least recently used is dropped, and so is all that threads which have
-    ended kept (their graphs freed: a graph still running on the card is
-    freed when it ends, and its tensors are reused only by work queued
-    after it on the stream).  No thread uses another's."""
-    with _HELD_LOCK:
-        live = {t.ident for t in threading.enumerate()}
-        drop = [h for i in list(_HELD) if i not in live
-                for h in _HELD.pop(i).values()]
-        calls = _HELD.setdefault(threading.get_ident(),
-                                 collections.OrderedDict())
-    h = calls.get(key)
-    if h is None:
-        h = calls[key] = make()
-        while len(calls) > HELD_CALLS:
-            drop.append(calls.popitem(last=False)[1])
-    else:
-        calls.move_to_end(key)
-    for old in drop:
-        old.close()
-    return h
+    ``make()`` at its first call (``cuda_lib.Kept``: beyond HELD_CALLS
+    shapes the thread's least recently used is dropped; what an ended
+    thread kept goes to the next thread that keeps nothing, or is
+    dropped; no two live threads share)."""
+    return _KEPT.get(key, make)
 
 
 def drop_held() -> None:
     """Free every call shape's kept tensors and graphs of the calling
     thread (the next call of each shape builds them again)."""
-    with _HELD_LOCK:
-        calls = _HELD.pop(threading.get_ident(), {})
-    for h in calls.values():
-        h.close()
+    _KEPT.drop_thread()
 
 
 class _Held:

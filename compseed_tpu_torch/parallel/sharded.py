@@ -16,11 +16,14 @@ shard's device.
 
 Shards on distinct devices run side by side: one worker thread per
 distinct device, which runs that device's shards one after the other
-(a shard's program is tens of thousands of small launches and hundreds
-of host syncs, so one Python loop over the devices would run the cards in
-turn).  Everything that decides a result (the cap response, the exact
-reruns, the splices, the re-assembly) runs on the calling thread in shard
-order after every shard has returned, as the JAX package's loop does.
+(a shard's program is a stream of host calls, so one Python loop over
+the devices would run the cards in turn).  On a card a shard's program
+is one CUDA graph a call shape (``DeviceSeeder._call``), which a chunk's
+workers take over from the last chunk's; a shard's seed matrix is copied
+out of the graph's before the next shard replays it.  Everything that
+decides a result (the cap response, the exact reruns, the splices, the
+re-assembly) runs on the calling thread in shard order after every shard
+has returned, as the JAX package's loop does.
 
 Determinism: every per-read result is independent of the sharding (the
 compressive dedup only skips duplicate work, never changes results — the
@@ -101,7 +104,8 @@ class ShardedSeeder(DeviceSeeder):
                     rlens: np.ndarray):
         """Every shard's program on its device, one worker thread per
         distinct device.  Returns, in shard order, (head as numpy, seed
-        matrix on the device, read matrix on the device, seconds)."""
+        matrix on the device, a copy of the shard's own, read matrix on the
+        device, seconds)."""
         # built here, not in the workers: building reads the cap state
         fns = {d: self._build(R, L, self.replicas[d])
                for d in distinct(self.mesh)}
@@ -113,9 +117,10 @@ class ShardedSeeder(DeviceSeeder):
                     t0 = time.perf_counter()
                     qd = torch.from_numpy(qarr[s * R:(s + 1) * R]).to(dev)
                     rd = torch.from_numpy(rlens[s * R:(s + 1) * R]).to(dev)
-                    _, _, head_d, seed_d = self._run(fns[dev], qd, rd)
-                    out.append((s, (head_d.cpu().numpy(), seed_d, qd,
-                                    time.perf_counter() - t0)))
+                    head_d, seed_d = self._call(fns[dev], qd, rd)
+                    # copied out before the next shard's replay
+                    out.append((s, (head_d.cpu().numpy(), seed_d.clone(),
+                                    qd, time.perf_counter() - t0)))
             return out
 
         by_dev = {d: [s for s in range(self.S) if self.mesh[s] == d]

@@ -26,7 +26,10 @@ tail, as ``chip_smoke.py`` phase 4 runs it): one warm-up stream, then
 reads/s of one more.  In a tree whose seeder runs its round loops as
 CUDA graphs (``ops.cuda_lib.LoopGraph``) each turn also gives the
 capture and instantiation ms of every graph it built (a graph is built
-at a shape's first call on a thread, in the warm-up pass, and kept).
+at a shape's first call on a thread, in the warm-up pass, and kept), and
+in one that runs each call as one graph (``ops.cuda_lib.CallGraph``)
+those of each call graph; every turn gives the warm-up pass's seconds
+per chunk (its first chunk builds the graphs).
 """
 
 from __future__ import annotations
@@ -70,7 +73,7 @@ if {profile!r}:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         sync()
-graphs = []
+graphs, calls = [], []
 try:
     from compseed_tpu_torch.ops import cuda_lib
     end = cuda_lib.LoopGraph.end
@@ -78,10 +81,20 @@ try:
         end(self)
         graphs.append((self.capture_s * 1e3, self.instantiate_s * 1e3))
     cuda_lib.LoopGraph.end = timed_end
+    init = cuda_lib.CallGraph.__init__
+    def timed_init(self, *a, **kw):
+        init(self, *a, **kw)
+        calls.append((self.capture_s * 1e3, self.instantiate_s * 1e3))
+    cuda_lib.CallGraph.__init__ = timed_init
 except (ImportError, AttributeError):
-    pass                             # a tree without loop graphs
+    pass                             # a tree without loop or call graphs
+warm = []
 for c in chunks:
+    sync()
+    t0 = time.perf_counter()
     sd.run_flat(c)
+    sync()
+    warm.append(time.perf_counter() - t0)
 secs, dev_s = [], []
 for _ in range({passes}):
     for c in chunks:
@@ -93,10 +106,13 @@ for _ in range({passes}):
         dev_s.append(sd.prof["device_s"])
         if sd.last_overflow:
             raise SystemExit("a chunk overflowed: not the engine's own time")
-rec = dict(run_flat_s=secs, device_s=dev_s)
+rec = dict(run_flat_s=secs, device_s=dev_s, warmup_run_flat_s=warm)
 if graphs:
     rec["graph_ms"] = dict(capture=[c for c, _ in graphs],
                            instantiate=[i for _, i in graphs])
+if calls:
+    rec["call_graph_ms"] = dict(capture=[c for c, _ in calls],
+                                instantiate=[i for _, i in calls])
 if {stream!r}:
     from compseed_tpu_torch.io.fastq import Read
     from compseed_tpu_torch.native import NativeTail
@@ -185,6 +201,9 @@ def main() -> None:
         stream_reads_per_s=[r["stream_reads_per_s"] for r in rs
                             if "stream_reads_per_s" in r],
         graph_ms=[r["graph_ms"] for r in rs if "graph_ms" in r],
+        call_graph_ms=[r["call_graph_ms"] for r in rs
+                       if "call_graph_ms" in r],
+        warmup_run_flat_s=[r["warmup_run_flat_s"] for r in rs],
         profiles=[r["profile"] for r in rs if "profile" in r])
         for n, rs in runs.items() if rs}))
 

@@ -561,8 +561,8 @@ def test_bind_checks_args_words(words, prefix, ok):
     lib = type("Lib", (), {})()
     for kernel in chain_cuda.LIB.launches:
         setattr(lib, launcher_of(kernel), _Fn())
-    for name in ("streams", "begin", "body", "end", "launch", "nodes",
-                 "close"):
+    for name in ("streams", "begin", "nest", "body", "end", "launch",
+                 "nodes", "close"):
         setattr(lib, f"chain_graph_{name}", _Fn())
     lib.chain_sort_bytes = _Fn()
     lib.chain_args_words = _Fn(words)

@@ -773,8 +773,8 @@ def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(
     and the whole chunk's head, seed matrix and merged SAL, with the FM
     kernels, equal the same calls with _chain_walk, _walk and
     extend_sel_batch patched to their plain versions (a test-only patch;
-    the rounds then run as the plain round, since a segment's graph can
-    hold no PyTorch operation)."""
+    the rounds and the suffix-array loop then run as their plain loops,
+    since a loop's graph can hold no PyTorch operation)."""
     from compseed_tpu_torch.ops import fm as tfm
     from compseed_tpu_torch.ops import fm_cuda
     from compseed_tpu_torch.ops import seedscan as tss
@@ -809,6 +809,7 @@ def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(
     monkeypatch.setattr(tss, "_walk_round",
                         lambda dev_: tss._walk_round_plain)
     monkeypatch.setattr(tfm, "_walk", tfm._walk_plain)
+    monkeypatch.setattr(tfm, "_sa_loop", lambda dev_: tfm._sa_loop_plain)
     monkeypatch.setattr(tfm, "extend_sel_batch", tfm._extend_sel_plain)
     r1_p, whole_p, n_p = run()
     assert not any(n_p.values()), n_p
@@ -1010,7 +1011,9 @@ def test_chain_scan_from_worker_threads_on_card(dev, bench):
         R, L, qd, rd = part
         memo = tss.make_chain_memo(1 << 16, 8192, 5, sd.dfi.dtype, dev)
         out = tss.chain_scan(sd.dfi, qd, rd, 24 * R, memo, W=5)
-        torch.cuda.synchronize(dev)
+        # the thread's stream, not the device: a device-wide sync while
+        # another thread captures a graph invalidates that capture
+        torch.cuda.current_stream(dev).synchronize()
         return out
 
     alone = [scan(p) for p in parts]
@@ -1198,7 +1201,9 @@ def test_walk_pool_chain_from_worker_threads_on_card(dev, bench):
     def walk(part):
         rw, L, pool, capw = part
         out = tss.walk_pool_chain(sd.dfi, rw, L, pool, capw)
-        torch.cuda.synchronize(dev)
+        # the thread's stream, not the device: a device-wide sync while
+        # another thread captures a graph invalidates that capture
+        torch.cuda.current_stream(dev).synchronize()
         return out
 
     alone = [walk(p) for p in parts]
@@ -1354,23 +1359,29 @@ def test_sharded_capture_beside_main_thread_dp_on_card(dev, bench):
 
 def test_kept_graphs_serve_later_chunks_on_card(dev, bench, monkeypatch):
     """Three chunks of 4,096 bench reads (the first again last) through
-    one seeder: the first captures every segment's graph, the later ones
-    run the kept graphs (no capture) and each chunk's seeds equal the
-    same chunk with the rounds patched to the plain loop."""
+    one seeder on the eager route (the route of the engines that run a
+    call eagerly: seeder2.EagerCalls): the first captures every segment's
+    graph, the later ones run the kept graphs (no capture) and each
+    chunk's seeds equal the same chunk with the rounds patched to the
+    plain loop."""
     import numpy as np
 
-    from compseed_tpu_torch.ops import cuda_lib
+    from compseed_tpu_torch.ops import cuda_lib, seeder2
     from compseed_tpu_torch.ops import seedscan as tss
     from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
     from compseed_tpu_torch.options import MemOptions
     fm, reads = bench
     sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
     chunks = [list(reads[:4096]), list(reads[4096:8192]), list(reads[:4096])]
+    monkeypatch.setattr(seeder2, "CALL_GRAPH",
+                        dict.fromkeys(seeder2.CALL_GRAPH, False))
     tss.drop_held()
     ends = []
     end = cuda_lib.LoopGraph.end
-    monkeypatch.setattr(cuda_lib.LoopGraph, "end",
-                        lambda self: (ends.append(1), end(self)))
+    # the segments' graphs (the suffix-array loop's is captured every call
+    # on this route)
+    monkeypatch.setattr(cuda_lib.LoopGraph, "end", lambda self: (
+        ends.append(1) if self._p != "fm" else None, end(self)))
     got = []
     for i, q in enumerate(chunks):
         n0 = len(ends)
@@ -1386,3 +1397,225 @@ def test_kept_graphs_serve_later_chunks_on_card(dev, bench, monkeypatch):
     for g, w in zip(got, want):
         for x, y in zip(g, w):
             assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+# ---------------------------------------------------------------------------
+# A seeding call as one CUDA graph (cuda_lib.CallGraph, DeviceSeeder._call).
+
+def _eager_and_graph(sd, queries):
+    """One chunk's (head, seed matrix) by the eager _run and by the call
+    graph (_call), each copied to the host."""
+    R, L, qd, rd = sd._upload(queries)
+    fns = sd._build(R, L)
+    assert sd._graphed(fns)
+    eager = [x.cpu() for x in sd._run(fns, qd, rd)[2:]]
+    graph = [x.cpu() for x in sd._call(fns, qd, rd)]
+    return eager, graph
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_call_graph_equals_eager_run_on_card(dev, bench, dtype):
+    """The default engine's call graph on the first two 16,384-read bench
+    chunks (the first captures it, the second replays it) equals the
+    eager _run on each, head and seed matrix; one graph is kept; the
+    suffix-array loop kernels ran."""
+    import threading
+
+    from compseed_tpu_torch.ops import fm_cuda
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev,
+                      dfi=_bench_index(bench, dev, dtype), dedup=True)
+    n0 = dict(fm_cuda.LAUNCHES)
+    for c in range(2):
+        eager, graph = _eager_and_graph(sd, list(reads[c * 16384:
+                                                       (c + 1) * 16384]))
+        for e, g in zip(eager, graph):
+            assert torch.equal(e, g), c
+        assert not eager[0][3:14].any()
+    assert len(sd._calls.by_thread[threading.get_ident()]) == 1
+    for k in fm_cuda.SA_KERNELS:
+        assert fm_cuda.LAUNCHES[k] > n0[k], k
+
+
+def test_call_graph_two_shapes_alternating_on_card(dev, bench):
+    """Chunks of two shapes (4,096 and 16,384 reads) in turn, A B A B:
+    each equals the eager _run; each shape captured once, both kept."""
+    import threading
+
+    from compseed_tpu_torch.ops import cuda_lib
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    made = []
+    init = cuda_lib.CallGraph.__init__
+
+    def counted(self, *a, **kw):
+        made.append(1)
+        init(self, *a, **kw)
+    cuda_lib.CallGraph.__init__ = counted
+    try:
+        for q in (reads[:4096], reads[4096:20480], reads[8192:12288],
+                  reads[:16384]):
+            eager, graph = _eager_and_graph(sd, list(q))
+            for e, g in zip(eager, graph):
+                assert torch.equal(e, g), len(q)
+    finally:
+        cuda_lib.CallGraph.__init__ = init
+    assert len(made) == 2
+    assert len(sd._calls.by_thread[threading.get_ident()]) == 2
+
+
+def test_call_graph_cap_raise_mid_stream_on_card(dev, bench):
+    """A seeder whose round-1 pool is too small (GP_F = 18) on two
+    chunks: the first overflows (rerun exactly, GP_F doubled, the
+    thread's call graphs dropped with the programs), the second runs a
+    new graph of the raised caps; both chunks' seeds equal a default
+    seeder's."""
+    import threading
+
+    import numpy as np
+
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    chunks = [list(reads[:16384]), list(reads[16384:32768])]
+    ref = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    want = [ref.run_flat(q) for q in chunks]
+    sd = DeviceSeeder(MemOptions(), fm, dev, dfi=ref.dfi, dedup=True)
+    sd.GP_F = 18
+    got = [sd.run_flat(chunks[0])]
+    assert sd.last_overflow and sd.GP_F == 36
+    assert threading.get_ident() not in sd._calls.by_thread
+    got.append(sd.run_flat(chunks[1]))
+    assert not sd.last_overflow
+    (key, _), = sd._calls.by_thread[threading.get_ident()].items()
+    assert key[4][0] == 36
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert np.array_equal(x, y)
+
+
+def test_call_graph_from_four_threads_beside_dp_on_card(dev, bench):
+    """Four worker threads, each with a seeder of its own over one index,
+    seed 4,096-read chunks (each captures and replays its own call graph,
+    thread-local) while the main thread launches the DP kernel again and
+    again: every chunk equals the eager _run of the same reads, and every
+    DP result equals the first."""
+    import concurrent.futures as cf
+
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    base = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    parts = [list(reads[i * 4096:(i + 1) * 4096]) for i in range(4)]
+
+    def work(i):
+        sd = DeviceSeeder(MemOptions(), fm, dev, dfi=base.dfi, dedup=True)
+        out = []
+        for q in (parts[i], parts[(i + 1) % 4]):
+            R, L, qd, rd = sd._upload(q)
+            fns = sd._build(R, L)
+            graph = [x.clone() for x in sd._call(fns, qd, rd)]
+            eager = sd._run(fns, qd, rd)[2:]
+            out.append(all(torch.equal(a, b) for a, b in zip(graph, eager)))
+        return out
+
+    mat = torch.from_numpy(MAT).to(dev)
+    tiles = _on(dev, dp_tiles(14 + 128, P=4096, T=128))
+    first = bsw_cuda.bsw_extend_tiles(mat, *tiles, **GAP)
+    n_dp = 0
+    with cf.ThreadPoolExecutor(max_workers=4) as ex:
+        futs = [ex.submit(work, i) for i in range(4)]
+        while not all(f.done() for f in futs) or n_dp == 0:
+            assert torch.equal(bsw_cuda.bsw_extend_tiles(mat, *tiles, **GAP),
+                               first)
+            n_dp += 1
+        results = [f.result() for f in futs]
+    assert n_dp > 1
+    assert all(all(r) for r in results), results
+
+
+def test_call_graph_keeps_a_chunks_results_after_the_next_on_card(dev,
+                                                                  bench):
+    """run_flat's results of chunk 1 and its read matrix (last_qd, which
+    the engine slices pair sequences from while chunk 2 is seeded) are
+    unchanged by chunk 2's replay of the same graph; chunk 2's last_qd is
+    a tensor of its own."""
+    import numpy as np
+
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    sd = DeviceSeeder(MemOptions(), fm, dev, dedup=True)
+    c1, c2 = list(reads[:16384]), list(reads[16384:32768])
+    out1 = sd.run_flat(c1)
+    qd1 = sd.last_qd
+    snap = [np.array(x, copy=True) for x in out1], qd1.clone()
+    out2 = sd.run_flat(c2)
+    torch.cuda.synchronize()
+    assert sd.last_qd is not qd1 and torch.equal(qd1, snap[1])
+    for x, y in zip(out1, snap[0]):
+        assert np.array_equal(x, y)
+    assert not np.array_equal(out1[1], out2[1])     # other seeds
+    R, L, qd, rd = sd._upload(c1)
+    assert torch.equal(qd1, qd)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_sharded_call_graph_equals_mesh_heads_on_card(dev, bench, dtype):
+    """The sharded seeder at S = 4 on [cuda:0] * 4, each shard's program
+    one call graph (the four shards replay one graph in turn, each
+    shard's seed matrix copied out before the next): the first 16,384
+    bench reads' shard heads and seed matrices equal
+    compseed_tpu_torch/mesh_heads.json (the JAX package's ShardedSeeder);
+    two chunks capture one graph."""
+    import hashlib
+    import json
+    import os
+
+    import numpy as np
+
+    from compseed_tpu_torch.ops import cuda_lib
+    from compseed_tpu_torch.options import MemOptions
+    from compseed_tpu_torch.parallel.sharded import ShardedSeeder
+    fm, reads = bench
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(here, "compseed_tpu_torch",
+                           "mesh_heads.json")) as f:
+        stored = json.load(f)["heads"][dtype]
+    sd = ShardedSeeder(MemOptions(), fm, mesh=[dev] * 4,
+                       dfi=_bench_index(bench, dev, dtype), dedup=True)
+    got = []
+    run = sd._run_shards
+
+    def wrapped(*a):
+        shards, fns = run(*a)
+        if not got:
+            got.extend((x[0], x[1].cpu().numpy()) for x in shards)
+        return shards, fns
+    sd._run_shards = wrapped
+    made = []
+    init = cuda_lib.CallGraph.__init__
+
+    def counted(self, *a, **kw):
+        made.append(1)
+        init(self, *a, **kw)
+    cuda_lib.CallGraph.__init__ = counted
+    try:
+        sd.run_flat(list(reads[:16384]))
+        sd.run_flat(list(reads[16384:32768]))
+    finally:
+        cuda_lib.CallGraph.__init__ = init
+    assert len(made) == 1
+    assert len(got) == 4
+
+    def sha(x):
+        return hashlib.sha256(np.ascontiguousarray(
+            x, np.int32).tobytes()).hexdigest()
+    for s, (head, seedpk) in enumerate(got):
+        assert [int(x) for x in head[:28]] == stored[s]["scalars"], s
+        assert sha(head) == stored[s]["head_sha256"], s
+        assert sha(seedpk) == stored[s]["seedpk_sha256"], s
