@@ -64,10 +64,14 @@ Phases, in order; any failure exits non-zero:
                 output equal (chain_cases.CallCapture, call_vs_plain); on
                 every round of those runs the round's sort (CUB's, over
                 the key's bits) equal to torch.sort(stable=True); the
-                four loop kernels (entry and cond, chain and walk) against
-                their plain version (seedscan.loop_step_plain) at a
-                running round, the RCAP cap, a segment exit and no live
-                lane.  The suffix-array loop's kernels (sa_batch_compact's
+                two loop entry kernels (chain and walk) and the two apply
+                kernels' folded loop tests (the apply with its loop word
+                set, whose last block counts the round and tests the
+                next) against their plain version (seedscan.
+                loop_step_plain; the tail after the apply without the
+                word, every other output held equal too) at a running
+                round, the RCAP cap, a segment exit and no live lane.
+                The suffix-array loop's kernels (sa_batch_compact's
                 last stage, one loop of the call's graph: entry and cond)
                 against alive.any() on the first chunk's last-stage lanes
                 before each round, all dead and only the last alive.
@@ -182,11 +186,15 @@ Phases, in order; any failure exits non-zero:
                 turns.  The chain and
                 the walk kernels again on round 1's first 256 lanes (one
                 block: a launch and a lane's dependent reads, their
-                latency floor).  Gates (the measured values and a
-                stated margin, MAX_*): at most 11 kernels the card runs a
-                chain_scan round and 12 a walk_pool_chain round; at most
-                4 host launches (kernels and graphs), 2 stream syncs (the
-                two fetches) and 8 async copies a chunk.
+                latency floor).  The apply kernels with their loop word
+                set and without it (the folded loop test against the
+                apply alone) in turns at the chain's round-1 and round-2
+                widths and the walk's (loop_tail_turns).  Gates (the
+                measured values and a stated margin, MAX_*): at most 10
+                kernels the card runs a chain_scan round and 11 a
+                walk_pool_chain round; at most 4 host launches (kernels
+                and graphs), 2 stream syncs (the two fetches) and 8 async
+                copies a chunk.
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
                 tests/fixtures/tiny.fa must write the committed index
@@ -358,7 +366,8 @@ CHAIN_REPLACES = {
                           "(chain_scan's grouping; XLA fusion, no Pallas)",
     "chain_apply_kernel": "compseed_tpu/ops/seedscan.py:1564-1688 "
                           "(insert, apply, flush, advance; XLA fusion, no "
-                          "Pallas)"}
+                          "Pallas) and, in a loop, :1720-1726 (the "
+                          "while_loop cond after each round)"}
 # walk_pool_chain's round (csrc/walk_chain.cu) and the lines of the JAX
 # package's round body (make_body, XLA fusions, no Pallas) each replaces
 WALK_KERNELS = ("walk_key_kernel", "walk_group_kernel", "walk_apply_kernel")
@@ -370,25 +379,24 @@ WALK_REPLACES = {
                          "(walk_pool_chain's grouping and group minima; XLA "
                          "fusion, no Pallas)",
     "walk_apply_kernel": "compseed_tpu/ops/seedscan.py:682-720 "
-                         "(deaths, advance; XLA fusion, no Pallas)"}
-# the round loops' kernels (each segment one CUDA graph: csrc/
-# loop_graph.cuh) and the JAX package's lax.while_loop cond each replaces
-LOOP_KERNELS = ("chain_loop_entry_kernel", "chain_loop_cond_kernel",
-                "walk_loop_entry_kernel", "walk_loop_cond_kernel")
+                         "(deaths, advance; XLA fusion, no Pallas) and, in "
+                         "a loop, :734-738 (the while_loop cond after each "
+                         "round)"}
+# the round loops' entry kernels (each segment one CUDA graph: csrc/
+# loop_graph.cuh) and the JAX package's lax.while_loop cond each replaces;
+# the same cond after each round is the apply kernel's folded tail (its
+# last block to retire, when the loop word is set)
+LOOP_KERNELS = ("chain_loop_entry_kernel", "walk_loop_entry_kernel")
 LOOP_REPLACES = {
     "chain_loop_entry_kernel": "compseed_tpu/ops/seedscan.py:1720-1726 "
                                "(chain_scan's while_loop cond before a "
                                "segment's first round, with instrument's "
                                "alive_hist at :1695-1704; XLA, no Pallas)",
-    "chain_loop_cond_kernel": "compseed_tpu/ops/seedscan.py:1720-1726 "
-                              "(the same cond after each round; XLA, no "
-                              "Pallas)",
     "walk_loop_entry_kernel": "compseed_tpu/ops/seedscan.py:734-738 "
                               "(walk_pool_chain's while_loop cond before a "
-                              "width's first round; XLA, no Pallas)",
-    "walk_loop_cond_kernel": "compseed_tpu/ops/seedscan.py:734-738 (the "
-                             "same cond after each round; XLA, no Pallas)"}
+                              "width's first round; XLA, no Pallas)"}
 LOOP_SOURCES = {"chain": CHAIN_SOURCE, "walk": WALK_SOURCE}
+TAIL_TURNS = 3              # loop_tail_turns' turns (each both orders)
 # the suffix-array loop's kernels (sa_batch_compact's last stage, one
 # loop of the call's graph) and the while_loop cond each replaces
 SA_KERNELS = ("sa_loop_entry_kernel", "sa_loop_cond_kernel")
@@ -401,19 +409,20 @@ SA_REPLACES = {
 # gates on one chunk of the main path's seeding (torch.profiler), each the
 # value measured on an H100 (PERF.md) plus a stated margin: the kernels the
 # card runs a chain_scan round and a walk_pool_chain round (the body
-# graph's kernel nodes: 10 and 11, one more allowed for a sort pass CUB may
-# add at another width); the chunk's host launches (cudaLaunchKernel and
-# cudaGraphLaunch: 2, the call graph's launch and the copy of the seed
-# matrix's columns; 2 more allowed), stream syncs (the two fetches, the
+# graph's kernel nodes: 9 and 10 since the loop's test is the apply's
+# tail, one more allowed for a sort pass CUB may add at another width);
+# the chunk's host launches (cudaLaunchKernel and cudaGraphLaunch: 2, the
+# call graph's launch and the copy of the seed matrix's columns; 2 more
+# allowed), stream syncs (the two fetches, the
 # JAX package's two device_gets; no margin) and async copies (6: two
 # uploads, two copies into the graph's inputs, two fetches; 2 more
 # allowed)
-MAX_CHAIN_ROUND_KERNELS = 11
+MAX_CHAIN_ROUND_KERNELS = 10
 # lanes of the round the chain and walk kernels are timed at for their
 # latency floor: one block (four of the chain apply's), so the time is
 # what one block pays, a launch and a lane's path
 FLOOR_LANES = 256
-MAX_WALK_ROUND_KERNELS = 12
+MAX_WALK_ROUND_KERNELS = 11
 MAX_CHUNK_LAUNCHES = 4
 MAX_CHUNK_SYNCS = 2
 MAX_CHUNK_COPIES = 8
@@ -1539,17 +1548,18 @@ def loop_check(dev, opt, fm, queries, force=None) -> dict:
 
 
 def loop_kernels(module, case) -> dict:
-    """A round source's loop kernels (``module``: chain_cuda or
-    walk_cuda) on a round of the main path (``case``: a captured chain or
-    walk round, whose Args they take), launched one at a time outside a
-    graph (the condition handle 0) against their plain version,
+    """A round source's loop (``module``: chain_cuda or walk_cuda) on a
+    round of the main path (``case``: a captured chain or walk round,
+    whose Args it takes).  Its entry kernel, launched alone outside a
+    graph (the condition handle 0), against its plain version,
     seedscan.loop_step_plain, on the same words: a running round, the
     RCAP cap, a segment exit and no live lane, with the histogram (the
-    chain's) and without; go, rnd, the live count and the histogram
-    held equal.  Then each timed on the card alone (launch_ms) and in a
-    loop, beside the plain version's ms and its bound: the words it reads
-    and writes (the round counter, the live count, go, a histogram word:
-    20 B) against its four integer operations."""
+    chain's) and without; go, rnd, the live count and the histogram held
+    equal.  Then the apply kernel's folded tail (loop_tail_check).  Then
+    the entry kernel timed on the card alone (launch_ms) and in a loop,
+    beside the plain version's ms and its bound: the words it reads and
+    writes (the round counter, the live count, go, a histogram word: 20
+    B) against its four integer operations."""
     import torch
     from compseed_tpu_torch.ops import chain_cases, walk_cases
     from compseed_tpu_torch.ops import seedscan as ss
@@ -1562,47 +1572,188 @@ def loop_kernels(module, case) -> dict:
         rd = module.WalkRound(fm, const, walk_cases.clone_state(st), Uw)
     dev, i32 = rd.dev, torch.int32
     rcap, nxtw = 40, 100
-    errs = dict.fromkeys(module.LOOP_KERNELS, 0)
+    kernel, = module.LOOP_KERNELS
+    e = 0
     for rnd0, live, hist_on in ((3, 500, True), (40, 500, True),
                                 (39, 500, True), (3, nxtw, True),
                                 (0, 0, True), (3, 500, False)):
-        for kernel, entry in zip(module.LOOP_KERNELS, (True, False)):
-            got = []
-            for run in (lambda: getattr(module, "entry" if entry else
-                                        "cond")(rd),
-                        lambda: ss.loop_step_plain(rd, entry)):
-                rnd = torch.tensor(rnd0, dtype=i32, device=dev)
-                live_in = torch.tensor(live, dtype=i32, device=dev)
-                hist = torch.full((rcap,), -1, dtype=i32, device=dev) \
-                    if hist_on else None
-                rd.set_loop(rnd, live_in, nxtw, rcap, hist)
-                rd.live.fill_(-5 if entry else live)
-                run()
-                got.append([rnd.clone(), rd.live.clone(), rd.go.clone()] +
-                           ([hist] if hist_on else []))
-            errs[kernel] = max([errs[kernel]] + [
-                err(a, b) for a, b in zip(*got)])
-    if any(errs.values()):
-        raise SystemExit(f"a {what} loop kernel disagrees with its plain "
-                         f"version: {errs}")
-    out = {}
+        got = []
+        for run in (lambda: module.entry(rd),
+                    lambda: ss.loop_step_plain(rd, True)):
+            rnd = torch.tensor(rnd0, dtype=i32, device=dev)
+            live_in = torch.tensor(live, dtype=i32, device=dev)
+            hist = torch.full((rcap,), -1, dtype=i32, device=dev) \
+                if hist_on else None
+            rd.set_loop(rnd, live_in, nxtw, rcap, hist)
+            rd.live.fill_(-5)
+            run()
+            got.append([rnd.clone(), rd.live.clone(), rd.go.clone()] +
+                       ([hist] if hist_on else []))
+        e = max([e] + [err(a, b) for a, b in zip(*got)])
+    if e:
+        raise SystemExit(f"{kernel} disagrees with its plain version: {e}")
+    tail = loop_tail_check(module, case)
     rd.set_loop(torch.zeros((), dtype=i32, device=dev),
                 torch.tensor(500, dtype=i32, device=dev), nxtw, rcap,
                 torch.zeros(rcap, dtype=i32, device=dev))
-    for kernel, entry in zip(module.LOOP_KERNELS, (True, False)):
-        def run(entry=entry):
-            getattr(module, "entry" if entry else "cond")(rd)
 
-        def plain(entry=entry):
-            ss.loop_step_plain(rd, entry)
-        nbytes, ops = 20, 4
-        bound_ms, bound_by = bound_of(nbytes, ops)
-        out[kernel] = dict(max_abs_err=errs[kernel], ms=launch_ms(run, 20),
-                           loop_ms=cuda_time_ms(run, 20),
-                           plain_ms=cuda_time_ms(plain, 20), bytes=nbytes,
-                           ops=ops, bound_ms=bound_ms, bound_by=bound_by)
+    def run():
+        module.entry(rd)
+
+    def plain():
+        ss.loop_step_plain(rd, True)
+    nbytes, ops = 20, 4
+    bound_ms, bound_by = bound_of(nbytes, ops)
+    out = {kernel: dict(max_abs_err=e, ms=launch_ms(run, 20),
+                        loop_ms=cuda_time_ms(run, 20),
+                        plain_ms=cuda_time_ms(plain, 20), bytes=nbytes,
+                        ops=ops, bound_ms=bound_ms, bound_by=bound_by),
+           f"{what}_apply_kernel tail": tail}
     torch.cuda.synchronize()
     return out
+
+
+def round_before_apply(module, case, dead: bool = False) -> tuple:
+    """A captured round (``module``: chain_cuda or walk_cuda; ``case`` a
+    chain or walk round) through the port's kernels up to its apply (the
+    first kernel, the sort, the group, the representatives' walk into
+    the round's held buffers), on a copy of its state, all lanes dead
+    with ``dead``: (its round, that state)."""
+    from compseed_tpu_torch.ops import chain_cases, walk_cases
+    from compseed_tpu_torch.ops import seedscan as ss
+    if module.__name__.endswith("chain_cuda"):
+        fm, const, st, w, Uw = case
+        ks = chain_cases.clone_state(st)
+        if dead:
+            ks["alive"].zero_()
+        rd = module.ChainRound(fm, const, ks, w, Uw)
+        module.probe(rd)
+        module.sort(rd)
+        module.group(rd)
+        s = rd.scratch
+        ss._chain_walk(fm, s["rep_wv"], const["W"], s["rep_k"], s["rep_l"],
+                       s["rep_s"], s["rep_valid"], out=rd.walk)
+    else:
+        fm, const, st, Uw = case
+        ks = walk_cases.clone_state(st)
+        if dead:
+            ks["alive"].zero_()
+        rd = module.WalkRound(fm, const, ks, Uw)
+        module.key(rd)
+        module.sort(rd)
+        module.group(rd)
+        s = rd.scratch
+        ss._chain_walk(fm, s["rep_rw"], const["W"], s["rep_k"], s["rep_l"],
+                       s["rep_s"], s["rep_valid"], is_back=True,
+                       stop_s=s["gmin"], out=rd.walk)
+    return rd, ks
+
+
+def loop_tail_check(module, case, rcap: int = 40) -> dict:
+    """The apply kernel's folded loop test (``module``: chain_cuda or
+    walk_cuda) on a round of the main path: the round up to its apply
+    (round_before_apply), then the apply launched alone (the condition
+    handle 0) with set_loop's loop word, against the same apply without
+    the word followed by its plain version, seedscan.loop_step_plain:
+    round counter, live count, go, the histogram (with it and without),
+    the retire count (0 after) and every tensor of the round's state held
+    equal.  At a running round, the RCAP cap, a segment exit (the next
+    width equal to the live count the apply leaves) and no live lane;
+    go must be set at the running rounds alone.  {max_abs_err, live: the
+    live count the round leaves, cases: {case: go}}."""
+    import torch
+    from compseed_tpu_torch.ops import chain_cases
+    from compseed_tpu_torch.ops import seedscan as ss
+    i32 = torch.int32
+    rd, _ = round_before_apply(module, case)
+    module.apply(rd)
+    live = int(rd.live)
+    if live < 1:
+        raise SystemExit(f"loop_tail_check: the round leaves {live} live "
+                         f"lanes")
+    e, cases = 0, {}
+    for tag, dead, rnd0, nxtw, hist_on in (
+            ("running", False, 3, live - 1, True),
+            ("cap", False, rcap - 1, live - 1, True),
+            ("exit", False, 3, live, True),
+            ("no live lane", True, 3, 0, True),
+            ("running, no histogram", False, 3, live - 1, False)):
+        got = []
+        for folded in (True, False):
+            rd, ks = round_before_apply(module, case, dead)
+            rnd = torch.tensor(rnd0, dtype=i32, device=rd.dev)
+            hist = torch.full((rcap,), -1, dtype=i32, device=rd.dev) \
+                if hist_on else None
+            rd.set_loop(rnd, torch.tensor(live, dtype=i32, device=rd.dev),
+                        nxtw, rcap, hist)
+            rd.go.fill_(-5)
+            if not folded:
+                rd.args[rd.AT["loop"]] = 0
+            module.apply(rd)
+            if not folded:
+                ss.loop_step_plain(rd, False)
+            got.append([rnd, rd.live, rd.go, rd.scratch["sc"][
+                module.SC_RETIRE:module.SC_RETIRE + 2]] +
+                       ([hist] if hist_on else []) +
+                       [ks[n] for n in sorted(ks)
+                        if isinstance(ks[n], torch.Tensor)])
+        e = max([e] + [chain_cases.max_err(a, b) for a, b in zip(*got)])
+        go, retire = int(got[0][2]), int(got[0][3].abs().sum())
+        cases[tag] = go
+        if go != int(tag.startswith("running")) or retire:
+            raise SystemExit(f"the {module.__name__} apply's loop test at "
+                             f"{tag}: go {go}, retire count {retire}")
+    if e:
+        raise SystemExit(f"the {module.__name__} apply's folded loop test "
+                         f"disagrees with its plain version: {e}")
+    return dict(max_abs_err=e, live=live, cases=cases)
+
+
+class LoopTail:
+    """A round source's kernels (``module``: chain_cuda or walk_cuda) as a
+    loop's body launches its apply: with the loop word set, so that its
+    last block to retire counts the round and runs the loop's test (the
+    words its own: a round counter and a live count set at its first
+    apply on a round, no histogram, no graph), for timing the folded tail
+    against the apply alone (loop_tail_turns)."""
+
+    def __init__(self, module):
+        self.module = module
+        for op in ("probe", "key", "group"):
+            if hasattr(module, op):
+                setattr(self, op, getattr(module, op))
+
+    def apply(self, rd):
+        import torch
+        if not rd.args[rd.AT["loop"]]:
+            z = torch.zeros((), dtype=torch.int32, device=rd.dev)
+            rd.set_loop(z, z.clone(), 0, 1 << 30)
+        self.module.apply(rd)
+
+
+def loop_tail_turns(what: str, cases: dict) -> dict:
+    """The apply kernel of a round source (``what``: "chain" or "walk")
+    on each of ``cases`` (tag -> a captured round) without its loop word
+    and with it (LoopTail), on the card alone in turns, TAIL_TURNS times
+    each order (build_turns, each held to the plain steps first); per
+    case the medians and their difference, what the folded loop test
+    adds to a round's apply."""
+    from compseed_tpu_torch.ops import (chain_cases, chain_cuda, walk_cases,
+                                        walk_cuda)
+    module, check, runs = dict(
+        chain=(chain_cuda, chain_cases.steps_vs_plain, chain_runs),
+        walk=(walk_cuda, walk_cases.steps_vs_plain, walk_runs))[what]
+    kernel = f"{what}_apply_kernel"
+    rec = build_turns(what, {"apply": module, "apply+loop":
+                             LoopTail(module)}, cases, (kernel,), check,
+                      runs, turns=TAIL_TURNS)
+    for r in rec.values():
+        a, b = (statistics.median(r[n][kernel]) for n in ("apply",
+                                                            "apply+loop"))
+        r["median_ms"] = dict(apply=a, loop=b, added=b - a)
+    log(f"[4] {what} apply with and without the loop word, in turns: "
+        f"{json.dumps({t: r['median_ms'] for t, r in rec.items()})}")
+    return rec
 
 
 def kept_bytes(run) -> dict:
@@ -1864,6 +2015,69 @@ def segment_costs(seeder, queries, runs: int = 3) -> dict:
     return out
 
 
+def segment_rounds(seeder, queries, runs: int = 3) -> dict:
+    """What a kept segment graph costs the card a round, on the eager
+    route (seeder2.EagerCalls, whose segments keep their graphs): one run
+    of the chunk's seeding that captures every segment's graph, then
+    ``runs`` runs on the kept graphs, each segment's call
+    (seedscan._chain_segment / _walk_segment: on a kept graph its launch
+    alone) between two CUDA events on the current stream, its rounds the
+    call's round counter after it less before it (copies on the card, read
+    after the run).  Per loop: each run's event ms over its segments, its
+    rounds and their quotient, the ms per round; the kernel nodes of the
+    segments' body graphs (what the card runs a round)."""
+    import torch
+    from compseed_tpu_torch.ops import seedscan as ss
+    from compseed_tpu_torch.ops.seeder2 import EagerCalls
+    seen = {"chain": [], "walk": []}
+
+    def timed(what, fn):
+        def run(*a):
+            rnd = a[-2]["rnd"]          # the loop's words, then the round
+            r0 = rnd.clone()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            rd = fn(*a)
+            ev[1].record()
+            seen[what].append((ev, r0, rnd.clone(), rd))
+            return rd
+        return run
+
+    orig = (ss._chain_segment, ss._walk_segment)
+    out = {w: dict(ms=[], rounds=[], ms_per_round=[]) for w in seen}
+    ss.drop_held()
+    eager = EagerCalls().__enter__()
+    ss._chain_segment = timed("chain", orig[0])
+    ss._walk_segment = timed("walk", orig[1])
+    try:
+        for run in range(runs + 1):
+            for v in seen.values():
+                v.clear()
+            seeder.run_flat(queries)
+            torch.cuda.synchronize()
+            if run == 0:
+                continue
+            for what, segs in seen.items():
+                ms = sum(ev[0].elapsed_time(ev[1]) for ev, *_ in segs)
+                rounds = sum(int(r1) - int(r0) for _, r0, r1, _ in segs)
+                out[what]["ms"].append(ms)
+                out[what]["rounds"].append(rounds)
+                out[what]["ms_per_round"].append(ms / rounds)
+        for what, segs in seen.items():
+            nodes = [rd.graph.nodes() for *_, rd in segs]
+            out[what].update(
+                segments=len(segs),
+                kernels_per_round=sorted({n["kernels"] for n in nodes}),
+                memsets_per_round=sorted({n["memsets"] for n in nodes}),
+                median_ms_per_round=statistics.median(
+                    out[what]["ms_per_round"]))
+    finally:
+        ss._chain_segment, ss._walk_segment = orig
+        eager.__exit__()
+        ss.drop_held()
+    return out
+
+
 def chain_runs(case, build) -> tuple:
     """A captured round through one build of the chain kernels (``build``:
     chain_cuda, or an OldChainBuild), once whole (so every scratch array
@@ -1975,6 +2189,9 @@ class OldChainBuild:
         from compseed_tpu_torch.ops import chain_cuda
         chain_cuda._bind(lib, prefix=True)
         self.lib = lib
+        # whether its apply runs the loop's test (its Args has the loop
+        # word): a build without it cannot end a loop's body
+        self.folds = lib.chain_args_words() == len(chain_cuda.ARGS)
 
     def _run(self, launcher, rd):
         import ctypes as ct
@@ -2026,17 +2243,19 @@ def round_builds(sources, module, wrap) -> dict:
 
 
 def build_turns(what: str, builds: dict, cases: dict, kernels, check,
-                runs_of, reps: int = 20, cold=(), flush=None) -> dict:
+                runs_of, reps: int = 20, cold=(), flush=None,
+                turns: int = 1) -> dict:
     """Every case (tag -> a captured round, or a form of one) through every
     build of a round source's kernels (``what``: "chain" or "walk"): held
     to the plain steps (``check(case, build)``: chain_cases or walk_cases
     ``steps_vs_plain``; max_abs_err per build and kernel, all must be 0),
     then each of ``kernels``' ms per launch on the card alone (launch_ms
     on ``runs_of(case, build)``, restores taken off) in turns, the builds
-    in order and then in reverse; each of ``cold`` also after ``flush``
+    in order and then in reverse, ``turns`` times; each of ``cold`` also
+    after ``flush``
     (an eviction of L2) every launch, as "<kernel> cold".  tag -> {stats:
     the round's data, build: {max_abs_err, kernel: [ms, ...]}}."""
-    order = list(builds) + list(builds)[::-1]
+    order = (list(builds) + list(builds)[::-1]) * turns
     timed = [(k, None) for k in kernels] + [(k, flush) for k in cold]
     out = {}
     for tag, case in cases.items():
@@ -2286,7 +2505,8 @@ def launch_split(seeder, queries) -> dict:
     per, loops = {}, 0
     for what, round_kernels in (("chain", CHAIN_KERNELS),
                                 ("walk", WALK_KERNELS)):
-        rounds = ran["kernels"].get(f"{what}_loop_cond_kernel", 0)
+        # a round is one run of its apply, which ends it
+        rounds = ran["kernels"].get(f"{what}_apply_kernel", 0)
         segs = bodies[what]
         # the profiler may drop a few records in a long process
         # (fm_measure): each round kernel must have run, and the counts are
@@ -2362,6 +2582,11 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
            (f"padded w={CHUNK}", chain_cases.padded(cases[(1, CHUNK)]))]),
         CHAIN_KERNELS, chain_cases.steps_vs_plain, chain_runs,
         cold=("chain_probe_kernel",), flush=flush)
+    # the apply with its folded loop test and without, at the timed widths
+    tail = loop_tail_turns("chain", {
+        f"round {call} w={w}": c for (call, w), c in sorted(cases.items())
+        if (call, w) in ((1, CHUNK), (1, CHUNK // 4), (1, CHUNK // 16),
+                         (2, 4 * CHUNK))})
     # every round of a chunk, for the builds to compare (--chain-old-source)
     rounds = probe_rounds(builds, seeder, queries, flush) \
         if len(builds) > 1 else {}
@@ -2390,7 +2615,7 @@ def chain_main_path(seeder, queries, l32, cases, builds) -> dict:
                          f"chain_scan round, more than "
                          f"{MAX_CHAIN_ROUND_KERNELS}")
     return dict(launches_per_chunk=per_chunk, shapes=shapes, turns=turns,
-                split=split, redesign=redesign, **rounds)
+                split=split, redesign=redesign, loop_tail=tail, **rounds)
 
 
 def probe_rounds(builds: dict, seeder, queries, flush) -> dict:
@@ -2456,12 +2681,20 @@ def round_rows(rec, at_tag, floor_tag, kernels, replaces, source, l32,
     ``rec["shapes"]``; latency_floor_ms: the shape ``floor_tag``;
     device_ms_profiled: the profiler's mean over one chunk's launches
     (``prof``: profile_chunk's kernels); max_abs_err: the largest over
-    every round of phase 2."""
+    every round of phase 2 (the apply's also over its folded loop test,
+    ``rec["tail_check"]``, loop_tail_check); the apply's loop_tail_ms: its
+    median ms per launch without the loop word and with it, in turns
+    (loop_tail_turns), by shape."""
     at, floor = rec["shapes"][at_tag], rec["shapes"][floor_tag]
     rows = []
     for k in kernels:
         e = max(r[k] for recs in rec["phase2"].values()
                 for r in recs.values())
+        more = {}
+        if k.endswith("_apply_kernel"):
+            e = max(e, rec["tail_check"]["max_abs_err"])
+            more["loop_tail_ms"] = {t: v["median_ms"]
+                                    for t, v in rec["loop_tail"].items()}
         r = at[k]
         rows.append(row(
             k, replaces[k], l32[k], e, r["ms"], r["plain_ms"], r,
@@ -2472,7 +2705,7 @@ def round_rows(rec, at_tag, floor_tag, kernels, replaces, source, l32,
             device_ms_profiled=prof.get(k, {}).get("device_ms_per_launch"),
             shapes={t: {n: v[k][n] for n in ("ms", "profiled_ms", "loop_ms",
                                                 "plain_ms", "bound_ms")}
-                    for t, v in rec["shapes"].items()}))
+                    for t, v in rec["shapes"].items()}, **more))
     return rows
 
 
@@ -2634,10 +2867,15 @@ def walk_main_path(l32, cases, split, seeder, queries, builds) -> dict:
     redesign = build_turns("walk", builds, dict(rounds, **forms),
                            WALK_KERNELS, walk_cases.steps_vs_plain, walk_runs)
     del rounds
+    # the apply with its folded loop test and without, at the timed widths
+    tail = loop_tail_turns("walk", {
+        f"round {1 if n == 24 * CHUNK else 2} lanes={n}": c
+        for (call, n), c in sorted(cases.items())
+        if n in (24 * CHUNK, 16 * CHUNK)})
     means = walk_chunk_means(builds, seeder, queries)
     return dict(launches_per_chunk=per_chunk, shapes=shapes,
                 kernels_per_round=per_round, redesign=redesign,
-                chunk_means=means)
+                loop_tail=tail, chunk_means=means)
 
 
 class OldWalkBuild:
@@ -2654,6 +2892,9 @@ class OldWalkBuild:
         from compseed_tpu_torch.ops import walk_cuda
         walk_cuda._bind(lib, prefix=True)
         self.lib = lib
+        # whether its apply runs the loop's test (its Args has the loop
+        # word): a build without it cannot end a loop's body
+        self.folds = lib.walk_args_words() == len(walk_cuda.ARGS)
 
     def _run(self, launcher, rd):
         import ctypes as ct
@@ -2727,6 +2968,14 @@ def chunk_means(what: str, module, ops, kernels, builds: dict, seeder,
     import torch
     from compseed_tpu_torch.ops import seedscan as ss
     from compseed_tpu_torch.ops.seeder2 import EagerCalls
+    # a build whose apply does not run the loop's test (a source from
+    # before the loop word) would never end a segment's graph
+    skip = [b for b, build in builds.items()
+            if not getattr(build, "folds", True)]
+    if skip:
+        log(f"[4] {what} builds {skip} run no loop's test in their apply: "
+            f"left out of the chunk's means")
+        builds = {b: v for b, v in builds.items() if b not in skip}
     order = (list(builds) + list(builds)[::-1]) * turns
     out = {b: dict({k: [] for k in kernels}, busy_ms=[], records=[])
            for b in builds}
@@ -4307,6 +4556,10 @@ def main() -> None:
                          f"{MAX_CHUNK_COPIES}: {prof}")
     chain_rec = chain_main_path(seeder, list(reads_arr[:CH]), l32,
                                 chain_cases_, chain_build_set)
+    chain_rec["segment_rounds"] = seg_rounds = segment_rounds(
+        seeder, list(reads_arr[:CH]))
+    log(f"[4] kept segment graphs, ms per round on the card (events): "
+        f"{json.dumps(seg_rounds)}")
     chain_rec["segment_costs"] = costs = segment_costs(
         seeder, list(reads_arr[:CH]))
     log(f"[4] the loop graphs' host costs over one {CHUNK}-read chunk: "
@@ -4582,8 +4835,12 @@ def main() -> None:
             l32["probe_add_one_kernel"], probe_err, probe_ms, probe_plain_ms,
             probe_row, library_ms=probe_lib_ms, graph_ms=probe_graph_ms,
             library_graph_ms=probe_lib_graph_ms)] + fm_rows(fm_rec, row)
-        + chain_rows(chain_rec, l32, row, fm_rec["profile"]["kernels"])
-        + walk_rows(walk_rec, l32, row, fm_rec["profile"]["kernels"])
+        + chain_rows(dict(chain_rec, tail_check=loop_rec["kernels"][
+            "chain_apply_kernel tail"]), l32, row,
+            fm_rec["profile"]["kernels"])
+        + walk_rows(dict(walk_rec, tail_check=loop_rec["kernels"][
+            "walk_apply_kernel tail"]), l32, row,
+            fm_rec["profile"]["kernels"])
         + loop_rows(loop_rec, l32, row, fm_rec["profile"]["kernels"])
         + sa_rows(sa_rec, l32, row, fm_rec["profile"]["kernels"])}))
     print(smi)

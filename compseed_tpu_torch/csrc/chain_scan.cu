@@ -7,8 +7,9 @@
 // These kernels are the port's counterpart of XLA's fusions; the sort is
 // CUB's radix sort over the key's bits (key_sort.cuh; XLA's sort in the JAX
 // package), the representatives' walk fm_chain_walk_kernel
-// (csrc/fm_walk.cu), and the while_loop's cond the loop kernels below: a
-// segment's rounds run as one CUDA graph (loop_graph.cuh).  One round:
+// (csrc/fm_walk.cu), and the while_loop's cond the entry kernel and the
+// apply kernel's last block below: a segment's rounds run as one CUDA graph
+// (loop_graph.cuh).  One round:
 //
 // chain_probe_kernel<T>      a thread a lane, blocks of kProbeBlock
 //   Replaces JAX seedscan.py:1495-1520 (port seedscan.py
@@ -49,7 +50,9 @@
 //   push counts are scanned in lane order (scan_blocks), and the pushes go
 //   to the six pool columns at cursor + rank (rows past GP dropped): the
 //   plain version's (lane, j) row-major order exactly; the last block
-//   moves cursor and povf.  A hit reads a store row
+//   moves cursor and povf.  In a loop (the loop word set) the last block
+//   to retire also counts the round and tests the next (loop_retire).
+//   A hit reads a store row
 //   written in an earlier round (rows below cur0) while this round's
 //   inserts write rows from cur0 on, so the two never meet.
 //
@@ -121,10 +124,14 @@
 //     block wrote alone (up to Uw - n_w of 32,768), are written by the
 //     probe, a thread each, lane 0's words read beside the lane's own.
 // A round is four launches of its own (the walk's included), one pass over
-// the lanes each on every SM, with no copy of the memo or the pool, then the
-// cond kernel (chain_loop_entry_kernel tests a segment's first round,
-// chain_loop_cond_kernel counts each round and tests the next, both one
-// thread: loop_step, and cudaGraphSetConditional inside a graph).
+// the lanes each on every SM, with no copy of the memo or the pool; the
+// loop's test needs no launch of its own.  chain_loop_entry_kernel (one
+// thread) tests a segment's first round; after each round the apply's last
+// block to retire counts the round and tests the next (loop_retire: one
+// 64-bit atomic a block, the blocks retired and their live lanes, then
+// loop_after and cudaGraphSetConditional inside a graph), where the first
+// design ended every round with a one-thread cond kernel, a node's launch
+// and drain for some 20 bytes of work.
 //
 // The launchers take the arguments as one array of 64-bit words, the
 // struct Args below (ops/chain_cuda.py::ARGS names them in order); they
@@ -176,7 +183,8 @@ struct Args {
   long long ck, cl, cs, ln;
   // look-back status words of the group and apply kernels (a word a
   // block); [n_w, cur0, live, n_u, epoch, group ticket, apply ticket,
-  // pool cursor at the round's start]
+  // pool cursor at the round's start, the apply's retire count (64 bits,
+  // words 8-9)]
   long long lb_group, lb_apply, sc;
   // sizes and modes
   long long w, Uw, W, L, H, M, GP, nq, r3, advance, min_len, max_intv,
@@ -194,7 +202,15 @@ struct Args {
   // 0), the WHILE node's condition handle (0 outside a graph) and the
   // condition's last value (one int32)
   long long rnd, live_in, nxtw, rcap, hist, cond, go;
+  // 1: the apply kernel ends a loop's body and runs the loop's test after
+  // the round (loop_retire); 0 (a launch of its own): it touches no loop
+  // word.  After the words above, so that an earlier build reads a prefix
+  long long loop;
 };
+
+// words of sc (Args): the live count; the apply's retire count, 64 bits
+// at 8-9 (loop_graph.cuh::loop_retire)
+constexpr int kScLive = 2, kScRetire = 8;
 
 template <typename T>
 struct Unsigned;
@@ -759,23 +775,6 @@ CS_HD void pool_close(const View<T>& v, const Args& a, long long cursor,
   v.ctr[3] = (povf0 != 0 || c > a.GP) ? 1 : 0;
 }
 
-// The loop's test (loop_graph.cuh::loop_test), the one body of the entry
-// kernel (before a segment's first round: the live count the segment
-// starts with, copied where the apply kernel leaves it) and of the cond
-// kernel (the last of a round: the round counted, the apply kernel's live
-// count).  Returns whether the next round runs, also left in *go.
-CS_HD bool loop_step(const Args& a, bool entry) {
-  int32_t* rnd = (int32_t*)a.rnd;
-  int32_t* sc = (int32_t*)a.sc;
-  if (entry)
-    sc[2] = *(const int32_t*)a.live_in;
-  else
-    *rnd += 1;
-  const bool go = loop_test(*rnd, sc[2], a.nxtw, a.rcap, (int32_t*)a.hist);
-  *(int32_t*)a.go = go ? 1 : 0;
-  return go;
-}
-
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
 // The kernels: a lane (a sorted position) a thread, blocks of
@@ -872,6 +871,7 @@ __global__ void __launch_bounds__(kApplyBlock) chain_apply_kernel(
   const int n_w = v.sc[0], cur0 = v.sc[1];
   const long long cursor = v.sc[7];
   const int povf0 = threadIdx.x == 0 ? v.ctr[3] : 0;   // the last block's
+  const LoopPre pre = loop_pre<kScLive>(a);   // the loop's words, if any
   T l2[5];
   load_l2(v, l2);
   // the first level at the block index, beside the ticket's atomic
@@ -927,21 +927,21 @@ __global__ void __launch_bounds__(kApplyBlock) chain_apply_kernel(
   }
   warp_add(v.ctr + 0, o.fq);
   warp_add(v.ctr + 1, fc);
-  warp_add(v.sc + 2, o.alive);
+  if (!a.loop) warp_add(v.sc + kScLive, o.alive);
   if (t == n_blocks - 1 && threadIdx.x == 0)
     pool_close(v, a, cursor + upto, povf0);
+  // in a loop: the live lanes and the round's test by the last block to
+  // retire
+  loop_retire<kScLive, kScRetire, kApplyBlock / 32>(a, o.alive, n_blocks,
+                                                    pre);
 }
 
-// The loop's entry and cond kernels, one thread each: loop_step, and the
-// WHILE node's condition set from it inside a graph.
-__device__ __forceinline__ void loop_set(const Args& a, bool entry) {
-  const bool go = loop_step(a, entry);
-  if (a.cond) cudaGraphSetConditional((cudaGraphConditionalHandle)a.cond, go);
+// The loop's entry kernel, one thread: the segment's first test
+// (loop_step with the live count the segment starts with), and the WHILE
+// node's condition set from it inside a graph.
+__global__ void chain_loop_entry_kernel(const Args a) {
+  loop_set<kScLive>(a);
 }
-
-__global__ void chain_loop_entry_kernel(const Args a) { loop_set(a, true); }
-
-__global__ void chain_loop_cond_kernel(const Args a) { loop_set(a, false); }
 
 long long blocks_for(long long n, int block) {
   return (n + block - 1) / block;
@@ -979,11 +979,8 @@ int launch(int which, const Args& a, cudaStream_t st) {
       if (e) return e;
       break;
     }
-    case 4:
-      chain_loop_entry_kernel<<<1, 1, 0, st>>>(a);
-      break;
     default:
-      chain_loop_cond_kernel<<<1, 1, 0, st>>>(a);
+      chain_loop_entry_kernel<<<1, 1, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -1060,8 +1057,9 @@ void host_apply(const Args& a) {
   }
   v.ctr[0] += fq;
   v.ctr[1] += fc;
-  v.sc[2] += live;
+  v.sc[kScLive] += live;
   pool_close(v, a, at, v.ctr[3]);
+  if (a.loop) loop_step<kScLive>(a, false);      // the folded loop test
 }
 
 int host_any(int which, const long long* words) {
@@ -1086,7 +1084,7 @@ int host_any(int which, const long long* words) {
                     (int64_t*)a.order, a.w, (int)a.key_bits);
       break;
     default:
-      loop_step(a, which == 4);
+      loop_step<kScLive>(a, true);
   }
   return 0;
 }
@@ -1111,9 +1109,6 @@ extern "C" int chain_sort_launch(const long long* a, void* stream) {
 extern "C" int chain_loop_entry_launch(const long long* a, void* stream) {
   return launch_any(4, a, stream);
 }
-extern "C" int chain_loop_cond_launch(const long long* a, void* stream) {
-  return launch_any(5, a, stream);
-}
 
 // The sort's temporary storage for n keys of `bits` bits.
 extern "C" long long chain_sort_bytes(long long n, int bits) {
@@ -1135,9 +1130,6 @@ extern "C" int chain_apply_host(const long long* a) { return host_any(2, a); }
 extern "C" int chain_sort_host(const long long* a) { return host_any(3, a); }
 extern "C" int chain_loop_entry_host(const long long* a) {
   return host_any(4, a);
-}
-extern "C" int chain_loop_cond_host(const long long* a) {
-  return host_any(5, a);
 }
 
 // slot_hash for n keys (window words, l and s sign-extended to int64).

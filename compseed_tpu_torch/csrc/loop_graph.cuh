@@ -7,18 +7,23 @@
 // nothing inside a call.  Here the loop is a graph with a WHILE
 // conditional node (CUDA 12.4 and later): an entry kernel sets the node's
 // condition from the live count the segment starts with, and the body (a
-// round's launches, captured from the caller's stream) ends with a
-// one-thread kernel that counts the round, reads the live count the apply
-// kernel left and sets the condition again.  The host launches the graph
-// once a segment and never reads the live count.
+// round's launches, captured from the caller's stream) ends with the
+// round's apply kernel, whose last block to retire (one 64-bit atomic a
+// block: the blocks retired and their live lanes) counts the round and
+// sets the condition again (loop_retire).  No kernel of its own ends a round: the condition
+// is set by the kernel that produces the count it tests.  The host
+// launches the graph once a segment and never reads the live count.
 //
-// loop_test is the condition itself, for the kernels and their host
-// loops.  The graph is built by stream capture, as PyTorch builds its own
-// conditional nodes: the outer graph is captured from one non-blocking
-// stream (the entry kernel), the WHILE node is added after what that
-// capture holds so far, and its body graph is captured from a second
-// stream; both captures are thread-local, so launches of other threads
-// (the alignment tail's DP beside the seeding worker) stay out of them.
+// loop_test is the condition itself, loop_step a round's step of it on a
+// source's Args (its words rnd, live_in, nxtw, rcap, hist, go, sc, cond
+// and loop), for the kernels and their host loops; loop_set and
+// loop_retire are the kernels' ends that run it.  The graph is built by
+// stream capture, as PyTorch builds its own conditional nodes: the outer
+// graph is captured from one non-blocking stream (the entry kernel), the
+// WHILE node is added after what that capture holds so far, and its body
+// graph is captured from a second stream; both captures are thread-local,
+// so launches of other threads (the alignment tail's DP beside the
+// seeding worker) stay out of them.
 // A body must not allocate: the graph names the addresses it was captured
 // with until it is destroyed (ops/cuda_lib.py guards every capture).
 //
@@ -50,8 +55,109 @@ LG_HD bool loop_test(int32_t rnd, int32_t live, long long nxtw,
   return go;
 }
 
+// The loop's test on round `rnd` with `live` live lanes: go, also left in
+// *go (and the histogram word: loop_test).
+template <typename A>
+LG_HD bool loop_go(const A& a, int32_t rnd, int32_t live) {
+  const bool go = loop_test(rnd, live, a.nxtw, a.rcap, (int32_t*)a.hist);
+  *(int32_t*)a.go = go ? 1 : 0;
+  return go;
+}
+
+// The loop's step after a round: the round counter was `rnd` and the
+// round leaves `live` live lanes, stored in the int32 word sc[kLive] of
+// the source's Args `a`; the round counted, then loop_go.
+template <int kLive, typename A>
+LG_HD bool loop_after(const A& a, int32_t rnd, int32_t live) {
+  *(int32_t*)a.rnd = rnd + 1;
+  ((int32_t*)a.sc)[kLive] = live;
+  return loop_go(a, rnd + 1, live);
+}
+
+// The loop's step on a round source's Args `a` (its words rnd, live_in,
+// nxtw, rcap, hist, go, sc), whose int32 word sc[kLive] holds the round's
+// live count: with `entry` (before a segment's first round) the live
+// count the segment starts with is copied there and tested; else (after
+// a round, the host loops') loop_after on the words as they stand.
+// Returns whether the next round runs.
+template <int kLive, typename A>
+LG_HD bool loop_step(const A& a, bool entry) {
+  int32_t* sc = (int32_t*)a.sc;
+  const int32_t rnd = *(const int32_t*)a.rnd;
+  if (!entry) return loop_after<kLive>(a, rnd, sc[kLive]);
+  sc[kLive] = *(const int32_t*)a.live_in;
+  return loop_go(a, rnd, sc[kLive]);
+}
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
+
+// The WHILE node's condition set inside a graph (a.cond: its handle, 0
+// outside one).
+template <typename A>
+__device__ __forceinline__ void loop_cond(const A& a, bool go) {
+  if (a.cond) cudaGraphSetConditional((cudaGraphConditionalHandle)a.cond, go);
+}
+
+// The entry kernel's body (one thread): loop_step before a segment's
+// first round, and the condition set from it.
+template <int kLive, typename A>
+__device__ __forceinline__ void loop_set(const A& a) {
+  loop_cond(a, loop_step<kLive>(a, true));
+}
+
+// What the last block of a round's apply needs of the words before the
+// round, read by thread 0 of every block at the kernel's start when a.loop
+// is set (off the last block's path): the round counter and the live count
+// (0 after the round's first kernel reset it).  No block writes either
+// word before the last block to retire, so that block's own reads hold.
+struct LoopPre {
+  int32_t rnd, live;
+};
+
+template <int kLive, typename A>
+__device__ __forceinline__ LoopPre loop_pre(const A& a) {
+  LoopPre p{0, 0};
+  if (a.loop && threadIdx.x == 0) {
+    p.rnd = *(const int32_t*)a.rnd;
+    p.live = ((const int32_t*)a.sc)[kLive];
+  }
+  return p;
+}
+
+// The end of a round's last kernel (the apply) when a.loop says it ends a
+// loop's body; nothing otherwise.  Every thread of every block calls it
+// with its lane's live count (1 or 0; the apply then adds none to
+// sc[kLive] itself).  The block sums them, and one thread adds
+// 2^32 + that sum to the 64-bit word at sc[kRetire] (8-byte aligned) in
+// one atomic: its high half counts the blocks that retired, its low half
+// their live lanes.  The block whose add finds n_blocks - 1 retired is
+// the last, and the value the atomic returns already holds every other
+// block's count, so it needs no fence and no second read: it runs
+// loop_after (the round counted, sc[kLive] = pre.live + the round's live
+// lanes, the test), sets the condition and resets the word to 0 for the
+// next launch.  (The ticket of the look-back is no such proof: the block
+// that draws it is the last to start, and blocks that started before it
+// may still be adding.)  kWarps: the block's warps.
+template <int kLive, int kRetire, int kWarps, typename A>
+__device__ __forceinline__ void loop_retire(const A& a, int live,
+                                            int n_blocks, LoopPre pre) {
+  if (!a.loop) return;
+  __shared__ int sums[kWarps];
+  const int s = __reduce_add_sync(0xFFFFFFFFu, live);
+  if ((threadIdx.x & 31) == 0) sums[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  int t = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) t += sums[w];
+  auto* word = (unsigned long long*)((int32_t*)a.sc + kRetire);
+  const unsigned long long old = atomicAdd(word, (1ull << 32) | (unsigned)t);
+  if ((int)(old >> 32) != n_blocks - 1) return;
+  loop_cond(a, loop_after<kLive>(a, pre.rnd,
+                                 pre.live + (int)(unsigned)old + t));
+  *word = 0;
+}
 
 namespace loop_graph {
 
@@ -68,8 +174,9 @@ struct State {
 };
 
 // Start capturing the outer graph from `outer`; *handle gets the WHILE
-// node's condition handle, created in that graph (the entry and cond
-// kernels take it as an argument, so it exists before they are captured).
+// node's condition handle, created in that graph (the entry kernel and
+// the body's last kernel take it as an argument, so it exists before they
+// are captured).
 inline int begin(State* s, cudaStream_t outer, cudaStream_t child,
                  unsigned long long* handle) {
   *s = State{outer, child, nullptr, nullptr, nullptr, 0, false};

@@ -9,8 +9,9 @@
 // port's counterpart of XLA's fusions; the sort is CUB's radix sort over
 // 31 bits (key_sort.cuh; XLA's sort in the JAX package), the
 // representatives' walk fm_chain_walk_kernel (csrc/fm_walk.cu), and the
-// while_loop's cond walk_loop_entry_kernel / walk_loop_cond_kernel (one
-// thread each: loop_step): a width's rounds run as one CUDA graph
+// while_loop's cond walk_loop_entry_kernel (one thread) before a width's
+// first round and the apply kernel's last block to retire after each
+// (loop_graph.cuh::loop_retire): a width's rounds run as one CUDA graph
 // (loop_graph.cuh).  One round:
 //
 // walk_key_kernel<T>         one thread a lane (and a representative)
@@ -51,7 +52,8 @@
 //   a survivor takes the chain's last state and moves W chars down.  A
 //   lane of another group waits a round unchanged.  Representative j adds
 //   its walk's length to calls when valid; the live count after the round
-//   is what the cond kernel tests.
+//   is what the loop tests: in a loop (the loop word set) the last block
+//   to retire counts the round and tests the next.
 //
 // T is the index type, int32_t or int64_t (fm.dtype): intervals and the
 // pool's fk, fl, fs are T, and interval arithmetic wraps in T as the
@@ -93,7 +95,9 @@
 //     256 (blocks of 64 and 128 were slower in a chunk).
 // A round is four launches of its own (the walk's included), one pass over
 // the lanes each on every SM, and writes the pool rows in place (the plain
-// round copies the four pool-long columns at every scatter).
+// round copies the four pool-long columns at every scatter); the loop's
+// test needs no launch of its own (the first design ended every round
+// with a one-thread cond kernel).
 //
 // The launchers take the arguments as one array of 64-bit words, the
 // struct Args below (ops/walk_cuda.py::ARGS names them in order); they
@@ -127,9 +131,9 @@ constexpr int kMaxW = 10;                  // a window packs into 30 bits
 constexpr int32_t kI32Max = 0x7FFFFFFF;
 constexpr uint32_t kMixK = 0x9E3779B9u, kMixS = 0x85EBCA6Bu,
                    kMixF = 0xC2B2AE35u;
-// the words of sc
+// the words of sc (the apply's retire count: loop_graph.cuh::loop_retire)
 constexpr int kScNw = 0, kScNu = 1, kScLive = 2, kScEpoch = 3,
-              kScTicket = 4;
+              kScTicket = 4, kScRetire = 6;   // 6-7: one 64-bit word
 
 // The launch arguments, one 64-bit word each (pointers as addresses).
 struct Args {
@@ -150,7 +154,8 @@ struct Args {
   // the representatives' walk (Uw x W in T, Uw int32)
   long long ck, cl, cs, ln;
   // look-back status words of the group kernel (a word a block); [n_w,
-  // n_u, live, epoch, group ticket]
+  // n_u, live, epoch, group ticket, -, the apply's retire count (64 bits,
+  // words 6-7)]
   long long lb_group, sc;
   // sizes
   long long w, Uw, W, L, n_rw, GP, idx64;
@@ -166,6 +171,10 @@ struct Args {
   // keeps none: 0), the WHILE node's condition handle (0 outside a graph)
   // and the condition's last value (one int32)
   long long rnd, live_in, nxtw, rcap, hist, cond, go;
+  // 1: the apply kernel ends a loop's body and runs the loop's test after
+  // the round (loop_retire); 0 (a launch of its own): it touches no loop
+  // word.  After the words above, so that an earlier build reads a prefix
+  long long loop;
 };
 
 template <typename T>
@@ -550,24 +559,6 @@ WC_HD int apply_lane(const View<T>& v, const Args& a, long long j, int n_w,
   return 1;
 }
 
-// The loop's test (loop_graph.cuh::loop_test), the one body of the entry
-// kernel (before a segment's first round: the live count the segment
-// starts with, copied where the apply kernel leaves it) and of the cond
-// kernel (the last of a round: the round counted, the apply kernel's live
-// count).  Returns whether the next round runs, also left in *go.
-WC_HD bool loop_step(const Args& a, bool entry) {
-  int32_t* rnd = (int32_t*)a.rnd;
-  int32_t* sc = (int32_t*)a.sc;
-  if (entry)
-    sc[kScLive] = *(const int32_t*)a.live_in;
-  else
-    *rnd += 1;
-  const bool go =
-      loop_test(*rnd, sc[kScLive], a.nxtw, a.rcap, (int32_t*)a.hist);
-  *(int32_t*)a.go = go ? 1 : 0;
-  return go;
-}
-
 #ifdef __CUDACC__
 // ---------------------------------------------------------------------------
 // The kernels: a lane (a sorted position) a thread, blocks of
@@ -675,22 +666,23 @@ __global__ void __launch_bounds__(kApplyBlock) walk_apply_kernel(
   const View<T> v(a);
   const long long j = (long long)blockIdx.x * kApplyBlock + threadIdx.x;
   const int n_w = v.sc[kScNw];
+  const LoopPre pre = loop_pre<kScLive>(a);
   int calls;
   const int live = apply_lane<T, kW>(v, a, j, n_w, &calls);
-  block_add2<kApplyBlock / 32>(v.ctr + 0, calls, v.sc + kScLive, live,
-                               sums);
+  // in a loop the live lanes go to the last block to retire instead
+  block_add2<kApplyBlock / 32>(v.ctr + 0, calls, v.sc + kScLive,
+                               a.loop ? 0 : live, sums);
+  const long long wide = a.w > a.Uw ? a.w : a.Uw;
+  loop_retire<kScLive, kScRetire, kApplyBlock / 32>(
+      a, live, (int)((wide + kApplyBlock - 1) / kApplyBlock), pre);
 }
 
-// The loop's entry and cond kernels, one thread each: loop_step, and the
-// WHILE node's condition set from it inside a graph.
-__device__ __forceinline__ void loop_set(const Args& a, bool entry) {
-  const bool go = loop_step(a, entry);
-  if (a.cond) cudaGraphSetConditional((cudaGraphConditionalHandle)a.cond, go);
+// The loop's entry kernel, one thread: the width's first test (loop_step
+// with the live count the width starts with), and the WHILE node's
+// condition set from it inside a graph.
+__global__ void walk_loop_entry_kernel(const Args a) {
+  loop_set<kScLive>(a);
 }
-
-__global__ void walk_loop_entry_kernel(const Args a) { loop_set(a, true); }
-
-__global__ void walk_loop_cond_kernel(const Args a) { loop_set(a, false); }
 
 long long blocks_for(long long n, int block) {
   return (n + block - 1) / block;
@@ -730,11 +722,8 @@ int launch(int which, const Args& a, cudaStream_t st) {
       if (e) return e;
       break;
     }
-    case 4:
-      walk_loop_entry_kernel<<<1, 1, 0, st>>>(a);
-      break;
     default:
-      walk_loop_cond_kernel<<<1, 1, 0, st>>>(a);
+      walk_loop_entry_kernel<<<1, 1, 0, st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -799,6 +788,7 @@ void host_apply(const Args& a) {
   }
   v.ctr[0] += calls;
   v.sc[kScLive] += live;
+  if (a.loop) loop_step<kScLive>(a, false);      // the folded loop test
 }
 
 int host_any(int which, const long long* words) {
@@ -825,7 +815,7 @@ int host_any(int which, const long long* words) {
                     (int64_t*)a.order, a.w, (int)a.key_bits);
       break;
     default:
-      loop_step(a, which == 4);
+      loop_step<kScLive>(a, true);
   }
   return 0;
 }
@@ -850,9 +840,6 @@ extern "C" int walk_sort_launch(const long long* a, void* stream) {
 extern "C" int walk_loop_entry_launch(const long long* a, void* stream) {
   return launch_any(4, a, stream);
 }
-extern "C" int walk_loop_cond_launch(const long long* a, void* stream) {
-  return launch_any(5, a, stream);
-}
 
 // The sort's temporary storage for n keys of `bits` bits.
 extern "C" long long walk_sort_bytes(long long n, int bits) {
@@ -874,9 +861,6 @@ extern "C" int walk_apply_host(const long long* a) { return host_any(2, a); }
 extern "C" int walk_sort_host(const long long* a) { return host_any(3, a); }
 extern "C" int walk_loop_entry_host(const long long* a) {
   return host_any(4, a);
-}
-extern "C" int walk_loop_cond_host(const long long* a) {
-  return host_any(5, a);
 }
 
 // walk_mix for n keys (window words, k and s sign-extended to int64).

@@ -6,7 +6,8 @@
 otherwise each segment as one CUDA graph (``cuda_lib.run_loop``): the
 entry kernel, then a WHILE node whose body is
 ``seedscan._chain_round_kernels``, three hand-written kernels around one
-sort and one ``fm_chain_walk_kernel`` launch, and the cond kernel,
+sort and one ``fm_chain_walk_kernel`` launch, the last of which, the
+apply, also runs the loop's test,
 
   ``probe`` -> ``chain_probe_kernel``  (memo probe, slot hash, sort key,
                the representatives' pads);
@@ -15,10 +16,12 @@ sort and one ``fm_chain_walk_kernel`` launch, and the cond kernel,
   ``group`` -> ``chain_group_kernel``  (group heads, scan, representatives);
   ``apply`` -> ``chain_apply_kernel``  (insert, apply, push / stop,
                advance, and the pushes to the pool in order; one build a
-               window width W);
-  ``entry`` -> ``chain_loop_entry_kernel``, ``cond`` ->
-               ``chain_loop_cond_kernel`` (the loop's test: rnd < RCAP and
-               live > the next segment's width; the histogram word).
+               window width W; once ``set_loop`` has set the loop word,
+               its last block to retire counts the round and runs the
+               loop's test: rnd < RCAP and live > the next segment's
+               width; the histogram word);
+  ``entry`` -> ``chain_loop_entry_kernel`` (that test before a segment's
+               first round).
 
 A ``ChainRound`` holds one segment's launch arguments (the ``Args``
 words of the source, named by ``ARGS`` in order) and its scratch: the
@@ -63,15 +66,19 @@ ARGS = (
     "max_intv", "idx64",
     "lane_rid",
     "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits",
-    "rnd", "live_in", "nxtw", "rcap", "hist", "cond", "go")
+    "rnd", "live_in", "nxtw", "rcap", "hist", "cond", "go", "loop")
 _AT = {n: i for i, n in enumerate(ARGS)}
 
 KERNELS = ("chain_probe_kernel", "chain_group_kernel", "chain_apply_kernel")
-LOOP_KERNELS = ("chain_loop_entry_kernel", "chain_loop_cond_kernel")
+LOOP_KERNELS = ("chain_loop_entry_kernel",)
 SORT = "chain_sort"         # CUB's radix sort, a library call
 PROBE_BLOCK = 256           # threads a block of the probe (a lane each)
 BLOCK = 256                 # threads a block of the group
 APPLY_BLOCK = 64            # threads a block of the apply (a lane each)
+# words of ``sc`` (int32, csrc/chain_scan.cu: kScLive, kScRetire): the live
+# count; the apply's retire count, one 64-bit word at SC_RETIRE (8-byte
+# aligned: the blocks retired and their live lanes, loop_graph.cuh)
+SC_LIVE, SC_RETIRE, SC_WORDS = 2, 8, 10
 
 
 def _bind(lib, prefix: bool = False) -> None:
@@ -172,6 +179,7 @@ class ChainRound(RoundArgs):
         # scratch, one set per segment; the sort writes order (and
         # sorted_key, init_sort's); the look-back words (a word a block of
         # the apply, the kernel with the most blocks) and sc start at zero
+        # (the apply's last block leaves its retire count at zero again)
         n_blocks = -(-w // APPLY_BLOCK)
         self.scratch = dict(
             p_wv=e(w, i64), p_slot=e(w), p_hit=e(w, torch.uint8),
@@ -181,8 +189,8 @@ class ChainRound(RoundArgs):
             rep_s=e(Uw, dt), rep_valid=e(Uw, torch.bool), rep_slot=e(Uw),
             lb_group=torch.zeros(n_blocks, dtype=i64, device=dev),
             lb_apply=torch.zeros(n_blocks, dtype=i64, device=dev),
-            sc=torch.zeros(8, dtype=i32, device=dev))
-        self.live = self.scratch["sc"][2]       # the live count after apply
+            sc=torch.zeros(SC_WORDS, dtype=i32, device=dev))
+        self.live = self.scratch["sc"][SC_LIVE]  # live count after apply
         self._held = {n: st[n] for n in ("lane0", "lane_rid", "pivot",
                                          "pos", "alive", "k", "l", "s",
                                          "tbl", "cst", "cur", "pool",
@@ -231,7 +239,9 @@ def group(rd: ChainRound) -> None:
 
 def apply(rd: ChainRound) -> None:
     """chain_apply_kernel: inserts, chains applied, lanes advanced, the
-    pushes to the pool (cursor, povf); the live count."""
+    pushes to the pool (cursor, povf); the live count; after ``set_loop``
+    also the round counted and the loop's test, the last launch of a
+    round."""
     _launch("chain_apply_kernel", rd.dev, rd.args)
 
 
@@ -240,8 +250,3 @@ def entry(rd: ChainRound) -> None:
     round (set_loop's words)."""
     _launch("chain_loop_entry_kernel", rd.dev, rd.args)
 
-
-def cond(rd: ChainRound) -> None:
-    """chain_loop_cond_kernel: the round counted and the loop test, the
-    last launch of a round."""
-    _launch("chain_loop_cond_kernel", rd.dev, rd.args)

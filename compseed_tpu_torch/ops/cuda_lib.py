@@ -16,7 +16,8 @@ one-time load take a lock.
 A round source (chain_scan.cu, walk_chain.cu) runs a segment of its loop
 as one ``LoopGraph`` (csrc/loop_graph.cuh): an entry kernel, then a
 WHILE node whose body is one round's launches, captured once from the
-calling thread and replayed on the card until its cond kernel clears the
+calling thread and replayed on the card until its last kernel (a round
+source's apply; the suffix-array loop's cond kernel) clears the
 condition; fm_walk.cu runs the suffix-array walk's last stage the same
 way.  ``run_loop`` builds and launches it, or, inside the capture of a
 whole call (``CallGraph``: the seeder's call as one torch.cuda.CUDAGraph),
@@ -178,7 +179,10 @@ class RoundArgs:
         ``live_in`` the live count the segment starts with (each one int32
         on the device), the next segment's width, RCAP and the live-lane
         histogram (RCAP int32) or None; the condition's last value goes to
-        ``go`` (one int32 of the round's own)."""
+        ``go`` (one int32 of the round's own).  Sets the loop word: from
+        here on the round's apply kernel ends a loop's body, counting the
+        round and testing the next (a round without it leaves every loop
+        word alone)."""
         i32 = torch.int32
         check_tensor("rnd", rnd, i32, (), self.dev)
         check_tensor("live_in", live_in, i32, (), self.dev)
@@ -189,7 +193,7 @@ class RoundArgs:
         for n, x in (("rnd", rnd.data_ptr()), ("live_in", live_in.data_ptr()),
                      ("nxtw", nxtw), ("rcap", rcap),
                      ("hist", 0 if hist is None else hist.data_ptr()),
-                     ("cond", 0), ("go", self.go.data_ptr())):
+                     ("cond", 0), ("go", self.go.data_ptr()), ("loop", 1)):
             self.args[self.AT[n]] = x
 
     def set_walk(self, ck, cl, cs, ln) -> None:
@@ -476,7 +480,9 @@ def _loop_test(rd) -> bool:
 
 def run_loop(rd, lib: KernelLibrary, prefix: str, entry, body) -> None:
     """Run a loop: ``entry(rd)`` launches the entry kernel, ``body(rd)``
-    one round's launches ending with the cond kernel.  ``rd`` holds the
+    one round's launches, the last of which counts the round and sets the
+    condition (a round source's apply with its loop word set, the
+    suffix-array loop's cond kernel).  ``rd`` holds the
     launch arguments: ``dev``, ``args`` (its words, ``AT["cond"]`` the
     condition handle's), ``go`` (the condition's last value, one int32 on
     the device) and ``graph`` (a RoundArgs, or fm_cuda.SaLoop).  On a

@@ -691,13 +691,15 @@ _WALK_RESULTS = ("death", "fk", "fl", "fs")
 
 
 def loop_step_plain(rd, entry: bool) -> None:
-    """The loop kernels' plain version (the entry kernel's with
-    ``entry``, else the cond kernel's), in PyTorch operations on a
-    round's loop words (``set_loop``'s) and its live count, in place and
-    without a host sync: the entry copies the live count the segment
-    starts with, the cond counts the round; then go = rnd < RCAP and
-    live > nxtw, the test of the Python loops above, and when it holds
-    hist[rnd] = live."""
+    """The loop's plain version: the entry kernel's with ``entry``, else
+    the apply kernel's folded tail (what its last block to retire runs
+    after a round when ``set_loop`` has set the loop word; the plain apply
+    step followed by this is the apply of a round in a loop), in PyTorch
+    operations on a round's loop words (``set_loop``'s) and its live
+    count, in place and without a host sync: the entry copies the live
+    count the segment starts with, the tail counts the round; then go =
+    rnd < RCAP and live > nxtw, the test of the Python loops above, and
+    when it holds hist[rnd] = live."""
     rnd, live_in, hist = rd._loop
     nxtw, rcap = rd.args[rd.AT["nxtw"]], rd.args[rd.AT["rcap"]]
     if entry:
@@ -744,9 +746,9 @@ def _walk_round_kernels(fm: DeviceFMIndex, c: dict,
     """One round of walk_pool_chain's launches on a segment's WalkRound
     (ops/walk_cuda.py), the body of its loop graph: key, the stable sort
     by key, group, the representatives' backward walk into the round's
-    held buffers, apply, and the cond kernel.  They allocate nothing and
-    update the state in place (the results are walk_pool_chain's own
-    copies)."""
+    held buffers, and apply, whose last block counts the round and sets
+    the loop's condition.  They allocate nothing and update the state in
+    place (the results are walk_pool_chain's own copies)."""
     walk_cuda.key(rd)
     walk_cuda.sort(rd)
     walk_cuda.group(rd)
@@ -754,7 +756,6 @@ def _walk_round_kernels(fm: DeviceFMIndex, c: dict,
     _chain_walk(fm, s["rep_rw"], c["W"], s["rep_k"], s["rep_l"], s["rep_s"],
                 s["rep_valid"], is_back=True, stop_s=s["gmin"], out=rd.walk)
     walk_cuda.apply(rd)
-    walk_cuda.cond(rd)
 
 
 def _walk_round_plain(fm: DeviceFMIndex, c: dict, st: dict,
@@ -1637,9 +1638,10 @@ def _chain_round_kernels(fm: DeviceFMIndex, c: dict,
     """One round of chain_scan's launches on a segment's ChainRound
     (ops/chain_cuda.py), the body of its loop graph: probe, the stable
     sort by slot, group, the representatives' walk into the round's held
-    buffers, apply (with the flush of the pushes), and the cond kernel.
-    They allocate nothing and update the state in place (the memo is
-    chain_scan's own copy)."""
+    buffers, and apply (with the flush of the pushes), whose last block
+    counts the round and sets the loop's condition.  They allocate
+    nothing and update the state in place (the memo is chain_scan's own
+    copy)."""
     chain_cuda.probe(rd)
     chain_cuda.sort(rd)
     chain_cuda.group(rd)
@@ -1647,7 +1649,6 @@ def _chain_round_kernels(fm: DeviceFMIndex, c: dict,
     _chain_walk(fm, s["rep_wv"], c["W"], s["rep_k"], s["rep_l"], s["rep_s"],
                 s["rep_valid"], out=rd.walk)
     chain_cuda.apply(rd)
-    chain_cuda.cond(rd)
 
 
 def _chain_round_plain(fm: DeviceFMIndex, c: dict, st: dict, w: int,

@@ -6,7 +6,8 @@
 otherwise each segment as one CUDA graph (``cuda_lib.run_loop``): the
 entry kernel, then a WHILE node whose body is
 ``seedscan._walk_round_kernels``, three hand-written kernels around one
-sort and one ``fm_chain_walk_kernel`` launch, and the cond kernel,
+sort and one ``fm_chain_walk_kernel`` launch, the last of which, the
+apply, also runs the loop's test,
 
   ``key``   -> ``walk_key_kernel``    (window word, mix, sort key; the
                representatives past n_w, lane 0's);
@@ -15,10 +16,12 @@ sort and one ``fm_chain_walk_kernel`` launch, and the cond kernel,
   ``group`` -> ``walk_group_kernel``  (group heads, scan, the heads'
                representatives, each group's smallest min_hits);
   ``apply`` -> ``walk_apply_kernel``  (deaths to the pool rows, survivors
-               W chars on, calls, the live count);
-  ``entry`` -> ``walk_loop_entry_kernel``, ``cond`` ->
-               ``walk_loop_cond_kernel`` (the loop's test: rnd < RCAP and
-               live > the next width).
+               W chars on, calls, the live count; once ``set_loop`` has
+               set the loop word, its last block to retire counts the
+               round and runs the loop's test: rnd < RCAP and live > the
+               next width);
+  ``entry`` -> ``walk_loop_entry_kernel`` (that test before a width's
+               first round).
 
 A ``WalkRound`` holds one segment's launch arguments (the ``Args`` words
 of the source, named by ``ARGS`` in order) and its scratch: the lane
@@ -58,13 +61,13 @@ ARGS = (
     "lb_group", "sc",
     "w", "Uw", "W", "L", "n_rw", "GP", "idx64", "all4",
     "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits",
-    "rnd", "live_in", "nxtw", "rcap", "hist", "cond", "go")
+    "rnd", "live_in", "nxtw", "rcap", "hist", "cond", "go", "loop")
 _AT = {n: i for i, n in enumerate(ARGS)}
 LANE_KEYS = ("k", "l", "s", "rid", "i", "mh", "slot", "alive")
 CALL_KEYS = ("death", "fk", "fl", "fs", "ctr")
 
 KERNELS = ("walk_key_kernel", "walk_group_kernel", "walk_apply_kernel")
-LOOP_KERNELS = ("walk_loop_entry_kernel", "walk_loop_cond_kernel")
+LOOP_KERNELS = ("walk_loop_entry_kernel",)
 SORT = "walk_sort"          # CUB's radix sort, a library call
 # the bits of a walk key: a live lane's 32-bit mix shifted right by one,
 # or INT32_MAX (csrc/walk_chain.cu, key_lane)
@@ -73,7 +76,10 @@ KEY_BITS = 31
 # kGroupBlock, kApplyBlock): a sorted position or a lane each
 GROUP_BLOCK = 256
 APPLY_BLOCK = 256
-SC_NW, SC_NU, SC_LIVE, SC_EPOCH = 0, 1, 2, 3    # words of ``sc``
+# words of ``sc`` (int32, csrc/walk_chain.cu: kScNw, kScNu, kScLive,
+# kScEpoch, kScRetire: the apply's retire count, one 64-bit word at
+# SC_RETIRE, 8-byte aligned; loop_graph.cuh)
+SC_NW, SC_NU, SC_LIVE, SC_EPOCH, SC_RETIRE = 0, 1, 2, 3, 6
 
 
 def _bind(lib, prefix: bool = False) -> None:
@@ -152,7 +158,8 @@ class WalkRound(RoundArgs):
 
         # scratch, one set per segment; the sort writes order (and
         # sorted_key, init_sort's); the look-back words (one a group
-        # block) and sc start at zero
+        # block) and sc start at zero (the apply's last block leaves its
+        # retire count at zero again)
         n_blocks = -(-n // GROUP_BLOCK)
         self.scratch = dict(
             rw=e(n, i64), key=e(n), order=e(n, i64),
@@ -199,7 +206,9 @@ def group(rd: WalkRound) -> None:
 
 
 def apply(rd: WalkRound) -> None:
-    """walk_apply_kernel: deaths, survivors on, calls; the live count."""
+    """walk_apply_kernel: deaths, survivors on, calls; the live count;
+    after ``set_loop`` also the round counted and the loop's test, the
+    last launch of a round."""
     _launch("walk_apply_kernel", rd.dev, rd.args)
 
 
@@ -208,8 +217,3 @@ def entry(rd: WalkRound) -> None:
     round (set_loop's words)."""
     _launch("walk_loop_entry_kernel", rd.dev, rd.args)
 
-
-def cond(rd: WalkRound) -> None:
-    """walk_loop_cond_kernel: the round counted and the loop test, the
-    last launch of a round."""
-    _launch("walk_loop_cond_kernel", rd.dev, rd.args)

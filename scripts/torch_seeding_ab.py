@@ -23,7 +23,11 @@ async copies per chunk and the card's busy share.  ``--stream`` also
 times, after those, the whole alignment of the turn's chunks
 (``pipeline.align.align_stream`` with the device DP engine and the native
 tail, as ``chip_smoke.py`` phase 4 runs it): one warm-up stream, then
-reads/s of one more.  In a tree whose seeder runs its round loops as
+reads/s of one more.  ``--segments`` also runs, after those, the same
+chunk on the eager route with every round loop's segment timed on the
+card between CUDA events on kept graphs (``chip_smoke.segment_rounds`` of
+THIS checkout): ms per round of each loop and the kernels its body graph
+holds.  In a tree whose seeder runs its round loops as
 CUDA graphs (``ops.cuda_lib.LoopGraph``) each turn also gives the
 capture and instantiation ms of every graph it built (a graph is built
 at a shape's first call on a thread, in the warm-up pass, and kept), and
@@ -139,13 +143,16 @@ if {stream!r}:
         rates.append(len(done) / (time.perf_counter() - t0))
     rec["stream_reads_per_s"] = rates[1]
     rec["stream_warmup_reads_per_s"] = rates[0]
-if {profile!r}:
+if {profile!r} or {segments!r}:
     import importlib.util
     spec = importlib.util.spec_from_file_location("smoke", {smoke!r})
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
+if {profile!r}:
     rec["profile"] = smoke.profile_chunk(lambda: sd.run_flat(chunks[0]),
                                          sync)
+if {segments!r}:
+    rec["segments"] = smoke.segment_rounds(sd, chunks[0])
 print(json.dumps(rec))
 """
 
@@ -167,6 +174,8 @@ def main() -> None:
                     help="profile one chunk after each turn's passes")
     ap.add_argument("--stream", action="store_true",
                     help="time the whole alignment of the chunks too")
+    ap.add_argument("--segments", action="store_true",
+                    help="time each loop's kept segment graphs a round")
     args = ap.parse_args()
     trees = dict(t.split("=", 1) for t in args.tree)
     shards = {n: int(v) for n, v in (m.split("=", 1) for m in args.mesh)}
@@ -183,6 +192,7 @@ def main() -> None:
                             chunks=args.chunks, passes=args.passes,
                             shards=shards.get(name, 0),
                             profile=args.profile, stream=args.stream,
+                            segments=args.segments,
                             smoke=os.path.join(here, "chip_smoke.py"))
         proc = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True)
@@ -204,7 +214,8 @@ def main() -> None:
         call_graph_ms=[r["call_graph_ms"] for r in rs
                        if "call_graph_ms" in r],
         warmup_run_flat_s=[r["warmup_run_flat_s"] for r in rs],
-        profiles=[r["profile"] for r in rs if "profile" in r])
+        profiles=[r["profile"] for r in rs if "profile" in r],
+        segments=[r["segments"] for r in rs if "segments" in r])
         for n, rs in runs.items() if rs}))
 
 

@@ -526,14 +526,14 @@ def test_args_layout_matches_source(host):
               for f in decl.replace("long long", "").split(",")]
     assert tuple(fields) == chain_cuda.ARGS
     assert host.chain_args_words() == len(chain_cuda.ARGS)
-    # the lanes' read ids, then the sort's and the loop's words, come
-    # after the earlier words, so that an earlier build of the source
-    # reads a prefix of the words
+    # the lanes' read ids, then the sort's and the loop's words, then the
+    # loop word, come after the earlier words, so that an earlier build of
+    # the source reads a prefix of the words
     at = chain_cuda.ARGS.index("lane_rid")
     assert chain_cuda.ARGS[at - 1] == "idx64"
     assert chain_cuda.ARGS[at + 1:] == (
         "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits", "rnd",
-        "live_in", "nxtw", "rcap", "hist", "cond", "go")
+        "live_in", "nxtw", "rcap", "hist", "cond", "go", "loop")
 
 
 class _Fn:

@@ -19,7 +19,9 @@ one; the round loops as CUDA graphs (each segment one graph with a WHILE
 node): every chain_scan and walk_pool_chain call of the first bench
 chunk against the plain loop and each round's sort against torch.sort,
 no host sync inside a call, the capture guard, a sharded worker
-capturing beside the main thread's DP, graphs kept across chunks.
+capturing beside the main thread's DP, graphs kept across chunks; a
+segment's graph, whose rounds end with the apply's folded loop test,
+against the plain loop.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -1397,6 +1399,75 @@ def test_kept_graphs_serve_later_chunks_on_card(dev, bench, monkeypatch):
     for g, w in zip(got, want):
         for x, y in zip(g, w):
             assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("what", ["chain", "walk"])
+def test_folded_loop_segment_equals_plain_loop_on_card(dev, bench, what):
+    """Round 1's first segment of the first bench chunk (chain_scan at
+    16,384 lanes, walk_pool_chain at 393,216; int32) as one graph
+    (seedscan._chain_segment / _walk_segment: the entry kernel, then a
+    WHILE node whose rounds end with the apply, whose last block counts
+    the round and tests the next) against the plain loop on the same
+    state (the plain round while rnd < RCAP and live > the next width):
+    every lane, memo and pool word, the counters, the live count, the
+    round counter and the histogram equal; the retire count 0 after the
+    segment and after the kept graph's second launch on the same state,
+    which equals the first; the body graph holds no kernel of its own for
+    the loop's test (9 kernel nodes a chain round, 10 a walk round)."""
+    from compseed_tpu_torch.ops import (chain_cases, chain_cuda, walk_cases,
+                                        walk_cuda)
+    from compseed_tpu_torch.ops import seedscan as tss
+    i32 = torch.int32
+    if what == "chain":
+        fm, c, st0, w, Uw = _chain_rounds(bench, dev, "int32")[(1, 16384)]
+        clone, mod, nodes_max = chain_cases.clone_state, chain_cuda, 9
+        nxtw, rcap = w // 4, 3 * c["L"] + 16
+        names = tss.CHAIN_LANE_KEYS + tss.MEMO_KEYS + tss.POOL_KEYS + (
+            "fq", "fc", "cursor", "povf", "live")
+    else:
+        fm, c, st0, Uw = _walk_round1(bench, dev, "int32")
+        w = st0["k"].shape[0]
+        clone, mod, nodes_max = walk_cases.clone_state, walk_cuda, 10
+        nxtw, rcap = w // 4, c["L"] + 2
+        names = tss.WALK_LANE_KEYS + ("death", "fk", "fl", "fs", "calls",
+                                      "ngrp", "live")
+    # the plain loop
+    ps, rnd, hist = clone(st0), 0, torch.zeros(rcap, dtype=i32, device=dev)
+    while rnd < rcap and int(ps["live"]) > nxtw:
+        hist[rnd] = ps["live"]
+        ps = tss._chain_round_plain(fm, c, ps, w, Uw) if what == "chain" \
+            else tss._walk_round_plain(fm, c, ps, Uw)
+        rnd += 1
+    assert rnd >= 2                 # the tail let a round run, then stopped
+    ks = clone(st0)
+    kept = {n: ks[n] for n in names}             # the tensors the graph names
+    rnd_d = torch.zeros((), dtype=i32, device=dev)
+    hist_d = torch.zeros(rcap, dtype=i32, device=dev)
+    loop = dict(rnd=rnd_d, nxtw=nxtw, rcap=rcap)
+    rd = None
+    for launch in range(2):
+        for n, x in kept.items():
+            x.copy_(st0[n])
+        rnd_d.zero_()
+        hist_d.zero_()
+        st = dict(ks, live=kept["live"])
+        if what == "chain":
+            rd = tss._chain_segment(fm, c, st, w, Uw, dict(loop, hist=hist_d),
+                                    rd)
+        else:
+            rd = tss._walk_segment(fm, c, st, Uw, loop, rd)
+        torch.cuda.synchronize()
+        for n in names:
+            got = st["live"] if n == "live" else kept[n]
+            assert torch.equal(got.to(torch.int64), ps[n].to(torch.int64)), \
+                (launch, n)
+        assert int(rnd_d) == rnd, launch
+        if what == "chain":
+            assert torch.equal(hist_d, hist), launch
+        retire = rd.scratch["sc"][mod.SC_RETIRE:mod.SC_RETIRE + 2]
+        assert not retire.any(), launch
+    assert rd.graph.nodes()["kernels"] <= nodes_max
+    rd.close()
 
 
 # ---------------------------------------------------------------------------

@@ -10,13 +10,19 @@ their host loops.
   key needs its top bit); the host sort over those bits equals
   torch.sort(stable=True) on every round, and over one bit fewer it
   does not on some round.
-- The loop kernels' host twins (chain_loop_*_host, walk_loop_*_host)
-  against the Python loop's test, rnd < RCAP and live > nxtw with the
-  histogram word, at a running round, the RCAP cap, a segment exit and
-  zero live lanes.
+- The entry kernels' host twins (chain_loop_entry_host,
+  walk_loop_entry_host) and the apply kernels' folded tail (the apply's
+  host loop with the loop word set) against the Python loop's test,
+  rnd < RCAP and live > nxtw with the histogram word, and against
+  seedscan.loop_step_plain, at a running round, the RCAP cap, a segment
+  exit and zero live lanes; without the loop word the apply touches no
+  loop word.
 - A CPU chain_scan with report_rounds (round-2 tasks, segmented) against
   the JAX chain_scan: rnd and alive_hist too; the same through the host
-  loops stepped as the graph would step them.
+  loops stepped as the graph would step them; chain_scan and
+  walk_pool_chain through the host loops against the JAX package's while
+  loops in rounds, histogram and outputs, every apply a round's last
+  launch with the loop word set and its retire count left at 0.
 - chain_cases.CallCapture / call_vs_plain / sort_vs_torch (what
   chip_smoke.py and the card tests run on the card) on the host loops.
 - cuda_lib.NoTorchOps, the capture guard: it raises on a torch
@@ -175,57 +181,148 @@ def test_key_bits_bound_every_captured_key(hosts, idx, name, monkeypatch):
         assert short > 0, what
 
 
+def _tiny_round(what, td, n=8):
+    """A round of ``what``'s loop on the CPU over n dead lanes (Uw = n //
+    2), its scratch and walk zeroed: an apply on it changes no lane and
+    adds nothing to the live count."""
+    i32, dt = torch.int32, td.dtype
+    L = _case("lossy")[0].shape[1]
+    if what == "chain":
+        st = dict(tss.make_chain_memo(32, 16, W, dt, CPU),
+                  lane0=torch.zeros(n, dtype=i32),
+                  lane_rid=torch.zeros(n, dtype=i32),
+                  pivot=torch.zeros(n, dtype=i32),
+                  pos=torch.zeros(n, dtype=i32),
+                  alive=torch.zeros(n, dtype=torch.bool),
+                  k=torch.zeros(n, dtype=dt), l=torch.zeros(n, dtype=dt),
+                  s=torch.zeros(n, dtype=dt),
+                  pool=torch.zeros((6, 16), dtype=dt),
+                  ctr=torch.zeros(4, dtype=i32))
+        c = dict(lane_rid0=torch.zeros(n, dtype=i32),
+                 lane_rlen0=torch.zeros(n, dtype=i32),
+                 row_id0=torch.zeros(n, dtype=i32),
+                 mh0=torch.ones(n, dtype=dt),
+                 winflat=torch.zeros(4 * (L + 2), dtype=torch.int64),
+                 nxt=torch.zeros((4, L), dtype=i32),
+                 qflat=torch.zeros(4 * L, dtype=torch.uint8), W=W, L=L,
+                 GP=16, r3=False, advance=True, min_len=0, max_intv=0)
+        rd = chain_cuda.ChainRound(td, c, st, n, n // 2)
+    else:
+        st = dict(k=torch.zeros(n, dtype=dt), l=torch.zeros(n, dtype=dt),
+                  s=torch.zeros(n, dtype=dt), mh=torch.ones(n, dtype=dt),
+                  rid=torch.zeros(n, dtype=i32), i=torch.zeros(n, dtype=i32),
+                  slot=torch.zeros(n, dtype=i32),
+                  alive=torch.zeros(n, dtype=torch.bool),
+                  death=torch.full((16,), -2, dtype=i32),
+                  fk=torch.zeros(16, dtype=dt), fl=torch.zeros(16, dtype=dt),
+                  fs=torch.zeros(16, dtype=dt), ctr=torch.zeros(2, dtype=i32))
+        c = dict(rwflat=torch.zeros(4 * L, dtype=torch.int64), L=L, W=W,
+                 all4=tss._ALL4)
+        rd = walk_cuda.WalkRound(td, c, st, n // 2)
+    for name, x in rd.scratch.items():
+        if name != "iota":
+            x.zero_()
+    for x in rd.walk:
+        x.zero_()
+    return rd
+
+
+def _retire(rd, mod) -> int:
+    """The round's retire count (the 64-bit word at sc[SC_RETIRE])."""
+    sc = rd.scratch["sc"]
+    return int(sc[mod.SC_RETIRE]) | int(sc[mod.SC_RETIRE + 1]) << 32
+
+
+def _apply_host(hosts, what, rd) -> None:
+    assert getattr(hosts[what], f"{what}_apply_host")(
+        ct.addressof(rd.args)) == 0
+
+
 @pytest.mark.parametrize("what", ["chain", "walk"])
 @pytest.mark.parametrize("case", ["running", "cap", "exit", "zero"])
-def test_loop_host_twins_match_the_python_test(hosts, what, case):
-    """The entry and cond kernels' host twins against the Python loop's
-    test (rnd < RCAP and live > nxtw; when it holds, chain_scan's
-    histogram word hist[rnd] = live): the entry copies the live count
-    the segment starts with into the round's live word and tests it; the
-    cond counts the round and tests the apply kernel's count.  At a
-    running round, at the RCAP cap (the entry at rnd = RCAP, the cond
+def test_loop_host_twins_match_the_python_test(hosts, tiny_fm, what, case):
+    """The entry kernel's host twin and the apply kernel's folded tail
+    (its host loop with set_loop's loop word, on a round whose lanes are
+    dead so that it adds nothing to the live count) against the Python
+    loop's test (rnd < RCAP and live > nxtw; when it holds, chain_scan's
+    histogram word hist[rnd] = live) and against the plain version,
+    seedscan.loop_step_plain (after the apply with the loop word unset):
+    the entry copies the live count the segment starts with into the
+    round's live word and tests it; the tail counts the round and tests
+    the count the apply left, and leaves the retire count at 0.  At a
+    running round, at the RCAP cap (the entry at rnd = RCAP, the tail
     reaching it), at a segment exit (live == nxtw) and with no live
     lane."""
-    mod, lib = MODULES[what], hosts[what]
+    td = to_device(convert.fmindex_from_jax_package(tiny_fm), CPU)
+    mod = MODULES[what]
+    i32 = torch.int32
     rcap, nxtw = 12, 64
     rnd0, live = {"running": (3, 100), "cap": (12, 100),
                   "exit": (3, nxtw), "zero": (0, 0)}[case]
     if case == "zero":
         nxtw = 0
-    live_word = 2                       # sc[2] in both sources
     for entry in (True, False):
-        rnd = torch.tensor(rnd0 - (0 if entry or case != "cap" else 1),
-                           dtype=torch.int32)
-        live_in = torch.tensor(live, dtype=torch.int32)
-        sc = torch.zeros(8, dtype=torch.int32)
-        sc[live_word] = live if not entry else -1
-        hist = torch.full((rcap,), -1, dtype=torch.int32)
-        go = torch.tensor(-1, dtype=torch.int32)
-        at = {n: i for i, n in enumerate(mod.ARGS)}
-        args = (ct.c_longlong * len(mod.ARGS))()
-        for n, x in (("w", 8), ("Uw", 4), ("W", 5), ("n_rw", 1),
-                     ("rnd", rnd.data_ptr()), ("live_in", live_in.data_ptr()),
-                     ("sc", sc.data_ptr()), ("nxtw", nxtw), ("rcap", rcap),
-                     ("hist", hist.data_ptr() if what == "chain" else 0),
-                     ("go", go.data_ptr())):
-            if n in at:                 # n_rw is the walk's alone
-                args[at[n]] = x
-        r0 = int(rnd)
-        fn = f"{what}_loop_{'entry' if entry else 'cond'}_host"
-        assert getattr(lib, fn)(ct.addressof(args)) == 0
+        r0 = rnd0 - (0 if entry or case != "cap" else 1)
+        words = []
+        for run in ("twin", "plain"):
+            rd = _tiny_round(what, td)
+            rnd = torch.tensor(r0, dtype=i32)
+            hist = torch.full((rcap,), -1, dtype=i32) \
+                if what == "chain" else None
+            rd.set_loop(rnd, torch.tensor(live, dtype=i32), nxtw, rcap,
+                        hist)
+            rd.live.fill_(-1 if entry else live)
+            rd.go.fill_(-1)
+            if run == "twin" and entry:
+                assert getattr(hosts[what], f"{what}_loop_entry_host")(
+                    ct.addressof(rd.args)) == 0
+            elif run == "twin":
+                _apply_host(hosts, what, rd)
+            else:
+                if not entry:
+                    rd.args[rd.AT["loop"]] = 0
+                    _apply_host(hosts, what, rd)
+                tss.loop_step_plain(rd, entry)
+            words.append((int(rnd), int(rd.live), int(rd.go),
+                          _retire(rd, mod), hist))
         # the Python loop: ``while rnd < RCAP and live > nxtw``
         r = r0 if entry else r0 + 1
         want = r < rcap and live > nxtw
-        assert int(rnd) == r and int(sc[live_word]) == live
-        assert int(go) == int(want), (case, entry)
-        want_hist = torch.full((rcap,), -1, dtype=torch.int32)
-        if want and what == "chain":
+        want_hist = torch.full((rcap,), -1, dtype=i32)
+        if want:
             want_hist[r] = live
-        assert torch.equal(hist, want_hist), (case, entry)
-        if case in ("cap", "exit", "zero"):
-            assert not want
-        if case == "running":
-            assert want
+        for got in words:
+            assert got[:4] == (r, live, int(want), 0), (case, entry, words)
+            if what == "chain":
+                assert torch.equal(got[4], want_hist), (case, entry)
+        assert want == (case == "running")
+
+
+@pytest.mark.parametrize("what", ["chain", "walk"])
+def test_apply_without_loop_word_leaves_loop_words(hosts, tiny_fm, what):
+    """A round's apply launched on its own (the loop word 0: a round that
+    set_loop never named, or whose word is cleared, as phase 2's checks
+    and the captured rounds launch it) leaves the round counter, go, the
+    histogram and the retire count as they were; with the word set the
+    same apply counts the round."""
+    td = to_device(convert.fmindex_from_jax_package(tiny_fm), CPU)
+    i32 = torch.int32
+    rd = _tiny_round(what, td)
+    assert rd.args[rd.AT["loop"]] == 0
+    rnd = torch.tensor(5, dtype=i32)
+    hist = torch.full((12,), -3, dtype=i32)
+    rd.set_loop(rnd, torch.tensor(40, dtype=i32), 8, 12, hist)
+    assert rd.args[rd.AT["loop"]] == 1
+    rd.args[rd.AT["loop"]] = 0
+    rd.live.fill_(40)
+    rd.go.fill_(-7)
+    _apply_host(hosts, what, rd)
+    assert (int(rnd), int(rd.go), int(rd.live)) == (5, -7, 40)
+    assert bool((hist == -3).all())
+    assert _retire(rd, MODULES[what]) == 0
+    rd.args[rd.AT["loop"]] = 1
+    _apply_host(hosts, what, rd)
+    assert (int(rnd), int(rd.go), int(hist[6])) == (6, 1, 40)
 
 
 def test_cpu_chain_scan_report_rounds_equals_jax(hosts, idx, on_host,
@@ -234,7 +331,8 @@ def test_cpu_chain_scan_report_rounds_equals_jax(hosts, idx, on_host,
     lanes): the round count and the live lanes before each round equal
     the JAX chain_scan's, by the plain loop and by the host loops stepped
     as a segment's graph steps them (the entry kernel, then rounds while
-    the cond kernel's test holds), every output bit for bit."""
+    the test of the apply's folded tail holds), every output bit for
+    bit."""
     jd, td = idx
     qarr, rl, GP, (H, M), kw, _ = _case("r2")
     jkw = {k: (jnp.asarray(v) if isinstance(v, np.ndarray) else v)
@@ -256,7 +354,7 @@ def test_cpu_chain_scan_report_rounds_equals_jax(hosts, idx, on_host,
             assert np.array_equal(out[5][k].numpy().astype(np.int64),
                                   np.asarray(want[5][k]).astype(np.int64))
     rounds = int(got[6])
-    assert on_host["chain_loop_cond_kernel"] == rounds
+    assert on_host["chain_apply_kernel"] == rounds
     assert on_host["chain_probe_kernel"] == rounds
     assert on_host["chain_loop_entry_kernel"] == 2   # 512 lanes, then 256
 
@@ -316,44 +414,26 @@ def test_capture_guard_is_the_threads_own():
 def test_loop_words_live_on_the_device(hosts, idx):
     """set_loop points the round's Args at device words (the round
     counter, the live count it starts from, its own go word) and plain
-    sizes: nothing a round changes is an Args word, so one set of words
-    serves every replay of the segment's graph.  The loop kernels' plain
-    version (seedscan.loop_step_plain, what chip_smoke.py holds them to
-    on the card) leaves the same words as their host twins."""
+    sizes, and sets the loop word: nothing a round changes is an Args
+    word, so one set of words serves every replay of the segment's graph.
+    The loop's plain version (seedscan.loop_step_plain, what chip_smoke.py
+    holds the entry kernel and the apply's folded tail to on the card)
+    leaves the same words as the entry's host twin and the apply's host
+    loop."""
     _, td = idx
-    case = _case("lossy")
-    memo = tss.make_chain_memo(32, 16, W, td.dtype, CPU)
-    st = dict(memo, lane0=torch.zeros(8, dtype=torch.int32),
-              lane_rid=torch.zeros(8, dtype=torch.int32),
-              pivot=torch.zeros(8, dtype=torch.int32),
-              pos=torch.zeros(8, dtype=torch.int32),
-              alive=torch.zeros(8, dtype=torch.bool),
-              k=torch.zeros(8, dtype=td.dtype),
-              l=torch.zeros(8, dtype=td.dtype),
-              s=torch.zeros(8, dtype=td.dtype),
-              pool=torch.zeros((6, 16), dtype=td.dtype),
-              ctr=torch.zeros(4, dtype=torch.int32))
-    L = case[0].shape[1]
-    c = dict(lane_rid0=torch.zeros(8, dtype=torch.int32),
-             lane_rlen0=torch.zeros(8, dtype=torch.int32),
-             row_id0=torch.zeros(8, dtype=torch.int32),
-             mh0=torch.ones(8, dtype=td.dtype),
-             winflat=torch.zeros(4 * (L + 2), dtype=torch.int64),
-             nxt=torch.zeros((4, L), dtype=torch.int32),
-             qflat=torch.zeros(4 * L, dtype=torch.uint8), W=W, L=L, GP=16,
-             r3=False, advance=True, min_len=0, max_intv=0)
-    rd = chain_cuda.ChainRound(td, c, st, 8, 4)
+    rd = _tiny_round("chain", td)
     rnd = torch.zeros((), dtype=torch.int32)
     live = torch.tensor(5, dtype=torch.int32)
     hist = torch.zeros(20, dtype=torch.int32)
-    rd.set_loop(rnd, live, 4, 20, hist)
     at = {n: i for i, n in enumerate(chain_cuda.ARGS)}
+    assert rd.args[at["loop"]] == 0
+    rd.set_loop(rnd, live, 4, 20, hist)
     assert rd.args[at["rnd"]] == rnd.data_ptr()
     assert rd.args[at["live_in"]] == live.data_ptr()
     assert rd.args[at["hist"]] == hist.data_ptr()
     assert rd.args[at["go"]] == rd.go.data_ptr()
     assert (rd.args[at["nxtw"]], rd.args[at["rcap"]],
-            rd.args[at["cond"]]) == (4, 20, 0)
+            rd.args[at["cond"]], rd.args[at["loop"]]) == (4, 20, 0, 1)
     for entry, r0, live0 in ((True, 3, 5), (False, 3, 5), (False, 19, 9),
                              (True, 2, 4), (False, 7, 3)):
         words = []
@@ -362,17 +442,113 @@ def test_loop_words_live_on_the_device(hosts, idx):
             live.fill_(live0)
             rd.live.fill_(-1 if entry else live0)
             hist.zero_()
-            if run == "twin":
-                name = f"chain_loop_{'entry' if entry else 'cond'}_host"
-                assert getattr(hosts["chain"], name)(
+            if run == "twin" and entry:
+                assert hosts["chain"].chain_loop_entry_host(
                     ct.addressof(rd.args)) == 0
+            elif run == "twin":
+                _apply_host(hosts, "chain", rd)
             else:
+                if not entry:
+                    rd.args[at["loop"]] = 0
+                    _apply_host(hosts, "chain", rd)
+                    rd.args[at["loop"]] = 1
                 tss.loop_step_plain(rd, entry)
             words.append([int(rnd), int(rd.live), int(rd.go), hist.clone()])
         assert words[0][:3] == words[1][:3], (entry, r0, live0)
         assert torch.equal(words[0][3], words[1][3])
     rd.set_loop(rnd, live, 0, 20)
     assert rd.args[at["hist"]] == 0
+
+
+def test_retire_count_is_zero_after_every_round(idx, on_host, monkeypatch):
+    """Every apply that chain_scan and walk_pool_chain launch through the
+    host loops ends a loop's body (its loop word set) and leaves the
+    retire count (the 64-bit word at sc[SC_RETIRE], what the kernel's
+    last block resets) at 0, after every round, every segment and a second call of the same
+    shape on the kept tensors; the applies are one a round."""
+    _, td = idx
+    launch = {m: m._launch for m in MODULES.values()}
+    seen = {"chain": [], "walk": []}
+
+    def watch(mod, what):
+        at = {n: i for i, n in enumerate(mod.ARGS)}
+
+        def run(kernel, dev, args):
+            launch[mod](kernel, dev, args)
+            if kernel == f"{what}_apply_kernel":
+                sc = ct.cast(args[at["sc"]], ct.POINTER(ct.c_int32))
+                seen[what].append((args[at["loop"]], sc[mod.SC_RETIRE],
+                                   sc[mod.SC_RETIRE + 1]))
+        return run
+
+    for what, mod in MODULES.items():
+        monkeypatch.setattr(mod, "_launch", watch(mod, what))
+    tss.drop_held()
+    for call in range(2):
+        n0 = {w: len(v) for w, v in seen.items()}
+        out, _ = _run(td, "lep", monkeypatch)
+        assert len(seen["chain"]) - n0["chain"] == int(out[6]) > 3
+        assert len(seen["walk"]) - n0["walk"] > 2
+        for held in tss._HELD[threading.get_ident()].values():
+            for rd in filter(None, held.rounds):
+                mod = walk_cuda if isinstance(rd, walk_cuda.WalkRound) \
+                    else chain_cuda
+                assert _retire(rd, mod) == 0
+    for what, runs in seen.items():
+        assert runs and all(r == (1, 0, 0) for r in runs), (what, runs)
+
+
+@pytest.mark.parametrize("what", ["chain", "walk"])
+def test_host_loops_rounds_equal_jax(idx, on_host, what, monkeypatch):
+    """chain_scan (report_rounds, segmented) and walk_pool_chain through
+    the host loops, the apply's folded tail deciding every round after a
+    segment's first: rounds, the histogram and every output equal the JAX
+    package's while loops (the walk's rounds, which the JAX function does
+    not report, equal the plain loop's, whose outputs equal JAX's), one
+    apply a round."""
+    jd, td = idx
+    case = _case("lep")
+    for k, v in case[5].items():
+        monkeypatch.setenv(k, v)
+    qarr, rl, GP, (H, M), kw, _ = case
+    if what == "chain":
+        want = jss.chain_scan(jd, jnp.asarray(qarr), jnp.asarray(rl), GP,
+                              jss.make_chain_memo(H, M, W, jd.dtype), W=W,
+                              **kw)
+        got = _port(td, case)
+        assert len(got) == len(want) == 8 and int(want[6]) > 3
+        for g, w in zip(got[:5] + got[6:], want[:5] + want[6:]):
+            assert np.array_equal(np.asarray(g).astype(np.int64),
+                                  np.asarray(w).astype(np.int64))
+        for k in tss.MEMO_KEYS:
+            assert np.array_equal(got[5][k].numpy().astype(np.int64),
+                                  np.asarray(want[5][k]).astype(np.int64))
+        assert on_host["chain_apply_kernel"] == int(got[6])
+        return
+    pool = _port(td, case)[0]
+    n_valid = int((pool[:, 6] != 0).sum())
+    CAPW = 1 << (n_valid - 1).bit_length()
+    applies = on_host.get("walk_apply_kernel", 0)
+    got = tss.walk_pool_chain(td, tss.packed_rev_windows(
+        torch.from_numpy(qarr)), qarr.shape[1], pool, CAPW, segs=(1, 2, 4))
+    applies = on_host["walk_apply_kernel"] - applies
+    rounds = []
+    plain_round = tss._walk_round_plain
+    with monkeypatch.context() as m:
+        m.setattr(tss, "_walk_round", lambda dev: lambda *a: (
+            rounds.append(1), plain_round(*a))[1])
+        plain = tss.walk_pool_chain(td, tss.packed_rev_windows(
+            torch.from_numpy(qarr)), qarr.shape[1], pool, CAPW,
+            segs=(1, 2, 4))
+    want = jss.walk_pool_chain(jd, jss.packed_rev_windows(
+        jnp.asarray(qarr)), qarr.shape[1], jnp.asarray(pool.numpy()), CAPW,
+        segs=(1, 2, 4))
+    assert len(got) == len(plain) == len(want) == 7
+    for g, p, w in zip(got, plain, want):
+        assert np.array_equal(np.asarray(g).astype(np.int64),
+                              np.asarray(w).astype(np.int64))
+        assert torch.equal(g, p)
+    assert applies == len(rounds) > 2
 
 
 @pytest.mark.parametrize("name", ["lep", "r2"])
