@@ -64,13 +64,27 @@ Phases, in order; any failure exits non-zero:
                 output equal (chain_cases.CallCapture, call_vs_plain); on
                 every round of those runs the round's sort (CUB's, over
                 the key's bits) equal to torch.sort(stable=True); the
-                two loop entry kernels (chain and walk) and the two apply
-                kernels' folded loop tests (the apply with its loop word
-                set, whose last block counts the round and tests the
-                next) against their plain version (seedscan.
+                two segment entry kernels (chain and walk) with no source
+                (a call's first segment: the live lanes counted) and the
+                two apply kernels' folded loop tests (the apply with its
+                loop word set, whose last block counts the round and
+                tests the next) against their plain version (seedscan.
                 loop_step_plain; the tail after the apply without the
                 word, every other output held equal too) at a running
                 round, the RCAP cap, a segment exit and no live lane.
+                The segment entry kernels (the lanes compacted into the
+                next segment's, the live count, the loop test) on every
+                boundary between two segments of the first chunk's
+                seeding (entry_cases.BoundaryCapture), int32 and int64,
+                as captured, with no live lane, exactly w live and w + 37
+                live at the RCAP cap (the lanes past w dropped), by the
+                port's build and any other build with a segment entry (a
+                variant passed as --chain-old-source / --walk-old-source):
+                exact against seedscan.segment_entry_plain; then each
+                boundary timed on the card alone (a CUDA graph of 20
+                launches, replayed) in turns with the PyTorch compaction
+                it replaced and, with the parent's sources, its
+                one-thread loop entry kernel.
                 The suffix-array loop's kernels (sa_batch_compact's
                 last stage, one loop of the call's graph: entry and cond)
                 against alive.any() on the first chunk's last-stage lanes
@@ -194,7 +208,12 @@ Phases, in order; any failure exits non-zero:
                 kernels the card runs a chain_scan round and 11 a
                 walk_pool_chain round; at most 4 host launches (kernels
                 and graphs), 2 stream syncs (the two fetches) and 8 async
-                copies a chunk.
+                copies a chunk; on the profiled chunk at most 5
+                one-thread loop entry kernels, a segment entry kernel,
+                and the PyTorch compaction between segments not run on
+                the main path (counted over the int32 window, whose first
+                chunk captures the call graphs the profiled chunk
+                replays).
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
                 tests/fixtures/tiny.fa must write the committed index
@@ -382,20 +401,27 @@ WALK_REPLACES = {
                          "(deaths, advance; XLA fusion, no Pallas) and, in "
                          "a loop, :734-738 (the while_loop cond after each "
                          "round)"}
-# the round loops' entry kernels (each segment one CUDA graph: csrc/
-# loop_graph.cuh) and the JAX package's lax.while_loop cond each replaces;
-# the same cond after each round is the apply kernel's folded tail (its
-# last block to retire, when the loop word is set)
-LOOP_KERNELS = ("chain_loop_entry_kernel", "walk_loop_entry_kernel")
+# the round loops' segment entry kernels (each segment one CUDA graph:
+# csrc/loop_graph.cuh; the entry csrc/compact.cuh) and what of the JAX
+# package each replaces: the rank-scatter compaction between segments and
+# the lax.while_loop cond before a segment's first round; the same cond
+# after each round is the apply kernel's folded tail (its last block to
+# retire, when the loop word is set)
+LOOP_KERNELS = ("chain_segment_entry_kernel", "walk_segment_entry_kernel")
 LOOP_REPLACES = {
-    "chain_loop_entry_kernel": "compseed_tpu/ops/seedscan.py:1720-1726 "
-                               "(chain_scan's while_loop cond before a "
-                               "segment's first round, with instrument's "
-                               "alive_hist at :1695-1704; XLA, no Pallas)",
-    "walk_loop_entry_kernel": "compseed_tpu/ops/seedscan.py:734-738 "
-                              "(walk_pool_chain's while_loop cond before a "
-                              "width's first round; XLA, no Pallas)"}
+    "chain_segment_entry_kernel": "compseed_tpu/ops/seedscan.py:1727-1737 "
+                                  "(chain_scan's rank-scatter compaction "
+                                  "between segments) and :1720-1726 (the "
+                                  "while_loop cond before a segment's first "
+                                  "round, with instrument's alive_hist at "
+                                  ":1695-1704); XLA, no Pallas",
+    "walk_segment_entry_kernel": "compseed_tpu/ops/seedscan.py:739-748 "
+                                 "(walk_pool_chain's rank-scatter "
+                                 "compaction between widths) and :734-738 "
+                                 "(the while_loop cond before a width's "
+                                 "first round); XLA, no Pallas"}
 LOOP_SOURCES = {"chain": CHAIN_SOURCE, "walk": WALK_SOURCE}
+ENTRY_TURNS = 3             # entry_time's turns (each both orders)
 TAIL_TURNS = 3              # loop_tail_turns' turns (each both orders)
 # the suffix-array loop's kernels (sa_batch_compact's last stage, one
 # loop of the call's graph) and the while_loop cond each replaces
@@ -423,6 +449,9 @@ MAX_CHAIN_ROUND_KERNELS = 10
 # what one block pays, a launch and a lane's path
 FLOOR_LANES = 256
 MAX_WALK_ROUND_KERNELS = 11
+# the one-thread loop entry kernels a chunk (15 before the segment entry
+# kernels compacted the lanes and folded them in, 0 since: a bound of 5)
+MAX_LOOP_ENTRY_KERNELS = 5
 MAX_CHUNK_LAUNCHES = 4
 MAX_CHUNK_SYNCS = 2
 MAX_CHUNK_COPIES = 8
@@ -550,13 +579,24 @@ def device_kind(name: str) -> str:
         "copies" if name.startswith("Memcpy") else "kernels"
 
 
+# kernels the card runs counted by family in a profiled chunk: the
+# one-thread loop entry kernels (chain_scan's and walk_pool_chain's, the
+# port's before the segment entry kernels), the segment entry kernels, and
+# PyTorch's index_put_ and scan (cumsum) kernels
+KERNEL_FAMILIES = dict(loop_entry=r"\b(?:chain|walk)_loop_entry_kernel",
+                       segment_entry=r"_segment_entry_kernel",
+                       index_put=r"index_elementwise_kernel|index_put",
+                       scan=r"(?i)scan")
+
+
 def profile_chunk(run, sync, records=()) -> dict:
     """torch.profiler over one call of ``run`` (one chunk of seeding):
     the CUDA runtime calls that cost host time (kernel and graph
     launches, stream syncs, async copies; ``launches`` the host's
     cudaLaunchKernel and cudaGraphLaunch calls), what the card ran
     (``ran_kernels``, ``ran_memsets``, ``ran_copies``: a graph's kernels
-    are launched by one host call) and the card's busy time, the union of
+    are launched by one host call; ``ran_by_family``: KERNEL_FAMILIES'
+    counts) and the card's busy time, the union of
     the kernels' and copies' intervals on the device.  Also the wall time of the same call
     without the profiler, right after, and the mean device time per
     launch of each FM, chain and walk kernel; for each kernel of
@@ -599,10 +639,13 @@ def profile_chunk(run, sync, records=()) -> dict:
     spans = []
     recs = {k: [] for k in records}
     ran = dict(kernels=0, memsets=0, copies=0)
+    families = dict.fromkeys(KERNEL_FAMILIES, 0)
     for e in prof.events():
         dt = str(getattr(e, "device_type", ""))
         if dt.endswith("CUDA"):
             ran[device_kind(e.name)] += 1
+            for fam, pat in KERNEL_FAMILIES.items():
+                families[fam] += bool(re.search(pat, e.name))
         if dt.endswith("CUDA") and e.time_range.end > e.time_range.start:
             spans.append((e.time_range.start, e.time_range.end))
             for k in records:
@@ -621,7 +664,7 @@ def profile_chunk(run, sync, records=()) -> dict:
     out.update(launches=out["cudaLaunchKernel"] + out["cudaLaunchKernelExC"]
                + out["cudaGraphLaunch"],
                ran_kernels=ran["kernels"], ran_memsets=ran["memsets"],
-               ran_copies=ran["copies"],
+               ran_copies=ran["copies"], ran_by_family=families,
                wall_s_profiled=wall_prof, wall_s=wall,
                device_busy_s=busy_us / 1e6,
                busy_pct_of_wall=100.0 * busy_us / 1e6 / wall,
@@ -1446,21 +1489,23 @@ def fm_redesign(dev, builds: dict, calls: dict, dfi, fm_host) -> dict:
 
 def chain_capture(dev, opt, fm, queries, force=None) -> tuple:
     """The first bench chunk's seeding on the default engine with every
-    chain_scan and walk_pool_chain round through the kernels; the state
-    before the first round of each width of each call
+    chain_scan and walk_pool_chain round through the plain round; the
+    state before the first round of each width of each call
     (chain_cases.RoundCapture: (call, w) -> case; walk_cases.RoundCapture:
-    (call, lanes) -> case)."""
+    (call, lanes) -> case) and every boundary between two segments
+    (entry_cases.BoundaryCapture's cases)."""
     import torch
-    from compseed_tpu_torch.ops import chain_cases, walk_cases
+    from compseed_tpu_torch.ops import chain_cases, entry_cases, walk_cases
     from compseed_tpu_torch.ops.device_index import to_device
     from compseed_tpu_torch.ops.engine import device_seeder
     sd = device_seeder(opt, fm, dedup=True, device=dev,
                        dfi=to_device(fm, dev, force_dtype=force))
-    with chain_cases.RoundCapture(limit=16) as cap, \
+    with entry_cases.BoundaryCapture() as bounds, \
+            chain_cases.RoundCapture(limit=16) as cap, \
             walk_cases.RoundCapture(limit=16) as walk_cap:
         sd.run_flat(queries)
     torch.cuda.synchronize()
-    return cap.states, walk_cap.states
+    return cap.states, walk_cap.states, bounds.cases
 
 
 def chain_phase2(dev, opt, fm, queries) -> tuple:
@@ -1470,13 +1515,15 @@ def chain_phase2(dev, opt, fm, queries) -> tuple:
     slots: collisions; 200 free store rows: a full store), through each
     kernel and its plain step; then the walk_pool_chain rounds
     (walk_check).  Returns ({dtype: {case: {kernel: max_abs_err}}}, the
-    int32 cases, kept for phase 4) for the chain and then for the walk."""
+    int32 cases, kept for phase 4) for the chain and then for the walk,
+    and {dtype: the boundaries between segments} (entry_check)."""
     import numpy as np
     from compseed_tpu_torch.ops import chain_cases
-    out, keep, walk_out, walk_keep = {}, None, {}, None
+    out, keep, walk_out, walk_keep, bounds = {}, None, {}, None, {}
     for tag, force in (("int32", None), ("int64", np.int64)):
         t0 = time.time()
-        states, walk_states = chain_capture(dev, opt, fm, queries, force)
+        states, walk_states, bounds[tag] = chain_capture(dev, opt, fm,
+                                                         queries, force)
         widths = sorted({w for _, w in states})
         if not {CHUNK, 4 * CHUNK} <= set(widths):
             raise SystemExit(f"chain_scan rounds captured at widths {widths}: "
@@ -1503,7 +1550,7 @@ def chain_phase2(dev, opt, fm, queries) -> tuple:
         walk_out[tag] = walk_check(tag, walk_states)
         if tag == "int32":
             keep, walk_keep = states, walk_states
-    return out, keep, walk_out, walk_keep
+    return out, keep, walk_out, walk_keep, bounds
 
 
 def loop_check(dev, opt, fm, queries, force=None) -> dict:
@@ -1550,16 +1597,14 @@ def loop_check(dev, opt, fm, queries, force=None) -> dict:
 def loop_kernels(module, case) -> dict:
     """A round source's loop (``module``: chain_cuda or walk_cuda) on a
     round of the main path (``case``: a captured chain or walk round,
-    whose Args it takes).  Its entry kernel, launched alone outside a
-    graph (the condition handle 0), against its plain version,
+    whose Args it takes).  Its segment entry kernel with no source (a
+    call's first segment: the round's live lanes counted), launched alone
+    outside a graph (the condition handle 0), against its plain version,
     seedscan.loop_step_plain, on the same words: a running round, the
     RCAP cap, a segment exit and no live lane, with the histogram (the
     chain's) and without; go, rnd, the live count and the histogram held
-    equal.  Then the apply kernel's folded tail (loop_tail_check).  Then
-    the entry kernel timed on the card alone (launch_ms) and in a loop,
-    beside the plain version's ms and its bound: the words it reads and
-    writes (the round counter, the live count, go, a histogram word: 20
-    B) against its four integer operations."""
+    equal.  Then the apply kernel's folded tail (loop_tail_check).  The
+    entry's compaction between segments: entry_check, entry_time."""
     import torch
     from compseed_tpu_torch.ops import chain_cases, walk_cases
     from compseed_tpu_torch.ops import seedscan as ss
@@ -1578,38 +1623,135 @@ def loop_kernels(module, case) -> dict:
                                 (39, 500, True), (3, nxtw, True),
                                 (0, 0, True), (3, 500, False)):
         got = []
-        for run in (lambda: module.entry(rd),
-                    lambda: ss.loop_step_plain(rd, True)):
+        for run in (rd.entry, lambda: ss.loop_step_plain(rd, True)):
             rnd = torch.tensor(rnd0, dtype=i32, device=dev)
-            live_in = torch.tensor(live, dtype=i32, device=dev)
             hist = torch.full((rcap,), -1, dtype=i32, device=dev) \
                 if hist_on else None
-            rd.set_loop(rnd, live_in, nxtw, rcap, hist)
+            rd.set_loop(rnd, None, nxtw, rcap, hist)
+            rd._held["alive"].zero_()[:live] = True
             rd.live.fill_(-5)
             run()
             got.append([rnd.clone(), rd.live.clone(), rd.go.clone()] +
                        ([hist] if hist_on else []))
         e = max([e] + [err(a, b) for a, b in zip(*got)])
     if e:
-        raise SystemExit(f"{kernel} disagrees with its plain version: {e}")
+        raise SystemExit(f"{kernel} (no source) disagrees with its plain "
+                         f"version: {e}")
     tail = loop_tail_check(module, case)
-    rd.set_loop(torch.zeros((), dtype=i32, device=dev),
-                torch.tensor(500, dtype=i32, device=dev), nxtw, rcap,
-                torch.zeros(rcap, dtype=i32, device=dev))
-
-    def run():
-        module.entry(rd)
-
-    def plain():
-        ss.loop_step_plain(rd, True)
-    nbytes, ops = 20, 4
-    bound_ms, bound_by = bound_of(nbytes, ops)
-    out = {kernel: dict(max_abs_err=e, ms=launch_ms(run, 20),
-                        loop_ms=cuda_time_ms(run, 20),
-                        plain_ms=cuda_time_ms(plain, 20), bytes=nbytes,
-                        ops=ops, bound_ms=bound_ms, bound_by=bound_by),
-           f"{what}_apply_kernel tail": tail}
     torch.cuda.synchronize()
+    return {f"{kernel} no source": dict(max_abs_err=e),
+            f"{what}_apply_kernel tail": tail}
+
+
+def entry_check(boundaries: dict, builds: dict) -> dict:
+    """The segment entry kernels on every boundary of the first chunk's
+    seeding (``boundaries``: dtype tag -> entry_cases.BoundaryCapture's
+    cases, chain and walk), in every form (as captured; no live lane;
+    exactly w live; w + 37 live at the RCAP cap, the lanes past w
+    dropped), by the port's build and every other build of the source
+    with a segment entry (``builds``: loop -> round_builds' builds, a
+    variant's segment_entry): against the plain version (seedscan.
+    segment_entry_plain), every lane of the new width and the loop words
+    (live count, go, round counter, histogram), max_abs_err 0.
+    {kernel: {max_abs_err, boundaries, by case}}."""
+    from compseed_tpu_torch.ops import entry_cases
+    out = {}
+    for tag, cases in boundaries.items():
+        for i, case in enumerate(cases):
+            kernel = f"{case[0]}_segment_entry_kernel"
+            rec = out.setdefault(kernel, dict(max_abs_err=0, boundaries=0,
+                                              cases={}))
+            rec["boundaries"] += 1
+            paths = {"port": None} | {
+                n: b.segment_entry for n, b in builds[case[0]].items()
+                if getattr(b, "segment_entry", None)}
+            for form in entry_cases.FORMS:
+                for path, launch in paths.items():
+                    r = entry_cases.entry_vs_plain(case, form, launch)
+                    rec["max_abs_err"] = max(rec["max_abs_err"],
+                                             r["max_abs_err"])
+                    rec["cases"][f"{tag} {i} {case[3]['alive'].shape[0]}->"
+                                 f"{case[4]} {form} {path}"] = r
+    if set(out) != set(LOOP_KERNELS) or any(r["max_abs_err"]
+                                            for r in out.values()):
+        raise SystemExit(f"a segment entry kernel disagrees with its plain "
+                         f"version, or a loop had no boundary: "
+                         f"{ {k: r['max_abs_err'] for k, r in out.items()} }")
+    return out
+
+
+def torch_compaction(src: dict, out: dict, keys, w: int, pads: dict):
+    """The compaction between segments as the port ran it before the
+    segment entry kernels (PyTorch operations on the card, kept lanes of
+    w + 1 elements, the last the dump row): the targets once (cumsum,
+    where, clamp), then each lane array zeroed (a pad's copied in) and
+    written by index_put_."""
+    import torch
+    lalive = src["alive"]
+    tgt = torch.where(lalive, torch.cumsum(lalive, 0) - 1, w).clamp(max=w)
+    for kk in keys:
+        buf = out[kk].copy_(pads[kk].expand(w + 1)) if kk in pads else \
+            out[kk].zero_()
+        buf[tgt] = src[kk]
+
+
+def entry_time(boundaries: list, builds: dict) -> dict:
+    """Each boundary of the first chunk (int32; entry_cases.BoundaryCapture's
+    cases) on the card alone (launch_ms: 20 launches in a CUDA graph,
+    replayed): the segment entry kernel of the port's build and of every
+    other build of the source that has one (a variant's); the PyTorch
+    compaction it replaced
+    (torch_compaction) and, with an earlier build of the round source
+    that has the one-thread loop entry kernel (--chain-old-source,
+    --walk-old-source: the parent's), that kernel alone and both in one
+    graph, the sequence the port ran; ENTRY_TURNS turns each order.  The
+    plain version in a loop (events), and the bound: entry_work's bytes
+    over the HBM rate against its operations.
+    ``builds``: loop -> round_builds' builds.  Per boundary: medians."""
+    import torch
+    from compseed_tpu_torch.ops import entry_cases
+    from compseed_tpu_torch.ops import seedscan as ss
+    out = {}
+    for i, case in enumerate(boundaries):
+        what, w = case[0], case[4]
+        src, rnd0 = entry_cases.source(case, "captured")
+        rd = entry_cases.entry_round(case)
+        entry_cases.set_entry(rd, case, src, rnd0)
+        runs = {"kernel": rd.entry}
+        for name, b in builds[what].items():
+            if getattr(b, "segment_entry", None):
+                r = entry_cases.entry_round(case)
+                entry_cases.set_entry(r, case, src, rnd0)
+                runs[name] = lambda r=r, b=b: b.segment_entry(r)
+        keys = rd.LANE_KEYS
+        kept = {n: torch.empty(w + 1, dtype=src[n].dtype,
+                               device=src[n].device) for n in keys}
+        runs["torch compaction"] = lambda: torch_compaction(
+            src, kept, keys, w, rd.pads)
+        old = next((b for b in builds[what].values()
+                    if getattr(b, "loop_entry", None)), None)
+        if old is not None:
+            runs["old entry"] = lambda: old.loop_entry(rd)
+            runs["torch compaction + old entry"] = lambda: (
+                runs["torch compaction"](), old.loop_entry(rd))
+        ms = {n: [] for n in runs}
+        for turn in range(2 * ENTRY_TURNS):
+            for n in (list(runs) if turn % 2 == 0 else list(runs)[::-1]):
+                ms[n].append(launch_ms(runs[n], 20))
+        nbytes, ops = entry_cases.entry_work(case, src)
+        bound_ms, bound_by = bound_of(nbytes, ops)
+        plain = entry_cases.entry_round(case)
+        entry_cases.set_entry(plain, case, src, rnd0)
+        out[f"{what} {i} {src['alive'].shape[0]}->{w}"] = dict(
+            kernel=f"{what}_segment_entry_kernel", src_w=int(
+                src["alive"].shape[0]), w=w, live=int(src["live"]),
+            median_ms={n: statistics.median(v) for n, v in ms.items()},
+            ms=ms, plain_ms=cuda_time_ms(
+                lambda: ss.segment_entry_plain(plain), 20),
+            bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by)
+    torch.cuda.synchronize()
+    log(f"[2] the segment entry kernels on the card alone, in turns: "
+        f"{json.dumps({k: r['median_ms'] for k, r in out.items()})}")
     return out
 
 
@@ -1727,7 +1869,7 @@ class LoopTail:
         import torch
         if not rd.args[rd.AT["loop"]]:
             z = torch.zeros((), dtype=torch.int32, device=rd.dev)
-            rd.set_loop(z, z.clone(), 0, 1 << 30)
+            rd.set_loop(z, None, 0, 1 << 30)
         self.module.apply(rd)
 
 
@@ -2032,12 +2174,14 @@ def segment_rounds(seeder, queries, runs: int = 3) -> dict:
     seen = {"chain": [], "walk": []}
 
     def timed(what, fn):
-        def run(*a):
-            rnd = a[-2]["rnd"]          # the loop's words, then the round
+        def run(*a, **kw):
+            # the loop's words: the one dict of the arguments with "rnd"
+            rnd = next(x for x in a if isinstance(x, dict) and "rnd" in x)[
+                "rnd"]
             r0 = rnd.clone()
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
-            rd = fn(*a)
+            rd = fn(*a, **kw)
             ev[1].record()
             seen[what].append((ev, r0, rnd.clone(), rd))
             return rd
@@ -2191,7 +2335,25 @@ class OldChainBuild:
         self.lib = lib
         # whether its apply runs the loop's test (its Args has the loop
         # word): a build without it cannot end a loop's body
-        self.folds = lib.chain_args_words() == len(chain_cuda.ARGS)
+        self.folds = lib.chain_args_words() > chain_cuda.ARGS.index("loop")
+        # the one-thread loop entry kernel of a build from before the
+        # segment entry kernels (the parent's), for entry_time
+        self.loop_entry = None
+        if hasattr(lib, "chain_loop_entry_launch"):
+            import ctypes as ct
+            fn = lib.chain_loop_entry_launch
+            fn.argtypes, fn.restype = [ct.c_void_p, ct.c_void_p], ct.c_int
+            self.loop_entry = lambda rd: self._run("chain_loop_entry_launch",
+                                                   rd)
+        # a variant's segment entry kernel (its Args the port's), for
+        # entry_check and entry_time
+        self.segment_entry = None
+        if hasattr(lib, "chain_segment_entry_launch"):
+            import ctypes as ct
+            fn = lib.chain_segment_entry_launch
+            fn.argtypes, fn.restype = [ct.c_void_p, ct.c_void_p], ct.c_int
+            self.segment_entry = lambda rd: self._run(
+                "chain_segment_entry_launch", rd)
 
     def _run(self, launcher, rd):
         import ctypes as ct
@@ -2894,7 +3056,25 @@ class OldWalkBuild:
         self.lib = lib
         # whether its apply runs the loop's test (its Args has the loop
         # word): a build without it cannot end a loop's body
-        self.folds = lib.walk_args_words() == len(walk_cuda.ARGS)
+        self.folds = lib.walk_args_words() > walk_cuda.ARGS.index("loop")
+        # the one-thread loop entry kernel of a build from before the
+        # segment entry kernels (the parent's), for entry_time
+        self.loop_entry = None
+        if hasattr(lib, "walk_loop_entry_launch"):
+            import ctypes as ct
+            fn = lib.walk_loop_entry_launch
+            fn.argtypes, fn.restype = [ct.c_void_p, ct.c_void_p], ct.c_int
+            self.loop_entry = lambda rd: self._run("walk_loop_entry_launch",
+                                                   rd)
+        # a variant's segment entry kernel (its Args the port's), for
+        # entry_check and entry_time
+        self.segment_entry = None
+        if hasattr(lib, "walk_segment_entry_launch"):
+            import ctypes as ct
+            fn = lib.walk_segment_entry_launch
+            fn.argtypes, fn.restype = [ct.c_void_p, ct.c_void_p], ct.c_int
+            self.segment_entry = lambda rd: self._run(
+                "walk_segment_entry_launch", rd)
 
     def _run(self, launcher, rd):
         import ctypes as ct
@@ -3034,22 +3214,33 @@ def chain_chunk_means(builds: dict, seeder, queries,
 
 
 def loop_rows(loop_rec, l32, row, prof) -> list:
-    """The loop kernels' rows of the kernel table: launches (captured, a
-    segment's once) in the main path's int32 window; ms, plain_ms and the
-    bound from loop_kernels; max_abs_err also over loop_check's calls
-    (the graph loop against the plain loop); device_ms_profiled: the
-    profiler's mean over one chunk's runs of the kernel."""
+    """The segment entry kernels' rows of the kernel table: launches
+    (captured, a segment's once) in the main path's int32 window; ms,
+    plain_ms and the bound at the loop's widest boundary of the first
+    chunk (entry_time), every boundary's medians beside them
+    (``boundaries``: the kernel, any variant build's, the PyTorch
+    compaction it replaced and, with the parent's build, that and the
+    one-thread loop entry kernel); max_abs_err over entry_check's
+    boundaries and forms, the no-source check (loop_kernels) and
+    loop_check's calls (the graph loop against the plain loop);
+    device_ms_profiled: the profiler's mean over one chunk's runs of the
+    kernel."""
     rows = []
     for k in LOOP_KERNELS:
-        r = loop_rec["kernels"][k]
-        e = max([r["max_abs_err"]] + [
+        times = {t: r for t, r in loop_rec["entry_time"].items()
+                 if r["kernel"] == k}
+        r = max(times.values(), key=lambda x: x["src_w"])
+        e = max([loop_rec["entry"][k]["max_abs_err"],
+                 loop_rec["kernels"][f"{k} no source"]["max_abs_err"]] + [
             max(c["max_abs_err"].values()) for tag in ("int32", "int64")
             for c in (loop_rec[tag]["chain_scan"],
                       loop_rec[tag]["walk_pool_chain"])])
-        rows.append(row(k, LOOP_REPLACES[k], l32[k], e, r["ms"],
-                        r["plain_ms"], r,
+        rows.append(row(k, LOOP_REPLACES[k], l32[k], e,
+                        r["median_ms"]["kernel"], r["plain_ms"], r,
                         source=LOOP_SOURCES[k.split("_")[0]],
-                        loop_ms=r["loop_ms"],
+                        at=f"{r['src_w']} -> {r['w']} lanes",
+                        boundaries={t: x["median_ms"]
+                                    for t, x in times.items()},
                         device_ms_profiled=prof.get(k, {}).get(
                             "device_ms_per_launch")))
     return rows
@@ -4348,8 +4539,8 @@ def main() -> None:
     # the chain kernels against their plain steps on the first bench
     # chunk's own rounds (int32 and int64 positions), and each round with
     # slot collisions and a full store
-    chain_errs, chain_cases_, walk_errs, walk_cases_ = chain_phase2(
-        dev, opt, fm, list(reads_arr[:CHUNK]))
+    chain_errs, chain_cases_, walk_errs, walk_cases_, boundaries = \
+        chain_phase2(dev, opt, fm, list(reads_arr[:CHUNK]))
     # the round loops as graphs: every call of the chunk against the plain
     # loop, int32 and int64; the loop kernels against their plain version
     t0 = time.time()
@@ -4361,6 +4552,19 @@ def main() -> None:
     log(f"[2] the round loops as graphs against the plain loop, every call "
         f"of the first chunk ({time.time() - t0:.1f} s): "
         f"{json.dumps(loop_rec)}")
+    # the segment entry kernels on every boundary of the first chunk,
+    # against their plain version, then timed against what they replaced
+    t0 = time.time()
+    loop_rec["entry"] = entry_check(boundaries, dict(
+        chain=chain_build_set, walk=walk_build_set))
+    log(f"[2] the segment entry kernels against their plain version on "
+        f"every boundary of the first chunk ({time.time() - t0:.1f} s): "
+        + json.dumps({k: dict(max_abs_err=r["max_abs_err"],
+                              boundaries=r["boundaries"])
+                      for k, r in loop_rec["entry"].items()}))
+    loop_rec["entry_time"] = entry_time(boundaries["int32"], dict(
+        chain=chain_build_set, walk=walk_build_set))
+    del boundaries
     # the suffix-array loop's kernels on the first chunk's last-stage lanes;
     # each seeding call as one graph against the eager _run, every chunk
     t0 = time.time()
@@ -4518,7 +4722,22 @@ def main() -> None:
                              f"reads {bad[:5]}")
 
     seeder = device_seeder(opt, fm, dedup=True, device=dev)
-    rec32, engine32, tail32, sams32 = main_path("int32", seeder, {})
+    # the plain compaction between segments (what the segment entry
+    # kernels replaced, PyTorch's index_put_ and cumsum kernels among its
+    # operations) counted over the int32 window: on the main path, whose
+    # call graphs its first chunk captures (the profiled chunk replays
+    # them), it must not run
+    from compseed_tpu_torch.ops import seedscan as main_ss
+    compactions, compact = [], main_ss._compact_lanes
+
+    def counted_compact(*a, **kw):
+        compactions.append(a[2])
+        return compact(*a, **kw)
+    main_ss._compact_lanes = counted_compact
+    try:
+        rec32, engine32, tail32, sams32 = main_path("int32", seeder, {})
+    finally:
+        main_ss._compact_lanes = compact
     l32 = rec32["launches"]
     if l32["bsw_meta_dual_kernel"] <= 0 or l32["probe_add_one_kernel"] <= 0 \
             or l32["fm_chain_walk_kernel"] <= 0 \
@@ -4554,6 +4773,19 @@ def main() -> None:
         raise SystemExit(f"a chunk's launches / syncs / copies exceed "
                          f"{MAX_CHUNK_LAUNCHES} / {MAX_CHUNK_SYNCS} / "
                          f"{MAX_CHUNK_COPIES}: {prof}")
+    fam = prof["ran_by_family"]
+    log(f"[4] the chunk's loop entries: {fam['loop_entry']} one-thread loop "
+        f"entry kernels, {fam['segment_entry']} segment entry kernels; "
+        f"{fam['index_put']} index_put and {fam['scan']} scan kernels in "
+        f"all; the plain compaction ran {len(compactions)} times in the "
+        f"int32 window")
+    if fam["loop_entry"] > MAX_LOOP_ENTRY_KERNELS or compactions or \
+            not fam["segment_entry"]:
+        raise SystemExit(f"a chunk ran {fam['loop_entry']} one-thread loop "
+                         f"entry kernels (at most {MAX_LOOP_ENTRY_KERNELS}), "
+                         f"{fam['segment_entry']} segment entry kernels, or "
+                         f"the PyTorch compaction between segments "
+                         f"({len(compactions)} times)")
     chain_rec = chain_main_path(seeder, list(reads_arr[:CH]), l32,
                                 chain_cases_, chain_build_set)
     chain_rec["segment_rounds"] = seg_rounds = segment_rounds(

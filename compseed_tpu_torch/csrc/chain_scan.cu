@@ -7,9 +7,11 @@
 // These kernels are the port's counterpart of XLA's fusions; the sort is
 // CUB's radix sort over the key's bits (key_sort.cuh; XLA's sort in the JAX
 // package), the representatives' walk fm_chain_walk_kernel
-// (csrc/fm_walk.cu), and the while_loop's cond the entry kernel and the
-// apply kernel's last block below: a segment's rounds run as one CUDA graph
-// (loop_graph.cuh).  One round:
+// (csrc/fm_walk.cu), the compaction between segments and the while_loop's
+// cond before a segment's first round chain_segment_entry_kernel
+// (compact.cuh), and the cond after each round the apply kernel's last
+// block below: a segment's rounds run as one CUDA graph (loop_graph.cuh).
+// One round:
 //
 // chain_probe_kernel<T>      a thread a lane, blocks of kProbeBlock
 //   Replaces JAX seedscan.py:1495-1520 (port seedscan.py
@@ -125,8 +127,10 @@
 //     probe, a thread each, lane 0's words read beside the lane's own.
 // A round is four launches of its own (the walk's included), one pass over
 // the lanes each on every SM, with no copy of the memo or the pool; the
-// loop's test needs no launch of its own.  chain_loop_entry_kernel (one
-// thread) tests a segment's first round; after each round the apply's last
+// loop's test needs no launch of its own.  chain_segment_entry_kernel
+// (compact.cuh) starts every segment: it compacts the previous segment's
+// lanes into this one's (or, before a call's first segment, counts its
+// live lanes) and tests its first round; after each round the apply's last
 // block to retire counts the round and tests the next (loop_retire: one
 // 64-bit atomic a block, the blocks retired and their live lanes, then
 // loop_after and cudaGraphSetConditional inside a graph), where the first
@@ -156,6 +160,7 @@
 #define CS_UNROLL
 #endif
 
+#include "compact.cuh"
 #include "key_sort.cuh"
 #include "loop_graph.cuh"
 
@@ -197,20 +202,55 @@ struct Args {
   // (int64), its temporary storage and size in bytes, the key's bits
   long long sorted_key, iota, sort_tmp, sort_bytes, key_bits;
   // the segment's loop (loop_graph.cuh): the call's round counter (one
-  // int32), the live count the segment starts with (one int32), the
-  // next segment's width, RCAP, the live-lane histogram (RCAP int32, or
-  // 0), the WHILE node's condition handle (0 outside a graph) and the
+  // int32), the live count the previous segment left (one int32, read by
+  // the entry's pads; 0 before a call's first segment), the next
+  // segment's width, RCAP, the live-lane histogram (RCAP int32, or 0),
+  // the WHILE node's condition handle (0 outside a graph) and the
   // condition's last value (one int32)
   long long rnd, live_in, nxtw, rcap, hist, cond, go;
   // 1: the apply kernel ends a loop's body and runs the loop's test after
   // the round (loop_retire); 0 (a launch of its own): it touches no loop
   // word.  After the words above, so that an earlier build reads a prefix
   long long loop;
+  // the segment's entry (compact.cuh): the previous segment's lanes
+  // (src_w of each, in the order of the lane words above: lane0,
+  // lane_rid, pivot, pos, k, l, s, alive) and its width, 0 before a
+  // call's first segment; the entry's look-back words (a word a block:
+  // the apply's, lb_apply, where they are enough)
+  long long src_lane0, src_lane_rid, src_pivot, src_pos, src_k, src_l,
+      src_s, src_alive, src_w, lb_entry;
 };
 
-// words of sc (Args): the live count; the apply's retire count, 64 bits
-// at 8-9 (loop_graph.cuh::loop_retire)
-constexpr int kScLive = 2, kScRetire = 8;
+// words of sc (Args): the live count; the round's epoch; the group's
+// ticket counter (the segment entry's too, compact.cuh); the apply's
+// retire count, 64 bits at 8-9 (loop_graph.cuh::loop_retire)
+constexpr int kScLive = 2, kScEpoch = 4, kScTicket = 5, kScRetire = 8;
+
+// chain_scan's lane arrays as the segment entry moves them (compact.cuh):
+// lane0, lane_rid, pivot, pos and k, l, s; a pad's read id lane_rid0[0],
+// lane 0's, so that lane_rid stays lane_rid0[lane0].
+template <typename T>
+CS_HD LaneSet<T, 4, 3> chain_lanes(const Args& a) {
+  LaneSet<T, 4, 3> s;
+  const long long src32[4] = {a.src_lane0, a.src_lane_rid, a.src_pivot,
+                              a.src_pos};
+  const long long dst32[4] = {a.lane0, a.lane_rid, a.pivot, a.pos};
+  const long long srcT[3] = {a.src_k, a.src_l, a.src_s};
+  const long long dstT[3] = {a.k, a.l, a.s};
+  for (int j = 0; j < 4; ++j) {
+    s.src32[j] = (const int32_t*)src32[j];
+    s.dst32[j] = (int32_t*)dst32[j];
+    s.pad32[j] = 0;
+  }
+  for (int j = 0; j < 3; ++j) {
+    s.srcT[j] = (const T*)srcT[j];
+    s.dstT[j] = (T*)dstT[j];
+  }
+  if (a.src_w > 0) s.pad32[1] = ((const int32_t*)a.lane_rid0)[0];
+  s.src_alive = (const bool*)a.src_alive;
+  s.dst_alive = (bool*)a.alive;
+  return s;
+}
 
 template <typename T>
 struct Unsigned;
@@ -936,11 +976,14 @@ __global__ void __launch_bounds__(kApplyBlock) chain_apply_kernel(
                                                     pre);
 }
 
-// The loop's entry kernel, one thread: the segment's first test
-// (loop_step with the live count the segment starts with), and the WHILE
+// The segment's entry (compact.cuh): the previous segment's lanes
+// compacted into this one's (or, before a call's first segment, its live
+// lanes counted), the live count and the segment's first test, the WHILE
 // node's condition set from it inside a graph.
-__global__ void chain_loop_entry_kernel(const Args a) {
-  loop_set<kScLive>(a);
+template <typename T>
+__global__ void __launch_bounds__(kEntryBlock) chain_segment_entry_kernel(
+    const Args a) {
+  segment_entry<kScLive, kScTicket, kScEpoch>(a, chain_lanes<T>(a));
 }
 
 long long blocks_for(long long n, int block) {
@@ -955,6 +998,15 @@ void launch_apply(const Args& a, cudaStream_t st) {
   }
   chain_apply_kernel<T, kW>
       <<<blocks_for(a.w, kApplyBlock), kApplyBlock, 0, st>>>(a);
+}
+
+// The entry: a block a tile of the source's lanes (or, with none, of the
+// segment's).
+template <typename T>
+void launch_entry(const Args& a, cudaStream_t st) {
+  const long long n = a.src_w > 0 ? a.src_w : a.w;
+  chain_segment_entry_kernel<T>
+      <<<blocks_for(n, kEntryBlock * kEntryItems), kEntryBlock, 0, st>>>(a);
 }
 
 template <typename T>
@@ -980,7 +1032,7 @@ int launch(int which, const Args& a, cudaStream_t st) {
       break;
     }
     default:
-      chain_loop_entry_kernel<<<1, 1, 0, st>>>(a);
+      launch_entry<T>(a, st);
   }
   return (int)cudaGetLastError();
 }
@@ -992,6 +1044,10 @@ int launch_any(int which, const long long* words, void* stream) {
   if (a.W < 1 || a.W > kMaxW || a.Uw < 1 || a.Uw > a.w)
     return (int)cudaErrorInvalidValue;
   if (which == 3 && (a.key_bits < 1 || a.key_bits > 32 || !a.sort_tmp))
+    return (int)cudaErrorInvalidValue;
+  // the entry covers the source's lanes, the new width's among them
+  if (which == 4 && (a.src_w < 0 || a.src_w >= INT32_MAX ||
+                     (a.src_w > 0 && a.src_w < a.w) || !a.lb_entry))
     return (int)cudaErrorInvalidValue;
   return a.idx64 ? launch<int64_t>(which, a, (cudaStream_t)stream)
                  : launch<int32_t>(which, a, (cudaStream_t)stream);
@@ -1059,7 +1115,7 @@ void host_apply(const Args& a) {
   v.ctr[1] += fc;
   v.sc[kScLive] += live;
   pool_close(v, a, at, v.ctr[3]);
-  if (a.loop) loop_step<kScLive>(a, false);      // the folded loop test
+  if (a.loop) loop_step<kScLive>(a);             // the folded loop test
 }
 
 int host_any(int which, const long long* words) {
@@ -1068,6 +1124,8 @@ int host_any(int which, const long long* words) {
   if (a.w <= 0) return 0;
   if (a.W < 1 || a.W > kMaxW || a.Uw < 1 || a.Uw > a.w) return -1;
   if (which == 3 && (a.key_bits < 1 || a.key_bits > 32)) return -1;
+  if (which == 4 && (a.src_w < 0 || (a.src_w > 0 && a.src_w < a.w)))
+    return -1;
   const bool i64 = a.idx64 != 0;
   switch (which) {
     case 0:
@@ -1084,7 +1142,10 @@ int host_any(int which, const long long* words) {
                     (int64_t*)a.order, a.w, (int)a.key_bits);
       break;
     default:
-      loop_step<kScLive>(a, true);
+      if (i64)
+        segment_entry_host<kScLive, kScEpoch>(a, chain_lanes<int64_t>(a));
+      else
+        segment_entry_host<kScLive, kScEpoch>(a, chain_lanes<int32_t>(a));
   }
   return 0;
 }
@@ -1106,7 +1167,8 @@ extern "C" int chain_apply_launch(const long long* a, void* stream) {
 extern "C" int chain_sort_launch(const long long* a, void* stream) {
   return launch_any(3, a, stream);
 }
-extern "C" int chain_loop_entry_launch(const long long* a, void* stream) {
+extern "C" int chain_segment_entry_launch(const long long* a,
+                                          void* stream) {
   return launch_any(4, a, stream);
 }
 
@@ -1128,7 +1190,7 @@ extern "C" int chain_probe_host(const long long* a) { return host_any(0, a); }
 extern "C" int chain_group_host(const long long* a) { return host_any(1, a); }
 extern "C" int chain_apply_host(const long long* a) { return host_any(2, a); }
 extern "C" int chain_sort_host(const long long* a) { return host_any(3, a); }
-extern "C" int chain_loop_entry_host(const long long* a) {
+extern "C" int chain_segment_entry_host(const long long* a) {
   return host_any(4, a);
 }
 

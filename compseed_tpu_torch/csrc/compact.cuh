@@ -1,0 +1,224 @@
+// The entry of a round loop's segment, shared by chain_scan.cu
+// (chain_scan) and walk_chain.cu (walk_pool_chain): one kernel that
+// starts every segment's graph (loop_graph.cuh).
+//
+// In the JAX package the lanes go from one segment to the next, narrower
+// one by a stable rank-scatter compaction (compseed_tpu/ops/seedscan.py
+// :1727-1737, chain_scan; :739-748, walk_pool_chain: jnp.cumsum of alive,
+// then .at[tgt].set(..., mode="drop") for each lane array), and the next
+// while_loop tests its cond, rnd < RCAP && sum(alive) > nxtw, before its
+// first round; XLA fuses the compaction into one program on the TPU.
+// Here one launch does both, where the port first ran some 21 PyTorch
+// operations (eight index_put_, seven zero_, a cumsum, ...) and a
+// one-thread entry kernel at every boundary:
+//
+//   - it ranks the previous segment's lanes: each live lane's rank among
+//     the live lanes, by a decoupled look-back scan across the blocks
+//     (lookback.cuh::scan_blocks);
+//   - it moves every live lane whose rank r is below the new width w to
+//     lane r of the segment's own lane arrays, and drops the rest, as
+//     mode="drop" does (the dump row of the plain version is never
+//     written);
+//   - it writes the pads: lanes [min(live, w), w) become lane 0 of the
+//     call, dead (zeros; chain_scan's lane_rid the pad its source gives).
+//     The previous segment leaves its live count in device memory
+//     (live_in), so the pads are known before any rank is;
+//   - the block with the last ticket, whose scan's inclusive total counts
+//     every live lane of the source (the look-back waited on every other
+//     block's published sum, so no count can still be on its way), sets
+//     the segment's live word to the lanes kept, min(live, w) =
+//     jnp.sum(alive) after the compaction, and runs the loop's test
+//     (loop_go: the histogram word, go) and sets the WHILE node's
+//     condition.
+// Before a call's first segment no compaction comes: the same kernel
+// with no source (src_w 0) counts the segment's own live lanes instead
+// (the call's set-up no longer sums them) and runs the same test.
+//
+// What bounds it on Hopper.  The bytes are few: the source's alive bytes,
+// the kept lanes' words (read once, written once) and the pads' words; at
+// the widest boundary (walk_pool_chain's 393,216 lanes to 98,304) some
+// 3-4 MB, about a microsecond at 3.35 TB/s.  What decides is the launch
+// and one pass's dependent steps: the ticket, a lane's alive byte, its
+// words, the scan across blocks, the stores.  So a block loads its lanes'
+// alive bytes by its index beside its ticket's atomic (the ticket almost
+// always equals the index; else they are loaded again), and then the words
+// of its live lanes only; a thread takes kEntryItems consecutive lanes, a
+// block of kEntryBlock threads 512, so that even the chain's 4,096-lane
+// boundary spreads over 8 SMs (PERF.md, the segment entry rows: one block
+// walking a narrow source's tiles with a running carry, and every word
+// loaded at once beside the ticket, were slower).
+//
+// The host loop (segment_entry_host) does the same lane after lane, for
+// the CPU tests.
+
+#pragma once
+
+#include <cstdint>
+
+#include "loop_graph.cuh"
+
+#ifdef __CUDACC__
+#include "lookback.cuh"
+#define CP_UNROLL _Pragma("unroll")
+#else
+#define CP_UNROLL
+#endif
+
+constexpr int kEntryItems = 2;         // consecutive lanes a thread
+constexpr int kEntryBlock = 256;       // threads a block
+
+// A loop's lane arrays as the entry moves them: kI32 int32 arrays, kT
+// arrays of the index type T and the alive bytes, of the previous
+// segment (src) and of this one (dst); pad32: the value a pad lane takes
+// in each int32 array (the T arrays' pads are 0).
+template <typename T, int kI32, int kT>
+struct LaneSet {
+  const int32_t* src32[kI32];
+  const T* srcT[kT];
+  const bool* src_alive;
+  int32_t* dst32[kI32];
+  T* dstT[kT];
+  bool* dst_alive;
+  int32_t pad32[kI32];
+
+  struct Lane {
+    int32_t i32[kI32];
+    T t[kT];
+  };
+
+  LG_HD void load(long long i, Lane& x) const {
+    CP_UNROLL
+    for (int k = 0; k < kI32; ++k) x.i32[k] = src32[k][i];
+    CP_UNROLL
+    for (int k = 0; k < kT; ++k) x.t[k] = srcT[k][i];
+  }
+
+  LG_HD void store(long long r, const Lane& x) const {
+    CP_UNROLL
+    for (int k = 0; k < kI32; ++k) dst32[k][r] = x.i32[k];
+    CP_UNROLL
+    for (int k = 0; k < kT; ++k) dstT[k][r] = x.t[k];
+    dst_alive[r] = true;
+  }
+
+  LG_HD void pad(long long r) const {
+    CP_UNROLL
+    for (int k = 0; k < kI32; ++k) dst32[k][r] = pad32[k];
+    CP_UNROLL
+    for (int k = 0; k < kT; ++k) dstT[k][r] = T(0);
+    dst_alive[r] = false;
+  }
+};
+
+// The first pad lane: min(live_in, w), the lanes the compaction keeps
+// by the count the previous segment left (`a.live_in`).
+template <typename A>
+LG_HD long long entry_pad0(const A& a) {
+  const long long live = *(const int32_t*)a.live_in;
+  return live < 0 ? 0 : (live < a.w ? live : a.w);
+}
+
+// The segment's lane count and test once the live lanes are counted
+// (`count`: the source's with one, the segment's own without): the live
+// word sc[kLive] = the lanes kept, then loop_go.  Returns go.
+template <int kLive, typename A>
+LG_HD bool entry_close(const A& a, long long count) {
+  const int32_t kept = (int32_t)(count < a.w ? count : a.w);
+  ((int32_t*)a.sc)[kLive] = kept;
+  return loop_go(a, *(const int32_t*)a.rnd, kept);
+}
+
+// The host loop: the ranks as a running count, the pads, the test.
+// (sc[kEpoch], the look-back's epoch, counted as the kernel counts it.)
+template <int kLive, int kEpoch, typename A, typename L>
+inline bool segment_entry_host(const A& a, const L& ln) {
+  long long count = 0;
+  if (a.src_w > 0) {
+    for (long long i = 0; i < a.src_w; ++i) {
+      if (!ln.src_alive[i]) continue;
+      if (count < a.w) {
+        typename L::Lane x;
+        ln.load(i, x);
+        ln.store(count, x);
+      }
+      ++count;
+    }
+    for (long long r = entry_pad0(a); r < a.w; ++r) ln.pad(r);
+  } else {
+    for (long long i = 0; i < a.w; ++i) count += ln.dst_alive[i];
+  }
+  ((int32_t*)a.sc)[kEpoch] += 1;
+  return entry_close<kLive>(a, count);
+}
+
+#ifdef __CUDACC__
+
+// The alive bytes of a thread's lanes in tile t (the source's, or with
+// none the segment's own).
+template <typename L>
+__device__ __forceinline__ void entry_alive(const L& ln, bool move,
+                                            long long n, int t, bool* live) {
+  const long long i0 =
+      ((long long)t * kEntryBlock + threadIdx.x) * kEntryItems;
+  CP_UNROLL
+  for (int j = 0; j < kEntryItems; ++j) {
+    const long long i = i0 + j;
+    live[j] = i < n && (move ? ln.src_alive[i] : ln.dst_alive[i]);
+  }
+}
+
+// The kernel's body: blocks of kEntryBlock threads, a tile of kEntryBlock
+// * kEntryItems lanes each, taken by ticket and scanned across blocks by
+// look-back.  sc[kTicket] is the ticket counter (0 between launches) and
+// sc[kEpoch] the look-back's epoch (lb_entry's words carry it), which the
+// block with the last ticket counts; that block also closes the segment
+// (entry_close, the WHILE node's condition).  The round's own words
+// serve: its first kernel counts the same epoch on, so the status words
+// of the round's scans may be lb_entry's too.  Every thread of every
+// block must call.
+template <int kLive, int kTicket, int kEpoch, typename A, typename L>
+__device__ __forceinline__ void segment_entry(const A& a, const L& ln) {
+  __shared__ int ticket_s;
+  __shared__ int scan_s[34];
+  int32_t* sc = (int32_t*)a.sc;
+  const bool move = a.src_w > 0;
+  const long long n = move ? a.src_w : a.w;
+  const unsigned epoch = (unsigned)sc[kEpoch] + 1u;
+  const long long pad0 = move ? entry_pad0(a) : a.w;
+  bool live[kEntryItems];
+  entry_alive(ln, move, n, blockIdx.x, live);
+  const int t = lookback::take_ticket(sc + kTicket, gridDim.x, &ticket_s);
+  if (t != (int)blockIdx.x) entry_alive(ln, move, n, t, live);
+  const long long i0 =
+      ((long long)t * kEntryBlock + threadIdx.x) * kEntryItems;
+  typename L::Lane x[kEntryItems];
+  int cnt = 0;
+  CP_UNROLL
+  for (int j = 0; j < kEntryItems; ++j) {
+    if (move && live[j]) ln.load(i0 + j, x[j]);
+    cnt += live[j];
+  }
+  int first, upto;
+  const int ex = lookback::scan_blocks<kEntryBlock / 32>(
+      cnt, (unsigned long long*)a.lb_entry, t, epoch, scan_s, &first, &upto);
+  if (move) {
+    long long r = ex;
+    CP_UNROLL
+    for (int j = 0; j < kEntryItems; ++j) {
+      if (!live[j]) continue;
+      if (r < a.w) ln.store(r, x[j]);
+      ++r;
+    }
+    CP_UNROLL
+    for (int j = 0; j < kEntryItems; ++j) {
+      const long long i = i0 + j;
+      if (i >= pad0 && i < a.w) ln.pad(i);
+    }
+  }
+  if (t == (int)gridDim.x - 1 && threadIdx.x == 0) {
+    sc[kEpoch] = (int32_t)epoch;
+    loop_cond(a, entry_close<kLive>(a, upto));
+  }
+}
+
+#endif  // __CUDACC__

@@ -5,25 +5,28 @@
 // (compseed_tpu/ops/seedscan.py:1726 and :734-738): the TPU tests the
 // condition rnd < RCAP && sum(alive) > nxtw itself and the host waits on
 // nothing inside a call.  Here the loop is a graph with a WHILE
-// conditional node (CUDA 12.4 and later): an entry kernel sets the node's
-// condition from the live count the segment starts with, and the body (a
-// round's launches, captured from the caller's stream) ends with the
-// round's apply kernel, whose last block to retire (one 64-bit atomic a
-// block: the blocks retired and their live lanes) counts the round and
-// sets the condition again (loop_retire).  No kernel of its own ends a round: the condition
-// is set by the kernel that produces the count it tests.  The host
-// launches the graph once a segment and never reads the live count.
+// conditional node (CUDA 12.4 and later): the segment's entry kernel
+// (compact.cuh: the lanes compacted from the previous segment, or counted
+// before a call's first) sets the node's condition from the live count
+// the segment starts with, and the body (a round's launches, captured
+// from the caller's stream) ends with the round's apply kernel, whose
+// last block to retire (one 64-bit atomic a block: the blocks retired and
+// their live lanes) counts the round and sets the condition again
+// (loop_retire).  No kernel of its own ends a round or starts a segment:
+// the condition is set by the kernel that produces the count it tests.
+// The host launches the graph once a segment and never reads the live
+// count.
 //
-// loop_test is the condition itself, loop_step a round's step of it on a
-// source's Args (its words rnd, live_in, nxtw, rcap, hist, go, sc, cond
-// and loop), for the kernels and their host loops; loop_set and
-// loop_retire are the kernels' ends that run it.  The graph is built by
-// stream capture, as PyTorch builds its own conditional nodes: the outer
-// graph is captured from one non-blocking stream (the entry kernel), the
-// WHILE node is added after what that capture holds so far, and its body
-// graph is captured from a second stream; both captures are thread-local,
-// so launches of other threads (the alignment tail's DP beside the
-// seeding worker) stay out of them.
+// loop_test is the condition itself, loop_go its step on a source's Args
+// (its words nxtw, rcap, hist and go), loop_step a round's step after its
+// apply (the words rnd, sc and the above), for the host loops;
+// loop_retire is the apply's end that runs it on the card.  The graph is
+// built by stream capture, as PyTorch builds its own conditional nodes:
+// the outer graph is captured from one non-blocking stream (the entry
+// kernel), the WHILE node is added after what that capture holds so far,
+// and its body graph is captured from a second stream; both captures are
+// thread-local, so launches of other threads (the alignment tail's DP
+// beside the seeding worker) stay out of them.
 // A body must not allocate: the graph names the addresses it was captured
 // with until it is destroyed (ops/cuda_lib.py guards every capture).
 //
@@ -74,19 +77,14 @@ LG_HD bool loop_after(const A& a, int32_t rnd, int32_t live) {
   return loop_go(a, rnd + 1, live);
 }
 
-// The loop's step on a round source's Args `a` (its words rnd, live_in,
-// nxtw, rcap, hist, go, sc), whose int32 word sc[kLive] holds the round's
-// live count: with `entry` (before a segment's first round) the live
-// count the segment starts with is copied there and tested; else (after
-// a round, the host loops') loop_after on the words as they stand.
-// Returns whether the next round runs.
+// The loop's step after a round on a round source's Args `a` (its words
+// rnd, nxtw, rcap, hist, go, sc), whose int32 word sc[kLive] holds the
+// live count the round left (the host loops'): loop_after on the words
+// as they stand.  Returns whether the next round runs.
 template <int kLive, typename A>
-LG_HD bool loop_step(const A& a, bool entry) {
-  int32_t* sc = (int32_t*)a.sc;
-  const int32_t rnd = *(const int32_t*)a.rnd;
-  if (!entry) return loop_after<kLive>(a, rnd, sc[kLive]);
-  sc[kLive] = *(const int32_t*)a.live_in;
-  return loop_go(a, rnd, sc[kLive]);
+LG_HD bool loop_step(const A& a) {
+  return loop_after<kLive>(a, *(const int32_t*)a.rnd,
+                           ((const int32_t*)a.sc)[kLive]);
 }
 
 #ifdef __CUDACC__
@@ -97,13 +95,6 @@ LG_HD bool loop_step(const A& a, bool entry) {
 template <typename A>
 __device__ __forceinline__ void loop_cond(const A& a, bool go) {
   if (a.cond) cudaGraphSetConditional((cudaGraphConditionalHandle)a.cond, go);
-}
-
-// The entry kernel's body (one thread): loop_step before a segment's
-// first round, and the condition set from it.
-template <int kLive, typename A>
-__device__ __forceinline__ void loop_set(const A& a) {
-  loop_cond(a, loop_step<kLive>(a, true));
 }
 
 // What the last block of a round's apply needs of the words before the

@@ -8,9 +8,10 @@
 // copy of its destination, four of them pool-long).  These kernels are the
 // port's counterpart of XLA's fusions; the sort is CUB's radix sort over
 // 31 bits (key_sort.cuh; XLA's sort in the JAX package), the
-// representatives' walk fm_chain_walk_kernel (csrc/fm_walk.cu), and the
-// while_loop's cond walk_loop_entry_kernel (one thread) before a width's
-// first round and the apply kernel's last block to retire after each
+// representatives' walk fm_chain_walk_kernel (csrc/fm_walk.cu), the
+// compaction between widths and the while_loop's cond before a width's
+// first round walk_segment_entry_kernel (compact.cuh), and the cond after
+// each round the apply kernel's last block to retire
 // (loop_graph.cuh::loop_retire): a width's rounds run as one CUDA graph
 // (loop_graph.cuh).  One round:
 //
@@ -97,7 +98,10 @@
 // the lanes each on every SM, and writes the pool rows in place (the plain
 // round copies the four pool-long columns at every scatter); the loop's
 // test needs no launch of its own (the first design ended every round
-// with a one-thread cond kernel).
+// with a one-thread cond kernel), and a width starts with one launch,
+// walk_segment_entry_kernel (compact.cuh), which compacts the previous
+// width's lanes and tests the first round (the first design: some 21
+// PyTorch operations, then a one-thread entry kernel).
 //
 // The launchers take the arguments as one array of 64-bit words, the
 // struct Args below (ops/walk_cuda.py::ARGS names them in order); they
@@ -122,6 +126,7 @@
 #define WC_UNROLL
 #endif
 
+#include "compact.cuh"
 #include "key_sort.cuh"
 #include "loop_graph.cuh"
 
@@ -131,7 +136,9 @@ constexpr int kMaxW = 10;                  // a window packs into 30 bits
 constexpr int32_t kI32Max = 0x7FFFFFFF;
 constexpr uint32_t kMixK = 0x9E3779B9u, kMixS = 0x85EBCA6Bu,
                    kMixF = 0xC2B2AE35u;
-// the words of sc (the apply's retire count: loop_graph.cuh::loop_retire)
+// the words of sc (the apply's retire count: loop_graph.cuh::loop_retire;
+// the epoch and the ticket counter serve the segment entry too:
+// compact.cuh)
 constexpr int kScNw = 0, kScNu = 1, kScLive = 2, kScEpoch = 3,
               kScTicket = 4, kScRetire = 6;   // 6-7: one 64-bit word
 
@@ -166,16 +173,47 @@ struct Args {
   // (int64), its temporary storage and size in bytes, the key's bits
   long long sorted_key, iota, sort_tmp, sort_bytes, key_bits;
   // the segment's loop (loop_graph.cuh): the call's round counter (one
-  // int32), the live count the segment starts with (one int32), the
-  // next segment's width, RCAP, a live-lane histogram (walk_pool_chain
-  // keeps none: 0), the WHILE node's condition handle (0 outside a graph)
-  // and the condition's last value (one int32)
+  // int32), the live count the previous width left (one int32, read by
+  // the entry's pads; 0 before a call's first width), the next segment's
+  // width, RCAP, a live-lane histogram (walk_pool_chain keeps none: 0),
+  // the WHILE node's condition handle (0 outside a graph) and the
+  // condition's last value (one int32)
   long long rnd, live_in, nxtw, rcap, hist, cond, go;
   // 1: the apply kernel ends a loop's body and runs the loop's test after
   // the round (loop_retire); 0 (a launch of its own): it touches no loop
   // word.  After the words above, so that an earlier build reads a prefix
   long long loop;
+  // the width's entry (compact.cuh): the previous width's lanes (src_w
+  // of each, in the order of the lane words above: k, l, s, rid, i, mh,
+  // slot, alive) and its width, 0 before a call's first width; the
+  // entry's look-back words (a word a block: the group's, lb_group, where
+  // they are enough)
+  long long src_k, src_l, src_s, src_rid, src_i, src_mh, src_slot,
+      src_alive, src_w, lb_entry;
 };
+
+// walk_pool_chain's lane arrays as the segment entry moves them
+// (compact.cuh): rid, i, slot and k, l, s, mh; the pads all 0.
+template <typename T>
+WC_HD LaneSet<T, 3, 4> walk_lanes(const Args& a) {
+  LaneSet<T, 3, 4> s;
+  const long long src32[3] = {a.src_rid, a.src_i, a.src_slot};
+  const long long dst32[3] = {a.rid, a.i, a.slot};
+  const long long srcT[4] = {a.src_k, a.src_l, a.src_s, a.src_mh};
+  const long long dstT[4] = {a.k, a.l, a.s, a.mh};
+  for (int j = 0; j < 3; ++j) {
+    s.src32[j] = (const int32_t*)src32[j];
+    s.dst32[j] = (int32_t*)dst32[j];
+    s.pad32[j] = 0;
+  }
+  for (int j = 0; j < 4; ++j) {
+    s.srcT[j] = (const T*)srcT[j];
+    s.dstT[j] = (T*)dstT[j];
+  }
+  s.src_alive = (const bool*)a.src_alive;
+  s.dst_alive = (bool*)a.alive;
+  return s;
+}
 
 template <typename T>
 struct Unsigned;
@@ -677,11 +715,14 @@ __global__ void __launch_bounds__(kApplyBlock) walk_apply_kernel(
       a, live, (int)((wide + kApplyBlock - 1) / kApplyBlock), pre);
 }
 
-// The loop's entry kernel, one thread: the width's first test (loop_step
-// with the live count the width starts with), and the WHILE node's
+// The width's entry (compact.cuh): the previous width's lanes compacted
+// into this one's (or, before a call's first width, its live lanes
+// counted), the live count and the width's first test, the WHILE node's
 // condition set from it inside a graph.
-__global__ void walk_loop_entry_kernel(const Args a) {
-  loop_set<kScLive>(a);
+template <typename T>
+__global__ void __launch_bounds__(kEntryBlock) walk_segment_entry_kernel(
+    const Args a) {
+  segment_entry<kScLive, kScTicket, kScEpoch>(a, walk_lanes<T>(a));
 }
 
 long long blocks_for(long long n, int block) {
@@ -697,6 +738,15 @@ void launch_apply(const Args& a, cudaStream_t st) {
   const long long wide = a.w > a.Uw ? a.w : a.Uw;
   walk_apply_kernel<T, kW>
       <<<blocks_for(wide, kApplyBlock), kApplyBlock, 0, st>>>(a);
+}
+
+// The entry: a block a tile of the source's lanes (or, with none, of the
+// width's).
+template <typename T>
+void launch_entry(const Args& a, cudaStream_t st) {
+  const long long n = a.src_w > 0 ? a.src_w : a.w;
+  walk_segment_entry_kernel<T>
+      <<<blocks_for(n, kEntryBlock * kEntryItems), kEntryBlock, 0, st>>>(a);
 }
 
 template <typename T>
@@ -723,7 +773,7 @@ int launch(int which, const Args& a, cudaStream_t st) {
       break;
     }
     default:
-      walk_loop_entry_kernel<<<1, 1, 0, st>>>(a);
+      launch_entry<T>(a, st);
   }
   return (int)cudaGetLastError();
 }
@@ -738,6 +788,10 @@ int launch_any(int which, const long long* words, void* stream) {
   // the apply reads the chain's s rows as vectors of up to 16 bytes
   if (which == 2 && (a.cs & 15)) return (int)cudaErrorMisalignedAddress;
   if (which == 3 && (a.key_bits < 1 || a.key_bits > 32 || !a.sort_tmp))
+    return (int)cudaErrorInvalidValue;
+  // the entry covers the source's lanes, the new width's among them
+  if (which == 4 && (a.src_w < 0 || a.src_w >= INT32_MAX ||
+                     (a.src_w > 0 && a.src_w < a.w) || !a.lb_entry))
     return (int)cudaErrorInvalidValue;
   return a.idx64 ? launch<int64_t>(which, a, (cudaStream_t)stream)
                  : launch<int32_t>(which, a, (cudaStream_t)stream);
@@ -788,7 +842,7 @@ void host_apply(const Args& a) {
   }
   v.ctr[0] += calls;
   v.sc[kScLive] += live;
-  if (a.loop) loop_step<kScLive>(a, false);      // the folded loop test
+  if (a.loop) loop_step<kScLive>(a);             // the folded loop test
 }
 
 int host_any(int which, const long long* words) {
@@ -799,6 +853,8 @@ int host_any(int which, const long long* words) {
       a.Uw >= INT32_MAX || a.n_rw < 1)
     return -1;
   if (which == 3 && (a.key_bits < 1 || a.key_bits > 32)) return -1;
+  if (which == 4 && (a.src_w < 0 || (a.src_w > 0 && a.src_w < a.w)))
+    return -1;
   const bool i64 = a.idx64 != 0;
   switch (which) {
     case 0:
@@ -815,7 +871,10 @@ int host_any(int which, const long long* words) {
                     (int64_t*)a.order, a.w, (int)a.key_bits);
       break;
     default:
-      loop_step<kScLive>(a, true);
+      if (i64)
+        segment_entry_host<kScLive, kScEpoch>(a, walk_lanes<int64_t>(a));
+      else
+        segment_entry_host<kScLive, kScEpoch>(a, walk_lanes<int32_t>(a));
   }
   return 0;
 }
@@ -837,7 +896,8 @@ extern "C" int walk_apply_launch(const long long* a, void* stream) {
 extern "C" int walk_sort_launch(const long long* a, void* stream) {
   return launch_any(3, a, stream);
 }
-extern "C" int walk_loop_entry_launch(const long long* a, void* stream) {
+extern "C" int walk_segment_entry_launch(const long long* a,
+                                         void* stream) {
   return launch_any(4, a, stream);
 }
 
@@ -859,7 +919,7 @@ extern "C" int walk_key_host(const long long* a) { return host_any(0, a); }
 extern "C" int walk_group_host(const long long* a) { return host_any(1, a); }
 extern "C" int walk_apply_host(const long long* a) { return host_any(2, a); }
 extern "C" int walk_sort_host(const long long* a) { return host_any(3, a); }
-extern "C" int walk_loop_entry_host(const long long* a) {
+extern "C" int walk_segment_entry_host(const long long* a) {
   return host_any(4, a);
 }
 

@@ -4,7 +4,7 @@
 ``seedscan.chain_scan`` runs its round as the plain version,
 ``seedscan._chain_round_plain``, in a Python loop for CPU tensors, and
 otherwise each segment as one CUDA graph (``cuda_lib.run_loop``): the
-entry kernel, then a WHILE node whose body is
+segment's entry kernel, then a WHILE node whose body is
 ``seedscan._chain_round_kernels``, three hand-written kernels around one
 sort and one ``fm_chain_walk_kernel`` launch, the last of which, the
 apply, also runs the loop's test,
@@ -20,8 +20,11 @@ apply, also runs the loop's test,
                its last block to retire counts the round and runs the
                loop's test: rnd < RCAP and live > the next segment's
                width; the histogram word);
-  ``entry`` -> ``chain_loop_entry_kernel`` (that test before a segment's
-               first round).
+  ``ChainRound.entry`` -> ``chain_segment_entry_kernel`` (csrc/compact.cuh:
+               the previous segment's lanes compacted into the
+               segment's, or before a call's first segment its live
+               lanes counted; the live count and that test before the
+               segment's first round).
 
 A ``ChainRound`` holds one segment's launch arguments (the ``Args``
 words of the source, named by ``ARGS`` in order) and its scratch: the
@@ -67,10 +70,15 @@ ARGS = (
     "lane_rid",
     "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits",
     "rnd", "live_in", "nxtw", "rcap", "hist", "cond", "go", "loop")
+# the lane arrays, in the order of their words above: what the segment
+# entry moves from the previous segment (its words src_<name>, after the
+# loop word, so that an earlier build reads a prefix)
+LANE_KEYS = ("lane0", "lane_rid", "pivot", "pos", "k", "l", "s", "alive")
+ARGS += tuple(f"src_{n}" for n in LANE_KEYS) + ("src_w", "lb_entry")
 _AT = {n: i for i, n in enumerate(ARGS)}
 
 KERNELS = ("chain_probe_kernel", "chain_group_kernel", "chain_apply_kernel")
-LOOP_KERNELS = ("chain_loop_entry_kernel",)
+LOOP_KERNELS = ("chain_segment_entry_kernel",)
 SORT = "chain_sort"         # CUB's radix sort, a library call
 PROBE_BLOCK = 256           # threads a block of the probe (a lane each)
 BLOCK = 256                 # threads a block of the group
@@ -124,9 +132,13 @@ class ChainRound(RoundArgs):
     holds the sort's storage (``init_sort``, over ``key_bits(H)`` bits)
     and the representatives' walk (``walk``, which the apply kernel
     reads), and, once ``set_loop`` has named the segment's loop words and
-    ``cuda_lib.run_loop`` has run it on a card, its graph."""
+    ``cuda_lib.run_loop`` has run it on a card, its graph.  A pad lane's
+    read id is lane_rid0[0], lane 0's."""
 
     AT = _AT
+    LANE_KEYS = LANE_KEYS
+    ENTRY = "chain_segment_entry_kernel"
+    ENTRY_LB = "lb_apply"
 
     def __init__(self, fm, const: dict, st: dict, w: int, Uw: int):
         dt = fm.dtype
@@ -191,10 +203,9 @@ class ChainRound(RoundArgs):
             lb_apply=torch.zeros(n_blocks, dtype=i64, device=dev),
             sc=torch.zeros(SC_WORDS, dtype=i32, device=dev))
         self.live = self.scratch["sc"][SC_LIVE]  # live count after apply
-        self._held = {n: st[n] for n in ("lane0", "lane_rid", "pivot",
-                                         "pos", "alive", "k", "l", "s",
-                                         "tbl", "cst", "cur", "pool",
-                                         "ctr")}
+        self._held = {n: st[n] for n in LANE_KEYS + ("tbl", "cst", "cur",
+                                                     "pool", "ctr")}
+        self.pads = {"lane_rid": const["lane_rid0"][:1]}
         args = (ct.c_longlong * len(ARGS))()
         for n, x in list(self._held.items()) + list(self.scratch.items()):
             args[_AT[n]] = x.data_ptr()
@@ -214,6 +225,9 @@ class ChainRound(RoundArgs):
         self.args = args
         self.init_sort(key_bits(H), _sort_bytes)
         self.walk = self.walk_out()
+
+    def launch(self, kernel: str) -> None:
+        _launch(kernel, self.dev, self.args)
 
 
 def _sort_bytes(n: int, bits: int) -> int:
@@ -243,10 +257,3 @@ def apply(rd: ChainRound) -> None:
     also the round counted and the loop's test, the last launch of a
     round."""
     _launch("chain_apply_kernel", rd.dev, rd.args)
-
-
-def entry(rd: ChainRound) -> None:
-    """chain_loop_entry_kernel: the segment's loop test before its first
-    round (set_loop's words)."""
-    _launch("chain_loop_entry_kernel", rd.dev, rd.args)
-

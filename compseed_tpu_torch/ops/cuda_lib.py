@@ -14,14 +14,16 @@ threads of the sharded path launch side by side, so the counts and the
 one-time load take a lock.
 
 A round source (chain_scan.cu, walk_chain.cu) runs a segment of its loop
-as one ``LoopGraph`` (csrc/loop_graph.cuh): an entry kernel, then a
-WHILE node whose body is one round's launches, captured once from the
-calling thread and replayed on the card until its last kernel (a round
-source's apply; the suffix-array loop's cond kernel) clears the
-condition; fm_walk.cu runs the suffix-array walk's last stage the same
-way.  ``run_loop`` builds and launches it, or, inside the capture of a
-whole call (``CallGraph``: the seeder's call as one torch.cuda.CUDAGraph),
-adds the loop to that capture; ``NoTorchOps`` guards every body's
+as one ``LoopGraph`` (csrc/loop_graph.cuh): an entry kernel (a round
+source's segment entry, csrc/compact.cuh: the previous segment's lanes
+compacted into the segment's, ``RoundArgs.entry``), then a WHILE node
+whose body is one round's launches, captured once from the calling
+thread and replayed on the card until its last kernel (a round source's
+apply; the suffix-array loop's cond kernel) clears the condition;
+fm_walk.cu runs the suffix-array walk's last stage the same way.
+``run_loop`` builds and launches it, or, inside the capture of a whole
+call (``CallGraph``: the seeder's call as one torch.cuda.CUDAGraph), adds
+the loop to that capture; ``NoTorchOps`` guards every body's
 capture.  ``Kept`` keeps such graphs per (thread, call shape).
 ``NoHostReads`` is the CPU tests' guard for what a capture refuses on a
 card: host reads and shape-dependent operations.
@@ -47,6 +49,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BUILD = os.path.join(ROOT, "build", "compseed_tpu_torch")
+# csrc/compact.cuh: the lanes a block of the segment entry takes (blocks of
+# kEntryBlock threads, kEntryItems lanes each)
+ENTRY_TILE = 512
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -149,11 +154,19 @@ class RoundArgs:
     lives in device memory, so one set of words serves every round of a
     segment and a graph of them.  An instance sets ``args``, ``dev``,
     ``w`` (its lanes), ``Uw``, ``W``, ``scratch`` and ``_held`` (its
-    state's tensors, ``k`` among them); ``init_sort`` and ``set_loop``
-    add the sort's and the loop's words, ``set_walk`` the walk's."""
+    state's tensors, ``k`` among them, and its lane arrays, ``LANE_KEYS``);
+    ``init_sort`` and ``set_loop`` add the sort's and the loop's words,
+    ``set_walk`` the walk's; ``launch(kernel)`` launches one of its
+    source's kernels on them, ``entry`` the segment's entry kernel
+    (``ENTRY``)."""
 
     AT: dict = {}
+    LANE_KEYS: tuple = ()   # the lane arrays the segment entry moves
+    ENTRY = ""              # the source's segment entry kernel
+    ENTRY_LB = ""           # the scratch look-back words it may share
+    pads: dict = {}         # lane name -> a pad lane's value (default 0)
     graph = None            # the segment's LoopGraph, once run on a card
+    _src = None             # the previous segment's lanes, once set_loop
 
     def init_sort(self, bits: int, sort_bytes) -> None:
         """The round's sort: sorted_key (w) int32, the lane indices iota
@@ -174,27 +187,73 @@ class RoundArgs:
         self.key_bits = bits
 
     def set_loop(self, rnd, live_in, nxtw: int, rcap: int,
-                 hist=None) -> None:
-        """The segment's loop words: ``rnd`` the call's round counter and
-        ``live_in`` the live count the segment starts with (each one int32
-        on the device), the next segment's width, RCAP and the live-lane
-        histogram (RCAP int32) or None; the condition's last value goes to
-        ``go`` (one int32 of the round's own).  Sets the loop word: from
+                 hist=None, src=None) -> None:
+        """The segment's loop words: ``rnd`` the call's round counter (one
+        int32 on the device), the next segment's width, RCAP and the
+        live-lane histogram (RCAP int32) or None; the condition's last
+        value goes to ``go`` (one int32 of the round's own).  ``src``: the
+        previous segment's lane arrays (LANE_KEYS -> its lanes, one width)
+        and ``live_in`` its live count (one int32 on the device), which
+        the segment's entry compacts into the round's lanes; None for a
+        call's first segment (``live_in`` then unread, may be None: the
+        entry counts the round's own live lanes).  Sets the loop word: from
         here on the round's apply kernel ends a loop's body, counting the
         round and testing the next (a round without it leaves every loop
         word alone)."""
         i32 = torch.int32
         check_tensor("rnd", rnd, i32, (), self.dev)
-        check_tensor("live_in", live_in, i32, (), self.dev)
+        if live_in is not None:
+            check_tensor("live_in", live_in, i32, (), self.dev)
         if hist is not None:
             check_tensor("hist", hist, i32, (rcap,), self.dev)
+        src_w = 0
+        if src is not None:
+            if live_in is None:
+                raise ValueError("set_loop: a source's lanes need its live "
+                                 "count")
+            src_w = src["alive"].shape[0] if src["alive"].dim() else 0
+            if not self.w <= src_w < 2**31:
+                raise ValueError(f"set_loop: a source of {src_w} lanes for "
+                                 f"{self.w}")
+            for n in self.LANE_KEYS:
+                mine = self._held[n]
+                check_tensor(f"src {n}", src[n], mine.dtype, (src_w,),
+                             self.dev)
+                self.args[self.AT[f"src_{n}"]] = src[n].data_ptr()
+        # the entry's look-back words, a word a block of its launch: a
+        # round's scan's where they are enough (the entry counts the
+        # round's epoch on, so the words' tags never repeat), else its own
+        need = -(-max(src_w, self.w, 1) // ENTRY_TILE)
+        lb = self.scratch[self.ENTRY_LB]
+        if lb.shape[0] < need:
+            lb = torch.zeros(need, dtype=torch.int64, device=self.dev)
+        self.scratch["lb_entry"] = lb
         self.go = torch.zeros((), dtype=i32, device=self.dev)
         self._loop = (rnd, live_in, hist)       # kept alive with the args
-        for n, x in (("rnd", rnd.data_ptr()), ("live_in", live_in.data_ptr()),
+        self._src = src
+        for n, x in (("rnd", rnd.data_ptr()),
+                     ("live_in", 0 if live_in is None else live_in.data_ptr()),
                      ("nxtw", nxtw), ("rcap", rcap),
                      ("hist", 0 if hist is None else hist.data_ptr()),
-                     ("cond", 0), ("go", self.go.data_ptr()), ("loop", 1)):
+                     ("cond", 0), ("go", self.go.data_ptr()), ("loop", 1),
+                     ("src_w", src_w),
+                     ("lb_entry", self.scratch["lb_entry"].data_ptr())):
             self.args[self.AT[n]] = x
+
+    def launch(self, kernel: str) -> None:
+        """Launch ``kernel`` of the round's source on its Args words (each
+        source's module launcher, which the CPU tests patch)."""
+        raise NotImplementedError
+
+    def entry(self) -> None:
+        """The segment's entry kernel (``ENTRY``, csrc/compact.cuh) on
+        set_loop's words: with a source, its live lanes compacted into
+        the round's lanes in their order (at most w; the lanes after them
+        pads, dead); without, the round's live lanes counted; then the
+        round's live count (the lanes kept) and the loop's test before
+        the segment's first round, go and the histogram word, and inside
+        a graph the WHILE node's condition."""
+        self.launch(self.ENTRY)
 
     def set_walk(self, ck, cl, cs, ln) -> None:
         """Point the apply kernel at the representatives' walk: ck, cl, cs
@@ -479,7 +538,8 @@ def _loop_test(rd) -> bool:
 
 
 def run_loop(rd, lib: KernelLibrary, prefix: str, entry, body) -> None:
-    """Run a loop: ``entry(rd)`` launches the entry kernel, ``body(rd)``
+    """Run a loop: ``entry(rd)`` launches the entry kernel (a round
+    source's: ``RoundArgs.entry``), ``body(rd)``
     one round's launches, the last of which counts the round and sets the
     condition (a round source's apply with its loop word set, the
     suffix-array loop's cond kernel).  ``rd`` holds the

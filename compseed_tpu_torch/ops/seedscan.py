@@ -572,7 +572,9 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
     representative per group runs W backward extends (_chain_walk), and
     every member evaluates its own death (min_hits or ambiguous char) on
     the shared chain states.  The lane width drops by ``segs`` divisors
-    with stable rank-scatter compaction.
+    with stable rank-scatter compaction: each width's entry kernel on the
+    kernel path (csrc/compact.cuh), ``_compact_lanes`` on the plain
+    path.
 
     The round is ``_walk_round_plain`` in a Python loop for CPU tensors;
     otherwise each width is one CUDA graph (``_walk_segment``: the
@@ -620,7 +622,9 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
     # the counters [calls, ngrp] are views of one tensor: the kernels add
     # into it in place, the plain round replaces them
     st["ctr"] = torch.zeros(2, dtype=_I32, device=dev)
-    st["live"] = st["alive"].sum().to(_I32)
+    if not kernels:
+        # the kernels' width entry counts the live lanes on the card
+        st["live"] = st["alive"].sum().to(_I32)
     c = dict(rwflat=rwflat.contiguous(), L=L, W=W, all4=_ALL4)
     RCAP = L + 2
 
@@ -645,12 +649,12 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
         h = _held(("walk", dev, id(fm), GP, CAPW, L, W,
                    tuple(c["rwflat"].shape), tuple(widths)),
                   lambda: _Held(fm, dict(
-                      {n: st[n] for n in _WALK_RESULTS + ("ctr", "live")},
-                      rwflat=c["rwflat"], rnd=st["live"]),
+                      {n: st[n] for n in _WALK_RESULTS + ("ctr",)},
+                      rwflat=c["rwflat"], rnd=st["ctr"][0]),
                       {n: st[n] for n in WALK_LANE_KEYS},
                       [st["k"].shape[0]] + widths[1:]))
         c.update(h.load(c, ("rwflat",)))
-        st.update(h.load(st, _WALK_RESULTS + ("ctr", "live")))
+        st.update(h.load(st, _WALK_RESULTS + ("ctr",)))
         st.update(h.load_lanes(st, WALK_LANE_KEYS))
         rnd_d = h.t["rnd"].zero_()
     st["calls"], st["ngrp"] = st["ctr"]
@@ -658,26 +662,19 @@ def walk_pool_chain(fm: DeviceFMIndex, rwflat, L: int, pool, CAPW: int,
         nxtw = widths[ix + 1] if ix + 1 < len(widths) else 0
         Uw = max(w // 2, 64)
         if kernels:
+            src = _next_lanes(st, WALK_LANE_KEYS, w, h, ix)
             rd = _walk_segment(fm, c, st, Uw, dict(
                 rnd=rnd_d, nxtw=nxtw, rcap=RCAP),
-                None if h is None else h.rounds[ix])
+                None if h is None else h.rounds[ix], src=src)
             if h is not None:
                 h.rounds[ix] = rd
-        else:
-            # the one host sync a round, as the JAX loop tests its cond
-            while rnd < RCAP and int(st["live"]) > nxtw:
-                st = run_round(fm, c, st, Uw)
-                rnd += 1
+            continue
+        # the one host sync a round, as the JAX loop tests its cond
+        while rnd < RCAP and int(st["live"]) > nxtw:
+            st = run_round(fm, c, st, Uw)
+            rnd += 1
         if nxtw:
-            lalive = st["alive"]
-            tgt2 = torch.where(lalive, torch.cumsum(lalive, 0) - 1,
-                               nxtw).clamp(max=nxtw)
-            for kk in WALK_LANE_KEYS:
-                # row nxtw: the dump row, cut off (_drop_set's)
-                buf = h.lanes[ix + 1][kk].zero_() if h is not None \
-                    else st[kk].new_zeros(nxtw + 1)
-                buf[tgt2] = st[kk]
-                st[kk] = buf[:nxtw]
+            _compact_lanes(st, WALK_LANE_KEYS, nxtw)
     ovf = ovf | st["alive"].any()
     if h is not None:
         # the caller's own, not the kept tensors
@@ -691,19 +688,19 @@ _WALK_RESULTS = ("death", "fk", "fl", "fs")
 
 
 def loop_step_plain(rd, entry: bool) -> None:
-    """The loop's plain version: the entry kernel's with ``entry``, else
-    the apply kernel's folded tail (what its last block to retire runs
-    after a round when ``set_loop`` has set the loop word; the plain apply
-    step followed by this is the apply of a round in a loop), in PyTorch
-    operations on a round's loop words (``set_loop``'s) and its live
-    count, in place and without a host sync: the entry copies the live
-    count the segment starts with, the tail counts the round; then go =
-    rnd < RCAP and live > nxtw, the test of the Python loops above, and
-    when it holds hist[rnd] = live."""
-    rnd, live_in, hist = rd._loop
+    """The loop's plain version: the segment entry kernel's test with
+    ``entry``, else the apply kernel's folded tail (what its last block to
+    retire runs after a round when ``set_loop`` has set the loop word; the
+    plain apply step followed by this is the apply of a round in a loop),
+    in PyTorch operations on a round's loop words (``set_loop``'s) and its
+    live count, in place and without a host sync: the entry counts the
+    round's live lanes, sum(alive) as the JAX loop's cond does, the tail
+    counts the round; then go = rnd < RCAP and live > nxtw, the test of
+    the Python loops above, and when it holds hist[rnd] = live."""
+    rnd, _, hist = rd._loop
     nxtw, rcap = rd.args[rd.AT["nxtw"]], rd.args[rd.AT["rcap"]]
     if entry:
-        rd.live.copy_(live_in)
+        rd.live.copy_(rd._held["alive"].sum())
     else:
         rnd.add_(1)
     go = (rnd < rcap) & (rd.live > nxtw)
@@ -711,6 +708,17 @@ def loop_step_plain(rd, entry: bool) -> None:
     if hist is not None:
         j = rnd.clamp(0, rcap - 1).to(_I64).view(1)
         hist.index_put_((j,), torch.where(go, rd.live, hist[j]).view(1))
+
+
+def segment_entry_plain(rd) -> None:
+    """The plain version of a round source's segment entry kernel
+    (``rd``: a ChainRound or WalkRound after set_loop): with a source,
+    its lanes compacted into the round's lanes in place (_compact_lanes,
+    the round's LANE_KEYS and pads); then loop_step_plain's entry test."""
+    if rd._src is not None:
+        _compact_lanes(dict(rd._src), rd.LANE_KEYS, rd.w, rd.pads,
+                       {n: rd._held[n] for n in rd.LANE_KEYS})
+    loop_step_plain(rd, True)
 
 
 def _walk_round(dev: torch.device):
@@ -722,20 +730,23 @@ def _walk_round(dev: torch.device):
 
 
 def _walk_segment(fm: DeviceFMIndex, c: dict, st: dict, Uw: int,
-                  loop: dict, rd=None) -> walk_cuda.WalkRound:
+                  loop: dict, rd=None, src=None) -> walk_cuda.WalkRound:
     """One width of walk_pool_chain's loop through the kernels: its
     WalkRound (launch arguments, scratch, held walk; ``rd``, the one an
     earlier call of this shape built on the same kept tensors, or built
-    here) and its rounds while the loop test holds (``loop``: the call's
-    round counter ``rnd``, the next width ``nxtw``, ``rcap``), by
+    here), its entry kernel (``src``: the previous width's lanes and live
+    count, compacted into st's lanes; None: the call's first width) and
+    its rounds while the loop test holds (``loop``: the call's round
+    counter ``rnd``, the next width ``nxtw``, ``rcap``), by
     ``cuda_lib.run_loop``: one graph launch on a card, the graph captured
     at the round's first run.  The state is updated in place;
     ``st["live"]`` becomes the live count the width leaves.  Returns the
     round, which holds the graph until ``close()``."""
     if rd is None:
         rd = walk_cuda.WalkRound(fm, c, st, Uw)
-        rd.set_loop(loop["rnd"], st["live"], loop["nxtw"], loop["rcap"])
-    cuda_lib.run_loop(rd, walk_cuda.LIB, "walk", walk_cuda.entry,
+        rd.set_loop(loop["rnd"], None if src is None else src["live"],
+                    loop["nxtw"], loop["rcap"], src=src)
+    cuda_lib.run_loop(rd, walk_cuda.LIB, "walk", cuda_lib.RoundArgs.entry,
                       lambda r: _walk_round_kernels(fm, c, r))
     st["live"] = rd.live
     return rd
@@ -1342,7 +1353,9 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     Per round each live lane probes the memo table; misses co-group by
     key and one representative per group walks the chain (u_cap bounds
     the walk width; excess groups wait a round).  The loop is segmented
-    (stable compaction to narrower widths), exactly like the JAX loop.
+    (stable compaction to narrower widths), exactly like the JAX loop; on
+    the kernel path each segment's entry kernel compacts the lanes
+    (csrc/compact.cuh), the plain path ``_compact_lanes``.
     The round is ``_chain_round_plain`` in a Python loop for CPU
     tensors; otherwise each segment is one CUDA graph
     (``_chain_segment``: the round, ``_chain_round_kernels`` of
@@ -1420,7 +1433,9 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     st["ctr"] = torch.zeros(4, dtype=_I32, device=dev)
     st.update(zip(POOL_KEYS, st["pool"]))
     st.update(zip(("fq", "fc", "cursor", "povf"), st["ctr"]))
-    st["live"] = alive.sum().to(_I32)
+    if not kernels:
+        # the kernels' segment entry counts the live lanes on the card
+        st["live"] = alive.sum().to(_I32)
 
     # segment widths: each continuation is narrower, entered once the
     # alive count fits (bit-exact: lanes are only re-indexed)
@@ -1449,12 +1464,11 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
                    report_rounds),
                   lambda: _Held(fm, dict(
                       {n: c[n] for n in _CHAIN_CONSTS},
-                      **{n: st[n] for n in MEMO_KEYS + ("pool", "ctr",
-                                                        "live")},
-                      rnd=st["live"], hist=alive_hist),
+                      **{n: st[n] for n in MEMO_KEYS + ("pool", "ctr")},
+                      rnd=st["ctr"][0], hist=alive_hist),
                       {n: st[n] for n in CHAIN_LANE_KEYS}, segs))
         c = dict(c, **h.load(c, _CHAIN_CONSTS))
-        st.update(h.load(st, MEMO_KEYS + ("pool", "ctr", "live")))
+        st.update(h.load(st, MEMO_KEYS + ("pool", "ctr")))
         st.update(h.load_lanes(st, CHAIN_LANE_KEYS))
         st.update(zip(POOL_KEYS, st["pool"]))
         st.update(zip(("fq", "fc", "cursor", "povf"), st["ctr"]))
@@ -1466,12 +1480,14 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
         nxtw = segs[ix + 1] if ix + 1 < len(segs) else 0
         Uw = min(U, w)
         if kernels:
+            src = _next_lanes(st, CHAIN_LANE_KEYS, w, h, ix)
             rd = _chain_segment(fm, c, st, w, Uw, dict(
                 rnd=rnd_d, nxtw=nxtw, rcap=RCAP, hist=alive_hist),
-                None if h is None else h.rounds[ix])
+                None if h is None else h.rounds[ix], src=src)
             if h is not None:
                 h.rounds[ix] = rd
-        while not kernels and rnd < RCAP:
+            continue
+        while rnd < RCAP:
             # the one host sync a round, as the JAX loop tests its cond
             n_alive = int(st["live"])
             if n_alive <= nxtw:
@@ -1481,8 +1497,8 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
             st = run_round(fm, c, st, w, Uw)
             rnd += 1
         if nxtw:
-            _compact_lanes(st, nxtw, c["lane_rid0"][:1],
-                           None if h is None else h.lanes[ix + 1])
+            _compact_lanes(st, CHAIN_LANE_KEYS, nxtw,
+                           dict(lane_rid=c["lane_rid0"][:1]))
     if h is not None:
         # the caller's own, not the kept tensors
         st.update({kk: st[kk].clone() for kk in MEMO_KEYS + ("ctr",)})
@@ -1513,36 +1529,52 @@ def chain_scan(fm: DeviceFMIndex, qarr, rlens, GP: int, memo: dict,
     return pool, st["cursor"], ovf, st["fq"], st["fc"], memo_out
 
 
-CHAIN_LANE_KEYS = ("lane0", "lane_rid", "pivot", "pos", "k", "l", "s",
-                   "alive")
+CHAIN_LANE_KEYS = chain_cuda.LANE_KEYS
 _CHAIN_CONSTS = ("lane_rid0", "lane_rlen0", "mh0", "row_id0", "winflat",
                  "nxt", "qflat")
 
 
-def _compact_lanes(st: dict, w: int, rid_pad: torch.Tensor,
+def _compact_lanes(st: dict, keys, w: int, pads: dict | None = None,
                    out: dict | None = None) -> None:
-    """chain_scan's step between segments: each lane array of ``st``
-    (CHAIN_LANE_KEYS) cut to w lanes, the live lanes first in their order
-    (a stable compaction; bit-exact, lanes are only re-indexed).  The
-    lanes after them are lane 0 of the call, dead: zeros, and their read
-    id lane 0's, ``rid_pad`` (lane_rid0[:1]), so that lane_rid stays
-    lane_rid0[lane0].  Each array is written as ``_drop_set`` writes,
-    over a dump row that is cut off, with the targets computed and
-    clamped once for all of them: into new tensors, or into ``out``
-    (name -> w + 1 elements: the next segment's kept lanes)."""
+    """Both loops' step between segments, the plain version of their
+    segment entry kernels' compaction (csrc/compact.cuh): each lane array
+    of ``st`` named in ``keys`` (``alive`` among them) cut to w lanes, the
+    live lanes first in their order (a stable compaction; bit-exact,
+    lanes are only re-indexed; live lanes past w dropped, as the JAX
+    package's mode="drop").  The lanes after them are pads, dead: zeros,
+    or ``pads[name]`` (a one-element tensor: chain_scan's lane_rid takes
+    lane_rid0[:1], lane 0's, so that lane_rid stays lane_rid0[lane0]).
+    Each array is written as ``_drop_set`` writes, over a dump row that is
+    cut off, with the targets computed and clamped once for all of them;
+    into new tensors, or copied into ``out`` (name -> w elements).  The
+    live count is then st's "live", sum(alive) after the compaction, as
+    the JAX loop's cond counts it."""
+    pads = pads or {}
     lalive = st["alive"]
     tgt = torch.where(lalive, torch.cumsum(lalive, 0) - 1, w).clamp(max=w)
-    for kk in CHAIN_LANE_KEYS:
+    for kk in keys:
         # row w: the dump row, cut off
-        if out is None:
-            buf = rid_pad.repeat(w + 1) if kk == "lane_rid" else \
-                st[kk].new_zeros(w + 1)
-        elif kk == "lane_rid":
-            buf = out[kk].copy_(rid_pad.expand(w + 1))
-        else:
-            buf = out[kk].zero_()
+        buf = pads[kk].repeat(w + 1) if kk in pads else \
+            st[kk].new_zeros(w + 1)
         buf[tgt] = st[kk]
-        st[kk] = buf[:w]
+        st[kk] = buf[:w] if out is None else out[kk].copy_(buf[:w])
+    st["live"] = st["alive"].sum().to(_I32)
+
+
+def _next_lanes(st: dict, keys, w: int, h, ix: int):
+    """The kernel path's lanes of segment ``ix`` (w lanes): for a segment
+    that follows another, the previous segment's lane arrays (returned:
+    the segment entry's source, with "live", its live count) and in st the
+    segment's own, which its entry kernel writes: the kept lanes ``h``
+    holds for it, or new tensors allocated here (inside a call's capture:
+    before the loop's, which allocates nothing); None for a call's first
+    segment, whose lanes are st's."""
+    if not ix:
+        return None
+    src = {n: st[n] for n in keys + ("live",)}
+    st.update({n: h.lanes[ix][n] if h is not None else st[n].new_empty(w)
+               for n in keys})
+    return src
 
 
 # ---------------------------------------------------------------------------
@@ -1573,7 +1605,7 @@ class _Held:
     """One call shape's tensors, kept: ``t`` (name -> a tensor shaped as
     the template of that name: the call's constants, state and results;
     a None template stays None), ``lanes`` (per segment of width w: lane
-    name -> w + 1 elements, the last the compaction's dump row), ``rounds``
+    name -> w elements, which the segment's entry kernel writes), ``rounds``
     (per segment: its launch arguments and graph, built by the first
     call) and ``fm``, the index the graphs read, kept with them."""
 
@@ -1582,7 +1614,7 @@ class _Held:
         self.t = {n: None if x is None else torch.empty_like(
             x, memory_format=torch.contiguous_format)
             for n, x in templates.items()}
-        self.lanes = [{n: x.new_empty(w + 1)
+        self.lanes = [{n: x.new_empty(w)
                        for n, x in lane_templates.items()} for w in widths]
         self.rounds = [None] * len(widths)
 
@@ -1593,9 +1625,8 @@ class _Held:
 
     def load_lanes(self, src: dict, names) -> dict:
         """The first segment's lanes copied into its kept lanes: name ->
-        the kept view of the segment's width."""
-        return {n: self.lanes[0][n][:src[n].shape[0]].copy_(src[n])
-                for n in names}
+        the kept lanes."""
+        return {n: self.lanes[0][n].copy_(src[n]) for n in names}
 
     def close(self) -> None:
         for rd in self.rounds:
@@ -1612,11 +1643,13 @@ def _chain_round(dev: torch.device):
 
 
 def _chain_segment(fm: DeviceFMIndex, c: dict, st: dict, w: int, Uw: int,
-                   loop: dict, rd=None) -> chain_cuda.ChainRound:
+                   loop: dict, rd=None, src=None) -> chain_cuda.ChainRound:
     """One segment of chain_scan's loop through the kernels on w lanes:
     its ChainRound (launch arguments, scratch, held walk; ``rd``, the one
     an earlier call of this shape built on the same kept tensors, or
-    built here) and its rounds while the loop test holds (``loop``: the
+    built here), its entry kernel (``src``: the previous segment's lanes
+    and live count, compacted into st's lanes; None: the call's first
+    segment) and its rounds while the loop test holds (``loop``: the
     call's round counter ``rnd``, the next segment's width ``nxtw``,
     ``rcap`` and the histogram ``hist`` or None), by
     ``cuda_lib.run_loop``: one graph launch on a card, the graph captured
@@ -1625,9 +1658,9 @@ def _chain_segment(fm: DeviceFMIndex, c: dict, st: dict, w: int, Uw: int,
     the round, which holds the graph until ``close()``."""
     if rd is None:
         rd = chain_cuda.ChainRound(fm, c, st, w, Uw)
-        rd.set_loop(loop["rnd"], st["live"], loop["nxtw"], loop["rcap"],
-                    loop["hist"])
-    cuda_lib.run_loop(rd, chain_cuda.LIB, "chain", chain_cuda.entry,
+        rd.set_loop(loop["rnd"], None if src is None else src["live"],
+                    loop["nxtw"], loop["rcap"], loop["hist"], src)
+    cuda_lib.run_loop(rd, chain_cuda.LIB, "chain", cuda_lib.RoundArgs.entry,
                       lambda r: _chain_round_kernels(fm, c, r))
     st["live"] = rd.live
     return rd

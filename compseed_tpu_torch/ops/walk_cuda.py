@@ -4,7 +4,7 @@
 ``seedscan.walk_pool_chain`` runs its round as the plain version,
 ``seedscan._walk_round_plain``, in a Python loop for CPU tensors, and
 otherwise each segment as one CUDA graph (``cuda_lib.run_loop``): the
-entry kernel, then a WHILE node whose body is
+width's entry kernel, then a WHILE node whose body is
 ``seedscan._walk_round_kernels``, three hand-written kernels around one
 sort and one ``fm_chain_walk_kernel`` launch, the last of which, the
 apply, also runs the loop's test,
@@ -20,8 +20,11 @@ apply, also runs the loop's test,
                set the loop word, its last block to retire counts the
                round and runs the loop's test: rnd < RCAP and live > the
                next width);
-  ``entry`` -> ``walk_loop_entry_kernel`` (that test before a width's
-               first round).
+  ``WalkRound.entry`` -> ``walk_segment_entry_kernel`` (csrc/compact.cuh:
+               the previous width's lanes compacted into the width's,
+               or before a call's first width its live lanes counted;
+               the live count and that test before the width's first
+               round).
 
 A ``WalkRound`` holds one segment's launch arguments (the ``Args`` words
 of the source, named by ``ARGS`` in order) and its scratch: the lane
@@ -62,12 +65,16 @@ ARGS = (
     "w", "Uw", "W", "L", "n_rw", "GP", "idx64", "all4",
     "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits",
     "rnd", "live_in", "nxtw", "rcap", "hist", "cond", "go", "loop")
-_AT = {n: i for i, n in enumerate(ARGS)}
+# the lane arrays, in the order of their words above: what the width's
+# entry moves from the previous width (its words src_<name>, after the
+# loop word, so that an earlier build reads a prefix)
 LANE_KEYS = ("k", "l", "s", "rid", "i", "mh", "slot", "alive")
+ARGS += tuple(f"src_{n}" for n in LANE_KEYS) + ("src_w", "lb_entry")
+_AT = {n: i for i, n in enumerate(ARGS)}
 CALL_KEYS = ("death", "fk", "fl", "fs", "ctr")
 
 KERNELS = ("walk_key_kernel", "walk_group_kernel", "walk_apply_kernel")
-LOOP_KERNELS = ("walk_loop_entry_kernel",)
+LOOP_KERNELS = ("walk_segment_entry_kernel",)
 SORT = "walk_sort"          # CUB's radix sort, a library call
 # the bits of a walk key: a live lane's 32-bit mix shifted right by one,
 # or INT32_MAX (csrc/walk_chain.cu, key_lane)
@@ -80,6 +87,7 @@ APPLY_BLOCK = 256
 # kScEpoch, kScRetire: the apply's retire count, one 64-bit word at
 # SC_RETIRE, 8-byte aligned; loop_graph.cuh)
 SC_NW, SC_NU, SC_LIVE, SC_EPOCH, SC_RETIRE = 0, 1, 2, 3, 6
+SC_WORDS = 8
 
 
 def _bind(lib, prefix: bool = False) -> None:
@@ -119,6 +127,9 @@ class WalkRound(RoundArgs):
     ``cuda_lib.run_loop`` has run it on a card, its graph."""
 
     AT = _AT
+    LANE_KEYS = LANE_KEYS
+    ENTRY = "walk_segment_entry_kernel"
+    ENTRY_LB = "lb_group"
 
     def __init__(self, fm, const: dict, st: dict, Uw: int):
         dt = fm.dtype
@@ -167,7 +178,7 @@ class WalkRound(RoundArgs):
             rep_l=e(Uw, dt), rep_s=e(Uw, dt), rep_valid=e(Uw, torch.bool),
             gmin=e(Uw, dt),
             lb_group=torch.zeros(max(n_blocks, 1), dtype=i64, device=dev),
-            sc=torch.zeros(8, dtype=i32, device=dev))
+            sc=torch.zeros(SC_WORDS, dtype=i32, device=dev))
         self.live = self.scratch["sc"][SC_LIVE]   # live count after apply
         self._held = {n_: st[n_] for n_ in LANE_KEYS + CALL_KEYS}
         args = (ct.c_longlong * len(ARGS))()
@@ -182,6 +193,9 @@ class WalkRound(RoundArgs):
         self.args = args
         self.init_sort(KEY_BITS, _sort_bytes)
         self.walk = self.walk_out()
+
+    def launch(self, kernel: str) -> None:
+        _launch(kernel, self.dev, self.args)
 
 
 def _sort_bytes(n: int, bits: int) -> int:
@@ -210,10 +224,3 @@ def apply(rd: WalkRound) -> None:
     after ``set_loop`` also the round counted and the loop's test, the
     last launch of a round."""
     _launch("walk_apply_kernel", rd.dev, rd.args)
-
-
-def entry(rd: WalkRound) -> None:
-    """walk_loop_entry_kernel: the segment's loop test before its first
-    round (set_loop's words)."""
-    _launch("walk_loop_entry_kernel", rd.dev, rd.args)
-

@@ -232,7 +232,7 @@ def test_chain_scan_host_kernels_equal_plain_and_jax(on_host, idx, name,
     _equal(plain, want, "plain vs JAX")
     groups = rounds.pop("groups")
     # the entry kernel once a segment; every other launch once a round
-    entries = rounds.pop("chain_loop_entry_kernel")
+    entries = rounds.pop("chain_segment_entry_kernel")
     n_rounds = set(rounds.values())
     assert len(n_rounds) == 1 and n_rounds.pop() == len(groups) > 2, rounds
     assert entries == (2 if name in ("lep", "r2") else 1)
@@ -418,7 +418,8 @@ def test_probe_rid_cache_refilled_after_compaction(on_host, idx, name,
         nxtw = max(n_alive + 5, 8)
         assert 0 < n_alive < nxtw < w
         st2 = dict(ks)
-        tss._compact_lanes(st2, nxtw, const["lane_rid0"][:1])
+        tss._compact_lanes(st2, tss.CHAIN_LANE_KEYS, nxtw,
+                           dict(lane_rid=const["lane_rid0"][:1]))
         moved = st2["lane0"][:n_alive] != torch.arange(n_alive)
         assert moved.any()                  # lane0 is no longer the identity
         _segment_rounds((fm, const, st2, nxtw, min(Uw, nxtw)), 2)
@@ -527,13 +528,16 @@ def test_args_layout_matches_source(host):
     assert tuple(fields) == chain_cuda.ARGS
     assert host.chain_args_words() == len(chain_cuda.ARGS)
     # the lanes' read ids, then the sort's and the loop's words, then the
-    # loop word, come after the earlier words, so that an earlier build of
-    # the source reads a prefix of the words
+    # loop word, then the segment entry's source words come after the
+    # earlier words, so that an earlier build of the source reads a prefix
+    # of the words
     at = chain_cuda.ARGS.index("lane_rid")
     assert chain_cuda.ARGS[at - 1] == "idx64"
     assert chain_cuda.ARGS[at + 1:] == (
         "sorted_key", "iota", "sort_tmp", "sort_bytes", "key_bits", "rnd",
-        "live_in", "nxtw", "rcap", "hist", "cond", "go", "loop")
+        "live_in", "nxtw", "rcap", "hist", "cond", "go", "loop") + tuple(
+        f"src_{n}" for n in chain_cuda.LANE_KEYS) + (
+        "src_w", "lb_entry")
 
 
 class _Fn:

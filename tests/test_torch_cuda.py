@@ -1690,3 +1690,48 @@ def test_sharded_call_graph_equals_mesh_heads_on_card(dev, bench, dtype):
         assert [int(x) for x in head[:28]] == stored[s]["scalars"], s
         assert sha(head) == stored[s]["head_sha256"], s
         assert sha(seedpk) == stored[s]["seedpk_sha256"], s
+
+
+_BOUNDARIES: dict = {}
+
+
+def _boundaries(bench, dev, dtype):
+    """Every boundary between two segments of the first bench chunk's
+    chain_scan and walk_pool_chain calls (entry_cases.BoundaryCapture),
+    once per dtype."""
+    from compseed_tpu_torch.ops import entry_cases
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    if dtype not in _BOUNDARIES:
+        fm, reads = bench
+        sd = DeviceSeeder(MemOptions(), fm, dev,
+                          dfi=_bench_index(bench, dev, dtype), dedup=True)
+        with entry_cases.BoundaryCapture() as cap:
+            sd.run_flat(list(reads[:16384]))
+        torch.cuda.synchronize()
+        _BOUNDARIES[dtype] = list(cap.cases)
+    return _BOUNDARIES[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_segment_entry_on_card(dev, bench, dtype):
+    """The segment entry kernels (chain_segment_entry_kernel,
+    walk_segment_entry_kernel) on every boundary of the first bench
+    chunk, in every form (as captured, no live lane, exactly w live, w +
+    37 live at the RCAP cap): equal to the plain version (seedscan.segment_entry_plain) on
+    every lane of the new width and the loop words; one launch a call,
+    counted."""
+    from compseed_tpu_torch.ops import chain_cuda, entry_cases, walk_cuda
+    cases = _boundaries(bench, dev, dtype)
+    assert {c[0] for c in cases} == {"chain", "walk"}
+    for case in cases:
+        mod = chain_cuda if case[0] == "chain" else walk_cuda
+        kernel, = mod.LOOP_KERNELS
+        for form in entry_cases.FORMS:
+            n0 = mod.LAUNCHES[kernel]
+            r = entry_cases.entry_vs_plain(case, form)
+            torch.cuda.synchronize()
+            assert r["max_abs_err"] == 0, (case[0], case[4], form, r)
+            assert mod.LAUNCHES[kernel] == n0 + 1
+            if form == "cap":
+                assert (r["kept"], r["go"]) == (case[4], 0)

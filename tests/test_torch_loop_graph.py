@@ -10,13 +10,15 @@ their host loops.
   key needs its top bit); the host sort over those bits equals
   torch.sort(stable=True) on every round, and over one bit fewer it
   does not on some round.
-- The entry kernels' host twins (chain_loop_entry_host,
-  walk_loop_entry_host) and the apply kernels' folded tail (the apply's
+- The segment entry kernels' host twins (chain_segment_entry_host,
+  walk_segment_entry_host) before a call's first segment (the round's
+  live lanes counted) and the apply kernels' folded tail (the apply's
   host loop with the loop word set) against the Python loop's test,
   rnd < RCAP and live > nxtw with the histogram word, and against
   seedscan.loop_step_plain, at a running round, the RCAP cap, a segment
   exit and zero live lanes; without the loop word the apply touches no
-  loop word.
+  loop word.  (The entries' compaction between segments:
+  tests/test_torch_segment_entry.py.)
 - A CPU chain_scan with report_rounds (round-2 tasks, segmented) against
   the JAX chain_scan: rnd and alive_hist too; the same through the host
   loops stepped as the graph would step them; chain_scan and
@@ -241,18 +243,18 @@ def _apply_host(hosts, what, rd) -> None:
 @pytest.mark.parametrize("what", ["chain", "walk"])
 @pytest.mark.parametrize("case", ["running", "cap", "exit", "zero"])
 def test_loop_host_twins_match_the_python_test(hosts, tiny_fm, what, case):
-    """The entry kernel's host twin and the apply kernel's folded tail
-    (its host loop with set_loop's loop word, on a round whose lanes are
-    dead so that it adds nothing to the live count) against the Python
-    loop's test (rnd < RCAP and live > nxtw; when it holds, chain_scan's
-    histogram word hist[rnd] = live) and against the plain version,
+    """The segment entry kernel's host twin before a call's first segment
+    (no source lanes) and the apply kernel's folded tail (its host loop
+    with set_loop's loop word, on a round whose lanes are dead so that it
+    adds nothing to the live count) against the Python loop's test (rnd <
+    RCAP and live > nxtw; when it holds, chain_scan's histogram word
+    hist[rnd] = live) and against the plain version,
     seedscan.loop_step_plain (after the apply with the loop word unset):
-    the entry copies the live count the segment starts with into the
-    round's live word and tests it; the tail counts the round and tests
-    the count the apply left, and leaves the retire count at 0.  At a
-    running round, at the RCAP cap (the entry at rnd = RCAP, the tail
-    reaching it), at a segment exit (live == nxtw) and with no live
-    lane."""
+    the entry counts the round's live lanes into its live word and tests
+    the count; the tail counts the round and tests the count the apply
+    left, and leaves the retire count at 0.  At a running round, at the
+    RCAP cap (the entry at rnd = RCAP, the tail reaching it), at a
+    segment exit (live == nxtw) and with no live lane."""
     td = to_device(convert.fmindex_from_jax_package(tiny_fm), CPU)
     mod = MODULES[what]
     i32 = torch.int32
@@ -265,16 +267,17 @@ def test_loop_host_twins_match_the_python_test(hosts, tiny_fm, what, case):
         r0 = rnd0 - (0 if entry or case != "cap" else 1)
         words = []
         for run in ("twin", "plain"):
-            rd = _tiny_round(what, td)
+            rd = _tiny_round(what, td, 128)
+            if entry:
+                rd._held["alive"][:live] = True
             rnd = torch.tensor(r0, dtype=i32)
             hist = torch.full((rcap,), -1, dtype=i32) \
                 if what == "chain" else None
-            rd.set_loop(rnd, torch.tensor(live, dtype=i32), nxtw, rcap,
-                        hist)
+            rd.set_loop(rnd, None, nxtw, rcap, hist)
             rd.live.fill_(-1 if entry else live)
             rd.go.fill_(-1)
             if run == "twin" and entry:
-                assert getattr(hosts[what], f"{what}_loop_entry_host")(
+                assert getattr(hosts[what], f"{what}_segment_entry_host")(
                     ct.addressof(rd.args)) == 0
             elif run == "twin":
                 _apply_host(hosts, what, rd)
@@ -356,7 +359,7 @@ def test_cpu_chain_scan_report_rounds_equals_jax(hosts, idx, on_host,
     rounds = int(got[6])
     assert on_host["chain_apply_kernel"] == rounds
     assert on_host["chain_probe_kernel"] == rounds
-    assert on_host["chain_loop_entry_kernel"] == 2   # 512 lanes, then 256
+    assert on_host["chain_segment_entry_kernel"] == 2   # 512 lanes, then 256
 
 
 def test_call_capture_vs_plain_on_host(idx, on_host, monkeypatch):
@@ -413,12 +416,13 @@ def test_capture_guard_is_the_threads_own():
 
 def test_loop_words_live_on_the_device(hosts, idx):
     """set_loop points the round's Args at device words (the round
-    counter, the live count it starts from, its own go word) and plain
-    sizes, and sets the loop word: nothing a round changes is an Args
-    word, so one set of words serves every replay of the segment's graph.
-    The loop's plain version (seedscan.loop_step_plain, what chip_smoke.py
-    holds the entry kernel and the apply's folded tail to on the card)
-    leaves the same words as the entry's host twin and the apply's host
+    counter, the live count of the lanes it starts from, its own go word)
+    and plain sizes, and sets the loop word: nothing a round changes is an
+    Args word, so one set of words serves every replay of the segment's
+    graph.  The loop's plain version (seedscan.loop_step_plain, what
+    chip_smoke.py holds the segment entry kernel's test and the apply's
+    folded tail to on the card) leaves the same words as the entry's host
+    twin (no source: the round's live lanes counted) and the apply's host
     loop."""
     _, td = idx
     rd = _tiny_round("chain", td)
@@ -441,9 +445,10 @@ def test_loop_words_live_on_the_device(hosts, idx):
             rnd.fill_(r0)
             live.fill_(live0)
             rd.live.fill_(-1 if entry else live0)
+            rd._held["alive"].zero_()[:live0] = entry
             hist.zero_()
             if run == "twin" and entry:
-                assert hosts["chain"].chain_loop_entry_host(
+                assert hosts["chain"].chain_segment_entry_host(
                     ct.addressof(rd.args)) == 0
             elif run == "twin":
                 _apply_host(hosts, "chain", rd)

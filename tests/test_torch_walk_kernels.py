@@ -220,7 +220,7 @@ def test_walk_pool_chain_host_kernels_equal_plain_and_jax(on_host, idx,
     _equal(plain, want, "plain vs JAX")
     groups = rounds.pop("groups")
     # the entry kernel once a width; every other launch once a round
-    entries = rounds.pop("walk_loop_entry_kernel")
+    entries = rounds.pop("walk_segment_entry_kernel")
     n_rounds = set(rounds.values())
     assert len(n_rounds) == 1 and n_rounds.pop() == len(groups) > 2, rounds
     assert 1 <= entries <= len(SEGS)
