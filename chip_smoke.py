@@ -85,10 +85,22 @@ Phases, in order; any failure exits non-zero:
                 launches, replayed) in turns with the PyTorch compaction
                 it replaced and, with the parent's sources, its
                 one-thread loop entry kernel.
-                The suffix-array loop's kernels (sa_batch_compact's
-                last stage, one loop of the call's graph: entry and cond)
-                against alive.any() on the first chunk's last-stage lanes
-                before each round, all dead and only the last alive.
+                The suffix-array walk's stage entry kernel (a boundary
+                between two stages of sa_batch_compact: the lanes that
+                died written out, the live ones compacted into the next
+                stage's, ovf, before the last stage the loop's first
+                test) on every boundary of the first chunk's call and of
+                a 40-lane call (a last stage of one lane), int32 and
+                int64, as captured, with no live lane, cap // 2, cap and
+                cap + 37 live lanes: exact against its plain version
+                (fm._sa_boundary_plain); each call by the kernels against
+                the plain version; each boundary of the int32 chunk timed
+                on the card alone in turns with the PyTorch sequence it
+                replaced; the walk with its loop word (its last block to
+                retire runs the loop's test after a round) against
+                alive.any() on the last stage's lanes before each round,
+                all dead and only the last alive, and timed with and
+                without the word in turns.
                 Then each seeding call as one CUDA graph (DeviceSeeder.
                 _call: the default engine's whole call captured once a
                 thread and call shape, its loops joining the capture)
@@ -210,10 +222,11 @@ Phases, in order; any failure exits non-zero:
                 and graphs), 2 stream syncs (the two fetches) and 8 async
                 copies a chunk; on the profiled chunk at most 5
                 one-thread loop entry kernels, a segment entry kernel,
-                and the PyTorch compaction between segments not run on
-                the main path (counted over the int32 window, whose first
-                chunk captures the call graphs the profiled chunk
-                replays).
+                no suffix-array loop kernel of its own (sa_loop_*), and
+                neither the PyTorch compaction between segments nor
+                sa_batch_compact's plain version run on the main path
+                (counted over the int32 window, whose first chunk
+                captures the call graphs the profiled chunk replays).
   5. cli      — the command line, ``compseed_tpu_torch.cli.main``, at its
                 defaults (device engine on the card).  ``index`` on
                 tests/fixtures/tiny.fa must write the committed index
@@ -423,15 +436,17 @@ LOOP_REPLACES = {
 LOOP_SOURCES = {"chain": CHAIN_SOURCE, "walk": WALK_SOURCE}
 ENTRY_TURNS = 3             # entry_time's turns (each both orders)
 TAIL_TURNS = 3              # loop_tail_turns' turns (each both orders)
-# the suffix-array loop's kernels (sa_batch_compact's last stage, one
-# loop of the call's graph) and the while_loop cond each replaces
-SA_KERNELS = ("sa_loop_entry_kernel", "sa_loop_cond_kernel")
+# the suffix-array walk's stage entry kernel (the boundaries between
+# sa_batch_compact's stages) and what of the JAX package it replaces
+SA_KERNELS = ("sa_stage_entry_kernel",)
 SA_REPLACES = {
-    "sa_loop_entry_kernel": "compseed_tpu/ops/fm.py:282 (sa_batch_compact's "
-                            "last-stage while_loop cond, jnp.any(alive), "
-                            "before its first round; XLA, no Pallas)",
-    "sa_loop_cond_kernel": "compseed_tpu/ops/fm.py:282 (the same cond after "
-                           "each round; XLA, no Pallas)"}
+    "sa_stage_entry_kernel": "compseed_tpu/ops/fm.py:268-291 "
+                             "(sa_batch_compact's boundaries between stages: "
+                             "the done lanes scattered with mode=\"drop\", "
+                             "argsort(~alive, stable)[:cap] and the gathers, "
+                             "ovf) and :282 (the last stage's while_loop "
+                             "cond before its first round); XLA, no Pallas"}
+SA_TURNS = 3                # sa_time's and sa_tail's turns (each both orders)
 # gates on one chunk of the main path's seeding (torch.profiler), each the
 # value measured on an H100 (PERF.md) plus a stated margin: the kernels the
 # card runs a chain_scan round and a walk_pool_chain round (the body
@@ -581,10 +596,14 @@ def device_kind(name: str) -> str:
 
 # kernels the card runs counted by family in a profiled chunk: the
 # one-thread loop entry kernels (chain_scan's and walk_pool_chain's, the
-# port's before the segment entry kernels), the segment entry kernels, and
-# PyTorch's index_put_ and scan (cumsum) kernels
+# port's before the segment entry kernels), the segment entry kernels, the
+# suffix-array loop's one-block kernels (the port's before its stage entry
+# kernel) and that kernel, and PyTorch's index_put_ and scan (cumsum)
+# kernels
 KERNEL_FAMILIES = dict(loop_entry=r"\b(?:chain|walk)_loop_entry_kernel",
                        segment_entry=r"_segment_entry_kernel",
+                       sa_loop=r"\bsa_loop_(?:entry|cond)_kernel",
+                       sa_stage=r"\bsa_stage_entry_kernel",
                        index_put=r"index_elementwise_kernel|index_put",
                        scan=r"(?i)scan")
 
@@ -846,10 +865,10 @@ class FmCapture:
     kind: the chain walk by direction, the inverse-Psi walk by step
     count, the extension by batch rank.  While it is active every seeding
     call runs eagerly (seeder2.EagerCalls) and chain_scan,
-    walk_pool_chain and sa_batch_compact's last stage run their plain
-    loops: in a loop's graph the walk's inputs exist on the card alone,
-    and the plain loop (its outputs equal) launches the same walk kernel
-    on them from the host."""
+    walk_pool_chain and sa_batch_compact run their plain versions: in a
+    loop's graph the walk's inputs exist on the card alone, and the plain
+    version (its outputs equal) launches the same walk kernel on them
+    from the host."""
 
     def __init__(self):
         from compseed_tpu_torch.ops import fm as dfm
@@ -862,7 +881,7 @@ class FmCapture:
                          extend_sel_batch=fm_cuda.extend_sel_batch)
         self.rounds = dict(_chain_round=ss._chain_round,
                            _walk_round=ss._walk_round)
-        self.sa_loop = dfm._sa_loop
+        self.sa_compact = dfm._sa_compact
         self.calls = {}
         self.counts = {}            # calls by key
 
@@ -889,7 +908,7 @@ class FmCapture:
         wrap("extend_sel_batch", lambda *a, **kw: (a[1].dim(),))
         self.ss._chain_round = lambda dev: self.ss._chain_round_plain
         self.ss._walk_round = lambda dev: self.ss._walk_round_plain
-        self.fm._sa_loop = lambda dev: self.fm._sa_loop_plain
+        self.fm._sa_compact = lambda dev: self.fm._sa_batch_compact_plain
         self.eager.__enter__()
         return self
 
@@ -898,7 +917,7 @@ class FmCapture:
             setattr(self.mod, name, fn)
         for name, fn in self.rounds.items():
             setattr(self.ss, name, fn)
-        self.fm._sa_loop = self.sa_loop
+        self.fm._sa_compact = self.sa_compact
         self.eager.__exit__()
 
 
@@ -1115,7 +1134,8 @@ def fm_rows(fm_rec, row) -> list:
     and of the rerun (its (P, 3) extension); the walks' latency floor:
     their steps times one dependent step's latency on the bench table
     (fm_latency); max_abs_err: over every comparison of the kernel (phase
-    2, the captured calls and the 2^30-base table)."""
+    2, the captured calls and the 2^30-base table); the inverse-Psi
+    walk's ``loop_tail``: its folded loop test (sa_tail)."""
     calls = fm_rec["main_path_calls"]
     ext = fm_rec["extend_sel"]
     errs = {k: 0 for k in FM_KERNELS}
@@ -1169,7 +1189,8 @@ def fm_rows(fm_rec, row) -> list:
             fm_rec["main_launches"]["fm_inv_psi_walk_kernel"],
             errs["fm_inv_psi_walk_kernel"], walk["ms"], walk["plain_ms"],
             walk, **more("fm_inv_psi_walk_kernel", walk,
-                         latency_floor_ms=walk_n * lat["psi_step_ms"]))]
+                         latency_floor_ms=walk_n * lat["psi_step_ms"],
+                         loop_tail=fm_rec.get("sa_loop_tail")))]
 
 
 class OldFmBuild:
@@ -1987,95 +2008,291 @@ def call_graph_check(dev, opt, fm, reads_arr) -> dict:
     return out
 
 
-def sa_capture(seeder, queries) -> list:
-    """The lanes of sa_batch_compact's last stage (fm, kk, steps, alive,
-    cloned as the loop starts) in one eager run of ``queries``
-    (seeder2.EagerCalls)."""
+def sa_capture(dev, opt, fm, queries) -> dict:
+    """Every boundary of sa_batch_compact's suffix-array walk in one
+    eager seeding run of the first chunk and in one call over 40 random
+    positions (a last stage of one lane), as the plain version runs them
+    (sa_cases.BoundaryCapture), int32 and int64: dtype tag -> cases."""
+    import numpy as np
     import torch
     from compseed_tpu_torch.ops import fm as dfm
-    from compseed_tpu_torch.ops.seeder2 import EagerCalls
-    got, orig = [], dfm._sa_loop_kernels
+    from compseed_tpu_torch.ops import sa_cases
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.ops.engine import device_seeder
+    out = {}
+    for tag, force in (("int32", None), ("int64", np.int64)):
+        dfi = to_device(fm, dev, force_dtype=force)
+        sd = device_seeder(opt, fm, dedup=True, device=dev, dfi=dfi)
+        gen = torch.Generator().manual_seed(40)
+        small = torch.randint(0, dfi.seq_len, (40,), generator=gen)
+        with sa_cases.BoundaryCapture() as cap:
+            sd.run_flat(queries)
+            dfm.sa_batch_compact(dfi, small.to(dfi.dtype).to(dev))
+        torch.cuda.synchronize()
+        if [c[2] for c in cap.cases] != [0, 1, 2, 3] * 2:
+            raise SystemExit(f"sa_capture ({tag}): boundaries of stages "
+                             f"{[c[2] for c in cap.cases]}, expected two "
+                             f"calls' four")
+        out[tag] = cap.cases
+    return out
 
-    def keep(fm_, kk, steps, alive):
-        got.append((fm_, kk.clone(), steps.clone(), alive.clone()))
-        return orig(fm_, kk, steps, alive)
 
-    dfm._sa_loop_kernels = keep
-    try:
-        with EagerCalls():
-            seeder.run_flat(queries)
-    finally:
-        dfm._sa_loop_kernels = orig
+def sa_check(cases: dict) -> dict:
+    """sa_stage_entry_kernel on every boundary (``cases``: sa_capture's)
+    in every form (sa_cases.forms: as captured, no live lane, cap // 2,
+    cap and cap + 37 live lanes) against its plain version
+    (sa_cases.stage_vs_plain: the outputs, ovf, the next stage's alive
+    bytes, slots and live lanes, go before the last stage); then each
+    call whole (the positions the first boundary holds) by the kernels
+    against the plain version: SA values and ovf; then sa_rounds, the
+    loop over three rounds and more.  max_abs_err 0, or the run fails."""
+    import torch
+    from compseed_tpu_torch.ops import fm as dfm
+    from compseed_tpu_torch.ops import sa_cases
+    from compseed_tpu_torch.ops.chain_cases import max_err
+    rec = dict(max_abs_err=0, boundaries=0, cases={}, calls={})
+    for tag, cs in cases.items():
+        for i, case in enumerate(cs):
+            rec["boundaries"] += 1
+            for form in sa_cases.forms(case):
+                r = sa_cases.stage_vs_plain(case, form)
+                rec["max_abs_err"] = max(rec["max_abs_err"],
+                                         r["max_abs_err"])
+                rec["cases"][f"{tag} {i} N={case[1]} s={case[2]} "
+                             f"{form}"] = r
+            if case[2] == 0:
+                k = case[3]["out_k"][:case[1]].clone()
+                got = dfm.sa_batch_compact(case[0], k)
+                want = dfm._sa_batch_compact_plain(case[0], k)
+                e = max(max_err(got[0], want[0]), max_err(got[1], want[1]))
+                rec["calls"][f"{tag} N={case[1]}"] = dict(
+                    max_abs_err=e, ovf=bool(want[1]))
+                rec["max_abs_err"] = max(rec["max_abs_err"], e)
+        r = sa_rounds(cs[0][0])
+        rec["calls"].update({f"{tag} {k}": v for k, v in r.items()})
+        rec["max_abs_err"] = max([rec["max_abs_err"]] +
+                                 [v["max_abs_err"] for v in r.values()])
     torch.cuda.synchronize()
-    return got
+    if rec["max_abs_err"]:
+        bad = {k: r for k, r in rec["cases"].items() if r["max_abs_err"]}
+        raise SystemExit(f"sa_stage_entry_kernel or the suffix-array walk "
+                         f"on the kernels disagrees with its plain version: "
+                         f"{bad} {rec['calls']}")
+    return rec
 
 
-def sa_loop_kernels(case) -> dict:
-    """The suffix-array loop's kernels on the first chunk's last-stage
-    lanes (``case``: sa_capture's first), launched one at a time outside
-    a graph (the condition handle 0), against their plain version,
-    alive.any(), on the alive bytes before the loop's first round, after
-    each round (the lanes walked 2 sa_intv steps in place a round, as the
-    graph does, until none lives), with every lane dead and with only the
-    last alive: go held equal.  Then each timed on the card alone
-    (launch_ms) and in a loop, beside the plain version's ms (in a loop),
-    the library call's (torch.any into a bool, on the card alone) and the
-    bound: the alive bytes read and go written against an OR a lane."""
+def sa_rounds(fm) -> dict:
+    """The suffix-array loop over three rounds and more on the card, each
+    against its plain version: the last stage's loop alone (sa_cases.
+    last_loop / run_last_loop: one graph, its WHILE node continued by the
+    walk's folded test) from the index's 64 longest walks (sa_cases.
+    long_rows), its lanes against fm._sa_loop_plain's; and whole calls on
+    4,096 positions, those rows first, then sampled rows (ovf clear) or
+    random ones (ovf set), eagerly and inside a CUDA graph capture (the
+    loop joining it), SA values and ovf against the plain version.
+    {name: {max_abs_err, rounds: the plain loop's}}; fewer than three
+    rounds fails the run."""
     import torch
     from compseed_tpu_torch.ops import fm as dfm
-    from compseed_tpu_torch.ops import fm_cuda
-    fm_, kk, steps, alive = case
-    n = alive.shape[0]
-    k2, s2, a2 = kk.clone(), steps.clone(), alive.clone()
-    states = [alive.clone()]
-    while bool(a2.any()):
-        dfm._walk(fm_, k2, s2, a2, 2 * fm_.sa_intv, out=(k2, s2, a2))
-        states.append(a2.clone())
-    last = torch.zeros_like(alive)
+    from compseed_tpu_torch.ops import sa_cases
+    from compseed_tpu_torch.ops.chain_cases import max_err
+    rows, steps = sa_cases.long_rows(fm, 64)
+    i, dev = fm.sa_intv, rows.device
+    out = {}
+    want = dfm._sa_loop_plain(fm, rows, torch.zeros_like(rows),
+                              (rows & (i - 1)) != 0)
+    lp = sa_cases.last_loop(fm, rows)
+    sa_cases.run_last_loop(lp)
+    lp.close()
+    out["last loop alone"] = dict(
+        max_abs_err=max(max_err(g, w) for g, w in zip(lp.lanes[3], want)),
+        rounds=-(-int(want[1].max()) // (2 * i)))
+    gen = torch.Generator().manual_seed(41)
+    rand = torch.randint(0, fm.seq_len, (4096,), generator=gen).to(
+        fm.dtype).to(dev)
+    rounds = -(-(int(steps[0]) - 7 * i) // (2 * i))
+    for name, k in (("sampled", rand - (rand & (i - 1))), ("random", rand)):
+        k = k.clone()
+        k[:64] = rows
+        want = dfm._sa_batch_compact_plain(fm, k)
+        got = dfm.sa_batch_compact(fm, k)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+            cap = dfm.sa_batch_compact(fm, k)
+        graph.replay()
+        torch.cuda.synchronize()
+        out[f"4096 lanes, long walks + {name}"] = dict(
+            max_abs_err=max(max_err(x[j], want[j])
+                            for x in (got, cap) for j in (0, 1)),
+            rounds=rounds, ovf=bool(want[1]))
+        del graph
+    if min(r["rounds"] for r in out.values()) < 3:
+        raise SystemExit(f"sa_rounds: the plain loop took fewer than 3 "
+                         f"rounds: {out}")
+    return out
+
+
+def torch_sa_boundary(case, src: dict):
+    """The PyTorch sequence sa_stage_entry_kernel replaced at a boundary
+    (the port's before it, on the card): fm._sa_boundary_plain (the done
+    lanes' index_put_s, the stable argsort, ovf, the gathers) on the
+    state ``src``, and before the last stage the loop's first test
+    (alive.any() into an int32, what the one-block loop entry kernel
+    computed).  A function of no argument, each call from ``src``."""
+    import torch
+    from compseed_tpu_torch.ops import fm as dfm
+    from compseed_tpu_torch.ops import sa_cases
+    N, s, cap = case[1], case[2], sa_cases.next_width(case)
+    go = torch.empty((), dtype=torch.int32, device=src["alive"].device)
+
+    def run():
+        st = dict(src)
+        dfm._sa_boundary_plain(st, N, cap)
+        if s == 2:
+            go.copy_(st["alive"].any())
+    return run
+
+
+def sa_time(cases: list) -> dict:
+    """Each boundary of the first chunk's call (int32; ``cases``:
+    sa_capture's first four) on the card alone (launch_ms: 20 launches in
+    a CUDA graph, replayed), sa_stage_entry_kernel in turns with the
+    PyTorch sequence it replaced (torch_sa_boundary), SA_TURNS turns each
+    order; that sequence in a loop (events: the plain version's time); the
+    bound: stage_work's bytes over the HBM rate against its operations.
+    Per boundary: medians."""
+    import torch
+    from compseed_tpu_torch.ops import fm_cuda, sa_cases
+    out = {}
+    for case in cases:
+        _, N, s, _ = case
+        src = sa_cases.source(case, "captured")
+        lp = sa_cases.stage_loop(case, src)
+        runs = {"kernel": lambda lp=lp, s=s: fm_cuda.SaLoop.boundary(lp, s),
+                "torch sequence": torch_sa_boundary(case, src)}
+        ms = {n: [] for n in runs}
+        for turn in range(2 * SA_TURNS):
+            for n in (list(runs) if turn % 2 == 0 else list(runs)[::-1]):
+                ms[n].append(launch_ms(runs[n], 20))
+        nbytes, ops = sa_cases.stage_work(case, src)
+        bound_ms, bound_by = bound_of(nbytes, ops)
+        w = sa_cases.next_width(case)
+        out[f"s={s} {src['alive'].shape[0]}->{w or 0}"] = dict(
+            stage=s, src_n=int(src["alive"].shape[0]), w=w or 0,
+            live=int(src["alive"].sum()),
+            median_ms={n: statistics.median(v) for n, v in ms.items()},
+            ms=ms, plain_ms=cuda_time_ms(runs["torch sequence"], 20),
+            bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by)
+    torch.cuda.synchronize()
+    log(f"[2] sa_stage_entry_kernel on the card alone, in turns with the "
+        f"PyTorch sequence it replaced: "
+        f"{json.dumps({k: r['median_ms'] for k, r in out.items()})}")
+    return out
+
+
+def sa_tail(case) -> dict:
+    """The walk's folded loop test on the last stage's lanes of the first
+    chunk (``case``: sa_capture's boundary before the last stage; its
+    plain version gives the lanes as the loop starts): the walk of 2
+    sa_intv steps with its tail (fm_cuda.inv_psi_walk, SaLoop.tail), out
+    of place from each state the plain loop passes before a round, from
+    all dead, from only the last alive, and from the index's longest
+    walks (sa_cases.long_rows, alive after the round: the test must
+    continue the loop there): go against alive.any() of what it wrote,
+    and go = 1 at least once.  Then the walk with the tail and without,
+    on the card alone in turns (out of place from the loop's first state,
+    so every launch walks the same), the plain version's time
+    (alive.any() into go, events), torch.any's (the library call, on the
+    card alone) and the bound of the test's work (the alive bytes read,
+    go written)."""
+    import torch
+    from compseed_tpu_torch.ops import fm as dfm
+    from compseed_tpu_torch.ops import fm_cuda, sa_cases
+    from compseed_tpu_torch.ops.chain_cases import max_err
+    fm_ = case[0]
+    st = sa_cases.plain(case, sa_cases.source(case, "captured"))
+    lanes = [st["kk"].contiguous(), st["steps"].contiguous(),
+             st["alive"].contiguous()]
+    n = lanes[0].shape[0]
+    states = []
+    kk, steps, alive = (x.clone() for x in lanes)
+    while True:
+        states.append((kk.clone(), steps.clone(), alive.clone()))
+        if not bool(alive.any()):
+            break
+        kk, steps, alive = dfm._walk(fm_, kk, steps, alive,
+                                     2 * fm_.sa_intv)
+    rounds = len(states) - 1
+    last = torch.zeros_like(lanes[2])
     last[-1] = True
-    states += [torch.zeros_like(alive), last]
-    errs = dict.fromkeys(SA_KERNELS, 0)
-    for st in states:
-        lp = fm_cuda.SaLoop(fm_, kk.clone(), steps.clone(), st.clone(),
-                            2 * fm_.sa_intv)
-        for kernel, launch in zip(SA_KERNELS, (fm_cuda.sa_entry,
-                                               fm_cuda.sa_cond)):
-            lp.go.fill_(-1)
-            launch(lp)
-            errs[kernel] = max(errs[kernel],
-                               err(lp.go, st.any().to(torch.int32)))
-    if any(errs.values()):
-        raise SystemExit(f"a suffix-array loop kernel disagrees with "
-                         f"alive.any(): {errs}")
-    lp = fm_cuda.SaLoop(fm_, kk, steps, alive, 2 * fm_.sa_intv)
+    rows, _ = sa_cases.long_rows(fm_, n)
+    states += [(lanes[0], lanes[1], torch.zeros_like(last)),
+               (lanes[0], lanes[1], last),
+               (rows, torch.zeros_like(rows),
+                (rows & (fm_.sa_intv - 1)) != 0)]
+    k0 = case[3]["out_k"][:case[1]].clone()
+    lp = fm_cuda.SaLoop(fm_, k0, torch.zeros_like(k0), torch.zeros(
+        case[1], dtype=torch.bool, device=k0.device))
+    out3 = lp.lanes[3][:3]
+
+    def walk(src, tail: bool):
+        return lambda: fm_cuda.inv_psi_walk(
+            fm_, *src, lp.n_steps[3], out=out3,
+            tail=lp.tail() if tail else None)
+
+    err, gos = 0, []
+    for src in states:
+        lp.go.fill_(-1)
+        walk(src, True)()
+        gos.append(int(lp.go))
+        err = max(err, max_err(lp.go, out3[2].any().to(torch.int32)))
+    if err or 1 not in gos:
+        raise SystemExit(f"the walk's folded loop test disagrees with "
+                         f"alive.any() (max_abs_err {err}) or never "
+                         f"continued the loop: go {gos}")
+    runs = {"walk with the loop word": walk(states[0], True),
+            "walk alone": walk(states[0], False)}
+    ms = {k: [] for k in runs}
+    for turn in range(2 * SA_TURNS):
+        for k in (list(runs) if turn % 2 == 0 else list(runs)[::-1]):
+            ms[k].append(launch_ms(runs[k], 20))
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    alive0 = states[0][2]
+    go = torch.empty((), dtype=torch.int32, device=alive0.device)
+    any_out = torch.empty((), dtype=torch.bool, device=alive0.device)
     bound_ms, bound_by = bound_of(n + 4, n)
-    plain_ms = cuda_time_ms(lambda: lp.go.copy_(alive.any()), 50)
-    any_out = torch.empty((), dtype=torch.bool, device=alive.device)
-    library_ms = launch_ms(lambda: torch.any(alive, out=any_out), 20)
-    out = dict(lanes=n, rounds=len(states) - 3, states=len(states))
-    for kernel, launch in zip(SA_KERNELS, (fm_cuda.sa_entry,
-                                           fm_cuda.sa_cond)):
-        out[kernel] = dict(max_abs_err=errs[kernel],
-                           ms=launch_ms(lambda: launch(lp), 20),
-                           loop_ms=cuda_time_ms(lambda: launch(lp), 50),
-                           plain_ms=plain_ms, library_ms=library_ms,
-                           bound_ms=bound_ms, bound_by=bound_by,
-                           bytes=n + 4, ops=n)
+    out = dict(lanes=n, rounds=rounds, states=len(states), go=gos,
+               max_abs_err=err, median_ms=med, ms=ms,
+               tail_ms=med["walk with the loop word"] - med["walk alone"],
+               plain_ms=cuda_time_ms(lambda: go.copy_(alive0.any()), 50),
+               library_ms=launch_ms(lambda: torch.any(alive0, out=any_out),
+                                    20),
+               bound_ms=bound_ms, bound_by=bound_by, bytes=n + 4, ops=n)
+    torch.cuda.synchronize()
+    log(f"[2] the walk's folded loop test on the first chunk's last-stage "
+        f"lanes: {json.dumps(out)}")
     return out
 
 
 def sa_rows(sa_rec, l32, row, prof) -> list:
-    """The suffix-array loop kernels' rows of the kernel table: launches
-    (captured, once a graph launch) in the main path's int32 window; ms,
-    plain_ms and the bound from sa_loop_kernels; device_ms_profiled: the
-    profiler's mean over one chunk's runs of the kernel."""
-    return [row(k, SA_REPLACES[k], l32[k], sa_rec[k]["max_abs_err"],
-                sa_rec[k]["ms"], sa_rec[k]["plain_ms"], sa_rec[k],
-                source=FM_SOURCE, loop_ms=sa_rec[k]["loop_ms"],
-                library_ms=sa_rec[k]["library_ms"],
+    """The suffix-array stage entry kernel's row of the kernel table:
+    launches (eager, or captured once a graph launch) in the main path's
+    int32 window; ms, plain_ms and the bound at the first chunk's widest
+    boundary (sa_time), every boundary's medians beside them
+    (``boundaries``: the kernel and the PyTorch sequence it replaced);
+    max_abs_err over sa_check's boundaries, forms and calls;
+    device_ms_profiled: the profiler's mean over one chunk's runs."""
+    k, = SA_KERNELS
+    r = max(sa_rec["time"].values(), key=lambda x: x["src_n"])
+    return [row(k, SA_REPLACES[k], l32[k], sa_rec["check"]["max_abs_err"],
+                r["median_ms"]["kernel"], r["plain_ms"], r, source=FM_SOURCE,
+                at=f"{r['src_n']} -> {r['w']} lanes",
+                boundaries={t: x["median_ms"]
+                            for t, x in sa_rec["time"].items()},
                 device_ms_profiled=prof.get(k, {}).get(
-                    "device_ms_per_launch"))
-            for k in SA_KERNELS]
+                    "device_ms_per_launch"))]
 
 
 def segment_costs(seeder, queries, runs: int = 3) -> dict:
@@ -2569,7 +2786,8 @@ def launch_split(seeder, queries) -> dict:
     and loop kernels, the FM kernels, CUB's, the rest; memsets; copies).
     Per round: the kernels and memsets of each segment's body graph
     (LoopGraph.nodes, what the card runs every round; the largest over
-    the segments is gated), the rounds (the cond kernel's runs) and the
+    the segments is gated), the rounds (the apply's runs; the
+    suffix-array loop's: the walk's runs past three a call) and the
     loops' share of the kernels the card ran (each segment's entry
     kernel and its rounds' bodies).  Stages are marked with
     record_function for this run only (outside any capture); a run in
@@ -2688,8 +2906,11 @@ def launch_split(seeder, queries) -> dict:
             other_nodes=max(b["other"] for b in segs),
             host_launches_per_segment=split[f"{what}_segment"]["launches"]
             / len(segs))
+    # the suffix-array walk: its stage entries, four a call (its rounds
+    # are not counted here: the profiler's walk launches mix them with
+    # every other inverse-Psi walk of the chunk)
     per["sa_round"] = dict(
-        rounds=ran["kernels"].get("sa_loop_cond_kernel", 0),
+        stage_entries=ran["kernels"].get("sa_stage_entry_kernel", 0),
         loops=len(bodies["fm"]),
         kernels=max((b["kernels"] for b in bodies["fm"]), default=0),
         memsets=max((b["memsets"] for b in bodies["fm"]), default=0))
@@ -4565,14 +4786,21 @@ def main() -> None:
     loop_rec["entry_time"] = entry_time(boundaries["int32"], dict(
         chain=chain_build_set, walk=walk_build_set))
     del boundaries
-    # the suffix-array loop's kernels on the first chunk's last-stage lanes;
+    # the suffix-array walk's stage entry kernel on every boundary of the
+    # first chunk's call and a 40-lane call, against its plain version,
+    # then timed against what it replaced; the walk's folded loop test;
     # each seeding call as one graph against the eager _run, every chunk
     t0 = time.time()
-    sa_rec = sa_loop_kernels(sa_capture(device_seeder(
-        opt, fm, dedup=True, device=dev), list(reads_arr[:CHUNK]))[0])
-    log(f"[2] the suffix-array loop's kernels against alive.any() on the "
-        f"first chunk's last-stage lanes ({time.time() - t0:.1f} s): "
-        f"{json.dumps(sa_rec)}")
+    sa_cases_ = sa_capture(dev, opt, fm, list(reads_arr[:CHUNK]))
+    sa_rec = dict(check=sa_check(sa_cases_))
+    log(f"[2] sa_stage_entry_kernel against its plain version on every "
+        f"boundary ({time.time() - t0:.1f} s): max_abs_err "
+        f"{sa_rec['check']['max_abs_err']} over "
+        f"{sa_rec['check']['boundaries']} boundaries; "
+        f"{json.dumps(sa_rec['check'])}")
+    sa_rec["time"] = sa_time(sa_cases_["int32"][:4])
+    sa_rec["tail"] = sa_tail(sa_cases_["int32"][2])
+    del sa_cases_
     call_rec = call_graph_check(dev, opt, fm, reads_arr)
 
     # ---- phase 3: goldens on the card, each file as one chunk
@@ -4727,17 +4955,27 @@ def main() -> None:
     # operations) counted over the int32 window: on the main path, whose
     # call graphs its first chunk captures (the profiled chunk replays
     # them), it must not run
+    # (and so sa_batch_compact's plain version, what the stage entry
+    # kernel replaced)
+    from compseed_tpu_torch.ops import fm as main_fm
     from compseed_tpu_torch.ops import seedscan as main_ss
     compactions, compact = [], main_ss._compact_lanes
+    sa_plain_calls, sa_plain = [], main_fm._sa_batch_compact_plain
 
     def counted_compact(*a, **kw):
         compactions.append(a[2])
         return compact(*a, **kw)
+
+    def counted_sa_plain(*a, **kw):
+        sa_plain_calls.append(a[1].shape[0])
+        return sa_plain(*a, **kw)
     main_ss._compact_lanes = counted_compact
+    main_fm._sa_batch_compact_plain = counted_sa_plain
     try:
         rec32, engine32, tail32, sams32 = main_path("int32", seeder, {})
     finally:
         main_ss._compact_lanes = compact
+        main_fm._sa_batch_compact_plain = sa_plain
     l32 = rec32["launches"]
     if l32["bsw_meta_dual_kernel"] <= 0 or l32["probe_add_one_kernel"] <= 0 \
             or l32["fm_chain_walk_kernel"] <= 0 \
@@ -4775,17 +5013,23 @@ def main() -> None:
                          f"{MAX_CHUNK_COPIES}: {prof}")
     fam = prof["ran_by_family"]
     log(f"[4] the chunk's loop entries: {fam['loop_entry']} one-thread loop "
-        f"entry kernels, {fam['segment_entry']} segment entry kernels; "
-        f"{fam['index_put']} index_put and {fam['scan']} scan kernels in "
-        f"all; the plain compaction ran {len(compactions)} times in the "
-        f"int32 window")
+        f"entry kernels, {fam['segment_entry']} segment entry kernels, "
+        f"{fam['sa_loop']} suffix-array loop kernels, {fam['sa_stage']} "
+        f"suffix-array stage entry kernels; {fam['index_put']} index_put "
+        f"and {fam['scan']} scan kernels in all; the plain compaction ran "
+        f"{len(compactions)} times and sa_batch_compact's plain version "
+        f"{len(sa_plain_calls)} times in the int32 window")
     if fam["loop_entry"] > MAX_LOOP_ENTRY_KERNELS or compactions or \
-            not fam["segment_entry"]:
+            not fam["segment_entry"] or fam["sa_loop"] or sa_plain_calls \
+            or not fam["sa_stage"]:
         raise SystemExit(f"a chunk ran {fam['loop_entry']} one-thread loop "
                          f"entry kernels (at most {MAX_LOOP_ENTRY_KERNELS}), "
-                         f"{fam['segment_entry']} segment entry kernels, or "
+                         f"{fam['segment_entry']} segment entry kernels, "
+                         f"{fam['sa_loop']} suffix-array loop kernels (0 "
+                         f"allowed), {fam['sa_stage']} stage entry kernels, "
                          f"the PyTorch compaction between segments "
-                         f"({len(compactions)} times)")
+                         f"({len(compactions)} times) or sa_batch_compact's "
+                         f"plain version ({len(sa_plain_calls)} times)")
     chain_rec = chain_main_path(seeder, list(reads_arr[:CH]), l32,
                                 chain_cases_, chain_build_set)
     chain_rec["segment_rounds"] = seg_rounds = segment_rounds(
@@ -5004,6 +5248,7 @@ def main() -> None:
     mesh_rec = phase_mesh(dev, smi, opt, fm, reads_arr, seeder.dfi,
                           mk_chunks(), sams32)
 
+    fm_rec["sa_loop_tail"] = sa_rec["tail"]
     probe_bytes = 2 * 8 * 128 * 4
     probe_bound = max(probe_bytes / HBM_BYTES_PER_S,
                       8 * 128 / INT32_OPS_PER_S) * 1e3
@@ -5018,7 +5263,7 @@ def main() -> None:
                       "main_again": rec32b, "forced_overflow": forced_rec,
                       "long_reads_launches": llong,
                       "probe_turns_ms": probe,
-                      "call_graph": call_rec, "sa_loop": sa_rec,
+                      "call_graph": call_rec, "sa_stages": sa_rec,
                       "captured_fused": capd, "captured_tiles": cap,
                       "block_threads": threads,
                       "scratch_variants_ms": variant_ms}))

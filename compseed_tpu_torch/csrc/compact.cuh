@@ -1,6 +1,9 @@
 // The entry of a round loop's segment, shared by chain_scan.cu
 // (chain_scan) and walk_chain.cu (walk_pool_chain): one kernel that
-// starts every segment's graph (loop_graph.cuh).
+// starts every segment's graph (loop_graph.cuh).  Its pass over the
+// lanes (rank_tile, store_ranked: the ranks by look-back, the live lanes
+// to them) also serves fm_walk.cu's sa_stage_entry_kernel, the
+// compaction between the stages of the suffix-array walk.
 //
 // In the JAX package the lanes go from one segment to the next, narrower
 // one by a stable rank-scatter compaction (compseed_tpu/ops/seedscan.py
@@ -153,71 +156,118 @@ inline bool segment_entry_host(const A& a, const L& ln) {
 
 #ifdef __CUDACC__
 
-// The alive bytes of a thread's lanes in tile t (the source's, or with
-// none the segment's own).
-template <typename L>
-__device__ __forceinline__ void entry_alive(const L& ln, bool move,
-                                            long long n, int t, bool* live) {
-  const long long i0 =
-      ((long long)t * kEntryBlock + threadIdx.x) * kEntryItems;
+// The first of a thread's kEntryItems consecutive lanes in tile t.
+__device__ __forceinline__ long long tile_lane0(int t) {
+  return ((long long)t * kEntryBlock + threadIdx.x) * kEntryItems;
+}
+
+// The alive bytes of a thread's lanes in tile t of n lanes.
+__device__ __forceinline__ void tile_alive(const bool* alive, long long n,
+                                           int t, bool* live) {
+  const long long i0 = tile_lane0(t);
   CP_UNROLL
   for (int j = 0; j < kEntryItems; ++j) {
     const long long i = i0 + j;
-    live[j] = i < n && (move ? ln.src_alive[i] : ln.dst_alive[i]);
+    live[j] = i < n && alive[i];
   }
 }
 
-// The kernel's body: blocks of kEntryBlock threads, a tile of kEntryBlock
-// * kEntryItems lanes each, taken by ticket and scanned across blocks by
-// look-back.  sc[kTicket] is the ticket counter (0 between launches) and
-// sc[kEpoch] the look-back's epoch (lb_entry's words carry it), which the
-// block with the last ticket counts; that block also closes the segment
-// (entry_close, the WHILE node's condition).  The round's own words
-// serve: its first kernel counts the same epoch on, so the status words
-// of the round's scans may be lb_entry's too.  Every thread of every
-// block must call.
-template <int kLive, int kTicket, int kEpoch, typename A, typename L>
-__device__ __forceinline__ void segment_entry(const A& a, const L& ln) {
+// A block's part of a compaction: its ticket t, which names its tile of
+// kEntryBlock * kEntryItems source lanes (this thread's from i0), the
+// rank of the thread's first live lane among the source's live lanes,
+// and the scan's totals before the tile (first) and up to its end (upto:
+// in the block with the last ticket, every live lane of the source; the
+// look-back waited on every other block's published sum, so no count can
+// still be on its way).
+struct TileRank {
+  int t;
+  long long i0;
+  int rank, first, upto;
+};
+
+// The pass every compaction here makes over n source lanes: the tile's
+// alive bytes (`live`), loaded by the block's index beside its ticket's
+// atomic and again when the ticket differs from the index; then
+// load(i0), the words of the lanes the caller moves, issued before the
+// scan; then the scan of the live lanes across the blocks by look-back
+// (lookback::scan_blocks).  `ticket`: the ticket counter (0 between
+// launches); `lb`: the look-back's status words, tagged `epoch`.
+// kAcquire: the look-back fences after its reads (lookback.cuh), for a
+// caller whose stores after the scan must follow what blocks with earlier
+// tickets wrote before they published their counts.  Every thread of
+// every block must call.
+template <bool kAcquire = false, typename Load>
+__device__ __forceinline__ TileRank rank_tile(const bool* alive, long long n,
+                                              int32_t* ticket,
+                                              unsigned long long* lb,
+                                              unsigned epoch, bool* live,
+                                              Load load) {
   __shared__ int ticket_s;
   __shared__ int scan_s[34];
+  TileRank r;
+  tile_alive(alive, n, blockIdx.x, live);
+  r.t = lookback::take_ticket(ticket, gridDim.x, &ticket_s);
+  if (r.t != (int)blockIdx.x) tile_alive(alive, n, r.t, live);
+  r.i0 = tile_lane0(r.t);
+  load(r.i0);
+  int cnt = 0;
+  CP_UNROLL
+  for (int j = 0; j < kEntryItems; ++j) cnt += live[j];
+  r.rank = lookback::scan_blocks<kEntryBlock / 32, kAcquire>(
+      cnt, lb, r.t, epoch, scan_s, &r.first, &r.upto);
+  return r;
+}
+
+// A thread's live lanes (x, loaded) to their ranks from `rank` on; a
+// rank of w or more is dropped, as mode="drop" drops it.
+template <typename L>
+__device__ __forceinline__ void store_ranked(const L& ln, long long rank,
+                                             const bool* live,
+                                             const typename L::Lane* x,
+                                             long long w) {
+  CP_UNROLL
+  for (int j = 0; j < kEntryItems; ++j) {
+    if (!live[j]) continue;
+    if (rank < w) ln.store(rank, x[j]);
+    ++rank;
+  }
+}
+
+// The segment entry's body: blocks of kEntryBlock threads, a tile of
+// kEntryBlock * kEntryItems lanes each (rank_tile).  sc[kTicket] is the
+// ticket counter and sc[kEpoch] the look-back's epoch (lb_entry's words
+// carry it), which the block with the last ticket counts; that block also
+// closes the segment (entry_close, the WHILE node's condition).  The
+// round's own words serve: its first kernel counts the same epoch on, so
+// the status words of the round's scans may be lb_entry's too.  Every
+// thread of every block must call.
+template <int kLive, int kTicket, int kEpoch, typename A, typename L>
+__device__ __forceinline__ void segment_entry(const A& a, const L& ln) {
   int32_t* sc = (int32_t*)a.sc;
   const bool move = a.src_w > 0;
-  const long long n = move ? a.src_w : a.w;
   const unsigned epoch = (unsigned)sc[kEpoch] + 1u;
   const long long pad0 = move ? entry_pad0(a) : a.w;
   bool live[kEntryItems];
-  entry_alive(ln, move, n, blockIdx.x, live);
-  const int t = lookback::take_ticket(sc + kTicket, gridDim.x, &ticket_s);
-  if (t != (int)blockIdx.x) entry_alive(ln, move, n, t, live);
-  const long long i0 =
-      ((long long)t * kEntryBlock + threadIdx.x) * kEntryItems;
   typename L::Lane x[kEntryItems];
-  int cnt = 0;
-  CP_UNROLL
-  for (int j = 0; j < kEntryItems; ++j) {
-    if (move && live[j]) ln.load(i0 + j, x[j]);
-    cnt += live[j];
-  }
-  int first, upto;
-  const int ex = lookback::scan_blocks<kEntryBlock / 32>(
-      cnt, (unsigned long long*)a.lb_entry, t, epoch, scan_s, &first, &upto);
+  const TileRank r = rank_tile(
+      move ? ln.src_alive : ln.dst_alive, move ? a.src_w : a.w,
+      sc + kTicket, (unsigned long long*)a.lb_entry, epoch, live,
+      [&](long long i0) {
+        CP_UNROLL
+        for (int j = 0; j < kEntryItems; ++j)
+          if (move && live[j]) ln.load(i0 + j, x[j]);
+      });
   if (move) {
-    long long r = ex;
+    store_ranked(ln, r.rank, live, x, a.w);
     CP_UNROLL
     for (int j = 0; j < kEntryItems; ++j) {
-      if (!live[j]) continue;
-      if (r < a.w) ln.store(r, x[j]);
-      ++r;
-    }
-    CP_UNROLL
-    for (int j = 0; j < kEntryItems; ++j) {
-      const long long i = i0 + j;
+      const long long i = r.i0 + j;
       if (i >= pad0 && i < a.w) ln.pad(i);
     }
   }
-  if (t == (int)gridDim.x - 1 && threadIdx.x == 0) {
+  if (r.t == (int)gridDim.x - 1 && threadIdx.x == 0) {
     sc[kEpoch] = (int32_t)epoch;
-    loop_cond(a, entry_close<kLive>(a, upto));
+    loop_cond(a, entry_close<kLive>(a, r.upto));
   }
 }
 

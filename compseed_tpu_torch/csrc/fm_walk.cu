@@ -26,17 +26,49 @@
 //   once kk is a sampled row.  Two threads a lane, over the packed occ
 //   rows.  Plain version: compseed_tpu_torch/ops/fm.py::_walk_plain.  It
 //   may write in place (kk_out == kk and so on): a lane's words are read
-//   before its pair's first shuffle and written after its last.
-// sa_loop_entry_kernel, sa_loop_cond_kernel
-//   Replace the cond of compseed_tpu/ops/fm.py:282, the while_loop of
-//   sa_batch_compact's last stage (jnp.any(alive) over its N // 64
-//   lanes), which runs on the TPU: here the stage is one loop of a CUDA
-//   graph (loop_graph.cuh), an entry kernel, then a WHILE node whose body
-//   is one fm_inv_psi_walk_kernel launch of 2 sa_intv steps in place and
-//   the cond kernel.  Each is one block that ORs the alive bytes
-//   (__syncthreads_or) and sets the node's condition: a launch and a few
-//   kB, launch-bound.  Plain version: alive.any() (ops/fm.py::
-//   _sa_loop_plain); host twins sa_loop_*_host.
+//   before its pair's first shuffle and written after its last.  With
+//   a tail (SaTail: a retire word, which only ops/fm_cuda.SaLoop passes)
+//   it also ends the body of sa_batch_compact's last stage, a while_loop
+//   on jnp.any(alive) (compseed_tpu/ops/fm.py:282): its last block to
+//   retire (loop_graph.cuh::retire_last: one 64-bit atomic a block, the
+//   blocks retired and their live lanes) sets go and the WHILE node's
+//   condition to live > 0.  Without one (sa_batch, densify_sa, the exact
+//   rerun and the stages before the loop) the walk touches no loop word.
+// sa_stage_entry_kernel<T>
+//   Replaces the boundaries between sa_batch_compact's stages
+//   (compseed_tpu/ops/fm.py:268-291, XLA: the done lanes scattered to
+//   out_steps / out_k with mode="drop", then argsort(~alive, stable)[:cap]
+//   and four gathers, ovf |= sum(alive) > cap, and before the last stage
+//   the while_loop's first test): one launch a boundary, where the port
+//   ran some 25 PyTorch operations (a stable sort, gathers, index_put_s)
+//   and, before the last stage, a one-block loop kernel.  In one pass over
+//   the stage's lanes (compact.cuh's rank_tile, 512 lanes a block, alive
+//   bytes loaded beside the ticket, then the words of the live and done
+//   lanes): each lane that died in the stage that ended and holds a slot
+//   writes its steps and position to out_steps[slot], out_k[slot]; each
+//   live lane goes to its rank among the live lanes in the next stage's
+//   lanes, a rank at or past the cap dropped; lanes [min(live, cap), cap)
+//   are dead fillers (slot -1, zeros), each block clearing its tile of
+//   them and fencing before the scan publishes its count (a release); a
+//   lane's rank is at most its index, so every lane moved into that tile
+//   comes from a block that waits on the count, and that block fences
+//   after its look-back's reads before it stores (an acquire:
+//   lookback.cuh's kAcquire).  The block with the last ticket has the
+//   scan's total: ovf |= live > cap, and at the boundary before the last stage
+//   the loop's first test, live > 0, in go and the WHILE node's condition
+//   (it opens the loop's graph).  The first boundary starts the outputs:
+//   its live lanes write out_steps[i] = 0 and out_k[i] = the call's
+//   position, as the JAX package's initial arrays hold, and it sets ovf.
+//   After the loop one more launch (no next stage) writes the last
+//   stage's done lanes.  JAX's argsort puts particular dead lanes into
+//   the fillers; nothing reads them: the first stage has no compaction
+//   and writes out every lane it leaves dead, so at every boundary each
+//   dead lane has slot -1 once the done lanes are written.  Plain version
+//   ops/fm.py::_sa_boundary_plain; host twin sa_stage_entry_host.  What
+//   bounds it: a few hundred kB at the widest boundary (98,304 lanes to
+//   24,576), well under a microsecond at 3.35 TB/s; the launch and one
+//   pass's dependent steps (ticket, alive bytes, words, look-back, stores)
+//   decide, as for the round loops' segment entries.
 //
 // T is the index type: int32_t, or int64_t for genomes of 2^31 positions
 // or more (DeviceFMIndex.dtype).  Arithmetic on positions and counts wraps
@@ -111,7 +143,7 @@
 #include <cstdlib>
 #include <cstring>
 
-#include "loop_graph.cuh"
+#include "compact.cuh"
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -423,25 +455,104 @@ FM_HD void inv_psi_walk(const FmPacked<T>& fm, T& kk, T& steps, bool& alive,
   }
 }
 
-// The suffix-array walk's last stage as a loop: its words, one 64-bit
-// word a field (ops/fm_cuda.SA_ARGS): the stage's alive bytes, their
-// count, the WHILE node's condition handle (0 outside a graph) and go,
-// one int32, the condition's last value.
+// A stage entry of one sa_batch_compact call on the kernels
+// (ops/fm_cuda.SaLoop): its words, one 64-bit word a field
+// (ops/fm_cuda.SA_ARGS).
 struct SaArgs {
-  long long alive, n, cond, go;
+  // 1 for an int64_t index type
+  long long idx64;
+  // a stage's lanes, n of each: kk, steps (index type), alive (a byte a
+  // lane) and slot (int32: the lane's output index, -1 once it is
+  // written; 0 in the first stage, whose lane i has slot i)
+  long long kk, steps, alive, slot, n;
+  // the next stage's lanes (w of each), which the stage entry writes;
+  // w = 0: no next stage (the call's last launch)
+  long long next_kk, next_steps, next_alive, next_slot, w;
+  // the call's positions (N, index type), read by the first boundary;
+  // out_steps, out_k (N, index type) and ovf (one bool): the outputs
+  long long kk0, out_steps, out_k, ovf;
+  // int32 words: the entry's ticket counter and look-back epoch (the
+  // walk's retire word follows them, ops/fm_cuda.SaLoop.words); the
+  // look-back's status words, one a block of the widest entry
+  long long sc, lb;
+  // open: the entry runs the loop's first test (the boundary before the
+  // last stage); the WHILE node's condition handle (0 outside a graph)
+  // and go (one int32, the condition's last value)
+  long long open, cond, go;
 };
 
-// Whether any of alive[from], alive[from + stride], ... below n is set.
-FM_HD bool sa_any(const uint8_t* alive, long long from, long long n,
-                  long long stride) {
-  for (long long i = from; i < n; i += stride)
-    if (alive[i]) return true;
-  return false;
+constexpr int kSaTicket = 0, kSaEpoch = 1;  // words of sc
+
+// The suffix-array walk's lanes as the stage entry moves them
+// (compact.cuh): slot (int32), kk and steps (T), alive; a filler's slot -1.
+template <typename T>
+FM_HD LaneSet<T, 1, 2> sa_lanes(const SaArgs& a) {
+  LaneSet<T, 1, 2> s;
+  s.src32[0] = (const int32_t*)a.slot;
+  s.srcT[0] = (const T*)a.kk;
+  s.srcT[1] = (const T*)a.steps;
+  s.src_alive = (const bool*)a.alive;
+  s.dst32[0] = (int32_t*)a.next_slot;
+  s.dstT[0] = (T*)a.next_kk;
+  s.dstT[1] = (T*)a.next_steps;
+  s.dst_alive = (bool*)a.next_alive;
+  s.pad32[0] = -1;
+  return s;
+}
+
+// Lane i of a stage whose slot s was read (the first stage's is i): its
+// words.
+template <typename T>
+FM_HD void sa_load(const LaneSet<T, 1, 2>& ln, long long i, int32_t s,
+                   typename LaneSet<T, 1, 2>::Lane& x) {
+  x.i32[0] = s;
+  x.t[0] = ln.srcT[0][i];
+  x.t[1] = ln.srcT[1][i];
+}
+
+// A lane of a stage: a done one (dead, a slot held) written out (JAX
+// fm.py:286-291); a live one of the first stage given its output's first
+// values (steps 0, the call's position: JAX fm.py:262-263).
+template <typename T>
+FM_HD void sa_out(const SaArgs& a, long long i, bool live,
+                  const typename LaneSet<T, 1, 2>::Lane& x) {
+  T* out_steps = (T*)a.out_steps;
+  T* out_k = (T*)a.out_k;
+  if (!live) {
+    out_steps[x.i32[0]] = x.t[1];
+    out_k[x.i32[0]] = x.t[0];
+  } else if (!a.slot) {
+    out_steps[i] = (T)0;
+    out_k[i] = ((const T*)a.kk0)[i];
+  }
+}
+
+// The boundary's end once the stage's live lanes are counted: ovf |= live
+// > w (the first boundary sets it), and with `open` go = live > 0, the
+// loop's first test.  Returns live > 0.
+FM_HD bool sa_close(const SaArgs& a, long long live) {
+  bool* ovf = (bool*)a.ovf;
+  *ovf = (a.slot && *ovf) || live > a.w;
+  if (a.open) *(int32_t*)a.go = live > 0 ? 1 : 0;
+  return live > 0;
+}
+
+// Whether the words name what a stage entry reads and writes: the
+// launcher refuses any others.
+inline bool sa_words_ok(const SaArgs& a) {
+  if (a.n < 1 || a.n >= INT32_MAX || !a.kk || !a.steps || !a.alive)
+    return false;
+  if (!a.out_steps || !a.out_k || (!a.slot && !a.kk0) || a.w < 0 ||
+      a.w > a.n)
+    return false;
+  if (a.w > 0 && (!a.next_kk || !a.next_steps || !a.next_alive ||
+                  !a.next_slot || !a.ovf || !a.sc || !a.lb))
+    return false;
+  return !a.open || (a.w > 0 && a.go);
 }
 
 #ifdef __CUDACC__
 constexpr int kBlock = 64;          // threads a block
-constexpr int kSaBlock = 256;       // the loop kernels' one block
 
 // The pair of threads of this thread's lane (every kernel): its index t in
 // the pair, the pair's mask within the warp, and the other thread's v.
@@ -553,6 +664,27 @@ __global__ void __launch_bounds__(kBlock) fm_chain_walk_kernel(
   if (t == 0) ln[i] = len;
 }
 
+// The walk's end when it ends the suffix-array loop's body: the retire
+// word (64 bits, 0 between launches), the WHILE node's condition handle
+// (0 outside a graph) and go; retire null for a walk of its own.
+struct SaTail {
+  unsigned long long* retire;
+  long long cond;
+  int32_t* go;
+};
+
+// The loop's test after a round, live > 0, by the walk's last block to
+// retire (retire_last), in go and the WHILE node's condition.  Every
+// thread of every block calls it with its lane's live count.
+__device__ __forceinline__ void sa_tail(const SaTail& tail, int live) {
+  int total;
+  if (!retire_last<kBlock / 32>(tail.retire, live, gridDim.x, &total))
+    return;
+  *tail.go = total > 0 ? 1 : 0;
+  if (tail.cond)
+    cudaGraphSetConditional((cudaGraphConditionalHandle)tail.cond, total > 0);
+}
+
 // The lane words are not __restrict__: the walk may run in place.
 template <typename T>
 __global__ void __launch_bounds__(kBlock) fm_inv_psi_walk_kernel(
@@ -560,42 +692,80 @@ __global__ void __launch_bounds__(kBlock) fm_inv_psi_walk_kernel(
     const T* __restrict__ L2, long long primary, int fill_oob,
     const T* kk, const T* steps, const uint8_t* alive, int n_steps,
     long long mask, T* kk_out, T* steps_out, uint8_t* alive_out,
-    long long n) {
+    long long n, SaTail tail) {
   const long long i = ((long long)blockIdx.x * kBlock + threadIdx.x) / 2;
-  if (i >= n) return;
-  const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
-  const PairPieces<T> pieces{fm, Pair()};
-  T k = kk[i], st = steps[i];
-  bool a = alive[i] != 0;
-  inv_psi_walk(fm, k, st, a, n_steps, mask, pieces);
-  if (pieces.p.t == 0) {
-    kk_out[i] = k;
-    alive_out[i] = a ? 1 : 0;
-  } else {
-    steps_out[i] = st;
+  bool a = false;
+  if (i < n) {                          // a whole pair
+    const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
+    const PairPieces<T> pieces{fm, Pair()};
+    T k = kk[i], st = steps[i];
+    a = alive[i] != 0;
+    inv_psi_walk(fm, k, st, a, n_steps, mask, pieces);
+    if (pieces.p.t == 0) {
+      kk_out[i] = k;
+      alive_out[i] = a ? 1 : 0;
+    } else {
+      steps_out[i] = st;
+    }
   }
+  if (tail.retire) sa_tail(tail, (threadIdx.x & 1) == 0 && a);
 }
 
-// The loop's test, any(alive), by one block, left in *go and, inside a
-// graph, as the WHILE node's condition.
-__device__ __forceinline__ void sa_loop_set(const SaArgs& a) {
-  const bool any = __syncthreads_or(
-      sa_any((const uint8_t*)a.alive, threadIdx.x, a.n, kSaBlock));
-  if (threadIdx.x == 0) {
-    *(int32_t*)a.go = any ? 1 : 0;
-    if (a.cond)
-      cudaGraphSetConditional((cudaGraphConditionalHandle)a.cond, any);
+// A boundary between two stages of the suffix-array walk, or with no
+// next stage (w = 0) the call's last launch (the done lanes alone: no
+// ticket, no scan).  Blocks of kEntryBlock threads, kEntryItems
+// consecutive lanes a thread.
+template <typename T>
+__global__ void __launch_bounds__(kEntryBlock) sa_stage_entry_kernel(
+    const SaArgs a) {
+  using L = LaneSet<T, 1, 2>;
+  const L ln = sa_lanes<T>(a);
+  bool live[kEntryItems];
+  typename L::Lane x[kEntryItems];
+  // a thread's lanes: the live and the done ones' words loaded, the
+  // done ones written out (a filler, dead with slot -1, reads nothing
+  // more)
+  const auto lanes = [&](long long i0) {
+    FM_UNROLL
+    for (int j = 0; j < kEntryItems; ++j) {
+      const long long i = i0 + j;
+      if (i >= a.n) continue;
+      const int32_t s = a.slot ? ln.src32[0][i] : (int32_t)i;
+      if (!live[j] && s < 0) continue;
+      sa_load(ln, i, s, x[j]);
+      sa_out<T>(a, i, live[j], x[j]);
+    }
+  };
+  if (a.w == 0) {
+    tile_alive(ln.src_alive, a.n, blockIdx.x, live);
+    lanes(tile_lane0(blockIdx.x));
+    return;
   }
-}
-
-__global__ void __launch_bounds__(kSaBlock) sa_loop_entry_kernel(
-    const SaArgs a) {
-  sa_loop_set(a);
-}
-
-__global__ void __launch_bounds__(kSaBlock) sa_loop_cond_kernel(
-    const SaArgs a) {
-  sa_loop_set(a);
+  int32_t* sc = (int32_t*)a.sc;
+  const unsigned epoch = (unsigned)sc[kSaEpoch] + 1u;
+  const TileRank r = rank_tile<true>(
+      ln.src_alive, a.n, sc + kSaTicket, (unsigned long long*)a.lb, epoch,
+      live, [&](long long i0) {
+        // this ticket's tile of the next stage's lanes cleared (fillers)
+        // and the clears made visible before the scan publishes the
+        // tile's count (a release: this fence, then the barrier before
+        // the look-back's store of the count): a lane moved into the tile
+        // comes from this tile or a later one, whose block stores only
+        // after its look-back has read that count or a later block's
+        // prefix, and fenced (rank_tile<true>: an acquire, and a release
+        // of its own prefix for the blocks after it)
+        FM_UNROLL
+        for (int j = 0; j < kEntryItems; ++j)
+          if (i0 + j < a.w) ln.pad(i0 + j);
+        lanes(i0);
+        __threadfence();
+      });
+  store_ranked(ln, r.rank, live, x, a.w);
+  if (r.t == (int)gridDim.x - 1 && threadIdx.x == 0) {
+    sc[kSaEpoch] = (int32_t)epoch;
+    const bool go = sa_close(a, r.upto);
+    if (a.open) loop_cond(a, go);
+  }
 }
 
 unsigned blocks_for(long long threads) {
@@ -635,12 +805,21 @@ int launch_inv_psi_walk(const uint32_t* rows, long long n_rows,
                         const void* kk, const void* steps,
                         const uint8_t* alive, int n_steps, long long mask,
                         void* kk_out, void* steps_out, uint8_t* alive_out,
-                        long long n, void* stream) {
+                        long long n, SaTail tail, void* stream) {
   fm_inv_psi_walk_kernel<T>
       <<<blocks_for(2 * n), kBlock, 0, (cudaStream_t)stream>>>(
           rows, n_rows, (const T*)L2, primary, fill_oob, (const T*)kk,
           (const T*)steps, alive, n_steps, mask, (T*)kk_out, (T*)steps_out,
-          alive_out, n);
+          alive_out, n, tail);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sa_stage(const SaArgs& a, void* stream) {
+  const long long tile = kEntryBlock * kEntryItems;
+  sa_stage_entry_kernel<T>
+      <<<(unsigned)((a.n + tile - 1) / tile), kEntryBlock, 0,
+         (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 #else
@@ -710,12 +889,14 @@ int host_chain_walk(const uint32_t* rows, long long n_rows, const void* L2,
   });
 }
 
+// With a tail (go not null) the loop's test after the walk: go = any
+// lane alive (the retire word stays 0).
 template <typename T>
 int host_inv_psi_walk(const uint32_t* rows, long long n_rows, const void* L2,
                       long long primary, int fill_oob, const void* kk,
                       const void* steps, const uint8_t* alive, int n_steps,
                       long long mask, void* kk_out, void* steps_out,
-                      uint8_t* alive_out, long long n) {
+                      uint8_t* alive_out, long long n, int32_t* go) {
   const FmPacked<T> fm = make_fm(rows, n_rows, (const T*)L2, primary,
                                  fill_oob);
   const auto pieces = [&](long long row, int off, uint32_t& pc, int& code) {
@@ -727,7 +908,7 @@ int host_inv_psi_walk(const uint32_t* rows, long long n_rows, const void* L2,
       code += cp;
     }
   };
-  return host_lanes(n, [&](long long i) {
+  const int e = host_lanes(n, [&](long long i) {
     T k = ((const T*)kk)[i], st = ((const T*)steps)[i];
     bool a = alive[i] != 0;
     inv_psi_walk(fm, k, st, a, n_steps, mask, pieces);
@@ -735,6 +916,36 @@ int host_inv_psi_walk(const uint32_t* rows, long long n_rows, const void* L2,
     ((T*)steps_out)[i] = st;
     alive_out[i] = a ? 1 : 0;
   });
+  if (e || !go) return e;
+  long long live = 0;
+  for (long long i = 0; i < n; ++i) live += alive_out[i];
+  *go = live > 0 ? 1 : 0;
+  return 0;
+}
+
+// A stage entry lane after lane: the fillers first (the kernel's blocks
+// clear their tiles before any lane moves there), the done lanes out,
+// the live ones to their running count, then the close.  (sc[kSaEpoch],
+// the look-back's epoch, counted as the kernel counts it.)
+template <typename T>
+void host_sa_stage(const SaArgs& a) {
+  const LaneSet<T, 1, 2> ln = sa_lanes<T>(a);
+  for (long long r = 0; r < a.w; ++r) ln.pad(r);
+  long long live = 0;
+  for (long long i = 0; i < a.n; ++i) {
+    const bool on = ln.src_alive[i];
+    const int32_t s = a.slot ? ln.src32[0][i] : (int32_t)i;
+    if (!on && s < 0) continue;
+    typename LaneSet<T, 1, 2>::Lane x;
+    sa_load(ln, i, s, x);
+    sa_out<T>(a, i, on, x);
+    if (!on) continue;
+    if (live < a.w) ln.store(live, x);
+    ++live;
+  }
+  if (a.w == 0) return;
+  ((int32_t*)a.sc)[kSaEpoch] += 1;
+  sa_close(a, live);
 }
 #endif
 
@@ -746,7 +957,9 @@ int host_inv_psi_walk(const uint32_t* rows, long long n_rows, const void* L2,
 // (DeviceFMIndex.occ_packed), 64-byte aligned.  Lane arrays are
 // contiguous: ik / out (n,
 // 3), c (n,) int32, wv (n,) int64 window words, valid / alive one byte a
-// lane, ck / cl / cs (n, W), stop_s null or (n,).
+// lane, ck / cl / cs (n, W), stop_s null or (n,).  The inverse-Psi walk's
+// tail (retire, cond, go: SaTail) is null, 0, null for a walk of its own;
+// with a retire word it needs go and a lane.
 #ifdef __CUDACC__
 extern "C" int fm_extend_sel_launch(const uint32_t* rows, long long n_rows,
                                     const void* L2, long long primary,
@@ -789,38 +1002,31 @@ extern "C" int fm_inv_psi_walk_launch(const uint32_t* rows, long long n_rows,
                                       int n_steps, long long mask,
                                       void* kk_out, void* steps_out,
                                       uint8_t* alive_out, long long n,
-                                      int idx64, void* stream) {
+                                      int idx64, unsigned long long* retire,
+                                      long long cond, int32_t* go,
+                                      void* stream) {
+  if (retire && (!go || n < 1)) return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
+  const SaTail tail{retire, cond, go};
   return idx64 ? launch_inv_psi_walk<int64_t>(rows, n_rows, L2, primary,
                                               fill_oob, kk, steps, alive,
                                               n_steps, mask, kk_out,
-                                              steps_out, alive_out, n, stream)
+                                              steps_out, alive_out, n, tail,
+                                              stream)
                : launch_inv_psi_walk<int32_t>(rows, n_rows, L2, primary,
                                               fill_oob, kk, steps, alive,
                                               n_steps, mask, kk_out,
-                                              steps_out, alive_out, n, stream);
+                                              steps_out, alive_out, n, tail,
+                                              stream);
 }
 
-// The suffix-array loop's entry and cond kernels on a stream, from their
-// SaArgs words.
-static int sa_loop_launch(bool entry, const long long* words, void* stream) {
+// A stage entry from its SaArgs words (ops/fm_cuda.SA_ARGS, in order).
+extern "C" int sa_stage_entry_launch(const long long* words, void* stream) {
   SaArgs a;
   memcpy(&a, words, sizeof(SaArgs));
-  if (a.n < 0 || (a.n > 0 && !a.alive) || !a.go)
-    return (int)cudaErrorInvalidValue;
-  if (entry)
-    sa_loop_entry_kernel<<<1, kSaBlock, 0, (cudaStream_t)stream>>>(a);
-  else
-    sa_loop_cond_kernel<<<1, kSaBlock, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sa_loop_entry_launch(const long long* words, void* stream) {
-  return sa_loop_launch(true, words, stream);
-}
-
-extern "C" int sa_loop_cond_launch(const long long* words, void* stream) {
-  return sa_loop_launch(false, words, stream);
+  if (!sa_words_ok(a)) return (int)cudaErrorInvalidValue;
+  return a.idx64 ? launch_sa_stage<int64_t>(a, stream)
+                 : launch_sa_stage<int32_t>(a, stream);
 }
 
 LOOP_GRAPH_ENTRIES(fm)
@@ -830,22 +1036,17 @@ extern "C" const char* fm_cuda_error_name(int code) {
   return cudaGetErrorName((cudaError_t)code);
 }
 #else
-// The suffix-array loop kernels' host twins: the same test on the host,
-// left in *go; -1 for words the launchers refuse.
-static int sa_loop_host(const long long* words) {
+// A stage entry on the host, from the same words: 0, or -1 for words the
+// launcher refuses.
+extern "C" int sa_stage_entry_host(const long long* words) {
   SaArgs a;
   memcpy(&a, words, sizeof(SaArgs));
-  if (a.n < 0 || (a.n > 0 && !a.alive) || !a.go) return -1;
-  *(int32_t*)a.go = sa_any((const uint8_t*)a.alive, 0, a.n, 1) ? 1 : 0;
+  if (!sa_words_ok(a)) return -1;
+  if (a.idx64)
+    host_sa_stage<int64_t>(a);
+  else
+    host_sa_stage<int32_t>(a);
   return 0;
-}
-
-extern "C" int sa_loop_entry_host(const long long* words) {
-  return sa_loop_host(words);
-}
-
-extern "C" int sa_loop_cond_host(const long long* words) {
-  return sa_loop_host(words);
 }
 
 // The same lanes on the host; each returns 0, or -1 where a lane would
@@ -885,15 +1086,20 @@ extern "C" int fm_inv_psi_walk_host(const uint32_t* rows, long long n_rows,
                                     const void* steps, const uint8_t* alive,
                                     int n_steps, long long mask, void* kk_out,
                                     void* steps_out, uint8_t* alive_out,
-                                    long long n, int idx64) {
+                                    long long n, int idx64,
+                                    unsigned long long* retire,
+                                    long long cond, int32_t* go) {
+  (void)cond;
+  if (retire && (!go || n < 1)) return -1;
+  if (!retire) go = nullptr;
   return idx64 ? host_inv_psi_walk<int64_t>(rows, n_rows, L2, primary,
                                             fill_oob, kk, steps, alive,
                                             n_steps, mask, kk_out, steps_out,
-                                            alive_out, n)
+                                            alive_out, n, go)
                : host_inv_psi_walk<int32_t>(rows, n_rows, L2, primary,
                                             fill_oob, kk, steps, alive,
                                             n_steps, mask, kk_out, steps_out,
-                                            alive_out, n);
+                                            alive_out, n, go);
 }
 
 // The ranks of packed rows, piece by piece: for each (row[j], off[j]), the

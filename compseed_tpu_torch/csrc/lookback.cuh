@@ -54,7 +54,13 @@ __device__ __forceinline__ unsigned long long lb_word(
 // inclusive prefix is published, add those, and move the window back by
 // 32 while none is inclusive; then publish this block's inclusive prefix.
 // Returns the sum of the values of the blocks with tickets before
-// `ticket` (every lane gets it).
+// `ticket` (every lane gets it).  kAcquire: a fence after the reads,
+// before the inclusive prefix is published, for a block whose stores
+// after the scan must follow what the blocks before it wrote before
+// theirs (an acquire of the words read, and a release, cumulative, of
+// this block's prefix for the blocks after it); the barrier that ends
+// scan_blocks then orders the whole block's stores after it.
+template <bool kAcquire = false>
 __device__ __forceinline__ int look_back_warp(unsigned long long* status,
                                               int ticket, int value,
                                               unsigned epoch) {
@@ -87,6 +93,7 @@ __device__ __forceinline__ int look_back_warp(unsigned long long* status,
       if (incl) break;
     }
   }
+  if (kAcquire) __threadfence();
   if (lane == 0)
     atomicExch(status + ticket, lb_word(epoch, kInclusive, prefix + value));
   return prefix;
@@ -97,8 +104,8 @@ __device__ __forceinline__ int look_back_warp(unsigned long long* status,
 // over the lanes before this thread; *first gets the sum before this
 // block, *upto the sum up to its end (the launch's total in the block
 // with the last ticket).  (sh: 34 ints of shared memory; every thread
-// must call; one call a launch.)
-template <int kWarps>
+// must call; one call a launch.)  kAcquire: look_back_warp's.
+template <int kWarps, bool kAcquire = false>
 __device__ __forceinline__ int scan_blocks(int x, unsigned long long* status,
                                            int ticket, unsigned epoch,
                                            int* sh, int* first, int* upto) {
@@ -121,7 +128,8 @@ __device__ __forceinline__ int scan_blocks(int x, unsigned long long* status,
       if (lane >= d) s += y;
     }
     const int total = __shfl_sync(0xFFFFFFFFu, s, 31);
-    const int prefix = look_back_warp(status, ticket, total, epoch);
+    const int prefix =
+        look_back_warp<kAcquire>(status, ticket, total, epoch);
     if (lane < kWarps) sh[lane] = prefix + s - t;
     if (lane == 0) {
       sh[32] = prefix;

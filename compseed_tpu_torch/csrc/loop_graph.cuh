@@ -1,5 +1,7 @@
 // A segment's round loop as one CUDA graph, shared by the round sources
-// chain_scan.cu (chain_scan) and walk_chain.cu (walk_pool_chain).
+// chain_scan.cu (chain_scan) and walk_chain.cu (walk_pool_chain); fm_walk.cu
+// runs the suffix-array walk's last stage the same way (its graph
+// entries, retire_last for the walk's folded loop test).
 //
 // In the JAX package each segment of both loops is a jax.lax.while_loop
 // (compseed_tpu/ops/seedscan.py:1726 and :734-738): the TPU tests the
@@ -116,38 +118,53 @@ __device__ __forceinline__ LoopPre loop_pre(const A& a) {
   return p;
 }
 
-// The end of a round's last kernel (the apply) when a.loop says it ends a
-// loop's body; nothing otherwise.  Every thread of every block calls it
-// with its lane's live count (1 or 0; the apply then adds none to
-// sc[kLive] itself).  The block sums them, and one thread adds
-// 2^32 + that sum to the 64-bit word at sc[kRetire] (8-byte aligned) in
-// one atomic: its high half counts the blocks that retired, its low half
-// their live lanes.  The block whose add finds n_blocks - 1 retired is
-// the last, and the value the atomic returns already holds every other
-// block's count, so it needs no fence and no second read: it runs
-// loop_after (the round counted, sc[kLive] = pre.live + the round's live
-// lanes, the test), sets the condition and resets the word to 0 for the
-// next launch.  (The ticket of the look-back is no such proof: the block
-// that draws it is the last to start, and blocks that started before it
-// may still be adding.)  kWarps: the block's warps.
-template <int kLive, int kRetire, int kWarps, typename A>
-__device__ __forceinline__ void loop_retire(const A& a, int live,
-                                            int n_blocks, LoopPre pre) {
-  if (!a.loop) return;
+// The count of a launch's blocks as they retire: every thread of every
+// block calls with its lane's live count (1 or 0).  The block sums them,
+// and one thread adds 2^32 + that sum to the 64-bit word `word` (8-byte
+// aligned, 0 between launches) in one atomic: its high half counts the
+// blocks that retired, its low half their live lanes.  The block whose
+// add finds n_blocks - 1 retired is the last, and the value the atomic
+// returns already holds every other block's count, so it needs no fence
+// and no second read: its thread 0 gets true and *total, the launch's
+// live lanes, and resets the word for the next launch; every other
+// thread gets false.  (The ticket of a look-back is no such proof: the
+// block that draws it is the last to start, and blocks that started
+// before it may still be adding.)  kWarps: the block's warps.
+template <int kWarps>
+__device__ __forceinline__ bool retire_last(unsigned long long* word,
+                                            int live, int n_blocks,
+                                            int* total) {
   __shared__ int sums[kWarps];
   const int s = __reduce_add_sync(0xFFFFFFFFu, live);
   if ((threadIdx.x & 31) == 0) sums[threadIdx.x >> 5] = s;
   __syncthreads();
-  if (threadIdx.x != 0) return;
+  if (threadIdx.x != 0) return false;
   int t = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) t += sums[w];
-  auto* word = (unsigned long long*)((int32_t*)a.sc + kRetire);
   const unsigned long long old = atomicAdd(word, (1ull << 32) | (unsigned)t);
-  if ((int)(old >> 32) != n_blocks - 1) return;
-  loop_cond(a, loop_after<kLive>(a, pre.rnd,
-                                 pre.live + (int)(unsigned)old + t));
+  if ((int)(old >> 32) != n_blocks - 1) return false;
+  *total = (int)(unsigned)old + t;
   *word = 0;
+  return true;
+}
+
+// The end of a round's last kernel (the apply) when a.loop says it ends a
+// loop's body; nothing otherwise.  Every thread of every block calls it
+// with its lane's live count (the apply then adds none to sc[kLive]
+// itself), counted as the blocks retire in the 64-bit word at sc[kRetire]
+// (retire_last); the last block runs loop_after (the round counted,
+// sc[kLive] = pre.live + the round's live lanes, the test) and sets the
+// condition.
+template <int kLive, int kRetire, int kWarps, typename A>
+__device__ __forceinline__ void loop_retire(const A& a, int live,
+                                            int n_blocks, LoopPre pre) {
+  if (!a.loop) return;
+  int total;
+  if (retire_last<kWarps>(
+          (unsigned long long*)((int32_t*)a.sc + kRetire), live, n_blocks,
+          &total))
+    loop_cond(a, loop_after<kLive>(a, pre.rnd, pre.live + total));
 }
 
 namespace loop_graph {

@@ -19,8 +19,9 @@ source's segment entry, csrc/compact.cuh: the previous segment's lanes
 compacted into the segment's, ``RoundArgs.entry``), then a WHILE node
 whose body is one round's launches, captured once from the calling
 thread and replayed on the card until its last kernel (a round source's
-apply; the suffix-array loop's cond kernel) clears the condition;
-fm_walk.cu runs the suffix-array walk's last stage the same way.
+apply; the suffix-array walk's fm_inv_psi_walk_kernel) clears the
+condition; fm_walk.cu runs the suffix-array walk's last stage the same
+way, its entry the stage entry kernel before it.
 ``run_loop`` builds and launches it, or, inside the capture of a whole
 call (``CallGraph``: the seeder's call as one torch.cuda.CUDAGraph), adds
 the loop to that capture; ``NoTorchOps`` guards every body's
@@ -539,10 +540,11 @@ def _loop_test(rd) -> bool:
 
 def run_loop(rd, lib: KernelLibrary, prefix: str, entry, body) -> None:
     """Run a loop: ``entry(rd)`` launches the entry kernel (a round
-    source's: ``RoundArgs.entry``), ``body(rd)``
+    source's: ``RoundArgs.entry``; the suffix-array walk's stage entry
+    before its last stage), ``body(rd)``
     one round's launches, the last of which counts the round and sets the
-    condition (a round source's apply with its loop word set, the
-    suffix-array loop's cond kernel).  ``rd`` holds the
+    condition (a round source's apply, the suffix-array walk, each with
+    its loop word set).  ``rd`` holds the
     launch arguments: ``dev``, ``args`` (its words, ``AT["cond"]`` the
     condition handle's), ``go`` (the condition's last value, one int32 on
     the device) and ``graph`` (a RoundArgs, or fm_cuda.SaLoop).  On a

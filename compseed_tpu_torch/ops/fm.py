@@ -6,13 +6,14 @@ Contracts (exact integer semantics, validated against cpu.fm_oracle):
   sa_batch      — bwt_sa via inverse-Psi walk (FM_index/bwt.c:53-96)
 
 ``extend_sel_batch`` and the inverse-Psi walk ``_walk`` (behind
-``sa_batch`` and ``sa_batch_compact``) run their plain versions,
-``_extend_sel_plain`` and ``_walk_plain``, for CPU tensors; for any other
-they call the launchers of ``ops/fm_cuda.py``, which launch the
-hand-written kernels on CUDA tensors or raise.  The while loop of
-``sa_batch_compact``'s last stage runs on the card as one CUDA graph loop
-(``_sa_loop_kernels``), its test by the card, as the JAX package's runs on
-the TPU; ``_sa_loop_plain`` is its plain version.
+``sa_batch``) run their plain versions, ``_extend_sel_plain`` and
+``_walk_plain``, for CPU tensors; for any other they call the launchers
+of ``ops/fm_cuda.py``, which launch the hand-written kernels on CUDA
+tensors or raise.  ``sa_batch_compact`` runs its plain version,
+``_sa_batch_compact_plain``, for CPU tensors and its kernels otherwise
+(``_sa_batch_compact_kernels``: every stage's walk and every boundary
+between two stages one kernel, the last stage's while loop one CUDA graph
+loop whose test the card sets, as the JAX package's runs on the TPU).
 
 One occ query gathers ONE fused row (checkpoint counts + 2-bit BWT
 bitplanes, see ops.device_index) and ranks in-block bases with masked
@@ -257,52 +258,73 @@ def sa_batch_compact(fm: DeviceFMIndex, k: torch.Tensor):
     then stably compact the unfinished minority and continue narrow.
 
     Returns (sa (N,), ovf) — ovf set if stragglers exceeded a stage cap
-    (the stage caps and their order are the JAX package's exactly)."""
+    (the stage caps and their order are the JAX package's exactly).
+    ``_sa_batch_compact_plain`` for CPU tensors, the kernels
+    (``_sa_batch_compact_kernels``) for any other."""
+    return _sa_compact(k.device)(fm, k)
+
+
+def _sa_compact(dev: torch.device):
+    """sa_batch_compact for tensors on ``dev``: the plain version for CPU
+    tensors, the kernels for any other."""
+    if dev.type == "cpu":
+        return _sa_batch_compact_plain
+    return _sa_batch_compact_kernels
+
+
+def _sa_batch_compact_plain(fm: DeviceFMIndex, k: torch.Tensor):
+    """sa_batch_compact's plain version: the JAX package's stages in
+    PyTorch operations, each stage's walk, then the boundary after it
+    (_sa_boundary_plain)."""
     dt = fm.dtype
     dev = k.device
     N = k.shape[0]
     mask = fm.sa_intv - 1
 
     kk = k.to(dt)
-    steps = torch.zeros(N, dtype=dt, device=dev)
-    slot = torch.arange(N, dtype=torch.int64, device=dev)
-    alive = (kk & mask) != 0
-
-    out_steps = torch.zeros(N + 1, dtype=dt, device=dev)   # [N]: drop slot
-    out_k = torch.cat([kk, kk.new_zeros(1)])
-    ovf = torch.zeros((), dtype=torch.bool, device=dev)
-
+    st = dict(kk=kk, steps=torch.zeros(N, dtype=dt, device=dev),
+              slot=torch.arange(N, dtype=torch.int64, device=dev),
+              alive=(kk & mask) != 0,
+              out_steps=torch.zeros(N + 1, dtype=dt, device=dev),  # [N]:
+              out_k=torch.cat([kk, kk.new_zeros(1)]),              # drop
+              ovf=torch.zeros((), dtype=torch.bool, device=dev))   # slot
     stages = ((1, fm.sa_intv), (4, 2 * fm.sa_intv), (16, 4 * fm.sa_intv),
               (64, 0))
-    for div, n_steps in stages:
-        cap = max(N // div, 1)
-        if div > 1:
-            order = torch.argsort((~alive).to(torch.int8), stable=True)
-            ovf = ovf | (alive.sum() > cap)
-            take = order[:cap]
-            kk, steps, alive, slot = kk[take], steps[take], alive[take], \
-                slot[take]
+    for i, (div, n_steps) in enumerate(stages):
+        lanes = st["kk"], st["steps"], st["alive"]
         if n_steps == 0:
-            kk, steps, alive = _sa_loop(dev)(fm, kk, steps, alive)
+            lanes = _sa_loop_plain(fm, *lanes)
         else:
-            kk, steps, alive = _walk(fm, kk, steps, alive, n_steps)
-        done = ~alive & (slot >= 0)
-        sl = torch.where(done, slot, N)
-        out_steps[sl] = torch.where(done, steps, 0)
-        out_k[sl] = torch.where(done, kk, 0)
-        slot = torch.where(done, -1, slot)
+            lanes = _walk(fm, *lanes, n_steps)
+        st.update(zip(("kk", "steps", "alive"), lanes))
+        nxt = stages[i + 1][0] if i + 1 < len(stages) else None
+        _sa_boundary_plain(st, N, None if nxt is None else max(N // nxt, 1))
 
-    out_steps, out_k = out_steps[:N], out_k[:N]
+    out_steps, out_k = st["out_steps"][:N], st["out_k"][:N]
     sa = out_steps + _sa_sample(fm, out_k)
-    return sa, ovf
+    return sa, st["ovf"]
 
 
-def _sa_loop(dev: torch.device):
-    """sa_batch_compact's last stage for tensors on ``dev``: the plain
-    version for CPU tensors, the graph loop for any other."""
-    if dev.type == "cpu":
-        return _sa_loop_plain
-    return _sa_loop_kernels
+def _sa_boundary_plain(st: dict, N: int, cap):
+    """The boundary after a stage of the plain version, on its state
+    ``st`` (kk, steps, alive, slot, out_steps, out_k, ovf; updated): the
+    lanes that died in the stage write out their steps and position
+    (JAX fm.py:286-291), then, before another stage (``cap`` its lanes;
+    None after the last), the live ones are stably compacted into the
+    first ``cap`` lanes (JAX fm.py:268-279).  sa_stage_entry_kernel's
+    plain version."""
+    done = ~st["alive"] & (st["slot"] >= 0)
+    sl = torch.where(done, st["slot"], N)
+    st["out_steps"][sl] = torch.where(done, st["steps"], 0)
+    st["out_k"][sl] = torch.where(done, st["kk"], 0)
+    st["slot"] = torch.where(done, -1, st["slot"])
+    if cap is None:
+        return
+    order = torch.argsort((~st["alive"]).to(torch.int8), stable=True)
+    st["ovf"] = st["ovf"] | (st["alive"].sum() > cap)
+    take = order[:cap]
+    for n in ("kk", "steps", "alive", "slot"):
+        st[n] = st[n][take]
 
 
 def _sa_loop_plain(fm: DeviceFMIndex, kk, steps, alive):
@@ -314,21 +336,32 @@ def _sa_loop_plain(fm: DeviceFMIndex, kk, steps, alive):
     return kk, steps, alive
 
 
-def _sa_loop_kernels(fm: DeviceFMIndex, kk, steps, alive):
-    """The last stage's loop by ``cuda_lib.run_loop`` over an
-    ``fm_cuda.SaLoop``: on a card one graph, the entry kernel and a WHILE
-    node whose body walks the lanes 2 * sa_intv steps in place and ends
-    with the cond kernel (inside a call's capture the loop joins it;
+def _sa_batch_compact_kernels(fm: DeviceFMIndex, k: torch.Tensor):
+    """sa_batch_compact on the kernels (``fm_cuda.SaLoop``), for CUDA
+    tensors: each stage's fm_inv_psi_walk_kernel and after it one
+    sa_stage_entry_kernel (the done lanes written out, the live ones
+    compacted into the next stage's lanes, ovf); the last stage's loop by
+    ``cuda_lib.run_loop``, on a card one graph: the stage entry before it,
+    which runs the loop's first test, then a WHILE node whose body walks
+    the lanes 2 * sa_intv steps in place, the walk's last block to retire
+    testing the next round (inside a call's capture the loop joins it;
     outside, its graph is captured, launched and freed here: the host
-    waits on nothing).  For CPU tensors (the CPU tests put the kernels'
-    host twins in place of the launches) the same steps in turn.  Updates
-    and returns (kk, steps, alive)."""
-    lp = fm_cuda.SaLoop(fm, kk, steps, alive, 2 * fm.sa_intv)
-
-    def body(lp):
-        _walk(fm, kk, steps, alive, lp.n_steps, out=lp.lanes)
-        fm_cuda.sa_cond(lp)
-
-    cuda_lib.run_loop(lp, fm_cuda.LIB, "fm", fm_cuda.sa_entry, body)
+    waits on nothing); then the call's last stage entry.  For CPU tensors
+    (the CPU tests put the kernels' host twins in place of the launches)
+    the same launches in turn.  Returns (sa (N,), ovf)."""
+    dt = fm.dtype
+    kk = k.to(dt).contiguous()
+    N = kk.shape[0]
+    if N == 0:
+        return kk.clone(), torch.zeros((), dtype=torch.bool, device=k.device)
+    lp = fm_cuda.SaLoop(fm, kk, torch.zeros_like(kk),
+                        (kk & (fm.sa_intv - 1)) != 0)
+    for s in (0, 1):
+        lp.walk(s)
+        lp.boundary(s)
+    lp.walk(2)
+    cuda_lib.run_loop(lp, fm_cuda.LIB, "fm", lambda lp: lp.boundary(2),
+                      lambda lp: lp.walk(3, loop=True))
+    lp.boundary(3)
     lp.close()
-    return kk, steps, alive
+    return lp.out_steps + _sa_sample(fm, lp.out_k), lp.ovf

@@ -10,11 +10,14 @@ hand-written kernel per call instead of some hundred PyTorch operations:
       ``ops/seedscan.py::_chain_walk`` (plain version ``_chain_walk_plain``);
   ``inv_psi_walk``     -> ``fm_inv_psi_walk_kernel``, for ``ops/fm.py::_walk``
       (plain version ``_walk_plain``);
-  ``sa_entry``, ``sa_cond`` -> ``sa_loop_entry_kernel``,
-      ``sa_loop_cond_kernel``: the loop test of ``sa_batch_compact``'s last
-      stage (``SaLoop``), which ``ops/fm.py::_sa_loop_kernels`` runs as one
-      CUDA graph loop (``cuda_lib.run_loop``) around the walk (plain
-      version ``_sa_loop_plain``).
+  ``SaLoop``           -> ``sa_stage_entry_kernel`` (by its SaArgs words)
+      and ``fm_inv_psi_walk_kernel`` (``inv_psi_walk``): the suffix-array
+      walk of ``sa_batch_compact`` on the card (``ops/fm.py::
+      _sa_batch_compact_kernels``, plain version ``_sa_batch_compact_plain``):
+      each stage's walk, the boundaries between the stages (the done lanes
+      written out, the live ones compacted) and the last stage's loop, one
+      CUDA graph loop (``cuda_lib.run_loop``) whose test the boundary
+      before it and the walk's last block to retire set.
 
 Those callers run the plain version for CPU tensors and come here for any
 other; each launcher takes CUDA tensors only and launches its kernel or
@@ -41,10 +44,12 @@ from compseed_tpu_torch.ops import cuda_lib
 from compseed_tpu_torch.ops.cuda_lib import KernelLibrary, bind_graphs
 
 MAX_W = 10                  # a chain window packs into 30 bits
-# the suffix-array loop's words (csrc/fm_walk.cu's struct SaArgs), in order
-SA_ARGS = ("alive", "n", "cond", "go")
-SA_KERNELS = ("sa_loop_entry_kernel", "sa_loop_cond_kernel")
-SA_BLOCK = 256              # the loop kernels' one block
+# a stage entry's words (csrc/fm_walk.cu's struct SaArgs), in order
+SA_ARGS = ("idx64", "kk", "steps", "alive", "slot", "n",
+           "next_kk", "next_steps", "next_alive", "next_slot", "w",
+           "kk0", "out_steps", "out_k", "ovf", "sc", "lb",
+           "open", "cond", "go")
+SA_KERNELS = ("sa_stage_entry_kernel",)
 
 
 def _bind(lib) -> None:
@@ -54,13 +59,11 @@ def _bind(lib) -> None:
     lib.fm_chain_walk_launch.argtypes = index + \
         [p, p, p, p, p, p, i, i, p, p, p, p, ll, i, p]
     lib.fm_inv_psi_walk_launch.argtypes = index + \
-        [p, p, p, i, ll, p, p, p, ll, i, p]
+        [p, p, p, i, ll, p, p, p, ll, i, p, ll, p, p]
+    lib.sa_stage_entry_launch.argtypes = [p, p]
     for fn in (lib.fm_extend_sel_launch, lib.fm_chain_walk_launch,
-               lib.fm_inv_psi_walk_launch):
+               lib.fm_inv_psi_walk_launch, lib.sa_stage_entry_launch):
         fn.restype = i
-    for kernel in SA_KERNELS:
-        fn = getattr(lib, cuda_lib.launcher_of(kernel))
-        fn.argtypes, fn.restype = [p, p], i
     bind_graphs(lib, "fm")
     lib.fm_sa_args_words.argtypes, lib.fm_sa_args_words.restype = [], i
     if lib.fm_sa_args_words() != len(SA_ARGS):
@@ -76,6 +79,7 @@ LIB = KernelLibrary(
     _bind, "fm_cuda_error_name")
 LAUNCHES = LIB.launches
 build_library = LIB.build
+_launch = LIB.launch_args
 
 
 def _check(name, x, dtype, shape, device=None):
@@ -202,13 +206,16 @@ def _launch_chain_walk(fm, wv, W: int, k, l, s, valid, is_back: bool,
 
 # ---------------------------------------------------------------------------
 def inv_psi_walk(fm, kk: torch.Tensor, steps: torch.Tensor,
-                 alive: torch.Tensor, n_steps: int, out=None):
+                 alive: torch.Tensor, n_steps: int, out=None, tail=None):
     """Up to ``n_steps`` masked inverse-Psi steps per lane by
     ``fm_inv_psi_walk_kernel``: kk, steps (N,) in the index dtype, alive
     (N,) bool -> the same three, new tensors, or ``out`` (three such
     tensors, the inputs themselves allowed: the walk then runs in place
     and allocates nothing, so that it can be captured into a loop's
-    graph)."""
+    graph).  ``tail`` (the body of SaLoop's loop: its retire word, one
+    int64 that is 0 between launches, the WHILE node's condition handle,
+    0 outside a graph, and go, one int32) makes the walk's last block to
+    retire run the loop's test, go = any lane alive after the walk."""
     dev = _cuda_device("inv_psi_walk", kk.device)
     N = kk.shape[0] if kk.dim() else 0
     dt = fm.dtype
@@ -225,60 +232,134 @@ def inv_psi_walk(fm, kk: torch.Tensor, steps: torch.Tensor,
                              (kk, steps, alive)):
         _check(name, x, like.dtype, (N,), dev)
     kk_out, steps_out, alive_out = out
+    retire, cond, go = tail or (None, 0, None)
+    if tail is not None:
+        if N < 1:
+            raise ValueError("inv_psi_walk: a loop's test needs a lane")
+        _check("retire", retire, torch.int64, (), dev)
+        _check("go", go, torch.int32, (), dev)
     if N:
         LIB.launch("fm_inv_psi_walk_kernel", dev, "fm_inv_psi_walk_launch",
                    *index, kk.data_ptr(), steps.data_ptr(), alive.data_ptr(),
                    n_steps, fm.sa_intv - 1, kk_out.data_ptr(),
                    steps_out.data_ptr(), alive_out.data_ptr(), N,
-                   int(dt == torch.int64))
+                   int(dt == torch.int64),
+                   None if retire is None else retire.data_ptr(), cond,
+                   None if go is None else go.data_ptr())
     return kk_out, steps_out, alive_out
 
 
 # ---------------------------------------------------------------------------
+def sa_widths(N: int) -> tuple:
+    """The lanes of sa_batch_compact's four stages over N lanes: N, then
+    the caps max(N // div, 1) for div 4, 16, 64 (the JAX package's), none
+    wider than the stage before (N = 0: all 0)."""
+    out = [N]
+    for div in (4, 16, 64):
+        out.append(min(max(N // div, 1), out[-1]))
+    return tuple(out)
+
+
 class SaLoop:
-    """The loop of sa_batch_compact's last stage over its lanes (kk, steps
-    (n,) in the index dtype, alive (n,) bool, walked in place by
-    ``n_steps`` inverse-Psi steps a round): what ``cuda_lib.run_loop``
-    takes, ``args`` (the source's struct SaArgs, one 64-bit word a field,
-    ``AT``: field -> word), ``go`` (one int32, the condition's last
-    value), ``dev`` and, once run outside a call's capture, ``graph``."""
+    """The suffix-array walk of one sa_batch_compact call on the kernels,
+    over N >= 1 lanes: the call's positions ``kk0`` (N,) in the index
+    dtype, their zero steps ``steps0`` and first alive bytes ``alive0``.
+    Allocates, at its construction (outside any loop's capture; inside a
+    call's capture the graph's pool serves them), every stage's lanes
+    (``lanes[s]``: kk, steps, alive, and slot (int32) from the second
+    stage on), the outputs ``out_steps``, ``out_k`` (N) and ``ovf``, ``go``
+    (one int32, the loop condition's last value) and its scan words
+    (``words``: the int32 ticket and epoch words, the walk's 64-bit retire
+    word ``retire``, then a look-back word a block, zeroed once).  ``walk(s)``
+    launches stage s's walk (``inv_psi_walk``, in place from the second
+    stage on), ``boundary(s)`` the stage entry after it (after the last
+    stage, the call's last launch); ``cuda_lib.run_loop`` takes it for the
+    last stage's loop: ``args`` (the stage entry's struct SaArgs, one
+    64-bit word a field, ``AT``: field -> word; ``AT["cond"]`` the
+    condition handle, which the walk's tail reads too), ``go``, ``dev``
+    and, run outside a call's capture, ``graph``."""
 
     AT = {n: i for i, n in enumerate(SA_ARGS)}
     graph = None
 
-    def __init__(self, fm, kk, steps, alive, n_steps: int):
-        dev = kk.device
-        n = kk.shape[0] if kk.dim() else 0
-        _check("kk", kk, fm.dtype, (n,), dev)
-        _check("steps", steps, fm.dtype, (n,), dev)
-        _check("alive", alive, torch.bool, (n,), dev)
-        self.fm, self.dev, self.n_steps = fm, dev, n_steps
-        self.lanes = (kk, steps, alive)
-        self.go = torch.zeros((), dtype=torch.int32, device=dev)
+    def __init__(self, fm, kk0, steps0, alive0):
+        dev = kk0.device
+        N = kk0.shape[0] if kk0.dim() else 0
+        if N < 1:
+            raise ValueError("SaLoop: no lanes")
+        dt = fm.dtype
+        _check("kk0", kk0, dt, (N,), dev)
+        _check("steps0", steps0, dt, (N,), dev)
+        _check("alive0", alive0, torch.bool, (N,), dev)
+        self.fm, self.dev = fm, dev
+        self.widths = sa_widths(N)
+        self.n_steps = (fm.sa_intv, 2 * fm.sa_intv, 4 * fm.sa_intv,
+                        2 * fm.sa_intv)
+        i32 = torch.int32
+        self.lanes = [tuple(torch.empty(w, dtype=d, device=dev)
+                            for d in (dt, dt, torch.bool, i32)[:3 + (s > 0)])
+                      for s, w in enumerate(self.widths)]
+        self.first = (kk0, steps0, alive0)
+        self.out_steps = torch.empty(N, dtype=dt, device=dev)
+        self.out_k = torch.empty(N, dtype=dt, device=dev)
+        self.ovf = torch.empty((), dtype=torch.bool, device=dev)
+        self.go = torch.empty((), dtype=i32, device=dev)
+        tiles = -(-N // cuda_lib.ENTRY_TILE)
+        self.words = torch.zeros(2 + tiles, dtype=torch.int64, device=dev)
+        self.retire = self.words[1]
         self.args = (ct.c_longlong * len(SA_ARGS))()
-        for name, x in (("alive", alive.data_ptr()), ("n", n), ("cond", 0),
+        for name, x in (("idx64", int(dt == torch.int64)),
+                        ("kk0", kk0.data_ptr()),
+                        ("out_steps", self.out_steps.data_ptr()),
+                        ("out_k", self.out_k.data_ptr()),
+                        ("ovf", self.ovf.data_ptr()),
+                        ("sc", self.words.data_ptr()),
+                        ("lb", self.words[2:].data_ptr()),
                         ("go", self.go.data_ptr())):
             self.args[self.AT[name]] = x
+
+    def _stage(self, s: int) -> None:
+        """Point the lane words at stage s."""
+        for name, x in zip(("kk", "steps", "alive"), self.lanes[s]):
+            self.args[self.AT[name]] = x.data_ptr()
+        self.args[self.AT["slot"]] = self.lanes[s][3].data_ptr() if s else 0
+        self.args[self.AT["n"]] = self.widths[s]
+
+    def tail(self) -> tuple:
+        """The loop's test after a walk (``inv_psi_walk``'s ``tail``):
+        the retire word, the condition handle (0 until run_loop sets it)
+        and go."""
+        return self.retire, self.args[self.AT["cond"]], self.go
+
+    def walk(self, s: int, loop: bool = False) -> None:
+        """fm_inv_psi_walk_kernel over stage s's lanes: the first stage's
+        from the call's lanes into its own, the others' in place; with
+        ``loop`` (the last stage's loop body) its last block to retire
+        runs the loop's test after the round."""
+        lanes = self.lanes[s][:3]
+        inv_psi_walk(self.fm, *(self.first if s == 0 else lanes),
+                     self.n_steps[s], out=lanes,
+                     tail=self.tail() if loop else None)
+
+    def boundary(self, s: int) -> None:
+        """sa_stage_entry_kernel after stage s: its done lanes written
+        out and, before the last stage, its live lanes compacted into the
+        next stage's (ovf; before the last stage also the loop's first
+        test, go and the WHILE node's condition)."""
+        self._stage(s)
+        last = s + 1 == len(self.widths)
+        nxt = () if last else self.lanes[s + 1]
+        for name, x in zip(("next_kk", "next_steps", "next_alive",
+                            "next_slot"), nxt or (None,) * 4):
+            self.args[self.AT[name]] = 0 if x is None else x.data_ptr()
+        self.args[self.AT["w"]] = 0 if last else self.widths[s + 1]
+        self.args[self.AT["open"]] = int(s + 2 == len(self.widths))
+        if last:
+            self.args[self.AT["cond"]] = 0
+        _launch("sa_stage_entry_kernel", self.dev, self.args)
 
     def close(self) -> None:
         """Free the loop's graph (after its last launch)."""
         if self.graph is not None:
             self.graph.close()
             self.graph = None
-
-
-def _launch(kernel: str, dev: torch.device, args) -> None:
-    """Launch a loop kernel with its SaArgs words (the CPU tests put the
-    host twins here)."""
-    LIB.launch_args(kernel, dev, args)
-
-
-def sa_entry(lp: SaLoop) -> None:
-    """sa_loop_entry_kernel: the loop's test before its first round."""
-    _launch("sa_loop_entry_kernel", lp.dev, lp.args)
-
-
-def sa_cond(lp: SaLoop) -> None:
-    """sa_loop_cond_kernel: the loop's test after a round, its last
-    launch."""
-    _launch("sa_loop_cond_kernel", lp.dev, lp.args)

@@ -4,12 +4,15 @@ per (thread, call shape) into a cuda_lib.CallGraph, its loops joining the
 capture, and replayed for every later chunk.  The graph itself runs on
 the card (tests/test_torch_cuda.py, chip_smoke.py); here:
 
-- the suffix-array loop kernels' host twins (sa_loop_entry_host,
-  sa_loop_cond_host, csrc/fm_walk.cu built with g++) against alive.any():
-  random masks, all dead, only the last lane alive;
-- sa_batch_compact with its last stage through run_loop's CPU branch and
-  the twins, against the JAX package's sa_batch_compact, int32 and int64,
-  with stragglers past the last stage's cap (ovf set);
+- the suffix-array walk's host twins (csrc/fm_walk.cu built with g++:
+  fm_inv_psi_walk_host with a tail, the walk's folded loop test, and
+  sa_stage_entry_host before the last stage, the loop's first test)
+  against alive.any(): random masks, all dead, only the last lane alive;
+- sa_batch_compact by its kernel route, its last stage through
+  run_loop's CPU branch and the twins, against the JAX package's
+  sa_batch_compact, int32 and int64, with stragglers past the last
+  stage's cap (ovf set); the last stage's loop alone over unsampled rows,
+  five rounds, against the plain loop;
 - the host-read guard (cuda_lib.NoHostReads: what a capture refuses)
   lets the default engine's _run through, with every loop run as the
   card runs it (run_loop's CPU branch and the host twins), on the kept
@@ -23,6 +26,7 @@ import ctypes as ct
 import shutil
 import subprocess
 import threading
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -36,7 +40,7 @@ from compseed_tpu.ops.device_index import to_device as jax_to_device
 from compseed_tpu.ops.seeder2 import DeviceSeeder as JaxSeeder
 from compseed_tpu.options import MemOptions as JaxOptions
 from compseed_tpu_torch import convert
-from compseed_tpu_torch.ops import cuda_lib, fm_cuda
+from compseed_tpu_torch.ops import cuda_lib, fm_cuda, sa_cases
 from compseed_tpu_torch.ops import fm as tfm
 from compseed_tpu_torch.ops import seeder2
 from compseed_tpu_torch.ops import seedscan as tss
@@ -64,28 +68,67 @@ def fm_host(tmp_path_factory):
                     "-fPIC", "-o", so, fm_cuda.LIB.src], check=True,
                    capture_output=True)
     lib = ct.CDLL(so)
-    for kernel in fm_cuda.SA_KERNELS:
-        fn = getattr(lib, launcher_of(kernel, "_host"))
-        fn.argtypes, fn.restype = [ct.c_void_p], ct.c_int
-    lib.fm_sa_args_words.restype = ct.c_int
+    p, i, ll = ct.c_void_p, ct.c_int, ct.c_longlong
+    lib.sa_stage_entry_host.argtypes = [p]
+    lib.fm_inv_psi_walk_host.argtypes = [p, ll, p, ll, i, p, p, p, i, ll,
+                                         p, p, p, ll, i, p, ll, p]
+    for fn in (lib.sa_stage_entry_host, lib.fm_inv_psi_walk_host,
+               lib.fm_sa_args_words):
+        fn.restype = i
     return lib
+
+
+def walk_host(host, fm, kk, steps, alive, n_steps: int, out, tail=None,
+              n=None) -> int:
+    """fm_cuda.inv_psi_walk's launch by the walk's host twin
+    (fm_inv_psi_walk_host) on CPU tensors, into ``out``, with the loop's
+    test after it when ``tail`` (retire, cond, go) is given; ``n`` the
+    lane count passed (None: the lanes').  Returns the twin's code."""
+    retire, cond, go = tail or (None, 0, None)
+    return host.fm_inv_psi_walk_host(
+        fm.occ_packed.data_ptr(), fm.n_rows, fm.L2.data_ptr(),
+        int(fm.primary), int(bool(fm.fill_oob)), kk.data_ptr(),
+        steps.data_ptr(), alive.data_ptr(), n_steps, fm.sa_intv - 1,
+        *(x.data_ptr() for x in out), kk.shape[0] if n is None else n,
+        int(fm.dtype == torch.int64),
+        None if retire is None else retire.data_ptr(), cond,
+        None if go is None else go.data_ptr())
+
+
+def host_launches(host, monkeypatch) -> dict:
+    """The suffix-array walk's launches run by their host twins: the
+    stage entries (fm_cuda._launch) and the walks (fm_cuda.inv_psi_walk,
+    which SaLoop.walk calls).  Returns the launches by kernel, and under
+    "loop_walks" the walks with the loop's test."""
+    calls = {"sa_stage_entry_kernel": 0, "fm_inv_psi_walk_kernel": 0,
+             "loop_walks": 0}
+
+    def launch(kernel, dev, args):
+        assert dev.type == "cpu" and kernel == "sa_stage_entry_kernel"
+        assert host.sa_stage_entry_host(ct.addressof(args)) == 0, kernel
+        calls[kernel] += 1
+
+    def walk(fm, kk, steps, alive, n_steps, out=None, tail=None):
+        assert kk.device.type == "cpu" and out is not None
+        assert walk_host(host, fm, kk, steps, alive, n_steps, out,
+                         tail) == 0
+        calls["fm_inv_psi_walk_kernel"] += 1
+        calls["loop_walks"] += tail is not None
+        return out
+
+    monkeypatch.setattr(fm_cuda, "_launch", launch)
+    monkeypatch.setattr(fm_cuda, "inv_psi_walk", walk)
+    return calls
 
 
 @pytest.fixture
 def sa_on_host(fm_host, monkeypatch):
-    """sa_batch_compact's last stage through its kernel route (run_loop's
-    CPU branch) with the loop kernels run by their host twins; returns
-    the launches by kernel."""
-    calls = dict.fromkeys(fm_cuda.SA_KERNELS, 0)
-
-    def launch(kernel, dev, args):
-        assert dev.type == "cpu"
-        assert getattr(fm_host, launcher_of(kernel, "_host"))(
-            ct.addressof(args)) == 0, kernel
-        calls[kernel] += 1
-
-    monkeypatch.setattr(fm_cuda, "_launch", launch)
-    monkeypatch.setattr(tfm, "_sa_loop", lambda dev: tfm._sa_loop_kernels)
+    """sa_batch_compact through its kernel route (the last stage's loop
+    through run_loop's CPU branch) with every launch run by its host
+    twin; returns the launches by kernel (host_launches)."""
+    calls = host_launches(fm_host, monkeypatch)
+    monkeypatch.setattr(tfm, "_sa_compact",
+                        lambda dev: tfm._sa_batch_compact_kernels)
     return calls
 
 
@@ -93,7 +136,7 @@ def sa_on_host(fm_host, monkeypatch):
 def all_on_host(hosts, sa_on_host, monkeypatch):  # noqa: F811
     """Every loop of the default engine as the card runs it: chain_scan's
     and walk_pool_chain's rounds by the host builds of their kernels,
-    the suffix-array loop by its twins, each loop through run_loop."""
+    the suffix-array walk by its twins, each loop through run_loop."""
     for name, mod in MODULES.items():
         def launch(kernel, dev, args, lib=hosts[name]):
             assert dev.type == "cpu"
@@ -108,14 +151,39 @@ def all_on_host(hosts, sa_on_host, monkeypatch):  # noqa: F811
 
 
 def _sa_words(alive: torch.Tensor):
-    """SaArgs words over ``alive`` and the int32 go they write."""
-    go = torch.full((), -1, dtype=torch.int32)
+    """A stage entry's SaArgs words over the lanes ``alive`` (positions
+    and steps 0, every slot -1, so that no lane is done): the boundary
+    before the last stage (the loop's first test, a next stage as wide);
+    the walk's tail over the same lanes (retire, cond, go); an index
+    whose rows the walk of no step never reads; and the tensors the
+    words name, go among them."""
+    n = alive.shape[0]
+    i32 = torch.int32
+    t = dict(kk=torch.zeros(n, dtype=i32), steps=torch.zeros(n, dtype=i32),
+             alive=alive, slot=torch.full((n,), -1, dtype=i32),
+             next_kk=torch.empty(n, dtype=i32),
+             next_steps=torch.empty(n, dtype=i32),
+             next_alive=torch.empty(n, dtype=torch.bool),
+             next_slot=torch.empty(n, dtype=i32),
+             out_steps=torch.zeros(n, dtype=i32),
+             out_k=torch.zeros(n, dtype=i32),
+             ovf=torch.zeros((), dtype=torch.bool),
+             sc=torch.zeros(3 + n // 512, dtype=torch.int64),
+             go=torch.full((), -1, dtype=i32))
     args = (ct.c_longlong * len(fm_cuda.SA_ARGS))()
     at = fm_cuda.SaLoop.AT
-    args[at["alive"]] = alive.data_ptr()
-    args[at["n"]] = alive.shape[0]
-    args[at["go"]] = go.data_ptr()
-    return args, go
+    for name in ("kk", "steps", "alive", "slot", "next_kk", "next_steps",
+                 "next_alive", "next_slot", "out_steps", "out_k", "ovf",
+                 "sc", "go"):
+        args[at[name]] = t[name].data_ptr()
+    for name, x in (("kk0", t["kk"].data_ptr()), ("n", n), ("w", n),
+                    ("lb", t["sc"][2:].data_ptr()), ("open", 1)):
+        args[at[name]] = x
+    fm = SimpleNamespace(occ_packed=torch.zeros((1, 16), dtype=i32),
+                         n_rows=1, L2=torch.zeros(5, dtype=i32), primary=0,
+                         fill_oob=False, sa_intv=8, dtype=i32)
+    t["tail"] = (t["sc"][1], 0, t["go"])
+    return args, fm, t
 
 
 def test_sa_args_layout(fm_host):
@@ -123,37 +191,57 @@ def test_sa_args_layout(fm_host):
     assert fm_host.fm_sa_args_words() == len(fm_cuda.SA_ARGS)
 
 
+def _twins(fm_host, args, fm, t) -> dict:
+    """Both loop tests' twins over the lanes of _sa_words, each from go =
+    -1: the walk's folded tail (a walk of no step, in place, with a tail)
+    and the stage entry before the last stage; their codes and go."""
+    out = {}
+    lanes = (t["kk"], t["steps"], t["alive"])
+    for what in ("walk tail", "stage entry"):
+        t["go"].fill_(-1)
+        rc = walk_host(fm_host, fm, *lanes, 0, lanes, t["tail"]) \
+            if what == "walk tail" else \
+            fm_host.sa_stage_entry_host(ct.addressof(args))
+        out[what] = (rc, int(t["go"]))
+    return out
+
+
 @pytest.mark.parametrize("n", [1, 63, 1536, 5000])
 @pytest.mark.parametrize("mask", ["random", "dead", "last"])
 def test_sa_loop_twins_against_any(fm_host, n, mask):
-    """Both loop kernels' twins leave go = alive.any() over the lanes:
-    a sparse random mask, every lane dead, only the last lane alive."""
+    """Both loop tests' twins leave go = alive.any() over the lanes: the
+    walk's folded tail (fm_inv_psi_walk_host with a tail) and the stage
+    entry before the last stage (sa_stage_entry_host with open); a
+    sparse random mask, every lane dead, only the last lane alive."""
     rng = np.random.default_rng(n)
     alive = torch.from_numpy(rng.random(n) < 0.01)
     if mask != "random":
         alive.zero_()
     if mask == "last":
         alive[-1] = True
-    args, go = _sa_words(alive)
-    for kernel in fm_cuda.SA_KERNELS:
-        go.fill_(-1)
-        assert getattr(fm_host, launcher_of(kernel, "_host"))(
-            ct.addressof(args)) == 0
-        assert int(go) == int(alive.any()), kernel
+    args, fm, t = _sa_words(alive)
+    for what, (rc, go) in _twins(fm_host, args, fm, t).items():
+        assert rc == 0 and go == int(alive.any()), what
 
 
 def test_sa_loop_twins_refuse_bad_words(fm_host):
-    """A negative lane count, or lanes without an alive array, is
-    refused (-1), as the launchers refuse it."""
+    """A negative lane count, or a loop test without its go word, is
+    refused (-1) by both twins, as the launchers refuse it; the stage
+    entry also refuses lanes without an alive array, and the walk's tail
+    a walk of no lane (whose last block would never retire)."""
     alive = torch.ones(4, dtype=torch.bool)
-    args, go = _sa_words(alive)
+    args, fm, t = _sa_words(alive)
     at = fm_cuda.SaLoop.AT
     for field, value in (("n", -1), ("alive", 0), ("go", 0)):
         bad = (ct.c_longlong * len(args))(*args)
         bad[at[field]] = value
-        for kernel in fm_cuda.SA_KERNELS:
-            assert getattr(fm_host, launcher_of(kernel, "_host"))(
-                ct.addressof(bad)) == -1, (field, kernel)
+        assert fm_host.sa_stage_entry_host(ct.addressof(bad)) == -1, field
+    lanes = (t["kk"], t["steps"], t["alive"])
+    retire, cond, _ = t["tail"]
+    for n, tail in ((-1, t["tail"]), (0, t["tail"]), (4, (retire, cond,
+                                                          None))):
+        assert walk_host(fm_host, fm, *lanes, 0, lanes, tail, n=n) == -1, n
+    assert walk_host(fm_host, fm, *lanes, 0, lanes, t["tail"]) == 0
 
 
 @pytest.fixture(scope="module", params=[None, np.int64],
@@ -169,30 +257,17 @@ def idx(request, tiny_fm):
                                  CPU, force_dtype=force), 8))
 
 
-def _straggler_rows(td, n: int) -> np.ndarray:
-    """The n rows of the index whose inverse-Psi walk to a sampled row
-    is longest, longest first."""
-    k = torch.arange(td.seq_len, dtype=td.dtype)
-    steps = torch.zeros_like(k)
-    alive = (k & (td.sa_intv - 1)) != 0
-    kk = k
-    while bool(alive.any()):
-        kk, steps, alive = tfm._walk_plain(td, kk, steps, alive,
-                                           td.sa_intv)
-    return k[torch.argsort(steps, descending=True, stable=True)[:n]].numpy()
-
-
 def test_sa_batch_compact_by_the_loop_equals_jax(idx, sa_on_host):
     """sa_batch_compact over 256 lanes (sampled rows, then 8 rows of
     long walks: more than the last stage's cap of 4, so ovf is set and
-    some stragglers are dropped, then random rows) with its last stage
-    through run_loop and the loop kernels' twins: SA values and ovf
-    equal the JAX package's, bit for bit, and equal the plain loop's;
-    the entry kernel ran once and the cond kernel once a round."""
+    some stragglers are dropped, then random rows) by its kernel route,
+    every launch by its twin: SA values and ovf equal the JAX package's,
+    bit for bit, and equal the plain version's; four stage entries, and
+    the walk three times and once a round of the last stage."""
     jd, td = idx
     rng = np.random.default_rng(11)
     N = 256
-    long = _straggler_rows(td, 8)
+    long = sa_cases.long_rows(td, 8)[0].numpy()
     k = rng.integers(0, td.seq_len, N).astype(np.int64)
     k[:32] = (k[:32] // td.sa_intv) * td.sa_intv          # sampled rows
     k[32:40] = long
@@ -202,38 +277,85 @@ def test_sa_batch_compact_by_the_loop_equals_jax(idx, sa_on_host):
     assert bool(ovf) and bool(jovf)
     assert np.array_equal(sa.numpy().astype(np.int64),
                           np.asarray(jsa).astype(np.int64))
-    assert sa_on_host["sa_loop_entry_kernel"] == 1
-    assert sa_on_host["sa_loop_cond_kernel"] >= 1
+    assert sa_on_host["sa_stage_entry_kernel"] == 4
+    assert sa_on_host["fm_inv_psi_walk_kernel"] >= 4
     with pytest.MonkeyPatch.context() as m:
-        m.setattr(tfm, "_sa_loop", lambda dev: tfm._sa_loop_plain)
+        m.setattr(tfm, "_sa_compact",
+                  lambda dev: tfm._sa_batch_compact_plain)
         sa_plain, ovf_plain = tfm.sa_batch_compact(td, kt)
     assert torch.equal(sa, sa_plain) and bool(ovf_plain)
 
 
 def test_sa_loop_rounds_equal_the_plain_loop(idx, sa_on_host):
-    """The loop alone (_sa_loop_kernels through run_loop and the twins,
-    2 sa_intv = 16 steps a round) over 512 unsampled rows, whose walks
-    take up to 71 steps (the index's longest), equals the plain loop
-    (_sa_loop_plain) in kk, steps and alive: one entry test and one cond
-    test a round, five rounds; and over lanes all dead, no round."""
+    """The last stage's loop alone by the kernel route: cuda_lib.run_loop
+    with SaLoop.boundary(2), the stage entry that runs the loop's first
+    test, and SaLoop.walk(3, loop=True), whose folded tail tests each next
+    round (2 sa_intv = 16 steps a round; sa_cases.run_last_loop), every
+    launch by its twin, over 512 unsampled rows put into the stage before
+    the last (sa_cases.last_loop: each with a slot, the rest of that
+    stage dead with slot -1), the index's 8 longest walks among them (up
+    to 71 steps): the last stage's kk, steps and alive equal the plain
+    loop's (_sa_loop_plain) from the same rows, in five rounds, each one
+    walk with the loop's test; over the same rows sampled (all dead), no
+    round, every lane written out as it was."""
+    _, td = idx
+    rng = np.random.default_rng(13)
+    n = 512
+    k = torch.from_numpy(rng.integers(0, td.seq_len, n)).to(td.dtype)
+    k = torch.where((k & (td.sa_intv - 1)) == 0, k + 1, k)
+    k[100:108] = sa_cases.long_rows(td, 8)[0]
+    for lanes in (k, k - (k & (td.sa_intv - 1))):
+        alive = (lanes & (td.sa_intv - 1)) != 0
+        want = tfm._sa_loop_plain(td, lanes, torch.zeros_like(lanes), alive)
+        lp = sa_cases.last_loop(td, lanes)
+        assert lp.widths[2:] == (4 * n, n)
+        before = dict(sa_on_host)
+        sa_cases.run_last_loop(lp)
+        ran = {c: sa_on_host[c] - before[c] for c in sa_on_host}
+        rounds = -(-int(want[1].max()) // (2 * td.sa_intv))
+        assert ran == {"sa_stage_entry_kernel": 1,
+                       "fm_inv_psi_walk_kernel": rounds,
+                       "loop_walks": rounds}
+        assert int(lp.go) == 0 and not bool(lp.ovf)
+        if bool(alive.any()):
+            assert rounds == 5
+            for g, w in zip(lp.lanes[3], want):
+                assert torch.equal(g, w)
+        else:
+            assert torch.equal(lp.out_k[:n], lanes)
+            assert not bool(lp.out_steps[:n].any())
+            assert not bool(lp.lanes[3][2].any())
+    assert rounds == 0
+
+
+def test_sa_batch_compact_stragglers_equal_the_plain_version(idx,
+                                                             sa_on_host):
+    """A whole call by the kernel route (run_loop and the twins) over 512
+    lanes, 504 sampled rows and the index's 8 longest walks (up to 71
+    steps, none past a stage's cap), equals the plain version in SA
+    values and ovf (clear), its rounds the plain loop's: the walk three
+    times and once a round; over lanes all dead, no round."""
     _, td = idx
     rng = np.random.default_rng(13)
     k = torch.from_numpy(rng.integers(0, td.seq_len, 512)).to(td.dtype)
-    k = torch.where((k & (td.sa_intv - 1)) == 0, k + 1, k)
+    k = k - (k & (td.sa_intv - 1))
+    k[100:108] = sa_cases.long_rows(td, 8)[0]
     for lanes in (k, k - (k & (td.sa_intv - 1))):
-        alive = (lanes & (td.sa_intv - 1)) != 0
-        steps = torch.zeros_like(lanes)
-        want = tfm._sa_loop_plain(td, lanes, steps, alive)
         before = dict(sa_on_host)
-        got = tfm._sa_loop_kernels(td, lanes.clone(), steps.clone(),
-                                   alive.clone())
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
-        rounds = -(-int(want[1].max()) // (2 * td.sa_intv))
-        assert sa_on_host["sa_loop_entry_kernel"] - \
-            before["sa_loop_entry_kernel"] == 1
-        assert sa_on_host["sa_loop_cond_kernel"] - \
-            before["sa_loop_cond_kernel"] == rounds
+        got = tfm.sa_batch_compact(td, lanes)
+        want = tfm._sa_batch_compact_plain(td, lanes)
+        assert torch.equal(got[0], want[0]) and not bool(got[1]) \
+            and not bool(want[1])
+        steps = torch.zeros_like(lanes)
+        alive = (lanes & (td.sa_intv - 1)) != 0
+        _, steps, _ = tfm._sa_loop_plain(td, lanes, steps, alive)
+        first = 7 * td.sa_intv                 # the first three stages
+        rounds = -(-max(int(steps.max()) - first, 0) // (2 * td.sa_intv))
+        assert sa_on_host["sa_stage_entry_kernel"] - \
+            before["sa_stage_entry_kernel"] == 4
+        assert sa_on_host["fm_inv_psi_walk_kernel"] - \
+            before["fm_inv_psi_walk_kernel"] == 3 + rounds
+        assert sa_on_host["loop_walks"] - before["loop_walks"] == rounds
     assert rounds == 0
 
 
@@ -277,7 +399,7 @@ def test_guard_lets_the_default_run_through(tiny_fm, whole, all_on_host,
         _, _, head, seedpk = sd._run(fns, qd, rd)
     assert np.array_equal(head.numpy(), jh)
     assert np.array_equal(seedpk.numpy(), jp)
-    assert all_on_host["sa_loop_entry_kernel"] == 1
+    assert all_on_host["sa_stage_entry_kernel"] == 4
 
 
 def test_guard_stops_an_eager_engine(tiny_fm, whole, monkeypatch):

@@ -21,7 +21,11 @@ chunk against the plain loop and each round's sort against torch.sort,
 no host sync inside a call, the capture guard, a sharded worker
 capturing beside the main thread's DP, graphs kept across chunks; a
 segment's graph, whose rounds end with the apply's folded loop test,
-against the plain loop.
+against the plain loop; the segment entry kernels and the suffix-array
+walk's stage entry kernel at every boundary of the first bench chunk
+against their plain versions, and sa_batch_compact by its kernels (its
+loop's test in the walk's last block) against its plain version, its
+last stage's loop over three rounds and more too.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -775,8 +779,8 @@ def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(
     and the whole chunk's head, seed matrix and merged SAL, with the FM
     kernels, equal the same calls with _chain_walk, _walk and
     extend_sel_batch patched to their plain versions (a test-only patch;
-    the rounds and the suffix-array loop then run as their plain loops,
-    since a loop's graph can hold no PyTorch operation)."""
+    the rounds and the suffix-array walk then run as their plain
+    versions, since a loop's graph can hold no PyTorch operation)."""
     from compseed_tpu_torch.ops import fm as tfm
     from compseed_tpu_torch.ops import fm_cuda
     from compseed_tpu_torch.ops import seedscan as tss
@@ -811,7 +815,8 @@ def test_seeding_first_bench_chunk_kernels_equal_plain_on_card(
     monkeypatch.setattr(tss, "_walk_round",
                         lambda dev_: tss._walk_round_plain)
     monkeypatch.setattr(tfm, "_walk", tfm._walk_plain)
-    monkeypatch.setattr(tfm, "_sa_loop", lambda dev_: tfm._sa_loop_plain)
+    monkeypatch.setattr(tfm, "_sa_compact",
+                        lambda dev_: tfm._sa_batch_compact_plain)
     monkeypatch.setattr(tfm, "extend_sel_batch", tfm._extend_sel_plain)
     r1_p, whole_p, n_p = run()
     assert not any(n_p.values()), n_p
@@ -1489,7 +1494,7 @@ def test_call_graph_equals_eager_run_on_card(dev, bench, dtype):
     """The default engine's call graph on the first two 16,384-read bench
     chunks (the first captures it, the second replays it) equals the
     eager _run on each, head and seed matrix; one graph is kept; the
-    suffix-array loop kernels ran."""
+    suffix-array stage entry kernel ran."""
     import threading
 
     from compseed_tpu_torch.ops import fm_cuda
@@ -1735,3 +1740,167 @@ def test_segment_entry_on_card(dev, bench, dtype):
             assert mod.LAUNCHES[kernel] == n0 + 1
             if form == "cap":
                 assert (r["kept"], r["go"]) == (case[4], 0)
+
+
+_SA_BOUNDARIES: dict = {}
+
+
+def _sa_boundaries(bench, dev, dtype):
+    """Every boundary of the first bench chunk's sa_batch_compact call
+    and of one call over 40 random positions (a last stage of one lane),
+    as the plain version runs them (sa_cases.BoundaryCapture), once per
+    dtype."""
+    from compseed_tpu_torch.ops import fm as tfm
+    from compseed_tpu_torch.ops import sa_cases
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    if dtype not in _SA_BOUNDARIES:
+        fm, reads = bench
+        dfi = _bench_index(bench, dev, dtype)
+        sd = DeviceSeeder(MemOptions(), fm, dev, dfi=dfi, dedup=True)
+        gen = torch.Generator().manual_seed(40)
+        small = torch.randint(0, dfi.seq_len, (40,), generator=gen)
+        with sa_cases.BoundaryCapture() as cap:
+            sd.run_flat(list(reads[:16384]))
+            tfm.sa_batch_compact(dfi, small.to(dfi.dtype).to(dev))
+        torch.cuda.synchronize()
+        _SA_BOUNDARIES[dtype] = list(cap.cases)
+    return _SA_BOUNDARIES[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_sa_stage_entry_on_card(dev, bench, dtype):
+    """sa_stage_entry_kernel on every boundary of the first bench chunk's
+    suffix-array walk and of a 40-lane call, in every form (as captured,
+    no live lane, cap // 2, cap and cap + 37 live lanes): equal to the
+    plain version (fm._sa_boundary_plain) on the outputs, ovf, the next
+    stage's alive bytes, slots and live lanes, and go before the last
+    stage; one launch a call, counted."""
+    from compseed_tpu_torch.ops import fm_cuda, sa_cases
+    cases = _sa_boundaries(bench, dev, dtype)
+    assert [c[2] for c in cases] == [0, 1, 2, 3] * 2
+    for at, case in enumerate(cases):
+        for form in sa_cases.forms(case):
+            n0 = fm_cuda.LAUNCHES["sa_stage_entry_kernel"]
+            r = sa_cases.stage_vs_plain(case, form)
+            torch.cuda.synchronize()
+            assert r["max_abs_err"] == 0, (at, form, r)
+            assert fm_cuda.LAUNCHES["sa_stage_entry_kernel"] == n0 + 1
+            if form == "cap + 37 live":
+                assert r["ovf"]
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_sa_batch_compact_kernels_equal_plain_on_card(dev, bench, dtype):
+    """sa_batch_compact by its kernels on the first bench chunk's lanes
+    and on the 40-lane call, eagerly (the last stage's loop one graph of
+    its own) and inside a CUDA graph capture (the loop joining it),
+    equals the plain version: SA values and ovf; four stage entries a
+    call, and no loop kernel of its own."""
+    from compseed_tpu_torch.ops import fm as tfm
+    from compseed_tpu_torch.ops import fm_cuda
+    dfi = _bench_index(bench, dev, dtype)
+    for case in _sa_boundaries(bench, dev, dtype)[::4]:
+        k = case[3]["out_k"][:case[1]].clone()      # the call's positions
+        want = tfm._sa_batch_compact_plain(dfi, k)
+        n0 = fm_cuda.LAUNCHES["sa_stage_entry_kernel"]
+        got = tfm.sa_batch_compact(dfi, k)
+        torch.cuda.synchronize()
+        assert fm_cuda.LAUNCHES["sa_stage_entry_kernel"] == n0 + 4
+        assert torch.equal(got[0], want[0]) and \
+            bool(got[1]) == bool(want[1])
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+            out = tfm.sa_batch_compact(dfi, k)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and \
+            bool(out[1]) == bool(want[1])
+    assert set(fm_cuda.LAUNCHES) == {
+        "fm_extend_sel_kernel", "fm_chain_walk_kernel",
+        "fm_inv_psi_walk_kernel", "sa_stage_entry_kernel"}
+
+
+_SA_LONG: dict = {}
+
+
+def _sa_long_rows(bench, dev, dtype):
+    """The bench index's 64 longest inverse-Psi walks (sa_cases.long_rows:
+    rows and steps), once per dtype."""
+    from compseed_tpu_torch.ops import sa_cases
+    if dtype not in _SA_LONG:
+        _SA_LONG[dtype] = sa_cases.long_rows(
+            _bench_index(bench, dev, dtype), 64)
+    return _SA_LONG[dtype]
+
+
+def _in_capture(dev, fn):
+    """fn() captured into a CUDA graph on a side stream, then replayed
+    once; returns what the capture returned."""
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph, stream=side):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_sa_loop_rounds_on_card(dev, bench, dtype):
+    """The last stage's loop alone on the card (sa_cases.run_last_loop:
+    one graph whose WHILE node the stage entry opens and the walk's last
+    block to retire continues or ends each round), eagerly and inside a
+    CUDA graph capture (the loop joining it), from the bench index's 64
+    longest walks in the stage before the last (sa_cases.last_loop): the
+    last stage's kk, steps and alive equal the plain loop's
+    (fm._sa_loop_plain) from the same rows, which takes 3 rounds or
+    more; go ends 0."""
+    from compseed_tpu_torch.ops import fm as tfm
+    from compseed_tpu_torch.ops import sa_cases
+    dfi = _bench_index(bench, dev, dtype)
+    rows, _ = _sa_long_rows(bench, dev, dtype)
+    want = tfm._sa_loop_plain(dfi, rows, torch.zeros_like(rows),
+                              (rows & (dfi.sa_intv - 1)) != 0)
+    assert -(-int(want[1].max()) // (2 * dfi.sa_intv)) >= 3
+    for captured in (False, True):
+        lp = sa_cases.last_loop(dfi, rows)
+        if captured:
+            _in_capture(dev, lambda: sa_cases.run_last_loop(lp))
+        else:
+            sa_cases.run_last_loop(lp)
+            lp.close()
+            torch.cuda.synchronize()
+        for g, w in zip(lp.lanes[3], want):
+            assert torch.equal(g, w), captured
+        assert int(lp.go) == 0
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_sa_batch_compact_kernels_multi_round_on_card(dev, bench, dtype):
+    """sa_batch_compact by its kernels on 4,096 positions, the bench
+    index's 64 longest walks first (3 loop rounds or more after the first
+    three stages' 7 sa_intv steps), then sampled rows (ovf clear) or
+    random rows (ovf set), eagerly and inside a CUDA graph capture: SA
+    values and ovf equal the plain version's."""
+    from compseed_tpu_torch.ops import fm as tfm
+    dfi = _bench_index(bench, dev, dtype)
+    rows, steps = _sa_long_rows(bench, dev, dtype)
+    i = dfi.sa_intv
+    assert -(-(int(steps[0]) - 7 * i) // (2 * i)) >= 3
+    gen = torch.Generator().manual_seed(41)
+    rand = torch.randint(0, dfi.seq_len, (4096,), generator=gen).to(
+        dfi.dtype).to(dev)
+    for k in (rand - (rand & (i - 1)), rand):
+        k = k.clone()
+        k[:64] = rows
+        want = tfm._sa_batch_compact_plain(dfi, k)
+        got = tfm.sa_batch_compact(dfi, k)
+        torch.cuda.synchronize()
+        cap = _in_capture(dev, lambda k=k: tfm.sa_batch_compact(dfi, k))
+        for out in (got, cap):
+            assert torch.equal(out[0], want[0]) and \
+                bool(out[1]) == bool(want[1])

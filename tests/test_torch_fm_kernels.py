@@ -81,7 +81,7 @@ def host(tmp_path_factory):
     lib.fm_chain_walk_host.argtypes = index + \
         [p, p, p, p, p, p, i, i, p, p, p, p, ll, i]
     lib.fm_inv_psi_walk_host.argtypes = index + \
-        [p, p, p, i, ll, p, p, p, ll, i]
+        [p, p, p, i, ll, p, p, p, ll, i, p, ll, p]
     lib.fm_rank_pieces_host.argtypes = [p, p, p, ll, i, p, p]
     for fn in (lib.fm_extend_sel_host, lib.fm_chain_walk_host,
                lib.fm_inv_psi_walk_host, lib.fm_rank_pieces_host):
@@ -489,7 +489,8 @@ def _host_walk(host, td, kk, steps, alive, n_steps):
     rc = host.fm_inv_psi_walk_host(
         *index, kk.ctypes.data, steps.ctypes.data, alive.ctypes.data,
         n_steps, td.sa_intv - 1, ko.ctypes.data, so.ctypes.data,
-        ao.ctypes.data, len(kk), int(td.dtype == torch.int64))
+        ao.ctypes.data, len(kk), int(td.dtype == torch.int64), None, 0,
+        None)
     return rc, (ko, so, ao.astype(bool))
 
 
@@ -660,13 +661,16 @@ def test_plain_versions_only_for_cpu_tensors():
 
 
 def test_port_entry_points_dispatch_through_fm_cuda():
-    """extend_sel_batch, _walk (and so sa_batch / sa_batch_compact) and
+    """extend_sel_batch, _walk (and so sa_batch and sa_batch_compact's
+    plain version), sa_batch_compact's kernel route (fm_cuda.SaLoop) and
     _chain_walk go through ops/fm_cuda.py."""
     assert "fm_cuda.extend_sel_batch(" in inspect.getsource(
         tfm.extend_sel_batch)
     assert "fm_cuda.inv_psi_walk(" in inspect.getsource(tfm._walk)
     assert "_walk(" in inspect.getsource(tfm.sa_batch)
-    assert "_walk(" in inspect.getsource(tfm.sa_batch_compact)
+    assert "_walk(" in inspect.getsource(tfm._sa_batch_compact_plain)
+    assert "fm_cuda.SaLoop(" in inspect.getsource(
+        tfm._sa_batch_compact_kernels)
     assert "fm_cuda.chain_walk(" in inspect.getsource(tss._chain_walk)
 
 
