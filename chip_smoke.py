@@ -7,9 +7,11 @@ Phases, in order; any failure exits non-zero:
   0. device   — a CUDA card must be present; prints its nvidia-smi
                 name and power limit.
   1. build    — compiles csrc/bsw_extend.cu, csrc/fm_walk.cu,
-                csrc/chain_scan.cu and csrc/walk_chain.cu (the last two
-                with csrc/lookback.cuh) with nvcc for sm_90a (side by side,
-                and beside them the host tail with g++), loads the
+                csrc/chain_scan.cu, csrc/walk_chain.cu (the two with
+                csrc/lookback.cuh) and csrc/smem_seed.cu (with fm_walk.cu,
+                csrc/fm_rank.cuh) with nvcc for sm_90a (side by side, and
+                beside them the host tail and smem_seed.cu's host loops,
+                for the work counts, with g++), loads the
                 libraries and runs the launch
                 self-check: the probe kernel against its plain version; a
                 wrong tile is fatal.  The probe and
@@ -115,7 +117,11 @@ Phases, in order; any failure exits non-zero:
                 is rerun exactly on the lockstep seeder and a cap is
                 raised; SAM must be byte-equal to the committed bwamem /
                 CompSeed goldens, and the DP kernel must have launched
-                in that run (counts set to 0 just before it).
+                in that run (counts set to 0 just before it); the rerun
+                must run each collect and round-3 call as one launch of
+                smem_collect_kernel / smem_strategy_kernel and launch no
+                extension kernel; its calls are kept for phase 4, its
+                split (BatchSeeder.prof: r1, r2, r3, sal, post) printed.
   4. main     — the bench input (2 Mbp repeat-structured genome,
                 sa_intv=8, 30x layout-ordered 101 bp reads): 4 chunks of
                 16,384 reads through align_stream, one warm-up stream
@@ -134,12 +140,26 @@ Phases, in order; any failure exits non-zero:
                 rerun on the lockstep seeder and double GP_F, the second
                 must not overflow, the SAM of both must equal the
                 unforced run's, and the DP kernel's launches are counted
-                for this run alone.  The int16 and the tile-route window
+                for this run alone; the rerun as the goldens' (one smem
+                kernel launch a call, no extension kernel), its rerun_s
+                and split.  The exact rerun's kernels: every captured
+                call of the goldens' and the forced run's reruns through
+                its kernel and its plain version on the card, over the
+                index with int32 and with int64 positions, exactly; each
+                of the forced run's calls timed in a loop and on the card
+                alone (a CUDA graph replayed), the plain version's time
+                of the first two round-1 calls, round 2 and round 3,
+                beside the bound (smem_cases.work: the distinct occ rows'
+                and the lanes' bytes against the ranks' operations) and
+                the latency floor (the longest lane's dependent steps
+                times the chain walk's step latency on the bench table).
+                The int16 and the tile-route window
                 time one stream each.  The FM kernels: launches per
                 chunk (the chain walk and the inverse-Psi walk must have
-                launched in the int32 window, the extension in the forced
-                run's rerun); the first call of each kind that the first
-                chunk (and the rerun) makes, through the kernel and its
+                launched in the int32 window, the extension in the
+                lockstep engine's first chunk: all_off, the path left that
+                launches it); the first call of each kind that the first
+                chunk (and the lockstep engine) makes, through the kernel and its
                 plain version, exact, timed (in a loop, and replayed
                 from a CUDA graph), with its bound; the calls of each kind
                 in one run of the first chunk (the chain walk's by
@@ -157,8 +177,8 @@ Phases, in order; any failure exits non-zero:
                 and their plain versions, exact, timed from cold L2, with
                 their bound, and every build in turns; one dependent
                 step's latency on both tables (32 lanes, W = 10 against
-                W = 1; cold on the large one); the forced run's captured
-                extensions through every build in turns;
+                W = 1; cold on the large one); the lockstep engine's
+                captured extensions through every build in turns;
                 torch.profiler over one chunk (launches, stream syncs,
                 async copies, the card's busy share: ``profile_chunk``,
                 which scripts/torch_seeding_ab.py --profile runs on other
@@ -338,6 +358,7 @@ KERNEL_SOURCE = "compseed_tpu_torch/csrc/bsw_extend.cu"
 FM_SOURCE = "compseed_tpu_torch/csrc/fm_walk.cu"
 CHAIN_SOURCE = "compseed_tpu_torch/csrc/chain_scan.cu"
 WALK_SOURCE = "compseed_tpu_torch/csrc/walk_chain.cu"
+SMEM_SOURCE = "compseed_tpu_torch/csrc/smem_seed.cu"
 CHUNK = 16384          # reads per chunk, the bench's default
 N_CHUNKS = 4
 RUNS = 3               # timed streams after one warm-up stream
@@ -386,6 +407,17 @@ FM_OPS_EXTEND = 20
 FM_OPS_LF = 10
 FM_KERNELS = ("fm_extend_sel_kernel", "fm_chain_walk_kernel",
               "fm_inv_psi_walk_kernel")
+# the exact rerun's per-read programs (csrc/smem_seed.cu) and what of the
+# JAX package each replaces (vmapped, jitted per-read programs; XLA, no
+# Pallas)
+SMEM_KERNELS = ("smem_collect_kernel", "smem_strategy_kernel")
+SMEM_REPLACES = {
+    "collect": "compseed_tpu/ops/smem.py:51-219 _collect_one (while_loops "
+               ":119 and :210; vmapped, jitted by _collect_fn :293-298; XLA "
+               "fusion, no Pallas)",
+    "strategy": "compseed_tpu/ops/smem.py:222-271 _seed_strategy_one "
+                "(fori_loop :268; vmapped, jitted by _round3_fn :300-307; "
+                "XLA fusion, no Pallas)"}
 # chain_scan's round (csrc/chain_scan.cu) and the lines of the JAX
 # package's round body (make_body, XLA fusions, no Pallas) each replaces
 CHAIN_KERNELS = ("chain_probe_kernel", "chain_group_kernel",
@@ -574,15 +606,17 @@ def ops_bound(nbytes: int, cells: int):
 
 def launch_counts() -> dict:
     """Every kernel's launches since the last reset_launches()."""
-    from compseed_tpu_torch.ops import bsw_cuda, chain_cuda, fm_cuda, walk_cuda
+    from compseed_tpu_torch.ops import (bsw_cuda, chain_cuda, fm_cuda,
+                                        smem_cuda, walk_cuda)
     return {**bsw_cuda.LAUNCHES, **fm_cuda.LAUNCHES, **chain_cuda.LAUNCHES,
-            **walk_cuda.LAUNCHES}
+            **walk_cuda.LAUNCHES, **smem_cuda.LAUNCHES}
 
 
 def reset_launches() -> None:
-    from compseed_tpu_torch.ops import bsw_cuda, chain_cuda, fm_cuda, walk_cuda
+    from compseed_tpu_torch.ops import (bsw_cuda, chain_cuda, fm_cuda,
+                                        smem_cuda, walk_cuda)
     for counts in (bsw_cuda.LAUNCHES, fm_cuda.LAUNCHES, chain_cuda.LAUNCHES,
-                   walk_cuda.LAUNCHES):
+                   walk_cuda.LAUNCHES, smem_cuda.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -644,7 +678,8 @@ def profile_chunk(run, sync, records=()) -> dict:
     for e in prof.key_averages():
         if e.key in out:
             out[e.key] = e.count
-        m = re.search(r"\b((?:fm|chain|walk|sa)_[a-z_]+_kernel)", e.key)
+        m = re.search(r"\b((?:fm|chain|walk|sa|smem)_[a-z_]+_kernel)",
+                      e.key)
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0)
@@ -1128,10 +1163,13 @@ def fm_main_path(dev, seeder, queries, l32):
 
 def fm_rows(fm_rec, row) -> list:
     """The FM kernels' rows of the kernel table.  launches: the int32
-    window of the main path (chain walk, inverse-Psi walk) and the forced
-    overflow's rerun (extension); times and bounds: the first such call of
-    the main path (forward chain walk; the inverse-Psi walk's first stage)
-    and of the rerun (its (P, 3) extension); the walks' latency floor:
+    window of the main path (chain walk, inverse-Psi walk) and the
+    lockstep engine's first chunk (extension: since the exact rerun runs
+    its collect and round-3 calls as smem kernels, no path of the default
+    engine launches it; ``rerun_launches``, the forced overflow's rerun's,
+    0, beside it); times and bounds: the first such call of the main path
+    (forward chain walk; the inverse-Psi walk's first stage) and of the
+    lockstep engine (its (P, 3) extension); the walks' latency floor:
     their steps times one dependent step's latency on the bench table
     (fm_latency); max_abs_err: over every comparison of the kernel (phase
     2, the captured calls and the 2^30-base table); the inverse-Psi
@@ -1172,10 +1210,11 @@ def fm_rows(fm_rec, row) -> list:
     return [
         row("fm_extend_sel_kernel",
             "compseed_tpu/ops/fm.py:128 (XLA fusion, no Pallas)",
-            fm_rec["rerun_launches"], errs["fm_extend_sel_kernel"],
+            fm_rec["ext_launches"], errs["fm_extend_sel_kernel"],
             flat["ms"], flat["plain_ms"], flat,
             **more("fm_extend_sel_kernel", flat,
-                   batched=ext.get("rank3"),
+                   launches_path="the lockstep engine (all_off), first chunk",
+                   rerun_launches=fm_rec["rerun_launches"],
                    large_graph_ms=large["extend"]["graph_ms"])),
         row("fm_chain_walk_kernel",
             "compseed_tpu/ops/seedscan.py:1341 (XLA fusion, no Pallas)",
@@ -1503,6 +1542,96 @@ def fm_redesign(dev, builds: dict, calls: dict, dfi, fm_host) -> dict:
         f"{json.dumps(rec['index_bytes']['large'])}), each launch from "
         f"cold L2: {json.dumps(rec['large'])}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the exact rerun's per-read programs: csrc/smem_seed.cu
+
+def smem_check(tag, calls, fm64) -> dict:
+    """Every captured rerun call (``calls``: smem_cases.Call, int32 index)
+    by its kernel against its plain version on the card, and again on the
+    same lanes over ``fm64``, the same genome with int64 positions: max
+    abs err over the outputs of each kind (0: bit-equal), or exit 1."""
+    import dataclasses
+
+    from compseed_tpu_torch.ops import smem_cases
+    errs = {}
+    for call in calls:
+        for dt, c in (("int32", call), ("int64", dataclasses.replace(
+                call, fm=fm64))):
+            key = f"{c.kind} {dt}"
+            errs[key] = max(errs.get(key, 0), smem_cases.vs_plain(c))
+    log(f"[smem] {tag}: {len(calls)} captured rerun calls, kernel vs plain "
+        f"max_abs_err {json.dumps(errs)}")
+    if any(errs.values()):
+        raise SystemExit(f"{tag}: an smem kernel disagrees with its plain "
+                         f"version: {errs}")
+    return dict(calls=len(calls), max_abs_err=errs)
+
+
+def smem_time(calls, twin, step_ms: float, reps: int = 20) -> list:
+    """Each captured rerun call (int32) by its kernel: ms in a loop of
+    calls (CUDA events: the host's rate with the output's allocation) and
+    on the card alone (launch_ms: a CUDA graph of ``reps`` launches,
+    replayed); the plain version's ms (one call) for the first and second
+    collect calls, the last (a round 2) and each round-3 call; the bound
+    from smem_cases.work (the distinct
+    occ rows' bytes and the lanes' against the ranks' operations) and the
+    latency floor, the longest lane's dependent steps times ``step_ms``
+    (one dependent step of the chain walk on the same table,
+    fm_latency)."""
+    from compseed_tpu_torch.ops import smem_cases
+    collects = [c for c in calls if c.kind == "collect"]
+    timed_plain = {id(c) for c in collects[:2] + collects[-1:]} | {
+        id(c) for c in calls if c.kind == "strategy"}
+    out = []
+    for call in calls:
+        w = smem_cases.work(call, twin)
+        ops = w["words_ranked"] * FM_OPS_WORD + w["ranks"] * FM_OPS_RANK + \
+            w["extensions"] * FM_OPS_EXTEND
+        bound_ms, bound_by = bound_of(w["bytes"], ops)
+        r = dict(kind=call.kind, lanes=call.lanes, L=call.L,
+                 ms=cuda_time_ms(lambda: smem_cases.run(call, "kernel"), reps),
+                 graph_ms=launch_ms(lambda: smem_cases.run(call, "kernel"),
+                                    reps),
+                 plain_ms=cuda_time_ms(lambda: smem_cases.run(call, "plain"),
+                                       1) if id(call) in timed_plain else None,
+                 bound_ms=bound_ms, bound_by=bound_by, ops=ops,
+                 floor_ms=w["max_steps"] * step_ms, work=w)
+        out.append(r)
+        log(f"[smem] {call.kind} P={call.lanes} L={call.L}: {r['ms']:.4f} ms "
+            f"in a loop, {r['graph_ms']:.5f} ms alone (plain "
+            f"{r['plain_ms']}); {w['rows']} occ rows, {w['bytes']} B, "
+            f"{w['extensions']} extensions, steps max {w['max_steps']} mean "
+            f"{w['mean_steps']:.1f}; bound {bound_ms:.6f} ms by {bound_by}, "
+            f"floor {r['floor_ms']:.5f} ms")
+    return out
+
+
+def smem_rows(smem_rec, row) -> list:
+    """The two rows of the exact rerun's kernels in the kernel table:
+    launches in the forced overflow's run (phase 4 (b), counts set to 0
+    just before it); ms (in a loop), graph_ms (alone), plain_ms, bound and
+    floor at its first call of each kind (the first round-1 collect,
+    16,384 lanes; round 3), every captured call's figures beside them;
+    max_abs_err over every captured call of the forced overflow and the
+    goldens, int32 and int64."""
+    rows = []
+    for kind, name in zip(("collect", "strategy"), SMEM_KERNELS):
+        calls = [r for r in smem_rec["time"] if r["kind"] == kind]
+        first = calls[0]
+        errs = [v for rec in smem_rec["check"].values()
+                for k, v in rec["max_abs_err"].items()
+                if k.startswith(kind)]
+        rows.append(row(
+            name, SMEM_REPLACES[kind], smem_rec["launches"][name], max(errs),
+            first["ms"], first["plain_ms"], first, source=SMEM_SOURCE,
+            at=f"{first['lanes']} lanes, L = {first['L']}",
+            graph_ms=first["graph_ms"], latency_floor_ms=first["floor_ms"],
+            calls=[{k: r[k] for k in ("lanes", "ms", "graph_ms", "plain_ms",
+                                      "bound_ms", "floor_ms")}
+                   for r in calls]))
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -3601,7 +3730,8 @@ def golden(name):
 
 def watch_overflow(seeder):
     """Record (last_overflow, GP_F, rerun seconds, device seconds,
-    fwd_disabled) after every run_flat."""
+    fwd_disabled, the rerun's split: BatchSeeder.split()) after every
+    run_flat."""
     seen = []
     run_flat = seeder.run_flat
 
@@ -3610,7 +3740,9 @@ def watch_overflow(seeder):
         seen.append((bool(seeder.last_overflow), seeder.GP_F,
                      seeder.prof.get("rerun_s") if seeder.last_overflow
                      else None, seeder.prof["device_s"],
-                     seeder.fwd_disabled))
+                     seeder.fwd_disabled,
+                     seeder.prof.get("rerun_split") if seeder.last_overflow
+                     else None))
         return out
 
     seeder.run_flat = watched
@@ -4348,7 +4480,8 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
     lf = launch_counts()
     log(f"[7] (c) S={S}, GP_F={MESH_GP_F}: overflow {seen[0]['overflow']}, "
         f"GP_F after {seen[0]['gp_f']}, {sd._cap_raises} cap raises, rerun "
-        f"{seen[0]['rerun_s']:.2f} s, chunk {wall:.2f} s, launches {lf}")
+        f"{seen[0]['rerun_s']:.2f} s (split {sd.prof.get('rerun_split')}), "
+        f"chunk {wall:.2f} s, launches {lf}")
     if not seen[0]["overflow"] or sams != main_sams[:CHUNK]:
         raise SystemExit("forced overflow under sharding: no overflow, or "
                          "SAM differs from the unforced stream's")
@@ -4359,6 +4492,7 @@ def phase_mesh(dev, smi, opt, fm, reads_arr, dfi, chunks, main_sams):
                                   gp_f_after=seen[0]["gp_f"],
                                   cap_raises=sd._cap_raises,
                                   rerun_s=seen[0]["rerun_s"], chunk_s=wall,
+                                  rerun_split=sd.prof.get("rerun_split"),
                                   launches=lf)
 
     # ---- (f) the int64 index, sharded: heads against the JAX package's
@@ -4499,10 +4633,11 @@ def main() -> None:
     from compseed_tpu_torch.native import NativeTail
     from compseed_tpu_torch.index.build import unpack_pac
     from compseed_tpu_torch.ops import (bsw, bsw_cuda, chain_cuda, fm_cuda,
-                                        walk_cuda)
+                                        smem_cases, smem_cuda, walk_cuda)
     from compseed_tpu_torch.ops.bsw_cases import dual_meta_case
     from compseed_tpu_torch.ops.device_index import pack_pac_words, to_device
     from compseed_tpu_torch.ops.engine import device_engine, device_seeder
+    from compseed_tpu_torch.ops.seeder2 import DeviceSeeder
     from compseed_tpu_torch.options import MemOptions
     from compseed_tpu_torch.pipeline.align import align_chunk, align_stream
     from compseed_tpu_torch.pipeline.seeding import SeedingStats
@@ -4539,20 +4674,26 @@ def main() -> None:
         build(force=True)
         return time.time() - t0
 
-    with cf.ThreadPoolExecutor(max_workers=5) as ex:
+    with cf.ThreadPoolExecutor(max_workers=7) as ex:
         host = ex.submit(native.build_library, True)
         fm_build = ex.submit(timed_build, fm_cuda.build_library)
         chain_build = ex.submit(timed_build, chain_cuda.build_library)
         walk_build = ex.submit(timed_build, walk_cuda.build_library)
+        smem_build = ex.submit(timed_build, smem_cuda.build_library)
+        # the exact rerun kernels' host loops (g++), for their work counts
+        twin = ex.submit(smem_cases.HostTwin)
         dp_build_s = timed_build(bsw_cuda.build_library)
         fm_build_s = fm_build.result()
         chain_build_s = chain_build.result()
         walk_build_s = walk_build.result()
+        smem_build_s = smem_build.result()
         build_s = time.time() - t0
         host.result()
+        twin = twin.result()
     fm_cuda.LIB.load()
     chain_cuda.LIB.load()
     walk_cuda.LIB.load()
+    smem_cuda.LIB.load()
     # CUPTI traces a CUDA graph's kernels only if it was running when the
     # graph was instantiated: start it before any seeder builds its graphs
     from torch.profiler import ProfilerActivity, profile
@@ -4560,8 +4701,8 @@ def main() -> None:
         torch.cuda.synchronize()
     log(f"[1] build: DP kernels {dp_build_s:.2f} s, FM kernels "
         f"{fm_build_s:.2f} s, chain kernels {chain_build_s:.2f} s, walk "
-        f"kernels {walk_build_s:.2f} s, with the host tail "
-        f"{time.time() - t0:.2f} s")
+        f"kernels {walk_build_s:.2f} s, exact rerun kernels "
+        f"{smem_build_s:.2f} s, with the host tail {time.time() - t0:.2f} s")
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     probe_err = int((bsw_cuda.probe_add_one(x).to(torch.int64)
                      - bsw_cuda._probe_plain(x).to(torch.int64)).abs().max())
@@ -4807,6 +4948,7 @@ def main() -> None:
     fm_t = FMIndex.from_built(build_index(
         os.path.join(ROOT, "tests", "fixtures", "tiny.fa")))
     golden_runs = {}
+    golden_calls = []       # the goldens' exact rerun calls (smem_cases)
     for name, reader, gold, env in (
             ("reads.fq", read_fastq_chunks, "golden_bwamem.sam", {}),
             ("reads.reordered", read_reordered_chunks,
@@ -4822,9 +4964,12 @@ def main() -> None:
         seen = watch_overflow(seeder)
         done = []
         reset_counts()
-        align_stream(opt, fm_t, iter([reads]), engine, seeder, tail,
-                     on_done=done.extend, stats=SeedingStats())
+        with smem_cases.Capture() as smem_cap:
+            align_stream(opt, fm_t, iter([reads]), engine, seeder, tail,
+                         on_done=done.extend, stats=SeedingStats())
         launches = launch_counts()
+        if not env:
+            golden_calls += smem_cap.calls
         mine = "".join(r.sam for r in done).splitlines(keepends=True)
         want = golden(gold)
         bad = [i for i, (m, g) in enumerate(zip(mine, want)) if m != g]
@@ -4837,9 +4982,21 @@ def main() -> None:
         if launches[dp_kernel] <= 0:
             raise SystemExit(f"{name}: the overflow path did not launch "
                              f"{dp_kernel}: {launches}")
+        if launches["fm_extend_sel_kernel"] or \
+                launches["smem_collect_kernel"] != smem_cap.counts["collect"] \
+                or launches["smem_strategy_kernel"] != \
+                smem_cap.counts["strategy"] or not all(smem_cap.counts.values()):
+            raise SystemExit(f"{name}: the rerun did not run its collect and "
+                             f"round-3 calls one smem kernel launch each, or "
+                             f"launched the extension kernel: calls "
+                             f"{smem_cap.counts}, launches {launches}")
         if len(mine) != len(want) or bad:
             raise SystemExit(f"SAM differs from {gold}: records {bad[:5]}")
-        golden_runs[name] = dict(rerun_s=seen[0][2], launches=launches)
+        golden_runs[name] = dict(rerun_s=seen[0][2], rerun_split=seen[0][5],
+                                 launches=launches,
+                                 rerun_calls=smem_cap.counts)
+        log(f"[3] {name}: the rerun's split (BatchSeeder.prof, s) "
+            f"{json.dumps(seen[0][5])}")
 
     # ---- phase 4: the main path at bench size
     CH = CHUNK
@@ -5130,16 +5287,32 @@ def main() -> None:
     done = []
     reset_counts()
     t0 = time.time()
-    with FmCapture() as ext_cap:        # the rerun's one-child extensions
+    with smem_cases.Capture() as forced_cap:    # the rerun's calls
         align_stream(opt, fm, iter(mk_chunks()[:2]), engine32, forced,
                      tail32, on_done=done.extend, stats=SeedingStats())
     torch.cuda.synchronize()
     forced_s = time.time() - t0
     lf = launch_counts()
-    if lf["fm_extend_sel_kernel"] <= 0:
-        raise SystemExit(f"forced overflow: the rerun launched no "
-                         f"extension kernel: {lf}")
+    if lf["fm_extend_sel_kernel"] or not all(forced_cap.counts.values()) \
+            or lf["smem_collect_kernel"] != forced_cap.counts["collect"] or \
+            lf["smem_strategy_kernel"] != forced_cap.counts["strategy"]:
+        raise SystemExit(f"forced overflow: the rerun did not run its "
+                         f"collect and round-3 calls one smem kernel launch "
+                         f"each, or launched the extension kernel: calls "
+                         f"{forced_cap.counts}, launches {lf}")
     fm_rec["rerun_launches"] = lf["fm_extend_sel_kernel"]
+    # the extension kernel's own calls: the rerun runs its collect and
+    # round-3 calls as one kernel each, so they come from the lockstep
+    # engine (all_off: make_scan's forward sweep), which still launches it
+    lockstep = DeviceSeeder(opt, fm, dev, dfi=seeder.dfi, dedup=False)
+    reset_counts()
+    with FmCapture() as ext_cap:
+        lockstep.run_flat(list(reads_arr[:CH]))
+    torch.cuda.synchronize()
+    fm_rec["ext_launches"] = launch_counts()["fm_extend_sel_kernel"]
+    del lockstep
+    if fm_rec["ext_launches"] <= 0:
+        raise SystemExit("the lockstep engine launched no extension kernel")
     fm_rec["extend_sel"] = {}
     ext_calls = {}
     for key, call in ext_cap.calls.items():
@@ -5148,18 +5321,19 @@ def main() -> None:
         r = fm_measure(key, call)
         fm_rec["extend_sel"][f"rank{key[1]}"] = r
         ext_calls[f"rank{key[1]}"] = (key, call)
-        log(f"[4] rerun's extension {r['shape']}: fm_extend_sel_kernel "
+        log(f"[4] lockstep engine's extension {r['shape']}: "
+            f"fm_extend_sel_kernel "
             f"max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms in a loop, "
             f"{r['graph_ms']:.5f} ms replayed from a graph (plain "
             f"{r['plain_ms']:.3f}); {r['words']} occ words, bound "
             f"{r['bound_ms']:.6f} ms by {r['bound_by']}")
         if r["max_abs_err"]:
             raise SystemExit("fm_extend_sel_kernel disagrees with its plain "
-                             "version on the rerun's lanes")
+                             "version on the lockstep engine's lanes")
     fm_rec["extend_turns"] = fm_turns(fm_builds, ext_calls)
     free_builds(fm_builds)
     del ext_calls
-    log(f"[4] rerun's extensions by build in turns: "
+    log(f"[4] the lockstep engine's extensions by build in turns: "
         f"{json.dumps(fm_rec['extend_turns'])}")
     log(f"[4] forced overflow (GP_F={FORCED_GP_F}): per chunk (overflow, "
         f"GP_F after, rerun s) = {seen}; both chunks {forced_s:.1f} s; "
@@ -5177,9 +5351,29 @@ def main() -> None:
         raise SystemExit("forced overflow: SAM differs from the unforced "
                          "run's")
     forced_rec = dict(gp_f=FORCED_GP_F, gp_f_after=seen[0][1],
-                      rerun_s=seen[0][2], reads_per_chunk=CH,
+                      rerun_s=seen[0][2], rerun_split=seen[0][5],
+                      rerun_calls=forced_cap.counts, reads_per_chunk=CH,
                       both_chunks_s=forced_s, launches=lf,
                       goldens=golden_runs)
+    log(f"[4] forced overflow: the rerun's split (BatchSeeder.prof, s) "
+        f"{json.dumps(seen[0][5])}, calls {forced_cap.counts}")
+
+    # the exact rerun's kernels: every captured call of the goldens' and
+    # the forced overflow's reruns against its plain version, int32 and
+    # int64; each forced-overflow call timed beside its bound and floor
+    t0 = time.time()
+    smem_rec = dict(launches={k: lf[k] for k in SMEM_KERNELS}, check=dict(
+        goldens=smem_check("goldens", golden_calls,
+                           to_device(fm_t, dev, force_dtype=np.int64)),
+        forced=smem_check("forced overflow", forced_cap.calls,
+                          to_device(fm, dev, force_dtype=np.int64))))
+    del golden_calls
+    smem_rec["time"] = smem_time(
+        forced_cap.calls, twin,
+        fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"])
+    del forced_cap
+    smem_rec["phase_s"] = time.time() - t0
+    log(f"[smem] the exact rerun's kernels: {smem_rec['phase_s']:.1f} s")
 
     # the main path's own pair tables through every kernel and every
     # plain version
@@ -5255,7 +5449,9 @@ def main() -> None:
     print(json.dumps({"build_s": build_s, "dp_build_s": dp_build_s,
                       "fm_build_s": fm_build_s,
                       "chain_build_s": chain_build_s,
-                      "walk_build_s": walk_build_s, "fm": fm_rec,
+                      "walk_build_s": walk_build_s,
+                      "smem_build_s": smem_build_s, "smem": smem_rec,
+                      "fm": fm_rec,
                       "chain": chain_rec, "walk": walk_rec,
                       "synthetic_ms": synth,
                       "self_check_ms": self_check_ms, "main": rec32,
@@ -5319,7 +5515,8 @@ def main() -> None:
             "walk_apply_kernel tail"]), l32, row,
             fm_rec["profile"]["kernels"])
         + loop_rows(loop_rec, l32, row, fm_rec["profile"]["kernels"])
-        + sa_rows(sa_rec, l32, row, fm_rec["profile"]["kernels"])}))
+        + sa_rows(sa_rec, l32, row, fm_rec["profile"]["kernels"])
+        + smem_rows(smem_rec, row)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -750,6 +750,7 @@ class DeviceSeeder:
             legacy = BatchSeeder(self.opt, self.fm, self.device, self.dfi)
             out = legacy.run_flat(queries, stats)
             self.prof["rerun_s"] = time.time() - t0
+            self.prof["rerun_split"] = legacy.split()
             return out
         self.last_overflow = False
 

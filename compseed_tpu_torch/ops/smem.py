@@ -19,12 +19,17 @@ outright.
            in-lane instead).
 
 The JAX package writes each round as a per-read program with device
-while loops and vmaps it over the batch.  Here each is one batched
-program over lanes: every state carries a leading lane dimension, a
-per-lane ``act`` mask gates each update, and the Python loop runs while
-any lane is live.  A lane whose own loop condition is false is never
-active again, so the results equal the vmapped per-read programs lane
-for lane.
+while loops and vmaps and jits it over the batch, one device program a
+call.  On a card so does the port: ``_collect_one`` and
+``_seed_strategy_one`` launch ``smem_collect_kernel`` and
+``smem_strategy_kernel`` (``ops/smem_cuda.py``, ``csrc/smem_seed.cu``),
+one launch a call and no host test inside it.  For CPU tensors they run
+their plain versions, ``_collect_plain`` and ``_seed_strategy_plain``:
+each one batched program over lanes, where every state carries a leading
+lane dimension, a per-lane ``act`` mask gates each update and the Python
+loop runs while any lane is live.  A lane whose own loop condition is
+false is never active again, so the results equal the vmapped per-read
+programs lane for lane.
 
 Fixed caps (LEP frontier, SMEMs per call) are enforced with overflow
 flags; overflowing reads fall back to the scalar oracle so results are
@@ -40,6 +45,7 @@ import torch
 
 from compseed_tpu_torch.cpu import fm_oracle as fo
 from compseed_tpu_torch.ops import fm as dfm
+from compseed_tpu_torch.ops import smem_cuda
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex, to_device
 from compseed_tpu_torch.pipeline.chain import l_rep_flat
 from compseed_tpu_torch.pipeline.seeding import SeedingStats
@@ -85,8 +91,17 @@ def _collect_one(fm: DeviceFMIndex, L: int, q, pivot, min_hits, active):
 
     Returns (P, MMEM*5 + 3) of the index dtype: per lane the mems rows
     (k, l, s, beg, end — in emission order, descending beg) flattened,
-    then n_mems, ret_pivot, overflow.
+    then n_mems, ret_pivot, overflow.  ``smem_collect_kernel`` for CUDA
+    tensors (pivot int32, min_hits int32 or int64, as run_collect gives
+    them), ``_collect_plain`` for CPU tensors.
     """
+    if q.device.type == "cpu":
+        return _collect_plain(fm, L, q, pivot, min_hits, active)
+    return smem_cuda.collect(fm, L, q, pivot, min_hits, active, MLEP, MMEM)
+
+
+def _collect_plain(fm: DeviceFMIndex, L: int, q, pivot, min_hits, active):
+    """_collect_one's plain version."""
     dt = fm.dtype
     dev = q.device
     P = q.shape[0]
@@ -224,8 +239,17 @@ def _seed_strategy_one(fm: DeviceFMIndex, L: int, min_len: int,
     Returns (P, MMEM3*5 + 2) of the index dtype: mems rows (k, l, s,
     beg, end) flattened, then n, overflow.  The reference restarts
     bwt_seed_strategy1 after every hit/N (comp_seed.cpp:2290-2298); one
-    scan carries the restart in-lane.
+    scan carries the restart in-lane.  ``smem_strategy_kernel`` for CUDA
+    tensors, ``_seed_strategy_plain`` for CPU tensors.
     """
+    if q.device.type == "cpu":
+        return _seed_strategy_plain(fm, L, min_len, max_intv, q, active)
+    return smem_cuda.strategy(fm, L, min_len, max_intv, q, active, MMEM3)
+
+
+def _seed_strategy_plain(fm: DeviceFMIndex, L: int, min_len: int,
+                         max_intv: int, q, active):
+    """_seed_strategy_one's plain version."""
     dt = fm.dtype
     dev = q.device
     P = q.shape[0]
@@ -281,6 +305,13 @@ class BatchSeeder:
         # main.cpp:203-214): r1 entries are (n_lanes, seconds)
         self.prof = {"r1": [], "r2": 0.0, "r3": 0.0, "sal": 0.0,
                      "post": 0.0}
+
+    def split(self) -> dict:
+        """``prof`` summed: seconds in round 1 (and its collect calls),
+        rounds 2 and 3, the merged SAL and the numpy post-pass."""
+        return dict(r1=sum(s for _, s in self.prof["r1"]),
+                    r1_calls=len(self.prof["r1"]),
+                    **{k: self.prof[k] for k in ("r2", "r3", "sal", "post")})
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)

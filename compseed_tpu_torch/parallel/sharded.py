@@ -157,6 +157,7 @@ class ShardedSeeder(DeviceSeeder):
         self.prof["r_shard"] = R_shard
         self.prof["d2h_bytes"] = head.nbytes + seedpk.nbytes
         self.prof.pop("rerun_s", None)
+        self.prof.pop("rerun_split", None)
 
         self.last_overflow = False
         lsegs, ssegs = [], []      # one lrep/(sflat, soff) per shard
@@ -183,6 +184,9 @@ class ShardedSeeder(DeviceSeeder):
                     lrep, sflat, soff = legacy.run_flat(sub, stats)
                 self.prof["rerun_s"] = self.prof.get("rerun_s", 0.0) + \
                     time.time() - t1
+                split = self.prof.setdefault("rerun_split", {})
+                for k, v in legacy.split().items():
+                    split[k] = split.get(k, 0) + v
             else:
                 lrep, sflat, soff = (res["lrep"], res["sflat"],
                                      res["soff"])

@@ -1904,3 +1904,149 @@ def test_sa_batch_compact_kernels_multi_round_on_card(dev, bench, dtype):
         for out in (got, cap):
             assert torch.equal(out[0], want[0]) and \
                 bool(out[1]) == bool(want[1])
+
+
+# ---------------------------------------------------------------------------
+# The exact rerun's per-read programs (csrc/smem_seed.cu): collect_mem and
+# the fused round-3 scan, one launch a call.
+
+def _smem_launches():
+    from compseed_tpu_torch.ops import smem_cuda
+    return dict(smem_cuda.LAUNCHES)
+
+
+def _golden_rerun_calls(dev, dtype):
+    """The calls of the exact rerun of tests/fixtures/reads.fq as one chunk
+    on the tiny index (the chunk's caps overflow), the rerun's output and
+    the launches of the FM and smem kernels in it."""
+    import os
+
+    import numpy as np
+
+    from compseed_tpu_torch.index.fmindex import FMIndex
+    from compseed_tpu_torch.io.fastq import read_fastq_chunks
+    from compseed_tpu_torch.ops import fm_cuda, smem_cases, smem_cuda
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.ops.engine import device_seeder
+    from compseed_tpu_torch.options import MemOptions
+    from compseed_tpu_torch.pipeline.align import encode_read
+    fx = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+    fm = FMIndex.load(os.path.join(fx, "tiny"))
+    reads = []
+    for chunk in read_fastq_chunks(os.path.join(fx, "reads.fq"), 10**9):
+        reads.extend(chunk)
+    queries = [encode_read(r.seq) for r in reads]
+    dfi = to_device(fm, dev, force_dtype=np.int64 if dtype == "int64"
+                    else None)
+    sd = device_seeder(MemOptions(), fm, dedup=True, dfi=dfi, device=dev)
+    for counts in (fm_cuda.LAUNCHES, smem_cuda.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    with smem_cases.Capture() as cap:
+        got = sd.run_flat(queries)
+    torch.cuda.synchronize(dev)
+    assert sd.last_overflow
+    return fm, queries, cap, got, dict(fm_cuda.LAUNCHES), _smem_launches()
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_smem_kernels_on_golden_rerun_on_card(dev, dtype):
+    """A golden's exact rerun on the card: every collect and round-3 call
+    by smem_collect_kernel / smem_strategy_kernel equals its plain
+    version, one launch a call and no extension kernel launched; again
+    with MLEP, MMEM, MMEM3 forced to 2, 1, 1 (overflows hit)."""
+    from compseed_tpu_torch.ops import smem_cases
+    _, _, cap, _, fm_n, smem_n = _golden_rerun_calls(dev, dtype)
+    assert fm_n["fm_extend_sel_kernel"] == 0, fm_n
+    assert smem_n == {"smem_collect_kernel": cap.counts["collect"],
+                      "smem_strategy_kernel": cap.counts["strategy"]}
+    assert cap.counts["collect"] >= 2 and cap.counts["strategy"] == 1
+    for call in cap.calls:
+        assert smem_cases.vs_plain(call) == 0, (call.kind, call.lanes)
+    ovf = 0
+    for call in cap.calls:
+        small = dict(call.caps, **{n: v for n, v in (
+            ("MLEP", 2), ("MMEM", 1), ("MMEM3", 1)) if n in call.caps})
+        forced = smem_cases.Call(call.kind, call.fm, call.L, call.args,
+                                 small)
+        want = smem_cases.run(forced, "plain")
+        assert torch.equal(smem_cases.run(forced, "kernel"), want)
+        ovf += int(want[:, -1].sum())
+    assert ovf > 0
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_smem_kernels_on_forced_overflow_chunk_on_card(dev, bench, dtype):
+    """The first bench chunk on a seeder whose round-1 pool is too small
+    (GP_F = 18, as chip_smoke.py forces it): the chunk reruns; every
+    collect and round-3 call of the rerun equals its plain version, with
+    the caps as they are and forced to 2, 1, 1."""
+    from compseed_tpu_torch.ops import smem_cases
+    from compseed_tpu_torch.ops.engine import device_seeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    dfi = _bench_index(bench, dev, dtype)
+    sd = device_seeder(MemOptions(), fm, dedup=True, dfi=dfi, device=dev)
+    sd.GP_F = 18
+    n0 = _fm_launch("fm_extend_sel_kernel")
+    with smem_cases.Capture() as cap:
+        sd.run_flat(list(reads[:16384]))
+    torch.cuda.synchronize()
+    assert sd.last_overflow
+    assert _fm_launch("fm_extend_sel_kernel") == n0
+    for call in cap.calls:
+        assert smem_cases.vs_plain(call) == 0, (call.kind, call.lanes)
+    for call in cap.calls[:3] + cap.calls[-1:]:
+        small = {n: (2 if n == "MLEP" else 1) for n in call.caps}
+        forced = smem_cases.Call(call.kind, call.fm, call.L, call.args,
+                                 small)
+        assert torch.equal(smem_cases.run(forced, "kernel"),
+                           smem_cases.run(forced, "plain"))
+
+
+def _fm_launch(name):
+    from compseed_tpu_torch.ops import fm_cuda
+    return fm_cuda.LAUNCHES[name]
+
+
+def test_smem_wrappers_check_inputs_on_card(dev, bench):
+    """The launchers refuse caps outside [1, 32], CPU tensors and wrong
+    dtypes, and launch nothing for them."""
+    from compseed_tpu_torch.ops import smem_cuda
+    dfi = _bench_index(bench, dev, "int32")
+    P, L = 64, 32
+    q = torch.full((P, L), 4, dtype=torch.uint8, device=dev)
+    piv = torch.zeros(P, dtype=torch.int32, device=dev)
+    act = torch.ones(P, dtype=torch.bool, device=dev)
+    n0 = _smem_launches()
+    with pytest.raises(ValueError):
+        smem_cuda.collect(dfi, L, q, piv, piv, act, 33, 32)
+    with pytest.raises(ValueError):
+        smem_cuda.strategy(dfi, L, 19, 20, q, act, 0)
+    with pytest.raises(ValueError):
+        smem_cuda.collect(dfi, L, q.cpu(), piv, piv, act, 32, 32)
+    with pytest.raises(TypeError):
+        smem_cuda.collect(dfi, L, q, piv.to(torch.int64), piv, act, 32, 32)
+    with pytest.raises(TypeError):
+        smem_cuda.strategy(dfi, L, 19, 20, q.to(torch.int32), act, 32)
+    assert _smem_launches() == n0
+    out = smem_cuda.collect(dfi, L, q, piv, piv.to(torch.int64), act, 32, 32)
+    assert out.shape == (P, 32 * 5 + 3) and not out[:, :-2].any()
+    assert torch.equal(out[:, -2].cpu(), torch.ones(P, dtype=torch.int32))
+
+
+def test_smem_kernels_on_a_second_card_first(dev):
+    """Skips unless two cards are visible (one H100 runs none of it).  A
+    golden's rerun calls on cuda:1 while cuda:0 is current: each kernel
+    launches on its tensors' card and equals its plain version."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from compseed_tpu_torch.ops import smem_cases
+    d1 = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        _, _, cap, _, _, _ = _golden_rerun_calls(d1, "int32")
+    for call in cap.calls:
+        with torch.cuda.device(0):
+            got = smem_cases.run(call, "kernel")
+        assert got.device == d1
+        assert torch.equal(got, smem_cases.run(call, "plain"))
