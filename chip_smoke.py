@@ -8,10 +8,11 @@ Phases, in order; any failure exits non-zero:
                 name and power limit.
   1. build    — compiles csrc/bsw_extend.cu, csrc/fm_walk.cu,
                 csrc/chain_scan.cu, csrc/walk_chain.cu (the two with
-                csrc/lookback.cuh) and csrc/smem_seed.cu (with fm_walk.cu,
-                csrc/fm_rank.cuh) with nvcc for sm_90a (side by side, and
-                beside them the host tail and smem_seed.cu's host loops,
-                for the work counts, with g++), loads the
+                csrc/lookback.cuh), csrc/smem_seed.cu (with fm_walk.cu,
+                csrc/fm_rank.cuh) and csrc/lockstep.cu with nvcc for
+                sm_90a (side by side, and beside them the host tail and
+                the host loops of smem_seed.cu and lockstep.cu, for the
+                work counts, with g++), loads the
                 libraries and runs the launch
                 self-check: the probe kernel against its plain version; a
                 wrong tile is fatal.  The probe and
@@ -103,6 +104,11 @@ Phases, in order; any failure exits non-zero:
                 alive.any() on the last stage's lanes before each round,
                 all dead and only the last alive, and timed with and
                 without the word in turns.
+                The lockstep kernels (csrc/lockstep.cu: the scan, a walk
+                stage's segment and its entry) on every scan and stage
+                call of all_off's and bwd_win's first chunk, int32 and
+                int64, exact against their plain versions (a scan's lep,
+                cnt, ovf; a stage's lanes, t and live count).
                 Then each seeding call as one CUDA graph (DeviceSeeder.
                 _call: the default engine's whole call captured once a
                 thread and call shape, its loops joining the capture)
@@ -110,7 +116,10 @@ Phases, in order; any failure exits non-zero:
                 int32 and with int64 positions, head and seed matrix
                 equal; the first chunk's capture and instantiation ms and
                 the bytes a kept shape holds on the card (its private
-                memory pool), also for the sharded path's shape.
+                memory pool), also for the sharded path's shape; every
+                other engine that takes the graph (fwd_off, bwd_win,
+                bwd_whole, bwd_off, r2_off, all_off) the same on every
+                chunk with int32 positions and the first with int64.
   3. goldens  — tests/fixtures reads, each 2,000-read file as ONE chunk,
                 through align_stream with the port's seeder, DP engine
                 and native tail: the seeder's caps overflow, the chunk
@@ -120,8 +129,11 @@ Phases, in order; any failure exits non-zero:
                 in that run (counts set to 0 just before it); the rerun
                 must run each collect and round-3 call as one launch of
                 smem_collect_kernel / smem_strategy_kernel and launch no
-                extension kernel; its calls are kept for phase 4, its
-                split (BatchSeeder.prof: r1, r2, r3, sal, post) printed.
+                extension kernel, and its merged SAL's sa_batch must run
+                its loop as a graph, with no host test (no
+                fm._sa_loop_plain call); its calls are kept for phase 4,
+                its split (BatchSeeder.prof: r1, r2, r3, sal, post)
+                printed.
   4. main     — the bench input (2 Mbp repeat-structured genome,
                 sa_intv=8, 30x layout-ordered 101 bp reads): 4 chunks of
                 16,384 reads through align_stream, one warm-up stream
@@ -153,13 +165,21 @@ Phases, in order; any failure exits non-zero:
                 and the lanes' bytes against the ranks' operations) and
                 the latency floor (the longest lane's dependent steps
                 times the chain walk's step latency on the bench table).
-                The int16 and the tile-route window
+                The lockstep kernels: every scan and stage call of
+                all_off's and bwd_win's first chunk (int32) timed in a
+                loop and alone, the stage's entry alone and a segment's
+                share, the plain version's ms, the bound (lockstep_cases.
+                work) and the latency floor; sa_batch by its loop graph
+                and by the host-tested loop in turns on the goldens'
+                rerun calls, with the graph's capture and instantiation
+                ms (the graph kept per lane count).  The int16 and the
+                tile-route window
                 time one stream each.  The FM kernels: launches per
                 chunk (the chain walk and the inverse-Psi walk must have
-                launched in the int32 window, the extension in the
-                lockstep engine's first chunk: all_off, the path left that
-                launches it); the first call of each kind that the first
-                chunk (and the lockstep engine) makes, through the kernel and its
+                launched in the int32 window, the extension in
+                fwd_staged's first chunk, the path left that launches
+                it); the first call of each kind that the first chunk
+                (and fwd_staged) makes, through the kernel and its
                 plain version, exact, timed (in a loop, and replayed
                 from a CUDA graph), with its bound; the calls of each kind
                 in one run of the first chunk (the chain walk's by
@@ -177,7 +197,7 @@ Phases, in order; any failure exits non-zero:
                 and their plain versions, exact, timed from cold L2, with
                 their bound, and every build in turns; one dependent
                 step's latency on both tables (32 lanes, W = 10 against
-                W = 1; cold on the large one); the lockstep engine's
+                W = 1; cold on the large one); fwd_staged's
                 captured extensions through every build in turns;
                 torch.profiler over one chunk (launches, stream syncs,
                 async copies, the card's busy share: ``profile_chunk``,
@@ -275,7 +295,13 @@ Phases, in order; any failure exits non-zero:
                 more runs of that chunk per engine, a fresh seeder a run:
                 seeds equal the default engine's; device seconds, BWT
                 hit and SAL merged shares, overflows and per-read
-                splices and the FM kernels' launches recorded.  (c) Cell
+                splices and the FM and lockstep kernels' launches
+                recorded; then one chunk on the engine's own route (the
+                call graph, captured by the run before, for every engine
+                but fwd_staged) under torch.profiler: host launches,
+                syncs and copies and the extension kernel's launches a
+                chunk, at most MAX_CHUNK_LAUNCHES launches and
+                MAX_CHUNK_SYNCS syncs for a graphed engine.  (c) Cell
                 A'':
                 a seeder under COMPSEED_ADAPTIVE_CAPS=0 with the memo
                 round-3 pool forced to R (MEM3_F = 1) streams phase 4's
@@ -328,9 +354,9 @@ lookback.cuh sits beside FILE, on every round of the first chunk's two
 walk_pool_chain calls and their forms, and over one chunk's seeding by
 the profiler.  No option changes what the port itself runs.
 
-Phases 3 to 7 seed every chunk of the default engine by its call graph
-(the first chunk of a shape on a thread captures it), the other engines
-eagerly.
+Phases 3 to 7 seed every chunk of every engine but fwd_staged by its
+call graph (the first chunk of a shape on a thread captures it),
+fwd_staged eagerly.
 
 Prints the CLI phase's, the engine phase's and the mesh phase's numbers
 and the kernel table as one JSON line each, the card's nvidia-smi line,
@@ -479,6 +505,26 @@ SA_REPLACES = {
                              "ovf) and :282 (the last stage's while_loop "
                              "cond before its first round); XLA, no Pallas"}
 SA_TURNS = 3                # sa_time's and sa_tail's turns (each both orders)
+# the lockstep engines' loops (csrc/lockstep.cu) and what of the JAX
+# package each replaces (while_loops over XLA fusions, no Pallas)
+LOCKSTEP_SOURCE = "compseed_tpu_torch/csrc/lockstep.cu"
+LOCKSTEP_KERNELS = ("scan_lanes_kernel", "walk_stage_kernel",
+                    "walk_stage_entry_kernel")
+LOCKSTEP_REPLACES = {
+    "scan_lanes_kernel": "compseed_tpu/ops/seedscan.py:62-146 _scan_one "
+                         "(while_loop :143), vmapped by make_scan :148-160; "
+                         "XLA, no Pallas",
+    "walk_stage_kernel": "compseed_tpu/ops/seedscan.py:187-275 walk_stage "
+                         "(a segment of its while_loop :273, and its cond "
+                         "after each segment :266-270); XLA, no Pallas",
+    "walk_stage_entry_kernel": "compseed_tpu/ops/seedscan.py:277-297 "
+                               "compact_state (between walk_pool's stages, "
+                               ":395) and walk_stage's cond before its "
+                               "first segment :266-270; XLA, no Pallas"}
+# the engines whose chunk runs as one CUDA graph since their lockstep
+# loops run on the card (seeder2.CALL_GRAPH), beside the default
+GRAPHED_ENGINES = ("fwd_off", "bwd_win", "bwd_whole", "bwd_off", "r2_off",
+                   "all_off")
 # gates on one chunk of the main path's seeding (torch.profiler), each the
 # value measured on an H100 (PERF.md) plus a stated margin: the kernels the
 # card runs a chain_scan round and a walk_pool_chain round (the body
@@ -607,16 +653,18 @@ def ops_bound(nbytes: int, cells: int):
 def launch_counts() -> dict:
     """Every kernel's launches since the last reset_launches()."""
     from compseed_tpu_torch.ops import (bsw_cuda, chain_cuda, fm_cuda,
-                                        smem_cuda, walk_cuda)
+                                        lockstep_cuda, smem_cuda, walk_cuda)
     return {**bsw_cuda.LAUNCHES, **fm_cuda.LAUNCHES, **chain_cuda.LAUNCHES,
-            **walk_cuda.LAUNCHES, **smem_cuda.LAUNCHES}
+            **walk_cuda.LAUNCHES, **smem_cuda.LAUNCHES,
+            **lockstep_cuda.LAUNCHES}
 
 
 def reset_launches() -> None:
     from compseed_tpu_torch.ops import (bsw_cuda, chain_cuda, fm_cuda,
-                                        smem_cuda, walk_cuda)
+                                        lockstep_cuda, smem_cuda, walk_cuda)
     for counts in (bsw_cuda.LAUNCHES, fm_cuda.LAUNCHES, chain_cuda.LAUNCHES,
-                   walk_cuda.LAUNCHES, smem_cuda.LAUNCHES):
+                   walk_cuda.LAUNCHES, smem_cuda.LAUNCHES,
+                   lockstep_cuda.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -1163,13 +1211,14 @@ def fm_main_path(dev, seeder, queries, l32):
 
 def fm_rows(fm_rec, row) -> list:
     """The FM kernels' rows of the kernel table.  launches: the int32
-    window of the main path (chain walk, inverse-Psi walk) and the
-    lockstep engine's first chunk (extension: since the exact rerun runs
-    its collect and round-3 calls as smem kernels, no path of the default
-    engine launches it; ``rerun_launches``, the forced overflow's rerun's,
-    0, beside it); times and bounds: the first such call of the main path
-    (forward chain walk; the inverse-Psi walk's first stage) and of the
-    lockstep engine (its (P, 3) extension); the walks' latency floor:
+    window of the main path (chain walk, inverse-Psi walk) and
+    fwd_staged's first chunk (extension: since the exact rerun runs its
+    collect and round-3 calls as smem kernels and the lockstep scan and
+    walks are kernels of their own, only fwd_staged's staged forward walk
+    launches it; ``rerun_launches``, the forced overflow's rerun's, 0,
+    beside it); times and bounds: the first such call of the main path
+    (forward chain walk; the inverse-Psi walk's first stage) and of
+    fwd_staged (its extension); the walks' latency floor:
     their steps times one dependent step's latency on the bench table
     (fm_latency); max_abs_err: over every comparison of the kernel (phase
     2, the captured calls and the 2^30-base table); the inverse-Psi
@@ -1213,7 +1262,7 @@ def fm_rows(fm_rec, row) -> list:
             fm_rec["ext_launches"], errs["fm_extend_sel_kernel"],
             flat["ms"], flat["plain_ms"], flat,
             **more("fm_extend_sel_kernel", flat,
-                   launches_path="the lockstep engine (all_off), first chunk",
+                   launches_path="fwd_staged, first chunk",
                    rerun_launches=fm_rec["rerun_launches"],
                    large_graph_ms=large["extend"]["graph_ms"])),
         row("fm_chain_walk_kernel",
@@ -1632,6 +1681,281 @@ def smem_rows(smem_rec, row) -> list:
                                       "bound_ms", "floor_ms")}
                    for r in calls]))
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the lockstep engines' loops: csrc/lockstep.cu
+
+def lockstep_capture(dev, opt, fm, queries, force=None) -> list:
+    """Every lockstep scan and walk-stage call (ops/lockstep_cases.Capture:
+    each stage's loop of walk_stage and walk_pool) of one eager run of the
+    first chunk through all_off and bwd_win, with int32 (``force`` None)
+    or int64 positions."""
+    from compseed_tpu_torch.ops import lockstep_cases, seeder2
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.ops.seeder2 import ENGINES, DeviceSeeder
+    dfi = to_device(fm, dev, force_dtype=force)
+    calls = []
+    for name in ("all_off", "bwd_win"):
+        dedup, knobs = ENGINES[name]
+        with engine_env(knobs):
+            sd = DeviceSeeder(opt, fm, dev, dfi=dfi, dedup=dedup)
+            R, L, qd, rd = sd._upload(queries)
+            fns = sd._build(R, L)
+        with seeder2.EagerCalls(), lockstep_cases.Capture() as cap:
+            sd._run(fns, qd, rd)
+        calls += [(name, c) for c in cap.calls]
+    return calls
+
+
+def lockstep_check(cases: dict) -> dict:
+    """Every captured call (``cases``: tag -> lockstep_capture's) by the
+    kernels against the plain version on the card: a scan's lep, cnt and
+    ovf; a stage's lanes, t and live (the entry, then the segments of its
+    loop); max abs err by kernel and tag (0: bit-equal), or exit 1."""
+    from compseed_tpu_torch.ops import lockstep_cases
+    errs, n = {}, {}
+    for tag, calls in cases.items():
+        for engine, call in calls:
+            e = lockstep_cases.vs_plain(call)
+            kernels = ("scan_lanes_kernel",) if call.kind == "scan" else \
+                ("walk_stage_kernel", "walk_stage_entry_kernel")
+            for k in kernels:
+                errs[f"{k} {tag}"] = max(errs.get(f"{k} {tag}", 0), e)
+            n[f"{engine} {call.kind} {tag}"] = \
+                n.get(f"{engine} {call.kind} {tag}", 0) + 1
+    log(f"[2] the lockstep kernels against their plain versions on every "
+        f"captured call of all_off's and bwd_win's first chunk: calls "
+        f"{json.dumps(n)}, max_abs_err {json.dumps(errs)}")
+    if any(errs.values()):
+        raise SystemExit(f"a lockstep kernel disagrees with its plain "
+                         f"version: {errs}")
+    return dict(calls=n, max_abs_err=errs)
+
+
+def lockstep_entry_args(call):
+    """A stage call's WalkLoop and its words, pointed at the stage with
+    its entry's source, outside any loop: for the entry kernel alone."""
+    from compseed_tpu_torch.ops import lockstep_cuda
+    lp = lockstep_cuda.WalkLoop(call.fm, call.L, call.max_steps, call.qflat,
+                                call.rwflat, call.t0, call.width)
+    st = lp.lanes(call.st) if call.src is None else lp.empty_lanes(call.w)
+    if call.src is not None:
+        lp.live.fill_(call.live_in)
+    lp._point(st, call.fit, call.src)
+    return lp
+
+
+def segment_ms(lp, reps: int) -> float:
+    """The stage's first segment (walk_stage_kernel launched on its own,
+    its loop word 0, so t stays) on the card alone: the entry run once to
+    fill the lanes, which are then kept; each timed launch follows a copy
+    of the kept lanes back, and the copies alone are taken off (the
+    flush pattern of launch_ms)."""
+    import ctypes as ct
+
+    from compseed_tpu_torch.ops import lockstep_cuda
+    lockstep_cuda._launch("walk_stage_entry_kernel", lp.dev, lp.args)
+    st = {n: x for n, x in lp._keep[0].items()}
+    snap = {n: x.clone() for n, x in st.items()}
+    args = (ct.c_longlong * len(lp.args))(*lp.args)
+    args[lp.AT["loop"]] = 0
+
+    def restore():
+        for n, x in st.items():
+            x.copy_(snap[n])
+
+    return launch_ms(lambda: (restore(), lockstep_cuda._launch(
+        "walk_stage_kernel", lp.dev, args)), reps) - launch_ms(restore, reps)
+
+
+def lockstep_time(calls, twin, step_ms: float, reps: int = 10) -> list:
+    """Each captured call (int32) on the card: a scan's launch in a loop
+    (CUDA events: the host's rate, its outputs' allocation with it) and
+    alone (launch_ms: a CUDA graph of ``reps`` calls, replayed); a stage's
+    whole loop the same two ways (its entry, then its segments: in a loop
+    each call captures, launches and frees its loop graph; alone the loop
+    joins the replayed graph) and its entry kernel alone, the segment
+    the plain version's ms (one call; a compacting entry's plain
+    compaction, lockstep_cases.walk_entry_plain, alone); the bound from
+    lockstep_cases.work (the distinct occ rows' and the lanes' bytes
+    against the ranks' operations) and the latency floor, the longest
+    lane's dependent extensions times ``step_ms`` (one dependent step of
+    the chain walk on the same table, fm_latency); a stage's first segment
+    alone (segment_ms)."""
+    from compseed_tpu_torch.ops import lockstep_cases, lockstep_cuda
+    out = []
+    for engine, call in calls:
+        w = lockstep_cases.work(call, twin)
+        ops = w["words_ranked"] * FM_OPS_WORD + w["ranks"] * FM_OPS_RANK + \
+            w["extensions"] * FM_OPS_EXTEND
+        bound_ms, bound_by = bound_of(w["bytes"], ops)
+        r = dict(engine=engine, kind=call.kind, lanes=call.lanes,
+                 ms=cuda_time_ms(lambda: lockstep_cases.run(call, "kernel"),
+                                 reps),
+                 graph_ms=launch_ms(lambda: lockstep_cases.run(
+                     call, "kernel"), reps),
+                 plain_ms=cuda_time_ms(lambda: lockstep_cases.run(
+                     call, "plain"), 1),
+                 bound_ms=bound_ms, bound_by=bound_by, ops=ops,
+                 floor_ms=w["max_steps"] * step_ms, work=w)
+        if call.kind == "walk":
+            lp = lockstep_entry_args(call)
+            r["entry_ms"] = launch_ms(lambda: lockstep_cuda._launch(
+                "walk_stage_entry_kernel", lp.dev, lp.args), reps)
+            _, t1, _ = lockstep_cases.run(call, "kernel")
+            segs = -(-(int(t1) - call.t0) // max(1, min(8, call.max_steps)))
+            if call.src is not None:
+                r["entry_plain_ms"] = cuda_time_ms(
+                    lambda: lockstep_cases.walk_entry_plain(call.src,
+                                                            call.w), 3)
+            r.update(segments=segs, fit=call.fit, t0=call.t0,
+                     src=call.src is not None,
+                     segment_ms=segment_ms(lp, reps) if segs else None)
+        out.append(r)
+        log(f"[lockstep] {engine} {call.kind} {call.lanes} lanes: "
+            f"{r['ms']:.4f} ms in a loop, {r['graph_ms']:.5f} ms alone "
+            f"(plain {r['plain_ms']:.3f}); entry {r.get('entry_ms')}, "
+            f"segments {r.get('segments')}, segment {r.get('segment_ms')}; "
+            f"{w['rows']} occ rows, {w['bytes']} B, {w['extensions']} "
+            f"extensions, steps max {w['max_steps']} mean "
+            f"{w['mean_steps']:.1f}; bound {bound_ms:.6f} ms by {bound_by}, "
+            f"floor {r['floor_ms']:.5f} ms")
+    return out
+
+
+def lockstep_rows(rec, row) -> list:
+    """The lockstep kernels' rows of the kernel table: launches in all_off's
+    first chunk (phase 6, its first run); max_abs_err over every captured
+    call of all_off's and bwd_win's first chunk, int32 and int64; the scan
+    at its first call (round 1, 16,384 lanes), the segment kernel at the
+    widest stage that walks (its first segment alone, segment_ms; the
+    plain version's stage over its segments), the entry at the widest
+    stage with a source, each with its bound and floor, every call's
+    figures beside them."""
+    t = rec["time"]
+    scans = [r for r in t if r["kind"] == "scan"]
+    walks = [r for r in t if r["kind"] == "walk"]
+    seg = max((r for r in walks if r["segments"]), key=lambda r: r["lanes"])
+    entry = max((r for r in walks if r["src"]), key=lambda r: r["lanes"])
+
+    def err(k):
+        return max(v for key, v in rec["check"]["max_abs_err"].items()
+                   if key.startswith(k + " "))
+
+    def calls(rs, keys):
+        return [{k: r.get(k) for k in keys} for r in rs]
+    keys = ("engine", "lanes", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "floor_ms")
+    wkeys = keys + ("entry_ms", "segments", "segment_ms", "fit", "t0")
+    first = scans[0]
+    n = rec["launches"]
+    return [
+        row("scan_lanes_kernel", LOCKSTEP_REPLACES["scan_lanes_kernel"],
+            n["scan_lanes_kernel"], err("scan_lanes_kernel"), first["ms"],
+            first["plain_ms"], first, source=LOCKSTEP_SOURCE,
+            at=f"{first['lanes']} lanes (round 1)",
+            graph_ms=first["graph_ms"], latency_floor_ms=first["floor_ms"],
+            calls=calls(scans, keys)),
+        row("walk_stage_kernel", LOCKSTEP_REPLACES["walk_stage_kernel"],
+            n["walk_stage_kernel"], err("walk_stage_kernel"),
+            seg["segment_ms"], seg["plain_ms"] / seg["segments"], seg,
+            source=LOCKSTEP_SOURCE,
+            at=f"{seg['lanes']} lanes, {seg['segments']} segments "
+               f"({seg['engine']}); ms and plain_ms a segment, bound and "
+               f"floor the stage's loop",
+            stage_ms=seg["graph_ms"], latency_floor_ms=seg["floor_ms"],
+            calls=calls(walks, wkeys)),
+        row("walk_stage_entry_kernel",
+            LOCKSTEP_REPLACES["walk_stage_entry_kernel"],
+            n["walk_stage_entry_kernel"], err("walk_stage_entry_kernel"),
+            entry["entry_ms"], entry["entry_plain_ms"],
+            lockstep_entry_bound(entry),
+            source=LOCKSTEP_SOURCE,
+            at=f"{entry['lanes']} lanes from a wider stage "
+               f"({entry['engine']})")]
+
+
+def lockstep_entry_bound(r) -> dict:
+    """The entry's bound at a compacting stage (lockstep_cases.work's
+    entry_bytes: the source's alive bytes, its kept lanes' words read
+    once, the stage's words written once)."""
+    ms, by = bound_of(r["work"]["entry_bytes"], 0)
+    return dict(bound_ms=ms, bound_by=by)
+
+
+@contextlib.contextmanager
+def sa_loop_watch(counts: dict, keys: list, keep: int = 8):
+    """sa_batch's loops counted for the block: ``counts["plain"]`` the
+    host-tested loop's calls (fm._sa_loop_plain), ``counts["loop"]`` the
+    loop graph's (fm._sa_loop_kernels); the first ``keep`` positions the
+    loop graph took go to ``keys`` as (index, positions)."""
+    from compseed_tpu_torch.ops import fm as dfm
+    plain, loop = dfm._sa_loop_plain, dfm._sa_loop_kernels
+
+    def counted_plain(*a):
+        counts["plain"] += 1
+        return plain(*a)
+
+    def counted_loop(fm, kk, steps, alive):
+        counts["loop"] += 1
+        if len(keys) < keep:
+            keys.append((fm, kk.clone()))
+        return loop(fm, kk, steps, alive)
+
+    dfm._sa_loop_plain, dfm._sa_loop_kernels = counted_plain, counted_loop
+    try:
+        yield counts
+    finally:
+        dfm._sa_loop_plain, dfm._sa_loop_kernels = plain, loop
+
+
+def sa_batch_turns(keys, reps: int = 3) -> dict:
+    """sa_batch on the card by its loop graph (kept per lane count,
+    fm._SaKept: a shape's first call captures it, every later call copies
+    its lanes in and launches it) and by the plain loop (a host test
+    every round, fm._sa_loop_plain over the walk kernel) in turns (loop,
+    plain, plain, loop), host wall ms a call with a sync after it, on each
+    of ``keys`` (the rerun's merged-SAL positions); the capture and
+    instantiation ms of each loop graph captured (the first call of a
+    shape)."""
+    import torch
+    from compseed_tpu_torch.ops import cuda_lib
+    from compseed_tpu_torch.ops import fm as dfm
+    out, graphs = [], []
+    end = cuda_lib.LoopGraph.end
+
+    def timed_end(g):
+        end(g)
+        graphs.append((g.capture_s * 1e3, g.instantiate_s * 1e3))
+
+    cuda_lib.LoopGraph.end = timed_end
+    try:
+        for fm, k in keys:
+            turns = {"loop": [], "plain": []}
+            for route in ("loop", "plain", "plain", "loop"):
+                orig = dfm._sa_loop
+                if route == "plain":
+                    dfm._sa_loop = lambda dev: dfm._sa_loop_plain
+                try:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        dfm.sa_batch(fm, k)
+                    torch.cuda.synchronize()
+                    turns[route].append((time.perf_counter() - t0) * 1e3 /
+                                        reps)
+                finally:
+                    dfm._sa_loop = orig
+            out.append(dict(lanes=int(k.shape[0]), wall_ms=turns))
+    finally:
+        cuda_lib.LoopGraph.end = end
+    rec = dict(calls=out, captures=len(graphs),
+               capture_ms=[c for c, _ in graphs],
+               instantiate_ms=[i for _, i in graphs])
+    log(f"[3] sa_batch by its kept loop graph against the host-tested loop, "
+        f"in turns: {json.dumps(rec)}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2126,6 +2450,7 @@ def call_graph_check(dev, opt, fm, reads_arr) -> dict:
         rec["s"] = time.time() - t0
         out[tag] = rec
         del sd
+    out["engines"] = engine_graph_check(dev, opt, fm, chunks)
     S = MESH_SHARDS[-1]
     sh = ShardedSeeder(opt, fm, mesh=[dev] * S, dedup=True)
     sh.run_flat(chunks[0][:256])                 # the index on the card
@@ -2134,6 +2459,55 @@ def call_graph_check(dev, opt, fm, reads_arr) -> dict:
     torch.cuda.empty_cache()
     log(f"[2] the call graph against the eager _run on every chunk, int32 "
         f"and int64; bytes a kept shape holds: {json.dumps(out)}")
+    return out
+
+
+def engine_graph_check(dev, opt, fm, chunks) -> dict:
+    """Each engine of GRAPHED_ENGINES by its call graph against its eager
+    _run: every chunk of cell A with int32 positions and the first with
+    int64, head and seed matrix equal; the first chunk's capture and
+    instantiation ms and kernels captured."""
+    import threading
+
+    import numpy as np
+    import torch
+    from compseed_tpu_torch.ops.device_index import to_device
+    from compseed_tpu_torch.ops.seeder2 import ENGINES, DeviceSeeder
+    out = {}
+    for name in GRAPHED_ENGINES:
+        dedup, knobs = ENGINES[name]
+        for tag, force, chs in (("int32", None, chunks),
+                                ("int64", np.int64, chunks[:1])):
+            with engine_env(knobs):
+                sd = DeviceSeeder(opt, fm, dev, dedup=dedup,
+                                  dfi=to_device(fm, dev, force_dtype=force))
+                fns = [sd._build(*sd._upload(q)[:2]) for q in chs]
+            rec = dict(equal=[])
+            for c, q in enumerate(chs):
+                R, L, qd, rd = sd._upload(q)
+                if not sd._graphed(fns[c]) or fns[c]["engine"] != name:
+                    raise SystemExit(f"{name}: the engine did not take the "
+                                     f"call graph")
+                graph = [x.cpu() for x in sd._call(fns[c], qd, rd)]
+                if c == 0:
+                    (cg,) = sd._calls.by_thread[
+                        threading.get_ident()].values()
+                    rec.update(capture_ms=cg.capture_s * 1e3,
+                               instantiate_ms=cg.instantiate_s * 1e3,
+                               kernels_captured=len(cg.launched))
+                eager = [x.cpu() for x in sd._run(fns[c], qd, rd)[2:]]
+                rec["equal"].append(all(torch.equal(a, b)
+                                        for a, b in zip(graph, eager)))
+                if not rec["equal"][-1]:
+                    raise SystemExit(f"{name} {tag} chunk {c}: the call "
+                                     f"graph's head or seed matrix differs "
+                                     f"from the eager _run")
+            sd._calls.drop_thread()
+            del sd
+            torch.cuda.empty_cache()
+            out[f"{name} {tag}"] = rec
+    log(f"[2] the graphed engines' call graphs against their eager _run: "
+        f"{json.dumps(out)}")
     return out
 
 
@@ -4219,8 +4593,10 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
             _, _, head, seedpk = sd._run(sd._build(R, L), qd, rd)
             head, seedpk = head.cpu().numpy(), seedpk.cpu().numpy()
             first_s = time.time() - t0
-            fm_launches = {k: v for k, v in launch_counts().items()
+            counts = launch_counts()
+            fm_launches = {k: v for k, v in counts.items()
                            if k in FM_KERNELS + CHAIN_KERNELS}
+            lockstep_launches = {k: counts[k] for k in LOCKSTEP_KERNELS}
             rec = head_record(head, seedpk)
             if rec != stored["engines"][name]:
                 raise SystemExit(f"engine {name}: the head of the first "
@@ -4240,23 +4616,50 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
                 overflows.append(bool(sd.last_overflow))
                 if sd.last_overflow:
                     rerun_s.append(sd.prof["rerun_s"])
+            # one chunk on the route a stream takes (the call graph's,
+            # captured by the run before), under the profiler: host
+            # launches and syncs a chunk, gated for the graphed engines
+            R, L = sd._upload(queries)[:2]
+            graphed = sd._graphed(sd._build(R, L))
+            reset_launches()
+            prof_rec = profile_chunk(lambda: sd.run_flat(queries),
+                                     torch.cuda.synchronize)
+            ext = launch_counts()["fm_extend_sel_kernel"] / 2
+        if graphed != (name != "fwd_staged"):
+            raise SystemExit(f"engine {name}: the call graph route is "
+                             f"{graphed}")
+        if graphed and not overflows[-1] and (
+                prof_rec["cudaStreamSynchronize"] > MAX_CHUNK_SYNCS or
+                prof_rec["launches"] > MAX_CHUNK_LAUNCHES):
+            raise SystemExit(f"engine {name}: a chunk by the call graph "
+                             f"made {prof_rec['cudaStreamSynchronize']} "
+                             f"syncs and {prof_rec['launches']} launches")
         if want is None:
             want = got
         if any(not np.array_equal(g, w) for g, w in zip(got, want)):
             raise SystemExit(f"engine {name}: (lrep, sflat, soff) of the "
                              f"first chunk differ from the default engine's")
         hit, merged = reuse_of(head)
+        split = {k: prof_rec[k] for k in (
+            "launches", "cudaStreamSynchronize", "cudaMemcpyAsync",
+            "ran_kernels", "device_busy_s", "wall_s")}
         full[name] = dict(device_s=statistics.median(runs), runs=runs,
                           first_run_s=first_s, bwt_hit_pct=hit,
                           sal_merged_pct=merged, scalars=rec["scalars"],
                           overflow=overflows, rerun_s=rerun_s,
-                          splice_reads=spliced, fm_launches=fm_launches)
+                          splice_reads=spliced, fm_launches=fm_launches,
+                          lockstep_launches=lockstep_launches,
+                          call_graph=graphed, chunk=split,
+                          extend_launches_chunk=ext)
         log(f"[6] {name}: {CHUNK} reads, head and seed matrix equal the JAX "
             f"package's; device_s {[round(x, 4) for x in runs]} (first run "
             f"{first_s:.3f} s), BWT hit {hit:.4f} %, SAL merged "
             f"{merged:.4f} %, overflow flags {rec['scalars'][3:14]}, rerun "
             f"{rerun_s}, splice {spliced}; seeds equal the default engine's; "
-            f"FM launches in the first run {fm_launches}")
+            f"FM launches in the first run {fm_launches}, lockstep "
+            f"{lockstep_launches}; a chunk on the "
+            f"{'call graph' if graphed else 'eager'} route: {split}, "
+            f"fm_extend_sel_kernel launches {ext}")
     out["full_width"] = full
 
     # ---- (c) cell A'': COMPSEED_ADAPTIVE_CAPS=0 and one forced switch
@@ -4633,6 +5036,7 @@ def main() -> None:
     from compseed_tpu_torch.native import NativeTail
     from compseed_tpu_torch.index.build import unpack_pac
     from compseed_tpu_torch.ops import (bsw, bsw_cuda, chain_cuda, fm_cuda,
+                                        lockstep_cases, lockstep_cuda,
                                         smem_cases, smem_cuda, walk_cuda)
     from compseed_tpu_torch.ops.bsw_cases import dual_meta_case
     from compseed_tpu_torch.ops.device_index import pack_pac_words, to_device
@@ -4674,26 +5078,32 @@ def main() -> None:
         build(force=True)
         return time.time() - t0
 
-    with cf.ThreadPoolExecutor(max_workers=7) as ex:
+    with cf.ThreadPoolExecutor(max_workers=9) as ex:
         host = ex.submit(native.build_library, True)
         fm_build = ex.submit(timed_build, fm_cuda.build_library)
         chain_build = ex.submit(timed_build, chain_cuda.build_library)
         walk_build = ex.submit(timed_build, walk_cuda.build_library)
         smem_build = ex.submit(timed_build, smem_cuda.build_library)
-        # the exact rerun kernels' host loops (g++), for their work counts
+        lockstep_build = ex.submit(timed_build, lockstep_cuda.build_library)
+        # the exact rerun kernels' and the lockstep kernels' host loops
+        # (g++), for their work counts
         twin = ex.submit(smem_cases.HostTwin)
+        ls_twin = ex.submit(lockstep_cases.HostTwin)
         dp_build_s = timed_build(bsw_cuda.build_library)
         fm_build_s = fm_build.result()
         chain_build_s = chain_build.result()
         walk_build_s = walk_build.result()
         smem_build_s = smem_build.result()
+        lockstep_build_s = lockstep_build.result()
         build_s = time.time() - t0
         host.result()
         twin = twin.result()
+        ls_twin = ls_twin.result()
     fm_cuda.LIB.load()
     chain_cuda.LIB.load()
     walk_cuda.LIB.load()
     smem_cuda.LIB.load()
+    lockstep_cuda.LIB.load()
     # CUPTI traces a CUDA graph's kernels only if it was running when the
     # graph was instantiated: start it before any seeder builds its graphs
     from torch.profiler import ProfilerActivity, profile
@@ -4702,7 +5112,8 @@ def main() -> None:
     log(f"[1] build: DP kernels {dp_build_s:.2f} s, FM kernels "
         f"{fm_build_s:.2f} s, chain kernels {chain_build_s:.2f} s, walk "
         f"kernels {walk_build_s:.2f} s, exact rerun kernels "
-        f"{smem_build_s:.2f} s, with the host tail {time.time() - t0:.2f} s")
+        f"{smem_build_s:.2f} s, lockstep kernels {lockstep_build_s:.2f} s, "
+        f"with the host tail {time.time() - t0:.2f} s")
     x = torch.arange(8 * 128, dtype=torch.int32, device=dev).reshape(8, 128)
     probe_err = int((bsw_cuda.probe_add_one(x).to(torch.int64)
                      - bsw_cuda._probe_plain(x).to(torch.int64)).abs().max())
@@ -4942,6 +5353,16 @@ def main() -> None:
     sa_rec["time"] = sa_time(sa_cases_["int32"][:4])
     sa_rec["tail"] = sa_tail(sa_cases_["int32"][2])
     del sa_cases_
+    # the lockstep kernels on every captured call of all_off's and
+    # bwd_win's first chunk, int32 and int64
+    t0 = time.time()
+    ls_cases = {tag: lockstep_capture(dev, opt, fm, list(reads_arr[:CHUNK]),
+                                      force)
+                for tag, force in (("int32", None), ("int64", np.int64))}
+    ls_rec = dict(check=lockstep_check(ls_cases))
+    ls_calls = ls_cases["int32"]
+    del ls_cases
+    log(f"[2] lockstep kernels checked ({time.time() - t0:.1f} s)")
     call_rec = call_graph_check(dev, opt, fm, reads_arr)
 
     # ---- phase 3: goldens on the card, each file as one chunk
@@ -4949,6 +5370,7 @@ def main() -> None:
         os.path.join(ROOT, "tests", "fixtures", "tiny.fa")))
     golden_runs = {}
     golden_calls = []       # the goldens' exact rerun calls (smem_cases)
+    sa_keys = []            # the goldens' sa_batch calls: (index, positions)
     for name, reader, gold, env in (
             ("reads.fq", read_fastq_chunks, "golden_bwamem.sam", {}),
             ("reads.reordered", read_reordered_chunks,
@@ -4964,10 +5386,16 @@ def main() -> None:
         seen = watch_overflow(seeder)
         done = []
         reset_counts()
-        with smem_cases.Capture() as smem_cap:
+        sa_calls = dict(plain=0, loop=0)
+        with smem_cases.Capture() as smem_cap, \
+                sa_loop_watch(sa_calls, sa_keys):
             align_stream(opt, fm_t, iter([reads]), engine, seeder, tail,
                          on_done=done.extend, stats=SeedingStats())
         launches = launch_counts()
+        if sa_calls["plain"] or not sa_calls["loop"]:
+            raise SystemExit(f"{name}: the rerun's sa_batch tested its loop "
+                             f"on the host, or ran no loop on the card: "
+                             f"{sa_calls}")
         if not env:
             golden_calls += smem_cap.calls
         mine = "".join(r.sam for r in done).splitlines(keepends=True)
@@ -4994,7 +5422,8 @@ def main() -> None:
             raise SystemExit(f"SAM differs from {gold}: records {bad[:5]}")
         golden_runs[name] = dict(rerun_s=seen[0][2], rerun_split=seen[0][5],
                                  launches=launches,
-                                 rerun_calls=smem_cap.counts)
+                                 rerun_calls=smem_cap.counts,
+                                 sa_batch_calls=sa_calls)
         log(f"[3] {name}: the rerun's split (BatchSeeder.prof, s) "
             f"{json.dumps(seen[0][5])}")
 
@@ -5302,17 +5731,19 @@ def main() -> None:
                          f"{forced_cap.counts}, launches {lf}")
     fm_rec["rerun_launches"] = lf["fm_extend_sel_kernel"]
     # the extension kernel's own calls: the rerun runs its collect and
-    # round-3 calls as one kernel each, so they come from the lockstep
-    # engine (all_off: make_scan's forward sweep), which still launches it
-    lockstep = DeviceSeeder(opt, fm, dev, dfi=seeder.dfi, dedup=False)
-    reset_counts()
-    with FmCapture() as ext_cap:
-        lockstep.run_flat(list(reads_arr[:CH]))
+    # round-3 calls as one kernel each and the lockstep scan and walks
+    # are kernels of their own, so they come from fwd_staged's staged
+    # forward walk, the one path left that launches it
+    with engine_env({"COMPSEED_FWD_MEMO": "0"}):
+        staged = DeviceSeeder(opt, fm, dev, dfi=seeder.dfi, dedup=True)
+        reset_counts()
+        with FmCapture() as ext_cap:
+            staged.run_flat(list(reads_arr[:CH]))
     torch.cuda.synchronize()
     fm_rec["ext_launches"] = launch_counts()["fm_extend_sel_kernel"]
-    del lockstep
+    del staged
     if fm_rec["ext_launches"] <= 0:
-        raise SystemExit("the lockstep engine launched no extension kernel")
+        raise SystemExit("fwd_staged launched no extension kernel")
     fm_rec["extend_sel"] = {}
     ext_calls = {}
     for key, call in ext_cap.calls.items():
@@ -5321,7 +5752,7 @@ def main() -> None:
         r = fm_measure(key, call)
         fm_rec["extend_sel"][f"rank{key[1]}"] = r
         ext_calls[f"rank{key[1]}"] = (key, call)
-        log(f"[4] lockstep engine's extension {r['shape']}: "
+        log(f"[4] fwd_staged's extension {r['shape']}: "
             f"fm_extend_sel_kernel "
             f"max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms in a loop, "
             f"{r['graph_ms']:.5f} ms replayed from a graph (plain "
@@ -5329,11 +5760,11 @@ def main() -> None:
             f"{r['bound_ms']:.6f} ms by {r['bound_by']}")
         if r["max_abs_err"]:
             raise SystemExit("fm_extend_sel_kernel disagrees with its plain "
-                             "version on the lockstep engine's lanes")
+                             "version on fwd_staged's lanes")
     fm_rec["extend_turns"] = fm_turns(fm_builds, ext_calls)
     free_builds(fm_builds)
     del ext_calls
-    log(f"[4] the lockstep engine's extensions by build in turns: "
+    log(f"[4] fwd_staged's extensions by build in turns: "
         f"{json.dumps(fm_rec['extend_turns'])}")
     log(f"[4] forced overflow (GP_F={FORCED_GP_F}): per chunk (overflow, "
         f"GP_F after, rerun s) = {seen}; both chunks {forced_s:.1f} s; "
@@ -5374,6 +5805,18 @@ def main() -> None:
     del forced_cap
     smem_rec["phase_s"] = time.time() - t0
     log(f"[smem] the exact rerun's kernels: {smem_rec['phase_s']:.1f} s")
+    # the lockstep kernels: each captured call of all_off's and bwd_win's
+    # first chunk timed beside its bound and floor; sa_batch's loop graph
+    # against the host-tested loop on the goldens' rerun calls
+    t0 = time.time()
+    ls_rec["time"] = lockstep_time(
+        ls_calls, ls_twin,
+        fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"])
+    del ls_calls
+    ls_rec["sa_batch_turns"] = sa_batch_turns(sa_keys)
+    del sa_keys
+    ls_rec["phase_s"] = time.time() - t0
+    log(f"[lockstep] timed: {ls_rec['phase_s']:.1f} s")
 
     # the main path's own pair tables through every kernel and every
     # plain version
@@ -5451,6 +5894,8 @@ def main() -> None:
                       "chain_build_s": chain_build_s,
                       "walk_build_s": walk_build_s,
                       "smem_build_s": smem_build_s, "smem": smem_rec,
+                      "lockstep_build_s": lockstep_build_s,
+                      "lockstep": ls_rec,
                       "fm": fm_rec,
                       "chain": chain_rec, "walk": walk_rec,
                       "synthetic_ms": synth,
@@ -5516,7 +5961,9 @@ def main() -> None:
             fm_rec["profile"]["kernels"])
         + loop_rows(loop_rec, l32, row, fm_rec["profile"]["kernels"])
         + sa_rows(sa_rec, l32, row, fm_rec["profile"]["kernels"])
-        + smem_rows(smem_rec, row)}))
+        + smem_rows(smem_rec, row)
+        + lockstep_rows(dict(ls_rec, launches=eng_rec["full_width"][
+            "all_off"]["lockstep_launches"]), row)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

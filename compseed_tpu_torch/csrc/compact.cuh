@@ -3,7 +3,9 @@
 // starts every segment's graph (loop_graph.cuh).  Its pass over the
 // lanes (rank_tile, store_ranked: the ranks by look-back, the live lanes
 // to them) also serves fm_walk.cu's sa_stage_entry_kernel, the
-// compaction between the stages of the suffix-array walk.
+// compaction between the stages of the suffix-array walk, and the whole
+// entry lockstep.cu's walk_stage_entry_kernel, between the stages of the
+// lockstep walk (walk_pool).
 //
 // In the JAX package the lanes go from one segment to the next, narrower
 // one by a stable rank-scatter compaction (compseed_tpu/ops/seedscan.py

@@ -1,0 +1,677 @@
+// The lockstep engines' loops on Hopper: the forward LEP scan and the
+// staged backward walk of ops/seedscan.py.
+//
+// In the JAX package both are device loops: the scan a per-read
+// lax.while_loop that make_scan vmaps, the walk a lax.while_loop over
+// every lane at once; XLA fuses each body, there is no Pallas source.  The
+// port first ran each as batched eager PyTorch steps, one extension launch
+// a step and a host test every few steps; here the scan is one launch a
+// call and the walk one CUDA graph loop a stage.
+//
+// scan_lanes_kernel<T>
+//   Replaces compseed_tpu/ops/seedscan.py:62-146 _scan_one (a
+//   lax.while_loop at :143 over fori_loops of 8 masked steps), vmapped by
+//   make_scan (:148-160), for one lane.  Plain version:
+//   compseed_tpu_torch/ops/seedscan.py::_scan_lanes_plain.  Every update
+//   of the JAX loop is gated by the lane's own done, so a lane runs its
+//   program to its end in one launch, with no loop test: the all-done test
+//   every 8 steps changes no lane's result.  A pair of threads a lane
+//   (fm_rank.cuh's PairRanks, as smem_strategy_kernel): the forward child
+//   of each step is extend_sel(..., is_back = false) by base 3 - q[i], the
+//   pair ranking its two occ rows at once; a push writes its row (k, l, s,
+//   end, pivot) at min(cnt, capl - 1), as JAX writes a full buffer's last
+//   row again, sets ovf and leaves cnt; the rows past cnt are zeroed at the
+//   end, thread t of the pair writing words t, t + 2, t + 4 of each row.
+//   An ambiguous base stops the sweep without an extension, and a lane
+//   that is not active reads nothing.
+// walk_stage_kernel<T>
+//   Replaces the body of compseed_tpu/ops/seedscan.py:187-275 walk_stage
+//   (a lax.while_loop at :273 over segments of SEG = min(REV_W,
+//   max_steps) masked backward steps, fori_loop :258).  Plain version:
+//   ops/seedscan.py::_walk_stage_plain.  One launch is one segment: every
+//   live lane takes up to min(SEG, max_steps - t) backward extensions from
+//   (k, l, s), the base from one packed reverse window a lane a segment
+//   (rwflat) or from qflat a step, dying on an ambiguous base, past the
+//   read's start or below its min_hits; steps counts the extensions (an
+//   mh death counts its killing call, an N or past-start death does not).
+//   A pair of threads a lane.  The loop's condition, t < max_steps and
+//   live > fit, is collective, so it cannot be a lane's: the kernel's last
+//   block to retire (loop_graph.cuh::retire_last) adds the segment's steps
+//   to t, leaves the live lanes in sc[kLive] and sets go and the WHILE
+//   node's condition.  t is a device word, which the next stage of a
+//   walk_pool call reads as its t0.
+// walk_stage_entry_kernel<T>
+//   The loop's entry (compact.cuh's segment_entry): JAX's while_loop tests
+//   its cond before the first segment, and a segment run when live <= fit
+//   would move the lanes, so the entry runs that test on the card.  Between
+//   the stages of a walk_pool call it also compacts the previous stage's
+//   live lanes into this stage's (compseed_tpu/ops/seedscan.py
+//   compact_state: a stable rank-scatter), the lanes after them pads (dead,
+//   slot -1, steps 0, as every dead lane is once walk_pool has written out
+//   the finished ones); before a call's first stage it counts the live
+//   lanes.  Plain version: ops/seedscan.py::compact_state and the test of
+//   _walk_stage_plain.
+//
+// T is the index type (int32_t or int64_t); arithmetic on intervals wraps
+// in T as the plain version's tensors do, and the occ rows are read as
+// fm_walk.cu reads them (fm_rank.cuh: fill_oob's all-ones row for a block
+// outside the table where the seeder sets it, else a trap).
+//
+// What bounds them: each lane is a chain of dependent extensions, each two
+// random occ rows, one a thread of the pair; the bytes a call needs (the
+// distinct rows and the lanes' words, ops/lockstep_cases.py counts them)
+// are a few MB, so the bound by HBM bytes is microseconds and the latency
+// of the longest lane's dependent steps decides: a round-1 scan lane takes
+// some 100-300 extensions, a walk segment at most 8.
+//
+// The launchers allocate nothing, launch on the given stream of the
+// calling thread's current device (ops/lockstep_cuda.py makes the tensors'
+// device current) and return the CUDA error code.  Compiled as C++ without
+// nvcc, the same lane routines run in host loops (scan_lanes_host,
+// walk_stage_host, walk_stage_entry_host), for the CPU tests.
+
+#include <cstdint>
+#include <cstring>
+
+#include "compact.cuh"
+#include "fm_rank.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// The scan
+
+// L2[c] for c in [0, 4] by selects.
+template <typename T>
+FM_HD T l2_at(const FmPacked<T>& fm, int c) {
+  return c == 4 ? fm.L2[4] : sel4(fm.L2, c);
+}
+
+// The bi-interval of the single base c in [0, 3] (seedscan._set_intv).
+template <typename T>
+FM_HD void set_intv(const FmPacked<T>& fm, int c, T ik[3]) {
+  ik[0] = wadd(l2_at(fm, c), (T)1);
+  ik[1] = wadd(l2_at(fm, 3 - c), (T)1);
+  ik[2] = wsub(l2_at(fm, c + 1), l2_at(fm, c));
+}
+
+// q[clip(i, 0, L - 1)] of a lane's read.
+FM_HD int char_at(const uint8_t* q, int i, int L) {
+  return q[i < 0 ? 0 : i > L - 1 ? L - 1 : i];
+}
+
+// A lane's min_hits, int32 or int64 as given, in T (as .to(dt) casts it).
+template <typename T>
+FM_HD T hits_at(const void* min_hits, int hits64, long long lane) {
+  return hits64 ? (T)((const int64_t*)min_hits)[lane]
+                : (T)((const int32_t*)min_hits)[lane];
+}
+
+// One lane's forward pass (JAX seedscan.py:86-134): at phase 0 a pivot
+// starts (the single-base interval) or is skipped (an ambiguous base);
+// at phase 1 one forward step, which pushes (k, l, s, end, pivot) when
+// the interval changes or the base is ambiguous (past rlen: ambiguous),
+// and stops when the base is ambiguous or the changed interval falls
+// below min_hits; after a stop the lane moves to its next pivot
+// (advance) or ends.  push(slot, row) stores a row; cnt and ovf the count
+// and the overflow.  A lane that is not active does nothing.
+FM_FUNCTOR_CALLER
+template <typename T, typename Ranks, typename Push>
+FM_HD void scan_lane(const FmPacked<T>& fm, const uint8_t* q, int L, int rlen,
+                     int pivot, T min_hits, bool active, bool advance,
+                     int capl, const Ranks& ranks, const Push& push, int& cnt,
+                     bool& ovf) {
+  const T mh = min_hits < (T)1 ? (T)1 : min_hits;
+  int i = 0, end = 0;
+  bool sweep = false;
+  T ik[3] = {0, 0, 0};
+  cnt = 0;
+  ovf = false;
+  if (!active) return;
+  for (;;) {
+    if (!sweep) {
+      if (pivot >= rlen) return;
+      const int b0 = char_at(q, pivot, L);
+      if (b0 > 3) {
+        ++pivot;
+        continue;
+      }
+      set_intv(fm, b0, ik);
+      end = i = pivot + 1;
+      sweep = true;
+    }
+    const int base = i < rlen ? char_at(q, i, L) : 4;
+    const bool amb = base > 3;
+    T okc[3] = {0, 0, 0};
+    bool changed = false;
+    if (!amb) {
+      extend_sel(fm, ik, 3 - base, false, okc, ranks);
+      changed = okc[2] != ik[2];
+    }
+    if (amb || changed) {
+      const T row[5] = {ik[0], ik[1], ik[2], (T)end, (T)pivot};
+      push(cnt < capl - 1 ? cnt : capl - 1, row);
+      ovf = ovf || cnt >= capl;
+      if (cnt < capl) ++cnt;
+    }
+    if (amb || (changed && okc[2] < mh)) {
+      if (!advance) return;
+      pivot = amb ? i + 1 : i;
+      sweep = false;
+    } else {
+      for (int k = 0; k < 3; ++k) ik[k] = okc[k];
+      end = i = i + 1;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The walk: a stage's words, one 64-bit word a field (ops/lockstep_cuda.py
+// WALK_ARGS names them in order).  compact.cuh and loop_graph.cuh read the
+// loop's words by their names there: rnd is the walk's t, rcap its
+// max_steps and nxtw its fit.
+struct WalkArgs {
+  // 1 for an int64_t index type
+  long long idx64;
+  // the index: the (n_rows, 16) packed occ rows, L2 (5, index type),
+  // primary, fill_oob
+  long long rows, n_rows, L2, primary, fill_oob;
+  // the stage's lanes, w of each: k, l, s, mh (index type); rid, i,
+  // death, slot, steps (int32; steps 0: not counted); alive (bool)
+  long long k, l, s, mh, rid, i, death, slot, steps, alive, w;
+  // the bases: rwflat (int64 packed reverse windows) or, when it is 0,
+  // qflat (uint8 codes), n_q words or codes; the read length L
+  long long rwflat, qflat, n_q, L;
+  // the loop: t (one int32, the steps spent across a call's stages),
+  // max_steps, fit, SEG, a live-lane histogram (none: 0)
+  long long rnd, rcap, nxtw, seg, hist;
+  // int32 words [live, ticket, epoch, -, retire (64 bits, words 4-5)];
+  // the entry's look-back status words (a word a block)
+  long long sc, lb_entry;
+  // the entry's source: the previous stage's lanes (src_w of each, in the
+  // order of the lane words above) and its live count (one int32); src_w
+  // 0 before a call's first stage
+  long long src_k, src_l, src_s, src_mh, src_rid, src_i, src_death, src_slot,
+      src_steps, src_alive, src_w, live_in;
+  // the WHILE node's condition handle (0 outside a graph), go (one int32,
+  // the condition's last value) and loop (1: the stage kernel ends a
+  // loop's body; 0, a launch of its own: it touches no loop word)
+  long long cond, go, loop;
+};
+
+constexpr int kLive = 0, kTicket = 1, kEpoch = 2, kRetire = 4;  // sc words
+
+// A walk stage's lane arrays as the entry moves them: rid, i, death, slot,
+// steps and k, l, s, mh; a pad is dead with slot -1, the rest 0.
+template <typename T>
+FM_HD LaneSet<T, 5, 4> stage_lanes(const WalkArgs& a) {
+  LaneSet<T, 5, 4> s;
+  const long long src32[5] = {a.src_rid, a.src_i, a.src_death, a.src_slot,
+                              a.src_steps};
+  const long long dst32[5] = {a.rid, a.i, a.death, a.slot, a.steps};
+  const long long srcT[4] = {a.src_k, a.src_l, a.src_s, a.src_mh};
+  const long long dstT[4] = {a.k, a.l, a.s, a.mh};
+  for (int j = 0; j < 5; ++j) {
+    s.src32[j] = (const int32_t*)src32[j];
+    s.dst32[j] = (int32_t*)dst32[j];
+    s.pad32[j] = j == 3 ? -1 : 0;
+  }
+  for (int j = 0; j < 4; ++j) {
+    s.srcT[j] = (const T*)srcT[j];
+    s.dstT[j] = (T*)dstT[j];
+  }
+  s.src_alive = (const bool*)a.src_alive;
+  s.dst_alive = (bool*)a.alive;
+  return s;
+}
+
+// Whether the words name what the stage kernel and the entry read and
+// write: the launchers refuse any others.
+inline bool walk_words_ok(const WalkArgs& a) {
+  if (a.w < 1 || a.w >= INT32_MAX || !a.rows || !a.L2 || a.L < 1 ||
+      a.n_q < 1 || a.seg < 1 || a.seg > 8 || !a.rnd || !a.sc || !a.lb_entry)
+    return false;
+  if (!a.k || !a.l || !a.s || !a.mh || !a.rid || !a.i || !a.death ||
+      !a.slot || !a.alive || (!a.rwflat && !a.qflat))
+    return false;
+  if (a.loop && !a.go) return false;
+  if (a.src_w < 0 || a.src_w >= INT32_MAX) return false;
+  return a.src_w == 0 ||
+         (a.src_w >= a.w && a.steps && a.src_k && a.src_l && a.src_s &&
+          a.src_mh && a.src_rid && a.src_i && a.src_death && a.src_slot &&
+          a.src_steps && a.src_alive && a.live_in);
+}
+
+// One lane of a walk stage, as its words stand.
+template <typename T>
+struct WalkLane {
+  T k, l, s, mh;
+  int32_t rid, i, death, steps;
+  bool alive;
+};
+
+// The segment's steps before it: min(SEG, max_steps - t).
+FM_HD int seg_steps(const WalkArgs& a, int32_t t) {
+  const long long left = a.rcap - t;
+  return (int)(left < a.seg ? left : a.seg);
+}
+
+// A lane's segment (JAX seedscan.py:222-248, n steps): the bases from one
+// window gather (rwflat: a lane alive at local step tl sits at i0 - tl) or
+// one qflat read a step; below position 0 the base is 4.  A dead lane
+// reads nothing.
+FM_FUNCTOR_CALLER
+template <typename T, typename Ranks>
+FM_HD void walk_lane(const FmPacked<T>& fm, const WalkArgs& a,
+                     WalkLane<T>& x, int n, const Ranks& ranks) {
+  if (!x.alive || n <= 0) return;
+  const long long L = a.L, last = a.n_q - 1;
+  const bool packed = a.rwflat != 0;
+  long long win = 0;
+  if (packed) {
+    const long long i0 = x.i < 0 ? 0 : x.i > L - 1 ? L - 1 : x.i;
+    long long j = (long long)x.rid * L + i0;
+    j = j < 0 ? 0 : j > last ? last : j;
+    win = ((const long long*)a.rwflat)[j];
+  }
+  for (int tl = 0; tl < n; ++tl) {
+    int src;
+    if (packed) {
+      src = (int)((win >> (3 * tl)) & 7);
+    } else {
+      long long j = (long long)x.rid * L + x.i;
+      j = j < 0 ? 0 : j > last ? last : j;
+      src = ((const uint8_t*)a.qflat)[j];
+    }
+    const int base = x.i >= 0 ? src : 4;
+    if (base > 3) {
+      x.death = x.i;
+      x.alive = false;
+      return;
+    }
+    const T ik[3] = {x.k, x.l, x.s};
+    T okc[3];
+    extend_sel(fm, ik, base, true, okc, ranks);
+    ++x.steps;
+    if (okc[2] >= x.mh) {
+      x.k = okc[0];
+      x.l = okc[1];
+      x.s = okc[2];
+      x.i -= 1;
+    } else {
+      x.death = x.i;
+      x.alive = false;
+      return;
+    }
+  }
+}
+
+template <typename T>
+FM_HD WalkLane<T> load_lane(const WalkArgs& a, long long j) {
+  WalkLane<T> x;
+  x.k = ((const T*)a.k)[j];
+  x.l = ((const T*)a.l)[j];
+  x.s = ((const T*)a.s)[j];
+  x.mh = ((const T*)a.mh)[j];
+  x.rid = ((const int32_t*)a.rid)[j];
+  x.i = ((const int32_t*)a.i)[j];
+  x.death = ((const int32_t*)a.death)[j];
+  x.steps = a.steps ? ((const int32_t*)a.steps)[j] : 0;
+  x.alive = ((const bool*)a.alive)[j];
+  return x;
+}
+
+// The words of a lane a segment changes; part 0 of 2 the first thread
+// of a pair's (k, s, i, alive), part 1 the other's (l, death, steps), or
+// part -1 all of them.
+template <typename T>
+FM_HD void store_lane(const WalkArgs& a, long long j, const WalkLane<T>& x,
+                      int part) {
+  if (part != 1) {
+    ((T*)a.k)[j] = x.k;
+    ((T*)a.s)[j] = x.s;
+    ((int32_t*)a.i)[j] = x.i;
+    ((bool*)a.alive)[j] = x.alive;
+  }
+  if (part != 0) {
+    ((T*)a.l)[j] = x.l;
+    ((int32_t*)a.death)[j] = x.death;
+    if (a.steps) ((int32_t*)a.steps)[j] = x.steps;
+  }
+}
+
+// The loop's step after a segment of n steps from t that leaves `live`
+// live lanes: t += n, sc[kLive] = live, then loop_go (go and the
+// histogram word).  Returns go.
+FM_HD bool walk_after(const WalkArgs& a, int32_t t, int n, int32_t live) {
+  *(int32_t*)a.rnd = t + n;
+  ((int32_t*)a.sc)[kLive] = live;
+  return loop_go(a, t + n, live);
+}
+
+#ifdef __CUDACC__
+constexpr int kScanBlock = 64;     // threads a block, 2 a lane
+constexpr int kWalkBlock = 64;     // threads a block, 2 a lane
+
+template <typename T>
+__global__ void __launch_bounds__(kScanBlock) scan_lanes_kernel(
+    const uint32_t* __restrict__ rows, long long n_rows,
+    const T* __restrict__ L2, long long primary, int fill_oob,
+    const uint8_t* __restrict__ q, int L, const int32_t* __restrict__ rlen,
+    const int32_t* __restrict__ pivot0, const void* __restrict__ min_hits,
+    int hits64, const uint8_t* __restrict__ active, int capl, int advance,
+    T* __restrict__ lep, T* __restrict__ cnt_out, T* __restrict__ ovf_out,
+    long long R) {
+  const long long lane =
+      ((long long)blockIdx.x * kScanBlock + threadIdx.x) / 2;
+  if (lane >= R) return;                // a whole pair
+  const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
+  const PairRanks<T> ranks{fm, Pair()};
+  const int t = ranks.p.t;
+  T* o = lep + lane * (long long)capl * 5;
+  int cnt;
+  bool ovf;
+  scan_lane(fm, q + lane * (long long)L, L, rlen[lane], pivot0[lane],
+            hits_at<T>(min_hits, hits64, lane), active[lane] != 0,
+            advance != 0, capl, ranks,
+            [&](int slot, const T r[5]) {
+              FM_UNROLL
+              for (int k = 0; k < 5; ++k)
+                if ((k & 1) == t) o[5 * slot + k] = r[k];
+            },
+            cnt, ovf);
+  for (int s = cnt; s < capl; ++s)
+    for (int k = t; k < 5; k += 2) o[5 * s + k] = (T)0;
+  if (t == 0)
+    cnt_out[lane] = (T)cnt;
+  else
+    ovf_out[lane] = (T)(ovf ? 1 : 0);
+}
+
+// A segment of the stage's loop.  Every thread reads t at its start (no
+// block writes it before the last block to retire, which is the last to
+// read it); with a.loop the last block to retire advances t, leaves the
+// live count and sets go and the WHILE node's condition.
+template <typename T>
+__global__ void __launch_bounds__(kWalkBlock) walk_stage_kernel(
+    const WalkArgs a) {
+  const long long j = ((long long)blockIdx.x * kWalkBlock + threadIdx.x) / 2;
+  const int32_t t0 = *(const int32_t*)a.rnd;
+  const int n = seg_steps(a, t0);
+  bool live = false;
+  if (j < a.w) {                        // a whole pair
+    const FmPacked<T> fm = make_fm((const uint32_t*)a.rows, a.n_rows,
+                                   (const T*)a.L2, a.primary,
+                                   (int)a.fill_oob);
+    const PairRanks<T> ranks{fm, Pair()};
+    WalkLane<T> x = load_lane<T>(a, j);
+    const bool was = x.alive;
+    walk_lane(fm, a, x, n, ranks);
+    if (was) store_lane(a, j, x, ranks.p.t);
+    live = x.alive;
+  }
+  if (!a.loop) return;
+  int total;
+  if (retire_last<kWalkBlock / 32>(
+          (unsigned long long*)((int32_t*)a.sc + kRetire),
+          (threadIdx.x & 1) == 0 && live, gridDim.x, &total))
+    loop_cond(a, walk_after(a, t0, n, total));
+}
+
+// The stage's entry (compact.cuh): the previous stage's live lanes
+// compacted into this stage's (or, before a call's first stage, its live
+// lanes counted), the live count and the loop's first test, the WHILE
+// node's condition set from it inside a graph.
+template <typename T>
+__global__ void __launch_bounds__(kEntryBlock) walk_stage_entry_kernel(
+    const WalkArgs a) {
+  segment_entry<kLive, kTicket, kEpoch>(a, stage_lanes<T>(a));
+}
+
+template <typename T>
+int launch_scan(const uint32_t* rows, long long n_rows, const void* L2,
+                long long primary, int fill_oob, const uint8_t* q, int L,
+                const int32_t* rlen, const int32_t* pivot0,
+                const void* min_hits, int hits64, const uint8_t* active,
+                int capl, int advance, void* lep, void* cnt, void* ovf,
+                long long R, void* stream) {
+  const long long threads = 2 * R;
+  scan_lanes_kernel<T>
+      <<<(unsigned)((threads + kScanBlock - 1) / kScanBlock), kScanBlock, 0,
+         (cudaStream_t)stream>>>(rows, n_rows, (const T*)L2, primary,
+                                 fill_oob, q, L, rlen, pivot0, min_hits,
+                                 hits64, active, capl, advance, (T*)lep,
+                                 (T*)cnt, (T*)ovf, R);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_walk(const WalkArgs& a, int entry, cudaStream_t st) {
+  if (entry) {
+    const long long n = a.src_w > 0 ? a.src_w : a.w;
+    const long long tile = kEntryBlock * kEntryItems;
+    walk_stage_entry_kernel<T>
+        <<<(unsigned)((n + tile - 1) / tile), kEntryBlock, 0, st>>>(a);
+  } else {
+    walk_stage_kernel<T>
+        <<<(unsigned)((2 * a.w + kWalkBlock - 1) / kWalkBlock), kWalkBlock,
+           0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+#else
+// What a host loop may record of a call, for ops/lockstep_cases.py's work
+// counts: the positions every rank asks occ4 at, in order (the first cap
+// kept, n counts them all), and each lane's extensions.
+struct Trace {
+  long long* pos;
+  long long cap;
+  long long n;
+  int* steps;
+  void add(long long k) {
+    if (n < cap) pos[n] = k;
+    ++n;
+  }
+};
+
+// ThreadRanks that records both positions when a trace is given.
+template <typename T>
+struct HostRanks {
+  ThreadRanks<T> rank;
+  Trace* tr;
+  void operator()(T a, T b, T tk[4], T tl[4]) const {
+    if (tr) {
+      tr->add((long long)a);
+      tr->add((long long)b);
+    }
+    rank(a, b, tk, tl);
+  }
+};
+
+// The host loops run a lane after another; a lane that would trap on the
+// card makes the call return -1.
+template <typename F>
+int host_lanes(long long n, F lane) {
+  try {
+    for (long long i = 0; i < n; ++i) lane(i);
+  } catch (const Fault&) {
+    return -1;
+  }
+  return 0;
+}
+
+template <typename T>
+int host_scan(const uint32_t* rows, long long n_rows, const void* L2,
+              long long primary, int fill_oob, const uint8_t* q, int L,
+              const int32_t* rlen, const int32_t* pivot0,
+              const void* min_hits, int hits64, const uint8_t* active,
+              int capl, int advance, void* lep, void* cnt_out, void* ovf_out,
+              long long R, Trace* tr) {
+  const FmPacked<T> fm = make_fm(rows, n_rows, (const T*)L2, primary,
+                                 fill_oob);
+  const HostRanks<T> ranks{ThreadRanks<T>{fm}, tr};
+  return host_lanes(R, [&](long long lane) {
+    const long long n0 = tr ? tr->n : 0;
+    T* o = (T*)lep + lane * (long long)capl * 5;
+    for (long long w = 0; w < (long long)capl * 5; ++w) o[w] = (T)0;
+    int cnt;
+    bool ovf;
+    scan_lane(fm, q + lane * (long long)L, L, rlen[lane], pivot0[lane],
+              hits_at<T>(min_hits, hits64, lane), active[lane] != 0,
+              advance != 0, capl, ranks,
+              [&](int slot, const T r[5]) {
+                for (int k = 0; k < 5; ++k) o[5 * slot + k] = r[k];
+              },
+              cnt, ovf);
+    ((T*)cnt_out)[lane] = (T)cnt;
+    ((T*)ovf_out)[lane] = (T)(ovf ? 1 : 0);
+    if (tr) tr->steps[lane] = (int)((tr->n - n0) / 2);
+  });
+}
+
+// A segment lane after lane, then with a.loop the loop's step (what the
+// kernel's last block to retire runs).
+template <typename T>
+int host_walk(const WalkArgs& a, Trace* tr) {
+  const FmPacked<T> fm = make_fm((const uint32_t*)a.rows, a.n_rows,
+                                 (const T*)a.L2, a.primary, (int)a.fill_oob);
+  const HostRanks<T> ranks{ThreadRanks<T>{fm}, tr};
+  const int32_t t0 = *(const int32_t*)a.rnd;
+  const int n = seg_steps(a, t0);
+  int32_t live = 0;
+  const int e = host_lanes(a.w, [&](long long j) {
+    const long long n0 = tr ? tr->n : 0;
+    WalkLane<T> x = load_lane<T>(a, j);
+    const bool was = x.alive;
+    walk_lane(fm, a, x, n, ranks);
+    if (was) store_lane(a, j, x, -1);
+    live += x.alive;
+    if (tr) tr->steps[j] += (int)((tr->n - n0) / 2);
+  });
+  if (e == 0 && a.loop) walk_after(a, t0, n, live);
+  return e;
+}
+#endif
+
+}  // namespace
+
+// The scan's entries take the index as fm_walk.cu's do (the (n_rows, 16)
+// packed rows, row count, L2 pointer in the index type, primary,
+// fill_oob) and idx64 = 1 for an int64_t index type, 0 for int32_t.  Lane
+// arrays are contiguous: q (R, L) base codes (uint8), rlen and pivot0 (R,)
+// int32, min_hits (R,) int32 or (hits64 = 1) int64, active a byte a lane;
+// lep (R, capl, 5), cnt and ovf (R,) in the index type.  capl at least 1,
+// L at least 1.  The walk's entries take the WalkArgs words
+// (ops/lockstep_cuda.py WALK_ARGS, in order).
+#ifdef __CUDACC__
+extern "C" int scan_lanes_launch(const uint32_t* rows, long long n_rows,
+                                 const void* L2, long long primary,
+                                 int fill_oob, const uint8_t* q, int L,
+                                 const int32_t* rlen, const int32_t* pivot0,
+                                 const void* min_hits, int hits64,
+                                 const uint8_t* active, int capl, int advance,
+                                 void* lep, void* cnt, void* ovf, long long R,
+                                 int idx64, void* stream) {
+  if (capl < 1 || L < 1) return (int)cudaErrorInvalidValue;
+  if (R <= 0) return 0;
+  return idx64 ? launch_scan<int64_t>(rows, n_rows, L2, primary, fill_oob, q,
+                                      L, rlen, pivot0, min_hits, hits64,
+                                      active, capl, advance, lep, cnt, ovf, R,
+                                      stream)
+               : launch_scan<int32_t>(rows, n_rows, L2, primary, fill_oob, q,
+                                      L, rlen, pivot0, min_hits, hits64,
+                                      active, capl, advance, lep, cnt, ovf, R,
+                                      stream);
+}
+
+static int walk_launch_any(const long long* words, int entry, void* stream) {
+  WalkArgs a;
+  memcpy(&a, words, sizeof(WalkArgs));
+  if (!walk_words_ok(a)) return (int)cudaErrorInvalidValue;
+  return a.idx64 ? launch_walk<int64_t>(a, entry, (cudaStream_t)stream)
+                 : launch_walk<int32_t>(a, entry, (cudaStream_t)stream);
+}
+
+extern "C" int walk_stage_launch(const long long* words, void* stream) {
+  return walk_launch_any(words, 0, stream);
+}
+
+extern "C" int walk_stage_entry_launch(const long long* words,
+                                       void* stream) {
+  return walk_launch_any(words, 1, stream);
+}
+
+LOOP_GRAPH_ENTRIES(lockstep)
+
+// The name of a CUDA error code, for the wrapper's messages.
+extern "C" const char* lockstep_cuda_error_name(int code) {
+  return cudaGetErrorName((cudaError_t)code);
+}
+#else
+// The same lanes on the host; each returns 0, or -1 for arguments the
+// launchers refuse and where a lane would trap on the card.  With steps
+// not null the scan and the segment record the call (Trace): the first
+// cap positions ranked into pos, their count into *n_pos, each lane's
+// extensions into steps (the segment adds them to what steps holds).
+extern "C" int scan_lanes_host(const uint32_t* rows, long long n_rows,
+                               const void* L2, long long primary,
+                               int fill_oob, const uint8_t* q, int L,
+                               const int32_t* rlen, const int32_t* pivot0,
+                               const void* min_hits, int hits64,
+                               const uint8_t* active, int capl, int advance,
+                               void* lep, void* cnt, void* ovf, long long R,
+                               int idx64, long long* pos, long long cap,
+                               long long* n_pos, int* steps) {
+  if (capl < 1 || L < 1) return -1;
+  if (R <= 0) return 0;
+  Trace t{pos, cap, 0, steps};
+  Trace* tr = steps ? &t : nullptr;
+  const int e =
+      idx64 ? host_scan<int64_t>(rows, n_rows, L2, primary, fill_oob, q, L,
+                                 rlen, pivot0, min_hits, hits64, active, capl,
+                                 advance, lep, cnt, ovf, R, tr)
+            : host_scan<int32_t>(rows, n_rows, L2, primary, fill_oob, q, L,
+                                 rlen, pivot0, min_hits, hits64, active, capl,
+                                 advance, lep, cnt, ovf, R, tr);
+  if (tr) *n_pos = t.n;
+  return e;
+}
+
+extern "C" int walk_stage_host(const long long* words) {
+  WalkArgs a;
+  memcpy(&a, words, sizeof(WalkArgs));
+  if (!walk_words_ok(a)) return -1;
+  return a.idx64 ? host_walk<int64_t>(a, nullptr)
+                 : host_walk<int32_t>(a, nullptr);
+}
+
+// walk_stage_host recording the segment (Trace; pos as scan_lanes_host's,
+// *n_pos counting on from its value).
+extern "C" int walk_stage_trace_host(const long long* words, long long* pos,
+                                     long long cap, long long* n_pos,
+                                     int* steps) {
+  WalkArgs a;
+  memcpy(&a, words, sizeof(WalkArgs));
+  if (!walk_words_ok(a) || !steps) return -1;
+  Trace t{pos, cap, *n_pos, steps};
+  const int e = a.idx64 ? host_walk<int64_t>(a, &t) : host_walk<int32_t>(a, &t);
+  *n_pos = t.n;
+  return e;
+}
+
+extern "C" int walk_stage_entry_host(const long long* words) {
+  WalkArgs a;
+  memcpy(&a, words, sizeof(WalkArgs));
+  if (!walk_words_ok(a)) return -1;
+  if (a.idx64)
+    segment_entry_host<kLive, kEpoch>(a, stage_lanes<int64_t>(a));
+  else
+    segment_entry_host<kLive, kEpoch>(a, stage_lanes<int32_t>(a));
+  return 0;
+}
+#endif
+
+// The size of WalkArgs in words, to check the Python layout against.
+extern "C" int lockstep_walk_args_words() {
+  return (int)(sizeof(WalkArgs) / 8);
+}

@@ -1,7 +1,8 @@
 // A segment's round loop as one CUDA graph, shared by the round sources
 // chain_scan.cu (chain_scan) and walk_chain.cu (walk_pool_chain); fm_walk.cu
 // runs the suffix-array walk's last stage the same way (its graph
-// entries, retire_last for the walk's folded loop test).
+// entries, retire_last for the walk's folded loop test), and lockstep.cu
+// each stage of the lockstep walk (walk_stage).
 //
 // In the JAX package each segment of both loops is a jax.lax.while_loop
 // (compseed_tpu/ops/seedscan.py:1726 and :734-738): the TPU tests the

@@ -21,7 +21,8 @@ whose body is one round's launches, captured once from the calling
 thread and replayed on the card until its last kernel (a round source's
 apply; the suffix-array walk's fm_inv_psi_walk_kernel) clears the
 condition; fm_walk.cu runs the suffix-array walk's last stage the same
-way, its entry the stage entry kernel before it.
+way, its entry the stage entry kernel before it, and lockstep.cu each
+stage of the lockstep walk (its entry kernel, then a segment a round).
 ``run_loop`` builds and launches it, or, inside the capture of a whole
 call (``CallGraph``: the seeder's call as one torch.cuda.CUDAGraph), adds
 the loop to that capture; ``NoTorchOps`` guards every body's

@@ -215,14 +215,22 @@ def sa_batch(fm: DeviceFMIndex, k: torch.Tensor) -> torch.Tensor:
     """SA[k] per lane via masked inverse-Psi walk (bwt_sa, bwt.c:86-96).
 
     Like the JAX loop, the all-done condition is tested once per
-    2*sa_intv fully-masked steps."""
+    2*sa_intv fully-masked steps: ``_sa_loop_plain`` for CPU tensors, the
+    loop on the card for any other (``_sa_loop_kernels``)."""
     k = k.to(fm.dtype)
     steps = torch.zeros_like(k)
     # a lane is active while its row is unsampled; a sampled row stays put
     alive = (k & (fm.sa_intv - 1)) != 0
-    while bool(alive.any()):
-        k, steps, alive = _walk(fm, k, steps, alive, 2 * fm.sa_intv)
+    k, steps, _ = _sa_loop(k.device)(fm, k, steps, alive)
     return steps + _sa_sample(fm, k)
+
+
+def _sa_loop(dev: torch.device):
+    """sa_batch's loop for tensors on ``dev``: the plain version for CPU
+    tensors, the kernels for any other."""
+    if dev.type == "cpu":
+        return _sa_loop_plain
+    return _sa_loop_kernels
 
 
 def _walk(fm, kk, steps, alive, n_steps: int, out=None):
@@ -328,12 +336,78 @@ def _sa_boundary_plain(st: dict, N: int, cap):
 
 
 def _sa_loop_plain(fm: DeviceFMIndex, kk, steps, alive):
-    """The last stage's loop in PyTorch operations: 2 * sa_intv steps a
-    round while any lane lives (the JAX package's while_loop, its test a
-    host read here).  Returns (kk, steps, alive)."""
+    """The loop of sa_batch and of sa_batch_compact's last stage in
+    PyTorch operations: 2 * sa_intv steps a round while any lane lives
+    (the JAX package's while_loop, its test a host read here).  Returns
+    (kk, steps, alive)."""
     while bool(alive.any()):
         kk, steps, alive = _walk(fm, kk, steps, alive, 2 * fm.sa_intv)
     return kk, steps, alive
+
+
+# sa_batch's loops kept per (thread, device, index, lane count): the exact
+# rerun pads its merged SAL's positions to a power of two lanes and
+# densify_sa walks chunks of one width, so the shapes repeat, and a loop
+# graph's capture and instantiation cost more than the host tests they
+# save (measured on the H100: PERF.md, the lockstep loops)
+SA_KEPT = 8
+_SA_KEPT = cuda_lib.Kept(SA_KEPT)
+
+
+class _SaKept:
+    """sa_batch's loop for one (device, index, lane count), kept: its
+    lanes (``lanes``: positions, steps, alive bytes; each call copies its
+    own in) and its ``fm_cuda.SaLoop`` of two stages, the call's lanes and
+    one as wide, whose loop graph the first call captures and every later
+    one launches again."""
+
+    def __init__(self, fm: DeviceFMIndex, N: int, dev: torch.device):
+        dt = fm.dtype
+        self.lanes = (torch.empty(N, dtype=dt, device=dev),
+                      torch.empty(N, dtype=dt, device=dev),
+                      torch.empty(N, dtype=torch.bool, device=dev))
+        self.lp = fm_cuda.SaLoop(fm, *self.lanes,
+                                 stages=((N, 0), (N, 2 * fm.sa_intv)))
+
+    def close(self) -> None:
+        self.lp.close()
+
+
+def _sa_loop_kernels(fm: DeviceFMIndex, kk, steps, alive):
+    """sa_batch's loop on the kernels (``fm_cuda.SaLoop`` of two stages,
+    the call's lanes and one as wide): sa_stage_entry_kernel writes the
+    lanes already done out and compacts the live ones, and runs the
+    loop's first test; then ``cuda_lib.run_loop``'s WHILE node walks them
+    2 * sa_intv steps a round, fm_inv_psi_walk_kernel's last block to
+    retire testing the next round; a last stage entry writes them out.
+    Outside a capture the loop is kept (``_SaKept``: on a card its graph
+    is captured by a shape's first call and launched by the later ones);
+    inside a call's capture it joins that capture.  The host waits on
+    nothing.  Returns (kk, steps, alive) as _sa_loop_plain, every lane
+    dead."""
+    dt = fm.dtype
+    dev = kk.device
+    N = kk.shape[0]
+    if N == 0:
+        return kk.to(dt), steps.to(dt), alive
+    stages = ((N, 0), (N, 2 * fm.sa_intv))
+    if cuda_lib.capturing(dev):
+        h = None
+        lp = fm_cuda.SaLoop(fm, kk.to(dt).contiguous(),
+                            steps.to(dt).contiguous(), alive.contiguous(),
+                            stages=stages)
+    else:
+        h = _SA_KEPT.get((dev, id(fm), N), lambda: _SaKept(fm, N, dev))
+        for mine, x in zip(h.lanes, (kk, steps, alive)):
+            mine.copy_(x)
+        lp = h.lp
+    cuda_lib.run_loop(lp, fm_cuda.LIB, "fm", lambda lp: lp.boundary(0),
+                      lambda lp: lp.walk(1, loop=True))
+    lp.boundary(1)
+    if h is None:
+        return lp.out_k, lp.out_steps, torch.zeros_like(alive)
+    # the kept outputs, which the shape's next call overwrites
+    return lp.out_k.clone(), lp.out_steps.clone(), torch.zeros_like(alive)
 
 
 def _sa_batch_compact_kernels(fm: DeviceFMIndex, k: torch.Tensor):

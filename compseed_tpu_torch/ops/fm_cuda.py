@@ -270,7 +270,11 @@ class SaLoop:
     stage on), the outputs ``out_steps``, ``out_k`` (N) and ``ovf``, ``go``
     (one int32, the loop condition's last value) and its scan words
     (``words``: the int32 ticket and epoch words, the walk's 64-bit retire
-    word ``retire``, then a look-back word a block, zeroed once).  ``walk(s)``
+    word ``retire``, then a look-back word a block, zeroed once).
+    ``stages``: (lanes, steps) a stage, sa_batch_compact's by default
+    (``sa_widths``; steps sa_intv, 2, 4 and 2 sa_intv a round); a first
+    stage of 0 steps is the call's lanes themselves, walked by no launch
+    (sa_batch's loop: ``fm._sa_loop_kernels``).  ``walk(s)``
     launches stage s's walk (``inv_psi_walk``, in place from the second
     stage on), ``boundary(s)`` the stage entry after it (after the last
     stage, the call's last launch); ``cuda_lib.run_loop`` takes it for the
@@ -282,7 +286,7 @@ class SaLoop:
     AT = {n: i for i, n in enumerate(SA_ARGS)}
     graph = None
 
-    def __init__(self, fm, kk0, steps0, alive0):
+    def __init__(self, fm, kk0, steps0, alive0, stages=None):
         dev = kk0.device
         N = kk0.shape[0] if kk0.dim() else 0
         if N < 1:
@@ -292,14 +296,21 @@ class SaLoop:
         _check("steps0", steps0, dt, (N,), dev)
         _check("alive0", alive0, torch.bool, (N,), dev)
         self.fm, self.dev = fm, dev
-        self.widths = sa_widths(N)
-        self.n_steps = (fm.sa_intv, 2 * fm.sa_intv, 4 * fm.sa_intv,
-                        2 * fm.sa_intv)
+        if stages is None:
+            stages = tuple(zip(sa_widths(N), (
+                fm.sa_intv, 2 * fm.sa_intv, 4 * fm.sa_intv, 2 * fm.sa_intv)))
+        self.widths = tuple(w for w, _ in stages)
+        self.n_steps = tuple(n for _, n in stages)
+        if self.widths[0] != N or len(stages) < 2 or any(
+                not 1 <= b <= a for a, b in zip(self.widths,
+                                                self.widths[1:])):
+            raise ValueError(f"SaLoop: stages {stages} over {N} lanes")
         i32 = torch.int32
-        self.lanes = [tuple(torch.empty(w, dtype=d, device=dev)
+        self.first = (kk0, steps0, alive0)
+        self.lanes = [self.first if s == 0 and self.n_steps[0] == 0 else
+                      tuple(torch.empty(w, dtype=d, device=dev)
                             for d in (dt, dt, torch.bool, i32)[:3 + (s > 0)])
                       for s, w in enumerate(self.widths)]
-        self.first = (kk0, steps0, alive0)
         self.out_steps = torch.empty(N, dtype=dt, device=dev)
         self.out_k = torch.empty(N, dtype=dt, device=dev)
         self.ovf = torch.empty((), dtype=torch.bool, device=dev)

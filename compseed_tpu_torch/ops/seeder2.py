@@ -13,14 +13,14 @@ chunk: a head of counters + per-read words and a bit-packed seed matrix,
 in the JAX package's exact layout, so ``unpack_results`` and the native
 tail consume either package's output unchanged.
 
-On a card the default engine runs a chunk as one CUDA graph, as the JAX
-package runs it as compiled device programs: ``_run`` (r1, r2, r3,
-merge, seeds, pack: the JAX package's ``whole``) captured once per
+On a card every engine but fwd_staged runs a chunk as one CUDA graph, as
+the JAX package runs it as compiled device programs: ``_run`` (r1, r2,
+r3, merge, seeds, pack: the JAX package's ``whole``) captured once per
 (thread, call shape) into a ``cuda_lib.CallGraph``, its loops joining the
 capture, and replayed for every later chunk of the shape: the host uploads
-the reads, launches the graph and reads the two results back.  The
-engines whose lockstep loops still test on the host run ``_run``
-eagerly (``CALL_GRAPH``).
+the reads, launches the graph and reads the two results back.  fwd_staged,
+whose staged forward walk still tests on the host, runs ``_run`` eagerly
+(``CALL_GRAPH``).
 
 A chunk-global cap overflow shows in the head's flags: the chunk is
 then rerun exactly on the lockstep seeder (``smem.BatchSeeder``) and the
@@ -41,7 +41,8 @@ import numpy as np
 import torch
 
 from compseed_tpu_torch.ops import fm as dfm
-from compseed_tpu_torch.ops import chain_cuda, cuda_lib, fm_cuda, walk_cuda
+from compseed_tpu_torch.ops import (chain_cuda, cuda_lib, fm_cuda,
+                                    lockstep_cuda, smem_cuda, walk_cuda)
 from compseed_tpu_torch.ops import seedscan as ss
 from compseed_tpu_torch.ops.bits import as_i32
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex, to_device
@@ -103,11 +104,9 @@ ENGINE_STAGES = {
     "all_off": ("lockstep", "plain", "plain", "lockstep"),
 }
 # Which engines run a call on a card as one CUDA graph (DeviceSeeder._call):
-# those whose every loop runs on the card.  The others run it eagerly:
-# their lockstep loops test on the host (the staged forward walk,
-# seedscan._fwd_stage_walk; the lockstep scan, _scan_lanes; the plain and
-# windowed backward walks, walk_stage; the lockstep round 3, smem's).
-CALL_GRAPH = {name: name == "default" for name in ENGINE_STAGES}
+# those whose every loop runs on the card.  fwd_staged runs it eagerly: its
+# staged forward walk (seedscan._fwd_stage_walk) tests on the host.
+CALL_GRAPH = {name: name != "fwd_staged" for name in ENGINE_STAGES}
 
 
 class EagerCalls:
@@ -240,8 +239,9 @@ class DeviceSeeder:
         """dedup=True enables the cross-read walk deduplication (the
         compressive SST reuse); dedup=False runs the lockstep scan and the
         plain staged walks.  On a CUDA device the FM kernels', the chain
-        scan's and the chained walker's libraries are built and loaded
-        here: a failed build stops the construction."""
+        scan's, the chained walker's, the lockstep loops' and the lockstep
+        round 3's libraries are built and loaded here (not inside a call's
+        capture): a failed build stops the construction."""
         self.opt = opt
         self.fm = fm
         self.device = torch.device(device)
@@ -249,6 +249,8 @@ class DeviceSeeder:
             fm_cuda.LIB.load()
             chain_cuda.LIB.load()
             walk_cuda.LIB.load()
+            lockstep_cuda.LIB.load()
+            smem_cuda.LIB.load()
         self.dfi = dfi if dfi is not None else to_device(fm, self.device)
         if self.dfi.device != self.device:
             raise ValueError(f"index is on {self.dfi.device}, seeder on "
@@ -520,8 +522,7 @@ class DeviceSeeder:
             ovf3 = packed3[:, MMEM3 * 5 + 1] != 0          # per read
             slot = torch.arange(MMEM3, dtype=_I32, device=dev)[None, :]
             valid = (slot < n[:, None]).reshape(-1)
-            rid3 = torch.arange(R_, dtype=_I32, device=dev) \
-                .repeat_interleave(MMEM3)
+            rid3 = torch.arange(R_ * MMEM3, dtype=_I32, device=dev) // MMEM3
             end3 = flat[:, 4].to(_I32)
             ok3 = valid & (flat[:, 2] > 0) & (end3 <= rlens[rid3.to(_I64)])
             return (ok3, rid3, flat[:, 0], flat[:, 1], flat[:, 2],

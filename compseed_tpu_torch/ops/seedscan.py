@@ -19,17 +19,20 @@ And ``reconstruct`` — SMEM emission from walked pool rows.
 
 Every step is the JAX package's, operation for operation, so pools,
 death positions, memo trajectories and every counter are bit-equal.  Where
-JAX runs a device while loop, this runs a Python loop that tests the same
-condition at the same points (the segment widths and stage budgets set
-the shapes, and so the rounds, that the counters count), apart from
-the two default loops on a card: each segment of ``chain_scan`` and
-``walk_pool_chain`` is one CUDA graph whose WHILE node replays the
-round's kernels while a kernel's test of that condition holds
-(``cuda_lib.run_loop``), so the host never waits inside them; a vmapped
-per-read loop becomes one batched program over lanes with a per-lane
-``done`` mask.  JAX's drop-mode scatters become ``_drop_set``: indices
-past the end land in a dump row that is cut off, so the real rows are
-written once each and deterministically.  Packed windows and hashes are
+JAX runs a device while loop, the plain versions (CPU tensors) run a
+Python loop that tests the same condition at the same points (the segment
+widths and stage budgets set the shapes, and so the rounds, that the
+counters count); a vmapped per-read loop becomes one batched program over
+lanes with a per-lane ``done`` mask.  On a card every loop but the staged
+forward walk (``_fwd_stage_walk``, fwd_staged's) runs there: each segment
+of ``chain_scan`` and ``walk_pool_chain`` and each stage of
+``walk_stage`` / ``walk_pool`` is one CUDA graph whose WHILE node replays
+the body's kernels while a kernel's test of that condition holds
+(``cuda_lib.run_loop``), and the lockstep scan is one kernel a call in
+which each lane runs its program to its end (``_scan_lanes``), so the
+host never waits inside them.  JAX's drop-mode scatters become
+``_drop_set``: indices past the end land in a dump row that is cut off,
+so the real rows are written once each and deterministically.  Packed windows and hashes are
 int64 tensors holding uint32 / uint64 words (``ops/bits.py``).
 """
 
@@ -41,7 +44,8 @@ import numpy as np
 import torch
 
 from compseed_tpu_torch.ops import fm as dfm
-from compseed_tpu_torch.ops import chain_cuda, cuda_lib, fm_cuda, walk_cuda
+from compseed_tpu_torch.ops import (chain_cuda, cuda_lib, fm_cuda,
+                                    lockstep_cuda, walk_cuda)
 from compseed_tpu_torch.ops.bits import (add64, as_i32, lsr64, mul32,
                                          mul64, sub64, u32)
 from compseed_tpu_torch.ops.device_index import DeviceFMIndex
@@ -80,7 +84,7 @@ def _group_heads(sorted_keys, vs):
     """Group heads over keys in sorted order: a valid row whose key
     differs from its predecessor's."""
     diff = torch.zeros_like(vs)
-    diff[0] = True
+    diff[:1].fill_(True)            # a fill: no host value copied in
     for x in sorted_keys:
         diff[1:] |= x[1:] != x[:-1]
     return vs & diff
@@ -148,12 +152,42 @@ def _scan_lanes(fm: DeviceFMIndex, L: int, capl: int, advance: bool,
     ovf), cnt and ovf in the index dtype.
 
     lep rows: k, l, s, end, pivot, in push order (descending interval
-    size within each pivot group).  With ``advance`` a lane continues to
-    its next pivot after each stop (round 1); otherwise it finishes after
-    its first collect (a round-2 task).  Each update is gated by the
-    lane's own ``done``, so the steps a lane takes after it is done
-    change nothing and the result equals the per-read program lane for
-    lane.  Like the JAX loop, the all-done test runs every 8 steps."""
+    size within each pivot group); the rows past cnt are zero, and a push
+    into a full buffer writes its last row again and sets ovf.  With
+    ``advance`` a lane continues to its next pivot after each stop (round
+    1); otherwise it finishes after its first collect (a round-2 task).
+    ``_scan_lanes_plain`` for CPU tensors; for any other one launch of
+    ``scan_lanes_kernel`` (ops/lockstep_cuda.py), in which each lane runs
+    its program to its end: every update of the JAX loop is gated by the
+    lane's own done, so no lane waits on a test of the others."""
+    return _scan_route(q.device)(fm, L, capl, advance, q, rlen, pivot0,
+                                 min_hits, active)
+
+
+def _scan_route(dev: torch.device):
+    """_scan_lanes for tensors on ``dev``: the plain version for CPU
+    tensors, the kernel for any other."""
+    if dev.type == "cpu":
+        return _scan_lanes_plain
+    return _scan_lanes_kernel
+
+
+def _scan_lanes_kernel(fm: DeviceFMIndex, L: int, capl: int, advance: bool,
+                       q, rlen, pivot0, min_hits, active):
+    """_scan_lanes by scan_lanes_kernel, its arguments made contiguous in
+    the kernel's dtypes."""
+    hits = min_hits if min_hits.dtype in (_I32, _I64) else min_hits.to(_I32)
+    return lockstep_cuda.scan(
+        fm, L, capl, advance, q.contiguous(), rlen.to(_I32).contiguous(),
+        pivot0.to(_I32).contiguous(), hits.contiguous(),
+        active.to(torch.bool).contiguous())
+
+
+def _scan_lanes_plain(fm: DeviceFMIndex, L: int, capl: int, advance: bool,
+                      q, rlen, pivot0, min_hits, active):
+    """_scan_lanes' plain version: the JAX loop as one batched program
+    with a per-lane done mask, its all-done test every 8 steps a host
+    read."""
     dt = fm.dtype
     dev = q.device
     R = q.shape[0]
@@ -241,7 +275,7 @@ def build_pool(lep, cnt, GP: int):
     dev = lep.device
     vflat = (torch.arange(capl, device=dev)[None, :] <
              cnt[:, None].to(_I64)).reshape(-1)
-    rflat = torch.arange(R, device=dev).repeat_interleave(capl)
+    rflat = torch.arange(R * capl, device=dev) // capl
     n = vflat.sum().to(_I32)
     take = _rank_order(vflat)[:GP]
     pool = torch.cat([lep.reshape(R * capl, 5)[take],
@@ -255,7 +289,7 @@ def build_pool(lep, cnt, GP: int):
 # ----------------------------------------------------------------------
 
 def walk_stage(fm: DeviceFMIndex, qflat, L: int, max_steps: int, state,
-               t0: int = 0, fit: int = 0, rwflat=None):
+               t0=0, fit: int = 0, rwflat=None):
     """Advance every live lane by backward extensions until all are dead,
     ``max_steps`` are spent in all (across stages: ``t0`` carries in) or
     — with ``fit`` > 0 — the live count fits a ``fit``-wide continuation.
@@ -265,10 +299,44 @@ def walk_stage(fm: DeviceFMIndex, qflat, L: int, max_steps: int, state,
     extensions per lane: an mh-death counts its killing call, an N or
     past-start death does not).  With ``rwflat`` (packed_rev_windows) a
     segment's chars decode from ONE window gather per lane: a lane alive
-    at local step t sits at i0 - t.  Returns (state, t)."""
+    at local step t sits at i0 - t.  Returns (state, t).
+
+    ``_walk_stage_plain`` for CPU tensors (t a Python int, the loop's test
+    a host read); for any other the stage's loop on the card
+    (``_walk_stage_kernels``: t one int32 on the device, read by nothing
+    on the host)."""
+    return _walk_route(state["alive"].device)(fm, qflat, L, max_steps, state,
+                                              t0, fit, rwflat)
+
+
+def _walk_route(dev: torch.device):
+    """walk_stage for tensors on ``dev``: the plain version for CPU
+    tensors, the kernels for any other."""
+    if dev.type == "cpu":
+        return _walk_stage_plain
+    return _walk_stage_kernels
+
+
+def _walk_stage_kernels(fm: DeviceFMIndex, qflat, L: int, max_steps: int,
+                        state, t0=0, fit: int = 0, rwflat=None):
+    """walk_stage by ``lockstep_cuda.WalkLoop``: the state copied into the
+    kernels' lanes, then the loop (its entry, which runs the first test on
+    the card, and a segment a round); returns (state, t), t one int32 on
+    the device."""
+    w = state["alive"].shape[0]
+    lp = lockstep_cuda.WalkLoop(fm, L, max_steps, qflat, rwflat, t0, w)
+    st = lp.lanes(state)
+    lp.run(st, fit)
+    return st, lp.t
+
+
+def _walk_stage_plain(fm: DeviceFMIndex, qflat, L: int, max_steps: int,
+                      state, t0=0, fit: int = 0, rwflat=None):
+    """walk_stage's plain version: the JAX loop in PyTorch operations, its
+    test a host read before each segment."""
     SEG = max(1, min(REV_W, max_steps))
     st = dict(state)
-    t = t0
+    t = int(t0)
     while t < max_steps and int(st["alive"].sum()) > fit:
         if rwflat is not None:
             idx = (st["rid"].to(_I64) * L + st["i"].clamp(0, L - 1)).clamp(
@@ -335,13 +403,27 @@ def walk_pool(fm: DeviceFMIndex, qflat, L: int, pool, stages, mh=None,
     calls = torch.zeros((), dtype=_I64, device=dev)
     t = 0
     caps = [cap for cap, _ in stages]
+    # on the kernels one loop a stage, sharing t on the card; each stage's
+    # entry compacts the previous stage's live lanes (compact_state)
+    lp = None if _walk_route(dev) is _walk_stage_plain else \
+        lockstep_cuda.WalkLoop(fm, L, L + 2, qflat, rwflat, 0, GP)
     for idx, cap in enumerate(caps):
-        if idx > 0:
-            state, o = compact_state(state, cap)
-            ovf = ovf | o                   # never fires: exits are fit-gated
         fit = caps[idx + 1] if idx + 1 < len(caps) else 0
-        state, t = walk_stage(fm, qflat, L, L + 2, state, t0=t, fit=fit,
-                              rwflat=rwflat)
+        if lp is not None:
+            # more live lanes than the stage holds only when max_steps
+            # ended the last stage
+            if idx > 0:
+                ovf = ovf | (lp.live > cap)
+            st = lp.lanes(state) if idx == 0 else \
+                lp.empty_lanes(min(cap, state["alive"].shape[0]))
+            lp.run(st, fit, src=state if idx > 0 else None)
+            state = st
+        else:
+            if idx > 0:
+                state, o = compact_state(state, cap)
+                ovf = ovf | o
+            state, t = walk_stage(fm, qflat, L, L + 2, state, t0=t,
+                                  fit=fit, rwflat=rwflat)
         finished = ~state["alive"] & (state["slot"] >= 0)
         sl = torch.where(finished, state["slot"], GP)
         death = _drop_set(death, sl, torch.where(finished, state["death"], 0))
@@ -361,13 +443,15 @@ def walk_pool(fm: DeviceFMIndex, qflat, L: int, pool, stages, mh=None,
 # backward dedup by content hashes (the round-4 engines)
 # ----------------------------------------------------------------------
 
-def _pow_u32(base: int, n: int) -> np.ndarray:
-    """[base^0 .. base^n] mod 2^32 (int64 words)."""
-    out = np.empty(n + 1, np.int64)
-    v = 1
-    for i in range(n + 1):
-        out[i] = v
-        v = (v * base) & 0xFFFFFFFF
+def _pow_at(base: int, e: torch.Tensor, n: int) -> torch.Tensor:
+    """base^e mod 2^32 for each exponent of ``e`` (int64, in [0, n]) by
+    its bits, on e's device: no table copied from the host, so that a
+    call's capture holds it.  int64 words."""
+    out = torch.ones_like(e)
+    b = base & 0xFFFFFFFF
+    for j in range(n.bit_length()):
+        out = torch.where(((e >> j) & 1) != 0, mul32(out, b), out)
+        b = (b * b) & 0xFFFFFFFF
     return out
 
 
@@ -498,8 +582,8 @@ def walk_pool_dedup(fm: DeviceFMIndex, qflat, ph, L: int, pool, stages,
     P2 = torch.cat([pz, ph[:, :, 1]], dim=1).reshape(-1)
     wlen = piv.clamp(max=Wb)
     bidx = pool[:, 5].to(_I64) * (Lh + 1)
-    pw1 = torch.from_numpy(_pow_u32(0x01000193, Wb)).to(dev)[wlen]
-    pw2 = torch.from_numpy(_pow_u32(0x9E3779B9, Wb)).to(dev)[wlen]
+    pw1 = _pow_at(0x01000193, wlen, Wb)
+    pw2 = _pow_at(0x9E3779B9, wlen, Wb)
     wh1 = (P1[bidx + piv] - mul32(P1[bidx + piv - wlen], pw1)) & 0xFFFFFFFF
     wh2 = (P2[bidx + piv] - mul32(P2[bidx + piv - wlen], pw2)) & 0xFFFFFFFF
 

@@ -17,7 +17,7 @@ the card (tests/test_torch_cuda.py, chip_smoke.py); here:
   lets the default engine's _run through, with every loop run as the
   card runs it (run_loop's CPU branch and the host twins), on the kept
   tensors and on the capture route, and its head and seed matrix equal
-  the JAX package's ``whole``; it stops an engine the table keeps eager;
+  the JAX package's ``whole``; it stops the engine the table keeps eager;
 - the registry of kept call graphs (cuda_lib.Kept through
   DeviceSeeder._call, with a stand-in graph): its key, eviction at
   HELD_CALLS, dropping on a cap raise's rebuild, each thread its own."""
@@ -403,16 +403,17 @@ def test_guard_lets_the_default_run_through(tiny_fm, whole, all_on_host,
 
 
 def test_guard_stops_an_eager_engine(tiny_fm, whole, monkeypatch):
-    """all_off, an engine the table keeps eager (its lockstep scan tests
-    on the host every few steps), is stopped by NoHostReads at its first
-    host read; the table names it and keeps it off the graph."""
-    for k, v in seeder2.ENGINES["all_off"][1].items():
+    """fwd_staged, the engine the table keeps eager (its staged forward
+    walk tests on the host), is stopped by NoHostReads at its first host
+    read; the table names it and keeps it off the graph."""
+    for k, v in seeder2.ENGINES["fwd_staged"][1].items():
         monkeypatch.setenv(k, v)
     sd = DeviceSeeder(MemOptions(), convert.fmindex_from_jax_package(
-        tiny_fm), CPU, dedup=seeder2.ENGINES["all_off"][0])
+        tiny_fm), CPU, dedup=seeder2.ENGINES["fwd_staged"][0])
     R, L, qd, rd = sd._upload(whole[0])
     fns = sd._build(R, L)
-    assert fns["engine"] == "all_off" and not seeder2.CALL_GRAPH["all_off"]
+    assert fns["engine"] == "fwd_staged" and \
+        not seeder2.CALL_GRAPH["fwd_staged"]
     with pytest.raises(RuntimeError, match="reads a tensor's value"):
         with cuda_lib.NoHostReads():
             sd._run(fns, qd, rd)
@@ -421,7 +422,7 @@ def test_guard_stops_an_eager_engine(tiny_fm, whole, monkeypatch):
 @pytest.mark.parametrize("name", sorted(seeder2.ENGINES))
 def test_engine_table_names_each_engine(tiny_fm, name, monkeypatch):
     """Each entry of ENGINES, selected by its knobs, is the engine _build
-    names, and only the default one takes the call graph (on a card);
+    names, and every one but fwd_staged takes the call graph (on a card);
     EagerCalls turns it off for its block and restores the table."""
     dedup, knobs = seeder2.ENGINES[name]
     for k, v in knobs.items():
@@ -430,10 +431,10 @@ def test_engine_table_names_each_engine(tiny_fm, name, monkeypatch):
         tiny_fm), CPU, dedup=dedup)
     fns = sd._build(256, 128)
     assert fns["engine"] == name
-    assert seeder2.CALL_GRAPH[name] == (name == "default")
+    assert seeder2.CALL_GRAPH[name] == (name != "fwd_staged")
     with seeder2.EagerCalls():
         assert not any(seeder2.CALL_GRAPH.values())
-    assert seeder2.CALL_GRAPH[name] == (name == "default")
+    assert seeder2.CALL_GRAPH[name] == (name != "fwd_staged")
 
 
 class StandIn:

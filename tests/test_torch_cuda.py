@@ -25,7 +25,12 @@ against the plain loop; the segment entry kernels and the suffix-array
 walk's stage entry kernel at every boundary of the first bench chunk
 against their plain versions, and sa_batch_compact by its kernels (its
 loop's test in the walk's last block) against its plain version, its
-last stage's loop over three rounds and more too.
+last stage's loop over three rounds and more too; the lockstep engines'
+kernels (csrc/lockstep.cu: the scan, a walk stage's segment and entry)
+on every scan and stage call of all_off's and bwd_win's first bench
+chunk against their plain versions, each engine that takes the call
+graph since against its eager _run, and sa_batch's loop graph against
+the host-tested loop.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -2050,3 +2055,148 @@ def test_smem_kernels_on_a_second_card_first(dev):
             got = smem_cases.run(call, "kernel")
         assert got.device == d1
         assert torch.equal(got, smem_cases.run(call, "plain"))
+
+
+# ---------------------------------------------------------------------------
+# The lockstep engines' loops (csrc/lockstep.cu) and sa_batch's loop.
+
+GRAPHED = ("fwd_off", "bwd_win", "bwd_whole", "bwd_off", "r2_off",
+           "all_off")
+
+
+def _lockstep_launches():
+    from compseed_tpu_torch.ops import lockstep_cuda
+    return dict(lockstep_cuda.LAUNCHES)
+
+
+def _engine_seeder(dev, bench, dtype, name):
+    """A seeder of engine ``name`` over the bench index and its programs
+    for a 16,384-read chunk (the knobs set while they are built)."""
+    import os
+
+    from compseed_tpu_torch.ops.seeder2 import ENGINES, DeviceSeeder
+    from compseed_tpu_torch.options import MemOptions
+    fm, reads = bench
+    dedup, knobs = ENGINES[name]
+    old = {k: os.environ.get(k) for k in knobs}
+    os.environ.update(knobs)
+    try:
+        sd = DeviceSeeder(MemOptions(), fm, dev,
+                          dfi=_bench_index(bench, dev, dtype), dedup=dedup)
+        fns = sd._build(*sd._upload(list(reads[:16384]))[:2])
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    assert fns["engine"] == name
+    return sd, fns
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_lockstep_kernels_equal_plain_on_first_bench_chunk(dev, bench,
+                                                           dtype):
+    """Every lockstep scan and walk-stage call of all_off's and bwd_win's
+    first bench chunk (ops/lockstep_cases.Capture, the calls eager) by
+    the kernels equals the plain version: lep, cnt, ovf; each stage's
+    lanes, t and live; all three kernels launched."""
+    from compseed_tpu_torch.ops import lockstep_cases, seeder2
+    fm, reads = bench
+    n0 = _lockstep_launches()
+    kinds = set()
+    for name in ("all_off", "bwd_win"):
+        sd, fns = _engine_seeder(dev, bench, dtype, name)
+        R, L, qd, rd = sd._upload(list(reads[:16384]))
+        with seeder2.EagerCalls(), lockstep_cases.Capture() as cap:
+            sd._run(fns, qd, rd)
+        assert cap.calls
+        for call in cap.calls:
+            assert lockstep_cases.vs_plain(call) == 0, (name, call.kind,
+                                                        call.lanes)
+            kinds.add((call.kind, getattr(call, "src", None) is not None))
+    assert kinds == {("scan", False), ("walk", False), ("walk", True)}
+    n1 = _lockstep_launches()
+    assert all(n1[k] > n0[k] for k in n1), (n0, n1)
+
+
+@pytest.mark.parametrize("name", GRAPHED)
+def test_graphed_engine_call_graph_equals_eager_on_card(dev, bench, name):
+    """Each engine that takes the call graph since its lockstep loops run
+    on the card: two 16,384-read bench chunks (the first captures the
+    graph, the second replays it) by the graph equal the eager _run,
+    head and seed matrix; no chunk-global overflow."""
+    import threading
+    fm, reads = bench
+    sd, fns = _engine_seeder(dev, bench, "int32", name)
+    assert sd._graphed(fns)
+    for c in range(2):
+        eager, graph = _eager_and_graph(sd, list(reads[c * 16384:
+                                                       (c + 1) * 16384]))
+        for e, g in zip(eager, graph):
+            assert torch.equal(e, g), (name, c)
+        assert not eager[0][3:14].any()
+    assert len(sd._calls.by_thread[threading.get_ident()]) == 1
+    sd._calls.drop_thread()
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_sa_batch_loop_on_card(dev, bench, dtype):
+    """sa_batch on the card by its loop graph (the stage entry runs the
+    first test, the walk's last block to retire each next one) equals the
+    host-tested loop, on 20,000 positions with the index's 64 longest
+    walks (3 rounds or more) and on sampled positions only (no round);
+    it reads nothing on the host (no _sa_loop_plain call), eagerly and
+    inside a CUDA graph capture."""
+    import numpy as np
+
+    from compseed_tpu_torch.ops import fm as tfm
+    dfi = _bench_index(bench, dev, dtype)
+    rows, steps = _sa_long_rows(bench, dev, dtype)
+    assert -(-int(steps.max()) // (2 * dfi.sa_intv)) >= 3
+    rng = np.random.default_rng(41)
+    k = torch.from_numpy(rng.integers(0, dfi.seq_len, 20000)).to(
+        dfi.dtype).to(dev)
+    k[:64] = rows
+    for lanes in (k, k - (k & (dfi.sa_intv - 1))):
+        plain = tfm._sa_loop_plain
+        kk, st, _ = plain(dfi, lanes, torch.zeros_like(lanes),
+                          (lanes & (dfi.sa_intv - 1)) != 0)
+        want = st + tfm._sa_sample(dfi, kk)
+        tfm._sa_loop_plain = None            # any call would fail
+        try:
+            got = tfm.sa_batch(dfi, lanes)
+            captured = _in_capture(dev, lambda: tfm.sa_batch(dfi, lanes))
+        finally:
+            tfm._sa_loop_plain = plain
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(captured, want)
+
+
+def test_lockstep_wrappers_check_inputs_on_card(dev, bench):
+    """The scan's launcher refuses CPU tensors, a capl below 1 and wrong
+    dtypes, and launches nothing for them; a stage of no lanes runs no
+    kernel."""
+    from compseed_tpu_torch.ops import lockstep_cuda
+    dfi = _bench_index(bench, dev, "int32")
+    R, L = 64, 32
+    q = torch.full((R, L), 4, dtype=torch.uint8, device=dev)
+    z = torch.zeros(R, dtype=torch.int32, device=dev)
+    act = torch.ones(R, dtype=torch.bool, device=dev)
+    n0 = _lockstep_launches()
+    with pytest.raises(ValueError):
+        lockstep_cuda.scan(dfi, L, 0, True, q, z, z, z + 1, act)
+    with pytest.raises(ValueError):
+        lockstep_cuda.scan(dfi, L, 4, True, q.cpu(), z, z, z + 1, act)
+    with pytest.raises(TypeError):
+        lockstep_cuda.scan(dfi, L, 4, True, q, z.to(torch.int64), z, z + 1,
+                           act)
+    assert _lockstep_launches() == n0
+    lep, cnt, ovf = lockstep_cuda.scan(dfi, L, 4, True, q, z + L, z, z + 1,
+                                       act)
+    # every base N: no pivot starts, so nothing is pushed
+    assert not lep.any() and not cnt.any() and not ovf.any()
+    lp = lockstep_cuda.WalkLoop(dfi, L, L + 2, q.reshape(-1), None, 0, 8)
+    lp.run(lp.empty_lanes(0), 0)
+    assert _lockstep_launches() == dict(
+        n0, scan_lanes_kernel=n0["scan_lanes_kernel"] + 1)

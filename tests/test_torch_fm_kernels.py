@@ -661,13 +661,16 @@ def test_plain_versions_only_for_cpu_tensors():
 
 
 def test_port_entry_points_dispatch_through_fm_cuda():
-    """extend_sel_batch, _walk (and so sa_batch and sa_batch_compact's
-    plain version), sa_batch_compact's kernel route (fm_cuda.SaLoop) and
-    _chain_walk go through ops/fm_cuda.py."""
+    """extend_sel_batch, _walk (and so sa_batch's and sa_batch_compact's
+    plain versions), the kernel routes of sa_batch's loop and of
+    sa_batch_compact (fm_cuda.SaLoop) and _chain_walk go through
+    ops/fm_cuda.py."""
     assert "fm_cuda.extend_sel_batch(" in inspect.getsource(
         tfm.extend_sel_batch)
     assert "fm_cuda.inv_psi_walk(" in inspect.getsource(tfm._walk)
-    assert "_walk(" in inspect.getsource(tfm.sa_batch)
+    assert "_sa_loop(" in inspect.getsource(tfm.sa_batch)
+    assert "_walk(" in inspect.getsource(tfm._sa_loop_plain)
+    assert "fm_cuda.SaLoop(" in inspect.getsource(tfm._sa_loop_kernels)
     assert "_walk(" in inspect.getsource(tfm._sa_batch_compact_plain)
     assert "fm_cuda.SaLoop(" in inspect.getsource(
         tfm._sa_batch_compact_kernels)
