@@ -106,9 +106,12 @@ Phases, in order; any failure exits non-zero:
                 without the word in turns.
                 The lockstep kernels (csrc/lockstep.cu: the scan, a walk
                 stage's segment and its entry) on every scan and stage
-                call of all_off's and bwd_win's first chunk, int32 and
-                int64, exact against their plain versions (a scan's lep,
-                cnt, ovf; a stage's lanes, t and live count).
+                call of all_off's and bwd_win's first chunk, and the
+                forward stage kernel on all 17 stages of fwd_staged's,
+                int32 and int64, exact against their plain versions (a
+                scan's lep, cnt, ovf; a stage's lanes, t and live count;
+                a forward stage's state, pf, and its records where j <
+                steps, zero past them).
                 Then each seeding call as one CUDA graph (DeviceSeeder.
                 _call: the default engine's whole call captured once a
                 thread and call shape, its loops joining the capture)
@@ -117,9 +120,9 @@ Phases, in order; any failure exits non-zero:
                 equal; the first chunk's capture and instantiation ms and
                 the bytes a kept shape holds on the card (its private
                 memory pool), also for the sharded path's shape; every
-                other engine that takes the graph (fwd_off, bwd_win,
-                bwd_whole, bwd_off, r2_off, all_off) the same on every
-                chunk with int32 positions and the first with int64.
+                other engine (fwd_staged, fwd_off, bwd_win, bwd_whole,
+                bwd_off, r2_off, all_off) the same on every chunk with
+                int32 positions and the first with int64.
   3. goldens  — tests/fixtures reads, each 2,000-read file as ONE chunk,
                 through align_stream with the port's seeder, DP engine
                 and native tail: the seeder's caps overflow, the chunk
@@ -166,20 +169,26 @@ Phases, in order; any failure exits non-zero:
                 the latency floor (the longest lane's dependent steps
                 times the chain walk's step latency on the bench table).
                 The lockstep kernels: every scan and stage call of
-                all_off's and bwd_win's first chunk (int32) timed in a
-                loop and alone, the stage's entry alone and a segment's
-                share, the plain version's ms, the bound (lockstep_cases.
-                work) and the latency floor; sa_batch by its loop graph
+                all_off's and bwd_win's first chunk and every forward
+                stage of fwd_staged's (int32) timed in a loop and alone,
+                the stage's entry alone and a segment's share, the plain
+                version's ms, the bound (lockstep_cases.work) and the
+                latency floor; cell A's stream through align_stream under
+                COMPSEED_FWD_MEMO=0 (fwd_staged by its call graph until
+                its caps' response switches it off), SAM byte-equal to
+                this phase's stream, the forward stage and the fused DP
+                kernel launched, the extension not; sa_batch by its loop graph
                 and by the host-tested loop in turns on the goldens'
                 rerun calls, with the graph's capture and instantiation
                 ms (the graph kept per lane count).  The int16 and the
                 tile-route window
                 time one stream each.  The FM kernels: launches per
                 chunk (the chain walk and the inverse-Psi walk must have
-                launched in the int32 window, the extension in
-                fwd_staged's first chunk, the path left that launches
-                it); the first call of each kind that the first chunk
-                (and fwd_staged) makes, through the kernel and its
+                launched in the int32 window; the extension, which no
+                path of the seeder launches, in fwd_staged's first chunk
+                with its staged walk's plain version patched in,
+                seedscan._fwd_route); the first call of each kind that
+                the first chunk (and that run) makes, through the kernel and its
                 plain version, exact, timed (in a loop, and replayed
                 from a CUDA graph), with its bound; the calls of each kind
                 in one run of the first chunk (the chain walk's by
@@ -297,11 +306,14 @@ Phases, in order; any failure exits non-zero:
                 hit and SAL merged shares, overflows and per-read
                 splices and the FM and lockstep kernels' launches
                 recorded; then one chunk on the engine's own route (the
-                call graph, captured by the run before, for every engine
-                but fwd_staged) under torch.profiler: host launches,
-                syncs and copies and the extension kernel's launches a
-                chunk, at most MAX_CHUNK_LAUNCHES launches and
-                MAX_CHUNK_SYNCS syncs for a graphed engine.  (c) Cell
+                call graph, captured by the run before) under
+                torch.profiler: host launches, syncs and copies and the
+                extension kernel's launches a chunk; every engine must
+                take the call graph and make at most MAX_CHUNK_LAUNCHES
+                launches, MAX_CHUNK_SYNCS syncs and no extension launch a
+                chunk (an engine whose chunk overflows its caps,
+                fwd_staged on the bench chunks, by its call alone:
+                engine_call, on a fresh seeder, no rerun).  (c) Cell
                 A'':
                 a seeder under COMPSEED_ADAPTIVE_CAPS=0 with the memo
                 round-3 pool forced to R (MEM3_F = 1) streams phase 4's
@@ -354,9 +366,8 @@ lookback.cuh sits beside FILE, on every round of the first chunk's two
 walk_pool_chain calls and their forms, and over one chunk's seeding by
 the profiler.  No option changes what the port itself runs.
 
-Phases 3 to 7 seed every chunk of every engine but fwd_staged by its
-call graph (the first chunk of a shape on a thread captures it),
-fwd_staged eagerly.
+Phases 3 to 7 seed every chunk of every engine by its call graph (the
+first chunk of a shape on a thread captures it).
 
 Prints the CLI phase's, the engine phase's and the mesh phase's numbers
 and the kernel table as one JSON line each, the card's nvidia-smi line,
@@ -509,7 +520,7 @@ SA_TURNS = 3                # sa_time's and sa_tail's turns (each both orders)
 # package each replaces (while_loops over XLA fusions, no Pallas)
 LOCKSTEP_SOURCE = "compseed_tpu_torch/csrc/lockstep.cu"
 LOCKSTEP_KERNELS = ("scan_lanes_kernel", "walk_stage_kernel",
-                    "walk_stage_entry_kernel")
+                    "walk_stage_entry_kernel", "fwd_stage_kernel")
 LOCKSTEP_REPLACES = {
     "scan_lanes_kernel": "compseed_tpu/ops/seedscan.py:62-146 _scan_one "
                          "(while_loop :143), vmapped by make_scan :148-160; "
@@ -520,11 +531,18 @@ LOCKSTEP_REPLACES = {
     "walk_stage_entry_kernel": "compseed_tpu/ops/seedscan.py:277-297 "
                                "compact_state (between walk_pool's stages, "
                                ":395) and walk_stage's cond before its "
-                               "first segment :266-270; XLA, no Pallas"}
-# the engines whose chunk runs as one CUDA graph since their lockstep
-# loops run on the card (seeder2.CALL_GRAPH), beside the default
-GRAPHED_ENGINES = ("fwd_off", "bwd_win", "bwd_whole", "bwd_off", "r2_off",
-                   "all_off")
+                               "first segment :266-270; XLA, no Pallas",
+    "fwd_stage_kernel": "compseed_tpu/ops/seedscan.py:854-1005 "
+                        "_fwd_stage_walk (while_loop :1005 over segments "
+                        "of 8 guarded steps :992-997, cond :1001-1003), "
+                        "once a stage by forward_scan_dedup :1020; XLA, "
+                        "no Pallas"}
+# the stages of fwd_staged's staged forward walk in one call of a chunk:
+# round 1's 7 (seedscan.fwd_stages_for), round 2's 3, round 3's 7
+FWD_STAGES = 17
+# fwd_staged's int64 call graph is held to its eager _run on the first
+# chunk's first reads (engine_graph_check says why not on all of them)
+FWD_INT64_READS = 4096
 # gates on one chunk of the main path's seeding (torch.profiler), each the
 # value measured on an H100 (PERF.md) plus a stated margin: the kernels the
 # card runs a chain_scan round and a walk_pool_chain round (the body
@@ -688,6 +706,27 @@ KERNEL_FAMILIES = dict(loop_entry=r"\b(?:chain|walk)_loop_entry_kernel",
                        sa_stage=r"\bsa_stage_entry_kernel",
                        index_put=r"index_elementwise_kernel|index_put",
                        scan=r"(?i)scan")
+
+
+def engine_call(sd, queries):
+    """The engine's part of one chunk, as DeviceSeeder.run_flat runs it
+    before it reads the head (the part ``prof["device_s"]`` times): the
+    upload, the programs, the call (the call graph's replay, or the eager
+    _run), the head's fetch and, unless the head flags an overflow, the
+    seed matrix's first seed_bucket columns.  Nothing responds to an
+    overflow (no rerun, no change of caps or engine), so a chunk that
+    overflows the engine's caps can be timed and profiled on the engine's
+    own route.  Returns the head and the seconds from the call to the
+    last fetch (what ``prof["device_s"]`` holds after run_flat)."""
+    from compseed_tpu_torch.ops.seeder2 import seed_bucket
+    R, L, qd, rd = sd._upload(queries)
+    fns = sd._build(R, L)
+    t0 = time.time()
+    head_d, seed_d = sd._call(fns, qd, rd)
+    head = head_d.cpu().numpy()
+    if not head[3:14].any():
+        seed_d[:, :seed_bucket(head[1], fns["sizes"][4])].cpu()
+    return head, time.time() - t0
 
 
 def profile_chunk(run, sync, records=()) -> dict:
@@ -1212,13 +1251,13 @@ def fm_main_path(dev, seeder, queries, l32):
 def fm_rows(fm_rec, row) -> list:
     """The FM kernels' rows of the kernel table.  launches: the int32
     window of the main path (chain walk, inverse-Psi walk) and
-    fwd_staged's first chunk (extension: since the exact rerun runs its
-    collect and round-3 calls as smem kernels and the lockstep scan and
-    walks are kernels of their own, only fwd_staged's staged forward walk
-    launches it; ``rerun_launches``, the forced overflow's rerun's, 0,
-    beside it); times and bounds: the first such call of the main path
-    (forward chain walk; the inverse-Psi walk's first stage) and of
-    fwd_staged (its extension); the walks' latency floor:
+    fwd_staged's first chunk with its staged walk's plain version patched
+    in (extension: no path of the seeder launches it, since the exact
+    rerun's calls, the lockstep scan and walks and fwd_staged's forward
+    stages are kernels of their own; ``rerun_launches``, the forced
+    overflow's rerun's, 0, beside it); times and bounds: the first such
+    call of the main path (forward chain walk; the inverse-Psi walk's
+    first stage) and of that run (its extension); the walks' latency floor:
     their steps times one dependent step's latency on the bench table
     (fm_latency); max_abs_err: over every comparison of the kernel (phase
     2, the captured calls and the 2^30-base table); the inverse-Psi
@@ -1262,7 +1301,9 @@ def fm_rows(fm_rec, row) -> list:
             fm_rec["ext_launches"], errs["fm_extend_sel_kernel"],
             flat["ms"], flat["plain_ms"], flat,
             **more("fm_extend_sel_kernel", flat,
-                   launches_path="fwd_staged, first chunk",
+                   launches_path="fwd_staged's first chunk, its staged "
+                                 "walk's plain version patched in "
+                                 "(seedscan._fwd_route)",
                    rerun_launches=fm_rec["rerun_launches"],
                    large_graph_ms=large["extend"]["graph_ms"])),
         row("fm_chain_walk_kernel",
@@ -1689,22 +1730,30 @@ def smem_rows(smem_rec, row) -> list:
 def lockstep_capture(dev, opt, fm, queries, force=None) -> list:
     """Every lockstep scan and walk-stage call (ops/lockstep_cases.Capture:
     each stage's loop of walk_stage and walk_pool) of one eager run of the
-    first chunk through all_off and bwd_win, with int32 (``force`` None)
+    first chunk through all_off and bwd_win, and every stage of
+    fwd_staged's staged forward walk (FWD_STAGES) through fwd_staged (its
+    run up to the merge, lockstep_cases.run_forward: the chunk overflows
+    fwd_staged's rep caps, and at int64 its merged suffix-array lookup
+    never ends, in the JAX package as here), with int32 (``force`` None)
     or int64 positions."""
     from compseed_tpu_torch.ops import lockstep_cases, seeder2
     from compseed_tpu_torch.ops.device_index import to_device
     from compseed_tpu_torch.ops.seeder2 import ENGINES, DeviceSeeder
     dfi = to_device(fm, dev, force_dtype=force)
     calls = []
-    for name in ("all_off", "bwd_win"):
+    for name in ("all_off", "bwd_win", "fwd_staged"):
         dedup, knobs = ENGINES[name]
         with engine_env(knobs):
             sd = DeviceSeeder(opt, fm, dev, dfi=dfi, dedup=dedup)
             R, L, qd, rd = sd._upload(queries)
             fns = sd._build(R, L)
         with seeder2.EagerCalls(), lockstep_cases.Capture() as cap:
-            sd._run(fns, qd, rd)
+            if name == "fwd_staged":
+                lockstep_cases.run_forward(sd, fns, qd, rd)
+            else:
+                sd._run(fns, qd, rd)
         calls += [(name, c) for c in cap.calls]
+        del sd
     return calls
 
 
@@ -1712,24 +1761,33 @@ def lockstep_check(cases: dict) -> dict:
     """Every captured call (``cases``: tag -> lockstep_capture's) by the
     kernels against the plain version on the card: a scan's lep, cnt and
     ovf; a stage's lanes, t and live (the entry, then the segments of its
-    loop); max abs err by kernel and tag (0: bit-equal), or exit 1."""
+    loop); a forward stage's state and records (lockstep_cases.fwd_vs: the
+    records where j < steps, the kernel's zero past them); max abs err by
+    kernel and tag (0: bit-equal), or exit 1; fwd_staged's stages must
+    number FWD_STAGES a tag."""
     from compseed_tpu_torch.ops import lockstep_cases
     errs, n = {}, {}
+    kernels_of = dict(scan=("scan_lanes_kernel",),
+                      walk=("walk_stage_kernel", "walk_stage_entry_kernel"),
+                      fwd=("fwd_stage_kernel",))
     for tag, calls in cases.items():
         for engine, call in calls:
             e = lockstep_cases.vs_plain(call)
-            kernels = ("scan_lanes_kernel",) if call.kind == "scan" else \
-                ("walk_stage_kernel", "walk_stage_entry_kernel")
-            for k in kernels:
+            for k in kernels_of[call.kind]:
                 errs[f"{k} {tag}"] = max(errs.get(f"{k} {tag}", 0), e)
             n[f"{engine} {call.kind} {tag}"] = \
                 n.get(f"{engine} {call.kind} {tag}", 0) + 1
     log(f"[2] the lockstep kernels against their plain versions on every "
-        f"captured call of all_off's and bwd_win's first chunk: calls "
-        f"{json.dumps(n)}, max_abs_err {json.dumps(errs)}")
+        f"captured call of all_off's, bwd_win's and fwd_staged's first "
+        f"chunk: calls {json.dumps(n)}, max_abs_err {json.dumps(errs)}")
     if any(errs.values()):
         raise SystemExit(f"a lockstep kernel disagrees with its plain "
                          f"version: {errs}")
+    for tag in cases:
+        if n.get(f"fwd_staged fwd {tag}") != FWD_STAGES:
+            raise SystemExit(f"fwd_staged's first chunk ({tag}) ran "
+                             f"{n.get(f'fwd_staged fwd {tag}')} forward "
+                             f"stages, expected {FWD_STAGES}")
     return dict(calls=n, max_abs_err=errs)
 
 
@@ -1770,9 +1828,10 @@ def segment_ms(lp, reps: int) -> float:
 
 
 def lockstep_time(calls, twin, step_ms: float, reps: int = 10) -> list:
-    """Each captured call (int32) on the card: a scan's launch in a loop
-    (CUDA events: the host's rate, its outputs' allocation with it) and
-    alone (launch_ms: a CUDA graph of ``reps`` calls, replayed); a stage's
+    """Each captured call (int32) on the card: a scan's or a forward
+    stage's launch in a loop (CUDA events: the host's rate, its outputs'
+    allocation and the records' zeroing with it) and alone (launch_ms: a
+    CUDA graph of ``reps`` calls, replayed); a stage's
     whole loop the same two ways (its entry, then its segments: in a loop
     each call captures, launches and frees its loop graph; alone the loop
     joins the replayed graph) and its entry kernel alone, the segment
@@ -1812,6 +1871,10 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10) -> list:
             r.update(segments=segs, fit=call.fit, t0=call.t0,
                      src=call.src is not None,
                      segment_ms=segment_ms(lp, reps) if segs else None)
+        if call.kind == "fwd":
+            r.update(B=call.B, mode=call.kw.get("mode", "lep"),
+                     advance=call.advance,
+                     live=int(call.state["alive"].sum()))
         out.append(r)
         log(f"[lockstep] {engine} {call.kind} {call.lanes} lanes: "
             f"{r['ms']:.4f} ms in a loop, {r['graph_ms']:.5f} ms alone "
@@ -1826,16 +1889,19 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10) -> list:
 
 def lockstep_rows(rec, row) -> list:
     """The lockstep kernels' rows of the kernel table: launches in all_off's
-    first chunk (phase 6, its first run); max_abs_err over every captured
-    call of all_off's and bwd_win's first chunk, int32 and int64; the scan
-    at its first call (round 1, 16,384 lanes), the segment kernel at the
-    widest stage that walks (its first segment alone, segment_ms; the
-    plain version's stage over its segments), the entry at the widest
-    stage with a source, each with its bound and floor, every call's
-    figures beside them."""
+    first chunk (phase 6, its first run; the forward stage's in
+    fwd_staged's, ``fwd_launches``); max_abs_err over every captured call
+    of all_off's, bwd_win's and fwd_staged's first chunk, int32 and int64;
+    the scan at its first call (round 1, 16,384 lanes), the segment kernel
+    at the widest stage that walks (its first segment alone, segment_ms;
+    the plain version's stage over its segments), the entry at the widest
+    stage with a source, the forward stage at its first call (round 1's
+    first stage, 16,384 lanes, B = 8), each with its bound and floor,
+    every call's figures beside them (the forward stages' summed too)."""
     t = rec["time"]
     scans = [r for r in t if r["kind"] == "scan"]
     walks = [r for r in t if r["kind"] == "walk"]
+    fwds = [r for r in t if r["kind"] == "fwd"]
     seg = max((r for r in walks if r["segments"]), key=lambda r: r["lanes"])
     entry = max((r for r in walks if r["src"]), key=lambda r: r["lanes"])
 
@@ -1873,7 +1939,76 @@ def lockstep_rows(rec, row) -> list:
             lockstep_entry_bound(entry),
             source=LOCKSTEP_SOURCE,
             at=f"{entry['lanes']} lanes from a wider stage "
-               f"({entry['engine']})")]
+               f"({entry['engine']})"),
+        row("fwd_stage_kernel", LOCKSTEP_REPLACES["fwd_stage_kernel"],
+            rec["fwd_launches"], err("fwd_stage_kernel"), fwds[0]["ms"],
+            fwds[0]["plain_ms"], fwds[0], source=LOCKSTEP_SOURCE,
+            at=f"{fwds[0]['lanes']} lanes, B = {fwds[0]['B']} (round 1's "
+               f"first stage); the chunk's {len(fwds)} stages in calls",
+            graph_ms=fwds[0]["graph_ms"],
+            latency_floor_ms=fwds[0]["floor_ms"],
+            chunk=dict(graph_ms=sum(r["graph_ms"] for r in fwds),
+                       plain_ms=sum(r["plain_ms"] for r in fwds),
+                       bound_ms=sum(r["bound_ms"] for r in fwds),
+                       floor_ms=sum(r["floor_ms"] for r in fwds)),
+            calls=calls(fwds, keys + ("B", "mode", "live")))]
+
+
+def fwd_stream(opt, fm, dfi, dev, engine, tail, chunks, main_sams) -> dict:
+    """Cell A's stream (``chunks``, phase 4's) through align_stream on a
+    seeder built under COMPSEED_FWD_MEMO=0 (fwd_staged, its chunks by the
+    call graph), the DP engine and tail of phase 4: SAM byte-equal to
+    phase 4's stream; fwd_stage_kernel and bsw_meta_dual_kernel launched,
+    fm_extend_sel_kernel not (counts set to 0 just before).  The bench
+    chunks overflow fwd_staged's rep caps, as the JAX package's heads
+    show: each such chunk is rerun exactly and the caps respond as the
+    seeder's adaptive response says (a raise, then the forward dedup
+    switched off), which the record gives per chunk."""
+    import torch
+    from compseed_tpu_torch.ops.engine import device_seeder
+    from compseed_tpu_torch.pipeline.align import align_stream
+    from compseed_tpu_torch.pipeline.seeding import SeedingStats
+    with engine_env({"COMPSEED_FWD_MEMO": "0"}):
+        sd = device_seeder(opt, fm, dedup=True, dfi=dfi, device=dev)
+    seen = watch_overflow(sd)
+    engines, call = [], sd._call
+
+    def watched_call(fns, qd, rd):
+        engines.append((fns["engine"], sd._graphed(fns)))
+        return call(fns, qd, rd)
+
+    sd._call = watched_call
+    done = []
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    align_stream(opt, fm, iter(chunks), engine, sd, tail,
+                 on_done=done.extend, stats=SeedingStats())
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    n = launch_counts()
+    rec = dict(reads=len(done), wall_s=wall,
+               chunks=[dict(engine=e[0], call_graph=e[1], overflow=s[0],
+                            gp_f=s[1], rerun_s=s[2], device_s=s[3],
+                            fwd_disabled=s[4])
+                       for e, s in zip(engines, seen)],
+               launches={k: n[k] for k in ("fwd_stage_kernel",
+                                           "bsw_meta_dual_kernel",
+                                           "fm_extend_sel_kernel")},
+               sam_equals_stream=[r.sam for r in done] == main_sams)
+    log(f"[4] cell A's stream under COMPSEED_FWD_MEMO=0: "
+        f"{json.dumps(rec)}")
+    if not rec["sam_equals_stream"]:
+        raise SystemExit("COMPSEED_FWD_MEMO=0: SAM differs from phase 4's "
+                         "stream")
+    if n["fwd_stage_kernel"] <= 0 or n["bsw_meta_dual_kernel"] <= 0 or \
+            n["fm_extend_sel_kernel"] or engines[0] != ("fwd_staged", True):
+        raise SystemExit(f"COMPSEED_FWD_MEMO=0: the forward stage or the "
+                         f"fused DP kernel was not launched, or the "
+                         f"extension kernel was, or the first chunk did "
+                         f"not run fwd_staged by its call graph: "
+                         f"{rec['launches']}, {engines}")
+    return rec
 
 
 def lockstep_entry_bound(r) -> dict:
@@ -2463,10 +2598,15 @@ def call_graph_check(dev, opt, fm, reads_arr) -> dict:
 
 
 def engine_graph_check(dev, opt, fm, chunks) -> dict:
-    """Each engine of GRAPHED_ENGINES by its call graph against its eager
-    _run: every chunk of cell A with int32 positions and the first with
-    int64, head and seed matrix equal; the first chunk's capture and
-    instantiation ms and kernels captured."""
+    """Each engine of seeder2.ENGINES but the default (call_graph_check
+    holds that one) by its call graph against its eager _run: every chunk
+    of cell A with int32 positions and the first with int64, head and
+    seed matrix equal; the first chunk's capture and
+    instantiation ms and kernels captured.  fwd_staged's int64 run takes
+    the first chunk's first FWD_INT64_READS reads: on the whole chunk its
+    overflowed rep caps leave garbage seeds whose suffix-array walks
+    never end at int64 (the JAX package's sa_batch_compact loops on the
+    same positions), so neither route can finish it."""
     import threading
 
     import numpy as np
@@ -2474,10 +2614,13 @@ def engine_graph_check(dev, opt, fm, chunks) -> dict:
     from compseed_tpu_torch.ops.device_index import to_device
     from compseed_tpu_torch.ops.seeder2 import ENGINES, DeviceSeeder
     out = {}
-    for name in GRAPHED_ENGINES:
-        dedup, knobs = ENGINES[name]
+    for name, (dedup, knobs) in ENGINES.items():
+        if name == "default":
+            continue
+        first = chunks[:1] if name != "fwd_staged" else \
+            [chunks[0][:FWD_INT64_READS]]
         for tag, force, chs in (("int32", None, chunks),
-                                ("int64", np.int64, chunks[:1])):
+                                ("int64", np.int64, first)):
             with engine_env(knobs):
                 sd = DeviceSeeder(opt, fm, dev, dedup=dedup,
                                   dfi=to_device(fm, dev, force_dtype=force))
@@ -4618,22 +4761,41 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
                     rerun_s.append(sd.prof["rerun_s"])
             # one chunk on the route a stream takes (the call graph's,
             # captured by the run before), under the profiler: host
-            # launches and syncs a chunk, gated for the graphed engines
+            # launches and syncs a chunk, gated
             R, L = sd._upload(queries)[:2]
             graphed = sd._graphed(sd._build(R, L))
             reset_launches()
             prof_rec = profile_chunk(lambda: sd.run_flat(queries),
                                      torch.cuda.synchronize)
             ext = launch_counts()["fm_extend_sel_kernel"] / 2
-        if graphed != (name != "fwd_staged"):
-            raise SystemExit(f"engine {name}: the call graph route is "
-                             f"{graphed}")
-        if graphed and not overflows[-1] and (
-                prof_rec["cudaStreamSynchronize"] > MAX_CHUNK_SYNCS or
-                prof_rec["launches"] > MAX_CHUNK_LAUNCHES):
+            call_rec = None
+            if overflows[-1]:
+                # a chunk that overflows the engine's caps is rerun and
+                # the caps or the engine change: the engine's own chunk is
+                # its call alone (engine_call), on a fresh seeder whose
+                # first call captured its graph
+                sc = seeder_for(dedup)
+                engine_call(sc, queries)
+                reset_launches()
+                call_rec = profile_chunk(lambda: engine_call(sc, queries),
+                                         torch.cuda.synchronize)
+                call_rec["extend_launches"] = \
+                    launch_counts()["fm_extend_sel_kernel"] / 2
+                call_rec["graphed"] = sc._graphed(sc._build(R, L))
+                sc._calls.drop_thread()
+                del sc
+        gated = call_rec or dict(prof_rec, extend_launches=ext,
+                                 graphed=graphed)
+        if not graphed or not gated["graphed"]:
+            raise SystemExit(f"engine {name}: not on the call graph route")
+        if gated["cudaStreamSynchronize"] > MAX_CHUNK_SYNCS or \
+                gated["launches"] > MAX_CHUNK_LAUNCHES or \
+                gated["extend_launches"]:
             raise SystemExit(f"engine {name}: a chunk by the call graph "
-                             f"made {prof_rec['cudaStreamSynchronize']} "
-                             f"syncs and {prof_rec['launches']} launches")
+                             f"made {gated['cudaStreamSynchronize']} "
+                             f"syncs and {gated['launches']} launches, "
+                             f"{gated['extend_launches']} extension "
+                             f"launches")
         if want is None:
             want = got
         if any(not np.array_equal(g, w) for g, w in zip(got, want)):
@@ -4643,6 +4805,10 @@ def phase_engines(dev, smi, opt, fm, fm_t, reads_arr, dfi, engine, tail,
         split = {k: prof_rec[k] for k in (
             "launches", "cudaStreamSynchronize", "cudaMemcpyAsync",
             "ran_kernels", "device_busy_s", "wall_s")}
+        if call_rec:
+            split["engine_call"] = {k: call_rec[k] for k in (
+                "launches", "cudaStreamSynchronize", "cudaMemcpyAsync",
+                "ran_kernels", "device_busy_s", "wall_s", "kernels")}
         full[name] = dict(device_s=statistics.median(runs), runs=runs,
                           first_run_s=first_s, bwt_hit_pct=hit,
                           sal_merged_pct=merged, scalars=rec["scalars"],
@@ -5353,8 +5519,8 @@ def main() -> None:
     sa_rec["time"] = sa_time(sa_cases_["int32"][:4])
     sa_rec["tail"] = sa_tail(sa_cases_["int32"][2])
     del sa_cases_
-    # the lockstep kernels on every captured call of all_off's and
-    # bwd_win's first chunk, int32 and int64
+    # the lockstep kernels on every captured call of all_off's, bwd_win's
+    # and fwd_staged's first chunk, int32 and int64
     t0 = time.time()
     ls_cases = {tag: lockstep_capture(dev, opt, fm, list(reads_arr[:CHUNK]),
                                       force)
@@ -5730,20 +5896,31 @@ def main() -> None:
                          f"each, or launched the extension kernel: calls "
                          f"{forced_cap.counts}, launches {lf}")
     fm_rec["rerun_launches"] = lf["fm_extend_sel_kernel"]
-    # the extension kernel's own calls: the rerun runs its collect and
-    # round-3 calls as one kernel each and the lockstep scan and walks
-    # are kernels of their own, so they come from fwd_staged's staged
-    # forward walk, the one path left that launches it
+    # the extension kernel's own calls: no path of the seeder launches it
+    # (the rerun's collect and round-3 calls are one kernel each, the
+    # lockstep scan and walks and fwd_staged's forward stages kernels of
+    # their own), so they come from fwd_staged's plain staged forward
+    # walk on the card, reached by patching its private route, which
+    # extends each step by it
+    fwd_route = main_ss._fwd_route
     with engine_env({"COMPSEED_FWD_MEMO": "0"}):
         staged = DeviceSeeder(opt, fm, dev, dfi=seeder.dfi, dedup=True)
         reset_counts()
-        with FmCapture() as ext_cap:
-            staged.run_flat(list(reads_arr[:CH]))
+        main_ss._fwd_route = lambda dev_: main_ss._fwd_stage_walk_plain
+        try:
+            with FmCapture() as ext_cap:
+                staged.run_flat(list(reads_arr[:CH]))
+        finally:
+            main_ss._fwd_route = fwd_route
     torch.cuda.synchronize()
     fm_rec["ext_launches"] = launch_counts()["fm_extend_sel_kernel"]
+    if launch_counts()["fwd_stage_kernel"]:
+        raise SystemExit("the plain staged walk's run launched the forward "
+                         "stage kernel")
     del staged
     if fm_rec["ext_launches"] <= 0:
-        raise SystemExit("fwd_staged launched no extension kernel")
+        raise SystemExit("fwd_staged's plain staged walk launched no "
+                         "extension kernel")
     fm_rec["extend_sel"] = {}
     ext_calls = {}
     for key, call in ext_cap.calls.items():
@@ -5752,7 +5929,7 @@ def main() -> None:
         r = fm_measure(key, call)
         fm_rec["extend_sel"][f"rank{key[1]}"] = r
         ext_calls[f"rank{key[1]}"] = (key, call)
-        log(f"[4] fwd_staged's extension {r['shape']}: "
+        log(f"[4] fwd_staged's plain walk's extension {r['shape']}: "
             f"fm_extend_sel_kernel "
             f"max_abs_err {r['max_abs_err']}, {r['ms']:.4f} ms in a loop, "
             f"{r['graph_ms']:.5f} ms replayed from a graph (plain "
@@ -5764,7 +5941,7 @@ def main() -> None:
     fm_rec["extend_turns"] = fm_turns(fm_builds, ext_calls)
     free_builds(fm_builds)
     del ext_calls
-    log(f"[4] fwd_staged's extensions by build in turns: "
+    log(f"[4] fwd_staged's plain walk's extensions by build in turns: "
         f"{json.dumps(fm_rec['extend_turns'])}")
     log(f"[4] forced overflow (GP_F={FORCED_GP_F}): per chunk (overflow, "
         f"GP_F after, rerun s) = {seen}; both chunks {forced_s:.1f} s; "
@@ -5805,9 +5982,10 @@ def main() -> None:
     del forced_cap
     smem_rec["phase_s"] = time.time() - t0
     log(f"[smem] the exact rerun's kernels: {smem_rec['phase_s']:.1f} s")
-    # the lockstep kernels: each captured call of all_off's and bwd_win's
-    # first chunk timed beside its bound and floor; sa_batch's loop graph
-    # against the host-tested loop on the goldens' rerun calls
+    # the lockstep kernels: each captured call of all_off's, bwd_win's and
+    # fwd_staged's first chunk timed beside its bound and floor; cell A's
+    # stream under COMPSEED_FWD_MEMO=0; sa_batch's loop graph against the
+    # host-tested loop on the goldens' rerun calls
     t0 = time.time()
     ls_rec["time"] = lockstep_time(
         ls_calls, ls_twin,
@@ -5817,6 +5995,8 @@ def main() -> None:
     del sa_keys
     ls_rec["phase_s"] = time.time() - t0
     log(f"[lockstep] timed: {ls_rec['phase_s']:.1f} s")
+    ls_rec["fwd_stream"] = fwd_stream(opt, fm, seeder.dfi, dev, engine32,
+                                      tail32, mk_chunks(), sams32)
 
     # the main path's own pair tables through every kernel and every
     # plain version
@@ -5963,7 +6143,9 @@ def main() -> None:
         + sa_rows(sa_rec, l32, row, fm_rec["profile"]["kernels"])
         + smem_rows(smem_rec, row)
         + lockstep_rows(dict(ls_rec, launches=eng_rec["full_width"][
-            "all_off"]["lockstep_launches"]), row)}))
+            "all_off"]["lockstep_launches"], fwd_launches=eng_rec[
+            "full_width"]["fwd_staged"]["lockstep_launches"][
+            "fwd_stage_kernel"]), row)}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 // The lockstep engines' loops on Hopper: the forward LEP scan and the
-// staged backward walk of ops/seedscan.py.
+// staged backward walk of ops/seedscan.py, and fwd_staged's staged forward
+// walk.
 //
-// In the JAX package both are device loops: the scan a per-read
-// lax.while_loop that make_scan vmaps, the walk a lax.while_loop over
+// In the JAX package all three are device loops: the scan a per-read
+// lax.while_loop that make_scan vmaps, each walk a lax.while_loop over
 // every lane at once; XLA fuses each body, there is no Pallas source.  The
 // port first ran each as batched eager PyTorch steps, one extension launch
 // a step and a host test every few steps; here the scan is one launch a
-// call and the walk one CUDA graph loop a stage.
+// call, the backward walk one CUDA graph loop a stage and the forward walk
+// one launch a stage.
 //
 // scan_lanes_kernel<T>
 //   Replaces compseed_tpu/ops/seedscan.py:62-146 _scan_one (a
@@ -52,23 +54,52 @@
 //   lanes.  Plain version: ops/seedscan.py::compact_state and the test of
 //   _walk_stage_plain.
 //
+// fwd_stage_kernel<T>
+//   Replaces compseed_tpu/ops/seedscan.py:854-1005 _fwd_stage_walk (a
+//   lax.while_loop at :1005 over segments of 8 guarded steps, :992-997,
+//   with the cond any(alive & pos < pos_end) at :1001-1003): one stage of
+//   the staged forward walk of fwd_staged (forward_scan_dedup, :1020),
+//   the LEP sweep ("lep") or round 3's greedy segment ("r3"), with the
+//   in-window respawn, the jump through nxtflat and the park for the
+//   boundary respawn (advance).  Plain version: ops/seedscan.py::
+//   _fwd_stage_walk_plain.  One launch a stage and no loop test: a lane
+//   that is not active (dead, or its position past its window) never
+//   becomes active again within the stage (a respawn needs a stop, a stop
+//   an active lane), so each lane runs its steps j < B while it is active,
+//   and the all-lanes test every 8 steps changes no lane's state and no
+//   record that pf marks.  A pair of threads a lane (PairRanks): the
+//   forward child of base 3 - q[pos] at the l coordinate (extend_sel,
+//   is_back = false); "r3" extends at an ambiguous base too (by child 0),
+//   since its record is the extension's output, pushed or not.
+//   Deliberate difference: the records pf, pk, pl, ps, pe, pp (U, B) are
+//   written for the lane's steps j < steps[u] only, as the JAX body
+//   writes them, pushed or not; the columns past steps[u] stay as the
+//   caller zeroed them, where the plain version (and JAX) write the
+//   lane's frozen values with pf false.  forward_scan_dedup reads no
+//   record whose pf is false (each goes to the dropped slot GP).
+//
 // T is the index type (int32_t or int64_t); arithmetic on intervals wraps
 // in T as the plain version's tensors do, and the occ rows are read as
 // fm_walk.cu reads them (fm_rank.cuh: fill_oob's all-ones row for a block
-// outside the table where the seeder sets it, else a trap).
+// outside the table where the seeder sets it, else a trap; fwd_staged
+// sets it, so a representative past a rep-cap overflow, whose interval is
+// garbage, reads that row).
 //
 // What bounds them: each lane is a chain of dependent extensions, each two
 // random occ rows, one a thread of the pair; the bytes a call needs (the
 // distinct rows and the lanes' words, ops/lockstep_cases.py counts them)
 // are a few MB, so the bound by HBM bytes is microseconds and the latency
 // of the longest lane's dependent steps decides: a round-1 scan lane takes
-// some 100-300 extensions, a walk segment at most 8.
+// some 100-300 extensions, a walk segment at most 8, a forward stage at
+// most B (8 to L + 2).  The forward stage's records are (U, B) rows, one
+// a lane, so its stores are strided: a first design.
 //
 // The launchers allocate nothing, launch on the given stream of the
 // calling thread's current device (ops/lockstep_cuda.py makes the tensors'
 // device current) and return the CUDA error code.  Compiled as C++ without
 // nvcc, the same lane routines run in host loops (scan_lanes_host,
-// walk_stage_host, walk_stage_entry_host), for the CPU tests.
+// walk_stage_host, walk_stage_entry_host, fwd_stage_host), for the CPU
+// tests.
 
 #include <cstdint>
 #include <cstring>
@@ -349,9 +380,208 @@ FM_HD bool walk_after(const WalkArgs& a, int32_t t, int n, int32_t live) {
   return loop_go(a, t + n, live);
 }
 
+// ---------------------------------------------------------------------------
+// The staged forward walk: a stage's words, one 64-bit word a field
+// (ops/lockstep_cuda.py FWD_ARGS names them in order).
+struct FwdArgs {
+  // 1 for an int64_t index type
+  long long idx64;
+  // the index, as WalkArgs'
+  long long rows, n_rows, L2, primary, fill_oob;
+  // the stage's representatives, U of each: k, l, s, mh (index type);
+  // pos, pivot, rid (int32); alive (bool)
+  long long k, l, s, mh, pos, pivot, rid, alive, U;
+  // the bases: qflat (uint8 codes) and nxtflat (int32: the next
+  // non-ambiguous position), n_q of each; the read length L; the stage's
+  // steps B
+  long long qflat, nxtflat, n_q, L, B;
+  // 1: round 3's greedy segment, 0: the LEP sweep; 1: respawn in the
+  // window (advance); round 3's min_len and max_intv
+  long long r3, advance, min_len, max_intv;
+  // the state after the stage, U of each: k, l, s (index type); pos,
+  // pivot, wait_npv, steps (int32); alive, waiting (bool)
+  long long out_k, out_l, out_s, out_pos, out_pivot, out_wait_npv, out_steps,
+      out_alive, out_waiting;
+  // the records, (U, B) each, zeroed by the caller: pf (bool); pk, pl, ps
+  // (index type); pe, pp (int32)
+  long long pf, pk, pl, ps, pe, pp;
+};
+
+// Whether the words name what the stage kernel reads and writes: the
+// launcher refuses any others.
+inline bool fwd_words_ok(const FwdArgs& a) {
+  if (a.U < 1 || a.U >= INT32_MAX || a.B < 1 || a.B > INT32_MAX / 2 ||
+      a.L < 1 || a.L > INT32_MAX / 2 || a.n_q < 1 || !a.rows || !a.L2)
+    return false;
+  const long long need[] = {
+      a.k, a.l, a.s, a.mh, a.pos, a.pivot, a.rid, a.alive, a.qflat,
+      a.nxtflat, a.out_k, a.out_l, a.out_s, a.out_pos, a.out_pivot,
+      a.out_wait_npv, a.out_steps, a.out_alive, a.out_waiting, a.pf, a.pk,
+      a.pl, a.ps, a.pe, a.pp};
+  for (long long p : need)
+    if (!p) return false;
+  return true;
+}
+
+// One representative of a forward stage as its words stand.
+template <typename T>
+struct FwdLane {
+  T k, l, s, mh;
+  int32_t pos, pivot, rid, wait_npv, steps;
+  bool alive, waiting;
+};
+
+// One step's record: the JAX body's writes at column j (:937-943).
+template <typename T>
+struct FwdRecord {
+  bool push;
+  T k, l, s;
+  int32_t e, p;
+};
+
+// x[clip(rid * L + p, 0, n_q - 1)] of a flat (R, L) array.
+FM_HD long long flat_at(const FwdArgs& a, int32_t rid, int32_t p) {
+  const long long j = (long long)rid * a.L + p;
+  return j < 0 ? 0 : j > a.n_q - 1 ? a.n_q - 1 : j;
+}
+
+// The base at p of read rid: 4 from L on.
+FM_HD int fwd_base(const FwdArgs& a, int32_t rid, int32_t p) {
+  return p < a.L ? ((const uint8_t*)a.qflat)[flat_at(a, rid, p)] : 4;
+}
+
+// A representative's stage (JAX seedscan.py:886-988, one step an
+// iteration while the lane is active, at most B): rec(j, record) stores
+// step j's record.  A lane that is not active reads nothing.
+FM_FUNCTOR_CALLER
+template <typename T, typename Ranks, typename Rec>
+FM_HD void fwd_lane(const FmPacked<T>& fm, const FwdArgs& a, FwdLane<T>& x,
+                    const Ranks& ranks, const Rec& rec) {
+  const int32_t L = (int32_t)a.L, B = (int32_t)a.B;
+  const int32_t pos_end = x.pos + B;            // the window's limit
+  const bool r3 = a.r3 != 0;
+  for (int32_t j = 0; j < B && x.alive && x.pos < pos_end; ++j) {
+    const int32_t pos = x.pos;
+    const int base = fwd_base(a, x.rid, pos);
+    const bool amb = base > 3;
+    T okc[3] = {0, 0, 0};
+    if (r3 || !amb) {
+      const T ik[3] = {x.k, x.l, x.s};
+      extend_sel(fm, ik, 3 - (amb ? 3 : base), false, okc, ranks);
+    }
+    FwdRecord<T> r;
+    bool stop;
+    if (r3) {
+      // emit the post-extension interval when it first drops below
+      // max_intv at length >= min_len (bwt_seed_strategy1)
+      const bool hit = !amb && okc[2] < (T)a.max_intv &&
+                       (long long)(pos - x.pivot) >= a.min_len;
+      stop = hit || amb;
+      r = FwdRecord<T>{hit, okc[0], okc[1], okc[2], pos + 1, x.pivot};
+    } else {
+      const bool changed = !amb && okc[2] != x.s;
+      stop = amb || (changed && okc[2] < x.mh);
+      r = FwdRecord<T>{amb || changed, x.k, x.l, x.s, pos, x.pivot};
+    }
+    rec(j, r);
+    ++x.steps;
+    if (!stop) {
+      x.k = okc[0];
+      x.l = okc[1];
+      x.s = okc[2];
+      x.pos = pos + 1;
+      continue;
+    }
+    x.alive = false;
+    if (!a.advance) continue;
+    // the in-window respawn: a non-ambiguous stop re-consumes pos as the
+    // new pivot; an ambiguous one (any stop in round 3) jumps to the next
+    // non-ambiguous position inside the window, else parks
+    const bool here = !r3 && !amb;
+    const int32_t npv = pos + 1;
+    const int32_t nx =
+        npv < L ? ((const int32_t*)a.nxtflat)[flat_at(a, x.rid, npv)] : L;
+    const bool in_win = nx < pos_end && nx < L;
+    const bool jumper = r3 || amb;
+    const int32_t newpiv = here ? pos : nx;
+    const int base_n = fwd_base(a, x.rid, newpiv);
+    if ((here || (jumper && in_win)) && base_n < 4) {
+      T ik[3];
+      set_intv(fm, base_n, ik);
+      x.pivot = newpiv;
+      x.k = ik[0];
+      x.l = ik[1];
+      x.s = ik[2];
+      x.pos = newpiv + 1;
+      x.alive = true;
+    }
+    if (jumper && !in_win) {
+      x.waiting = true;
+      x.wait_npv = npv;
+    }
+  }
+}
+
+template <typename T>
+FM_HD FwdLane<T> fwd_load(const FwdArgs& a, long long u) {
+  FwdLane<T> x;
+  x.k = ((const T*)a.k)[u];
+  x.l = ((const T*)a.l)[u];
+  x.s = ((const T*)a.s)[u];
+  x.mh = ((const T*)a.mh)[u];
+  x.pos = ((const int32_t*)a.pos)[u];
+  x.pivot = ((const int32_t*)a.pivot)[u];
+  x.rid = ((const int32_t*)a.rid)[u];
+  x.alive = ((const bool*)a.alive)[u];
+  x.wait_npv = 0;
+  x.steps = 0;
+  x.waiting = false;
+  return x;
+}
+
+// The state after the stage; part 0 of 2 the first thread of a pair's
+// words (k, s, pos, steps, alive), part 1 the other's (l, pivot,
+// wait_npv, waiting), part -1 all of them.
+template <typename T>
+FM_HD void fwd_store(const FwdArgs& a, long long u, const FwdLane<T>& x,
+                     int part) {
+  if (part != 1) {
+    ((T*)a.out_k)[u] = x.k;
+    ((T*)a.out_s)[u] = x.s;
+    ((int32_t*)a.out_pos)[u] = x.pos;
+    ((int32_t*)a.out_steps)[u] = x.steps;
+    ((bool*)a.out_alive)[u] = x.alive;
+  }
+  if (part != 0) {
+    ((T*)a.out_l)[u] = x.l;
+    ((int32_t*)a.out_pivot)[u] = x.pivot;
+    ((int32_t*)a.out_wait_npv)[u] = x.wait_npv;
+    ((bool*)a.out_waiting)[u] = x.waiting;
+  }
+}
+
+// Step j's record of lane u, at u * B + j; part as fwd_store's (0: pk,
+// ps, pe; 1: pl, pp, pf).
+template <typename T>
+FM_HD void fwd_record(const FwdArgs& a, long long u, int j,
+                      const FwdRecord<T>& r, int part) {
+  const long long at = u * a.B + j;
+  if (part != 1) {
+    ((T*)a.pk)[at] = r.k;
+    ((T*)a.ps)[at] = r.s;
+    ((int32_t*)a.pe)[at] = r.e;
+  }
+  if (part != 0) {
+    ((T*)a.pl)[at] = r.l;
+    ((int32_t*)a.pp)[at] = r.p;
+    ((bool*)a.pf)[at] = r.push;
+  }
+}
+
 #ifdef __CUDACC__
 constexpr int kScanBlock = 64;     // threads a block, 2 a lane
 constexpr int kWalkBlock = 64;     // threads a block, 2 a lane
+constexpr int kFwdBlock = 64;      // threads a block, 2 a lane
 
 template <typename T>
 __global__ void __launch_bounds__(kScanBlock) scan_lanes_kernel(
@@ -426,6 +656,32 @@ template <typename T>
 __global__ void __launch_bounds__(kEntryBlock) walk_stage_entry_kernel(
     const WalkArgs a) {
   segment_entry<kLive, kTicket, kEpoch>(a, stage_lanes<T>(a));
+}
+
+// A forward stage: each representative's steps to its end, a pair of
+// threads a lane, which run the same program and split the stores.
+template <typename T>
+__global__ void __launch_bounds__(kFwdBlock) fwd_stage_kernel(
+    const FwdArgs a) {
+  const long long u = ((long long)blockIdx.x * kFwdBlock + threadIdx.x) / 2;
+  if (u >= a.U) return;                 // a whole pair
+  const FmPacked<T> fm = make_fm((const uint32_t*)a.rows, a.n_rows,
+                                 (const T*)a.L2, a.primary, (int)a.fill_oob);
+  const PairRanks<T> ranks{fm, Pair()};
+  const int t = ranks.p.t;
+  FwdLane<T> x = fwd_load<T>(a, u);
+  fwd_lane(fm, a, x, ranks, [&](int j, const FwdRecord<T>& r) {
+    fwd_record(a, u, j, r, t);
+  });
+  fwd_store(a, u, x, t);
+}
+
+template <typename T>
+int launch_fwd(const FwdArgs& a, cudaStream_t st) {
+  fwd_stage_kernel<T>
+      <<<(unsigned)((2 * a.U + kFwdBlock - 1) / kFwdBlock), kFwdBlock, 0,
+         st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -551,6 +807,23 @@ int host_walk(const WalkArgs& a, Trace* tr) {
   if (e == 0 && a.loop) walk_after(a, t0, n, live);
   return e;
 }
+
+// A forward stage lane after lane.
+template <typename T>
+int host_fwd(const FwdArgs& a, Trace* tr) {
+  const FmPacked<T> fm = make_fm((const uint32_t*)a.rows, a.n_rows,
+                                 (const T*)a.L2, a.primary, (int)a.fill_oob);
+  const HostRanks<T> ranks{ThreadRanks<T>{fm}, tr};
+  return host_lanes(a.U, [&](long long u) {
+    const long long n0 = tr ? tr->n : 0;
+    FwdLane<T> x = fwd_load<T>(a, u);
+    fwd_lane(fm, a, x, ranks, [&](int j, const FwdRecord<T>& r) {
+      fwd_record(a, u, j, r, -1);
+    });
+    fwd_store(a, u, x, -1);
+    if (tr) tr->steps[u] = (int)((tr->n - n0) / 2);
+  });
+}
 #endif
 
 }  // namespace
@@ -562,7 +835,8 @@ int host_walk(const WalkArgs& a, Trace* tr) {
 // int32, min_hits (R,) int32 or (hits64 = 1) int64, active a byte a lane;
 // lep (R, capl, 5), cnt and ovf (R,) in the index type.  capl at least 1,
 // L at least 1.  The walk's entries take the WalkArgs words
-// (ops/lockstep_cuda.py WALK_ARGS, in order).
+// (ops/lockstep_cuda.py WALK_ARGS, in order), the forward stage's the
+// FwdArgs words (FWD_ARGS).
 #ifdef __CUDACC__
 extern "C" int scan_lanes_launch(const uint32_t* rows, long long n_rows,
                                  const void* L2, long long primary,
@@ -599,6 +873,14 @@ extern "C" int walk_stage_launch(const long long* words, void* stream) {
 extern "C" int walk_stage_entry_launch(const long long* words,
                                        void* stream) {
   return walk_launch_any(words, 1, stream);
+}
+
+extern "C" int fwd_stage_launch(const long long* words, void* stream) {
+  FwdArgs a;
+  memcpy(&a, words, sizeof(FwdArgs));
+  if (!fwd_words_ok(a)) return (int)cudaErrorInvalidValue;
+  return a.idx64 ? launch_fwd<int64_t>(a, (cudaStream_t)stream)
+                 : launch_fwd<int32_t>(a, (cudaStream_t)stream);
 }
 
 LOOP_GRAPH_ENTRIES(lockstep)
@@ -669,9 +951,37 @@ extern "C" int walk_stage_entry_host(const long long* words) {
     segment_entry_host<kLive, kEpoch>(a, stage_lanes<int32_t>(a));
   return 0;
 }
+
+static int fwd_host_any(const long long* words, Trace* tr) {
+  FwdArgs a;
+  memcpy(&a, words, sizeof(FwdArgs));
+  if (!fwd_words_ok(a)) return -1;
+  return a.idx64 ? host_fwd<int64_t>(a, tr) : host_fwd<int32_t>(a, tr);
+}
+
+extern "C" int fwd_stage_host(const long long* words) {
+  return fwd_host_any(words, nullptr);
+}
+
+// fwd_stage_host recording the stage (Trace; pos as scan_lanes_host's,
+// *n_pos counting on from its value, each lane's extensions into steps).
+extern "C" int fwd_stage_trace_host(const long long* words, long long* pos,
+                                    long long cap, long long* n_pos,
+                                    int* steps) {
+  if (!steps) return -1;
+  Trace t{pos, cap, *n_pos, steps};
+  const int e = fwd_host_any(words, &t);
+  *n_pos = t.n;
+  return e;
+}
 #endif
 
-// The size of WalkArgs in words, to check the Python layout against.
+// The sizes of WalkArgs and FwdArgs in words, to check the Python layouts
+// against.
 extern "C" int lockstep_walk_args_words() {
   return (int)(sizeof(WalkArgs) / 8);
+}
+
+extern "C" int lockstep_fwd_args_words() {
+  return (int)(sizeof(FwdArgs) / 8);
 }

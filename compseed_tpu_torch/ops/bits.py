@@ -87,11 +87,15 @@ def sub64(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def mul64(a: torch.Tensor, b) -> torch.Tensor:
     """(a * b) mod 2**64 for 64-bit patterns held in int64 (the uint64
     multiply of the chain memo's slot hash).  ``b`` may be a tensor or a
-    Python int holding a 64-bit pattern (see ``const64``)."""
-    if not isinstance(b, torch.Tensor):
-        b = torch.tensor(const64(b), dtype=torch.int64, device=a.device)
+    Python int holding a 64-bit pattern (see ``const64``), whose halves
+    then stay Python ints: no tensor is made from host data, which a CUDA
+    graph's capture would refuse to copy."""
     a0, a1 = a & MASK32, lsr64(a, 32)
-    b0, b1 = b & MASK32, lsr64(b, 32)
+    if isinstance(b, torch.Tensor):
+        b0, b1 = b & MASK32, lsr64(b, 32)
+    else:
+        b &= (1 << 64) - 1
+        b0, b1 = b & MASK32, b >> 32
     # a0*b0 split on b0's 16-bit halves: x + y*2**16, each < 2**48
     x = a0 * (b0 & 0xFFFF)
     y = a0 * (b0 >> 16)

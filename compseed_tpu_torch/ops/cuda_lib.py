@@ -312,11 +312,20 @@ class NoHostReads(TorchDispatchMode):
     ``bool(t)``, ``t.item()``, ``torch.equal``) and an operation whose
     output shape depends on the values (``nonzero``, ``masked_select``,
     ``unique``, ``repeat_interleave`` without ``output_size``, indexing by
-    a bool mask).  The loop test of ``run_loop``'s CPU branch, which
-    stands in for a graph's conditional node, is let through.  The
-    calling thread's own, as every dispatch mode."""
+    a bool mask); with ``host_data``, also a tensor made from host data
+    (``torch.tensor``, ``torch.as_tensor`` of Python values:
+    ``lift_fresh``), which on a card is a copy from pageable host memory
+    that a capture refuses (off by default: the plain versions that only
+    the CPU runs, inside a kernel route's loop there, make such tensors).
+    The loop test of ``run_loop``'s CPU branch, which stands in for a
+    graph's conditional node, is let through.  The calling thread's own,
+    as every dispatch mode."""
 
     _READS = ("_local_scalar_dense", "is_nonzero", "equal")
+
+    def __init__(self, host_data: bool = False):
+        super().__init__()
+        self.host_data = host_data
     _SHAPES = ("nonzero", "masked_select", "unique_dim", "_unique",
                "_unique2", "unique_consecutive", "unique_dim_consecutive")
 
@@ -336,6 +345,8 @@ class NoHostReads(TorchDispatchMode):
                 for i in (args[1] if len(args) > 1 else ())
                 if i is not None):
             bad = "indexes by a bool mask (a shape that depends on it)"
+        elif name == "lift_fresh" and self.host_data:
+            bad = "makes a tensor from host data (a copy to the device)"
         if bad:
             raise RuntimeError(f"{func} {bad}: a CUDA graph capture "
                                f"refuses it")

@@ -1,23 +1,29 @@
-"""The lockstep engines' scan and walk-stage calls, for holding
-scan_lanes_kernel, walk_stage_kernel and walk_stage_entry_kernel
-(csrc/lockstep.cu) to their plain versions and for counting what a call's
-work needs (used by chip_smoke.py and the tests).
+"""The lockstep engines' scan and walk-stage calls and fwd_staged's
+forward stages, for holding scan_lanes_kernel, walk_stage_kernel,
+walk_stage_entry_kernel and fwd_stage_kernel (csrc/lockstep.cu) to their
+plain versions and for counting what a call's work needs (used by
+chip_smoke.py and the tests).
 
-``Capture`` keeps the calls of ``seedscan._scan_lanes`` and of
+``Capture`` keeps the calls of ``seedscan._scan_lanes``, of
 ``lockstep_cuda.WalkLoop.run`` (a stage's loop: walk_stage's, or a stage
-of walk_pool's) while it is active: ``calls``, a list of ``ScanCall`` and
-``WalkCall`` with their inputs cloned; each call still runs as it would.
-``run(call, route)`` runs one again by "kernel" or "plain": a scan by
-``seedscan._scan_lanes_kernel`` or ``_scan_lanes_plain``; a stage by a
-new WalkLoop, or by its plain version, ``walk_entry_plain`` (the entry:
-the source's live lanes compacted, pads after them) and
-``seedscan._walk_stage_plain``; ``vs_plain`` holds the kernel to the plain
-version.  ``HostTwin`` is the source built with g++ into its host loops;
-``launch`` runs a walk launch by them (what the CPU tests put in place of
+of walk_pool's) and of ``seedscan._fwd_stage_walk`` (a stage of
+forward_scan_dedup) while it is active: ``calls``, a list of
+``ScanCall``, ``WalkCall`` and ``FwdCall`` with their inputs cloned; each
+call still runs as it would.  ``run(call, route)`` runs one again by
+"kernel" or "plain": a scan by ``seedscan._scan_lanes_kernel`` or
+``_scan_lanes_plain``; a stage by a new WalkLoop, or by its plain version,
+``walk_entry_plain`` (the entry: the source's live lanes compacted, pads
+after them) and ``seedscan._walk_stage_plain``; a forward stage by
+``seedscan._fwd_stage_walk_kernel`` or ``_fwd_stage_walk_plain``;
+``vs_plain`` holds the kernel to the plain version (a forward stage's
+records where j < steps, and the kernel's zero past them).  ``HostTwin``
+is the source built with g++ into its host loops; ``launch`` runs a walk
+or forward-stage launch by them (what the CPU tests put in place of
 ``lockstep_cuda._launch``); ``work`` counts, from the host loops' record
 of a call, the distinct occ rows its extensions read and their bytes, the
-lanes' bytes in and out, the ranks and words ranked, and each lane's
-dependent extensions (the longest lane's set the latency floor).
+lanes' bytes in and out (with a forward stage's records), the ranks and
+words ranked, and each lane's dependent extensions (the longest lane's
+set the latency floor).
 """
 
 from __future__ import annotations
@@ -83,13 +89,39 @@ class WalkCall:
         return self.w
 
 
+@dataclasses.dataclass
+class FwdCall:
+    """One forward stage (_fwd_stage_walk's arguments): the index, the
+    bases qflat and nxtflat, L, B, the representatives ``state``, ``mh``,
+    advance and the mode's ``kw`` (mode, min_len, max_intv)."""
+    fm: object
+    qflat: object
+    nxtflat: object
+    L: int
+    B: int
+    state: dict
+    mh: object
+    advance: bool
+    kw: dict
+
+    kind = "fwd"
+
+    @property
+    def lanes(self) -> int:
+        return self.state["k"].shape[0]
+
+    def args(self) -> tuple:
+        return (self.fm, self.qflat, self.nxtflat, self.L, self.B,
+                self.state, self.mh, self.advance)
+
+
 class Capture:
     """While active, keeps up to KEPT calls of each kind, in order, in
     ``calls``; every call is counted in ``counts``."""
 
     def __init__(self):
         self.calls = []
-        self.counts = dict(scan=0, walk=0)
+        self.counts = dict(scan=0, walk=0, fwd=0)
 
     def _keep(self, kind) -> bool:
         self.counts[kind] += 1
@@ -122,13 +154,49 @@ class Capture:
                     None if src is None else int(lp.live)))
             return cap._run(lp, st, fit, src)
 
+        self._fwd = ss._fwd_stage_walk
+
+        def fwd(fm, qflat, nxtflat, L, B, state, mh, advance, **kw):
+            if cap._keep("fwd"):
+                cap.calls.append(FwdCall(
+                    fm, qflat.clone(), nxtflat.clone(), L, B,
+                    {n: x.clone() for n, x in state.items()}, mh.clone(),
+                    advance, dict(kw)))
+            return cap._fwd(fm, qflat, nxtflat, L, B, state, mh, advance,
+                            **kw)
+
         ss._scan_lanes = scan
         lockstep_cuda.WalkLoop.run = run
+        ss._fwd_stage_walk = fwd
         return self
 
     def __exit__(self, *exc):
         ss._scan_lanes = self._scan
         lockstep_cuda.WalkLoop.run = self._run
+        ss._fwd_stage_walk = self._fwd
+
+
+class _Merge(Exception):
+    """Raised in place of a run's merge (run_forward)."""
+
+
+def run_forward(sd, fns, qd, rd) -> None:
+    """DeviceSeeder ``sd``'s eager _run of the programs ``fns`` on one
+    chunk's reads up to its merge: rounds 1 to 3 run, with every forward
+    stage of the staged engine; the merge, the merged suffix-array lookup
+    and the pack do not.  On a chunk that overflows fwd_staged's rep caps,
+    the seeds of the garbage intervals it carries send the suffix-array
+    walk to positions past the text, and at int64 some of those walks
+    never reach a sampled row: the JAX package's sa_batch_compact loops
+    on them as the port's does, so a capture of the forward stages stops
+    before it."""
+    def merge(*a):
+        raise _Merge
+    try:
+        sd._run(dict(fns, merge=merge), qd, rd)
+    except _Merge:
+        return
+    raise RuntimeError("run_forward: the run did not reach its merge")
 
 
 def walk_entry_plain(src: dict, w: int) -> dict:
@@ -147,7 +215,12 @@ def run(call, route: str):
     """One captured call again by "kernel" or "plain": a scan's (lep, cnt,
     ovf); a stage's (lanes, t, live), by the kernels t and live one int32
     each on the device (read by nothing here, so that the call can be
-    captured), by the plain version Python ints."""
+    captured), by the plain version Python ints; a forward stage's dict
+    (the state and the records)."""
+    if call.kind == "fwd":
+        fn = ss._fwd_stage_walk_kernel if route == "kernel" else \
+            ss._fwd_stage_walk_plain
+        return fn(*call.args(), **call.kw)
     if call.kind == "scan":
         fn = ss._scan_lanes_kernel if route == "kernel" else \
             ss._scan_lanes_plain
@@ -170,9 +243,37 @@ def run(call, route: str):
     return st, int(t), int(st["alive"].sum())
 
 
+def fwd_vs(got: dict, want: dict) -> int:
+    """max |got - want| over a forward stage's outputs (0: equal): the
+    state exactly, pf exactly, the other records where j < steps, and
+    got's records past its steps held to zero (the kernel's contract)."""
+    if set(got) != set(want):
+        return 1 << 62
+    steps = want["steps"].to(torch.int64)
+    B = want["pf"].shape[1]
+    mask = torch.arange(B, device=steps.device)[None, :] < steps[:, None]
+    worst = 0
+    for n in want:
+        g, w = got[n], want[n].to(got[n].device)
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return 1 << 62
+        if not g.numel():
+            continue
+        g, w = g.to(torch.int64), w.to(torch.int64)
+        if n in lockstep_cuda.FWD_RECORDS and n != "pf":
+            m = mask.to(g.device)
+            worst = max(worst, int(torch.where(m, 0, g).abs().max()))
+            g, w = torch.where(m, g, 0), torch.where(m, w, 0)
+        worst = max(worst, int((g - w).abs().max()))
+    return worst
+
+
 def vs_plain(call) -> int:
-    """max |kernel - plain| over the call's outputs (0: bit-equal)."""
+    """max |kernel - plain| over the call's outputs (0: bit-equal; a
+    forward stage's as ``fwd_vs``)."""
     got, want = run(call, "kernel"), run(call, "plain")
+    if call.kind == "fwd":
+        return fwd_vs(got, want)
     if call.kind == "scan":
         pairs = list(zip(got, want))
     else:
@@ -212,11 +313,15 @@ class HostTwin:
         lib.scan_lanes_host.argtypes = [p, ll, p, ll, i] + \
             [p, i, p, p, p, i, p, i, i, p, p, p, ll, i, p, ll, p, p]
         lib.walk_stage_trace_host.argtypes = [p, p, ll, p, p]
-        for fn in (lib.walk_stage_host, lib.walk_stage_entry_host):
+        lib.fwd_stage_trace_host.argtypes = [p, p, ll, p, p]
+        for fn in (lib.walk_stage_host, lib.walk_stage_entry_host,
+                   lib.fwd_stage_host):
             fn.argtypes = [p]
         for fn in (lib.scan_lanes_host, lib.walk_stage_host,
                    lib.walk_stage_entry_host, lib.walk_stage_trace_host,
-                   lib.lockstep_walk_args_words):
+                   lib.fwd_stage_host, lib.fwd_stage_trace_host,
+                   lib.lockstep_walk_args_words,
+                   lib.lockstep_fwd_args_words):
             fn.restype = i
         self.trace = None           # (pos, n_pos, steps) while work records
 
@@ -258,13 +363,14 @@ class HostTwin:
         return (out, (pos[:n_pos.value], steps)) if trace else out
 
     def launch(self, kernel: str, dev, args) -> None:
-        """A walk launch (``lockstep_cuda._launch``'s arguments) by its host
-        loop, on CPU tensors; while ``work`` records, the segments are
-        recorded."""
+        """A walk or forward-stage launch (``lockstep_cuda._launch``'s
+        arguments) by its host loop, on CPU tensors; while ``work``
+        records, the segments and stages are recorded."""
         assert dev.type == "cpu", dev
-        if kernel == "walk_stage_kernel" and self.trace is not None:
+        if kernel in ("walk_stage_kernel", "fwd_stage_kernel") and \
+                self.trace is not None:
             pos, n_pos, steps = self.trace
-            e = self.lib.walk_stage_trace_host(
+            e = getattr(self.lib, launcher_of(kernel, "_trace_host"))(
                 ct.addressof(args), pos.ctypes.data, len(pos),
                 ct.addressof(n_pos), steps.ctypes.data)
         else:
@@ -316,6 +422,22 @@ def walk_on_host(call: WalkCall, twin: HostTwin, trace=None):
         twin.trace = None
 
 
+def fwd_on_host(call: FwdCall, twin: HostTwin, trace=None) -> dict:
+    """A forward stage by its host loop on the CPU (the kernel route, the
+    twin at lockstep_cuda._launch; ``trace`` (pos, n_pos, steps) to
+    record it): the kernel's outputs."""
+    cpu = dataclasses.replace(
+        call, fm=_cpu_fm(call.fm), qflat=call.qflat.cpu(),
+        nxtflat=call.nxtflat.cpu(), mh=call.mh.cpu(),
+        state={n: x.cpu() for n, x in call.state.items()})
+    twin.trace = trace
+    try:
+        with twin.in_place():
+            return run(cpu, "kernel")
+    finally:
+        twin.trace = None
+
+
 def work(call, twin: HostTwin) -> dict:
     """What the call's work needs, from the host loops' record of it: the
     distinct occ rows its extensions rank in (row_bytes: 32 B a row, the
@@ -333,6 +455,23 @@ def work(call, twin: HostTwin) -> dict:
         R = call.lanes
         lane_in = R * call.L + 8 * R + mh.element_size() * R + R
         lane_out = R * (call.capl * 5 + 2) * es
+    elif call.kind == "fwd":
+        steps = np.zeros(call.lanes, np.int32)
+        n_pos = ct.c_longlong(0)
+        pos = np.empty(0, np.int64)
+        for _ in range(2):                  # count, then record
+            n_pos.value = 0
+            out = fwd_on_host(call, twin, (pos, n_pos, steps))
+            if len(pos) < n_pos.value:
+                pos = np.empty(n_pos.value, np.int64)
+        pos = pos[:n_pos.value]
+        U, B = call.lanes, call.B
+        # the representatives' words in (k, l, s, mh; pos, pivot, rid;
+        # alive) and out (k, l, s; pos, pivot, wait_npv, steps; alive,
+        # waiting), a base a step in (the jump targets' words not
+        # counted); the records (U, B) written once
+        lane_in = U * (4 * es + 12 + 1) + int(out["steps"].sum())
+        lane_out = U * (3 * es + 16 + 2) + U * B * (1 + 3 * es + 8)
     else:
         steps = np.zeros(call.w, np.int32)
         n_pos = ct.c_longlong(0)
@@ -366,7 +505,7 @@ def work(call, twin: HostTwin) -> dict:
     rows = np.unique(blk)
     high = np.unique(blk[off >= 64])
     row_bytes = 32 * len(rows) + 16 * len(high)
-    more = {} if call.kind == "scan" else dict(entry_bytes=entry_bytes)
+    more = dict(entry_bytes=entry_bytes) if call.kind == "walk" else {}
     return dict(kind=call.kind, lanes=call.lanes, rows=int(len(rows)),
                 row_bytes=int(row_bytes),
                 lane_bytes=int(lane_in + lane_out + 5 * es),

@@ -1,7 +1,8 @@
 """The lockstep engines' loops on Hopper: launchers of ``csrc/lockstep.cu``.
 
-The JAX package runs the forward LEP scan and the staged backward walk as
-device while loops; the port launches hand-written kernels:
+The JAX package runs the forward LEP scan, the staged backward walk and
+the staged forward walk as device while loops; the port launches
+hand-written kernels:
 
   ``scan``     -> ``scan_lanes_kernel``, for ``ops/seedscan.py::
       _scan_lanes`` (plain version ``_scan_lanes_plain``): a pair of
@@ -13,7 +14,11 @@ device while loops; the port launches hand-written kernels:
       (``cuda_lib.run_loop``), the entry (the previous stage's lanes
       compacted, or the call's counted, and the loop's first test) then a
       WHILE node whose body is one segment, the segment kernel's last
-      block to retire advancing t and testing the next.
+      block to retire advancing t and testing the next;
+  ``fwd_stage`` -> ``fwd_stage_kernel``, for ``ops/seedscan.py::
+      _fwd_stage_walk`` (plain version ``_fwd_stage_walk_plain``): one
+      launch a stage of fwd_staged's staged forward walk, a pair of
+      threads a representative, each running its steps to its end.
 
 ``ops/seedscan.py`` runs the plain versions for CPU tensors and comes here
 for any other; each launcher takes CUDA tensors only and launches its
@@ -25,7 +30,8 @@ into build/compseed_tpu_torch/liblockstep.so).
 
 ``LAUNCHES`` counts kernel launches by kernel, and nothing else.  Every
 launch goes to the device its tensors lie on, on that device's current
-stream, with no synchronisation; outputs come from ``torch.empty``.
+stream, with no synchronisation; outputs come from ``torch.empty`` (the
+forward stage's records from ``torch.zeros``).
 """
 
 from __future__ import annotations
@@ -51,8 +57,24 @@ WALK_ARGS = ("idx64", "rows", "n_rows", "L2", "primary", "fill_oob",
 LANES_T = ("k", "l", "s", "mh")
 LANES_I32 = ("rid", "i", "death", "slot", "steps")
 LANE_KEYS = LANES_T + LANES_I32 + ("alive",)
+# a forward stage's words (csrc/lockstep.cu's struct FwdArgs), in order
+FWD_ARGS = ("idx64", "rows", "n_rows", "L2", "primary", "fill_oob",
+            "k", "l", "s", "mh", "pos", "pivot", "rid", "alive", "U",
+            "qflat", "nxtflat", "n_q", "L", "B",
+            "r3", "advance", "min_len", "max_intv",
+            "out_k", "out_l", "out_s", "out_pos", "out_pivot",
+            "out_wait_npv", "out_steps", "out_alive", "out_waiting",
+            "pf", "pk", "pl", "ps", "pe", "pp")
+# a forward stage's representatives: index type, int32, bool
+FWD_T = ("k", "l", "s")
+FWD_I32 = ("pos", "pivot", "rid")
+# what a forward stage returns beside its inputs' rid: the state, then
+# the records
+FWD_STATE = ("k", "l", "s", "pos", "pivot", "wait_npv", "steps", "alive",
+             "waiting")
+FWD_RECORDS = ("pf", "pk", "pl", "ps", "pe", "pp")
 KERNELS = ("scan_lanes_kernel", "walk_stage_kernel",
-           "walk_stage_entry_kernel")
+           "walk_stage_entry_kernel", "fwd_stage_kernel")
 MAX_SEG = 8                 # a packed reverse window's chars
 
 
@@ -62,15 +84,17 @@ def _bind(lib) -> None:
     lib.scan_lanes_launch.argtypes = index + \
         [p, i, p, p, p, i, p, i, i, p, p, p, ll, i, p]
     lib.scan_lanes_launch.restype = i
-    for fn in (lib.walk_stage_launch, lib.walk_stage_entry_launch):
+    for fn in (lib.walk_stage_launch, lib.walk_stage_entry_launch,
+               lib.fwd_stage_launch):
         fn.argtypes, fn.restype = [p, p], i
     bind_graphs(lib, "lockstep")
-    words = lib.lockstep_walk_args_words
-    words.argtypes, words.restype = [], i
-    if words() != len(WALK_ARGS):
-        raise RuntimeError(f"lockstep_walk_args_words() says struct WalkArgs "
-                           f"has {words()} words, the launchers name "
-                           f"{len(WALK_ARGS)}")
+    for what, names in (("walk", WALK_ARGS), ("fwd", FWD_ARGS)):
+        words = getattr(lib, f"lockstep_{what}_args_words")
+        words.argtypes, words.restype = [], i
+        if words() != len(names):
+            raise RuntimeError(f"lockstep_{what}_args_words() says its "
+                               f"struct has {words()} words, the launchers "
+                               f"name {len(names)}")
 
 
 LIB = KernelLibrary("lockstep.cu", KERNELS, _bind, "lockstep_cuda_error_name")
@@ -111,6 +135,78 @@ def scan(fm, L: int, capl: int, advance: bool, q, rlen, pivot0, min_hits,
                    lep.data_ptr(), cnt.data_ptr(), ovf.data_ptr(), R,
                    int(dt == torch.int64))
     return lep, cnt, ovf
+
+
+def _index_words(fm, dev) -> list:
+    """The index's words: on a card after the index's checks (64-byte
+    rows); the CPU tests' host loops read the rows as they lie."""
+    if dev.type == "cuda":
+        return _index_args(fm, dev)
+    return [fm.occ_packed.data_ptr(), fm.n_rows, fm.L2.data_ptr(),
+            int(fm.primary), int(bool(fm.fill_oob))]
+
+
+def fwd_stage(fm, qflat, nxtflat, L: int, B: int, state: dict, mh,
+              advance: bool, r3: bool, min_len: int = 0,
+              max_intv: int = 0) -> dict:
+    """One stage of the staged forward walk by ``fwd_stage_kernel``: the
+    representatives ``state`` (k, l, s in the index dtype; pos, pivot, rid
+    int32; alive bool; U each) and ``mh`` (U,) in the index dtype, the
+    bases qflat (uint8) and nxtflat (int32) of the (R, L) reads, flat,
+    all contiguous on one device (checked, never converted) -> the state
+    after at most B steps a lane (FWD_STATE, rid the input's) and the
+    records (FWD_RECORDS, (U, B): the lane's steps j < steps, zero after),
+    as ``seedscan._fwd_stage_walk_plain`` (round 3's greedy segment with
+    ``r3``).  The outputs come from the caching allocator (inside a call
+    graph's capture, from its pool); the records are zeroed first.  A CPU
+    tensor reaches ``_launch``, which refuses it unless a test put a host
+    loop there."""
+    dev = state["k"].device
+    dt = fm.dtype
+    U = state["k"].shape[0] if state["k"].dim() == 1 else -1
+    if L < 1 or B < 1:
+        raise ValueError(f"fwd_stage: L={L} and B={B} must be at least 1")
+    n_q = qflat.shape[0] if qflat.dim() == 1 else -1
+    check_tensor("qflat", qflat, torch.uint8, (n_q,), dev)
+    check_tensor("nxtflat", nxtflat, torch.int32, (n_q,), dev)
+    if n_q < 1:
+        raise ValueError("fwd_stage: no bases")
+    for n in FWD_T:
+        check_tensor(n, state[n], dt, (U,), dev)
+    for n in FWD_I32:
+        check_tensor(n, state[n], torch.int32, (U,), dev)
+    check_tensor("alive", state["alive"], torch.bool, (U,), dev)
+    check_tensor("mh", mh, dt, (U,), dev)
+    i32, b8 = torch.int32, torch.bool
+    out = {n: torch.empty(U, dtype=dt if n in FWD_T else b8 if n in (
+        "alive", "waiting") else i32, device=dev) for n in FWD_STATE}
+    out["rid"] = state["rid"]
+    for n in FWD_RECORDS:
+        out[n] = torch.zeros((U, B), dtype=b8 if n == "pf" else dt if n in (
+            "pk", "pl", "ps") else i32, device=dev)
+    if U == 0:
+        return out
+    args = (ct.c_longlong * len(FWD_ARGS))()
+    at = {n: i for i, n in enumerate(FWD_ARGS)}
+    for name, x in zip(("rows", "n_rows", "L2", "primary", "fill_oob"),
+                       _index_words(fm, dev)):
+        args[at[name]] = x
+    for name in FWD_T + FWD_I32 + ("alive",):
+        args[at[name]] = state[name].data_ptr()
+    for name in FWD_STATE:
+        args[at[f"out_{name}"]] = out[name].data_ptr()
+    for name in FWD_RECORDS:
+        args[at[name]] = out[name].data_ptr()
+    for name, x in (("idx64", int(dt == torch.int64)),
+                    ("mh", mh.data_ptr()), ("U", U),
+                    ("qflat", qflat.data_ptr()),
+                    ("nxtflat", nxtflat.data_ptr()), ("n_q", n_q),
+                    ("L", L), ("B", B), ("r3", int(bool(r3))),
+                    ("advance", int(bool(advance))),
+                    ("min_len", int(min_len)), ("max_intv", int(max_intv))):
+        args[at[name]] = x
+    _launch("fwd_stage_kernel", dev, args)
+    return out
 
 
 class WalkLoop:
@@ -164,13 +260,8 @@ class WalkLoop:
                               dtype=torch.int64, device=dev)
         self.go = torch.zeros((), dtype=i32, device=dev)
         self.args = (ct.c_longlong * len(WALK_ARGS))()
-        # on a card the index's checks (64-byte rows); the CPU tests' host
-        # loops read the rows as they lie
-        index = _index_args(fm, dev) if dev.type == "cuda" else [
-            fm.occ_packed.data_ptr(), fm.n_rows, fm.L2.data_ptr(),
-            int(fm.primary), int(bool(fm.fill_oob))]
         for name, x in zip(("rows", "n_rows", "L2", "primary", "fill_oob"),
-                           index):
+                           _index_words(fm, dev)):
             self.args[self.AT[name]] = x
         for name, x in (("idx64", int(self.dt == torch.int64)),
                         ("rwflat", 0 if rwflat is None else bases.data_ptr()),

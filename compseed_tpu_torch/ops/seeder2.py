@@ -13,14 +13,13 @@ chunk: a head of counters + per-read words and a bit-packed seed matrix,
 in the JAX package's exact layout, so ``unpack_results`` and the native
 tail consume either package's output unchanged.
 
-On a card every engine but fwd_staged runs a chunk as one CUDA graph, as
-the JAX package runs it as compiled device programs: ``_run`` (r1, r2,
-r3, merge, seeds, pack: the JAX package's ``whole``) captured once per
-(thread, call shape) into a ``cuda_lib.CallGraph``, its loops joining the
-capture, and replayed for every later chunk of the shape: the host uploads
-the reads, launches the graph and reads the two results back.  fwd_staged,
-whose staged forward walk still tests on the host, runs ``_run`` eagerly
-(``CALL_GRAPH``).
+On a card every engine runs a chunk as one CUDA graph, as the JAX
+package runs it as compiled device programs: ``_run`` (r1, r2, r3, merge,
+seeds, pack: the JAX package's ``whole``) captured once per (thread, call
+shape) into a ``cuda_lib.CallGraph``, its loops joining the capture, and
+replayed for every later chunk of the shape: the host uploads the reads,
+launches the graph and reads the two results back (``CALL_GRAPH``; a mix
+of engines that no entry names runs eagerly).
 
 A chunk-global cap overflow shows in the head's flags: the chunk is
 then rerun exactly on the lockstep seeder (``smem.BatchSeeder``) and the
@@ -104,9 +103,10 @@ ENGINE_STAGES = {
     "all_off": ("lockstep", "plain", "plain", "lockstep"),
 }
 # Which engines run a call on a card as one CUDA graph (DeviceSeeder._call):
-# those whose every loop runs on the card.  fwd_staged runs it eagerly: its
-# staged forward walk (seedscan._fwd_stage_walk) tests on the host.
-CALL_GRAPH = {name: name != "fwd_staged" for name in ENGINE_STAGES}
+# those whose every loop runs on the card, every engine of the table since
+# fwd_staged's staged forward walk (seedscan._fwd_stage_walk) runs as one
+# kernel a stage.  EagerCalls turns the entries off for a block.
+CALL_GRAPH = dict.fromkeys(ENGINE_STAGES, True)
 
 
 class EagerCalls:

@@ -1036,7 +1036,49 @@ def _fwd_stage_walk(fm: DeviceFMIndex, qflat, nxtflat, L: int, B: int,
 
     state: k, l, s (dt), pos, pivot, rid (int32), alive (bool) over U.
     Returns the final state plus per-step push records (pf, pk, pl, ps,
-    pe, pp: (U, B)), waiting / wait_npv and per-lane occ-step counts."""
+    pe, pp: (U, B)), waiting / wait_npv and per-lane occ-step counts.
+    ``_fwd_stage_walk_plain`` for CPU tensors; for any other one launch
+    of ``fwd_stage_kernel`` (ops/lockstep_cuda.py), in which each lane
+    runs its steps to its end (a lane that stops being active never
+    becomes active again within the stage, so the JAX loop's test over
+    all lanes changes no lane).  The kernel's records past a lane's steps
+    are zero where the plain version's hold frozen values with pf false;
+    forward_scan_dedup reads no record whose pf is false."""
+    return _fwd_route(state["k"].device)(
+        fm, qflat, nxtflat, L, B, state, mh, advance, mode=mode,
+        min_len=min_len, max_intv=max_intv)
+
+
+def _fwd_route(dev: torch.device):
+    """_fwd_stage_walk for tensors on ``dev``: the plain version for CPU
+    tensors, the kernel for any other."""
+    if dev.type == "cpu":
+        return _fwd_stage_walk_plain
+    return _fwd_stage_walk_kernel
+
+
+def _fwd_stage_walk_kernel(fm: DeviceFMIndex, qflat, nxtflat, L: int,
+                           B: int, state, mh, advance: bool,
+                           mode: str = "lep", min_len: int = 0,
+                           max_intv: int = 0):
+    """_fwd_stage_walk by fwd_stage_kernel, its arguments made contiguous
+    in the kernel's dtypes."""
+    dt = fm.dtype
+    st = {n: state[n].to(dt).contiguous() for n in lockstep_cuda.FWD_T}
+    st.update({n: state[n].to(_I32).contiguous()
+               for n in lockstep_cuda.FWD_I32})
+    st["alive"] = state["alive"].to(torch.bool).contiguous()
+    return lockstep_cuda.fwd_stage(
+        fm, qflat.to(torch.uint8).contiguous(),
+        nxtflat.to(_I32).contiguous(), L, B, st, mh.to(dt).contiguous(),
+        advance, mode == "r3", min_len, max_intv)
+
+
+def _fwd_stage_walk_plain(fm: DeviceFMIndex, qflat, nxtflat, L: int, B: int,
+                          state, mh, advance: bool, mode: str = "lep",
+                          min_len: int = 0, max_intv: int = 0):
+    """_fwd_stage_walk's plain version: the JAX loop as one batched
+    program, its test over all lanes every 8 steps a host read."""
     dt = fm.dtype
     dev = state["k"].device
     U = state["k"].shape[0]

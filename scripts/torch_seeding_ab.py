@@ -27,7 +27,14 @@ reads/s of one more.  ``--segments`` also runs, after those, the same
 chunk on the eager route with every round loop's segment timed on the
 card between CUDA events on kept graphs (``chip_smoke.segment_rounds`` of
 THIS checkout): ms per round of each loop and the kernels its body graph
-holds.  In a tree whose seeder runs its round loops as
+holds.  ``--call`` times, profiles and warms up with the engine's call
+alone instead of ``run_flat`` (``chip_smoke.engine_call`` of THIS
+checkout: the upload, the call and the fetches, with no response to an
+overflow), for an engine whose bench chunks overflow its caps
+(fwd_staged), which ``run_flat`` would rerun and then switch off; each
+timed chunk's overflow flag is recorded, and ``device_s`` is the call's
+seconds as ``run_flat`` times them.  In a tree whose seeder runs its round
+loops as
 CUDA graphs (``ops.cuda_lib.LoopGraph``) each turn also gives the
 capture and instantiation ms of every graph it built (a graph is built
 at a shape's first call on a thread, in the warm-up pass, and kept), and
@@ -92,25 +99,41 @@ try:
     cuda_lib.CallGraph.__init__ = timed_init
 except (ImportError, AttributeError):
     pass                             # a tree without loop or call graphs
+if {profile!r} or {segments!r} or {call!r}:
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("smoke", {smoke!r})
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+if {call!r}:
+    def step(c):
+        head, s = smoke.engine_call(sd, c)
+        return bool(head[3:14].any()), s
+else:
+    def step(c):
+        sd.run_flat(c)
+        return sd.last_overflow, sd.prof["device_s"]
 warm = []
 for c in chunks:
     sync()
     t0 = time.perf_counter()
-    sd.run_flat(c)
+    step(c)
     sync()
     warm.append(time.perf_counter() - t0)
-secs, dev_s = [], []
+secs, dev_s, ovf = [], [], []
 for _ in range({passes}):
     for c in chunks:
         sync()
         t0 = time.perf_counter()
-        sd.run_flat(c)
+        o, s = step(c)
         sync()
         secs.append(time.perf_counter() - t0)
-        dev_s.append(sd.prof["device_s"])
-        if sd.last_overflow:
+        dev_s.append(s)
+        ovf.append(o)
+        if o and not {call!r}:
             raise SystemExit("a chunk overflowed: not the engine's own time")
 rec = dict(run_flat_s=secs, device_s=dev_s, warmup_run_flat_s=warm)
+if {call!r}:
+    rec["overflow"] = ovf
 if graphs:
     rec["graph_ms"] = dict(capture=[c for c, _ in graphs],
                            instantiate=[i for _, i in graphs])
@@ -143,14 +166,8 @@ if {stream!r}:
         rates.append(len(done) / (time.perf_counter() - t0))
     rec["stream_reads_per_s"] = rates[1]
     rec["stream_warmup_reads_per_s"] = rates[0]
-if {profile!r} or {segments!r}:
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("smoke", {smoke!r})
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
 if {profile!r}:
-    rec["profile"] = smoke.profile_chunk(lambda: sd.run_flat(chunks[0]),
-                                         sync)
+    rec["profile"] = smoke.profile_chunk(lambda: step(chunks[0]), sync)
 if {segments!r}:
     rec["segments"] = smoke.segment_rounds(sd, chunks[0])
 print(json.dumps(rec))
@@ -176,6 +193,9 @@ def main() -> None:
                     help="time the whole alignment of the chunks too")
     ap.add_argument("--segments", action="store_true",
                     help="time each loop's kept segment graphs a round")
+    ap.add_argument("--call", action="store_true",
+                    help="the engine's call alone, no overflow response "
+                         "(chip_smoke.engine_call) in place of run_flat")
     args = ap.parse_args()
     trees = dict(t.split("=", 1) for t in args.tree)
     shards = {n: int(v) for n, v in (m.split("=", 1) for m in args.mesh)}
@@ -192,7 +212,7 @@ def main() -> None:
                             chunks=args.chunks, passes=args.passes,
                             shards=shards.get(name, 0),
                             profile=args.profile, stream=args.stream,
-                            segments=args.segments,
+                            segments=args.segments, call=args.call,
                             smoke=os.path.join(here, "chip_smoke.py"))
         proc = subprocess.run([sys.executable, "-c", code],
                               capture_output=True, text=True)

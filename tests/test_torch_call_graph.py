@@ -17,7 +17,9 @@ the card (tests/test_torch_cuda.py, chip_smoke.py); here:
   lets the default engine's _run through, with every loop run as the
   card runs it (run_loop's CPU branch and the host twins), on the kept
   tensors and on the capture route, and its head and seed matrix equal
-  the JAX package's ``whole``; it stops the engine the table keeps eager;
+  the JAX package's ``whole``; it stops fwd_staged's plain staged forward
+  walk (the CPU's route) and lets its kernel route (the walk's host loop)
+  through;
 - the registry of kept call graphs (cuda_lib.Kept through
   DeviceSeeder._call, with a stand-in graph): its key, eviction at
   HELD_CALLS, dropping on a cap raise's rebuild, each thread its own."""
@@ -40,7 +42,8 @@ from compseed_tpu.ops.device_index import to_device as jax_to_device
 from compseed_tpu.ops.seeder2 import DeviceSeeder as JaxSeeder
 from compseed_tpu.options import MemOptions as JaxOptions
 from compseed_tpu_torch import convert
-from compseed_tpu_torch.ops import cuda_lib, fm_cuda, sa_cases
+from compseed_tpu_torch.ops import (cuda_lib, fm_cuda, lockstep_cases,
+                                    lockstep_cuda, sa_cases)
 from compseed_tpu_torch.ops import fm as tfm
 from compseed_tpu_torch.ops import seeder2
 from compseed_tpu_torch.ops import seedscan as tss
@@ -56,6 +59,15 @@ torch.set_num_threads(1)
 
 CPU = torch.device("cpu")
 N_READS = 96
+
+
+@pytest.fixture(scope="module")
+def lockstep_twin(tmp_path_factory):
+    """csrc/lockstep.cu built with g++ into its host loops."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to build the kernels' lane code")
+    return lockstep_cases.HostTwin(
+        str(tmp_path_factory.mktemp("lockstep") / "liblockstep_host.so"))
 
 
 @pytest.fixture(scope="module")
@@ -402,10 +414,13 @@ def test_guard_lets_the_default_run_through(tiny_fm, whole, all_on_host,
     assert all_on_host["sa_stage_entry_kernel"] == 4
 
 
-def test_guard_stops_an_eager_engine(tiny_fm, whole, monkeypatch):
-    """fwd_staged, the engine the table keeps eager (its staged forward
-    walk tests on the host), is stopped by NoHostReads at its first host
-    read; the table names it and keeps it off the graph."""
+def test_guard_stops_an_eager_engine(tiny_fm, whole, all_on_host,
+                                     lockstep_twin, monkeypatch):
+    """fwd_staged's plain staged forward walk (seedscan.
+    _fwd_stage_walk_plain, the CPU's route, which tests its loop on the
+    host) is stopped by NoHostReads at its first host read; with the walk
+    on the kernel route (its host loop at lockstep_cuda._launch) and every
+    other loop as the card runs it, the same call passes."""
     for k, v in seeder2.ENGINES["fwd_staged"][1].items():
         monkeypatch.setenv(k, v)
     sd = DeviceSeeder(MemOptions(), convert.fmindex_from_jax_package(
@@ -413,17 +428,27 @@ def test_guard_stops_an_eager_engine(tiny_fm, whole, monkeypatch):
     R, L, qd, rd = sd._upload(whole[0])
     fns = sd._build(R, L)
     assert fns["engine"] == "fwd_staged" and \
-        not seeder2.CALL_GRAPH["fwd_staged"]
-    with pytest.raises(RuntimeError, match="reads a tensor's value"):
+        seeder2.CALL_GRAPH["fwd_staged"]
+    assert tss._fwd_route(CPU) is tss._fwd_stage_walk_plain
+    with pytest.raises(RuntimeError, match="reads a tensor's value") as e:
         with cuda_lib.NoHostReads():
             sd._run(fns, qd, rd)
+    assert any(f.name == "_fwd_stage_walk_plain" for f in e.traceback)
+    monkeypatch.setattr(tss, "_fwd_route",
+                        lambda dev: tss._fwd_stage_walk_kernel)
+    monkeypatch.setattr(lockstep_cuda, "_launch", lockstep_twin.launch)
+    tss.drop_held()
+    with cuda_lib.NoHostReads():
+        _, _, head, _ = sd._run(fns, qd, rd)
+    # the same seeds as the default engine's: mtotal, stotal, n_uniq
+    assert np.array_equal(head[:3].numpy(), whole[1][:3])
 
 
 @pytest.mark.parametrize("name", sorted(seeder2.ENGINES))
 def test_engine_table_names_each_engine(tiny_fm, name, monkeypatch):
     """Each entry of ENGINES, selected by its knobs, is the engine _build
-    names, and every one but fwd_staged takes the call graph (on a card);
-    EagerCalls turns it off for its block and restores the table."""
+    names, and every one takes the call graph (on a card); EagerCalls
+    turns it off for its block and restores the table."""
     dedup, knobs = seeder2.ENGINES[name]
     for k, v in knobs.items():
         monkeypatch.setenv(k, v)
@@ -431,10 +456,10 @@ def test_engine_table_names_each_engine(tiny_fm, name, monkeypatch):
         tiny_fm), CPU, dedup=dedup)
     fns = sd._build(256, 128)
     assert fns["engine"] == name
-    assert seeder2.CALL_GRAPH[name] == (name != "fwd_staged")
+    assert seeder2.CALL_GRAPH[name]
     with seeder2.EagerCalls():
         assert not any(seeder2.CALL_GRAPH.values())
-    assert seeder2.CALL_GRAPH[name] == (name != "fwd_staged")
+    assert seeder2.CALL_GRAPH[name]
 
 
 class StandIn:

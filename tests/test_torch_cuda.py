@@ -28,9 +28,10 @@ loop's test in the walk's last block) against its plain version, its
 last stage's loop over three rounds and more too; the lockstep engines'
 kernels (csrc/lockstep.cu: the scan, a walk stage's segment and entry)
 on every scan and stage call of all_off's and bwd_win's first bench
-chunk against their plain versions, each engine that takes the call
-graph since against its eager _run, and sa_batch's loop graph against
-the host-tested loop.
+chunk against their plain versions, and the forward stage kernel on every
+stage of fwd_staged's; each engine that takes the call graph since
+against its eager _run, and sa_batch's loop graph against the
+host-tested loop.
 Every test here is marked ``cuda`` and skips without a card.
 The file imports no JAX, so it runs where JAX is not installed:
 
@@ -2060,8 +2061,8 @@ def test_smem_kernels_on_a_second_card_first(dev):
 # ---------------------------------------------------------------------------
 # The lockstep engines' loops (csrc/lockstep.cu) and sa_batch's loop.
 
-GRAPHED = ("fwd_off", "bwd_win", "bwd_whole", "bwd_off", "r2_off",
-           "all_off")
+GRAPHED = ("fwd_staged", "fwd_off", "bwd_win", "bwd_whole", "bwd_off",
+           "r2_off", "all_off")
 
 
 def _lockstep_launches():
@@ -2117,15 +2118,43 @@ def test_lockstep_kernels_equal_plain_on_first_bench_chunk(dev, bench,
             kinds.add((call.kind, getattr(call, "src", None) is not None))
     assert kinds == {("scan", False), ("walk", False), ("walk", True)}
     n1 = _lockstep_launches()
-    assert all(n1[k] > n0[k] for k in n1), (n0, n1)
+    assert all(n1[k] > n0[k] for k in ("scan_lanes_kernel",
+                                       "walk_stage_kernel",
+                                       "walk_stage_entry_kernel")), (n0, n1)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_fwd_stage_kernel_equals_plain_on_first_bench_chunk(dev, bench,
+                                                            dtype):
+    """Every stage of fwd_staged's staged forward walk on the first bench
+    chunk (17: round 1's 7, round 2's 3, round 3's 7; ops/lockstep_cases.
+    Capture, the calls eager) by fwd_stage_kernel equals the plain
+    version: the state, pf, the records where j < steps and zero past
+    them; one launch a stage."""
+    from compseed_tpu_torch.ops import lockstep_cases, seeder2
+    fm, reads = bench
+    sd, fns = _engine_seeder(dev, bench, dtype, "fwd_staged")
+    R, L, qd, rd = sd._upload(list(reads[:16384]))
+    # up to the merge: at int64 the overflowed chunk's merged suffix-array
+    # lookup never ends (lockstep_cases.run_forward)
+    with seeder2.EagerCalls(), lockstep_cases.Capture() as cap:
+        lockstep_cases.run_forward(sd, fns, qd, rd)
+    calls = [c for c in cap.calls if c.kind == "fwd"]
+    assert len(calls) == cap.counts["fwd"] == 17 and not cap.counts["scan"]
+    n0 = _lockstep_launches()["fwd_stage_kernel"]
+    for i, call in enumerate(calls):
+        assert lockstep_cases.vs_plain(call) == 0, (i, call.lanes, call.B)
+    assert _lockstep_launches()["fwd_stage_kernel"] == n0 + 17
 
 
 @pytest.mark.parametrize("name", GRAPHED)
 def test_graphed_engine_call_graph_equals_eager_on_card(dev, bench, name):
-    """Each engine that takes the call graph since its lockstep loops run
-    on the card: two 16,384-read bench chunks (the first captures the
-    graph, the second replays it) by the graph equal the eager _run,
-    head and seed matrix; no chunk-global overflow."""
+    """Each engine that takes the call graph since its loops run on the
+    card: two 16,384-read bench chunks (the first captures the graph, the
+    second replays it) by the graph equal the eager _run, head and seed
+    matrix; no chunk-global overflow but fwd_staged's, whose rep caps the
+    bench chunks overflow (as the JAX package's heads show:
+    compseed_tpu_torch/engine_heads.json)."""
     import threading
     fm, reads = bench
     sd, fns = _engine_seeder(dev, bench, "int32", name)
@@ -2135,7 +2164,7 @@ def test_graphed_engine_call_graph_equals_eager_on_card(dev, bench, name):
                                                        (c + 1) * 16384]))
         for e, g in zip(eager, graph):
             assert torch.equal(e, g), (name, c)
-        assert not eager[0][3:14].any()
+        assert bool(eager[0][3:14].any()) == (name == "fwd_staged")
     assert len(sd._calls.by_thread[threading.get_ident()]) == 1
     sd._calls.drop_thread()
 
@@ -2174,9 +2203,10 @@ def test_sa_batch_loop_on_card(dev, bench, dtype):
 
 
 def test_lockstep_wrappers_check_inputs_on_card(dev, bench):
-    """The scan's launcher refuses CPU tensors, a capl below 1 and wrong
-    dtypes, and launches nothing for them; a stage of no lanes runs no
-    kernel."""
+    """The scan's and the forward stage's launchers refuse CPU tensors, a
+    capl below 1 and wrong dtypes, and launch nothing for them; a stage
+    of no lanes runs no kernel; a forward stage of dead lanes takes no
+    step and leaves its records zero."""
     from compseed_tpu_torch.ops import lockstep_cuda
     dfi = _bench_index(bench, dev, "int32")
     R, L = 64, 32
@@ -2200,3 +2230,27 @@ def test_lockstep_wrappers_check_inputs_on_card(dev, bench):
     lp.run(lp.empty_lanes(0), 0)
     assert _lockstep_launches() == dict(
         n0, scan_lanes_kernel=n0["scan_lanes_kernel"] + 1)
+    # the forward stage: a CPU tensor or a wrong dtype refused, no lanes
+    # no launch; every lane dead: no step, the records zero
+    st = dict(k=z.to(dfi.dtype), l=z.to(dfi.dtype), s=z.to(dfi.dtype),
+              pos=z + 1, pivot=z, rid=torch.arange(R, dtype=torch.int32,
+                                                   device=dev),
+              alive=torch.zeros(R, dtype=torch.bool, device=dev))
+    nxt = torch.full((R * L,), L, dtype=torch.int32, device=dev)
+    args = (dfi, q.reshape(-1), nxt, L, 8)
+    mh = z.to(dfi.dtype) + 1
+    with pytest.raises(ValueError):
+        lockstep_cuda.fwd_stage(*args, {n: x.cpu() for n, x in st.items()},
+                                mh.cpu(), True, False)
+    with pytest.raises(TypeError):
+        lockstep_cuda.fwd_stage(*args, dict(st, pos=st["pos"].long()), mh,
+                                True, False)
+    n1 = _lockstep_launches()
+    out = lockstep_cuda.fwd_stage(*args, {n: x[:0] for n, x in st.items()},
+                                  mh[:0], True, False)
+    assert out["pf"].shape == (0, 8) and _lockstep_launches() == n1
+    out = lockstep_cuda.fwd_stage(*args, st, mh, True, False)
+    assert not out["steps"].any() and not out["pf"].any() and \
+        not out["pk"].any() and not out["alive"].any()
+    assert _lockstep_launches() == dict(
+        n1, fwd_stage_kernel=n1["fwd_stage_kernel"] + 1)

@@ -20,6 +20,7 @@ import contextlib
 import hashlib
 import json
 import os
+import shutil
 import sys
 
 import numpy as np
@@ -412,12 +413,27 @@ def _fwd_kw(case, R, L, rl):
     return stages, {}
 
 
+@pytest.fixture(scope="module")
+def lockstep_twin(tmp_path_factory):
+    """compseed_tpu_torch/csrc/lockstep.cu built with g++ into its host
+    loops (the forward stage kernel's lane code among them)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to build the kernels' lane code")
+    from compseed_tpu_torch.ops import lockstep_cases
+    return lockstep_cases.HostTwin(
+        str(tmp_path_factory.mktemp("lockstep") / "liblockstep_host.so"))
+
+
 @pytest.mark.parametrize("case", ["r1", "r1_small", "task", "r3"])
-def test_forward_scan_dedup_vs_jax(idx, edge, case):
+def test_forward_scan_dedup_vs_jax(idx, edge, case, lockstep_twin,
+                                   monkeypatch):
     """The staged forward dedup in its round-1 form (and with the
     seeder's rep caps, which overflow here), its round-2 task form and
     its greedy round-3 form:
-    the pool, its row count, the overflow flag and fq / fc."""
+    the pool, its row count, the overflow flag and fq / fc; on the plain
+    route and with every stage on the kernel route, fwd_stage_kernel's
+    lane code by its host loop (the twin at lockstep_cuda._launch)."""
+    from compseed_tpu_torch.ops import lockstep_cuda
     jd, td = idx
     qarr, rl = edge[:2]
     R, L = qarr.shape
@@ -427,13 +443,17 @@ def test_forward_scan_dedup_vs_jax(idx, edge, case):
         jd, jnp.asarray(qarr), jnp.asarray(rl), GP, stages,
         **{k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
            for k, v in kw.items()})
-    got = tss.forward_scan_dedup(
-        td, edge[2], edge[3], GP, stages,
-        **{k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-           for k, v in kw.items()})
+    tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+           for k, v in kw.items()}
+    got = tss.forward_scan_dedup(td, edge[2], edge[3], GP, stages, **tkw)
     _assert_all(got, want, ("pool", "n", "ovf", "fq", "fc"))
     assert bool(got[2]) == (case == "r1_small")
     assert int(got[1]) > 0 and int(got[4]) <= int(got[3])
+    monkeypatch.setattr(tss, "_fwd_route",
+                        lambda dev: tss._fwd_stage_walk_kernel)
+    monkeypatch.setattr(lockstep_cuda, "_launch", lockstep_twin.launch)
+    got = tss.forward_scan_dedup(td, edge[2], edge[3], GP, stages, **tkw)
+    _assert_all(got, want, ("pool", "n", "ovf", "fq", "fc"))
 
 
 def test_forward_scan_dedup_matches_lockstep_pool(idx, edge):

@@ -627,11 +627,14 @@ def test_dispatch_rejects_other_devices(idx):
 def test_plain_versions_only_for_cpu_tensors():
     """Source scan: each entry point (ops/fm.py's extend_sel_batch and
     _walk, ops/seedscan.py's _chain_walk) reaches its plain version only
-    under ``if <tensor>.device.type == "cpu":``; ops/fm_cuda.py and
-    ops/cuda_lib.py never reach a plain version, no ``try`` wraps a
-    launch, and no environment knob selects a path."""
-    from compseed_tpu_torch.ops import cuda_lib
-    for mod in (fm_cuda, cuda_lib):
+    under ``if <tensor>.device.type == "cpu":``, and each route (the
+    lockstep loops' _scan_route, _walk_route and _fwd_route, the round
+    loops' _chain_round and _walk_round, ops/fm.py's _sa_loop and
+    _sa_compact) only under ``if dev.type == "cpu":``; ops/fm_cuda.py,
+    ops/lockstep_cuda.py and ops/cuda_lib.py never reach a plain version,
+    no ``try`` wraps a launch, and no environment knob selects a path."""
+    from compseed_tpu_torch.ops import cuda_lib, lockstep_cuda
+    for mod in (fm_cuda, lockstep_cuda, cuda_lib):
         src = inspect.getsource(mod)
         nodes = list(ast.walk(ast.parse(src)))
         names = [n.id if isinstance(n, ast.Name) else n.attr for n in nodes
@@ -658,6 +661,18 @@ def test_plain_versions_only_for_cpu_tensors():
     for fn in (fm_cuda._launch_extend_sel, fm_cuda._launch_chain_walk,
                fm_cuda.inv_psi_walk):
         assert "_cuda_device(" in inspect.getsource(fn), fn.__name__
+    for fn in (tss._scan_route, tss._walk_route, tss._fwd_route,
+               tss._chain_round, tss._walk_round, tfm._sa_loop,
+               tfm._sa_compact):
+        tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+        plain = [n for n in ast.walk(tree) if isinstance(n, ast.Name)
+                 and n.id.endswith("_plain")]
+        assert len(plain) == 1, fn.__name__
+        assert not any(isinstance(n, ast.Try) for n in ast.walk(tree))
+        assert any(isinstance(n, ast.If) and ast.unparse(n.test) ==
+                   "dev.type == 'cpu'" and any(x is plain[0] for x in
+                                               ast.walk(n.body[0]))
+                   for n in ast.walk(tree)), fn.__name__
 
 
 def test_port_entry_points_dispatch_through_fm_cuda():
@@ -675,6 +690,13 @@ def test_port_entry_points_dispatch_through_fm_cuda():
     assert "fm_cuda.SaLoop(" in inspect.getsource(
         tfm._sa_batch_compact_kernels)
     assert "fm_cuda.chain_walk(" in inspect.getsource(tss._chain_walk)
+    # the staged forward walk: its plain version's extensions go through
+    # extend_sel_batch, its kernel route through ops/lockstep_cuda.py
+    assert "extend_sel_batch(" in inspect.getsource(
+        tss._fwd_stage_walk_plain)
+    assert "lockstep_cuda.fwd_stage(" in inspect.getsource(
+        tss._fwd_stage_walk_kernel)
+    assert "_fwd_route(" in inspect.getsource(tss._fwd_stage_walk)
 
 
 # ---------------------------------------------------------------------------
