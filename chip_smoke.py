@@ -18,7 +18,11 @@ Phases, in order; any failure exits non-zero:
                 wrong tile is fatal.  The probe and
                 torch.add are timed two ways each: a loop of launches
                 between two events, and the same launches captured once
-                in a CUDA graph and replayed.
+                in a CUDA graph and replayed.  For smem_collect_kernel and
+                fwd_stage_kernel it prints the lanes the card keeps
+                resident (the occupancy query times the SMs), int32 and
+                int64, and ptxas' registers and spills (the parent's
+                builds' too, with the options below).
   2. kernels  — the DP kernel (H/E rows in shared memory) and its
                 device-memory-scratch variant against the plain PyTorch
                 version on the card, exactly, on seeded random pairs at
@@ -110,8 +114,9 @@ Phases, in order; any failure exits non-zero:
                 forward stage kernel on all 17 stages of fwd_staged's,
                 int32 and int64, exact against their plain versions (a
                 scan's lep, cnt, ovf; a stage's lanes, t and live count;
-                a forward stage's state, pf, and its records where j <
-                steps, zero past them).
+                a forward stage's state, pf (false past a lane's steps),
+                and its other records where j < steps), the outputs
+                poisoned before each launch.
                 Then each seeding call as one CUDA graph (DeviceSeeder.
                 _call: the default engine's whole call captured once a
                 thread and call shape, its loops joining the capture)
@@ -364,7 +369,15 @@ parent's; repeatable) does the same for
 the walk kernels, with the port's csrc/ on the include path unless a
 lookback.cuh sits beside FILE, on every round of the first chunk's two
 walk_pool_chain calls and their forms, and over one chunk's seeding by
-the profiler.  No option changes what the port itself runs.
+the profiler.  --smem-old-source FILE and --lockstep-old-source FILE
+(another csrc/smem_seed.cu or csrc/lockstep.cu with the port's
+launchers, such as the parent's, built with the port's csrc/ on the
+include path after the file's own directory) time that build's collect
+kernel on every collect call of the forced overflow's rerun, and its
+forward stage kernel on every stage of fwd_staged's first chunk (on
+records zeroed first, as the parent's wrapper zeroed them), against the
+port's in turns (old, new, new, old) on the card alone, each held to the
+plain version first.  No option changes what the port itself runs.
 
 Phases 3 to 7 seed every chunk of every engine by its call graph (the
 first chunk of a shape on a thread captures it).
@@ -1639,9 +1652,10 @@ def fm_redesign(dev, builds: dict, calls: dict, dfi, fm_host) -> dict:
 
 def smem_check(tag, calls, fm64) -> dict:
     """Every captured rerun call (``calls``: smem_cases.Call, int32 index)
-    by its kernel against its plain version on the card, and again on the
-    same lanes over ``fm64``, the same genome with int64 positions: max
-    abs err over the outputs of each kind (0: bit-equal), or exit 1."""
+    by its kernel, its output poisoned first (smem_cases.vs_plain),
+    against its plain version on the card, and again on the same lanes
+    over ``fm64``, the same genome with int64 positions: max abs err over
+    the outputs of each kind (0: bit-equal), or exit 1."""
     import dataclasses
 
     from compseed_tpu_torch.ops import smem_cases
@@ -1659,21 +1673,129 @@ def smem_check(tag, calls, fm64) -> dict:
     return dict(calls=len(calls), max_abs_err=errs)
 
 
-def smem_time(calls, twin, step_ms: float, reps: int = 20) -> list:
+def old_build(module, source):
+    """Another build of ``module``'s source (``source``: such as the
+    parent's, --smem-old-source / --lockstep-old-source; its C launchers
+    the port's), compiled with the port's csrc/ on the include path
+    (after the file's own directory) into a library of its own and bound
+    by ``module._bind``: {"lib", "log" (nvcc's output)}; None without a
+    source."""
+    if not source:
+        return None
+    import ctypes as ct
+    from compseed_tpu_torch.ops import cuda_lib
+    name = os.path.splitext(os.path.basename(module.LIB.src))[0]
+    so = os.path.join(cuda_lib.BUILD, f"lib{name}_old.so")
+    out = cuda_lib.compile_source(os.path.abspath(source), so, includes=(
+        os.path.dirname(module.LIB.src),))
+    lib = ct.CDLL(so)
+    module._bind(lib)
+    err_name = getattr(lib, module.LIB._error_name)
+    err_name.restype, err_name.argtypes = ct.c_char_p, [ct.c_int]
+    return dict(lib=lib, log=out)
+
+
+@contextlib.contextmanager
+def launching(module, build):
+    """``module``'s wrappers launch ``build``'s kernels (old_build's) for
+    the block, in place of the port's library (counted as the port's);
+    with ``build`` None, the port's own."""
+    if build is None:
+        yield
+        return
+    saved = module.LIB._lib
+    module.LIB._lib = build["lib"]
+    try:
+        yield
+    finally:
+        module.LIB._lib = saved
+
+
+def ptxas_usage(log: str) -> dict:
+    """Each kernel's line of ptxas' report in ``log`` (cuda_lib.
+    compile_source's output, which KernelLibrary.build keeps in ``log``):
+    mangled name -> registers, spill stores and loads (bytes), stack frame
+    and shared memory (bytes)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name is None:
+            continue
+        rec = out.setdefault(name, {})
+        for key, pat in (("stack", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("registers", r"Used (\d+) registers"),
+                         ("smem", r"(\d+) bytes smem")):
+            hit = re.search(pat, line)
+            if hit:
+                rec[key] = int(hit.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}
+
+
+def kernel_usage(log: str, kernel: str) -> dict:
+    """ptxas' registers, spills, stack and shared bytes of ``kernel``'s
+    int32_t and int64_t instantiations in nvcc's output ``log`` (keyed
+    "int32", or "int32/G" where a second template argument G, the
+    collect kernel's threads a lane, follows)."""
+    out = {}
+    for name, rec in ptxas_usage(log or "").items():
+        m = re.search(kernel + r"I([il])(?:Li(\d+)E)?E", name)
+        if m:
+            key = "int32" if m.group(1) == "i" else "int64"
+            out[key + (f"/{m.group(2)}" if m.group(2) else "")] = rec
+    return out
+
+
+def occupancy_line(kernel: str, occ: dict, usage: dict) -> str:
+    """One line of a kernel's residency on the card (the occupancy query,
+    by index type and the call's lanes) and ptxas' registers and
+    spills."""
+    return f"[occupancy] {kernel}: " + "; ".join(
+        f"{key}: {o['threads_per_lane']} threads a lane, "
+        f"{o['blocks_per_sm']} blocks x {o['lanes_per_block']} lanes x "
+        f"{o['sms']} SMs = {o['resident_lanes']} lanes resident, "
+        f"{o['registers']} registers, {o['local_bytes']} local bytes, "
+        f"{o['shared_bytes']} shared bytes a block" for key, o in occ.items()
+    ) + f"; ptxas {json.dumps(usage)}"
+
+
+def turns_ms(run, builds: dict, reps: int) -> dict:
+    """``run()``'s ms on the card alone (launch_ms) with each of ``builds``
+    (name -> a context manager's maker: launching's) in turns, the builds
+    in order and then in reverse: name -> [ms, ms]."""
+    out = {b: [] for b in builds}
+    for b in list(builds) + list(builds)[::-1]:
+        with builds[b]():
+            out[b].append(launch_ms(run, reps))
+    return out
+
+
+def smem_time(calls, twin, step_ms: float, reps: int = 20,
+              old=None) -> list:
     """Each captured rerun call (int32) by its kernel: ms in a loop of
     calls (CUDA events: the host's rate with the output's allocation) and
     on the card alone (launch_ms: a CUDA graph of ``reps`` launches,
-    replayed); the plain version's ms (one call) for the first and second
-    collect calls, the last (a round 2) and each round-3 call; the bound
-    from smem_cases.work (the distinct
-    occ rows' bytes and the lanes' against the ranks' operations) and the
-    latency floor, the longest lane's dependent steps times ``step_ms``
-    (one dependent step of the chain walk on the same table,
+    replayed); with ``old`` (old_build's: the parent's source) the
+    collect calls alone by both builds in turns (old, new, new, old:
+    ``turns``), each held to the plain version first; the plain version's
+    ms (one call) for the first and second collect calls, the last (a
+    round 2) and each round-3 call; the bound from smem_cases.work (the
+    distinct occ rows' bytes and the lanes' against the ranks' operations)
+    and the latency floor, the longest lane's dependent steps times
+    ``step_ms`` (one dependent step of the chain walk on the same table,
     fm_latency)."""
-    from compseed_tpu_torch.ops import smem_cases
+    from compseed_tpu_torch.ops import smem_cases, smem_cuda
     collects = [c for c in calls if c.kind == "collect"]
     timed_plain = {id(c) for c in collects[:2] + collects[-1:]} | {
         id(c) for c in calls if c.kind == "strategy"}
+    builds = {"new": lambda: launching(smem_cuda, None)}
+    if old is not None:
+        builds = {"old": lambda: launching(smem_cuda, old), **builds}
     out = []
     for call in calls:
         w = smem_cases.work(call, twin)
@@ -1688,13 +1810,44 @@ def smem_time(calls, twin, step_ms: float, reps: int = 20) -> list:
                                        1) if id(call) in timed_plain else None,
                  bound_ms=bound_ms, bound_by=bound_by, ops=ops,
                  floor_ms=w["max_steps"] * step_ms, work=w)
+        if call.kind == "collect":
+            r["threads_per_lane"] = smem_cuda.occupancy(
+                call.fm.dtype, call.args[0].device,
+                call.lanes)["threads_per_lane"]
+        if call.kind == "collect" and old is not None:
+            with launching(smem_cuda, old):
+                e = smem_cases.vs_plain(call)
+            if e:
+                raise SystemExit(f"the old collect build disagrees with the "
+                                 f"plain version at {call.lanes} lanes: {e}")
+            r["turns"] = turns_ms(lambda: smem_cases.run(call, "kernel"),
+                                  builds, reps)
         out.append(r)
-        log(f"[smem] {call.kind} P={call.lanes} L={call.L}: {r['ms']:.4f} ms "
-            f"in a loop, {r['graph_ms']:.5f} ms alone (plain "
-            f"{r['plain_ms']}); {w['rows']} occ rows, {w['bytes']} B, "
+        log(f"[smem] {call.kind} P={call.lanes} L={call.L} "
+            f"({r.get('threads_per_lane', 2)} threads a lane): "
+            f"{r['ms']:.4f} ms in a loop, {r['graph_ms']:.5f} ms alone (plain "
+            f"{r['plain_ms']}); in turns {json.dumps(r.get('turns'))}; "
+            f"{w['rows']} occ rows, {w['bytes']} B, "
             f"{w['extensions']} extensions, steps max {w['max_steps']} mean "
             f"{w['mean_steps']:.1f}; bound {bound_ms:.6f} ms by {bound_by}, "
             f"floor {r['floor_ms']:.5f} ms")
+    for kind in ("collect", "strategy"):
+        log(f"[smem] {kind}: the run's calls summed "
+            f"{json.dumps(call_sums([r for r in out if r['kind'] == kind]))}")
+    return out
+
+
+def call_sums(recs) -> dict:
+    """A kernel's calls of a run summed (smem_time's or lockstep_time's
+    records): launches, ms alone, bound, floor, time less bound, and with
+    turns each build's mean of its turns."""
+    out = dict(calls=len(recs), graph_ms=sum(r["graph_ms"] for r in recs),
+               bound_ms=sum(r["bound_ms"] for r in recs),
+               floor_ms=sum(r["floor_ms"] for r in recs))
+    out["gap_ms"] = out["graph_ms"] - out["bound_ms"]
+    if recs and all("turns" in r for r in recs):
+        out["turns_ms"] = {b: sum(statistics.mean(r["turns"][b])
+                                  for r in recs) for b in recs[0]["turns"]}
     return out
 
 
@@ -1718,9 +1871,12 @@ def smem_rows(smem_rec, row) -> list:
             first["ms"], first["plain_ms"], first, source=SMEM_SOURCE,
             at=f"{first['lanes']} lanes, L = {first['L']}",
             graph_ms=first["graph_ms"], latency_floor_ms=first["floor_ms"],
-            calls=[{k: r[k] for k in ("lanes", "ms", "graph_ms", "plain_ms",
-                                      "bound_ms", "floor_ms")}
-                   for r in calls]))
+            calls=[{k: r.get(k) for k in ("lanes", "threads_per_lane", "ms",
+                                          "graph_ms", "plain_ms", "bound_ms",
+                                          "floor_ms", "turns")}
+                   for r in calls], summed=call_sums(calls),
+            **({"occupancy": smem_rec["occupancy"]} if kind == "collect"
+               else {})))
     return rows
 
 
@@ -1761,8 +1917,9 @@ def lockstep_check(cases: dict) -> dict:
     """Every captured call (``cases``: tag -> lockstep_capture's) by the
     kernels against the plain version on the card: a scan's lep, cnt and
     ovf; a stage's lanes, t and live (the entry, then the segments of its
-    loop); a forward stage's state and records (lockstep_cases.fwd_vs: the
-    records where j < steps, the kernel's zero past them); max abs err by
+    loop); a forward stage's state and records (lockstep_cases.fwd_vs: pf
+    everywhere, the other records where j < steps), every kernel's outputs
+    poisoned before its launch (lockstep_cases.vs_plain); max abs err by
     kernel and tag (0: bit-equal), or exit 1; fwd_staged's stages must
     number FWD_STAGES a tag."""
     from compseed_tpu_torch.ops import lockstep_cases
@@ -1827,11 +1984,32 @@ def segment_ms(lp, reps: int) -> float:
         "walk_stage_kernel", lp.dev, args)), reps) - launch_ms(restore, reps)
 
 
-def lockstep_time(calls, twin, step_ms: float, reps: int = 10) -> list:
+@contextlib.contextmanager
+def zeroing_parent(build):
+    """lockstep_cuda.fwd_stage as the parent's tree ran it for the block:
+    ``build``'s kernels (old_build's) on records zeroed before the launch,
+    as its wrapper allocated them (torch.zeros)."""
+    from compseed_tpu_torch.ops import lockstep_cuda
+    records = lockstep_cuda._records
+    lockstep_cuda._records = lambda *a: {n: x.zero_() for n, x in
+                                         records(*a).items()}
+    try:
+        with launching(lockstep_cuda, build):
+            yield
+    finally:
+        lockstep_cuda._records = records
+
+
+def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
+                  old=None) -> list:
     """Each captured call (int32) on the card: a scan's or a forward
-    stage's launch in a loop (CUDA events: the host's rate, its outputs'
-    allocation and the records' zeroing with it) and alone (launch_ms: a
-    CUDA graph of ``reps`` calls, replayed); a stage's
+    stage's launch in a loop (CUDA events: the host's rate and its
+    outputs' allocation with it) and alone (launch_ms: a CUDA graph of
+    ``reps`` calls, replayed); with ``old`` (old_build's: the parent's
+    source) each forward stage alone by the parent's kernel on zeroed
+    records (zeroing_parent: what a stage cost there) and by the port's
+    in turns (old, new, new, old: ``turns``), the parent's held to the
+    plain version first; a stage's
     whole loop the same two ways (its entry, then its segments: in a loop
     each call captures, launches and frees its loop graph; alone the loop
     joins the replayed graph) and its entry kernel alone, the segment
@@ -1875,15 +2053,28 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10) -> list:
             r.update(B=call.B, mode=call.kw.get("mode", "lep"),
                      advance=call.advance,
                      live=int(call.state["alive"].sum()))
+            if old is not None:
+                with zeroing_parent(old):
+                    e = lockstep_cases.vs_plain(call)
+                if e:
+                    raise SystemExit(f"the parent's forward stage disagrees "
+                                     f"with the plain version: {e}")
+                r["turns"] = turns_ms(
+                    lambda: lockstep_cases.run(call, "kernel"),
+                    {"old": lambda: zeroing_parent(old),
+                     "new": lambda: launching(lockstep_cuda, None)}, reps)
         out.append(r)
         log(f"[lockstep] {engine} {call.kind} {call.lanes} lanes: "
             f"{r['ms']:.4f} ms in a loop, {r['graph_ms']:.5f} ms alone "
             f"(plain {r['plain_ms']:.3f}); entry {r.get('entry_ms')}, "
             f"segments {r.get('segments')}, segment {r.get('segment_ms')}; "
+            f"in turns {json.dumps(r.get('turns'))}; "
             f"{w['rows']} occ rows, {w['bytes']} B, {w['extensions']} "
             f"extensions, steps max {w['max_steps']} mean "
             f"{w['mean_steps']:.1f}; bound {bound_ms:.6f} ms by {bound_by}, "
             f"floor {r['floor_ms']:.5f} ms")
+    log(f"[lockstep] the forward stages summed "
+        f"{json.dumps(call_sums([r for r in out if r['kind'] == 'fwd']))}")
     return out
 
 
@@ -1947,11 +2138,10 @@ def lockstep_rows(rec, row) -> list:
                f"first stage); the chunk's {len(fwds)} stages in calls",
             graph_ms=fwds[0]["graph_ms"],
             latency_floor_ms=fwds[0]["floor_ms"],
-            chunk=dict(graph_ms=sum(r["graph_ms"] for r in fwds),
-                       plain_ms=sum(r["plain_ms"] for r in fwds),
-                       bound_ms=sum(r["bound_ms"] for r in fwds),
-                       floor_ms=sum(r["floor_ms"] for r in fwds)),
-            calls=calls(fwds, keys + ("B", "mode", "live")))]
+            chunk=dict(call_sums(fwds),
+                       plain_ms=sum(r["plain_ms"] for r in fwds)),
+            occupancy=rec["occupancy"],
+            calls=calls(fwds, keys + ("B", "mode", "live", "turns")))]
 
 
 def fwd_stream(opt, fm, dfi, dev, engine, tail, chunks, main_sams) -> dict:
@@ -5177,9 +5367,15 @@ def main() -> None:
     ap.add_argument("--fm-old-source")
     ap.add_argument("--chain-old-source", action="append", default=[])
     ap.add_argument("--walk-old-source", action="append", default=[])
+    ap.add_argument("--smem-old-source")
+    ap.add_argument("--lockstep-old-source")
     cli = ap.parse_args()
-    if cli.fm_old_source and not os.path.isfile(cli.fm_old_source):
-        ap.error(f"--fm-old-source {cli.fm_old_source}: no such file")
+    for opt_name, src in (("--fm-old-source", cli.fm_old_source),
+                          ("--smem-old-source", cli.smem_old_source),
+                          ("--lockstep-old-source",
+                           cli.lockstep_old_source)):
+        if src and not os.path.isfile(src):
+            ap.error(f"{opt_name} {src}: no such file")
     for opt_name, srcs in (("--chain-old-source", cli.chain_old_source),
                            ("--walk-old-source", cli.walk_old_source)):
         for src in srcs:
@@ -5255,6 +5451,12 @@ def main() -> None:
         # (g++), for their work counts
         twin = ex.submit(smem_cases.HostTwin)
         ls_twin = ex.submit(lockstep_cases.HostTwin)
+        # the parent's collect and forward stage kernels, timed in turns
+        # with the port's in phase 4 (--smem-old-source,
+        # --lockstep-old-source)
+        smem_old = ex.submit(old_build, smem_cuda, cli.smem_old_source)
+        ls_old = ex.submit(old_build, lockstep_cuda,
+                           cli.lockstep_old_source)
         dp_build_s = timed_build(bsw_cuda.build_library)
         fm_build_s = fm_build.result()
         chain_build_s = chain_build.result()
@@ -5265,6 +5467,8 @@ def main() -> None:
         host.result()
         twin = twin.result()
         ls_twin = ls_twin.result()
+        smem_old = smem_old.result()
+        ls_old = ls_old.result()
     fm_cuda.LIB.load()
     chain_cuda.LIB.load()
     walk_cuda.LIB.load()
@@ -5275,6 +5479,27 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
         torch.cuda.synchronize()
+    # what the card gives the collect and forward-stage kernels: resident
+    # lanes by the occupancy query, ptxas' registers and spills; an
+    # earlier build's registers and spills beside them
+    occupancy = {}
+    for kernel, module, fn, widths, old in (
+            ("smem_collect_kernel", smem_cuda, smem_cuda.occupancy,
+             (4096, 16384), smem_old),
+            ("fwd_stage_kernel", lockstep_cuda,
+             lambda t, d, lanes: lockstep_cuda.fwd_occupancy(t, d), (65536,),
+             ls_old)):
+        occupancy[kernel] = dict(
+            occupancy={f"{dt} at {lanes} lanes": fn(t, dev, lanes)
+                       for dt, t in (("int32", torch.int32),
+                                     ("int64", torch.int64))
+                       for lanes in widths},
+            ptxas=kernel_usage(module.LIB.log, kernel),
+            old_ptxas=kernel_usage(old["log"], kernel) if old else None)
+        log(occupancy_line(kernel, occupancy[kernel]["occupancy"],
+                           occupancy[kernel]["ptxas"]) +
+            f"; the parent's build: ptxas "
+            f"{json.dumps(occupancy[kernel]['old_ptxas'])}")
     log(f"[1] build: DP kernels {dp_build_s:.2f} s, FM kernels "
         f"{fm_build_s:.2f} s, chain kernels {chain_build_s:.2f} s, walk "
         f"kernels {walk_build_s:.2f} s, exact rerun kernels "
@@ -5978,7 +6203,9 @@ def main() -> None:
     del golden_calls
     smem_rec["time"] = smem_time(
         forced_cap.calls, twin,
-        fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"])
+        fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"],
+        old=smem_old)
+    smem_rec["occupancy"] = occupancy["smem_collect_kernel"]
     del forced_cap
     smem_rec["phase_s"] = time.time() - t0
     log(f"[smem] the exact rerun's kernels: {smem_rec['phase_s']:.1f} s")
@@ -5989,7 +6216,9 @@ def main() -> None:
     t0 = time.time()
     ls_rec["time"] = lockstep_time(
         ls_calls, ls_twin,
-        fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"])
+        fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"],
+        old=ls_old)
+    ls_rec["occupancy"] = occupancy["fwd_stage_kernel"]
     del ls_calls
     ls_rec["sa_batch_turns"] = sa_batch_turns(sa_keys)
     del sa_keys

@@ -70,13 +70,19 @@
 //   record that pf marks.  A pair of threads a lane (PairRanks): the
 //   forward child of base 3 - q[pos] at the l coordinate (extend_sel,
 //   is_back = false); "r3" extends at an ambiguous base too (by child 0),
-//   since its record is the extension's output, pushed or not.
-//   Deliberate difference: the records pf, pk, pl, ps, pe, pp (U, B) are
-//   written for the lane's steps j < steps[u] only, as the JAX body
-//   writes them, pushed or not; the columns past steps[u] stay as the
-//   caller zeroed them, where the plain version (and JAX) write the
-//   lane's frozen values with pf false.  forward_scan_dedup reads no
-//   record whose pf is false (each goes to the dropped slot GP).
+//   since its record is the extension's output, pushed or not.  A warp
+//   steps its 16 lanes kFwdSeg = 8 steps at a time (each lane while it is
+//   active), stages the records in shared memory and flushes the segment
+//   whole, a lane's 8 columns from 8 consecutive threads; past its last
+//   segment it writes pf false in its lanes' remaining columns.  The
+//   wrapper allocates the records uninitialised: no zeroing.
+//   Deliberate difference: of the records (U, B), pf is written in every
+//   column (false past the lane's steps), pk, pl, ps, pe, pp for the
+//   lane's steps j < steps[u] only, as the JAX body writes them, pushed
+//   or not; past steps[u] those five are unspecified, where the plain
+//   version (and JAX) write the lane's frozen values with pf false.
+//   forward_scan_dedup reads no record whose pf is false (each goes to
+//   the dropped slot GP).
 //
 // T is the index type (int32_t or int64_t); arithmetic on intervals wraps
 // in T as the plain version's tensors do, and the occ rows are read as
@@ -92,7 +98,9 @@
 // of the longest lane's dependent steps decides: a round-1 scan lane takes
 // some 100-300 extensions, a walk segment at most 8, a forward stage at
 // most B (8 to L + 2).  The forward stage's records are (U, B) rows, one
-// a lane, so its stores are strided: a first design.
+// a lane (forward_scan_dedup gathers them by row): what a stage must
+// write is pf for every column and the five others for the steps taken,
+// so it zeroes nothing and stores whole segments of a row.
 //
 // The launchers allocate nothing, launch on the given stream of the
 // calling thread's current device (ops/lockstep_cuda.py makes the tensors'
@@ -402,8 +410,9 @@ struct FwdArgs {
   // pivot, wait_npv, steps (int32); alive, waiting (bool)
   long long out_k, out_l, out_s, out_pos, out_pivot, out_wait_npv, out_steps,
       out_alive, out_waiting;
-  // the records, (U, B) each, zeroed by the caller: pf (bool); pk, pl, ps
-  // (index type); pe, pp (int32)
+  // the records, (U, B) each: pf (bool); pk, pl, ps (index type); pe, pp
+  // (int32); the kernel writes pf in every column, the others for a
+  // lane's steps j < steps only
   long long pf, pk, pl, ps, pe, pp;
 };
 
@@ -450,76 +459,80 @@ FM_HD int fwd_base(const FwdArgs& a, int32_t rid, int32_t p) {
   return p < a.L ? ((const uint8_t*)a.qflat)[flat_at(a, rid, p)] : 4;
 }
 
-// A representative's stage (JAX seedscan.py:886-988, one step an
-// iteration while the lane is active, at most B): rec(j, record) stores
-// step j's record.  A lane that is not active reads nothing.
+// Whether a representative takes another step of its stage (JAX
+// seedscan.py:886-888): alive and inside its window [pos0, pos_end).
+template <typename T>
+FM_HD bool fwd_active(const FwdLane<T>& x, int32_t pos_end) {
+  return x.alive && x.pos < pos_end;
+}
+
+// One step of an active representative (JAX seedscan.py:889-988): its
+// record, the state after it (steps counted, the in-window respawn).
 FM_FUNCTOR_CALLER
-template <typename T, typename Ranks, typename Rec>
-FM_HD void fwd_lane(const FmPacked<T>& fm, const FwdArgs& a, FwdLane<T>& x,
-                    const Ranks& ranks, const Rec& rec) {
-  const int32_t L = (int32_t)a.L, B = (int32_t)a.B;
-  const int32_t pos_end = x.pos + B;            // the window's limit
+template <typename T, typename Ranks>
+FM_HD FwdRecord<T> fwd_step(const FmPacked<T>& fm, const FwdArgs& a,
+                            FwdLane<T>& x, int32_t pos_end,
+                            const Ranks& ranks) {
+  const int32_t L = (int32_t)a.L;
   const bool r3 = a.r3 != 0;
-  for (int32_t j = 0; j < B && x.alive && x.pos < pos_end; ++j) {
-    const int32_t pos = x.pos;
-    const int base = fwd_base(a, x.rid, pos);
-    const bool amb = base > 3;
-    T okc[3] = {0, 0, 0};
-    if (r3 || !amb) {
-      const T ik[3] = {x.k, x.l, x.s};
-      extend_sel(fm, ik, 3 - (amb ? 3 : base), false, okc, ranks);
-    }
-    FwdRecord<T> r;
-    bool stop;
-    if (r3) {
-      // emit the post-extension interval when it first drops below
-      // max_intv at length >= min_len (bwt_seed_strategy1)
-      const bool hit = !amb && okc[2] < (T)a.max_intv &&
-                       (long long)(pos - x.pivot) >= a.min_len;
-      stop = hit || amb;
-      r = FwdRecord<T>{hit, okc[0], okc[1], okc[2], pos + 1, x.pivot};
-    } else {
-      const bool changed = !amb && okc[2] != x.s;
-      stop = amb || (changed && okc[2] < x.mh);
-      r = FwdRecord<T>{amb || changed, x.k, x.l, x.s, pos, x.pivot};
-    }
-    rec(j, r);
-    ++x.steps;
-    if (!stop) {
-      x.k = okc[0];
-      x.l = okc[1];
-      x.s = okc[2];
-      x.pos = pos + 1;
-      continue;
-    }
-    x.alive = false;
-    if (!a.advance) continue;
-    // the in-window respawn: a non-ambiguous stop re-consumes pos as the
-    // new pivot; an ambiguous one (any stop in round 3) jumps to the next
-    // non-ambiguous position inside the window, else parks
-    const bool here = !r3 && !amb;
-    const int32_t npv = pos + 1;
-    const int32_t nx =
-        npv < L ? ((const int32_t*)a.nxtflat)[flat_at(a, x.rid, npv)] : L;
-    const bool in_win = nx < pos_end && nx < L;
-    const bool jumper = r3 || amb;
-    const int32_t newpiv = here ? pos : nx;
-    const int base_n = fwd_base(a, x.rid, newpiv);
-    if ((here || (jumper && in_win)) && base_n < 4) {
-      T ik[3];
-      set_intv(fm, base_n, ik);
-      x.pivot = newpiv;
-      x.k = ik[0];
-      x.l = ik[1];
-      x.s = ik[2];
-      x.pos = newpiv + 1;
-      x.alive = true;
-    }
-    if (jumper && !in_win) {
-      x.waiting = true;
-      x.wait_npv = npv;
-    }
+  const int32_t pos = x.pos;
+  const int base = fwd_base(a, x.rid, pos);
+  const bool amb = base > 3;
+  T okc[3] = {0, 0, 0};
+  if (r3 || !amb) {
+    const T ik[3] = {x.k, x.l, x.s};
+    extend_sel(fm, ik, 3 - (amb ? 3 : base), false, okc, ranks);
   }
+  FwdRecord<T> r;
+  bool stop;
+  if (r3) {
+    // emit the post-extension interval when it first drops below
+    // max_intv at length >= min_len (bwt_seed_strategy1)
+    const bool hit = !amb && okc[2] < (T)a.max_intv &&
+                     (long long)(pos - x.pivot) >= a.min_len;
+    stop = hit || amb;
+    r = FwdRecord<T>{hit, okc[0], okc[1], okc[2], pos + 1, x.pivot};
+  } else {
+    const bool changed = !amb && okc[2] != x.s;
+    stop = amb || (changed && okc[2] < x.mh);
+    r = FwdRecord<T>{amb || changed, x.k, x.l, x.s, pos, x.pivot};
+  }
+  ++x.steps;
+  if (!stop) {
+    x.k = okc[0];
+    x.l = okc[1];
+    x.s = okc[2];
+    x.pos = pos + 1;
+    return r;
+  }
+  x.alive = false;
+  if (!a.advance) return r;
+  // the in-window respawn: a non-ambiguous stop re-consumes pos as the
+  // new pivot; an ambiguous one (any stop in round 3) jumps to the next
+  // non-ambiguous position inside the window, else parks
+  const bool here = !r3 && !amb;
+  const int32_t npv = pos + 1;
+  const int32_t nx =
+      npv < L ? ((const int32_t*)a.nxtflat)[flat_at(a, x.rid, npv)] : L;
+  const bool in_win = nx < pos_end && nx < L;
+  const bool jumper = r3 || amb;
+  const int32_t newpiv = here ? pos : nx;
+  const int base_n = fwd_base(a, x.rid, newpiv);
+  if ((here || (jumper && in_win)) && base_n < 4) {
+    T ik[3];
+    set_intv(fm, base_n, ik);
+    x.pivot = newpiv;
+    x.k = ik[0];
+    x.l = ik[1];
+    x.s = ik[2];
+    x.pos = newpiv + 1;
+    x.alive = true;
+  }
+  if (jumper && !in_win) {
+    x.waiting = true;
+    x.wait_npv = npv;
+  }
+  return r;
 }
 
 template <typename T>
@@ -560,28 +573,12 @@ FM_HD void fwd_store(const FwdArgs& a, long long u, const FwdLane<T>& x,
   }
 }
 
-// Step j's record of lane u, at u * B + j; part as fwd_store's (0: pk,
-// ps, pe; 1: pl, pp, pf).
-template <typename T>
-FM_HD void fwd_record(const FwdArgs& a, long long u, int j,
-                      const FwdRecord<T>& r, int part) {
-  const long long at = u * a.B + j;
-  if (part != 1) {
-    ((T*)a.pk)[at] = r.k;
-    ((T*)a.ps)[at] = r.s;
-    ((int32_t*)a.pe)[at] = r.e;
-  }
-  if (part != 0) {
-    ((T*)a.pl)[at] = r.l;
-    ((int32_t*)a.pp)[at] = r.p;
-    ((bool*)a.pf)[at] = r.push;
-  }
-}
-
 #ifdef __CUDACC__
 constexpr int kScanBlock = 64;     // threads a block, 2 a lane
 constexpr int kWalkBlock = 64;     // threads a block, 2 a lane
 constexpr int kFwdBlock = 64;      // threads a block, 2 a lane
+constexpr int kFwdSeg = 8;         // steps a lane stages before a flush
+constexpr int kWarpLanes = 16;     // a warp's lanes (pairs)
 
 template <typename T>
 __global__ void __launch_bounds__(kScanBlock) scan_lanes_kernel(
@@ -658,22 +655,105 @@ __global__ void __launch_bounds__(kEntryBlock) walk_stage_entry_kernel(
   segment_entry<kLive, kTicket, kEpoch>(a, stage_lanes<T>(a));
 }
 
+// A warp's records of one segment of its stage (kFwdSeg steps of each of
+// its lanes, row r the warp's r-th lane), staged in shared memory for the
+// flush; rows padded to kFwdSeg + 1 words against bank conflicts.
+template <typename T>
+struct FwdSegment {
+  T k[kWarpLanes][kFwdSeg + 1], l[kWarpLanes][kFwdSeg + 1],
+      s[kWarpLanes][kFwdSeg + 1];
+  int32_t e[kWarpLanes][kFwdSeg + 1], p[kWarpLanes][kFwdSeg + 1];
+  bool f[kWarpLanes][kFwdSeg + 1];
+  int n[kWarpLanes];                   // each lane's steps in the segment
+};
+
+// Step c of the segment of lane r, by thread t of its pair (0: k, s, e;
+// 1: l, p, pf).
+template <typename T>
+__device__ __forceinline__ void fwd_stage_record(FwdSegment<T>& sg, int r,
+                                                 int c,
+                                                 const FwdRecord<T>& rec,
+                                                 int t) {
+  if (t == 0) {
+    sg.k[r][c] = rec.k;
+    sg.s[r][c] = rec.s;
+    sg.e[r][c] = rec.e;
+  } else {
+    sg.l[r][c] = rec.l;
+    sg.p[r][c] = rec.p;
+    sg.f[r][c] = rec.push;
+  }
+}
+
+// The warp's segment to the records (columns j0 .. j0 + m - 1 of its
+// lanes' rows, from lane u0 on): thread `lt` of the warp takes element lt,
+// lt + 32, ..., kFwdSeg consecutive threads a lane's kFwdSeg columns; pf
+// for every column, the other five for the lane's steps in it.
+template <typename T>
+__device__ void fwd_flush(const FwdArgs& a, const FwdSegment<T>& sg,
+                          long long u0, int32_t j0, int m, int lt) {
+#pragma unroll
+  for (int el = lt; el < kWarpLanes * kFwdSeg; el += 32) {
+    const int r = el / kFwdSeg, c = el % kFwdSeg;
+    const long long u = u0 + r;
+    if (u >= a.U || c >= m) continue;
+    const long long at = u * a.B + j0 + c;
+    const bool stepped = c < sg.n[r];
+    ((bool*)a.pf)[at] = stepped && sg.f[r][c];
+    if (!stepped) continue;
+    ((T*)a.pk)[at] = sg.k[r][c];
+    ((T*)a.pl)[at] = sg.l[r][c];
+    ((T*)a.ps)[at] = sg.s[r][c];
+    ((int32_t*)a.pe)[at] = sg.e[r][c];
+    ((int32_t*)a.pp)[at] = sg.p[r][c];
+  }
+}
+
 // A forward stage: each representative's steps to its end, a pair of
-// threads a lane, which run the same program and split the stores.
+// threads a lane, which run the same program.  A warp steps its lanes a
+// segment of kFwdSeg steps at a time while any of them is active, staging
+// the records in shared memory, and flushes each segment whole (a lane's
+// kFwdSeg columns from kFwdSeg consecutive threads); past its last
+// segment it writes pf false in its lanes' remaining columns.  The
+// records of the five other kinds past a lane's steps are not written.
 template <typename T>
 __global__ void __launch_bounds__(kFwdBlock) fwd_stage_kernel(
     const FwdArgs a) {
-  const long long u = ((long long)blockIdx.x * kFwdBlock + threadIdx.x) / 2;
-  if (u >= a.U) return;                 // a whole pair
+  __shared__ FwdSegment<T> segs[kFwdBlock / 32];
+  const int lt = (int)(threadIdx.x & 31);
+  const long long u0 =
+      ((long long)blockIdx.x * kFwdBlock + (threadIdx.x & ~31u)) / 2;
+  if (u0 >= a.U) return;                // a whole warp
+  FwdSegment<T>& sg = segs[threadIdx.x >> 5];
+  const int r = lt >> 1;
+  const long long u = u0 + r;
   const FmPacked<T> fm = make_fm((const uint32_t*)a.rows, a.n_rows,
                                  (const T*)a.L2, a.primary, (int)a.fill_oob);
   const PairRanks<T> ranks{fm, Pair()};
   const int t = ranks.p.t;
-  FwdLane<T> x = fwd_load<T>(a, u);
-  fwd_lane(fm, a, x, ranks, [&](int j, const FwdRecord<T>& r) {
-    fwd_record(a, u, j, r, t);
-  });
-  fwd_store(a, u, x, t);
+  FwdLane<T> x{};
+  if (u < a.U) x = fwd_load<T>(a, u);
+  const int32_t B = (int32_t)a.B;
+  const int32_t pos_end = x.pos + B;
+  bool act = fwd_active(x, pos_end);
+  int32_t j0 = 0;
+  for (; j0 < B && __any_sync(0xFFFFFFFFu, act); j0 += kFwdSeg) {
+    const int m = B - j0 < kFwdSeg ? (int)(B - j0) : kFwdSeg;
+    int c = 0;
+    for (; c < m && act; ++c) {
+      fwd_stage_record(sg, r, c, fwd_step(fm, a, x, pos_end, ranks), t);
+      act = fwd_active(x, pos_end);
+    }
+    if (t == 0) sg.n[r] = c;
+    __syncwarp();
+    fwd_flush(a, sg, u0, j0, m, lt);
+    __syncwarp();
+  }
+  // no lane of the warp steps from j0 on: pf false there
+  for (int rr = 0; rr < kWarpLanes && u0 + rr < a.U; ++rr)
+    for (int32_t c = j0 + lt; c < B; c += 32)
+      ((bool*)a.pf)[(u0 + rr) * a.B + c] = false;
+  if (u < a.U) fwd_store(a, u, x, t);
 }
 
 template <typename T>
@@ -682,6 +762,26 @@ int launch_fwd(const FwdArgs& a, cudaStream_t st) {
       <<<(unsigned)((2 * a.U + kFwdBlock - 1) / kFwdBlock), kFwdBlock, 0,
          st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// What the card gives fwd_stage_kernel<T> (out, 6 ints): resident blocks
+// an SM, lanes a block, registers a thread, local (spill) bytes a thread,
+// static shared bytes a block, threads a lane (2).
+template <typename T>
+int fwd_occupancy(int* out) {
+  int blocks = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fwd_stage_kernel<T>, kFwdBlock, 0);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fwd_stage_kernel<T>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = kFwdBlock / 2;
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = (int)fa.sharedSizeBytes;
+  out[5] = 2;
+  return 0;
 }
 
 template <typename T>
@@ -808,7 +908,8 @@ int host_walk(const WalkArgs& a, Trace* tr) {
   return e;
 }
 
-// A forward stage lane after lane.
+// A forward stage lane after lane: each step's six records where the
+// kernel writes them, then pf false in the lane's remaining columns.
 template <typename T>
 int host_fwd(const FwdArgs& a, Trace* tr) {
   const FmPacked<T> fm = make_fm((const uint32_t*)a.rows, a.n_rows,
@@ -817,9 +918,18 @@ int host_fwd(const FwdArgs& a, Trace* tr) {
   return host_lanes(a.U, [&](long long u) {
     const long long n0 = tr ? tr->n : 0;
     FwdLane<T> x = fwd_load<T>(a, u);
-    fwd_lane(fm, a, x, ranks, [&](int j, const FwdRecord<T>& r) {
-      fwd_record(a, u, j, r, -1);
-    });
+    const int32_t pos_end = x.pos + (int32_t)a.B;
+    long long at = u * a.B;
+    for (; at < (u + 1) * a.B && fwd_active(x, pos_end); ++at) {
+      const FwdRecord<T> r = fwd_step(fm, a, x, pos_end, ranks);
+      ((bool*)a.pf)[at] = r.push;
+      ((T*)a.pk)[at] = r.k;
+      ((T*)a.pl)[at] = r.l;
+      ((T*)a.ps)[at] = r.s;
+      ((int32_t*)a.pe)[at] = r.e;
+      ((int32_t*)a.pp)[at] = r.p;
+    }
+    for (; at < (u + 1) * a.B; ++at) ((bool*)a.pf)[at] = false;
     fwd_store(a, u, x, -1);
     if (tr) tr->steps[u] = (int)((tr->n - n0) / 2);
   });
@@ -836,7 +946,9 @@ int host_fwd(const FwdArgs& a, Trace* tr) {
 // lep (R, capl, 5), cnt and ovf (R,) in the index type.  capl at least 1,
 // L at least 1.  The walk's entries take the WalkArgs words
 // (ops/lockstep_cuda.py WALK_ARGS, in order), the forward stage's the
-// FwdArgs words (FWD_ARGS).
+// FwdArgs words (FWD_ARGS); fwd_stage_occupancy gives fwd_occupancy's six
+// numbers for the index type (a call of any lanes: every stage takes the
+// same kernel; on the current device) and returns the CUDA error code.
 #ifdef __CUDACC__
 extern "C" int scan_lanes_launch(const uint32_t* rows, long long n_rows,
                                  const void* L2, long long primary,
@@ -881,6 +993,10 @@ extern "C" int fwd_stage_launch(const long long* words, void* stream) {
   if (!fwd_words_ok(a)) return (int)cudaErrorInvalidValue;
   return a.idx64 ? launch_fwd<int64_t>(a, (cudaStream_t)stream)
                  : launch_fwd<int32_t>(a, (cudaStream_t)stream);
+}
+
+extern "C" int fwd_stage_occupancy(int idx64, long long lanes, int* out) {
+  return idx64 ? fwd_occupancy<int64_t>(out) : fwd_occupancy<int32_t>(out);
 }
 
 LOOP_GRAPH_ENTRIES(lockstep)

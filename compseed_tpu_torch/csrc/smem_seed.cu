@@ -13,26 +13,44 @@
 //   Replaces compseed_tpu/ops/smem.py:51-219 _collect_one (the forward
 //   sweep, a lax.while_loop at :119, then the backward shrink over the
 //   LEP frontier, a lax.while_loop at :210) for one lane.  Plain version:
-//   compseed_tpu_torch/ops/smem.py::_collect_plain.  A warp a lane: the
-//   frontier holds at most MLEP <= 32 slots, so thread j holds slot j.
-//     - The forward sweep is sequential: threads 0 and 1 rank the two
-//       occ positions of each extension and the warp reads both (the
-//       child is then computed alike by every thread, so the state stays
-//       uniform in the warp).  A LEP push lands in the registers of the
-//       thread of its slot.
-//     - The list reversal is one shuffle.
-//     - In the backward shrink each thread extends its own slot, ranking
-//       both rows itself (ThreadRanks); slots at or past the frontier's
-//       size n never reach an output and are not extended.  fail0 is slot
-//       0's size, broadcast; the running max of the dedup is a warp
-//       max-scan, keep a ballot and a slot's new place the popcount of
-//       the ballot below it; the compaction goes through the warp's tile
-//       of shared memory.
-//     - An emission lands in the registers of the thread of its mems row
-//       (JAX writes the row at min(n_mems, MMEM - 1), so on overflow the
-//       last row is overwritten, and so here).  At the end thread j < MMEM
-//       writes row j and thread 0 the three words after the rows: every
-//       word of the lane's output row is written.
+//   compseed_tpu_torch/ops/smem.py::_collect_plain.  A group of G threads
+//   a lane, G = 32 or 8 (smem_collect_kernel<T, G>): the frontier holds at
+//   most MLEP <= 32 slots, slot j in thread j % G of the group (its
+//   (j / G)-th), 32 / G a thread.
+//     - The forward sweep is sequential: every pair of the group ranks the
+//       two occ positions of each extension (PairRanks; the group's pairs
+//       load the same two rows, which the warp's loads serve once), so
+//       the state stays uniform in the group with one shuffle a word.  A
+//       LEP push goes to the group's tile of shared memory.
+//     - The list reversal reads the tile: slot j takes entry cnt - 1 - j.
+//     - In the backward shrink each thread extends its slots below the
+//       frontier's size n one after another, ranking both rows itself
+//       (ThreadRanks), in place; slot 0's interval before the step (for
+//       an emission) waits in shared memory.  fail0 is slot 0's size,
+//       broadcast.  The running max of the dedup is an exclusive max-scan
+//       over the slots in order: segment i (slots G i .. G i + G - 1, one
+//       a thread) scanned across the group by shuffles, the max of the
+//       segments before it carried in; segments at or past n are skipped.
+//       Keep bits come from the group's bits of the warp's ballot, a
+//       slot's new place the kept slots before it; the compaction goes
+//       through the group's tile.
+//     - Thread 0 of the group stores each emission's mems row as it is
+//       found (JAX writes the row at min(n_mems, MMEM - 1), so on overflow
+//       the last row is overwritten, and so here); at the end the group
+//       zeroes the rows after the emitted ones and writes the three words
+//       after the rows: every word of the lane's output row is written.
+//   Why the group adapts: a warp a lane (the kernel's first design) kept
+//   36 warps, 4,752 lanes, on an H100 SM at 56 registers, so a call of
+//   8,192 lanes ran in two waves and one of 16,384 in four.  At <= 64 registers
+//   (__launch_bounds__) and blocks of 128 threads, G = 8 keeps 16,896
+//   lanes resident; but a frontier of n slots costs a backward step
+//   ceil(n / G) extensions a thread one after another (the rerun's
+//   frontiers hold 9-16 slots), so G = 8 made the narrow, backward-heavy
+//   calls 30-50 % slower than a warp a lane (PERF.md).  The launcher
+//   takes G = 32 for a call that runs in one wave so (collect_group: the
+//   card's occupancy query times its SMs, asked once a device), else 8.
+//   Slot j in thread j % G (not G consecutive slots a thread) gives
+//   ceil(n / G) extensions a thread, never more than the blocked map.
 // smem_strategy_kernel<T>
 //   Replaces compseed_tpu/ops/smem.py:222-271 _seed_strategy_one (a
 //   lax.fori_loop over the read's L columns, :268) for one lane.  Plain
@@ -60,8 +78,9 @@
 // calling thread's current device (ops/smem_cuda.py makes the tensors'
 // device current) and return the CUDA error code.  Compiled as C++
 // without nvcc, the same lane routines run in host loops
-// (smem_collect_host, smem_strategy_host), the warp written as a loop
-// over its slots, for the CPU tests.
+// (smem_collect_host, smem_strategy_host), the collect group written as a
+// loop over its threads with the kernel's slot map, scan order and
+// compaction, for the CPU tests.
 
 #include <cstdint>
 
@@ -69,7 +88,7 @@
 
 namespace {
 
-constexpr int kMaxCap = 32;        // MLEP, MMEM, MMEM3: a slot a thread
+constexpr int kMaxCap = 32;        // MLEP, MMEM, MMEM3
 
 // L2[c] for c in [0, 4] by selects.
 template <typename T>
@@ -196,6 +215,98 @@ FM_HD int back_base(const uint8_t* q, int i, int L) {
   return i >= 0 ? char_at(q, i, L) : 4;
 }
 
+// A collect lane's group of G threads (8 or 32) holds its frontier's
+// kMaxCap slots, kMaxCap / G a thread: slot j lies in thread j % G, as that
+// thread's (j / G)-th, slot_of<G>(t, i).
+template <int G>
+FM_HD int slot_of(int t, int i) { return t + G * i; }
+
+// A thread's frontier slots: their intervals and ends.
+template <typename T, int G>
+struct Slots {
+  static constexpr int kSlots = kMaxCap / G;
+  T ik[kSlots][3];
+  int end[kSlots];
+};
+
+// Thread t's slots of the reversed LEP list (ascending interval sizes):
+// slot j < cnt takes entry cnt - 1 - j, which read(entry, ik, end) reads;
+// the others are zero.
+FM_FUNCTOR_CALLER
+template <typename T, int G, typename Read>
+FM_HD void reversed_slots(int cnt, int t, Slots<T, G>& cur,
+                          const Read& read) {
+  FM_UNROLL
+  for (int i = 0; i < Slots<T, G>::kSlots; ++i) {
+    for (int k = 0; k < 3; ++k) cur.ik[i][k] = 0;
+    cur.end[i] = 0;
+    const int j = slot_of<G>(t, i);
+    if (j < cnt) read(cnt - 1 - j, cur.ik[i], cur.end[i]);
+  }
+}
+
+// Thread t's part of a backward step (JAX smem.py:180-190): each of its
+// slots below the frontier's size n extended by base c in place, one
+// after another; survive[i] whether its size stays at min_hits or more.
+// A c outside [0, 3] (an ambiguous base, or past the read's start)
+// extends nothing and nothing survives.
+FM_FUNCTOR_CALLER
+template <typename T, int G, typename Ranks>
+FM_HD void shrink_slots(const FmPacked<T>& fm, Slots<T, G>& cur,
+                        bool* survive, int t, int n, int c, T min_hits,
+                        const Ranks& ranks) {
+  FM_UNROLL
+  for (int i = 0; i < Slots<T, G>::kSlots; ++i) {
+    survive[i] = false;
+    if (c > 3 || slot_of<G>(t, i) >= n) continue;
+    T okc[3];
+    extend_sel(fm, cur.ik[i], c, true, okc, ranks);
+    for (int k = 0; k < 3; ++k) cur.ik[i][k] = okc[k];
+    survive[i] = okc[2] >= min_hits;
+  }
+}
+
+// The size the dedup scans at a thread's i-th slot: -1 where the slot did
+// not survive.
+template <typename T, int G>
+FM_HD T scan_size(const Slots<T, G>& cur, const bool* survive, int i) {
+  return survive[i] ? cur.ik[i][2] : (T)-1;
+}
+
+// Thread t's slots' places in the compacted frontier from bits[i], the
+// keep bits of segment i (slots G i .. G i + G - 1; bit u: slot
+// slot_of<G>(u, i)): the kept slots before each, in slot order; n the kept
+// slots.
+template <int G>
+FM_HD void keep_places(const unsigned* bits, int t, int* place, int& n) {
+  n = 0;
+  FM_UNROLL
+  for (int i = 0; i < kMaxCap / G; ++i) {
+    place[i] = n + popc(bits[i] & ((1u << t) - 1u));
+    n += popc(bits[i]);
+  }
+}
+
+// A mems row of the lane's output o at row `row`: the interval, its begin
+// and its end.
+template <typename T>
+FM_HD void store_row(T* o, int row, const T ik[3], int beg, int end) {
+  for (int k = 0; k < 3; ++k) o[5 * row + k] = ik[k];
+  o[5 * row + 3] = (T)beg;
+  o[5 * row + 4] = (T)end;
+}
+
+// The words of a lane's output o after its `rows` stored mems rows, part t
+// of `parts` (every G-th word a group's thread t; parts = 1 on the host):
+// the rows from `rows` on zeroed, then n_mems, ret and the overflow.
+template <typename T>
+FM_HD void finish_row(T* o, int mmem, int rows, int n_mems, int ret,
+                      bool ovf, int t, int parts) {
+  for (int w = rows * 5 + t; w < mmem * 5; w += parts) o[w] = (T)0;
+  for (int w = t; w < 3; w += parts)
+    o[mmem * 5 + w] = (T)(w == 0 ? n_mems : w == 1 ? ret : ovf ? 1 : 0);
+}
+
 // A hit of the round-3 scan at column i: its mems row min(n, mmem3 - 1)
 // stored by store(slot, row), the overflow and the count.
 FM_FUNCTOR_CALLER
@@ -254,132 +365,144 @@ inline bool caps_ok(int a, int b) {
 }
 
 #ifdef __CUDACC__
-constexpr unsigned kFull = 0xFFFFFFFFu;
-constexpr int kCollectWarps = 4;           // lanes (warps) a block
+constexpr int kCollectBlock = 128;         // threads a block: 16 lanes
+constexpr int kCollectBlocksPerSm = 8;     // so at most 64 registers
 constexpr int kStrategyBlock = 64;         // threads a block, 2 a lane
-
-// ranks(a, b, tk, tl) of the forward sweep by the lane's warp: threads 0
-// and 1 rank at a and at b, every thread reads both.
-template <typename T>
-struct WarpRanks {
-  const FmPacked<T>& fm;
-  int j;
-  __device__ void operator()(T a, T b, T tk[4], T tl[4]) const {
-    uint32_t cnt[4] = {0, 0, 0, 0}, pc = 0;
-    if (j < 2) occ_row(fm, j ? b : a, cnt, pc);
-    const uint32_t pa = __shfl_sync(kFull, pc, 0);
-    const uint32_t pb = __shfl_sync(kFull, pc, 1);
-    for (int k = 0; k < 4; ++k) {
-      tk[k] = rank_of<T>(__shfl_sync(kFull, cnt[k], 0), pa, k);
-      tl[k] = rank_of<T>(__shfl_sync(kFull, cnt[k], 1), pb, k);
-    }
-  }
-};
 
 template <typename T>
 __device__ __forceinline__ T max_of(T a, T b) {
   return a > b ? a : b;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kCollectWarps * 32) smem_collect_kernel(
-    const uint32_t* __restrict__ rows, long long n_rows,
-    const T* __restrict__ L2, long long primary, int fill_oob,
-    const uint8_t* __restrict__ q, int L, const int32_t* __restrict__ pivot,
-    const void* __restrict__ min_hits, int hits64,
-    const uint8_t* __restrict__ active, int mlep, int mmem,
-    T* __restrict__ out, long long P) {
-  __shared__ T tile[kCollectWarps][kMaxCap][3];
-  __shared__ int32_t tile_end[kCollectWarps][kMaxCap];
-  const int j = (int)(threadIdx.x & 31), w = (int)(threadIdx.x >> 5);
-  const long long lane = (long long)blockIdx.x * kCollectWarps + w;
-  if (lane >= P) return;                // a whole warp
-  const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
+// The dedup's keep bits of a backward step (JAX smem.py:192-207: a slot
+// survives past the running max of the sizes before it, the first of
+// equal sizes kept), by thread t of a group of G (mask gmask, its first
+// thread gbase in the warp): segment i's exclusive max-scan across the
+// group by shuffles, the max of the segments before it carried in;
+// bits[i] the group's bits of the warp's ballot.  Segments at or past n
+// are skipped (n is uniform in the group).
+template <typename T, int G>
+__device__ void keep_bits(const Slots<T, G>& cur, const bool* survive, int n,
+                          int t, unsigned gmask, int gbase, unsigned* bits) {
+  T carry = (T)-1;
+#pragma unroll
+  for (int i = 0; i < Slots<T, G>::kSlots; ++i) {
+    bits[i] = 0;
+    if (G * i >= n) continue;
+    const T size = scan_size(cur, survive, i);
+    T run = size;
+#pragma unroll
+    for (int d = 1; d < G; d <<= 1) {
+      const T v = __shfl_up_sync(gmask, run, d, G);
+      if (t >= d) run = max_of(run, v);
+    }
+    const T before = __shfl_up_sync(gmask, run, 1, G);
+    const T excl = t == 0 ? carry : max_of(carry, before);
+    bits[i] = (__ballot_sync(gmask, survive[i] && size > excl) >> gbase) &
+              (gmask >> gbase);
+    if (i + 1 < Slots<T, G>::kSlots)
+      carry = max_of(carry, __shfl_sync(gmask, run, G - 1, G));
+  }
+}
+
+// A lane a group of G threads.  At G = 8 the index's words lie in shared
+// memory, read where they are used, so that a thread's registers (at most
+// 64) hold its four slots; at G = 32, one slot a thread, they stay in
+// registers, off the dependent chain of every extension.  The group's
+// tile holds the LEP list, then each step's compaction.
+template <typename T, int G>
+__global__ void __launch_bounds__(kCollectBlock, kCollectBlocksPerSm)
+    smem_collect_kernel(const uint32_t* __restrict__ rows, long long n_rows,
+                        const T* __restrict__ L2, long long primary,
+                        int fill_oob, const uint8_t* __restrict__ q, int L,
+                        const int32_t* __restrict__ pivot,
+                        const void* __restrict__ min_hits, int hits64,
+                        const uint8_t* __restrict__ active, int mlep,
+                        int mmem, T* __restrict__ out, long long P) {
+  constexpr int kLanes = kCollectBlock / G;
+  constexpr int kSlots = Slots<T, G>::kSlots;
+  __shared__ FmPacked<T> fm_shared;
+  __shared__ T tile_ik[kLanes][3][kMaxCap];
+  __shared__ int tile_end[kLanes][kMaxCap];
+  __shared__ T first_ik[kLanes][3];     // slot 0's interval before a step
+  FmPacked<T> fm_own;
+  if constexpr (G < 32) {
+    if (threadIdx.x == 0)
+      fm_shared = make_fm(rows, n_rows, L2, primary, fill_oob);
+    __syncthreads();
+  } else {
+    fm_own = make_fm(rows, n_rows, L2, primary, fill_oob);
+  }
+  const FmPacked<T>& fm = G < 32 ? fm_shared : fm_own;
+  const int t = (int)(threadIdx.x % G), g = (int)(threadIdx.x / G);
+  const long long lane = (long long)blockIdx.x * kLanes + g;
+  if (lane >= P) return;                // a whole group
+  const int gbase = (int)(threadIdx.x & 31) & ~(G - 1);
+  const unsigned gmask = (unsigned)(0xFFFFFFFFull >> (32 - G)) << gbase;
+  T(*tk)[kMaxCap] = tile_ik[g];
+  int* te = tile_end[g];
   const uint8_t* ql = q + lane * (long long)L;
+  T* o = out + lane * (long long)(mmem * 5 + 3);
   Collect<T> st = collect_start(fm, ql, L, pivot[lane],
                                 hits_at<T>(min_hits, hits64, lane),
                                 active[lane] != 0);
-  // the forward sweep; slot j of the LEP list in thread j
-  T cur[3] = {0, 0, 0};
-  int cur_end = 0;
-  forward_sweep(fm, ql, L, mlep, st, WarpRanks<T>{fm, j},
+  // the forward sweep, the LEP list into the tile
+  forward_sweep(fm, ql, L, mlep, st, PairRanks<T>{fm, Pair()},
                 [&](int slot, const T ik[3], int end) {
-                  if (j == slot) {
-                    for (int k = 0; k < 3; ++k) cur[k] = ik[k];
-                    cur_end = end;
+                  if (t == 0) {
+                    for (int k = 0; k < 3; ++k) tk[k][slot] = ik[k];
+                    te[slot] = end;
                   }
                 });
-  // reversed: ascending interval sizes at slots 0..cnt-1
-  {
-    int src = st.cnt - 1 - j;
-    src = src < 0 ? 0 : src > mlep - 1 ? mlep - 1 : src;
-    for (int k = 0; k < 3; ++k) cur[k] = __shfl_sync(kFull, cur[k], src);
-    cur_end = __shfl_sync(kFull, cur_end, src);
-  }
-  T mrow[5] = {0, 0, 0, 0, 0};         // mems row j
+  __syncwarp(gmask);
+  Slots<T, G> cur;
+  reversed_slots(st.cnt, t, cur, [&](int src, T ik[3], int& end) {
+    for (int k = 0; k < 3; ++k) ik[k] = tk[k][src];
+    end = te[src];
+  });
+  __syncwarp(gmask);
   const bool fast = st.pivot == 0 && !st.bad_start;
-  if (fast && j == 0) {                 // only the longest match
-    for (int k = 0; k < 3; ++k) mrow[k] = cur[k];
-    mrow[4] = (T)cur_end;
-  }
+  if (fast && t == 0)                   // only the longest match
+    store_row(o, 0, cur.ik[0], 0, cur.end[0]);
   Shrink sh{st.cnt, 0, L + 2, false, st.bad_start || fast};
   for (int u = 0; !sh.done && u <= st.pivot; ++u) {
     const int i = st.pivot - 1 - u;
     const int base = back_base(ql, i, L);
-    const bool cvalid = base < 4;
-    T okc[3] = {0, 0, 0};
-    bool survive = false;
-    if (j < sh.n && cvalid) {
-      extend_sel(fm, cur, base, true, okc, ThreadRanks<T>{fm});
-      survive = okc[2] >= st.min_hits;
-    }
-    const T s0 = __shfl_sync(kFull, okc[2], 0);
-    const bool fail0 = sh.n > 0 && !(cvalid && s0 >= st.min_hits);
+    if (t == 0)
+      for (int k = 0; k < 3; ++k) first_ik[g][k] = cur.ik[0][k];
+    bool survive[kSlots];
+    shrink_slots(fm, cur, survive, t, sh.n, base, st.min_hits,
+                 ThreadRanks<T>{fm});
+    const T s0 = __shfl_sync(gmask, cur.ik[0][2], 0, G);
+    const bool fail0 = sh.n > 0 && !(base < 4 && s0 >= st.min_hits);
     int slot;
-    if (emit_step(sh, i, fail0, mmem, slot)) {   // uniform in the warp
-      T r[3];
-      for (int k = 0; k < 3; ++k) r[k] = __shfl_sync(kFull, cur[k], 0);
-      const int e0 = __shfl_sync(kFull, cur_end, 0);
-      if (j == slot) {
-        for (int k = 0; k < 3; ++k) mrow[k] = r[k];
-        mrow[3] = (T)(i + 1);
-        mrow[4] = (T)e0;
+    if (emit_step(sh, i, fail0, mmem, slot) && t == 0)  // uniform in the group
+      store_row(o, slot, first_ik[g], i + 1, cur.end[0]);
+    unsigned bits[kSlots];
+    keep_bits(cur, survive, sh.n, t, gmask, gbase, bits);
+    int place[kSlots], n;
+    keep_places<G>(bits, t, place, n);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s)
+      if ((bits[s] >> t) & 1u) {
+        for (int k = 0; k < 3; ++k) tk[k][place[s]] = cur.ik[s][k];
+        te[place[s]] = cur.end[s];
+      }
+    __syncwarp(gmask);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      const int j = slot_of<G>(t, s);
+      if (j < n) {
+        for (int k = 0; k < 3; ++k) cur.ik[s][k] = tk[k][j];
+        cur.end[s] = te[j];
       }
     }
-    // equal sizes deduplicated (the first kept): a slot survives past the
-    // running max of the sizes before it
-    const T masked = survive ? okc[2] : (T)-1;
-    T run = masked;
-    for (int d = 1; d < 32; d <<= 1) {
-      const T v = __shfl_up_sync(kFull, run, d);
-      if (j >= d) run = max_of(run, v);
-    }
-    T excl = __shfl_up_sync(kFull, run, 1);
-    if (j == 0) excl = (T)-1;
-    const bool keep = survive && masked > excl;
-    const unsigned kept = __ballot_sync(kFull, keep);
-    if (keep) {
-      const int pos = __popc(kept & ((1u << j) - 1u));
-      for (int k = 0; k < 3; ++k) tile[w][pos][k] = okc[k];
-      tile_end[w][pos] = cur_end;
-    }
-    __syncwarp();
-    sh.n = __popc(kept);
-    if (j < sh.n) {
-      for (int k = 0; k < 3; ++k) cur[k] = tile[w][j][k];
-      cur_end = tile_end[w][j];
-    }
-    __syncwarp();
-    sh.done = sh.n == 0;
+    __syncwarp(gmask);
+    sh.n = n;
+    sh.done = n == 0;
   }
-  T* o = out + lane * (long long)(mmem * 5 + 3);
-  if (j < mmem)
-    for (int k = 0; k < 5; ++k) o[5 * j + k] = mrow[k];
-  if (j == 0) {
-    o[mmem * 5] = (T)(st.bad_start ? 0 : fast ? 1 : sh.n_mems);
-    o[mmem * 5 + 1] = (T)st.ret;
-    o[mmem * 5 + 2] = (T)((st.ovf || sh.ovf) ? 1 : 0);
-  }
+  const int n_mems = st.bad_start ? 0 : fast ? 1 : sh.n_mems;
+  finish_row(o, mmem, n_mems, n_mems, st.ret, st.ovf || sh.ovf, t, G);
 }
 
 // Thread t of a lane's pair writes words t, t + 2, t + 4 of each row.
@@ -413,18 +536,94 @@ __global__ void __launch_bounds__(kStrategyBlock) smem_strategy_kernel(
   o[mmem3 * 5 + t] = (T)(t ? (ovf ? 1 : 0) : n);
 }
 
+constexpr int kMaxDevices = 64;
+
+// What the card gives smem_collect_kernel<T, G> (out, 6 ints): resident
+// blocks an SM, lanes a block, registers a thread, local (spill) bytes a
+// thread, static shared bytes a block, and G, the threads a lane.
+template <typename T, int G>
+int collect_occupancy(int* out) {
+  int blocks = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, smem_collect_kernel<T, G>, kCollectBlock, 0);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&fa, smem_collect_kernel<T, G>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = kCollectBlock / G;
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = (int)fa.sharedSizeBytes;
+  out[5] = G;
+  return 0;
+}
+
+// The lanes of smem_collect_kernel<T, G> the current device keeps resident
+// at once (its blocks an SM x lanes a block x SMs), asked once a device;
+// 0 when the query fails.
+template <typename T, int G>
+long long collect_resident() {
+  static long long lanes[kMaxDevices];  // 0: not asked yet
+  int dev = 0, sms = 0, occ[6];
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 0;
+  if (!lanes[dev] &&
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) ==
+          cudaSuccess &&
+      collect_occupancy<T, G>(occ) == 0)
+    lanes[dev] = (long long)occ[0] * occ[1] * sms;
+  return lanes[dev];
+}
+
+// The group a collect call of P lanes takes: a warp a lane (one frontier
+// slot a thread) when the call runs in one wave so, else 8 threads a lane
+// (16,896 lanes resident on an H100).  Not 16: on the rerun's 8,192-lane
+// calls 16 threads a lane ran the forward sweep (the same steps in every
+// thread of a group) with twice the warps an SM of 8 and took 0.157 ms
+// where 8 took 0.108 (H100, PERF.md).
+template <typename T>
+int collect_group(long long P) {
+  return P <= collect_resident<T, 32>() ? 32 : 8;
+}
+
+template <typename T, int G>
+void launch_collect_group(const uint32_t* rows, long long n_rows,
+                          const void* L2, long long primary, int fill_oob,
+                          const uint8_t* q, int L, const int32_t* pivot,
+                          const void* min_hits, int hits64,
+                          const uint8_t* active, int mlep, int mmem,
+                          void* out, long long P, void* stream) {
+  constexpr int kLanes = kCollectBlock / G;
+  smem_collect_kernel<T, G>
+      <<<(unsigned)((P + kLanes - 1) / kLanes), kCollectBlock, 0,
+         (cudaStream_t)stream>>>(rows, n_rows, (const T*)L2, primary,
+                                 fill_oob, q, L, pivot, min_hits, hits64,
+                                 active, mlep, mmem, (T*)out, P);
+}
+
 template <typename T>
 int launch_collect(const uint32_t* rows, long long n_rows, const void* L2,
                    long long primary, int fill_oob, const uint8_t* q, int L,
                    const int32_t* pivot, const void* min_hits, int hits64,
                    const uint8_t* active, int mlep, int mmem, void* out,
                    long long P, void* stream) {
-  smem_collect_kernel<T>
-      <<<(unsigned)((P + kCollectWarps - 1) / kCollectWarps),
-         kCollectWarps * 32, 0, (cudaStream_t)stream>>>(
-          rows, n_rows, (const T*)L2, primary, fill_oob, q, L, pivot,
-          min_hits, hits64, active, mlep, mmem, (T*)out, P);
+  if (collect_group<T>(P) == 32)
+    launch_collect_group<T, 32>(rows, n_rows, L2, primary, fill_oob, q, L,
+                                pivot, min_hits, hits64, active, mlep, mmem,
+                                out, P, stream);
+  else
+    launch_collect_group<T, 8>(rows, n_rows, L2, primary, fill_oob, q, L,
+                               pivot, min_hits, hits64, active, mlep, mmem,
+                               out, P, stream);
   return (int)cudaGetLastError();
+}
+
+// collect_occupancy of the group a call of P lanes takes.
+template <typename T>
+int collect_call_occupancy(long long P, int* out) {
+  return collect_group<T>(P) == 32 ? collect_occupancy<T, 32>(out)
+                                   : collect_occupancy<T, 8>(out);
 }
 
 template <typename T>
@@ -471,8 +670,9 @@ struct HostRanks {
   }
 };
 
-// The host loops run a lane after another, the warp's slots as a loop; a
-// lane that would trap on the card makes the call return -1.
+// The host loops run a lane after another, a collect lane's group as a
+// loop over its threads; a lane that would trap on the card makes the
+// call return -1.
 template <typename F>
 int host_lanes(long long n, F lane) {
   try {
@@ -483,84 +683,125 @@ int host_lanes(long long n, F lane) {
   return 0;
 }
 
-template <typename T>
+// keep_bits of the kernel, the group's threads as a loop: segment i's
+// running max across the threads, the segments before it carried in.
+template <typename T, int G>
+void keep_bits_host(const Slots<T, G>* cur, const bool (*survive)[kMaxCap / G],
+                    int n, unsigned* bits) {
+  T carry = (T)-1;
+  for (int i = 0; i < kMaxCap / G; ++i) {
+    bits[i] = 0;
+    if (G * i >= n) continue;
+    T run = carry;
+    for (int t = 0; t < G; ++t) {
+      const T size = scan_size(cur[t], survive[t], i);
+      if (survive[t][i] && size > run) bits[i] |= 1u << t;
+      if (size > run) run = size;
+    }
+    carry = run;
+  }
+}
+
+// A collect call lane after lane, each lane's group of G threads as loops
+// over its threads.
+template <typename T, int G>
 int host_collect(const uint32_t* rows, long long n_rows, const void* L2,
                  long long primary, int fill_oob, const uint8_t* q, int L,
                  const int32_t* pivot, const void* min_hits, int hits64,
                  const uint8_t* active, int mlep, int mmem, void* out,
                  long long P, Trace* tr) {
+  constexpr int kSlots = kMaxCap / G;
   const FmPacked<T> fm = make_fm(rows, n_rows, (const T*)L2, primary,
                                  fill_oob);
   const HostRanks<T> ranks{ThreadRanks<T>{fm}, tr};
   return host_lanes(P, [&](long long lane) {
     const long long n0 = tr ? tr->n : 0;
     const uint8_t* ql = q + lane * (long long)L;
+    T* o = (T*)out + lane * (long long)(mmem * 5 + 3);
     Collect<T> st = collect_start(fm, ql, L, pivot[lane],
                                   hits_at<T>(min_hits, hits64, lane),
                                   active[lane] != 0);
-    T lep[kMaxCap][3] = {}, mems[kMaxCap][5] = {};
-    int lep_end[kMaxCap] = {};
+    // the group's tile: the LEP list, then each step's compaction
+    T tile[kMaxCap][3] = {};
+    int tile_end[kMaxCap] = {};
     forward_sweep(fm, ql, L, mlep, st, ranks,
                   [&](int slot, const T ik[3], int end) {
-                    for (int k = 0; k < 3; ++k) lep[slot][k] = ik[k];
-                    lep_end[slot] = end;
+                    for (int k = 0; k < 3; ++k) tile[slot][k] = ik[k];
+                    tile_end[slot] = end;
                   });
     if (tr) tr->steps[lane] = (int)((tr->n - n0) / 2);
-    T cur[kMaxCap][3];
-    int cur_end[kMaxCap];
-    for (int j = 0; j < kMaxCap; ++j) {
-      int src = st.cnt - 1 - j;
-      src = src < 0 ? 0 : src > mlep - 1 ? mlep - 1 : src;
-      for (int k = 0; k < 3; ++k) cur[j][k] = lep[src][k];
-      cur_end[j] = lep_end[src];
-    }
+    Slots<T, G> cur[G];
+    for (int t = 0; t < G; ++t)
+      reversed_slots(st.cnt, t, cur[t], [&](int src, T ik[3], int& end) {
+        for (int k = 0; k < 3; ++k) ik[k] = tile[src][k];
+        end = tile_end[src];
+      });
     const bool fast = st.pivot == 0 && !st.bad_start;
-    if (fast) {
-      for (int k = 0; k < 3; ++k) mems[0][k] = cur[0][k];
-      mems[0][4] = (T)cur_end[0];
-    }
+    if (fast) store_row(o, 0, cur[0].ik[0], 0, cur[0].end[0]);
     Shrink sh{st.cnt, 0, L + 2, false, st.bad_start || fast};
     for (int u = 0; !sh.done && u <= st.pivot; ++u) {
       const int i = st.pivot - 1 - u;
       const int base = back_base(ql, i, L);
-      const bool cvalid = base < 4;
-      T okc[kMaxCap][3] = {};
-      bool survive[kMaxCap] = {};
-      for (int j = 0; j < sh.n && cvalid; ++j) {
-        extend_sel(fm, cur[j], base, true, okc[j], ranks);
-        survive[j] = okc[j][2] >= st.min_hits;
-      }
-      if (tr && sh.n > 0 && cvalid) ++tr->steps[lane];
-      const bool fail0 = sh.n > 0 && !(cvalid && okc[0][2] >= st.min_hits);
+      T first[3];
+      for (int k = 0; k < 3; ++k) first[k] = cur[0].ik[0][k];
+      bool survive[G][kSlots];
+      for (int t = 0; t < G; ++t)
+        shrink_slots(fm, cur[t], survive[t], t, sh.n, base, st.min_hits,
+                     ranks);
+      if (tr && sh.n > 0 && base < 4) ++tr->steps[lane];
+      const bool fail0 =
+          sh.n > 0 && !(base < 4 && cur[0].ik[0][2] >= st.min_hits);
       int slot;
-      if (emit_step(sh, i, fail0, mmem, slot)) {
-        for (int k = 0; k < 3; ++k) mems[slot][k] = cur[0][k];
-        mems[slot][3] = (T)(i + 1);
-        mems[slot][4] = (T)cur_end[0];
+      if (emit_step(sh, i, fail0, mmem, slot))
+        store_row(o, slot, first, i + 1, cur[0].end[0]);
+      unsigned bits[kSlots];
+      keep_bits_host(cur, survive, sh.n, bits);
+      int n = 0;
+      for (int t = 0; t < G; ++t) {
+        int place[kSlots];
+        keep_places<G>(bits, t, place, n);
+        for (int s = 0; s < kSlots; ++s)
+          if ((bits[s] >> t) & 1u) {
+            for (int k = 0; k < 3; ++k) tile[place[s]][k] = cur[t].ik[s][k];
+            tile_end[place[s]] = cur[t].end[s];
+          }
       }
-      // the warp's max-scan, ballot and compaction as one pass: slot j's
-      // new place is the count kept before it (at most j, so in place)
-      T run = (T)-1;
-      int kept = 0;
-      for (int j = 0; j < sh.n; ++j) {
-        const T masked = survive[j] ? okc[j][2] : (T)-1;
-        if (survive[j] && masked > run) {
-          for (int k = 0; k < 3; ++k) cur[kept][k] = okc[j][k];
-          cur_end[kept] = cur_end[j];
-          ++kept;
+      for (int t = 0; t < G; ++t)
+        for (int s = 0; s < kSlots; ++s) {
+          const int j = slot_of<G>(t, s);
+          if (j < n) {
+            for (int k = 0; k < 3; ++k) cur[t].ik[s][k] = tile[j][k];
+            cur[t].end[s] = tile_end[j];
+          }
         }
-        if (masked > run) run = masked;
-      }
-      sh.n = kept;
-      sh.done = kept == 0;
+      sh.n = n;
+      sh.done = n == 0;
     }
-    T* o = (T*)out + lane * (long long)(mmem * 5 + 3);
-    for (int j = 0; j < mmem; ++j)
-      for (int k = 0; k < 5; ++k) o[5 * j + k] = mems[j][k];
-    o[mmem * 5] = (T)(st.bad_start ? 0 : fast ? 1 : sh.n_mems);
-    o[mmem * 5 + 1] = (T)st.ret;
-    o[mmem * 5 + 2] = (T)((st.ovf || sh.ovf) ? 1 : 0);
+    const int n_mems = st.bad_start ? 0 : fast ? 1 : sh.n_mems;
+    finish_row(o, mmem, n_mems, n_mems, st.ret, st.ovf || sh.ovf, 0, 1);
   });
+}
+
+// host_collect of the group `group` (8 or 32, the kernel's; else -1).
+template <typename T>
+int host_collect_group(int group, const uint32_t* rows, long long n_rows,
+                       const void* L2, long long primary, int fill_oob,
+                       const uint8_t* q, int L, const int32_t* pivot,
+                       const void* min_hits, int hits64,
+                       const uint8_t* active, int mlep, int mmem, void* out,
+                       long long P, Trace* tr) {
+  switch (group) {
+    case 8:
+      return host_collect<T, 8>(rows, n_rows, L2, primary, fill_oob, q, L,
+                                pivot, min_hits, hits64, active, mlep, mmem,
+                                out, P, tr);
+    case 32:
+      return host_collect<T, 32>(rows, n_rows, L2, primary, fill_oob, q, L,
+                                 pivot, min_hits, hits64, active, mlep, mmem,
+                                 out, P, tr);
+    default:
+      return -1;
+  }
 }
 
 template <typename T>
@@ -600,7 +841,10 @@ int host_strategy(const uint32_t* rows, long long n_rows, const void* L2,
 // contiguous: q (P, L) base codes (uint8), pivot (P,) int32, min_hits (P,)
 // int32 or (hits64 = 1) int64, active one byte a lane; out (P, mmem * 5
 // + 3) for a collect, (P, mmem3 * 5 + 2) for round 3, in the index type.
-// The caps are 1 to 32; L at least 1.
+// The caps are 1 to 32; L at least 1.  smem_collect_occupancy gives
+// collect_occupancy's six numbers for the index type and the group a call
+// of P lanes takes (on the current device) and returns the CUDA error
+// code.
 #ifdef __CUDACC__
 extern "C" int smem_collect_launch(const uint32_t* rows, long long n_rows,
                                    const void* L2, long long primary,
@@ -637,13 +881,19 @@ extern "C" int smem_strategy_launch(const uint32_t* rows, long long n_rows,
                                           active, mmem3, out, P, stream);
 }
 
+extern "C" int smem_collect_occupancy(int idx64, long long P, int* out) {
+  return idx64 ? collect_call_occupancy<int64_t>(P, out)
+               : collect_call_occupancy<int32_t>(P, out);
+}
+
 // The name of a CUDA error code, for the wrapper's messages.
 extern "C" const char* smem_cuda_error_name(int code) {
   return cudaGetErrorName((cudaError_t)code);
 }
 #else
 // The same lanes on the host; each returns 0, or -1 for caps or an L the
-// launcher refuses and where a lane would trap on the card.  With steps
+// launcher refuses, a collect group other than 8 or 32 (the kernel's slot
+// maps the loops run), and where a lane would trap on the card.  With steps
 // not null they record the call (Trace): the first cap positions ranked
 // into pos, their count into *n_pos, each lane's steps into steps (P,).
 extern "C" int smem_collect_host(const uint32_t* rows, long long n_rows,
@@ -652,18 +902,20 @@ extern "C" int smem_collect_host(const uint32_t* rows, long long n_rows,
                                  const int32_t* pivot, const void* min_hits,
                                  int hits64, const uint8_t* active, int mlep,
                                  int mmem, void* out, long long P, int idx64,
-                                 long long* pos, long long cap,
+                                 int group, long long* pos, long long cap,
                                  long long* n_pos, int* steps) {
   if (!caps_ok(mlep, mmem) || L < 1) return -1;
   Trace t{pos, cap, 0, steps};
   Trace* tr = steps ? &t : nullptr;
   const int e =
-      idx64 ? host_collect<int64_t>(rows, n_rows, L2, primary, fill_oob, q,
-                                    L, pivot, min_hits, hits64, active, mlep,
-                                    mmem, out, P, tr)
-            : host_collect<int32_t>(rows, n_rows, L2, primary, fill_oob, q,
-                                    L, pivot, min_hits, hits64, active, mlep,
-                                    mmem, out, P, tr);
+      idx64 ? host_collect_group<int64_t>(group, rows, n_rows, L2, primary,
+                                          fill_oob, q, L, pivot, min_hits,
+                                          hits64, active, mlep, mmem, out, P,
+                                          tr)
+            : host_collect_group<int32_t>(group, rows, n_rows, L2, primary,
+                                          fill_oob, q, L, pivot, min_hits,
+                                          hits64, active, mlep, mmem, out, P,
+                                          tr);
   if (tr) *n_pos = t.n;
   return e;
 }

@@ -55,7 +55,7 @@ BUILD = os.path.join(ROOT, "build", "compseed_tpu_torch")
 # kEntryBlock threads, kEntryItems lanes each)
 ENTRY_TILE = 512
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 
 def _nvcc(src: str) -> str:
@@ -70,10 +70,11 @@ def _nvcc(src: str) -> str:
 
 
 def compile_source(src: str, so: str, defines: tuple = (),
-                   includes: tuple = ()) -> None:
+                   includes: tuple = ()) -> str:
     """nvcc ``src`` into the shared library ``so`` with NVCC_FLAGS, the
-    given -D defines and -I directories (searched after ``src``'s own).
-    Raises if nvcc fails."""
+    given -D defines and -I directories (searched after ``src``'s own);
+    returns nvcc's output (ptxas' registers, shared memory and spills of
+    every kernel).  Raises if nvcc fails."""
     tmp = f"{so}.tmp.{os.getpid()}"
     cmd = [_nvcc(src), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
            *(f"-I{d}" for d in includes), "-o", tmp, src]
@@ -82,6 +83,43 @@ def compile_source(src: str, so: str, defines: tuple = (),
         raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n"
                            f"{r.stdout}{r.stderr}")
     os.replace(tmp, so)           # atomic: a loaded old copy stays valid
+    return r.stdout + r.stderr
+
+
+def sentinel(dtype: torch.dtype, byte: int = 0x5A):
+    """The value of ``dtype`` whose every byte is ``byte`` (True for bool):
+    what ``Poisoned`` fills outputs with."""
+    if dtype == torch.bool:
+        return True
+    size = torch.empty((), dtype=dtype).element_size()
+    return int.from_bytes(bytes([byte]) * size, "little", signed=True)
+
+
+def empty(shape, dtype, device) -> torch.Tensor:
+    """torch.empty for a kernel's outputs; inside ``Poisoned`` (in the
+    calling thread) filled with its sentinel, so that a test sees every
+    word the kernel was to write written."""
+    x = torch.empty(shape, dtype=dtype, device=device)
+    byte = getattr(_TLS, "poison", None)
+    if byte is not None:
+        x.fill_(sentinel(dtype, byte))
+    return x
+
+
+class Poisoned:
+    """Kernel outputs from ``empty`` filled with the byte ``byte`` in every
+    word (True for bool) while active in the calling thread."""
+
+    def __init__(self, byte: int = 0x5A):
+        self.byte = byte
+
+    def __enter__(self):
+        self.was = getattr(_TLS, "poison", None)
+        _TLS.poison = self.byte
+        return self
+
+    def __exit__(self, *exc):
+        _TLS.poison = self.was
 
 
 def check_tensor(name, x, dtype, shape, dev) -> None:
@@ -622,6 +660,7 @@ class KernelLibrary:
         self._error_name = error_name
         self._lib = None
         self._lock = threading.Lock()    # the one-time load and launches
+        self.log = None                  # nvcc's output of this process' build
 
     def build(self, force: bool = False) -> str:
         """Compile the source (when the library is missing or older than
@@ -632,7 +671,7 @@ class KernelLibrary:
             os.path.join(os.path.dirname(self.src), "*.cuh"))
         if force or not os.path.exists(self.so) or \
                 os.path.getmtime(self.so) < max(map(os.path.getmtime, deps)):
-            compile_source(self.src, self.so)
+            self.log = compile_source(self.src, self.so)
         return self.so
 
     def load(self) -> ct.CDLL:
@@ -667,6 +706,29 @@ class KernelLibrary:
             raise RuntimeError(f"{kernel} launch failed on {dev} "
                                f"({self.so}): CUDA error {err} ({name})")
         self.launched(kernel)
+
+    def occupancy(self, entry: str, idx64: bool, lanes: int,
+                  dev: torch.device) -> dict:
+        """What ``dev`` gives the kernel a call of ``lanes`` lanes launches
+        (index type int64 with ``idx64``), by the library's C function
+        ``entry`` (idx64, lanes, out: six ints): resident blocks an SM,
+        lanes a block, registers and local (spill) bytes a thread, static
+        shared bytes a block, threads a lane; with the card's SMs and the
+        lanes resident at once on it."""
+        lib = self._lib or self.load()
+        out = (ct.c_int * 6)()
+        with torch.cuda.device(dev):
+            err = getattr(lib, entry)(int(bool(idx64)), int(lanes), out)
+        if err:
+            name = getattr(lib, self._error_name)(err).decode()
+            raise RuntimeError(f"{entry} failed on {dev}: CUDA error {err} "
+                               f"({name})")
+        blocks, per_block, regs, local, shared, threads = out
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        return dict(blocks_per_sm=blocks, lanes_per_block=per_block,
+                    registers=regs, local_bytes=local, shared_bytes=shared,
+                    threads_per_lane=threads, sms=sms,
+                    resident_lanes=blocks * per_block * sms)
 
     def launch_args(self, kernel: str, dev: torch.device, args) -> None:
         """Launch ``kernel`` of a round source through its C launcher

@@ -16,7 +16,7 @@ call still runs as it would.  ``run(call, route)`` runs one again by
 after them) and ``seedscan._walk_stage_plain``; a forward stage by
 ``seedscan._fwd_stage_walk_kernel`` or ``_fwd_stage_walk_plain``;
 ``vs_plain`` holds the kernel to the plain version (a forward stage's
-records where j < steps, and the kernel's zero past them).  ``HostTwin``
+pf everywhere, its other records where j < steps: ``fwd_vs``).  ``HostTwin``
 is the source built with g++ into its host loops; ``launch`` runs a walk
 or forward-stage launch by them (what the CPU tests put in place of
 ``lockstep_cuda._launch``); ``work`` counts, from the host loops' record
@@ -41,7 +41,7 @@ import torch
 
 from compseed_tpu_torch.ops import lockstep_cuda
 from compseed_tpu_torch.ops import seedscan as ss
-from compseed_tpu_torch.ops.cuda_lib import BUILD, launcher_of
+from compseed_tpu_torch.ops.cuda_lib import BUILD, Poisoned, launcher_of
 
 KEPT = 64                   # calls of each kind a Capture keeps
 
@@ -245,8 +245,9 @@ def run(call, route: str):
 
 def fwd_vs(got: dict, want: dict) -> int:
     """max |got - want| over a forward stage's outputs (0: equal): the
-    state exactly, pf exactly, the other records where j < steps, and
-    got's records past its steps held to zero (the kernel's contract)."""
+    state exactly, pf exactly (so false past a lane's steps), the other
+    records where j < steps; past the steps those are unspecified (the
+    kernel's contract: it does not write them)."""
     if set(got) != set(want):
         return 1 << 62
     steps = want["steps"].to(torch.int64)
@@ -262,7 +263,6 @@ def fwd_vs(got: dict, want: dict) -> int:
         g, w = g.to(torch.int64), w.to(torch.int64)
         if n in lockstep_cuda.FWD_RECORDS and n != "pf":
             m = mask.to(g.device)
-            worst = max(worst, int(torch.where(m, 0, g).abs().max()))
             g, w = torch.where(m, g, 0), torch.where(m, w, 0)
         worst = max(worst, int((g - w).abs().max()))
     return worst
@@ -270,8 +270,11 @@ def fwd_vs(got: dict, want: dict) -> int:
 
 def vs_plain(call) -> int:
     """max |kernel - plain| over the call's outputs (0: bit-equal; a
-    forward stage's as ``fwd_vs``)."""
-    got, want = run(call, "kernel"), run(call, "plain")
+    forward stage's as ``fwd_vs``), the kernel's outputs from
+    ``cuda_lib.empty`` poisoned before its launch (cuda_lib.Poisoned)."""
+    with Poisoned():
+        got = run(call, "kernel")
+    want = run(call, "plain")
     if call.kind == "fwd":
         return fwd_vs(got, want)
     if call.kind == "scan":
@@ -293,8 +296,9 @@ def vs_plain(call) -> int:
 
 class HostTwin:
     """csrc/lockstep.cu built with g++ into its host loops (scan_lanes_host,
-    walk_stage_host, walk_stage_entry_host, walk_stage_trace_host) in
-    ``so`` (rebuilt when the source or a header beside it is newer)."""
+    walk_stage_host, walk_stage_entry_host, walk_stage_trace_host,
+    fwd_stage_host, fwd_stage_trace_host) in ``so`` (rebuilt when the
+    source or a header beside it is newer)."""
 
     def __init__(self, so: str | None = None):
         src = lockstep_cuda.LIB.src
@@ -469,9 +473,11 @@ def work(call, twin: HostTwin) -> dict:
         # the representatives' words in (k, l, s, mh; pos, pivot, rid;
         # alive) and out (k, l, s; pos, pivot, wait_npv, steps; alive,
         # waiting), a base a step in (the jump targets' words not
-        # counted); the records (U, B) written once
-        lane_in = U * (4 * es + 12 + 1) + int(out["steps"].sum())
-        lane_out = U * (3 * es + 16 + 2) + U * B * (1 + 3 * es + 8)
+        # counted); of the records pf for every column, the other five
+        # for the steps taken (what the stage needs: nothing past them)
+        n_steps = int(out["steps"].sum())
+        lane_in = U * (4 * es + 12 + 1) + n_steps
+        lane_out = U * (3 * es + 16 + 2) + U * B + n_steps * (3 * es + 8)
     else:
         steps = np.zeros(call.w, np.int32)
         n_pos = ct.c_longlong(0)

@@ -18,7 +18,9 @@ hand-written kernels:
   ``fwd_stage`` -> ``fwd_stage_kernel``, for ``ops/seedscan.py::
       _fwd_stage_walk`` (plain version ``_fwd_stage_walk_plain``): one
       launch a stage of fwd_staged's staged forward walk, a pair of
-      threads a representative, each running its steps to its end.
+      threads a representative, each running its steps to its end, a
+      warp's records staged in shared memory and stored a segment of 8
+      steps at a time; the records are not zeroed (``fwd_stage``).
 
 ``ops/seedscan.py`` runs the plain versions for CPU tensors and comes here
 for any other; each launcher takes CUDA tensors only and launches its
@@ -30,8 +32,9 @@ into build/compseed_tpu_torch/liblockstep.so).
 
 ``LAUNCHES`` counts kernel launches by kernel, and nothing else.  Every
 launch goes to the device its tensors lie on, on that device's current
-stream, with no synchronisation; outputs come from ``torch.empty`` (the
-forward stage's records from ``torch.zeros``).
+stream, with no synchronisation; outputs come from ``torch.empty``
+(``cuda_lib.empty``: filled with a sentinel under ``cuda_lib.Poisoned``,
+for the tests).
 """
 
 from __future__ import annotations
@@ -42,7 +45,7 @@ import torch
 
 from compseed_tpu_torch.ops import cuda_lib
 from compseed_tpu_torch.ops.cuda_lib import (ENTRY_TILE, KernelLibrary,
-                                             bind_graphs, check_tensor)
+                                             bind_graphs, check_tensor, empty)
 from compseed_tpu_torch.ops.fm_cuda import _cuda_device, _index_args
 
 # a walk stage's words (csrc/lockstep.cu's struct WalkArgs), in order
@@ -88,6 +91,9 @@ def _bind(lib) -> None:
                lib.fwd_stage_launch):
         fn.argtypes, fn.restype = [p, p], i
     bind_graphs(lib, "lockstep")
+    if hasattr(lib, "fwd_stage_occupancy"):       # an earlier build has none
+        lib.fwd_stage_occupancy.argtypes, lib.fwd_stage_occupancy.restype = \
+            [i, ll, p], i
     for what, names in (("walk", WALK_ARGS), ("fwd", FWD_ARGS)):
         words = getattr(lib, f"lockstep_{what}_args_words")
         words.argtypes, words.restype = [], i
@@ -155,12 +161,15 @@ def fwd_stage(fm, qflat, nxtflat, L: int, B: int, state: dict, mh,
     bases qflat (uint8) and nxtflat (int32) of the (R, L) reads, flat,
     all contiguous on one device (checked, never converted) -> the state
     after at most B steps a lane (FWD_STATE, rid the input's) and the
-    records (FWD_RECORDS, (U, B): the lane's steps j < steps, zero after),
-    as ``seedscan._fwd_stage_walk_plain`` (round 3's greedy segment with
-    ``r3``).  The outputs come from the caching allocator (inside a call
-    graph's capture, from its pool); the records are zeroed first.  A CPU
-    tensor reaches ``_launch``, which refuses it unless a test put a host
-    loop there."""
+    records (FWD_RECORDS, (U, B)), as ``seedscan._fwd_stage_walk_plain``
+    (round 3's greedy segment with ``r3``) where it matters: pf in every
+    column (false from a lane's steps on), pk, pl, ps, pe and pp where j <
+    steps, unspecified after (the plain version's frozen values there
+    have pf false, and forward_scan_dedup drops every such record).  The
+    outputs come from the caching allocator (inside a call graph's
+    capture, from its pool), ``_records`` the records, and nothing zeroes
+    them.  A CPU tensor reaches ``_launch``, which refuses it unless a
+    test put a host loop there."""
     dev = state["k"].device
     dt = fm.dtype
     U = state["k"].shape[0] if state["k"].dim() == 1 else -1
@@ -178,12 +187,10 @@ def fwd_stage(fm, qflat, nxtflat, L: int, B: int, state: dict, mh,
     check_tensor("alive", state["alive"], torch.bool, (U,), dev)
     check_tensor("mh", mh, dt, (U,), dev)
     i32, b8 = torch.int32, torch.bool
-    out = {n: torch.empty(U, dtype=dt if n in FWD_T else b8 if n in (
-        "alive", "waiting") else i32, device=dev) for n in FWD_STATE}
+    out = {n: empty(U, dt if n in FWD_T else b8 if n in (
+        "alive", "waiting") else i32, dev) for n in FWD_STATE}
     out["rid"] = state["rid"]
-    for n in FWD_RECORDS:
-        out[n] = torch.zeros((U, B), dtype=b8 if n == "pf" else dt if n in (
-            "pk", "pl", "ps") else i32, device=dev)
+    out.update(_records(U, B, dt, dev))
     if U == 0:
         return out
     args = (ct.c_longlong * len(FWD_ARGS))()
@@ -207,6 +214,20 @@ def fwd_stage(fm, qflat, nxtflat, L: int, B: int, state: dict, mh,
         args[at[name]] = x
     _launch("fwd_stage_kernel", dev, args)
     return out
+
+
+def _records(U: int, B: int, dt: torch.dtype, dev) -> dict:
+    """A forward stage's record arrays (FWD_RECORDS, (U, B) each: pf bool,
+    pk, pl, ps ``dt``, pe, pp int32), uninitialised."""
+    return {n: empty((U, B), torch.bool if n == "pf" else dt if n in (
+        "pk", "pl", "ps") else torch.int32, dev) for n in FWD_RECORDS}
+
+
+def fwd_occupancy(dtype: torch.dtype, dev) -> dict:
+    """What card ``dev`` gives ``fwd_stage_kernel`` over an index of
+    ``dtype``: ``KernelLibrary.occupancy``'s numbers."""
+    return LIB.occupancy("fwd_stage_occupancy", dtype == torch.int64, 0,
+                         torch.device(dev))
 
 
 class WalkLoop:

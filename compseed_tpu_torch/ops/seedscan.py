@@ -1041,8 +1041,9 @@ def _fwd_stage_walk(fm: DeviceFMIndex, qflat, nxtflat, L: int, B: int,
     of ``fwd_stage_kernel`` (ops/lockstep_cuda.py), in which each lane
     runs its steps to its end (a lane that stops being active never
     becomes active again within the stage, so the JAX loop's test over
-    all lanes changes no lane).  The kernel's records past a lane's steps
-    are zero where the plain version's hold frozen values with pf false;
+    all lanes changes no lane).  The kernel writes pf in every column,
+    false past a lane's steps; its other records past them are
+    unspecified where the plain version's hold frozen values, and
     forward_scan_dedup reads no record whose pf is false."""
     return _fwd_route(state["k"].device)(
         fm, qflat, nxtflat, L, B, state, mh, advance, mode=mode,

@@ -12,7 +12,7 @@ dispatcher, so on a card through the kernels.  ``run(call, route)`` runs
 one again by "kernel" (ops/smem_cuda.py), "plain" (the plain version on
 the call's own tensors) or "host" (the source's host loops, built with
 g++: ``HostTwin``), each under the call's caps; ``vs_plain`` holds the
-kernel to the plain version.  ``work`` counts, from the host loops' record
+kernel, its output poisoned first, to the plain version.  ``work`` counts, from the host loops' record
 of a call, the distinct occ rows its extensions read and their bytes, the
 lanes' bytes in and out, the ranks and words ranked, and each lane's
 dependent steps (the longest lane's steps set the latency floor).
@@ -31,10 +31,11 @@ import numpy as np
 import torch
 
 from compseed_tpu_torch.ops import smem, smem_cuda
-from compseed_tpu_torch.ops.cuda_lib import BUILD
+from compseed_tpu_torch.ops.cuda_lib import BUILD, Poisoned
 
 KINDS = ("collect", "strategy")
 KEPT = 64                   # calls of each kind a Capture keeps
+POISON = 0x5A               # HostTwin's outputs' bytes before a call
 
 
 @dataclasses.dataclass
@@ -108,7 +109,8 @@ class HostTwin:
     """csrc/smem_seed.cu built with g++ into its host loops
     (smem_collect_host, smem_strategy_host) in ``so`` (rebuilt when the
     source or a header beside it is newer); ``collect`` and ``strategy``
-    take smem_cuda's arguments, on CPU tensors, and give its outputs."""
+    take smem_cuda's arguments, on CPU tensors, and give its outputs,
+    whose every byte was POISON before the call."""
 
     def __init__(self, so: str | None = None):
         src = smem_cuda.LIB.src
@@ -127,7 +129,7 @@ class HostTwin:
         index = [p, ll, p, ll, i]
         trace = [p, ll, p, p]
         lib.smem_collect_host.argtypes = index + \
-            [p, i, p, p, i, p, i, i, p, ll, i] + trace
+            [p, i, p, p, i, p, i, i, p, ll, i, i] + trace
         lib.smem_strategy_host.argtypes = index + \
             [p, i, i, ll, p, i, p, ll, i] + trace
         lib.smem_collect_host.restype = lib.smem_strategy_host.restype = i
@@ -139,7 +141,7 @@ class HostTwin:
         return (occ, L2), [occ.ctypes.data, occ.shape[0], L2.ctypes.data,
                            int(fm.primary), int(bool(fm.fill_oob))]
 
-    def _call(self, kind, fm, L, args, cap, trace):
+    def _call(self, kind, fm, L, args, cap, trace, group=8):
         keep, index = self._index(fm)
         P = args[0 if kind == "collect" else 2].shape[0]
         width = cap[-1] * 5 + (3 if kind == "collect" else 2)
@@ -147,6 +149,7 @@ class HostTwin:
                 if isinstance(a, torch.Tensor) else a for a in args]
         out = np.empty((P, width), dtype=np.int64 if fm.dtype == torch.int64
                        else np.int32)
+        out.view(np.uint8).fill(POISON)      # every word must be written
         steps = np.zeros(P, np.int32)
         n_pos = ct.c_longlong(0)
         pos = np.empty(0, np.int64)
@@ -159,7 +162,7 @@ class HostTwin:
                 e = self.lib.smem_collect_host(
                     *index, q.ctypes.data, L, piv.ctypes.data, mh.ctypes.data,
                     int(mh.dtype == np.int64), act.ctypes.data, cap[0],
-                    cap[1], out.ctypes.data, P, idx64, *rec)
+                    cap[1], out.ctypes.data, P, idx64, group, *rec)
             else:
                 min_len, max_intv, q, act = arrs
                 e = self.lib.smem_strategy_host(
@@ -173,11 +176,13 @@ class HostTwin:
         return torch.from_numpy(out), (pos[:n_pos.value], steps)
 
     def collect(self, fm, L, q, pivot, min_hits, active, mlep, mmem,
-                trace=False):
-        """smem_cuda.collect's output by the host loops (with ``trace``
-        also the positions ranked and each lane's steps)."""
+                trace=False, group=8):
+        """smem_cuda.collect's output by the host loops, each lane's group
+        of ``group`` threads (8 or 32: the kernel's slot map and scan
+        for that group) as loops (with ``trace`` also the positions ranked
+        and each lane's steps)."""
         out, rec = self._call("collect", fm, L, (q, pivot, min_hits, active),
-                              (mlep, mmem), trace)
+                              (mlep, mmem), trace, group)
         return (out, rec) if trace else out
 
     def strategy(self, fm, L, min_len, max_intv, q, active, mmem3,
@@ -206,8 +211,12 @@ def run(call: Call, route: str, twin: HostTwin | None = None):
 
 
 def vs_plain(call: Call) -> int:
-    """max |kernel - plain| over the call's output (0: bit-equal)."""
-    got, want = run(call, "kernel"), run(call, "plain")
+    """max |kernel - plain| over the call's output (0: bit-equal), the
+    kernel's output poisoned before its launch (cuda_lib.Poisoned), so
+    that a word it does not write shows."""
+    with Poisoned():
+        got = run(call, "kernel")
+    want = run(call, "plain")
     if got.shape != want.shape or got.dtype != want.dtype:
         return 1 << 62
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) \

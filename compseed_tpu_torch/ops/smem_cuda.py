@@ -6,7 +6,10 @@ round-3 scan as per-read programs that BatchSeeder vmaps and jits, one
 device program a call; the port launches one hand-written kernel a call:
 
   ``collect``  -> ``smem_collect_kernel``, for ``ops/smem.py::_collect_one``
-      (plain version ``_collect_plain``): a warp a lane;
+      (plain version ``_collect_plain``): a warp a lane where the call
+      runs in one wave so, else a group of 8 threads a lane (16,896 lanes
+      resident on an H100), frontier slot j in thread j % group
+      (``occupancy`` says what the card gives a call);
   ``strategy`` -> ``smem_strategy_kernel``, for
       ``ops/smem.py::_seed_strategy_one`` (plain version
       ``_seed_strategy_plain``): a pair of threads a lane.
@@ -22,7 +25,9 @@ into build/compseed_tpu_torch/libsmem_seed.so).
 
 ``LAUNCHES`` counts kernel launches by kernel, and nothing else.  Every
 launch goes to the device its tensors lie on, on that device's current
-stream, with no synchronisation; outputs come from ``torch.empty``.
+stream, with no synchronisation; outputs come from ``torch.empty``
+(``cuda_lib.empty``: filled with a sentinel under ``cuda_lib.Poisoned``,
+for the tests), and the kernels write every word of them.
 """
 
 from __future__ import annotations
@@ -31,10 +36,10 @@ import ctypes as ct
 
 import torch
 
-from compseed_tpu_torch.ops.cuda_lib import KernelLibrary, check_tensor
+from compseed_tpu_torch.ops.cuda_lib import KernelLibrary, check_tensor, empty
 from compseed_tpu_torch.ops.fm_cuda import _cuda_device, _index_args
 
-MAX_CAP = 32                # csrc/smem_seed.cu: a frontier slot a thread
+MAX_CAP = 32                # csrc/smem_seed.cu: a frontier's slots
 KERNELS = ("smem_collect_kernel", "smem_strategy_kernel")
 
 
@@ -47,6 +52,9 @@ def _bind(lib) -> None:
         [p, i, i, ll, p, i, p, ll, i, p]
     for fn in (lib.smem_collect_launch, lib.smem_strategy_launch):
         fn.restype = i
+    if hasattr(lib, "smem_collect_occupancy"):    # an earlier build has none
+        lib.smem_collect_occupancy.argtypes = [i, ll, p]
+        lib.smem_collect_occupancy.restype = i
 
 
 LIB = KernelLibrary("smem_seed.cu", KERNELS, _bind, "smem_cuda_error_name")
@@ -85,7 +93,7 @@ def collect(fm, L: int, q, pivot, min_hits, active, mlep: int,
     check_tensor("min_hits", min_hits, min_hits.dtype, (P,), dev)
     check_tensor("active", active, torch.bool, (P,), dev)
     index = _index_args(fm, dev)
-    out = torch.empty((P, mmem * 5 + 3), dtype=fm.dtype, device=dev)
+    out = empty((P, mmem * 5 + 3), fm.dtype, dev)
     if P:
         LIB.launch("smem_collect_kernel", dev, "smem_collect_launch",
                    *index, q.data_ptr(), L, pivot.data_ptr(),
@@ -105,10 +113,21 @@ def strategy(fm, L: int, min_len: int, max_intv: int, q, active,
     dev, P = _lanes("strategy", q, L)
     check_tensor("active", active, torch.bool, (P,), dev)
     index = _index_args(fm, dev)
-    out = torch.empty((P, mmem3 * 5 + 2), dtype=fm.dtype, device=dev)
+    out = empty((P, mmem3 * 5 + 2), fm.dtype, dev)
     if P:
         LIB.launch("smem_strategy_kernel", dev, "smem_strategy_launch",
                    *index, q.data_ptr(), L, int(min_len), int(max_intv),
                    active.data_ptr(), mmem3, out.data_ptr(), P,
                    int(fm.dtype == torch.int64))
     return out
+
+
+def occupancy(dtype: torch.dtype, dev, lanes: int) -> dict:
+    """What card ``dev`` gives ``smem_collect_kernel`` in a call of
+    ``lanes`` lanes over an index of ``dtype`` (torch.int32 or
+    torch.int64): ``KernelLibrary.occupancy`` of the group the launcher
+    takes for it (threads_per_lane), its blocks an SM, lanes a block,
+    registers, spill bytes and the lanes resident at once (a call of at
+    most that many lanes runs in one wave)."""
+    return LIB.occupancy("smem_collect_occupancy", dtype == torch.int64,
+                         lanes, torch.device(dev))

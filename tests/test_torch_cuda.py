@@ -1958,9 +1958,10 @@ def _golden_rerun_calls(dev, dtype):
 @pytest.mark.parametrize("dtype", ["int32", "int64"])
 def test_smem_kernels_on_golden_rerun_on_card(dev, dtype):
     """A golden's exact rerun on the card: every collect and round-3 call
-    by smem_collect_kernel / smem_strategy_kernel equals its plain
-    version, one launch a call and no extension kernel launched; again
-    with MLEP, MMEM, MMEM3 forced to 2, 1, 1 (overflows hit)."""
+    by smem_collect_kernel / smem_strategy_kernel, its output poisoned
+    first, equals its plain version, one launch a call and no extension
+    kernel launched; again with MLEP, MMEM, MMEM3 forced to 2, 1, 1
+    (overflows hit)."""
     from compseed_tpu_torch.ops import smem_cases
     _, _, cap, _, fm_n, smem_n = _golden_rerun_calls(dev, dtype)
     assert fm_n["fm_extend_sel_kernel"] == 0, fm_n
@@ -1975,9 +1976,8 @@ def test_smem_kernels_on_golden_rerun_on_card(dev, dtype):
             ("MLEP", 2), ("MMEM", 1), ("MMEM3", 1)) if n in call.caps})
         forced = smem_cases.Call(call.kind, call.fm, call.L, call.args,
                                  small)
-        want = smem_cases.run(forced, "plain")
-        assert torch.equal(smem_cases.run(forced, "kernel"), want)
-        ovf += int(want[:, -1].sum())
+        assert smem_cases.vs_plain(forced) == 0, (call.kind, call.lanes)
+        ovf += int(smem_cases.run(forced, "plain")[:, -1].sum())
     assert ovf > 0
 
 
@@ -1985,8 +1985,9 @@ def test_smem_kernels_on_golden_rerun_on_card(dev, dtype):
 def test_smem_kernels_on_forced_overflow_chunk_on_card(dev, bench, dtype):
     """The first bench chunk on a seeder whose round-1 pool is too small
     (GP_F = 18, as chip_smoke.py forces it): the chunk reruns; every
-    collect and round-3 call of the rerun equals its plain version, with
-    the caps as they are and forced to 2, 1, 1."""
+    collect and round-3 call of the rerun, its output poisoned first,
+    equals its plain version, with the caps as they are and forced to 2,
+    1, 1."""
     from compseed_tpu_torch.ops import smem_cases
     from compseed_tpu_torch.ops.engine import device_seeder
     from compseed_tpu_torch.options import MemOptions
@@ -2006,8 +2007,27 @@ def test_smem_kernels_on_forced_overflow_chunk_on_card(dev, bench, dtype):
         small = {n: (2 if n == "MLEP" else 1) for n in call.caps}
         forced = smem_cases.Call(call.kind, call.fm, call.L, call.args,
                                  small)
-        assert torch.equal(smem_cases.run(forced, "kernel"),
-                           smem_cases.run(forced, "plain"))
+        assert smem_cases.vs_plain(forced) == 0, (call.kind, call.lanes)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+def test_smem_collect_kernel_runs_a_call_in_one_wave_on_card(dev, dtype):
+    """A collect call of 64 to 16,384 lanes (the reruns' widths) runs in
+    one wave: the group the launcher takes for it (a warp a lane where the
+    call fits so, else 8 threads a lane) keeps at least that many lanes
+    resident (the occupancy query times the SMs), at most 64 registers a
+    thread; the 8,192- and 16,384-lane calls among them, 16,384 lanes by
+    8 threads a lane, 4,096 and fewer by 32 (at least 8 blocks of 4 lanes
+    an SM: 4,224 lanes)."""
+    from compseed_tpu_torch.ops import smem_cuda
+    for lanes in (64, 1024, 4096, 8192, 16384):
+        occ = smem_cuda.occupancy(dtype, dev, lanes)
+        assert occ["resident_lanes"] >= lanes, (lanes, occ)
+        assert occ["registers"] <= 64, (lanes, occ)
+        if lanes != 8192:                  # either group may fit 8,192
+            assert occ["threads_per_lane"] == (32 if lanes <= 4096 else 8), \
+                (lanes, occ)
 
 
 def _fm_launch(name):
@@ -2129,8 +2149,9 @@ def test_fwd_stage_kernel_equals_plain_on_first_bench_chunk(dev, bench,
     """Every stage of fwd_staged's staged forward walk on the first bench
     chunk (17: round 1's 7, round 2's 3, round 3's 7; ops/lockstep_cases.
     Capture, the calls eager) by fwd_stage_kernel equals the plain
-    version: the state, pf, the records where j < steps and zero past
-    them; one launch a stage."""
+    version, its outputs poisoned first: the state, pf (false past each
+    lane's steps), the other records where j < steps; one launch a
+    stage."""
     from compseed_tpu_torch.ops import lockstep_cases, seeder2
     fm, reads = bench
     sd, fns = _engine_seeder(dev, bench, dtype, "fwd_staged")
@@ -2205,8 +2226,9 @@ def test_sa_batch_loop_on_card(dev, bench, dtype):
 def test_lockstep_wrappers_check_inputs_on_card(dev, bench):
     """The scan's and the forward stage's launchers refuse CPU tensors, a
     capl below 1 and wrong dtypes, and launch nothing for them; a stage
-    of no lanes runs no kernel; a forward stage of dead lanes takes no
-    step and leaves its records zero."""
+    of no lanes runs no kernel; a forward stage of dead lanes, its
+    outputs poisoned, takes no step and writes pf false everywhere (its
+    other records are unspecified past the steps: all of them here)."""
     from compseed_tpu_torch.ops import lockstep_cuda
     dfi = _bench_index(bench, dev, "int32")
     R, L = 64, 32
@@ -2249,8 +2271,10 @@ def test_lockstep_wrappers_check_inputs_on_card(dev, bench):
     out = lockstep_cuda.fwd_stage(*args, {n: x[:0] for n, x in st.items()},
                                   mh[:0], True, False)
     assert out["pf"].shape == (0, 8) and _lockstep_launches() == n1
-    out = lockstep_cuda.fwd_stage(*args, st, mh, True, False)
+    from compseed_tpu_torch.ops import cuda_lib
+    with cuda_lib.Poisoned():
+        out = lockstep_cuda.fwd_stage(*args, st, mh, True, False)
     assert not out["steps"].any() and not out["pf"].any() and \
-        not out["pk"].any() and not out["alive"].any()
+        not out["alive"].any()
     assert _lockstep_launches() == dict(
         n1, fwd_stage_kernel=n1["fwd_stage_kernel"] + 1)

@@ -10,10 +10,14 @@
                      jumps), a jump target that is padding, round 3 (min_len
                      19, max_intv 20), the round-2 task form (a pivot,
                      min_hits and active a lane, no advance), no live lane,
-                     and fill_oob garbage lanes.  The kernel's records are
-                     held where j < steps and to zero past them; the plain
+                     and fill_oob garbage lanes.  Every output comes
+                     poisoned (cuda_lib.Poisoned, 0x5A bytes): the state
+                     and pf are held everywhere (pf false past a lane's
+                     steps), the other records where j < steps and to the
+                     sentinel past them (nothing writes there); the plain
                      version's everywhere.
-  forward_scan_dedup on the twin against the plain route, for the four
+  forward_scan_dedup on the twin (poisoned records) against the plain
+                     route, for the four
                      stage lists of tests/test_torch_engines.py's _fwd_kw
                      (r1, r1_small, task, r3), which that file's
                      test_forward_scan_dedup_vs_jax holds to the JAX
@@ -100,11 +104,12 @@ def edge():
 @pytest.fixture
 def on_twin(twin, monkeypatch):
     """_fwd_stage_walk through its kernel route, every launch by the host
-    loops."""
+    loops, every output poisoned before its launch."""
     monkeypatch.setattr(tss, "_fwd_route",
                         lambda dev: tss._fwd_stage_walk_kernel)
     monkeypatch.setattr(lockstep_cuda, "_launch", twin.launch)
-    return twin
+    with cuda_lib.Poisoned():
+        yield twin
 
 
 _JAX: dict = {}
@@ -194,10 +199,11 @@ def _as_torch(out: dict, like: dict) -> dict:
 @pytest.mark.parametrize("case", list(FWD_CASES))
 def test_fwd_stage_twin_equals_plain_and_jax(idx, jd32, edge, on_twin,
                                              case):
-    """fwd_stage_kernel's lane code (through the kernel route) equals the
-    JAX package's _fwd_stage_walk: the state exactly, pf exactly, the
-    other records where j < steps and zero past them; the plain version
-    equals it everywhere."""
+    """fwd_stage_kernel's lane code (through the kernel route, its outputs
+    poisoned) equals the JAX package's _fwd_stage_walk: the state exactly,
+    pf exactly (false past each lane's steps), the other records where j <
+    steps, and past them they keep the sentinel; the plain version equals
+    it everywhere."""
     jd, td = idx
     if case == "garbage_oob":         # the JAX package's gather rule
         td = dataclasses.replace(td, fill_oob=True)
@@ -228,6 +234,10 @@ def test_fwd_stage_twin_equals_plain_and_jax(idx, jd32, edge, on_twin,
     assert got["rid"] is not None and torch.equal(
         got["rid"], _t(state["rid"]))
     steps = got["steps"]
+    past = torch.arange(B)[None, :] >= steps[:, None].to(torch.int64)
+    assert not bool(got["pf"][past].any())
+    for n in ("pk", "pl", "ps", "pe", "pp"):
+        assert bool((got[n][past] == cuda_lib.sentinel(got[n].dtype)).all())
     if case == "no_live":
         assert not steps.any() and not got["pf"].any()
     else:

@@ -10,7 +10,12 @@ _seed_strategy_one), at int32 and int64 index types:
                         (min_hits > 1), pivot 0 (the fast path), pivots
                         on an ambiguous base and at the read's last base,
                         inactive pad lanes; MLEP and MMEM forced to 2 and
-                        1 so the overflows are hit;
+                        1 so the overflows are hit; and on a repeat
+                        family's index, whose LEP frontiers reach 32
+                        slots, MLEP and MMEM on each side of every slot
+                        boundary of the kernel's groups (a lane's 8 or
+                        32 threads, slot j in thread j % group), every
+                        output byte poisoned first;
   smem_strategy_kernel  the round-3 scan with hits, MMEM3 forced to 1.
 
 Also: a whole BatchSeeder.run_flat over tests/fixtures/reads.fq (2,000
@@ -40,7 +45,7 @@ from compseed_tpu_torch.ops import smem as tsmem
 from compseed_tpu_torch.ops import smem_cases, smem_cuda
 from compseed_tpu_torch.ops.device_index import to_device
 
-from tests.conftest import FIXTURES
+from tests.conftest import FIXTURES, _index_from_codes
 
 # the port's CPU programs are many small operations: one intra-op thread
 # is as fast, and test workers side by side do not fight over the cores
@@ -112,6 +117,55 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+UNIT = 120          # the repeat family's unit
+COPIES = 40         # its copies with one substitution each
+
+
+@pytest.fixture(scope="module")
+def family():
+    """A genome of COPIES copies of a random UNIT-base unit, copy c with one
+    substitution at 2 + 3c, between random 25-base spacers, then the exact
+    unit: a sweep along the unit loses one copy at a time, so its LEP
+    frontier grows past 32 slots (pivot 0) or to 26-31 (pivot 40).  ->
+    (JAX index at int32, {dtype: port index on the CPU}, lanes (q, pivot,
+    min_hits, active): 0-23 over the unit and four copies, pivots 0 to
+    100, min_hits 1, 2 and 5, lane 23 inactive; 24-29 over the unit at
+    pivots 50-70 with min_hits 10-30, where the backward shrink loses one
+    copy at a time and slot after slot fails and is emitted: lane 26
+    (pivot 60, min_hits 22) emits 20 rows, so frontier slots up to 19
+    reach slot 0)."""
+    rng = np.random.default_rng(5)
+    unit = rng.integers(0, 4, UNIT).astype(np.uint8)
+    parts, copies = [], []
+    for c in range(COPIES):
+        cp = unit.copy()
+        cp[2 + 3 * c] = (cp[2 + 3 * c] + 1) % 4
+        copies.append(cp)
+        parts += [rng.integers(0, 4, 25).astype(np.uint8), cp]
+    _, _, jfm = _index_from_codes(np.concatenate(parts + [unit]))
+    fm = convert.fmindex_from_jax_package(jfm)
+    deep = [(60, 10), (60, 16), (60, 22), (50, 20), (70, 25), (62, 30)]
+    reads = [unit] * 12 + [copies[c] for c in (2, 13, 25, 39)] * 3 + \
+        [unit] * len(deep)
+    P = len(reads)
+    q = np.full((P, L), 4, np.uint8)
+    for i, r in enumerate(reads):
+        q[i, :UNIT] = r
+    piv = np.array([0, 20, 40, 60, 80, 100] * 4 + [p for p, _ in deep],
+                   np.int32)
+    mh = np.array(([1] * 6 + [2] * 3 + [5] * 3) * 2 + [h for _, h in deep],
+                  np.int32)
+    act = np.ones(P, bool)
+    act[23] = False
+    return jax_to_device(jfm), {
+        n: to_device(fm, CPU, force_dtype=d)
+        for n, d in (("int32", None), ("int64", np.int64))}, \
+        (q, piv, mh, act)
+
+
+_FAMILY_JAX: dict = {}
+
+
 def _jax_collect(dfi, qarr, piv, mh, act):
     f = jax.jit(jax.vmap(lambda fm_, q, p, h, a: jsmem._collect_one(
         fm_, L, q, p, h, a), in_axes=(None, 0, 0, 0, 0)))
@@ -157,6 +211,50 @@ def test_collect_host_vs_plain_and_jax(twin, idx, lanes, monkeypatch, caps):
     assert bool(got[:, -1].any()) == bool(caps)   # overflow only if forced
     if not caps:
         assert (n > 1).any() and (n[48:] > 0).any()
+
+
+# (MLEP, MMEM) on each side of the groups' slot boundaries: slot j in
+# thread j % group, so with 8 threads a thread's second slot starts at 8,
+# its fourth at 24; with 32 every slot is a thread's first
+SLOT_CAPS = [(1, 1), (4, 5), (8, 9), (9, 8), (16, 17), (17, 16), (24, 25),
+             (25, 24), (31, 32), (32, 31)]
+
+
+@pytest.mark.parametrize("group", [8, 32])
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+@pytest.mark.parametrize("caps", SLOT_CAPS,
+                         ids=[f"{a}-{b}" for a, b in SLOT_CAPS])
+def test_collect_host_at_slot_boundaries(twin, family, monkeypatch, caps,
+                                         dtype, group):
+    """On the repeat family's lanes, whose frontiers cross every slot
+    boundary of the kernel's groups, smem_collect_kernel's lane code at
+    each group size == _collect_plain == JAX _collect_one (run once a cap
+    pair, at int32; the int64 index's words equal it as integers), every
+    word written over poison; a lane whose frontier reaches more slots
+    than MLEP
+    overflows (pivot 40's reaches 26 to 31: its last thread-slot segment,
+    slots 24-31, at MLEP 32); lane 26 emits 20 rows where its frontier
+    fits (slot 19 reaches slot 0), at most MMEM."""
+    jd, tds, lanes = family
+    td = tds[dtype]
+    mlep, mmem = caps
+    _set_caps(monkeypatch, MLEP=mlep, MMEM=mmem)
+    qarr, piv, mh, act = lanes
+    if caps not in _FAMILY_JAX:
+        _FAMILY_JAX[caps] = _jax_collect(jd, *lanes).astype(np.int64)
+    want = _FAMILY_JAX[caps]
+    args = (_t(qarr), _t(piv), _t(mh), _t(act))
+    plain = tsmem._collect_plain(td, L, *args).numpy()
+    got = twin.collect(td, L, *args, mlep, mmem, group=group).numpy()
+    assert np.array_equal(plain.astype(np.int64), want)
+    assert np.array_equal(got.astype(np.int64), want)
+    ovf = got[:, -1].astype(bool)
+    assert ovf[0] and not ovf[23]                 # pivot 0: > 32 slots
+    assert bool(ovf[2]) == (mlep <= 25)           # pivot 40: 26 to 31
+    n_mems = got[:, mmem * 5]
+    assert (n_mems[:23] >= 1).all() and (n_mems[24:] >= 1).all()
+    if mlep >= 25:
+        assert n_mems[26] == min(mmem, 20)
 
 
 def test_collect_host_int64_hits(twin, idx, lanes):
@@ -209,6 +307,9 @@ def test_host_loops_refuse_bad_caps(twin, idx, lanes):
         with pytest.raises(RuntimeError):
             twin.collect(td, L, _t(qarr), _t(piv), _t(mh), _t(act), mlep,
                          mmem)
+    with pytest.raises(RuntimeError):            # no such group
+        twin.collect(td, L, _t(qarr), _t(piv), _t(mh), _t(act), 32, 32,
+                     group=4)
     with pytest.raises(RuntimeError):
         twin.strategy(td, L, 19, 20, _t(qarr), _t(act), 33)
 
