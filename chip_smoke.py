@@ -18,11 +18,12 @@ Phases, in order; any failure exits non-zero:
                 wrong tile is fatal.  The probe and
                 torch.add are timed two ways each: a loop of launches
                 between two events, and the same launches captured once
-                in a CUDA graph and replayed.  For smem_collect_kernel and
-                fwd_stage_kernel it prints the lanes the card keeps
-                resident (the occupancy query times the SMs), int32 and
-                int64, and ptxas' registers and spills (the parent's
-                builds' too, with the options below).
+                in a CUDA graph and replayed.  For smem_collect_kernel,
+                fwd_stage_kernel, scan_lanes_kernel and walk_stage_kernel
+                it prints the lanes the card keeps resident (the occupancy
+                query times the SMs), int32 and int64, and ptxas' registers
+                and spills (the parent's builds' too, with the options
+                below).
   2. kernels  — the DP kernel (H/E rows in shared memory) and its
                 device-memory-scratch variant against the plain PyTorch
                 version on the card, exactly, on seeded random pairs at
@@ -113,10 +114,11 @@ Phases, in order; any failure exits non-zero:
                 call of all_off's and bwd_win's first chunk, and the
                 forward stage kernel on all 17 stages of fwd_staged's,
                 int32 and int64, exact against their plain versions (a
-                scan's lep, cnt, ovf; a stage's lanes, t and live count;
-                a forward stage's state, pf (false past a lane's steps),
-                and its other records where j < steps), the outputs
-                poisoned before each launch.
+                scan's cnt, ovf, each lane's rows < cnt and the pools
+                build_pool makes of both; a stage's lanes, t and live
+                count; a forward stage's state, pf (false past a lane's
+                steps), and its other records where j < steps), the
+                outputs poisoned before each launch.
                 Then each seeding call as one CUDA graph (DeviceSeeder.
                 _call: the default engine's whole call captured once a
                 thread and call shape, its loops joining the capture)
@@ -176,10 +178,11 @@ Phases, in order; any failure exits non-zero:
                 The lockstep kernels: every scan and stage call of
                 all_off's and bwd_win's first chunk and every forward
                 stage of fwd_staged's (int32) timed in a loop and alone,
-                the stage's entry alone and a segment's share, the plain
-                version's ms, the bound (lockstep_cases.work) and the
-                latency floor; cell A's stream through align_stream under
-                COMPSEED_FWD_MEMO=0 (fwd_staged by its call graph until
+                the stage's entry alone and its first segment alone, the
+                plain version's ms, the bound (lockstep_cases.work) and
+                the latency floor; cell A's stream through align_stream
+                under COMPSEED_FWD_MEMO=0 (fwd_staged by its call graph
+                until
                 its caps' response switches it off), SAM byte-equal to
                 this phase's stream, the forward stage and the fused DP
                 kernel launched, the extension not; sa_batch by its loop graph
@@ -374,10 +377,12 @@ the profiler.  --smem-old-source FILE and --lockstep-old-source FILE
 launchers, such as the parent's, built with the port's csrc/ on the
 include path after the file's own directory) time that build's collect
 kernel on every collect call of the forced overflow's rerun, and its
-forward stage kernel on every stage of fwd_staged's first chunk (on
-records zeroed first, as the parent's wrapper zeroed them), against the
-port's in turns (old, new, new, old) on the card alone, each held to the
-plain version first.  No option changes what the port itself runs.
+scan, walk and forward stage kernels on every such call of all_off's,
+bwd_win's and fwd_staged's first chunk (a walk stage's loop and its first
+segment alone; a forward stage on records zeroed first, as the parent's
+wrapper zeroed them), against the port's in turns (old, new, new, old) on
+the card alone, each held to the plain version first.  No option
+changes what the port itself runs.
 
 Phases 3 to 7 seed every chunk of every engine by its call graph (the
 first chunk of a shape on a thread captures it).
@@ -778,8 +783,8 @@ def profile_chunk(run, sync, records=()) -> dict:
     for e in prof.key_averages():
         if e.key in out:
             out[e.key] = e.count
-        m = re.search(r"\b((?:fm|chain|walk|sa|smem)_[a-z_]+_kernel)",
-                      e.key)
+        m = re.search(
+            r"\b((?:fm|chain|walk|sa|smem|scan|fwd)_[a-z_]+_kernel)", e.key)
         dev_us = getattr(e, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(e, "cuda_time_total", 0)
@@ -1915,8 +1920,9 @@ def lockstep_capture(dev, opt, fm, queries, force=None) -> list:
 
 def lockstep_check(cases: dict) -> dict:
     """Every captured call (``cases``: tag -> lockstep_capture's) by the
-    kernels against the plain version on the card: a scan's lep, cnt and
-    ovf; a stage's lanes, t and live (the entry, then the segments of its
+    kernels against the plain version on the card: a scan's cnt, ovf,
+    rows < cnt and the pools built from both (lockstep_cases.scan_vs); a
+    stage's lanes, t and live (the entry, then the segments of its
     loop); a forward stage's state and records (lockstep_cases.fwd_vs: pf
     everywhere, the other records where j < steps), every kernel's outputs
     poisoned before its launch (lockstep_cases.vs_plain); max abs err by
@@ -2006,10 +2012,10 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
     stage's launch in a loop (CUDA events: the host's rate and its
     outputs' allocation with it) and alone (launch_ms: a CUDA graph of
     ``reps`` calls, replayed); with ``old`` (old_build's: the parent's
-    source) each forward stage alone by the parent's kernel on zeroed
-    records (zeroing_parent: what a stage cost there) and by the port's
-    in turns (old, new, new, old: ``turns``), the parent's held to the
-    plain version first; a stage's
+    source) each scan and forward stage alone by the parent's kernel and
+    by the port's in turns (old, new, new, old: ``turns``), a forward
+    stage's parent on zeroed records (zeroing_parent: what a stage cost
+    there), each held to the plain version first; a stage's
     whole loop the same two ways (its entry, then its segments: in a loop
     each call captures, launches and frees its loop graph; alone the loop
     joins the replayed graph) and its entry kernel alone, the segment
@@ -2019,8 +2025,21 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
     against the ranks' operations) and the latency floor, the longest
     lane's dependent extensions times ``step_ms`` (one dependent step of
     the chain walk on the same table, fm_latency); a stage's first segment
-    alone (segment_ms)."""
+    alone (segment_ms).  With ``old`` a stage's loop alone and its first
+    segment alone by the parent's build and the port's in turns
+    (``turns``, ``segment_turns``), the parent's build held to the plain
+    version first."""
     from compseed_tpu_torch.ops import lockstep_cases, lockstep_cuda
+    turn_builds = {"old": lambda: launching(lockstep_cuda, old),
+                   "new": lambda: launching(lockstep_cuda, None)}
+    for engine, call in calls if old is not None else ():
+        if call.kind in ("scan", "walk"):
+            with launching(lockstep_cuda, old):
+                e = lockstep_cases.vs_plain(call)
+            if e:
+                raise SystemExit(f"the parent's {call.kind} kernel disagrees "
+                                 f"with the plain version on {engine}'s "
+                                 f"call of {call.lanes} lanes: {e}")
     out = []
     for engine, call in calls:
         w = lockstep_cases.work(call, twin)
@@ -2049,6 +2068,19 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
             r.update(segments=segs, fit=call.fit, t0=call.t0,
                      src=call.src is not None,
                      segment_ms=segment_ms(lp, reps) if segs else None)
+            if old is not None:
+                r["turns"] = turns_ms(
+                    lambda: lockstep_cases.run(call, "kernel"), turn_builds,
+                    reps)
+                if segs:
+                    r["segment_turns"] = {b: [] for b in turn_builds}
+                    for b in list(turn_builds) + list(turn_builds)[::-1]:
+                        with turn_builds[b]():
+                            r["segment_turns"][b].append(segment_ms(
+                                lockstep_entry_args(call), reps))
+        if call.kind == "scan" and old is not None:
+            r["turns"] = turns_ms(
+                lambda: lockstep_cases.run(call, "kernel"), turn_builds, reps)
         if call.kind == "fwd":
             r.update(B=call.B, mode=call.kw.get("mode", "lep"),
                      advance=call.advance,
@@ -2068,13 +2100,20 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
             f"{r['ms']:.4f} ms in a loop, {r['graph_ms']:.5f} ms alone "
             f"(plain {r['plain_ms']:.3f}); entry {r.get('entry_ms')}, "
             f"segments {r.get('segments')}, segment {r.get('segment_ms')}; "
-            f"in turns {json.dumps(r.get('turns'))}; "
+            f"in turns {json.dumps(r.get('turns'))}; segment in turns "
+            f"{json.dumps(r.get('segment_turns'))}; "
             f"{w['rows']} occ rows, {w['bytes']} B, {w['extensions']} "
             f"extensions, steps max {w['max_steps']} mean "
             f"{w['mean_steps']:.1f}; bound {bound_ms:.6f} ms by {bound_by}, "
             f"floor {r['floor_ms']:.5f} ms")
-    log(f"[lockstep] the forward stages summed "
-        f"{json.dumps(call_sums([r for r in out if r['kind'] == 'fwd']))}")
+    for kind in ("scan", "walk", "fwd"):
+        log(f"[lockstep] {kind}: the calls summed "
+            f"{json.dumps(call_sums([r for r in out if r['kind'] == kind]))}")
+    segs = [r for r in out if r.get("segment_turns")]
+    if segs:
+        log("[lockstep] walk segments summed in turns " + json.dumps({
+            b: sum(statistics.mean(r["segment_turns"][b]) for r in segs)
+            for b in segs[0]["segment_turns"]}))
     return out
 
 
@@ -2103,16 +2142,19 @@ def lockstep_rows(rec, row) -> list:
     def calls(rs, keys):
         return [{k: r.get(k) for k in keys} for r in rs]
     keys = ("engine", "lanes", "ms", "graph_ms", "plain_ms", "bound_ms",
-            "floor_ms")
-    wkeys = keys + ("entry_ms", "segments", "segment_ms", "fit", "t0")
+            "floor_ms", "turns")
+    wkeys = keys + ("entry_ms", "segments", "segment_ms", "segment_turns",
+                    "fit", "t0")
     first = scans[0]
     n = rec["launches"]
+    occ = rec["occupancy"]
     return [
         row("scan_lanes_kernel", LOCKSTEP_REPLACES["scan_lanes_kernel"],
             n["scan_lanes_kernel"], err("scan_lanes_kernel"), first["ms"],
             first["plain_ms"], first, source=LOCKSTEP_SOURCE,
             at=f"{first['lanes']} lanes (round 1)",
             graph_ms=first["graph_ms"], latency_floor_ms=first["floor_ms"],
+            occupancy=occ["scan_lanes_kernel"],
             calls=calls(scans, keys)),
         row("walk_stage_kernel", LOCKSTEP_REPLACES["walk_stage_kernel"],
             n["walk_stage_kernel"], err("walk_stage_kernel"),
@@ -2122,6 +2164,7 @@ def lockstep_rows(rec, row) -> list:
                f"({seg['engine']}); ms and plain_ms a segment, bound and "
                f"floor the stage's loop",
             stage_ms=seg["graph_ms"], latency_floor_ms=seg["floor_ms"],
+            occupancy=occ["walk_stage_kernel"],
             calls=calls(walks, wkeys)),
         row("walk_stage_entry_kernel",
             LOCKSTEP_REPLACES["walk_stage_entry_kernel"],
@@ -2140,8 +2183,8 @@ def lockstep_rows(rec, row) -> list:
             latency_floor_ms=fwds[0]["floor_ms"],
             chunk=dict(call_sums(fwds),
                        plain_ms=sum(r["plain_ms"] for r in fwds)),
-            occupancy=rec["occupancy"],
-            calls=calls(fwds, keys + ("B", "mode", "live", "turns")))]
+            occupancy=occ["fwd_stage_kernel"],
+            calls=calls(fwds, keys + ("B", "mode", "live")))]
 
 
 def fwd_stream(opt, fm, dfi, dev, engine, tail, chunks, main_sams) -> dict:
@@ -5483,12 +5526,19 @@ def main() -> None:
     # lanes by the occupancy query, ptxas' registers and spills; an
     # earlier build's registers and spills beside them
     occupancy = {}
+
+    def ls_occ(kernel):
+        return lambda t, d, lanes: lockstep_cuda.occupancy(kernel, t, d)
+
     for kernel, module, fn, widths, old in (
             ("smem_collect_kernel", smem_cuda, smem_cuda.occupancy,
              (4096, 16384), smem_old),
-            ("fwd_stage_kernel", lockstep_cuda,
-             lambda t, d, lanes: lockstep_cuda.fwd_occupancy(t, d), (65536,),
-             ls_old)):
+            ("fwd_stage_kernel", lockstep_cuda, ls_occ("fwd_stage_kernel"),
+             (65536,), ls_old),
+            ("scan_lanes_kernel", lockstep_cuda, ls_occ("scan_lanes_kernel"),
+             (16384,), ls_old),
+            ("walk_stage_kernel", lockstep_cuda, ls_occ("walk_stage_kernel"),
+             (589824,), ls_old)):
         occupancy[kernel] = dict(
             occupancy={f"{dt} at {lanes} lanes": fn(t, dev, lanes)
                        for dt, t in (("int32", torch.int32),
@@ -6218,7 +6268,8 @@ def main() -> None:
         ls_calls, ls_twin,
         fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"],
         old=ls_old)
-    ls_rec["occupancy"] = occupancy["fwd_stage_kernel"]
+    ls_rec["occupancy"] = {k: occupancy[k] for k in (
+        "fwd_stage_kernel", "scan_lanes_kernel", "walk_stage_kernel")}
     del ls_calls
     ls_rec["sa_batch_turns"] = sa_batch_turns(sa_keys)
     del sa_keys

@@ -22,10 +22,15 @@
 //   of each step is extend_sel(..., is_back = false) by base 3 - q[i], the
 //   pair ranking its two occ rows at once; a push writes its row (k, l, s,
 //   end, pivot) at min(cnt, capl - 1), as JAX writes a full buffer's last
-//   row again, sets ovf and leaves cnt; the rows past cnt are zeroed at the
-//   end, thread t of the pair writing words t, t + 2, t + 4 of each row.
-//   An ambiguous base stops the sweep without an extension, and a lane
-//   that is not active reads nothing.
+//   row again, sets ovf and leaves cnt.  An ambiguous base stops the sweep
+//   without an extension, and a lane that is not active reads nothing.
+//   Deliberate difference: the kernel writes cnt, ovf and the rows < cnt
+//   (all capl rows once cnt reaches capl); the rows past cnt are
+//   unspecified, where the plain version (and JAX) hold zeros.  Their one
+//   reader, build_pool, writes the pool rows it takes past n_valid as
+//   zeros (ops/seedscan.py), so the pool equals JAX's.  Zeroing them was
+//   most of a call's bytes: 42 of round 2's 53 MB, at one 32-byte sector
+//   a word (PERF.md).
 // walk_stage_kernel<T>
 //   Replaces the body of compseed_tpu/ops/seedscan.py:187-275 walk_stage
 //   (a lax.while_loop at :273 over segments of SEG = min(REV_W,
@@ -36,12 +41,24 @@
 //   (rwflat) or from qflat a step, dying on an ambiguous base, past the
 //   read's start or below its min_hits; steps counts the extensions (an
 //   mh death counts its killing call, an N or past-start death does not).
-//   A pair of threads a lane.  The loop's condition, t < max_steps and
-//   live > fit, is collective, so it cannot be a lane's: the kernel's last
-//   block to retire (loop_graph.cuh::retire_last) adds the segment's steps
-//   to t, leaves the live lanes in sc[kLive] and sets go and the WHILE
-//   node's condition.  t is a device word, which the next stage of a
-//   walk_pool call reads as its t0.
+//   One thread a lane (ThreadRowRanks): each step issues both of the
+//   lane's occ-row reads before it ranks either, a block a tile of 64
+//   lanes; a dead lane reads only its alive byte.  The first design, a
+//   pair of threads a lane, a row each, held 48 registers a thread (96 a
+//   lane); a thread a lane holds 64 (int32), so an SM keeps 1,024 lanes in
+//   flight where it kept 672.  Measured against them (PERF.md, H100): K
+//   lanes a pair stepped together over a grid of the card's resident
+//   blocks striding over the lanes, which covers a stage in about one
+//   wave, ran 1.3-2.2x slower than the first design at 589,824 lanes (a
+//   pair's lanes one after another; 91 and 153 registers at K = 2 and 4):
+//   the walk is bound by the memory system's throughput for its
+//   random row reads, not by a wave's latency.
+//   The loop's condition, t < max_steps and live > fit, is collective, so
+//   it cannot be a lane's: the kernel's last block to retire
+//   (loop_graph.cuh::retire_last) adds the segment's steps to t, leaves
+//   the live lanes in sc[kLive] and sets go and the WHILE node's
+//   condition.  t is a device word, which the next stage of a walk_pool
+//   call reads as its t0.
 // walk_stage_entry_kernel<T>
 //   The loop's entry (compact.cuh's segment_entry): JAX's while_loop tests
 //   its cond before the first segment, and a segment run when live <= fit
@@ -94,13 +111,16 @@
 // What bounds them: each lane is a chain of dependent extensions, each two
 // random occ rows, one a thread of the pair; the bytes a call needs (the
 // distinct rows and the lanes' words, ops/lockstep_cases.py counts them)
-// are a few MB, so the bound by HBM bytes is microseconds and the latency
-// of the longest lane's dependent steps decides: a round-1 scan lane takes
-// some 100-300 extensions, a walk segment at most 8, a forward stage at
-// most B (8 to L + 2).  The forward stage's records are (U, B) rows, one
-// a lane (forward_scan_dedup gathers them by row): what a stage must
-// write is pf for every column and the five others for the steps taken,
-// so it zeroes nothing and stores whole segments of a row.
+// are a few MB, so the bound by HBM bytes is microseconds.  The scan and
+// the forward stage run in about one wave, so the latency of the longest
+// lane's dependent steps decides: a round-1 scan lane takes some 100-300
+// extensions, a forward stage at most B (8 to L + 2).  A walk segment (at
+// most 8 steps) is 262,144-589,824 lanes wide, 2.5-5 waves: there the rate
+// at which the memory system serves the rows' random 16-byte reads (each
+// from L2: the table is 1 MB) decides.  The forward stage's records are
+// (U, B) rows, one a lane (forward_scan_dedup gathers them by row): what a
+// stage must write is pf for every column and the five others for the
+// steps taken, so it zeroes nothing and stores whole segments of a row.
 //
 // The launchers allocate nothing, launch on the given stream of the
 // calling thread's current device (ops/lockstep_cuda.py makes the tensors'
@@ -345,9 +365,13 @@ FM_HD void walk_lane(const FmPacked<T>& fm, const WalkArgs& a,
   }
 }
 
+// Lane j of a stage: its alive byte, then, for a live lane, its other
+// words; a dead lane reads nothing more.
 template <typename T>
 FM_HD WalkLane<T> load_lane(const WalkArgs& a, long long j) {
-  WalkLane<T> x;
+  WalkLane<T> x{};
+  x.alive = ((const bool*)a.alive)[j];
+  if (!x.alive) return x;
   x.k = ((const T*)a.k)[j];
   x.l = ((const T*)a.l)[j];
   x.s = ((const T*)a.s)[j];
@@ -356,27 +380,19 @@ FM_HD WalkLane<T> load_lane(const WalkArgs& a, long long j) {
   x.i = ((const int32_t*)a.i)[j];
   x.death = ((const int32_t*)a.death)[j];
   x.steps = a.steps ? ((const int32_t*)a.steps)[j] : 0;
-  x.alive = ((const bool*)a.alive)[j];
   return x;
 }
 
-// The words of a lane a segment changes; part 0 of 2 the first thread
-// of a pair's (k, s, i, alive), part 1 the other's (l, death, steps), or
-// part -1 all of them.
+// The words of a lane a segment changes.
 template <typename T>
-FM_HD void store_lane(const WalkArgs& a, long long j, const WalkLane<T>& x,
-                      int part) {
-  if (part != 1) {
-    ((T*)a.k)[j] = x.k;
-    ((T*)a.s)[j] = x.s;
-    ((int32_t*)a.i)[j] = x.i;
-    ((bool*)a.alive)[j] = x.alive;
-  }
-  if (part != 0) {
-    ((T*)a.l)[j] = x.l;
-    ((int32_t*)a.death)[j] = x.death;
-    if (a.steps) ((int32_t*)a.steps)[j] = x.steps;
-  }
+FM_HD void store_lane(const WalkArgs& a, long long j, const WalkLane<T>& x) {
+  ((T*)a.k)[j] = x.k;
+  ((T*)a.l)[j] = x.l;
+  ((T*)a.s)[j] = x.s;
+  ((int32_t*)a.i)[j] = x.i;
+  ((int32_t*)a.death)[j] = x.death;
+  if (a.steps) ((int32_t*)a.steps)[j] = x.steps;
+  ((bool*)a.alive)[j] = x.alive;
 }
 
 // The loop's step after a segment of n steps from t that leaves `live`
@@ -575,7 +591,7 @@ FM_HD void fwd_store(const FwdArgs& a, long long u, const FwdLane<T>& x,
 
 #ifdef __CUDACC__
 constexpr int kScanBlock = 64;     // threads a block, 2 a lane
-constexpr int kWalkBlock = 64;     // threads a block, 2 a lane
+constexpr int kWalkBlock = 64;     // threads a block, 1 a lane
 constexpr int kFwdBlock = 64;      // threads a block, 2 a lane
 constexpr int kFwdSeg = 8;         // steps a lane stages before a flush
 constexpr int kWarpLanes = 16;     // a warp's lanes (pairs)
@@ -607,41 +623,94 @@ __global__ void __launch_bounds__(kScanBlock) scan_lanes_kernel(
                 if ((k & 1) == t) o[5 * slot + k] = r[k];
             },
             cnt, ovf);
-  for (int s = cnt; s < capl; ++s)
-    for (int k = t; k < 5; k += 2) o[5 * s + k] = (T)0;
   if (t == 0)
     cnt_out[lane] = (T)cnt;
   else
     ovf_out[lane] = (T)(ovf ? 1 : 0);
 }
 
-// A segment of the stage's loop.  Every thread reads t at its start (no
-// block writes it before the last block to retire, which is the last to
-// read it); with a.loop the last block to retire advances t, leaves the
-// live count and sets go and the WHILE node's condition.
+// occ4 at k by one thread as its reads and its ranks apart (occ_row's
+// result, ThreadRanks' row): row_read issues the reads of the row's counts
+// and of the plane quarters the rank needs (the second only for block
+// offsets 64-127), row_pc adds the popcounts up once they are in, so that
+// a thread can have the reads of several rows in flight.
+struct RowRead {
+  Quarter c, v1, v2;
+  int off;
+  bool zero;  // k == -1: occ4 counts zero
+};
+
+template <typename T>
+FM_HD RowRead row_read(const FmPacked<T>& fm, T k) {
+  RowRead r;
+  long long row;
+  r.zero = !occ_at(fm, k, row, r.off);
+  if (r.zero) return r;
+  r.c = load_quarter(fm.rows, row, 0);
+  r.v1 = load_quarter(fm.rows, row, 1);
+  if (r.off >= 64) r.v2 = load_quarter(fm.rows, row, 2);
+  return r;
+}
+
+// The row's counts (cnt) and popcounts by base (rank_piece's packing) of
+// a row_read.
+FM_HD uint32_t row_pc(const RowRead& r, uint32_t cnt[4]) {
+  uint32_t pc = 0;
+  for (int j = 0; j < 4; ++j) cnt[j] = r.zero ? 0u : r.c.w[j];
+  if (r.zero) return 0;
+  plane_popc(r.v1.w[0], r.v1.w[1], 0, r.off, pc);
+  plane_popc(r.v1.w[2], r.v1.w[3], 1, r.off, pc);
+  if (r.off >= 64) {
+    plane_popc(r.v2.w[0], r.v2.w[1], 2, r.off, pc);
+    plane_popc(r.v2.w[2], r.v2.w[3], 3, r.off, pc);
+  }
+  return pc;
+}
+
+// The ranks of extend_sel by one thread a lane: both rows' reads issued
+// before either is ranked, so that a step's two random reads are in
+// flight together.
+template <typename T>
+struct ThreadRowRanks {
+  const FmPacked<T>& fm;
+  __device__ __forceinline__ void operator()(T a, T b, T tk[4],
+                                             T tl[4]) const {
+    const RowRead ra = row_read(fm, a), rb = row_read(fm, b);
+    uint32_t c[4];
+    uint32_t pc = row_pc(ra, c);
+    for (int j = 0; j < 4; ++j) tk[j] = rank_of<T>(c[j], pc, j);
+    pc = row_pc(rb, c);
+    for (int j = 0; j < 4; ++j) tl[j] = rank_of<T>(c[j], pc, j);
+  }
+};
+
+// A segment of the stage's loop, a thread a lane.  Every thread reads t
+// at its start (no block writes it before the last block to retire, which
+// is the last to read it); with a.loop the last block to retire advances
+// t, leaves the live count and sets go and the WHILE node's condition.
 template <typename T>
 __global__ void __launch_bounds__(kWalkBlock) walk_stage_kernel(
     const WalkArgs a) {
-  const long long j = ((long long)blockIdx.x * kWalkBlock + threadIdx.x) / 2;
+  const long long j = (long long)blockIdx.x * kWalkBlock + threadIdx.x;
   const int32_t t0 = *(const int32_t*)a.rnd;
   const int n = seg_steps(a, t0);
   bool live = false;
-  if (j < a.w) {                        // a whole pair
+  if (j < a.w) {
     const FmPacked<T> fm = make_fm((const uint32_t*)a.rows, a.n_rows,
                                    (const T*)a.L2, a.primary,
                                    (int)a.fill_oob);
-    const PairRanks<T> ranks{fm, Pair()};
+    const ThreadRowRanks<T> ranks{fm};
     WalkLane<T> x = load_lane<T>(a, j);
     const bool was = x.alive;
     walk_lane(fm, a, x, n, ranks);
-    if (was) store_lane(a, j, x, ranks.p.t);
+    if (was) store_lane(a, j, x);
     live = x.alive;
   }
   if (!a.loop) return;
   int total;
   if (retire_last<kWalkBlock / 32>(
-          (unsigned long long*)((int32_t*)a.sc + kRetire),
-          (threadIdx.x & 1) == 0 && live, gridDim.x, &total))
+          (unsigned long long*)((int32_t*)a.sc + kRetire), live, gridDim.x,
+          &total))
     loop_cond(a, walk_after(a, t0, n, total));
 }
 
@@ -764,23 +833,24 @@ int launch_fwd(const FwdArgs& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// What the card gives fwd_stage_kernel<T> (out, 6 ints): resident blocks
-// an SM, lanes a block, registers a thread, local (spill) bytes a thread,
-// static shared bytes a block, threads a lane (2).
-template <typename T>
-int fwd_occupancy(int* out) {
+// What the card gives a kernel launched in blocks of `block` threads, `lanes`
+// lanes a block at once, `threads` a lane (out, 6 ints): resident blocks an
+// SM, lanes a block, registers a thread, local (spill) bytes a thread,
+// static shared bytes a block, threads a lane.
+template <typename F>
+int kernel_occupancy(F kernel, int block, int lanes, int threads, int* out) {
   int blocks = 0;
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fwd_stage_kernel<T>, kFwdBlock, 0);
+  cudaError_t e =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, 0);
   cudaFuncAttributes fa;
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, fwd_stage_kernel<T>);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kernel);
   if (e != cudaSuccess) return (int)e;
   out[0] = blocks;
-  out[1] = kFwdBlock / 2;
+  out[1] = lanes;
   out[2] = fa.numRegs;
   out[3] = (int)fa.localSizeBytes;
   out[4] = (int)fa.sharedSizeBytes;
-  out[5] = 2;
+  out[5] = threads;
   return 0;
 }
 
@@ -801,6 +871,25 @@ int launch_scan(const uint32_t* rows, long long n_rows, const void* L2,
   return (int)cudaGetLastError();
 }
 
+// kernel_occupancy of each kernel at index type T.
+template <typename T>
+int fwd_occupancy(int* out) {
+  return kernel_occupancy(fwd_stage_kernel<T>, kFwdBlock, kFwdBlock / 2, 2,
+                          out);
+}
+
+template <typename T>
+int scan_occupancy(int* out) {
+  return kernel_occupancy(scan_lanes_kernel<T>, kScanBlock, kScanBlock / 2,
+                          2, out);
+}
+
+template <typename T>
+int walk_occupancy(int* out) {
+  return kernel_occupancy(walk_stage_kernel<T>, kWalkBlock, kWalkBlock, 1,
+                          out);
+}
+
 template <typename T>
 int launch_walk(const WalkArgs& a, int entry, cudaStream_t st) {
   if (entry) {
@@ -810,8 +899,8 @@ int launch_walk(const WalkArgs& a, int entry, cudaStream_t st) {
         <<<(unsigned)((n + tile - 1) / tile), kEntryBlock, 0, st>>>(a);
   } else {
     walk_stage_kernel<T>
-        <<<(unsigned)((2 * a.w + kWalkBlock - 1) / kWalkBlock), kWalkBlock,
-           0, st>>>(a);
+        <<<(unsigned)((a.w + kWalkBlock - 1) / kWalkBlock), kWalkBlock, 0,
+           st>>>(a);
   }
   return (int)cudaGetLastError();
 }
@@ -869,7 +958,6 @@ int host_scan(const uint32_t* rows, long long n_rows, const void* L2,
   return host_lanes(R, [&](long long lane) {
     const long long n0 = tr ? tr->n : 0;
     T* o = (T*)lep + lane * (long long)capl * 5;
-    for (long long w = 0; w < (long long)capl * 5; ++w) o[w] = (T)0;
     int cnt;
     bool ovf;
     scan_lane(fm, q + lane * (long long)L, L, rlen[lane], pivot0[lane],
@@ -900,7 +988,7 @@ int host_walk(const WalkArgs& a, Trace* tr) {
     WalkLane<T> x = load_lane<T>(a, j);
     const bool was = x.alive;
     walk_lane(fm, a, x, n, ranks);
-    if (was) store_lane(a, j, x, -1);
+    if (was) store_lane(a, j, x);
     live += x.alive;
     if (tr) tr->steps[j] += (int)((tr->n - n0) / 2);
   });
@@ -946,9 +1034,10 @@ int host_fwd(const FwdArgs& a, Trace* tr) {
 // lep (R, capl, 5), cnt and ovf (R,) in the index type.  capl at least 1,
 // L at least 1.  The walk's entries take the WalkArgs words
 // (ops/lockstep_cuda.py WALK_ARGS, in order), the forward stage's the
-// FwdArgs words (FWD_ARGS); fwd_stage_occupancy gives fwd_occupancy's six
-// numbers for the index type (a call of any lanes: every stage takes the
-// same kernel; on the current device) and returns the CUDA error code.
+// FwdArgs words (FWD_ARGS); fwd_stage_occupancy, scan_lanes_occupancy and
+// walk_stage_occupancy give kernel_occupancy's six numbers of their kernel
+// for the index type (a call of any lanes: every call takes the same
+// kernel; on the current device) and return the CUDA error code.
 #ifdef __CUDACC__
 extern "C" int scan_lanes_launch(const uint32_t* rows, long long n_rows,
                                  const void* L2, long long primary,
@@ -997,6 +1086,14 @@ extern "C" int fwd_stage_launch(const long long* words, void* stream) {
 
 extern "C" int fwd_stage_occupancy(int idx64, long long lanes, int* out) {
   return idx64 ? fwd_occupancy<int64_t>(out) : fwd_occupancy<int32_t>(out);
+}
+
+extern "C" int scan_lanes_occupancy(int idx64, long long lanes, int* out) {
+  return idx64 ? scan_occupancy<int64_t>(out) : scan_occupancy<int32_t>(out);
+}
+
+extern "C" int walk_stage_occupancy(int idx64, long long lanes, int* out) {
+  return idx64 ? walk_occupancy<int64_t>(out) : walk_occupancy<int32_t>(out);
 }
 
 LOOP_GRAPH_ENTRIES(lockstep)

@@ -15,7 +15,8 @@ call still runs as it would.  ``run(call, route)`` runs one again by
 ``walk_entry_plain`` (the entry: the source's live lanes compacted, pads
 after them) and ``seedscan._walk_stage_plain``; a forward stage by
 ``seedscan._fwd_stage_walk_kernel`` or ``_fwd_stage_walk_plain``;
-``vs_plain`` holds the kernel to the plain version (a forward stage's
+``vs_plain`` holds the kernel to the plain version (a scan's cnt, ovf,
+rows < cnt and the pools built from both: ``scan_vs``; a forward stage's
 pf everywhere, its other records where j < steps: ``fwd_vs``).  ``HostTwin``
 is the source built with g++ into its host loops; ``launch`` runs a walk
 or forward-stage launch by them (what the CPU tests put in place of
@@ -41,7 +42,8 @@ import torch
 
 from compseed_tpu_torch.ops import lockstep_cuda
 from compseed_tpu_torch.ops import seedscan as ss
-from compseed_tpu_torch.ops.cuda_lib import BUILD, Poisoned, launcher_of
+from compseed_tpu_torch.ops.cuda_lib import (BUILD, Poisoned, launcher_of,
+                                             sentinel)
 
 KEPT = 64                   # calls of each kind a Capture keeps
 
@@ -243,6 +245,43 @@ def run(call, route: str):
     return st, int(t), int(st["alive"].sum())
 
 
+def _err(g, w) -> int:
+    """max |g - w| of two tensors of one shape and dtype (1 << 62 if they
+    differ in either), w moved to g's device."""
+    if g.shape != w.shape or g.dtype != w.dtype:
+        return 1 << 62
+    if not g.numel():
+        return 0
+    return int((g.to(torch.int64) - w.to(g.device).to(torch.int64)).abs()
+               .max())
+
+
+def scan_vs(got, want) -> int:
+    """max |got - want| over a scan's outputs (0: equal): cnt and ovf
+    exactly, each lane's rows < cnt (every row once cnt is capl); the rows
+    past cnt are unspecified (the kernel's contract: it does not write
+    them).  Also the pools ``seedscan.build_pool`` makes of both, every
+    row (GP = R * capl, so that the invalid rows after n_valid are all
+    there), exactly: what the engines read of a scan."""
+    (lep_g, cnt_g, ovf_g), (lep_w, cnt_w, ovf_w) = got, want
+    if lep_g.shape != lep_w.shape or lep_g.dtype != lep_w.dtype:
+        return 1 << 62
+    worst = max(_err(cnt_g, cnt_w), _err(ovf_g, ovf_w))
+    R, capl, _ = lep_w.shape
+    cnt = cnt_w.to(lep_g.device).to(torch.int64)
+    mask = (torch.arange(capl, device=lep_g.device)[None, :] <
+            cnt[:, None])[..., None]
+    worst = max(worst, _err(torch.where(mask, lep_g, 0),
+                            torch.where(mask, lep_w.to(lep_g.device), 0)))
+    GP = max(R * capl, 1)
+    pools = [ss.build_pool(lep, c, GP)
+             for lep, c in ((lep_g, cnt_g), (lep_w.to(lep_g.device),
+                                            cnt_w.to(lep_g.device)))]
+    for a, b in zip(*pools):
+        worst = max(worst, _err(a, b))
+    return worst
+
+
 def fwd_vs(got: dict, want: dict) -> int:
     """max |got - want| over a forward stage's outputs (0: equal): the
     state exactly, pf exactly (so false past a lane's steps), the other
@@ -270,28 +309,20 @@ def fwd_vs(got: dict, want: dict) -> int:
 
 def vs_plain(call) -> int:
     """max |kernel - plain| over the call's outputs (0: bit-equal; a
-    forward stage's as ``fwd_vs``), the kernel's outputs from
-    ``cuda_lib.empty`` poisoned before its launch (cuda_lib.Poisoned)."""
+    scan's as ``scan_vs``, a forward stage's as ``fwd_vs``), the kernel's
+    outputs from ``cuda_lib.empty`` poisoned before its launch
+    (cuda_lib.Poisoned)."""
     with Poisoned():
         got = run(call, "kernel")
     want = run(call, "plain")
     if call.kind == "fwd":
         return fwd_vs(got, want)
     if call.kind == "scan":
-        pairs = list(zip(got, want))
-    else:
-        if [int(x) for x in got[1:]] != list(want[1:]) or \
-                set(got[0]) != set(want[0]):
-            return 1 << 62
-        pairs = [(got[0][n], want[0][n]) for n in want[0]]
-    worst = 0
-    for g, w in pairs:
-        if g.shape != w.shape or g.dtype != w.dtype:
-            return 1 << 62
-        if g.numel():
-            worst = max(worst, int((g.to(torch.int64) - w.to(
-                torch.int64).to(g.device)).abs().max()))
-    return worst
+        return scan_vs(got, want)
+    if [int(x) for x in got[1:]] != list(want[1:]) or \
+            set(got[0]) != set(want[0]):
+        return 1 << 62
+    return max((_err(got[0][n], want[0][n]) for n in want[0]), default=0)
 
 
 class HostTwin:
@@ -333,7 +364,9 @@ class HostTwin:
              trace=False):
         """seedscan._scan_lanes' outputs by the host loop, on CPU tensors
         (with ``trace`` also the positions ranked and each lane's
-        extensions)."""
+        extensions); lep is filled with cuda_lib.sentinel's value before
+        the call, so that the rows past cnt, which the loop does not
+        write (the kernel's contract), hold no zeros."""
         occ = fm.occ_packed.cpu().contiguous()
         L2 = fm.L2.cpu().contiguous()
         R = q.shape[0]
@@ -343,7 +376,7 @@ class HostTwin:
                  else min_hits.to(torch.int32)).cpu().contiguous(),
                 active.to(torch.bool).cpu().contiguous()]
         dt = fm.dtype
-        lep = torch.empty((R, capl, 5), dtype=dt)
+        lep = torch.full((R, capl, 5), sentinel(dt), dtype=dt)
         cnt, ovf = torch.empty(R, dtype=dt), torch.empty(R, dtype=dt)
         steps = np.zeros(R, np.int32)
         n_pos = ct.c_longlong(0)
@@ -449,16 +482,19 @@ def work(call, twin: HostTwin) -> dict:
     or more), the lanes' bytes in and out (lane_bytes), ranks, words
     ranked (hi / lo word pairs up to each rank's own word), extensions,
     and the lanes' dependent extensions (max_steps, the longest lane's;
-    mean_steps over the lanes)."""
+    mean_steps over the lanes).  A scan's lanes write the rows they push;
+    a stage's entry alone its entry_bytes."""
     fm = call.fm
     es = 8 if fm.dtype == torch.int64 else 4
     if call.kind == "scan":
-        _, (pos, steps) = twin.scan(fm, call.L, call.capl, call.advance,
-                                    *call.args, trace=True)
+        (_, cnt, _), (pos, steps) = twin.scan(
+            fm, call.L, call.capl, call.advance, *call.args, trace=True)
         q, _, _, mh, _ = call.args
         R = call.lanes
         lane_in = R * call.L + 8 * R + mh.element_size() * R + R
-        lane_out = R * (call.capl * 5 + 2) * es
+        # the rows each lane pushes (cnt of them), cnt and ovf: what the
+        # kernel writes
+        lane_out = (int(cnt.sum()) * 5 + 2 * R) * es
     elif call.kind == "fwd":
         steps = np.zeros(call.lanes, np.int32)
         n_pos = ct.c_longlong(0)

@@ -6,15 +6,17 @@ hand-written kernels:
 
   ``scan``     -> ``scan_lanes_kernel``, for ``ops/seedscan.py::
       _scan_lanes`` (plain version ``_scan_lanes_plain``): a pair of
-      threads a lane, each lane's program to its end in one launch;
+      threads a lane, each lane's program to its end in one launch, only
+      the rows a lane pushes written (``scan``);
   ``WalkLoop`` -> ``walk_stage_entry_kernel`` and ``walk_stage_kernel``,
       for ``ops/seedscan.py::walk_stage`` and ``walk_pool`` (plain version
       ``_walk_stage_plain``, with ``compact_state`` between walk_pool's
       stages): a stage's loop as one CUDA graph loop
       (``cuda_lib.run_loop``), the entry (the previous stage's lanes
       compacted, or the call's counted, and the loop's first test) then a
-      WHILE node whose body is one segment, the segment kernel's last
-      block to retire advancing t and testing the next;
+      WHILE node whose body is one segment, a thread a lane, its two
+      occ-row reads of a step issued before either is ranked, the segment
+      kernel's last block to retire advancing t and testing the next;
   ``fwd_stage`` -> ``fwd_stage_kernel``, for ``ops/seedscan.py::
       _fwd_stage_walk`` (plain version ``_fwd_stage_walk_plain``): one
       launch a stage of fwd_staged's staged forward walk, a pair of
@@ -91,9 +93,11 @@ def _bind(lib) -> None:
                lib.fwd_stage_launch):
         fn.argtypes, fn.restype = [p, p], i
     bind_graphs(lib, "lockstep")
-    if hasattr(lib, "fwd_stage_occupancy"):       # an earlier build has none
-        lib.fwd_stage_occupancy.argtypes, lib.fwd_stage_occupancy.restype = \
-            [i, ll, p], i
+    for name in ("fwd_stage_occupancy", "scan_lanes_occupancy",
+                 "walk_stage_occupancy"):
+        if hasattr(lib, name):                    # an earlier build has none
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = [i, ll, p], i
     for what, names in (("walk", WALK_ARGS), ("fwd", FWD_ARGS)):
         words = getattr(lib, f"lockstep_{what}_args_words")
         words.argtypes, words.restype = [], i
@@ -115,7 +119,12 @@ def scan(fm, L: int, capl: int, advance: bool, q, rlen, pivot0, min_hits,
     L) uint8, rlen and pivot0 (R,) int32, min_hits (R,) int32 or int64,
     active (R,) bool, all contiguous on one card (checked, never
     converted) -> (lep (R, capl, 5), cnt (R,), ovf (R,)) in the index
-    dtype, as ``seedscan._scan_lanes_plain``."""
+    dtype, as ``seedscan._scan_lanes_plain`` where it matters: cnt, ovf
+    and each lane's rows < cnt (all capl once cnt reaches capl); the rows
+    past cnt are unspecified (the plain version's zeros there are read by
+    nothing: ``seedscan.build_pool`` writes the pool's invalid rows as
+    zeros itself).  The outputs come from the caching allocator and
+    nothing zeroes them."""
     dev = _cuda_device("scan", q.device)
     R = q.shape[0] if q.dim() == 2 else -1
     check_tensor("q", q, torch.uint8, (R, L), dev)
@@ -130,9 +139,9 @@ def scan(fm, L: int, capl: int, advance: bool, q, rlen, pivot0, min_hits,
     check_tensor("active", active, torch.bool, (R,), dev)
     index = _index_args(fm, dev)
     dt = fm.dtype
-    lep = torch.empty((R, capl, 5), dtype=dt, device=dev)
-    cnt = torch.empty(R, dtype=dt, device=dev)
-    ovf = torch.empty(R, dtype=dt, device=dev)
+    lep = empty((R, capl, 5), dt, dev)
+    cnt = empty(R, dt, dev)
+    ovf = empty(R, dt, dev)
     if R:
         LIB.launch("scan_lanes_kernel", dev, "scan_lanes_launch", *index,
                    q.data_ptr(), L, rlen.data_ptr(), pivot0.data_ptr(),
@@ -223,11 +232,12 @@ def _records(U: int, B: int, dt: torch.dtype, dev) -> dict:
         "pk", "pl", "ps") else torch.int32, dev) for n in FWD_RECORDS}
 
 
-def fwd_occupancy(dtype: torch.dtype, dev) -> dict:
-    """What card ``dev`` gives ``fwd_stage_kernel`` over an index of
+def occupancy(kernel: str, dtype: torch.dtype, dev) -> dict:
+    """What card ``dev`` gives ``kernel`` (``scan_lanes_kernel``,
+    ``walk_stage_kernel`` or ``fwd_stage_kernel``) over an index of
     ``dtype``: ``KernelLibrary.occupancy``'s numbers."""
-    return LIB.occupancy("fwd_stage_occupancy", dtype == torch.int64, 0,
-                         torch.device(dev))
+    entry = kernel.replace("_kernel", "_occupancy")
+    return LIB.occupancy(entry, dtype == torch.int64, 0, torch.device(dev))
 
 
 class WalkLoop:

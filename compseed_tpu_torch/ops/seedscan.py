@@ -152,10 +152,12 @@ def _scan_lanes(fm: DeviceFMIndex, L: int, capl: int, advance: bool,
     ovf), cnt and ovf in the index dtype.
 
     lep rows: k, l, s, end, pivot, in push order (descending interval
-    size within each pivot group); the rows past cnt are zero, and a push
-    into a full buffer writes its last row again and sets ovf.  With
-    ``advance`` a lane continues to its next pivot after each stop (round
-    1); otherwise it finishes after its first collect (a round-2 task).
+    size within each pivot group); a push into a full buffer writes its
+    last row again and sets ovf.  The rows past cnt are zero on the plain
+    version and unspecified on the kernel (build_pool reads none of
+    them).  With ``advance`` a lane continues to its next pivot after each
+    stop (round 1); otherwise it finishes after its first collect (a
+    round-2 task).
     ``_scan_lanes_plain`` for CPU tensors; for any other one launch of
     ``scan_lanes_kernel`` (ops/lockstep_cuda.py), in which each lane runs
     its program to its end: every update of the JAX loop is gated by the
@@ -266,10 +268,12 @@ def make_scan(fm: DeviceFMIndex | None, L: int, capl: int, advance: bool):
 def build_pool(lep, cnt, GP: int):
     """Flatten per-read LEP buffers into a dense global pool.
 
-    lep: (R, capl, 5) rows (k, l, s, end, pivot); cnt: (R,).
+    lep: (R, capl, 5) rows (k, l, s, end, pivot); cnt: (R,); the rows
+    past cnt are not read (scan_lanes_kernel leaves them unspecified).
     Returns pool (GP, 7): k, l, s, end, pivot, rid, valid — stable-
-    compacted so valid rows keep (read, push) order; plus n_valid and the
-    overflow flag."""
+    compacted so valid rows keep (read, push) order, the invalid rows
+    after n_valid with k, l, s, end, pivot zero (the JAX package's, whose
+    scan zeroes the rows past cnt); plus n_valid and the overflow flag."""
     R, capl, _ = lep.shape
     dt = lep.dtype
     dev = lep.device
@@ -278,9 +282,11 @@ def build_pool(lep, cnt, GP: int):
     rflat = torch.arange(R * capl, device=dev) // capl
     n = vflat.sum().to(_I32)
     take = _rank_order(vflat)[:GP]
-    pool = torch.cat([lep.reshape(R * capl, 5)[take],
+    valid = vflat[take]
+    pool = torch.cat([torch.where(valid[:, None],
+                                  lep.reshape(R * capl, 5)[take], 0),
                       rflat[take][:, None].to(dt),
-                      vflat[take][:, None].to(dt)], dim=1)
+                      valid[:, None].to(dt)], dim=1)
     return pool, n, n > GP
 
 

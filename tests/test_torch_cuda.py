@@ -2144,6 +2144,57 @@ def test_lockstep_kernels_equal_plain_on_first_bench_chunk(dev, bench,
 
 
 @pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_walk_stage_schedule_on_first_bench_chunk(dev, bench, dtype):
+    """walk_stage_kernel's schedule (a thread a lane, a block a tile of
+    lanes) on every walk stage of all_off's and bwd_win's first bench
+    chunk: each stage's loop equals the plain version on every lane word,
+    t and live, and each stage's first segment alone (its loop word 0, so
+    t stays) equals the plain version's first segment; the widest stage
+    takes more than one wave of the card's resident lanes, the narrowest
+    fits in one."""
+    import ctypes as ct
+
+    from compseed_tpu_torch.ops import lockstep_cases, lockstep_cuda, seeder2
+    from compseed_tpu_torch.ops import seedscan as ss
+    one_wave = lockstep_cuda.occupancy(
+        "walk_stage_kernel", getattr(torch, dtype), dev)["resident_lanes"]
+    fm, reads = bench
+    widths = []
+    for name in ("all_off", "bwd_win"):
+        sd, fns = _engine_seeder(dev, bench, dtype, name)
+        R, L, qd, rd = sd._upload(list(reads[:16384]))
+        with seeder2.EagerCalls(), lockstep_cases.Capture() as cap:
+            sd._run(fns, qd, rd)
+        for call in cap.calls:
+            if call.kind != "walk":
+                continue
+            widths.append(call.w)
+            assert lockstep_cases.vs_plain(call) == 0, (name, call.w)
+            # the first segment alone against the plain version's
+            lp = lockstep_cuda.WalkLoop(call.fm, call.L, call.max_steps,
+                                        call.qflat, call.rwflat, call.t0,
+                                        call.width)
+            st = lp.lanes(call.st) if call.src is None else \
+                lp.empty_lanes(call.w)
+            if call.src is not None:
+                lp.live.fill_(call.live_in)
+            lp._point(st, call.fit, call.src)
+            lockstep_cuda._launch("walk_stage_entry_kernel", lp.dev, lp.args)
+            start = {n: x.clone() for n, x in st.items()}
+            args = (ct.c_longlong * len(lp.args))(*lp.args)
+            args[lp.AT["loop"]] = 0
+            lockstep_cuda._launch("walk_stage_kernel", lp.dev, args)
+            want, t = ss._walk_stage_plain(
+                call.fm, call.qflat, call.L, min(call.max_steps, call.t0 +
+                                                 lockstep_cuda.MAX_SEG),
+                start, call.t0, 0, call.rwflat)
+            assert int(lp.t) == call.t0
+            for n in want:
+                assert torch.equal(st[n], want[n]), (name, call.w, n)
+    assert max(widths) > one_wave > min(widths), (widths, one_wave)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
 def test_fwd_stage_kernel_equals_plain_on_first_bench_chunk(dev, bench,
                                                             dtype):
     """Every stage of fwd_staged's staged forward walk on the first bench
@@ -2225,11 +2276,14 @@ def test_sa_batch_loop_on_card(dev, bench, dtype):
 
 def test_lockstep_wrappers_check_inputs_on_card(dev, bench):
     """The scan's and the forward stage's launchers refuse CPU tensors, a
-    capl below 1 and wrong dtypes, and launch nothing for them; a stage
-    of no lanes runs no kernel; a forward stage of dead lanes, its
-    outputs poisoned, takes no step and writes pf false everywhere (its
-    other records are unspecified past the steps: all of them here)."""
-    from compseed_tpu_torch.ops import lockstep_cuda
+    capl below 1 and wrong dtypes, and launch nothing for them; a scan of
+    all-N reads, its outputs poisoned, pushes nothing and writes cnt and
+    ovf 0 and no row (the rows past cnt are unspecified: all of them
+    here); a stage of no lanes runs no kernel; a forward stage of dead
+    lanes, its outputs poisoned, takes no step and writes pf false
+    everywhere (its other records are unspecified past the steps: all of
+    them here)."""
+    from compseed_tpu_torch.ops import cuda_lib, lockstep_cuda
     dfi = _bench_index(bench, dev, "int32")
     R, L = 64, 32
     q = torch.full((R, L), 4, dtype=torch.uint8, device=dev)
@@ -2244,10 +2298,12 @@ def test_lockstep_wrappers_check_inputs_on_card(dev, bench):
         lockstep_cuda.scan(dfi, L, 4, True, q, z.to(torch.int64), z, z + 1,
                            act)
     assert _lockstep_launches() == n0
-    lep, cnt, ovf = lockstep_cuda.scan(dfi, L, 4, True, q, z + L, z, z + 1,
-                                       act)
-    # every base N: no pivot starts, so nothing is pushed
-    assert not lep.any() and not cnt.any() and not ovf.any()
+    with cuda_lib.Poisoned():
+        lep, cnt, ovf = lockstep_cuda.scan(dfi, L, 4, True, q, z + L, z,
+                                           z + 1, act)
+    # every base N: no pivot starts, so nothing is pushed or written
+    assert not cnt.any() and not ovf.any()
+    assert bool((lep == cuda_lib.sentinel(lep.dtype)).all())
     lp = lockstep_cuda.WalkLoop(dfi, L, L + 2, q.reshape(-1), None, 0, 8)
     lp.run(lp.empty_lanes(0), 0)
     assert _lockstep_launches() == dict(
@@ -2271,7 +2327,6 @@ def test_lockstep_wrappers_check_inputs_on_card(dev, bench):
     out = lockstep_cuda.fwd_stage(*args, {n: x[:0] for n, x in st.items()},
                                   mh[:0], True, False)
     assert out["pf"].shape == (0, 8) and _lockstep_launches() == n1
-    from compseed_tpu_torch.ops import cuda_lib
     with cuda_lib.Poisoned():
         out = lockstep_cuda.fwd_stage(*args, st, mh, True, False)
     assert not out["steps"].any() and not out["pf"].any() and \

@@ -7,7 +7,10 @@
                            and the JAX package's make_scan: round-1 lanes,
                            round-2 task lanes (a pivot, min_hits and active
                            a lane), lanes of rlen 0 and N bases, and capl 2
-                           (every read overflows);
+                           (every read overflows); cnt, ovf and the rows <
+                           cnt, the kernel's contract (the rows past cnt
+                           unspecified: poisoned); build_pool on such rows
+                           against the JAX package's build_pool;
   walk_stage_kernel and    walk_stage through its loop as a card runs it
   walk_stage_entry_kernel  (cuda_lib.run_loop's CPU branch, the host loops
                            at lockstep_cuda._launch) against the plain
@@ -15,7 +18,10 @@
                            stop mid-stage and a t0 carry, max_steps 13, a
                            first test already false, rwflat and qflat,
                            steps present and absent, fill_oob garbage
-                           lanes; walk_pool and walk_pool_dedup (the entry
+                           lanes; the kernel's schedule (and the striding
+                           one it was measured against) over a stage of
+                           several tiles or passes; walk_pool and
+                           walk_pool_dedup (the entry
                            compacting between stages) against the JAX
                            package's;
   sa_batch's loop          through the suffix-array walk's host twins
@@ -163,28 +169,83 @@ SCAN_CASES = {"round1": (tss.CAPL, True), "round2": (tss.CAPL2, False),
               "capl2": (2, True)}
 
 
-@pytest.mark.parametrize("case", list(SCAN_CASES))
-def test_scan_twin_equals_plain_and_jax(idx, jd32, edge, twin, case):
-    """scan_lanes_kernel's lane code equals the plain version and the JAX
-    package's make_scan: lep (rows past cnt zero, a full buffer's last row
-    written again), cnt and ovf; capl 2 overflows."""
+def _scan_want(case, jd32, edge):
+    """The JAX package's make_scan on a case: (lep, cnt, ovf) as numpy."""
     capl, advance = SCAN_CASES[case]
-    _, td = idx
-    qarr, rl, tq, trl = edge
+    qarr, rl, _, _ = edge
     piv, mh, act = _scan_lanes(case, rl)
-    want = _jax(("scan", case), lambda: jss.make_scan(
+    return _jax(("scan", case), lambda: jss.make_scan(
         jd32, L, capl, advance)(jnp.asarray(qarr), jnp.asarray(rl),
                                 jnp.asarray(piv), jnp.asarray(mh),
                                 jnp.asarray(act)))
+
+
+def _pushed(lep, cnt):
+    """lep with each lane's rows past cnt zeroed (the rows a scan pushed),
+    as numpy in lep's dtype."""
+    lep, cnt = np.asarray(lep), np.asarray(cnt)
+    keep = np.arange(lep.shape[1])[None, :] < cnt[:, None]
+    return np.where(keep[..., None], lep, 0).astype(lep.dtype)
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_scan_twin_equals_plain_and_jax(idx, jd32, edge, twin, case):
+    """scan_lanes_kernel's lane code equals the JAX package's make_scan on
+    cnt, ovf and each lane's rows < cnt (a full buffer's last row written
+    again; capl 2 overflows, and there every row is held); the rows past
+    cnt are unspecified (the twin's lep holds the poison value there, not
+    zeros).  The plain version equals JAX whole (its rows past cnt
+    zero)."""
+    capl, advance = SCAN_CASES[case]
+    _, td = idx
+    _, rl, tq, trl = edge
+    piv, mh, act = _scan_lanes(case, rl)
+    want = _scan_want(case, jd32, edge)
     args = (tq, trl, _t(piv), _t(mh), _t(act))
     plain = tss._scan_lanes_plain(td, L, capl, advance, *args)
     got = twin.scan(td, L, capl, advance, *args)
-    names = ("lep", "cnt", "ovf")
-    _assert_all(got, want, names)
-    _assert_all(plain, want, names)
+    _assert_all(plain, want, ("lep", "cnt", "ovf"))
+    _assert_all((_pushed(got[0].numpy(), got[1].numpy()),) + got[1:],
+                (_pushed(want[0], want[1]),) + tuple(want[1:]),
+                ("lep rows < cnt", "cnt", "ovf"))
     assert got[0].dtype == td.dtype and got[1].dtype == td.dtype
     assert bool(got[2].any()) == (case == "capl2")
     assert int(got[1].max()) <= capl
+    full = got[1].numpy() == capl
+    if case == "capl2":                   # every row held at overflow
+        assert full.any()
+        _assert_all((got[0].numpy()[full],), (want[0][full],),
+                    ("lep at overflow",))
+    else:                                  # unwritten rows: not zeroed
+        assert (got[0].numpy() == cuda_lib.sentinel(td.dtype)).any()
+
+
+@pytest.mark.parametrize("case", list(SCAN_CASES))
+def test_build_pool_on_unwritten_rows_equals_jax(idx, jd32, edge, case):
+    """build_pool reads no row past cnt: on the scan's lep with those rows
+    poisoned (what scan_lanes_kernel leaves there) it equals the JAX
+    package's build_pool on the JAX scan's lep (zeros there), every pool
+    row, with GP = R * capl (the invalid rows after n_valid all taken)
+    and with a GP below the valid rows (n_valid > GP: the overflow)."""
+    capl, _ = SCAN_CASES[case]
+    _, td = idx
+    want = _scan_want(case, jd32, edge)
+    lep_np, cnt_np = want[0].astype(np.int64), want[1].astype(np.int64)
+    keep = np.arange(capl)[None, :] < cnt_np[:, None]
+    poisoned = np.where(keep[..., None], lep_np,
+                        cuda_lib.sentinel(td.dtype))
+    lep = _t(poisoned).to(td.dtype)
+    cnt = _t(cnt_np).to(td.dtype)
+    R = lep.shape[0]
+    n_valid = int(cnt_np.sum())
+    for GP in (R * capl, max(n_valid // 2, 1)):
+        got = tss.build_pool(lep, cnt, GP)
+        exp = _jax(("build_pool", case, GP), lambda: jss.build_pool(
+            jnp.asarray(want[0]), jnp.asarray(want[1]), GP))
+        _assert_all(got, exp, ("pool", "n_valid", "overflow"))
+        assert bool(got[2]) == (n_valid > GP)
+        if GP == R * capl:
+            assert n_valid < GP              # invalid rows in the pool
 
 
 def test_scan_dispatch_takes_the_plain_version_for_cpu_tensors(idx, edge,
@@ -313,6 +374,41 @@ def test_walk_stage_by_the_loop_equals_plain_and_jax(idx, jd32, edge, pools,
     if case in ("t0_at_max", "fit_above_live"):
         assert torch.equal(got["alive"], st["alive"])      # no segment ran
         assert int(got_t) == t0
+
+
+# stage widths against walk_stage_kernel's tiles of 64 lanes, a thread a
+# lane: just over one tile, and several tiles and a part of one
+WALK_WIDTHS = {"tile_and_one": 64 + 1, "tiles_and_part": 3 * 64 + 2}
+
+
+@pytest.mark.parametrize("width", list(WALK_WIDTHS))
+@pytest.mark.parametrize("rw", [True, False], ids=["rwflat", "qflat"])
+def test_walk_stage_wider_than_a_tile(idx, edge, pools, on_twin, width,
+                                      rw):
+    """walk_stage on the kernel route through its host loop (the kernel's
+    lane code): a stage of w lanes, w wider than a tile of the kernel's
+    and a multiple of none, live and dead lanes mixed (the pool's rows
+    shuffled; a dead lane reads its alive byte alone) and a few mh deaths,
+    equals the plain version on every lane word and t, segment by segment
+    to max_steps."""
+    _, td = idx
+    w = WALK_WIDTHS[width]
+    _, _, tq, _ = edge
+    pool = pools[td.dtype]
+    assert pool.shape[0] >= w
+    rows = np.random.default_rng(5).permutation(pool.shape[0])[:w]
+    mh = np.random.default_rng(6).integers(1, 6, pool.shape[0])
+    st, _ = _walk_state(pool[rows], td.dtype, mh=mh[rows])
+    assert 0 < int(st["alive"].sum()) < w
+    rwt = tss.packed_rev_windows(tq) if rw else None
+    qflat = tq.reshape(-1)
+    got, got_t = tss.walk_stage(td, qflat, L, L + 2, st, 0, 0, rwt)
+    plain, plain_t = tss._walk_stage_plain(td, qflat, L, L + 2, st, 0, 0,
+                                           rwt)
+    assert int(got_t) == int(plain_t) > 0
+    for n in plain:
+        assert torch.equal(got[n], plain[n]), n
+    assert bool((got["steps"] > 0).any()) and not bool(got["alive"].any())
 
 
 @pytest.mark.parametrize("kind,mh,rw", [("stages1", False, True),
