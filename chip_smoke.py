@@ -19,11 +19,12 @@ Phases, in order; any failure exits non-zero:
                 torch.add are timed two ways each: a loop of launches
                 between two events, and the same launches captured once
                 in a CUDA graph and replayed.  For smem_collect_kernel,
+                smem_strategy_kernel, walk_stage_entry_kernel,
                 fwd_stage_kernel, scan_lanes_kernel and walk_stage_kernel
-                it prints the lanes the card keeps resident (the occupancy
-                query times the SMs), int32 and int64, and ptxas' registers
-                and spills (the parent's builds' too, with the options
-                below).
+                it prints the lanes the card keeps resident (the
+                occupancy query times the SMs), int32 and int64, and
+                ptxas' registers and spills (the parent's builds' too,
+                with the options below).
   2. kernels  — the DP kernel (H/E rows in shared memory) and its
                 device-memory-scratch variant against the plain PyTorch
                 version on the card, exactly, on seeded random pairs at
@@ -173,14 +174,20 @@ Phases, in order; any failure exits non-zero:
                 of the first two round-1 calls, round 2 and round 3,
                 beside the bound (smem_cases.work: the distinct occ rows'
                 and the lanes' bytes against the ranks' operations) and
-                the latency floor (the longest lane's dependent steps
-                times the chain walk's step latency on the bench table).
+                two latency floors (the longest lane's dependent steps
+                times the chain walk's step latency on the bench table,
+                and times the card's dependent 16-byte load from L2:
+                csrc/load_chase.cu, one thread chasing a random cycle
+                through a table of the bench occ table's bytes, and one
+                of a 2^30-base genome's, from device memory); one
+                dependent step of the round-3 kernel (one lane, a read of
+                101 bases against one of 11, no hit: (t101 - t11) / 90).
                 The lockstep kernels: every scan and stage call of
                 all_off's and bwd_win's first chunk and every forward
                 stage of fwd_staged's (int32) timed in a loop and alone,
                 the stage's entry alone and its first segment alone, the
                 plain version's ms, the bound (lockstep_cases.work) and
-                the latency floor; cell A's stream through align_stream
+                the latency floors; cell A's stream through align_stream
                 under COMPSEED_FWD_MEMO=0 (fwd_staged by its call graph
                 until
                 its caps' response switches it off), SAM byte-equal to
@@ -381,8 +388,14 @@ scan, walk and forward stage kernels on every such call of all_off's,
 bwd_win's and fwd_staged's first chunk (a walk stage's loop and its first
 segment alone; a forward stage on records zeroed first, as the parent's
 wrapper zeroed them), against the port's in turns (old, new, new, old) on
-the card alone, each held to the plain version first.  No option
-changes what the port itself runs.
+the card alone, each held to the plain version first; the round-3
+kernel also on every round-3 call of the forced overflow and one
+dependent step, and every walk stage's entry alone.  --entry-old-csrc
+DIR (another csrc/ directory with chain_scan.cu, walk_chain.cu and
+fm_walk.cu and their headers, such as the parent's) builds those three
+sources too, and phase 2 times their
+segment and stage entry kernels in turns with the port's at every
+boundary ("parent").  No option changes what the port itself runs.
 
 Phases 3 to 7 seed every chunk of every engine by its call graph (the
 first chunk of a shape on a thread captures it).
@@ -537,6 +550,10 @@ SA_TURNS = 3                # sa_time's and sa_tail's turns (each both orders)
 # the lockstep engines' loops (csrc/lockstep.cu) and what of the JAX
 # package each replaces (while_loops over XLA fusions, no Pallas)
 LOCKSTEP_SOURCE = "compseed_tpu_torch/csrc/lockstep.cu"
+LOAD_CHASE_SOURCE = "compseed_tpu_torch/csrc/load_chase.cu"
+# the parent's round sources whose entries --entry-old-csrc times in turns
+ENTRY_PARENT_SOURCES = dict(chain="chain_scan.cu", walk="walk_chain.cu",
+                            sa="fm_walk.cu")
 LOCKSTEP_KERNELS = ("scan_lanes_kernel", "walk_stage_kernel",
                     "walk_stage_entry_kernel", "fwd_stage_kernel")
 LOCKSTEP_REPLACES = {
@@ -1680,11 +1697,11 @@ def smem_check(tag, calls, fm64) -> dict:
 
 def old_build(module, source):
     """Another build of ``module``'s source (``source``: such as the
-    parent's, --smem-old-source / --lockstep-old-source; its C launchers
-    the port's), compiled with the port's csrc/ on the include path
-    (after the file's own directory) into a library of its own and bound
-    by ``module._bind``: {"lib", "log" (nvcc's output)}; None without a
-    source."""
+    parent's, --smem-old-source / --lockstep-old-source / --entry-old-csrc;
+    its C launchers the port's), compiled with the port's csrc/ on the
+    include path (after the file's own directory) into a library of its
+    own and bound by ``module._bind``: {"lib", "log" (nvcc's output)};
+    None without a source."""
     if not source:
         return None
     import ctypes as ct
@@ -1714,6 +1731,97 @@ def launching(module, build):
         yield
     finally:
         module.LIB._lib = saved
+
+
+def load_latency(dev, tables: dict, steps=(1000, 11000), turns: int = 3):
+    """The card's latency of one dependent 16-byte load
+    (csrc/load_chase.cu: one thread, each load's address the load
+    before's result, the entries 64 bytes apart linked into one cycle in
+    random order; each launch goes on from where the last one stopped),
+    on each of ``tables`` (name -> its bytes: cell A's occ table, which L2
+    holds, and a 2^30-base genome's, which it does not: its timed loads
+    reach entries no load read before, all but ~10 % outside L2): the
+    chase's ms over ``steps`` loads by CUDA events, in turns,
+    (t[1] - t[0]) / (steps[1] - steps[0]) the ms a load: name -> {ms,
+    bytes, turns}.  A measurement only: no path of the port runs it."""
+    import ctypes as ct
+
+    import torch
+    from compseed_tpu_torch.ops import cuda_lib
+    so = os.path.join(cuda_lib.BUILD, "libload_chase.so")
+    cuda_lib.compile_source(os.path.join(ROOT, LOAD_CHASE_SOURCE), so)
+    lib = ct.CDLL(so)
+    lib.load_chase_launch.argtypes = [ct.c_void_p, ct.c_int, ct.c_longlong,
+                                      ct.c_void_p, ct.c_void_p]
+    lib.load_chase_launch.restype = ct.c_int
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    at = torch.zeros(1, dtype=torch.int32, device=dev)
+    for name, nbytes in tables.items():
+        at.zero_()
+        n = max(2, nbytes // 64)
+        table = torch.zeros((n, 16), dtype=torch.int32, device=dev)
+        perm = torch.randperm(n, generator=gen, device=dev)
+        nxt = torch.empty_like(perm)
+        nxt[perm] = perm.roll(-1)
+        table[:, 0] = nxt.to(torch.int32)
+        del perm, nxt
+
+        def chase(k):
+            e = lib.load_chase_launch(table.data_ptr(), 4, k, at.data_ptr(),
+                                      torch.cuda.current_stream().cuda_stream)
+            if e:
+                raise SystemExit(f"load_chase_kernel failed: CUDA error {e}")
+
+        chase(min(n, 1 << 20))                   # the table into L2, if it fits
+        torch.cuda.synchronize()
+        ms = {k: [] for k in steps}
+        for turn in range(2 * turns):
+            for k in (steps if turn % 2 == 0 else steps[::-1]):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                chase(k)
+                b.record()
+                torch.cuda.synchronize()
+                ms[k].append(a.elapsed_time(b))
+        med = {k: statistics.median(v) for k, v in ms.items()}
+        out[name] = dict(ms=(med[steps[1]] - med[steps[0]])
+                         / (steps[1] - steps[0]), bytes=n * 64,
+                         turns={str(k): v for k, v in ms.items()})
+        del table
+    log(f"[smem] the card's dependent 16-byte load (load_chase_kernel, one "
+        f"thread): " + json.dumps({k: dict(us=v["ms"] * 1e3,
+                                           bytes=v["bytes"])
+                                   for k, v in out.items()}))
+    return out
+
+
+def strategy_step(call, builds: dict, reps: int = 20) -> dict:
+    """One dependent step of each build's round-3 kernel (``builds``: name
+    -> a context manager's maker, launching's): one lane, a read of the
+    captured round-3 call ``call`` with no N, cut to 101 and to 11 bases,
+    max_intv 0 (no hit, so every column past the first extends), each on
+    the card alone (launch_ms) in turns; (t101 - t11) / 90 is one step,
+    the replay's own cost per launch cancelling (fm_latency's method):
+    name -> {step_ms, turns}."""
+    import torch
+    from compseed_tpu_torch.ops import smem_cases
+    min_len, _, q, _ = call.args
+    i = int(torch.nonzero((q[:, :101] < 4).all(1))[0])
+    one = torch.ones(1, dtype=torch.bool, device=q.device)
+    runs = {n: smem_cases.Call("strategy", call.fm, n, (
+        min_len, 0, q[i:i + 1, :n].contiguous(), one), call.caps)
+        for n in (11, 101)}
+    ms = {b: {n: [] for n in runs} for b in builds}
+    for b in list(builds) + list(builds)[::-1]:
+        with builds[b]():
+            for n, c in runs.items():
+                ms[b][n].append(launch_ms(
+                    lambda c=c: smem_cases.run(c, "kernel"), reps))
+    return {b: dict(step_ms=(statistics.mean(v[101]) -
+                             statistics.mean(v[11])) / 90, turns=v)
+            for b, v in ms.items()}
 
 
 def ptxas_usage(log: str) -> dict:
@@ -1780,20 +1888,22 @@ def turns_ms(run, builds: dict, reps: int) -> dict:
     return out
 
 
-def smem_time(calls, twin, step_ms: float, reps: int = 20,
-              old=None) -> list:
+def smem_time(calls, twin, step_ms: float, reps: int = 20, old=None,
+              load_ms: float = 0.0) -> list:
     """Each captured rerun call (int32) by its kernel: ms in a loop of
     calls (CUDA events: the host's rate with the output's allocation) and
     on the card alone (launch_ms: a CUDA graph of ``reps`` launches,
-    replayed); with ``old`` (old_build's: the parent's source) the
-    collect calls alone by both builds in turns (old, new, new, old:
-    ``turns``), each held to the plain version first; the plain version's
+    replayed); with ``old`` (old_build's: the parent's source) each call
+    alone by both builds in turns (old, new, new, old: ``turns``), each
+    build held to the plain version first, and one dependent step of
+    each build's round-3 kernel (strategy_step); the plain version's
     ms (one call) for the first and second collect calls, the last (a
     round 2) and each round-3 call; the bound from smem_cases.work (the
     distinct occ rows' bytes and the lanes' against the ranks' operations)
-    and the latency floor, the longest lane's dependent steps times
+    and the latency floors, the longest lane's dependent steps times
     ``step_ms`` (one dependent step of the chain walk on the same table,
-    fm_latency)."""
+    fm_latency: ``floor_ms``) and times ``load_ms`` (the card's dependent
+    16-byte load from L2, load_latency: ``floor_load_ms``)."""
     from compseed_tpu_torch.ops import smem_cases, smem_cuda
     collects = [c for c in calls if c.kind == "collect"]
     timed_plain = {id(c) for c in collects[:2] + collects[-1:]} | {
@@ -1814,17 +1924,20 @@ def smem_time(calls, twin, step_ms: float, reps: int = 20,
                  plain_ms=cuda_time_ms(lambda: smem_cases.run(call, "plain"),
                                        1) if id(call) in timed_plain else None,
                  bound_ms=bound_ms, bound_by=bound_by, ops=ops,
-                 floor_ms=w["max_steps"] * step_ms, work=w)
-        if call.kind == "collect":
-            r["threads_per_lane"] = smem_cuda.occupancy(
-                call.fm.dtype, call.args[0].device,
-                call.lanes)["threads_per_lane"]
-        if call.kind == "collect" and old is not None:
-            with launching(smem_cuda, old):
-                e = smem_cases.vs_plain(call)
-            if e:
-                raise SystemExit(f"the old collect build disagrees with the "
-                                 f"plain version at {call.lanes} lanes: {e}")
+                 floor_ms=w["max_steps"] * step_ms,
+                 floor_load_ms=w["max_steps"] * load_ms, work=w)
+        r["threads_per_lane"] = smem_cuda.occupancy(
+            call.fm.dtype, call.args[2 if call.kind == "strategy" else 0]
+            .device, call.lanes, f"smem_{call.kind}_kernel")[
+                "threads_per_lane"]
+        if old is not None:
+            for name, b in builds.items():
+                with b():
+                    e = smem_cases.vs_plain(call)
+                if e:
+                    raise SystemExit(f"the {name} {call.kind} build disagrees "
+                                     f"with the plain version at "
+                                     f"{call.lanes} lanes: {e}")
             r["turns"] = turns_ms(lambda: smem_cases.run(call, "kernel"),
                                   builds, reps)
         out.append(r)
@@ -1835,10 +1948,19 @@ def smem_time(calls, twin, step_ms: float, reps: int = 20,
             f"{w['rows']} occ rows, {w['bytes']} B, "
             f"{w['extensions']} extensions, steps max {w['max_steps']} mean "
             f"{w['mean_steps']:.1f}; bound {bound_ms:.6f} ms by {bound_by}, "
-            f"floor {r['floor_ms']:.5f} ms")
+            f"floor {r['floor_ms']:.5f} ms (by the card's load latency "
+            f"{r['floor_load_ms']:.5f})")
     for kind in ("collect", "strategy"):
         log(f"[smem] {kind}: the run's calls summed "
             f"{json.dumps(call_sums([r for r in out if r['kind'] == kind]))}")
+    step = strategy_step(next(c for c in calls if c.kind == "strategy"),
+                         builds, reps)
+    log(f"[smem] round 3's dependent step (one lane, (t101 - t11) / 90) by "
+        f"build: " + json.dumps({b: v["step_ms"] for b, v in step.items()})
+        + f"; turns {json.dumps(step)}")
+    for r in out:
+        if r["kind"] == "strategy":
+            r["step"] = step
     return out
 
 
@@ -1848,7 +1970,8 @@ def call_sums(recs) -> dict:
     turns each build's mean of its turns."""
     out = dict(calls=len(recs), graph_ms=sum(r["graph_ms"] for r in recs),
                bound_ms=sum(r["bound_ms"] for r in recs),
-               floor_ms=sum(r["floor_ms"] for r in recs))
+               floor_ms=sum(r["floor_ms"] for r in recs),
+               floor_load_ms=sum(r["floor_load_ms"] for r in recs))
     out["gap_ms"] = out["graph_ms"] - out["bound_ms"]
     if recs and all("turns" in r for r in recs):
         out["turns_ms"] = {b: sum(statistics.mean(r["turns"][b])
@@ -1876,12 +1999,15 @@ def smem_rows(smem_rec, row) -> list:
             first["ms"], first["plain_ms"], first, source=SMEM_SOURCE,
             at=f"{first['lanes']} lanes, L = {first['L']}",
             graph_ms=first["graph_ms"], latency_floor_ms=first["floor_ms"],
+            latency_floor_load_ms=first["floor_load_ms"],
+            step=first.get("step"),
             calls=[{k: r.get(k) for k in ("lanes", "threads_per_lane", "ms",
                                           "graph_ms", "plain_ms", "bound_ms",
-                                          "floor_ms", "turns")}
+                                          "floor_ms", "floor_load_ms",
+                                          "turns")}
                    for r in calls], summed=call_sums(calls),
-            **({"occupancy": smem_rec["occupancy"]} if kind == "collect"
-               else {})))
+            occupancy=smem_rec["occupancy" if kind == "collect"
+                               else "strategy_occupancy"]))
     return rows
 
 
@@ -2007,7 +2133,7 @@ def zeroing_parent(build):
 
 
 def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
-                  old=None) -> list:
+                  old=None, load_ms: float = 0.0) -> list:
     """Each captured call (int32) on the card: a scan's or a forward
     stage's launch in a loop (CUDA events: the host's rate and its
     outputs' allocation with it) and alone (launch_ms: a CUDA graph of
@@ -2024,11 +2150,12 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
     lockstep_cases.work (the distinct occ rows' and the lanes' bytes
     against the ranks' operations) and the latency floor, the longest
     lane's dependent extensions times ``step_ms`` (one dependent step of
-    the chain walk on the same table, fm_latency); a stage's first segment
-    alone (segment_ms).  With ``old`` a stage's loop alone and its first
-    segment alone by the parent's build and the port's in turns
-    (``turns``, ``segment_turns``), the parent's build held to the plain
-    version first."""
+    the chain walk on the same table, fm_latency) and times ``load_ms``
+    (the card's dependent 16-byte load from L2, load_latency); a stage's
+    first segment alone (segment_ms).  With ``old`` a stage's loop alone,
+    its entry alone and its first segment alone by the parent's build and
+    the port's in turns (``turns``, ``entry_turns``, ``segment_turns``),
+    the parent's build held to the plain version first."""
     from compseed_tpu_torch.ops import lockstep_cases, lockstep_cuda
     turn_builds = {"old": lambda: launching(lockstep_cuda, old),
                    "new": lambda: launching(lockstep_cuda, None)}
@@ -2054,11 +2181,20 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
                  plain_ms=cuda_time_ms(lambda: lockstep_cases.run(
                      call, "plain"), 1),
                  bound_ms=bound_ms, bound_by=bound_by, ops=ops,
-                 floor_ms=w["max_steps"] * step_ms, work=w)
+                 floor_ms=w["max_steps"] * step_ms,
+                 floor_load_ms=w["max_steps"] * load_ms, work=w)
         if call.kind == "walk":
             lp = lockstep_entry_args(call)
             r["entry_ms"] = launch_ms(lambda: lockstep_cuda._launch(
                 "walk_stage_entry_kernel", lp.dev, lp.args), reps)
+            if old is not None:
+                r["entry_turns"] = {b: [] for b in turn_builds}
+                for b in list(turn_builds) + list(turn_builds)[::-1]:
+                    with turn_builds[b]():
+                        r["entry_turns"][b].append(launch_ms(
+                            lambda: lockstep_cuda._launch(
+                                "walk_stage_entry_kernel", lp.dev, lp.args),
+                            reps))
             _, t1, _ = lockstep_cases.run(call, "kernel")
             segs = -(-(int(t1) - call.t0) // max(1, min(8, call.max_steps)))
             if call.src is not None:
@@ -2105,10 +2241,18 @@ def lockstep_time(calls, twin, step_ms: float, reps: int = 10,
             f"{w['rows']} occ rows, {w['bytes']} B, {w['extensions']} "
             f"extensions, steps max {w['max_steps']} mean "
             f"{w['mean_steps']:.1f}; bound {bound_ms:.6f} ms by {bound_by}, "
-            f"floor {r['floor_ms']:.5f} ms")
+            f"floor {r['floor_ms']:.5f} ms (by the card's load latency "
+            f"{r['floor_load_ms']:.5f}); entry in turns "
+            f"{json.dumps(r.get('entry_turns'))}")
     for kind in ("scan", "walk", "fwd"):
         log(f"[lockstep] {kind}: the calls summed "
             f"{json.dumps(call_sums([r for r in out if r['kind'] == kind]))}")
+    walks = [r for r in out if r["kind"] == "walk"]
+    if walks and walks[0].get("entry_turns"):
+        log("[lockstep] walk_stage_entry_kernel summed over the stages in "
+            "turns " + json.dumps({b: sum(statistics.mean(
+                r["entry_turns"][b]) for r in walks)
+                for b in walks[0]["entry_turns"]}))
     segs = [r for r in out if r.get("segment_turns")]
     if segs:
         log("[lockstep] walk segments summed in turns " + json.dumps({
@@ -2142,9 +2286,10 @@ def lockstep_rows(rec, row) -> list:
     def calls(rs, keys):
         return [{k: r.get(k) for k in keys} for r in rs]
     keys = ("engine", "lanes", "ms", "graph_ms", "plain_ms", "bound_ms",
-            "floor_ms", "turns")
+            "floor_ms", "floor_load_ms", "turns")
     wkeys = keys + ("entry_ms", "segments", "segment_ms", "segment_turns",
-                    "fit", "t0")
+                    "fit", "t0", "src", "entry_turns")
+    count = max((r for r in walks if not r["src"]), key=lambda r: r["lanes"])
     first = scans[0]
     n = rec["launches"]
     occ = rec["occupancy"]
@@ -2154,6 +2299,7 @@ def lockstep_rows(rec, row) -> list:
             first["plain_ms"], first, source=LOCKSTEP_SOURCE,
             at=f"{first['lanes']} lanes (round 1)",
             graph_ms=first["graph_ms"], latency_floor_ms=first["floor_ms"],
+            latency_floor_load_ms=first["floor_load_ms"],
             occupancy=occ["scan_lanes_kernel"],
             calls=calls(scans, keys)),
         row("walk_stage_kernel", LOCKSTEP_REPLACES["walk_stage_kernel"],
@@ -2164,6 +2310,7 @@ def lockstep_rows(rec, row) -> list:
                f"({seg['engine']}); ms and plain_ms a segment, bound and "
                f"floor the stage's loop",
             stage_ms=seg["graph_ms"], latency_floor_ms=seg["floor_ms"],
+            latency_floor_load_ms=seg["floor_load_ms"],
             occupancy=occ["walk_stage_kernel"],
             calls=calls(walks, wkeys)),
         row("walk_stage_entry_kernel",
@@ -2173,7 +2320,11 @@ def lockstep_rows(rec, row) -> list:
             lockstep_entry_bound(entry),
             source=LOCKSTEP_SOURCE,
             at=f"{entry['lanes']} lanes from a wider stage "
-               f"({entry['engine']})"),
+               f"({entry['engine']})",
+            entry_turns=entry.get("entry_turns"),
+            count_only=dict(lanes=count["lanes"], ms=count["entry_ms"],
+                            entry_turns=count.get("entry_turns")),
+            occupancy=occ.get("walk_stage_entry_kernel")),
         row("fwd_stage_kernel", LOCKSTEP_REPLACES["fwd_stage_kernel"],
             rec["fwd_launches"], err("fwd_stage_kernel"), fwds[0]["ms"],
             fwds[0]["plain_ms"], fwds[0], source=LOCKSTEP_SOURCE,
@@ -2181,6 +2332,7 @@ def lockstep_rows(rec, row) -> list:
                f"first stage); the chunk's {len(fwds)} stages in calls",
             graph_ms=fwds[0]["graph_ms"],
             latency_floor_ms=fwds[0]["floor_ms"],
+            latency_floor_load_ms=fwds[0]["floor_load_ms"],
             chunk=dict(call_sums(fwds),
                        plain_ms=sum(r["plain_ms"] for r in fwds)),
             occupancy=occ["fwd_stage_kernel"],
@@ -2537,7 +2689,7 @@ def torch_compaction(src: dict, out: dict, keys, w: int, pads: dict):
         buf[tgt] = src[kk]
 
 
-def entry_time(boundaries: list, builds: dict) -> dict:
+def entry_time(boundaries: list, builds: dict, parents=None) -> dict:
     """Each boundary of the first chunk (int32; entry_cases.BoundaryCapture's
     cases) on the card alone (launch_ms: 20 launches in a CUDA graph,
     replayed): the segment entry kernel of the port's build and of every
@@ -2546,10 +2698,14 @@ def entry_time(boundaries: list, builds: dict) -> dict:
     (torch_compaction) and, with an earlier build of the round source
     that has the one-thread loop entry kernel (--chain-old-source,
     --walk-old-source: the parent's), that kernel alone and both in one
-    graph, the sequence the port ran; ENTRY_TURNS turns each order.  The
-    plain version in a loop (events), and the bound: entry_work's bytes
-    over the HBM rate against its operations.
+    graph, the sequence the port ran; with ``parents`` (loop -> an
+    old_build of the parent's round source, --entry-old-csrc) the
+    parent's segment entry kernel ("parent"); ENTRY_TURNS turns each
+    order.  The plain version in a loop (events), and the bound:
+    entry_work's bytes over the HBM rate against its operations.
     ``builds``: loop -> round_builds' builds.  Per boundary: medians."""
+    from compseed_tpu_torch.ops import chain_cuda, walk_cuda
+    modules = dict(chain=chain_cuda, walk=walk_cuda)
     import torch
     from compseed_tpu_torch.ops import entry_cases
     from compseed_tpu_torch.ops import seedscan as ss
@@ -2560,6 +2716,15 @@ def entry_time(boundaries: list, builds: dict) -> dict:
         rd = entry_cases.entry_round(case)
         entry_cases.set_entry(rd, case, src, rnd0)
         runs = {"kernel": rd.entry}
+        parent = (parents or {}).get(what)
+        if parent is not None:
+            rp = entry_cases.entry_round(case)
+            entry_cases.set_entry(rp, case, src, rnd0)
+
+            def parent_entry(rp=rp, parent=parent):
+                with launching(modules[what], parent):
+                    rp.entry()
+            runs["parent"] = parent_entry
         for name, b in builds[what].items():
             if getattr(b, "segment_entry", None):
                 r = entry_cases.entry_round(case)
@@ -3034,11 +3199,13 @@ def torch_sa_boundary(case, src: dict):
     return run
 
 
-def sa_time(cases: list) -> dict:
+def sa_time(cases: list, parent=None) -> dict:
     """Each boundary of the first chunk's call (int32; ``cases``:
     sa_capture's first four) on the card alone (launch_ms: 20 launches in
     a CUDA graph, replayed), sa_stage_entry_kernel in turns with the
-    PyTorch sequence it replaced (torch_sa_boundary), SA_TURNS turns each
+    PyTorch sequence it replaced (torch_sa_boundary) and, with ``parent``
+    (an old_build of the parent's fm_walk.cu, --entry-old-csrc), the
+    parent's kernel, SA_TURNS turns each
     order; that sequence in a loop (events: the plain version's time); the
     bound: stage_work's bytes over the HBM rate against its operations.
     Per boundary: medians."""
@@ -3051,6 +3218,13 @@ def sa_time(cases: list) -> dict:
         lp = sa_cases.stage_loop(case, src)
         runs = {"kernel": lambda lp=lp, s=s: fm_cuda.SaLoop.boundary(lp, s),
                 "torch sequence": torch_sa_boundary(case, src)}
+        if parent is not None:
+            lpp = sa_cases.stage_loop(case, src)
+
+            def parent_boundary(lpp=lpp, s=s):
+                with launching(fm_cuda, parent):
+                    fm_cuda.SaLoop.boundary(lpp, s)
+            runs["parent"] = parent_boundary
         ms = {n: [] for n in runs}
         for turn in range(2 * SA_TURNS):
             for n in (list(runs) if turn % 2 == 0 else list(runs)[::-1]):
@@ -5412,7 +5586,12 @@ def main() -> None:
     ap.add_argument("--walk-old-source", action="append", default=[])
     ap.add_argument("--smem-old-source")
     ap.add_argument("--lockstep-old-source")
+    ap.add_argument("--entry-old-csrc")
     cli = ap.parse_args()
+    if cli.entry_old_csrc and not all(os.path.isfile(os.path.join(
+            cli.entry_old_csrc, f)) for f in ENTRY_PARENT_SOURCES.values()):
+        ap.error(f"--entry-old-csrc {cli.entry_old_csrc}: not a csrc/ "
+                 f"directory with {', '.join(ENTRY_PARENT_SOURCES.values())}")
     for opt_name, src in (("--fm-old-source", cli.fm_old_source),
                           ("--smem-old-source", cli.smem_old_source),
                           ("--lockstep-old-source",
@@ -5483,7 +5662,7 @@ def main() -> None:
         build(force=True)
         return time.time() - t0
 
-    with cf.ThreadPoolExecutor(max_workers=9) as ex:
+    with cf.ThreadPoolExecutor(max_workers=12) as ex:
         host = ex.submit(native.build_library, True)
         fm_build = ex.submit(timed_build, fm_cuda.build_library)
         chain_build = ex.submit(timed_build, chain_cuda.build_library)
@@ -5500,6 +5679,13 @@ def main() -> None:
         smem_old = ex.submit(old_build, smem_cuda, cli.smem_old_source)
         ls_old = ex.submit(old_build, lockstep_cuda,
                            cli.lockstep_old_source)
+        # the parent's chain, walk and suffix-array entries (--entry-old-csrc)
+        entry_parents = {
+            what: ex.submit(old_build, module, os.path.join(
+                cli.entry_old_csrc, ENTRY_PARENT_SOURCES[what]))
+            for what, module in (("chain", chain_cuda), ("walk", walk_cuda),
+                                 ("sa", fm_cuda))} if cli.entry_old_csrc \
+            else {}
         dp_build_s = timed_build(bsw_cuda.build_library)
         fm_build_s = fm_build.result()
         chain_build_s = chain_build.result()
@@ -5512,6 +5698,7 @@ def main() -> None:
         ls_twin = ls_twin.result()
         smem_old = smem_old.result()
         ls_old = ls_old.result()
+        entry_parents = {k: f.result() for k, f in entry_parents.items()}
     fm_cuda.LIB.load()
     chain_cuda.LIB.load()
     walk_cuda.LIB.load()
@@ -5533,6 +5720,11 @@ def main() -> None:
     for kernel, module, fn, widths, old in (
             ("smem_collect_kernel", smem_cuda, smem_cuda.occupancy,
              (4096, 16384), smem_old),
+            ("smem_strategy_kernel", smem_cuda,
+             lambda t, d, lanes: smem_cuda.occupancy(
+                 t, d, lanes, "smem_strategy_kernel"), (8192,), smem_old),
+            ("walk_stage_entry_kernel", lockstep_cuda,
+             ls_occ("walk_stage_entry_kernel"), (589824,), ls_old),
             ("fwd_stage_kernel", lockstep_cuda, ls_occ("fwd_stage_kernel"),
              (65536,), ls_old),
             ("scan_lanes_kernel", lockstep_cuda, ls_occ("scan_lanes_kernel"),
@@ -5777,7 +5969,7 @@ def main() -> None:
                               boundaries=r["boundaries"])
                       for k, r in loop_rec["entry"].items()}))
     loop_rec["entry_time"] = entry_time(boundaries["int32"], dict(
-        chain=chain_build_set, walk=walk_build_set))
+        chain=chain_build_set, walk=walk_build_set), entry_parents)
     del boundaries
     # the suffix-array walk's stage entry kernel on every boundary of the
     # first chunk's call and a 40-lane call, against its plain version,
@@ -5791,7 +5983,7 @@ def main() -> None:
         f"{sa_rec['check']['max_abs_err']} over "
         f"{sa_rec['check']['boundaries']} boundaries; "
         f"{json.dumps(sa_rec['check'])}")
-    sa_rec["time"] = sa_time(sa_cases_["int32"][:4])
+    sa_rec["time"] = sa_time(sa_cases_["int32"][:4], entry_parents.get("sa"))
     sa_rec["tail"] = sa_tail(sa_cases_["int32"][2])
     del sa_cases_
     # the lockstep kernels on every captured call of all_off's, bwd_win's
@@ -6251,11 +6443,19 @@ def main() -> None:
         forced=smem_check("forced overflow", forced_cap.calls,
                           to_device(fm, dev, force_dtype=np.int64))))
     del golden_calls
+    # the card's dependent 16-byte load from L2 (a table of cell A's occ
+    # table's bytes) and from device memory (a 2^30-base genome's): the
+    # floor of a chain of dependent row reads
+    smem_rec["load_latency"] = load_latency(dev, {
+        "l2": seeder.dfi.occ_packed.numel() * 4,
+        "hbm": ((LARGE_BASES >> 7) + 1) * 64})
+    load_ms = smem_rec["load_latency"]["l2"]["ms"]
     smem_rec["time"] = smem_time(
         forced_cap.calls, twin,
         fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"],
-        old=smem_old)
+        old=smem_old, load_ms=load_ms)
     smem_rec["occupancy"] = occupancy["smem_collect_kernel"]
+    smem_rec["strategy_occupancy"] = occupancy["smem_strategy_kernel"]
     del forced_cap
     smem_rec["phase_s"] = time.time() - t0
     log(f"[smem] the exact rerun's kernels: {smem_rec['phase_s']:.1f} s")
@@ -6267,9 +6467,10 @@ def main() -> None:
     ls_rec["time"] = lockstep_time(
         ls_calls, ls_twin,
         fm_rec["redesign"]["bench_latency"]["new"]["chain_step_ms"],
-        old=ls_old)
+        old=ls_old, load_ms=load_ms)
     ls_rec["occupancy"] = {k: occupancy[k] for k in (
-        "fwd_stage_kernel", "scan_lanes_kernel", "walk_stage_kernel")}
+        "fwd_stage_kernel", "scan_lanes_kernel", "walk_stage_kernel",
+        "walk_stage_entry_kernel")}
     del ls_calls
     ls_rec["sa_batch_turns"] = sa_batch_turns(sa_keys)
     del sa_keys

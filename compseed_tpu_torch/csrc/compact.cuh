@@ -53,6 +53,11 @@
 // walking a narrow source's tiles with a running carry, and every word
 // loaded at once beside the ticket, were slower).
 //
+// A count needs no order: count_entry, lockstep.cu's walk stage entry
+// before a call's first stage, counts kCountItems lanes a thread (their
+// alive bytes in one load) and adds each block's count in one atomic, no
+// ticket and no look-back.
+//
 // The host loop (segment_entry_host) does the same lane after lane, for
 // the CPU tests.
 
@@ -71,6 +76,7 @@
 
 constexpr int kEntryItems = 2;         // consecutive lanes a thread
 constexpr int kEntryBlock = 256;       // threads a block
+constexpr int kCountItems = 8;         // lanes a thread of count_entry
 
 // A loop's lane arrays as the entry moves them: kI32 int32 arrays, kT
 // arrays of the index type T and the alive bytes, of the previous
@@ -270,6 +276,39 @@ __device__ __forceinline__ void segment_entry(const A& a, const L& ln) {
   if (r.t == (int)gridDim.x - 1 && threadIdx.x == 0) {
     sc[kEpoch] = (int32_t)epoch;
     loop_cond(a, entry_close<kLive>(a, r.upto));
+  }
+}
+
+// The count-only entry (no source, src_w 0: a call's first segment), which
+// needs no order: each block counts the live lanes of its tile of
+// kEntryBlock * kCountItems, a thread's alive bytes in one 8-byte load
+// where they all lie below w and are aligned so, and adds them in
+// retire_last's one atomic on the 64-bit word sc[kRetire] (0 between
+// launches); the last block to retire counts the epoch as segment_entry's
+// last ticket does (the next compacting entry tags its status words with
+// the one after it) and closes the segment.  Every thread of every block
+// must call.
+template <int kLive, int kEpoch, int kRetire, typename A, typename L>
+__device__ __forceinline__ void count_entry(const A& a, const L& ln) {
+  int32_t* sc = (int32_t*)a.sc;
+  const long long i0 =
+      ((long long)blockIdx.x * kEntryBlock + threadIdx.x) * kCountItems;
+  const bool* alive = ln.dst_alive + i0;
+  int cnt = 0;
+  if (i0 + kCountItems <= a.w && ((uintptr_t)alive & 7u) == 0) {
+    const unsigned long long v =
+        *reinterpret_cast<const unsigned long long*>(alive);
+    CP_UNROLL
+    for (int j = 0; j < kCountItems; ++j) cnt += ((v >> (8 * j)) & 0xFF) != 0;
+  } else {
+    CP_UNROLL
+    for (int j = 0; j < kCountItems; ++j) cnt += i0 + j < a.w && alive[j];
+  }
+  int total;
+  if (retire_last<kEntryBlock / 32>(
+          (unsigned long long*)(sc + kRetire), cnt, gridDim.x, &total)) {
+    sc[kEpoch] += 1;
+    loop_cond(a, entry_close<kLive>(a, total));
   }
 }
 

@@ -1,12 +1,16 @@
 // The FM-index lane routines that the port's kernel sources share:
-// fm_walk.cu (the extension, the chain walk, the inverse-Psi walk) and
-// smem_seed.cu (the exact rerun's collect and round-3 programs).  The
+// fm_walk.cu (the extension, the chain walk, the inverse-Psi walk),
+// smem_seed.cu (the exact rerun's collect and round-3 programs) and
+// lockstep.cu (the lockstep engines' loops).  The
 // index as a lane sees it (FmPacked, the packed 64-byte occ rows), the
 // wrapping arithmetic of the index type T, a rank in a row (in one piece
 // or two), occ4 at a position, the child of a bi-interval and the
 // one-child extension; the ranks of an extension by a pair of threads
-// (PairRanks, on the card) or by one (ThreadRanks).  fm_walk.cu's header
-// comment says how they read the table and why.
+// (PairRanks, on the card) or by one, its two rows one after the other
+// (ThreadRanks) or both rows' reads issued before either is ranked
+// (ThreadRowRanks over row_read / row_pc: lockstep.cu's walk segment and
+// smem_seed.cu's round-3 scan).  fm_walk.cu's header comment says how
+// they read the table and why.
 //
 // Compiled by nvcc, the routines are __host__ __device__; compiled as C++
 // without nvcc (the host twins of the CPU tests), plain inline functions.
@@ -307,6 +311,60 @@ struct ThreadRanks {
     for (int j = 0; j < 4; ++j) tk[j] = rank_of<T>(cnt[j], pc, j);
     occ_row(fm, b, cnt, pc);
     for (int j = 0; j < 4; ++j) tl[j] = rank_of<T>(cnt[j], pc, j);
+  }
+};
+
+// occ4 at k by one thread as its reads and its ranks apart (occ_row's
+// result, ThreadRanks' row): row_read issues the reads of the row's counts
+// and of the plane quarters the rank needs (the second only for block
+// offsets 64-127), row_pc adds the popcounts up once they are in, so that
+// a thread can have the reads of several rows in flight.
+struct RowRead {
+  Quarter c, v1, v2;
+  int off;
+  bool zero;  // k == -1: occ4 counts zero
+};
+
+template <typename T>
+FM_HD RowRead row_read(const FmPacked<T>& fm, T k) {
+  RowRead r;
+  long long row;
+  r.zero = !occ_at(fm, k, row, r.off);
+  if (r.zero) return r;
+  r.c = load_quarter(fm.rows, row, 0);
+  r.v1 = load_quarter(fm.rows, row, 1);
+  if (r.off >= 64) r.v2 = load_quarter(fm.rows, row, 2);
+  return r;
+}
+
+// The row's counts (cnt) and popcounts by base (rank_piece's packing) of
+// a row_read.
+FM_HD uint32_t row_pc(const RowRead& r, uint32_t cnt[4]) {
+  uint32_t pc = 0;
+  for (int j = 0; j < 4; ++j) cnt[j] = r.zero ? 0u : r.c.w[j];
+  if (r.zero) return 0;
+  plane_popc(r.v1.w[0], r.v1.w[1], 0, r.off, pc);
+  plane_popc(r.v1.w[2], r.v1.w[3], 1, r.off, pc);
+  if (r.off >= 64) {
+    plane_popc(r.v2.w[0], r.v2.w[1], 2, r.off, pc);
+    plane_popc(r.v2.w[2], r.v2.w[3], 3, r.off, pc);
+  }
+  return pc;
+}
+
+// The ranks of extend_sel by one thread a lane: both rows' reads issued
+// before either is ranked, so that a step's two random reads are in
+// flight together.
+template <typename T>
+struct ThreadRowRanks {
+  const FmPacked<T>& fm;
+  FM_HD void operator()(T a, T b, T tk[4], T tl[4]) const {
+    const RowRead ra = row_read(fm, a), rb = row_read(fm, b);
+    uint32_t c[4];
+    uint32_t pc = row_pc(ra, c);
+    for (int j = 0; j < 4; ++j) tk[j] = rank_of<T>(c[j], pc, j);
+    pc = row_pc(rb, c);
+    for (int j = 0; j < 4; ++j) tl[j] = rank_of<T>(c[j], pc, j);
   }
 };
 

@@ -60,16 +60,26 @@
 //   condition.  t is a device word, which the next stage of a walk_pool
 //   call reads as its t0.
 // walk_stage_entry_kernel<T>
-//   The loop's entry (compact.cuh's segment_entry): JAX's while_loop tests
-//   its cond before the first segment, and a segment run when live <= fit
-//   would move the lanes, so the entry runs that test on the card.  Between
-//   the stages of a walk_pool call it also compacts the previous stage's
-//   live lanes into this stage's (compseed_tpu/ops/seedscan.py
-//   compact_state: a stable rank-scatter), the lanes after them pads (dead,
-//   slot -1, steps 0, as every dead lane is once walk_pool has written out
-//   the finished ones); before a call's first stage it counts the live
-//   lanes.  Plain version: ops/seedscan.py::compact_state and the test of
-//   _walk_stage_plain.
+//   The loop's entry (compact.cuh): JAX's while_loop tests its cond
+//   before the first segment (compseed_tpu/ops/seedscan.py:266-270), and a
+//   segment run when live <= fit would move the lanes, so the entry runs
+//   that test on the card.  Between the stages of a walk_pool call it also
+//   compacts the previous stage's live lanes into this stage's
+//   (compseed_tpu/ops/seedscan.py:277-297 compact_state: a stable
+//   rank-scatter; segment_entry's look-back scan), the lanes after them
+//   pads (dead, slot -1, steps 0, as every dead lane is once walk_pool has
+//   written out the finished ones); before a call's first stage it counts
+//   the live lanes (count_entry: a count needs no order, so one atomic a
+//   block and the last block to retire, no ticket and no look-back).  Plain
+//   version: ops/seedscan.py::compact_state and the test of
+//   _walk_stage_plain.  A compaction takes the chain's tile, 2 lanes a
+//   thread (kEntryItems), a count 8 (kCountItems: its bytes are the alive
+//   bytes alone, 8 a load).  Measured at every captured width
+//   (24,576-589,824 lanes, PERF.md; scripts/walk_entry_variants.patch
+//   rebuilds the variants): a compaction at 4 or 8 lanes a thread took
+//   1.8x and 3.5x as long at 589,824 lanes (a thread's consecutive lanes
+//   make every load and store of a live lane's words stride over that
+//   many more sectors, though the tiles fit in one wave).
 //
 // fwd_stage_kernel<T>
 //   Replaces compseed_tpu/ops/seedscan.py:854-1005 _fwd_stage_walk (a
@@ -629,61 +639,6 @@ __global__ void __launch_bounds__(kScanBlock) scan_lanes_kernel(
     ovf_out[lane] = (T)(ovf ? 1 : 0);
 }
 
-// occ4 at k by one thread as its reads and its ranks apart (occ_row's
-// result, ThreadRanks' row): row_read issues the reads of the row's counts
-// and of the plane quarters the rank needs (the second only for block
-// offsets 64-127), row_pc adds the popcounts up once they are in, so that
-// a thread can have the reads of several rows in flight.
-struct RowRead {
-  Quarter c, v1, v2;
-  int off;
-  bool zero;  // k == -1: occ4 counts zero
-};
-
-template <typename T>
-FM_HD RowRead row_read(const FmPacked<T>& fm, T k) {
-  RowRead r;
-  long long row;
-  r.zero = !occ_at(fm, k, row, r.off);
-  if (r.zero) return r;
-  r.c = load_quarter(fm.rows, row, 0);
-  r.v1 = load_quarter(fm.rows, row, 1);
-  if (r.off >= 64) r.v2 = load_quarter(fm.rows, row, 2);
-  return r;
-}
-
-// The row's counts (cnt) and popcounts by base (rank_piece's packing) of
-// a row_read.
-FM_HD uint32_t row_pc(const RowRead& r, uint32_t cnt[4]) {
-  uint32_t pc = 0;
-  for (int j = 0; j < 4; ++j) cnt[j] = r.zero ? 0u : r.c.w[j];
-  if (r.zero) return 0;
-  plane_popc(r.v1.w[0], r.v1.w[1], 0, r.off, pc);
-  plane_popc(r.v1.w[2], r.v1.w[3], 1, r.off, pc);
-  if (r.off >= 64) {
-    plane_popc(r.v2.w[0], r.v2.w[1], 2, r.off, pc);
-    plane_popc(r.v2.w[2], r.v2.w[3], 3, r.off, pc);
-  }
-  return pc;
-}
-
-// The ranks of extend_sel by one thread a lane: both rows' reads issued
-// before either is ranked, so that a step's two random reads are in
-// flight together.
-template <typename T>
-struct ThreadRowRanks {
-  const FmPacked<T>& fm;
-  __device__ __forceinline__ void operator()(T a, T b, T tk[4],
-                                             T tl[4]) const {
-    const RowRead ra = row_read(fm, a), rb = row_read(fm, b);
-    uint32_t c[4];
-    uint32_t pc = row_pc(ra, c);
-    for (int j = 0; j < 4; ++j) tk[j] = rank_of<T>(c[j], pc, j);
-    pc = row_pc(rb, c);
-    for (int j = 0; j < 4; ++j) tl[j] = rank_of<T>(c[j], pc, j);
-  }
-};
-
 // A segment of the stage's loop, a thread a lane.  Every thread reads t
 // at its start (no block writes it before the last block to retire, which
 // is the last to read it); with a.loop the last block to retire advances
@@ -715,13 +670,17 @@ __global__ void __launch_bounds__(kWalkBlock) walk_stage_kernel(
 }
 
 // The stage's entry (compact.cuh): the previous stage's live lanes
-// compacted into this stage's (or, before a call's first stage, its live
-// lanes counted), the live count and the loop's first test, the WHILE
-// node's condition set from it inside a graph.
+// compacted into this stage's by segment_entry's look-back, or, before a
+// call's first stage, its live lanes counted by count_entry (no order: no
+// ticket, no look-back); then the live count and the loop's first test,
+// the WHILE node's condition set from it inside a graph.
 template <typename T>
 __global__ void __launch_bounds__(kEntryBlock) walk_stage_entry_kernel(
     const WalkArgs a) {
-  segment_entry<kLive, kTicket, kEpoch>(a, stage_lanes<T>(a));
+  if (a.src_w > 0)
+    segment_entry<kLive, kTicket, kEpoch>(a, stage_lanes<T>(a));
+  else
+    count_entry<kLive, kEpoch, kRetire>(a, stage_lanes<T>(a));
 }
 
 // A warp's records of one segment of its stage (kFwdSeg steps of each of
@@ -891,10 +850,17 @@ int walk_occupancy(int* out) {
 }
 
 template <typename T>
+int entry_occupancy(int* out) {
+  return kernel_occupancy(walk_stage_entry_kernel<T>, kEntryBlock,
+                          kEntryBlock * kEntryItems, 1, out);
+}
+
+template <typename T>
 int launch_walk(const WalkArgs& a, int entry, cudaStream_t st) {
   if (entry) {
-    const long long n = a.src_w > 0 ? a.src_w : a.w;
-    const long long tile = kEntryBlock * kEntryItems;
+    const bool move = a.src_w > 0;
+    const long long n = move ? a.src_w : a.w;
+    const long long tile = kEntryBlock * (move ? kEntryItems : kCountItems);
     walk_stage_entry_kernel<T>
         <<<(unsigned)((n + tile - 1) / tile), kEntryBlock, 0, st>>>(a);
   } else {
@@ -1034,8 +1000,9 @@ int host_fwd(const FwdArgs& a, Trace* tr) {
 // lep (R, capl, 5), cnt and ovf (R,) in the index type.  capl at least 1,
 // L at least 1.  The walk's entries take the WalkArgs words
 // (ops/lockstep_cuda.py WALK_ARGS, in order), the forward stage's the
-// FwdArgs words (FWD_ARGS); fwd_stage_occupancy, scan_lanes_occupancy and
-// walk_stage_occupancy give kernel_occupancy's six numbers of their kernel
+// FwdArgs words (FWD_ARGS); fwd_stage_occupancy, scan_lanes_occupancy,
+// walk_stage_occupancy and walk_stage_entry_occupancy (its compacting
+// tile's) give kernel_occupancy's six numbers of their kernel
 // for the index type (a call of any lanes: every call takes the same
 // kernel; on the current device) and return the CUDA error code.
 #ifdef __CUDACC__
@@ -1094,6 +1061,12 @@ extern "C" int scan_lanes_occupancy(int idx64, long long lanes, int* out) {
 
 extern "C" int walk_stage_occupancy(int idx64, long long lanes, int* out) {
   return idx64 ? walk_occupancy<int64_t>(out) : walk_occupancy<int32_t>(out);
+}
+
+extern "C" int walk_stage_entry_occupancy(int idx64, long long lanes,
+                                          int* out) {
+  return idx64 ? entry_occupancy<int64_t>(out)
+               : entry_occupancy<int32_t>(out);
 }
 
 LOOP_GRAPH_ENTRIES(lockstep)

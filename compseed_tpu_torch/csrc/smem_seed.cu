@@ -54,10 +54,24 @@
 // smem_strategy_kernel<T>
 //   Replaces compseed_tpu/ops/smem.py:222-271 _seed_strategy_one (a
 //   lax.fori_loop over the read's L columns, :268) for one lane.  Plain
-//   version: ops/smem.py::_seed_strategy_plain.  A pair of threads a lane
-//   (fm_rank.cuh's PairRanks, as the extension kernel of fm_walk.cu): the
-//   L columns in a loop, each hit's mems row stored as it is found (at
-//   min(n, MMEM3 - 1)), the rows after the last hit zeroed at the end.
+//   version: ops/smem.py::_seed_strategy_plain.  A round-3 call is a few
+//   thousand lanes (8,192 in the reruns), each a chain of up to L
+//   dependent extensions: it runs in one wave, and its time is the
+//   longest lane's steps times one step's latency.  A pair of threads a
+//   lane (PairRowRanks): each thread issues its row's three quarters at
+//   once (fm_rank.cuh's row_read) and ranks it, then the pair swaps the
+//   counts and popcounts: the L columns in a loop, each hit's mems row
+//   stored as it is found (at min(n, MMEM3 - 1)), the rows after the
+//   last hit zeroed at the end by the lane's pair.  Measured against it
+//   (PERF.md, H100; scripts/smem_strategy_variants.patch rebuilds them):
+//   its first design (PairRanks, each row's quarters read one after
+//   another) 9 % slower; one thread a lane ranking both rows
+//   (ThreadRowRanks: no shuffles) 35-50 % slower, its step 0.76 us against
+//   the pair's 0.61, though the card's dependent 16-byte load from L2 is
+//   ~0.15 us: a step is mostly the rank's dependent arithmetic, which a
+//   thread ranking two rows lengthens; the block's reads staged in
+//   shared memory 1 % slower; the block writing its rows' tails word
+//   after word slower than each lane's pair.
 //
 // The caps MLEP, MMEM and MMEM3 are launch arguments (1 to 32), read from
 // the module at call time: the tests force them small to reach the
@@ -505,6 +519,28 @@ __global__ void __launch_bounds__(kCollectBlock, kCollectBlocksPerSm)
   finish_row(o, mmem, n_mems, n_mems, st.ret, st.ovf || sh.ovf, t, G);
 }
 
+// The ranks of an extension by the pair of a lane: each thread issues its
+// row's three quarters at once (row_read) and ranks it, then the two swap
+// counts and popcounts.
+template <typename T>
+struct PairRowRanks {
+  const FmPacked<T>& fm;
+  Pair p;
+  __device__ void operator()(T a, T b, T tk[4], T tl[4]) const {
+    const bool second = p.t == 1;
+    uint32_t cnt[4], other[4];
+    const uint32_t pc = row_pc(row_read(fm, second ? b : a), cnt);
+    const uint32_t pco = p.other(pc);
+    for (int j = 0; j < 4; ++j) other[j] = p.other(cnt[j]);
+    for (int j = 0; j < 4; ++j) {
+      const T mine = rank_of<T>(cnt[j], pc, j);
+      const T theirs = rank_of<T>(other[j], pco, j);
+      tk[j] = second ? theirs : mine;
+      tl[j] = second ? mine : theirs;
+    }
+  }
+};
+
 // Thread t of a lane's pair writes words t, t + 2, t + 4 of each row.
 template <typename T>
 __global__ void __launch_bounds__(kStrategyBlock) smem_strategy_kernel(
@@ -517,7 +553,7 @@ __global__ void __launch_bounds__(kStrategyBlock) smem_strategy_kernel(
       ((long long)blockIdx.x * kStrategyBlock + threadIdx.x) / 2;
   if (lane >= P) return;                // a whole pair
   const FmPacked<T> fm = make_fm(rows, n_rows, L2, primary, fill_oob);
-  const PairRanks<T> ranks{fm, Pair()};
+  const PairRowRanks<T> ranks{fm, Pair()};
   const int t = ranks.p.t;
   T* o = out + lane * (long long)(mmem3 * 5 + 2);
   int n = 0;
@@ -639,6 +675,26 @@ int launch_strategy(const uint32_t* rows, long long n_rows, const void* L2,
           max_intv, active, mmem3, (T*)out, P);
   return (int)cudaGetLastError();
 }
+
+// What the card gives smem_strategy_kernel<T> (out, 6 ints, as
+// collect_occupancy's): resident blocks an SM, lanes a block, registers,
+// local bytes a thread, static shared bytes a block, threads a lane.
+template <typename T>
+int strategy_occupancy(int* out) {
+  int blocks = 0;
+  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, smem_strategy_kernel<T>, kStrategyBlock, 0);
+  cudaFuncAttributes fa;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, smem_strategy_kernel<T>);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = blocks;
+  out[1] = kStrategyBlock / 2;
+  out[2] = fa.numRegs;
+  out[3] = (int)fa.localSizeBytes;
+  out[4] = (int)fa.sharedSizeBytes;
+  out[5] = 2;
+  return 0;
+}
 #else
 // What a host loop may record of a call, for ops/smem_cases.py's work
 // counts: the positions every rank asks occ4 at, in order (the first cap
@@ -656,10 +712,12 @@ struct Trace {
   }
 };
 
-// ThreadRanks that records both positions when a trace is given.
-template <typename T>
+// Ranks (ThreadRanks, or ThreadRowRanks: row_read and row_pc, as the
+// round-3 kernel's pair reads and ranks a row) that record both positions
+// when a trace is given.
+template <typename T, typename R = ThreadRanks<T>>
 struct HostRanks {
-  ThreadRanks<T> rank;
+  R rank;
   Trace* tr;
   void operator()(T a, T b, T tk[4], T tl[4]) const {
     if (tr) {
@@ -804,14 +862,15 @@ int host_collect_group(int group, const uint32_t* rows, long long n_rows,
   }
 }
 
-template <typename T>
+// Round 3 lane after lane, ranking by R (ThreadRanks or ThreadRowRanks).
+template <typename T, template <typename> class R>
 int host_strategy(const uint32_t* rows, long long n_rows, const void* L2,
                   long long primary, int fill_oob, const uint8_t* q, int L,
                   int min_len, long long max_intv, const uint8_t* active,
                   int mmem3, void* out, long long P, Trace* tr) {
   const FmPacked<T> fm = make_fm(rows, n_rows, (const T*)L2, primary,
                                  fill_oob);
-  const HostRanks<T> ranks{ThreadRanks<T>{fm}, tr};
+  const HostRanks<T, R<T>> ranks{R<T>{fm}, tr};
   return host_lanes(P, [&](long long lane) {
     const long long n0 = tr ? tr->n : 0;
     T* o = (T*)out + lane * (long long)(mmem3 * 5 + 2);
@@ -886,6 +945,11 @@ extern "C" int smem_collect_occupancy(int idx64, long long P, int* out) {
                : collect_call_occupancy<int32_t>(P, out);
 }
 
+extern "C" int smem_strategy_occupancy(int idx64, long long P, int* out) {
+  return idx64 ? strategy_occupancy<int64_t>(out)
+               : strategy_occupancy<int32_t>(out);
+}
+
 // The name of a CUDA error code, for the wrapper's messages.
 extern "C" const char* smem_cuda_error_name(int code) {
   return cudaGetErrorName((cudaError_t)code);
@@ -920,6 +984,29 @@ extern "C" int smem_collect_host(const uint32_t* rows, long long n_rows,
   return e;
 }
 
+static int strategy_host_any(const uint32_t* rows, long long n_rows,
+                             const void* L2, long long primary, int fill_oob,
+                             const uint8_t* q, int L, int min_len,
+                             long long max_intv, const uint8_t* active,
+                             int mmem3, void* out, long long P, int idx64,
+                             long long* pos, long long cap, long long* n_pos,
+                             int* steps, bool row_reads) {
+  if (!caps_ok(mmem3, mmem3) || L < 1) return -1;
+  Trace t{pos, cap, 0, steps};
+  Trace* tr = steps ? &t : nullptr;
+  const auto run = [&](auto strategy) {
+    return strategy(rows, n_rows, L2, primary, fill_oob, q, L, min_len,
+                    max_intv, active, mmem3, out, P, tr);
+  };
+  const int e =
+      idx64 ? (row_reads ? run(host_strategy<int64_t, ThreadRowRanks>)
+                         : run(host_strategy<int64_t, ThreadRanks>))
+            : (row_reads ? run(host_strategy<int32_t, ThreadRowRanks>)
+                         : run(host_strategy<int32_t, ThreadRanks>));
+  if (tr) *n_pos = t.n;
+  return e;
+}
+
 extern "C" int smem_strategy_host(const uint32_t* rows, long long n_rows,
                                   const void* L2, long long primary,
                                   int fill_oob, const uint8_t* q, int L,
@@ -928,17 +1015,48 @@ extern "C" int smem_strategy_host(const uint32_t* rows, long long n_rows,
                                   long long P, int idx64, long long* pos,
                                   long long cap, long long* n_pos,
                                   int* steps) {
-  if (!caps_ok(mmem3, mmem3) || L < 1) return -1;
-  Trace t{pos, cap, 0, steps};
-  Trace* tr = steps ? &t : nullptr;
-  const int e =
-      idx64 ? host_strategy<int64_t>(rows, n_rows, L2, primary, fill_oob, q,
-                                     L, min_len, max_intv, active, mmem3,
-                                     out, P, tr)
-            : host_strategy<int32_t>(rows, n_rows, L2, primary, fill_oob, q,
-                                     L, min_len, max_intv, active, mmem3,
-                                     out, P, tr);
-  if (tr) *n_pos = t.n;
-  return e;
+  return strategy_host_any(rows, n_rows, L2, primary, fill_oob, q, L,
+                           min_len, max_intv, active, mmem3, out, P, idx64,
+                           pos, cap, n_pos, steps, false);
+}
+
+// smem_strategy_host ranking each row as the kernel's pair does, by
+// row_read and row_pc (ThreadRowRanks).
+extern "C" int smem_strategy_rows_host(
+    const uint32_t* rows, long long n_rows, const void* L2, long long primary,
+    int fill_oob, const uint8_t* q, int L, int min_len, long long max_intv,
+    const uint8_t* active, int mmem3, void* out, long long P, int idx64,
+    long long* pos, long long cap, long long* n_pos, int* steps) {
+  return strategy_host_any(rows, n_rows, L2, primary, fill_oob, q, L,
+                           min_len, max_intv, active, mmem3, out, P, idx64,
+                           pos, cap, n_pos, steps, true);
+}
+
+// occ4 at each of the n positions k (in the index type) two ways: by
+// row_pc(row_read(k)) into cnt_rr (n, 4) and pc_rr (n,), by occ_row into
+// cnt_occ and pc_occ; -1 where a read would trap on the card.
+template <typename T>
+int host_row_reads(const FmPacked<T>& fm, const long long* k, long long n,
+                   uint32_t* cnt_rr, uint32_t* pc_rr, uint32_t* cnt_occ,
+                   uint32_t* pc_occ) {
+  return host_lanes(n, [&](long long i) {
+    pc_rr[i] = row_pc(row_read(fm, (T)k[i]), cnt_rr + 4 * i);
+    occ_row(fm, (T)k[i], cnt_occ + 4 * i, pc_occ[i]);
+  });
+}
+
+extern "C" int fm_row_read_host(const uint32_t* rows, long long n_rows,
+                                const void* L2, long long primary,
+                                int fill_oob, int idx64, const long long* k,
+                                long long n, uint32_t* cnt_rr,
+                                uint32_t* pc_rr, uint32_t* cnt_occ,
+                                uint32_t* pc_occ) {
+  if (idx64)
+    return host_row_reads(make_fm(rows, n_rows, (const int64_t*)L2, primary,
+                                  fill_oob),
+                          k, n, cnt_rr, pc_rr, cnt_occ, pc_occ);
+  return host_row_reads(make_fm(rows, n_rows, (const int32_t*)L2, primary,
+                                fill_oob),
+                        k, n, cnt_rr, pc_rr, cnt_occ, pc_occ);
 }
 #endif

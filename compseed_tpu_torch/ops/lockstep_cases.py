@@ -17,7 +17,8 @@ after them) and ``seedscan._walk_stage_plain``; a forward stage by
 ``seedscan._fwd_stage_walk_kernel`` or ``_fwd_stage_walk_plain``;
 ``vs_plain`` holds the kernel to the plain version (a scan's cnt, ovf,
 rows < cnt and the pools built from both: ``scan_vs``; a forward stage's
-pf everywhere, its other records where j < steps: ``fwd_vs``).  ``HostTwin``
+pf everywhere, its other records where j < steps: ``fwd_vs``);
+``entry_vs_plain`` a stage's entry alone.  ``HostTwin``
 is the source built with g++ into its host loops; ``launch`` runs a walk
 or forward-stage launch by them (what the CPU tests put in place of
 ``lockstep_cuda._launch``); ``work`` counts, from the host loops' record
@@ -323,6 +324,37 @@ def vs_plain(call) -> int:
             set(got[0]) != set(want[0]):
         return 1 << 62
     return max((_err(got[0][n], want[0][n]) for n in want[0]), default=0)
+
+
+def entry_vs_plain(call: WalkCall, epoch: int = 1000) -> int:
+    """A stage's entry alone (``walk_stage_entry_kernel`` as the stage's
+    loop launches it, outside any graph) against
+    the plain version: the stage's lanes (a compaction's filled with
+    cuda_lib.sentinel's values first: walk_entry_plain's; a count's, the
+    stage's own, untouched), the live word (min(live, w)), go (the loop's
+    test at t0) and the epoch, ``epoch`` before and one more after; the
+    ticket and the retire word left 0.  max abs err (0: equal)."""
+    lp = lockstep_cuda.WalkLoop(call.fm, call.L, call.max_steps, call.qflat,
+                                call.rwflat, call.t0, call.width)
+    if call.src is None:
+        st = lp.lanes(call.st)
+        want = call.st
+    else:
+        st = lp.empty_lanes(call.w)
+        for x in st.values():
+            x.fill_(sentinel(x.dtype))
+        lp.live.fill_(call.live_in)
+        want = walk_entry_plain(call.src, call.w)
+    lp._point(st, call.fit, call.src)
+    sc = lp.sc.view(torch.int32)
+    sc[2] = epoch
+    lockstep_cuda._launch("walk_stage_entry_kernel", lp.dev, lp.args)
+    live = int(want["alive"].sum())
+    go = int(call.t0 < call.max_steps and live > call.fit)
+    words = [int(sc[0]) - live, int(lp.go) - go, int(sc[2]) - epoch - 1,
+             int(sc[1]), int(lp.sc[2])]
+    return max([abs(x) for x in words] +
+               [_err(st[n], want[n]) for n in want])
 
 
 class HostTwin:

@@ -94,7 +94,7 @@ def _bind(lib) -> None:
         fn.argtypes, fn.restype = [p, p], i
     bind_graphs(lib, "lockstep")
     for name in ("fwd_stage_occupancy", "scan_lanes_occupancy",
-                 "walk_stage_occupancy"):
+                 "walk_stage_occupancy", "walk_stage_entry_occupancy"):
         if hasattr(lib, name):                    # an earlier build has none
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = [i, ll, p], i
@@ -234,8 +234,9 @@ def _records(U: int, B: int, dt: torch.dtype, dev) -> dict:
 
 def occupancy(kernel: str, dtype: torch.dtype, dev) -> dict:
     """What card ``dev`` gives ``kernel`` (``scan_lanes_kernel``,
-    ``walk_stage_kernel`` or ``fwd_stage_kernel``) over an index of
-    ``dtype``: ``KernelLibrary.occupancy``'s numbers."""
+    ``walk_stage_kernel``, ``walk_stage_entry_kernel`` or
+    ``fwd_stage_kernel``) over an index of ``dtype``:
+    ``KernelLibrary.occupancy``'s numbers."""
     entry = kernel.replace("_kernel", "_occupancy")
     return LIB.occupancy(entry, dtype == torch.int64, 0, torch.device(dev))
 

@@ -130,9 +130,12 @@ class HostTwin:
         trace = [p, ll, p, p]
         lib.smem_collect_host.argtypes = index + \
             [p, i, p, p, i, p, i, i, p, ll, i, i] + trace
-        lib.smem_strategy_host.argtypes = index + \
-            [p, i, i, ll, p, i, p, ll, i] + trace
-        lib.smem_collect_host.restype = lib.smem_strategy_host.restype = i
+        for fn in (lib.smem_strategy_host, lib.smem_strategy_rows_host):
+            fn.argtypes = index + [p, i, i, ll, p, i, p, ll, i] + trace
+            fn.restype = i
+        lib.smem_collect_host.restype = i
+        lib.fm_row_read_host.argtypes = index + [i, p, ll, p, p, p, p]
+        lib.fm_row_read_host.restype = i
 
     @staticmethod
     def _index(fm) -> tuple:
@@ -141,7 +144,7 @@ class HostTwin:
         return (occ, L2), [occ.ctypes.data, occ.shape[0], L2.ctypes.data,
                            int(fm.primary), int(bool(fm.fill_oob))]
 
-    def _call(self, kind, fm, L, args, cap, trace, group=8):
+    def _call(self, kind, fm, L, args, cap, trace, group=8, rows=False):
         keep, index = self._index(fm)
         P = args[0 if kind == "collect" else 2].shape[0]
         width = cap[-1] * 5 + (3 if kind == "collect" else 2)
@@ -165,7 +168,9 @@ class HostTwin:
                     cap[1], out.ctypes.data, P, idx64, group, *rec)
             else:
                 min_len, max_intv, q, act = arrs
-                e = self.lib.smem_strategy_host(
+                fn = self.lib.smem_strategy_rows_host if rows else \
+                    self.lib.smem_strategy_host
+                e = fn(
                     *index, q.ctypes.data, L, int(min_len), int(max_intv),
                     act.ctypes.data, cap[0], out.ctypes.data, P, idx64, *rec)
             if e:
@@ -186,11 +191,34 @@ class HostTwin:
         return (out, rec) if trace else out
 
     def strategy(self, fm, L, min_len, max_intv, q, active, mmem3,
-                 trace=False):
-        """smem_cuda.strategy's output by the host loops."""
+                 trace=False, rows=False):
+        """smem_cuda.strategy's output by the host loops, each extension
+        ranked by ThreadRanks (occ_row: a row's quarters one after
+        another) or, with ``rows``, by ThreadRowRanks (row_read and
+        row_pc: a row read whole, then ranked, as the kernel's pair ranks
+        each row)."""
         out, rec = self._call("strategy", fm, L,
-                              (min_len, max_intv, q, active), (mmem3,), trace)
+                              (min_len, max_intv, q, active), (mmem3,), trace,
+                              rows=rows)
         return (out, rec) if trace else out
+
+    def row_reads(self, fm, k) -> tuple:
+        """occ4 at each position of ``k`` (int64 numpy, taken in the
+        index's dtype) two ways: row_pc(row_read(k)) and occ_row (the
+        counts (n, 4) and the packed popcounts (n,) of each, uint32):
+        ((cnt, pc) by row_read, (cnt, pc) by occ_row)."""
+        keep, index = self._index(fm)
+        k = np.ascontiguousarray(k, dtype=np.int64)
+        n = len(k)
+        out = [np.empty((n, 4), np.uint32), np.empty(n, np.uint32),
+               np.empty((n, 4), np.uint32), np.empty(n, np.uint32)]
+        e = self.lib.fm_row_read_host(*index, int(fm.dtype == torch.int64),
+                                      k.ctypes.data, n,
+                                      *(a.ctypes.data for a in out))
+        del keep
+        if e:
+            raise RuntimeError(f"fm_row_read_host returned {e}")
+        return (out[0], out[1]), (out[2], out[3])
 
 
 def run(call: Call, route: str, twin: HostTwin | None = None):

@@ -12,7 +12,8 @@ device program a call; the port launches one hand-written kernel a call:
       (``occupancy`` says what the card gives a call);
   ``strategy`` -> ``smem_strategy_kernel``, for
       ``ops/smem.py::_seed_strategy_one`` (plain version
-      ``_seed_strategy_plain``): a pair of threads a lane.
+      ``_seed_strategy_plain``): a pair of threads a lane, each thread's
+      occ row read whole before it is ranked.
 
 ``ops/smem.py`` runs the plain versions for CPU tensors and comes here for
 any other; each launcher takes CUDA tensors only and launches its kernel
@@ -52,9 +53,10 @@ def _bind(lib) -> None:
         [p, i, i, ll, p, i, p, ll, i, p]
     for fn in (lib.smem_collect_launch, lib.smem_strategy_launch):
         fn.restype = i
-    if hasattr(lib, "smem_collect_occupancy"):    # an earlier build has none
-        lib.smem_collect_occupancy.argtypes = [i, ll, p]
-        lib.smem_collect_occupancy.restype = i
+    for name in ("smem_collect_occupancy", "smem_strategy_occupancy"):
+        if hasattr(lib, name):                    # an earlier build has none
+            getattr(lib, name).argtypes = [i, ll, p]
+            getattr(lib, name).restype = i
 
 
 LIB = KernelLibrary("smem_seed.cu", KERNELS, _bind, "smem_cuda_error_name")
@@ -122,12 +124,14 @@ def strategy(fm, L: int, min_len: int, max_intv: int, q, active,
     return out
 
 
-def occupancy(dtype: torch.dtype, dev, lanes: int) -> dict:
-    """What card ``dev`` gives ``smem_collect_kernel`` in a call of
-    ``lanes`` lanes over an index of ``dtype`` (torch.int32 or
-    torch.int64): ``KernelLibrary.occupancy`` of the group the launcher
-    takes for it (threads_per_lane), its blocks an SM, lanes a block,
-    registers, spill bytes and the lanes resident at once (a call of at
-    most that many lanes runs in one wave)."""
-    return LIB.occupancy("smem_collect_occupancy", dtype == torch.int64,
-                         lanes, torch.device(dev))
+def occupancy(dtype: torch.dtype, dev, lanes: int,
+              kernel: str = "smem_collect_kernel") -> dict:
+    """What card ``dev`` gives ``kernel`` (``smem_collect_kernel`` or
+    ``smem_strategy_kernel``) in a call of ``lanes`` lanes over an index of
+    ``dtype`` (torch.int32 or torch.int64): ``KernelLibrary.occupancy`` of
+    the kernel the launcher takes for it (threads_per_lane: the collect
+    kernel's group), its blocks an SM, lanes a block, registers, spill
+    bytes and the lanes resident at once (a call of at most that many
+    lanes runs in one wave)."""
+    return LIB.occupancy(kernel.replace("_kernel", "_occupancy"),
+                         dtype == torch.int64, lanes, torch.device(dev))

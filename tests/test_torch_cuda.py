@@ -2010,6 +2010,31 @@ def test_smem_kernels_on_forced_overflow_chunk_on_card(dev, bench, dtype):
         assert smem_cases.vs_plain(forced) == 0, (call.kind, call.lanes)
 
 
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_smem_strategy_kernel_shapes_on_card(dev, dtype):
+    """smem_strategy_kernel (a pair of threads a lane, blocks of 32 lanes)
+    on a golden's round-3 lanes, its output poisoned first, equals the
+    plain version: ragged lane counts (1, 31, 33, 32 k + 1, all: a block's
+    last pairs idle), long reads padded with N (L = 1,600 over every lane,
+    1,504 over 97), and max_intv 0 (no hit: every column past a restart
+    extends)."""
+    from compseed_tpu_torch.ops import smem_cases
+    _, _, cap, _, _, _ = _golden_rerun_calls(dev, dtype)
+    call = next(c for c in cap.calls if c.kind == "strategy")
+    min_len, max_intv, q, act = call.args
+    P, L = q.shape
+    forms = [(n, L, max_intv) for n in (1, 31, 33, 32 * (P // 64) + 1, P)]
+    forms += [(P, 1600, max_intv), (97, 1504, max_intv), (P, L, 0)]
+    for n, width, mi in forms:
+        qq = torch.full((n, width), 4, dtype=torch.uint8, device=dev)
+        qq[:, :L] = q[:n]
+        c = smem_cases.Call("strategy", call.fm, width,
+                            (min_len, mi, qq.contiguous(), act[:n].clone()),
+                            call.caps)
+        assert smem_cases.vs_plain(c) == 0, (n, width, mi)
+        torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64],
                          ids=["int32", "int64"])
 def test_smem_collect_kernel_runs_a_call_in_one_wave_on_card(dev, dtype):
@@ -2192,6 +2217,130 @@ def test_walk_stage_schedule_on_first_bench_chunk(dev, bench, dtype):
             for n in want:
                 assert torch.equal(st[n], want[n]), (name, call.w, n)
     assert max(widths) > one_wave > min(widths), (widths, one_wave)
+
+
+def _walk_calls(dev, bench, dtype):
+    """Every walk-stage call of all_off's and bwd_win's first bench chunk
+    (ops/lockstep_cases.Capture, the calls eager): [(engine, call)]."""
+    from compseed_tpu_torch.ops import lockstep_cases, seeder2
+    fm, reads = bench
+    out = []
+    for name in ("all_off", "bwd_win"):
+        sd, fns = _engine_seeder(dev, bench, dtype, name)
+        R, L, qd, rd = sd._upload(list(reads[:16384]))
+        with seeder2.EagerCalls(), lockstep_cases.Capture() as cap:
+            sd._run(fns, qd, rd)
+        out += [(name, c) for c in cap.calls if c.kind == "walk"]
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_walk_stage_entry_on_every_stage_of_first_bench_chunk(dev, bench,
+                                                              dtype):
+    """walk_stage_entry_kernel as the launcher runs it (a compaction 2
+    lanes a thread, a count 8) on every walk stage of all_off's and
+    bwd_win's first bench chunk (24,576 to 589,824 lanes; a call's first
+    stage counts its lanes, the others compact a wider stage's): the lanes
+    (a compaction's poisoned first), the live word, go and the epoch equal
+    the plain version's (lockstep_cases.entry_vs_plain), each launch
+    counted."""
+    from compseed_tpu_torch.ops import lockstep_cases
+    calls = _walk_calls(dev, bench, dtype)
+    assert {c.src is None for _, c in calls} == {True, False}
+    n0 = _lockstep_launches()["walk_stage_entry_kernel"]
+    for name, call in calls:
+        assert lockstep_cases.entry_vs_plain(call) == 0, \
+            (name, call.w, call.src is not None)
+    assert _lockstep_launches()["walk_stage_entry_kernel"] == \
+        n0 + len(calls)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_walk_stage_entry_at_tile_boundaries_on_card(dev, bench, dtype):
+    """walk_stage_entry_kernel on sources of 256 I k +- 1 lanes (I = 2,
+    a compaction's lanes a thread, and 8, a count's; k = 1, 3: a tile's
+    edge, the ragged last tile) with random lane words, against the plain
+    version: compacted into a stage of half the width with more live lanes
+    than it holds, with none and with every lane alive, and counted (no
+    source)."""
+    import dataclasses
+
+    from compseed_tpu_torch.ops import lockstep_cases
+    first = next(c for _, c in _walk_calls(dev, bench, dtype)
+                 if c.src is not None)
+    gen = torch.Generator(device=dev).manual_seed(25)
+    for n in sorted({256 * items * k + d for items in (2, 8) for k in (1, 3)
+                     for d in (-1, 1)}):
+        w = n // 2
+        words = {k: torch.randint(-1000, 1000, (n,), generator=gen,
+                                  device=dev).to(x.dtype)
+                 for k, x in first.src.items() if k != "alive"}
+        for p_alive in (0.8, 0.0, 1.0):
+            alive = torch.rand(n, generator=gen, device=dev) < p_alive
+            src = dict(words, alive=alive)
+            live = int(alive.sum())
+            compact = dataclasses.replace(
+                first, width=n, w=w, st=None, src=src, live_in=live,
+                fit=w // 3)
+            count = dataclasses.replace(
+                first, width=n, w=n, st=src, src=None, live_in=None,
+                fit=n // 3)
+            for call in (compact, count):
+                assert lockstep_cases.entry_vs_plain(call) == 0, \
+                    (n, p_alive, call.src is not None)
+
+
+@pytest.mark.parametrize("dtype", ["int32", "int64"])
+def test_walk_stage_entry_epoch_across_a_stage_on_card(dev, bench, dtype):
+    """The epoch word across a call's first stage and the next: on all_off's
+    first stage, the entry counting its lanes (no ticket, no look-back)
+    and a segment, then the next stage's compacting entry (a look-back
+    over status words tagged with the epoch), twice over the same words:
+    each entry advances the epoch by one, and the lanes, live word and t
+    equal the plain version's."""
+    import ctypes as ct
+
+    from compseed_tpu_torch.ops import lockstep_cases, lockstep_cuda
+    from compseed_tpu_torch.ops import seedscan as ss
+    calls = [c for name, c in _walk_calls(dev, bench, dtype)
+             if name == "all_off"]
+    first = calls[0]
+    assert first.src is None
+    lp = lockstep_cuda.WalkLoop(first.fm, first.L, first.max_steps,
+                                first.qflat, first.rwflat, first.t0,
+                                first.width)
+    sc = lp.sc.view(torch.int32)
+    for rep in range(2):
+        st = lp.lanes(first.st)
+        lp._point(st, first.fit, None)
+        e0 = int(sc[2])
+        lockstep_cuda._launch("walk_stage_entry_kernel", lp.dev, lp.args)
+        assert int(sc[2]) == e0 + 1 and int(sc[1]) == 0
+        assert int(lp.live) == min(int(first.st["alive"].sum()),
+                                   first.w)
+        args = (ct.c_longlong * len(lp.args))(*lp.args)
+        args[lp.AT["loop"]] = 0
+        start = {n: x.clone() for n, x in st.items()}
+        lockstep_cuda._launch("walk_stage_kernel", lp.dev, args)
+        want, _ = ss._walk_stage_plain(
+            first.fm, first.qflat, first.L,
+            min(first.max_steps, first.t0 + lockstep_cuda.MAX_SEG),
+            start, first.t0, 0, first.rwflat)
+        for n in want:
+            assert torch.equal(st[n], want[n]), (rep, n)
+        src = dict(st)
+        src.setdefault("steps", torch.zeros_like(st["rid"]))
+        w = max(1, int(src["alive"].sum()) // 2)
+        nxt = lp.empty_lanes(w)
+        lp.live.fill_(int(src["alive"].sum()))
+        lp._point(nxt, 0, src)
+        lockstep_cuda._launch("walk_stage_entry_kernel", lp.dev, lp.args)
+        assert int(sc[2]) == e0 + 2 and int(sc[1]) == 0
+        plain = lockstep_cases.walk_entry_plain(src, w)
+        for n in plain:
+            assert torch.equal(nxt[n], plain[n]), (rep, n)
+        assert int(lp.live) == int(plain["alive"].sum())
+        lp.t.fill_(first.t0)
 
 
 @pytest.mark.parametrize("dtype", ["int32", "int64"])

@@ -307,3 +307,65 @@ def test_entry_tile_matches_source():
          for k in ("kEntryBlock", "kEntryItems")}
     assert n["kEntryBlock"] * n["kEntryItems"] == cuda_lib.ENTRY_TILE
     assert n["kEntryBlock"] % 32 == 0 and n["kEntryBlock"] <= 1024
+
+
+@pytest.fixture(scope="module")
+def stage_twin(tmp_path_factory):
+    """csrc/lockstep.cu built with g++ into its host loops (the walk stage
+    entry's twin, walk_stage_entry_host)."""
+    from compseed_tpu_torch.ops import lockstep_cases
+    return lockstep_cases.HostTwin(
+        str(tmp_path_factory.mktemp("lockstep") / "liblockstep_host.so"))
+
+
+def test_walk_stage_entry_host_counts_the_epoch(stage_twin, idx):
+    """walk_stage_entry_kernel's host twin keeps the look-back's epoch
+    word as the kernel does in both forms: a count (no source: the
+    stage's live lanes counted, which on the card takes no ticket and no
+    look-back) and a compaction advance sc's epoch by one each; neither
+    leaves a ticket or a retire count behind; the live word is min(live,
+    w), go the loop's test, and a compaction's lanes are the plain
+    version's (lockstep_cases.walk_entry_plain)."""
+    from compseed_tpu_torch.ops import lockstep_cases, lockstep_cuda
+    _, td = idx
+    rng = np.random.default_rng(12)
+    w, n, fit = 200, 300, 40
+    lp = lockstep_cuda.WalkLoop(td, 16, 40, torch.zeros(64, dtype=torch.uint8),
+                                None, 3, n)
+    sc = lp.sc.view(I32)
+    sc[2] = 7                                   # an epoch already counted
+
+    def lanes(m, p_alive):
+        st = {k: torch.from_numpy(rng.integers(-50, 50, m)).to(
+            lp._dtype(k)) for k in lockstep_cuda.LANE_KEYS if k != "alive"}
+        st["alive"] = torch.from_numpy(rng.random(m) < p_alive)
+        return st
+
+    def entry(st, src=None):
+        lp._point(st, fit, src)
+        assert stage_twin.lib.walk_stage_entry_host(ct.addressof(lp.args)) \
+            == 0
+        return int(sc[0]), int(lp.go)
+
+    epoch = 7
+    for form, p_alive in (("count", 0.5), ("compact", 0.5), ("count", 0.0),
+                          ("compact", 1.0), ("count", 1.0)):
+        if form == "count":
+            st = lanes(w, p_alive)
+            want = {k: v.clone() for k, v in st.items()}
+            live = int(st["alive"].sum())
+            got = entry(st)
+        else:
+            src = lanes(n, p_alive)
+            live = int(src["alive"].sum())
+            lp.live.fill_(live)
+            st = lp.empty_lanes(w)
+            want = lockstep_cases.walk_entry_plain(src, w)
+            got = entry(st, src)
+        epoch += 1
+        kept = min(live, w)
+        assert got == (kept, int(kept > fit)), form
+        assert int(sc[2]) == epoch and int(sc[1]) == 0, form
+        assert int(lp.sc[2]) == 0, form          # the retire word
+        for k in want:
+            assert torch.equal(st[k], want[k]), (form, k)

@@ -16,7 +16,11 @@ _seed_strategy_one), at int32 and int64 index types:
                         boundary of the kernel's groups (a lane's 8 or
                         32 threads, slot j in thread j % group), every
                         output byte poisoned first;
-  smem_strategy_kernel  the round-3 scan with hits, MMEM3 forced to 1.
+  smem_strategy_kernel  the round-3 scan with hits, MMEM3 forced to 1,
+                        its rows ranked as the kernel ranks them
+                        (row_read, row_pc) and by occ_row;
+                        row_read / row_pc against occ_row at the table's
+                        edges.
 
 Also: a whole BatchSeeder.run_flat over tests/fixtures/reads.fq (2,000
 reads as one chunk) with the dispatch sent to the host loops, equal to the
@@ -298,6 +302,64 @@ def test_strategy_host_defaults_vs_jax(twin, idx, lanes):
     got = twin.strategy(td, L, opt.min_seed_len, int(opt.max_mem_intv),
                         _t(qarr), _t(act), tsmem.MMEM3).numpy()
     assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("rows", [False, True],
+                         ids=["thread-ranks", "row-reads"])
+@pytest.mark.parametrize("case", ["hits", "hits-mmem3-1", "defaults"])
+def test_strategy_host_by_both_ranks_vs_plain_and_jax(twin, idx, lanes,
+                                                      monkeypatch, case,
+                                                      rows):
+    """strategy_lane ranked by ThreadRanks (occ_row: a row's quarters one
+    after another) and by ThreadRowRanks (row_read and row_pc: a row's
+    three quarters read, then ranked, as the kernel's pair ranks each
+    row) == _seed_strategy_plain == JAX _seed_strategy_one on the
+    fixture lanes (Ns in the reads, inactive pads): with hits (max_intv
+    raised), with MMEM3 forced to 1 (the overflow), and at the default
+    options; int32 and int64 positions."""
+    jd, td = idx
+    qarr, _, _, act = lanes
+    opt = MemOptions()
+    mmem3 = 1 if case == "hits-mmem3-1" else tsmem.MMEM3
+    _set_caps(monkeypatch, MMEM3=mmem3)
+    min_len, max_intv = (opt.min_seed_len, int(opt.max_mem_intv)) \
+        if case == "defaults" else (19, 200)
+    want = _jax_round3(jd, qarr, act, min_len, max_intv)
+    plain = tsmem._seed_strategy_plain(td, L, min_len, max_intv, _t(qarr),
+                                       _t(act)).numpy()
+    got = twin.strategy(td, L, min_len, max_intv, _t(qarr), _t(act), mmem3,
+                        rows=rows).numpy()
+    assert np.array_equal(plain, want)
+    assert np.array_equal(got, want)
+    assert got[:, mmem3 * 5].any() and not got[~act].any()
+    assert bool(got[:, -1].any()) == (case == "hits-mmem3-1")
+
+
+def test_row_read_equals_occ_row(twin, idx):
+    """row_pc(row_read(k)) (the round-3 kernel's reads and ranks of a
+    row) == occ_row (ThreadRanks') at k = -1 (zero), at the primary and
+    beside it, at block offsets 63 and 64 (the last rank of plane quarter 1, the first
+    of quarter 2), at the table's last position, and under fill_oob at the
+    blocks n_rows and -n_rows - 1 (the all-ones row; a position past the
+    primary counts one less) and -n_rows (row 0 again); without
+    fill_oob a block outside the table is a fault, as on the card."""
+    import dataclasses
+    _, td = idx
+    n, pr = int(td.n_rows), int(td.primary)
+    k = [-1, pr - 1, pr, pr + 1, 63, 64, 128 * 5 + 63, 128 * 5 + 64,
+         128 * 7 + 127, 128 * (n - 1) + 64, 128 * (n - 1) + 127]
+    got, want = twin.row_reads(td, np.array(k))
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert not got[0][0].any() and not got[1][0]          # k = -1
+    oob = dataclasses.replace(td, fill_oob=True)
+    ko = [128 * n + 1, 128 * n + 64, -128 * n - 1, -128 * n, -128 * n + 63]
+    got, want = twin.row_reads(oob, np.array(ko))
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert (got[0][:3] == 0xFFFFFFFF).all()              # the all-ones row
+    row0 = twin.row_reads(td, np.array([0]))[0][0][0]
+    assert np.array_equal(got[0][3], row0)
+    with pytest.raises(RuntimeError):
+        twin.row_reads(td, np.array([128 * n + 1]))
 
 
 def test_host_loops_refuse_bad_caps(twin, idx, lanes):
